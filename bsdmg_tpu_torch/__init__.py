@@ -1,0 +1,13 @@
+"""bsdmg_tpu_torch: the PyTorch + CUDA port of bsdmg_tpu for NVIDIA Hopper.
+
+A second package beside the JAX one, with the same module paths: the
+sphere-traced render of the reference scene runs through a hand-written CUDA
+kernel (``ops/cuda/render_kernel.py``, source in ``csrc/``) and its plain
+PyTorch twin. The package imports torch and numpy, never jax.
+"""
+
+from bsdmg_tpu_torch.config import MarchConfig, RenderConfig
+
+__version__ = "0.1.0"
+
+__all__ = ["MarchConfig", "RenderConfig", "__version__"]

@@ -1,0 +1,263 @@
+// K1: fused sphere trace + shade of the reference scenes, one thread per pixel.
+//
+// Replaces the TPU kernel bsdmg_tpu/ops/pallas/render_kernel.py::_trace_kernel
+// with shade=True: the single pallas_call (render_kernel.py:526) of the JAX
+// package's default render path, render_image_pallas -> _render_fused_call.
+// Per ray it runs the slab cull (_slab_cull), the exact sphere-trace march
+// (_march, omega = 1), fd4 normals (_fd_normal), the Lambert two-colour mix
+// (ops/shade.py::shade_planes) and the ACES tonemap (_aces_plane).
+//
+// What bounds it on Hopper: FP32 and SFU work per march step (one scene SDF
+// is two sets of 12 capsules, a sphere and a smooth-min: ~300 FP32
+// operations and 3 sqrt), and warp divergence, since a warp runs as long as
+// its slowest ray and silhouette rays take up to 256 steps. Memory traffic
+// is small: 28 B read (origin, direction, cone) and 12 B written (RGB) per
+// ray, 52 B with the depth/steps/outcome planes.
+//
+// What the design does about it: each warp covers a compact 8x4 pixel patch
+// (the TPU path's 32x32 swizzle, render_kernel.py:834-854, stood in for the
+// same thing), so its rays finish in similar step counts; each ray leaves
+// the loop as soon as it resolves; the scene descriptor is a by-value kernel
+// parameter, so every thread reads the same constant-bank words; the fd4
+// stencil is a rolled loop around one inlined SDF, which keeps code size
+// and registers down. Over-relaxation, per-ray near/far scene splits and
+// block retirement are not ported: by the JAX package's tests they change no
+// pixel, and making this kernel fast is later work.
+//
+// Numerics: built without --use_fast_math (IEEE sqrtf and division) and
+// with -fmad=false (ops/cuda/build.py). Every float constant arrives as the
+// float32 the plain PyTorch twin (bsdmg_tpu_torch/ops/cuda/render_kernel.py)
+// computes with, and each sum and product runs in the JAX kernel's order, so
+// the kernel's planes and image equal the twin's bit for bit. With FMA
+// contraction, silhouette rays flip the hit test `dist <= cd + eps` and end
+// with other step counts.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#define BSDMG_SEGMENTS 12
+
+enum { COLLISION = 0, STEP_LIMIT = 1, DEPTH_LIMIT = 2 };
+
+// Axis-aligned capsules of one radius. Segment i runs along axis[i] from
+// a0[i] to a0[i] + length[i]; p1[i] and p2[i] are its coordinates on the
+// lower and the higher of the two other axes.
+struct CapsuleSet {
+  int axis[BSDMG_SEGMENTS];
+  float a0[BSDMG_SEGMENTS];
+  float length[BSDMG_SEGMENTS];
+  float p1[BSDMG_SEGMENTS];
+  float p2[BSDMG_SEGMENTS];
+  float radius;
+};
+
+// Mirrors _SceneDescC in ops/cuda/render_kernel.py field by field.
+struct SceneDesc {
+  CapsuleSet object;  // box skeleton of the CSG object
+  CapsuleSet frame;   // bounding-box wireframe (used when has_frame)
+  int has_frame;
+  int has_transform;
+  float sphere_radius;
+  float smooth_k;
+  float inv_k;  // float32(1/k), rounded from float64 like the JAX constant
+  float k_6;    // float32(k/6)
+  float inv_rotation[9];  // rows of R^T, applied after the translation
+  float translation[3];
+  float lo[3];  // scene bounds
+  float hi[3];
+  float cull_center[3];  // centre and half-diagonal of the bounds
+  float cull_radius;
+  float slack;  // the SDF's under-estimation bound
+  float collision_distance;
+  float depth_limit;
+  float cull_depth;  // depth of a culled ray: 1.01 * depth_limit
+  float normal_epsilon;
+  int step_limit;
+  float light[3];
+  float color_low[3];
+  float color_delta[3];
+  float aces_m1[9];
+  float aces_m2[9];
+  float aces_curve[5];
+};
+
+__device__ __forceinline__ float pick(int axis, float x, float y, float z) {
+  return axis == 0 ? x : (axis == 1 ? y : z);
+}
+
+// min over the segments of the squared distance, then one sqrt
+__device__ __forceinline__ float capsule_set(const CapsuleSet& c, float x, float y, float z) {
+  float best = CUDART_INF_F;
+#pragma unroll
+  for (int i = 0; i < BSDMG_SEGMENTS; ++i) {
+    const int a = c.axis[i];
+    const float r = pick(a, x, y, z) - c.a0[i];
+    const float e = r - fminf(fmaxf(r, 0.0f), c.length[i]);
+    const float o1 = pick(a == 0 ? 1 : 0, x, y, z) - c.p1[i];
+    const float o2 = pick(a == 2 ? 1 : 2, x, y, z) - c.p2[i];
+    best = fminf(best, (e * e + o1 * o1) + o2 * o2);
+  }
+  return sqrtf(best) - c.radius;
+}
+
+// ops/pallas/csdf.py::reference_render_scene_csdf
+__device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y, float z) {
+  float ox = x, oy = y, oz = z;
+  if (s.has_transform) {
+    const float tx = x - s.translation[0];
+    const float ty = y - s.translation[1];
+    const float tz = z - s.translation[2];
+    ox = s.inv_rotation[0] * tx + s.inv_rotation[1] * ty + s.inv_rotation[2] * tz;
+    oy = s.inv_rotation[3] * tx + s.inv_rotation[4] * ty + s.inv_rotation[5] * tz;
+    oz = s.inv_rotation[6] * tx + s.inv_rotation[7] * ty + s.inv_rotation[8] * tz;
+  }
+  const float skel = capsule_set(s.object, ox, oy, oz);
+  const float sph = sqrtf(ox * ox + oy * oy + oz * oz) - s.sphere_radius;
+  const float h = fmaxf(s.smooth_k - fabsf(skel - sph), 0.0f) * s.inv_k;
+  float d = fminf(skel, sph) - h * h * h * s.k_6;
+  if (s.has_frame) d = fminf(d, capsule_set(s.frame, x, y, z));
+  return d;
+}
+
+// one axis of the slab test against [lo - margin, hi + margin]
+__device__ __forceinline__ void slab_axis(float o, float d, float lo, float hi, float margin,
+                                          float& t_near, float& t_far) {
+  const float d_safe = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
+  const float inv = 1.0f / d_safe;
+  const float t1 = ((lo - margin) - o) * inv;
+  const float t2 = ((hi + margin) - o) * inv;
+  t_near = fminf(t1, t2);
+  t_far = fmaxf(t1, t2);
+}
+
+__device__ __forceinline__ float aces_curve(const SceneDesc& s, float v) {
+  return (v * (v + s.aces_curve[0]) - s.aces_curve[1]) /
+         (v * (s.aces_curve[2] * v + s.aces_curve[3]) + s.aces_curve[4]);
+}
+
+__device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+
+__global__ void __launch_bounds__(128)
+render_kernel(const SceneDesc s, const float* __restrict__ origins,
+              const float* __restrict__ directions, const float* __restrict__ cone,
+              float* __restrict__ rgb, float* __restrict__ depth_out,
+              int* __restrict__ steps_out, int* __restrict__ outcome_out, int h, int w) {
+  // a block covers 16x8 pixels, each of its 4 warps an 8x4 patch
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int px = blockIdx.x * 16 + (warp & 1) * 8 + (lane & 7);
+  const int py = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
+  if (px >= w || py >= h) return;
+  const long long i = (long long)py * w + px;
+
+  const float ox = origins[3 * i], oy = origins[3 * i + 1], oz = origins[3 * i + 2];
+  const float dx = directions[3 * i], dy = directions[3 * i + 1], dz = directions[3 * i + 2];
+  const float c = cone[i];
+  const float eps = s.collision_distance;
+
+  // slab cull (render_kernel.py:89-124, :355-368)
+  const float ex = ox - s.cull_center[0], ey = oy - s.cull_center[1], ez = oz - s.cull_center[2];
+  const float reach = ((sqrtf(ex * ex + ey * ey + ez * ez) + s.cull_radius) + s.slack) + eps;
+  const float t_star = c < 0.5f ? reach / fmaxf(1.0f - c, 0.5f) : s.depth_limit;
+  const float margin = (c * fminf(t_star, s.depth_limit) + eps) + s.slack;
+  float nx, fx, ny, fy, nz, fz;
+  slab_axis(ox, dx, s.lo[0], s.hi[0], margin, nx, fx);
+  slab_axis(oy, dy, s.lo[1], s.hi[1], margin, ny, fy);
+  slab_axis(oz, dz, s.lo[2], s.hi[2], margin, nz, fz);
+  const float tmin = fmaxf(nx, fmaxf(ny, nz));
+  const float tmax = fminf(fx, fminf(fy, fz));
+  const bool miss = tmax < fmaxf(tmin, 0.0f);
+  const float limit = fminf(fmaxf(tmax, 0.0f), s.depth_limit);
+
+  // exact sphere trace from depth 0 (render_kernel.py:170-190)
+  float depth = 0.0f;
+  int steps = 0;
+  int outcome = STEP_LIMIT;
+  if (miss) {
+    depth = s.cull_depth;
+    outcome = DEPTH_LIMIT;
+  } else {
+    for (;;) {
+      const float cd = c * depth;
+      const float dist = scene_sdf(s, ox + depth * dx, oy + depth * dy, oz + depth * dz);
+      if (dist <= cd + eps) {
+        outcome = COLLISION;
+        break;
+      }
+      depth = (depth + dist) - cd;
+      if (depth > limit) {
+        outcome = DEPTH_LIMIT;
+        break;
+      }
+      if (++steps >= s.step_limit) break;
+    }
+  }
+
+  // shade (ops/shade.py::shade_planes)
+  float r, g, b;
+  if (outcome == COLLISION) {
+    const float px3 = ox + depth * dx, py3 = oy + depth * dy, pz3 = oz + depth * dz;
+    const float e1 = s.normal_epsilon, e2 = 2.0f * s.normal_epsilon;
+    float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+#pragma unroll 1
+    for (int a = 0; a < 3; ++a) {
+      // -f(p+2e) + 8 f(p+e) - 8 f(p-e) + f(p-2e), summed in that order
+      float acc = 0.0f;
+#pragma unroll 1
+      for (int k = 0; k < 4; ++k) {
+        const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
+        const float f = scene_sdf(s, a == 0 ? px3 + off : px3, a == 1 ? py3 + off : py3,
+                                  a == 2 ? pz3 + off : pz3);
+        acc = k == 0 ? -f : (k == 1 ? acc + 8.0f * f : (k == 2 ? acc - 8.0f * f : acc + f));
+      }
+      if (a == 0) gx = acc;
+      else if (a == 1) gy = acc;
+      else gz = acc;
+    }
+    const float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-24f));
+    const float t = (((gx * inv) * s.light[0] + (gy * inv) * s.light[1]) +
+                     (gz * inv) * s.light[2] + 1.0f) * 0.5f;
+    r = s.color_low[0] + t * s.color_delta[0];
+    g = s.color_low[1] + t * s.color_delta[1];
+    b = s.color_low[2] + t * s.color_delta[2];
+  } else {
+    r = g = b = outcome == STEP_LIMIT ? 1.0f : 0.0f;
+  }
+
+  // ACES (render_kernel.py::_aces_plane)
+  const float vr = aces_curve(s, s.aces_m1[0] * r + s.aces_m1[1] * g + s.aces_m1[2] * b);
+  const float vg = aces_curve(s, s.aces_m1[3] * r + s.aces_m1[4] * g + s.aces_m1[5] * b);
+  const float vb = aces_curve(s, s.aces_m1[6] * r + s.aces_m1[7] * g + s.aces_m1[8] * b);
+  rgb[3 * i] = clip01(s.aces_m2[0] * vr + s.aces_m2[1] * vg + s.aces_m2[2] * vb);
+  rgb[3 * i + 1] = clip01(s.aces_m2[3] * vr + s.aces_m2[4] * vg + s.aces_m2[5] * vb);
+  rgb[3 * i + 2] = clip01(s.aces_m2[6] * vr + s.aces_m2[7] * vg + s.aces_m2[8] * vb);
+  if (depth_out != nullptr) {
+    depth_out[i] = depth;
+    steps_out[i] = steps;
+    outcome_out[i] = outcome;
+  }
+}
+
+extern "C" {
+
+// Launches K1 on `stream` over an h x w image. origins and directions are
+// (h, w, 3), cone (h, w), rgb (h, w, 3), all float32 on the device; depth,
+// steps and outcome are (h, w) planes, written when depth is not null.
+// Returns the cudaError_t of the launch.
+int bsdmg_render(const SceneDesc* desc, const float* origins, const float* directions,
+                 const float* cone, float* rgb, float* depth, int* steps, int* outcome,
+                 int h, int w, void* stream) {
+  const dim3 block(128);
+  const dim3 grid((w + 15) / 16, (h + 7) / 8);
+  render_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      *desc, origins, directions, cone, rgb, depth, steps, outcome, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bsdmg_scene_desc_size(void) { return static_cast<int>(sizeof(SceneDesc)); }
+
+const char* bsdmg_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,17 @@
+from bsdmg_tpu_torch.models.scenes import (
+    SCENES,
+    Scene,
+    default_object_params,
+    get_scene,
+    reference_object,
+    reference_render_scene,
+)
+
+__all__ = [
+    "SCENES",
+    "Scene",
+    "default_object_params",
+    "get_scene",
+    "reference_object",
+    "reference_render_scene",
+]

@@ -1,0 +1,161 @@
+"""The reference scenes.
+
+Port of the reference part of ``bsdmg_tpu/models/scenes.py``:
+
+* ``sd_obj`` (cuda/modules/common.cu:222-226): ``smooth_min`` of a box
+  skeleton (center 0, size (3, 1, 0.5), line width 0.1) and a sphere of
+  radius 1, smoothing k = 0.5, under an optional rigid object transform;
+* ``sd_scene`` (cuda/modules/compute_render.cu:3-19): ``sd_obj`` unioned
+  with the mesh-generation bounding-box wireframe (size 5, line width 0.05).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from bsdmg_tpu_torch.sdf import primitives as sdf
+
+Params = dict[str, torch.Tensor]
+SceneFn = Callable[[Params, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """An SDF scene: ``sdf(params, p)`` on ``(..., 3)`` points plus its
+    default params. ``reference_compat`` and ``bb_size`` record how the
+    scene was built, so the scene compiler (``ops/cuda/csdf.py``) bakes the
+    same geometry."""
+
+    name: str
+    sdf: SceneFn
+    params: Params
+    reference_compat: bool = True
+    bb_size: float = 5.0
+
+    def bind(self, params: Params | None = None) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Close over ``params`` (default params if None)."""
+        bound = self.params if params is None else params
+        scene_fn = self.sdf
+        return lambda p: scene_fn(bound, p)
+
+
+def default_object_params(device: torch.device | str = "cpu") -> Params:
+    """Parameters of the reference object (common.cu:222-226), float32.
+
+    ``object_center``/``object_rotation`` (quaternion w, x, y, z) are the
+    JAX package's rigid-transform extension; the defaults are the identity."""
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    return {
+        "skeleton_center": f32([0.0, 0.0, 0.0]),
+        "skeleton_size": f32([3.0, 1.0, 0.5]),
+        "skeleton_line_width": f32(0.1),
+        "sphere_radius": f32(1.0),
+        "smooth_k": f32(0.5),
+        "object_center": f32([0.0, 0.0, 0.0]),
+        "object_rotation": f32([1.0, 0.0, 0.0, 0.0]),
+    }
+
+
+def _quat_inv_rotate_c(q, x, y, z):
+    """Rotate coordinate planes by the inverse of quaternion ``q`` (w,x,y,z),
+    normalised first."""
+    inv = torch.rsqrt(
+        torch.clamp_min(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3], 1e-24)
+    )
+    w, qx, qy, qz = q[0] * inv, q[1] * inv, q[2] * inv, q[3] * inv
+    # rows of R(q); the inverse rotation applies R^T, i.e. columns
+    r00, r01, r02 = 1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - w * qz), 2 * (qx * qz + w * qy)
+    r10, r11, r12 = 2 * (qx * qy + w * qz), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - w * qx)
+    r20, r21, r22 = 2 * (qx * qz - w * qy), 2 * (qy * qz + w * qx), 1 - 2 * (qx * qx + qy * qy)
+    return (
+        r00 * x + r10 * y + r20 * z,
+        r01 * x + r11 * y + r21 * z,
+        r02 * x + r12 * y + r22 * z,
+    )
+
+
+def _object_space_c(params: Params, x, y, z):
+    """Map world coordinate planes into the object's local frame."""
+    oc = params.get("object_center")
+    if oc is not None:
+        x, y, z = x - oc[0], y - oc[1], z - oc[2]
+    oq = params.get("object_rotation")
+    if oq is not None:
+        x, y, z = _quat_inv_rotate_c(oq, x, y, z)
+    return x, y, z
+
+
+def _sd_obj(params: Params, p: torch.Tensor, *, reference_compat: bool = True) -> torch.Tensor:
+    x, y, z = _object_space_c(params, p[..., 0], p[..., 1], p[..., 2])
+    p = torch.stack([x, y, z], dim=-1)
+    a1 = sdf.sd_box_skeleton(
+        p,
+        params["skeleton_center"],
+        params["skeleton_size"],
+        params["skeleton_line_width"],
+        reference_compat=reference_compat,
+    )
+    # the reference's sphere is pinned at the origin (common.cu:224)
+    a2 = sdf.sd_sphere(p, 0.0, params["sphere_radius"])
+    return sdf.smooth_min(a1, a2, params["smooth_k"])
+
+
+def reference_object(
+    *, reference_compat: bool = True, device: torch.device | str = "cpu"
+) -> Scene:
+    """The mesh-generation target object ``sd_obj``."""
+    fn = lambda params, p: _sd_obj(params, p, reference_compat=reference_compat)
+    return Scene(
+        "reference_object", fn, default_object_params(device), reference_compat
+    )
+
+
+def reference_render_scene(
+    *,
+    bb_size: float = 5.0,
+    reference_compat: bool = True,
+    device: torch.device | str = "cpu",
+) -> Scene:
+    """The render scene: object + bounding-box wireframe (compute_render.cu:3-19)."""
+
+    def fn(params: Params, p: torch.Tensor) -> torch.Tensor:
+        sd = _sd_obj(params, p, reference_compat=reference_compat)
+        frame = sdf.sd_box_skeleton(
+            p,
+            torch.zeros(3, dtype=torch.float32, device=p.device),
+            torch.full((3,), bb_size, dtype=torch.float32, device=p.device),
+            0.05,
+            reference_compat=reference_compat,
+        )
+        return torch.minimum(sd, frame)
+
+    return Scene(
+        "reference_render_scene", fn, default_object_params(device),
+        reference_compat, bb_size,
+    )
+
+
+SCENES: dict[str, Callable[..., Scene]] = {
+    "reference_object": reference_object,
+    "reference_render_scene": reference_render_scene,
+}
+
+# scenes of the JAX package's registry that this package does not have yet
+NOT_PORTED = ("sphere", "box", "mandelbulb", "wrapped_object")
+
+
+def get_scene(name: str, **kwargs) -> Scene:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"scene {name!r} is not ported to bsdmg_tpu_torch yet; "
+            f"available: {sorted(SCENES)}"
+        )
+    if name not in SCENES:
+        raise KeyError(f"unknown scene {name!r}; available: {sorted(SCENES)}")
+    return SCENES[name](**kwargs)

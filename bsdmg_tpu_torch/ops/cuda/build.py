@@ -1,0 +1,88 @@
+"""Build and load the package's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, which the kernel wrappers load with ``ctypes``. The build runs at
+first use, in ``bsdmg_tpu_torch/_build/``, and again only when a source is
+newer than the library. No header of PyTorch is included, so a build takes
+seconds, not minutes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+LIBRARY = BUILD_DIR / "libbsdmg_kernels.so"
+
+#: Hopper only: the ``a`` keeps sm_90a-only instructions available
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+#: No FMA contraction: every ``a*b + c`` rounds twice, as the plain PyTorch
+#: versions do. Measured on an H100 (700 W) at 1920x1080: K1 then equals its
+#: plain version bit for bit and takes 0.61 ms; contracted, it took 0.55 ms
+#: and 38 rays ended with another step count.
+NUMERIC_FLAGS = ("-fmad=false",)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _dependencies() -> list[Path]:
+    return sources() + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+
+
+def build_command(output: Path) -> list[str]:
+    return [
+        nvcc_path(), *ARCH_FLAGS, *NUMERIC_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-o", str(output), *map(str, sources()),
+    ]
+
+
+def build() -> Path:
+    """Compile the kernels unless the library is newer than every source;
+    returns the library's path. Raises with nvcc's stderr on failure."""
+    if LIBRARY.exists():
+        built = LIBRARY.stat().st_mtime
+        if all(dep.stat().st_mtime < built for dep in _dependencies()):
+            return LIBRARY
+    nvcc = nvcc_path()
+    if not Path(nvcc).exists():
+        raise RuntimeError(
+            f"nvcc not found (looked on PATH and at {nvcc}); the CUDA kernels "
+            "are built from bsdmg_tpu_torch/csrc at first use and need the "
+            "CUDA toolkit"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name, then rename: a concurrent loader never
+    # sees a half-written library
+    partial = BUILD_DIR / f"{LIBRARY.name}.{os.getpid()}.partial"
+    proc = subprocess.run(build_command(partial), capture_output=True, text=True)
+    if proc.returncode != 0:
+        partial.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
+        )
+    os.replace(partial, LIBRARY)
+    return LIBRARY
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the kernel library (once per process)."""
+    return ctypes.CDLL(str(build()))

@@ -1,0 +1,9 @@
+from bsdmg_tpu_torch.sdf.normals import normal_fd4
+from bsdmg_tpu_torch.sdf.primitives import (
+    sd_box_skeleton,
+    sd_line,
+    sd_sphere,
+    smooth_min,
+)
+
+__all__ = ["normal_fd4", "sd_box_skeleton", "sd_line", "sd_sphere", "smooth_min"]
