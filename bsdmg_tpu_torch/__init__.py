@@ -2,12 +2,14 @@
 
 A second package beside the JAX one, with the same module paths: the
 sphere-traced render of the reference scene runs through a hand-written CUDA
-kernel (``ops/cuda/render_kernel.py``, source in ``csrc/``) and its plain
+kernel (``ops/cuda/render_kernel.py``, source in ``csrc/``), and mesh
+generation (refine + marching cubes) through two more
+(``ops/cuda/mc_kernel.py``, ``ops/cuda/mesh_kernel.py``); each has a plain
 PyTorch twin. The package imports torch and numpy, never jax.
 """
 
-from bsdmg_tpu_torch.config import MarchConfig, RenderConfig
+from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig, RenderConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["MarchConfig", "RenderConfig", "__version__"]
+__all__ = ["MarchConfig", "MeshGenConfig", "RenderConfig", "__version__"]

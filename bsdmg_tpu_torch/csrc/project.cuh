@@ -1,0 +1,74 @@
+// Newton projection onto the isosurface and fd4 normals, shared by K6
+// (mc_kernel.cu) and K7 (project_kernel.cu). Twins: _newton and
+// _unit_normal_fd4 in bsdmg_tpu_torch/ops/cuda/mesh_kernel.py.
+
+#pragma once
+
+#include "scene_sdf.cuh"
+
+// 4th-order central-difference gradient, unnormalised, 12 evaluations
+// (ops/pallas/mesh_kernel.py::_grad_fd4): -f(p+2e) + 8 f(p+e) - 8 f(p-e) +
+// f(p-2e), summed in that order. A rolled loop around one inlined SDF keeps
+// code size and registers down.
+__device__ __forceinline__ void fd4_grad(const SceneDesc& s, float x, float y, float z, float eps,
+                                         float& gx, float& gy, float& gz) {
+  const float e1 = eps, e2 = 2.0f * eps;
+  gx = gy = gz = 0.0f;
+#pragma unroll 1
+  for (int a = 0; a < 3; ++a) {
+    float acc = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
+      const float f = scene_sdf(s, a == 0 ? x + off : x, a == 1 ? y + off : y,
+                                a == 2 ? z + off : z);
+      acc = k == 0 ? -f : (k == 1 ? acc + 8.0f * f : (k == 2 ? acc - 8.0f * f : acc + f));
+    }
+    if (a == 0) gx = acc;
+    else if (a == 1) gy = acc;
+    else gz = acc;
+  }
+}
+
+// 1/|g| with the JAX kernels' 1e-24 floor; a correctly rounded sqrt and
+// division (not rsqrtf), so the PyTorch twin can equal it bit for bit
+__device__ __forceinline__ float inv_norm(float gx, float gy, float gz) {
+  return 1.0f / sqrtf(fmaxf((gx * gx + gy * gy) + gz * gz, 1e-24f));
+}
+
+// fd4 unit normal at (x, y, z)
+__device__ __forceinline__ void unit_normal_fd4(const SceneDesc& s, float x, float y, float z,
+                                                float eps, float& nx, float& ny, float& nz) {
+  float gx, gy, gz;
+  fd4_grad(s, x, y, z, eps, gx, gy, gz);
+  const float inv = inv_norm(gx, gy, gz);
+  nx = gx * inv;
+  ny = gy * inv;
+  nz = gz * inv;
+}
+
+// At most `iters` Newton steps p <- p - sd * g / |g|, g the analytic
+// gradient (use_grad) or the fd4 one. A point stops after the step at which
+// |sd| <= tol, as each lane of the JAX kernels does
+// (ops/pallas/mesh_kernel.py::_project_kernel). Returns the steps taken.
+__device__ __forceinline__ int newton_project(const SceneDesc& s, float& x, float& y, float& z,
+                                              int iters, float tol, float eps, int use_grad) {
+  int i = 0;
+#pragma unroll 1
+  while (i < iters) {
+    float sd, gx, gy, gz;
+    if (use_grad) {
+      scene_sdf_grad(s, x, y, z, sd, gx, gy, gz);
+    } else {
+      sd = scene_sdf(s, x, y, z);
+      fd4_grad(s, x, y, z, eps, gx, gy, gz);
+    }
+    const float inv = inv_norm(gx, gy, gz);
+    x = x - (sd * gx) * inv;
+    y = y - (sd * gy) * inv;
+    z = z - (sd * gz) * inv;
+    ++i;
+    if (!(fabsf(sd) > tol)) break;
+  }
+  return i;
+}

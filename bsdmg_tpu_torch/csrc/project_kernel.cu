@@ -1,0 +1,60 @@
+// K7: Newton projection of edge points onto the isosurface, one thread per
+// point.
+//
+// Replaces the TPU kernel bsdmg_tpu/ops/pallas/mesh_kernel.py::_project_kernel
+// (the pallas_call at mesh_kernel.py:162 of project_edges_pallas), which the
+// JAX package's staged marching-cubes path runs (ops/marching_cubes.py:428,
+// `mesh --interpolate-edges`). Per point: at most `iters` Newton steps with
+// the analytic gradient (use_grad) or the fd4 one, a point stopping after
+// the step at which |sd| <= tol (inactive points do not move), then the fd4
+// unit normal at the final point, for every point as in the JAX kernel.
+//
+// What bounds it on Hopper: FP32 work, the same per point as one edge of K6
+// (project.cuh); memory traffic is 16 B read and 24 B written per point.
+// What the design does about it: a thread per point, so each point leaves
+// its Newton loop on its own, where the TPU kernel ran a block until all of
+// its lanes converged. Making it fast is later work.
+//
+// Numerics: -fmad=false, no fast math, the twin's order
+// (project_edges_torch in bsdmg_tpu_torch/ops/cuda/mesh_kernel.py): the
+// outputs equal the twin's bit for bit.
+
+#include "project.cuh"
+
+__global__ void __launch_bounds__(128)
+project_kernel(const SceneDesc s, const float* __restrict__ xs, const float* __restrict__ ys,
+               const float* __restrict__ zs, const int* __restrict__ active, int m, int iters,
+               float tol, float eps, int use_grad, float* __restrict__ px,
+               float* __restrict__ py, float* __restrict__ pz, float* __restrict__ nx,
+               float* __restrict__ ny, float* __restrict__ nz) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  float x = xs[i], y = ys[i], z = zs[i];
+  if (active[i]) newton_project(s, x, y, z, iters, tol, eps, use_grad);
+  float a, b, c;
+  unit_normal_fd4(s, x, y, z, eps, a, b, c);
+  px[i] = x;
+  py[i] = y;
+  pz[i] = z;
+  nx[i] = a;
+  ny[i] = b;
+  nz[i] = c;
+}
+
+extern "C" {
+
+// Launches K7 on `stream` over m points: x, y, z (m,) float32 and active
+// (m,) int32 in, px, py, pz, nx, ny, nz (m,) float32 out, all on the device.
+// Returns the cudaError_t of the launch.
+int bsdmg_project_edges(const SceneDesc* desc, const float* x, const float* y, const float* z,
+                        const int* active, int m, int iters, float tol, float eps, int use_grad,
+                        float* px, float* py, float* pz, float* nx, float* ny, float* nz,
+                        void* stream) {
+  const dim3 block(128);
+  const dim3 grid((m + 127) / 128);
+  project_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      *desc, x, y, z, active, m, iters, tol, eps, use_grad, px, py, pz, nx, ny, nz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -8,8 +8,8 @@
 // (ops/shade.py::shade_planes) and the ACES tonemap (_aces_plane).
 //
 // What bounds it on Hopper: FP32 and SFU work per march step (one scene SDF
-// is two sets of 12 capsules, a sphere and a smooth-min: ~300 FP32
-// operations and 3 sqrt), and warp divergence, since a warp runs as long as
+// is two sets of 12 capsules in 3 factorised groups each, a sphere and a
+// smooth-min: 128 FP32 operations, 3 of them sqrt), and warp divergence, since a warp runs as long as
 // its slowest ray and silhouette rays take up to 256 steps. Memory traffic
 // is small: 28 B read (origin, direction, cone) and 12 B written (RGB) per
 // ray, 52 B with the depth/steps/outcome planes.
@@ -30,94 +30,12 @@
 // computes with, and each sum and product runs in the JAX kernel's order, so
 // the kernel's planes and image equal the twin's bit for bit. With FMA
 // contraction, silhouette rays flip the hit test `dist <= cd + eps` and end
-// with other step counts.
+// with other step counts. The scene SDF is scene_sdf.cuh's, shared with the
+// mesh kernels.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#define BSDMG_SEGMENTS 12
+#include "scene_sdf.cuh"
 
 enum { COLLISION = 0, STEP_LIMIT = 1, DEPTH_LIMIT = 2 };
-
-// Axis-aligned capsules of one radius. Segment i runs along axis[i] from
-// a0[i] to a0[i] + length[i]; p1[i] and p2[i] are its coordinates on the
-// lower and the higher of the two other axes.
-struct CapsuleSet {
-  int axis[BSDMG_SEGMENTS];
-  float a0[BSDMG_SEGMENTS];
-  float length[BSDMG_SEGMENTS];
-  float p1[BSDMG_SEGMENTS];
-  float p2[BSDMG_SEGMENTS];
-  float radius;
-};
-
-// Mirrors _SceneDescC in ops/cuda/render_kernel.py field by field.
-struct SceneDesc {
-  CapsuleSet object;  // box skeleton of the CSG object
-  CapsuleSet frame;   // bounding-box wireframe (used when has_frame)
-  int has_frame;
-  int has_transform;
-  float sphere_radius;
-  float smooth_k;
-  float inv_k;  // float32(1/k), rounded from float64 like the JAX constant
-  float k_6;    // float32(k/6)
-  float inv_rotation[9];  // rows of R^T, applied after the translation
-  float translation[3];
-  float lo[3];  // scene bounds
-  float hi[3];
-  float cull_center[3];  // centre and half-diagonal of the bounds
-  float cull_radius;
-  float slack;  // the SDF's under-estimation bound
-  float collision_distance;
-  float depth_limit;
-  float cull_depth;  // depth of a culled ray: 1.01 * depth_limit
-  float normal_epsilon;
-  int step_limit;
-  float light[3];
-  float color_low[3];
-  float color_delta[3];
-  float aces_m1[9];
-  float aces_m2[9];
-  float aces_curve[5];
-};
-
-__device__ __forceinline__ float pick(int axis, float x, float y, float z) {
-  return axis == 0 ? x : (axis == 1 ? y : z);
-}
-
-// min over the segments of the squared distance, then one sqrt
-__device__ __forceinline__ float capsule_set(const CapsuleSet& c, float x, float y, float z) {
-  float best = CUDART_INF_F;
-#pragma unroll
-  for (int i = 0; i < BSDMG_SEGMENTS; ++i) {
-    const int a = c.axis[i];
-    const float r = pick(a, x, y, z) - c.a0[i];
-    const float e = r - fminf(fmaxf(r, 0.0f), c.length[i]);
-    const float o1 = pick(a == 0 ? 1 : 0, x, y, z) - c.p1[i];
-    const float o2 = pick(a == 2 ? 1 : 2, x, y, z) - c.p2[i];
-    best = fminf(best, (e * e + o1 * o1) + o2 * o2);
-  }
-  return sqrtf(best) - c.radius;
-}
-
-// ops/pallas/csdf.py::reference_render_scene_csdf
-__device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y, float z) {
-  float ox = x, oy = y, oz = z;
-  if (s.has_transform) {
-    const float tx = x - s.translation[0];
-    const float ty = y - s.translation[1];
-    const float tz = z - s.translation[2];
-    ox = s.inv_rotation[0] * tx + s.inv_rotation[1] * ty + s.inv_rotation[2] * tz;
-    oy = s.inv_rotation[3] * tx + s.inv_rotation[4] * ty + s.inv_rotation[5] * tz;
-    oz = s.inv_rotation[6] * tx + s.inv_rotation[7] * ty + s.inv_rotation[8] * tz;
-  }
-  const float skel = capsule_set(s.object, ox, oy, oz);
-  const float sph = sqrtf(ox * ox + oy * oy + oz * oz) - s.sphere_radius;
-  const float h = fmaxf(s.smooth_k - fabsf(skel - sph), 0.0f) * s.inv_k;
-  float d = fminf(skel, sph) - h * h * h * s.k_6;
-  if (s.has_frame) d = fminf(d, capsule_set(s.frame, x, y, z));
-  return d;
-}
 
 // one axis of the slab test against [lo - margin, hi + margin]
 __device__ __forceinline__ void slab_axis(float o, float d, float lo, float hi, float margin,

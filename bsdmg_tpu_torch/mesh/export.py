@@ -1,7 +1,9 @@
-"""Image export: a dependency-free PNG writer (zlib + struct).
+"""Mesh and image export: OBJ, VTK legacy, PNG, and voxel-field checkpoints.
 
-Port of ``save_png`` from ``bsdmg_tpu/mesh/export.py``; the mesh exporters
-come with the mesh-generation slice.
+Port of ``bsdmg_tpu/mesh/export.py``; each writer produces the JAX package's
+exact format (its Python paths), so files and field checkpoints pass between
+the two packages. The reference exports its welded mesh as OBJ
+(src/renderer/mod.rs:204).
 """
 
 from __future__ import annotations
@@ -11,6 +13,39 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from bsdmg_tpu_torch.mesh.pipeline import Mesh
+from bsdmg_tpu_torch.weights import field_from_numpy
+
+
+def save_obj(mesh: Mesh, path: str | Path) -> None:
+    """Wavefront OBJ with positions + normals, faces as ``v//vn`` (indices
+    identical, as the reference asserts in obj_to_bevy_mesh,
+    src/renderer/mod.rs:121)."""
+    lines = ["# bsdmg_tpu generated mesh"]
+    lines += [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in mesh.vertices.tolist()]
+    lines += [f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in mesh.normals.tolist()]
+    lines += [f"f {a}//{a} {b}//{b} {c}//{c}" for a, b, c in (mesh.faces + 1).tolist()]
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def save_vtk(mesh: Mesh, path: str | Path) -> None:
+    """Legacy VTK PolyData with point normals."""
+    out = [
+        "# vtk DataFile Version 3.0",
+        "bsdmg_tpu mesh",
+        "ASCII",
+        "DATASET POLYDATA",
+        f"POINTS {mesh.vertex_count} float",
+    ]
+    out += [f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in mesh.vertices.tolist()]
+    out.append(f"POLYGONS {mesh.triangle_count} {4 * mesh.triangle_count}")
+    out += [f"3 {a} {b} {c}" for a, b, c in mesh.faces.tolist()]
+    out.append(f"POINT_DATA {mesh.vertex_count}")
+    out.append("NORMALS normals float")
+    out += [f"{n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in mesh.normals.tolist()]
+    Path(path).write_text("\n".join(out) + "\n")
 
 
 def save_png(image: np.ndarray, path: str | Path) -> None:
@@ -37,3 +72,21 @@ def save_png(image: np.ndarray, path: str | Path) -> None:
         + chunk(b"IEND", b"")
     )
     Path(path).write_bytes(png)
+
+
+def save_field(field, path: str | Path) -> None:
+    """Checkpoint a voxel field between refine levels (deterministic resume);
+    the JAX package's ``load_field`` reads it."""
+    np.savez_compressed(
+        path,
+        lowers=field.to_numpy(),
+        voxel_size=np.float32(field.voxel_size),
+        level=np.int32(field.level),
+    )
+
+
+def load_field(path: str | Path, device: torch.device | str = "cuda"):
+    """A field checkpoint, the JAX package's ``save_field`` output included,
+    onto ``device``."""
+    data = np.load(path)
+    return field_from_numpy(data["lowers"], data["voxel_size"], data["level"], device)

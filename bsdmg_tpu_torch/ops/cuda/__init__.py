@@ -2,7 +2,10 @@
 
 * ``render_kernel`` — kernel K1, the fused sphere trace + shade, and its
   plain PyTorch twin;
-* ``csdf`` — the scene compiler that lowers a scene to the descriptor K1
-  reads;
+* ``mc_kernel`` — kernel K6, the fused marching-cubes finish, and its twin;
+* ``mesh_kernel`` — kernel K7, the Newton edge projection, and its twin
+  (with the Newton and fd4 helpers K6's twin shares);
+* ``csdf`` — the scene compiler that lowers a scene to the descriptor the
+  kernels read, and the descriptor's SDF and gradient in plain PyTorch;
 * ``build`` — compiles ``csrc/*.cu`` with nvcc at first use.
 """

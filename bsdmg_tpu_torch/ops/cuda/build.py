@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, which the kernel wrappers load with ``ctypes``. The build runs at
-first use, in ``bsdmg_tpu_torch/_build/``, and again only when a source is
-newer than the library. No header of PyTorch is included, so a build takes
-seconds, not minutes.
+``nvcc`` compiles each ``csrc/*.cu`` to an object, one process per source,
+all started together, and links the objects into one shared library with a
+plain C interface, which the kernel wrappers load with ``ctypes``. The build
+runs at first use, in ``bsdmg_tpu_torch/_build/``, and again only when a
+source or header is newer than the library. No header of PyTorch is
+included, so a build takes seconds, not minutes.
 """
 
 from __future__ import annotations
@@ -47,11 +48,31 @@ def nvcc_path() -> str:
     return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
 
 
-def build_command(output: Path) -> list[str]:
+def compile_command(source: Path, output: Path) -> list[str]:
+    """nvcc command that compiles one source to a position-independent object."""
     return [
-        nvcc_path(), *ARCH_FLAGS, *NUMERIC_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-o", str(output), *map(str, sources()),
+        nvcc_path(), *ARCH_FLAGS, *NUMERIC_FLAGS, "-std=c++17", "-O3", "-c",
+        "-Xcompiler", "-fPIC", "-o", str(output), str(source),
     ]
+
+
+def link_command(objects: list[Path], output: Path) -> list[str]:
+    return [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(output), *map(str, objects)]
+
+
+def _run_all(commands: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with each failure's stderr."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in commands
+    ]
+    failures = []
+    for cmd, proc in zip(commands, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\nexit code {proc.returncode}:\n{err}")
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 
 
 def build() -> Path:
@@ -69,16 +90,19 @@ def build() -> Path:
             "CUDA toolkit"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a concurrent loader never
+    # build under private names, then rename: a concurrent loader never
     # sees a half-written library
-    partial = BUILD_DIR / f"{LIBRARY.name}.{os.getpid()}.partial"
-    proc = subprocess.run(build_command(partial), capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.partial"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    partial = BUILD_DIR / f"{LIBRARY.name}.{tag}"
+    try:
+        _run_all([compile_command(src, obj) for src, obj in zip(sources(), objects)])
+        _run_all([link_command(objects, partial)])
+        os.replace(partial, LIBRARY)
+    finally:
         partial.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
-    os.replace(partial, LIBRARY)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return LIBRARY
 
 

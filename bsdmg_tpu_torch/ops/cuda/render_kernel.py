@@ -28,7 +28,9 @@ import torch
 from bsdmg_tpu_torch.config import MarchConfig
 from bsdmg_tpu_torch.ops.cuda.build import load_library
 from bsdmg_tpu_torch.ops.cuda.csdf import (
-    N_SEGMENTS,
+    MAX_GROUP_VALUES,
+    MAX_GROUPS,
+    CapsuleGroup,
     CapsuleSet,
     SceneDescriptor,
     descriptor_csdf,
@@ -155,7 +157,7 @@ def render_image_planes_torch(
     Returns ``(rgb, depth, steps, outcome)``: linear RGB ``(H, W, 3)``
     float32, depth ``(H, W)`` float32, steps and outcome ``(H, W)`` int32."""
     h, w = cone.shape
-    csdf = descriptor_csdf(scene_desc, cone.device)
+    csdf = descriptor_csdf(scene_desc)
     ox, oy, oz = (origins[..., a].reshape(-1) for a in range(3))
     dx, dy, dz = (directions[..., a].reshape(-1) for a in range(3))
     c = cone.reshape(-1)
@@ -190,23 +192,34 @@ def _floats(n):
     return ctypes.c_float * n
 
 
-class _CapsuleSetC(ctypes.Structure):
-    """``CapsuleSet`` of csrc/render_kernel.cu."""
+class _CapsuleGroupC(ctypes.Structure):
+    """``CapsuleGroup`` of csrc/scene_sdf.cuh."""
 
     _fields_ = [
-        ("axis", ctypes.c_int * N_SEGMENTS),
-        ("a0", _floats(N_SEGMENTS)),
-        ("length", _floats(N_SEGMENTS)),
-        ("p1", _floats(N_SEGMENTS)),
-        ("p2", _floats(N_SEGMENTS)),
+        ("axis", ctypes.c_int),
+        ("a0", ctypes.c_float),
+        ("length", ctypes.c_float),
+        ("n1", ctypes.c_int),
+        ("n2", ctypes.c_int),
+        ("v1", _floats(MAX_GROUP_VALUES)),
+        ("v2", _floats(MAX_GROUP_VALUES)),
+    ]
+
+
+class _CapsuleSetC(ctypes.Structure):
+    """``CapsuleSet`` of csrc/scene_sdf.cuh."""
+
+    _fields_ = [
         ("radius", ctypes.c_float),
+        ("n_groups", ctypes.c_int),
+        ("groups", _CapsuleGroupC * MAX_GROUPS),
     ]
 
 
 class _SceneDescC(ctypes.Structure):
-    """``SceneDesc`` of csrc/render_kernel.cu: the scene, the march limits
-    and the shading constants, all as the float32 values the plain twin
-    computes with."""
+    """``SceneDesc`` of csrc/scene_sdf.cuh: the scene, the march limits and
+    the shading constants, all as the float32 values the plain twin computes
+    with. The mesh kernels (K6, K7) take the same structure."""
 
     _fields_ = [
         ("object", _CapsuleSetC),
@@ -242,18 +255,27 @@ def _f32s(values):
     return [f32(v) for v in values]
 
 
-def _capsule_set_c(cs: CapsuleSet) -> _CapsuleSetC:
-    return _CapsuleSetC(
-        (ctypes.c_int * N_SEGMENTS)(*cs.axis),
-        _floats(N_SEGMENTS)(*cs.a0),
-        _floats(N_SEGMENTS)(*cs.length),
-        _floats(N_SEGMENTS)(*cs.p1),
-        _floats(N_SEGMENTS)(*cs.p2),
-        cs.radius,
+def _padded(values, n):
+    return _floats(n)(*values, *([0.0] * (n - len(values))))
+
+
+def _capsule_group_c(g: CapsuleGroup) -> _CapsuleGroupC:
+    return _CapsuleGroupC(
+        g.axis, g.a0, g.length, len(g.v1), len(g.v2),
+        _padded(g.v1, MAX_GROUP_VALUES), _padded(g.v2, MAX_GROUP_VALUES),
     )
 
 
-def _scene_desc_c(desc: SceneDescriptor, config: MarchConfig) -> _SceneDescC:
+def _capsule_set_c(cs: CapsuleSet) -> _CapsuleSetC:
+    return _CapsuleSetC(
+        cs.radius,
+        len(cs.groups),
+        (_CapsuleGroupC * MAX_GROUPS)(*map(_capsule_group_c, cs.groups)),
+    )
+
+
+def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> _SceneDescC:
+    """The descriptor as the kernels take it (``SceneDesc``)."""
     lo, hi, slack = desc.bounds
     has_transform = desc.translation is not None
     rotation = [v for row in desc.inv_rotation for v in row] if has_transform else [0.0] * 9
@@ -287,7 +309,9 @@ def _scene_desc_c(desc: SceneDescriptor, config: MarchConfig) -> _SceneDescC:
     )
 
 
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
+    """The kernel library with K1's entry points typed and the descriptor
+    layout checked against the source's."""
     lib = load_library()
     lib.bsdmg_render.restype = ctypes.c_int
     lib.bsdmg_render.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -306,7 +330,7 @@ def _library() -> ctypes.CDLL:
 
 def _render_cuda(desc, origins, directions, cone, config, return_planes):
     global LAUNCHES
-    lib = _library()
+    lib = library()
     h, w = cone.shape
     device = cone.device
     rgb = torch.empty((h, w, 3), dtype=torch.float32, device=device)
@@ -315,7 +339,7 @@ def _render_cuda(desc, origins, directions, cone, config, return_planes):
         depth = torch.empty((h, w), dtype=torch.float32, device=device)
         steps = torch.empty((h, w), dtype=torch.int32, device=device)
         outcome = torch.empty((h, w), dtype=torch.int32, device=device)
-    desc_c = _scene_desc_c(desc, config)
+    desc_c = scene_desc_c(desc, config)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.bsdmg_render(

@@ -9,8 +9,14 @@ from pathlib import Path
 
 import pytest
 
+import numpy as np
+
 import bsdmg_tpu.config as jax_config
+import bsdmg_tpu.ops.tables as jax_tables
 import bsdmg_tpu_torch.config as torch_config
+import bsdmg_tpu_torch.ops.tables as torch_tables
+from bsdmg_tpu.mesh.weld import weld_vertices as jax_weld
+from bsdmg_tpu_torch.mesh.weld import weld_vertices
 from bsdmg_tpu_torch.ops.cuda import build
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -38,7 +44,7 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-@pytest.mark.parametrize("name", ["MarchConfig", "RenderConfig"])
+@pytest.mark.parametrize("name", ["MarchConfig", "MeshGenConfig", "RenderConfig"])
 def test_config_defaults_equal(name):
     ours, ref = getattr(torch_config, name), getattr(jax_config, name)
     assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(ref)]
@@ -46,11 +52,51 @@ def test_config_defaults_equal(name):
     assert ours.__dataclass_params__.frozen
 
 
+def _table_names():
+    return sorted(n for n in vars(jax_tables) if n.isupper())
+
+
+@pytest.mark.parametrize("name", _table_names())
+def test_tables_equal_jax(name):
+    """ops/tables.py is a copy: every table equal, value and dtype."""
+    ref, got = getattr(jax_tables, name), getattr(torch_tables, name)
+    if isinstance(ref, np.ndarray):
+        np.testing.assert_array_equal(got, ref)
+        assert got.dtype == ref.dtype
+    else:
+        assert got == ref
+    assert sorted(n for n in vars(torch_tables) if n.isupper()) == _table_names()
+
+
+@pytest.mark.parametrize("use_native", [False, True], ids=["numpy", "native"])
+def test_weld_equals_jax(use_native):
+    """mesh/weld.py is a copy of the JAX NumPy path; the JAX native weld
+    (where built) gives the same mesh too. The soup repeats vertices, and
+    some coordinates sit on exact .5 quantization ties."""
+    rng = np.random.default_rng(5)
+    pool = np.round(rng.uniform(-2, 2, (40, 3)), 5).astype(np.float32)
+    pool[:4] = np.float32(0.125e-5)  # x * 1e5 = 0.125: rounding on the f32 product
+    positions = pool[rng.integers(0, 40, (200, 3))]
+    normals = rng.normal(size=(200, 3, 3)).astype(np.float32)
+    got = weld_vertices(positions, normals, 1e5)
+    ref = jax_weld(positions, normals, 1e5, use_native=use_native)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
 def test_build_command_targets_hopper():
-    cmd = build.build_command(Path("lib.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
-    assert any(s.endswith("render_kernel.cu") for s in cmd)
+    """One nvcc per source, each for sm_90a without FMA contraction or fast
+    math, linked into one library; every kernel of the port is built."""
+    names = [src.name for src in build.sources()]
+    assert {"render_kernel.cu", "mc_kernel.cu", "project_kernel.cu"} <= set(names)
+    for src in build.sources():
+        cmd = build.compile_command(src, Path("x.o"))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
+        assert cmd[-1].endswith(src.name) and "-c" in cmd
+    link = build.link_command([Path("a.o"), Path("b.o")], Path("lib.so"))
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert build.BUILD_DIR == ROOT / "bsdmg_tpu_torch" / "_build"
 
 

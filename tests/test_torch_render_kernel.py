@@ -40,6 +40,8 @@ torch.set_num_threads(1)
 
 COLLISION = 0
 SOURCE = Path(__file__).resolve().parents[1] / render_kernel.SOURCE
+#: the descriptor's C structs, shared by every kernel
+SCENE_HEADER = SOURCE.parent / "scene_sdf.cuh"
 
 
 def _jax_rays(w, h):
@@ -162,14 +164,26 @@ def _c_struct_fields(source: str, name: str):
 
 @pytest.mark.parametrize(
     "c_name,py_struct",
-    [("CapsuleSet", render_kernel._CapsuleSetC), ("SceneDesc", render_kernel._SceneDescC)],
+    [
+        ("CapsuleGroup", render_kernel._CapsuleGroupC),
+        ("CapsuleSet", render_kernel._CapsuleSetC),
+        ("SceneDesc", render_kernel._SceneDescC),
+    ],
 )
 def test_descriptor_layout_matches_cuda_source(c_name, py_struct):
     """The ctypes mirror lists the C struct's fields in order, with the same
     types and array lengths (the library also checks sizeof at load)."""
-    source = SOURCE.read_text()
-    lengths = {"BSDMG_SEGMENTS": 12}
-    types = {"int": ctypes.c_int, "float": ctypes.c_float, "CapsuleSet": render_kernel._CapsuleSetC}
+    source = SCENE_HEADER.read_text()
+    assert '#include "scene_sdf.cuh"' in SOURCE.read_text()
+    lengths = {"BSDMG_GROUPS": 3, "BSDMG_GROUP_VALUES": 2}
+    for name, value in lengths.items():
+        assert f"#define {name} {value} " in source or f"#define {name} {value}\n" in source
+    types = {
+        "int": ctypes.c_int,
+        "float": ctypes.c_float,
+        "CapsuleGroup": render_kernel._CapsuleGroupC,
+        "CapsuleSet": render_kernel._CapsuleSetC,
+    }
     c_fields = _c_struct_fields(source, c_name)
     assert [f[1] for f in c_fields] == [f[0] for f in py_struct._fields_]
     for (c_type, _, length), (_, py_type) in zip(c_fields, py_struct._fields_):

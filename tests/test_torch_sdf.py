@@ -71,7 +71,7 @@ def test_scene_sdf_matches_jax(name, transformed):
 
     jf = jcsdf.compile_scene_csdf(jscene, jparams)
     ref_planes = np.asarray(jf(*(jnp.asarray(p[..., a]) for a in range(3))))
-    f = tcsdf.descriptor_csdf(tcsdf.compile_scene(tscene, tparams), "cpu")
+    f = tcsdf.descriptor_csdf(tcsdf.compile_scene(tscene, tparams))
     got_planes = f(*(torch.from_numpy(np.ascontiguousarray(p[..., a])) for a in range(3))).numpy()
     np.testing.assert_allclose(got_planes, ref_planes, atol=ATOL)
     np.testing.assert_allclose(got_planes, ref_point, atol=ATOL)
@@ -95,9 +95,9 @@ def test_descriptor_matches_jax_constants():
     desc = tcsdf.compile_scene(tscenes.reference_render_scene())
     groups = jcsdf._axis_aligned_groups(*jprim._box_skeleton_edges((0, 0, 0), (3.0, 1.0, 0.5), True))
     for cs in (desc.object, desc.frame):
-        assert len(cs.axis) == tcsdf.N_SEGMENTS
-        assert sorted(set(cs.axis)) == [0, 1, 2]
-    keys = {(a, round(a0, 6), round(n, 6)) for a, a0, n in zip(desc.object.axis, desc.object.a0, desc.object.length)}
+        assert sum(len(g.v1) * len(g.v2) for g in cs.groups) == 12
+        assert sorted(g.axis for g in cs.groups) == [0, 1, 2]
+    keys = {(g.axis, round(g.a0, 6), round(g.length, 6)) for g in desc.object.groups}
     assert keys == {(a, round(a0, 6), round(n, 6)) for a, a0, n in groups}
     assert desc.frame.radius == np.float32(0.05)
     assert desc.inv_rotation is None and desc.translation is None
