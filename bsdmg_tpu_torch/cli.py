@@ -1,16 +1,21 @@
-"""Command-line interface of the PyTorch port: the ``render`` and ``mesh`` verbs.
+"""Command-line interface of the PyTorch port: the ``render``, ``mesh`` and ``fit`` verbs.
 
     python -m bsdmg_tpu_torch.cli render -o out.png
     python -m bsdmg_tpu_torch.cli mesh -o out.obj
     python -m bsdmg_tpu_torch.cli mesh --interpolate-edges -o out.obj
+    python -m bsdmg_tpu_torch.cli fit
+    python -m bsdmg_tpu_torch.cli fit --image
 
 ``render`` draws the reference scene at 1920x1080 through CUDA kernel K1;
 ``mesh`` refines the reference object three levels from a 32^3 grid and
 extracts its surface through kernel K6 (edge midpoints) or K7
-(``--interpolate-edges``). Both keep the JAX CLI's flags and defaults
-(``bsdmg_tpu/cli.py``). ``--device`` picks the torch device (default
-``cuda``); ``--device cpu`` runs the kernels' plain PyTorch twins, for
-tests. With no CUDA device and no ``--device cpu`` a command fails: it
+(``--interpolate-edges``); ``fit`` perturbs scene parameters and recovers
+them by inverse rendering, from a depth map (plain PyTorch and autograd) or,
+with ``--image``, from an image through kernels K4 (the target's march) and
+K5 (each step's loss and gradient). All keep the JAX CLI's flags and
+defaults (``bsdmg_tpu/cli.py``). ``--device`` picks the torch device
+(default ``cuda``); ``--device cpu`` runs the kernels' plain PyTorch twins,
+for tests. With no CUDA device and no ``--device cpu`` a command fails: it
 never moves to the CPU on its own.
 """
 
@@ -27,12 +32,14 @@ import torch
 
 from bsdmg_tpu_torch.cam import generate_rays, look_at
 from bsdmg_tpu_torch.config import MeshGenConfig
+from bsdmg_tpu_torch.grad import differentiable_hit, render_image_diff, render_loss_and_grad
 from bsdmg_tpu_torch.mesh.export import load_field, save_field, save_obj, save_png, save_vtk
 from bsdmg_tpu_torch.mesh.pipeline import generate_mesh
-from bsdmg_tpu_torch.models import get_scene
-from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
+from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
 from bsdmg_tpu_torch.ops.shade import to_rgba8
+from bsdmg_tpu_torch.ops.trace import COLLISION
 
 log = logging.getLogger("bsdmg_tpu_torch")
 
@@ -121,6 +128,164 @@ def cmd_mesh(args) -> None:
     log.info("wrote %s", out)
 
 
+def _parse_perturb(spec: str) -> dict[str, tuple[str, float]]:
+    """Parse ``key=factor,key=+delta`` into ``{key: (mode, value)}``.
+
+    A plain number (or ``*number``) multiplies the true param; ``+number``
+    adds to it, the way to perturb zero-valued params."""
+    out: dict[str, tuple[str, float]] = {}
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        key, _, val = item.partition("=")
+        val = val.strip()
+        mode = "mul"
+        if val.startswith("+"):
+            mode, val = "add", val[1:]
+        elif val.startswith("*"):
+            val = val[1:]
+        try:
+            out[key.strip()] = (mode, float(val))
+        except ValueError:
+            raise SystemExit(
+                f"--perturb: expected key=factor or key=+delta, got {item!r}"
+            ) from None
+    if not out:
+        raise SystemExit("--perturb: no key=factor pairs found")
+    return out
+
+
+def _apply_perturb(params: dict, perturb: dict) -> dict:
+    """Perturb ``params`` per ``_parse_perturb``'s spec; refuses no-ops."""
+    out = dict(params)
+    for key, (mode, value) in perturb.items():
+        out[key] = out[key] + value if mode == "add" else out[key] * value
+        if np.allclose(out[key].cpu().numpy(), params[key].cpu().numpy()):
+            raise SystemExit(
+                f"--perturb: {key} is unchanged by the perturbation "
+                f"({mode} {value}); for zero-valued params use key=+delta"
+            )
+    return out
+
+
+def _fmt(params, watched) -> str:
+    return " ".join(
+        f"{k}={params[k].detach().cpu().numpy().ravel().round(4).tolist()}" for k in watched
+    )
+
+
+def _leaves(params: dict) -> dict:
+    return {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+
+
+def cmd_fit(args) -> None:
+    """Inverse rendering: recover SDF parameters from a target depth map
+    (default) or from a target image with the fused loss and gradient
+    (``--image``): the target is rendered at the scene's true params, the
+    ``--perturb`` params are perturbed, and gradient descent recovers them."""
+    device = _device(args.device)
+    default_scene = args.scene == "reference_render_scene"
+    scene = reference_object(device=device) if default_scene else _get_scene(args.scene, device)
+    cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
+    origins, dirs, cone = generate_rays(
+        cam, (args.width, args.height), (args.screen_width, args.screen_height)
+    )
+
+    if args.perturb:
+        perturb = _parse_perturb(args.perturb)
+    elif default_scene:
+        perturb = (
+            {"sphere_radius": ("mul", 1.25), "smooth_k": ("mul", 0.7),
+             "skeleton_line_width": ("mul", 1.3)}
+            if args.image
+            else {"sphere_radius": ("mul", 1.3), "smooth_k": ("mul", 0.6)}
+        )
+    else:
+        raise SystemExit(
+            f"pass --perturb key=factor[,key=+delta] to pick which of "
+            f"{sorted(scene.params)} to perturb and recover"
+        )
+    unknown = set(perturb) - set(scene.params)
+    if unknown:
+        raise SystemExit(
+            f"--perturb keys {sorted(unknown)} not in scene params {sorted(scene.params)}"
+        )
+
+    if args.image:
+        if default_scene:
+            scene = reference_render_scene(device=device)
+            true_params = {
+                k: v for k, v in scene.params.items()
+                if k not in ("object_center", "object_rotation")
+            }
+        else:
+            true_params = dict(scene.params)
+        fit_image(
+            scene, true_params, _apply_perturb(true_params, perturb), origins, dirs, cone,
+            steps=args.steps, lr=args.lr, watched=sorted(perturb),
+        )
+        return
+
+    watched = sorted(perturb)
+    # synthesize a target from the true params, then perturb and recover
+    t_target, hit_t = differentiable_hit(scene.sdf, scene.params, origins, dirs, cone)
+    t_target = t_target.detach()
+    stable0 = hit_t.outcome == COLLISION
+    params = _leaves(_apply_perturb(scene.params, perturb))
+    for i in range(args.steps):
+        t, hit = differentiable_hit(scene.sdf, params, origins, dirs, cone)
+        mask = stable0 & (hit.outcome == COLLISION)
+        err = (t - t_target) * mask
+        loss = torch.sum(err**2) / torch.clamp_min(torch.sum(mask), 1)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with torch.no_grad():
+            for p, g in zip(params.values(), grads):
+                if g is not None:
+                    p -= args.lr * g
+        if i % 10 == 0 or i == args.steps - 1:
+            log.info("step %d: loss=%.3e %s", i, loss.item(), _fmt(params, watched))
+    log.info("recovered %s (true %s)", _fmt(params, watched), _fmt(scene.params, watched))
+
+
+def fit_image(scene, true_params: dict, params: dict, origins, dirs, cone, *, steps: int,
+              lr: float, watched=None):
+    """Image-loss inverse rendering (``fit --image``): render a target at
+    ``true_params``, then run ``steps`` Adam steps (learning rate ``lr *
+    0.1``, as the JAX CLI's ``optax.adam``) from ``params`` on the L2 image
+    loss plus the silhouette term (``edge_weight=1``). The target's march is
+    kernel K4 and each step's loss and gradient kernel K5 on the card
+    (their plain twins on CPU tensors). Logs every tenth step and
+    the recovered ``watched`` params; returns ``(params, losses)``."""
+    if scene.csdf is None:
+        raise SystemExit(
+            f"fit --image needs a component-form SDF; scene {scene.name!r} has none"
+        )
+    # the bounds over the whole optimisation: a conservative trust region
+    lo, hi, slack = scene_bounds(scene)
+    bb = (tuple(v - 0.6 for v in lo), tuple(v + 0.6 for v in hi), slack)
+    target = render_image_diff(
+        scene.sdf, true_params, origins, dirs, cone, csdf=scene.csdf, bb=bb
+    ).detach()
+    params = _leaves(params)
+    watched = sorted(params) if watched is None else watched
+    opt = torch.optim.Adam(list(params.values()), lr=lr * 0.1)
+    losses = []
+    for i in range(steps):
+        opt.zero_grad()
+        loss, _ = render_loss_and_grad(
+            scene.sdf, params, target, origins, dirs, cone, csdf=scene.csdf, bb=bb,
+            edge_weight=1.0,
+        )
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        if i % 10 == 0 or i == steps - 1:
+            log.info("step %d: loss=%.3e %s", i, losses[-1], _fmt(params, watched))
+    log.info("recovered %s (true %s)", _fmt(params, watched), _fmt(true_params, watched))
+    return {k: v.detach() for k, v in params.items()}, losses
+
+
 def _add_device(parser) -> None:
     parser.add_argument(
         "--device", default="cuda",
@@ -132,18 +297,21 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bsdmg_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
 
+    def common_camera(sp, width: int, height: int) -> None:
+        sp.add_argument("--camera", type=float, nargs=3, default=[5.0, 2.0, -5.0])
+        sp.add_argument("--target", type=float, nargs=3, default=[0.0, 0.0, 0.0])
+        sp.add_argument("--fov", type=float, default=math.pi / 4, help="radians")
+        sp.add_argument("--width", type=int, default=width)
+        sp.add_argument("--height", type=int, default=height)
+        sp.add_argument("--screen-width", type=float, default=1920.0)
+        sp.add_argument("--screen-height", type=float, default=1080.0)
+
     r = sub.add_parser("render", help="sphere-trace a scene to PNG/NPY")
     r.add_argument(
         "--scene", default="reference_render_scene",
         help="scene name (bsdmg_tpu_torch.models.SCENES)",
     )
-    r.add_argument("--camera", type=float, nargs=3, default=[5.0, 2.0, -5.0])
-    r.add_argument("--target", type=float, nargs=3, default=[0.0, 0.0, 0.0])
-    r.add_argument("--fov", type=float, default=math.pi / 4, help="radians")
-    r.add_argument("--width", type=int, default=1920)
-    r.add_argument("--height", type=int, default=1080)
-    r.add_argument("--screen-width", type=float, default=1920.0)
-    r.add_argument("--screen-height", type=float, default=1080.0)
+    common_camera(r, 1920, 1080)
     r.add_argument("--output", "-o", default=None, help=".png (default render.png) or .npy")
     _add_device(r)
     r.set_defaults(fn=cmd_render)
@@ -169,6 +337,27 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--output", "-o", default=None, help=".obj (default generated_mesh.obj) or .vtk")
     _add_device(m)
     m.set_defaults(fn=cmd_mesh)
+
+    ft = sub.add_parser("fit", help="inverse rendering: recover SDF params from depth or image")
+    ft.add_argument(
+        "--scene", default="reference_render_scene",
+        help="scene name; the depth fit of the render scene fits its object, reference_object",
+    )
+    common_camera(ft, 64, 64)
+    ft.add_argument("--steps", type=int, default=60)
+    ft.add_argument("--lr", type=float, default=0.2)
+    ft.add_argument(
+        "--image", action="store_true",
+        help="fit an L2 image loss with the fused loss and gradient (kernel K5)",
+    )
+    ft.add_argument(
+        "--perturb", default=None,
+        help="key=factor[,key=+delta]: which params to perturb and recover "
+        "(default for the reference scene: sphere_radius=1.3,smooth_k=0.6; "
+        "with --image sphere_radius=1.25,smooth_k=0.7,skeleton_line_width=1.3)",
+    )
+    _add_device(ft)
+    ft.set_defaults(fn=cmd_fit)
     return p
 
 

@@ -1,0 +1,254 @@
+// Forward-mode dual numbers for the fused loss + gradient kernel (K5,
+// diff_kernel.cu), and the scalar helpers the shared device code is written
+// in, so that one template serves float and Dual<N>.
+//
+// A Dual<N> carries a float value and N tangents. K5 seeds parameter slot i
+// with the unit tangent e_i, so every value computed from the parameters
+// carries its derivative with respect to each of them. The rules follow
+// JAX's JVPs (the reference differentiates the same expressions):
+// min and max give each operand the weight tie_weight gives it, 1/2 at a tie
+// (lax._balanced_eq); abs passes +1 at 0 (jax.grad(jnp.abs)(0.0) is 1.0 on
+// JAX 0.9); sqrt's tangent is t * (0.5 / sqrt(x)).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+// JAX's weight of operand x of min(x, y) or max(x, y) whose result is z
+// (lax._balanced_eq): 1 if x alone attains z, 1/2 at a tie, else 0
+__device__ __forceinline__ float tie_weight(float x, float z, float y) {
+  return (x == z ? 1.0f : 0.0f) / (y == z ? 2.0f : 1.0f);
+}
+
+__device__ __forceinline__ float value_of(float x) { return x; }
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ float vabs(float a) { return fabsf(a); }
+__device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
+__device__ __forceinline__ float vrsqrt(float a) { return rsqrtf(a); }
+
+template <int N>
+struct Dual {
+  float v;
+  float t[N];
+};
+
+// Scalar<T>::constant(v) is v as a T; Scalar<T>::seeded(v, slot) is v with
+// the unit tangent of parameter `slot` (no tangent for float)
+template <class T>
+struct Scalar;
+
+template <>
+struct Scalar<float> {
+  __device__ __forceinline__ static float constant(float v) { return v; }
+  __device__ __forceinline__ static float seeded(float v, int) { return v; }
+};
+
+template <int N>
+struct Scalar<Dual<N>> {
+  __device__ __forceinline__ static Dual<N> seeded(float v, int slot) {
+    Dual<N> r;
+    r.v = v;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.t[i] = i == slot ? 1.0f : 0.0f;
+    return r;
+  }
+  __device__ __forceinline__ static Dual<N> constant(float v) { return seeded(v, -1); }
+};
+
+template <int N>
+__device__ __forceinline__ float value_of(const Dual<N>& x) { return x.v; }
+
+// ---------------------------------------------------------------------------
+// arithmetic
+// ---------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a) {
+  Dual<N> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = -a.t[i];
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] + b.t[i];
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(const Dual<N>& a, float b) {
+  Dual<N> r = a;
+  r.v = a.v + b;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(float a, const Dual<N>& b) {
+  Dual<N> r = b;
+  r.v = a + b.v;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] - b.t[i];
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a, float b) {
+  Dual<N> r = a;
+  r.v = a.v - b;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(float a, const Dual<N>& b) {
+  Dual<N> r;
+  r.v = a - b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = -b.t[i];
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * b.v + a.v * b.t[i];
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(const Dual<N>& a, float b) {
+  Dual<N> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * b;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(float a, const Dual<N>& b) {
+  return b * a;
+}
+
+// d(a/b) = (da - (a/b) db) / b
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> r;
+  r.v = a.v / b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = (a.t[i] - r.v * b.t[i]) / b.v;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(const Dual<N>& a, float b) {
+  Dual<N> r;
+  r.v = a.v / b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] / b;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(float a, const Dual<N>& b) {
+  Dual<N> r;
+  r.v = a / b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = -(r.v * b.t[i]) / b.v;
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// min, max, abs, sqrt
+// ---------------------------------------------------------------------------
+
+// min or max of a and b whose value is z, with JAX's tangent weights
+template <int N>
+__device__ __forceinline__ Dual<N> chooser(const Dual<N>& a, const Dual<N>& b, float z) {
+  const float wa = tie_weight(a.v, z, b.v);
+  const float wb = tie_weight(b.v, z, a.v);
+  Dual<N> r;
+  r.v = z;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * wa + b.t[i] * wb;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> chooser(const Dual<N>& a, float b, float z) {
+  const float wa = tie_weight(a.v, z, b);
+  Dual<N> r;
+  r.v = z;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * wa;
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vmin(const Dual<N>& a, const Dual<N>& b) {
+  return chooser(a, b, fminf(a.v, b.v));
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vmin(const Dual<N>& a, float b) {
+  return chooser(a, b, fminf(a.v, b));
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vmin(float a, const Dual<N>& b) {
+  return chooser(b, a, fminf(a, b.v));
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vmax(const Dual<N>& a, const Dual<N>& b) {
+  return chooser(a, b, fmaxf(a.v, b.v));
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vmax(const Dual<N>& a, float b) {
+  return chooser(a, b, fmaxf(a.v, b));
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vmax(float a, const Dual<N>& b) {
+  return chooser(b, a, fmaxf(a, b.v));
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vabs(const Dual<N>& a) {
+  return a.v >= 0.0f ? a : -a;
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vsqrt(const Dual<N>& a) {
+  Dual<N> r;
+  r.v = sqrtf(a.v);
+  const float w = 0.5f / r.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * w;
+  return r;
+}
+
+// d rsqrt(x) = dx * (-0.5 * rsqrt(x) / x)
+template <int N>
+__device__ __forceinline__ Dual<N> vrsqrt(const Dual<N>& a) {
+  Dual<N> r;
+  r.v = rsqrtf(a.v);
+  const float w = -0.5f * (r.v / a.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * w;
+  return r;
+}

@@ -1,0 +1,322 @@
+// The parameter form of the reference scenes on the device, for K4 and K5
+// (diff_kernel.cu).
+//
+// K1, K6 and K7 read a SceneDesc (scene_sdf.cuh) whose constants the host
+// bakes in float64. The differentiable path evaluates the scene the way the
+// JAX package's Scene.csdf does, from the parameter values at run time in
+// float32: `lo = c - s/2` on every call, `o1 - s1`, the smooth minimum as
+// `max(k - |a-b|, 0) / k` and `min - h*h*h*k*(1/6)`. The two forms round
+// differently, and a silhouette ray would flip its hit test between them,
+// so the kernels evaluate this form: bsdmg_tpu/models/scenes.py::_sd_obj_c
+// (box skeleton, sphere, smooth minimum, optional object transform) and the
+// render scene's union with the bounding-box wireframe, operation for
+// operation. The plain PyTorch twin is ReferenceCsdf in
+// bsdmg_tpu_torch/models/scenes.py.
+//
+// Everything is a template over the scalar T: float for the march and for
+// K4's directional derivative, Dual<N> (dual.cuh) in K5, which seeds each
+// parameter with its unit tangent. scene_value is the SDF; scene_value_grad
+// is the SDF and its spatial gradient, written as a reverse pass by hand
+// (as scene_sdf_grad is) with JAX's tie rules. Evaluated in Dual<N>, the
+// gradient's tangents are the total derivatives d(grad_x f(q(theta),
+// theta))/d theta that K5's shading normal needs.
+
+#pragma once
+
+#include "common.cuh"
+
+#define BSDMG_MAX_PARAMS 16  // 9 shape parameters, object_center (3), object_rotation (4)
+
+// Mirrors _ParamSceneC in ops/cuda/diff_kernel.py field by field.
+struct ParamScene {
+  float prm[BSDMG_MAX_PARAMS];  // the flat parameter vector (weights.flatten_params)
+  int n_prm;
+  // index in prm of each parameter's first component; -1 where absent
+  int skeleton_center;
+  int skeleton_size;
+  int skeleton_line_width;
+  int sphere_radius;
+  int smooth_k;
+  int object_center;
+  int object_rotation;
+  int reference_compat;  // the skeleton's (dir+1)%2 size index
+  int has_frame;         // the render scene: union with the wireframe
+  float frame_size;
+  float frame_line_width;
+  int use_bounds;  // slab cull against lo/hi
+  float lo[3];
+  float hi[3];
+  float cull_center[3];  // centre and half-diagonal of the bounds
+  float cull_radius;
+  float slack;
+  float collision_distance;
+  float depth_limit;
+  float cull_depth;  // depth of a culled ray: 1.01 * depth_limit
+  int step_limit;
+  float light[3];
+  float color_low[3];
+  float color_delta[3];
+  float aces_m1[9];
+  float aces_m2[9];
+  float aces_curve[5];
+};
+
+// the parameters as T, each component seeded with its slot in prm
+template <class T>
+struct ObjectParams {
+  T center[3];
+  T size[3];
+  T line_width;
+  T radius;
+  T k;
+  T translation[3];
+  T rotation[4];  // quaternion (w, x, y, z)
+};
+
+template <class T>
+__device__ __forceinline__ ObjectParams<T> load_params(const ParamScene& s) {
+  ObjectParams<T> p;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    p.center[a] = Scalar<T>::seeded(s.prm[s.skeleton_center + a], s.skeleton_center + a);
+    p.size[a] = Scalar<T>::seeded(s.prm[s.skeleton_size + a], s.skeleton_size + a);
+  }
+  p.line_width = Scalar<T>::seeded(s.prm[s.skeleton_line_width], s.skeleton_line_width);
+  p.radius = Scalar<T>::seeded(s.prm[s.sphere_radius], s.sphere_radius);
+  p.k = Scalar<T>::seeded(s.prm[s.smooth_k], s.smooth_k);
+  if (s.object_center >= 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) p.translation[a] = Scalar<T>::seeded(s.prm[s.object_center + a], s.object_center + a);
+  }
+  if (s.object_rotation >= 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) p.rotation[a] = Scalar<T>::seeded(s.prm[s.object_rotation + a], s.object_rotation + a);
+  }
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// box skeleton (sdf/primitives.py::sd_box_skeleton_c), P the parameters' type
+// ---------------------------------------------------------------------------
+
+template <class T>
+struct SkeletonFwd {
+  T d2[3];
+  T best[3];
+  T root;
+};
+
+template <class P>
+__device__ __forceinline__ P perp_size(const P size[3], int d, int compat) {
+  return compat ? size[(d + 1) % 2] : size[(d + 1) % 3];
+}
+
+template <class T, class P>
+__device__ __forceinline__ T skeleton_fwd(const T c[3], const P lo[3], const P size[3],
+                                          const P& line_width, int compat, SkeletonFwd<T>& f) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int a1 = (d + 1) % 3, a2 = (d + 2) % 3;
+    const T r = c[d] - lo[d];
+    const T t = vmin(vmax(r, 0.0f), size[d]);  // jnp.clip(r, 0, size[d])
+    const T e = r - t;
+    const T o1 = c[a1] - lo[a1];
+    const T o1b = o1 - perp_size(size, d, compat);
+    const T o2 = c[a2] - lo[a2];
+    const T o2b = o2 - size[a2];
+    f.d2[d] = (e * e + vmin(o1 * o1, o1b * o1b)) + vmin(o2 * o2, o2b * o2b);
+    if (d == 0) f.best[0] = f.d2[0];
+    else f.best[d] = vmin(f.best[d - 1], f.d2[d]);
+  }
+  f.root = vsqrt(f.best[2]);
+  return f.root - line_width;
+}
+
+// the cotangent of a perpendicular coordinate from min(o*o, ob*ob), ob = o - size,
+// given the cotangent ct of that minimum
+template <class T>
+__device__ __forceinline__ T slot_bwd(const T& o, const T& ob, const T& ct) {
+  const T sa = o * o, sb = ob * ob;
+  const float m = fminf(value_of(sa), value_of(sb));
+  const T ca = ct * tie_weight(value_of(sa), m, value_of(sb));
+  const T cb = ct * tie_weight(value_of(sb), m, value_of(sa));
+  const T ga = ca * o, gb = cb * ob;
+  return (ga + ga) + (gb + gb);
+}
+
+// adds ct * d(skeleton)/d(c) to g
+template <class T, class P>
+__device__ __forceinline__ void skeleton_bwd(const T c[3], const P lo[3], const P size[3], int compat,
+                                             const SkeletonFwd<T>& f, const T& ct, T g[3]) {
+  T w = ct * (0.5f / f.root);  // d sqrt(b) = (0.5 / sqrt(b)) db
+  T ctd[3];
+#pragma unroll
+  for (int d = 2; d >= 1; --d) {
+    ctd[d] = w * tie_weight(value_of(f.d2[d]), value_of(f.best[d]), value_of(f.best[d - 1]));
+    w = w * tie_weight(value_of(f.best[d - 1]), value_of(f.best[d]), value_of(f.d2[d]));
+  }
+  ctd[0] = w;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int a1 = (d + 1) % 3, a2 = (d + 2) % 3;
+    const T r = c[d] - lo[d];
+    const T mx = vmax(r, 0.0f);
+    const T t = vmin(mx, size[d]);
+    const T e = r - t;
+    const T ce = ctd[d] * e;
+    const T ct_e = ce + ce;
+    const T ct_mx = -ct_e * tie_weight(value_of(mx), value_of(t), value_of(size[d]));
+    g[d] = g[d] + (ct_e + ct_mx * tie_weight(value_of(r), value_of(mx), 0.0f));
+    const T o1 = c[a1] - lo[a1];
+    g[a1] = g[a1] + slot_bwd(o1, o1 - perp_size(size, d, compat), ctd[d]);
+    const T o2 = c[a2] - lo[a2];
+    g[a2] = g[a2] + slot_bwd(o2, o2 - size[a2], ctd[d]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the object (models/scenes.py::_sd_obj_c) and the scene
+// ---------------------------------------------------------------------------
+
+// rows of R(q)^T applied as models/scenes.py::_quat_inv_rotate_c does
+template <class T>
+struct Frame {
+  T m[9];  // ox = m0 x + m3 y + m6 z, oy = m1 x + m4 y + m7 z, oz = m2 x + m5 y + m8 z
+};
+
+template <class T>
+__device__ __forceinline__ Frame<T> rotation(const T q[4]) {
+  const T inv = vrsqrt(vmax(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3], 1e-24f));
+  const T w = q[0] * inv, qx = q[1] * inv, qy = q[2] * inv, qz = q[3] * inv;
+  Frame<T> f;
+  f.m[0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+  f.m[1] = 2.0f * (qx * qy - w * qz);
+  f.m[2] = 2.0f * (qx * qz + w * qy);
+  f.m[3] = 2.0f * (qx * qy + w * qz);
+  f.m[4] = 1.0f - 2.0f * (qx * qx + qz * qz);
+  f.m[5] = 2.0f * (qy * qz - w * qx);
+  f.m[6] = 2.0f * (qx * qz - w * qy);
+  f.m[7] = 2.0f * (qy * qz + w * qx);
+  f.m[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
+  return f;
+}
+
+// world -> object coordinates (models/scenes.py::_object_space_c)
+template <class T>
+__device__ __forceinline__ void object_space(const ParamScene& s, const ObjectParams<T>& p,
+                                             const Frame<T>& f, const T x[3], T o[3]) {
+  T v[3] = {x[0], x[1], x[2]};
+  if (s.object_center >= 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) v[a] = v[a] - p.translation[a];
+  }
+  if (s.object_rotation >= 0) {
+    o[0] = (f.m[0] * v[0] + f.m[3] * v[1]) + f.m[6] * v[2];
+    o[1] = (f.m[1] * v[0] + f.m[4] * v[1]) + f.m[7] * v[2];
+    o[2] = (f.m[2] * v[0] + f.m[5] * v[1]) + f.m[8] * v[2];
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) o[a] = v[a];
+  }
+}
+
+// forward values of the scene that its gradient reads back
+template <class T>
+struct SceneFwd {
+  Frame<T> rot;
+  T o[3];       // object-space point
+  T lo[3];      // the skeleton's low corner
+  SkeletonFwd<T> skel_f;
+  T skel, sph, sroot, obj;
+  SkeletonFwd<T> frame_f;
+  T frame;
+  T d;
+};
+
+__device__ __forceinline__ void frame_box(const ParamScene& s, float lo[3], float size[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    size[a] = s.frame_size;
+    lo[a] = 0.0f - s.frame_size / 2.0f;
+  }
+}
+
+template <class T>
+__device__ __forceinline__ T scene_fwd(const ParamScene& s, const ObjectParams<T>& p, const T x[3],
+                                       SceneFwd<T>& f) {
+  if (s.object_rotation >= 0) f.rot = rotation(p.rotation);
+  object_space(s, p, f.rot, x, f.o);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) f.lo[a] = p.center[a] - p.size[a] / 2.0f;
+  f.skel = skeleton_fwd(f.o, f.lo, p.size, p.line_width, s.reference_compat, f.skel_f);
+  f.sroot = vsqrt((f.o[0] * f.o[0] + f.o[1] * f.o[1]) + f.o[2] * f.o[2]);
+  f.sph = f.sroot - p.radius;
+  // smooth_min(skel, sph, k) (sdf/primitives.py::smooth_min)
+  const T h = vmax(p.k - vabs(f.skel - f.sph), 0.0f) / p.k;
+  f.obj = vmin(f.skel, f.sph) - ((h * h) * h * p.k) * static_cast<float>(1.0 / 6.0);
+  f.d = f.obj;
+  if (s.has_frame) {
+    float flo[3], fsize[3];
+    frame_box(s, flo, fsize);
+    f.frame = skeleton_fwd(x, flo, fsize, s.frame_line_width, s.reference_compat, f.frame_f);
+    f.d = vmin(f.obj, f.frame);
+  }
+  return f.d;
+}
+
+template <class T>
+__device__ __forceinline__ T scene_value(const ParamScene& s, const ObjectParams<T>& p, const T x[3]) {
+  SceneFwd<T> f;
+  return scene_fwd(s, p, x, f);
+}
+
+// the SDF and its gradient with respect to x, by reverse mode with a
+// cotangent of 1
+template <class T>
+__device__ __forceinline__ T scene_value_grad(const ParamScene& s, const ObjectParams<T>& p,
+                                              const T x[3], T g[3]) {
+  SceneFwd<T> f;
+  scene_fwd(s, p, x, f);
+  const float ct_obj = s.has_frame ? tie_weight(value_of(f.obj), value_of(f.d), value_of(f.frame)) : 1.0f;
+
+  // smooth minimum, backward: delta = skel - sph, u = k - |delta|,
+  // hm = max(u, 0), h = hm / k, obj = min(skel, sph) - h^3 k / 6
+  const T delta = f.skel - f.sph;
+  const T u = p.k - vabs(delta);
+  const T hm = vmax(u, 0.0f);
+  const T h = hm / p.k;
+  const T ct_h3 = (p.k * static_cast<float>(1.0 / 6.0)) * -ct_obj;
+  const T ct_h2 = ct_h3 * h;
+  const T ct_h = (h * h) * ct_h3 + (ct_h2 * h + h * ct_h2);
+  const T ct_u = (ct_h / p.k) * tie_weight(value_of(u), value_of(hm), 0.0f);
+  const T ct_delta = value_of(delta) >= 0.0f ? -ct_u : ct_u;  // jax: d|x| = +1 at 0
+  const float m = fminf(value_of(f.skel), value_of(f.sph));
+  const T ct_skel = ct_delta + ct_obj * tie_weight(value_of(f.skel), m, value_of(f.sph));
+  const T ct_sph = ct_obj * tie_weight(value_of(f.sph), m, value_of(f.skel)) - ct_delta;
+  const T ct_s2 = ct_sph * (0.5f / f.sroot);
+
+  T c[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T sa = ct_s2 * f.o[a];
+    c[a] = sa + sa;
+  }
+  skeleton_bwd(f.o, f.lo, p.size, s.reference_compat, f.skel_f, ct_skel, c);
+  if (s.object_rotation >= 0) {
+    const T* m9 = f.rot.m;
+    g[0] = (m9[0] * c[0] + m9[1] * c[1]) + m9[2] * c[2];
+    g[1] = (m9[3] * c[0] + m9[4] * c[1]) + m9[5] * c[2];
+    g[2] = (m9[6] * c[0] + m9[7] * c[1]) + m9[8] * c[2];
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) g[a] = c[a];
+  }
+  if (s.has_frame) {
+    float flo[3], fsize[3];
+    frame_box(s, flo, fsize);
+    const T ct_frame =
+        Scalar<T>::constant(tie_weight(value_of(f.frame), value_of(f.d), value_of(f.obj)));
+    skeleton_bwd(x, flo, fsize, s.reference_compat, f.frame_f, ct_frame, g);
+  }
+  return f.d;
+}

@@ -31,29 +31,10 @@
 // the kernel's planes and image equal the twin's bit for bit. With FMA
 // contraction, silhouette rays flip the hit test `dist <= cd + eps` and end
 // with other step counts. The scene SDF is scene_sdf.cuh's, shared with the
-// mesh kernels.
+// mesh kernels; the slab cull and the shading are common.cuh's, shared with
+// K4 and K5.
 
 #include "scene_sdf.cuh"
-
-enum { COLLISION = 0, STEP_LIMIT = 1, DEPTH_LIMIT = 2 };
-
-// one axis of the slab test against [lo - margin, hi + margin]
-__device__ __forceinline__ void slab_axis(float o, float d, float lo, float hi, float margin,
-                                          float& t_near, float& t_far) {
-  const float d_safe = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
-  const float inv = 1.0f / d_safe;
-  const float t1 = ((lo - margin) - o) * inv;
-  const float t2 = ((hi + margin) - o) * inv;
-  t_near = fminf(t1, t2);
-  t_far = fmaxf(t1, t2);
-}
-
-__device__ __forceinline__ float aces_curve(const SceneDesc& s, float v) {
-  return (v * (v + s.aces_curve[0]) - s.aces_curve[1]) /
-         (v * (s.aces_curve[2] * v + s.aces_curve[3]) + s.aces_curve[4]);
-}
-
-__device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
 
 __global__ void __launch_bounds__(128)
 render_kernel(const SceneDesc s, const float* __restrict__ origins,
@@ -74,18 +55,8 @@ render_kernel(const SceneDesc s, const float* __restrict__ origins,
   const float eps = s.collision_distance;
 
   // slab cull (render_kernel.py:89-124, :355-368)
-  const float ex = ox - s.cull_center[0], ey = oy - s.cull_center[1], ez = oz - s.cull_center[2];
-  const float reach = ((sqrtf(ex * ex + ey * ey + ez * ez) + s.cull_radius) + s.slack) + eps;
-  const float t_star = c < 0.5f ? reach / fmaxf(1.0f - c, 0.5f) : s.depth_limit;
-  const float margin = (c * fminf(t_star, s.depth_limit) + eps) + s.slack;
-  float nx, fx, ny, fy, nz, fz;
-  slab_axis(ox, dx, s.lo[0], s.hi[0], margin, nx, fx);
-  slab_axis(oy, dy, s.lo[1], s.hi[1], margin, ny, fy);
-  slab_axis(oz, dz, s.lo[2], s.hi[2], margin, nz, fz);
-  const float tmin = fmaxf(nx, fmaxf(ny, nz));
-  const float tmax = fminf(fx, fminf(fy, fz));
-  const bool miss = tmax < fmaxf(tmin, 0.0f);
-  const float limit = fminf(fmaxf(tmax, 0.0f), s.depth_limit);
+  float limit;
+  const bool miss = slab_cull(s, ox, oy, oz, dx, dy, dz, c, limit);
 
   // exact sphere trace from depth 0 (render_kernel.py:170-190)
   float depth = 0.0f;
@@ -133,22 +104,17 @@ render_kernel(const SceneDesc s, const float* __restrict__ origins,
       else gz = acc;
     }
     const float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-24f));
-    const float t = (((gx * inv) * s.light[0] + (gy * inv) * s.light[1]) +
-                     (gz * inv) * s.light[2] + 1.0f) * 0.5f;
-    r = s.color_low[0] + t * s.color_delta[0];
-    g = s.color_low[1] + t * s.color_delta[1];
-    b = s.color_low[2] + t * s.color_delta[2];
+    shade_collision(s, gx * inv, gy * inv, gz * inv, r, g, b);
   } else {
     r = g = b = outcome == STEP_LIMIT ? 1.0f : 0.0f;
   }
 
   // ACES (render_kernel.py::_aces_plane)
-  const float vr = aces_curve(s, s.aces_m1[0] * r + s.aces_m1[1] * g + s.aces_m1[2] * b);
-  const float vg = aces_curve(s, s.aces_m1[3] * r + s.aces_m1[4] * g + s.aces_m1[5] * b);
-  const float vb = aces_curve(s, s.aces_m1[6] * r + s.aces_m1[7] * g + s.aces_m1[8] * b);
-  rgb[3 * i] = clip01(s.aces_m2[0] * vr + s.aces_m2[1] * vg + s.aces_m2[2] * vb);
-  rgb[3 * i + 1] = clip01(s.aces_m2[3] * vr + s.aces_m2[4] * vg + s.aces_m2[5] * vb);
-  rgb[3 * i + 2] = clip01(s.aces_m2[6] * vr + s.aces_m2[7] * vg + s.aces_m2[8] * vb);
+  float out[3];
+  aces(s, r, g, b, out);
+  rgb[3 * i] = out[0];
+  rgb[3 * i + 1] = out[1];
+  rgb[3 * i + 2] = out[2];
   if (depth_out != nullptr) {
     depth_out[i] = depth;
     steps_out[i] = steps;

@@ -9,8 +9,9 @@
 // arithmetic. scene_sdf is the value; scene_sdf_grad is the value and its
 // gradient as JAX's reverse mode takes it (jax.vjp with a cotangent of 1),
 // with JAX's tie rules (min and max split the cotangent evenly at a tie,
-// abs passes +1 at 0). The plain PyTorch twins are descriptor_csdf and
-// descriptor_csdf_value_and_grad in bsdmg_tpu_torch/ops/cuda/csdf.py.
+// tie_weight in dual.cuh; abs passes +1 at 0). The plain PyTorch twins are
+// descriptor_csdf and descriptor_csdf_value_and_grad in
+// bsdmg_tpu_torch/ops/cuda/csdf.py.
 //
 // Numerics: the library is built with -fmad=false and without fast math,
 // and every sum runs in the twin's order, so each function equals its twin
@@ -18,8 +19,9 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "common.cuh"
 
 #define BSDMG_GROUPS 3  // parallel-edge groups of a box skeleton
 #define BSDMG_GROUP_VALUES 2  // distinct perpendicular coordinates per axis
@@ -159,12 +161,6 @@ __device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y,
 // ---------------------------------------------------------------------------
 // gradient
 // ---------------------------------------------------------------------------
-
-// JAX's reverse-mode weight of operand x of min(x, y) or max(x, y) whose
-// result is z (lax._balanced_eq): 1 if x alone attains z, 1/2 at a tie, else 0
-__device__ __forceinline__ float tie_weight(float x, float z, float y) {
-  return (x == z ? 1.0f : 0.0f) / (y == z ? 2.0f : 1.0f);
-}
 
 // the two squares of one perpendicular slot, backward: adds the cotangent of
 // coordinate c given the cotangent ct of min(sq0, sq1) (or of sq0 alone)

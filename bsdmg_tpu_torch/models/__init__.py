@@ -1,5 +1,6 @@
 from bsdmg_tpu_torch.models.scenes import (
     SCENES,
+    ReferenceCsdf,
     Scene,
     default_object_params,
     get_scene,
@@ -9,6 +10,7 @@ from bsdmg_tpu_torch.models.scenes import (
 
 __all__ = [
     "SCENES",
+    "ReferenceCsdf",
     "Scene",
     "default_object_params",
     "get_scene",

@@ -7,6 +7,10 @@ Port of the reference part of ``bsdmg_tpu/models/scenes.py``:
   radius 1, smoothing k = 0.5, under an optional rigid object transform;
 * ``sd_scene`` (cuda/modules/compute_render.cu:3-19): ``sd_obj`` unioned
   with the mesh-generation bounding-box wireframe (size 5, line width 0.05).
+
+Each scene has its SDF on ``(..., 3)`` points (``Scene.sdf``) and on
+coordinate planes (``Scene.csdf``, a :class:`ReferenceCsdf`), the form the
+differentiable render evaluates and kernels K4 and K5 mirror.
 """
 
 from __future__ import annotations
@@ -21,19 +25,24 @@ from bsdmg_tpu_torch.sdf import primitives as sdf
 Params = dict[str, torch.Tensor]
 SceneFn = Callable[[Params, torch.Tensor], torch.Tensor]
 
+#: line width of the render scene's bounding-box wireframe
+FRAME_LINE_WIDTH = 0.05
+
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """An SDF scene: ``sdf(params, p)`` on ``(..., 3)`` points plus its
     default params. ``reference_compat`` and ``bb_size`` record how the
     scene was built, so the scene compiler (``ops/cuda/csdf.py``) bakes the
-    same geometry."""
+    same geometry. ``csdf(params, x, y, z)`` is the same SDF on coordinate
+    planes, differentiable with respect to ``params``."""
 
     name: str
     sdf: SceneFn
     params: Params
     reference_compat: bool = True
     bb_size: float = 5.0
+    csdf: "ReferenceCsdf | None" = None
 
     def bind(self, params: Params | None = None) -> Callable[[torch.Tensor], torch.Tensor]:
         """Close over ``params`` (default params if None)."""
@@ -91,6 +100,45 @@ def _object_space_c(params: Params, x, y, z):
     return x, y, z
 
 
+def _sd_obj_c(params: Params, x, y, z, *, reference_compat: bool = True) -> torch.Tensor:
+    x, y, z = _object_space_c(params, x, y, z)
+    a1 = sdf.sd_box_skeleton_c(
+        x, y, z,
+        params["skeleton_center"],
+        params["skeleton_size"],
+        params["skeleton_line_width"],
+        reference_compat=reference_compat,
+    )
+    # the reference's sphere is pinned at the origin (common.cu:224)
+    a2 = sdf.sd_sphere_c(x, y, z, (0.0, 0.0, 0.0), params["sphere_radius"])
+    return sdf.smooth_min(a1, a2, params["smooth_k"])
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceCsdf:
+    """``f(params, x, y, z)``: a reference scene's SDF on coordinate planes
+    (``models/scenes.py::_sd_obj_c`` and the render scene's ``cfn``), with
+    the JAX package's operations in its order, computed from the parameter
+    values at call time. ``frame_size`` is the render scene's wireframe
+    size, None for the object alone. The kernels K4 and K5
+    (``ops/cuda/diff_kernel.py``) evaluate the same function from these
+    fields."""
+
+    reference_compat: bool = True
+    frame_size: float | None = None
+
+    def __call__(self, params: Params, x, y, z) -> torch.Tensor:
+        d = _sd_obj_c(params, x, y, z, reference_compat=self.reference_compat)
+        if self.frame_size is None:
+            return d
+        size = float(self.frame_size)
+        frame = sdf.sd_box_skeleton_c(
+            x, y, z, (0.0, 0.0, 0.0), (size, size, size), FRAME_LINE_WIDTH,
+            reference_compat=self.reference_compat,
+        )
+        return sdf.minimum(d, frame)
+
+
 def _sd_obj(params: Params, p: torch.Tensor, *, reference_compat: bool = True) -> torch.Tensor:
     x, y, z = _object_space_c(params, p[..., 0], p[..., 1], p[..., 2])
     p = torch.stack([x, y, z], dim=-1)
@@ -112,7 +160,8 @@ def reference_object(
     """The mesh-generation target object ``sd_obj``."""
     fn = lambda params, p: _sd_obj(params, p, reference_compat=reference_compat)
     return Scene(
-        "reference_object", fn, default_object_params(device), reference_compat
+        "reference_object", fn, default_object_params(device), reference_compat,
+        csdf=ReferenceCsdf(reference_compat),
     )
 
 
@@ -130,14 +179,14 @@ def reference_render_scene(
             p,
             torch.zeros(3, dtype=torch.float32, device=p.device),
             torch.full((3,), bb_size, dtype=torch.float32, device=p.device),
-            0.05,
+            FRAME_LINE_WIDTH,
             reference_compat=reference_compat,
         )
         return torch.minimum(sd, frame)
 
     return Scene(
         "reference_render_scene", fn, default_object_params(device),
-        reference_compat, bb_size,
+        reference_compat, bb_size, ReferenceCsdf(reference_compat, bb_size),
     )
 
 

@@ -49,30 +49,40 @@ def nvcc_path() -> str:
 
 
 def compile_command(source: Path, output: Path) -> list[str]:
-    """nvcc command that compiles one source to a position-independent object."""
+    """nvcc command that compiles one source to a position-independent
+    object; ptxas reports each kernel's registers, stack and spills."""
     return [
         nvcc_path(), *ARCH_FLAGS, *NUMERIC_FLAGS, "-std=c++17", "-O3", "-c",
-        "-Xcompiler", "-fPIC", "-o", str(output), str(source),
+        "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-o", str(output), str(source),
     ]
+
+
+def resource_report(source_name: str) -> str:
+    """ptxas's report (registers, stack, spill bytes per kernel) from the
+    last build of ``csrc/<source_name>``."""
+    return (BUILD_DIR / f"{Path(source_name).stem}.ptxas.txt").read_text()
 
 
 def link_command(objects: list[Path], output: Path) -> list[str]:
     return [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(output), *map(str, objects)]
 
 
-def _run_all(commands: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with each failure's stderr."""
+def _run_all(commands: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; return their stderr, or raise with each
+    failure's."""
     procs = [
         subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for cmd in commands
     ]
-    failures = []
+    failures, outputs = [], []
     for cmd, proc in zip(commands, procs):
         _, err = proc.communicate()
+        outputs.append(err)
         if proc.returncode != 0:
             failures.append(f"{' '.join(cmd)}\nexit code {proc.returncode}:\n{err}")
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return outputs
 
 
 def build() -> Path:
@@ -96,7 +106,9 @@ def build() -> Path:
     objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     partial = BUILD_DIR / f"{LIBRARY.name}.{tag}"
     try:
-        _run_all([compile_command(src, obj) for src, obj in zip(sources(), objects)])
+        reports = _run_all([compile_command(src, obj) for src, obj in zip(sources(), objects)])
+        for src, report in zip(sources(), reports):
+            (BUILD_DIR / f"{src.stem}.ptxas.txt").write_text(report)
         _run_all([link_command(objects, partial)])
         os.replace(partial, LIBRARY)
     finally:

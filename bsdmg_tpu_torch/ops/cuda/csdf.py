@@ -34,16 +34,13 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from bsdmg_tpu_torch.models.scenes import Scene
+from bsdmg_tpu_torch.models.scenes import FRAME_LINE_WIDTH, Scene
 from bsdmg_tpu_torch.sdf.primitives import _box_skeleton_edges
 
 CSdf = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 #: scenes this compiler lowers
 SUPPORTED = ("reference_object", "reference_render_scene")
-
-#: line width of the render scene's bounding-box wireframe
-FRAME_LINE_WIDTH = 0.05
 
 #: parallel-edge groups per capsule set, and distinct perpendicular
 #: coordinates per group axis, that the kernels take (a box skeleton has 3
@@ -89,9 +86,7 @@ class SceneDescriptor:
     wireframe of the render scene (None for the object alone).
     ``inv_rotation`` (rows of R^T) and ``translation`` are the object
     transform, None when it is the identity. ``bounds`` is
-    ``(lo, hi, slack)`` from :func:`scene_bounds`; ``cull_center`` and
-    ``cull_radius`` are the centre and half-diagonal of that box in float64,
-    as the slab cull computes them on the host."""
+    ``(lo, hi, slack)`` from :func:`scene_bounds`."""
 
     object: CapsuleSet
     frame: CapsuleSet | None
@@ -102,8 +97,6 @@ class SceneDescriptor:
     inv_rotation: tuple[tuple[float, float, float], ...] | None
     translation: tuple[float, float, float] | None
     bounds: tuple
-    cull_center: tuple[float, float, float]
-    cull_radius: float
 
 
 def _host(params) -> dict[str, np.ndarray]:
@@ -266,10 +259,6 @@ def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
         oc, rot = transform
         translation = tuple(f32(v) for v in oc)
         inv_rotation = tuple(tuple(f32(v) for v in row) for row in rot.T)
-    bounds = scene_bounds(scene, params)
-    lo, hi = bounds[0], bounds[1]
-    center = tuple((lo[a] + hi[a]) * 0.5 for a in range(3))
-    radius = 0.5 * float(np.sqrt(sum((hi[a] - lo[a]) ** 2 for a in range(3))))
     return SceneDescriptor(
         object=obj,
         frame=frame,
@@ -279,9 +268,7 @@ def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
         k_6=f32(k / 6.0),
         inv_rotation=inv_rotation,
         translation=translation,
-        bounds=bounds,
-        cull_center=center,
-        cull_radius=radius,
+        bounds=scene_bounds(scene, params),
     )
 
 

@@ -1,0 +1,423 @@
+"""The differentiable render's kernels K4 and K5: wrappers and plain twins.
+
+Counterpart of ``bsdmg_tpu/ops/pallas/diff_kernel.py``:
+
+* :func:`march_params_cuda` (kernel K4, for ``march_params_pallas``): the
+  stopped sphere-trace march under runtime parameters, with the slab cull
+  against the caller's trust-region bounds ``bb``, ``dfdt`` (the SDF's
+  derivative along the ray at the end point) and, with ``track_min``, the
+  closest-approach record ``(min_m, t_min)``;
+* :func:`render_loss_grad_cuda` (kernel K5, for ``render_loss_grad_pallas``):
+  the whole image-fit step, the L2 image loss (plus the silhouette hinge
+  with ``edge_weight``) and its gradient with respect to the parameters.
+
+A CUDA tensor goes to the kernel (``csrc/diff_kernel.cu``), a CPU tensor to
+the plain PyTorch twin (:func:`march_params_torch`,
+:func:`render_loss_grad_torch`); nothing falls back from one to the other.
+The scene is a :class:`ReferenceCsdf`, the component form of the reference
+scenes, which the kernels evaluate from the flat parameter vector
+(``weights.flatten_params``). The near/far tile split of the TPU kernels is
+not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bsdmg_tpu_torch.config import MarchConfig
+from bsdmg_tpu_torch.models.scenes import FRAME_LINE_WIDTH, ReferenceCsdf
+from bsdmg_tpu_torch.ops.cuda.build import load_library
+from bsdmg_tpu_torch.ops.cuda.csdf import f32
+from bsdmg_tpu_torch.ops.cuda.render_kernel import (
+    _check_inputs,
+    _floats,
+    _march,
+    _slab_cull,
+    bounds_c,
+    march_c,
+    shading_c,
+)
+from bsdmg_tpu_torch.ops.trace import COLLISION
+from bsdmg_tpu_torch.weights import flatten_params, unflatten_params
+
+#: launches of K4 and of K5 in this process; each wrapper adds one per launch
+MARCH_LAUNCHES = 0
+LOSS_GRAD_LAUNCHES = 0
+
+#: the kernels' source, relative to the repository root
+SOURCE = "bsdmg_tpu_torch/csrc/diff_kernel.cu"
+
+#: parameters the kernels take: the 9 shape values and the object transform
+MAX_PARAMS = 16
+
+#: the parameters the kernels read, with their shapes, in ``ParamScene``'s
+#: order; the transform's two are optional
+PARAM_SHAPES = {
+    "skeleton_center": (3,),
+    "skeleton_size": (3,),
+    "skeleton_line_width": (),
+    "sphere_radius": (),
+    "smooth_k": (),
+    "object_center": (3,),
+    "object_rotation": (4,),
+}
+OPTIONAL_PARAMS = ("object_center", "object_rotation")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+
+def _planes(origins, directions, cone):
+    o = tuple(origins[..., a].reshape(-1) for a in range(3))
+    d = tuple(directions[..., a].reshape(-1) for a in range(3))
+    return o, d, cone.reshape(-1)
+
+
+def _ray_derivative(f, o, d, t):
+    """``f``'s derivative along ``d`` at ``o + t d`` (``jax.jvp`` of
+    ``diff_kernel.py:113-118``), by autograd."""
+    with torch.enable_grad():
+        x = [(oa + t * da).detach().requires_grad_() for oa, da in zip(o, d)]
+        g = torch.autograd.grad(f(*x).sum(), x)
+    return (g[0] * d[0] + g[1] * d[1]) + g[2] * d[2]
+
+
+def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: bool):
+    """K4 on flat planes: ``(depth, steps, outcome, dfdt, min_m, t_min)``,
+    the last two None without ``track_min``."""
+    stopped = {k: v.detach() for k, v in params.items()}
+    f = lambda x, y, z: cfn(stopped, x, y, z)
+    depth = torch.zeros_like(cone)
+    active = torch.ones_like(cone, dtype=torch.bool)
+    limit = torch.full_like(cone, config.depth_limit)
+    if bb is not None:
+        miss, t_exit = _slab_cull(bb, *o, *d, cone, config)
+        depth[miss] = config.depth_limit * 1.01
+        active = ~miss
+        limit = torch.clamp_max(t_exit, config.depth_limit)
+    with torch.no_grad():
+        steps, outcome, min_m, t_min = _march(f, config, *o, *d, cone, active, depth, limit,
+                                              track_min=track_min)
+    return depth, steps, outcome, _ray_derivative(f, o, d, depth), min_m, t_min
+
+
+def march_params_torch(
+    cfn: ReferenceCsdf,
+    params,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cone: torch.Tensor,
+    config: MarchConfig = MarchConfig(),
+    *,
+    bb=None,
+    track_min: bool = False,
+):
+    """Plain PyTorch version of kernel K4 on any device. Returns ``(depth,
+    steps, outcome, dfdt)`` planes, and ``(min_m, t_min)`` after them with
+    ``track_min``."""
+    h, w = cone.shape
+    o, d, c = _planes(origins, directions, cone)
+    outs = _march_planes(cfn, params, o, d, c, config, bb, track_min)
+    return tuple(x.reshape(h, w) for x in outs[: 6 if track_min else 4])
+
+
+def render_loss_grad_torch(
+    cfn: ReferenceCsdf,
+    params,
+    target: torch.Tensor,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cone: torch.Tensor,
+    config: MarchConfig = MarchConfig(),
+    *,
+    bb=None,
+    total_pixels: int | None = None,
+    edge_weight: float = 0.0,
+    edge_band: float | None = None,
+    target_miss: torch.Tensor | None = None,
+):
+    """Plain PyTorch version of kernel K5 on any device: ``(loss, grads)``,
+    ``grads`` a dict like ``params``. The stopped march is K4's twin; the
+    re-attachment, normal and shading are the differentiable render's
+    (``grad/diff_render.py``), differentiated by autograd."""
+    # imported here: grad/diff_render.py imports this module
+    from bsdmg_tpu_torch.grad.diff_render import shade_diff_planes
+    from bsdmg_tpu_torch.grad.edge import edge_loss_planes
+
+    o, d, c = _planes(origins, directions, cone)
+    n_pixels = total_pixels or c.numel()
+    edge = float(edge_weight) != 0.0
+    flat, layout = flatten_params(params)
+    depth, _, outcome, dfdt, min_m, t_min = _march_planes(cfn, params, o, d, c, config, bb, edge)
+    with torch.enable_grad():
+        prm = flat.detach().clone().requires_grad_()
+        p = unflatten_params(prm, layout)
+        rgb = shade_diff_planes(cfn, p, *o, *d, c, depth, dfdt, outcome, config)
+        err = sum((v - target[..., a].reshape(-1)) ** 2 for a, v in enumerate(rgb))
+        loss = err.sum() * (1.0 / (3.0 * n_pixels))
+        if edge:
+            state = _target_state(target, target_miss).reshape(-1)
+            e = edge_loss_planes(
+                lambda x, y, z: cfn(p, x, y, z), *o, *d, c, t_min, min_m,
+                outcome == COLLISION, state, _band(config, edge_band),
+            )
+            loss = loss + float(edge_weight) * e.sum() * (1.0 / n_pixels)
+        (grad,) = torch.autograd.grad(loss, prm)
+    return loss.detach(), unflatten_params(grad, layout)
+
+
+def _target_state(target, target_miss):
+    """0 where the target shows the surface, 1 where it does not."""
+    from bsdmg_tpu_torch.grad.edge import classify_target_miss
+
+    miss = classify_target_miss(target) if target_miss is None else target_miss
+    return miss.to(torch.float32)
+
+
+def _band(config: MarchConfig, edge_band):
+    return 4.0 * config.collision_distance if edge_band is None else float(edge_band)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+class _ParamSceneC(ctypes.Structure):
+    """``ParamScene`` of csrc/param_sdf.cuh: the flat parameters and where
+    each one is, the scene's form, the bounds, the march limits and the
+    shading constants, all as float32 values."""
+
+    _fields_ = [
+        ("prm", _floats(MAX_PARAMS)),
+        ("n_prm", ctypes.c_int),
+        *((name, ctypes.c_int) for name in PARAM_SHAPES),
+        ("reference_compat", ctypes.c_int),
+        ("has_frame", ctypes.c_int),
+        ("frame_size", ctypes.c_float),
+        ("frame_line_width", ctypes.c_float),
+        ("use_bounds", ctypes.c_int),
+        ("lo", _floats(3)),
+        ("hi", _floats(3)),
+        ("cull_center", _floats(3)),
+        ("cull_radius", ctypes.c_float),
+        ("slack", ctypes.c_float),
+        ("collision_distance", ctypes.c_float),
+        ("depth_limit", ctypes.c_float),
+        ("cull_depth", ctypes.c_float),
+        ("step_limit", ctypes.c_int),
+        ("light", _floats(3)),
+        ("color_low", _floats(3)),
+        ("color_delta", _floats(3)),
+        ("aces_m1", _floats(9)),
+        ("aces_m2", _floats(9)),
+        ("aces_curve", _floats(5)),
+    ]
+
+
+def param_scene_c(cfn: ReferenceCsdf, params, config: MarchConfig = MarchConfig(), bb=None):
+    """``(ParamScene, layout)``: the scene and ``params`` as the kernels
+    take them, and the flat vector's layout (``weights.flatten_params``)."""
+    if not isinstance(cfn, ReferenceCsdf):
+        raise NotImplementedError(
+            f"the kernels evaluate the reference scenes' component form "
+            f"(ReferenceCsdf) only, not {type(cfn).__name__}"
+        )
+    flat, layout = flatten_params(params)
+    if flat.numel() > MAX_PARAMS:
+        raise ValueError(f"{flat.numel()} parameter values; the kernels take at most {MAX_PARAMS}")
+    offsets, i = {}, 0
+    for name, shape in layout:
+        want = PARAM_SHAPES.get(name)
+        if want is not None and shape != want:
+            raise ValueError(f"parameter {name!r} has shape {shape}, the kernels take {want}")
+        offsets[name] = i
+        i += int(torch.Size(shape).numel())
+    missing = [n for n in PARAM_SHAPES if n not in offsets and n not in OPTIONAL_PARAMS]
+    if missing:
+        raise ValueError(f"parameters {missing} are missing")
+    values = flat.detach().cpu().tolist()
+    fields = dict(
+        prm=_floats(MAX_PARAMS)(*values),
+        n_prm=len(values),
+        reference_compat=int(cfn.reference_compat),
+        has_frame=int(cfn.frame_size is not None),
+        frame_size=f32(cfn.frame_size or 0.0),
+        frame_line_width=f32(FRAME_LINE_WIDTH),
+        use_bounds=int(bb is not None),
+        **{name: offsets.get(name, -1) for name in PARAM_SHAPES},
+        **march_c(config),
+        **shading_c(),
+    )
+    if bb is not None:
+        fields.update(bounds_c(bb))
+    return _ParamSceneC(**fields), layout
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library with K4's and K5's entry points typed and the
+    ``ParamScene`` layout checked against the source's."""
+    lib = load_library()
+    ptr, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bsdmg_march_params.restype = i32
+    lib.bsdmg_march_params.argtypes = [ptr] * 10 + [i32, i32, ptr]
+    lib.bsdmg_loss_grad_scratch.restype = i32
+    lib.bsdmg_loss_grad_scratch.argtypes = [i32, i32, i32]
+    lib.bsdmg_loss_grad.restype = i32
+    lib.bsdmg_loss_grad.argtypes = [ptr] * 8 + [i32, i32, f, f, f, f, ptr]
+    lib.bsdmg_param_scene_size.restype = i32
+    lib.bsdmg_param_scene_size.argtypes = []
+    lib.bsdmg_error_string.restype = ctypes.c_char_p
+    lib.bsdmg_error_string.argtypes = [i32]
+    size = lib.bsdmg_param_scene_size()
+    if size != ctypes.sizeof(_ParamSceneC):
+        raise RuntimeError(
+            f"ParamScene layout mismatch: {size} bytes in {SOURCE}, "
+            f"{ctypes.sizeof(_ParamSceneC)} in {__name__}"
+        )
+    return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err} ({lib.bsdmg_error_string(err).decode()})")
+
+
+def _march_cuda(scene_c, origins, directions, cone, track_min):
+    global MARCH_LAUNCHES
+    lib = library()
+    h, w = cone.shape
+    depth, dfdt = (torch.empty_like(cone) for _ in range(2))
+    steps, outcome = (torch.empty((h, w), dtype=torch.int32, device=cone.device) for _ in range(2))
+    min_m = t_min = None
+    if track_min:
+        min_m, t_min = (torch.empty_like(cone) for _ in range(2))
+    with torch.cuda.device(cone.device):
+        stream = torch.cuda.current_stream(cone.device).cuda_stream
+        err = lib.bsdmg_march_params(
+            ctypes.byref(scene_c), origins.data_ptr(), directions.data_ptr(), cone.data_ptr(),
+            depth.data_ptr(), steps.data_ptr(), outcome.data_ptr(), dfdt.data_ptr(),
+            0 if min_m is None else min_m.data_ptr(), 0 if t_min is None else t_min.data_ptr(),
+            h, w, stream,
+        )
+    _raise_on(lib, err, "K4 (march_params) launch")
+    MARCH_LAUNCHES += 1
+    return (depth, steps, outcome, dfdt) + ((min_m, t_min) if track_min else ())
+
+
+def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixels,
+                    edge_weight, band):
+    global LOSS_GRAD_LAUNCHES
+    lib = library()
+    h, w = cone.shape
+    n_prm = scene_c.n_prm
+    scratch = torch.empty(lib.bsdmg_loss_grad_scratch(h, w, n_prm), dtype=torch.float32,
+                          device=cone.device)
+    out = torch.empty(n_prm + 1, dtype=torch.float32, device=cone.device)
+    with torch.cuda.device(cone.device):
+        stream = torch.cuda.current_stream(cone.device).cuda_stream
+        err = lib.bsdmg_loss_grad(
+            ctypes.byref(scene_c), origins.data_ptr(), directions.data_ptr(), cone.data_ptr(),
+            target.data_ptr(), 0 if t_state is None else t_state.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), h, w,
+            f32(1.0 / (3.0 * n_pixels)), f32(1.0 / n_pixels), f32(edge_weight), f32(band), stream,
+        )
+    _raise_on(lib, err, "K5 (loss_grad) launch")
+    LOSS_GRAD_LAUNCHES += 1
+    return out
+
+
+def _check_params(params, device) -> None:
+    for name, v in params.items():
+        if not isinstance(v, torch.Tensor) or v.device != device:
+            raise ValueError(f"parameter {name!r} must be a tensor on {device}")
+
+
+def march_params_cuda(
+    cfn: ReferenceCsdf,
+    params,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cone: torch.Tensor,
+    config: MarchConfig = MarchConfig(),
+    *,
+    bb=None,
+    track_min: bool = False,
+):
+    """Sphere-trace an ``(H, W)`` ray image under the parameters ``params``
+    (kernel K4). ``bb``, the bounds of the surface over every parameter
+    value the caller will reach, turns on the slab cull. Returns ``(depth,
+    steps, outcome, dfdt)``, and ``(min_m, t_min)`` after them with
+    ``track_min`` (culled rays carry ``min_m = 1e9``). CUDA tensors go
+    through K4, CPU tensors through :func:`march_params_torch`."""
+    if config.relaxation != 1.0:
+        raise NotImplementedError(
+            "the differentiable march steps exactly (relaxation 1.0); "
+            f"relaxation={config.relaxation} is not ported"
+        )
+    _check_inputs(origins, directions, cone)
+    _check_params(params, cone.device)
+    if cone.device.type == "cuda":
+        scene_c, _ = param_scene_c(cfn, params, config, bb)
+        return _march_cuda(scene_c, origins, directions, cone, track_min)
+    if cone.device.type == "cpu":
+        return march_params_torch(cfn, params, origins, directions, cone, config, bb=bb,
+                                  track_min=track_min)
+    raise ValueError(f"unsupported device {cone.device}")
+
+
+def render_loss_grad_cuda(
+    cfn: ReferenceCsdf,
+    params,
+    target: torch.Tensor,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cone: torch.Tensor,
+    config: MarchConfig = MarchConfig(),
+    *,
+    bb=None,
+    total_pixels: int | None = None,
+    edge_weight: float = 0.0,
+    edge_band: float | None = None,
+    target_miss: torch.Tensor | None = None,
+):
+    """The image-fit step (kernel K5): ``(loss, grads)`` of the L2 loss of
+    the render of ``params`` against ``target`` (``(H, W, 3)`` linear RGB),
+    normalised by ``3 * total_pixels`` (default ``H * W``), plus
+    ``edge_weight`` times the silhouette hinge (``grad/edge.py``) over
+    ``total_pixels``. ``target_miss`` overrides the target's miss mask
+    (default: classified from its colours); ``edge_band`` defaults to
+    ``4 * collision_distance``. ``grads`` is a dict like ``params``. CUDA
+    tensors go through K5, CPU tensors through :func:`render_loss_grad_torch`."""
+    if config.relaxation != 1.0:
+        raise NotImplementedError(
+            "the fused loss steps exactly (relaxation 1.0); "
+            f"relaxation={config.relaxation} is not ported"
+        )
+    _check_inputs(origins, directions, cone)
+    _check_params(params, cone.device)
+    h, w = cone.shape
+    if not isinstance(target, torch.Tensor) or target.dtype != torch.float32:
+        raise TypeError("target must be a float32 tensor")
+    if tuple(target.shape) != (h, w, 3) or not target.is_contiguous() or target.device != cone.device:
+        raise ValueError(f"target must be a contiguous ({h}, {w}, 3) tensor on {cone.device}")
+    if cone.device.type == "cpu":
+        return render_loss_grad_torch(
+            cfn, params, target, origins, directions, cone, config, bb=bb,
+            total_pixels=total_pixels, edge_weight=edge_weight, edge_band=edge_band,
+            target_miss=target_miss,
+        )
+    if cone.device.type != "cuda":
+        raise ValueError(f"unsupported device {cone.device}")
+    scene_c, layout = param_scene_c(cfn, params, config, bb)
+    edge = float(edge_weight) != 0.0
+    t_state = _target_state(target, target_miss).contiguous() if edge else None
+    out = _loss_grad_cuda(
+        scene_c, origins, directions, cone, target, t_state, total_pixels or h * w,
+        float(edge_weight), _band(config, edge_band),
+    )
+    return out[0], unflatten_params(out[1:], layout)

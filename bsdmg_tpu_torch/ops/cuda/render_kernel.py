@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from bsdmg_tpu_torch.config import MarchConfig
@@ -59,18 +60,36 @@ SOURCE = "bsdmg_tpu_torch/csrc/render_kernel.cu"
 # ---------------------------------------------------------------------------
 
 
-def _slab_cull(desc: SceneDescriptor, ox, oy, oz, dx, dy, dz, cone, config: MarchConfig):
-    """Returns ``(miss, t_exit)`` (render_kernel.py::_slab_cull).
+def _bounds_parts(bb):
+    """``(lo, hi, slack)`` of a bounds tuple; a bare ``(lo, hi)`` gets the
+    JAX package's default slack 0.1 (render_kernel.py::_bb_parts)."""
+    if len(bb) > 2:
+        return bb[0], bb[1], float(bb[2])
+    return bb[0], bb[1], 0.1
+
+
+def _cull_sphere(bb):
+    """Centre and half-diagonal of the bounds, in float64 as the JAX
+    package computes them on the host."""
+    lo, hi, _ = _bounds_parts(bb)
+    center = tuple((lo[a] + hi[a]) * 0.5 for a in range(3))
+    radius = 0.5 * float(np.sqrt(sum((hi[a] - lo[a]) ** 2 for a in range(3))))
+    return center, radius
+
+
+def _slab_cull(bb, ox, oy, oz, dx, dy, dz, cone, config: MarchConfig):
+    """Returns ``(miss, t_exit)`` for the bounds ``bb``
+    (render_kernel.py::_slab_cull).
 
     A collision at depth t needs ``f <= cone*t + eps`` and
     ``f >= t - D - r - slack`` (D the origin's distance to the box centre, r
     the box's half-diagonal), so ``t <= T* = (D + r + slack + eps)/(1 - cone)``
     and the ray must pierce the box inflated by ``cone*T* + eps + slack``."""
-    lo, hi, slack = desc.bounds
+    lo, hi, slack = _bounds_parts(bb)
+    (cx, cy, cz), radius = _cull_sphere(bb)
     eps = config.collision_distance
-    cx, cy, cz = desc.cull_center
     ex, ey, ez = ox - cx, oy - cy, oz - cz
-    reach = torch.sqrt(ex * ex + ey * ey + ez * ez) + desc.cull_radius + slack + eps
+    reach = torch.sqrt(ex * ex + ey * ey + ez * ez) + radius + slack + eps
     t_star = torch.where(
         cone < 0.5, reach / torch.clamp_min(1.0 - cone, 0.5), config.depth_limit
     )
@@ -92,10 +111,14 @@ def _slab_cull(desc: SceneDescriptor, ox, oy, oz, dx, dy, dz, cone, config: Marc
     return tmax < t_enter, torch.clamp_min(tmax, 0.0)
 
 
-def _march(csdf, config: MarchConfig, ox, oy, oz, dx, dy, dz, cone, active, depth, limit):
+def _march(csdf, config: MarchConfig, ox, oy, oz, dx, dy, dz, cone, active, depth, limit,
+           track_min: bool = False):
     """Exact sphere trace of the ``active`` rays of flat ray planes
     (render_kernel.py::_march, ``omega = 1``). Updates ``depth`` in place and
-    returns ``(steps, outcome)``.
+    returns ``(steps, outcome, min_m, t_min)``; with ``track_min`` the last
+    two are the closest-approach record, the minimum of ``f - cone*t`` over
+    the sampled points and its depth (1e9 and 0 for a ray never sampled),
+    else None.
 
     The rays still marching are gathered each step, so the cost follows the
     live rays; every per-ray operation is the kernel's."""
@@ -103,11 +126,21 @@ def _march(csdf, config: MarchConfig, ox, oy, oz, dx, dy, dz, cone, active, dept
     steps = torch.zeros_like(depth, dtype=torch.int32)
     outcome = torch.full_like(steps, DEPTH_LIMIT)
     outcome[active] = STEP_LIMIT
+    min_m = t_min = None
+    if track_min:
+        # 1e9 == grad/edge.py::UNTRACKED
+        min_m = torch.full_like(depth, 1e9)
+        t_min = torch.zeros_like(depth)
     live = active.nonzero().squeeze(1)
     while live.numel():
         t = depth[live]
         cd = cone[live] * t
         dist = csdf(ox[live] + t * dx[live], oy[live] + t * dy[live], oz[live] + t * dz[live])
+        if track_min:
+            m = dist - cd
+            closer = m < min_m[live]
+            min_m[live[closer]] = m[closer]
+            t_min[live[closer]] = t[closer]
         hit = dist <= cd + eps
         outcome[live[hit]] = COLLISION
         advance = ~hit
@@ -119,7 +152,7 @@ def _march(csdf, config: MarchConfig, ox, oy, oz, dx, dy, dz, cone, active, dept
         s = steps[live] + survived.to(torch.int32)
         steps[live] = s
         live = live[survived & (s < config.step_limit)]
-    return steps, outcome
+    return steps, outcome, min_m, t_min
 
 
 def _fd_normal(csdf, px, py, pz, eps: float):
@@ -162,11 +195,11 @@ def render_image_planes_torch(
     dx, dy, dz = (directions[..., a].reshape(-1) for a in range(3))
     c = cone.reshape(-1)
 
-    miss, t_exit = _slab_cull(scene_desc, ox, oy, oz, dx, dy, dz, c, config)
+    miss, t_exit = _slab_cull(scene_desc.bounds, ox, oy, oz, dx, dy, dz, c, config)
     depth = torch.zeros_like(c)
     depth[miss] = config.depth_limit * 1.01
     limit = torch.clamp_max(t_exit, config.depth_limit)
-    steps, outcome = _march(csdf, config, ox, oy, oz, dx, dy, dz, c, ~miss, depth, limit)
+    steps, outcome, _, _ = _march(csdf, config, ox, oy, oz, dx, dy, dz, c, ~miss, depth, limit)
 
     n = [torch.zeros_like(c) for _ in range(3)]
     hit = (outcome == COLLISION).nonzero().squeeze(1)
@@ -274,9 +307,45 @@ def _capsule_set_c(cs: CapsuleSet) -> _CapsuleSetC:
     )
 
 
+def bounds_c(bb) -> dict:
+    """The slab cull's fields of ``SceneDesc`` and ``ParamScene`` for the
+    bounds ``bb``, as float32 values."""
+    lo, hi, slack = _bounds_parts(bb)
+    center, radius = _cull_sphere(bb)
+    return dict(
+        lo=_floats(3)(*_f32s(lo)),
+        hi=_floats(3)(*_f32s(hi)),
+        cull_center=_floats(3)(*_f32s(center)),
+        cull_radius=f32(radius),
+        slack=f32(slack),
+    )
+
+
+def march_c(config: MarchConfig) -> dict:
+    """The march limits' fields of ``SceneDesc`` and ``ParamScene``."""
+    return dict(
+        collision_distance=f32(config.collision_distance),
+        depth_limit=f32(config.depth_limit),
+        cull_depth=f32(config.depth_limit * 1.01),
+        step_limit=int(config.step_limit),
+    )
+
+
+def shading_c() -> dict:
+    """The shading constants' fields of ``SceneDesc`` and ``ParamScene``
+    (csrc/common.cuh reads them by name from either)."""
+    return dict(
+        light=_floats(3)(*_f32s(light_direction())),
+        color_low=_floats(3)(*_f32s(COLOR_LOW)),
+        color_delta=_floats(3)(*_f32s(h - l for h, l in zip(COLOR_HIGH, COLOR_LOW))),
+        aces_m1=_floats(9)(*_f32s(v for row in _ACES_M1 for v in row)),
+        aces_m2=_floats(9)(*_f32s(v for row in _ACES_M2 for v in row)),
+        aces_curve=_floats(5)(*_f32s(ACES_CURVE)),
+    )
+
+
 def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> _SceneDescC:
     """The descriptor as the kernels take it (``SceneDesc``)."""
-    lo, hi, slack = desc.bounds
     has_transform = desc.translation is not None
     rotation = [v for row in desc.inv_rotation for v in row] if has_transform else [0.0] * 9
     return _SceneDescC(
@@ -290,22 +359,10 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> 
         k_6=desc.k_6,
         inv_rotation=_floats(9)(*rotation),
         translation=_floats(3)(*(desc.translation if has_transform else (0.0,) * 3)),
-        lo=_floats(3)(*_f32s(lo)),
-        hi=_floats(3)(*_f32s(hi)),
-        cull_center=_floats(3)(*_f32s(desc.cull_center)),
-        cull_radius=f32(desc.cull_radius),
-        slack=f32(slack),
-        collision_distance=f32(config.collision_distance),
-        depth_limit=f32(config.depth_limit),
-        cull_depth=f32(config.depth_limit * 1.01),
         normal_epsilon=f32(config.normal_epsilon),
-        step_limit=int(config.step_limit),
-        light=_floats(3)(*_f32s(light_direction())),
-        color_low=_floats(3)(*_f32s(COLOR_LOW)),
-        color_delta=_floats(3)(*_f32s(h - l for h, l in zip(COLOR_HIGH, COLOR_LOW))),
-        aces_m1=_floats(9)(*_f32s(v for row in _ACES_M1 for v in row)),
-        aces_m2=_floats(9)(*_f32s(v for row in _ACES_M2 for v in row)),
-        aces_curve=_floats(5)(*_f32s(ACES_CURVE)),
+        **bounds_c(desc.bounds),
+        **march_c(config),
+        **shading_c(),
     )
 
 

@@ -1,9 +1,19 @@
 from bsdmg_tpu_torch.sdf.normals import normal_fd4
 from bsdmg_tpu_torch.sdf.primitives import (
     sd_box_skeleton,
+    sd_box_skeleton_c,
     sd_line,
     sd_sphere,
+    sd_sphere_c,
     smooth_min,
 )
 
-__all__ = ["normal_fd4", "sd_box_skeleton", "sd_line", "sd_sphere", "smooth_min"]
+__all__ = [
+    "normal_fd4",
+    "sd_box_skeleton",
+    "sd_box_skeleton_c",
+    "sd_line",
+    "sd_sphere",
+    "sd_sphere_c",
+    "smooth_min",
+]

@@ -1,8 +1,15 @@
 """The SDF primitives of the reference scenes, on ``(..., 3)`` point tensors.
 
 Port of the subset of ``bsdmg_tpu/sdf/primitives.py`` that the reference
-object and render scene use (reference: cuda/includes/signed_distance.cu).
-The rest of that library comes with the scenes that need it.
+object and render scene use (reference: cuda/includes/signed_distance.cu),
+in the point form and in the component form on coordinate planes that the
+differentiable render evaluates. The rest of that library comes with the
+scenes that need it.
+
+Where a function is differentiated, its ``min``, ``max`` and ``abs`` follow
+JAX's derivative rules: at a tie each operand of ``minimum``/``maximum``
+gets half the gradient (``torch.maximum`` does so; ``torch.clamp`` passes it
+all), and ``abs`` has derivative +1 at 0 (``torch.abs`` has 0).
 """
 
 from __future__ import annotations
@@ -21,11 +28,37 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(dim=-1)
 
 
+def maximum(a, b) -> torch.Tensor:
+    """``jnp.maximum``: elementwise max of tensors or Python numbers, each
+    operand getting half the gradient at a tie."""
+    a, b = _tensors(a, b)
+    return torch.maximum(a, b)
+
+
+def minimum(a, b) -> torch.Tensor:
+    """``jnp.minimum``, with :func:`maximum`'s tie rule."""
+    a, b = _tensors(a, b)
+    return torch.minimum(a, b)
+
+
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs``, with derivative +1 at 0 as JAX has it."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _tensors(a, b):
+    like = a if isinstance(a, torch.Tensor) else b
+    return (
+        torch.as_tensor(a, dtype=like.dtype, device=like.device),
+        torch.as_tensor(b, dtype=like.dtype, device=like.device),
+    )
+
+
 def smooth_min(a: torch.Tensor, b: torch.Tensor, k) -> torch.Tensor:
     """Cubic smooth minimum with width ``k`` (signed_distance.cu:20-23):
     ``h = max(k - |a-b|, 0)/k;  min(a,b) - h^3 * k / 6``."""
-    h = torch.clamp_min(k - torch.abs(a - b), 0.0) / k
-    return torch.minimum(a, b) - h * h * h * k * (1.0 / 6.0)
+    h = maximum(k - abs_(a - b), 0.0) / k
+    return minimum(a, b) - h * h * h * k * (1.0 / 6.0)
 
 
 def sd_sphere(p: torch.Tensor, center=0.0, radius=1.0) -> torch.Tensor:
@@ -100,3 +133,58 @@ def sd_box_skeleton(
     starts, ends = _box_skeleton_edges(center, size, reference_compat)
     d = sd_line(p[..., None, :], starts.to(p.device), ends.to(p.device))  # (..., 12)
     return d.amin(dim=-1) - line_width
+
+
+# ---------------------------------------------------------------------------
+# component form: coordinate planes x, y, z, parameters as scalars
+# ---------------------------------------------------------------------------
+
+
+def _vec3(v):
+    """A 3-vector parameter as three scalars: a tuple or list (one value is
+    repeated), a 0-d tensor or a (3,) tensor (sdf/primitives.py::_vec3)."""
+    if isinstance(v, (tuple, list)):
+        return (v[0], v[0], v[0]) if len(v) == 1 else tuple(v)
+    v = torch.as_tensor(v, dtype=torch.float32)
+    if v.dim() == 0:
+        return (v, v, v)
+    v = v.broadcast_to((3,))
+    return (v[0], v[1], v[2])
+
+
+def sd_sphere_c(x, y, z, center, radius):
+    """Component form of :func:`sd_sphere`."""
+    c = _vec3(center)
+    dx, dy, dz = x - c[0], y - c[1], z - c[2]
+    return torch.sqrt(dx * dx + dy * dy + dz * dz) - radius
+
+
+def sd_box_skeleton_c(x, y, z, center, size, line_width, *, reference_compat=True):
+    """Component form of :func:`sd_box_skeleton`, in the JAX package's
+    operation order (sdf/primitives.py::sd_box_skeleton_c): per axis ``d``
+    the capsules along ``d`` are ``axial + min(V1) + min(V2)`` with
+    ``lo = c - s/2``, ``o1b = o1 - s1`` (``s1`` the size at ``(d+1)%2``
+    under ``reference_compat``), then ``sqrt`` of the minimum over the axes
+    minus ``line_width``."""
+    center = _vec3(center)
+    size = _vec3(size)
+    coords = (x, y, z)
+    lo = tuple(c - s / 2.0 for c, s in zip(center, size))
+
+    best = None
+    for d in range(3):
+        a1, a2 = (d + 1) % 3, (d + 2) % 3
+        r = coords[d] - lo[d]
+        t = minimum(maximum(r, 0.0), size[d])  # jnp.clip(r, 0, size[d])
+        e = r - t
+        axial = e * e
+        s1 = size[(d + 1) % 2] if reference_compat else size[a1]
+        o1 = coords[a1] - lo[a1]
+        o1b = o1 - s1
+        o2 = coords[a2] - lo[a2]
+        o2b = o2 - size[a2]
+        m1 = torch.minimum(o1 * o1, o1b * o1b)
+        m2 = torch.minimum(o2 * o2, o2b * o2b)
+        d2 = axial + m1 + m2
+        best = d2 if best is None else torch.minimum(best, d2)
+    return torch.sqrt(best) - line_width

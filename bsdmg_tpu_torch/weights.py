@@ -4,7 +4,10 @@ The system has no weights: its state is a scene's parameter dict, the
 camera, and in mesh generation the voxel field between levels. These
 helpers turn the JAX package's values (anything ``numpy.asarray`` accepts,
 float32) into this package's float32 tensors, so both packages compute from
-the same numbers.
+the same numbers, and flatten a parameter dict into the vector the
+differentiable render's kernels take, in the JAX package's leaf order, so
+that a flat gradient of either package lines up with the other's index for
+index.
 """
 
 from __future__ import annotations
@@ -43,3 +46,31 @@ def field_from_numpy(lowers, voxel_size, level, device: torch.device | str) -> V
         voxel_size=float(np.float32(voxel_size)),
         level=int(level),
     )
+
+
+#: ``((name, shape), ...)``: how :func:`flatten_params` laid the vector out
+ParamLayout = tuple[tuple[str, tuple[int, ...]], ...]
+
+
+def flatten_params(params: Mapping[str, Any]) -> tuple[torch.Tensor, ParamLayout]:
+    """``(flat, layout)``: the parameters as one float32 vector, in
+    ``jax.tree_util.tree_flatten``'s order (dict keys sorted), the
+    counterpart of ``bsdmg_tpu/ops/pallas/diff_kernel.py::flatten_param_tree``.
+    Differentiable: the vector keeps the tensors' autograd history."""
+    names = sorted(params)
+    values = [torch.as_tensor(params[n], dtype=torch.float32) for n in names]
+    layout = tuple((n, tuple(v.shape)) for n, v in zip(names, values))
+    return torch.cat([v.reshape(-1) for v in values]), layout
+
+
+def unflatten_params(flat: torch.Tensor, layout: ParamLayout) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`flatten_params`: views of ``flat`` by name."""
+    sizes = [int(np.prod(shape)) if shape else 1 for _, shape in layout]
+    if sum(sizes) != flat.numel():
+        raise ValueError(f"layout covers {sum(sizes)} values, the vector has {flat.numel()}")
+    out = {}
+    i = 0
+    for (name, shape), n in zip(layout, sizes):
+        out[name] = flat[i : i + n].reshape(shape)
+        i += n
+    return out

@@ -22,7 +22,25 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    JAX package's Pallas-vs-XLA bars), K6 also at level 5;
 8. K6 times at levels 3 and 5, K7 at level 3, the plain versions at level
    3; the stage times of mesh generation: refine to level 5, then
-   extraction, weld and OBJ write at levels 3 and 5.
+   extraction, weld and OBJ write at levels 3 and 5;
+9. the fit path: ``cli fit --image`` at its defaults (64x64, 60 steps),
+   which must launch K4 (the target) and K5 once per step, with a falling
+   loss; the same 60 steps through K4's and K5's plain versions on the
+   card, with K5 held against its plain version at every step's
+   parameters, and the two fits' parameters compared after 10 to 60 steps
+   (beside a fit of the plain versions from a start one float32 step
+   away, which shows how far rounding alone parts two fits); ``cli fit
+   --image`` at 512x512 for 10 steps (the JAX package's training operating point) and
+   ``--steps 0`` beside each size, for the time per step; ``cli fit``
+   (depth) at its defaults, whose loss must fall;
+10. K4 against its plain version with the scene's 16 parameter values at
+    1920x1080 and 512x512 and with the fit's 9 at 512x512 and 64x64
+    (depth, steps, outcome, min_m and t_min bit for bit, dfdt within a
+    bar), K5 against its plain version at 512x512 at the bench point and
+    the fit point, the latter also with 16 values, and at the fit point at
+    64x64 (the JAX package's bars, and bit-equal across two calls); K4 and
+    K5 times with the plain versions' beside them, registers and local
+    memory.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that did not launch its kernel fails. Then one JSON
@@ -66,6 +84,32 @@ NORMAL_ATOL = 2e-4
 MESH_LEVEL_VOXELS = [32768, 4136, 16532, 66124]
 MESH_TRIANGLES = 132272
 MESH_VERTICES = 66130
+
+# bars of K4 and K5 against their plain versions: the JAX package's Pallas
+# kernels against their oracles (tests/test_grad.py:296-301, :373-378);
+# dfdt is the kernel's hand-written gradient against the plain version's
+# autograd, which sum in other orders
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-3
+GRAD_ATOL = 1e-6
+DFDT_ATOL = 1e-5
+# `cli fit --image`'s defaults: its perturbation, learning rate and steps
+FIT_PERTURB = {"sphere_radius": ("mul", 1.25), "smooth_k": ("mul", 0.7),
+               "skeleton_line_width": ("mul", 1.3)}
+FIT_LR = 0.2
+FIT_STEPS = 60
+FIT_SNAPSHOTS = (10, 20, 30, 40, 50, FIT_STEPS)
+# the parameters of the CLI's Adam steps through the kernels and through
+# their plain versions: after 10 steps within a twentieth of one step
+# (0.02); after all 60 the watched ones within 5% of their values. From
+# step ~20 the fit parts two runs whose gradients differ by rounding: on an
+# NVIDIA H100 80GB HBM3 at 700 W, K5 stayed within the gradient bars at
+# every step's parameters and no gradient's sign differed, yet after 60
+# steps the runs parted by up to 2.9% (skeleton_line_width), and two runs of
+# the plain versions whose starts differ by one float32 step in
+# sphere_radius parted by up to 2.0%
+FIT_PARAM_ATOL_10 = 1e-3
+FIT_PARAM_RTOL = 5e-2
 
 # Peaks of one H100 SXM (NVIDIA's data sheet): FP32
 # outside the tensor cores and HBM. A kernel's bound is the larger of its
@@ -151,6 +195,35 @@ def newton_step_ops(desc, use_grad: bool) -> int:
     return grad + INV_NORM + 9 + 2
 
 
+# param_sdf.cuh, counted by the same rules (the parameter form of the
+# reference scenes, evaluated from the parameters on every call)
+SKELETON = 52  # skeleton_fwd: per axis 16 (offset, clamp 2, difference, four
+# offsets, five squares, two mins, two adds), two mins across axes, sqrt, width
+SKELETON_BWD = 138  # skeleton_bwd without recomputed values: the sqrt's weight 2,
+# the min chain 16, per axis 40 (axial 12, two slots of 14)
+TRANSFORM = 70  # translation 3, quaternion to matrix 52, rotation 15
+SMOOTH_BWD = 32  # scene_value_grad's smooth-min and sphere backward
+CULL = 64  # common.cuh slab_cull (RAY's cull part)
+ACES = 60  # common.cuh aces (RAY's ACES part)
+SHADE = 13  # common.cuh shade_collision: light dot 7, colour mix 6
+
+
+def param_sdf_ops(frame: bool, transform: bool) -> int:
+    """param_sdf.cuh scene_value: the skeleton's low corner (6), the
+    skeleton, the sphere (7), the smooth minimum (11); the transform; the
+    wireframe's corner (6), skeleton and the min."""
+    return 6 + SKELETON + 7 + 11 + (TRANSFORM if transform else 0) + (
+        6 + SKELETON + 1 if frame else 0)
+
+
+def param_grad_ops(frame: bool, transform: bool) -> int:
+    """param_sdf.cuh scene_value_grad: the value, the smooth-min and sphere
+    backward, the skeleton's backward, the rotation's transpose (15), the
+    two tie weights of the wireframe's min and its skeleton's backward."""
+    return (param_sdf_ops(frame, transform) + SMOOTH_BWD + SKELETON_BWD
+            + (15 if transform else 0) + (2 * TIE + SKELETON_BWD if frame else 0))
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -226,10 +299,21 @@ def median_ms(fn, runs: int = 7, reps: int = 1, warmup: int = 2) -> float:
 
 
 def reset_launches() -> None:
-    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel, render_kernel
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel, mc_kernel, mesh_kernel, render_kernel
 
     for module in (render_kernel, mc_kernel, mesh_kernel):
         module.LAUNCHES = 0
+    diff_kernel.MARCH_LAUNCHES = 0
+    diff_kernel.LOSS_GRAD_LAUNCHES = 0
+
+
+def march_work(steps, outcome, depth) -> tuple[int, int, int]:
+    """``(evaluations, advances, hits)`` of a march, as K1's are counted."""
+    culled = (outcome == 2) & (steps == 0) & (depth == float(np.float32(500.0 * 1.01)))
+    marched = ~culled
+    evals = steps.sum().item() + int(((outcome != 1) & marched).sum().item())
+    advances = steps.sum().item() + int(((outcome == 2) & marched).sum().item())
+    return evals, advances, int((outcome == 0).sum().item())
 
 
 def render_phases(card: str, device) -> dict:
@@ -272,11 +356,7 @@ def render_phases(card: str, device) -> dict:
     # depth limit) 3 more; a hit's fd4 normal and shading add the point (6),
     # 2*eps, 12 shifted SDFs, the stencil (15), the normalisation (7), the
     # Lambert term (10) and the colour mix (6)
-    culled = (outcome == 2) & (steps == 0) & (kernel[1] == float(np.float32(500.0 * 1.01)))
-    marched = ~culled
-    evals = steps.sum().item() + int(((outcome != 1) & marched).sum().item())
-    advances = steps.sum().item() + int(((outcome == 2) & marched).sum().item())
-    hits = counts[0]
+    evals, advances, hits = march_work(steps, outcome, kernel[1])
     npix = 1920 * 1080
     sdf = sdf_ops(desc)
     ops = (evals * (sdf + 9) + advances * 3 + hits * (6 + 1 + 12 * (sdf + 1) + 15 + 7 + 10 + 6)
@@ -344,11 +424,11 @@ def read_obj_counts(path: Path) -> tuple[int, int, int, bool]:
     return v, vn, f, finite
 
 
-def mesh_cli(argv: list[str]) -> tuple[dict, list[str], float]:
-    """Runs ``cli mesh`` with every launch count set to 0; returns the
+def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
+    """Runs ``cli <argv>`` with every launch count set to 0; returns the
     counts after it, the CLI's log lines and the seconds it took."""
     from bsdmg_tpu_torch import cli
-    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel, mc_kernel, mesh_kernel
 
     records = _Records()
     logger = logging.getLogger("bsdmg_tpu_torch")
@@ -357,10 +437,13 @@ def mesh_cli(argv: list[str]) -> tuple[dict, list[str], float]:
     logger.setLevel(logging.INFO)
     try:
         reset_launches()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cli.main(["mesh", *argv])
+        cli.main(argv)
+        torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES}
+        launches = {"K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
+                    "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES}
     finally:
         logger.removeHandler(records)
         logger.setLevel(old_level)
@@ -373,7 +456,7 @@ def mesh_path_phases() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for name, extra in (("K6", []), ("K7", ["--interpolate-edges"])):
             obj = Path(tmp) / f"mesh_{name}.obj"
-            counts, messages, seconds = mesh_cli(["-o", str(obj), *extra])
+            counts, messages, seconds = run_cli(["mesh", "-o", str(obj), *extra])
             check(counts[name] > 0, f"cli mesh {' '.join(extra)} did not launch {name}: {counts}")
             v, vn, f, finite = read_obj_counts(obj)
             voxels = [int(m.split()[2]) for m in messages if m.startswith("level ")]
@@ -561,6 +644,361 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
     return out
 
 
+def inflated(bounds, by: float):
+    lo, hi, slack = bounds
+    return (tuple(v - by for v in lo), tuple(v + by for v in hi), slack)
+
+
+def shape_params(scene) -> dict:
+    """The fit's parameters: the scene's, without the object transform."""
+    return {k: v for k, v in scene.params.items() if k not in ("object_center", "object_rotation")}
+
+
+def step_losses(messages: list[str]) -> list[float]:
+    return [float(m.split("loss=")[1].split()[0]) for m in messages if m.startswith("step ")]
+
+
+def plain_fit(scene, true: dict, start: dict, o, d, c, snapshots, shadow: bool = False):
+    """``cli.fit_image``'s target and Adam steps through K4's and K5's plain
+    versions on the card: returns the parameters after each of
+    ``snapshots`` steps, the losses and, with ``shadow``, K5 against the
+    plain version at every step's parameters (loss error, excess over the
+    gradient bars, gradients, where the two gradients' signs differ)."""
+    from bsdmg_tpu_torch.grad.diff_render import shade_diff_planes
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
+
+    bb = inflated(scene_bounds(scene), 0.6)
+    h, w = c.shape
+    depth, _, outcome, dfdt = (x.reshape(-1)
+                               for x in dk.march_params_torch(scene.csdf, true, o, d, c, bb=bb))
+    planes = [o[..., a].reshape(-1) for a in range(3)] + [d[..., a].reshape(-1) for a in range(3)]
+    rgb = shade_diff_planes(scene.csdf, true, *planes, c.reshape(-1), depth, dfdt, outcome)
+    target = torch.stack(rgb, dim=-1).reshape(h, w, 3).detach()
+
+    params = {k: v.detach().clone().requires_grad_() for k, v in start.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=FIT_LR * 0.1)
+    snaps, losses = {}, []
+    stats = {"loss_rel": [], "excess": [], "grads": {k: [] for k in params},
+             "signs": {k: [] for k in params}}
+    for i in range(max(snapshots)):
+        loss, grads = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c, bb=bb,
+                                                edge_weight=1.0)
+        if shadow:
+            k_loss, k_grads = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb,
+                                                       edge_weight=1.0)
+            stats["loss_rel"].append(abs(k_loss.item() - loss.item()) / abs(loss.item()))
+            stats["excess"].append(max(
+                ((k_grads[k] - grads[k]).abs() - GRAD_ATOL - GRAD_RTOL * grads[k].abs()).max().item()
+                for k in grads))
+            for k in grads:
+                stats["grads"][k].append(grads[k])
+                stats["signs"][k].append(torch.sign(k_grads[k]) != torch.sign(grads[k]))
+        opt.zero_grad()
+        for k in params:
+            params[k].grad = grads[k].clone()
+        opt.step()
+        losses.append(loss.item())
+        if i + 1 in snapshots:
+            snaps[i + 1] = {k: v.detach().clone() for k, v in params.items()}
+    return snaps, losses, stats
+
+
+def fit_path_phases(card: str, device) -> dict:
+    """Phase 9: the fit path through the CLI; the kernels' 60 steps against
+    their plain versions'; the time per step."""
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.models import reference_render_scene
+
+    out = {}
+    # torch.optim's first use in a process imports more of torch; timed
+    # here so that the CLI's first run below does not carry it
+    t0 = time.perf_counter()
+    torch.optim.Adam([torch.zeros(1, device=device, requires_grad=True)])
+    print(f"fit path: torch.optim.Adam's first construction in this process {time.perf_counter() - t0:.2f} s")
+    counts, messages, seconds = run_cli(["fit", "--image"])
+    losses = step_losses(messages)
+    print(f"fit path: cli fit --image (64x64, {FIT_STEPS} steps) in {seconds:.2f} s, launches {counts}; "
+          f"loss {losses[0]:.4e} -> {losses[-1]:.4e}")
+    print(f"  {messages[-1]}")
+    check(counts["K4"] >= 1 and counts["K5"] == FIT_STEPS,
+          f"cli fit --image launched K4 {counts['K4']} and K5 {counts['K5']} times")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"fit --image loss did not fall: {losses}")
+    out["launches"] = counts
+    out["recovered"] = messages[-1]
+    # the step time from warm runs: the first run pays one-time set-up
+    _, _, base = run_cli(["fit", "--image", "--steps", "0"])
+    _, _, warm = run_cli(["fit", "--image"])
+    out["step_s_64"] = (warm - base) / FIT_STEPS
+    print(f"  again, warm: {warm:.3f} s; with --steps 0: {base:.3f} s")
+
+    # the CLI's steps through the kernels (`cli.fit_image`) and through
+    # their plain versions, with K5 held against its plain version at every
+    # step's parameters; and the plain versions again from a start one
+    # float32 step away, to show how far rounding alone parts two fits
+    scene = reference_render_scene(device=device)
+    true = shape_params(scene)
+    start = cli._apply_perturb(true, FIT_PERTURB)
+    inf = torch.tensor(float("inf"), device=device)
+    nudged_start = dict(start, sphere_radius=torch.nextafter(start["sphere_radius"], inf))
+    o, d, c = rays(64, 64, device)
+    logger = logging.getLogger("bsdmg_tpu_torch")
+    old_level = logger.level
+    logger.setLevel(logging.WARNING)
+    try:
+        kern = {n: cli.fit_image(scene, true, start, o, d, c, steps=n, lr=FIT_LR)
+                for n in FIT_SNAPSHOTS}
+    finally:
+        logger.setLevel(old_level)
+    plain, plain_losses, shadow = plain_fit(scene, true, start, o, d, c, FIT_SNAPSHOTS, shadow=True)
+    nudged, _, _ = plain_fit(scene, true, nudged_start, o, d, c, FIT_SNAPSHOTS)
+
+    watched = sorted(FIT_PERTURB)
+    check(out["recovered"].startswith(f"recovered {cli._fmt(kern[FIT_STEPS][0], watched)} "),
+          "the CLI's recovered parameters differ from the same steps run here")
+    worst = max(shadow["loss_rel"])
+    print(f"fit --image, K5 against its plain version at each of the {FIT_STEPS} steps' parameters: "
+          f"loss rel err max {worst:.3e}, gradient excess over the bars max {max(shadow['excess']):.3e}")
+    check(worst <= LOSS_RTOL and max(shadow["excess"]) <= 0,
+          f"K5 outside the bars on the fit's path: {shadow}")
+    parted = {}
+    for n in FIT_SNAPSHOTS:
+        k, p, q = kern[n][0], plain[n], nudged[n]
+        parted[n] = {name: (abs(k[name] - p[name]).max().item(), abs(q[name] - p[name]).max().item())
+                     for name in sorted(p)}
+        leaf = max(parted[n], key=lambda name: parted[n][name][0])
+        print(f"fit --image, {n} steps, kernels vs plain versions: largest difference "
+              f"{parted[n][leaf][0]:.3e} in {leaf}; plain versions from the nudged start "
+              f"{max(v[1] for v in parted[n].values()):.3e}; kernels {cli._fmt(k, watched)}, "
+              f"plain {cli._fmt(p, watched)}")
+    print("  per leaf after {}: |kernels - plain| / |nudged plain - plain| / "
+          "median |gradient| over the steps / steps where K5's and the plain gradient's signs differ"
+          .format(FIT_STEPS))
+    for name in sorted(true):
+        g = torch.stack(shadow["grads"][name]).abs().reshape(FIT_STEPS, -1)
+        flips = (torch.stack(shadow["signs"][name]).reshape(FIT_STEPS, -1)).sum(0).tolist()
+        print(f"    {name}: {parted[FIT_STEPS][name][0]:.3e} / {parted[FIT_STEPS][name][1]:.3e} / "
+              f"{g.median(0).values.tolist()} / {flips}")
+    err10 = max(v[0] for v in parted[10].values())
+    check(err10 <= FIT_PARAM_ATOL_10, f"fit parameters after 10 steps differ by {err10}")
+    k, p = kern[FIT_STEPS][0], plain[FIT_STEPS]
+    rel = {name: ((k[name] - p[name]).abs() / p[name].abs()).max().item() for name in watched}
+    print(f"  watched parameters after {FIT_STEPS} steps, kernels vs plain versions, relative "
+          f"difference {json.dumps(rel)} (bar {FIT_PARAM_RTOL})")
+    check(max(rel.values()) <= FIT_PARAM_RTOL, f"fit parameters after {FIT_STEPS} steps differ: {rel}")
+    print(f"  losses, kernels {kern[FIT_STEPS][1][0]:.4e} -> {kern[FIT_STEPS][1][-1]:.4e}, plain "
+          f"{plain_losses[0]:.4e} -> {plain_losses[-1]:.4e}; truth {cli._fmt(true, watched)}")
+    check(plain_losses[-1] < plain_losses[0], "the plain versions' fit loss did not fall")
+
+    counts, messages, seconds = run_cli(["fit", "--image", "--width", "512", "--height", "512",
+                                         "--steps", "10"])
+    _, _, base = run_cli(["fit", "--image", "--width", "512", "--height", "512", "--steps", "0"])
+    losses = step_losses(messages)
+    out["step_s_512"] = (seconds - base) / 10
+    print(f"fit path 512x512: cli fit --image --steps 10 in {seconds:.2f} s (--steps 0: {base:.2f} s), "
+          f"launches {counts}, loss {losses[0]:.4e} -> {losses[-1]:.4e}")
+    check(counts["K4"] >= 1 and counts["K5"] == 10, f"512x512 fit launches {counts}")
+    check(all(np.isfinite(losses)), "512x512 fit loss not finite")
+    print(f"fit --image wall time per step on {card} (K5, Adam and host, host clock after a sync): "
+          f"64x64 {out['step_s_64'] * 1e3:.2f} ms, 512x512 {out['step_s_512'] * 1e3:.2f} ms")
+
+    counts, messages, seconds = run_cli(["fit"])
+    losses = step_losses(messages)
+    print(f"fit path (depth): cli fit in {seconds:.2f} s, launches {counts}, "
+          f"loss {losses[0]:.4e} -> {losses[-1]:.4e}")
+    print(f"  {messages[-1]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"depth fit loss did not fall: {losses}")
+    return out
+
+
+def k4_ops(npix, evals, advances, frame, transform, bounds, track) -> int:
+    """diff_kernel.cu march_params_kernel: the cull, each evaluation (the
+    point 6, the SDF, cd, cd + eps, the hit test; the margin and its compare
+    with track_min), each advance 3, and every ray's dfdt (the point 6,
+    the value and gradient, the dot 5)."""
+    return (npix * (CULL if bounds else 0) + evals * (param_sdf_ops(frame, transform) + 9 + 2 * track)
+            + advances * 3 + npix * (11 + param_grad_ops(frame, transform)))
+
+
+def k5_ops(npix, evals, advances, hits, hinges, n_tangents, frame, transform, edge) -> int:
+    """diff_kernel.cu loss_grad_kernel: K4's march and, per hit, its dfdt
+    and guard (2), then in duals (each operation counted with one
+    operation per tangent; a product's tangent takes 3, so this stays a
+    lower bound) the residual (SDF, 5), t_diff and q (8), the value and
+    gradient, the normalisation (8) and normal (3), the shading and ACES;
+    a miss's ACES in float; per pixel the squared error (9) and the warp
+    sum (5) in duals; per hinge the point (6) and in duals the SDF and 7."""
+    t = n_tangents + 1
+    sdf, grad = param_sdf_ops(frame, transform), param_grad_ops(frame, transform)
+    return (npix * CULL + evals * (sdf + 9 + 2 * edge) + advances * 3
+            + hits * (6 + 11 + grad + 2 + t * (sdf + 5 + 8 + grad + 8 + 3 + SHADE + ACES))
+            + (npix - hits) * ACES + npix * t * 14 + hinges * (6 + t * (sdf + 7)))
+
+
+def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
+    """Phase 10: K4 and K5 against their plain versions, their work, bounds
+    and times."""
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.grad.edge import UNTRACKED, classify_target_miss
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import build
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
+
+    # registers, stack and spill bytes per thread, as ptxas reported them
+    for line in build.resource_report("diff_kernel.cu").splitlines():
+        if "Compiling entry" in line or "spill" in line or "Used" in line:
+            print(f"  ptxas: {line.strip()}")
+    scene = reference_render_scene(device=device)
+    bb6 = inflated(scene_bounds(scene), 0.6)
+    bb25 = inflated(scene_bounds(scene), 0.25)
+    true = shape_params(scene)
+
+    # K4 with the scene's 16 parameter values (the transform included), and
+    # with the 9 shape values `fit --image` passes it (no transform)
+    k4 = {}
+    for (w, h), params in (((1920, 1080), scene.params), ((512, 512), scene.params),
+                           ((512, 512), true), ((64, 64), true)):
+        o, d, c = rays(w, h, device)
+        n_prm = sum(v.numel() for v in params.values())
+        for track in (False, True):
+            kern = dk.march_params_cuda(scene.csdf, params, o, d, c, bb=bb6, track_min=track)
+            plain = dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb6, track_min=track)
+            torch.cuda.synchronize()
+            res = {
+                "exact": {name: bool(torch.equal(kern[i], plain[i]))
+                          for i, name in enumerate(("depth", "steps", "outcome", "dfdt", "min_m",
+                                                    "t_min")[:len(kern)])},
+                "dfdt_max_err": _max_err(kern[3], plain[3]),
+            }
+            print(f"parity K4 {w}x{h}, {n_prm} parameters, track_min={track}: {json.dumps(res)}")
+            check(all(v for n, v in res["exact"].items() if n != "dfdt"),
+                  f"K4 {w}x{h}, {n_prm} parameters, is not bit-equal to its plain version")
+            check(res["dfdt_max_err"] <= DFDT_ATOL, f"K4 dfdt {res}")
+            k4[(w, h, n_prm, track)] = res
+
+    k5 = {}
+    o, d, c = rays(512, 512, device)
+    fit_target = render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf, bb=bb6).detach()
+    perturbed = cli._apply_perturb(true, FIT_PERTURB)
+    perturbed16 = cli._apply_perturb(scene.params, FIT_PERTURB)
+    small = rays(64, 64, device)
+    small_target = render_image_diff(scene.sdf, true, *small, csdf=scene.csdf, bb=bb6).detach()
+    cases = {
+        "bench": (true, torch.zeros_like(fit_target), bb25, 0.0, (o, d, c)),
+        "fit": (perturbed, fit_target, bb6, 1.0, (o, d, c)),
+        "fit, 16 parameters,": (perturbed16, fit_target, bb6, 1.0, (o, d, c)),
+        "fit 64x64": (perturbed, small_target, bb6, 1.0, small),
+    }
+    for name, (params, target, bb, edge, (o, d, c)) in cases.items():
+        kern = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=edge)
+        again = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=edge)
+        plain = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=edge)
+        torch.cuda.synchronize()
+        loss_rel = abs(kern[0].item() - plain[0].item()) / abs(plain[0].item())
+        excess = {k: ((kern[1][k] - plain[1][k]).abs() - GRAD_ATOL - GRAD_RTOL * plain[1][k].abs())
+                  .max().item() for k in kern[1]}
+        worst = max(excess, key=excess.get)
+        res = {
+            "loss": kern[0].item(), "plain_loss": plain[0].item(), "loss_rel_err": loss_rel,
+            "worst_leaf": worst, "worst_excess_over_bars": excess[worst],
+            "grad_max_abs_err": max(_max_err(kern[1][k], plain[1][k]) for k in kern[1]),
+            "grad_max_rel_err": max(((kern[1][k] - plain[1][k]).abs()
+                                     / plain[1][k].abs().clamp_min(1e-30)).max().item() for k in kern[1]),
+            "reproducible": bool(torch.equal(kern[0], again[0])
+                                 and all(torch.equal(kern[1][k], again[1][k]) for k in kern[1])),
+        }
+        print(f"parity K5 {name} point ({c.shape[1]}x{c.shape[0]}): {json.dumps(res)}")
+        print(f"  grads {json.dumps({k: v.tolist() for k, v in kern[1].items()})}")
+        check(loss_rel <= LOSS_RTOL and excess[worst] <= 0, f"K5 {name} point outside the bars {res}")
+        check(res["reproducible"], f"K5 {name} point differs between two calls")
+        k5[name] = res
+
+    # work, bounds and times: K4 as the fit's target render calls it, K5
+    # at the bench point (and the fit point at 512x512)
+    timings = {}
+    for w, h in ((512, 512), (1920, 1080)):
+        o, d, c = rays(w, h, device)
+        npix = w * h
+        depth, steps, outcome, _ = dk.march_params_cuda(scene.csdf, true, o, d, c, bb=bb6)
+        evals, advances, hits = march_work(steps, outcome, depth)
+        ops = k4_ops(npix, evals, advances, True, False, True, False)
+        b_ms, b_by = bound(npix * (28 + 16), ops)
+        # the kernel from a prepared parameter struct, and the wrapper, which
+        # also builds the struct (a copy of the parameters to the host)
+        scene_c, _ = dk.param_scene_c(scene.csdf, true, bb=bb6)
+        k_ms = median_ms(lambda: dk._march_cuda(scene_c, o, d, c, False), reps=20)
+        w_ms = median_ms(lambda: dk.march_params_cuda(scene.csdf, true, o, d, c, bb=bb6), reps=5)
+        p_ms = median_ms(lambda: dk.march_params_torch(scene.csdf, true, o, d, c, bb=bb6),
+                         runs=5, warmup=1)
+        timings[("K4", w)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"time K4 {w}x{h} on {card}: {k_ms:.4f} ms ({npix / k_ms * 1e3:.4g} rays/s), wrapper "
+              f"{w_ms:.4f} ms, plain {p_ms:.3f} ms; {evals} SDF evaluations, {hits} hits, "
+              f"{ops:.4g} FP32 operations, {npix * 44} B; bound {b_ms:.4f} ms ({b_by})")
+        points = [("bench", true, torch.zeros((h, w, 3), device=device), bb25, 0.0)]
+        if w == 512:
+            points.append(("fit", perturbed, fit_target, bb6, 1.0))
+        for name, params, target, bb, edge in points:
+            depth, steps, outcome, _, min_m, _ = dk.march_params_cuda(scene.csdf, params, o, d, c,
+                                                                      bb=bb, track_min=True)
+            evals, advances, hits = march_work(steps, outcome, depth)
+            hinges = 0
+            if edge:
+                miss = classify_target_miss(target)
+                hit = outcome == 0
+                hinges = int(((~miss & ~hit & (min_m < UNTRACKED)) | (miss & hit)).sum().item())
+            ops = k5_ops(npix, evals, advances, hits, hinges, 9, True, False, bool(edge))
+            b_ms, b_by = bound(npix * (40 + 4 * bool(edge)), ops)
+            scene_c, _ = dk.param_scene_c(scene.csdf, params, bb=bb)
+            state = dk._target_state(target, None).contiguous() if edge else None
+            k_ms = median_ms(lambda: dk._loss_grad_cuda(scene_c, o, d, c, target, state, npix, edge,
+                                                        dk._band(MarchConfig(), None)), reps=20)
+            w_ms = median_ms(lambda: dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c,
+                                                              bb=bb, edge_weight=edge), reps=5)
+            p_ms = median_ms(lambda: dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c,
+                                                               bb=bb, edge_weight=edge),
+                             runs=5, warmup=1)
+            timings[("K5", w, name)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"time K5 {w}x{h} {name} point on {card}: {k_ms:.4f} ms ({npix / k_ms * 1e3:.4g} "
+                  f"rays/s), wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms; {evals} SDF evaluations, "
+                  f"{hits} hits, {hinges} hinges, {ops:.4g} FP32 operations, "
+                  f"{npix * (40 + 4 * bool(edge))} B; bound {b_ms:.4f} ms ({b_by})")
+
+    # where a fit --image step's time goes: K5 at the fit point of each size
+    # against the step's wall time
+    scene_c, _ = dk.param_scene_c(scene.csdf, perturbed, bb=bb6)
+    state = dk._target_state(small_target, None).contiguous()
+    k5_small = median_ms(lambda: dk._loss_grad_cuda(scene_c, *small, small_target, state, 64 * 64, 1.0,
+                                                    dk._band(MarchConfig(), None)), reps=20)
+    for size, step_s, k_ms in ((64, fit["step_s_64"], k5_small),
+                               (512, fit["step_s_512"], timings[("K5", 512, "fit")]["ms"])):
+        print(f"fit --image step at {size}x{size} on {card}: {step_s * 1e3:.3f} ms wall, of which K5 "
+              f"at the fit point {k_ms:.4f} ms; Adam and host {step_s * 1e3 - k_ms:.3f} ms")
+    k4_row = timings[("K4", 512)]
+    k5_row = timings[("K5", 512, "bench")]
+    return [{
+        "name": "K4 march_params_kernel (march under runtime parameters)",
+        "route": "cuda",
+        "source": dk.SOURCE,
+        "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60",
+        "launches": fit["launches"]["K4"],
+        "max_abs_err": max(r["dfdt_max_err"] for r in k4.values()),
+        **k4_row,
+        "library_ms": None,
+    }, {
+        "name": "K5 loss_grad_kernel (fused image loss and gradient)",
+        "route": "cuda",
+        "source": dk.SOURCE,
+        "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232",
+        "launches": fit["launches"]["K5"],
+        "max_abs_err": max(r["grad_max_abs_err"] for r in k5.values()),
+        **k5_row,
+        "library_ms": None,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -581,6 +1019,8 @@ def main() -> int:
     kernels = [render_phases(card, device)]
     launches = mesh_path_phases()
     kernels += mesh_kernel_phases(card, device, launches)
+    fit = fit_path_phases(card, device)
+    kernels += diff_kernel_phases(card, device, fit)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

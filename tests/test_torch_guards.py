@@ -17,7 +17,7 @@ import bsdmg_tpu_torch.config as torch_config
 import bsdmg_tpu_torch.ops.tables as torch_tables
 from bsdmg_tpu.mesh.weld import weld_vertices as jax_weld
 from bsdmg_tpu_torch.mesh.weld import weld_vertices
-from bsdmg_tpu_torch.ops.cuda import build
+from bsdmg_tpu_torch.ops.cuda import build, diff_kernel
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -89,7 +89,7 @@ def test_build_command_targets_hopper():
     """One nvcc per source, each for sm_90a without FMA contraction or fast
     math, linked into one library; every kernel of the port is built."""
     names = [src.name for src in build.sources()]
-    assert {"render_kernel.cu", "mc_kernel.cu", "project_kernel.cu"} <= set(names)
+    assert {"render_kernel.cu", "mc_kernel.cu", "project_kernel.cu", "diff_kernel.cu"} <= set(names)
     for src in build.sources():
         cmd = build.compile_command(src, Path("x.o"))
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -118,3 +118,37 @@ def test_packaging_ships_kernel_sources():
     data = project["tool"]["setuptools"]["package-data"]["bsdmg_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert "torch" in " ".join(project["project"]["optional-dependencies"]["torch"])
+
+
+class _FakeFunction:
+    def __init__(self, result=0):
+        self.result = result
+
+    def __call__(self, *args):
+        return self.result
+
+
+class _FakeLibrary:
+    """Stands in for the built library: every entry point returns 0, the
+    ParamScene size is ``size``."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def __getattr__(self, name):
+        fn = _FakeFunction(self.size if name == "bsdmg_param_scene_size" else 0)
+        setattr(self, name, fn)
+        return fn
+
+
+def test_diff_kernel_library_checks_param_scene_size(monkeypatch):
+    """K4/K5's wrapper refuses a library whose ParamScene is not the ctypes
+    mirror's size, as render_kernel.library() does for SceneDesc."""
+    import ctypes
+
+    good = ctypes.sizeof(diff_kernel._ParamSceneC)
+    monkeypatch.setattr(diff_kernel, "load_library", lambda: _FakeLibrary(good))
+    assert diff_kernel.library().bsdmg_param_scene_size() == good
+    monkeypatch.setattr(diff_kernel, "load_library", lambda: _FakeLibrary(good + 4))
+    with pytest.raises(RuntimeError, match="ParamScene layout mismatch"):
+        diff_kernel.library()
