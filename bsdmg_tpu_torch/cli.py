@@ -1,12 +1,16 @@
 """Command-line interface of the PyTorch port: the ``render``, ``mesh`` and ``fit`` verbs.
 
     python -m bsdmg_tpu_torch.cli render -o out.png
+    python -m bsdmg_tpu_torch.cli render --scene mesh:asset.obj[:RES] -o out.png
     python -m bsdmg_tpu_torch.cli mesh -o out.obj
     python -m bsdmg_tpu_torch.cli mesh --interpolate-edges -o out.obj
     python -m bsdmg_tpu_torch.cli fit
     python -m bsdmg_tpu_torch.cli fit --image
 
-``render`` draws the reference scene at 1920x1080 through CUDA kernel K1;
+``render`` draws the reference scene at 1920x1080 through CUDA kernel K1,
+or a triangle-mesh asset baked into a RES^3 grid SDF (default 128) through
+kernels K9 (the contraction ladder), K8 (the fine finish) and P1 (the hit
+normals);
 ``mesh`` refines the reference object three levels from a 32^3 grid and
 extracts its surface through kernel K6 (edge midpoints) or K7
 (``--interpolate-edges``); ``fit`` perturbs scene parameters and recovers
@@ -33,10 +37,19 @@ import torch
 from bsdmg_tpu_torch.cam import generate_rays, look_at
 from bsdmg_tpu_torch.config import MeshGenConfig
 from bsdmg_tpu_torch.grad import differentiable_hit, render_image_diff, render_loss_and_grad
-from bsdmg_tpu_torch.mesh.export import load_field, save_field, save_obj, save_png, save_vtk
+from bsdmg_tpu_torch.mesh.export import (
+    load_field,
+    load_obj,
+    save_field,
+    save_obj,
+    save_png,
+    save_vtk,
+)
 from bsdmg_tpu_torch.mesh.pipeline import generate_mesh
 from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
+from bsdmg_tpu_torch.models.mesh_sdf import mesh_scene
 from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
+from bsdmg_tpu_torch.ops.cuda.grid_kernel import make_contraction_levels, render_image_grid
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
 from bsdmg_tpu_torch.ops.shade import to_rgba8
 from bsdmg_tpu_torch.ops.trace import COLLISION
@@ -54,24 +67,74 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _parse_mesh_spec(rest: str, default_resolution: int = 128):
+    """Split ``path.obj[:RES]`` into (path, resolution). The suffix is only
+    treated as a resolution when it parses as an integer: OBJ paths may
+    contain colons."""
+    resolution = default_resolution
+    if ":" in rest:
+        head, _, res_s = rest.rpartition(":")
+        try:
+            resolution = int(res_s)
+            rest = head
+        except ValueError:
+            pass
+    return rest, resolution
+
+
 def _get_scene(name: str, device: torch.device):
     if name.startswith(("mesh:", "spec:")) or name.endswith(".json"):
         raise NotImplementedError(
-            f"scene {name!r}: mesh-asset and composed scenes are not ported "
-            "to bsdmg_tpu_torch yet"
+            f"scene {name!r}: composed scenes, and mesh-asset scenes outside "
+            "`render`, are not ported to bsdmg_tpu_torch yet"
         )
     return get_scene(name, device=device)
 
 
+def _mesh_asset_scene(spec: str, device: torch.device):
+    """``mesh:path.obj[:RES]``: load a triangle-mesh asset and bake it into a
+    grid SDF scene on ``device``."""
+    path, resolution = _parse_mesh_spec(spec[len("mesh:"):])
+    t0 = time.perf_counter()
+    src = load_obj(path)
+    t1 = time.perf_counter()
+    scene, _ = mesh_scene(src.vertices, src.faces, resolution=resolution, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log.info(
+        "loaded %s (%d vertices, %d triangles) in %.3fs; baked %d^3 grid in %.3fs",
+        path, src.vertex_count, src.triangle_count, t1 - t0, resolution,
+        time.perf_counter() - t1,
+    )
+    return scene
+
+
+def _render(scene, origins, dirs, cone):
+    """The scene's render: the grid route for a mesh asset (its contraction
+    ladder built once), else kernel K1 on the compiled descriptor."""
+    if scene.grid is None:
+        return render_image_cuda(compile_scene(scene), origins, dirs, cone)
+    t0 = time.perf_counter()
+    levels = make_contraction_levels(scene.grid)
+    log.info(
+        "contraction levels %s in %.3fs",
+        [f"{lv.r}^3 {lv.table.dtype}" for lv in levels], time.perf_counter() - t0,
+    )
+    return render_image_grid(scene.grid, origins, dirs, cone, mode="contraction", levels=levels)
+
+
 def cmd_render(args) -> None:
     device = _device(args.device)
-    scene = _get_scene(args.scene, device)
+    if args.scene.startswith("mesh:"):
+        scene = _mesh_asset_scene(args.scene, device)
+    else:
+        scene = _get_scene(args.scene, device)
     cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
     origins, dirs, cone = generate_rays(
         cam, (args.width, args.height), (args.screen_width, args.screen_height)
     )
     t0 = time.perf_counter()
-    img = render_image_cuda(compile_scene(scene), origins, dirs, cone)
+    img = _render(scene, origins, dirs, cone)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     log.info(
@@ -309,7 +372,8 @@ def build_parser() -> argparse.ArgumentParser:
     r = sub.add_parser("render", help="sphere-trace a scene to PNG/NPY")
     r.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name (bsdmg_tpu_torch.models.SCENES)",
+        help="scene name (bsdmg_tpu_torch.models.SCENES), or 'mesh:path.obj[:RES]' "
+        "for an OBJ asset baked into a RES^3 grid SDF (default 128)",
     )
     common_camera(r, 1920, 1080)
     r.add_argument("--output", "-o", default=None, help=".png (default render.png) or .npy")

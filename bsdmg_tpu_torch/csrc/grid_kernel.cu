@@ -1,0 +1,188 @@
+// K8, K9 and P1: the sphere trace and the point sampler of mesh-asset
+// (grid SDF) scenes, one thread per ray or per point.
+//
+// Replaces three TPU kernels of the JAX package:
+// - K8, bsdmg_tpu/ops/pallas/grid_kernel.py::_grid_trace_kernel (the
+//   pallas_call at grid_kernel.py:143 of grid_trace_pallas): a march from
+//   depth 0 over a grid SDF sampled by eight gathers. Here
+//   grid_march_kernel<InterpF32>, which also runs the fine finish of the
+//   contraction route, resumed, where the JAX package marches XLA gathers
+//   (grid_kernel.py:496-558).
+// - K9, grid_kernel.py::_contraction_kernel (the pallas_call at :368 of
+//   grid_trace_contraction_pallas): one resumable level of the contraction
+//   ladder, sampled by hat weights against an exact or a bf16 table. Here
+//   grid_march_kernel<HatF32> or <HatBf16>.
+// - P1, tools/probe_mxu.py::kernel (the pallas_call at probe_mxu.py:32):
+//   the hat-weight trilinear sample of points. Here
+//   grid_sample_kernel<Sampler>; the render runs it with InterpF32 on the
+//   twelve fd4 stencil points of every hit.
+//
+// The march is render_kernel.py::_march with omega = 1 and no slab cull
+// (the grid route has none): a ray that is not active keeps its depth,
+// steps and outcome; an active ray starts at outcome STEP_LIMIT from
+// depth0 and steps0, always takes its first iteration, and stops at a hit,
+// past the depth limit or when its steps reach min(budget, step_limit).
+//
+// What bounds it on Hopper: FP32 work per march step (83 counted operations
+// for a hat sample, 59 for InterpF32, 9 more for the step) and warp
+// divergence, since a warp runs as long as its slowest ray; and the eight
+// table reads of each sample, scattered over a table of 64 KB (32^3 bf16) to
+// 8 MB (128^3 float32), which L2 holds whole. Ray traffic is small: a
+// marched ray reads 28 B (40 B when resumed) and writes 12 B; a ray that
+// is not active reads 16 B and writes 12 B.
+//
+// What the design does about it: one thread per ray, which leaves its loop
+// as soon as it resolves, where the TPU kernel ran each block of 4,096 rays
+// until its last lane; the TPU's gather-free MXU contraction over all R^2
+// columns becomes four direct gathers per z plane, since this card gathers
+// natively; the sampler is a template parameter, so each instantiation
+// inlines its arithmetic. Making it fast is later work.
+//
+// Numerics: -fmad=false, no fast math, and the plain twins' order
+// (bsdmg_tpu_torch/ops/cuda/grid_kernel.py): depth, steps, outcome and the
+// sampled values equal the twins' bit for bit.
+
+#include "common.cuh"
+#include "grid_sdf.cuh"
+
+// the march's limits, as float32 and int
+struct GridMarch {
+  float collision_distance;
+  float depth_limit;
+  int step_cap;  // min(budget, step_limit)
+};
+
+// One thread per ray. origins and directions are (n, 3), cone (n,). With
+// active == nullptr every ray starts fresh (depth 0, steps 0); otherwise
+// active, depth0, steps0 and outcome0 are the previous level's (n,) planes.
+template <class Sampler>
+__global__ void __launch_bounds__(128)
+grid_march_kernel(const Sampler s, const GridMarch m, const float* __restrict__ origins,
+                  const float* __restrict__ directions, const float* __restrict__ cone,
+                  const int* __restrict__ active, const float* __restrict__ depth0,
+                  const int* __restrict__ steps0, const int* __restrict__ outcome0,
+                  float* __restrict__ depth_out, int* __restrict__ steps_out,
+                  int* __restrict__ outcome_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float depth = 0.0f;
+  int steps = 0;
+  if (active != nullptr) {
+    depth = depth0[i];
+    steps = steps0[i];
+    if (!active[i]) {
+      depth_out[i] = depth;
+      steps_out[i] = steps;
+      outcome_out[i] = outcome0[i];
+      return;
+    }
+  }
+  const float ox = origins[3 * i], oy = origins[3 * i + 1], oz = origins[3 * i + 2];
+  const float dx = directions[3 * i], dy = directions[3 * i + 1], dz = directions[3 * i + 2];
+  const float c = cone[i];
+  int outcome = STEP_LIMIT;
+  for (;;) {
+    const float cd = c * depth;
+    const float dist = s(ox + depth * dx, oy + depth * dy, oz + depth * dz);
+    if (dist <= cd + m.collision_distance) {
+      outcome = COLLISION;
+      break;
+    }
+    depth = (depth + dist) - cd;
+    if (depth > m.depth_limit) {
+      outcome = DEPTH_LIMIT;
+      break;
+    }
+    if (++steps >= m.step_cap) break;
+  }
+  depth_out[i] = depth;
+  steps_out[i] = steps;
+  outcome_out[i] = outcome;
+}
+
+// One thread per point: out[i] = s(x[i], y[i], z[i]).
+template <class Sampler>
+__global__ void __launch_bounds__(128)
+grid_sample_kernel(const Sampler s, const float* __restrict__ x, const float* __restrict__ y,
+                   const float* __restrict__ z, float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = s(x[i], y[i], z[i]);
+}
+
+// sampler kinds of the C interface (ops/cuda/grid_kernel.py)
+enum { SAMPLER_INTERP_F32 = 0, SAMPLER_HAT_F32 = 1, SAMPLER_HAT_BF16 = 2 };
+
+template <class Sampler>
+static int launch_march(const Sampler& s, const GridMarch& m, const float* origins,
+                        const float* directions, const float* cone, const int* active,
+                        const float* depth0, const int* steps0, const int* outcome0,
+                        float* depth, int* steps, int* outcome, int n, cudaStream_t stream) {
+  grid_march_kernel<Sampler><<<(n + 127) / 128, 128, 0, stream>>>(
+      s, m, origins, directions, cone, active, depth0, steps0, outcome0, depth, steps, outcome, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Sampler>
+static int launch_sample(const Sampler& s, const float* x, const float* y, const float* z,
+                         float* out, int n, cudaStream_t stream) {
+  grid_sample_kernel<Sampler><<<(n + 127) / 128, 128, 0, stream>>>(s, x, y, z, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" {
+
+// Launches K8 (kind SAMPLER_INTERP_F32) or K9 (SAMPLER_HAT_F32 or
+// SAMPLER_HAT_BF16) on `stream` over n rays. table is the grid's (r^3,)
+// float32 or bf16 values, C order. active, depth0, steps0 and outcome0 are
+// all null (a fresh march) or all (n,) planes on the device. Returns the
+// cudaError_t of the launch, or cudaErrorInvalidValue for an unknown kind.
+int bsdmg_grid_march(int kind, const GridBox* box, const void* table, float margin,
+                     const GridMarch* march, const float* origins, const float* directions,
+                     const float* cone, const int* active, const float* depth0, const int* steps0,
+                     const int* outcome0, float* depth, int* steps, int* outcome, int n,
+                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case SAMPLER_INTERP_F32:
+      return launch_march(InterpF32{static_cast<const float*>(table), *box}, *march, origins,
+                          directions, cone, active, depth0, steps0, outcome0, depth, steps,
+                          outcome, n, st);
+    case SAMPLER_HAT_F32:
+      return launch_march(HatF32{static_cast<const float*>(table), *box, margin}, *march,
+                          origins, directions, cone, active, depth0, steps0, outcome0, depth,
+                          steps, outcome, n, st);
+    case SAMPLER_HAT_BF16:
+      return launch_march(HatBf16{static_cast<const __nv_bfloat16*>(table), *box, margin},
+                          *march, origins, directions, cone, active, depth0, steps0, outcome0,
+                          depth, steps, outcome, n, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launches P1 on `stream` over n points: x, y, z (n,) float32 in, out (n,)
+// float32, all on the device. Returns the cudaError_t of the launch.
+int bsdmg_grid_sample(int kind, const GridBox* box, const void* table, float margin,
+                      const float* x, const float* y, const float* z, float* out, int n,
+                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case SAMPLER_INTERP_F32:
+      return launch_sample(InterpF32{static_cast<const float*>(table), *box}, x, y, z, out, n,
+                           st);
+    case SAMPLER_HAT_F32:
+      return launch_sample(HatF32{static_cast<const float*>(table), *box, margin}, x, y, z,
+                           out, n, st);
+    case SAMPLER_HAT_BF16:
+      return launch_sample(HatBf16{static_cast<const __nv_bfloat16*>(table), *box, margin}, x,
+                           y, z, out, n, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int bsdmg_grid_box_size(void) { return static_cast<int>(sizeof(GridBox)); }
+int bsdmg_grid_march_size(void) { return static_cast<int>(sizeof(GridMarch)); }
+
+}  // extern "C"

@@ -1,4 +1,5 @@
-"""Mesh and image export: OBJ, VTK legacy, PNG, and voxel-field checkpoints.
+"""Mesh and image export: OBJ (and its reader), VTK legacy, PNG, and
+voxel-field checkpoints.
 
 Port of ``bsdmg_tpu/mesh/export.py``; each writer produces the JAX package's
 exact format (its Python paths), so files and field checkpoints pass between
@@ -28,6 +29,32 @@ def save_obj(mesh: Mesh, path: str | Path) -> None:
     lines += [f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in mesh.normals.tolist()]
     lines += [f"f {a}//{a} {b}//{b} {c}//{c}" for a, b, c in (mesh.faces + 1).tolist()]
     Path(path).write_text("\n".join(lines) + "\n")
+
+
+def load_obj(path: str | Path) -> Mesh:
+    """Minimal OBJ reader: ``v``/``vn``/``f`` with arbitrary face arity
+    (fan-triangulated) and negative (relative) indices; the JAX package's
+    Python path, its behavioural oracle. Normals are kept only when there is
+    one per vertex, else zeros."""
+    vertices: list[list[float]] = []
+    normals: list[list[float]] = []
+    faces: list[tuple[int, int, int]] = []
+    for raw in Path(path).read_text().splitlines():
+        parts = raw.split()
+        if not parts:
+            continue
+        if parts[0] == "v":
+            vertices.append([float(x) for x in parts[1:4]])
+        elif parts[0] == "vn":
+            normals.append([float(x) for x in parts[1:4]])
+        elif parts[0] == "f":
+            idx = [int(p.split("/")[0]) for p in parts[1:]]
+            idx = [i - 1 if i > 0 else len(vertices) + i for i in idx]
+            for k in range(1, len(idx) - 1):
+                faces.append((idx[0], idx[k], idx[k + 1]))
+    v = np.asarray(vertices, np.float32)
+    n = np.asarray(normals, np.float32) if len(normals) == len(vertices) else np.zeros_like(v)
+    return Mesh(vertices=v, normals=n, faces=np.asarray(faces, np.int32))
 
 
 def save_vtk(mesh: Mesh, path: str | Path) -> None:

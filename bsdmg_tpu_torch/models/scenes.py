@@ -35,14 +35,17 @@ class Scene:
     default params. ``reference_compat`` and ``bb_size`` record how the
     scene was built, so the scene compiler (``ops/cuda/csdf.py``) bakes the
     same geometry. ``csdf(params, x, y, z)`` is the same SDF on coordinate
-    planes, differentiable with respect to ``params``."""
+    planes, differentiable with respect to ``params``. A mesh-asset scene
+    (``models/mesh_sdf.py::mesh_scene``) carries its baked ``grid``, which
+    the grid render (``ops/cuda/grid_kernel.py``) samples."""
 
     name: str
     sdf: SceneFn
     params: Params
     reference_compat: bool = True
     bb_size: float = 5.0
-    csdf: "ReferenceCsdf | None" = None
+    csdf: "Callable | None" = None
+    grid: "SdfGrid | None" = None  # noqa: F821 (models/mesh_sdf.py)
 
     def bind(self, params: Params | None = None) -> Callable[[torch.Tensor], torch.Tensor]:
         """Close over ``params`` (default params if None)."""

@@ -100,8 +100,8 @@ def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: b
         active = ~miss
         limit = torch.clamp_max(t_exit, config.depth_limit)
     with torch.no_grad():
-        steps, outcome, min_m, t_min = _march(f, config, *o, *d, cone, active, depth, limit,
-                                              track_min=track_min)
+        steps, outcome, min_m, t_min, _ = _march(f, config, *o, *d, cone, active, depth, limit,
+                                                 track_min=track_min)
     return depth, steps, outcome, _ray_derivative(f, o, d, depth), min_m, t_min
 
 

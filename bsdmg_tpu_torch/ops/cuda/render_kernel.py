@@ -112,19 +112,33 @@ def _slab_cull(bb, ox, oy, oz, dx, dy, dz, cone, config: MarchConfig):
 
 
 def _march(csdf, config: MarchConfig, ox, oy, oz, dx, dy, dz, cone, active, depth, limit,
-           track_min: bool = False):
+           track_min: bool = False, *, steps0=None, outcome0=None, budget: int | None = None):
     """Exact sphere trace of the ``active`` rays of flat ray planes
     (render_kernel.py::_march, ``omega = 1``). Updates ``depth`` in place and
-    returns ``(steps, outcome, min_m, t_min)``; with ``track_min`` the last
-    two are the closest-approach record, the minimum of ``f - cone*t`` over
-    the sampled points and its depth (1e9 and 0 for a ray never sampled),
-    else None.
+    returns ``(steps, outcome, min_m, t_min, unresolved)``; with
+    ``track_min`` ``min_m`` and ``t_min`` are the closest-approach record,
+    the minimum of ``f - cone*t`` over the sampled points and its depth (1e9
+    and 0 for a ray never sampled), else None.
+
+    Resumable as the JAX function: ``steps0`` carries prior steps (default
+    0), each active ray stops when its steps reach ``min(budget,
+    step_limit)`` but always takes its first iteration, rays that are not
+    active keep their ``outcome0`` (default DEPTH_LIMIT), and
+    ``unresolved`` marks the rays that stopped at the budget short of the
+    step limit.
 
     The rays still marching are gathered each step, so the cost follows the
     live rays; every per-ray operation is the kernel's."""
     eps = config.collision_distance
-    steps = torch.zeros_like(depth, dtype=torch.int32)
-    outcome = torch.full_like(steps, DEPTH_LIMIT)
+    step_cap = config.step_limit if budget is None else min(int(budget), config.step_limit)
+    if steps0 is None:
+        steps = torch.zeros_like(depth, dtype=torch.int32)
+    else:
+        steps = steps0.to(torch.int32, copy=True)
+    if outcome0 is None:
+        outcome = torch.full_like(steps, DEPTH_LIMIT)
+    else:
+        outcome = outcome0.to(torch.int32, copy=True)
     outcome[active] = STEP_LIMIT
     min_m = t_min = None
     if track_min:
@@ -151,8 +165,9 @@ def _march(csdf, config: MarchConfig, ox, oy, oz, dx, dy, dz, cone, active, dept
         survived = advance & ~over
         s = steps[live] + survived.to(torch.int32)
         steps[live] = s
-        live = live[survived & (s < config.step_limit)]
-    return steps, outcome, min_m, t_min
+        live = live[survived & (s < step_cap)]
+    unresolved = (outcome == STEP_LIMIT) & (steps >= step_cap) & (steps < config.step_limit)
+    return steps, outcome, min_m, t_min, unresolved
 
 
 def _fd_normal(csdf, px, py, pz, eps: float):
@@ -199,7 +214,7 @@ def render_image_planes_torch(
     depth = torch.zeros_like(c)
     depth[miss] = config.depth_limit * 1.01
     limit = torch.clamp_max(t_exit, config.depth_limit)
-    steps, outcome, _, _ = _march(csdf, config, ox, oy, oz, dx, dy, dz, c, ~miss, depth, limit)
+    steps, outcome, *_ = _march(csdf, config, ox, oy, oz, dx, dy, dz, c, ~miss, depth, limit)
 
     n = [torch.zeros_like(c) for _ in range(3)]
     hit = (outcome == COLLISION).nonzero().squeeze(1)

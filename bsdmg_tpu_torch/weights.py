@@ -1,13 +1,13 @@
 """Parameters carried across from the JAX package.
 
 The system has no weights: its state is a scene's parameter dict, the
-camera, and in mesh generation the voxel field between levels. These
-helpers turn the JAX package's values (anything ``numpy.asarray`` accepts,
-float32) into this package's float32 tensors, so both packages compute from
-the same numbers, and flatten a parameter dict into the vector the
-differentiable render's kernels take, in the JAX package's leaf order, so
-that a flat gradient of either package lines up with the other's index for
-index.
+camera, in mesh generation the voxel field between levels, and in a
+mesh-asset scene its baked grid. These helpers turn the JAX package's
+values (anything ``numpy.asarray`` accepts, float32) into this package's
+float32 tensors, so both packages compute from the same numbers, and
+flatten a parameter dict into the vector the differentiable render's
+kernels take, in the JAX package's leaf order, so that a flat gradient of
+either package lines up with the other's index for index.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from bsdmg_tpu_torch.cam.camera import Camera
 from bsdmg_tpu_torch.mesh.field import VoxelField
+from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid
 
 
 def _tensor(value, device) -> torch.Tensor:
@@ -45,6 +46,17 @@ def field_from_numpy(lowers, voxel_size, level, device: torch.device | str) -> V
         lowers=_tensor(np.asarray(lowers, np.float32).reshape(-1, 3), device),
         voxel_size=float(np.float32(voxel_size)),
         level=int(level),
+    )
+
+
+def grid_from_numpy(values, lo, hi, device: torch.device | str) -> SdfGrid:
+    """A baked grid from the JAX package (its ``SdfGrid``: ``values`` as
+    numpy, ``lo``, ``hi``) -> :class:`SdfGrid` on ``device``, so both
+    packages render the same table."""
+    return SdfGrid(
+        values=_tensor(values, device),
+        lo=tuple(float(v) for v in lo),
+        hi=tuple(float(v) for v in hi),
     )
 
 

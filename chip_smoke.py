@@ -40,7 +40,24 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     the fit point, the latter also with 16 values, and at the fit point at
     64x64 (the JAX package's bars, and bit-equal across two calls); K4 and
     K5 times with the plain versions' beside them, registers and local
-    memory.
+    memory;
+11. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
+    ``cli render --scene mesh:<tmp>/torus.obj --camera 3 1.5 -3`` bakes a
+    128^3 grid and renders 1920x1080, which must launch K9 twice (the 32^3
+    and 64^3 bf16 mips), K8 once (the fine finish) and P1 once (the hit
+    normals); its PNG's hit pixels, the bake's peak device memory and the
+    stage times (load, bake, mips, each level, finish, normals, shade,
+    PNG) from the same steps on the CLI's grid;
+12. each of those launches, K8 alone on the 64^3 mip (the gather route) and
+    P1 on the stencil points against their plain versions on the same
+    inputs (bit for bit); P1 on the probe's own inputs against the probe's
+    trilinear oracle (1e-4), with ``torch.nn.functional.grid_sample``'s
+    time beside it; the gather route's image against the contraction
+    route's (>= 99% of pixels within 1e-3);
+13. frame and kernel times of the mesh-asset render at the JAX bench's grid
+    point (the reference object baked analytically at 128^3 over +-2.6,
+    512x512 from (5, 2, -5)) and at the 1080p torus frame, with each
+    kernel's bound; ptxas's registers and spills of grid_kernel.cu.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that did not launch its kernel fails. Then one JSON
@@ -56,10 +73,12 @@ from __future__ import annotations
 import json
 import logging
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -299,12 +318,20 @@ def median_ms(fn, runs: int = 7, reps: int = 1, warmup: int = 2) -> float:
 
 
 def reset_launches() -> None:
-    from bsdmg_tpu_torch.ops.cuda import diff_kernel, mc_kernel, mesh_kernel, render_kernel
+    from bsdmg_tpu_torch.ops.cuda import (
+        diff_kernel,
+        grid_kernel,
+        mc_kernel,
+        mesh_kernel,
+        render_kernel,
+    )
 
     for module in (render_kernel, mc_kernel, mesh_kernel):
         module.LAUNCHES = 0
     diff_kernel.MARCH_LAUNCHES = 0
     diff_kernel.LOSS_GRAD_LAUNCHES = 0
+    for name in grid_kernel.LAUNCHES:
+        grid_kernel.LAUNCHES[name] = 0
 
 
 def march_work(steps, outcome, depth) -> tuple[int, int, int]:
@@ -428,7 +455,7 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
     """Runs ``cli <argv>`` with every launch count set to 0; returns the
     counts after it, the CLI's log lines and the seconds it took."""
     from bsdmg_tpu_torch import cli
-    from bsdmg_tpu_torch.ops.cuda import diff_kernel, mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel, grid_kernel, mc_kernel, mesh_kernel
 
     records = _Records()
     logger = logging.getLogger("bsdmg_tpu_torch")
@@ -443,7 +470,7 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
-                    "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES}
+                    "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES, **grid_kernel.LAUNCHES}
     finally:
         logger.removeHandler(records)
         logger.setLevel(old_level)
@@ -999,6 +1026,464 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
     }]
 
 
+# ---------------------------------------------------------------------------
+# the mesh-asset render: K8, K9 and P1
+# ---------------------------------------------------------------------------
+
+# P1 against the probe's trilinear oracle (tools/probe_mxu.py), and the
+# image bar of tests/test_mesh_sdf.py:475-476 for the gather route against
+# the contraction route
+PROBE_ATOL = 1e-4
+GRID_IMAGE_ATOL = 1e-3
+GRID_IMAGE_SHARE = 0.99
+TORUS_CAMERA = (3.0, 1.5, -3.0)
+# launches of one `cli render --scene mesh:<torus.obj>` (a 128^3 grid)
+GRID_LAUNCHES = {"K8": 1, "K9": 2, "P1": 1}
+
+# csrc/grid_sdf.cuh and csrc/grid_kernel.cu, counted by the rules above, a
+# floor counting one; outside the grid box the step adds a sqrt, a max and
+# a subtract, not counted here
+BOX_STEP = 19  # outside_step: 3 axes of 4 (two subtracts, two maxes), |o|^2 5, two compares
+INTERP = 59  # InterpF32: coordinates 3 x 4, floors 3, fractions 3, 1 - fx, four x-lerps
+# of 3, two y-lerps and the z-lerp of 3, and BOX_STEP
+HAT = 83  # Hat: per axis the coordinate 4, floor, the two weights 4 + 5 (42); four
+# (x, y) weights; two z planes of 4 products and 3 adds; the z sum 3; BOX_STEP; margin
+MARCH_EVAL = 9  # grid_march_kernel per evaluation: the point 6, cd, cd + eps, the hit test
+MARCH_ADVANCE = 3  # (depth + dist) - cd and the depth-limit test
+
+
+def png_pixels(path: Path) -> np.ndarray:
+    """The ``(H, W, 4)`` pixels of a PNG as mesh/export.py::save_png writes
+    it (8-bit RGBA, every row with filter 0)."""
+    data = path.read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    idat, pos = b"", 8
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    check(bool((rows[:, 0] == 0).all()), "a PNG row uses a filter save_png does not write")
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+def probe_oracle(t3: np.ndarray, cx, cy, cz) -> np.ndarray:
+    """tools/probe_mxu.py's numpy trilinear oracle."""
+    r = t3.shape[0]
+
+    def tri(q):
+        x0 = np.floor(q).astype(int)
+        return x0, np.minimum(x0 + 1, r - 1), q - x0
+
+    (x0, x1, fx), (y0, y1, fy), (z0, z1, fz) = tri(cx), tri(cy), tri(cz)
+    exp = np.zeros(cx.shape)
+    for dx, wxv in ((x0, 1 - fx), (x1, fx)):
+        for dy, wyv in ((y0, 1 - fy), (y1, fy)):
+            for dz, wzv in ((z0, 1 - fz), (z1, fz)):
+                exp += wxv * wyv * wzv * t3[dx, dy, dz]
+    return exp
+
+
+def march_launch_work(state: dict, out) -> tuple[int, int, int, int]:
+    """``(rays marched, evaluations, advances, ray bytes)`` of one grid
+    march launch, from its resume state (empty: every ray from step 0) and
+    its output, counted as K1's are. A marched ray reads its origin,
+    direction and cone (28 B), on a resumed launch also its active flag,
+    depth and steps (12 B), and writes depth, steps and outcome (12 B); a
+    ray that is not active reads those three and its outcome (16 B) and
+    writes 12 B (csrc/grid_kernel.cu::grid_march_kernel)."""
+    steps, outcome = out[1].reshape(-1), out[2].reshape(-1)
+    marched = torch.ones_like(outcome, dtype=torch.bool)
+    steps0 = torch.zeros_like(steps)
+    if state:
+        marched, steps0 = state["active"].reshape(-1) > 0, state["steps0"].reshape(-1)
+    taken = int((steps - steps0)[marched].sum())
+    ended = outcome[marched]
+    n, n_marched = outcome.numel(), int(marched.sum())
+    ray_bytes = n_marched * (28 + (12 if state else 0) + 12) + (n - n_marched) * (16 + 12)
+    return (n_marched, taken + int(((ended == 0) | (ended == 2)).sum()),
+            taken + int((ended == 2).sum()), ray_bytes)
+
+
+def graph_ms(fn, reps: int = 20, runs: int = 7) -> float:
+    """The kernels' own time of ``fn``: the median over ``runs`` of the
+    CUDA-event time of one replay of a CUDA graph that holds ``reps`` calls
+    of ``fn``, per call, so no host work stands between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return median_ms(graph.replay, runs=runs) / reps
+
+
+def march_kernel_ms(sampler, rays, cfg, state: dict) -> float:
+    """One grid march launch's own time: prepared structs, preallocated
+    outputs, :func:`graph_ms`."""
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    n = rays[2].numel()
+    out = (torch.empty(n, device=rays[2].device), *(torch.empty(n, dtype=torch.int32,
+                                                                 device=rays[2].device)
+                                                     for _ in range(2)))
+    box, march = tg.grid_box_c(sampler), tg.grid_march_c(cfg, cfg.step_limit)
+    planes = tuple(state[k] for k in ("active", "depth0", "steps0", "outcome0")) if state else ()
+    return graph_ms(lambda: tg._march_cuda(sampler, box, march, *rays, planes, out))
+
+
+def sample_kernel_ms(sampler, points) -> float:
+    """One P1 launch's own time, as :func:`march_kernel_ms`."""
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    out, box = torch.empty_like(points[0]), tg.grid_box_c(sampler)
+    return graph_ms(lambda: tg._sample_cuda(sampler, box, *points, out))
+
+
+def staged_contraction(grid, rays, cfg) -> tuple[dict, list, tuple, torch.Tensor]:
+    """The contraction route of render_image_grid step by step, each step
+    timed on the host clock after a sync: returns the stage times, each
+    march launch as ``(label, sampler, resume state, output)``, P1's
+    stencil points and the linear RGB image."""
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+    from bsdmg_tpu_torch.ops.shade import shade_planes
+
+    stages, launches = {}, []
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    levels = timed("mips", lambda: tg.make_contraction_levels(grid))
+    state = {}
+    for level in levels:
+        out = timed(f"level {level.r}^3", lambda: tg.grid_march(
+            level, *rays, cfg, budget=cfg.step_limit, **state))
+        kind = "bf16" if level.kind == tg.HAT_BF16 else "f32"
+        launches.append((f"K9 {level.r}^3 {kind}", level, state, out))
+        active, steps = tg.resume_state(out[1], out[2])
+        state = dict(active=active, depth0=out[0], steps0=steps, outcome0=out[2])
+    if levels[-1].kind != tg.HAT_F32:
+        sampler = tg.interp_sampler(grid)
+        out = timed("finish", lambda: tg.grid_march(sampler, *rays, cfg, budget=cfg.step_limit,
+                                                    **state))
+        launches.append(("K8 fine finish", sampler, state, out))
+    depth, _, outcome = out
+    hit, px, py, pz = tg.hit_points(*rays[:2], depth, outcome)
+    normals = timed("normals", lambda: tg.fd4_normal(tg.interp_sampler(grid), px, py, pz,
+                                                     cfg.normal_epsilon))
+
+    def shade():
+        planes = [torch.zeros(depth.numel(), device=depth.device) for _ in range(3)]
+        for plane, value in zip(planes, normals):
+            plane[hit] = value
+        return torch.stack(shade_planes(*planes, outcome), dim=-1).reshape(*rays[2].shape, 3)
+
+    rgb = timed("shade", shade)
+    return stages, launches, tg.fd4_stencil(px, py, pz, cfg.normal_epsilon), rgb
+
+
+def grid_frame(label: str, card: str, grid, rays, cfg, *, plain: bool) -> dict:
+    """Frame and kernel times of the contraction route of one frame: the
+    frame's wall time (host clock after a sync, median of 5, warm), each
+    launch's own time (:func:`graph_ms`) and its wrapper's (CUDA events,
+    median of 7) from its own inputs, its work and bound, and with
+    ``plain`` its plain version's time. A bound's bytes count each table
+    whole, once: an upper estimate of the table bytes the samples touch,
+    so the bound from the rays' bytes alone is printed beside it."""
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    levels = tg.make_contraction_levels(grid)
+    n = rays[2].numel()
+    frames = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tg.render_image_grid(grid, *rays, cfg, mode="contraction", levels=levels)
+        torch.cuda.synchronize()
+        frames.append(time.perf_counter() - t0)
+    frame_s = statistics.median(frames[1:])
+    print(f"frame {label} on {card}: {frame_s * 1e3:.3f} ms wall ({n / frame_s:.4g} rays/s), "
+          f"host clock after a sync, median of 5 warm frames")
+    _, launches, stencil, _ = staged_contraction(grid, rays, cfg)
+    rows = {}
+
+    def row(name, ms, w_ms, p_ms, ops, ray_bytes, table):
+        nbytes = ray_bytes + table.numel() * table.element_size()
+        b_ms, b_by = bound(nbytes, ops)
+        rows[name] = dict(ms=ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, ops=ops,
+                          nbytes=nbytes)
+        return (f"wrapper {w_ms:.4f} ms, plain {'not timed' if p_ms is None else f'{p_ms:.3f} ms'}; "
+                f"{ops:.4g} FP32 operations, {nbytes} B ({ray_bytes} B of rays or points); "
+                f"bound {b_ms:.4f} ms ({b_by}), from the rays' or points' bytes alone "
+                f"{bound(ray_bytes, ops)[0]:.4f} ms")
+
+    for name, sampler, state, out in launches:
+        marched, evals, advances, ray_bytes = march_launch_work(state, out)
+        ops = evals * ((INTERP if sampler.kind == tg.INTERP_F32 else HAT) + MARCH_EVAL) \
+            + advances * MARCH_ADVANCE
+        ms = march_kernel_ms(sampler, rays, cfg, state)
+        w_ms = median_ms(lambda: tg.grid_march_cuda(sampler, *rays, cfg, budget=cfg.step_limit,
+                                                    **state), reps=5)
+        p_ms = None
+        if plain:
+            p_ms = median_ms(lambda: tg.grid_march_torch(sampler, *rays, cfg, budget=cfg.step_limit,
+                                                         **state), runs=3, warmup=1)
+        text = row(name, ms, w_ms, p_ms, ops, ray_bytes, sampler.table)
+        print(f"time {name} {label} on {card}: {ms:.4f} ms ({marched / ms * 1e3:.4g} marched rays/s, "
+              f"{marched} of {n} rays, {evals} samples), {text}")
+    sampler = tg.interp_sampler(grid)
+    points = stencil[0].numel()
+    ms = sample_kernel_ms(sampler, stencil)
+    w_ms = median_ms(lambda: tg.grid_sample_cuda(sampler, *stencil), reps=5)
+    p_ms = median_ms(lambda: tg.grid_sample_torch(sampler, *stencil), runs=3, warmup=1) if plain else None
+    text = row("P1", ms, w_ms, p_ms, points * INTERP, points * 16, sampler.table)
+    print(f"time P1 normals {label} on {card}: {ms:.4f} ms ({points} points, "
+          f"{points / ms * 1e3:.4g} samples/s), {text}")
+    device_ms = sum(r["ms"] for r in rows.values())
+    print(f"frame {label}: the kernels take {device_ms:.3f} ms of the {frame_s * 1e3:.3f} ms frame")
+    rows["frame_s"] = frame_s
+    return rows
+
+
+def grid_march_parity(name: str, sampler, rays, state: dict, cfg) -> float:
+    """One grid march launch against its plain version on the same inputs,
+    bit for bit; returns the largest depth difference."""
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    kern = tg.grid_march_cuda(sampler, *rays, cfg, budget=cfg.step_limit, **state)
+    plain = tg.grid_march_torch(sampler, *rays, cfg, budget=cfg.step_limit, **state)
+    torch.cuda.synchronize()
+    differ = (kern[0] != plain[0]) | (kern[1] != plain[1]) | (kern[2] != plain[2])
+    res = {
+        "rays": kern[0].numel(),
+        "marched": int(state["active"].sum()) if state else kern[0].numel(),
+        "differing_rays": int(differ.sum()),
+        "depth_max_err": _max_err(kern[0], plain[0]),
+        "steps_max_diff": int((kern[1] - plain[1]).abs().max()),
+        "outcomes": torch.bincount(kern[2], minlength=3).tolist(),
+    }
+    print(f"parity {name}: {json.dumps(res)}")
+    check(res["differing_rays"] == 0, f"{name} and its plain version are not bit-equal: {res}")
+    return res["depth_max_err"]
+
+
+def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
+                bench=(512, 128)) -> list[dict]:
+    """Phases 11-13: the mesh-asset path through the CLI (a ``resolution``^3
+    grid, ``size`` pixels); K8, K9 and P1 against their plain versions and
+    P1 against the probe's oracle; the gather route against the contraction
+    route; frame and kernel times, also at the bench point (``bench``: its
+    square image's side and its grid's resolution)."""
+    import torch.nn.functional as F
+
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.cam import generate_rays, look_at
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.mesh.export import load_obj, save_png
+    from bsdmg_tpu_torch.models import reference_object
+    from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid, _linspace, coarsen_grid_lower
+    from bsdmg_tpu_torch.ops.cuda import build
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+    from bsdmg_tpu_torch.ops.shade import to_rgba8
+
+    cfg = MarchConfig()
+    for line in build.resource_report("grid_kernel.cu").splitlines():
+        if "Compiling entry" in line or "spill" in line or "Used" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obj, png = Path(tmp) / "torus.obj", Path(tmp) / "torus.png"
+        made = subprocess.run([sys.executable, str(ROOT / "tools" / "make_torus.py"), str(obj)],
+                              capture_output=True, text=True, check=True, timeout=300)
+        print(f"mesh-asset path: {made.stdout.strip()}")
+        # the CLI's grid, kept for the phases below (a second bake would
+        # take as long as the first)
+        grids, bake = [], cli.mesh_scene
+
+        def keep_grid(*args, **kwargs):
+            scene, grid = bake(*args, **kwargs)
+            grids.append(grid)
+            return scene, grid
+
+        cli.mesh_scene = keep_grid
+        torch.cuda.synchronize(device)  # CUDA initialised, whichever phase runs first
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            counts, messages, seconds = run_cli([
+                "render", "--scene", f"mesh:{obj}:{resolution}", "--camera", *map(str, TORUS_CAMERA),
+                "--width", str(size[0]), "--height", str(size[1]), "-o", str(png),
+            ])
+        finally:
+            cli.mesh_scene = bake
+        peak = torch.cuda.max_memory_allocated(device)
+        launches = {k: counts[k] for k in GRID_LAUNCHES}
+        pixels = png_pixels(png)
+        hits = int((pixels[..., :3] != 0).any(axis=-1).sum())
+        print(f"mesh-asset path: cli render --scene mesh:torus.obj:{resolution} --camera 3 1.5 -3 "
+              f"-> {size[0]}x{size[1]}, "
+              f"{png.stat().st_size} B PNG, {hits} pixels not background, in {seconds:.2f} s; "
+              f"launches {launches}; peak device memory {peak / 2**20:.1f} MiB")
+        for message in messages:
+            print(f"  cli: {message}")
+        check(launches == GRID_LAUNCHES, f"cli render --scene mesh: launched {launches}, "
+              f"not {GRID_LAUNCHES}")
+        check(pixels.shape == (size[1], size[0], 4) and hits > 0, f"PNG {pixels.shape}, {hits} hits")
+
+        # the same steps on the CLI's grid, staged and timed
+        (grid,) = grids
+        t0 = time.perf_counter()
+        src = load_obj(obj)
+        stages = {"load": time.perf_counter() - t0}
+        bake_line = next(m for m in messages if m.startswith("loaded "))
+        stages["bake (cli)"] = float(bake_line.rsplit(" in ", 1)[1].rstrip("s"))
+        rays = generate_rays(look_at(TORUS_CAMERA, device=device), size, SCREEN)
+        more, launches_in, stencil, rgb = staged_contraction(grid, rays, cfg)
+        stages.update(more)
+        t0 = time.perf_counter()
+        save_png(to_rgba8(rgb).cpu().numpy(), Path(tmp) / "staged.png")
+        stages["PNG"] = time.perf_counter() - t0
+        print(f"stages on {card} (s, host clock after a sync; {src.triangle_count} triangles, "
+              f"{grid.resolution}^3): " + json.dumps({k: round(v, 6) for k, v in stages.items()}))
+        check(np.array_equal(png_pixels(Path(tmp) / "staged.png"), pixels),
+              "the staged steps' PNG differs from cli render's")
+        outcome = launches_in[-1][3][2]
+        counts_out = torch.bincount(outcome, minlength=3).tolist()
+        print(f"  outcomes (collision, step limit, depth limit) {counts_out}; "
+              f"{counts_out[0] + counts_out[1]} pixels not background")
+        check(counts_out[0] + counts_out[1] == hits, "hit pixels differ from the PNG's")
+
+    # each launch of the path against its plain version, bit for bit
+    errors = {}
+    for name, sampler, state, _ in launches_in:
+        errors[name] = grid_march_parity(f"{name} torus {size[0]}x{size[1]}", sampler, rays, state, cfg)
+    coarse = coarsen_grid_lower(grid, tg.MID_RESOLUTION)
+    grid_march_parity(f"K8 on the 64^3 mip (gather route) torus {size[0]}x{size[1]}", tg.interp_sampler(coarse),
+                      rays, {}, cfg)
+    sampler = tg.interp_sampler(grid)
+    kern = tg.grid_sample_cuda(sampler, *stencil)
+    plain = tg.grid_sample_torch(sampler, *stencil)
+    torch.cuda.synchronize()
+    p1_err = _max_err(kern, plain)
+    print(f"parity P1 on the torus frame's {kern.numel()} stencil points: "
+          f"{int((kern != plain).sum())} values differ, max {p1_err:.3e}")
+    check(torch.equal(kern, plain), "P1 and its plain version are not bit-equal")
+
+    # P1 on the probe's own inputs
+    r = 32
+    t3 = torch.arange(r**3, dtype=torch.float32, device=device) % 97
+    coords = np.random.default_rng(0).uniform(0.0, r - 1.001, (3, 512)).astype(np.float32)
+    cx, cy, cz = (torch.from_numpy(c).to(device) for c in coords)
+    probe = tg.Sampler(tg.HAT_F32, t3, r, (0.0,) * 3, (r - 1.0,) * 3)
+    got = tg.grid_sample_cuda(probe, cx, cy, cz)
+    oracle = probe_oracle(t3.cpu().numpy().reshape(r, r, r), *coords)
+    probe_err = float(np.abs(got.cpu().numpy() - oracle).max())
+    t2 = t3.reshape(r * r, r).T.contiguous()
+    contraction = tg.probe_contraction_torch(t2, cx[None], cy[None], cz[None])
+    volume = t3.reshape(1, 1, r, r, r)
+    normalized = torch.stack([cz, cy, cx], dim=-1).reshape(1, 1, 1, -1, 3) / (r - 1) * 2 - 1
+    library = F.grid_sample(volume, normalized, mode="bilinear", align_corners=True).reshape(-1)
+    print(f"P1 probe (T3 = arange(32^3) % 97, 512 points): max error against the probe's oracle "
+          f"{probe_err:.3e}; the plain version bit-equal "
+          f"{torch.equal(got, tg.grid_sample_torch(probe, cx, cy, cz))}; the probe's contraction "
+          f"(matmul) {float(np.abs(contraction[0].cpu().numpy() - oracle).max()):.3e}; "
+          f"F.grid_sample {float(np.abs(library.cpu().numpy() - oracle).max()):.3e}")
+    check(probe_err <= PROBE_ATOL, f"P1 off the probe's oracle by {probe_err}")
+    p1_probe_ms = sample_kernel_ms(probe, (cx, cy, cz))
+    gs_probe_ms = graph_ms(lambda: F.grid_sample(volume, normalized, mode="bilinear",
+                                                 align_corners=True))
+    print(f"time P1 probe (512 points) on {card}: {p1_probe_ms:.4f} ms, F.grid_sample "
+          f"{gs_probe_ms:.4f} ms (each in a CUDA graph of 20 calls)")
+
+    # the gather route against the contraction route on the torus frame
+    gather = tg.render_image_grid(grid, *rays, cfg, mode="gather")
+    diff = (gather - rgb).abs().amax(dim=-1)
+    share = (diff < GRID_IMAGE_ATOL).float().mean().item()
+    print(f"gather route against contraction route, torus frame: share under {GRID_IMAGE_ATOL} "
+          f"= {share:.6f}, max {diff.max().item():.3e}")
+    check(share >= GRID_IMAGE_SHARE, f"gather and contraction images differ: share {share}")
+
+    # frame and kernel times: the torus frame, then the JAX bench's
+    # grid point (bench.py:84-105: the reference object baked analytically
+    # at 128^3 over +-2.6, 512x512 from (5, 2, -5), screen 512x512)
+    torus = grid_frame(f"torus {size[0]}x{size[1]}", card, grid, rays, cfg, plain=True)
+    scene = reference_object(device=device)
+    axis = torch.from_numpy(_linspace(np.float32(-2.6), np.float32(2.6), bench[1])).to(device)
+    values = scene.csdf(scene.params, *torch.meshgrid(axis, axis, axis, indexing="ij"))
+    bench_grid = SdfGrid(values=values.contiguous(), lo=(-2.6,) * 3, hi=(2.6,) * 3)
+    side = bench[0]
+    bench_rays = generate_rays(look_at((5.0, 2.0, -5.0), device=device), (side, side),
+                               (float(side), float(side)))
+    bench = grid_frame(f"bench point {side}x{side}", card, bench_grid, bench_rays, cfg, plain=False)
+
+    # P1's library yardstick at the path's shape: F.grid_sample of the
+    # stencil points on the torus table (its border rule is not the grid
+    # SDF's outside step: a time, not a result)
+    lo, hi = torch.tensor(grid.lo, device=device), torch.tensor(grid.hi, device=device)
+    points = torch.stack([stencil[2], stencil[1], stencil[0]], dim=-1)
+    normalized = ((points - lo.flip(0)) / (hi - lo).flip(0) * 2 - 1).reshape(1, 1, 1, -1, 3)
+    volume = grid.values.reshape(1, 1, *grid.values.shape)
+    gs_ms = graph_ms(lambda: F.grid_sample(volume, normalized, mode="bilinear",
+                                           align_corners=True))
+    print(f"time F.grid_sample on the torus frame's {stencil[0].numel()} stencil points on {card}: "
+          f"{gs_ms:.4f} ms (P1 {torus['P1']['ms']:.4f} ms)")
+    print(f"bench point frame {bench['frame_s'] * 1e3:.3f} ms; torus frame "
+          f"{torus['frame_s'] * 1e3:.3f} ms")
+
+    k9 = [name for name in torus if name.startswith("K9")]
+    k9_ops = sum(torus[n]["ops"] for n in k9)
+    k9_bytes = sum(torus[n]["nbytes"] for n in k9)
+    k9_bound, k9_by = bound(k9_bytes, k9_ops)
+    k8_bound, k8_by = bound(torus["K8 fine finish"]["nbytes"], torus["K8 fine finish"]["ops"])
+    p1_bound, p1_by = bound(torus["P1"]["nbytes"], torus["P1"]["ops"])
+    return [{
+        "name": "K9 grid_march_kernel<Hat> (contraction ladder level; both levels of a frame)",
+        "route": "cuda",
+        "source": tg.SOURCE,
+        "replaces": "bsdmg_tpu/ops/pallas/grid_kernel.py:307",
+        "launches": launches["K9"],
+        "max_abs_err": max(errors[n] for n in k9),
+        "ms": sum(torus[n]["ms"] for n in k9),
+        "plain_ms": sum(torus[n]["plain_ms"] for n in k9),
+        "bound_ms": k9_bound,
+        "bound_by": k9_by,
+        "library_ms": None,
+    }, {
+        "name": "K8 grid_march_kernel<InterpF32> (grid march; the fine finish)",
+        "route": "cuda",
+        "source": tg.SOURCE,
+        "replaces": "bsdmg_tpu/ops/pallas/grid_kernel.py:72",
+        "launches": launches["K8"],
+        "max_abs_err": errors["K8 fine finish"],
+        "ms": torus["K8 fine finish"]["ms"],
+        "plain_ms": torus["K8 fine finish"]["plain_ms"],
+        "bound_ms": k8_bound,
+        "bound_by": k8_by,
+        "library_ms": None,
+    }, {
+        "name": "P1 grid_sample_kernel<InterpF32> (grid sampler; the hit normals)",
+        "route": "cuda",
+        "source": tg.SOURCE,
+        "replaces": "tools/probe_mxu.py:28",
+        "launches": launches["P1"],
+        "max_abs_err": max(p1_err, probe_err),
+        "ms": torus["P1"]["ms"],
+        "plain_ms": torus["P1"]["plain_ms"],
+        "bound_ms": p1_bound,
+        "bound_by": p1_by,
+        "library_ms": gs_ms,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1021,6 +1506,7 @@ def main() -> int:
     kernels += mesh_kernel_phases(card, device, launches)
     fit = fit_path_phases(card, device)
     kernels += diff_kernel_phases(card, device, fit)
+    kernels += grid_phases(card, device)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -44,6 +44,17 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_import_scan_covers_the_mesh_asset_slice():
+    """The scan above globs the package: the mesh-asset modules are in it."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {
+        "bsdmg_tpu_torch/models/mesh_sdf.py",
+        "bsdmg_tpu_torch/ops/cuda/grid_kernel.py",
+        "bsdmg_tpu_torch/mesh/export.py",
+        "chip_smoke.py",
+    } <= scanned
+
+
 @pytest.mark.parametrize("name", ["MarchConfig", "MeshGenConfig", "RenderConfig"])
 def test_config_defaults_equal(name):
     ours, ref = getattr(torch_config, name), getattr(jax_config, name)
@@ -89,7 +100,8 @@ def test_build_command_targets_hopper():
     """One nvcc per source, each for sm_90a without FMA contraction or fast
     math, linked into one library; every kernel of the port is built."""
     names = [src.name for src in build.sources()]
-    assert {"render_kernel.cu", "mc_kernel.cu", "project_kernel.cu", "diff_kernel.cu"} <= set(names)
+    assert {"render_kernel.cu", "mc_kernel.cu", "project_kernel.cu", "diff_kernel.cu",
+            "grid_kernel.cu"} <= set(names)
     for src in build.sources():
         cmd = build.compile_command(src, Path("x.o"))
         assert "arch=compute_90a,code=sm_90a" in cmd

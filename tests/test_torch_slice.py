@@ -88,8 +88,10 @@ def test_cli_without_cuda_raises(tmp_path):
 
 @pytest.mark.parametrize("scene", ["mandelbulb", "examples/snowman.json", "mesh:bunny.obj"])
 def test_cli_unported_scene_raises(scene, tmp_path):
+    # mesh assets render (tests/test_torch_grid_kernel.py); meshing one does not
+    verb = "mesh" if scene.startswith("mesh:") else "render"
     with pytest.raises(NotImplementedError):
-        cli.main(["render", "--device", "cpu", "--scene", scene, "-o", str(tmp_path / "x.png")])
+        cli.main([verb, "--device", "cpu", "--scene", scene, "-o", str(tmp_path / "x.png")])
 
 
 def test_params_from_numpy():
