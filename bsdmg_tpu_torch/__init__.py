@@ -1,13 +1,15 @@
 """bsdmg_tpu_torch: the PyTorch + CUDA port of bsdmg_tpu for NVIDIA Hopper.
 
 A second package beside the JAX one, with the same module paths: the
-sphere-traced render of the reference scene runs through a hand-written CUDA
-kernel (``ops/cuda/render_kernel.py``, source in ``csrc/``), and mesh
+sphere-traced render of the reference scene runs through hand-written CUDA
+kernels (``ops/cuda/render_kernel.py``, sources in ``csrc/``), mesh
 generation (refine + marching cubes) through two more
-(``ops/cuda/mc_kernel.py``, ``ops/cuda/mesh_kernel.py``), and inverse
+(``ops/cuda/mc_kernel.py``, ``ops/cuda/mesh_kernel.py``), inverse
 rendering (``grad/``, ``cli fit``) through two more
-(``ops/cuda/diff_kernel.py``); each has a plain PyTorch twin. The package
-imports torch and numpy, never jax.
+(``ops/cuda/diff_kernel.py``) and mesh assets through three more
+(``ops/cuda/grid_kernel.py``); each has a plain PyTorch twin. ``bench``
+and ``utils/profiling.py`` measure them. The package imports torch and
+numpy, never jax.
 """
 
 from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig, RenderConfig

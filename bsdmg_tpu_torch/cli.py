@@ -1,4 +1,4 @@
-"""Command-line interface of the PyTorch port: the ``render``, ``mesh`` and ``fit`` verbs.
+"""Command-line interface of the PyTorch port: the ``render``, ``mesh``, ``fit`` and ``bench`` verbs.
 
     python -m bsdmg_tpu_torch.cli render -o out.png
     python -m bsdmg_tpu_torch.cli render --scene mesh:asset.obj[:RES] -o out.png
@@ -6,6 +6,7 @@
     python -m bsdmg_tpu_torch.cli mesh --interpolate-edges -o out.obj
     python -m bsdmg_tpu_torch.cli fit
     python -m bsdmg_tpu_torch.cli fit --image
+    python -m bsdmg_tpu_torch.cli bench --which render [--two-phase row|block] [--roofline]
 
 ``render`` draws the reference scene at 1920x1080 through CUDA kernel K1,
 or a triangle-mesh asset baked into a RES^3 grid SDF (default 128) through
@@ -16,16 +17,21 @@ extracts its surface through kernel K6 (edge midpoints) or K7
 (``--interpolate-edges``); ``fit`` perturbs scene parameters and recovers
 them by inverse rendering, from a depth map (plain PyTorch and autograd) or,
 with ``--image``, from an image through kernels K4 (the target's march) and
-K5 (each step's loss and gradient). All keep the JAX CLI's flags and
-defaults (``bsdmg_tpu/cli.py``). ``--device`` picks the torch device
-(default ``cuda``); ``--device cpu`` runs the kernels' plain PyTorch twins,
-for tests. With no CUDA device and no ``--device cpu`` a command fails: it
-never moves to the CPU on its own.
+K5 (each step's loss and gradient); ``bench`` prints the JAX CLI's
+operating-point numbers as JSON (the render through K1, or with
+``--two-phase row`` through K2 and K3, with ``block`` through K1 twice;
+refine; marching cubes through K6; the loss and gradient through K5). All
+keep the JAX CLI's flags and defaults (``bsdmg_tpu/cli.py``). ``--device``
+picks the torch device (default ``cuda``); ``--device cpu`` runs the
+kernels' plain PyTorch twins, for tests. With no CUDA device and no
+``--device cpu`` a command fails: it never moves to the CPU on its own.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import logging
 import math
 import sys
@@ -34,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from bsdmg_tpu_torch import bench
 from bsdmg_tpu_torch.cam import generate_rays, look_at
 from bsdmg_tpu_torch.config import MeshGenConfig
 from bsdmg_tpu_torch.grad import differentiable_hit, render_image_diff, render_loss_and_grad
@@ -53,6 +60,7 @@ from bsdmg_tpu_torch.ops.cuda.grid_kernel import make_contraction_levels, render
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
 from bsdmg_tpu_torch.ops.shade import to_rgba8
 from bsdmg_tpu_torch.ops.trace import COLLISION
+from bsdmg_tpu_torch.utils import profiling
 
 log = logging.getLogger("bsdmg_tpu_torch")
 
@@ -349,6 +357,67 @@ def fit_image(scene, true_params: dict, params: dict, origins, dirs, cone, *, st
     return {k: v.detach() for k, v in params.items()}, losses
 
 
+def _share(roof, seconds: float, device: torch.device):
+    """Percent of the card's speed of light; a time taken on the CPU is no
+    share of it (None)."""
+    return 100.0 * roof.efficiency(seconds) if device.type == "cuda" else None
+
+
+def cmd_bench(args) -> None:
+    """The JAX CLI's operating-point benchmarks (``bsdmg_tpu/cli.py``
+    cmd_bench) on the port: one JSON object with the same keys, and the
+    device it ran on. The speed of light is the H100's (``utils/
+    profiling.py``)."""
+    device = _device(args.device)
+    ctx = contextlib.nullcontext()
+    if args.trace:
+        ctx = profiling.trace(args.trace)
+    results = {}
+    with ctx:
+        if args.which in ("all", "render"):
+            two_phase = {"row": True, "block": "block"}.get(args.two_phase, False)
+            r = bench.benchmark_render(args.width, args.height, two_phase=two_phase,
+                                       unroll=args.unroll, device=device)
+            results["render"] = {
+                "rays_per_s": r["rays_per_s"],
+                "ms_per_frame": r["seconds_per_frame"] * 1e3,
+            }
+            if args.roofline:
+                stats = bench.render_step_stats(args.width, args.height, device=device)
+                desc = compile_scene(reference_render_scene(device=device))
+                roof = profiling.render_roofline(desc, args.width, args.height,
+                                                 stats["mean_warp_max_steps"], stats["hits"])
+                results["roofline"] = {
+                    **stats,
+                    "bound_by": roof.bound,
+                    "speed_of_light_ms": roof.seconds * 1e3,
+                    "pct_of_roofline": _share(roof, r["seconds_per_frame"], device),
+                }
+        if args.which in ("all", "refine"):
+            r = bench.benchmark_refine(device=device)
+            results["refine"] = {"voxels_per_s": r["voxels_per_s"]}
+        if args.which in ("all", "mc"):
+            r = bench.benchmark_marching_cubes(device=device)
+            results["marching_cubes"] = {"voxels_per_s": r["voxels_per_s"]}
+        if args.which in ("all", "grad"):
+            r = bench.benchmark_render_grad(device=device)
+            results["render_grad"] = {"rays_per_s": r["rays_per_s"]}
+            if args.roofline:
+                stats = bench.render_step_stats(r["width"], r["height"], device=device)
+                roof = profiling.grad_roofline(r["width"], r["height"],
+                                               stats["mean_warp_max_steps"], stats["hits"])
+                results["grad_roofline"] = {
+                    **stats,
+                    "bound_by": roof.bound,
+                    "speed_of_light_ms": roof.seconds * 1e3,
+                    "pct_of_roofline": _share(roof, r["seconds_per_frame"], device),
+                }
+    if args.trace:
+        results["trace_dir"] = args.trace
+    results["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(json.dumps(results, indent=2))
+
+
 def _add_device(parser) -> None:
     parser.add_argument(
         "--device", default="cuda",
@@ -422,6 +491,29 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_device(ft)
     ft.set_defaults(fn=cmd_fit)
+
+    b = sub.add_parser("bench", help="operating-point benchmarks")
+    b.add_argument("--which", choices=["all", "render", "refine", "mc", "grad"], default="all")
+    b.add_argument("--width", type=int, default=1920)
+    b.add_argument("--height", type=int, default=1080)
+    b.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the benched region into DIR",
+    )
+    b.add_argument(
+        "--roofline", action="store_true",
+        help="with render or grad: print measured step stats + %% of speed-of-light",
+    )
+    b.add_argument(
+        "--two-phase", default=None, choices=["row", "block"],
+        help="render: ray-retirement mode (default single-phase)",
+    )
+    b.add_argument(
+        "--unroll", type=int, default=1,
+        help="render: frames per timed step",
+    )
+    _add_device(b)
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

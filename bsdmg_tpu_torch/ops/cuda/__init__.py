@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, the counterparts of ``ops/pallas``.
 
-* ``render_kernel`` — kernel K1, the fused sphere trace + shade, and its
-  plain PyTorch twin;
+* ``render_kernel`` — kernels K1, the fused sphere trace + shade, K2, the
+  resumable trace alone, and K3, the shading alone, with their plain
+  PyTorch twins and the render pipelines over them;
 * ``mc_kernel`` — kernel K6, the fused marching-cubes finish, and its twin;
 * ``mesh_kernel`` — kernel K7, the Newton edge projection, and its twin
   (with the Newton and fd4 helpers K6's twin shares);

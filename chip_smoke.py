@@ -14,26 +14,38 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
 4. K1 against its plain PyTorch version at 1920x1080 (bit for bit), and at
    256x144 against the committed golden render;
 5. K1 and plain times from CUDA events at 1920x1080 and 2560x1440;
-6. the mesh path: ``cli mesh -o <tmp>.obj`` at its defaults (level 3),
+6. the bench path: ``cli bench --which render`` at 1920x1080 single-phase
+   (must launch K1), ``--two-phase row`` (must launch K2 and K3),
+   ``--two-phase block`` (K1 at least twice) and ``--roofline``, each
+   printing its JSON; K2 (culled, uncull'd, phase A at 16, 32 and 48 steps
+   and the tail after each, relaxed), K3 on K2's planes, and K1 relaxed,
+   in phase A and resumed over its block list, against their plain
+   versions bit for bit; the row, block and unfused images against K1's;
+   each pipeline (K1, row, block, unfused) culled or not, exact or relaxed
+   (omega 1.5), against the twins composed alike, bit for bit;
+   K1, K2 and K3 each alone at 1920x1080 and 2560x1440, the pipelines
+   through the wrapper; the divergence split (phase A capped at 16, 32
+   and 48 steps, the tail's list, phase B, K3, against K1) with bounds;
+7. the mesh path: ``cli mesh -o <tmp>.obj`` at its defaults (level 3),
    which must launch K6 and give the JAX package's voxel, triangle and
    vertex counts; then ``cli mesh --interpolate-edges``, which must launch
    K7;
-7. K6 and K7 against their plain versions at level 3 (bit for bit, and the
+8. K6 and K7 against their plain versions at level 3 (bit for bit, and the
    JAX package's Pallas-vs-XLA bars), K6 also at level 5;
-8. K6 times at levels 3 and 5, K7 at level 3, the plain versions at level
+9. K6 times at levels 3 and 5, K7 at level 3, the plain versions at level
    3; the stage times of mesh generation: refine to level 5, then
    extraction, weld and OBJ write at levels 3 and 5;
-9. the fit path: ``cli fit --image`` at its defaults (64x64, 60 steps),
-   which must launch K4 (the target) and K5 once per step, with a falling
-   loss; the same 60 steps through K4's and K5's plain versions on the
-   card, with K5 held against its plain version at every step's
-   parameters, and the two fits' parameters compared after 10 to 60 steps
-   (beside a fit of the plain versions from a start one float32 step
-   away, which shows how far rounding alone parts two fits); ``cli fit
-   --image`` at 512x512 for 10 steps (the JAX package's training operating point) and
-   ``--steps 0`` beside each size, for the time per step; ``cli fit``
-   (depth) at its defaults, whose loss must fall;
-10. K4 against its plain version with the scene's 16 parameter values at
+10. the fit path: ``cli fit --image`` at its defaults (64x64, 60 steps),
+    which must launch K4 (the target) and K5 once per step, with a falling
+    loss; the same 60 steps through K4's and K5's plain versions on the
+    card, with K5 held against its plain version at every step's
+    parameters, and the two fits' parameters compared after 10 to 60 steps
+    (beside a fit of the plain versions from a start one float32 step
+    away, which shows how far rounding alone parts two fits); ``cli fit
+    --image`` at 512x512 for 10 steps (the JAX package's training operating point) and
+    ``--steps 0`` beside each size, for the time per step; ``cli fit``
+    (depth) at its defaults, whose loss must fall;
+11. K4 against its plain version with the scene's 16 parameter values at
     1920x1080 and 512x512 and with the fit's 9 at 512x512 and 64x64
     (depth, steps, outcome, min_m and t_min bit for bit, dfdt within a
     bar), K5 against its plain version at 512x512 at the bench point and
@@ -41,20 +53,20 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     64x64 (the JAX package's bars, and bit-equal across two calls); K4 and
     K5 times with the plain versions' beside them, registers and local
     memory;
-11. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
+12. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
     ``cli render --scene mesh:<tmp>/torus.obj --camera 3 1.5 -3`` bakes a
     128^3 grid and renders 1920x1080, which must launch K9 twice (the 32^3
     and 64^3 bf16 mips), K8 once (the fine finish) and P1 once (the hit
     normals); its PNG's hit pixels, the bake's peak device memory and the
     stage times (load, bake, mips, each level, finish, normals, shade,
     PNG) from the same steps on the CLI's grid;
-12. each of those launches, K8 alone on the 64^3 mip (the gather route) and
+13. each of those launches, K8 alone on the 64^3 mip (the gather route) and
     P1 on the stencil points against their plain versions on the same
     inputs (bit for bit); P1 on the probe's own inputs against the probe's
     trilinear oracle (1e-4), with ``torch.nn.functional.grid_sample``'s
     time beside it; the gather route's image against the contraction
     route's (>= 99% of pixels within 1e-3);
-13. frame and kernel times of the mesh-asset render at the JAX bench's grid
+14. frame and kernel times of the mesh-asset render at the JAX bench's grid
     point (the reference object baked analytically at 128^3 over +-2.6,
     512x512 from (5, 2, -5)) and at the 1080p torus frame, with each
     kernel's bound; ptxas's registers and spills of grid_kernel.cu.
@@ -62,7 +74,8 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that did not launch its kernel fails. Then one JSON
 line describing each kernel (its bound from this run's counts: the bytes it
-must move over HBM's rate, or its FP32 operations over the FP32 peak), the
+must move over HBM's rate, or its FP32 operations over the FP32 peak,
+counted by ``bsdmg_tpu_torch/utils/profiling.py`` as the bench counts), the
 card's line, and as the last line ``{"ok": true, "device": {...}}``. Any
 failed phase raises and the script exits non-zero; without a CUDA device it
 exits non-zero at once.
@@ -70,6 +83,8 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import logging
 import statistics
@@ -83,6 +98,25 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from bsdmg_tpu_torch.utils.profiling import (
+    HAT,
+    INTERP,
+    MARCH_ADVANCE,
+    MARCH_EVAL,
+    bound,
+    k4_ops,
+    k5_ops,
+    march_ops,
+    march_work,
+    mesh_ops,
+    render_bytes,
+    render_ops,
+    resumed_work,
+    shade_bytes,
+    shade_pass_ops,
+    trace_bytes,
+)
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "render_256x144.npz"
@@ -130,119 +164,6 @@ FIT_SNAPSHOTS = (10, 20, 30, 40, 50, FIT_STEPS)
 FIT_PARAM_ATOL_10 = 1e-3
 FIT_PARAM_RTOL = 5e-2
 
-# Peaks of one H100 SXM (NVIDIA's data sheet): FP32
-# outside the tensor cores and HBM. A kernel's bound is the larger of its
-# bytes over the memory rate and its FP32 operations over the FP32 peak.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-
-# FP32 operations, counted from the sources line by line: each add,
-# subtract, multiply, division, min, max, abs, sqrt (or rsqrt) and compare
-# counts one; a negation or a select counts none; a value that a backward
-# pass recomputes from its forward pass counts once.
-TIE = 3  # scene_sdf.cuh tie_weight: two compares, a division
-INV_NORM = 8  # project.cuh inv_norm: 3 multiplies, 2 adds, max, sqrt, division
-WINDING = 41  # mc_kernel.cu vertex-mean winding per valid triangle: edges 6,
-# cross product 9, normal sum 6, dot 5, |g|^2 5, |a|^2 5, ambiguity test 4, flip test 1
-RAY = 124  # render_kernel.cu per ray: slab cull 64 (centre offset 3, reach 9, T* 4,
-# margin 4, 3 slab axes of 12, tmin/tmax 4, miss 2, limit 2), ACES 60 (two 3x3
-# products of 15, 3 curves of 8, 3 clips of 2)
-
-
-def capsule_ops(cs) -> int:
-    """scene_sdf.cuh capsule_set_fwd: per group_d2 the axial clamp
-    (subtract, max, min, subtract), per slot a subtract and a multiply for
-    each value and a min between two, then ``(e*e + m1) + m2``; a min
-    between groups, the sqrt and the radius."""
-    def slot(n):
-        return 2 * n + n - 1
-
-    return sum(4 + slot(len(g.v1)) + slot(len(g.v2)) + 3 for g in cs.groups) + len(cs.groups) + 1
-
-
-def capsule_bwd_ops(cs) -> int:
-    """scene_sdf.cuh capsule_set_bwd without the forward's values: the sqrt's
-    weight (division, multiply), two weighted cotangents per later group;
-    per group_bwd 12 (ce, ct_e, ct_mx, ct_r, add_to_axis) and per slot_bwd
-    3 for one value (ct*d, a + a, add_to_axis) or 14 for two (two weighted
-    cotangents, two ct*d, two a + a, the sum, add_to_axis)."""
-    def slot(n):
-        return 3 if n == 1 else 14
-
-    groups = sum(12 + slot(len(g.v1)) + slot(len(g.v2)) for g in cs.groups)
-    return 2 + (len(cs.groups) - 1) * 2 * (1 + TIE) + groups
-
-
-def sdf_ops(desc) -> int:
-    """scene_sdf.cuh scene_sdf: the transform (3 subtracts, 9 multiplies,
-    6 adds), the object's capsules, the sphere (3 multiplies, 2 adds, sqrt,
-    subtract), the smooth-min (subtract, abs, subtract, max, multiply, min,
-    3 multiplies, subtract), the frame's capsules and a min."""
-    n = capsule_ops(desc.object) + 7 + 10
-    if desc.translation is not None:
-        n += 18
-    if desc.frame is not None:
-        n += capsule_ops(desc.frame) + 1
-    return n
-
-
-def grad_ops(desc) -> int:
-    """scene_sdf.cuh scene_sdf_grad: the forward (scene_sdf's operations),
-    the smooth-min backward (ct_h3 1, ct_h2 1, ct_h 5, ct_u 5, ct_delta 1,
-    ct_skel 5, ct_sph 5, ct_s2 2), the sphere's (3 multiplies, 3 doubled
-    sums), the capsules' backward, the frame's two weights and the
-    transposed rotation (15)."""
-    n = sdf_ops(desc) + 25 + 9 + capsule_bwd_ops(desc.object)
-    if desc.frame is not None:
-        n += 2 * TIE + capsule_bwd_ops(desc.frame)
-    if desc.translation is not None:
-        n += 15
-    return n
-
-
-def fd4_ops(desc) -> int:
-    """project.cuh fd4_grad: 2*eps, 12 SDFs at a shifted coordinate (an add
-    each) and the stencil's 5 per axis."""
-    return 1 + 12 * (sdf_ops(desc) + 1) + 15
-
-
-def newton_step_ops(desc, use_grad: bool) -> int:
-    """project.cuh newton_project, one step: the value and gradient (the
-    analytic one, or scene_sdf and fd4), inv_norm, the update (3 x multiply,
-    multiply, subtract) and the stop test (abs, compare)."""
-    grad = grad_ops(desc) if use_grad else sdf_ops(desc) + fd4_ops(desc)
-    return grad + INV_NORM + 9 + 2
-
-
-# param_sdf.cuh, counted by the same rules (the parameter form of the
-# reference scenes, evaluated from the parameters on every call)
-SKELETON = 52  # skeleton_fwd: per axis 16 (offset, clamp 2, difference, four
-# offsets, five squares, two mins, two adds), two mins across axes, sqrt, width
-SKELETON_BWD = 138  # skeleton_bwd without recomputed values: the sqrt's weight 2,
-# the min chain 16, per axis 40 (axial 12, two slots of 14)
-TRANSFORM = 70  # translation 3, quaternion to matrix 52, rotation 15
-SMOOTH_BWD = 32  # scene_value_grad's smooth-min and sphere backward
-CULL = 64  # common.cuh slab_cull (RAY's cull part)
-ACES = 60  # common.cuh aces (RAY's ACES part)
-SHADE = 13  # common.cuh shade_collision: light dot 7, colour mix 6
-
-
-def param_sdf_ops(frame: bool, transform: bool) -> int:
-    """param_sdf.cuh scene_value: the skeleton's low corner (6), the
-    skeleton, the sphere (7), the smooth minimum (11); the transform; the
-    wireframe's corner (6), skeleton and the min."""
-    return 6 + SKELETON + 7 + 11 + (TRANSFORM if transform else 0) + (
-        6 + SKELETON + 1 if frame else 0)
-
-
-def param_grad_ops(frame: bool, transform: bool) -> int:
-    """param_sdf.cuh scene_value_grad: the value, the smooth-min and sphere
-    backward, the skeleton's backward, the rotation's transpose (15), the
-    two tie weights of the wireframe's min and its skeleton's backward."""
-    return (param_sdf_ops(frame, transform) + SMOOTH_BWD + SKELETON_BWD
-            + (15 if transform else 0) + (2 * TIE + SKELETON_BWD if frame else 0))
-
-
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -254,12 +175,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """``(bound_ms, bound_by)``: the least time the card could take."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def rays(width: int, height: int, device):
@@ -328,19 +243,12 @@ def reset_launches() -> None:
 
     for module in (render_kernel, mc_kernel, mesh_kernel):
         module.LAUNCHES = 0
+    render_kernel.TRACE_LAUNCHES = 0
+    render_kernel.SHADE_LAUNCHES = 0
     diff_kernel.MARCH_LAUNCHES = 0
     diff_kernel.LOSS_GRAD_LAUNCHES = 0
     for name in grid_kernel.LAUNCHES:
         grid_kernel.LAUNCHES[name] = 0
-
-
-def march_work(steps, outcome, depth) -> tuple[int, int, int]:
-    """``(evaluations, advances, hits)`` of a march, as K1's are counted."""
-    culled = (outcome == 2) & (steps == 0) & (depth == float(np.float32(500.0 * 1.01)))
-    marched = ~culled
-    evals = steps.sum().item() + int(((outcome != 1) & marched).sum().item())
-    advances = steps.sum().item() + int(((outcome == 2) & marched).sum().item())
-    return evals, advances, int((outcome == 0).sum().item())
 
 
 def render_phases(card: str, device) -> dict:
@@ -376,21 +284,13 @@ def render_phases(card: str, device) -> dict:
     counts = torch.bincount(outcome.reshape(-1), minlength=3).tolist()
     print(f"parity 1920x1080: {json.dumps(stats)} outcomes(collision, step, depth)={counts}")
 
-    # this run's work (render_kernel.cu): a march evaluation per step, one
-    # more where the march ended by a hit or the depth limit, none for a
-    # culled ray; each costs the SDF, the point (6), cd and cd + eps (2) and
-    # the hit test (1), and each advance (a step, or the last one past the
-    # depth limit) 3 more; a hit's fd4 normal and shading add the point (6),
-    # 2*eps, 12 shifted SDFs, the stencil (15), the normalisation (7), the
-    # Lambert term (10) and the colour mix (6)
+    # this run's work (utils/profiling.py::render_ops)
     evals, advances, hits = march_work(steps, outcome, kernel[1])
     npix = 1920 * 1080
-    sdf = sdf_ops(desc)
-    ops = (evals * (sdf + 9) + advances * 3 + hits * (6 + 1 + 12 * (sdf + 1) + 15 + 7 + 10 + 6)
-           + npix * RAY)
-    bound_ms, bound_by = bound(npix * (12 + 12 + 4 + 12), ops)
+    ops = render_ops(desc, evals, advances, hits, npix)
+    bound_ms, bound_by = bound(render_bytes(npix), ops)
     print(f"K1 work 1920x1080: {evals} march SDF evaluations, {hits} normals, "
-          f"{ops:.4g} FP32 operations, {npix * 40} B; bound {bound_ms:.4f} ms ({bound_by})")
+          f"{ops:.4g} FP32 operations, {render_bytes(npix)} B; bound {bound_ms:.4f} ms ({bound_by})")
 
     golden = torch.from_numpy(np.load(GOLDEN)["image"]).to(device)
     img = render_image_cuda(desc, *rays(256, 144, device))
@@ -455,7 +355,13 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
     """Runs ``cli <argv>`` with every launch count set to 0; returns the
     counts after it, the CLI's log lines and the seconds it took."""
     from bsdmg_tpu_torch import cli
-    from bsdmg_tpu_torch.ops.cuda import diff_kernel, grid_kernel, mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda import (
+        diff_kernel,
+        grid_kernel,
+        mc_kernel,
+        mesh_kernel,
+        render_kernel,
+    )
 
     records = _Records()
     logger = logging.getLogger("bsdmg_tpu_torch")
@@ -469,7 +375,9 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
         cli.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
+        launches = {"K1": render_kernel.LAUNCHES, "K2": render_kernel.TRACE_LAUNCHES,
+                    "K3": render_kernel.SHADE_LAUNCHES,
+                    "K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
                     "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES, **grid_kernel.LAUNCHES}
     finally:
         logger.removeHandler(records)
@@ -477,8 +385,265 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
     return launches, records.messages, seconds
 
 
+# ---------------------------------------------------------------------------
+# the trace-only and shade-only paths: K2, K3, and K1 resumed and relaxed
+# ---------------------------------------------------------------------------
+
+#: phase-A budgets of the divergence split: the JAX package's phase_a_steps
+#: (32 is render_image_pallas's default, 48 the bench's)
+PHASE_A_STEPS = (16, 32, 48)
+#: `cli bench --which render` at its 1920x1080: single-phase (K1), row
+#: two-phase (K2, K2 over the tail, K3), block retirement (K1 twice), and
+#: the single-phase run with the roofline
+BENCH_RUNS = {
+    "plain": [],
+    "row": ["--two-phase", "row"],
+    "block": ["--two-phase", "block"],
+    "roofline": ["--roofline"],
+}
+
+
+def run_bench(extra: list[str]) -> tuple[dict, dict, float]:
+    """``cli bench --which render <extra>`` with every launch count set to
+    0: its JSON, the counts after it and the seconds it took."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        counts, _, seconds = run_cli(["bench", "--which", "render", *extra])
+    return json.loads(out.getvalue()), counts, seconds
+
+
+def same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def twin_pipeline(rk, desc, o, d, c, *, two_phase=False, phase_a_steps=32, use_bb_skip=True,
+                  omega=1.0):
+    """The plain twins composed as ``render_image_cuda`` composes the
+    kernels: a single march, or phase A capped at ``phase_a_steps`` then
+    the rays of the row tail's list or of the listed 16x8 blocks resumed,
+    then the shading. Returns ``(rgb, depth, steps, outcome)``."""
+    kw = dict(use_bb_skip=use_bb_skip, omega=omega)
+    if two_phase is False:
+        planes = rk.trace_planes_torch(desc, o, d, c, **kw)[:3]
+    else:
+        a = rk.trace_planes_torch(desc, o, d, c, budget=phase_a_steps, **kw)
+        if two_phase == "block":
+            active = a[3] * rk.block_rays(rk.compact_list(rk.block_flags(a[3])), *c.shape)
+        else:
+            active = rk.listed_flags(*rk.compact_list(a[3].reshape(-1)), c.numel()).reshape(c.shape)
+        planes = rk.trace_planes_torch(desc, o, d, c, *a[:3], active, **kw)[:3]
+    return rk.shade_planes_torch(desc, o, d, planes[0], planes[2]), *planes
+
+
+def trace_shade_phases(card: str, device) -> list[dict]:
+    """Phase 6: the bench path and kernels K2 and K3."""
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import build
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+
+    report = build.resource_report("render_kernel.cu").splitlines()
+    registers = sorted({int(line.split("Used ")[1].split()[0]) for line in report if "Used " in line})
+    spills = {line.strip() for line in report if "spill" in line}
+    print(f"render_kernel.cu: {sum('Compiling entry' in line for line in report)} kernels, "
+          f"registers {registers}, {spills}")
+
+    # the bench verb, each run with every launch count at 0 before it
+    launches, outs = {}, {}
+    for name, extra in BENCH_RUNS.items():
+        out, counts, seconds = run_bench(extra)
+        k = {n: counts[n] for n in ("K1", "K2", "K3")}
+        print(f"bench path ({name}): cli bench --which render {' '.join(extra)} in {seconds:.2f} s, "
+              f"launches {k}: {json.dumps(out)}")
+        check(np.isfinite(out["render"]["rays_per_s"]) and out["render"]["rays_per_s"] > 0,
+              f"cli bench {extra} printed {out}")
+        launches[name], outs[name] = k, out
+    check(launches["plain"]["K1"] > 0, f"cli bench did not launch K1: {launches['plain']}")
+    check(launches["row"]["K2"] > 0 and launches["row"]["K3"] > 0,
+          f"cli bench --two-phase row did not launch K2 and K3: {launches['row']}")
+    check(launches["block"]["K1"] >= 2, f"cli bench --two-phase block: {launches['block']}")
+    roof = outs["roofline"].get("roofline", {})
+    check({"mean_steps", "mean_tile_max_steps", "max_steps", "mean_warp_max_steps",
+           "speed_of_light_ms", "pct_of_roofline"} <= set(roof), f"cli bench --roofline: {roof}")
+
+    # every mode of K2, K3, and K1 relaxed and resumed, against the twins
+    cfg = MarchConfig()
+    desc = compile_scene(reference_render_scene(device=device))
+    o, d, c = rays(1920, 1080, device)
+    npix = c.numel()
+    exact, errors = {}, {}
+    single = rk.trace_cuda(desc, o, d, c)
+    exact["K2 culled"] = same(single, rk.trace_planes_torch(desc, o, d, c)[:3])
+    uncull = rk.trace_cuda(desc, o, d, c, use_bb_skip=False)
+    exact["K2 uncull'd"] = same(uncull, rk.trace_planes_torch(desc, o, d, c, use_bb_skip=False)[:3])
+    frame = rk._Frame(desc, o, d, c, cfg, True, 1.0)
+    tails = {}
+    for n in PHASE_A_STEPS:
+        planes = frame.trace(n)
+        exact[f"K2 phase A {n}"] = same(planes, rk.trace_planes_torch(desc, o, d, c, budget=n))
+        listed = rk.compact_list(planes[3].reshape(-1))
+        carried = tuple(x.clone() for x in planes)
+        frame.resume_trace(planes, listed)
+        twin = rk.trace_planes_torch(desc, o, d, c, *carried)
+        exact[f"K2 tail after {n}"] = same(planes[:3], twin[:3])
+        exact[f"K2 phase A {n} + tail = single"] = same(planes[:3], single)
+        tails[n] = (carried, listed, planes[:3])
+    relaxed = rk.trace_cuda(desc, o, d, c, omega=1.5)
+    relaxed_twin = rk.trace_planes_torch(desc, o, d, c, omega=1.5)[:3]
+    exact["K2 relaxed"] = same(relaxed, relaxed_twin)
+    errors["K2"] = max(_max_err(a, b) for a, b in zip(relaxed, relaxed_twin))
+    shaded = rk.shade_cuda(desc, o, d, single[0], single[2])
+    shaded_twin = rk.shade_planes_torch(desc, o, d, single[0], single[2])
+    exact["K3"] = torch.equal(shaded, shaded_twin)
+    errors["K3"] = _max_err(shaded, shaded_twin)
+    k1_relaxed = rk.render_image_cuda(desc, o, d, c, return_planes=True, omega=1.5)
+    exact["K1 relaxed"] = same(k1_relaxed, rk.render_image_planes_torch(desc, o, d, c, omega=1.5))
+    rgb, *planes = frame.render(48)
+    twin = rk.trace_planes_torch(desc, o, d, c, budget=48)
+    exact["K1 phase A 48"] = same(planes, twin) and torch.equal(
+        rgb, rk.shade_planes_torch(desc, o, d, twin[0], twin[2]))
+    blocks = rk.compact_list(rk.block_flags(planes[3]))
+    n_blocks = int(blocks[1].item())
+    carried = (*(x.clone() for x in planes[:3]), planes[3] * rk.block_rays(blocks, *c.shape))
+    block_state = tuple(x.clone() for x in (rgb, *planes))
+    frame.resume(rgb, planes, blocks)
+    twin = rk.trace_planes_torch(desc, o, d, c, *carried)
+    exact["K1 resumed over blocks"] = same(planes, twin) and torch.equal(
+        rgb, rk.shade_planes_torch(desc, o, d, twin[0], twin[2]))
+    base = rk.render_image_cuda(desc, o, d, c, return_planes=True)
+    paths = {"row": dict(two_phase=True), "block": dict(two_phase="block", phase_a_steps=48),
+             "swizzle=False": dict(swizzle=False)}
+    for name, kw in paths.items():
+        exact[f"{name} image = K1's"] = same(rk.render_image_cuda(desc, o, d, c, return_planes=True,
+                                                                   **kw), base)
+    # every pipeline culled or not, exact or relaxed, against the twins
+    # composed alike: each instantiation of K1 and K2, and K3
+    for cull in (True, False):
+        for omega in (1.0, 1.5):
+            for name, kw in {"K1": {}, **paths}.items():
+                ours = rk.render_image_cuda(desc, o, d, c, return_planes=True, use_bb_skip=cull,
+                                            omega=omega, **kw)
+                twin = twin_pipeline(rk, desc, o, d, c, use_bb_skip=cull, omega=omega,
+                                     **{k: v for k, v in kw.items() if k != "swizzle"})
+                label = "culled" if cull else "uncull'd"
+                exact[f"{name} {label} omega {omega} = twin"] = same(ours, twin)
+    torch.cuda.synchronize()
+    print(f"parity 1920x1080, bit for bit: {json.dumps(exact)}; {n_blocks} of "
+          f"{rk.block_flags(planes[3]).numel()} 16x8 blocks resumed after 48 steps")
+    check(all(exact.values()), f"not bit-equal: {[k for k, v in exact.items() if not v]}")
+
+    # each kernel alone (prepared struct, preallocated outputs, a CUDA
+    # graph of 20 launches); the twins and the pipelines by CUDA events
+    desc_c = rk.scene_desc_c(desc, cfg)
+    step_limit = cfg.step_limit
+
+    def alone(width, height):
+        ro, rd, rc = rays(width, height, device)
+        planes = rk.trace_cuda(desc, ro, rd, rc)
+        out = tuple(torch.empty_like(p) for p in planes)
+        img = torch.empty((height, width, 3), device=device)
+        return {
+            "K1": graph_ms(lambda: rk._render_cuda(desc_c, ro, rd, rc, img, None, cap=step_limit)),
+            "K2": graph_ms(lambda: rk._trace_cuda(desc_c, ro, rd, rc, None, out, cap=step_limit)),
+            "K3": graph_ms(lambda: rk._shade_cuda(desc_c, ro, rd, planes[0], planes[2], img)),
+        }
+
+    times = {size: alone(*size) for size in ((1920, 1080), (2560, 1440))}
+    for (w, h), t in times.items():
+        print(f"time {w}x{h} on {card}, each kernel alone: " + ", ".join(
+            f"{k} {v:.4f} ms ({w * h / v * 1e3:.4g} rays/s)" for k, v in t.items()))
+    plain = {"K2": median_ms(lambda: rk.trace_planes_torch(desc, o, d, c), runs=5, warmup=1),
+             "K3": median_ms(lambda: rk.shade_planes_torch(desc, o, d, single[0], single[2]),
+                             runs=5, warmup=1)}
+    wrapped = {name: median_ms(lambda: rk.render_image_cuda(desc, o, d, c, **kw), reps=5)
+               for name, kw in {"K1": {}, **paths}.items()}
+    print(f"time 1920x1080 on {card} through render_image_cuda (CUDA events): "
+          f"{json.dumps(wrapped)}; plain twins {json.dumps(plain)}")
+
+    # this run's work and bounds
+    evals, advances, hits = march_work(single[1], single[2], single[0])
+    k2_ops, k2_bytes = march_ops(desc, evals, advances, npix), trace_bytes(npix)
+    k3_ops, k3_bytes = shade_pass_ops(desc, hits, npix), shade_bytes(npix, hits)
+    k2_bound, k3_bound = bound(k2_bytes, k2_ops), bound(k3_bytes, k3_ops)
+    print(f"K2 work 1920x1080: {evals} SDF evaluations, {k2_ops:.4g} FP32 operations, {k2_bytes} B; "
+          f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); K3: {hits} hits, {k3_ops:.4g} FP32 "
+          f"operations, {k3_bytes} B; bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+
+    # the divergence split: phase A capped at n steps, the tail's list,
+    # phase B over it (packed into full warps), K3; against K1 alone
+    out = tuple(torch.empty_like(p) for p in single)
+    active = torch.empty_like(single[2])
+    k1_ms = times[(1920, 1080)]["K1"]
+    for n in PHASE_A_STEPS:
+        state, listed, final = tails[n]
+        count = int(listed[1].item())
+        a_ms = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, None, out, active=active, cap=n))
+        list_ms = graph_ms(lambda: rk.compact_list(state[3].reshape(-1)))
+        b_ms = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, state, out, rays=listed,
+                                               cap=step_limit))
+        ev, adv, _ = march_work(state[1], state[2], state[0])
+        a_bound = bound(trace_bytes(npix, active=True), march_ops(desc, ev, adv, npix))
+        b_ops, b_bytes = resumed_work(desc, state, final, count)
+        split = {
+            "phase_a_steps": n, "phase_a_ms": a_ms, "phase_a_bound_ms": a_bound[0],
+            "tail_rays": count, "tail_share": count / npix, "list_ms": list_ms,
+            "phase_b_ms": b_ms, "phase_b_bound_ms": bound(b_bytes, b_ops)[0],
+            "shade_ms": times[(1920, 1080)]["K3"],
+            "sum_ms": a_ms + list_ms + b_ms + times[(1920, 1080)]["K3"], "k1_ms": k1_ms,
+        }
+        print(f"divergence split on {card}: {json.dumps(split)}")
+
+    # block retirement's two K1 launches alone: phase A, and the resume from
+    # phase A's state (a copy of it, timed and taken off, restores it)
+    rgb_b, planes_b = torch.empty_like(rgb), [torch.empty_like(p) for p in planes]
+    work = [torch.empty_like(x) for x in block_state]
+
+    def restore():
+        for dst, src in zip(work, block_state):
+            dst.copy_(src)
+
+    def resume():
+        restore()
+        rk._render_cuda(desc_c, o, d, c, work[0], work[1:4], mode=rk.RESUME, active=work[4],
+                        blocks=blocks, cap=step_limit)
+
+    a1_ms = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb_b, planes_b[:3], mode=rk.PHASE_A,
+                                             active=planes_b[3], cap=48))
+    copy_ms = graph_ms(restore)
+    print(f"block retirement on {card}: K1 phase A (48 steps) {a1_ms:.4f} ms, K1 over "
+          f"{n_blocks} blocks {graph_ms(resume) - copy_ms:.4f} ms (restore {copy_ms:.4f} ms taken "
+          f"off); K1 alone {k1_ms:.4f} ms")
+
+    return [{
+        "name": "K2 trace_kernel (trace only, resumable)",
+        "route": "cuda",
+        "source": rk.SOURCE,
+        "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:495",
+        "launches": launches["row"]["K2"],
+        "max_abs_err": errors["K2"],
+        "ms": times[(1920, 1080)]["K2"],
+        "plain_ms": plain["K2"],
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "K3 shade_kernel (shade only)",
+        "route": "cuda",
+        "source": rk.SOURCE,
+        "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:437",
+        "launches": launches["row"]["K3"],
+        "max_abs_err": errors["K3"],
+        "ms": times[(1920, 1080)]["K3"],
+        "plain_ms": plain["K3"],
+        "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1],
+        "library_ms": None,
+    }]
+
+
 def mesh_path_phases() -> dict:
-    """Phase 6: the mesh path through the CLI, with K6 and with K7."""
+    """Phase 7: the mesh path through the CLI, with K6 and with K7."""
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, extra in (("K6", []), ("K7", ["--interpolate-edges"])):
@@ -510,18 +675,9 @@ def _max_err(a, b) -> float:
     return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
 
 
-def mesh_ops(desc, use_grad: bool, newton_steps: int, normals: int, lanes: int = 0,
-             valid_triangles: int = 0) -> int:
-    """FP32 operations of K6 or K7 for this run's data: its Newton steps,
-    fd4 unit normals (fd4_grad, inv_norm, 3 multiplies), K6's start points
-    (3 multiplies, 3 adds per lane) and vertex-mean windings."""
-    return (newton_steps * newton_step_ops(desc, use_grad)
-            + normals * (fd4_ops(desc) + INV_NORM + 3) + lanes * 6 + valid_triangles * WINDING)
-
-
 def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5,
                        main_level: int = 3) -> list[dict]:
-    """Phases 7 and 8: K6 and K7 against their plain versions, their times,
+    """Phases 8 and 9: K6 and K7 against their plain versions, their times,
     and the stage times of mesh generation at level ``top``."""
     import dataclasses
 
@@ -732,7 +888,7 @@ def plain_fit(scene, true: dict, start: dict, o, d, c, snapshots, shadow: bool =
 
 
 def fit_path_phases(card: str, device) -> dict:
-    """Phase 9: the fit path through the CLI; the kernels' 60 steps against
+    """Phase 10: the fit path through the CLI; the kernels' 60 steps against
     their plain versions'; the time per step."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.models import reference_render_scene
@@ -838,32 +994,8 @@ def fit_path_phases(card: str, device) -> dict:
     return out
 
 
-def k4_ops(npix, evals, advances, frame, transform, bounds, track) -> int:
-    """diff_kernel.cu march_params_kernel: the cull, each evaluation (the
-    point 6, the SDF, cd, cd + eps, the hit test; the margin and its compare
-    with track_min), each advance 3, and every ray's dfdt (the point 6,
-    the value and gradient, the dot 5)."""
-    return (npix * (CULL if bounds else 0) + evals * (param_sdf_ops(frame, transform) + 9 + 2 * track)
-            + advances * 3 + npix * (11 + param_grad_ops(frame, transform)))
-
-
-def k5_ops(npix, evals, advances, hits, hinges, n_tangents, frame, transform, edge) -> int:
-    """diff_kernel.cu loss_grad_kernel: K4's march and, per hit, its dfdt
-    and guard (2), then in duals (each operation counted with one
-    operation per tangent; a product's tangent takes 3, so this stays a
-    lower bound) the residual (SDF, 5), t_diff and q (8), the value and
-    gradient, the normalisation (8) and normal (3), the shading and ACES;
-    a miss's ACES in float; per pixel the squared error (9) and the warp
-    sum (5) in duals; per hinge the point (6) and in duals the SDF and 7."""
-    t = n_tangents + 1
-    sdf, grad = param_sdf_ops(frame, transform), param_grad_ops(frame, transform)
-    return (npix * CULL + evals * (sdf + 9 + 2 * edge) + advances * 3
-            + hits * (6 + 11 + grad + 2 + t * (sdf + 5 + 8 + grad + 8 + 3 + SHADE + ACES))
-            + (npix - hits) * ACES + npix * t * 14 + hinges * (6 + t * (sdf + 7)))
-
-
 def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
-    """Phase 10: K4 and K5 against their plain versions, their work, bounds
+    """Phase 11: K4 and K5 against their plain versions, their work, bounds
     and times."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.config import MarchConfig
@@ -1039,18 +1171,6 @@ GRID_IMAGE_SHARE = 0.99
 TORUS_CAMERA = (3.0, 1.5, -3.0)
 # launches of one `cli render --scene mesh:<torus.obj>` (a 128^3 grid)
 GRID_LAUNCHES = {"K8": 1, "K9": 2, "P1": 1}
-
-# csrc/grid_sdf.cuh and csrc/grid_kernel.cu, counted by the rules above, a
-# floor counting one; outside the grid box the step adds a sqrt, a max and
-# a subtract, not counted here
-BOX_STEP = 19  # outside_step: 3 axes of 4 (two subtracts, two maxes), |o|^2 5, two compares
-INTERP = 59  # InterpF32: coordinates 3 x 4, floors 3, fractions 3, 1 - fx, four x-lerps
-# of 3, two y-lerps and the z-lerp of 3, and BOX_STEP
-HAT = 83  # Hat: per axis the coordinate 4, floor, the two weights 4 + 5 (42); four
-# (x, y) weights; two z planes of 4 products and 3 adds; the z sum 3; BOX_STEP; margin
-MARCH_EVAL = 9  # grid_march_kernel per evaluation: the point 6, cd, cd + eps, the hit test
-MARCH_ADVANCE = 3  # (depth + dist) - cd and the depth-limit test
-
 
 def png_pixels(path: Path) -> np.ndarray:
     """The ``(H, W, 4)`` pixels of a PNG as mesh/export.py::save_png writes
@@ -1279,7 +1399,7 @@ def grid_march_parity(name: str, sampler, rays, state: dict, cfg) -> float:
 
 def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
                 bench=(512, 128)) -> list[dict]:
-    """Phases 11-13: the mesh-asset path through the CLI (a ``resolution``^3
+    """Phases 12-14: the mesh-asset path through the CLI (a ``resolution``^3
     grid, ``size`` pixels); K8, K9 and P1 against their plain versions and
     P1 against the probe's oracle; the gather route against the contraction
     route; frame and kernel times, also at the bench point (``bench``: its
@@ -1502,6 +1622,7 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s")
 
     kernels = [render_phases(card, device)]
+    kernels += trace_shade_phases(card, device)
     launches = mesh_path_phases()
     kernels += mesh_kernel_phases(card, device, launches)
     fit = fit_path_phases(card, device)

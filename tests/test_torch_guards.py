@@ -55,6 +55,17 @@ def test_import_scan_covers_the_mesh_asset_slice():
     } <= scanned
 
 
+def test_import_scan_covers_the_bench_slice():
+    """The bench verb's modules and K2/K3's wrapper are in the scan."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {
+        "bsdmg_tpu_torch/bench.py",
+        "bsdmg_tpu_torch/utils/profiling.py",
+        "bsdmg_tpu_torch/ops/cuda/render_kernel.py",
+        "bsdmg_tpu_torch/cli.py",
+    } <= scanned
+
+
 @pytest.mark.parametrize("name", ["MarchConfig", "MeshGenConfig", "RenderConfig"])
 def test_config_defaults_equal(name):
     ours, ref = getattr(torch_config, name), getattr(jax_config, name)

@@ -146,10 +146,20 @@ def test_wrapper_rejects_bad_inputs(case):
         render_image_cuda(compile_scene(reference_render_scene()), *args)
 
 
-def test_over_relaxation_raises():
-    o, d, c = _to_torch(*_jax_rays(16, 8))
-    with pytest.raises(NotImplementedError, match="relaxation"):
-        render_image_cuda(compile_scene(reference_render_scene()), o, d, c, MarchConfig(relaxation=1.5))
+def test_over_relaxation_matches_jax():
+    """``MarchConfig.relaxation > 1`` runs K1's over-relaxed march: its
+    twin's image against the JAX package's fused render with the same
+    omega, at the image bars."""
+    scene = jax_scene()
+    o, d, c = _jax_rays(128, 32)
+    ref = np.asarray(render_image_pallas(
+        compile_scene_csdf(scene), o, d, c, bb=scene_bounds(scene), omega=1.5, interpret=True,
+    ))
+    desc = compile_scene(reference_render_scene())
+    img = render_image_cuda(desc, *_to_torch(o, d, c), MarchConfig(relaxation=1.5))
+    assert_image_bars(img.numpy(), ref)
+    twin = render_image_planes_torch(desc, *_to_torch(o, d, c), omega=1.5)[0]
+    assert torch.equal(img, twin)
 
 
 def _c_struct_fields(source: str, name: str):
