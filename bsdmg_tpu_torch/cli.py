@@ -368,6 +368,12 @@ def cmd_bench(args) -> None:
     cmd_bench) on the port: one JSON object with the same keys, and the
     device it ran on. The speed of light is the H100's (``utils/
     profiling.py``)."""
+    if args.roofline and args.which in ("refine", "mc", "all"):
+        raise NotImplementedError(
+            f"bench --roofline --which {args.which}: the refine and marching-cubes rooflines "
+            "(refine_roofline, mc_roofline) are not ported yet (ROADMAP queue 1, item 6); "
+            "--roofline takes --which render or --which grad"
+        )
     device = _device(args.device)
     ctx = contextlib.nullcontext()
     if args.trace:

@@ -9,43 +9,53 @@
 // (min_m = min over sampled points of f - cone*t, and its depth t_min), and
 // dfdt, the SDF's derivative along the ray at the end point.
 //
-// K5 (loss_grad_kernel + loss_grad_sum) replaces
+// K5 (loss_march_kernel, loss_tangent_kernel, loss_grad_sum) replaces
 // diff_kernel.py::_loss_grad_kernel (pallas_call :405): the whole image-fit
 // step. Per ray: K4's march, the IFT re-attachment t_diff = t0 -
 // residual/denom, the analytic normal at q = o + t_diff d, the shading and
 // ACES, the squared error against the target and, with edge_weight, the
 // silhouette hinge of grad/edge.py at the closest-approach point. The JAX
 // kernel differentiates this with reverse mode inside the kernel; here the
-// parameters are forward-mode duals (dual.cuh): each parameter slot carries
-// its unit tangent, so the loss's tangents are dL/dtheta. The normal's
-// tangents follow from evaluating the hand-written spatial gradient
-// (param_sdf.cuh) in duals at a point q whose tangents are dq/dtheta.
+// parameters are forward-mode duals (dual.cuh): each parameter carries its
+// unit tangent, so the loss's tangents are dL/dtheta. The normal's tangents
+// follow from evaluating the hand-written spatial gradient (param_sdf.cuh)
+// in duals at a point q whose tangents are dq/dtheta.
 //
 // What bounds them on Hopper: FP32 work, SFU work (3 sqrt per SDF) and warp
 // divergence in the march, as in K1; in K5 also the tangent work of each
 // hit, about n_prm + 1 times a value-and-gradient, and the registers it
-// needs (Dual<9> holds 10 floats per value; Dual<16>, with the object
-// transform, 17). Memory traffic is 28 B in per ray and 16-24 B out (K4),
-// 40-44 B in (K5).
+// needs. Memory traffic is 28 B in per ray and 16-24 B out (K4), 40-44 B
+// in (K5).
 //
 // What the design does about it: K1's layout (warps on 8x4 pixel patches
 // that finish in similar step counts, the scene as a by-value kernel
-// parameter); the march in plain float, tangents only for the rays that
-// collide (photometric term) or carry a silhouette hinge; the dual width
-// chosen per call (9 or 16 tangents). K5's sum is deterministic and uses no
-// float atomics: a shuffle reduction per warp, a fixed-order sum per block
-// into a scratch buffer, and a second launch (loss_grad_sum) that adds the
-// blocks' partial sums in a fixed order. Two calls on the same inputs give
-// the same bits. The near/far tile split of the TPU kernels is not ported:
-// in a far tile the JAX march sees only the wireframe, which equals the full
-// scene wherever such a ray goes.
+// parameter). K5 runs in three to five launches. The first marches every
+// ray in plain float at K4's register budget, adds the loss of each ray
+// that has no tangent (a miss without a hinge) to its block's sum, and
+// lists the others (the hits and the hinge rays) per block of 16x8
+// pixels, in thread order, with no atomics and no capacity. The second
+// spreads the listed rays' tangent work over lanes: a group of 3 lanes
+// takes a ray, each lane the value and 3 of the 9 shape parameters'
+// tangents (Dual<3>), 128 registers and 4 blocks an SM where one lane of 9
+// tangents took 255 registers and spilled; with the object transform,
+// translation and rotation launches take its 7 tangents, one a lane. Their
+// blocks walk chunks of the lists in a fixed order and write one row of
+// sums per chunk. The last launch (loss_grad_sum) adds the rows in a fixed
+// order. Two calls on the same inputs give the same bits. The near/far
+// tile split of the TPU kernels is not ported: in a far tile the JAX march
+// sees only the wireframe, which equals the full scene wherever such a ray
+// goes.
 //
 // Numerics: built with -fmad=false and without fast math, like K1. The
 // march evaluates the scene in the twin's operation order, so K4's depth,
 // steps, outcome, min_m and t_min equal the twin's bit for bit; dfdt comes
 // from the hand-written gradient and the twin's from autograd, which sum in
-// other orders. The twins are march_params_torch and render_loss_grad_torch
-// in bsdmg_tpu_torch/ops/cuda/diff_kernel.py.
+// other orders. Each tangent runs the operations the one-lane form ran on
+// it; only the order of the final sums differs. The twins are
+// march_params_torch and render_loss_grad_torch in
+// bsdmg_tpu_torch/ops/cuda/diff_kernel.py.
+
+#include <type_traits>
 
 #include "param_sdf.cuh"
 
@@ -139,117 +149,292 @@ march_params_kernel(const ParamScene s, const float* __restrict__ origins,
   }
 }
 
-// the loss of one pixel and its tangents (diff_kernel.py:294-338)
-template <int N>
-__device__ __forceinline__ Dual<N> pixel_loss(const ParamScene& s, const float o[3], const float d[3],
-                                              float c, const float target[3], float t_state,
-                                              bool edge, float inv_denom_elems, float inv_pixels,
-                                              float edge_weight, float edge_band) {
-  typedef Dual<N> D;
-  const ObjectParams<float> p0 = load_params<float>(s);
-  float t0, min_m, t_min;
-  int steps, outcome;
-  march(s, p0, o, d, c, edge, t0, steps, outcome, min_m, t_min);
-  const bool collided = outcome == COLLISION;
-  const ObjectParams<D> p = load_params<D>(s);
+// K5's per-block record of a ray that needs tangents: a hit (the
+// photometric term) or a ray with a silhouette hinge
+struct TangentRay {
+  int pixel;
+  int outcome;
+  float t0;     // the march's depth
+  float min_m;  // the closest-approach record (edge term)
+  float t_min;
+  float denom;  // a hit's IFT denominator, stop(df/dt - cone)
+};
 
+// the hinge of grad/edge.py::edge_loss_planes: 1 appear, 2 vanish, else 0
+__device__ __forceinline__ int hinge_kind(float t_state, bool collided, float min_m) {
+  const bool valid = t_state > -0.5f;
+  const bool target_miss = t_state > 0.5f;
+  if (valid && !target_miss && !collided && min_m < BSDMG_UNTRACKED) return 1;
+  if (valid && target_miss && collided) return 2;
+  return 0;
+}
+
+// the photometric loss of a pixel whose colour is ACES of v (a miss)
+__device__ __forceinline__ float constant_loss(const ParamScene& s, float v, const float* target,
+                                               float inv_denom_elems) {
+  float out[3];
+  aces(s, v, v, v, out);
+  const float er = out[0] - target[0], eg = out[1] - target[1], eb = out[2] - target[2];
+  return ((er * er + eg * eg) + eb * eb) * inv_denom_elems;
+}
+
+// the IFT denominator of a hit at depth t0: stop(df/dt - cone), kept off 0
+__device__ __forceinline__ float ift_denom(const ParamScene& s, const float o[3], const float d[3],
+                                           float c, float t0) {
+  float denom = ray_derivative(s, load_params<float>(s), o, d, t0) - c;
+  if (fabsf(denom) < 1e-6f) denom = -1e-6f;
+  return denom;
+}
+
+// The loss of listed ray e (pixel i) and its tangents for M parameters
+// (diff_kernel.py:294-338): the IFT re-attachment at a hit, the analytic
+// normal, the shading and ACES in duals, the squared error and the
+// silhouette hinge. S, Tr and Ro are the shape's, the translation's and
+// the rotation's parameter types: the lane carries block `block` of the
+// tangents of the one that is a Dual<M>, as load_params places them, the
+// others as floats. Each tangent runs the operations the one-lane
+// Dual<N> form ran on it. The ray
+// and target are read where they are used, which keeps them out of
+// registers in between.
+template <int M, class S, class Tr, class Ro, class Opt>
+__device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, int block, const TangentRay& e,
+                                            const float* __restrict__ origins,
+                                            const float* __restrict__ directions,
+                                            const float* __restrict__ cone,
+                                            const float* __restrict__ target,
+                                            const float* __restrict__ t_state,
+                                            float inv_denom_elems, float inv_pixels,
+                                            float edge_weight, float edge_band) {
+  typedef Dual<M> D;
+  const long long i = e.pixel;
+  const ObjectParams<S, Tr, Ro> p = load_params<S, Tr, Ro, Opt>(s, block);
+  const float t0 = e.t0;
+  const bool collided = e.outcome == COLLISION;
   D rgb[3];
   if (collided) {
+    const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
+    const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
+    const float c = cone[i];
     // IFT re-attachment: t_diff = t0 - (f(x0) - cone t0 - eps) / stop(df/dt - cone)
-    float denom = ray_derivative(s, p0, o, d, t0) - c;
-    if (fabsf(denom) < 1e-6f) denom = -1e-6f;
     const D x0[3] = {Scalar<D>::constant(o[0] + t0 * d[0]), Scalar<D>::constant(o[1] + t0 * d[1]),
                      Scalar<D>::constant(o[2] + t0 * d[2])};
-    const D residual = (scene_value(s, p, x0) - c * t0) - s.collision_distance;
-    const D t_diff = t0 - residual / denom;
+    const D residual = (scene_value<Opt>(s, p, x0) - c * t0) - s.collision_distance;
+    const D t_diff = t0 - residual / e.denom;
     const D q[3] = {o[0] + t_diff * d[0], o[1] + t_diff * d[1], o[2] + t_diff * d[2]};
     D g[3];
-    scene_value_grad(s, p, q, g);
+    scene_value_grad<Opt>(s, p, q, g);
     const D inv = 1.0f / vsqrt(vmax((g[0] * g[0] + g[1] * g[1]) + g[2] * g[2], 1e-24f));
     D r, gg, b;
     shade_collision(s, g[0] * inv, g[1] * inv, g[2] * inv, r, gg, b);
     aces(s, r, gg, b, rgb);
   } else {
-    const float v = outcome == STEP_LIMIT ? 1.0f : 0.0f;
+    // a listed miss carries a hinge; its colour is ACES of white or black
+    const float v = e.outcome == STEP_LIMIT ? 1.0f : 0.0f;
     float out[3];
     aces(s, v, v, v, out);
 #pragma unroll
     for (int a = 0; a < 3; ++a) rgb[a] = Scalar<D>::constant(out[a]);
   }
-  const D er = rgb[0] - target[0], eg = rgb[1] - target[1], eb = rgb[2] - target[2];
+  const D er = rgb[0] - target[3 * i], eg = rgb[1] - target[3 * i + 1],
+          eb = rgb[2] - target[3 * i + 2];
   D total = ((er * er + eg * eg) + eb * eb) * inv_denom_elems;
-
-  if (edge) {
-    // silhouette hinge (grad/edge.py::edge_loss_planes)
-    const bool valid = t_state > -0.5f;
-    const bool target_miss = t_state > 0.5f;
-    const bool appear = valid && !target_miss && !collided && min_m < BSDMG_UNTRACKED;
-    const bool vanish = valid && target_miss && collided;
-    if (appear || vanish) {
-      const D xe[3] = {Scalar<D>::constant(o[0] + t_min * d[0]),
-                       Scalar<D>::constant(o[1] + t_min * d[1]),
-                       Scalar<D>::constant(o[2] + t_min * d[2])};
-      const D m = scene_value(s, p, xe) - c * t_min;
-      const D e = appear ? vmax(m, 0.0f) : vmax(edge_band - m, 0.0f);
-      total = total + (e * edge_weight) * inv_pixels;
-    }
+  const int kind = t_state != nullptr ? hinge_kind(t_state[i], collided, e.min_m) : 0;
+  if (kind != 0) {
+    const float c = cone[i];
+    const D xe[3] = {Scalar<D>::constant(origins[3 * i] + e.t_min * directions[3 * i]),
+                     Scalar<D>::constant(origins[3 * i + 1] + e.t_min * directions[3 * i + 1]),
+                     Scalar<D>::constant(origins[3 * i + 2] + e.t_min * directions[3 * i + 2])};
+    const D m = scene_value<Opt>(s, p, xe) - c * e.t_min;
+    const D h = kind == 1 ? vmax(m, 0.0f) : vmax(edge_band - m, 0.0f);
+    total = total + (h * edge_weight) * inv_pixels;
   }
   return total;
 }
 
-template <int N>
+// K5, first launch: one thread per pixel in K4's layout marches in plain
+// float (K4's march). A pixel whose loss has no tangents (a miss without a
+// hinge) adds its loss to its block's sum `values[block]`, in a fixed
+// order; every other pixel goes to its block's list `rays[block * 128 ..]`,
+// in thread order, with the count in `counts[block]` and, for a hit, the
+// IFT denominator. No atomics, no host sync, no capacity: a block lists at
+// most its 128 rays.
 __global__ void __launch_bounds__(128)
-loss_grad_kernel(const ParamScene s, const float* __restrict__ origins,
-                 const float* __restrict__ directions, const float* __restrict__ cone,
-                 const float* __restrict__ target, const float* __restrict__ t_state,
-                 float* __restrict__ partials, int h, int w, float inv_denom_elems,
-                 float inv_pixels, float edge_weight, float edge_band) {
+loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
+                  const float* __restrict__ directions, const float* __restrict__ cone,
+                  const float* __restrict__ target, const float* __restrict__ t_state,
+                  TangentRay* __restrict__ rays, int* __restrict__ counts,
+                  float* __restrict__ values, int h, int w, float inv_denom_elems) {
   int px, py;
   pixel_of_thread(px, py);
-  float acc[N + 1];
-#pragma unroll
-  for (int k = 0; k <= N; ++k) acc[k] = 0.0f;
+  const long long block = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  TangentRay e{0, DEPTH_LIMIT, 0.0f, BSDMG_UNTRACKED, 0.0f, 0.0f};
+  bool listed = false;
+  float value = 0.0f;
   if (px < w && py < h) {
     const long long i = (long long)py * w + px;
     const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
     const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
-    const float tgt[3] = {target[3 * i], target[3 * i + 1], target[3 * i + 2]};
     const bool edge = t_state != nullptr;
-    const Dual<N> loss = pixel_loss<N>(s, o, d, cone[i], tgt, edge ? t_state[i] : 0.0f, edge,
-                                       inv_denom_elems, inv_pixels, edge_weight, edge_band);
-    acc[0] = loss.v;
-#pragma unroll
-    for (int k = 0; k < N; ++k) acc[k + 1] = loss.t[k];
+    int steps;
+    march(s, load_params<float>(s), o, d, cone[i], edge, e.t0, steps, e.outcome, e.min_m,
+          e.t_min);
+    e.pixel = static_cast<int>(i);
+    const bool collided = e.outcome == COLLISION;
+    if (collided) e.denom = ift_denom(s, o, d, cone[i], e.t0);
+    listed = collided || (edge && hinge_kind(t_state[i], false, e.min_m) != 0);
+    if (!listed) {
+      value = constant_loss(s, e.outcome == STEP_LIMIT ? 1.0f : 0.0f, target + 3 * i,
+                            inv_denom_elems);
+    }
   }
-
-  // deterministic block sum: shuffles within each warp, then the 4 warps in order
-  __shared__ float warp_sums[4][N + 1];
+  // the block's list, in thread order
+  __shared__ int warp_counts[4];
+  __shared__ float warp_values[4];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, listed);
 #pragma unroll
-  for (int k = 0; k <= N; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[warp][k] = v;
+  for (int off = 16; off > 0; off >>= 1) value += __shfl_down_sync(0xffffffffu, value, off);
+  if (lane == 0) {
+    warp_counts[warp] = __popc(ballot);
+    warp_values[warp] = value;
   }
   __syncthreads();
-  if (threadIdx.x <= N) {
-    const int k = threadIdx.x;
-    const long long block = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    partials[block * (N + 1) + k] =
-        ((warp_sums[0][k] + warp_sums[1][k]) + warp_sums[2][k]) + warp_sums[3][k];
+  if (listed) {
+    int slot = __popc(ballot & ((1u << lane) - 1u));
+    for (int k = 0; k < warp; ++k) slot += warp_counts[k];
+    rays[block * 128 + slot] = e;
+  }
+  if (threadIdx.x == 0) {
+    counts[block] = ((warp_counts[0] + warp_counts[1]) + warp_counts[2]) + warp_counts[3];
+    values[block] = ((warp_values[0] + warp_values[1]) + warp_values[2]) + warp_values[3];
   }
 }
 
-// out[k] = the sum over blocks of partials[block * stride + k], one block per
-// k, each thread over a fixed stride of blocks, then a fixed tree
+// the slot in the flat parameter vector of a parameter's place among the shape's (0-8: skeleton
+// centre, size, line width, sphere radius, smooth k) or the transform's
+// (0-2 the object centre, 3-6 the rotation), -1 for one that is absent
+__device__ __forceinline__ int shape_slot(const ParamScene& s, int c) {
+  if (c < 3) return s.skeleton_center + c;
+  if (c < 6) return s.skeleton_size + c - 3;
+  return c == 6 ? s.skeleton_line_width : (c == 7 ? s.sphere_radius : s.smooth_k);
+}
+
+__device__ __forceinline__ int rigid_slot(const ParamScene& s, int c) {
+  if (c < 3) return s.object_center >= 0 ? s.object_center + c : -1;
+  return s.object_rotation >= 0 ? s.object_rotation + c - 3 : -1;
+}
+
+#define BSDMG_SHAPE_PARAMS 9
+
+enum { SHAPE_LANES = 0, TRANSLATION_LANES = 1, ROTATION_LANES = 2 };
+
+// The lanes of K5's tangent launches: a shape lane carries the value and 3
+// of the shape's 9 tangents (Dual<3>, 3 lanes a ray); with the object
+// transform, a translation lane 1 of the centre's 3 (Dual<1>, 3 lanes a
+// ray), a rotation lane 1 of the quaternion's 4 (Dual<1>, 4 lanes a ray).
+// Each lane holds only its own kind's parameters as duals, which keeps every
+// launch within 128 registers without spills. A chunk is as many rays as a
+// block of 128 threads takes at once.
+template <int Lanes>
+struct TangentLanes {
+  static constexpr int tangents = Lanes == SHAPE_LANES ? 3 : 1;  // a lane's
+  static constexpr int lanes = Lanes == ROTATION_LANES ? 4 : 3;  // a ray's
+  static constexpr int first = Lanes == ROTATION_LANES ? 3 : 0;  // its first place
+  static constexpr int groups = 128 / lanes;                     // rays of a chunk
+  static constexpr int chunks = (128 + groups - 1) / groups;     // chunks of a list
+};
+
+// K5's tangent launches over the first launch's lists. An item is a chunk
+// of one block's list; the blocks take the items in a fixed order and each
+// item's sums go to its own row (the launch's rows start at row0), so the
+// result never depends on which block took which item. In an item, each
+// group of lanes takes one ray, and lane j of the group carries block j of
+// the launch's parameters' tangents (TangentLanes): a ray's tangent work is
+// spread over the group, and the kernel stays within 128 registers. The
+// shape launch carries the shape's parameters; with the object transform,
+// a translation and a rotation launch carry the transform's. An item's row
+// of partials (stride floats) holds its loss (shape launch, the first
+// chunk adding the first launch's sum) and dL/dprm at the launch's slots,
+// and zero at the others.
+template <class Opt, int Lanes>
+__global__ void __launch_bounds__(128, 4)
+loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
+                    const float* __restrict__ directions, const float* __restrict__ cone,
+                    const float* __restrict__ target, const float* __restrict__ t_state,
+                    const TangentRay* __restrict__ rays, const int* __restrict__ counts,
+                    const float* __restrict__ values, float* __restrict__ partials, int stride,
+                    long long row0, long long blocks, float inv_denom_elems, float inv_pixels,
+                    float edge_weight, float edge_band) {
+  typedef TangentLanes<Lanes> T;
+  constexpr int M = T::tangents, L = T::lanes;
+  const int group = threadIdx.x / L, j = threadIdx.x % L;
+  // where output k (the loss, then dL/dprm by slot) sits in the sums: the
+  // lane and component of the launch's parameter at slot k - 1, or -1
+  int from = -1, component = 0;
+  if (threadIdx.x < stride) {
+    const int k = threadIdx.x;
+    if (k == 0) {
+      from = Lanes == SHAPE_LANES ? 0 : -1;
+    } else {
+      for (int c = 0; c < L * M; ++c) {
+        if ((Lanes == SHAPE_LANES ? shape_slot(s, c) : rigid_slot(s, T::first + c)) == k - 1) {
+          from = c / M;
+          component = c % M + 1;
+        }
+      }
+    }
+  }
+  __shared__ float sums[128][M + 1];
+  const long long items = blocks * T::chunks;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    const long long block = w / T::chunks;
+    const int first = static_cast<int>(w % T::chunks) * T::groups;
+    const int n = counts[block];
+    float acc[M + 1];
+#pragma unroll
+    for (int m = 0; m <= M; ++m) acc[m] = 0.0f;
+    if (group < T::groups && first + group < n) {
+      const TangentRay& e = rays[block * 128 + first + group];
+      typedef Dual<M> D;
+      const D loss =
+          Lanes == SHAPE_LANES
+              ? ray_loss<M, D, float, float, Opt>(s, j, e, origins, directions, cone, target,
+                                                  t_state, inv_denom_elems, inv_pixels,
+                                                  edge_weight, edge_band)
+          : Lanes == TRANSLATION_LANES
+              ? ray_loss<M, float, D, float, Opt>(s, j, e, origins, directions, cone, target,
+                                                  t_state, inv_denom_elems, inv_pixels,
+                                                  edge_weight, edge_band)
+              : ray_loss<M, float, float, D, Opt>(s, T::first + j, e, origins, directions, cone,
+                                                  target, t_state, inv_denom_elems, inv_pixels,
+                                                  edge_weight, edge_band);
+      acc[0] = loss.v;
+#pragma unroll
+      for (int m = 0; m < M; ++m) acc[m + 1] = loss.t[m];
+    }
+    __syncthreads();  // the previous item's sums are read
+#pragma unroll
+    for (int m = 0; m <= M; ++m) sums[threadIdx.x][m] = acc[m];
+    __syncthreads();
+    if (threadIdx.x < stride) {
+      float total = threadIdx.x == 0 && Lanes == SHAPE_LANES && first == 0 ? values[block] : 0.0f;
+      if (from >= 0 && first < n) {
+        for (int g = 0; g < T::groups; ++g) total += sums[g * L + from][component];
+      }
+      partials[(row0 + w) * stride + threadIdx.x] = total;
+    }
+  }
+}
+
+// out[k] = the sum over rows of partials[row * stride + k], one block per
+// k, each thread over a fixed stride of rows, then a fixed tree
 __global__ void __launch_bounds__(256)
-loss_grad_sum(const float* __restrict__ partials, int n_blocks, int stride, float* __restrict__ out) {
+loss_grad_sum(const float* __restrict__ partials, int n_rows, int stride, float* __restrict__ out) {
   __shared__ float sums[256];
   const int k = blockIdx.x;
   float acc = 0.0f;
-  for (int b = threadIdx.x; b < n_blocks; b += 256) acc += partials[(long long)b * stride + k];
+  for (int b = threadIdx.x; b < n_rows; b += 256) acc += partials[(long long)b * stride + k];
   sums[threadIdx.x] = acc;
   __syncthreads();
   for (int half = 128; half > 0; half >>= 1) {
@@ -259,8 +444,49 @@ loss_grad_sum(const float* __restrict__ partials, int n_blocks, int stride, floa
   if (threadIdx.x == 0) out[k] = sums[0];
 }
 
-// the dual width of K5 for n_prm parameters
-static int tangents(int n_prm) { return n_prm <= 9 ? 9 : BSDMG_MAX_PARAMS; }
+// the width of K5's partial sums for n_prm parameters: 9 for the shape
+// parameters alone, 16 with the object transform
+static int tangents(int n_prm) {
+  return n_prm <= BSDMG_SHAPE_PARAMS ? BSDMG_SHAPE_PARAMS : BSDMG_MAX_PARAMS;
+}
+
+// f(Parts<frame, transform>{}) with both flags as template arguments
+template <class F>
+static void with_parts(bool frame, bool transform, F&& f) {
+  if (frame && transform) f(Parts<true, true>{});
+  else if (frame) f(Parts<true, false>{});
+  else if (transform) f(Parts<false, true>{});
+  else f(Parts<false, false>{});
+}
+
+// K5's blocks of 16x8 pixels
+static long long loss_grad_blocks(int h, int w) {
+  return (long long)((w + 15) / 16) * ((h + 7) / 8);
+}
+
+// rows of partial sums of K5 for its blocks: a chunk's for the shape launch
+// and, with the object transform, for the translation and rotation
+// launches (the scratch holds room for all three)
+static long long loss_grad_rows(long long blocks, bool transform) {
+  return blocks * (TangentLanes<SHAPE_LANES>::chunks +
+                   (transform ? TangentLanes<TRANSLATION_LANES>::chunks +
+                                    TangentLanes<ROTATION_LANES>::chunks
+                              : 0));
+}
+
+// blocks of a tangent launch over `items` chunks: 8 an SM at most (each
+// block walks its share of the items)
+static int tangent_grid(long long items) {
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const long long most = 8LL * (sms > 0 ? sms : 1);
+  return static_cast<int>(items < most ? (items > 0 ? items : 1) : most);
+}
+
 
 extern "C" {
 
@@ -278,33 +504,62 @@ int bsdmg_march_params(const ParamScene* scene, const float* origins, const floa
 }
 
 // floats of scratch that bsdmg_loss_grad needs for an h x w image
-int bsdmg_loss_grad_scratch(int h, int w, int n_prm) {
-  return ((w + 15) / 16) * ((h + 7) / 8) * (tangents(n_prm) + 1);
+long long bsdmg_loss_grad_scratch(int h, int w, int n_prm) {
+  const long long blocks = loss_grad_blocks(h, w);
+  return loss_grad_rows(blocks, n_prm > BSDMG_SHAPE_PARAMS) * (tangents(n_prm) + 1) +
+         blocks * (128 * (sizeof(TangentRay) / sizeof(float)) + 2);
 }
 
 // Launches K5 on `stream`: target (h, w, 3); t_state (h, w), or null for
-// no edge term; partials, bsdmg_loss_grad_scratch floats; out, n_prm + 1
-// floats: the loss, then dL/dprm. Returns the cudaError_t of the first
-// launch that failed, else 0.
+// no edge term; scratch, bsdmg_loss_grad_scratch floats; out, n_prm + 1
+// floats: the loss, then dL/dprm. Three launches: the march and the lists
+// (loss_march_kernel), the tangents (loss_tangent_kernel), the sum over
+// the blocks (loss_grad_sum). Returns the cudaError_t of the first launch
+// that failed, else 0.
 int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* directions,
                     const float* cone, const float* target, const float* t_state,
-                    float* partials, float* out, int h, int w, float inv_denom_elems,
+                    float* scratch, float* out, int h, int w, float inv_denom_elems,
                     float inv_pixels, float edge_weight, float edge_band, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
+  const long long blocks = loss_grad_blocks(h, w);
   const int n = tangents(scene->n_prm);
-  if (n == 9) {
-    loss_grad_kernel<9><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target, t_state,
-                                               partials, h, w, inv_denom_elems, inv_pixels,
-                                               edge_weight, edge_band);
-  } else {
-    loss_grad_kernel<BSDMG_MAX_PARAMS><<<grid, 128, 0, st>>>(
-        *scene, origins, directions, cone, target, t_state, partials, h, w, inv_denom_elems,
-        inv_pixels, edge_weight, edge_band);
-  }
+  float* partials = scratch;
+  const bool transform = scene->n_prm > BSDMG_SHAPE_PARAMS;
+  TangentRay* rays =
+      reinterpret_cast<TangentRay*>(partials + loss_grad_rows(blocks, transform) * (n + 1));
+  int* counts = reinterpret_cast<int*>(rays + blocks * 128);
+  float* values = reinterpret_cast<float*>(counts + blocks);
+  loss_march_kernel<<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target, t_state,
+                                           rays, counts, values, h, w, inv_denom_elems);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  loss_grad_sum<<<scene->n_prm + 1, 256, 0, st>>>(partials, grid.x * grid.y, n + 1, out);
+  // the wireframe at compile time; each launch's rows follow the last's
+  const long long shape_rows = blocks * TangentLanes<SHAPE_LANES>::chunks;
+  const long long translation_rows =
+      scene->object_center >= 0 ? blocks * TangentLanes<TRANSLATION_LANES>::chunks : 0;
+  const long long rotation_rows =
+      scene->object_rotation >= 0 ? blocks * TangentLanes<ROTATION_LANES>::chunks : 0;
+  const long long rows = shape_rows + translation_rows + rotation_rows;
+  const auto launch = [&](auto opt, auto lanes, long long row0, long long items) {
+    loss_tangent_kernel<decltype(opt), decltype(lanes)::value>
+        <<<tangent_grid(items), 128, 0, st>>>(*scene, origins, directions, cone, target, t_state,
+                                              rays, counts, values, partials, n + 1, row0, blocks,
+                                              inv_denom_elems, inv_pixels, edge_weight, edge_band);
+  };
+  with_parts(scene->has_frame != 0, transform, [&](auto opt) {
+    launch(opt, std::integral_constant<int, SHAPE_LANES>{}, 0, shape_rows);
+    if (translation_rows > 0) {
+      launch(opt, std::integral_constant<int, TRANSLATION_LANES>{}, shape_rows, translation_rows);
+    }
+    if (rotation_rows > 0) {
+      launch(opt, std::integral_constant<int, ROTATION_LANES>{}, shape_rows + translation_rows,
+             rotation_rows);
+    }
+  });
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  loss_grad_sum<<<scene->n_prm + 1, 256, 0, st>>>(partials, static_cast<int>(rows), n + 1, out);
   return static_cast<int>(cudaGetLastError());
 }
 

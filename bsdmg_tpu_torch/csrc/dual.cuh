@@ -33,31 +33,52 @@ struct Dual {
   float t[N];
 };
 
-// Scalar<T>::constant(v) is v as a T; Scalar<T>::seeded(v, slot) is v with
-// the unit tangent of parameter `slot` (no tangent for float)
+// Scalar<T>::constant(v) is v as a T; Scalar<T>::placed(v, place, block)
+// is v with the unit tangent of parameter `place` in a lane that carries
+// block `block` of the parameters' tangents (no tangent for float)
 template <class T>
 struct Scalar;
 
 template <>
 struct Scalar<float> {
   __device__ __forceinline__ static float constant(float v) { return v; }
-  __device__ __forceinline__ static float seeded(float v, int) { return v; }
+  __device__ __forceinline__ static float placed(float v, int, int) { return v; }
 };
 
 template <int N>
 struct Scalar<Dual<N>> {
-  __device__ __forceinline__ static Dual<N> seeded(float v, int slot) {
+  __device__ __forceinline__ static Dual<N> constant(float v) {
     Dual<N> r;
     r.v = v;
 #pragma unroll
-    for (int i = 0; i < N; ++i) r.t[i] = i == slot ? 1.0f : 0.0f;
+    for (int i = 0; i < N; ++i) r.t[i] = 0.0f;
     return r;
   }
-  __device__ __forceinline__ static Dual<N> constant(float v) { return seeded(v, -1); }
+  // the lane carries the tangents of places block * N .. block * N + N - 1:
+  // the unit tangent at place % N when place / N is the block. With `place`
+  // a constant, the component is one too, so a lane's seeds are a few
+  // compares of `block`, not one a component.
+  __device__ __forceinline__ static Dual<N> placed(float v, int place, int block) {
+    Dual<N> r;
+    r.v = v;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.t[i] = i == place % N && block == place / N ? 1.0f : 0.0f;
+    return r;
+  }
 };
 
 template <int N>
 __device__ __forceinline__ float value_of(const Dual<N>& x) { return x.v; }
+
+// x, as a value the compiler cannot see through: what is computed from it
+// is computed again, not held in registers from an earlier computation
+template <int N>
+__device__ __forceinline__ Dual<N> opaque(Dual<N> x) {
+  asm volatile("" : "+f"(x.v));
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x.t[i]));
+  return x;
+}
 
 // ---------------------------------------------------------------------------
 // arithmetic

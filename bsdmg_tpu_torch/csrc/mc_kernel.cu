@@ -51,6 +51,7 @@ __constant__ float kEdgeMid[12][3] = {
     {0.0f, 0.0f, 0.5f}, {1.0f, 0.0f, 0.5f}, {1.0f, 1.0f, 0.5f}, {0.0f, 1.0f, 0.5f},
 };
 
+template <class S>
 __global__ void __launch_bounds__(128)
 mc_kernel(const SceneDesc s, const float* __restrict__ lx, const float* __restrict__ ly,
           const float* __restrict__ lz, const int* __restrict__ cross_bits,
@@ -74,11 +75,11 @@ mc_kernel(const SceneDesc s, const float* __restrict__ lx, const float* __restri
     float x = x0 + vs * kEdgeMid[e][0];
     float y = y0 + vs * kEdgeMid[e][1];
     float z = z0 + vs * kEdgeMid[e][2];
-    newton_project(s, x, y, z, iters, tol, eps, use_grad);
+    newton_project<S>(s, x, y, z, iters, tol, eps, use_grad);
     px[j] = x;
     py[j] = y;
     pz[j] = z;
-    unit_normal_fd4(s, x, y, z, eps, qx[j], qy[j], qz[j]);
+    unit_normal_fd4<S>(s, x, y, z, eps, qx[j], qy[j], qz[j]);
   }
 
   const unsigned lo = static_cast<unsigned>(t0[i]);
@@ -116,8 +117,9 @@ mc_kernel(const SceneDesc s, const float* __restrict__ lx, const float* __restri
       const float gz = e1x * e2y - e1y * e2x;
       float ax, ay, az;
       if (centroid_winding) {
-        fd4_grad(s, ((v[0][0] + v[1][0]) + v[2][0]) / 3.0f, ((v[0][1] + v[1][1]) + v[2][1]) / 3.0f,
-                 ((v[0][2] + v[1][2]) + v[2][2]) / 3.0f, eps, ax, ay, az);
+        fd4_grad<S>(s, ((v[0][0] + v[1][0]) + v[2][0]) / 3.0f,
+                    ((v[0][1] + v[1][1]) + v[2][1]) / 3.0f,
+                    ((v[0][2] + v[1][2]) + v[2][2]) / 3.0f, eps, ax, ay, az);
         dot = (gx * ax + gy * ay) + gz * az;
       } else {
         ax = (nn[0][0] + nn[1][0]) + nn[2][0];
@@ -150,7 +152,8 @@ extern "C" {
 // Launches K6 on `stream` over n voxels. lx, ly, lz (n,) float32 and
 // cross_bits, t0, t1 (n,) int32 in; pos and nrm (n, 45) float32, dot (n, 5)
 // float32, amb (n, 5) int32 and meta (n,) int32 out, all on the device.
-// Returns the cudaError_t of the launch.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
+// descriptor structure that names none).
 int bsdmg_mc_fused(const SceneDesc* desc, const float* lx, const float* ly, const float* lz,
                    const int* cross_bits, const int* t0, const int* t1, float voxel_size, int n,
                    int budget, int iters, float tol, float eps, int use_grad,
@@ -158,10 +161,12 @@ int bsdmg_mc_fused(const SceneDesc* desc, const float* lx, const float* ly, cons
                    int* meta, void* stream) {
   const dim3 block(128);
   const dim3 grid((n + 127) / 128);
-  mc_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      *desc, lx, ly, lz, cross_bits, t0, t1, voxel_size, n, budget, iters, tol, eps, use_grad,
-      centroid_winding, pos, nrm, dot, amb, meta);
-  return static_cast<int>(cudaGetLastError());
+  const bool known = with_structure(desc->structure, [&](auto scene) {
+    mc_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        *desc, lx, ly, lz, cross_bits, t0, t1, voxel_size, n, budget, iters, tol, eps, use_grad,
+        centroid_winding, pos, nrm, dot, amb, meta);
+  });
+  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

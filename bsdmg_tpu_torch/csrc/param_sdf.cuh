@@ -13,15 +13,19 @@
 // operation. The plain PyTorch twin is ReferenceCsdf in
 // bsdmg_tpu_torch/models/scenes.py.
 //
-// Everything is a template over the scalar T: float for the march and for
-// K4's directional derivative, Dual<N> (dual.cuh) in K5, which seeds each
-// parameter with its unit tangent. scene_value is the SDF; scene_value_grad
-// is the SDF and its spatial gradient, written as a reverse pass by hand
-// (as scene_sdf_grad is) with JAX's tie rules. Evaluated in Dual<N>, the
-// gradient's tangents are the total derivatives d(grad_x f(q(theta),
-// theta))/d theta that K5's shading normal needs.
+// Everything is a template over the scalar T of the point and the values,
+// and over the parameters' types: float for the march and for K4's
+// directional derivative, Dual<N> (dual.cuh) in K5, where a lane seeds the
+// parameters whose tangents it carries with their unit tangents and holds
+// the others as floats. scene_value is the SDF; scene_value_grad is its
+// spatial gradient, written as a reverse pass by hand (as scene_sdf_grad
+// is) with JAX's tie rules. Evaluated in Dual<N>, the gradient's tangents
+// are the total derivatives d(grad_x f(q(theta), theta))/d theta that K5's
+// shading normal needs.
 
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -29,9 +33,15 @@
 
 // Mirrors _ParamSceneC in ops/cuda/diff_kernel.py field by field.
 struct ParamScene {
-  float prm[BSDMG_MAX_PARAMS];  // the flat parameter vector (weights.flatten_params)
-  int n_prm;
-  // index in prm of each parameter's first component; -1 where absent
+  // the parameter values at fixed places, which the kernels read as
+  // constant operands: the skeleton's centre and size, its line width, the
+  // sphere's radius, the smooth minimum's k; the object's centre (0 where
+  // absent) and rotation ((1, 0, 0, 0) where absent)
+  float shape_prm[9];
+  float rigid_prm[7];
+  int n_prm;  // the length of the flat parameter vector (weights.flatten_params)
+  // index in the flat vector of each parameter's first component, which
+  // places its gradient in K5's output; -1 where absent
   int skeleton_center;
   int skeleton_size;
   int skeleton_line_width;
@@ -61,36 +71,69 @@ struct ParamScene {
   float aces_curve[5];
 };
 
-// the parameters as T, each component seeded with its slot in prm
-template <class T>
-struct ObjectParams {
-  T center[3];
-  T size[3];
-  T line_width;
-  T radius;
-  T k;
-  T translation[3];
-  T rotation[4];  // quaternion (w, x, y, z)
+// The scene's optional parts: AnyParts reads them from the ParamScene at
+// run time (K4 and K5's march, where they cost little and fixing them
+// raised the registers and the time); Parts<Frame, Transform> fixes them at
+// compile time (K5's tangent launches), Transform then reading which of the
+// transform's parameters are there.
+struct AnyParts {
+  static __device__ __forceinline__ bool frame(const ParamScene& s) { return s.has_frame != 0; }
+  static __device__ __forceinline__ bool translation(const ParamScene& s) {
+    return s.object_center >= 0;
+  }
+  static __device__ __forceinline__ bool rotation(const ParamScene& s) {
+    return s.object_rotation >= 0;
+  }
 };
 
-template <class T>
-__device__ __forceinline__ ObjectParams<T> load_params(const ParamScene& s) {
-  ObjectParams<T> p;
+template <bool Frame, bool Transform>
+struct Parts {
+  static __device__ __forceinline__ bool frame(const ParamScene&) { return Frame; }
+  static __device__ __forceinline__ bool translation(const ParamScene& s) {
+    return Transform && s.object_center >= 0;
+  }
+  static __device__ __forceinline__ bool rotation(const ParamScene& s) {
+    return Transform && s.object_rotation >= 0;
+  }
+};
+
+// the parameters: the shape's as S, the object's translation as Tr and
+// rotation as Ro
+template <class S, class Tr = S, class Ro = Tr>
+struct ObjectParams {
+  S center[3];
+  S size[3];
+  S line_width;
+  S radius;
+  S k;
+  Tr translation[3];
+  Ro rotation[4];  // quaternion (w, x, y, z)
+};
+
+// the parameters. A Dual<M> of S carries the tangents of the shape's
+// parameters (places: skeleton centre 0-2, size 3-5, line width 6, sphere
+// radius 7, smooth k 8) block * M .. block * M + M - 1, one of Tr or Ro the
+// transform's (places: object centre 0-2, rotation 3-6); a float carries
+// none.
+template <class S, class Tr = S, class Ro = Tr, class Opt = AnyParts>
+__device__ __forceinline__ ObjectParams<S, Tr, Ro> load_params(const ParamScene& s, int block = 0) {
+  ObjectParams<S, Tr, Ro> p;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    p.center[a] = Scalar<T>::seeded(s.prm[s.skeleton_center + a], s.skeleton_center + a);
-    p.size[a] = Scalar<T>::seeded(s.prm[s.skeleton_size + a], s.skeleton_size + a);
+    p.center[a] = Scalar<S>::placed(s.shape_prm[a], a, block);
+    p.size[a] = Scalar<S>::placed(s.shape_prm[3 + a], 3 + a, block);
   }
-  p.line_width = Scalar<T>::seeded(s.prm[s.skeleton_line_width], s.skeleton_line_width);
-  p.radius = Scalar<T>::seeded(s.prm[s.sphere_radius], s.sphere_radius);
-  p.k = Scalar<T>::seeded(s.prm[s.smooth_k], s.smooth_k);
-  if (s.object_center >= 0) {
+  p.line_width = Scalar<S>::placed(s.shape_prm[6], 6, block);
+  p.radius = Scalar<S>::placed(s.shape_prm[7], 7, block);
+  p.k = Scalar<S>::placed(s.shape_prm[8], 8, block);
+  if (Opt::translation(s)) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) p.translation[a] = Scalar<T>::seeded(s.prm[s.object_center + a], s.object_center + a);
+    for (int a = 0; a < 3; ++a) p.translation[a] = Scalar<Tr>::placed(s.rigid_prm[a], a, block);
   }
-  if (s.object_rotation >= 0) {
+  if (Opt::rotation(s)) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) p.rotation[a] = Scalar<T>::seeded(s.prm[s.object_rotation + a], s.object_rotation + a);
+    for (int a = 0; a < 4; ++a)
+      p.rotation[a] = Scalar<Ro>::placed(s.rigid_prm[3 + a], 3 + a, block);
   }
   return p;
 }
@@ -202,15 +245,15 @@ __device__ __forceinline__ Frame<T> rotation(const T q[4]) {
 }
 
 // world -> object coordinates (models/scenes.py::_object_space_c)
-template <class T>
-__device__ __forceinline__ void object_space(const ParamScene& s, const ObjectParams<T>& p,
-                                             const Frame<T>& f, const T x[3], T o[3]) {
+template <class Opt, class T, class S, class Tr, class Ro>
+__device__ __forceinline__ void object_space(const ParamScene& s, const ObjectParams<S, Tr, Ro>& p,
+                                             const Frame<Ro>& f, const T x[3], T o[3]) {
   T v[3] = {x[0], x[1], x[2]};
-  if (s.object_center >= 0) {
+  if (Opt::translation(s)) {
 #pragma unroll
     for (int a = 0; a < 3; ++a) v[a] = v[a] - p.translation[a];
   }
-  if (s.object_rotation >= 0) {
+  if (Opt::rotation(s)) {
     o[0] = (f.m[0] * v[0] + f.m[3] * v[1]) + f.m[6] * v[2];
     o[1] = (f.m[1] * v[0] + f.m[4] * v[1]) + f.m[7] * v[2];
     o[2] = (f.m[2] * v[0] + f.m[5] * v[1]) + f.m[8] * v[2];
@@ -221,11 +264,11 @@ __device__ __forceinline__ void object_space(const ParamScene& s, const ObjectPa
 }
 
 // forward values of the scene that its gradient reads back
-template <class T>
+template <class T, class S, class Ro>
 struct SceneFwd {
-  Frame<T> rot;
+  Frame<Ro> rot;
   T o[3];       // object-space point
-  T lo[3];      // the skeleton's low corner
+  S lo[3];      // the skeleton's low corner
   SkeletonFwd<T> skel_f;
   T skel, sph, sroot, obj;
   SkeletonFwd<T> frame_f;
@@ -241,11 +284,12 @@ __device__ __forceinline__ void frame_box(const ParamScene& s, float lo[3], floa
   }
 }
 
-template <class T>
-__device__ __forceinline__ T scene_fwd(const ParamScene& s, const ObjectParams<T>& p, const T x[3],
-                                       SceneFwd<T>& f) {
-  if (s.object_rotation >= 0) f.rot = rotation(p.rotation);
-  object_space(s, p, f.rot, x, f.o);
+// the object alone (the skeleton and the sphere, smoothly joined)
+template <class Opt, class T, class S, class Tr, class Ro>
+__device__ __forceinline__ T object_fwd(const ParamScene& s, const ObjectParams<S, Tr, Ro>& p,
+                                        const T x[3], SceneFwd<T, S, Ro>& f) {
+  if (Opt::rotation(s)) f.rot = rotation(p.rotation);
+  object_space<Opt>(s, p, f.rot, x, f.o);
 #pragma unroll
   for (int a = 0; a < 3; ++a) f.lo[a] = p.center[a] - p.size[a] / 2.0f;
   f.skel = skeleton_fwd(f.o, f.lo, p.size, p.line_width, s.reference_compat, f.skel_f);
@@ -254,38 +298,90 @@ __device__ __forceinline__ T scene_fwd(const ParamScene& s, const ObjectParams<T
   // smooth_min(skel, sph, k) (sdf/primitives.py::smooth_min)
   const T h = vmax(p.k - vabs(f.skel - f.sph), 0.0f) / p.k;
   f.obj = vmin(f.skel, f.sph) - ((h * h) * h * p.k) * static_cast<float>(1.0 / 6.0);
-  f.d = f.obj;
-  if (s.has_frame) {
-    float flo[3], fsize[3];
-    frame_box(s, flo, fsize);
-    f.frame = skeleton_fwd(x, flo, fsize, s.frame_line_width, s.reference_compat, f.frame_f);
+  return f.obj;
+}
+
+// the bounding-box wireframe
+template <class T>
+__device__ __forceinline__ T frame_fwd(const ParamScene& s, const T x[3], SkeletonFwd<T>& f) {
+  float flo[3], fsize[3];
+  frame_box(s, flo, fsize);
+  return skeleton_fwd(x, flo, fsize, s.frame_line_width, s.reference_compat, f);
+}
+
+template <class Opt = AnyParts, class T, class S, class Tr, class Ro>
+__device__ __forceinline__ T scene_fwd(const ParamScene& s, const ObjectParams<S, Tr, Ro>& p,
+                                       const T x[3], SceneFwd<T, S, Ro>& f) {
+  f.d = object_fwd<Opt>(s, p, x, f);
+  if (Opt::frame(s)) {
+    f.frame = frame_fwd(s, x, f.frame_f);
     f.d = vmin(f.obj, f.frame);
   }
   return f.d;
 }
 
-template <class T>
-__device__ __forceinline__ T scene_value(const ParamScene& s, const ObjectParams<T>& p, const T x[3]) {
-  SceneFwd<T> f;
-  return scene_fwd(s, p, x, f);
+template <class Opt = AnyParts, class T, class S, class Tr, class Ro>
+__device__ __forceinline__ T scene_value(const ParamScene& s, const ObjectParams<S, Tr, Ro>& p,
+                                         const T x[3]) {
+  SceneFwd<T, S, Ro> f;
+  return scene_fwd<Opt>(s, p, x, f);
 }
 
-// the SDF and its gradient with respect to x, by reverse mode with a
-// cotangent of 1
-template <class T>
-__device__ __forceinline__ T scene_value_grad(const ParamScene& s, const ObjectParams<T>& p,
-                                              const T x[3], T g[3]) {
-  SceneFwd<T> f;
-  scene_fwd(s, p, x, f);
-  const float ct_obj = s.has_frame ? tie_weight(value_of(f.obj), value_of(f.d), value_of(f.frame)) : 1.0f;
+// the parameters' values
+template <class S, class Tr, class Ro>
+__device__ __forceinline__ ObjectParams<float> values_of(const ObjectParams<S, Tr, Ro>& p) {
+  ObjectParams<float> v;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    v.center[a] = value_of(p.center[a]);
+    v.size[a] = value_of(p.size[a]);
+    v.translation[a] = value_of(p.translation[a]);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) v.rotation[a] = value_of(p.rotation[a]);
+  v.line_width = value_of(p.line_width);
+  v.radius = value_of(p.radius);
+  v.k = value_of(p.k);
+  return v;
+}
 
+// The gradient of the SDF with respect to x, by reverse mode with a
+// cotangent of 1, added to g. With the wireframe, its part comes first:
+// the min's tie weights need only the object's value, which a plain float
+// pass gives (the same operations as the value of T's), so the wireframe's
+// forward state is dead before the object's is built, and its gradient is
+// added to the object's at the end.
+template <class Opt = AnyParts, class T, class S, class Tr, class Ro>
+__device__ __forceinline__ void scene_value_grad(const ParamScene& s,
+                                                 const ObjectParams<S, Tr, Ro>& p, const T x[3],
+                                                 T g[3]) {
+  float ct_obj = 1.0f;
+  T gf[3];
+  if (Opt::frame(s)) {
+    SceneFwd<float, float, float> fv;
+    const float xv[3] = {value_of(x[0]), value_of(x[1]), value_of(x[2])};
+    const float obj = object_fwd<Opt>(s, values_of(p), xv, fv);
+    SkeletonFwd<T> ff;
+    const T frame = frame_fwd(s, x, ff);
+    const float d = fminf(obj, value_of(frame));
+    ct_obj = tie_weight(obj, d, value_of(frame));
+    float flo[3], fsize[3];
+    frame_box(s, flo, fsize);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) gf[a] = Scalar<T>::constant(0.0f);
+    skeleton_bwd(x, flo, fsize, s.reference_compat, ff,
+                 Scalar<T>::constant(tie_weight(value_of(frame), d, obj)), gf);
+  }
+
+  SceneFwd<T, S, Ro> f;
+  object_fwd<Opt>(s, p, x, f);
   // smooth minimum, backward: delta = skel - sph, u = k - |delta|,
   // hm = max(u, 0), h = hm / k, obj = min(skel, sph) - h^3 k / 6
   const T delta = f.skel - f.sph;
   const T u = p.k - vabs(delta);
   const T hm = vmax(u, 0.0f);
   const T h = hm / p.k;
-  const T ct_h3 = (p.k * static_cast<float>(1.0 / 6.0)) * -ct_obj;
+  const auto ct_h3 = (p.k * static_cast<float>(1.0 / 6.0)) * -ct_obj;  // an S
   const T ct_h2 = ct_h3 * h;
   const T ct_h = (h * h) * ct_h3 + (ct_h2 * h + h * ct_h2);
   const T ct_u = (ct_h / p.k) * tie_weight(value_of(u), value_of(hm), 0.0f);
@@ -302,8 +398,18 @@ __device__ __forceinline__ T scene_value_grad(const ParamScene& s, const ObjectP
     c[a] = sa + sa;
   }
   skeleton_bwd(f.o, f.lo, p.size, s.reference_compat, f.skel_f, ct_skel, c);
-  if (s.object_rotation >= 0) {
-    const T* m9 = f.rot.m;
+  if (Opt::rotation(s)) {
+    Frame<Ro> rot = f.rot;
+    if constexpr (!std::is_same<Ro, float>::value) {
+      // with the rotation's tangents, its matrix again from a copy of the
+      // quaternion the compiler cannot see through, so that the forward's
+      // 9 duals are not held through the backward
+      Ro q[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) q[a] = opaque(p.rotation[a]);
+      rot = rotation(q);
+    }
+    const Ro* m9 = rot.m;
     g[0] = (m9[0] * c[0] + m9[1] * c[1]) + m9[2] * c[2];
     g[1] = (m9[3] * c[0] + m9[4] * c[1]) + m9[5] * c[2];
     g[2] = (m9[6] * c[0] + m9[7] * c[1]) + m9[8] * c[2];
@@ -311,12 +417,8 @@ __device__ __forceinline__ T scene_value_grad(const ParamScene& s, const ObjectP
 #pragma unroll
     for (int a = 0; a < 3; ++a) g[a] = c[a];
   }
-  if (s.has_frame) {
-    float flo[3], fsize[3];
-    frame_box(s, flo, fsize);
-    const T ct_frame =
-        Scalar<T>::constant(tie_weight(value_of(f.frame), value_of(f.d), value_of(f.obj)));
-    skeleton_bwd(x, flo, fsize, s.reference_compat, f.frame_f, ct_frame, g);
+  if (Opt::frame(s)) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) g[a] = g[a] + gf[a];
   }
-  return f.d;
 }

@@ -10,6 +10,7 @@
 // (ops/pallas/mesh_kernel.py::_grad_fd4): -f(p+2e) + 8 f(p+e) - 8 f(p-e) +
 // f(p-2e), summed in that order. A rolled loop around one inlined SDF keeps
 // code size and registers down.
+template <class S>
 __device__ __forceinline__ void fd4_grad(const SceneDesc& s, float x, float y, float z, float eps,
                                          float& gx, float& gy, float& gz) {
   const float e1 = eps, e2 = 2.0f * eps;
@@ -20,8 +21,8 @@ __device__ __forceinline__ void fd4_grad(const SceneDesc& s, float x, float y, f
 #pragma unroll 1
     for (int k = 0; k < 4; ++k) {
       const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
-      const float f = scene_sdf(s, a == 0 ? x + off : x, a == 1 ? y + off : y,
-                                a == 2 ? z + off : z);
+      const float f = scene_sdf<S>(s, a == 0 ? x + off : x, a == 1 ? y + off : y,
+                                   a == 2 ? z + off : z);
       acc = k == 0 ? -f : (k == 1 ? acc + 8.0f * f : (k == 2 ? acc - 8.0f * f : acc + f));
     }
     if (a == 0) gx = acc;
@@ -37,10 +38,11 @@ __device__ __forceinline__ float inv_norm(float gx, float gy, float gz) {
 }
 
 // fd4 unit normal at (x, y, z)
+template <class S>
 __device__ __forceinline__ void unit_normal_fd4(const SceneDesc& s, float x, float y, float z,
                                                 float eps, float& nx, float& ny, float& nz) {
   float gx, gy, gz;
-  fd4_grad(s, x, y, z, eps, gx, gy, gz);
+  fd4_grad<S>(s, x, y, z, eps, gx, gy, gz);
   const float inv = inv_norm(gx, gy, gz);
   nx = gx * inv;
   ny = gy * inv;
@@ -51,6 +53,7 @@ __device__ __forceinline__ void unit_normal_fd4(const SceneDesc& s, float x, flo
 // gradient (use_grad) or the fd4 one. A point stops after the step at which
 // |sd| <= tol, as each lane of the JAX kernels does
 // (ops/pallas/mesh_kernel.py::_project_kernel). Returns the steps taken.
+template <class S>
 __device__ __forceinline__ int newton_project(const SceneDesc& s, float& x, float& y, float& z,
                                               int iters, float tol, float eps, int use_grad) {
   int i = 0;
@@ -58,10 +61,10 @@ __device__ __forceinline__ int newton_project(const SceneDesc& s, float& x, floa
   while (i < iters) {
     float sd, gx, gy, gz;
     if (use_grad) {
-      scene_sdf_grad(s, x, y, z, sd, gx, gy, gz);
+      scene_sdf_grad<S>(s, x, y, z, sd, gx, gy, gz);
     } else {
-      sd = scene_sdf(s, x, y, z);
-      fd4_grad(s, x, y, z, eps, gx, gy, gz);
+      sd = scene_sdf<S>(s, x, y, z);
+      fd4_grad<S>(s, x, y, z, eps, gx, gy, gz);
     }
     const float inv = inv_norm(gx, gy, gz);
     x = x - (sd * gx) * inv;

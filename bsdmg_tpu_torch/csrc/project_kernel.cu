@@ -21,6 +21,7 @@
 
 #include "project.cuh"
 
+template <class S>
 __global__ void __launch_bounds__(128)
 project_kernel(const SceneDesc s, const float* __restrict__ xs, const float* __restrict__ ys,
                const float* __restrict__ zs, const int* __restrict__ active, int m, int iters,
@@ -30,9 +31,9 @@ project_kernel(const SceneDesc s, const float* __restrict__ xs, const float* __r
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   float x = xs[i], y = ys[i], z = zs[i];
-  if (active[i]) newton_project(s, x, y, z, iters, tol, eps, use_grad);
+  if (active[i]) newton_project<S>(s, x, y, z, iters, tol, eps, use_grad);
   float a, b, c;
-  unit_normal_fd4(s, x, y, z, eps, a, b, c);
+  unit_normal_fd4<S>(s, x, y, z, eps, a, b, c);
   px[i] = x;
   py[i] = y;
   pz[i] = z;
@@ -45,16 +46,19 @@ extern "C" {
 
 // Launches K7 on `stream` over m points: x, y, z (m,) float32 and active
 // (m,) int32 in, px, py, pz, nx, ny, nz (m,) float32 out, all on the device.
-// Returns the cudaError_t of the launch.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
+// descriptor structure that names none).
 int bsdmg_project_edges(const SceneDesc* desc, const float* x, const float* y, const float* z,
                         const int* active, int m, int iters, float tol, float eps, int use_grad,
                         float* px, float* py, float* pz, float* nx, float* ny, float* nz,
                         void* stream) {
   const dim3 block(128);
   const dim3 grid((m + 127) / 128);
-  project_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      *desc, x, y, z, active, m, iters, tol, eps, use_grad, px, py, pz, nx, ny, nz);
-  return static_cast<int>(cudaGetLastError());
+  const bool known = with_structure(desc->structure, [&](auto scene) {
+    project_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        *desc, x, y, z, active, m, iters, tol, eps, use_grad, px, py, pz, nx, ny, nz);
+  });
+  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

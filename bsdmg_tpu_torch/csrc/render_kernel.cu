@@ -15,8 +15,9 @@
 //    render_kernel.py::_shade_kernel, the pallas_call at :563 (_shade_call)
 //    that follows every K2 pipeline.
 //
-// One march core (march_ray) serves K1 and K2, templated on the slab cull
-// and on over-relaxation; one epilogue (shade_pixel) serves K1 and K3. K1 is
+// One march core (march_ray) serves K1 and K2, templated on the scene's
+// structure, the slab cull and over-relaxation; one epilogue (shade_pixel)
+// serves K1 and K3. K1 is
 // also templated on its mode: FRESH is the default render (no carried
 // state, budget step_limit; the code K1 always ran), PHASE_A the first phase
 // of block retirement (a step budget, the `active` plane written), RESUME
@@ -39,13 +40,13 @@
 // What the design does about it: each warp covers a compact 8x4 pixel patch
 // (the TPU path's 32x32 swizzle, render_kernel.py:834-854, stood in for the
 // same thing), so its rays finish in similar step counts; each ray leaves
-// the loop as soon as it resolves; the row two-phase tail packs the
-// stragglers into full warps; the scene descriptor is a by-value kernel
-// parameter, so every thread reads the same constant-bank words; the fd4
-// stencil is a rolled loop around one inlined SDF, which keeps code size and
-// registers down. The per-ray near/far scene split is not ported: by the
-// JAX package's tests it changes no pixel, and making these kernels fast is
-// later work.
+// the loop as soon as it resolves; the scene descriptor is a by-value
+// kernel parameter, so every thread reads the same constant-bank words, and
+// the scene's structure is a template parameter (Box<Frame, Transform>,
+// scene_sdf.cuh), so the SDF is straight-line code with no runtime picks or
+// tests. The fd4 stencil is a rolled loop around one inlined SDF, which
+// keeps code size and registers down. The per-ray near/far scene split is
+// not ported: by the JAX package's tests it changes no pixel.
 //
 // Numerics: built without --use_fast_math (IEEE sqrtf and division) and
 // with -fmad=false (ops/cuda/build.py). Every float constant arrives as the
@@ -56,6 +57,8 @@
 // with other step counts. The scene SDF is scene_sdf.cuh's, shared with the
 // mesh kernels; the slab cull and the shading are common.cuh's, shared with
 // K4 and K5.
+
+#include <type_traits>
 
 #include "scene_sdf.cuh"
 
@@ -91,7 +94,7 @@ __device__ __forceinline__ void block_pixel(int bx, int by, int& px, int& py) {
 // :211-237): safety spheres must overlap, else the ray rewinds to
 // depth - step_len + prev_r and steps exactly from there; its state starts
 // at (0, 0, omega) at every launch (:262-269).
-template <bool Cull, bool Relaxed>
+template <class S, bool Cull, bool Relaxed>
 __device__ __forceinline__ void march_ray(const SceneDesc& s, const Ray& r, int cap, float omega,
                                           float& depth, int& steps, int& outcome) {
   float limit = s.depth_limit;
@@ -104,7 +107,8 @@ __device__ __forceinline__ void march_ray(const SceneDesc& s, const Ray& r, int 
   if (!Relaxed) {
     for (;;) {
       const float cd = r.c * depth;
-      const float dist = scene_sdf(s, r.ox + depth * r.dx, r.oy + depth * r.dy, r.oz + depth * r.dz);
+      const float dist =
+          scene_sdf<S>(s, r.ox + depth * r.dx, r.oy + depth * r.dy, r.oz + depth * r.dz);
       if (dist <= cd + eps) {
         outcome = COLLISION;
         break;
@@ -120,7 +124,8 @@ __device__ __forceinline__ void march_ray(const SceneDesc& s, const Ray& r, int 
     float prev_r = 0.0f, step_len = 0.0f, om = omega;
     for (;;) {
       const float cd = r.c * depth;
-      const float dist = scene_sdf(s, r.ox + depth * r.dx, r.oy + depth * r.dy, r.oz + depth * r.dz);
+      const float dist =
+          scene_sdf<S>(s, r.ox + depth * r.dx, r.oy + depth * r.dy, r.oz + depth * r.dz);
       const float rad = dist - cd;
       const bool fail = step_len > fabsf(prev_r) + fabsf(rad);
       if (fail) {
@@ -154,6 +159,7 @@ __device__ __forceinline__ int unresolved(const SceneDesc& s, int steps, int out
 // (:437-470). A hit runs the 12-SDF stencil; any other pixel is ACES of
 // white (STEP_LIMIT) or black. The TPU's per-tile pl.when gate is a branch
 // per thread here.
+template <class S>
 __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, float depth,
                                             int outcome, float* __restrict__ rgb) {
   float r, g, b;
@@ -170,8 +176,8 @@ __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, 
 #pragma unroll 1
       for (int k = 0; k < 4; ++k) {
         const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
-        const float f = scene_sdf(s, a == 0 ? px3 + off : px3, a == 1 ? py3 + off : py3,
-                                  a == 2 ? pz3 + off : pz3);
+        const float f = scene_sdf<S>(s, a == 0 ? px3 + off : px3, a == 1 ? py3 + off : py3,
+                                     a == 2 ? pz3 + off : pz3);
         acc = k == 0 ? -f : (k == 1 ? acc + 8.0f * f : (k == 2 ? acc - 8.0f * f : acc + f));
       }
       if (a == 0) gx = acc;
@@ -197,7 +203,7 @@ __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, 
 // *count entries, each by * ceil(w / 16) + bx) resumes its active rays in
 // place from the planes with budget `cap`; its other rays keep their planes
 // and colour.
-template <bool Cull, bool Relaxed, int Mode>
+template <class S, bool Cull, bool Relaxed, int Mode>
 __global__ void __launch_bounds__(128)
 render_kernel(const SceneDesc s, const float* __restrict__ origins,
               const float* __restrict__ directions, const float* __restrict__ cone,
@@ -228,8 +234,8 @@ render_kernel(const SceneDesc s, const float* __restrict__ origins,
   }
   const int budget = Mode == K1_FRESH ? s.step_limit : cap;
   const Ray ray = load_ray(origins, directions, cone, i);
-  march_ray<Cull, Relaxed>(s, ray, budget, omega, depth, steps, outcome);
-  shade_pixel(s, ray, depth, outcome, rgb + 3 * i);
+  march_ray<S, Cull, Relaxed>(s, ray, budget, omega, depth, steps, outcome);
+  shade_pixel<S>(s, ray, depth, outcome, rgb + 3 * i);
   if (Mode != K1_FRESH || depth_io != nullptr) {
     depth_io[i] = depth;
     steps_io[i] = steps;
@@ -244,7 +250,7 @@ render_kernel(const SceneDesc s, const float* __restrict__ origins,
 // active for every ray when depth0 is null. Rays that are not active keep
 // their state. `active` is written when not null. The carried planes may be
 // the output planes (Listed runs in place).
-template <bool Cull, bool Relaxed, bool Listed>
+template <class S, bool Cull, bool Relaxed, bool Listed>
 __global__ void __launch_bounds__(128)
 trace_kernel(const SceneDesc s, const float* __restrict__ origins,
              const float* __restrict__ directions, const float* __restrict__ cone,
@@ -274,8 +280,8 @@ trace_kernel(const SceneDesc s, const float* __restrict__ origins,
     active = active0[i] != 0;
   }
   if (active) {
-    march_ray<Cull, Relaxed>(s, load_ray(origins, directions, cone, i), cap, omega, depth, steps,
-                             outcome);
+    march_ray<S, Cull, Relaxed>(s, load_ray(origins, directions, cone, i), cap, omega, depth,
+                                steps, outcome);
   }
   depth_out[i] = depth;
   steps_out[i] = steps;
@@ -284,6 +290,7 @@ trace_kernel(const SceneDesc s, const float* __restrict__ origins,
 }
 
 // K3, one thread per pixel in K1's layout
+template <class S>
 __global__ void __launch_bounds__(128)
 shade_kernel(const SceneDesc s, const float* __restrict__ origins,
              const float* __restrict__ directions, const float* __restrict__ depth,
@@ -301,10 +308,10 @@ shade_kernel(const SceneDesc s, const float* __restrict__ origins,
               directions[3 * i + 1], directions[3 * i + 2], 0.0f};
     t = depth[i];
   }
-  shade_pixel(s, ray, t, oc, rgb + 3 * i);
+  shade_pixel<S>(s, ray, t, oc, rgb + 3 * i);
 }
 
-template <bool Cull, bool Relaxed>
+template <class S, bool Cull, bool Relaxed>
 static void launch_render(int mode, cudaStream_t stream, const SceneDesc& s, const float* origins,
                           const float* directions, const float* cone, float* rgb, float* depth,
                           int* steps, int* outcome, int* active, const int* blocks,
@@ -312,22 +319,22 @@ static void launch_render(int mode, cudaStream_t stream, const SceneDesc& s, con
   const dim3 block(128);
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
   if (mode == K1_FRESH) {
-    render_kernel<Cull, Relaxed, K1_FRESH><<<grid, block, 0, stream>>>(
+    render_kernel<S, Cull, Relaxed, K1_FRESH><<<grid, block, 0, stream>>>(
         s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
         omega, h, w);
   } else if (mode == K1_PHASE_A) {
-    render_kernel<Cull, Relaxed, K1_PHASE_A><<<grid, block, 0, stream>>>(
+    render_kernel<S, Cull, Relaxed, K1_PHASE_A><<<grid, block, 0, stream>>>(
         s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
         omega, h, w);
   } else {
     // the worst case: every block listed
-    render_kernel<Cull, Relaxed, K1_RESUME><<<grid.x * grid.y, block, 0, stream>>>(
+    render_kernel<S, Cull, Relaxed, K1_RESUME><<<grid.x * grid.y, block, 0, stream>>>(
         s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
         omega, h, w);
   }
 }
 
-template <bool Cull, bool Relaxed>
+template <class S, bool Cull, bool Relaxed>
 static void launch_trace(cudaStream_t stream, const SceneDesc& s, const float* origins,
                          const float* directions, const float* cone, const float* depth0,
                          const int* steps0, const int* outcome0, const int* active0, float* depth,
@@ -337,15 +344,25 @@ static void launch_trace(cudaStream_t stream, const SceneDesc& s, const float* o
   if (rays != nullptr) {
     // the worst case: every ray listed
     const long long n = (long long)h * w;
-    trace_kernel<Cull, Relaxed, true><<<static_cast<unsigned>((n + 127) / 128), block, 0, stream>>>(
-        s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps, outcome,
-        active, rays, count, cap, omega, h, w);
+    trace_kernel<S, Cull, Relaxed, true>
+        <<<static_cast<unsigned>((n + 127) / 128), block, 0, stream>>>(
+            s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps,
+            outcome, active, rays, count, cap, omega, h, w);
   } else {
     const dim3 grid((w + 15) / 16, (h + 7) / 8);
-    trace_kernel<Cull, Relaxed, false><<<grid, block, 0, stream>>>(
+    trace_kernel<S, Cull, Relaxed, false><<<grid, block, 0, stream>>>(
         s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps, outcome,
         active, rays, count, cap, omega, h, w);
   }
+}
+
+// f(Cull, Relaxed) with the two flags as template arguments
+template <class F>
+static void with_march(int cull, int relaxed, F&& f) {
+  if (cull && !relaxed) f(std::true_type{}, std::false_type{});
+  else if (cull) f(std::true_type{}, std::true_type{});
+  else if (!relaxed) f(std::false_type{}, std::false_type{});
+  else f(std::false_type{}, std::true_type{});
 }
 
 extern "C" {
@@ -354,28 +371,23 @@ extern "C" {
 // (h, w, 3), cone (h, w), rgb (h, w, 3), all float32 on the device; depth,
 // steps, outcome and active are (h, w) planes. mode is 0 (FRESH; the planes
 // written when depth is not null), 1 (PHASE_A) or 2 (RESUME over `blocks`
-// and the device-resident `count`); cull and relaxed pick the march; cap is
-// the step budget of modes 1 and 2, omega the relaxation. Returns the
-// cudaError_t of the launch.
+// and the device-resident `count`); cull and relaxed pick the march, the
+// descriptor's `structure` the scene's instantiation; cap is the step
+// budget of modes 1 and 2, omega the relaxation. Returns the cudaError_t of
+// the launch (cudaErrorInvalidValue for a structure that names none).
 int bsdmg_render(const SceneDesc* desc, const float* origins, const float* directions,
                  const float* cone, float* rgb, float* depth, int* steps, int* outcome,
                  int* active, const int* blocks, const int* count, int mode, int cull,
                  int relaxed, int cap, float omega, int h, int w, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cull && !relaxed) {
-    launch_render<true, false>(mode, st, *desc, origins, directions, cone, rgb, depth, steps,
-                               outcome, active, blocks, count, cap, omega, h, w);
-  } else if (cull) {
-    launch_render<true, true>(mode, st, *desc, origins, directions, cone, rgb, depth, steps,
-                              outcome, active, blocks, count, cap, omega, h, w);
-  } else if (!relaxed) {
-    launch_render<false, false>(mode, st, *desc, origins, directions, cone, rgb, depth, steps,
-                                outcome, active, blocks, count, cap, omega, h, w);
-  } else {
-    launch_render<false, true>(mode, st, *desc, origins, directions, cone, rgb, depth, steps,
-                               outcome, active, blocks, count, cap, omega, h, w);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool known = with_structure(desc->structure, [&](auto scene) {
+    with_march(cull, relaxed, [&](auto c, auto r) {
+      launch_render<decltype(scene), decltype(c)::value, decltype(r)::value>(
+          mode, st, *desc, origins, directions, cone, rgb, depth, steps, outcome, active, blocks,
+          count, cap, omega, h, w);
+    });
+  });
+  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches K2 on `stream` over an h x w frame, planes as bsdmg_render's.
@@ -389,24 +401,14 @@ int bsdmg_trace(const SceneDesc* desc, const float* origins, const float* direct
                 const int* rays, const int* count, int cull, int relaxed, int cap, float omega,
                 int h, int w, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cull && !relaxed) {
-    launch_trace<true, false>(st, *desc, origins, directions, cone, depth0, steps0, outcome0,
-                              active0, depth, steps, outcome, active, rays, count, cap, omega, h,
-                              w);
-  } else if (cull) {
-    launch_trace<true, true>(st, *desc, origins, directions, cone, depth0, steps0, outcome0,
-                             active0, depth, steps, outcome, active, rays, count, cap, omega, h,
-                             w);
-  } else if (!relaxed) {
-    launch_trace<false, false>(st, *desc, origins, directions, cone, depth0, steps0, outcome0,
-                               active0, depth, steps, outcome, active, rays, count, cap, omega, h,
-                               w);
-  } else {
-    launch_trace<false, true>(st, *desc, origins, directions, cone, depth0, steps0, outcome0,
-                              active0, depth, steps, outcome, active, rays, count, cap, omega, h,
-                              w);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool known = with_structure(desc->structure, [&](auto scene) {
+    with_march(cull, relaxed, [&](auto c, auto r) {
+      launch_trace<decltype(scene), decltype(c)::value, decltype(r)::value>(
+          st, *desc, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps,
+          outcome, active, rays, count, cap, omega, h, w);
+    });
+  });
+  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches K3 on `stream`: rgb (h, w, 3) from the depth and outcome planes.
@@ -414,9 +416,11 @@ int bsdmg_trace(const SceneDesc* desc, const float* origins, const float* direct
 int bsdmg_shade(const SceneDesc* desc, const float* origins, const float* directions,
                 const float* depth, const int* outcome, float* rgb, int h, int w, void* stream) {
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
-  shade_kernel<<<grid, dim3(128), 0, static_cast<cudaStream_t>(stream)>>>(
-      *desc, origins, directions, depth, outcome, rgb, h, w);
-  return static_cast<int>(cudaGetLastError());
+  const bool known = with_structure(desc->structure, [&](auto scene) {
+    shade_kernel<decltype(scene)><<<grid, dim3(128), 0, static_cast<cudaStream_t>(stream)>>>(
+        *desc, origins, directions, depth, outcome, rgb, h, w);
+  });
+  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 int bsdmg_scene_desc_size(void) { return static_cast<int>(sizeof(SceneDesc)); }

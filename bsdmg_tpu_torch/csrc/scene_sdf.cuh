@@ -1,4 +1,4 @@
-// The scene SDF of the reference scenes on the device, shared by K1
+// The scene SDF of the reference scenes on the device, shared by K1, K2, K3
 // (render_kernel.cu), K6 (mc_kernel.cu) and K7 (project_kernel.cu).
 //
 // Both functions take the JAX compiler's factorised capsule set
@@ -13,6 +13,15 @@
 // descriptor_csdf and descriptor_csdf_value_and_grad in
 // bsdmg_tpu_torch/ops/cuda/csdf.py.
 //
+// The scene's structure is a template parameter (Box<Frame, Transform>):
+// every capsule set is a box skeleton of 3 groups along x, y and z, each
+// with 2 perpendicular coordinates per other axis, and the wireframe and
+// the object transform are there or not. So the SDF is straight-line code
+// with every axis and count fixed; the descriptor's values stay runtime data
+// in the by-value SceneDesc. csdf.py::kernel_structure picks the structure
+// from the descriptor (and raises for a descriptor that matches none);
+// with_structure turns its index into the template on the host.
+//
 // Numerics: the library is built with -fmad=false and without fast math,
 // and every sum runs in the twin's order, so each function equals its twin
 // bit for bit.
@@ -24,26 +33,22 @@
 #include "common.cuh"
 
 #define BSDMG_GROUPS 3  // parallel-edge groups of a box skeleton
-#define BSDMG_GROUP_VALUES 2  // distinct perpendicular coordinates per axis
+#define BSDMG_GROUP_VALUES 2  // perpendicular coordinates per other axis
 
 // Segments of one direction, start and length whose perpendicular
 // coordinates form the cross product v1 x v2. v1 lies on the lower, v2 on
-// the higher of the two other axes, each ascending, n1 and n2 of them.
+// the higher of the two other axes, each ascending. Group g of a set runs
+// along axis g.
 struct CapsuleGroup {
-  int axis;
   float a0;
   float length;
-  int n1;
-  int n2;
   float v1[BSDMG_GROUP_VALUES];
   float v2[BSDMG_GROUP_VALUES];
 };
 
-// Axis-aligned capsules of one radius, as groups[0..n_groups) in the JAX
-// compiler's order.
+// Axis-aligned capsules of one radius, as groups along x, y and z.
 struct CapsuleSet {
   float radius;
-  int n_groups;
   CapsuleGroup groups[BSDMG_GROUPS];
 };
 
@@ -51,9 +56,8 @@ struct CapsuleSet {
 // kernels read the scene fields only.
 struct SceneDesc {
   CapsuleSet object;  // box skeleton of the CSG object
-  CapsuleSet frame;   // bounding-box wireframe (used when has_frame)
-  int has_frame;
-  int has_transform;
+  CapsuleSet frame;   // bounding-box wireframe (read when the structure has one)
+  int structure;      // the Box<Frame, Transform> the host launches: 2 * Frame + Transform
   float sphere_radius;
   float smooth_k;
   float inv_k;  // float32(1/k), rounded from float64 like the JAX constant
@@ -78,13 +82,40 @@ struct SceneDesc {
   float aces_curve[5];
 };
 
-__device__ __forceinline__ float pick(int axis, float x, float y, float z) {
-  return axis == 0 ? x : (axis == 1 ? y : z);
+// The compile-time structure of a scene: with the wireframe or not, with
+// the object transform or not.
+template <bool Frame, bool Transform>
+struct Box {
+  static constexpr bool frame = Frame;
+  static constexpr bool transform = Transform;
+};
+
+// Calls f(Box<...>{}) for the structure index csdf.py::kernel_structure
+// gives (2 * frame + transform); false for an index that names none.
+template <class F>
+inline bool with_structure(int structure, F&& f) {
+  switch (structure) {
+    case 0: f(Box<false, false>{}); return true;
+    case 1: f(Box<false, true>{}); return true;
+    case 2: f(Box<true, false>{}); return true;
+    case 3: f(Box<true, true>{}); return true;
+    default: return false;
+  }
 }
 
-__device__ __forceinline__ void add_to_axis(int axis, float v, float& gx, float& gy, float& gz) {
-  if (axis == 0) gx += v;
-  else if (axis == 1) gy += v;
+// the axial coordinate of axis A and the lower and higher other ones
+template <int A>
+__device__ __forceinline__ void group_coords(float x, float y, float z, float& a, float& c1,
+                                             float& c2) {
+  a = A == 0 ? x : (A == 1 ? y : z);
+  c1 = A == 0 ? y : x;
+  c2 = A == 2 ? y : z;
+}
+
+template <int A>
+__device__ __forceinline__ void add_to_axis(float v, float& gx, float& gy, float& gz) {
+  if (A == 0) gx += v;
+  else if (A == 1) gy += v;
   else gz += v;
 }
 
@@ -92,28 +123,60 @@ __device__ __forceinline__ void add_to_axis(int axis, float v, float& gx, float&
 // value
 // ---------------------------------------------------------------------------
 
-// squared distance of one group: (axial + min(V1)) + min(V2)
+// squared distance to group A: (axial + min(V1)) + min(V2)
+template <int A>
 __device__ __forceinline__ float group_d2(const CapsuleGroup& g, float x, float y, float z) {
-  const float r = pick(g.axis, x, y, z) - g.a0;
+  float a, c1, c2;
+  group_coords<A>(x, y, z, a, c1, c2);
+  const float r = a - g.a0;
   const float e = r - fminf(fmaxf(r, 0.0f), g.length);
-  const float c1 = pick(g.axis == 0 ? 1 : 0, x, y, z);
-  const float c2 = pick(g.axis == 2 ? 1 : 2, x, y, z);
-  const float d10 = c1 - g.v1[0];
-  float m1 = d10 * d10;
-  if (g.n1 > 1) {
-    const float d11 = c1 - g.v1[1];
-    m1 = fminf(m1, d11 * d11);
-  }
-  const float d20 = c2 - g.v2[0];
-  float m2 = d20 * d20;
-  if (g.n2 > 1) {
-    const float d21 = c2 - g.v2[1];
-    m2 = fminf(m2, d21 * d21);
-  }
-  return (e * e + m1) + m2;
+  const float d10 = c1 - g.v1[0], d11 = c1 - g.v1[1];
+  const float d20 = c2 - g.v2[0], d21 = c2 - g.v2[1];
+  return (e * e + fminf(d10 * d10, d11 * d11)) + fminf(d20 * d20, d21 * d21);
 }
 
-// the squared distances of the groups and their running minimum
+// the minimum over the groups of their squared distances
+__device__ __forceinline__ float capsule_set_d2(const CapsuleSet& c, float x, float y, float z) {
+  return fminf(fminf(group_d2<0>(c.groups[0], x, y, z), group_d2<1>(c.groups[1], x, y, z)),
+               group_d2<2>(c.groups[2], x, y, z));
+}
+
+// world -> object coordinates
+template <class S>
+__device__ __forceinline__ void object_coords(const SceneDesc& s, float x, float y, float z,
+                                              float& ox, float& oy, float& oz) {
+  if (S::transform) {
+    const float tx = x - s.translation[0];
+    const float ty = y - s.translation[1];
+    const float tz = z - s.translation[2];
+    ox = s.inv_rotation[0] * tx + s.inv_rotation[1] * ty + s.inv_rotation[2] * tz;
+    oy = s.inv_rotation[3] * tx + s.inv_rotation[4] * ty + s.inv_rotation[5] * tz;
+    oz = s.inv_rotation[6] * tx + s.inv_rotation[7] * ty + s.inv_rotation[8] * tz;
+  } else {
+    ox = x;
+    oy = y;
+    oz = z;
+  }
+}
+
+// ops/pallas/csdf.py::reference_render_scene_csdf
+template <class S>
+__device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y, float z) {
+  float ox, oy, oz;
+  object_coords<S>(s, x, y, z, ox, oy, oz);
+  const float skel = sqrtf(capsule_set_d2(s.object, ox, oy, oz)) - s.object.radius;
+  const float sph = sqrtf(ox * ox + oy * oy + oz * oz) - s.sphere_radius;
+  const float h = fmaxf(s.smooth_k - fabsf(skel - sph), 0.0f) * s.inv_k;
+  float d = fminf(skel, sph) - h * h * h * s.k_6;
+  if (S::frame) d = fminf(d, sqrtf(capsule_set_d2(s.frame, x, y, z)) - s.frame.radius);
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// gradient
+// ---------------------------------------------------------------------------
+
+// the squared distances of a set's groups and their running minimum
 struct CapsuleFwd {
   float d2[BSDMG_GROUPS];
   float best[BSDMG_GROUPS];
@@ -122,73 +185,39 @@ struct CapsuleFwd {
 
 __device__ __forceinline__ float capsule_set_fwd(const CapsuleSet& c, float x, float y, float z,
                                                  CapsuleFwd& f) {
-  float best = CUDART_INF_F;
-#pragma unroll
-  for (int g = 0; g < BSDMG_GROUPS; ++g) {
-    if (g < c.n_groups) {
-      f.d2[g] = group_d2(c.groups[g], x, y, z);
-      best = g == 0 ? f.d2[0] : fminf(best, f.d2[g]);
-      f.best[g] = best;
-    }
-  }
-  f.root = sqrtf(best);
+  f.d2[0] = group_d2<0>(c.groups[0], x, y, z);
+  f.d2[1] = group_d2<1>(c.groups[1], x, y, z);
+  f.d2[2] = group_d2<2>(c.groups[2], x, y, z);
+  f.best[0] = f.d2[0];
+  f.best[1] = fminf(f.best[0], f.d2[1]);
+  f.best[2] = fminf(f.best[1], f.d2[2]);
+  f.root = sqrtf(f.best[2]);
   return f.root - c.radius;
 }
 
-// ops/pallas/csdf.py::reference_render_scene_csdf
-__device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y, float z) {
-  float ox = x, oy = y, oz = z;
-  if (s.has_transform) {
-    const float tx = x - s.translation[0];
-    const float ty = y - s.translation[1];
-    const float tz = z - s.translation[2];
-    ox = s.inv_rotation[0] * tx + s.inv_rotation[1] * ty + s.inv_rotation[2] * tz;
-    oy = s.inv_rotation[3] * tx + s.inv_rotation[4] * ty + s.inv_rotation[5] * tz;
-    oz = s.inv_rotation[6] * tx + s.inv_rotation[7] * ty + s.inv_rotation[8] * tz;
-  }
-  CapsuleFwd fo;
-  const float skel = capsule_set_fwd(s.object, ox, oy, oz, fo);
-  const float sph = sqrtf(ox * ox + oy * oy + oz * oz) - s.sphere_radius;
-  const float h = fmaxf(s.smooth_k - fabsf(skel - sph), 0.0f) * s.inv_k;
-  float d = fminf(skel, sph) - h * h * h * s.k_6;
-  if (s.has_frame) {
-    CapsuleFwd ff;
-    d = fminf(d, capsule_set_fwd(s.frame, x, y, z, ff));
-  }
-  return d;
-}
-
-// ---------------------------------------------------------------------------
-// gradient
-// ---------------------------------------------------------------------------
-
-// the two squares of one perpendicular slot, backward: adds the cotangent of
-// coordinate c given the cotangent ct of min(sq0, sq1) (or of sq0 alone)
-__device__ __forceinline__ float slot_bwd(float c, const float* v, int n, float ct) {
+// the two squares of one perpendicular slot, backward: the cotangent of
+// coordinate c given the cotangent ct of min((c - v0)^2, (c - v1)^2)
+__device__ __forceinline__ float slot_bwd(float c, const float* v, float ct) {
   const float d0 = c - v[0];
   const float s0 = d0 * d0;
-  float ct0 = ct, ct1 = 0.0f, d1 = 0.0f;
-  if (n > 1) {
-    d1 = c - v[1];
-    const float s1 = d1 * d1;
-    const float m = fminf(s0, s1);
-    ct0 = ct * tie_weight(s0, m, s1);
-    ct1 = ct * tie_weight(s1, m, s0);
-  }
+  const float d1 = c - v[1];
+  const float s1 = d1 * d1;
+  const float m = fminf(s0, s1);
+  const float ct0 = ct * tie_weight(s0, m, s1);
+  const float ct1 = ct * tie_weight(s1, m, s0);
   // d(d*d) = ct*d + d*ct
   const float a0 = ct0 * d0;
-  float out = a0 + a0;
-  if (n > 1) {
-    const float a1 = ct1 * d1;
-    out += a1 + a1;
-  }
-  return out;
+  const float a1 = ct1 * d1;
+  return (a0 + a0) + (a1 + a1);
 }
 
-// one group, backward, with cotangent ct of its squared distance
+// group A, backward, with cotangent ct of its squared distance
+template <int A>
 __device__ __forceinline__ void group_bwd(const CapsuleGroup& g, float x, float y, float z, float ct,
                                           float& gx, float& gy, float& gz) {
-  const float r = pick(g.axis, x, y, z) - g.a0;
+  float a, c1, c2;
+  group_coords<A>(x, y, z, a, c1, c2);
+  const float r = a - g.a0;
   const float mx = fmaxf(r, 0.0f);  // jnp.clip: maximum(0, r), then minimum(length, .)
   const float t = fminf(mx, g.length);
   const float e = r - t;
@@ -196,12 +225,9 @@ __device__ __forceinline__ void group_bwd(const CapsuleGroup& g, float x, float 
   const float ct_e = ce + ce;
   const float ct_t = -ct_e;
   const float ct_mx = ct_t * tie_weight(mx, t, g.length);
-  const float ct_r = ct_e + ct_mx * tie_weight(r, mx, 0.0f);
-  add_to_axis(g.axis, ct_r, gx, gy, gz);
-  const int lo = g.axis == 0 ? 1 : 0;
-  const int hi = g.axis == 2 ? 1 : 2;
-  add_to_axis(lo, slot_bwd(pick(lo, x, y, z), g.v1, g.n1, ct), gx, gy, gz);
-  add_to_axis(hi, slot_bwd(pick(hi, x, y, z), g.v2, g.n2, ct), gx, gy, gz);
+  add_to_axis<A>(ct_e + ct_mx * tie_weight(r, mx, 0.0f), gx, gy, gz);
+  add_to_axis<A == 0 ? 1 : 0>(slot_bwd(c1, g.v1, ct), gx, gy, gz);
+  add_to_axis<A == 2 ? 1 : 2>(slot_bwd(c2, g.v2, ct), gx, gy, gz);
 }
 
 // adds ct * d(capsule set)/d(x, y, z) to (gx, gy, gz)
@@ -209,33 +235,21 @@ __device__ __forceinline__ void capsule_set_bwd(const CapsuleSet& c, float x, fl
                                                 const CapsuleFwd& f, float ct, float& gx,
                                                 float& gy, float& gz) {
   float w = ct * (0.5f / f.root);  // d sqrt(b) = (0.5 / sqrt(b)) db
-  float ctg[BSDMG_GROUPS];
-#pragma unroll
-  for (int g = BSDMG_GROUPS - 1; g >= 1; --g) {
-    if (g < c.n_groups) {
-      ctg[g] = w * tie_weight(f.d2[g], f.best[g], f.best[g - 1]);
-      w = w * tie_weight(f.best[g - 1], f.best[g], f.d2[g]);
-    }
-  }
-  ctg[0] = w;
-#pragma unroll
-  for (int g = 0; g < BSDMG_GROUPS; ++g) {
-    if (g < c.n_groups) group_bwd(c.groups[g], x, y, z, ctg[g], gx, gy, gz);
-  }
+  const float ct2 = w * tie_weight(f.d2[2], f.best[2], f.best[1]);
+  w = w * tie_weight(f.best[1], f.best[2], f.d2[2]);
+  const float ct1 = w * tie_weight(f.d2[1], f.best[1], f.best[0]);
+  w = w * tie_weight(f.best[0], f.best[1], f.d2[1]);
+  group_bwd<0>(c.groups[0], x, y, z, w, gx, gy, gz);
+  group_bwd<1>(c.groups[1], x, y, z, ct1, gx, gy, gz);
+  group_bwd<2>(c.groups[2], x, y, z, ct2, gx, gy, gz);
 }
 
 // value and gradient of scene_sdf (the value equals scene_sdf's bit for bit)
+template <class S>
 __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, float y, float z,
                                                float& d, float& gx, float& gy, float& gz) {
-  float ox = x, oy = y, oz = z;
-  if (s.has_transform) {
-    const float tx = x - s.translation[0];
-    const float ty = y - s.translation[1];
-    const float tz = z - s.translation[2];
-    ox = s.inv_rotation[0] * tx + s.inv_rotation[1] * ty + s.inv_rotation[2] * tz;
-    oy = s.inv_rotation[3] * tx + s.inv_rotation[4] * ty + s.inv_rotation[5] * tz;
-    oz = s.inv_rotation[6] * tx + s.inv_rotation[7] * ty + s.inv_rotation[8] * tz;
-  }
+  float ox, oy, oz;
+  object_coords<S>(s, x, y, z, ox, oy, oz);
   // forward
   CapsuleFwd fo;
   const float skel = capsule_set_fwd(s.object, ox, oy, oz, fo);
@@ -252,14 +266,13 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
   d = obj;
   CapsuleFwd ff;
   float frame = 0.0f;
-  if (s.has_frame) {
+  if (S::frame) {
     frame = capsule_set_fwd(s.frame, x, y, z, ff);
     d = fminf(obj, frame);
   }
 
   // backward, cotangent 1
-  float ct_obj = 1.0f;
-  if (s.has_frame) ct_obj = tie_weight(obj, d, frame);
+  const float ct_obj = S::frame ? tie_weight(obj, d, frame) : 1.0f;
   const float ct_h3 = -ct_obj * s.k_6;
   const float ct_h2 = ct_h3 * h;
   const float ct_h = (h2 * ct_h3 + ct_h2 * h) + h * ct_h2;
@@ -276,7 +289,7 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
   cx += sx + sx;
   cy += sy + sy;
   cz += sz + sz;
-  if (s.has_transform) {
+  if (S::transform) {
     const float* m9 = s.inv_rotation;
     gx = (m9[0] * cx + m9[3] * cy) + m9[6] * cz;
     gy = (m9[1] * cx + m9[4] * cy) + m9[7] * cz;
@@ -286,5 +299,5 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
     gy = cy;
     gz = cz;
   }
-  if (s.has_frame) capsule_set_bwd(s.frame, x, y, z, ff, tie_weight(frame, d, obj), gx, gy, gz);
+  if (S::frame) capsule_set_bwd(s.frame, x, y, z, ff, tie_weight(frame, d, obj), gx, gy, gz);
 }

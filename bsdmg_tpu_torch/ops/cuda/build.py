@@ -63,6 +63,23 @@ def resource_report(source_name: str) -> str:
     return (BUILD_DIR / f"{Path(source_name).stem}.ptxas.txt").read_text()
 
 
+def kernel_resources(source_name: str) -> list[dict]:
+    """Each kernel of ``csrc/<source_name>`` in the last build's ptxas
+    report: ``{"kernel": mangled name, "registers", "stack", "spill_stores",
+    "spill_loads"}`` (bytes per thread)."""
+    kernels: list[dict] = []
+    for line in resource_report(source_name).splitlines():
+        if "Compiling entry function" in line:
+            kernels.append({"kernel": line.split("'")[1]})
+        elif "bytes stack frame" in line and kernels:
+            words = line.replace(",", "").split()
+            kernels[-1].update(stack=int(words[0]), spill_stores=int(words[4]),
+                               spill_loads=int(words[8]))
+        elif "Used " in line and kernels:
+            kernels[-1]["registers"] = int(line.split("Used ")[1].split()[0])
+    return kernels
+
+
 def link_command(objects: list[Path], output: Path) -> list[str]:
     return [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(output), *map(str, objects)]
 

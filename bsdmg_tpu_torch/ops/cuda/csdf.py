@@ -22,6 +22,11 @@ JAX compiler's SDF does: every ``min``/``max`` splits its cotangent evenly
 at a tie, as JAX does. The lattice of the mesh path contains the
 skeleton's symmetry planes, where such ties are common.
 
+The kernels are compiled for the structure of these descriptors
+(:func:`kernel_structure`): box-skeleton capsule sets of 3 groups along x,
+y and z with 2 perpendicular coordinates per other axis, with or without
+the wireframe and the object transform.
+
 Only the two reference scenes compile; any other scene raises
 ``NotImplementedError``.
 """
@@ -369,6 +374,20 @@ def _capsule_set_value_grad(cs: CapsuleSet):
     return f
 
 
+def _object_coords(desc: SceneDescriptor, x, y, z):
+    """World -> object coordinates (the object transform, when there is one)."""
+    if desc.translation is None:
+        return x, y, z
+    tx, ty, tz = desc.translation
+    x, y, z = x - tx, y - ty, z - tz
+    m = desc.inv_rotation
+    return (
+        m[0][0] * x + m[0][1] * y + m[0][2] * z,
+        m[1][0] * x + m[1][1] * y + m[1][2] * z,
+        m[2][0] * x + m[2][1] * y + m[2][2] * z,
+    )
+
+
 def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
     """The scene SDF of ``desc`` on coordinate planes, in plain PyTorch: the
     twin of the kernels' ``scene_sdf`` (csdf.py::reference_render_scene_csdf)."""
@@ -376,16 +395,7 @@ def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
     frame = None if desc.frame is None else _capsule_set_value_grad(desc.frame)
 
     def f(x, y, z):
-        ox, oy, oz = x, y, z
-        if desc.translation is not None:
-            tx, ty, tz = desc.translation
-            ox, oy, oz = ox - tx, oy - ty, oz - tz
-            m = desc.inv_rotation
-            ox, oy, oz = (
-                m[0][0] * ox + m[0][1] * oy + m[0][2] * oz,
-                m[1][0] * ox + m[1][1] * oy + m[1][2] * oz,
-                m[2][0] * ox + m[2][1] * oy + m[2][2] * oz,
-            )
+        ox, oy, oz = _object_coords(desc, x, y, z)
         skel = skeleton(ox, oy, oz)[0]
         sph = torch.sqrt(ox * ox + oy * oy + oz * oz) - desc.sphere_radius
         h = torch.clamp_min(desc.smooth_k - torch.abs(skel - sph), 0.0) * desc.inv_k
@@ -395,6 +405,27 @@ def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
         return d
 
     return f
+
+
+def kernel_structure(desc: SceneDescriptor) -> int:
+    """The index of the compile-time structure the kernels launch for
+    ``desc`` (``Box<Frame, Transform>`` in csrc/scene_sdf.cuh): ``2 *
+    frame + transform``. Each capsule set must be a box skeleton as the
+    kernels take it, 3 groups along x, y and z in that order with 2
+    perpendicular coordinates per other axis; any other descriptor raises
+    ``NotImplementedError``, for which no kernel is built."""
+    sets = {"object": desc.object, "frame": desc.frame}
+    for name, cs in sets.items():
+        if cs is None:
+            continue
+        shape = [(g.axis, len(g.v1), len(g.v2)) for g in cs.groups]
+        if shape != [(a, MAX_GROUP_VALUES, MAX_GROUP_VALUES) for a in range(MAX_GROUPS)]:
+            raise NotImplementedError(
+                f"{name} capsule groups (axis, values, values) {shape}: the kernels are built "
+                f"for {MAX_GROUPS} groups along x, y and z with {MAX_GROUP_VALUES} x "
+                f"{MAX_GROUP_VALUES} perpendicular coordinates"
+            )
+    return 2 * (desc.frame is not None) + (desc.translation is not None)
 
 
 def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
@@ -411,16 +442,7 @@ def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
     frame = None if desc.frame is None else _capsule_set_value_grad(desc.frame)
 
     def f(x, y, z):
-        ox, oy, oz = x, y, z
-        if desc.translation is not None:
-            tx, ty, tz = desc.translation
-            ox, oy, oz = ox - tx, oy - ty, oz - tz
-            m = desc.inv_rotation
-            ox, oy, oz = (
-                m[0][0] * ox + m[0][1] * oy + m[0][2] * oz,
-                m[1][0] * ox + m[1][1] * oy + m[1][2] * oz,
-                m[2][0] * ox + m[2][1] * oy + m[2][2] * oz,
-            )
+        ox, oy, oz = _object_coords(desc, x, y, z)
         # forward
         skel, skel_bwd = skeleton(ox, oy, oz)
         sroot = torch.sqrt(ox * ox + oy * oy + oz * oz)

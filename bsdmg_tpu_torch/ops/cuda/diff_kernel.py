@@ -188,12 +188,13 @@ def _band(config: MarchConfig, edge_band):
 
 
 class _ParamSceneC(ctypes.Structure):
-    """``ParamScene`` of csrc/param_sdf.cuh: the flat parameters and where
-    each one is, the scene's form, the bounds, the march limits and the
+    """``ParamScene`` of csrc/param_sdf.cuh: the parameters at fixed places
+    and where each one is in the flat vector, the scene's form, the bounds, the march limits and the
     shading constants, all as float32 values."""
 
     _fields_ = [
-        ("prm", _floats(MAX_PARAMS)),
+        ("shape_prm", _floats(9)),
+        ("rigid_prm", _floats(7)),
         ("n_prm", ctypes.c_int),
         *((name, ctypes.c_int) for name in PARAM_SHAPES),
         ("reference_compat", ctypes.c_int),
@@ -241,8 +242,16 @@ def param_scene_c(cfn: ReferenceCsdf, params, config: MarchConfig = MarchConfig(
     if missing:
         raise ValueError(f"parameters {missing} are missing")
     values = flat.detach().cpu().tolist()
+
+    def at(name, size, absent=()):
+        return values[offsets[name]:offsets[name] + size] if name in offsets else list(absent)
+
+    shape = (at("skeleton_center", 3) + at("skeleton_size", 3) + at("skeleton_line_width", 1)
+             + at("sphere_radius", 1) + at("smooth_k", 1))
+    rigid = at("object_center", 3, (0.0,) * 3) + at("object_rotation", 4, (1.0, 0.0, 0.0, 0.0))
     fields = dict(
-        prm=_floats(MAX_PARAMS)(*values),
+        shape_prm=_floats(9)(*shape),
+        rigid_prm=_floats(7)(*rigid),
         n_prm=len(values),
         reference_compat=int(cfn.reference_compat),
         has_frame=int(cfn.frame_size is not None),
@@ -265,7 +274,7 @@ def library() -> ctypes.CDLL:
     ptr, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bsdmg_march_params.restype = i32
     lib.bsdmg_march_params.argtypes = [ptr] * 10 + [i32, i32, ptr]
-    lib.bsdmg_loss_grad_scratch.restype = i32
+    lib.bsdmg_loss_grad_scratch.restype = ctypes.c_longlong
     lib.bsdmg_loss_grad_scratch.argtypes = [i32, i32, i32]
     lib.bsdmg_loss_grad.restype = i32
     lib.bsdmg_loss_grad.argtypes = [ptr] * 8 + [i32, i32, f, f, f, f, ptr]

@@ -41,6 +41,7 @@ from bsdmg_tpu_torch.ops.cuda.csdf import (
     SceneDescriptor,
     descriptor_csdf,
     f32,
+    kernel_structure,
 )
 from bsdmg_tpu_torch.ops.shade import (
     _ACES_M1,
@@ -348,11 +349,8 @@ class _CapsuleGroupC(ctypes.Structure):
     """``CapsuleGroup`` of csrc/scene_sdf.cuh."""
 
     _fields_ = [
-        ("axis", ctypes.c_int),
         ("a0", ctypes.c_float),
         ("length", ctypes.c_float),
-        ("n1", ctypes.c_int),
-        ("n2", ctypes.c_int),
         ("v1", _floats(MAX_GROUP_VALUES)),
         ("v2", _floats(MAX_GROUP_VALUES)),
     ]
@@ -363,7 +361,6 @@ class _CapsuleSetC(ctypes.Structure):
 
     _fields_ = [
         ("radius", ctypes.c_float),
-        ("n_groups", ctypes.c_int),
         ("groups", _CapsuleGroupC * MAX_GROUPS),
     ]
 
@@ -376,8 +373,7 @@ class _SceneDescC(ctypes.Structure):
     _fields_ = [
         ("object", _CapsuleSetC),
         ("frame", _CapsuleSetC),
-        ("has_frame", ctypes.c_int),
-        ("has_transform", ctypes.c_int),
+        ("structure", ctypes.c_int),
         ("sphere_radius", ctypes.c_float),
         ("smooth_k", ctypes.c_float),
         ("inv_k", ctypes.c_float),
@@ -407,23 +403,13 @@ def _f32s(values):
     return [f32(v) for v in values]
 
 
-def _padded(values, n):
-    return _floats(n)(*values, *([0.0] * (n - len(values))))
-
-
 def _capsule_group_c(g: CapsuleGroup) -> _CapsuleGroupC:
-    return _CapsuleGroupC(
-        g.axis, g.a0, g.length, len(g.v1), len(g.v2),
-        _padded(g.v1, MAX_GROUP_VALUES), _padded(g.v2, MAX_GROUP_VALUES),
-    )
+    return _CapsuleGroupC(g.a0, g.length, _floats(MAX_GROUP_VALUES)(*g.v1),
+                          _floats(MAX_GROUP_VALUES)(*g.v2))
 
 
 def _capsule_set_c(cs: CapsuleSet) -> _CapsuleSetC:
-    return _CapsuleSetC(
-        cs.radius,
-        len(cs.groups),
-        (_CapsuleGroupC * MAX_GROUPS)(*map(_capsule_group_c, cs.groups)),
-    )
+    return _CapsuleSetC(cs.radius, (_CapsuleGroupC * MAX_GROUPS)(*map(_capsule_group_c, cs.groups)))
 
 
 def bounds_c(bb) -> dict:
@@ -464,14 +450,16 @@ def shading_c() -> dict:
 
 
 def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> _SceneDescC:
-    """The descriptor as the kernels take it (``SceneDesc``)."""
+    """The descriptor as the kernels take it (``SceneDesc``), with the
+    index of the compiled structure it launches (:func:`kernel_structure`,
+    which raises for a descriptor that matches none)."""
+    structure = kernel_structure(desc)
     has_transform = desc.translation is not None
     rotation = [v for row in desc.inv_rotation for v in row] if has_transform else [0.0] * 9
     return _SceneDescC(
         object=_capsule_set_c(desc.object),
         frame=_capsule_set_c(desc.frame if desc.frame is not None else desc.object),
-        has_frame=int(desc.frame is not None),
-        has_transform=int(has_transform),
+        structure=structure,
         sphere_radius=desc.sphere_radius,
         smooth_k=desc.smooth_k,
         inv_k=desc.inv_k,

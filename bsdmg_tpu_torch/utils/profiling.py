@@ -304,8 +304,8 @@ def k4_ops(npix, evals, advances, frame, transform, bounds, track) -> int:
 
 
 def k5_ops(npix, evals, advances, hits, hinges, n_tangents, frame, transform, edge) -> int:
-    """diff_kernel.cu loss_grad_kernel: K4's march and, per hit, its dfdt
-    and guard (2), then in duals (each operation counted with one
+    """diff_kernel.cu K5 (its march, tangent and sum launches): K4's march
+    and, per hit, its dfdt and guard (2), then in duals (each operation counted with one
     operation per tangent; a product's tangent takes 3, so this stays a
     lower bound) the residual (SDF, 5), t_diff and q (8), the value and
     gradient, the normalisation (8) and normal (3), the shading and ACES;

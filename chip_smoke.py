@@ -2,13 +2,21 @@
 """Smoke run of the PyTorch port (bsdmg_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times   # phases 1-2's build and kernel times only
 
 Run from the repository root on a machine with an NVIDIA Hopper card, nvcc
 and PyTorch built for CUDA. Phases, each reported on its own line:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build every kernel from bsdmg_tpu_torch/csrc with nvcc, one process per
-   source, all started together;
+   source, all started together; then the march probe: K1's march loop in
+   the library's SASS (cuobjdump), ptxas's registers and spills of every
+   K1, K2 and K5 instantiation (a K5 spill, or more than 128 registers,
+   fails the run), the latency of one march step of the 1920x1080 frame's
+   longest ray marched alone, and K5's 64x64 fit point against its longest
+   ray alone; then K1, K2, K4 and K5 each alone in CUDA graphs (one JSON
+   line, which the later phases reuse, and which compares two commits when
+   run from each);
 3. the render path: ``cli render -o <tmp>.png`` at the default 1920x1080,
    which must launch K1;
 4. K1 against its plain PyTorch version at 1920x1080 (bit for bit), and at
@@ -22,10 +30,11 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    in phase A and resumed over its block list, against their plain
    versions bit for bit; the row, block and unfused images against K1's;
    each pipeline (K1, row, block, unfused) culled or not, exact or relaxed
-   (omega 1.5), against the twins composed alike, bit for bit;
-   K1, K2 and K3 each alone at 1920x1080 and 2560x1440, the pipelines
-   through the wrapper; the divergence split (phase A capped at 16, 32
-   and 48 steps, the tail's list, phase B, K3, against K1) with bounds;
+   (omega 1.5), against the twins composed alike, bit for bit, at
+   1920x1080 and 2560x1440; K1, K2 and K3 each alone at 1920x1080 and
+   2560x1440, the pipelines through the wrapper; the divergence split
+   (phase A capped at 16, 32 and 48 steps, the tail's list, phase B, K3,
+   against K1) with bounds; K1's phase A at 16 and 48 steps against K1;
 7. the mesh path: ``cli mesh -o <tmp>.obj`` at its defaults (level 3),
    which must launch K6 and give the JAX package's voxel, triangle and
    vertex counts; then ``cli mesh --interpolate-edges``, which must launch
@@ -50,9 +59,10 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     (depth, steps, outcome, min_m and t_min bit for bit, dfdt within a
     bar), K5 against its plain version at 512x512 at the bench point and
     the fit point, the latter also with 16 values, and at the fit point at
-    64x64 (the JAX package's bars, and bit-equal across two calls); K4 and
-    K5 times with the plain versions' beside them, registers and local
-    memory;
+    64x64 and 1920x1080 (the JAX package's bars, and bit-equal across two
+    calls); K4 and K5 times (K5's launches alone in a CUDA graph) at the
+    64x64 fit point, 512x512 and 1920x1080 with their bounds and the plain
+    versions' beside them, registers and local memory;
 12. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
     ``cli render --scene mesh:<tmp>/torus.obj --camera 3 1.5 -3`` bakes a
     128^3 grid and renders 1920x1080, which must launch K9 twice (the 32^3
@@ -94,6 +104,7 @@ import sys
 import tempfile
 import time
 import zlib
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -435,8 +446,9 @@ def twin_pipeline(rk, desc, o, d, c, *, two_phase=False, phase_a_steps=32, use_b
     return rk.shade_planes_torch(desc, o, d, planes[0], planes[2]), *planes
 
 
-def trace_shade_phases(card: str, device) -> list[dict]:
-    """Phase 6: the bench path and kernels K2 and K3."""
+def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
+    """Phase 6: the bench path and kernels K2 and K3; ``alone`` is
+    :func:`kernel_times`'s."""
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.models import reference_render_scene
     from bsdmg_tpu_torch.ops.cuda import build
@@ -506,7 +518,6 @@ def trace_shade_phases(card: str, device) -> list[dict]:
     blocks = rk.compact_list(rk.block_flags(planes[3]))
     n_blocks = int(blocks[1].item())
     carried = (*(x.clone() for x in planes[:3]), planes[3] * rk.block_rays(blocks, *c.shape))
-    block_state = tuple(x.clone() for x in (rgb, *planes))
     frame.resume(rgb, planes, blocks)
     twin = rk.trace_planes_torch(desc, o, d, c, *carried)
     exact["K1 resumed over blocks"] = same(planes, twin) and torch.equal(
@@ -518,16 +529,20 @@ def trace_shade_phases(card: str, device) -> list[dict]:
         exact[f"{name} image = K1's"] = same(rk.render_image_cuda(desc, o, d, c, return_planes=True,
                                                                    **kw), base)
     # every pipeline culled or not, exact or relaxed, against the twins
-    # composed alike: each instantiation of K1 and K2, and K3
-    for cull in (True, False):
-        for omega in (1.0, 1.5):
-            for name, kw in {"K1": {}, **paths}.items():
-                ours = rk.render_image_cuda(desc, o, d, c, return_planes=True, use_bb_skip=cull,
-                                            omega=omega, **kw)
-                twin = twin_pipeline(rk, desc, o, d, c, use_bb_skip=cull, omega=omega,
-                                     **{k: v for k, v in kw.items() if k != "swizzle"})
-                label = "culled" if cull else "uncull'd"
-                exact[f"{name} {label} omega {omega} = twin"] = same(ours, twin)
+    # composed alike: each instantiation of K1 and K2, and K3, at 1920x1080
+    # and 2560x1440
+    for size in ((1920, 1080), (2560, 1440)):
+        ro, rd, rc = (o, d, c) if size == (1920, 1080) else rays(*size, device)
+        for cull in (True, False):
+            for omega in (1.0, 1.5):
+                for name, kw in {"K1": {}, **paths}.items():
+                    ours = rk.render_image_cuda(desc, ro, rd, rc, return_planes=True,
+                                                use_bb_skip=cull, omega=omega, **kw)
+                    twin = twin_pipeline(rk, desc, ro, rd, rc, use_bb_skip=cull, omega=omega,
+                                         **{k: v for k, v in kw.items() if k != "swizzle"})
+                    label = "culled" if cull else "uncull'd"
+                    exact[f"{name} {label} omega {omega} {size[0]}x{size[1]} = twin"] = same(ours,
+                                                                                            twin)
     torch.cuda.synchronize()
     print(f"parity 1920x1080, bit for bit: {json.dumps(exact)}; {n_blocks} of "
           f"{rk.block_flags(planes[3]).numel()} 16x8 blocks resumed after 48 steps")
@@ -538,18 +553,14 @@ def trace_shade_phases(card: str, device) -> list[dict]:
     desc_c = rk.scene_desc_c(desc, cfg)
     step_limit = cfg.step_limit
 
-    def alone(width, height):
+    def k3_alone(width, height):
         ro, rd, rc = rays(width, height, device)
         planes = rk.trace_cuda(desc, ro, rd, rc)
-        out = tuple(torch.empty_like(p) for p in planes)
         img = torch.empty((height, width, 3), device=device)
-        return {
-            "K1": graph_ms(lambda: rk._render_cuda(desc_c, ro, rd, rc, img, None, cap=step_limit)),
-            "K2": graph_ms(lambda: rk._trace_cuda(desc_c, ro, rd, rc, None, out, cap=step_limit)),
-            "K3": graph_ms(lambda: rk._shade_cuda(desc_c, ro, rd, planes[0], planes[2], img)),
-        }
+        return graph_ms(lambda: rk._shade_cuda(desc_c, ro, rd, planes[0], planes[2], img))
 
-    times = {size: alone(*size) for size in ((1920, 1080), (2560, 1440))}
+    times = {(w, h): {"K1": alone[f"K1 {w}x{h}"], "K2": alone[f"K2 {w}x{h}"], "K3": k3_alone(w, h)}
+             for w, h in ((1920, 1080), (2560, 1440))}
     for (w, h), t in times.items():
         print(f"time {w}x{h} on {card}, each kernel alone: " + ", ".join(
             f"{k} {v:.4f} ms ({w * h / v * 1e3:.4g} rays/s)" for k, v in t.items()))
@@ -594,26 +605,17 @@ def trace_shade_phases(card: str, device) -> list[dict]:
         }
         print(f"divergence split on {card}: {json.dumps(split)}")
 
-    # block retirement's two K1 launches alone: phase A, and the resume from
-    # phase A's state (a copy of it, timed and taken off, restores it)
-    rgb_b, planes_b = torch.empty_like(rgb), [torch.empty_like(p) for p in planes]
-    work = [torch.empty_like(x) for x in block_state]
-
-    def restore():
-        for dst, src in zip(work, block_state):
-            dst.copy_(src)
-
-    def resume():
-        restore()
-        rk._render_cuda(desc_c, o, d, c, work[0], work[1:4], mode=rk.RESUME, active=work[4],
-                        blocks=blocks, cap=step_limit)
-
-    a1_ms = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb_b, planes_b[:3], mode=rk.PHASE_A,
-                                             active=planes_b[3], cap=48))
-    copy_ms = graph_ms(restore)
-    print(f"block retirement on {card}: K1 phase A (48 steps) {a1_ms:.4f} ms, K1 over "
-          f"{n_blocks} blocks {graph_ms(resume) - copy_ms:.4f} ms (restore {copy_ms:.4f} ms taken "
-          f"off); K1 alone {k1_ms:.4f} ms")
+    # block retirement's two K1 launches alone (kernel_times), and the
+    # pipeline through the wrapper
+    a1_ms = {n: alone[f"K1 phase A {n} 1920x1080"] for n in (16, 48)}
+    print(f"block retirement on {card}: K1 phase A (48 steps) {a1_ms[48]:.4f} ms, K1 over "
+          f"{alone['K1 resume 48 blocks']} blocks {alone['K1 resume 48 1920x1080']:.4f} ms; the "
+          f"pipeline {alone['block pipeline 48 1920x1080']:.4f} ms; K1 alone {k1_ms:.4f} ms")
+    # K1's time split by steps: its phase A (shading included) at 16 and 48
+    # steps, alone, and what the rays past 48 steps add
+    split = {"phase_a_16_ms": a1_ms[16], "phase_a_48_ms": a1_ms[48], "k1_ms": k1_ms,
+             "steps_16_48_ms": a1_ms[48] - a1_ms[16], "after_48_ms": k1_ms - a1_ms[48]}
+    print(f"K1 split on {card}: {json.dumps(split)}")
 
     return [{
         "name": "K2 trace_kernel (trace only, resumable)",
@@ -994,9 +996,9 @@ def fit_path_phases(card: str, device) -> dict:
     return out
 
 
-def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
+def diff_kernel_phases(card: str, device, fit: dict, alone: dict) -> list[dict]:
     """Phase 11: K4 and K5 against their plain versions, their work, bounds
-    and times."""
+    and times (:func:`kernel_times`'s ``alone`` where it has them)."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.grad import render_image_diff
@@ -1045,11 +1047,14 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
     perturbed16 = cli._apply_perturb(scene.params, FIT_PERTURB)
     small = rays(64, 64, device)
     small_target = render_image_diff(scene.sdf, true, *small, csdf=scene.csdf, bb=bb6).detach()
+    large = rays(1920, 1080, device)
+    large_target = render_image_diff(scene.sdf, true, *large, csdf=scene.csdf, bb=bb6).detach()
     cases = {
         "bench": (true, torch.zeros_like(fit_target), bb25, 0.0, (o, d, c)),
         "fit": (perturbed, fit_target, bb6, 1.0, (o, d, c)),
         "fit, 16 parameters,": (perturbed16, fit_target, bb6, 1.0, (o, d, c)),
         "fit 64x64": (perturbed, small_target, bb6, 1.0, small),
+        "fit 1920x1080": (perturbed, large_target, bb6, 1.0, large),
     }
     for name, (params, target, bb, edge, (o, d, c)) in cases.items():
         kern = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=edge)
@@ -1078,7 +1083,7 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
     # work, bounds and times: K4 as the fit's target render calls it, K5
     # at the bench point (and the fit point at 512x512)
     timings = {}
-    for w, h in ((512, 512), (1920, 1080)):
+    for w, h in ((64, 64), (512, 512), (1920, 1080)):
         o, d, c = rays(w, h, device)
         npix = w * h
         depth, steps, outcome, _ = dk.march_params_cuda(scene.csdf, true, o, d, c, bb=bb6)
@@ -1088,7 +1093,7 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
         # the kernel from a prepared parameter struct, and the wrapper, which
         # also builds the struct (a copy of the parameters to the host)
         scene_c, _ = dk.param_scene_c(scene.csdf, true, bb=bb6)
-        k_ms = median_ms(lambda: dk._march_cuda(scene_c, o, d, c, False), reps=20)
+        k_ms = alone.get(f"K4 {w}x{h}") or graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
         w_ms = median_ms(lambda: dk.march_params_cuda(scene.csdf, true, o, d, c, bb=bb6), reps=5)
         p_ms = median_ms(lambda: dk.march_params_torch(scene.csdf, true, o, d, c, bb=bb6),
                          runs=5, warmup=1)
@@ -1099,6 +1104,8 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
         points = [("bench", true, torch.zeros((h, w, 3), device=device), bb25, 0.0)]
         if w == 512:
             points.append(("fit", perturbed, fit_target, bb6, 1.0))
+        if w == 64:
+            points = [("fit", perturbed, small_target, bb6, 1.0)]
         for name, params, target, bb, edge in points:
             depth, steps, outcome, _, min_m, _ = dk.march_params_cuda(scene.csdf, params, o, d, c,
                                                                       bb=bb, track_min=True)
@@ -1112,8 +1119,9 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
             b_ms, b_by = bound(npix * (40 + 4 * bool(edge)), ops)
             scene_c, _ = dk.param_scene_c(scene.csdf, params, bb=bb)
             state = dk._target_state(target, None).contiguous() if edge else None
-            k_ms = median_ms(lambda: dk._loss_grad_cuda(scene_c, o, d, c, target, state, npix, edge,
-                                                        dk._band(MarchConfig(), None)), reps=20)
+            k_ms = alone.get(f"K5 {w}x{h} {name}") or graph_ms(
+                lambda: dk._loss_grad_cuda(scene_c, o, d, c, target, state, npix, edge,
+                                           dk._band(MarchConfig(), None)))
             w_ms = median_ms(lambda: dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c,
                                                               bb=bb, edge_weight=edge), reps=5)
             p_ms = median_ms(lambda: dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c,
@@ -1127,11 +1135,7 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
 
     # where a fit --image step's time goes: K5 at the fit point of each size
     # against the step's wall time
-    scene_c, _ = dk.param_scene_c(scene.csdf, perturbed, bb=bb6)
-    state = dk._target_state(small_target, None).contiguous()
-    k5_small = median_ms(lambda: dk._loss_grad_cuda(scene_c, *small, small_target, state, 64 * 64, 1.0,
-                                                    dk._band(MarchConfig(), None)), reps=20)
-    for size, step_s, k_ms in ((64, fit["step_s_64"], k5_small),
+    for size, step_s, k_ms in ((64, fit["step_s_64"], timings[("K5", 64, "fit")]["ms"]),
                                (512, fit["step_s_512"], timings[("K5", 512, "fit")]["ms"])):
         print(f"fit --image step at {size}x{size} on {card}: {step_s * 1e3:.3f} ms wall, of which K5 "
               f"at the fit point {k_ms:.4f} ms; Adam and host {step_s * 1e3 - k_ms:.3f} ms")
@@ -1147,7 +1151,8 @@ def diff_kernel_phases(card: str, device, fit: dict) -> list[dict]:
         **k4_row,
         "library_ms": None,
     }, {
-        "name": "K5 loss_grad_kernel (fused image loss and gradient)",
+        "name": "K5 loss_march_kernel + loss_tangent_kernel + loss_grad_sum (fused image loss "
+                "and gradient)",
         "route": "cuda",
         "source": dk.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232",
@@ -1604,9 +1609,257 @@ def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
     }]
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the march probe: K1's march loop in SASS, registers and spills, and the
+# latency of one march step of a ray marched alone
+# ---------------------------------------------------------------------------
+
+#: K1's default instantiation (culled, exact, FRESH) for the render scene
+K1_DEFAULT = "render_kernel<Box<true, false>, true, false, 0>"
+
+
+def toolkit_tool(name: str) -> str:
+    """A CUDA toolkit program beside nvcc (cuobjdump, cu++filt)."""
+    from bsdmg_tpu_torch.ops.cuda import build
+
+    return str(Path(build.nvcc_path()).parent / name)
+
+
+def demangled(names: list[str]) -> dict[str, str]:
+    """Kernel names as cu++filt gives them, without the return type and the
+    arguments, template arguments written as in the source:
+    ``render_kernel<Box<true, false>, true, false, 0>``."""
+    import re
+
+    out = subprocess.run([toolkit_tool("cu++filt"), *names], capture_output=True, text=True,
+                         check=True, timeout=60)
+    short = {}
+    for name, full in zip(names, out.stdout.splitlines(), strict=True):
+        depth, cut = 0, len(full)
+        for k in range(len(full) - 1, -1, -1):  # the argument list: the last (...)
+            depth += {")": 1, "(": -1}.get(full[k], 0)
+            if depth == 0:
+                cut = k
+                break
+        head = full[:cut].removeprefix("void ")
+        head = re.sub(r"\(bool\)1", "true", re.sub(r"\(bool\)0", "false", head))
+        short[name] = re.sub(r"\((?:int|unsigned int)\)(-?\d+)", r"\1", head)
+    return short
+
+
+def kernel_resources(source: str, prefixes: tuple[str, ...]) -> list[dict]:
+    """ptxas's registers, stack and spill bytes of the kernels of ``source``
+    whose demangled names start with one of ``prefixes``."""
+    from bsdmg_tpu_torch.ops.cuda import build
+
+    kernels = build.kernel_resources(source)
+    names = demangled([k["kernel"] for k in kernels])
+    rows = [dict(k, kernel=names[k["kernel"]]) for k in kernels]
+    return [r for r in rows if r["kernel"].startswith(prefixes)]
+
+
+def sass_loops(library: Path, kernel: str) -> list[dict]:
+    """The loops of ``kernel`` (a demangled name without its arguments) in
+    the library's SASS: each backward branch with its target, the static
+    instruction count of the body, and its SFU (MUFU), shuffle, vote and
+    branch instructions."""
+    import re
+
+    out = subprocess.run([toolkit_tool("cuobjdump"), "-sass", str(library)], capture_output=True,
+                         text=True, check=True, timeout=600)
+    functions, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            current = line.split("Function : ")[1].strip()
+            functions[current] = []
+        elif current is not None:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                functions[current].append((int(m.group(1), 16), m.group(2)))
+    names = demangled(sorted(functions))
+    found = [f for f in functions if names[f] == kernel]
+    check(len(found) == 1, f"{kernel} not in the library's SASS")
+    code = functions[found[0]]
+    loops = []
+    for addr, text in code:
+        targets = re.findall(r"0x[0-9a-f]+", text) if re.search(r"\bBRA\b", text) else []
+        if targets and int(targets[-1], 16) <= addr:
+            start = int(targets[-1], 16)
+            body = [x for a, x in code if start <= a <= addr]
+            opcodes = Counter(x.split()[1 if x.startswith("@") else 0].split(".")[0] for x in body)
+            loops.append({"from": hex(start), "to": hex(addr), "instructions": len(body),
+                          **{op.lower(): sum(op in x for x in body)
+                             for op in ("MUFU", "SHFL", "VOTE", "BRA")},
+                          "opcodes": dict(opcodes.most_common(12))})
+    return loops
+
+
+def march_probe(card: str, device, kernel: str = K1_DEFAULT) -> dict:
+    """The march probe. K1's loops in SASS (``kernel``; its first loop is
+    the march step); ptxas's registers and spills of every K1, K2 and K5
+    instantiation; the latency of one march step of the 1920x1080 frame's
+    longest ray marched alone (K2 over a list of that one ray: a CUDA graph
+    with the step budget at 1, then at the step limit; the difference over
+    the steps between); and, for K5 at the 64x64 fit point, its longest
+    ray alone through K4 and K5 (1x1 images) beside K5 over the frame."""
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import build
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
+    from bsdmg_tpu_torch.ops.trace import DEPTH_LIMIT
+
+    out: dict = {"loops": sass_loops(build.build(), kernel)}
+    print(f"march probe: {kernel} loops in SASS (static instructions; the first is the "
+          f"march step): {json.dumps(out['loops'])}")
+    resources = (kernel_resources("render_kernel.cu", ("render_kernel<", "trace_kernel<"))
+                 + kernel_resources("diff_kernel.cu", ("loss_",)))
+    for r in resources:
+        print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    out["resources"] = resources
+
+    cfg = MarchConfig()
+    desc = compile_scene(reference_render_scene(device=device))
+    desc_c = rk.scene_desc_c(desc, cfg)
+    o, d, c = rays(1920, 1080, device)
+    _, steps, _ = rk.trace_cuda(desc, o, d, c)
+    i = int(torch.argmax(steps).item())
+    n = int(steps.reshape(-1)[i].item())
+    carried = (torch.zeros_like(c), torch.zeros_like(steps),
+               torch.full_like(steps, DEPTH_LIMIT), torch.ones_like(steps))
+    planes = tuple(torch.empty_like(p) for p in (c, steps, steps))
+    listed = (torch.tensor([i], dtype=torch.int32, device=device),
+              torch.ones(1, dtype=torch.int32, device=device))
+    lone = {}
+    for cap in (1, cfg.step_limit):
+        lone[cap] = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, carried, planes, cap=cap,
+                                                    rays=listed))
+        check(int(planes[1].reshape(-1)[i].item()) == min(cap, n), f"lone ray, budget {cap}")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    out["step_us"] = (lone[cfg.step_limit] - lone[1]) * 1e3 / (n - 1)
+    out["lone_ray_steps"] = n
+    print(f"march probe on {card}: the longest 1920x1080 ray ({n} steps) alone, K2 at budget 1 "
+          f"{lone[1]:.4f} ms, at {cfg.step_limit} {lone[cfg.step_limit]:.4f} ms: "
+          f"{out['step_us']:.4f} us a step ({out['step_us'] * float(clock):.0f} cycles at the "
+          f"maximum SM clock, {clock} MHz)")
+
+    # K5 at the 64x64 fit point: its longest ray alone through K4 and K5
+    scene = reference_render_scene(device=device)
+    bb = inflated(scene_bounds(scene), 0.6)
+    true = shape_params(scene)
+    params = cli._apply_perturb(true, FIT_PERTURB)
+    o, d, c = rays(64, 64, device)
+    target = render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf, bb=bb).detach()
+    scene_c, _ = dk.param_scene_c(scene.csdf, params, bb=bb)
+    _, steps, _, _ = dk._march_cuda(scene_c, o, d, c, False)
+    j = int(torch.argmax(steps).item())
+    band = dk._band(cfg, None)
+
+    def one(x, k):
+        return x.reshape(-1, *x.shape[2:])[k].reshape(1, 1, *x.shape[2:]).contiguous()
+
+    def k5(o, d, c, target):
+        state = dk._target_state(target, None).contiguous()
+        return graph_ms(lambda: dk._loss_grad_cuda(scene_c, o, d, c, target, state, c.numel(),
+                                                   1.0, band))
+
+    ray = [one(x, j) for x in (o, d, c, target)]
+    k4_alone = graph_ms(lambda: dk._march_cuda(scene_c, *ray[:3], False))
+    out["k5_64"] = {"longest_steps": int(steps.reshape(-1)[j].item()), "k4_lone_ms": k4_alone,
+                    "k5_lone_ms": k5(*ray), "k5_frame_ms": k5(o, d, c, target)}
+    print(f"march probe on {card}: K5 at the 64x64 fit point {json.dumps(out['k5_64'])}")
+    k5 = [r for r in resources if r["kernel"].startswith("loss_")]
+    check(bool(k5) and all(r["spill_stores"] == r["spill_loads"] == 0 and r["registers"] <= 128
+                           for r in k5), f"a K5 kernel spills or takes over 128 registers: {k5}")
+    return out
+
+
+def kernel_times(card: str, device) -> dict:
+    """K1, K2, K4 and K5 each alone (:func:`graph_ms`, prepared structs and
+    outputs): K1 and K2 at 1920x1080 and 2560x1440, K1's phase A at 16 and
+    48 steps and its resume over the 16x8 blocks still active after 48 at
+    1920x1080 (beside the block pipeline through the wrapper, by CUDA
+    events), K4 at 512x512, K5 at the 512x512 bench and fit points and the
+    64x64 fit point."""
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
+
+    cfg = MarchConfig()
+    scene = reference_render_scene(device=device)
+    desc = compile_scene(scene)
+    desc_c = rk.scene_desc_c(desc, cfg)
+    times = {}
+    for w, h in ((1920, 1080), (2560, 1440)):
+        o, d, c = rays(w, h, device)
+        rgb = torch.empty((h, w, 3), device=device)
+        planes = (torch.empty_like(c), *(torch.empty_like(c, dtype=torch.int32) for _ in range(3)))
+        times[f"K1 {w}x{h}"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
+                                                                cap=cfg.step_limit))
+        times[f"K2 {w}x{h}"] = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, None, planes[:3],
+                                                               cap=cfg.step_limit))
+        if w == 1920:
+            for n in (16, 48):
+                times[f"K1 phase A {n} {w}x{h}"] = graph_ms(
+                    lambda: rk._render_cuda(desc_c, o, d, c, rgb, planes[:3], mode=rk.PHASE_A,
+                                            active=planes[3], cap=n))
+            # the resume from phase A's state, which a copy (timed alone and
+            # taken off) restores before each launch
+            blocks = rk.compact_list(rk.block_flags(planes[3]))
+            state = [x.clone() for x in (rgb, *planes)]
+            work = [torch.empty_like(x) for x in state]
+
+            def restore():
+                for dst, src in zip(work, state):
+                    dst.copy_(src)
+
+            def resume():
+                restore()
+                rk._render_cuda(desc_c, o, d, c, work[0], work[1:4], mode=rk.RESUME,
+                                active=work[4], blocks=blocks, cap=cfg.step_limit)
+
+            times["K1 resume 48 blocks"] = int(blocks[1].item())
+            times[f"K1 resume 48 {w}x{h}"] = graph_ms(resume) - graph_ms(restore)
+            times[f"block pipeline 48 {w}x{h}"] = median_ms(
+                lambda: rk.render_image_cuda(desc, o, d, c, two_phase="block", phase_a_steps=48),
+                reps=20)
+    bb6, bb25 = inflated(scene_bounds(scene), 0.6), inflated(scene_bounds(scene), 0.25)
+    true = shape_params(scene)
+    perturbed = cli._apply_perturb(true, FIT_PERTURB)
+    band = dk._band(cfg, None)
+    for side in (512, 64):
+        o, d, c = rays(side, side, device)
+        if side == 512:
+            scene_c, _ = dk.param_scene_c(scene.csdf, true, bb=bb6)
+            times["K4 512x512"] = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
+            zero = torch.zeros((side, side, 3), device=device)
+            bench_c, _ = dk.param_scene_c(scene.csdf, true, bb=bb25)
+            times["K5 512x512 bench"] = graph_ms(
+                lambda: dk._loss_grad_cuda(bench_c, o, d, c, zero, None, c.numel(), 0.0, band))
+        target = render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf, bb=bb6).detach()
+        state = dk._target_state(target, None).contiguous()
+        fit_c, _ = dk.param_scene_c(scene.csdf, perturbed, bb=bb6)
+        times[f"K5 {side}x{side} fit"] = graph_ms(
+            lambda: dk._loss_grad_cuda(fit_c, o, d, c, target, state, c.numel(), 1.0, band))
+    print(f"kernels alone on {card} (ms, CUDA graphs): {json.dumps(times)}")
+    return times
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if argv not in ([], ["--kernel-times"]):
+        print(f"usage: chip_smoke.py [--kernel-times], not {argv}", file=sys.stderr)
         return 2
 
     from bsdmg_tpu_torch.ops.cuda import build
@@ -1620,13 +1873,20 @@ def main() -> int:
     library = build.build()
     print(f"build: {library.relative_to(ROOT)} from {[s.name for s in build.sources()]} "
           f"in {time.perf_counter() - t0:.1f} s")
+    if argv:
+        # the kernels alone and nothing else: run from each of two checkouts
+        # (this file copied into the other) to compare them on one card
+        kernel_times(card, device)
+        return 0
 
+    march_probe(card, device)
+    alone = kernel_times(card, device)
     kernels = [render_phases(card, device)]
-    kernels += trace_shade_phases(card, device)
+    kernels += trace_shade_phases(card, device, alone)
     launches = mesh_path_phases()
     kernels += mesh_kernel_phases(card, device, launches)
     fit = fit_path_phases(card, device)
-    kernels += diff_kernel_phases(card, device, fit)
+    kernels += diff_kernel_phases(card, device, fit, alone)
     kernels += grid_phases(card, device)
 
     print(json.dumps({"kernels": kernels}))
@@ -1640,4 +1900,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

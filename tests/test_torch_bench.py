@@ -108,6 +108,22 @@ def test_cli_bench_render_prints_jax_keys(name, capsys):
     assert after == before
 
 
+@pytest.mark.parametrize("which", ["refine", "mc", "all"])
+def test_cli_bench_roofline_without_a_port_raises(which, monkeypatch):
+    """--roofline with the refine or marching-cubes benches raises before
+    any benchmark runs: their rooflines are not ported (ROADMAP queue 1,
+    item 6), and the flag is never accepted and ignored."""
+
+    def ran(*args, **kwargs):
+        raise AssertionError("a benchmark ran")
+
+    for name in ("benchmark_render", "benchmark_refine", "benchmark_marching_cubes",
+                 "benchmark_render_grad"):
+        monkeypatch.setattr(bench, name, ran)
+    with pytest.raises(NotImplementedError, match="--which render or --which grad"):
+        cli.main(["bench", "--device", "cpu", "--which", which, "--roofline"])
+
+
 def test_cli_bench_without_cuda_raises():
     """The default device is cuda; the bench never moves to the CPU itself."""
     if torch.cuda.is_available():

@@ -172,7 +172,7 @@ def test_param_scene_indexes_follow_flat_order():
     assert (full.object_center, full.object_rotation, full.skeleton_center) == (0, 3, 7)
     assert (full.skeleton_line_width, full.skeleton_size, full.smooth_k, full.sphere_radius) == (
         10, 11, 14, 15)
-    assert list(full.prm)[3:7] == [1.0, 0.0, 0.0, 0.0]
+    assert list(full.rigid_prm)[3:7] == [1.0, 0.0, 0.0, 0.0]
     shape = {k: v for k, v in scene.params.items() if k not in TRANSFORM}
     part, _ = param_scene_c(scene.csdf, shape)
     assert part.n_prm == 9 and part.use_bounds == 0
