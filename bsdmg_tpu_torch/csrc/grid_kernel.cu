@@ -11,7 +11,7 @@
 // - K9, grid_kernel.py::_contraction_kernel (the pallas_call at :368 of
 //   grid_trace_contraction_pallas): one resumable level of the contraction
 //   ladder, sampled by hat weights against an exact or a bf16 table. Here
-//   grid_march_kernel<HatF32> or <HatBf16>.
+//   contraction_kernel<float> or <__nv_bfloat16>.
 // - P1, tools/probe_mxu.py::kernel (the pallas_call at probe_mxu.py:32):
 //   the hat-weight trilinear sample of points. Here
 //   grid_sample_kernel<Sampler>; the render runs it with InterpF32 on the
@@ -23,24 +23,32 @@
 // depth0 and steps0, always takes its first iteration, and stops at a hit,
 // past the depth limit or when its steps reach min(budget, step_limit).
 //
-// What bounds it on Hopper: FP32 work per march step (83 counted operations
-// for a hat sample, 59 for InterpF32, 9 more for the step) and warp
-// divergence, since a warp runs as long as its slowest ray; and the eight
-// table reads of each sample, scattered over a table of 64 KB (32^3 bf16) to
-// 8 MB (128^3 float32), which L2 holds whole. Ray traffic is small: a
-// marched ray reads 28 B (40 B when resumed) and writes 12 B; a ray that
-// is not active reads 16 B and writes 12 B.
+// What bounds it on Hopper: instruction issue. A march step was 159 SASS
+// instructions (83 counted FP32 operations for a hat sample, 59 for
+// InterpF32, 9 more for the step) around eight dependent table reads; at
+// the 32^3 level K9 issued 72% of what the SM can (PERF.md). A warp runs
+// as long as its slowest ray. Ray traffic is small: a marched ray reads
+// 28 B (40 B when resumed) and writes 12 B; a ray that is not active reads
+// 16 B and writes 12 B.
 //
-// What the design does about it: one thread per ray, which leaves its loop
-// as soon as it resolves, where the TPU kernel ran each block of 4,096 rays
-// until its last lane; the TPU's gather-free MXU contraction over all R^2
-// columns becomes four direct gathers per z plane, since this card gathers
-// natively; the sampler is a template parameter, so each instantiation
-// inlines its arithmetic. Making it fast is later work.
+// What the design does about it. K9's threads take the frame's rays in
+// 16x8 tiles of 8x4 warp patches (K1's order), so a warp's rays are
+// neighbours and end their marches together more often than a row of 32.
+// Each level is read from a cell-packed copy (ops/cuda/grid_kernel.py::
+// cell_table; 477 KB at 32^3 and 4 MB at 64^3 in bf16, which L2 holds):
+// one 16-byte load a sample in bf16, two in float32, in place of eight
+// dependent gathers and their address arithmetic; with the sampler's two
+// trims (grid_sdf.cuh: no max on the hat weights, no square root inside
+// the box) a bf16 step is 134 instructions. A 32^3 bf16 level read from
+// shared memory instead, by persistent blocks that copied it once, was
+// slower (PERF.md): 149 instructions a step, and fewer threads an SM. K8
+// and P1 keep one thread per ray or point in flat order over the raw
+// table.
 //
 // Numerics: -fmad=false, no fast math, and the plain twins' order
 // (bsdmg_tpu_torch/ops/cuda/grid_kernel.py): depth, steps, outcome and the
-// sampled values equal the twins' bit for bit.
+// sampled values equal the twins' bit for bit; the layouts change where a
+// corner is read from, not its value or the order of the sums.
 
 #include "common.cuh"
 #include "grid_sdf.cuh"
@@ -52,19 +60,20 @@ struct GridMarch {
   int step_cap;  // min(budget, step_limit)
 };
 
-// One thread per ray. origins and directions are (n, 3), cone (n,). With
-// active == nullptr every ray starts fresh (depth 0, steps 0); otherwise
+// The march of ray i. origins and directions are (n, 3), cone (n,). With
+// active == nullptr the ray starts fresh (depth 0, steps 0); otherwise
 // active, depth0, steps0 and outcome0 are the previous level's (n,) planes.
 template <class Sampler>
-__global__ void __launch_bounds__(128)
-grid_march_kernel(const Sampler s, const GridMarch m, const float* __restrict__ origins,
-                  const float* __restrict__ directions, const float* __restrict__ cone,
-                  const int* __restrict__ active, const float* __restrict__ depth0,
-                  const int* __restrict__ steps0, const int* __restrict__ outcome0,
-                  float* __restrict__ depth_out, int* __restrict__ steps_out,
-                  int* __restrict__ outcome_out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__device__ __forceinline__ void march_ray(const Sampler& s, const GridMarch& m,
+                                          const float* __restrict__ origins,
+                                          const float* __restrict__ directions,
+                                          const float* __restrict__ cone,
+                                          const int* __restrict__ active,
+                                          const float* __restrict__ depth0,
+                                          const int* __restrict__ steps0,
+                                          const int* __restrict__ outcome0,
+                                          float* __restrict__ depth_out, int* __restrict__ steps_out,
+                                          int* __restrict__ outcome_out, int i) {
   float depth = 0.0f;
   int steps = 0;
   if (active != nullptr) {
@@ -100,6 +109,43 @@ grid_march_kernel(const Sampler s, const GridMarch m, const float* __restrict__ 
   outcome_out[i] = outcome;
 }
 
+#define MARCH_PLANES                                                                          \
+  const float *__restrict__ origins, const float *__restrict__ directions,                   \
+      const float *__restrict__ cone, const int *__restrict__ active,                        \
+      const float *__restrict__ depth0, const int *__restrict__ steps0,                      \
+      const int *__restrict__ outcome0, float *__restrict__ depth_out,                       \
+      int *__restrict__ steps_out, int *__restrict__ outcome_out
+#define MARCH_ARGS                                                                            \
+  origins, directions, cone, active, depth0, steps0, outcome0, depth_out, steps_out, outcome_out
+
+// K8: one thread per ray, in flat order.
+template <class Sampler>
+__global__ void __launch_bounds__(128)
+grid_march_kernel(const Sampler s, const GridMarch m, MARCH_PLANES, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  march_ray(s, m, MARCH_ARGS, i);
+}
+
+// The ray of lane `lane` of warp patch p over a frame of h rows of w rays:
+// the frame in 16x8 tiles, row by row, each tile in four 8x4 patches (K1's
+// blocks and warps, render_kernel.cu::block_pixel); -1 past the frame.
+__device__ __forceinline__ int tile_ray(int p, int lane, int w, int h) {
+  const int tiles_x = (w + 15) / 16;
+  const int tile = p >> 2, q = p & 3;
+  const int px = (tile % tiles_x) * 16 + (q & 1) * 8 + (lane & 7);
+  const int py = (tile / tiles_x) * 8 + (q >> 1) * 4 + (lane >> 3);
+  return px < w && py < h ? py * w + px : -1;
+}
+
+// K9 on a cell-packed table: a block of 128 threads per 16x8 tile.
+template <class T>
+__global__ void __launch_bounds__(128)
+contraction_kernel(const HatCells<T> s, const GridMarch m, MARCH_PLANES, int w, int h) {
+  const int i = tile_ray(blockIdx.x * 4 + (threadIdx.x >> 5), threadIdx.x & 31, w, h);
+  if (i >= 0) march_ray(s, m, MARCH_ARGS, i);
+}
+
 // One thread per point: out[i] = s(x[i], y[i], z[i]).
 template <class Sampler>
 __global__ void __launch_bounds__(128)
@@ -114,16 +160,6 @@ grid_sample_kernel(const Sampler s, const float* __restrict__ x, const float* __
 enum { SAMPLER_INTERP_F32 = 0, SAMPLER_HAT_F32 = 1, SAMPLER_HAT_BF16 = 2 };
 
 template <class Sampler>
-static int launch_march(const Sampler& s, const GridMarch& m, const float* origins,
-                        const float* directions, const float* cone, const int* active,
-                        const float* depth0, const int* steps0, const int* outcome0,
-                        float* depth, int* steps, int* outcome, int n, cudaStream_t stream) {
-  grid_march_kernel<Sampler><<<(n + 127) / 128, 128, 0, stream>>>(
-      s, m, origins, directions, cone, active, depth0, steps0, outcome0, depth, steps, outcome, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class Sampler>
 static int launch_sample(const Sampler& s, const float* x, const float* y, const float* z,
                          float* out, int n, cudaStream_t stream) {
   grid_sample_kernel<Sampler><<<(n + 127) / 128, 128, 0, stream>>>(s, x, y, z, out, n);
@@ -132,33 +168,39 @@ static int launch_sample(const Sampler& s, const float* x, const float* y, const
 
 extern "C" {
 
-// Launches K8 (kind SAMPLER_INTERP_F32) or K9 (SAMPLER_HAT_F32 or
-// SAMPLER_HAT_BF16) on `stream` over n rays. table is the grid's (r^3,)
-// float32 or bf16 values, C order. active, depth0, steps0 and outcome0 are
-// all null (a fresh march) or all (n,) planes on the device. Returns the
-// cudaError_t of the launch, or cudaErrorInvalidValue for an unknown kind.
+// Launches K8 (kind SAMPLER_INTERP_F32: table is the grid's (r^3,)
+// float32 values, C order; one thread per ray in flat order) or K9
+// (SAMPLER_HAT_F32 or SAMPLER_HAT_BF16: table is the level's cell-packed
+// copy; the rays in 16x8 tiles of a frame w rays wide) on `stream` over n
+// rays. active, depth0, steps0 and outcome0 are all null (a fresh march) or
+// all (n,) planes on the device. Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for an unknown kind or a frame width that does not
+// divide n.
 int bsdmg_grid_march(int kind, const GridBox* box, const void* table, float margin,
                      const GridMarch* march, const float* origins, const float* directions,
                      const float* cone, const int* active, const float* depth0, const int* steps0,
-                     const int* outcome0, float* depth, int* steps, int* outcome, int n,
-                     void* stream) {
+                     const int* outcome0, float* depth_out, int* steps_out, int* outcome_out,
+                     int n, int w, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case SAMPLER_INTERP_F32:
-      return launch_march(InterpF32{static_cast<const float*>(table), *box}, *march, origins,
-                          directions, cone, active, depth0, steps0, outcome0, depth, steps,
-                          outcome, n, st);
-    case SAMPLER_HAT_F32:
-      return launch_march(HatF32{static_cast<const float*>(table), *box, margin}, *march,
-                          origins, directions, cone, active, depth0, steps0, outcome0, depth,
-                          steps, outcome, n, st);
-    case SAMPLER_HAT_BF16:
-      return launch_march(HatBf16{static_cast<const __nv_bfloat16*>(table), *box, margin},
-                          *march, origins, directions, cone, active, depth0, steps0, outcome0,
-                          depth, steps, outcome, n, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const GridMarch& m = *march;
+  if (kind == SAMPLER_INTERP_F32) {
+    const InterpF32 s{static_cast<const float*>(table), *box};
+    grid_march_kernel<InterpF32><<<(n + 127) / 128, 128, 0, st>>>(s, m, MARCH_ARGS, n);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (w <= 0 || n % w != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int h = n / w;
+  const int tiles = ((w + 15) / 16) * ((h + 7) / 8);
+  if (kind == SAMPLER_HAT_BF16) {
+    const HatCells<__nv_bfloat16> s{static_cast<const uint4*>(table), *box, margin};
+    contraction_kernel<<<tiles, 128, 0, st>>>(s, m, MARCH_ARGS, w, h);
+  } else if (kind == SAMPLER_HAT_F32) {
+    const HatCells<float> s{static_cast<const float4*>(table), *box, margin};
+    contraction_kernel<<<tiles, 128, 0, st>>>(s, m, MARCH_ARGS, w, h);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches P1 on `stream` over n points: x, y, z (n,) float32 in, out (n,)

@@ -6,17 +6,18 @@
 //   sampler of K8 (grid_kernel.py::_grid_trace_kernel) and of the XLA fine
 //   finish and fd4 normals: eight corner gathers, lerps in that function's
 //   order.
-// - Hat<float> and Hat<__nv_bfloat16> are grid_kernel.py::
-//   make_contraction_csdf, the sampler of K9 (_contraction_kernel) with an
-//   exact or a bf16 table: the hat weights max(0, 1 - |c - a|) of the two
-//   corners a = floor(c), floor(c) + 1 of each axis, which are not always
-//   (1 - f, f) bit for bit (c - 1 rounds for small c); v(z) summed over the
-//   four (x, y) corners in ascending x*R + y order, then v(z0) wz0 +
-//   v(z1) wz1, the outside step, minus the level's margin. In bf16 the table
-//   and each w_xy = wx*wy are rounded to bf16 (RNE) and the products summed
-//   in float32, as the TPU's bf16 dot with preferred_element_type=f32. The
-//   MXU contraction over all R^2 (x, y) columns is TPU layout: on this card
-//   the four non-zero columns are gathered directly.
+// - hat_sample is grid_kernel.py::make_contraction_csdf, the sampler of K9
+//   (_contraction_kernel) with an exact or a bf16 table: the hat weights
+//   max(0, 1 - |c - a|) of the two corners a = floor(c), floor(c) + 1 of
+//   each axis, which are not always (1 - f, f) bit for bit (c - 1 rounds
+//   for small c); v(z) summed over the four (x, y) corners in ascending
+//   x*R + y order, then v(z0) wz0 + v(z1) wz1, the outside step, minus the
+//   level's margin. In bf16 the table and each w_xy = wx*wy are rounded to
+//   bf16 (RNE) and the products summed in float32, as the TPU's bf16 dot
+//   with preferred_element_type=f32. The MXU contraction over all R^2
+//   (x, y) columns is TPU layout: on this card the four non-zero columns
+//   are read directly. Hat<T> reads the eight corners from the raw table
+//   (P1), HatCells<T> from the cell-packed copy (K9).
 //
 // Every float constant arrives as the float32 the plain twins
 // (bsdmg_tpu_torch/models/mesh_sdf.py, ops/cuda/grid_kernel.py) compute
@@ -49,8 +50,9 @@ __device__ __forceinline__ float outside_step(const GridBox& b, float x, float y
   const float oy = fmaxf(fmaxf(b.lo[1] - y, y - b.hi[1]), 0.0f);
   const float oz = fmaxf(fmaxf(b.lo[2] - z, z - b.hi[2]), 0.0f);
   const float sq = (ox * ox + oy * oy) + oz * oz;
-  const float outside = sq > 0.0f ? sqrtf(sq) : 0.0f;
-  return outside > 0.0f ? fmaxf(outside, interior - outside) : interior;
+  if (!(sq > 0.0f)) return interior;  // inside the box: no square root
+  const float outside = sqrtf(sq);    // > 0 for sq > 0
+  return fmaxf(outside, interior - outside);
 }
 
 struct InterpF32 {
@@ -97,14 +99,43 @@ __device__ __forceinline__ float xy_weight(const __nv_bfloat16*, float w) {
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
-// hat weights of the two corners a = floor(c) and floor(c) + 1
+// hat weights max(0, 1 - |c - a|) of the two corners a = floor(c) and
+// floor(c) + 1 of a coordinate c >= 0 (grid_coord's). The max with 0 never
+// binds, so it is not taken: c - floor(c) lies in [0, 1) exactly, and
+// c - (floor(c) + 1) rounds into [-1, 0], so both weights lie in [0, 1].
 __device__ __forceinline__ int hat_weights(float c, float& w0, float& w1) {
   const float a = floorf(c);
-  w0 = fmaxf(0.0f, 1.0f - fabsf(c - a));
-  w1 = fmaxf(0.0f, 1.0f - fabsf(c - (a + 1.0f)));
+  w0 = 1.0f - fabsf(c - a);
+  w1 = 1.0f - fabsf(c - (a + 1.0f));
   return static_cast<int>(a);
 }
 
+// The hat-weight sample of a table of T whose `src.corners` gives the
+// eight corners of the cell (x0, y0, z0) in the order they are summed:
+// (x0, y0), (x0, y0 + 1), (x0 + 1, y0), (x0 + 1, y0 + 1) at z0, then the
+// same four at z0 + 1. Each sampler below differs only in where it reads
+// the corners from.
+template <class T, class Corners>
+__device__ __forceinline__ float hat_sample(const GridBox& b, float margin, const Corners& src,
+                                            float x, float y, float z) {
+  float wx0, wx1, wy0, wy1, wz0, wz1;
+  const int x0 = hat_weights(grid_coord(x, b.lo[0], b.scale[0], b.clip_hi), wx0, wx1);
+  const int y0 = hat_weights(grid_coord(y, b.lo[1], b.scale[1], b.clip_hi), wy0, wy1);
+  const int z0 = hat_weights(grid_coord(z, b.lo[2], b.scale[2], b.clip_hi), wz0, wz1);
+  const T* tag = nullptr;
+  const float w00 = xy_weight(tag, wx0 * wy0);
+  const float w01 = xy_weight(tag, wx0 * wy1);
+  const float w10 = xy_weight(tag, wx1 * wy0);
+  const float w11 = xy_weight(tag, wx1 * wy1);
+  float c[8];
+  src.corners(x0, y0, z0, c);
+  // v(z) summed over the four (x, y) corners in ascending x*R + y order
+  const float v0 = ((c[0] * w00 + c[1] * w01) + c[2] * w10) + c[3] * w11;
+  const float v1 = ((c[4] * w00 + c[5] * w01) + c[6] * w10) + c[7] * w11;
+  return outside_step(b, x, y, z, v0 * wz0 + v1 * wz1) - margin;
+}
+
+// the raw (R, R, R) table: eight gathers (P1's sampler)
 template <class T>
 struct Hat {
   const T* __restrict__ table;
@@ -115,27 +146,75 @@ struct Hat {
     return table_value(table, (ix * b.r + iy) * b.r + iz);
   }
 
-  // sum over the four (x, y) corners at z, in ascending x*R + y order
-  __device__ __forceinline__ float v(int x0, int y0, int z, float w00, float w01, float w10,
-                                     float w11) const {
-    return ((at(x0, y0, z) * w00 + at(x0, y0 + 1, z) * w01) + at(x0 + 1, y0, z) * w10) +
-           at(x0 + 1, y0 + 1, z) * w11;
+  __device__ __forceinline__ void corners(int x0, int y0, int z0, float* c) const {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) c[k] = at(x0 + ((k >> 1) & 1), y0 + (k & 1), z0 + (k >> 2));
   }
 
   __device__ __forceinline__ float operator()(float x, float y, float z) const {
-    float wx0, wx1, wy0, wy1, wz0, wz1;
-    const int x0 = hat_weights(grid_coord(x, b.lo[0], b.scale[0], b.clip_hi), wx0, wx1);
-    const int y0 = hat_weights(grid_coord(y, b.lo[1], b.scale[1], b.clip_hi), wy0, wy1);
-    const int z0 = hat_weights(grid_coord(z, b.lo[2], b.scale[2], b.clip_hi), wz0, wz1);
-    const float w00 = xy_weight(table, wx0 * wy0);
-    const float w01 = xy_weight(table, wx0 * wy1);
-    const float w10 = xy_weight(table, wx1 * wy0);
-    const float w11 = xy_weight(table, wx1 * wy1);
-    const float interior =
-        v(x0, y0, z0, w00, w01, w10, w11) * wz0 + v(x0, y0, z0 + 1, w00, w01, w10, w11) * wz1;
-    return outside_step(b, x, y, z, interior) - margin;
+    return hat_sample<T>(b, margin, *this, x, y, z);
   }
 };
 
 using HatF32 = Hat<float>;
 using HatBf16 = Hat<__nv_bfloat16>;
+
+// K9's cell-packed table: cell (x0, y0, z0), x0, y0, z0 <= R - 2 (the clamp
+// to R - 1 - 1e-4 keeps x0 + 1 in the table), holds its eight corners in
+// hat_sample's order, ((x0 * (R - 1) + y0) * (R - 1) + z0) * 8 + k, built by
+// ops/cuda/grid_kernel.py::cell_table. One sample reads one 16-byte cell in
+// bf16, two in float32.
+template <class T>
+struct HatCells;
+
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+template <>
+struct HatCells<__nv_bfloat16> {
+  const uint4* __restrict__ cells;
+  GridBox b;
+  float margin;
+
+  __device__ __forceinline__ void corners(int x0, int y0, int z0, float* c) const {
+    const int m = b.r - 1;
+    const uint4 q = __ldg(cells + (x0 * m + y0) * m + z0);
+    c[0] = bf16_lo(q.x);
+    c[1] = bf16_hi(q.x);
+    c[2] = bf16_lo(q.y);
+    c[3] = bf16_hi(q.y);
+    c[4] = bf16_lo(q.z);
+    c[5] = bf16_hi(q.z);
+    c[6] = bf16_lo(q.w);
+    c[7] = bf16_hi(q.w);
+  }
+
+  __device__ __forceinline__ float operator()(float x, float y, float z) const {
+    return hat_sample<__nv_bfloat16>(b, margin, *this, x, y, z);
+  }
+};
+
+template <>
+struct HatCells<float> {
+  const float4* __restrict__ cells;
+  GridBox b;
+  float margin;
+
+  __device__ __forceinline__ void corners(int x0, int y0, int z0, float* c) const {
+    const int m = b.r - 1;
+    const int i = 2 * ((x0 * m + y0) * m + z0);
+    const float4 lo = __ldg(cells + i), hi = __ldg(cells + i + 1);
+    c[0] = lo.x;
+    c[1] = lo.y;
+    c[2] = lo.z;
+    c[3] = lo.w;
+    c[4] = hi.x;
+    c[5] = hi.y;
+    c[6] = hi.z;
+    c[7] = hi.w;
+  }
+
+  __device__ __forceinline__ float operator()(float x, float y, float z) const {
+    return hat_sample<float>(b, margin, *this, x, y, z);
+  }
+};

@@ -22,12 +22,15 @@ The routes are the JAX package's: ``render_image_grid(mode="contraction")``
 R <= 64 or a 64^3 bf16 mip and the fine finish; ``mode="gather"`` marches
 the whole table when R <= 64 and R^3 % 128 == 0, else a 64^3 mip and the
 fine finish. Ray data is flat, one element per pixel: the TPU's (M, 128)
-swizzle and (m4, 512) regrouping are layout and are not carried over. Two
-differences are deliberate: the fine finish is one resumed launch over
-every ray, where the JAX package compacts the resumed rays into three
-rounds of shrinking cap (their results are the same wherever that cap does
-not overflow); and there is no backend probe, since on the card the kernels
-always run.
+swizzle and (m4, 512) regrouping are layout and are not carried over. K9
+takes the rays in 16x8 tiles of the frame (:func:`tile_order`; the last
+axis of ``cone`` is a row), writes each at its flat index, and reads a
+level from its :func:`cell_table`, which :func:`make_contraction_levels`
+builds once. Two differences are deliberate: the fine finish is one
+resumed launch over every ray, where the JAX package compacts the resumed
+rays into three rounds of shrinking cap (their results are the same
+wherever that cap does not overflow); and there is no backend probe, since
+on the card the kernels always run.
 """
 
 from __future__ import annotations
@@ -76,8 +79,9 @@ _BF16_MARGIN = 3.0 * 2.0**-9
 class Sampler(NamedTuple):
     """A grid SDF as a kernel samples it: the sampler ``kind``, the flat
     ``(R^3,)`` table (float32, or bfloat16 for :data:`HAT_BF16`) on its
-    device, the box and the float32 ``margin`` subtracted from a hat
-    sample."""
+    device, the box, the float32 ``margin`` subtracted from a hat sample,
+    and for a level of K9, the table's :func:`cell_table`, which K9 reads
+    (made at each launch when it is missing)."""
 
     kind: int
     table: torch.Tensor
@@ -85,6 +89,7 @@ class Sampler(NamedTuple):
     lo: tuple
     hi: tuple
     margin: float = 0.0
+    cells: torch.Tensor | None = None
 
 
 def interp_sampler(grid: SdfGrid) -> Sampler:
@@ -103,14 +108,37 @@ def _hat(c, a):
     return torch.clamp_min(1.0 - torch.abs(c - a), 0.0)
 
 
-def make_contraction_csdf(table, r: int, lo, hi, *, bf16: bool, margin: float):
+#: a cell's eight corners, in the order ``csrc/grid_sdf.cuh::hat_sample``
+#: sums them: ``(dx, dy, dz)`` offsets from the cell's lower corner
+CELL_CORNERS = ((0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0), (0, 0, 1), (0, 1, 1), (1, 0, 1),
+                (1, 1, 1))
+
+
+def cell_table(table, r: int):
+    """K9's cell-packed copy of a flat ``(R^3,)`` table: for each cell
+    ``(x0, y0, z0)`` with coordinates up to ``R - 2`` (a hat sample's clamp
+    to ``R - 1 - 1e-4`` keeps ``x0 + 1`` in the table), its eight corners in
+    :data:`CELL_CORNERS` order, at ``((x0 * (R - 1) + y0) * (R - 1) + z0) *
+    8``; flat, in the table's dtype (16 B a cell in bf16, 32 B in float32)."""
+    if r < 2:
+        raise ValueError(f"a cell-packed table needs R >= 2, got {r}")
+    t, m = table.reshape(r, r, r), r - 1
+    return torch.stack([t[dx:dx + m, dy:dy + m, dz:dz + m] for dx, dy, dz in CELL_CORNERS],
+                       dim=-1).reshape(-1).contiguous()
+
+
+def make_contraction_csdf(table, r: int, lo, hi, *, bf16: bool, margin: float,
+                          cells: bool = False):
     """Component-form hat-weight trilinear csdf (grid_kernel.py::
     make_contraction_csdf) over the flat ``(R^3,)`` table, in the order of
-    ``csrc/grid_sdf.cuh::Hat``: the two non-zero weights of each axis, the
-    four (x, y) corners summed in ascending ``x*R + y`` order (weights
-    rounded to bf16 with a bf16 table, products in float32), then the two z
-    planes, the outside step and ``- margin``."""
+    ``csrc/grid_sdf.cuh::hat_sample``: the two non-zero weights of each
+    axis, the four (x, y) corners summed in ascending ``x*R + y`` order
+    (weights rounded to bf16 with a bf16 table, products in float32), then
+    the two z planes, the outside step and ``- margin``. With ``cells`` the
+    table is its :func:`cell_table` and each corner is read from its cell,
+    as K9 reads it."""
     lo, hi, scale, clip_hi = box_f32(r, lo, hi)
+    m = r - 1
 
     def weights(v, a):
         c = torch.clamp((v - lo[a]) * scale[a], 0.0, clip_hi)
@@ -127,17 +155,34 @@ def make_contraction_csdf(table, r: int, lo, hi, *, bf16: bool, margin: float):
         w00, w01 = xy_weight(wx0 * wy0), xy_weight(wx0 * wy1)
         w10, w11 = xy_weight(wx1 * wy0), xy_weight(wx1 * wy1)
 
-        def at(ix, iy, iz):
-            return table[(ix * r + iy) * r + iz].float()
+        def corner(k):
+            if cells:
+                return table[((x0 * m + y0) * m + z0) * 8 + k].float()
+            dx, dy, dz = CELL_CORNERS[k]
+            return table[((x0 + dx) * r + y0 + dy) * r + z0 + dz].float()
 
-        def v(iz):
-            return ((at(x0, y0, iz) * w00 + at(x0, y0 + 1, iz) * w01)
-                    + at(x0 + 1, y0, iz) * w10) + at(x0 + 1, y0 + 1, iz) * w11
+        def v(k):
+            return ((corner(k) * w00 + corner(k + 1) * w01) + corner(k + 2) * w10) \
+                + corner(k + 3) * w11
 
-        interior = v(z0) * wz0 + v(z0 + 1) * wz1
+        interior = v(0) * wz0 + v(4) * wz1
         return _outside_step(interior, _outside_distance(x, y, z, lo, hi)) - margin
 
     return csdf
+
+
+def tile_order(height: int, width: int) -> torch.Tensor:
+    """The flat ray index K9's threads take, in launch order
+    (``csrc/grid_kernel.cu::tile_ray``): the frame in 16x8 tiles, row by
+    row, each tile in four 8x4 warp patches (left top, right top, left
+    bottom, right bottom), each patch row by row; slots past the frame are
+    left out."""
+    ty, tx, q, lane = torch.meshgrid(torch.arange(-(-height // 8)), torch.arange(-(-width // 16)),
+                                     torch.arange(4), torch.arange(32), indexing="ij")
+    px = tx * 16 + (q & 1) * 8 + (lane & 7)
+    py = ty * 8 + (q >> 1) * 4 + (lane >> 3)
+    inside = (px < width) & (py < height)
+    return (py * width + px)[inside]
 
 
 def sampler_csdf(s: Sampler):
@@ -243,7 +288,7 @@ def library() -> ctypes.CDLL:
     lib.bsdmg_grid_march.restype = ctypes.c_int
     lib.bsdmg_grid_march.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-        + [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     lib.bsdmg_grid_sample.restype = ctypes.c_int
     lib.bsdmg_grid_sample.argtypes = (
@@ -267,11 +312,30 @@ def library() -> ctypes.CDLL:
 def _check_sampler(s: Sampler, device) -> None:
     if s.kind not in (INTERP_F32, HAT_F32, HAT_BF16):
         raise ValueError(f"unknown sampler kind {s.kind}")
-    check_planes(table=(s.table, torch.bfloat16 if s.kind == HAT_BF16 else torch.float32))
+    dtype = torch.bfloat16 if s.kind == HAT_BF16 else torch.float32
+    check_planes(table=(s.table, dtype))
     if s.table.numel() != s.r**3:
         raise ValueError(f"table has {s.table.numel()} values, not {s.r}^3")
     if s.table.device != device:
         raise ValueError(f"table is on {s.table.device}, the rays on {device}")
+    if s.cells is not None:
+        check_planes(cells=(s.cells, dtype))
+        if s.kind == INTERP_F32 or s.cells.numel() != 8 * (s.r - 1) ** 3:
+            raise ValueError(f"cells must be a hat table's cell_table, {8 * (s.r - 1) ** 3} "
+                             f"values, got {s.cells.numel()}")
+        if s.cells.device != device:
+            raise ValueError(f"cells are on {s.cells.device}, the rays on {device}")
+
+
+def march_table(s: Sampler) -> torch.Tensor:
+    """The table a grid march launch reads: K8 the raw table, K9 the
+    level's cells (made here when the sampler has none)."""
+    if s.kind == INTERP_F32:
+        return s.table
+    table = cell_table(s.table, s.r) if s.cells is None else s.cells
+    if table.data_ptr() % 16:
+        raise ValueError("K9 reads its cells 16 bytes at a time: they must be 16-byte aligned")
+    return table
 
 
 def _check_rays(origins, directions, cone, active, depth0, steps0, outcome0) -> int:
@@ -312,14 +376,17 @@ def _raise_on(err: int, lib, what: str) -> None:
 def _march_cuda(sampler: Sampler, box, march, origins, directions, cone, state, out) -> None:
     """K8 or K9 from prepared ``GridBox``/``GridMarch`` structs into the flat
     ``(depth, steps, outcome)`` planes ``out``; ``state`` is ``()`` (a fresh
-    march) or the flat ``(active, depth0, steps0, outcome0)`` planes."""
+    march) or the flat ``(active, depth0, steps0, outcome0)`` planes. The
+    frame is ``cone``'s shape: its last axis is a row."""
     lib = library()
+    table = march_table(sampler)
     ptrs = [t.data_ptr() for t in state] if state else [None] * 4
+    width = cone.shape[-1] if cone.dim() else 1
     with torch.cuda.device(cone.device):
         err = lib.bsdmg_grid_march(
-            sampler.kind, ctypes.addressof(box), sampler.table.data_ptr(), sampler.margin,
+            sampler.kind, ctypes.addressof(box), table.data_ptr(), sampler.margin,
             ctypes.addressof(march), origins.data_ptr(), directions.data_ptr(), cone.data_ptr(),
-            *ptrs, *(t.data_ptr() for t in out), cone.numel(),
+            *ptrs, *(t.data_ptr() for t in out), cone.numel(), width,
             torch.cuda.current_stream(cone.device).cuda_stream,
         )
     _raise_on(err, lib, "grid march")
@@ -416,8 +483,8 @@ def make_contraction_levels(grid: SdfGrid) -> list[Sampler]:
     (the JAX package's ``(t2, r, lo, hi, bf16, margin, exact)`` levels): a
     32^3 lower-bound mip in bf16 (when R > 32) with the sound rounding
     margin, then the exact table (:data:`HAT_F32`) when R <= 64, else a
-    64^3 bf16 mip, after which the fine finish runs. Build it once per
-    grid."""
+    64^3 bf16 mip, after which the fine finish runs; each level carries
+    its :func:`cell_table`. Build it once per grid."""
     r = grid.resolution
     levels = []
 
@@ -432,7 +499,7 @@ def make_contraction_levels(grid: SdfGrid) -> list[Sampler]:
         levels.append(Sampler(HAT_F32, grid.values.reshape(-1), r, grid.lo, grid.hi))
     else:
         levels.append(bf16_level(coarsen_grid_lower(grid, MID_RESOLUTION)))
-    return levels
+    return [s._replace(cells=cell_table(s.table, s.r)) for s in levels]
 
 
 def resume_state(steps, outcome):

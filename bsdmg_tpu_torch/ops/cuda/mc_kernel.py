@@ -135,6 +135,30 @@ def mc_fused_torch(fns: SdfFns, lx, ly, lz, cross_bits, t0, t1, voxel_size: floa
     )
 
 
+#: voxels a block of K6 lists the edges of (csrc/mc_kernel.cu kVoxels)
+BLOCK_VOXELS = 60
+
+
+def edge_slots(cross_bits, budget: int):
+    """K6's edge lists (``csrc/mc_kernel.cu``): a block of
+    :data:`BLOCK_VOXELS` voxels lists its voxels' crossing edges of rank <
+    ``budget``, each voxel's from the exclusive scan of ``min(popc(bits),
+    budget)`` over the block, in rank order. Returns flat ``(voxel, edge,
+    rank, slot)``, one entry per listed edge in the order of the blocks and
+    their slots; a block's threads take its slots in turn."""
+    n = cross_bits.shape[0]
+    device = cross_bits.device
+    act = ((cross_bits & 0xFFF)[:, None] >> torch.arange(12, device=device)) & 1
+    rank = torch.cumsum(act, dim=1) - act
+    listed = torch.clamp_max(act.sum(dim=1), budget)
+    pad = -n % BLOCK_VOXELS
+    per_block = torch.nn.functional.pad(listed, (0, pad)).reshape(-1, BLOCK_VOXELS)
+    first = (torch.cumsum(per_block, dim=1) - per_block).reshape(-1)[:n]
+    voxel, edge = (act.bool() & (rank < budget)).nonzero(as_tuple=True)
+    r = rank[voxel, edge]
+    return voxel, edge, r, first[voxel] + r
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -152,32 +176,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def mc_fused_cuda(desc: SceneDescriptor, lx, ly, lz, cross_bits, t0, t1, voxel_size: float, *,
-                  budget: int, iters: int, tol: float, eps: float, use_grad: bool = True,
-                  winding_normals: str = "vertex_mean"):
-    """Kernel K6 on CUDA tensors; raises if the launch fails."""
+def _mc_cuda(desc_c, planes, voxel_size: float, params, out) -> None:
+    """K6 from a prepared ``SceneDesc`` struct into preallocated outputs:
+    ``planes`` = ``(lx, ly, lz, cross_bits, t0, t1)``, ``params`` =
+    ``(budget, iters, tol, eps, use_grad, centroid_winding)``, ``out`` =
+    ``(pos, nrm, dot, amb, meta)``."""
     global LAUNCHES
-    _check_inputs(lx, ly, lz, cross_bits, t0, t1)
     lib = _library()
-    n = lx.shape[0]
-    device = lx.device
-    pos = torch.empty((n, 45), dtype=torch.float32, device=device)
-    nrm = torch.empty_like(pos)
-    dot = torch.empty((n, 5), dtype=torch.float32, device=device)
-    amb = torch.empty((n, 5), dtype=torch.int32, device=device)
-    meta = torch.empty((n,), dtype=torch.int32, device=device)
-    if n == 0:
-        return pos, nrm, dot, amb, meta
-    desc_c = scene_desc_c(desc)
+    device = planes[0].device
+    budget, iters, tol, eps, use_grad, centroid = params
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.bsdmg_mc_fused(
-            ctypes.addressof(desc_c), lx.data_ptr(), ly.data_ptr(), lz.data_ptr(),
-            cross_bits.data_ptr(), t0.data_ptr(), t1.data_ptr(), float(voxel_size), n,
-            int(budget), int(iters), float(tol), float(eps), int(use_grad),
-            int(winding_normals == "centroid_fd4"),
-            pos.data_ptr(), nrm.data_ptr(), dot.data_ptr(), amb.data_ptr(), meta.data_ptr(),
-            stream,
+            ctypes.addressof(desc_c), *(p.data_ptr() for p in planes), float(voxel_size),
+            planes[0].numel(), int(budget), int(iters), float(tol), float(eps), int(use_grad),
+            int(centroid), *(o.data_ptr() for o in out),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -185,7 +198,33 @@ def mc_fused_cuda(desc: SceneDescriptor, lx, ly, lz, cross_bits, t0, t1, voxel_s
             f"({lib.bsdmg_error_string(err).decode()})"
         )
     LAUNCHES += 1
-    return pos, nrm, dot, amb, meta
+
+
+def mc_params(budget: int, iters: int, tol: float, eps: float, use_grad: bool = True,
+              winding_normals: str = "vertex_mean") -> tuple:
+    """The ``params`` of :func:`_mc_cuda` from :func:`mc_fused`'s keywords."""
+    return (budget, iters, tol, eps, use_grad, winding_normals == "centroid_fd4")
+
+
+def mc_outputs(n: int, device) -> tuple:
+    """Uninitialised ``(pos, nrm, dot, amb, meta)`` for ``n`` voxels."""
+    return (torch.empty((n, 45), dtype=torch.float32, device=device),
+            torch.empty((n, 45), dtype=torch.float32, device=device),
+            torch.empty((n, 5), dtype=torch.float32, device=device),
+            torch.empty((n, 5), dtype=torch.int32, device=device),
+            torch.empty((n,), dtype=torch.int32, device=device))
+
+
+def mc_fused_cuda(desc: SceneDescriptor, lx, ly, lz, cross_bits, t0, t1, voxel_size: float, *,
+                  budget: int, iters: int, tol: float, eps: float, use_grad: bool = True,
+                  winding_normals: str = "vertex_mean"):
+    """Kernel K6 on CUDA tensors; raises if the launch fails."""
+    _check_inputs(lx, ly, lz, cross_bits, t0, t1)
+    out = mc_outputs(lx.shape[0], lx.device)
+    if lx.shape[0]:
+        _mc_cuda(scene_desc_c(desc), (lx, ly, lz, cross_bits, t0, t1), voxel_size,
+                 mc_params(budget, iters, tol, eps, use_grad, winding_normals), out)
+    return out
 
 
 def _check_inputs(lx, ly, lz, cross_bits, t0, t1) -> None:

@@ -74,11 +74,13 @@ def newton(fns: SdfFns, x, y, z, active, *, iters: int, tol: float, eps: float,
     """Newton projection of the ``active`` points of flat planes; returns
     new ``(x, y, z)``. The points still moving are gathered each step, so
     the cost follows them; every per-point operation is the kernels'
-    (``newton_project`` in csrc/project.cuh). ``stats["newton_steps"]``, if
-    given, counts the steps taken over all points."""
+    (``newton_project`` in csrc/project.cuh). ``stats``, if given, gets
+    ``"newton_steps"``, the steps taken over all points (added to what it
+    holds), and ``"newton_point_steps"``, each point's steps (int32)."""
     x, y, z = x.clone(), y.clone(), z.clone()
     live = active.nonzero().squeeze(1)
     steps = 0
+    taken = torch.zeros(x.shape, dtype=torch.int32, device=x.device) if stats is not None else None
     for _ in range(iters):
         if not live.numel():
             break
@@ -93,9 +95,12 @@ def newton(fns: SdfFns, x, y, z, active, *, iters: int, tol: float, eps: float,
         y[live] = py - sd * gy * inv
         z[live] = pz - sd * gz * inv
         steps += live.numel()
+        if taken is not None:
+            taken[live] += 1
         live = live[torch.abs(sd) > tol]
     if stats is not None:
         stats["newton_steps"] = stats.get("newton_steps", 0) + steps
+        stats["newton_point_steps"] = taken
     return x, y, z
 
 
@@ -125,24 +130,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def project_edges_cuda(desc: SceneDescriptor, x, y, z, active, *, iters: int, tol: float,
-                       eps: float, use_grad: bool = True):
-    """Kernel K7 on CUDA tensors; raises if the launch fails."""
+def _project_cuda(desc_c, planes, params, out) -> None:
+    """K7 from a prepared ``SceneDesc`` struct into preallocated outputs:
+    ``planes`` = ``(x, y, z, active)``, ``params`` = ``(iters, tol, eps,
+    use_grad)``, ``out`` = ``(px, py, pz, nx, ny, nz)``."""
     global LAUNCHES
-    check_planes(x=(x, torch.float32), y=(y, torch.float32), z=(z, torch.float32),
-                 active=(active, torch.int32))
     lib = _library()
-    m = x.shape[0]
-    outs = [torch.empty_like(x) for _ in range(6)]
-    if m == 0:
-        return tuple(outs)
-    desc_c = scene_desc_c(desc)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    device = planes[0].device
+    iters, tol, eps, use_grad = params
+    with torch.cuda.device(device):
         err = lib.bsdmg_project_edges(
-            ctypes.addressof(desc_c), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            active.data_ptr(), m, int(iters), float(tol), float(eps), int(use_grad),
-            *(o.data_ptr() for o in outs), stream,
+            ctypes.addressof(desc_c), *(p.data_ptr() for p in planes), planes[0].numel(),
+            int(iters), float(tol), float(eps), int(use_grad), *(o.data_ptr() for o in out),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -150,7 +150,17 @@ def project_edges_cuda(desc: SceneDescriptor, x, y, z, active, *, iters: int, to
             f"({lib.bsdmg_error_string(err).decode()})"
         )
     LAUNCHES += 1
-    return tuple(outs)
+
+
+def project_edges_cuda(desc: SceneDescriptor, x, y, z, active, *, iters: int, tol: float,
+                       eps: float, use_grad: bool = True):
+    """Kernel K7 on CUDA tensors; raises if the launch fails."""
+    check_planes(x=(x, torch.float32), y=(y, torch.float32), z=(z, torch.float32),
+                 active=(active, torch.int32))
+    outs = tuple(torch.empty_like(x) for _ in range(6))
+    if x.shape[0]:
+        _project_cuda(scene_desc_c(desc), (x, y, z, active), (iters, tol, eps, use_grad), outs)
+    return outs
 
 
 def check_planes(**planes) -> None:

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (bsdmg_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel-times   # phases 1-2's build and kernel times only
+    python3 chip_smoke.py --kernel-times   # phase 1, the build and phase 2's kernel times
 
 Run from the repository root on a machine with an NVIDIA Hopper card, nvcc
 and PyTorch built for CUDA. Phases, each reported on its own line:
@@ -16,7 +16,11 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    longest ray marched alone, and K5's 64x64 fit point against its longest
    ray alone; then K1, K2, K4 and K5 each alone in CUDA graphs (one JSON
    line, which the later phases reuse, and which compares two commits when
-   run from each);
+   run from each), and K6 at levels 3 and 5, K7 at level 3 and K9's two
+   levels, K8's finish and P1 on the 1080p torus alone (another line), with
+   the Newton and march
+   step statistics that set their warps' divergence, ptxas's registers and
+   spills of K6, K7, K8, K9 and P1, and the SASS loops of K9;
 3. the render path: ``cli render -o <tmp>.png`` at the default 1920x1080,
    which must launch K1;
 4. K1 against its plain PyTorch version at 1920x1080 (bit for bit), and at
@@ -40,9 +44,12 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    vertex counts; then ``cli mesh --interpolate-edges``, which must launch
    K7;
 8. K6 and K7 against their plain versions at level 3 (bit for bit, and the
-   JAX package's Pallas-vs-XLA bars), K6 also at level 5;
-9. K6 times at levels 3 and 5, K7 at level 3, the plain versions at level
-   3; the stage times of mesh generation: refine to level 5, then
+   JAX package's Pallas-vs-XLA bars), K6 also at level 5, and at level 3
+   with the centroid winding, fd4 projection normals, and budgets 12, 6
+   and 2 over the voxels with 256 checkerboard voxels (all 12 edges cross)
+   appended;
+9. K6 times (alone and through the wrapper) at levels 3 and 5, K7 at level
+   3, the plain versions at level 3; the stage times of mesh generation: refine to level 5, then
    extraction, weld and OBJ write at levels 3 and 5;
 10. the fit path: ``cli fit --image`` at its defaults (64x64, 60 steps),
     which must launch K4 (the target) and K5 once per step, with a falling
@@ -673,6 +680,49 @@ def mesh_path_phases() -> dict:
     return launches
 
 
+def k6_alone_ms(desc, args, kwargs) -> float:
+    """K6's own time on the inputs ``(args, kwargs)`` of ``mc_fused``: a
+    prepared struct and outputs, :func:`graph_ms`."""
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel
+    from bsdmg_tpu_torch.ops.cuda.render_kernel import scene_desc_c
+
+    desc_c, params = scene_desc_c(desc), mc_kernel.mc_params(**kwargs)
+    out = mc_kernel.mc_outputs(args[0].numel(), args[0].device)
+    return graph_ms(lambda: mc_kernel._mc_cuda(desc_c, args[:6], args[6], params, out))
+
+
+def k7_alone_ms(desc, args, kwargs) -> float:
+    """K7's own time on the inputs of ``project_edges``, as
+    :func:`k6_alone_ms`."""
+    from bsdmg_tpu_torch.ops.cuda import mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda.render_kernel import scene_desc_c
+
+    desc_c = scene_desc_c(desc)
+    params = (kwargs["iters"], kwargs["tol"], kwargs["eps"], kwargs["use_grad"])
+    out = tuple(torch.empty_like(args[0]) for _ in range(6))
+    return graph_ms(lambda: mesh_kernel._project_cuda(desc_c, args, params, out))
+
+
+def with_checkerboard(args, count: int = 256):
+    """K6's inputs with ``count`` voxels appended whose corners alternate in
+    sign, so all 12 edges cross (the checkerboard field of
+    tests/test_torch_mc_kernel.py), both parities, at the first voxels'
+    corners."""
+    from bsdmg_tpu_torch.ops.marching_cubes import TRI15, _int32
+    from bsdmg_tpu_torch.ops.tables import MC_CORNER_OFFSETS
+
+    parity = np.asarray(MC_CORNER_OFFSETS).sum(axis=1) % 2
+    cases = [int(sum(1 << i for i in range(8) if parity[i] == p)) for p in (0, 1)]
+    device = args[0].device
+    nib = torch.tensor(TRI15[cases * (count // 2)], dtype=torch.int64, device=device)
+    t0 = _int32(sum(nib[:, k] << (4 * k) for k in range(8)))
+    t1 = _int32(sum(nib[:, k] << (4 * (k - 8)) for k in range(8, 15)))
+    bits = torch.full((count,), 0xFFF, dtype=torch.int32, device=device)
+    planes = [torch.cat([a, a[:count]]) for a in args[:3]]
+    planes += [torch.cat([a, b]) for a, b in zip(args[3:6], (bits, t0, t1))]
+    return (*planes, args[6])
+
+
 def _max_err(a, b) -> float:
     return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
 
@@ -758,16 +808,45 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
         ops = mesh_ops(desc, kwargs["use_grad"], stats["newton_steps"], lanes, lanes,
                        res["valid_triangles"])
         b_ms, b_by = bound(f.count * (24 + 404), ops)
-        k_ms = median_ms(lambda: mc_kernel.mc_fused_cuda(desc, *args, **kwargs),
+        k_ms = k6_alone_ms(desc, args, kwargs)
+        w_ms = median_ms(lambda: mc_kernel.mc_fused_cuda(desc, *args, **kwargs),
                          runs=7, reps=5 if level == main_level else 2)
         p_ms = None
         if level == main_level:
             p_ms = median_ms(lambda: mc_kernel.mc_fused_torch(fns, *args, **kwargs), runs=5, warmup=1)
         k6[level] = dict(res, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, ops=ops)
         print(f"time K6 level {level} ({f.count} voxels, {lanes} projected edges) on {card}: "
-              f"{k_ms:.4f} ms ({f.count / k_ms * 1e3:.4g} voxels/s), plain "
-              f"{'not timed' if p_ms is None else f'{p_ms:.3f} ms'}; {ops:.4g} FP32 operations, "
-              f"{f.count * 428} B; bound {b_ms:.4f} ms ({b_by})")
+              f"{k_ms:.4f} ms alone ({f.count / k_ms * 1e3:.4g} voxels/s), wrapper {w_ms:.4f} ms, "
+              f"plain {'not timed' if p_ms is None else f'{p_ms:.3f} ms'}; {ops:.4g} FP32 "
+              f"operations, {f.count * 428} B; bound {b_ms:.4f} ms ({b_by})")
+        del kern, plain
+
+    # every other branch of K6 at the main path's level: the centroid
+    # winding, fd4 projection normals, and budgets 12, 6 and 2 with voxels
+    # whose 12 edges all cross appended (a block of them lists 384 edges;
+    # at 6 part of their triangles overflow, at 2 every voxel's do)
+    f = fields[main_level]
+    for name, change in (("winding centroid_fd4", dict(winding_normals="centroid_fd4")),
+                         ("projection fd4", dict(projection_normals="fd4")),
+                         ("budget 12, checkerboard voxels", dict(edge_budget=12)),
+                         ("budget 6, checkerboard voxels", dict(edge_budget=6)),
+                         ("budget 2, checkerboard voxels", dict(edge_budget=2))):
+        args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size, dataclasses.replace(cfg, **change))
+        if "checkerboard" in name:
+            args = with_checkerboard(args)
+        kern = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
+        plain = mc_kernel.mc_fused_torch(fns, *args, **kwargs)
+        torch.cuda.synchronize()
+        valid = ((kern[4][:, None] >> torch.arange(5, device=device)) & 1) > 0
+        res = {"voxels": args[0].numel(), "valid_triangles": int(valid.sum()),
+               "edge_overflow": int((kern[4] >> 5).sum()),
+               "ambiguous": int(kern[3].sum()),
+               "pos_max_err": _max_err(kern[0], plain[0]),
+               "exact": all(torch.equal(a, b) for a, b in zip(kern, plain))}
+        print(f"parity K6 level {main_level} {name}: {json.dumps(res)}")
+        check(res["exact"], f"K6 ({name}) and its plain version are not bit-equal")
+        check(res["edge_overflow"] > 0 if change.get("edge_budget", 12) < 12 else True,
+              f"K6 ({name}) overflowed no voxel")
         del kern, plain
 
     # K7 against its plain version on the staged path's inputs
@@ -793,13 +872,15 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
     check(res["exact"], "K7 and its plain version are not bit-equal")
     ops7 = mesh_ops(desc, kwargs["use_grad"], stats["newton_steps"], m)
     b7_ms, b7_by = bound(m * (16 + 24), ops7)
-    k7_ms = median_ms(lambda: mesh_kernel.project_edges_cuda(desc, *args, **kwargs), reps=5)
+    k7_ms = k7_alone_ms(desc, args, kwargs)
+    w7_ms = median_ms(lambda: mesh_kernel.project_edges_cuda(desc, *args, **kwargs), reps=5)
     p7_ms = median_ms(
         lambda: mesh_kernel.project_edges_torch(fns, *args[:3], args[3].bool(), **kwargs),
         runs=5, warmup=1,
     )
-    print(f"time K7 level {main_level} ({m} points) on {card}: {k7_ms:.4f} ms, plain {p7_ms:.3f} ms; "
-          f"{ops7:.4g} FP32 operations, {m * 40} B; bound {b7_ms:.4f} ms ({b7_by})")
+    print(f"time K7 level {main_level} ({m} points) on {card}: {k7_ms:.4f} ms alone, wrapper "
+          f"{w7_ms:.4f} ms, plain {p7_ms:.3f} ms; {ops7:.4g} FP32 operations, {m * 40} B; "
+          f"bound {b7_ms:.4f} ms ({b7_by})")
 
     out = [{
         "name": "K6 mc_kernel (fused marching-cubes finish)",
@@ -1571,7 +1652,7 @@ def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
     k8_bound, k8_by = bound(torus["K8 fine finish"]["nbytes"], torus["K8 fine finish"]["ops"])
     p1_bound, p1_by = bound(torus["P1"]["nbytes"], torus["P1"]["ops"])
     return [{
-        "name": "K9 grid_march_kernel<Hat> (contraction ladder level; both levels of a frame)",
+        "name": "K9 contraction_kernel<T> (contraction ladder level; both levels of a frame)",
         "route": "cuda",
         "source": tg.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/grid_kernel.py:307",
@@ -1658,11 +1739,9 @@ def kernel_resources(source: str, prefixes: tuple[str, ...]) -> list[dict]:
     return [r for r in rows if r["kernel"].startswith(prefixes)]
 
 
-def sass_loops(library: Path, kernel: str) -> list[dict]:
-    """The loops of ``kernel`` (a demangled name without its arguments) in
-    the library's SASS: each backward branch with its target, the static
-    instruction count of the body, and its SFU (MUFU), shuffle, vote and
-    branch instructions."""
+def sass_functions(library: Path) -> dict[str, list]:
+    """Each kernel's SASS in the library, ``{demangled name: [(address,
+    instruction), ...]}``."""
     import re
 
     out = subprocess.run([toolkit_tool("cuobjdump"), "-sass", str(library)], capture_output=True,
@@ -1677,9 +1756,16 @@ def sass_loops(library: Path, kernel: str) -> list[dict]:
             if m:
                 functions[current].append((int(m.group(1), 16), m.group(2)))
     names = demangled(sorted(functions))
-    found = [f for f in functions if names[f] == kernel]
-    check(len(found) == 1, f"{kernel} not in the library's SASS")
-    code = functions[found[0]]
+    return {names[f]: code for f, code in functions.items()}
+
+
+def loops_of(code: list) -> list[dict]:
+    """The loops of one kernel's SASS: each backward branch with its target,
+    the static instruction count of the body, its SFU (MUFU), shuffle,
+    vote and branch instructions, and its global, shared and constant
+    loads."""
+    import re
+
     loops = []
     for addr, text in code:
         targets = re.findall(r"0x[0-9a-f]+", text) if re.search(r"\bBRA\b", text) else []
@@ -1690,8 +1776,24 @@ def sass_loops(library: Path, kernel: str) -> list[dict]:
             loops.append({"from": hex(start), "to": hex(addr), "instructions": len(body),
                           **{op.lower(): sum(op in x for x in body)
                              for op in ("MUFU", "SHFL", "VOTE", "BRA")},
+                          **{op.lower(): opcodes[op] for op in ("LDG", "LDS", "LDC", "LD")},
                           "opcodes": dict(opcodes.most_common(12))})
     return loops
+
+
+def sass_loops(library: Path, kernel: str) -> list[dict]:
+    """The loops of ``kernel`` (a demangled name without its arguments) in
+    the library's SASS (:func:`loops_of`)."""
+    functions = sass_functions(library)
+    check(kernel in functions, f"{kernel} not in the library's SASS")
+    return loops_of(functions[kernel])
+
+
+def sass_kernel_loops(library: Path, prefixes: tuple[str, ...]) -> dict[str, list]:
+    """:func:`loops_of` each kernel whose demangled name starts with one of
+    ``prefixes``."""
+    return {k: loops_of(code) for k, code in sass_functions(library).items()
+            if k.startswith(prefixes)}
 
 
 def march_probe(card: str, device, kernel: str = K1_DEFAULT) -> dict:
@@ -1854,6 +1956,176 @@ def kernel_times(card: str, device) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# the mesh and grid kernels alone: K6, K7, K8, K9 and P1, with the Newton
+# and march step statistics that set their divergence, and ptxas and SASS
+# ---------------------------------------------------------------------------
+
+
+def mesh_fields(desc, cfg, device, top: int):
+    """The reference object's voxel fields from the initial one to ``top``."""
+    from bsdmg_tpu_torch.mesh.field import create_voxel_field, refine_field
+
+    fields = {0: create_voxel_field(cfg, device)}
+    for level in range(1, top + 1):
+        fields[level] = refine_field(desc, fields[level - 1])
+    return fields
+
+
+def torus_grid(device, resolution: int = 128):
+    """tools/make_torus.py's torus OBJ baked as `cli render --scene mesh:`
+    bakes it (``resolution``^3)."""
+    from bsdmg_tpu_torch.mesh.export import load_obj
+    from bsdmg_tpu_torch.models.mesh_sdf import bake_mesh_grid
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = Path(tmp) / "torus.obj"
+        subprocess.run([sys.executable, str(ROOT / "tools" / "make_torus.py"), str(obj)],
+                       capture_output=True, text=True, check=True, timeout=300)
+        src = load_obj(obj)
+    return bake_mesh_grid(src.vertices, src.faces, resolution=resolution, device=device)
+
+
+def warp_max_stats(steps: torch.Tensor, groups: torch.Tensor) -> dict:
+    """Steps of work items and the warp each runs in (``groups``, any
+    labels): the mean, the mean over warps of their maximum, and the SIMT
+    efficiency, the steps taken over 32 lanes times the warps' maxima."""
+    steps = steps.long()
+    _, g = torch.unique(groups, return_inverse=True)
+    top = torch.zeros(int(g.max()) + 1 if g.numel() else 0, dtype=torch.long,
+                      device=steps.device).scatter_reduce(0, g, steps, "amax")
+    return {"mean": steps.float().mean().item(), "mean_warp_max": top.float().mean().item(),
+            "simt_efficiency": steps.sum().item() / max(32 * top.sum().item(), 1)}
+
+
+def newton_step_stats(desc, fns, args, kwargs) -> dict:
+    """K6's Newton steps per projected edge from its plain version on the
+    card: the histogram, and the mean warp maximum in two orders. The voxel
+    order runs 32 voxels a warp, each edge of the 12 in turn over the lanes
+    whose voxel projects it; the edge order runs 32 consecutive projected
+    edges a warp, in lists of the edges of 32 voxels (rank order)."""
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel
+
+    stats: dict = {}
+    mc_kernel.mc_fused_torch(fns, *args, stats=stats, **kwargs)
+    steps = stats["newton_point_steps"]  # the twin's edges: voxel by voxel, in rank order
+    vox, edge, _, slot = mc_kernel.edge_slots(args[3], kwargs["budget"])
+    block = vox // mc_kernel.BLOCK_VOXELS
+    listed = torch.bincount(vox, minlength=args[3].numel())
+
+    def rounds(voxels: int, threads: int) -> dict:
+        """Blocks of ``voxels`` voxels and ``threads`` threads: the share
+        of blocks whose list takes a thread more than one edge, and the
+        share of the threads' turns that project an edge."""
+        per = torch.nn.functional.pad(listed, (0, -listed.numel() % voxels)).reshape(-1, voxels)
+        turns = (per.sum(dim=1) + threads - 1) // threads
+        return {"over_one_round": (turns > 1).float().mean().item(),
+                "busy": per.sum().item() / (threads * turns).sum().item()}
+
+    return {
+        "edges": vox.numel(),
+        "blocks": {f"{v}/{t}": rounds(v, t) for v, t in ((32, 128), (28, 128), (60, 256))},
+        "histogram": torch.bincount(steps.long(), minlength=kwargs["iters"] + 1).tolist(),
+        "voxel_order": warp_max_stats(steps, (vox // 32) * 12 + edge),
+        "edge_order": warp_max_stats(steps, block * 12 + slot // 32),
+    }
+
+
+def projection_step_stats(fns, args, kwargs) -> dict:
+    """K7's Newton steps per point (inactive points take none) from its
+    plain version on the card, 32 consecutive points a warp."""
+    from bsdmg_tpu_torch.ops.cuda import mesh_kernel
+
+    stats: dict = {}
+    mesh_kernel.project_edges_torch(fns, *args[:3], args[3].bool(), stats=stats, **kwargs)
+    steps = stats["newton_point_steps"]
+    active = args[3] > 0
+    lanes = torch.arange(steps.numel(), device=steps.device)
+    return {"points": steps.numel(), "active": int(active.sum()),
+            "histogram": torch.bincount(steps.long()[active]).tolist(),
+            "active_mean": steps[active].float().mean().item(),
+            "point_order": warp_max_stats(steps, lanes // 32)}
+
+
+def march_step_stats(out, state: dict, shape) -> dict:
+    """The steps one grid march launch takes per ray (0 for a ray it does
+    not march): the mean over the marched rays, and the mean warp maximum
+    with 32 consecutive rays of a row a warp and with 8x4 patches of 16x8
+    tiles a warp (K1's and K2's order)."""
+    from bsdmg_tpu_torch.bench import WARP, _block_max
+
+    taken = out[1].reshape(-1).long()
+    marched = torch.ones_like(taken, dtype=torch.bool)
+    if state:
+        marched = state["active"].reshape(-1) > 0
+        taken = torch.where(marched, taken - state["steps0"].reshape(-1).long(), 0)
+    plane = taken.reshape(shape).cpu().numpy()
+    return {"marched": int(marched.sum()), "mean": taken[marched].float().mean().item(),
+            "row_warp_max": float(_block_max(plane.reshape(1, -1), (1, 32)).mean()),
+            "tile_warp_max": float(_block_max(plane, WARP).mean())}
+
+
+def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
+    """K6 at levels 3 and 5 and K7 at level 3 of the reference object, and
+    K9's two levels, K8's finish and P1's normals on the 1920x1080 torus
+    frame, each alone (:func:`graph_ms`, prepared structs and outputs),
+    with the wrappers' times beside (CUDA events); the step statistics of
+    each; ptxas's registers
+    and spills; the SASS loops of K9. Adds the times to ``times``; returns
+    the step statistics."""
+    from bsdmg_tpu_torch.cam import generate_rays, look_at
+    from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig
+    from bsdmg_tpu_torch.models import reference_object
+    from bsdmg_tpu_torch.ops.cuda import build
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, sdf_fns
+    from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
+
+    cfg = MeshGenConfig()
+    desc = compile_scene(reference_object(device=device))
+    fns = sdf_fns(desc)
+    fields = mesh_fields(desc, cfg, device, 5)
+    probes: dict = {}
+    for level in (3, 5):
+        f = fields[level]
+        args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size, cfg)
+        times[f"K6 level {level}"] = k6_alone_ms(desc, args, kwargs)
+        times[f"K6 level {level} wrapper"] = median_ms(
+            lambda: mc_kernel.mc_fused_cuda(desc, *args, **kwargs), reps=5)
+        probes[f"K6 level {level}"] = newton_step_stats(desc, fns, args, kwargs)
+    f = fields[3]
+    args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size,
+                                 MeshGenConfig(interpolate_edges=True))
+    times["K7 level 3"] = k7_alone_ms(desc, args, kwargs)
+    times["K7 level 3 wrapper"] = median_ms(
+        lambda: mesh_kernel.project_edges_cuda(desc, *args, **kwargs), reps=5)
+    probes["K7 level 3"] = projection_step_stats(fns, args, kwargs)
+    del fields
+
+    grid, march = torus_grid(device), MarchConfig()
+    size = (1920, 1080)
+    frame = generate_rays(look_at(TORUS_CAMERA, device=device), size, SCREEN)
+    _, launches, stencil, _ = staged_contraction(grid, frame, march)
+    for name, sampler, state, out in launches:
+        times[f"{name} torus"] = march_kernel_ms(sampler, frame, march, state)
+        probes[f"{name} torus"] = march_step_stats(out, state, (size[1], size[0]))
+    times["P1 torus normals"] = sample_kernel_ms(tg.interp_sampler(grid), stencil)
+    print(f"mesh and grid kernels alone on {card} (ms, CUDA graphs; wrappers by CUDA events): "
+          + json.dumps({k: v for k, v in times.items() if k.startswith(("K6", "K7", "K8", "K9",
+                                                                          "P1"))}))
+    print(f"step statistics on {card}: {json.dumps(probes)}")
+    for source, prefixes in (("mc_kernel.cu", ("mc_",)), ("project_kernel.cu", ("project_",)),
+                             ("grid_kernel.cu", ("grid_", "contraction_"))):
+        for r in kernel_resources(source, prefixes):
+            print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
+                  f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    for kernel, loops in sass_kernel_loops(build.build(), ("grid_march_kernel<Hat",
+                                                           "contraction_kernel")).items():
+        print(f"  SASS loops of {kernel}: {json.dumps(loops)}")
+    return probes
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1876,11 +2148,12 @@ def main(argv: list[str]) -> int:
     if argv:
         # the kernels alone and nothing else: run from each of two checkouts
         # (this file copied into the other) to compare them on one card
-        kernel_times(card, device)
+        mesh_grid_kernel_times(card, device, kernel_times(card, device))
         return 0
 
     march_probe(card, device)
     alone = kernel_times(card, device)
+    mesh_grid_kernel_times(card, device, alone)
     kernels = [render_phases(card, device)]
     kernels += trace_shade_phases(card, device, alone)
     launches = mesh_path_phases()

@@ -1,0 +1,247 @@
+"""The host-side layouts of the redesigned kernels K6 and K9, on the CPU.
+
+The kernels need nvcc and a card; chip_smoke.py holds them against their
+plain versions there, bit for bit. Here the pieces that decide where each
+kernel reads and writes are held against what they mirror:
+
+* K9's cell-packed table (``grid_kernel.cell_table``) holds each cell's
+  eight corners of the raw table in the order ``csrc/grid_sdf.cuh::
+  hat_sample`` sums them, bit for bit, for float32 and bf16 levels and the
+  last cell on each axis; the sampler reading cells
+  (``make_contraction_csdf(cells=True)``, the CPU form of ``HatCells``)
+  equals the raw table's twin bit for bit, on P1's probe points and on
+  points inside and outside the box, and both are within the JAX package's
+  bars of its ``make_contraction_csdf``;
+* K9's tile order (``grid_kernel.tile_order``, the CPU form of
+  ``tile_ray``) is a permutation of the frame's rays and walks K1's 8x4
+  warp patches of 16x8 tiles;
+* K6's edge lists (``mc_kernel.edge_slots``) list exactly the crossing
+  edges of rank < budget that the staged path (``_staged_inputs``) packs,
+  each block's slots once each, voxel by voxel in rank order;
+* ``make_contraction_levels`` gives each of K9's levels its cell-packed
+  copy, which K9 reads.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bsdmg_tpu.config import MeshGenConfig as JaxMeshGenConfig
+from bsdmg_tpu.mesh import create_voxel_field as jax_create_field
+from bsdmg_tpu.mesh import refine_field as jax_refine_field
+from bsdmg_tpu.models import reference_object as jax_object
+from bsdmg_tpu.ops.pallas import compile_scene_csdf
+from bsdmg_tpu.ops.pallas import grid_kernel as jg
+from bsdmg_tpu_torch.config import MeshGenConfig
+from bsdmg_tpu_torch.models import reference_object
+from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid
+from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+from bsdmg_tpu_torch.ops.cuda import mc_kernel
+from bsdmg_tpu_torch.ops.cuda.csdf import SdfFns, compile_scene, sdf_fns
+from bsdmg_tpu_torch.ops.marching_cubes import _classify, _staged_inputs, kernel_inputs
+from bsdmg_tpu_torch.weights import field_from_numpy
+
+torch.set_num_threads(1)
+
+
+# ---------------------------------------------------------------------------
+# K9: the cell-packed table and its sampler
+# ---------------------------------------------------------------------------
+
+
+def _table(r: int, bf16: bool, seed: int = 0) -> torch.Tensor:
+    values = np.random.default_rng(seed).standard_normal(r**3).astype(np.float32)
+    table = torch.from_numpy(values)
+    return table.to(torch.bfloat16) if bf16 else table
+
+
+@pytest.mark.parametrize("r", [2, 17, 32])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cell_table_holds_the_corners_in_hat_order(r, bf16):
+    table = _table(r, bf16)
+    cells = tg.cell_table(table, r)
+    m = r - 1
+    assert cells.dtype == table.dtype and cells.shape == (8 * m**3,)
+    t3 = table.reshape(r, r, r)
+    got = cells.reshape(m, m, m, 8)
+    for k, (dx, dy, dz) in enumerate(tg.CELL_CORNERS):
+        assert torch.equal(got[..., k], t3[dx:dx + m, dy:dy + m, dz:dz + m])
+    # the last cell on each axis reaches the table's last plane
+    for x0, y0, z0 in ((m - 1, 0, 0), (0, m - 1, 0), (0, 0, m - 1), (m - 1, m - 1, m - 1)):
+        want = [t3[x0 + dx, y0 + dy, z0 + dz] for dx, dy, dz in tg.CELL_CORNERS]
+        assert torch.equal(got[x0, y0, z0], torch.stack(want))
+    # the order is hat_sample's: (x0, y0), (x0, y0 + 1), (x0 + 1, y0),
+    # (x0 + 1, y0 + 1) at z0, then at z0 + 1
+    assert tg.CELL_CORNERS == tuple((dx, dy, dz) for dz in (0, 1) for dx in (0, 1)
+                                    for dy in (0, 1))
+
+
+def test_cell_table_rejects_a_one_point_grid():
+    with pytest.raises(ValueError):
+        tg.cell_table(torch.zeros(1), 1)
+
+
+def _probe_points(r):
+    """P1's probe (chip_smoke.py, tools/probe_mxu.py): 512 grid coordinates
+    in [0, r - 1.001) on the box [0, r - 1]^3."""
+    coords = np.random.default_rng(0).uniform(0.0, r - 1.001, (3, 512)).astype(np.float32)
+    return [torch.from_numpy(c) for c in coords]
+
+
+def _box_points(lo, hi, seed=1, n=4096):
+    """Points over the box and up to half its size beyond it, with the box's
+    corners, faces and the clamp's top."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    pad = (hi - lo) / 2
+    pts = rng.uniform(lo - pad, hi + pad, (n, 3)).astype(np.float32)
+    pts = np.concatenate([pts, np.stack([lo, hi, (lo + hi) / 2]), np.stack([hi - 1e-6] * 2)])
+    return [torch.from_numpy(np.ascontiguousarray(pts[:, a])) for a in range(3)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [17, 32, 64])
+def test_cell_sampler_equals_the_hat_twin(bf16, r):
+    lo, hi = (-1.0, -1.2, -0.9), (1.1, 1.0, 1.3)
+    table = _table(r, bf16, seed=r)
+    margin = float(np.float32(tg._BF16_MARGIN * float(table.float().abs().max()))) if bf16 else 0.0
+    raw = tg.make_contraction_csdf(table, r, lo, hi, bf16=bf16, margin=margin)
+    cells = tg.make_contraction_csdf(tg.cell_table(table, r), r, lo, hi, bf16=bf16,
+                                     margin=margin, cells=True)
+    points = _box_points(lo, hi)
+    assert torch.equal(cells(*points), raw(*points))
+    # and P1's probe points on the probe's own table and box
+    t3 = torch.arange(r**3, dtype=torch.float32) % 97
+    t3 = t3.to(torch.bfloat16) if bf16 else t3
+    box = ((0.0,) * 3, (r - 1.0,) * 3)
+    raw = tg.make_contraction_csdf(t3, r, *box, bf16=bf16, margin=0.0)
+    cells = tg.make_contraction_csdf(tg.cell_table(t3, r), r, *box, bf16=bf16, margin=0.0,
+                                     cells=True)
+    probe = _probe_points(r)
+    assert torch.equal(cells(*probe), raw(*probe))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cell_sampler_matches_jax(bf16):
+    """Against the JAX package's sampler at its own bars (its XLA dot sums
+    the four exact corners in another order: 2e-6)."""
+    r, lo, hi = 17, (-1.0, -1.2, -0.9), (1.1, 1.0, 1.3)
+    values = np.random.default_rng(2).standard_normal((r, r, r)).astype(np.float32)
+    margin = jg._BF16_MARGIN * float(np.abs(values).max()) if bf16 else 0.0
+    t2 = jg._table2(values)
+    ref = jax.jit(jg.make_contraction_csdf(t2.astype(jnp.bfloat16) if bf16 else t2, r, lo, hi,
+                                           bf16=bf16, margin=margin))
+    table = torch.from_numpy(values.reshape(-1))
+    table = table.to(torch.bfloat16) if bf16 else table
+    got = tg.make_contraction_csdf(tg.cell_table(table, r), r, lo, hi, bf16=bf16,
+                                   margin=float(np.float32(margin)), cells=True)
+    points = _box_points(lo, hi, seed=3)
+    want = np.asarray(ref(*(jnp.asarray(p.numpy())[None] for p in points))).reshape(-1)
+    np.testing.assert_allclose(got(*points).numpy(), want, atol=1e-6 if bf16 else 2e-6)
+
+
+def test_contraction_levels_carry_their_cells():
+    r = 72
+    values = torch.from_numpy(np.random.default_rng(4).standard_normal((r, r, r)).astype(np.float32))
+    levels = tg.make_contraction_levels(SdfGrid(values=values, lo=(-1.0,) * 3, hi=(1.0,) * 3))
+    assert [(s.kind, s.r) for s in levels] == [(tg.HAT_BF16, 32), (tg.HAT_BF16, 64)]
+    for level in levels:
+        assert torch.equal(level.cells, tg.cell_table(level.table, level.r))
+        assert tg.march_table(level) is level.cells
+    # an exact level (R <= 64) too
+    small = SdfGrid(values=values[:40, :40, :40].contiguous(), lo=(-1.0,) * 3, hi=(1.0,) * 3)
+    exact = tg.make_contraction_levels(small)[-1]
+    assert exact.kind == tg.HAT_F32 and torch.equal(exact.cells, tg.cell_table(exact.table, 40))
+    # K8 marches the raw table; a hat sampler without cells gets them made
+    fine = tg.interp_sampler(small)
+    assert tg.march_table(fine) is fine.table
+    assert torch.equal(tg.march_table(exact._replace(cells=None)), exact.cells)
+
+
+def test_sampler_checks_its_cells():
+    table = _table(5, False)
+    good = tg.Sampler(tg.HAT_F32, table, 5, (0.0,) * 3, (1.0,) * 3, cells=tg.cell_table(table, 5))
+    tg._check_sampler(good, table.device)
+    for bad in (good._replace(cells=good.cells[:-8]),
+                good._replace(cells=good.cells.to(torch.bfloat16)),
+                good._replace(kind=tg.INTERP_F32)):
+        with pytest.raises((TypeError, ValueError)):
+            tg._check_sampler(bad, table.device)
+
+
+# ---------------------------------------------------------------------------
+# K9: the tile order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (37, 100), (1, 4099)],
+                         ids=["1920x1080", "100x37", "1-D"])
+def test_tile_order_is_a_permutation(shape):
+    h, w = shape
+    order = tg.tile_order(h, w)
+    assert torch.equal(torch.sort(order).values, torch.arange(h * w))
+
+
+def test_tile_order_walks_k1_warp_patches():
+    order = tg.tile_order(16, 32).reshape(-1, 32)  # one warp a row
+    frame = torch.arange(16 * 32).reshape(16, 32)
+    for warp, (ty, tx, q) in enumerate((ty, tx, q) for ty in range(2) for tx in range(2)
+                                       for q in range(4)):
+        y, x = ty * 8 + (q >> 1) * 4, tx * 16 + (q & 1) * 8
+        assert torch.equal(order[warp], frame[y:y + 4, x:x + 8].reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# K6: the edge lists
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def field_8():
+    """The reference object's field at init_factor 8 after one refinement,
+    from the JAX package, moved to the port."""
+    scene = jax_object()
+    cfg = JaxMeshGenConfig(init_factor=8)
+    field = jax_refine_field(scene.bind(), jax_create_field(cfg), cfg, csdf=compile_scene_csdf(scene))
+    return field_from_numpy(field.to_numpy(), field.voxel_size, field.level, "cpu")
+
+
+def _checker(x, y, z):
+    return torch.sin(np.pi * (x + 0.5)) * torch.sin(np.pi * (y + 0.5)) * torch.sin(np.pi * (z + 0.5))
+
+
+@pytest.mark.parametrize("budget", [2, 6, 12])
+@pytest.mark.parametrize("field", ["reference", "checkerboard"])
+def test_edge_slots_list_the_staged_edges(field_8, budget, field):
+    cfg = MeshGenConfig(init_factor=8, edge_budget=budget)
+    if field == "reference":
+        fns, lowers, vs = sdf_fns(compile_scene(reference_object())), field_8.lowers, field_8.voxel_size
+    else:  # every corner alternates in sign: all 12 edges cross
+        grid = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3, indexing="ij"), dim=-1)
+        fns, lowers, vs = SdfFns(_checker, None), grid.reshape(-1, 3), 1.0
+    v = _classify(fns, lowers, vs, cfg)
+    _, kwargs = kernel_inputs(fns, lowers, vs, cfg)
+    _, _, _, rank, nact = _staged_inputs(v, cfg)
+    cross_bits = (v.crossing.long() << torch.arange(12)).sum(dim=1).int()
+    voxel, edge, r, slot = mc_kernel.edge_slots(cross_bits, kwargs["budget"])
+
+    # the staged path's packed edges: crossing, rank < budget
+    want_v, want_e = (v.crossing & (rank < budget)).nonzero(as_tuple=True)
+    assert torch.equal(voxel, want_v) and torch.equal(edge, want_e)
+    assert torch.equal(r, rank[want_v, want_e])
+    if field == "checkerboard":
+        assert bool((nact == 12).all()) and voxel.numel() == lowers.shape[0] * budget
+
+    # each block's slots: 0 .. its edges - 1, once each, voxel by voxel in
+    # rank order, every voxel's from the scan of min(popc, budget)
+    size = mc_kernel.BLOCK_VOXELS
+    block = voxel // size
+    listed = torch.clamp_max(nact, budget)
+    for b in torch.unique(block):
+        mine = block == b
+        assert torch.equal(slot[mine], torch.arange(int(mine.sum())))
+        first = torch.cumsum(listed[b * size:(b + 1) * size], 0) - listed[b * size:(b + 1) * size]
+        assert torch.equal(slot[mine] - r[mine], first[voxel[mine] - b * size])
+    assert int(slot.max()) < 12 * size
