@@ -21,15 +21,30 @@
 // follow from evaluating the hand-written spatial gradient (param_sdf.cuh)
 // in duals at a point q whose tangents are dq/dtheta.
 //
-// What bounds them on Hopper: FP32 work, SFU work (3 sqrt per SDF) and warp
-// divergence in the march, as in K1; in K5 also the tangent work of each
-// hit, about n_prm + 1 times a value-and-gradient, and the registers it
-// needs. Memory traffic is 28 B in per ray and 16-24 B out (K4), 40-44 B
-// in (K5).
+// What bounds them on Hopper: instruction issue and the latency of each
+// step's dependent chain (3 IEEE square roots and, near the blend of the
+// smooth minimum, an IEEE division), warp divergence in the march, as in
+// K1, and the occupancy that the registers allow; in K5 also the tangent
+// work of each hit, about n_prm + 1 times a value-and-gradient, and the
+// registers it needs. Memory traffic is 28 B in per ray and 16-24 B out
+// (K4), 40-44 B in (K5). A K4 step issues about as many instructions as
+// K1's; at 1080p the march, dfdt and the cull of every ray took 0.35 ms to
+// K1's 0.19 at 79 registers, 24 warps an SM. With the design below K4
+// takes 0.28 ms there, about half of it what a step limit of 1 leaves: the
+// cull, the first step, dfdt and the planes of every ray (PERF.md).
 //
 // What the design does about it: K1's layout (warps on 8x4 pixel patches
 // that finish in similar step counts, the scene as a by-value kernel
-// parameter). K5 runs in three to five launches. The first marches every
+// parameter). The march reads the scene in its march form (param_sdf.cuh::
+// MarchScene): what every step used to derive from the parameters (the
+// rotation's frame, the skeleton's and the wireframe's boxes, the
+// perpendicular sizes) is computed once before the loop, the translation
+// is subtracted without a select, and the closest-approach record is a
+// template argument. A zero dividend of the smooth minimum's division,
+// which the division's range check sends down its slow path, gives its
+// signed zero without it. dfdt is one forward pass in Dual<1>, at 55
+// registers where the reverse-mode gradient held 79. K5 runs in three to
+// five launches. The first marches every
 // ray in plain float at K4's register budget, adds the loss of each ray
 // that has no tangent (a miss without a hinge) to its block's sum, and
 // lists the others (the hits and the hinge rays) per block of 16x8
@@ -49,8 +64,8 @@
 // Numerics: built with -fmad=false and without fast math, like K1. The
 // march evaluates the scene in the twin's operation order, so K4's depth,
 // steps, outcome, min_m and t_min equal the twin's bit for bit; dfdt comes
-// from the hand-written gradient and the twin's from autograd, which sum in
-// other orders. Each tangent runs the operations the one-lane form ran on
+// from forward mode and the twin's from autograd, which sum in other
+// orders. Each tangent runs the operations the one-lane form ran on
 // it; only the order of the final sums differs. The twins are
 // march_params_torch and render_loss_grad_torch in
 // bsdmg_tpu_torch/ops/cuda/diff_kernel.py.
@@ -63,11 +78,11 @@
 #define BSDMG_UNTRACKED 1e9f
 
 // the stopped march of one ray (render_kernel.py::_march, omega = 1, with
-// track_min); the parameters are plain floats
-__device__ __forceinline__ void march(const ParamScene& s, const ObjectParams<float>& p,
-                                      const float o[3], const float d[3], float c, bool track,
-                                      float& depth, int& steps, int& outcome, float& min_m,
-                                      float& t_min) {
+// the closest-approach record when Track); the scene in its march form
+template <bool Track>
+__device__ __forceinline__ void march(const ParamScene& s, const MarchScene& ms, const float o[3],
+                                      const float d[3], float c, float& depth, int& steps,
+                                      int& outcome, float& min_m, float& t_min) {
   const float eps = s.collision_distance;
   depth = 0.0f;
   steps = 0;
@@ -83,8 +98,8 @@ __device__ __forceinline__ void march(const ParamScene& s, const ObjectParams<fl
   for (;;) {
     const float cd = c * depth;
     const float x[3] = {o[0] + depth * d[0], o[1] + depth * d[1], o[2] + depth * d[2]};
-    const float dist = scene_value(s, p, x);
-    if (track) {
+    const float dist = march_value(ms, x);
+    if (Track) {
       const float m = dist - cd;
       if (m < min_m) {
         min_m = m;
@@ -104,13 +119,20 @@ __device__ __forceinline__ void march(const ParamScene& s, const ObjectParams<fl
   }
 }
 
-// the SDF's derivative along d at o + t d, parameters stopped
+// the SDF's derivative along d at o + t d, parameters stopped: one forward
+// pass in Dual<1> whose point carries the tangent d, as the JAX kernel's
+// jax.jvp (diff_kernel.py:113-118). With it both march launches hold 54-56
+// registers; the gradient by reverse mode and a dot with d held 79-80 and
+// set their occupancy (PERF.md).
 __device__ __forceinline__ float ray_derivative(const ParamScene& s, const ObjectParams<float>& p,
                                                 const float o[3], const float d[3], float t) {
-  const float x[3] = {o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]};
-  float g[3];
-  scene_value_grad(s, p, x, g);
-  return (g[0] * d[0] + g[1] * d[1]) + g[2] * d[2];
+  Dual<1> x[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    x[a].v = o[a] + t * d[a];
+    x[a].t[0] = d[a];
+  }
+  return scene_value(s, p, x).t[0];
 }
 
 // the pixel of thread threadIdx.x: a block covers 16x8 pixels, each of its 4
@@ -122,6 +144,7 @@ __device__ __forceinline__ void pixel_of_thread(int& px, int& py) {
   py = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
 }
 
+template <bool Track>
 __global__ void __launch_bounds__(128)
 march_params_kernel(const ParamScene s, const float* __restrict__ origins,
                     const float* __restrict__ directions, const float* __restrict__ cone,
@@ -135,15 +158,14 @@ march_params_kernel(const ParamScene s, const float* __restrict__ origins,
   const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
   const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
   const float c = cone[i];
-  const ObjectParams<float> p = load_params<float>(s);
   float depth, min_m, t_min;
   int steps, outcome;
-  march(s, p, o, d, c, min_m_out != nullptr, depth, steps, outcome, min_m, t_min);
+  march<Track>(s, march_scene(s), o, d, c, depth, steps, outcome, min_m, t_min);
   depth_out[i] = depth;
   steps_out[i] = steps;
   outcome_out[i] = outcome;
-  dfdt_out[i] = ray_derivative(s, p, o, d, depth);
-  if (min_m_out != nullptr) {
+  dfdt_out[i] = ray_derivative(s, load_params<float>(s), o, d, depth);
+  if (Track) {
     min_m_out[i] = min_m;
     t_min_out[i] = t_min;
   }
@@ -276,8 +298,11 @@ loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
     const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
     const bool edge = t_state != nullptr;
     int steps;
-    march(s, load_params<float>(s), o, d, cone[i], edge, e.t0, steps, e.outcome, e.min_m,
-          e.t_min);
+    if (edge) {
+      march<true>(s, march_scene(s), o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
+    } else {
+      march<false>(s, march_scene(s), o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
+    }
     e.pixel = static_cast<int>(i);
     const bool collided = e.outcome == COLLISION;
     if (collided) e.denom = ift_denom(s, o, d, cone[i], e.t0);
@@ -498,8 +523,14 @@ int bsdmg_march_params(const ParamScene* scene, const float* origins, const floa
                        const float* cone, float* depth, int* steps, int* outcome, float* dfdt,
                        float* min_m, float* t_min, int h, int w, void* stream) {
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
-  march_params_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      *scene, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, h, w);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (min_m != nullptr) {
+    march_params_kernel<true><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
+                                                     steps, outcome, dfdt, min_m, t_min, h, w);
+  } else {
+    march_params_kernel<false><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
+                                                      steps, outcome, dfdt, min_m, t_min, h, w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,9 +5,9 @@
 // - K8, bsdmg_tpu/ops/pallas/grid_kernel.py::_grid_trace_kernel (the
 //   pallas_call at grid_kernel.py:143 of grid_trace_pallas): a march from
 //   depth 0 over a grid SDF sampled by eight gathers. Here
-//   grid_march_kernel<InterpF32>, which also runs the fine finish of the
-//   contraction route, resumed, where the JAX package marches XLA gathers
-//   (grid_kernel.py:496-558).
+//   grid_march_kernel<Resumed>, which also runs the fine finish of
+//   the contraction route, resumed, where the JAX package marches XLA
+//   gathers (grid_kernel.py:496-558).
 // - K9, grid_kernel.py::_contraction_kernel (the pallas_call at :368 of
 //   grid_trace_contraction_pallas): one resumable level of the contraction
 //   ladder, sampled by hat weights against an exact or a bf16 table. Here
@@ -23,27 +23,38 @@
 // depth0 and steps0, always takes its first iteration, and stops at a hit,
 // past the depth limit or when its steps reach min(budget, step_limit).
 //
-// What bounds it on Hopper: instruction issue. A march step was 159 SASS
-// instructions (83 counted FP32 operations for a hat sample, 59 for
-// InterpF32, 9 more for the step) around eight dependent table reads; at
-// the 32^3 level K9 issued 72% of what the SM can (PERF.md). A warp runs
-// as long as its slowest ray. Ray traffic is small: a marched ray reads
-// 28 B (40 B when resumed) and writes 12 B; a ray that is not active reads
-// 16 B and writes 12 B.
+// What bounds them on Hopper: instruction issue. A march step is 100-160
+// SASS instructions (83 counted FP32 operations for a hat sample, 59 for
+// the trilinear one, 9 more for the step) around the table's reads; at the
+// 32^3 level K9 issued 72% of what the SM can (PERF.md). A warp runs as
+// long as its slowest ray. K8's finish marches 21% of the frame's rays; a
+// thread and 28 B for each of the others would be 46 MB of the 77 MB a
+// launch over every ray moves.
 //
-// What the design does about it. K9's threads take the frame's rays in
-// 16x8 tiles of 8x4 warp patches (K1's order), so a warp's rays are
-// neighbours and end their marches together more often than a row of 32.
-// Each level is read from a cell-packed copy (ops/cuda/grid_kernel.py::
-// cell_table; 477 KB at 32^3 and 4 MB at 64^3 in bf16, which L2 holds):
-// one 16-byte load a sample in bf16, two in float32, in place of eight
-// dependent gathers and their address arithmetic; with the sampler's two
-// trims (grid_sdf.cuh: no max on the hat weights, no square root inside
-// the box) a bf16 step is 134 instructions. A 32^3 bf16 level read from
-// shared memory instead, by persistent blocks that copied it once, was
-// slower (PERF.md): 149 instructions a step, and fewer threads an SM. K8
-// and P1 keep one thread per ray or point in flat order over the raw
-// table.
+// What the design does about it. Both take the frame's rays in 16x8 tiles
+// of 8x4 warp patches (K1's order), a block of 128 threads a tile, so a
+// warp's rays are neighbours and end their marches together more often
+// than a row of 32. K9 reads each level from a cell-packed copy
+// (ops/cuda/grid_kernel.py::cell_table; 477 KB at 32^3 and 4 MB at 64^3 in
+// bf16, which L2 holds): one 16-byte load a sample in bf16, two in
+// float32, in place of eight dependent gathers and their address
+// arithmetic; with the sampler's two trims (grid_sdf.cuh: no max on the hat
+// weights, no square root inside the box) a bf16 step is 134 instructions.
+// A 32^3 level read from shared memory was slower (PERF.md). K8 resumed
+// lists each tile's active rays in shared memory in thread order (a ballot
+// a warp and the warps' counts; no atomics, no capacity, no extra launch)
+// and marches them on threads 0 .. count - 1, so a tile with 27 active rays
+// runs one warp, not four; a ray that is not active costs its flag, and
+// the route's finish writes into its own state planes. Its sampler
+// (InterpGather) reads the raw table's eight corners at fixed offsets from
+// one address, without InterpF32's min(x0 + 1, r - 1): fewer instructions
+// a step, which decide here. A cell-packed float32 copy (two 16-byte loads
+// a sample) saved a tenth of the finish but cost more to build, once per
+// grid, than it saved on a frame, and was removed (PERF.md). What bounds
+// K8's finish now: a warp runs as long as its tile's longest ray
+// (compaction packs the rays into fewer warps but keeps that ray), so it
+// issues about a third of the SM's rate at 8 times its bound (PERF.md). P1
+// keeps one thread per point over the raw table.
 //
 // Numerics: -fmad=false, no fast math, and the plain twins' order
 // (bsdmg_tpu_torch/ops/cuda/grid_kernel.py): depth, steps, outcome and the
@@ -60,9 +71,31 @@ struct GridMarch {
   int step_cap;  // min(budget, step_limit)
 };
 
-// The march of ray i. origins and directions are (n, 3), cone (n,). With
+// The march of ray i from depth and steps (0, 0 when fresh): returns the
+// outcome and leaves the end depth and steps in `depth` and `steps`.
+template <class Sampler>
+__device__ __forceinline__ int march_steps(const Sampler& s, const GridMarch& m,
+                                           const float* __restrict__ origins,
+                                           const float* __restrict__ directions,
+                                           const float* __restrict__ cone, int i, float& depth,
+                                           int& steps) {
+  const float ox = origins[3 * i], oy = origins[3 * i + 1], oz = origins[3 * i + 2];
+  const float dx = directions[3 * i], dy = directions[3 * i + 1], dz = directions[3 * i + 2];
+  const float c = cone[i];
+  for (;;) {
+    const float cd = c * depth;
+    const float dist = s(ox + depth * dx, oy + depth * dy, oz + depth * dz);
+    if (dist <= cd + m.collision_distance) return COLLISION;
+    depth = (depth + dist) - cd;
+    if (depth > m.depth_limit) return DEPTH_LIMIT;
+    if (++steps >= m.step_cap) return STEP_LIMIT;
+  }
+}
+
+// K9's march of ray i. origins and directions are (n, 3), cone (n,). With
 // active == nullptr the ray starts fresh (depth 0, steps 0); otherwise
-// active, depth0, steps0 and outcome0 are the previous level's (n,) planes.
+// active, depth0, steps0 and outcome0 are the previous level's (n,) planes,
+// and a ray that is not active copies its three into the outputs.
 template <class Sampler>
 __device__ __forceinline__ void march_ray(const Sampler& s, const GridMarch& m,
                                           const float* __restrict__ origins,
@@ -86,24 +119,7 @@ __device__ __forceinline__ void march_ray(const Sampler& s, const GridMarch& m,
       return;
     }
   }
-  const float ox = origins[3 * i], oy = origins[3 * i + 1], oz = origins[3 * i + 2];
-  const float dx = directions[3 * i], dy = directions[3 * i + 1], dz = directions[3 * i + 2];
-  const float c = cone[i];
-  int outcome = STEP_LIMIT;
-  for (;;) {
-    const float cd = c * depth;
-    const float dist = s(ox + depth * dx, oy + depth * dy, oz + depth * dz);
-    if (dist <= cd + m.collision_distance) {
-      outcome = COLLISION;
-      break;
-    }
-    depth = (depth + dist) - cd;
-    if (depth > m.depth_limit) {
-      outcome = DEPTH_LIMIT;
-      break;
-    }
-    if (++steps >= m.step_cap) break;
-  }
+  const int outcome = march_steps(s, m, origins, directions, cone, i, depth, steps);
   depth_out[i] = depth;
   steps_out[i] = steps;
   outcome_out[i] = outcome;
@@ -118,15 +134,6 @@ __device__ __forceinline__ void march_ray(const Sampler& s, const GridMarch& m,
 #define MARCH_ARGS                                                                            \
   origins, directions, cone, active, depth0, steps0, outcome0, depth_out, steps_out, outcome_out
 
-// K8: one thread per ray, in flat order.
-template <class Sampler>
-__global__ void __launch_bounds__(128)
-grid_march_kernel(const Sampler s, const GridMarch m, MARCH_PLANES, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  march_ray(s, m, MARCH_ARGS, i);
-}
-
 // The ray of lane `lane` of warp patch p over a frame of h rows of w rays:
 // the frame in 16x8 tiles, row by row, each tile in four 8x4 patches (K1's
 // blocks and warps, render_kernel.cu::block_pixel); -1 past the frame.
@@ -136,6 +143,53 @@ __device__ __forceinline__ int tile_ray(int p, int lane, int w, int h) {
   const int px = (tile % tiles_x) * 16 + (q & 1) * 8 + (lane & 7);
   const int py = (tile / tiles_x) * 8 + (q >> 1) * 4 + (lane >> 3);
   return px < w && py < h ? py * w + px : -1;
+}
+
+// K8: a block of 128 threads per 16x8 tile. Fresh, thread t marches the
+// tile's ray t from depth 0. Resumed, the block lists the tile's active rays
+// in shared memory in thread order (a ballot a warp, then the warps' counts
+// in order; no atomics), threads 0 .. count - 1 march them from depth0 and
+// steps0, and only the listed rays are read or written beyond their flags:
+// a ray that is not active keeps whatever its output planes hold. The route
+// passes its own state planes as the outputs (depth_out == depth0, steps_out
+// == steps0), so those four pointers are not __restrict__; each listed ray
+// reads its depth and steps before it writes them, in the same thread.
+template <bool Resumed>
+__global__ void __launch_bounds__(128)
+grid_march_kernel(const InterpGather s, const GridMarch m, const float* __restrict__ origins,
+                  const float* __restrict__ directions, const float* __restrict__ cone,
+                  const int* __restrict__ active, const float* depth0, const int* steps0,
+                  float* depth_out, int* steps_out, int* __restrict__ outcome_out, int w, int h) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int i = tile_ray(blockIdx.x * 4 + warp, lane, w, h);
+  float depth = 0.0f;
+  int steps = 0;
+  if (Resumed) {
+    __shared__ int listed[128];
+    __shared__ int warp_counts[4];
+    const bool marched = i >= 0 && active[i] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, marched);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    __syncthreads();
+    int slot = __popc(ballot & ((1u << lane) - 1u)), count = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < warp) slot += warp_counts[k];
+      count += warp_counts[k];
+    }
+    if (marched) listed[slot] = i;
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) >= count) return;
+    i = listed[threadIdx.x];
+    depth = depth0[i];
+    steps = steps0[i];
+  } else if (i < 0) {
+    return;
+  }
+  const int outcome = march_steps(s, m, origins, directions, cone, i, depth, steps);
+  depth_out[i] = depth;
+  steps_out[i] = steps;
+  outcome_out[i] = outcome;
 }
 
 // K9 on a cell-packed table: a block of 128 threads per 16x8 tile.
@@ -169,13 +223,14 @@ static int launch_sample(const Sampler& s, const float* x, const float* y, const
 extern "C" {
 
 // Launches K8 (kind SAMPLER_INTERP_F32: table is the grid's (r^3,)
-// float32 values, C order; one thread per ray in flat order) or K9
-// (SAMPLER_HAT_F32 or SAMPLER_HAT_BF16: table is the level's cell-packed
-// copy; the rays in 16x8 tiles of a frame w rays wide) on `stream` over n
-// rays. active, depth0, steps0 and outcome0 are all null (a fresh march) or
-// all (n,) planes on the device. Returns the cudaError_t of the launch, or
-// cudaErrorInvalidValue for an unknown kind or a frame width that does not
-// divide n.
+// float32 values, C order) or K9 (SAMPLER_HAT_F32 or SAMPLER_HAT_BF16: table is the level's cell-packed
+// copy) on `stream` over n rays, taken in 16x8 tiles of a frame w rays
+// wide. active, depth0, steps0 and outcome0 are all null (a fresh march) or
+// all (n,) planes on the device. Resumed, K9 writes every ray's outputs
+// (a ray that is not active copies its state) and K8 only the active rays':
+// its outputs may be depth0 and steps0 themselves. Returns the cudaError_t
+// of the launch, or cudaErrorInvalidValue for an unknown kind or a frame
+// width that does not divide n.
 int bsdmg_grid_march(int kind, const GridBox* box, const void* table, float margin,
                      const GridMarch* march, const float* origins, const float* directions,
                      const float* cone, const int* active, const float* depth0, const int* steps0,
@@ -183,15 +238,21 @@ int bsdmg_grid_march(int kind, const GridBox* box, const void* table, float marg
                      int n, int w, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GridMarch& m = *march;
-  if (kind == SAMPLER_INTERP_F32) {
-    const InterpF32 s{static_cast<const float*>(table), *box};
-    grid_march_kernel<InterpF32><<<(n + 127) / 128, 128, 0, st>>>(s, m, MARCH_ARGS, n);
-    return static_cast<int>(cudaGetLastError());
-  }
   if (w <= 0 || n % w != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int h = n / w;
   const int tiles = ((w + 15) / 16) * ((h + 7) / 8);
-  if (kind == SAMPLER_HAT_BF16) {
+  if (kind == SAMPLER_INTERP_F32) {
+    const InterpGather s{static_cast<const float*>(table), *box};
+    if (active != nullptr) {
+      grid_march_kernel<true><<<tiles, 128, 0, st>>>(s, m, origins, directions, cone, active,
+                                                      depth0, steps0, depth_out, steps_out,
+                                                      outcome_out, w, h);
+    } else {
+      grid_march_kernel<false><<<tiles, 128, 0, st>>>(s, m, origins, directions, cone, nullptr,
+                                                       nullptr, nullptr, depth_out, steps_out,
+                                                       outcome_out, w, h);
+    }
+  } else if (kind == SAMPLER_HAT_BF16) {
     const HatCells<__nv_bfloat16> s{static_cast<const uint4*>(table), *box, margin};
     contraction_kernel<<<tiles, 128, 0, st>>>(s, m, MARCH_ARGS, w, h);
   } else if (kind == SAMPLER_HAT_F32) {

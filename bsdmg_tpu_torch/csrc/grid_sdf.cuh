@@ -5,7 +5,8 @@
 // - InterpF32 is bsdmg_tpu/models/mesh_sdf.py::make_grid_interp_csdf, the
 //   sampler of K8 (grid_kernel.py::_grid_trace_kernel) and of the XLA fine
 //   finish and fd4 normals: eight corner gathers, lerps in that function's
-//   order.
+//   order. P1 samples with it; K8 with InterpGather, the same arithmetic
+//   with the eight reads at fixed offsets from one address.
 // - hat_sample is grid_kernel.py::make_contraction_csdf, the sampler of K9
 //   (_contraction_kernel) with an exact or a bf16 table: the hat weights
 //   max(0, 1 - |c - a|) of the two corners a = floor(c), floor(c) + 1 of
@@ -81,6 +82,38 @@ struct InterpF32 {
     const float c10 = at(x0, y1, z0) * gx + at(x1, y1, z0) * fx;
     const float c01 = at(x0, y0, z1) * gx + at(x1, y0, z1) * fx;
     const float c11 = at(x0, y1, z1) * gx + at(x1, y1, z1) * fx;
+    const float c0 = c00 + (c10 - c00) * fy;
+    const float c1 = c01 + (c11 - c01) * fy;
+    const float interior = c0 + (c1 - c0) * fz;
+    return outside_step(b, x, y, z, interior);
+  }
+};
+
+// K8's sampler: InterpF32's arithmetic in its order, the eight corners of
+// the cell (x0, y0, z0) read at fixed offsets from one base address. The
+// clamp to clip_hi keeps x0 <= r - 2 wherever clip_hi rounds below r - 1,
+// that is for R <= 2049 (past the R <= 1290 that both samplers' 32-bit
+// indices reach), which the wrapper checks (ops/cuda/grid_kernel.py::
+// march_table), so InterpF32's min(x0 + 1, r - 1) is x0 + 1 and is not
+// taken; floorf(c) is exact, so c - floorf(c) is InterpF32's c - float(x0).
+struct InterpGather {
+  const float* __restrict__ table;
+  GridBox b;
+
+  __device__ __forceinline__ float operator()(float x, float y, float z) const {
+    const float cx = grid_coord(x, b.lo[0], b.scale[0], b.clip_hi);
+    const float cy = grid_coord(y, b.lo[1], b.scale[1], b.clip_hi);
+    const float cz = grid_coord(z, b.lo[2], b.scale[2], b.clip_hi);
+    const float ax = floorf(cx), ay = floorf(cy), az = floorf(cz);
+    const float fx = cx - ax, fy = cy - ay, fz = cz - az;
+    const int r = b.r, rr = b.r * b.r;
+    const float* p =
+        table + (static_cast<int>(ax) * r + static_cast<int>(ay)) * r + static_cast<int>(az);
+    const float gx = 1.0f - fx;
+    const float c00 = __ldg(p) * gx + __ldg(p + rr) * fx;
+    const float c10 = __ldg(p + r) * gx + __ldg(p + rr + r) * fx;
+    const float c01 = __ldg(p + 1) * gx + __ldg(p + rr + 1) * fx;
+    const float c11 = __ldg(p + r + 1) * gx + __ldg(p + rr + r + 1) * fx;
     const float c0 = c00 + (c10 - c00) * fy;
     const float c1 = c01 + (c11 - c01) * fy;
     const float interior = c0 + (c1 - c0) * fz;

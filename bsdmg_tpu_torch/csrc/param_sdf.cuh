@@ -14,14 +14,16 @@
 // bsdmg_tpu_torch/models/scenes.py.
 //
 // Everything is a template over the scalar T of the point and the values,
-// and over the parameters' types: float for the march and for K4's
-// directional derivative, Dual<N> (dual.cuh) in K5, where a lane seeds the
-// parameters whose tangents it carries with their unit tangents and holds
-// the others as floats. scene_value is the SDF; scene_value_grad is its
-// spatial gradient, written as a reverse pass by hand (as scene_sdf_grad
-// is) with JAX's tie rules. Evaluated in Dual<N>, the gradient's tangents
-// are the total derivatives d(grad_x f(q(theta), theta))/d theta that K5's
-// shading normal needs.
+// and over the parameters' types: Dual<1> at a point whose tangent is the
+// ray's direction for K4's directional derivative and K5's IFT
+// denominator, Dual<N> (dual.cuh) in K5's tangent launches, where a lane
+// seeds the parameters whose tangents it carries with their unit tangents
+// and holds the others as floats. The march evaluates the scene in float32
+// through its march form (MarchScene, below). scene_value is the SDF;
+// scene_value_grad is its spatial gradient, written as a reverse pass by
+// hand (as scene_sdf_grad is) with JAX's tie rules. Evaluated in Dual<N>,
+// the gradient's tangents are the total derivatives
+// d(grad_x f(q(theta), theta))/d theta that K5's shading normal needs.
 
 #pragma once
 
@@ -72,10 +74,11 @@ struct ParamScene {
 };
 
 // The scene's optional parts: AnyParts reads them from the ParamScene at
-// run time (K4 and K5's march, where they cost little and fixing them
-// raised the registers and the time); Parts<Frame, Transform> fixes them at
-// compile time (K5's tangent launches), Transform then reading which of the
-// transform's parameters are there.
+// run time (K4's dfdt, K5's IFT denominator and the march form below, where
+// they cost little and fixing them raised the registers and the time);
+// Parts<Frame, Transform> fixes them at compile time (K5's tangent
+// launches), Transform then reading which of the transform's parameters
+// are there.
 struct AnyParts {
   static __device__ __forceinline__ bool frame(const ParamScene& s) { return s.has_frame != 0; }
   static __device__ __forceinline__ bool translation(const ParamScene& s) {
@@ -325,6 +328,113 @@ __device__ __forceinline__ T scene_value(const ParamScene& s, const ObjectParams
                                          const T x[3]) {
   SceneFwd<T, S, Ro> f;
   return scene_fwd<Opt>(s, p, x, f);
+}
+
+// ---------------------------------------------------------------------------
+// the march's form of the scene (K4 and K5's march launch), in float32
+// ---------------------------------------------------------------------------
+
+// What every step of the march reads and no step changes: the parameters
+// and what object_fwd and frame_fwd derive from them on every call (the
+// rotation's frame, the skeleton's low corner, the perpendicular sizes that
+// reference_compat picks, the wireframe's box), computed once before the
+// loop in the same float32 operations, so each keeps its bits. The
+// translation is 0 where the object has none: x - 0 is x, bit for bit.
+// The march keeps this form of its own: object_fwd split into these
+// invariants and a per-point part, with the same zero-dividend branch,
+// gave a loop of the same length but K4 up to 8% and K5 up to 5% slower,
+// and moved the registers of K5's tangent launches (PERF.md).
+struct MarchScene {
+  float translation[3];
+  bool rotate;
+  Frame<float> rot;
+  float lo[3], size[3], perp[3];  // the skeleton's box; perp[d] = perp_size(size, d, compat)
+  float line_width, radius, k;
+  float k_sign;  // 1 or -1 for a k of that sign, 0 for a k that is 0 or NaN
+  bool frame;
+  float frame_lo, frame_size, frame_line_width;  // the wireframe's box is a cube
+};
+
+__device__ __forceinline__ MarchScene march_scene(const ParamScene& s) {
+  const ObjectParams<float> p = load_params<float>(s);
+  MarchScene m;
+  const bool translate = AnyParts::translation(s);
+  m.rotate = AnyParts::rotation(s);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    m.translation[a] = translate ? p.translation[a] : 0.0f;
+    m.size[a] = p.size[a];
+    m.lo[a] = p.center[a] - p.size[a] / 2.0f;
+  }
+  if (m.rotate) m.rot = rotation(p.rotation);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) m.perp[d] = perp_size(p.size, d, s.reference_compat);
+  m.line_width = p.line_width;
+  m.radius = p.radius;
+  m.k = p.k;
+  m.k_sign = p.k > 0.0f ? 1.0f : (p.k < 0.0f ? -1.0f : 0.0f);
+  m.frame = AnyParts::frame(s);
+  float flo[3], fsize[3];
+  frame_box(s, flo, fsize);
+  m.frame_lo = flo[0];
+  m.frame_size = fsize[0];
+  m.frame_line_width = s.frame_line_width;
+  return m;
+}
+
+// skeleton_fwd's value from per-axis boxes, perp[d] the perpendicular size
+// of axis d
+__device__ __forceinline__ float skeleton_value(const float c[3], const float lo[3],
+                                                const float size[3], const float perp[3],
+                                                float line_width) {
+  float best = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int a1 = (d + 1) % 3, a2 = (d + 2) % 3;
+    const float r = c[d] - lo[d];
+    const float t = fminf(fmaxf(r, 0.0f), size[d]);
+    const float e = r - t;
+    const float o1 = c[a1] - lo[a1];
+    const float o1b = o1 - perp[d];
+    const float o2 = c[a2] - lo[a2];
+    const float o2b = o2 - size[a2];
+    const float d2 = (e * e + fminf(o1 * o1, o1b * o1b)) + fminf(o2 * o2, o2b * o2b);
+    best = d == 0 ? d2 : fminf(best, d2);
+  }
+  return sqrtf(best) - line_width;
+}
+
+// scene_value in float32 from the march's form: object_fwd, then the union
+// with the wireframe, operation for operation
+__device__ __forceinline__ float march_value(const MarchScene& m, const float x[3]) {
+  float o[3];
+  const float v[3] = {x[0] - m.translation[0], x[1] - m.translation[1], x[2] - m.translation[2]};
+  if (m.rotate) {
+    o[0] = (m.rot.m[0] * v[0] + m.rot.m[3] * v[1]) + m.rot.m[6] * v[2];
+    o[1] = (m.rot.m[1] * v[0] + m.rot.m[4] * v[1]) + m.rot.m[7] * v[2];
+    o[2] = (m.rot.m[2] * v[0] + m.rot.m[5] * v[1]) + m.rot.m[8] * v[2];
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) o[a] = v[a];
+  }
+  const float skel = skeleton_value(o, m.lo, m.size, m.perp, m.line_width);
+  const float sph = sqrtf((o[0] * o[0] + o[1] * o[1]) + o[2] * o[2]) - m.radius;
+  // smooth_min's h = max(k - |skel - sph|, 0) / k. Away from the blend the
+  // dividend is a zero, and the quotient the zero of the product of the two
+  // signs: it is taken as that, since the division's range check sends a
+  // zero dividend down its slow path
+  const float num = fmaxf(m.k - fabsf(skel - sph), 0.0f);
+  float h;
+  if (num == 0.0f && m.k_sign != 0.0f) {
+    h = num * m.k_sign;
+  } else {
+    h = num / m.k;
+  }
+  const float obj = fminf(skel, sph) - ((h * h) * h * m.k) * static_cast<float>(1.0 / 6.0);
+  if (!m.frame) return obj;
+  const float flo[3] = {m.frame_lo, m.frame_lo, m.frame_lo};
+  const float fsize[3] = {m.frame_size, m.frame_size, m.frame_size};
+  return fminf(obj, skeleton_value(x, flo, fsize, fsize, m.frame_line_width));
 }
 
 // the parameters' values

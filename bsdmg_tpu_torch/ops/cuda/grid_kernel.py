@@ -22,15 +22,17 @@ The routes are the JAX package's: ``render_image_grid(mode="contraction")``
 R <= 64 or a 64^3 bf16 mip and the fine finish; ``mode="gather"`` marches
 the whole table when R <= 64 and R^3 % 128 == 0, else a 64^3 mip and the
 fine finish. Ray data is flat, one element per pixel: the TPU's (M, 128)
-swizzle and (m4, 512) regrouping are layout and are not carried over. K9
-takes the rays in 16x8 tiles of the frame (:func:`tile_order`; the last
-axis of ``cone`` is a row), writes each at its flat index, and reads a
+swizzle and (m4, 512) regrouping are layout and are not carried over. K8
+and K9 take the rays in 16x8 tiles of the frame (:func:`tile_order`; the
+last axis of ``cone`` is a row) and write each at its flat index; resumed,
+K8 marches each tile's active rays only (:func:`tile_lists`). K9 reads a
 level from its :func:`cell_table`, which :func:`make_contraction_levels`
 builds once. Two differences are deliberate: the fine finish is one
-resumed launch over every ray, where the JAX package compacts the resumed
-rays into three rounds of shrinking cap (their results are the same
-wherever that cap does not overflow); and there is no backend probe, since
-on the card the kernels always run.
+resumed launch, in place on the route's state (:func:`grid_march_into`),
+where the JAX package compacts the resumed rays into three rounds of
+shrinking cap (their results are the same wherever that cap does not
+overflow); and there is no backend probe, since on the card the kernels
+always run.
 """
 
 from __future__ import annotations
@@ -185,6 +187,18 @@ def tile_order(height: int, width: int) -> torch.Tensor:
     return (py * width + px)[inside]
 
 
+def tile_lists(active, height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rays a resumed K8 launch marches, in the order its threads take
+    them (``csrc/grid_kernel.cu::grid_march_kernel``): each 16x8 tile's
+    active rays in :func:`tile_order`'s thread order, listed from thread 0
+    of the tile's block up. Returns the flat ray indices, tile by tile, and
+    each tile's count."""
+    order = tile_order(height, width).to(active.device)
+    listed = order[active.reshape(-1)[order] != 0]
+    tiles = (listed // width // 8) * (-(-width // 16)) + (listed % width) // 16
+    return listed, torch.bincount(tiles, minlength=-(-height // 8) * -(-width // 16))
+
+
 def sampler_csdf(s: Sampler):
     """The plain PyTorch version of a kernel's sampler."""
     if s.kind == INTERP_F32:
@@ -331,6 +345,9 @@ def march_table(s: Sampler) -> torch.Tensor:
     """The table a grid march launch reads: K8 the raw table, K9 the
     level's cells (made here when the sampler has none)."""
     if s.kind == INTERP_F32:
+        # K8 takes x0 + 1 <= R - 1 from the clamp (csrc/grid_sdf.cuh::InterpGather)
+        if not box_f32(s.r, s.lo, s.hi)[3] < s.r - 1:
+            raise ValueError(f"R = {s.r}: the clamp R - 1 - 1e-4 rounds to R - 1 in float32")
         return s.table
     table = cell_table(s.table, s.r) if s.cells is None else s.cells
     if table.data_ptr() % 16:
@@ -377,7 +394,9 @@ def _march_cuda(sampler: Sampler, box, march, origins, directions, cone, state, 
     """K8 or K9 from prepared ``GridBox``/``GridMarch`` structs into the flat
     ``(depth, steps, outcome)`` planes ``out``; ``state`` is ``()`` (a fresh
     march) or the flat ``(active, depth0, steps0, outcome0)`` planes. The
-    frame is ``cone``'s shape: its last axis is a row."""
+    frame is ``cone``'s shape: its last axis is a row. Resumed, K8 writes
+    only the active rays' outputs, so ``out`` may be ``(depth0, steps0,
+    outcome0)`` themselves (:func:`grid_march_into`); K9 writes every ray's."""
     lib = library()
     table = march_table(sampler)
     ptrs = [t.data_ptr() for t in state] if state else [None] * 4
@@ -403,14 +422,49 @@ def grid_march_cuda(sampler: Sampler, origins, directions, cone,
     n = _check_rays(origins, directions, cone, active, depth0, steps0, outcome0)
     _check_sampler(sampler, cone.device)
     device = cone.device
-    out = (torch.empty(n, dtype=torch.float32, device=device),
-           torch.empty(n, dtype=torch.int32, device=device),
-           torch.empty(n, dtype=torch.int32, device=device))
+    if active is not None and sampler.kind == INTERP_F32:
+        # K8 writes only the active rays: the others keep copies of their state
+        out = tuple(t.reshape(-1).clone() for t in (depth0, steps0, outcome0))
+    else:
+        out = (torch.empty(n, dtype=torch.float32, device=device),
+               torch.empty(n, dtype=torch.int32, device=device),
+               torch.empty(n, dtype=torch.int32, device=device))
     if n:
         state = () if active is None else (active, depth0, steps0, outcome0)
         _march_cuda(sampler, grid_box_c(sampler), grid_march_c(config, budget), origins,
                     directions, cone, state, out)
     return out
+
+
+def grid_march_into(sampler: Sampler, origins, directions, cone,
+                    config: MarchConfig = MarchConfig(), *, active, depth, steps, outcome,
+                    budget: int | None = None) -> None:
+    """The resumed march of an :data:`INTERP_F32` sampler (K8) in place: the
+    active rays (``active``, int32) march from ``depth``/``steps`` and their
+    depth, steps and outcome are written back into those planes; the other
+    rays' are neither read nor written. The planes are flat or shaped like
+    ``cone`` and belong to the caller, as a route's state does. CUDA tensors
+    go through K8, CPU tensors through :func:`grid_march_torch`."""
+    if sampler.kind != INTERP_F32:
+        raise ValueError("only K8 (an INTERP_F32 sampler) marches in place")
+    if config.relaxation != 1.0:
+        raise NotImplementedError(
+            f"the grid march steps exactly (relaxation 1.0), not {config.relaxation}"
+        )
+    _check_rays(origins, directions, cone, active, depth, steps, outcome)
+    _check_sampler(sampler, cone.device)
+    planes = tuple(t.reshape(-1) for t in (depth, steps, outcome))
+    if cone.device.type == "cuda":
+        if cone.numel():
+            _march_cuda(sampler, grid_box_c(sampler), grid_march_c(config, budget), origins,
+                        directions, cone, (active.reshape(-1), *planes), planes)
+        return
+    if cone.device.type != "cpu":
+        raise ValueError(f"unsupported device {cone.device}")
+    result = grid_march_torch(sampler, origins, directions, cone, config, active=active,
+                              depth0=depth, steps0=steps, outcome0=outcome, budget=budget)
+    for plane, value in zip(planes, result):
+        plane.copy_(value)
 
 
 def _sample_cuda(sampler: Sampler, box, x, y, z, out) -> None:
@@ -518,9 +572,11 @@ def _shaped(cone, *planes):
 def grid_trace_contraction(grid: SdfGrid, origins, directions, cone,
                            config: MarchConfig = MarchConfig(), levels=None):
     """Sphere-trace rays against a baked grid SDF with the contraction
-    ladder (any resolution): one K9 launch per level, then, when the last
-    level is a mip, the fine finish on the full table (one resumed K8
-    launch). Returns ``(depth, steps, outcome)`` shaped like ``cone``."""
+    ladder (any resolution; ``levels`` from :func:`make_contraction_levels`,
+    built here when not given): one K9 launch per level, then, when the
+    last level is a mip, the fine finish on the full table (one resumed K8
+    launch, in place on the route's own planes). Returns ``(depth, steps,
+    outcome)`` shaped like ``cone``."""
     if levels is None:
         levels = make_contraction_levels(grid)
     state = {}
@@ -529,9 +585,9 @@ def grid_trace_contraction(grid: SdfGrid, origins, directions, cone,
                                            budget=config.step_limit, **state)
         active, steps = resume_state(steps, outcome)
         state = dict(active=active, depth0=depth, steps0=steps, outcome0=outcome)
-    if levels[-1].kind != HAT_F32:  # the last level a mip: finish on the table
-        depth, steps, outcome = grid_march(interp_sampler(grid), origins, directions, cone,
-                                           config, budget=config.step_limit, **state)
+    if levels[-1].kind != HAT_F32:  # the last level a mip: finish on the table, in place
+        grid_march_into(interp_sampler(grid), origins, directions, cone, config, active=active,
+                        depth=depth, steps=steps, outcome=outcome, budget=config.step_limit)
     return _shaped(cone, depth, steps, outcome)
 
 
@@ -547,10 +603,9 @@ def grid_trace_hybrid(grid: SdfGrid, origins, directions, cone,
     coarse = coarsen_grid_lower(grid, MID_RESOLUTION)
     depth, steps, outcome = grid_march(interp_sampler(coarse), origins, directions, cone, config)
     active, steps = resume_state(steps, outcome)
-    return _shaped(cone, *grid_march(
-        interp_sampler(grid), origins, directions, cone, config, active=active, depth0=depth,
-        steps0=steps, outcome0=outcome, budget=config.step_limit,
-    ))
+    grid_march_into(interp_sampler(grid), origins, directions, cone, config, active=active,
+                    depth=depth, steps=steps, outcome=outcome, budget=config.step_limit)
+    return _shaped(cone, depth, steps, outcome)
 
 
 def fd4_stencil(px, py, pz, eps: float):

@@ -14,13 +14,19 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    K1, K2 and K5 instantiation (a K5 spill, or more than 128 registers,
    fails the run), the latency of one march step of the 1920x1080 frame's
    longest ray marched alone, and K5's 64x64 fit point against its longest
-   ray alone; then K1, K2, K4 and K5 each alone in CUDA graphs (one JSON
-   line, which the later phases reuse, and which compares two commits when
-   run from each), and K6 at levels 3 and 5, K7 at level 3 and K9's two
-   levels, K8's finish and P1 on the 1080p torus alone (another line), with
-   the Newton and march
-   step statistics that set their warps' divergence, ptxas's registers and
-   spills of K6, K7, K8, K9 and P1, and the SASS loops of K9;
+   ray alone; K4's march probe: ptxas's registers and the SASS loops of K4
+   and of K5's march launch, the steps of the fit's target render at 64x64,
+   512x512 and 1920x1080 beside K1's on the same 1920x1080 rays, K4 there
+   with the step limit at 1, and the latency of one step of the 64x64
+   point's longest ray marched alone; then K1, K2, K4 and K5 each alone in
+   CUDA graphs (one JSON line, which the later phases reuse, and which
+   compares two commits when run from each), and K6 at levels 3 and 5, K7
+   at level 3 and K9's two levels, K8's finish and P1 on the 1080p torus
+   and K8 fresh on its 64^3 mip (the gather route) alone (another line),
+   with the Newton and march step statistics that set their warps'
+   divergence (for the grid launches, warp-steps in row order, 16x8-tile
+   order and with each tile's marched rays compacted), ptxas's registers
+   and spills of K6, K7, K8, K9 and P1, and the SASS loops of K8 and K9;
 3. the render path: ``cli render -o <tmp>.png`` at the default 1920x1080,
    which must launch K1;
 4. K1 against its plain PyTorch version at 1920x1080 (bit for bit), and at
@@ -61,8 +67,8 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     --image`` at 512x512 for 10 steps (the JAX package's training operating point) and
     ``--steps 0`` beside each size, for the time per step; ``cli fit``
     (depth) at its defaults, whose loss must fall;
-11. K4 against its plain version with the scene's 16 parameter values at
-    1920x1080 and 512x512 and with the fit's 9 at 512x512 and 64x64
+11. K4 against its plain version with the scene's 16 parameter values and
+    with the fit's 9 at 1920x1080, 512x512 and 64x64, track_min off and on
     (depth, steps, outcome, min_m and t_min bit for bit, dfdt within a
     bar), K5 against its plain version at 512x512 at the bench point and
     the fit point, the latter also with 16 values, and at the fit point at
@@ -79,8 +85,10 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     PNG) from the same steps on the CLI's grid;
 13. each of those launches, K8 alone on the 64^3 mip (the gather route) and
     P1 on the stencil points against their plain versions on the same
-    inputs (bit for bit); P1 on the probe's own inputs against the probe's
-    trilinear oracle (1e-4), with ``torch.nn.functional.grid_sample``'s
+    inputs (bit for bit); K8 resumed in place and through the public
+    wrapper, on the 1080p finish state, on a 100x37 frame (fresh and
+    resumed) and with no ray and every ray active; P1 on the probe's own
+    inputs against the probe's trilinear oracle (1e-4), with ``torch.nn.functional.grid_sample``'s
     time beside it; the gather route's image against the contraction
     route's (>= 99% of pixels within 1e-3);
 14. frame and kernel times of the mesh-asset render at the JAX bench's grid
@@ -1101,8 +1109,8 @@ def diff_kernel_phases(card: str, device, fit: dict, alone: dict) -> list[dict]:
     # K4 with the scene's 16 parameter values (the transform included), and
     # with the 9 shape values `fit --image` passes it (no transform)
     k4 = {}
-    for (w, h), params in (((1920, 1080), scene.params), ((512, 512), scene.params),
-                           ((512, 512), true), ((64, 64), true)):
+    for (w, h), params in [(size, params) for size in ((1920, 1080), (512, 512), (64, 64))
+                           for params in (scene.params, true)]:
         o, d, c = rays(w, h, device)
         n_prm = sum(v.numel() for v in params.values())
         for track in (False, True):
@@ -1292,14 +1300,16 @@ def probe_oracle(t3: np.ndarray, cx, cy, cz) -> np.ndarray:
     return exp
 
 
-def march_launch_work(state: dict, out) -> tuple[int, int, int, int]:
+def march_launch_work(state: dict, out, listed: bool = False) -> tuple[int, int, int, int]:
     """``(rays marched, evaluations, advances, ray bytes)`` of one grid
     march launch, from its resume state (empty: every ray from step 0) and
     its output, counted as K1's are. A marched ray reads its origin,
     direction and cone (28 B), on a resumed launch also its active flag,
-    depth and steps (12 B), and writes depth, steps and outcome (12 B); a
-    ray that is not active reads those three and its outcome (16 B) and
-    writes 12 B (csrc/grid_kernel.cu::grid_march_kernel)."""
+    depth and steps (12 B), and writes depth, steps and outcome (12 B). A
+    ray that is not active reads its flag (4 B) when the launch lists the
+    active rays (``listed``: K8, csrc/grid_kernel.cu::grid_march_kernel), and
+    else its flag, depth, steps and outcome (16 B) and writes 12 B (K9,
+    contraction_kernel)."""
     steps, outcome = out[1].reshape(-1), out[2].reshape(-1)
     marched = torch.ones_like(outcome, dtype=torch.bool)
     steps0 = torch.zeros_like(steps)
@@ -1308,9 +1318,46 @@ def march_launch_work(state: dict, out) -> tuple[int, int, int, int]:
     taken = int((steps - steps0)[marched].sum())
     ended = outcome[marched]
     n, n_marched = outcome.numel(), int(marched.sum())
-    ray_bytes = n_marched * (28 + (12 if state else 0) + 12) + (n - n_marched) * (16 + 12)
+    idle = 4 if listed else 16 + 12
+    ray_bytes = n_marched * (28 + (12 if state else 0) + 12) + (n - n_marched) * idle
     return (n_marched, taken + int(((ended == 0) | (ended == 2)).sum()),
             taken + int((ended == 2).sum()), ray_bytes)
+
+
+def touched_table_bytes(sampler, rays, cfg, state: dict) -> int:
+    """The bytes of the distinct table values that one grid march's samples
+    read: the eight corners of each sample's cell, from the plain version's
+    march on the same inputs (which samples exactly what the kernel does)."""
+    from bsdmg_tpu_torch.models.mesh_sdf import box_f32
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    r = sampler.r
+    lo, _, scale, clip_hi = box_f32(r, sampler.lo, sampler.hi)
+    cells, inner = [], tg.sampler_csdf
+
+    def recording(s):
+        f = inner(s)
+
+        def csdf(x, y, z):
+            index = 0
+            for a, v in enumerate((x, y, z)):
+                index = index * r + torch.floor(torch.clamp((v - lo[a]) * scale[a], 0.0,
+                                                            clip_hi)).long()
+            cells.append(torch.unique(index))
+            return f(x, y, z)
+
+        return csdf
+
+    tg.sampler_csdf = recording
+    try:
+        tg.grid_march_torch(sampler, *rays, cfg, budget=cfg.step_limit, **state)
+    finally:
+        tg.sampler_csdf = inner
+    base = torch.unique(torch.cat(cells))
+    offsets = torch.tensor([dx * r * r + dy * r + dz for dx in (0, 1) for dy in (0, 1)
+                            for dz in (0, 1)], device=base.device)
+    corners = torch.unique((base[:, None] + offsets).reshape(-1))
+    return corners.numel() * sampler.table.element_size()
 
 
 def graph_ms(fn, reps: int = 20, runs: int = 7) -> float:
@@ -1403,9 +1450,11 @@ def grid_frame(label: str, card: str, grid, rays, cfg, *, plain: bool) -> dict:
     frame's wall time (host clock after a sync, median of 5, warm), each
     launch's own time (:func:`graph_ms`) and its wrapper's (CUDA events,
     median of 7) from its own inputs, its work and bound, and with
-    ``plain`` its plain version's time. A bound's bytes count each table
-    whole, once: an upper estimate of the table bytes the samples touch,
-    so the bound from the rays' bytes alone is printed beside it."""
+    ``plain`` its plain version's time. K8's bound counts the table values
+    its samples read (:func:`touched_table_bytes`), with the bound of every
+    ray's planes and the whole table beside it; K9's and P1's count each
+    table whole, once (an upper estimate of the bytes the samples touch), so
+    the bound from the rays' bytes alone is printed beside them."""
     from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
 
     levels = tg.make_contraction_levels(grid)
@@ -1423,8 +1472,8 @@ def grid_frame(label: str, card: str, grid, rays, cfg, *, plain: bool) -> dict:
     _, launches, stencil, _ = staged_contraction(grid, rays, cfg)
     rows = {}
 
-    def row(name, ms, w_ms, p_ms, ops, ray_bytes, table):
-        nbytes = ray_bytes + table.numel() * table.element_size()
+    def row(name, ms, w_ms, p_ms, ops, ray_bytes, table_bytes):
+        nbytes = ray_bytes + table_bytes
         b_ms, b_by = bound(nbytes, ops)
         rows[name] = dict(ms=ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, ops=ops,
                           nbytes=nbytes)
@@ -1434,9 +1483,18 @@ def grid_frame(label: str, card: str, grid, rays, cfg, *, plain: bool) -> dict:
                 f"{bound(ray_bytes, ops)[0]:.4f} ms")
 
     for name, sampler, state, out in launches:
-        marched, evals, advances, ray_bytes = march_launch_work(state, out)
-        ops = evals * ((INTERP if sampler.kind == tg.INTERP_F32 else HAT) + MARCH_EVAL) \
-            + advances * MARCH_ADVANCE
+        k8 = sampler.kind == tg.INTERP_F32
+        marched, evals, advances, ray_bytes = march_launch_work(state, out, listed=k8)
+        ops = evals * ((INTERP if k8 else HAT) + MARCH_EVAL) + advances * MARCH_ADVANCE
+        if k8:
+            # K8's bound for the work it must do: the flags, the active rays'
+            # planes and the table values its samples read; beside it the
+            # bound of every ray's planes and the whole table
+            touched = touched_table_bytes(sampler, rays, cfg, state)
+            whole = march_launch_work(state, out)[3] + sampler.table.numel() * 4
+            print(f"bound {name} {label}: {ray_bytes} B of rays and {touched} B of table values "
+                  f"read ({bound(ray_bytes + touched, ops)[0]:.4f} ms); every ray's planes and "
+                  f"the whole table {whole} B ({bound(whole, ops)[0]:.4f} ms)")
         ms = march_kernel_ms(sampler, rays, cfg, state)
         w_ms = median_ms(lambda: tg.grid_march_cuda(sampler, *rays, cfg, budget=cfg.step_limit,
                                                     **state), reps=5)
@@ -1444,7 +1502,8 @@ def grid_frame(label: str, card: str, grid, rays, cfg, *, plain: bool) -> dict:
         if plain:
             p_ms = median_ms(lambda: tg.grid_march_torch(sampler, *rays, cfg, budget=cfg.step_limit,
                                                          **state), runs=3, warmup=1)
-        text = row(name, ms, w_ms, p_ms, ops, ray_bytes, sampler.table)
+        text = row(name, ms, w_ms, p_ms, ops, ray_bytes,
+                   touched if k8 else sampler.table.numel() * sampler.table.element_size())
         print(f"time {name} {label} on {card}: {ms:.4f} ms ({marched / ms * 1e3:.4g} marched rays/s, "
               f"{marched} of {n} rays, {evals} samples), {text}")
     sampler = tg.interp_sampler(grid)
@@ -1452,7 +1511,7 @@ def grid_frame(label: str, card: str, grid, rays, cfg, *, plain: bool) -> dict:
     ms = sample_kernel_ms(sampler, stencil)
     w_ms = median_ms(lambda: tg.grid_sample_cuda(sampler, *stencil), reps=5)
     p_ms = median_ms(lambda: tg.grid_sample_torch(sampler, *stencil), runs=3, warmup=1) if plain else None
-    text = row("P1", ms, w_ms, p_ms, points * INTERP, points * 16, sampler.table)
+    text = row("P1", ms, w_ms, p_ms, points * INTERP, points * 16, sampler.table.numel() * 4)
     print(f"time P1 normals {label} on {card}: {ms:.4f} ms ({points} points, "
           f"{points / ms * 1e3:.4g} samples/s), {text}")
     device_ms = sum(r["ms"] for r in rows.values())
@@ -1481,6 +1540,61 @@ def grid_march_parity(name: str, sampler, rays, state: dict, cfg) -> float:
     print(f"parity {name}: {json.dumps(res)}")
     check(res["differing_rays"] == 0, f"{name} and its plain version are not bit-equal: {res}")
     return res["depth_max_err"]
+
+
+def contraction_state(levels, rays, cfg) -> dict:
+    """The resume state that the contraction route's levels leave for its
+    fine finish (grid_kernel.py::grid_trace_contraction)."""
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    state = {}
+    for level in levels:
+        out = tg.grid_march(level, *rays, cfg, budget=cfg.step_limit, **state)
+        active, steps = tg.resume_state(out[1], out[2])
+        state = dict(active=active, depth0=out[0], steps0=steps, outcome0=out[2])
+    return state
+
+
+def k8_in_place_parity(name: str, sampler, rays, state: dict, cfg) -> None:
+    """K8 resumed in place (grid_kernel.py::grid_march_into, the routes'
+    finish) on copies of ``state``'s planes against the plain version, bit
+    for bit."""
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    planes = [state[k].clone().reshape(-1) for k in ("depth0", "steps0", "outcome0")]
+    tg.grid_march_into(sampler, *rays, cfg, active=state["active"], depth=planes[0],
+                       steps=planes[1], outcome=planes[2], budget=cfg.step_limit)
+    plain = tg.grid_march_torch(sampler, *rays, cfg, budget=cfg.step_limit, **state)
+    torch.cuda.synchronize()
+    differ = int(((planes[0] != plain[0]) | (planes[1] != plain[1]) | (planes[2] != plain[2])).sum())
+    print(f"parity {name}, in place: {differ} of {planes[0].numel()} rays differ, "
+          f"{int(state['active'].sum())} marched")
+    check(differ == 0, f"{name} in place and its plain version are not bit-equal")
+
+
+def k8_branch_parity(grid, rays, finish: dict, cfg, levels) -> None:
+    """K8's branches against its plain version, bit for bit: in place on the
+    frame's finish state; a 100x37 frame (not a multiple of 16 wide) fresh,
+    resumed through the public wrapper and in place; and, on both frames,
+    resume states with no ray and with every ray active."""
+    from bsdmg_tpu_torch.cam import generate_rays, look_at
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+
+    h, w = rays[2].shape
+    small = generate_rays(look_at(TORUS_CAMERA, device=rays[2].device), (100, 37), (100.0, 37.0))
+    state = contraction_state(levels, small, cfg)
+    sampler = tg.interp_sampler(grid)
+    k8_in_place_parity(f"K8 fine finish {w}x{h}", sampler, rays, finish, cfg)
+    grid_march_parity("K8 fresh 100x37", sampler, small, {}, cfg)
+    for frame, label, base in ((rays, f"{w}x{h}", finish), (small, "100x37", state)):
+        cases = {"fine finish": base,
+                 "no ray active": dict(base, active=torch.zeros_like(base["active"])),
+                 "every ray active": dict(base, active=torch.ones_like(base["active"]))}
+        for case, st in cases.items():
+            if frame is small or case != "fine finish":
+                name = f"K8 {case} {label}"
+                grid_march_parity(name, sampler, frame, st, cfg)
+                k8_in_place_parity(name, sampler, frame, st, cfg)
 
 
 def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
@@ -1575,6 +1689,7 @@ def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
     coarse = coarsen_grid_lower(grid, tg.MID_RESOLUTION)
     grid_march_parity(f"K8 on the 64^3 mip (gather route) torus {size[0]}x{size[1]}", tg.interp_sampler(coarse),
                       rays, {}, cfg)
+    k8_branch_parity(grid, rays, launches_in[-1][2], cfg, tg.make_contraction_levels(grid))
     sampler = tg.interp_sampler(grid)
     kern = tg.grid_sample_cuda(sampler, *stencil)
     plain = tg.grid_sample_torch(sampler, *stencil)
@@ -1664,7 +1779,7 @@ def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
         "bound_by": k9_by,
         "library_ms": None,
     }, {
-        "name": "K8 grid_march_kernel<InterpF32> (grid march; the fine finish)",
+        "name": "K8 grid_march_kernel<Resumed> (grid march; the fine finish, in place)",
         "route": "cuda",
         "source": tg.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/grid_kernel.py:72",
@@ -1775,7 +1890,7 @@ def loops_of(code: list) -> list[dict]:
             opcodes = Counter(x.split()[1 if x.startswith("@") else 0].split(".")[0] for x in body)
             loops.append({"from": hex(start), "to": hex(addr), "instructions": len(body),
                           **{op.lower(): sum(op in x for x in body)
-                             for op in ("MUFU", "SHFL", "VOTE", "BRA")},
+                             for op in ("MUFU", "SHFL", "VOTE", "BRA", "CALL")},
                           **{op.lower(): opcodes[op] for op in ("LDG", "LDS", "LDC", "LD")},
                           "opcodes": dict(opcodes.most_common(12))})
     return loops
@@ -1881,13 +1996,83 @@ def march_probe(card: str, device, kernel: str = K1_DEFAULT) -> dict:
     return out
 
 
+def step_histogram(steps: torch.Tensor, limit: int) -> dict:
+    """Summary of a march's steps per ray: the largest, the mean, the rays
+    at the step limit, the warp-steps in 8x4 patches (K1's and K4's warps)
+    and the histogram in bins of 8 steps."""
+    from bsdmg_tpu_torch.bench import WARP, _block_max
+
+    s = steps.long()
+    return {"max": int(s.max()), "mean": s.float().mean().item(),
+            "at_limit": int((s >= limit).sum()),
+            "warp_steps": int(_block_max(s.cpu().numpy(), WARP).sum()),
+            "bins_of_8": torch.bincount(s.reshape(-1) // 8, minlength=limit // 8 + 1).tolist()}
+
+
+def march_params_probe(card: str, device) -> dict:
+    """K4's march step: ptxas's registers, stack and spills and the SASS
+    loops of K4 (march_params_kernel) and of K5's march launch
+    (loss_march_kernel); the steps of the fit's target render (K4 with the
+    9 shape values and the trust region) at 64x64, 512x512 and 1920x1080,
+    beside K1's steps on the same 1920x1080 rays; and the latency of one
+    step of the 64x64 point's longest ray marched alone (K4 on a 1x1 image
+    in a CUDA graph, with the step limit at 1 and at its default; the
+    difference over the steps between), and K4 over the 1920x1080 frame
+    with the step limit at 1 (its work besides the march)."""
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import build
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
+
+    out: dict = {}
+    for r in kernel_resources("diff_kernel.cu", ("march_params", "loss_march")):
+        print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    for kernel, loops in sass_kernel_loops(build.build(), ("march_params_kernel",
+                                                           "loss_march_kernel")).items():
+        print(f"  SASS loops of {kernel}: {json.dumps(loops)}")
+    cfg = MarchConfig()
+    scene = reference_render_scene(device=device)
+    scene_c, _ = dk.param_scene_c(scene.csdf, shape_params(scene),
+                                  bb=inflated(scene_bounds(scene), 0.6))
+    one = type(scene_c).from_buffer_copy(scene_c)  # the march stops after one step
+    one.step_limit = 1
+    for w, h in ((64, 64), (512, 512), (1920, 1080)):
+        o, d, c = rays(w, h, device)
+        steps = dk._march_cuda(scene_c, o, d, c, False)[1]
+        out[f"K4 steps {w}x{h}"] = step_histogram(steps, cfg.step_limit)
+        if w == 1920:
+            k1 = rk.trace_cuda(compile_scene(scene), o, d, c)[1]
+            out[f"K1 steps {w}x{h}"] = step_histogram(k1, cfg.step_limit)
+            # what is not the march: the cull, one step, dfdt and the planes
+            out["K4 1920x1080 ms at step limit 1"] = graph_ms(
+                lambda: dk._march_cuda(one, o, d, c, False))
+        if w == 64:
+            j = int(torch.argmax(steps).item())
+            n = int(steps.reshape(-1)[j].item())
+            ray = [x.reshape(-1, *x.shape[2:])[j].reshape(1, 1, *x.shape[2:]).contiguous()
+                   for x in (o, d, c)]
+            lone = {cap: graph_ms(lambda: dk._march_cuda(sc, *ray, False))
+                    for cap, sc in ((1, one), (cfg.step_limit, scene_c))}
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    out["k4_lone"] = {"longest_steps": n, "ms_at_1": lone[1], "ms": lone[cfg.step_limit],
+                      "step_us": (lone[cfg.step_limit] - lone[1]) * 1e3 / (n - 1)}
+    out["k4_lone"]["step_cycles"] = out["k4_lone"]["step_us"] * float(clock)
+    print(f"K4 march probe on {card} (cycles at the maximum SM clock, {clock} MHz): "
+          f"{json.dumps(out)}")
+    return out
+
+
 def kernel_times(card: str, device) -> dict:
     """K1, K2, K4 and K5 each alone (:func:`graph_ms`, prepared structs and
     outputs): K1 and K2 at 1920x1080 and 2560x1440, K1's phase A at 16 and
     48 steps and its resume over the 16x8 blocks still active after 48 at
     1920x1080 (beside the block pipeline through the wrapper, by CUDA
-    events), K4 at 512x512, K5 at the 512x512 bench and fit points and the
-    64x64 fit point."""
+    events), K4 (the fit's target render) at 1920x1080, 512x512 and 64x64,
+    K5 at the 512x512 bench and fit points and the 64x64 fit point."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.grad import render_image_diff
@@ -1938,11 +2123,13 @@ def kernel_times(card: str, device) -> dict:
     true = shape_params(scene)
     perturbed = cli._apply_perturb(true, FIT_PERTURB)
     band = dk._band(cfg, None)
+    scene_c, _ = dk.param_scene_c(scene.csdf, true, bb=bb6)
+    o, d, c = rays(1920, 1080, device)
+    times["K4 1920x1080"] = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
     for side in (512, 64):
         o, d, c = rays(side, side, device)
+        times[f"K4 {side}x{side}"] = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
         if side == 512:
-            scene_c, _ = dk.param_scene_c(scene.csdf, true, bb=bb6)
-            times["K4 512x512"] = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
             zero = torch.zeros((side, side, 3), device=device)
             bench_c, _ = dk.param_scene_c(scene.csdf, true, bb=bb25)
             times["K5 512x512 bench"] = graph_ms(
@@ -2047,11 +2234,21 @@ def projection_step_stats(fns, args, kwargs) -> dict:
             "point_order": warp_max_stats(steps, lanes // 32)}
 
 
+def warp_steps(steps: torch.Tensor, warps: torch.Tensor) -> int:
+    """The sum over warps of the warp's largest step count: what a launch
+    that runs each warp until its slowest ray ends pays in warp-steps."""
+    top = torch.zeros(int(warps.max()) + 1, dtype=torch.long, device=steps.device)
+    return int(top.scatter_reduce(0, warps, steps.long(), "amax").sum())
+
+
 def march_step_stats(out, state: dict, shape) -> dict:
     """The steps one grid march launch takes per ray (0 for a ray it does
-    not march): the mean over the marched rays, and the mean warp maximum
-    with 32 consecutive rays of a row a warp and with 8x4 patches of 16x8
-    tiles a warp (K1's and K2's order)."""
+    not march): the mean over the marched rays; the mean warp maximum with
+    32 consecutive rays of a row a warp and with 8x4 patches of 16x8 tiles
+    a warp (K1's and K2's order); and the warp-steps (:func:`warp_steps`)
+    in those two orders and with each 16x8 tile's marched rays listed in
+    thread order and taken 32 a warp (K8's order since its redesign),
+    beside the marched steps over 32 (every warp full)."""
     from bsdmg_tpu_torch.bench import WARP, _block_max
 
     taken = out[1].reshape(-1).long()
@@ -2060,9 +2257,25 @@ def march_step_stats(out, state: dict, shape) -> dict:
         marched = state["active"].reshape(-1) > 0
         taken = torch.where(marched, taken - state["steps0"].reshape(-1).long(), 0)
     plane = taken.reshape(shape).cpu().numpy()
+    h, w = shape
+    flat = torch.arange(h * w, device=taken.device)
+    py, px = flat // w, flat % w
+    tile = (py // 8) * ((w + 15) // 16) + px // 16
+    slot = (((py % 8) // 4) * 2 + (px % 16) // 8) * 32 + (py % 4) * 8 + px % 8
+    order = torch.argsort(tile * 128 + slot)  # launch order
+    listed = order[marched[order]]  # each tile's marched rays in thread order
+    listed_tile = tile[listed]
+    per_tile = torch.bincount(listed_tile, minlength=int(tile.max()) + 1)
+    rank = torch.arange(listed.numel(), device=listed.device) \
+        - (torch.cumsum(per_tile, 0) - per_tile)[listed_tile]
+    listed_steps = taken[listed]
     return {"marched": int(marched.sum()), "mean": taken[marched].float().mean().item(),
             "row_warp_max": float(_block_max(plane.reshape(1, -1), (1, 32)).mean()),
-            "tile_warp_max": float(_block_max(plane, WARP).mean())}
+            "tile_warp_max": float(_block_max(plane, WARP).mean()),
+            "warp_steps": {"row": warp_steps(taken, flat // 32),
+                           "tile": warp_steps(taken, tile * 4 + slot // 32),
+                           "tile_compacted": warp_steps(listed_steps, listed_tile * 4 + rank // 32),
+                           "full_warps": int(taken.sum()) / 32}}
 
 
 def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
@@ -2076,6 +2289,7 @@ def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
     from bsdmg_tpu_torch.cam import generate_rays, look_at
     from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig
     from bsdmg_tpu_torch.models import reference_object
+    from bsdmg_tpu_torch.models.mesh_sdf import coarsen_grid_lower
     from bsdmg_tpu_torch.ops.cuda import build
     from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
     from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
@@ -2107,7 +2321,10 @@ def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
     size = (1920, 1080)
     frame = generate_rays(look_at(TORUS_CAMERA, device=device), size, SCREEN)
     _, launches, stencil, _ = staged_contraction(grid, frame, march)
-    for name, sampler, state, out in launches:
+    # the gather route's first launch: K8 fresh over the 64^3 mip
+    mip = tg.interp_sampler(coarsen_grid_lower(grid, tg.MID_RESOLUTION))
+    fresh = tg.grid_march_cuda(mip, *frame, march, budget=march.step_limit)
+    for name, sampler, state, out in [*launches, ("K8 64^3 mip fresh", mip, {}, fresh)]:
         times[f"{name} torus"] = march_kernel_ms(sampler, frame, march, state)
         probes[f"{name} torus"] = march_step_stats(out, state, (size[1], size[0]))
     times["P1 torus normals"] = sample_kernel_ms(tg.interp_sampler(grid), stencil)
@@ -2120,7 +2337,7 @@ def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
         for r in kernel_resources(source, prefixes):
             print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
                   f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
-    for kernel, loops in sass_kernel_loops(build.build(), ("grid_march_kernel<Hat",
+    for kernel, loops in sass_kernel_loops(build.build(), ("grid_march_kernel",
                                                            "contraction_kernel")).items():
         print(f"  SASS loops of {kernel}: {json.dumps(loops)}")
     return probes
@@ -2149,9 +2366,11 @@ def main(argv: list[str]) -> int:
         # the kernels alone and nothing else: run from each of two checkouts
         # (this file copied into the other) to compare them on one card
         mesh_grid_kernel_times(card, device, kernel_times(card, device))
+        march_params_probe(card, device)
         return 0
 
     march_probe(card, device)
+    march_params_probe(card, device)
     alone = kernel_times(card, device)
     mesh_grid_kernel_times(card, device, alone)
     kernels = [render_phases(card, device)]

@@ -507,6 +507,48 @@ def test_wrappers_send_cpu_tensors_to_the_twins(ico):
     assert torch.equal(values, tg.grid_sample_torch(sampler, x, x, x))
 
 
+def _finish_state(ico):
+    """The contraction route's state before its fine finish on ``ico``'s 32^3
+    table marched as a 16^3 mip (the JAX package's finish state)."""
+    grid, (o, d, c) = ico
+    port = _port_grid(grid)
+    coarse = tg.interp_sampler(tm.coarsen_grid_lower(port, 16))
+    depth, steps, outcome = tg.grid_march(coarse, _t(o), _t(d), _t(c))
+    active, steps = tg.resume_state(steps, outcome)
+    return port, (_t(o), _t(d), _t(c)), dict(active=active, depth0=depth, steps0=steps,
+                                              outcome0=outcome)
+
+
+def test_grid_march_into_writes_only_the_active_rays(ico):
+    """K8's in-place resumed march on the CPU: the active rays end as the
+    public wrapper's resumed march ends them, the others keep their planes'
+    values, and the caller's state passed to the public wrapper is left as
+    it was."""
+    port, rays, state = _finish_state(ico)
+    sampler = tg.interp_sampler(port)
+    copies = {k: v.clone() for k, v in state.items()}
+    ref = tg.grid_march(sampler, *rays, budget=256, **state)
+    assert all(torch.equal(state[k], copies[k]) for k in state)
+    planes = [state[k].clone() for k in ("depth0", "steps0", "outcome0")]
+    launches = dict(tg.LAUNCHES)
+    tg.grid_march_into(sampler, *rays, active=state["active"], depth=planes[0], steps=planes[1],
+                       outcome=planes[2], budget=256)
+    assert tg.LAUNCHES == launches
+    assert all(torch.equal(a, b) for a, b in zip(planes, ref))
+    idle = state["active"] == 0
+    assert all(torch.equal(a[idle], copies[k][idle])
+               for a, k in zip(planes, ("depth0", "steps0", "outcome0")))
+    assert int(state["active"].sum()) > 100 and int(idle.sum()) > 100
+
+
+def test_grid_march_into_takes_only_k8(ico):
+    port, rays, state = _finish_state(ico)
+    level = tg.make_contraction_levels(port)[0]
+    planes = dict(depth=state["depth0"], steps=state["steps0"], outcome=state["outcome0"])
+    with pytest.raises(ValueError):
+        tg.grid_march_into(level, *rays, active=state["active"], **planes)
+
+
 def _bad_march_inputs():
     grid = tm.SdfGrid(values=torch.zeros((4, 4, 4)), lo=(-1.0,) * 3, hi=(1.0,) * 3)
     s = tg.interp_sampler(grid)

@@ -15,6 +15,9 @@ kernel reads and writes are held against what they mirror:
 * K9's tile order (``grid_kernel.tile_order``, the CPU form of
   ``tile_ray``) is a permutation of the frame's rays and walks K1's 8x4
   warp patches of 16x8 tiles;
+* K8's lists (``grid_kernel.tile_lists``) hold each 16x8 tile's active
+  rays in thread order, as a CPU run of the kernel's ballot and warp
+  counts lists them, and as a permutation of the active set;
 * K6's edge lists (``mc_kernel.edge_slots``) list exactly the crossing
   edges of rank < budget that the staged path (``_staged_inputs``) packs,
   each block's slots once each, voxel by voxel in rank order;
@@ -36,7 +39,7 @@ from bsdmg_tpu.ops.pallas import compile_scene_csdf
 from bsdmg_tpu.ops.pallas import grid_kernel as jg
 from bsdmg_tpu_torch.config import MeshGenConfig
 from bsdmg_tpu_torch.models import reference_object
-from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid
+from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid, _outside_distance, _outside_step, box_f32
 from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
 from bsdmg_tpu_torch.ops.cuda import mc_kernel
 from bsdmg_tpu_torch.ops.cuda.csdf import SdfFns, compile_scene, sdf_fns
@@ -76,6 +79,60 @@ def test_cell_table_holds_the_corners_in_hat_order(r, bf16):
     # (x0 + 1, y0 + 1) at z0, then at z0 + 1
     assert tg.CELL_CORNERS == tuple((dx, dy, dz) for dz in (0, 1) for dx in (0, 1)
                                     for dy in (0, 1))
+
+
+def _interp_gather_csdf(s):
+    """CPU form of csrc/grid_sdf.cuh::InterpGather, K8's sampler: the grid
+    coordinates, their floors and fractions, the eight corners at fixed
+    offsets from one base index (no min(x0 + 1, R - 1)), the lerps and the
+    outside step."""
+    lo, hi, scale, clip_hi = box_f32(s.r, s.lo, s.hi)
+    r = s.r
+
+    def csdf(x, y, z):
+        c = [torch.clamp((v - lo[a]) * scale[a], 0.0, clip_hi) for a, v in enumerate((x, y, z))]
+        a0 = [torch.floor(v) for v in c]
+        fx, fy, fz = (v - a for v, a in zip(c, a0))
+        x0, y0, z0 = (a.to(torch.int64) for a in a0)
+        base = (x0 * r + y0) * r + z0
+        at = [s.table[base + dx * r * r + dy * r + dz]
+              for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+        gx = 1 - fx
+        c00, c10 = at[0] * gx + at[1] * fx, at[2] * gx + at[3] * fx
+        c01, c11 = at[4] * gx + at[5] * fx, at[6] * gx + at[7] * fx
+        c0, c1 = c00 + (c10 - c00) * fy, c01 + (c11 - c01) * fy
+        return _outside_step(c0 + (c1 - c0) * fz, _outside_distance(x, y, z, lo, hi))
+
+    return csdf
+
+
+@pytest.mark.parametrize("r", [2, 17, 32, 64])
+def test_gather_sampler_equals_the_interp_twin(r):
+    """K8's sampler, the eight corners at fixed offsets from one base index,
+    equals interp_sampler's twin (make_grid_interp_csdf, with its min(x0 +
+    1, R - 1)) bit for bit, on P1's probe points, inside and outside the box
+    and at the clamp's top, where the last cell on each axis is read."""
+    grid = SdfGrid(values=_table(r, False, seed=r).reshape(r, r, r), lo=(-1.0, -1.2, -0.9),
+                   hi=(1.1, 1.0, 1.3))
+    s = tg.interp_sampler(grid)
+    twin = tg.sampler_csdf(s)
+    lo, hi = box_f32(r, s.lo, s.hi)[:2]
+    scale = [(h - l) / (r - 1) for l, h in zip(lo, hi)]
+    probe = [c * scale[a] + lo[a] for a, c in enumerate(_probe_points(r))]
+    for points in (probe, _box_points(lo, hi, seed=r)):
+        assert torch.equal(_interp_gather_csdf(s)(*points), twin(*points))
+
+
+@pytest.mark.parametrize("r, marches", [(2049, True), (2050, False), (4096, False)])
+def test_k8_takes_grids_whose_clamp_stays_below_the_last_corner(r, marches):
+    """K8 reads x0 + 1 without a min, so march_table takes an INTERP_F32
+    grid only where the float32 clamp R - 1 - 1e-4 rounds below R - 1."""
+    s = tg.Sampler(tg.INTERP_F32, torch.zeros(8), r, (0.0,) * 3, (1.0,) * 3)
+    if marches:
+        assert tg.march_table(s) is s.table
+    else:
+        with pytest.raises(ValueError):
+            tg.march_table(s)
 
 
 def test_cell_table_rejects_a_one_point_grid():
@@ -191,6 +248,65 @@ def test_tile_order_walks_k1_warp_patches():
                                        for q in range(4)):
         y, x = ty * 8 + (q >> 1) * 4, tx * 16 + (q & 1) * 8
         assert torch.equal(order[warp], frame[y:y + 4, x:x + 8].reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# K8: each tile's active rays, listed in thread order
+# ---------------------------------------------------------------------------
+
+
+def _block_lists(active, h, w):
+    """A CPU run of K8's listing, block by block and thread by thread: each
+    warp's ballot of its active rays, the slot a rank in the ballot plus the
+    counts of the warps before it (csrc/grid_kernel.cu::grid_march_kernel)."""
+    tiles_x, flags = -(-w // 16), active.reshape(-1).tolist()
+    lists = []
+    for block in range(-(-h // 8) * tiles_x):
+        rays = []
+        for thread in range(128):
+            warp, lane = thread >> 5, thread & 31
+            px = (block % tiles_x) * 16 + (warp & 1) * 8 + (lane & 7)
+            py = (block // tiles_x) * 8 + (warp >> 1) * 4 + (lane >> 3)
+            rays.append(py * w + px if px < w and py < h else -1)
+        ballots = [[r >= 0 and flags[r] != 0 for r in rays[32 * k:32 * k + 32]] for k in range(4)]
+        listed = [0] * 128
+        for thread, ray in enumerate(rays):
+            warp, lane = thread >> 5, thread & 31
+            if ballots[warp][lane]:
+                slot = sum(ballots[warp][:lane]) + sum(sum(b) for b in ballots[:warp])
+                listed[slot] = ray
+        lists.append(listed[:sum(sum(b) for b in ballots)])
+    return lists
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (37, 100), (1, 4099)],
+                         ids=["1920x1080", "100x37", "1-D"])
+def test_tile_lists_hold_each_tiles_active_rays_in_thread_order(shape):
+    h, w = shape
+    active = torch.from_numpy((np.random.default_rng(8).random(h * w) < 0.21).astype(np.int32))
+    listed, counts = tg.tile_lists(active, h, w)
+    # a permutation of the active set, split by tile
+    assert torch.equal(torch.sort(listed).values, active.nonzero().squeeze(1))
+    assert counts.numel() == -(-h // 8) * -(-w // 16) and int(counts.sum()) == listed.numel()
+    # tile by tile, each tile's rays in thread order: ascending (tile, patch, lane)
+    py, px = listed // w, listed % w
+    key = (((py // 8) * -(-w // 16) + px // 16) * 4 + ((py % 8) // 4) * 2 + (px % 16) // 8) * 32 \
+        + (py % 4) * 8 + px % 8
+    assert bool((key[1:] > key[:-1]).all())
+    if h * w < 10_000:  # the listing itself, thread by thread
+        expect = _block_lists(active, h, w)
+        assert counts.tolist() == [len(x) for x in expect]
+        assert listed.tolist() == [ray for x in expect for ray in x]
+
+
+@pytest.mark.parametrize("share", [0.0, 1.0], ids=["none active", "all active"])
+def test_tile_lists_of_no_and_of_every_ray(share):
+    h, w = 37, 100
+    listed, counts = tg.tile_lists(torch.full((h * w,), int(share), dtype=torch.int32), h, w)
+    if share:
+        assert torch.equal(listed, tg.tile_order(h, w))
+    else:
+        assert listed.numel() == 0 and int(counts.sum()) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time the mesh and grid kernels of one checkout alone, on one CUDA card.
+"""Time the mesh, grid and differentiable-render kernels of one checkout
+alone, on one CUDA card.
 
-    python3 tools/time_kernels_alone.py CHECKOUT [TORUS_CACHE.pt]
+    python3 tools/time_kernels_alone.py CHECKOUT [TORUS_CACHE.pt] [--no-mesh]
 
 Builds CHECKOUT's kernels and prints one JSON line (``SWEEP {...}``): K6 at
-levels 3 and 5 and K7 at level 3 of the reference object, and each launch
-of the contraction route (K9's two levels, K8's finish) and P1's normals on
-the 1080p torus frame, each alone in a CUDA graph (``chip_smoke.graph_ms``
-from CHECKOUT's ``chip_smoke.py``), with K6 at level 3 and every grid launch
-held against its plain version bit for bit; then ptxas's registers and
-spills of K6 and the grid march kernels. Run it once per checkout in one
-call (variants of a kernel unpacked side by side) to compare them on one
-card. With TORUS_CACHE the baked 128^3 torus grid is read from that file,
-or written there by the first run.
+levels 3 and 5 and K7 at level 3 of the reference object (not with
+``--no-mesh``); each launch of the contraction route (K9's two levels, K8's
+finish) and P1's normals on the 1080p torus frame, and K8 fresh on the
+gather route's 64^3 mip; K4 as the fit's target render at 64x64, 512x512
+and 1920x1080 (and with the scene's 16 values at 512x512 and 1920x1080), K5 at the
+64x64 and 512x512 fit points and the 512x512 bench point; each alone in a
+CUDA graph (``chip_smoke.graph_ms`` from CHECKOUT's ``chip_smoke.py``),
+with K6 at level 3, every grid launch and K4 at 512x512 held against their
+plain versions bit for bit (K4's dfdt within ``chip_smoke.DFDT_ATOL``);
+then ptxas's registers and spills of K6, the grid march kernels and K4's
+and K5's march launches. Run it once per checkout in one call (variants of
+a kernel unpacked side by side) to compare them on one card. With
+TORUS_CACHE the baked 128^3 torus grid is read from that file, or written
+there by the first run.
 """
 
 import json
@@ -22,6 +28,8 @@ from pathlib import Path
 
 
 def main(argv: list[str]) -> int:
+    mesh = "--no-mesh" not in argv
+    argv = [a for a in argv if a != "--no-mesh"]
     if len(argv) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
@@ -33,13 +41,16 @@ def main(argv: list[str]) -> int:
         print("time_kernels_alone: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.cam import generate_rays, look_at
     from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig
-    from bsdmg_tpu_torch.models import reference_object
-    from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.models import reference_object, reference_render_scene
+    from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid, coarsen_grid_lower
     from bsdmg_tpu_torch.ops.cuda import build, mc_kernel
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
     from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
-    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, sdf_fns
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds, sdf_fns
     from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
 
     t0 = time.perf_counter()
@@ -48,8 +59,8 @@ def main(argv: list[str]) -> int:
     out = {"checkout": root.name, "card": cs.card_line(), "build_s": time.perf_counter() - t0}
     cfg = MeshGenConfig()
     desc = compile_scene(reference_object(device=device))
-    fields = cs.mesh_fields(desc, cfg, device, 5)
-    for level in (3, 5):
+    fields = cs.mesh_fields(desc, cfg, device, 5 if mesh else 0)
+    for level in (3, 5) if mesh else ():
         f = fields[level]
         args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size, cfg)
         if level == 3:
@@ -57,9 +68,11 @@ def main(argv: list[str]) -> int:
             plain = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
             out["K6 L3 exact"] = all(torch.equal(a, b) for a, b in zip(kern, plain))
         out[f"K6 L{level}"] = cs.k6_alone_ms(desc, args, kwargs)
-    f = fields[3]
-    args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size, MeshGenConfig(interpolate_edges=True))
-    out["K7 L3"] = cs.k7_alone_ms(desc, args, kwargs)
+    if mesh:
+        f = fields[3]
+        args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size,
+                                     MeshGenConfig(interpolate_edges=True))
+        out["K7 L3"] = cs.k7_alone_ms(desc, args, kwargs)
 
     cache = Path(argv[1]) if len(argv) == 2 else None
     if cache is not None and cache.exists():
@@ -74,14 +87,51 @@ def main(argv: list[str]) -> int:
     march = MarchConfig()
     frame = generate_rays(look_at(cs.TORUS_CAMERA, device=device), (1920, 1080), cs.SCREEN)
     _, launches, stencil, _ = cs.staged_contraction(grid, frame, march)
+    mip = tg.interp_sampler(coarsen_grid_lower(grid, tg.MID_RESOLUTION))
+    launches.append(("K8 64^3 mip fresh", mip, {},
+                     tg.grid_march_cuda(mip, *frame, march, budget=march.step_limit)))
     for name, sampler, state, result in launches:
+        kern = tg.grid_march_cuda(sampler, *frame, march, budget=march.step_limit, **state)
         plain = tg.grid_march_torch(sampler, *frame, march, budget=march.step_limit, **state)
-        out[f"{name} exact"] = all(torch.equal(a, b) for a, b in zip(result, plain))
+        out[f"{name} exact"] = all(torch.equal(a, b) for a, b in zip(kern, plain))
         out[name] = cs.march_kernel_ms(sampler, frame, march, state)
     out["P1"] = cs.sample_kernel_ms(tg.interp_sampler(grid), stencil)
+
+    scene = reference_render_scene(device=device)
+    bb6, bb25 = (cs.inflated(scene_bounds(scene), by) for by in (0.6, 0.25))
+    true = cs.shape_params(scene)
+    perturbed = cli._apply_perturb(true, cs.FIT_PERTURB)
+    band = dk._band(march, None)
+    for w, h in ((64, 64), (512, 512), (1920, 1080)):
+        o, d, c = cs.rays(w, h, device)
+        for params, tag in ((true, ""), (scene.params, " 16 values")):
+            if tag and w != 1920 and w != 512:
+                continue
+            scene_c, _ = dk.param_scene_c(scene.csdf, params, bb=bb6)
+            out[f"K4 {w}x{h}{tag}"] = cs.graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
+            if w == 512:
+                for track in (False, True):
+                    kern = dk.march_params_cuda(scene.csdf, params, o, d, c, bb=bb6,
+                                                track_min=track)
+                    plain = dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb6,
+                                                  track_min=track)
+                    out[f"K4 {w}x{h}{tag} track {track} exact"] = all(
+                        torch.equal(a, b) for i, (a, b) in enumerate(zip(kern, plain)) if i != 3
+                    ) and cs._max_err(kern[3], plain[3]) <= cs.DFDT_ATOL
+        if w == 1920:
+            continue
+        points = [("fit", perturbed, bb6, 1.0)] + ([("bench", true, bb25, 0.0)] if w == 512 else [])
+        for name, params, bb, edge in points:
+            target = (render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf, bb=bb6).detach()
+                      if edge else torch.zeros((h, w, 3), device=device))
+            state = dk._target_state(target, None).contiguous() if edge else None
+            scene_c, _ = dk.param_scene_c(scene.csdf, params, bb=bb)
+            out[f"K5 {w}x{h} {name}"] = cs.graph_ms(
+                lambda: dk._loss_grad_cuda(scene_c, o, d, c, target, state, c.numel(), edge, band))
     print("SWEEP " + json.dumps(out), flush=True)
     for source, prefixes in (("mc_kernel.cu", ("mc_",)),
-                             ("grid_kernel.cu", ("contraction_", "grid_march"))):
+                             ("grid_kernel.cu", ("contraction_", "grid_march")),
+                             ("diff_kernel.cu", ("march_params", "loss_march"))):
         for r in cs.kernel_resources(source, prefixes):
             print(f"  ptxas {root.name}: {json.dumps(r)}")
     return 0
