@@ -26,8 +26,9 @@
 //
 // What bounds it on Hopper: FP32 work and its spread over a warp's lanes. A
 // crossing edge costs a few Newton steps (one analytic value and gradient
-// each, 263 FP32 operations with the update) and a 12-evaluation fd4 normal
-// (~900 operations); a voxel has ~4 crossing edges. Memory traffic is 24 B
+// each, 263 FP32 operations with the update) and a 12-point fd4 normal
+// (~560 operations, the terms that a shift leaves alone shared: project.cuh);
+// a voxel has ~4 crossing edges. Memory traffic is 24 B
 // read and 404 B written per voxel, most of it the triangle soup.
 //
 // What the design does about it: a block of 256 threads owns 60

@@ -1,25 +1,39 @@
-// Newton projection onto the isosurface and fd4 normals, shared by K6
-// (mc_kernel.cu) and K7 (project_kernel.cu). Twins: _newton and
-// _unit_normal_fd4 in bsdmg_tpu_torch/ops/cuda/mesh_kernel.py.
+// The fd4 stencil, shared by K1 and K3 (render_kernel.cu), K6
+// (mc_kernel.cu) and K7 (project_kernel.cu), and the Newton projection onto
+// the isosurface of K6 and K7. Twins: fd4_grad, unit_normal_fd4 and newton
+// in bsdmg_tpu_torch/ops/cuda/mesh_kernel.py, _fd_normal in
+// ops/cuda/render_kernel.py; tests/test_torch_stencil.py holds the
+// shared-term stencil to them in plain PyTorch.
 
 #pragma once
 
 #include "scene_sdf.cuh"
 
-// 4th-order central-difference gradient, unnormalised, 12 evaluations
-// (ops/pallas/mesh_kernel.py::_grad_fd4): -f(p+2e) + 8 f(p+e) - 8 f(p-e) +
-// f(p-2e), summed in that order. The loop over the axes stays rolled, which
-// keeps code size and registers down; the four offsets of an axis are
-// unrolled, so their picks fold away (K6 and K7 5-6% faster, PERF.md).
-template <class S>
+// 4th-order central-difference gradient, unnormalised, over 12 points
+// (ops/pallas/mesh_kernel.py::_grad_fd4, render_kernel.py::_fd_normal):
+// -f(p+2e) + 8 f(p+e) - 8 f(p-e) + f(p-2e) per axis, summed in that order.
+//
+// Both loops are unrolled: a shift along one axis moves one of the three
+// terms of each capsule group (scene_sdf.cuh group_d2: the axial term of
+// the group along that axis, a slot term of the others) and one of the
+// sphere's three squares, and with the 12 inlined SDFs side by side nvcc
+// computes every term that the shifts leave alone once. That is the
+// shared-term stencil, about 40% fewer FP32 operations than 12 whole SDFs
+// (utils/profiling.py fd4_ops), and each value is scene_sdf at its point bit
+// for bit. An explicit form that keeps the centre's terms and recomputes
+// only the moved one compiled to the same SASS within 8 instructions and
+// ran 3.5% slower in K3 (PERF.md). With Rolled both loops stay rolled
+// around one inlined SDF: K1's epilogue, which keeps K1's march at 32
+// registers (unrolled, K1 takes 43).
+template <class S, bool Rolled = false>
 __device__ __forceinline__ void fd4_grad(const SceneDesc& s, float x, float y, float z, float eps,
                                          float& gx, float& gy, float& gz) {
   const float e1 = eps, e2 = 2.0f * eps;
   gx = gy = gz = 0.0f;
-#pragma unroll 1
+#pragma unroll (Rolled ? 1 : 3)
   for (int a = 0; a < 3; ++a) {
     float acc = 0.0f;
-#pragma unroll
+#pragma unroll (Rolled ? 1 : 4)
     for (int k = 0; k < 4; ++k) {
       const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
       const float f = scene_sdf<S>(s, a == 0 ? x + off : x, a == 1 ? y + off : y,

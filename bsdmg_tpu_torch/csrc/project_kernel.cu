@@ -10,10 +10,17 @@
 // unit normal at the final point, for every point as in the JAX kernel.
 //
 // What bounds it on Hopper: FP32 work, the same per point as one edge of K6
-// (project.cuh); memory traffic is 16 B read and 24 B written per point.
-// What the design does about it: a thread per point, so each point leaves
-// its Newton loop on its own, where the TPU kernel ran a block until all of
-// its lanes converged. Making it fast is later work.
+// (project.cuh): a few Newton steps and the fd4 normal; memory traffic is
+// 16 B read and 24 B written per point.
+// What the design does about it: the staged mesh path
+// (ops/marching_cubes.py::_finish_staged) hands the kernel the listed
+// crossing edges only, voxel by voxel in rank order, every point active,
+// where the JAX layout padded each voxel to `budget` lanes, a third of them
+// empty at level 3, each taking a normal that was thrown away and waiting
+// out its warp's Newton loop. A thread per point, so each point leaves its
+// Newton loop on its own; the normal is the shared-term fd4 stencil. The
+// kernel still takes padded points with an `active` mask, as the JAX
+// kernel does.
 //
 // Numerics: -fmad=false, no fast math, the twin's order
 // (project_edges_torch in bsdmg_tpu_torch/ops/cuda/mesh_kernel.py): the

@@ -44,9 +44,12 @@
 // kernel parameter, so every thread reads the same constant-bank words, and
 // the scene's structure is a template parameter (Box<Frame, Transform>,
 // scene_sdf.cuh), so the SDF is straight-line code with no runtime picks or
-// tests. The fd4 stencil is a rolled loop around one inlined SDF, which
-// keeps code size and registers down. The per-ray near/far scene split is
-// not ported: by the JAX package's tests it changes no pixel.
+// tests. K1's fd4 stencil is a rolled loop around one inlined SDF, which
+// keeps it at 32 registers and full occupancy for its march (the unrolled,
+// shared-term stencil of project.cuh took it to 43). K3 lists each tile's
+// hits and runs the shared-term stencil on full warps. The per-ray
+// near/far scene split is not ported: by the JAX package's tests it
+// changes no pixel.
 //
 // Numerics: built without --use_fast_math (IEEE sqrtf and division) and
 // with -fmad=false (ops/cuda/build.py). Every float constant arrives as the
@@ -60,6 +63,7 @@
 
 #include <type_traits>
 
+#include "project.cuh"
 #include "scene_sdf.cuh"
 
 enum { K1_FRESH = 0, K1_PHASE_A = 1, K1_RESUME = 2 };
@@ -75,13 +79,18 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ origins,
              directions[3 * i + 1], directions[3 * i + 2], cone[i]};
 }
 
-// the pixel of this thread in the 16x8 block (bx, by): each of the block's
-// 4 warps covers an 8x4 patch
-__device__ __forceinline__ void block_pixel(int bx, int by, int& px, int& py) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// the pixel of thread t in the 16x8 block (bx, by): each of the block's 4
+// warps covers an 8x4 patch
+__device__ __forceinline__ void tile_pixel(int bx, int by, int t, int& px, int& py) {
+  const int lane = t & 31;
+  const int warp = t >> 5;
   px = bx * 16 + (warp & 1) * 8 + (lane & 7);
   py = by * 8 + (warp >> 1) * 4 + (lane >> 3);
+}
+
+// the pixel of this thread in the 16x8 block (bx, by)
+__device__ __forceinline__ void block_pixel(int bx, int by, int& px, int& py) {
+  tile_pixel(bx, by, threadIdx.x, px, py);
 }
 
 // The march of one active ray (render_kernel.py:336-379 and _march), from
@@ -156,10 +165,10 @@ __device__ __forceinline__ int unresolved(const SceneDesc& s, int steps, int out
 
 // fd4 normal, Lambert two-colour mix and ACES of one pixel, written to
 // rgb[0..2]: the fused epilogue of K1 (render_kernel.py:380-410) and K3
-// (:437-470). A hit runs the 12-SDF stencil; any other pixel is ACES of
-// white (STEP_LIMIT) or black. The TPU's per-tile pl.when gate is a branch
-// per thread here.
-template <class S>
+// (:437-470). A hit runs the fd4 stencil (project.cuh fd4_grad, its loops
+// rolled with Rolled); any other pixel is ACES of white (STEP_LIMIT) or
+// black.
+template <class S, bool Rolled>
 __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, float depth,
                                             int outcome, float* __restrict__ rgb) {
   float r, g, b;
@@ -167,23 +176,8 @@ __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, 
     const float px3 = ray.ox + depth * ray.dx;
     const float py3 = ray.oy + depth * ray.dy;
     const float pz3 = ray.oz + depth * ray.dz;
-    const float e1 = s.normal_epsilon, e2 = 2.0f * s.normal_epsilon;
-    float gx = 0.0f, gy = 0.0f, gz = 0.0f;
-#pragma unroll 1
-    for (int a = 0; a < 3; ++a) {
-      // -f(p+2e) + 8 f(p+e) - 8 f(p-e) + f(p-2e), summed in that order
-      float acc = 0.0f;
-#pragma unroll 1
-      for (int k = 0; k < 4; ++k) {
-        const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
-        const float f = scene_sdf<S>(s, a == 0 ? px3 + off : px3, a == 1 ? py3 + off : py3,
-                                     a == 2 ? pz3 + off : pz3);
-        acc = k == 0 ? -f : (k == 1 ? acc + 8.0f * f : (k == 2 ? acc - 8.0f * f : acc + f));
-      }
-      if (a == 0) gx = acc;
-      else if (a == 1) gy = acc;
-      else gz = acc;
-    }
+    float gx, gy, gz;
+    fd4_grad<S, Rolled>(s, px3, py3, pz3, s.normal_epsilon, gx, gy, gz);
     const float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-24f));
     shade_collision(s, gx * inv, gy * inv, gz * inv, r, g, b);
   } else {
@@ -235,7 +229,7 @@ render_kernel(const SceneDesc s, const float* __restrict__ origins,
   const int budget = Mode == K1_FRESH ? s.step_limit : cap;
   const Ray ray = load_ray(origins, directions, cone, i);
   march_ray<S, Cull, Relaxed>(s, ray, budget, omega, depth, steps, outcome);
-  shade_pixel<S>(s, ray, depth, outcome, rgb + 3 * i);
+  shade_pixel<S, true>(s, ray, depth, outcome, rgb + 3 * i);  // the rolled stencil
   if (Mode != K1_FRESH || depth_io != nullptr) {
     depth_io[i] = depth;
     steps_io[i] = steps;
@@ -289,26 +283,59 @@ trace_kernel(const SceneDesc s, const float* __restrict__ origins,
   if (active_out != nullptr) active_out[i] = unresolved(s, steps, outcome, cap);
 }
 
-// K3, one thread per pixel in K1's layout
+// K3, one 16x8 tile a block of 128 threads. The block lists the tile's
+// hits in shared memory, in thread order (a ballot and the warps' counts),
+// and threads 0..hits-1 shade them, so the fd4 stencil runs on full warps
+// where a thread a pixel ran it on the hits of each warp while the rest of
+// the warp waited. Every other pixel is ACES of white (STEP_LIMIT) or black,
+// taken once a block: the same aces on the same inputs, so the same bits.
 template <class S>
 __global__ void __launch_bounds__(128)
 shade_kernel(const SceneDesc s, const float* __restrict__ origins,
              const float* __restrict__ directions, const float* __restrict__ depth,
              const int* __restrict__ outcome, float* __restrict__ rgb, int h, int w) {
+  __shared__ int warp_hits[4];
+  __shared__ unsigned char listed[128];  // the hits' threads, in thread order
+  __shared__ float flat[2][3];            // ACES of white and of black
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   int px, py;
   block_pixel(blockIdx.x, blockIdx.y, px, py);
-  if (px >= w || py >= h) return;
+  const bool inside = px < w && py < h;
   const long long i = (long long)py * w + px;
-  const int oc = outcome[i];
-  Ray ray{};
-  float t = 0.0f;
-  if (oc == COLLISION) {
-    // only a hit reads its depth and ray
-    ray = Ray{origins[3 * i],    origins[3 * i + 1],    origins[3 * i + 2], directions[3 * i],
-              directions[3 * i + 1], directions[3 * i + 2], 0.0f};
-    t = depth[i];
+  const int oc = inside ? outcome[i] : DEPTH_LIMIT;
+  const bool hit = inside && oc == COLLISION;
+  const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+  if (lane == 0) warp_hits[warp] = __popc(ballot);
+  if (lane == 0 && warp < 2) {
+    const float v = warp == 0 ? 1.0f : 0.0f;
+    float out[3];
+    aces(s, v, v, v, out);
+    flat[warp][0] = out[0];
+    flat[warp][1] = out[1];
+    flat[warp][2] = out[2];
   }
-  shade_pixel<S>(s, ray, t, oc, rgb + 3 * i);
+  __syncthreads();
+  int before = 0, hits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    before += k < warp ? warp_hits[k] : 0;
+    hits += warp_hits[k];
+  }
+  if (hit) listed[before + __popc(ballot & ((1u << lane) - 1u))] = static_cast<unsigned char>(t);
+  __syncthreads();
+  if (inside && !hit) {
+    const float* c = flat[oc == STEP_LIMIT ? 0 : 1];
+    rgb[3 * i] = c[0];
+    rgb[3 * i + 1] = c[1];
+    rgb[3 * i + 2] = c[2];
+  }
+  if (t < hits) {
+    tile_pixel(blockIdx.x, blockIdx.y, listed[t], px, py);
+    const long long j = (long long)py * w + px;
+    const Ray ray{origins[3 * j],    origins[3 * j + 1],    origins[3 * j + 2], directions[3 * j],
+                  directions[3 * j + 1], directions[3 * j + 2], 0.0f};
+    shade_pixel<S, false>(s, ray, depth[j], COLLISION, rgb + 3 * j);
+  }
 }
 
 template <class S, bool Cull, bool Relaxed>

@@ -13,9 +13,11 @@ Two paths, as in the JAX package:
   (``ops/cuda/mc_kernel.py``), then the rare-path centroid re-resolve of
   ambiguous windings;
 * **staged** (``config.interpolate_edges``): start points interpolated along
-  each edge, the crossing edges rank-compacted into ``edge_budget`` lanes,
-  projected by kernel K7 (``ops/cuda/mesh_kernel.py``), and the slot pick
-  and winding here.
+  each edge; the crossing edges of rank < ``edge_budget``, listed, projected
+  by kernel K7 (``ops/cuda/mesh_kernel.py``) and put back in each voxel's
+  ``edge_budget`` lanes; the slot pick and winding here. The JAX package
+  hands its kernel the lanes themselves, the empty ones padded; the soup is
+  the same bit for bit.
 
 The case lookup is a plain index ``TRI15[case]``; the JAX package's one-hot
 bf16 product was a matrix-unit device of the TPU. On a CUDA device the two
@@ -141,34 +143,27 @@ def _fused_inputs(v: _Voxels, config):
 
 
 def _staged_inputs(v: _Voxels, config):
-    """K7's arguments: each voxel's crossing edges of rank < budget packed
-    into ``budget`` lanes, their start points interpolated along the edge
-    (1e6 in an empty lane) and the active mask; plus the ranks and counts."""
-    n = v.lowers.shape[0]
-    device = v.lowers.device
-    ec0, ec1 = MC_EDGE_TABLE[:, 0], MC_EDGE_TABLE[:, 1]
-    v0, v1 = v.values[:, ec0], v.values[:, ec1]
-    t = v0 / torch.where(torch.abs(v0 - v1) < 1e-12, 1.0, v0 - v1)
-    t = torch.clamp(t, 0.0, 1.0)
-    starts = [c[:, ec0] + (c[:, ec1] - c[:, ec0]) * t for c in v.corners]
-
+    """K7's arguments: the crossing edges of rank < budget, voxel by voxel in
+    rank order, their start points interpolated along the edge, and an
+    ``active`` mask of ones; plus each listed edge's ``(voxel, lane)`` (its
+    rank), the ranks ``(N, 12)`` and the crossing counts ``(N,)``."""
+    ec0 = torch.as_tensor(MC_EDGE_TABLE[:, 0], device=v.lowers.device)
+    ec1 = torch.as_tensor(MC_EDGE_TABLE[:, 1], device=v.lowers.device)
     acti = v.crossing.long()
     rank = torch.cumsum(acti, dim=1) - acti
     nact = acti.sum(dim=1)
     vox, edge = (v.crossing & (rank < v.budget)).nonzero(as_tuple=True)
-    cols = rank[vox, edge]
-    lanes = []
-    for s in starts:
-        g = torch.full((n, v.budget), 1e6, dtype=torch.float32, device=device)
-        g[vox, cols] = s[vox, edge]
-        lanes.append(g.reshape(-1))
-    flat_act = torch.arange(v.budget, device=device)[None] < torch.clamp_max(nact, v.budget)[:, None]
-    args = (*lanes, flat_act.reshape(-1).int())
+    c0, c1 = ec0[edge], ec1[edge]
+    v0, v1 = v.values[vox, c0], v.values[vox, c1]
+    t = v0 / torch.where(torch.abs(v0 - v1) < 1e-12, 1.0, v0 - v1)
+    t = torch.clamp(t, 0.0, 1.0)
+    starts = [c[vox, c0] + (c[vox, c1] - c[vox, c0]) * t for c in v.corners]
+    args = (*starts, torch.ones_like(vox, dtype=torch.int32))
     kwargs = dict(
         iters=config.newton_iters, tol=config.newton_tolerance, eps=config.normal_epsilon,
         use_grad=config.projection_normals == "grad",
     )
-    return args, kwargs, flat_act, rank, nact
+    return args, kwargs, (vox, rank[vox, edge]), rank, nact
 
 
 def _finish_fused(scene, fns, v: _Voxels, config) -> TriangleSoup:
@@ -185,16 +180,23 @@ def _finish_fused(scene, fns, v: _Voxels, config) -> TriangleSoup:
 
 
 def _finish_staged(scene, fns, v: _Voxels, config) -> TriangleSoup:
-    """Staged tail: K7 (or its twin) on the packed lanes, then the slot pick
-    through the rank and the winding fix."""
+    """Staged tail: K7 (or its twin) on the listed crossing edges, its
+    results in each voxel's ``budget`` lanes (zero where a voxel has fewer
+    edges), then the slot pick through the rank and the winding fix."""
     n, budget = v.lowers.shape[0], v.budget
     device = v.lowers.device
-    args, kwargs, flat_act, rank, nact = _staged_inputs(v, config)
-    planes = project_edges(scene, *args, **kwargs)
-    planes = torch.stack(
-        [torch.where(flat_act, p.reshape(n, budget), 0.0) for p in planes], dim=-1
-    )  # (N, budget, 6)
+    args, kwargs, (vox, lane), rank, nact = _staged_inputs(v, config)
+    planes = torch.zeros((n, budget, 6), dtype=torch.float32, device=device)
+    planes[vox, lane] = torch.stack(project_edges(scene, *args, **kwargs), dim=1)
+    return _staged_soup(fns, v, planes, rank, nact, config)
 
+
+def _staged_soup(fns, v: _Voxels, planes, rank, nact, config) -> TriangleSoup:
+    """The staged path's triangles from each voxel's projected lanes
+    ``planes`` ``(N, budget, 6)`` (point and normal, zero in an empty lane):
+    the slot pick through the rank and the winding fix."""
+    n, budget = v.lowers.shape[0], v.budget
+    device = v.lowers.device
     tri_edges = torch.tensor(MC_TRIANGLE_CASES, device=device)[v.case]  # (N, 5, 3)
     slot = rank.gather(1, torch.clamp_min(tri_edges.reshape(n, 15), 0).long())
     over = (slot >= budget).reshape(n, 5, 3).any(dim=-1)
@@ -237,11 +239,37 @@ def kernel_inputs(
     """``(args, kwargs)`` that :func:`extract_triangles` hands kernel K6
     (``mc_fused(scene, *args, **kwargs)``) or, with
     ``config.interpolate_edges``, kernel K7
-    (``project_edges(scene, *args, **kwargs)``), for measuring a kernel on
-    the inputs the pipeline gives it."""
+    (``project_edges(scene, *args, **kwargs)``: the listed crossing edges,
+    every one active), for measuring a kernel on the inputs the pipeline
+    gives it."""
     _check(config)
     v = _classify(sdf_fns(scene), lowers, voxel_size, config)
     return _staged_inputs(v, config)[:2] if config.interpolate_edges else _fused_inputs(v, config)
+
+
+def padded_inputs(
+    scene: SceneDescriptor | SdfFns,
+    lowers: torch.Tensor,
+    voxel_size: float,
+    config: MeshGenConfig = MeshGenConfig(),
+):
+    """K7's ``(args, kwargs)`` in the JAX kernel's layout
+    (``project_edges_pallas`` as ``bsdmg_tpu/ops/marching_cubes.py:392-411``
+    packs it): each voxel's crossing edges of rank < budget in
+    ``config.edge_budget`` lanes, 1e6 in an empty lane, and the ``active``
+    mask. The staged path hands K7 the listed edges instead
+    (:func:`kernel_inputs`); its soup is the same bit for bit."""
+    _check(config)
+    v = _classify(sdf_fns(scene), lowers, voxel_size, config)
+    args, kwargs, (vox, lane), _, _ = _staged_inputs(v, config)
+
+    def lanes(values, fill):
+        out = torch.full((lowers.shape[0], v.budget), fill, dtype=values.dtype,
+                         device=values.device)
+        out[vox, lane] = values
+        return out.reshape(-1)
+
+    return (*(lanes(a, 1e6) for a in args[:3]), lanes(args[3], 0)), kwargs
 
 
 def extract_triangles(

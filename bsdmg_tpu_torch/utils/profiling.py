@@ -153,10 +153,47 @@ def grad_ops(desc) -> int:
     return n
 
 
+def _term_of(axis: int, x: int) -> int:
+    """Which term of a group along ``axis`` (scene_sdf.cuh group_d2) reads
+    coordinate ``x``: 0 the axial one, 1 the lower slot's, 2 the higher's."""
+    return 0 if axis == x else (1 if x == (1 if axis == 0 else 0) else 2)
+
+
+def _stencil_set_ops(cs) -> int:
+    """The shared-term stencil's work on one capsule set over its 12
+    points: each group's three terms at the centre (the axial one 5:
+    subtract, max, min, subtract, square; a slot 3n - 1 for n values); at
+    each point each group's moved term and its sums (two adds, or one where
+    the higher slot moved, whose axial-plus-lower sum the axis's four points
+    share, counted once), then the minima, the sqrt and the radius."""
+    def term(g, k):
+        n = len(g.v1 if k == 1 else g.v2)
+        return 5 if k == 0 else 3 * n - 1
+
+    ops = sum(term(g, k) for g in cs.groups for k in range(3))
+    for x in range(3):
+        for g in cs.groups:
+            k = _term_of(g.axis, x)
+            ops += 4 * (term(g, k) + (1 if k == 2 else 2)) + (k == 2)
+    return ops + 12 * (len(cs.groups) + 1)
+
+
 def fd4_ops(desc) -> int:
-    """project.cuh fd4_grad: 2*eps, 12 SDFs at a shifted coordinate (an add
-    each) and the stencil's 5 per axis."""
-    return 1 + 12 * (sdf_ops(desc) + 1) + 15
+    """project.cuh fd4_grad, whose 12 unrolled SDFs share every term that a
+    shift leaves alone (the shared-term stencil): 2*eps; each point's
+    shifted coordinate (12); the object: with a transform 12 whole object
+    SDFs (transform 18, capsules, sphere 7, smooth union 10), else its
+    capsule set's terms (:func:`_stencil_set_ops`), the sphere's three
+    squares once, per point a square and its sums (two adds, or one on z,
+    whose x*x + y*y is shared) and sqrt and radius, and the smooth union
+    (10) per point; the wireframe's terms and a min per point; the
+    stencil's 5 per axis."""
+    if desc.translation is not None:
+        obj = 12 * (18 + capsule_ops(desc.object) + 7 + 10)
+    else:
+        obj = _stencil_set_ops(desc.object) + 3 + 4 * (3 + 3 + 2) + 1 + 12 * 2 + 12 * 10
+    frame = 0 if desc.frame is None else _stencil_set_ops(desc.frame) + 12
+    return 1 + 12 + obj + frame + 15
 
 
 def newton_step_ops(desc, use_grad: bool) -> int:
@@ -193,11 +230,15 @@ def march_work(steps, outcome, depth) -> tuple[int, int, int]:
     return evals, advances, int((outcome == 0).sum().item())
 
 
+HIT_SHADING = 29  # render_kernel.cu shade_pixel beside its stencil: the point 6, the
+# normalisation 7, the Lambert term 10, the colour mix 6
+
+
 def shade_ops(desc) -> int:
-    """A hit's fd4 normal and shading (render_kernel.cu shade_pixel): the
-    point (6), 2*eps, 12 shifted SDFs, the stencil (15), the normalisation
-    (7), the Lambert term (10) and the colour mix (6)."""
-    return 6 + 1 + 12 * (sdf_ops(desc) + 1) + 15 + 7 + 10 + 6
+    """A hit's fd4 normal and shading in K1 or K3 (render_kernel.cu
+    shade_pixel): the shared-term stencil (:func:`fd4_ops`) and
+    HIT_SHADING."""
+    return fd4_ops(desc) + HIT_SHADING
 
 
 def march_ops(desc, evals: int, advances: int, culled_rays: int) -> int:
@@ -209,8 +250,9 @@ def march_ops(desc, evals: int, advances: int, culled_rays: int) -> int:
 
 
 def render_ops(desc, evals: int, advances: int, hits: int, pixels: int) -> int:
-    """K1: the march, each hit's normal and shading, and per pixel the slab
-    cull and ACES (RAY)."""
+    """K1: the march, each hit's normal and shading (:func:`shade_ops`, the
+    shared-term stencil, though K1's epilogue runs the 12 SDFs whole) and
+    per pixel the slab cull and ACES (RAY)."""
     return march_ops(desc, evals, advances, 0) + hits * shade_ops(desc) + pixels * RAY
 
 

@@ -18,15 +18,24 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    and of K5's march launch, the steps of the fit's target render at 64x64,
    512x512 and 1920x1080 beside K1's on the same 1920x1080 rays, K4 there
    with the step limit at 1, and the latency of one step of the 64x64
-   point's longest ray marched alone; then K1, K2, K4 and K5 each alone in
-   CUDA graphs (one JSON line, which the later phases reuse, and which
-   compares two commits when run from each), and K6 at levels 3 and 5, K7
-   at level 3 and K9's two levels, K8's finish and P1 on the 1080p torus
-   and K8 fresh on its 64^3 mip (the gather route) alone (another line),
-   with the Newton and march step statistics that set their warps'
-   divergence (for the grid launches, warp-steps in row order, 16x8-tile
-   order and with each tile's marched rays compacted), ptxas's registers
-   and spills of K6, K7, K8, K9 and P1, and the SASS loops of K8 and K9;
+   point's longest ray marched alone; the stencil probe: ptxas's
+   registers and stack and the SASS counts (instructions, MUFU, CALL, per
+   loop) of K1, K3, K6 and K7, the kernels that run the fd4 stencil; then
+   K1, K2, K3, K4 and K5 each alone in CUDA graphs (one JSON line, which
+   the later phases reuse, and which compares two commits when run from
+   each), with K3's hits at 1920x1080 (the warps that hold one, those that
+   hold a miss too, the warps when each 16x8 tile lists its hits) and its
+   bound, and K6 at levels 3 and 5, K7 at level 3 (on the staged path's
+   inputs, the listed crossing edges, and on the JAX kernel's padded
+   lanes) and K9's two levels, K8's finish and P1 on the 1080p torus and
+   K8 fresh on its 64^3 mip (the gather route) alone (another line), with
+   the Newton and march step statistics that set their warps' divergence
+   (K7's SIMT efficiency in the padded and the listed order; for the grid
+   launches, warp-steps in row order, 16x8-tile order and with each tile's
+   marched rays compacted), K6's and K7's bounds from the tree's counts,
+   ptxas's registers and spills of K6, K7, K8, K9 and P1, the SASS loops
+   of K8 and K9, and ``cli mesh --interpolate-edges`` twice with its wall
+   time (``--kernel-times`` runs this much and K4's probe);
 3. the render path: ``cli render -o <tmp>.png`` at the default 1920x1080,
    which must launch K1;
 4. K1 against its plain PyTorch version at 1920x1080 (bit for bit), and at
@@ -36,7 +45,8 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    (must launch K1), ``--two-phase row`` (must launch K2 and K3),
    ``--two-phase block`` (K1 at least twice) and ``--roofline``, each
    printing its JSON; K2 (culled, uncull'd, phase A at 16, 32 and 48 steps
-   and the tail after each, relaxed), K3 on K2's planes, and K1 relaxed,
+   and the tail after each, relaxed), K3 on K2's planes (and on a 100x37
+   crop of them whose partial 16x8 tiles hold hits), and K1 relaxed,
    in phase A and resumed over its block list, against their plain
    versions bit for bit; the row, block and unfused images against K1's;
    each pipeline (K1, row, block, unfused) culled or not, exact or relaxed
@@ -50,7 +60,9 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    vertex counts; then ``cli mesh --interpolate-edges``, which must launch
    K7;
 8. K6 and K7 against their plain versions at level 3 (bit for bit, and the
-   JAX package's Pallas-vs-XLA bars), K6 also at level 5, and at level 3
+   JAX package's Pallas-vs-XLA bars; K7 on the staged path's listed
+   crossing edges and on the padded lanes with inactive points), K6 also
+   at level 5, and at level 3
    with the centroid winding, fd4 projection normals, and budgets 12, 6
    and 2 over the voxels with 256 checkerboard voxels (all 12 edges cross)
    appended;
@@ -208,6 +220,33 @@ def rays(width: int, height: int, device):
 
     cam = look_at((5.0, 2.0, -5.0), fov=np.pi / 4, device=device)
     return generate_rays(cam, (width, height), SCREEN)
+
+
+def edge_tile_window(hit: torch.Tensor, width: int, height: int) -> tuple[int, int, dict]:
+    """``(y0, x0, hits)``: the window of ``hit`` (an ``(H, W)`` mask),
+    ``width`` x ``height`` at even offsets, whose partial 16x8 tiles (the
+    last column of tiles, the last row and their corner) hold the most
+    hits and misses (the first that holds the largest least count of
+    either in any of the three), and those tiles' hits."""
+    tail_w, tail_h = width % 16, height % 8
+    table = torch.nn.functional.pad(torch.cumsum(torch.cumsum(hit.long(), 0), 1), (1, 0, 1, 0))
+    ny, nx = hit.shape[0] - height + 1, hit.shape[1] - width + 1
+
+    def box(dy, dx, h, w):  # hits in [y0 + dy, +h) x [x0 + dx, +w) for every (y0, x0)
+        return (table[dy + h:dy + h + ny, dx + w:dx + w + nx] - table[dy:dy + ny, dx + w:dx + w + nx]
+                - table[dy + h:dy + h + ny, dx:dx + nx] + table[dy:dy + ny, dx:dx + nx])
+
+    parts = {"column": (0, width - tail_w, height, tail_w),
+             "row": (height - tail_h, 0, tail_h, width),
+             "corner": (height - tail_h, width - tail_w, tail_h, tail_w)}
+    counts = {k: box(*v) for k, v in parts.items()}
+    least = torch.stack([torch.minimum(counts[k], h * w - counts[k])
+                         for k, (_, _, h, w) in parts.items()]).amin(0)
+    least[1::2] = -1
+    least[:, 1::2] = -1
+    y0, x0 = divmod(int(torch.argmax(least.reshape(-1))), nx)
+    check(int(least[y0, x0]) > 0, "no window's partial tiles hold both hits and misses")
+    return y0, x0, {k: int(v[y0, x0]) for k, v in counts.items()}
 
 
 def compare(kernel, plain) -> dict:
@@ -524,6 +563,13 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
     shaded_twin = rk.shade_planes_torch(desc, o, d, single[0], single[2])
     exact["K3"] = torch.equal(shaded, shaded_twin)
     errors["K3"] = _max_err(shaded, shaded_twin)
+    # K3 on a 100x37 frame, whose last tile column (4 pixels) and row (5)
+    # are partial, cut from the 1080p frame where those tiles hold hits and
+    # misses
+    y0, x0, edge_hits = edge_tile_window(single[2] == 0, 100, 37)
+    crop = [x[y0:y0 + 37, x0:x0 + 100].contiguous() for x in (o, d, single[0], single[2])]
+    exact["K3 100x37 edge tiles"] = torch.equal(rk.shade_cuda(desc, *crop),
+                                                rk.shade_planes_torch(desc, *crop))
     k1_relaxed = rk.render_image_cuda(desc, o, d, c, return_planes=True, omega=1.5)
     exact["K1 relaxed"] = same(k1_relaxed, rk.render_image_planes_torch(desc, o, d, c, omega=1.5))
     rgb, *planes = frame.render(48)
@@ -560,7 +606,8 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
                                                                                             twin)
     torch.cuda.synchronize()
     print(f"parity 1920x1080, bit for bit: {json.dumps(exact)}; {n_blocks} of "
-          f"{rk.block_flags(planes[3]).numel()} 16x8 blocks resumed after 48 steps")
+          f"{rk.block_flags(planes[3]).numel()} 16x8 blocks resumed after 48 steps; K3's "
+          f"100x37 frame from ({x0}, {y0}), hits in its partial tiles {edge_hits}")
     check(all(exact.values()), f"not bit-equal: {[k for k, v in exact.items() if not v]}")
 
     # each kernel alone (prepared struct, preallocated outputs, a CUDA
@@ -568,13 +615,7 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
     desc_c = rk.scene_desc_c(desc, cfg)
     step_limit = cfg.step_limit
 
-    def k3_alone(width, height):
-        ro, rd, rc = rays(width, height, device)
-        planes = rk.trace_cuda(desc, ro, rd, rc)
-        img = torch.empty((height, width, 3), device=device)
-        return graph_ms(lambda: rk._shade_cuda(desc_c, ro, rd, planes[0], planes[2], img))
-
-    times = {(w, h): {"K1": alone[f"K1 {w}x{h}"], "K2": alone[f"K2 {w}x{h}"], "K3": k3_alone(w, h)}
+    times = {(w, h): {k: alone[f"{k} {w}x{h}"] for k in ("K1", "K2", "K3")}
              for w, h in ((1920, 1080), (2560, 1440))}
     for (w, h), t in times.items():
         print(f"time {w}x{h} on {card}, each kernel alone: " + ", ".join(
@@ -659,31 +700,38 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
     }]
 
 
+def run_cli_mesh(kernel: str, extra: list[str], obj: Path) -> tuple[dict, float]:
+    """``cli mesh -o obj <extra>`` with every launch count at 0: it must
+    launch ``kernel`` and give the JAX package's voxel, triangle and vertex
+    counts with finite coordinates. Returns the counts and the seconds."""
+    counts, messages, seconds = run_cli(["mesh", "-o", str(obj), *extra])
+    check(counts[kernel] > 0, f"cli mesh {' '.join(extra)} did not launch {kernel}: {counts}")
+    v, vn, f, finite = read_obj_counts(obj)
+    voxels = [int(m.split()[2]) for m in messages if m.startswith("level ")]
+    print(f"mesh path ({kernel}): cli mesh {' '.join(extra)} -> voxels per level {voxels}, "
+          f"{f} triangles, {v} vertices, {obj.stat().st_size} B OBJ in {seconds:.2f} s, "
+          f"launches {counts}")
+    diffs = {
+        "voxels": (voxels, MESH_LEVEL_VOXELS),
+        "triangles": (f, MESH_TRIANGLES),
+        "vertices": (v, MESH_VERTICES),
+    }
+    for what, (got, want) in diffs.items():
+        if got != want:
+            print(f"  {what} differ from the CPU's: {got} here, {want} there")
+    check(vn == v and f > 0 and finite, f"OBJ has {v} vertices, {vn} normals, {f} faces, "
+          f"finite {finite}")
+    check(voxels == MESH_LEVEL_VOXELS and f == MESH_TRIANGLES and v == MESH_VERTICES,
+          "mesh counts differ from the JAX package's")
+    return counts, seconds
+
+
 def mesh_path_phases() -> dict:
     """Phase 7: the mesh path through the CLI, with K6 and with K7."""
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, extra in (("K6", []), ("K7", ["--interpolate-edges"])):
-            obj = Path(tmp) / f"mesh_{name}.obj"
-            counts, messages, seconds = run_cli(["mesh", "-o", str(obj), *extra])
-            check(counts[name] > 0, f"cli mesh {' '.join(extra)} did not launch {name}: {counts}")
-            v, vn, f, finite = read_obj_counts(obj)
-            voxels = [int(m.split()[2]) for m in messages if m.startswith("level ")]
-            print(f"mesh path ({name}): cli mesh {' '.join(extra)} -> voxels per level {voxels}, "
-                  f"{f} triangles, {v} vertices, {obj.stat().st_size} B OBJ in {seconds:.2f} s, "
-                  f"launches {counts}")
-            diffs = {
-                "voxels": (voxels, MESH_LEVEL_VOXELS),
-                "triangles": (f, MESH_TRIANGLES),
-                "vertices": (v, MESH_VERTICES),
-            }
-            for what, (got, want) in diffs.items():
-                if got != want:
-                    print(f"  {what} differ from the CPU's: {got} here, {want} there")
-            check(vn == v and f > 0 and finite, f"OBJ has {v} vertices, {vn} normals, {f} faces, "
-                  f"finite {finite}")
-            check(voxels == MESH_LEVEL_VOXELS and f == MESH_TRIANGLES and v == MESH_VERTICES,
-                  "mesh counts differ from the JAX package's")
+            counts, _ = run_cli_mesh(name, extra, Path(tmp) / f"mesh_{name}.obj")
             launches[name] = counts[name]
     return launches
 
@@ -857,28 +905,35 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
               f"K6 ({name}) overflowed no voxel")
         del kern, plain
 
-    # K7 against its plain version on the staged path's inputs
-    f = fields[main_level]
-    args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size,
-                                 dataclasses.replace(cfg, interpolate_edges=True))
-    kern = mesh_kernel.project_edges_cuda(desc, *args, **kwargs)
-    stats = {}
-    plain = mesh_kernel.project_edges_torch(fns, *args[:3], args[3].bool(), stats=stats, **kwargs)
-    torch.cuda.synchronize()
+    # K7 against its plain version on the staged path's inputs (the listed
+    # crossing edges) and on the JAX kernel's padded lanes, some inactive
+    args, padded, kwargs = k7_inputs(desc, fields[main_level], cfg)
+    active = padded[3] > 0
+    check(all(torch.equal(a, b[active]) for a, b in zip(args, padded)),
+          "the staged path does not hand K7 the listed crossing edges")
+    check(not bool(active.all()), "the padded lanes have no inactive point")
+    k7 = {}
+    for name, points in (("pipeline", args), ("padded", padded)):
+        kern = mesh_kernel.project_edges_cuda(desc, *points, **kwargs)
+        stats = {}
+        plain = mesh_kernel.project_edges_torch(fns, *points[:3], points[3].bool(), stats=stats,
+                                                **kwargs)
+        torch.cuda.synchronize()
+        k7[name] = res = {
+            "points": points[0].numel(),
+            "active": int(points[3].sum()),
+            "pos_max_err": max(_max_err(a, b) for a, b in zip(kern[:3], plain[:3])),
+            "nrm_max_err": max(_max_err(a, b) for a, b in zip(kern[3:], plain[3:])),
+            "exact": all(torch.equal(a, b) for a, b in zip(kern, plain)),
+            "newton_steps": stats["newton_steps"],
+        }
+        print(f"parity K7 level {main_level} ({name}): {json.dumps(res)}")
+        check(res["pos_max_err"] <= POSITION_ATOL and res["nrm_max_err"] <= NORMAL_ATOL,
+              f"K7 bars ({name}) {res}")
+        check(res["exact"], f"K7 and its plain version are not bit-equal ({name})")
+    res = k7["pipeline"]
     m = args[0].numel()
-    res = {
-        "points": m,
-        "active": int(args[3].sum()),
-        "pos_max_err": max(_max_err(a, b) for a, b in zip(kern[:3], plain[:3])),
-        "nrm_max_err": max(_max_err(a, b) for a, b in zip(kern[3:], plain[3:])),
-        "exact": all(torch.equal(a, b) for a, b in zip(kern, plain)),
-        "newton_steps": stats["newton_steps"],
-    }
-    print(f"parity K7 level {main_level}: {json.dumps(res)}")
-    check(res["pos_max_err"] <= POSITION_ATOL and res["nrm_max_err"] <= NORMAL_ATOL,
-          f"K7 bars {res}")
-    check(res["exact"], "K7 and its plain version are not bit-equal")
-    ops7 = mesh_ops(desc, kwargs["use_grad"], stats["newton_steps"], m)
+    ops7 = mesh_ops(desc, kwargs["use_grad"], res["newton_steps"], m)
     b7_ms, b7_by = bound(m * (16 + 24), ops7)
     k7_ms = k7_alone_ms(desc, args, kwargs)
     w7_ms = median_ms(lambda: mesh_kernel.project_edges_cuda(desc, *args, **kwargs), reps=5)
@@ -908,7 +963,7 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
         "source": mesh_kernel.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/mesh_kernel.py:66",
         "launches": launches["K7"],
-        "max_abs_err": max(res["pos_max_err"], res["nrm_max_err"]),
+        "max_abs_err": max(max(r["pos_max_err"], r["nrm_max_err"]) for r in k7.values()),
         "ms": k7_ms,
         "plain_ms": p7_ms,
         "bound_ms": b7_ms,
@@ -1996,6 +2051,35 @@ def march_probe(card: str, device, kernel: str = K1_DEFAULT) -> dict:
     return out
 
 
+#: the kernels that run the fd4 stencil, at their main paths' scene structures
+STENCIL_KERNELS = (("render_kernel.cu", K1_DEFAULT), ("render_kernel.cu", "shade_kernel<Box<true, false>>"),
+                   ("mc_kernel.cu", "mc_kernel<Box<false, false>>"),
+                   ("project_kernel.cu", "project_kernel<Box<false, false>>"))
+
+
+def stencil_probe(card: str) -> dict:
+    """ptxas's registers, stack and spills of K1, K3, K6 and K7 at their
+    main paths' structures, and each one's SASS: its static instructions,
+    MUFU (the square roots' and divisions' first steps) and CALL (their
+    slow paths) in all and in each loop (:func:`loops_of`)."""
+    from bsdmg_tpu_torch.ops.cuda import build
+
+    functions = sass_functions(build.build())
+    out = {}
+    for source, name in STENCIL_KERNELS:
+        found = [r for r in kernel_resources(source, (name,)) if r["kernel"] == name]
+        check(len(found) == 1 and name in functions, f"{name} not in the build of {source}")
+        code = functions[name]
+        out[name] = {**{k: found[0][k] for k in ("registers", "stack", "spill_stores")},
+                     "instructions": len(code), "mufu": sum("MUFU" in x for _, x in code),
+                     "call": sum("CALL" in x for _, x in code),
+                     "loops": [{k: loop[k] for k in ("instructions", "mufu", "call")}
+                               for loop in loops_of(code)]}
+    print(f"stencil kernels on {card} (ptxas; SASS static instructions, MUFU, CALL, and per "
+          f"loop): {json.dumps(out)}")
+    return out
+
+
 def step_histogram(steps: torch.Tensor, limit: int) -> dict:
     """Summary of a march's steps per ray: the largest, the mean, the rays
     at the step limit, the warp-steps in 8x4 patches (K1's and K4's warps)
@@ -2066,9 +2150,30 @@ def march_params_probe(card: str, device) -> dict:
     return out
 
 
+def shade_hit_stats(outcome: torch.Tensor) -> dict:
+    """What sets K3's stencil work on a traced frame's outcome plane: the
+    hits; the warps of K1's layout (8x4 patches of 16x8 tiles) that hold a
+    hit, and of those the ones that hold a miss too (a thread a pixel runs
+    the stencil there on part of the warp); and the sum over 16x8 tiles of
+    ceil(hits / 32), the warps that shade when each tile's hits are listed."""
+    from bsdmg_tpu_torch.bench import WARP, _block_max
+
+    hit = (outcome == 0).cpu().numpy().astype(np.int64)
+    h, w = hit.shape
+    warp_hits = _block_max(hit, WARP) > 0
+    warp_misses = _block_max(1 - hit, WARP) > 0
+    tiles = np.pad(hit, ((0, -h % 8), (0, -w % 16))).reshape((h + 7) // 8, 8, (w + 15) // 16, 16)
+    per_tile = tiles.sum(axis=(1, 3))
+    return {"pixels": h * w, "hits": int(hit.sum()), "warps": int(warp_hits.size),
+            "warps_with_a_hit": int(warp_hits.sum()),
+            "warps_with_a_hit_and_a_miss": int((warp_hits & warp_misses).sum()),
+            "tile_listed_warps": int(((per_tile + 31) // 32).sum())}
+
+
 def kernel_times(card: str, device) -> dict:
-    """K1, K2, K4 and K5 each alone (:func:`graph_ms`, prepared structs and
-    outputs): K1 and K2 at 1920x1080 and 2560x1440, K1's phase A at 16 and
+    """K1, K2, K3, K4 and K5 each alone (:func:`graph_ms`, prepared structs
+    and outputs): K1, K2 and K3 (on K2's planes; with its hit statistics and
+    bound at 1920x1080) at 1920x1080 and 2560x1440, K1's phase A at 16 and
     48 steps and its resume over the 16x8 blocks still active after 48 at
     1920x1080 (beside the block pipeline through the wrapper, by CUDA
     events), K4 (the fit's target render) at 1920x1080, 512x512 and 64x64,
@@ -2094,6 +2199,17 @@ def kernel_times(card: str, device) -> dict:
                                                                 cap=cfg.step_limit))
         times[f"K2 {w}x{h}"] = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, None, planes[:3],
                                                                cap=cfg.step_limit))
+        # K3 on the frame's traced planes
+        traced = rk.trace_cuda(desc, o, d, c)
+        times[f"K3 {w}x{h}"] = graph_ms(lambda: rk._shade_cuda(desc_c, o, d, traced[0], traced[2],
+                                                               rgb))
+        if w == 1920:
+            stats = shade_hit_stats(traced[2])
+            k3_bound = bound(shade_bytes(c.numel(), stats["hits"]),
+                             shade_pass_ops(desc, stats["hits"], c.numel()))
+            print(f"K3 {w}x{h} on {card}: {json.dumps(stats)}; bound {k3_bound[0]:.4f} ms "
+                  f"({k3_bound[1]}, {shade_pass_ops(desc, stats['hits'], c.numel()):.4g} FP32 "
+                  f"operations, {shade_bytes(c.numel(), stats['hits'])} B)")
         if w == 1920:
             for n in (16, 48):
                 times[f"K1 phase A {n} {w}x{h}"] = graph_ms(
@@ -2187,14 +2303,15 @@ def warp_max_stats(steps: torch.Tensor, groups: torch.Tensor) -> dict:
 
 def newton_step_stats(desc, fns, args, kwargs) -> dict:
     """K6's Newton steps per projected edge from its plain version on the
-    card: the histogram, and the mean warp maximum in two orders. The voxel
+    card: their sum, the valid triangles, the histogram, and the mean warp
+    maximum in two orders. The voxel
     order runs 32 voxels a warp, each edge of the 12 in turn over the lanes
     whose voxel projects it; the edge order runs 32 consecutive projected
     edges a warp, in lists of the edges of 32 voxels (rank order)."""
     from bsdmg_tpu_torch.ops.cuda import mc_kernel
 
     stats: dict = {}
-    mc_kernel.mc_fused_torch(fns, *args, stats=stats, **kwargs)
+    meta = mc_kernel.mc_fused_torch(fns, *args, stats=stats, **kwargs)[4]
     steps = stats["newton_point_steps"]  # the twin's edges: voxel by voxel, in rank order
     vox, edge, _, slot = mc_kernel.edge_slots(args[3], kwargs["budget"])
     block = vox // mc_kernel.BLOCK_VOXELS
@@ -2211,6 +2328,8 @@ def newton_step_stats(desc, fns, args, kwargs) -> dict:
 
     return {
         "edges": vox.numel(),
+        "newton_steps": stats["newton_steps"],
+        "valid_triangles": int(((meta[:, None] >> torch.arange(5, device=meta.device)) & 1).sum()),
         "blocks": {f"{v}/{t}": rounds(v, t) for v, t in ((32, 128), (28, 128), (60, 256))},
         "histogram": torch.bincount(steps.long(), minlength=kwargs["iters"] + 1).tolist(),
         "voxel_order": warp_max_stats(steps, (vox // 32) * 12 + edge),
@@ -2218,20 +2337,39 @@ def newton_step_stats(desc, fns, args, kwargs) -> dict:
     }
 
 
-def projection_step_stats(fns, args, kwargs) -> dict:
+def k7_inputs(desc, field, cfg):
+    """K7's inputs at a field: ``(pipeline, padded, kwargs)``, the listed
+    crossing edges that the staged path hands K7 (``kernel_inputs``, every
+    point active) and the JAX kernel's padded lanes (an ``active`` mask)."""
+    import dataclasses
+
+    from bsdmg_tpu_torch.ops import marching_cubes as mc
+
+    cfg = dataclasses.replace(cfg, interpolate_edges=True)
+    args, kwargs = mc.kernel_inputs(desc, field.lowers, field.voxel_size, cfg)
+    padded = mc.padded_inputs(desc, field.lowers, field.voxel_size, cfg)[0]
+    return args, padded, kwargs
+
+
+def projection_step_stats(fns, padded, kwargs) -> dict:
     """K7's Newton steps per point (inactive points take none) from its
-    plain version on the card, 32 consecutive points a warp."""
+    plain version on the card over the padded lanes, 32 consecutive points
+    a warp in two orders: the padded lanes, and the listed crossing edges
+    (the active points in voxel order)."""
     from bsdmg_tpu_torch.ops.cuda import mesh_kernel
 
     stats: dict = {}
-    mesh_kernel.project_edges_torch(fns, *args[:3], args[3].bool(), stats=stats, **kwargs)
+    mesh_kernel.project_edges_torch(fns, *padded[:3], padded[3].bool(), stats=stats, **kwargs)
     steps = stats["newton_point_steps"]
-    active = args[3] > 0
+    active = padded[3] > 0
     lanes = torch.arange(steps.numel(), device=steps.device)
+    listed = torch.arange(int(active.sum()), device=steps.device)
     return {"points": steps.numel(), "active": int(active.sum()),
+            "newton_steps": stats["newton_steps"],
             "histogram": torch.bincount(steps.long()[active]).tolist(),
             "active_mean": steps[active].float().mean().item(),
-            "point_order": warp_max_stats(steps, lanes // 32)}
+            "padded_order": warp_max_stats(steps, lanes // 32),
+            "listed_order": warp_max_stats(steps[active], listed // 32)}
 
 
 def warp_steps(steps: torch.Tensor, warps: torch.Tensor) -> int:
@@ -2301,20 +2439,28 @@ def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
     fns = sdf_fns(desc)
     fields = mesh_fields(desc, cfg, device, 5)
     probes: dict = {}
+    bounds = {}
     for level in (3, 5):
         f = fields[level]
         args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size, cfg)
         times[f"K6 level {level}"] = k6_alone_ms(desc, args, kwargs)
         times[f"K6 level {level} wrapper"] = median_ms(
             lambda: mc_kernel.mc_fused_cuda(desc, *args, **kwargs), reps=5)
-        probes[f"K6 level {level}"] = newton_step_stats(desc, fns, args, kwargs)
+        probes[f"K6 level {level}"] = probe = newton_step_stats(desc, fns, args, kwargs)
+        ops = mesh_ops(desc, kwargs["use_grad"], probe["newton_steps"], probe["edges"],
+                       probe["edges"], probe["valid_triangles"])
+        bounds[f"K6 level {level}"] = (*bound(f.count * (24 + 404), ops), ops)
     f = fields[3]
-    args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size,
-                                 MeshGenConfig(interpolate_edges=True))
-    times["K7 level 3"] = k7_alone_ms(desc, args, kwargs)
+    pipeline, padded, kwargs = k7_inputs(desc, f, cfg)
+    for name, args in (("", pipeline), (" padded", padded)):
+        times[f"K7 level 3{name}"] = k7_alone_ms(desc, args, kwargs)
     times["K7 level 3 wrapper"] = median_ms(
-        lambda: mesh_kernel.project_edges_cuda(desc, *args, **kwargs), reps=5)
-    probes["K7 level 3"] = projection_step_stats(fns, args, kwargs)
+        lambda: mesh_kernel.project_edges_cuda(desc, *pipeline, **kwargs), reps=5)
+    probes["K7 level 3"] = probe = projection_step_stats(fns, padded, kwargs)
+    for name, args in (("", pipeline), (" padded", padded)):
+        m = args[0].numel()
+        ops = mesh_ops(desc, kwargs["use_grad"], probe["newton_steps"], m)
+        bounds[f"K7 level 3{name}"] = (*bound(m * (16 + 24), ops), ops)
     del fields
 
     grid, march = torus_grid(device), MarchConfig()
@@ -2332,6 +2478,8 @@ def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
           + json.dumps({k: v for k, v in times.items() if k.startswith(("K6", "K7", "K8", "K9",
                                                                           "P1"))}))
     print(f"step statistics on {card}: {json.dumps(probes)}")
+    print("bounds of K6 and K7 from this tree's counts (ms, by, FP32 operations): "
+          + json.dumps(bounds))
     for source, prefixes in (("mc_kernel.cu", ("mc_",)), ("project_kernel.cu", ("project_",)),
                              ("grid_kernel.cu", ("grid_", "contraction_"))):
         for r in kernel_resources(source, prefixes):
@@ -2341,6 +2489,17 @@ def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
                                                            "contraction_kernel")).items():
         print(f"  SASS loops of {kernel}: {json.dumps(loops)}")
     return probes
+
+
+def mesh_cli_seconds(card: str) -> list[float]:
+    """``cli mesh --interpolate-edges`` at its defaults (level 3) twice in
+    this process (:func:`run_cli_mesh`): its wall seconds (host clock,
+    after a sync), the second run warm."""
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [run_cli_mesh("K7", ["--interpolate-edges"], Path(tmp) / "mesh.obj")[1]
+                for _ in range(2)]
+    print(f"cli mesh --interpolate-edges on {card}: seconds {json.dumps(runs)}")
+    return runs
 
 
 def main(argv: list[str]) -> int:
@@ -2365,11 +2524,14 @@ def main(argv: list[str]) -> int:
     if argv:
         # the kernels alone and nothing else: run from each of two checkouts
         # (this file copied into the other) to compare them on one card
+        stencil_probe(card)
         mesh_grid_kernel_times(card, device, kernel_times(card, device))
+        mesh_cli_seconds(card)
         march_params_probe(card, device)
         return 0
 
     march_probe(card, device)
+    stencil_probe(card)
     march_params_probe(card, device)
     alone = kernel_times(card, device)
     mesh_grid_kernel_times(card, device, alone)

@@ -173,16 +173,39 @@ def test_roofline_and_bounds():
     assert profiling.bound(0, 67e9) == (pytest.approx(1.0), "operations")
     desc = compile_scene(reference_render_scene())
     sdf = profiling.sdf_ops(desc)
-    # K1's count, as chip_smoke.py has always printed it
+    # K1's count: the march, each hit's shared-term stencil and shading
     evals, advances, hits, pixels = 1000, 900, 30, 100
     assert profiling.render_ops(desc, evals, advances, hits, pixels) == (
-        evals * (sdf + 9) + advances * 3 + hits * (6 + 1 + 12 * (sdf + 1) + 15 + 7 + 10 + 6)
+        evals * (sdf + 9) + advances * 3 + hits * (profiling.fd4_ops(desc) + 6 + 7 + 10 + 6)
         + pixels * 124)
     render = profiling.render_roofline(desc, 64, 32, avg_steps=10.0, hits=30)
     assert render.nbytes == 64 * 32 * 40
     assert render.ops == profiling.render_ops(desc, 64 * 32 * 10, 64 * 32 * 10, 30, 64 * 32)
     grad = profiling.grad_roofline(64, 32, avg_steps=10.0, hits=30)
     assert grad.ops > render.ops and grad.nbytes == 64 * 32 * 40
+
+
+def test_shared_stencil_operation_counts():
+    """The fd4 stencil's operations as csrc/project.cuh runs them: per
+    capsule set 45 for the centre's terms, 3 shared sums and 288 over the
+    12 points; without a transform the sphere's squares (60) and the
+    smooth union (120); with one the object whole at each point. About 40%
+    fewer than 12 whole SDFs (1 + 12 * (SDF + 1) + 15); K1, K3, K6 and K7
+    all count the shared one."""
+    from bsdmg_tpu_torch.models import reference_object
+
+    obj = compile_scene(reference_object())
+    render = compile_scene(reference_render_scene())
+    assert profiling._stencil_set_ops(obj.object) == 45 + 3 + 288
+    assert profiling.fd4_ops(obj) == 1 + 12 + 336 + 60 + 120 + 15 == 544
+    assert profiling.fd4_ops(render) == 544 + 336 + 12 == 892
+    assert profiling.sdf_ops(render) == 128  # 12 whole SDFs: 1 + 12 * 129 + 15 = 1564
+    moved = compile_scene(reference_object(), {**reference_object().params,
+                                               "object_center": torch.tensor([0.3, -0.2, 0.5])})
+    assert moved.translation is not None
+    # nothing to share: the 12 SDFs whole
+    assert profiling.fd4_ops(moved) == 1 + 12 * (profiling.sdf_ops(moved) + 1) + 15
+    assert profiling.shade_ops(render) == 892 + 6 + 7 + 10 + 6
 
 
 def test_kernel_byte_counts():

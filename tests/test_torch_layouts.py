@@ -19,8 +19,12 @@ kernel reads and writes are held against what they mirror:
   rays in thread order, as a CPU run of the kernel's ballot and warp
   counts lists them, and as a permutation of the active set;
 * K6's edge lists (``mc_kernel.edge_slots``) list exactly the crossing
-  edges of rank < budget that the staged path (``_staged_inputs``) packs,
+  edges of rank < budget that the staged path (``_staged_inputs``) lists,
   each block's slots once each, voxel by voxel in rank order;
+* the staged path's soup over those listed edges (what it hands K7) equals
+  the soup over the JAX kernel's padded lanes (``padded_inputs``, empty
+  lanes inactive and zeroed), bit for bit, and the listed points are the
+  padded lanes' active ones;
 * ``make_contraction_levels`` gives each of K9's levels its cell-packed
   copy, which K9 reads.
 """
@@ -43,7 +47,15 @@ from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid, _outside_distance, _outside
 from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
 from bsdmg_tpu_torch.ops.cuda import mc_kernel
 from bsdmg_tpu_torch.ops.cuda.csdf import SdfFns, compile_scene, sdf_fns
-from bsdmg_tpu_torch.ops.marching_cubes import _classify, _staged_inputs, kernel_inputs
+from bsdmg_tpu_torch.ops.cuda.mesh_kernel import project_edges
+from bsdmg_tpu_torch.ops.marching_cubes import (
+    _classify,
+    _staged_inputs,
+    _staged_soup,
+    extract_triangles,
+    kernel_inputs,
+    padded_inputs,
+)
 from bsdmg_tpu_torch.weights import field_from_numpy
 
 torch.set_num_threads(1)
@@ -328,15 +340,29 @@ def _checker(x, y, z):
     return torch.sin(np.pi * (x + 0.5)) * torch.sin(np.pi * (y + 0.5)) * torch.sin(np.pi * (z + 0.5))
 
 
+def _checker_value_and_grad(x, y, z):
+    with torch.enable_grad():
+        p = [t.detach().requires_grad_() for t in (x, y, z)]
+        d = _checker(*p)
+        g = torch.autograd.grad(d.sum(), p)
+    return (d.detach(), *g)
+
+
+def _mesh_field(name: str, field_8):
+    """``(fns, lowers, voxel size)``: the reference object's field, or a 4^3
+    block of unit voxels whose corners alternate in sign (all 12 edges
+    cross)."""
+    if name == "reference":
+        return sdf_fns(compile_scene(reference_object())), field_8.lowers, field_8.voxel_size
+    grid = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3, indexing="ij"), dim=-1)
+    return SdfFns(_checker, _checker_value_and_grad), grid.reshape(-1, 3), 1.0
+
+
 @pytest.mark.parametrize("budget", [2, 6, 12])
 @pytest.mark.parametrize("field", ["reference", "checkerboard"])
 def test_edge_slots_list_the_staged_edges(field_8, budget, field):
     cfg = MeshGenConfig(init_factor=8, edge_budget=budget)
-    if field == "reference":
-        fns, lowers, vs = sdf_fns(compile_scene(reference_object())), field_8.lowers, field_8.voxel_size
-    else:  # every corner alternates in sign: all 12 edges cross
-        grid = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3, indexing="ij"), dim=-1)
-        fns, lowers, vs = SdfFns(_checker, None), grid.reshape(-1, 3), 1.0
+    fns, lowers, vs = _mesh_field(field, field_8)
     v = _classify(fns, lowers, vs, cfg)
     _, kwargs = kernel_inputs(fns, lowers, vs, cfg)
     _, _, _, rank, nact = _staged_inputs(v, cfg)
@@ -361,3 +387,36 @@ def test_edge_slots_list_the_staged_edges(field_8, budget, field):
         first = torch.cumsum(listed[b * size:(b + 1) * size], 0) - listed[b * size:(b + 1) * size]
         assert torch.equal(slot[mine] - r[mine], first[voxel[mine] - b * size])
     assert int(slot.max()) < 12 * size
+
+
+@pytest.mark.parametrize("budget", [2, 6, 12])
+@pytest.mark.parametrize("field", ["reference", "checkerboard"])
+def test_staged_soup_over_listed_edges_equals_padded_lanes(field_8, budget, field):
+    cfg = MeshGenConfig(init_factor=8, edge_budget=budget, interpolate_edges=True)
+    fns, lowers, vs = _mesh_field(field, field_8)
+    n = lowers.shape[0]
+    soup = extract_triangles(fns, lowers, vs, cfg)
+
+    # the padded-lane path: K7's twin over every lane, the empty ones zeroed
+    args, kwargs = padded_inputs(fns, lowers, vs, cfg)
+    active = args[3] > 0
+    v = _classify(fns, lowers, vs, cfg)
+    _, _, _, rank, nact = _staged_inputs(v, cfg)
+    assert args[0].numel() == n * budget
+    assert int(active.sum()) == int(torch.clamp_max(nact, budget).sum())
+    if field == "reference" and budget > 2:
+        assert not active.all()  # lanes the JAX layout pads
+    if budget == 12 or (field == "reference" and budget > 2):
+        assert int(soup.valid.sum()) > 0
+    planes = torch.stack([torch.where(active, p, 0.0).reshape(n, budget)
+                          for p in project_edges(fns, *args, **kwargs)], dim=-1)
+    padded = _staged_soup(fns, v, planes, rank, nact, cfg)
+    for a, b in zip(soup[:3], padded[:3]):
+        assert torch.equal(a, b)
+    assert soup.edge_overflow == padded.edge_overflow == int(torch.clamp_min(nact - budget, 0).sum())
+
+    # what the staged path hands K7: the padded lanes' active points, in order
+    listed, listed_kwargs = kernel_inputs(fns, lowers, vs, cfg)
+    assert listed_kwargs == kwargs
+    assert all(torch.equal(a, p[active]) for a, p in zip(listed[:3], args[:3]))
+    assert bool((listed[3] == 1).all()) and listed[3].dtype == torch.int32

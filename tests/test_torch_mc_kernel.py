@@ -9,10 +9,11 @@ package on the same inputs:
   compiler's SDF to 1e-6, on seeded points and on the x=0, y=0 and z=0
   planes, where the factorised capsule groups tie and JAX splits the
   cotangent;
-* ``mc_fused_torch`` against ``mc_fused_pallas`` and ``project_edges_torch``
-  against ``project_edges_pallas``, both in interpret mode, on the packed
-  inputs the port's pipeline builds: validity/meta bits exactly, positions
-  within 2e-5, normals within 2e-4 (tests/test_mesh.py:314-320);
+* ``mc_fused_torch`` against ``mc_fused_pallas`` on the packed inputs the
+  port's pipeline builds, and ``project_edges_torch`` against
+  ``project_edges_pallas`` on the JAX kernel's padded lanes
+  (``padded_inputs``), both in interpret mode: validity/meta bits exactly,
+  positions within 2e-5, normals within 2e-4 (tests/test_mesh.py:314-320);
 * the checkerboard overflow case of tests/test_mesh.py:430-489.
 """
 
@@ -47,7 +48,7 @@ from bsdmg_tpu_torch.ops.cuda.csdf import (
     descriptor_csdf_value_and_grad,
     sdf_fns,
 )
-from bsdmg_tpu_torch.ops.marching_cubes import extract_triangles, kernel_inputs
+from bsdmg_tpu_torch.ops.marching_cubes import extract_triangles, kernel_inputs, padded_inputs
 from bsdmg_tpu_torch.ops.tables import MC_EDGE_MIDPOINTS
 from bsdmg_tpu_torch.weights import field_from_numpy
 
@@ -166,9 +167,10 @@ def test_mc_fused_torch_matches_pallas(field_8):
 
 
 def test_project_edges_torch_matches_pallas(field_8):
+    """On the JAX kernel's layout: padded lanes, some inactive."""
     cfg = MeshGenConfig(init_factor=8, interpolate_edges=True)
     desc = compile_scene(reference_object())
-    args, kwargs = kernel_inputs(desc, field_8.lowers, field_8.voxel_size, cfg)
+    args, kwargs = padded_inputs(desc, field_8.lowers, field_8.voxel_size, cfg)
     got = mesh_kernel.project_edges_torch(sdf_fns(desc), *args[:3], args[3].bool(), **kwargs)
     ref = project_edges_pallas(
         compile_scene_csdf(jax_object()), *(jnp.asarray(a.numpy()) for a in args), interpret=True,

@@ -4,8 +4,13 @@ alone, on one CUDA card.
 
     python3 tools/time_kernels_alone.py CHECKOUT [TORUS_CACHE.pt] [--no-mesh]
 
-Builds CHECKOUT's kernels and prints one JSON line (``SWEEP {...}``): K6 at
-levels 3 and 5 and K7 at level 3 of the reference object (not with
+Builds CHECKOUT's kernels and prints one JSON line (``SWEEP {...}``): K1, K2
+and K3 (on K2's planes) at 1920x1080, K1 and K3 held against their plain
+versions bit for bit; K6 at levels 3 and 5 and K7 at level 3 of the
+reference object on the staged path's inputs (the listed crossing edges)
+and on the JAX kernel's padded lanes (``chip_smoke.k7_inputs``), K6 (also
+with fd4 projection normals and with the centroid winding) and K7 (both
+layouts) held against their plain versions bit for bit (not with
 ``--no-mesh``); each launch of the contraction route (K9's two levels, K8's
 finish) and P1's normals on the 1080p torus frame, and K8 fresh on the
 gather route's 64^3 mip; K4 as the fit's target render at 64x64, 512x512
@@ -15,7 +20,8 @@ CUDA graph (``chip_smoke.graph_ms`` from CHECKOUT's ``chip_smoke.py``),
 with K6 at level 3, every grid launch and K4 at 512x512 held against their
 plain versions bit for bit (K4's dfdt within ``chip_smoke.DFDT_ATOL``);
 then ptxas's registers and spills of K6, the grid march kernels and K4's
-and K5's march launches. Run it once per checkout in one call (variants of
+and K5's march launches, and ``chip_smoke.stencil_probe``'s registers and
+SASS counts of K1, K3, K6 and K7. Run it once per checkout in one call (variants of
 a kernel unpacked side by side) to compare them on one card. With
 TORUS_CACHE the baked 128^3 torus grid is read from that file, or written
 there by the first run.
@@ -40,6 +46,8 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("time_kernels_alone: no CUDA device", file=sys.stderr)
         return 2
+    import dataclasses
+
     import chip_smoke as cs
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.cam import generate_rays, look_at
@@ -47,8 +55,9 @@ def main(argv: list[str]) -> int:
     from bsdmg_tpu_torch.grad import render_image_diff
     from bsdmg_tpu_torch.models import reference_object, reference_render_scene
     from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid, coarsen_grid_lower
-    from bsdmg_tpu_torch.ops.cuda import build, mc_kernel
+    from bsdmg_tpu_torch.ops.cuda import build, mc_kernel, mesh_kernel
     from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
     from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
     from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds, sdf_fns
     from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
@@ -57,6 +66,24 @@ def main(argv: list[str]) -> int:
     build.build()
     device = torch.device("cuda", 0)
     out = {"checkout": root.name, "card": cs.card_line(), "build_s": time.perf_counter() - t0}
+    march = MarchConfig()
+    scene = reference_render_scene(device=device)
+    rdesc = compile_scene(scene)
+    rdesc_c = rk.scene_desc_c(rdesc, march)
+    o, d, c = cs.rays(1920, 1080, device)
+    rgb = torch.empty((1080, 1920, 3), device=device)
+    planes = tuple(torch.empty_like(c, dtype=dt) for dt in (torch.float32, torch.int32, torch.int32))
+    out["K1 1920x1080"] = cs.graph_ms(lambda: rk._render_cuda(rdesc_c, o, d, c, rgb, None,
+                                                              cap=march.step_limit))
+    out["K2 1920x1080"] = cs.graph_ms(lambda: rk._trace_cuda(rdesc_c, o, d, c, None, planes,
+                                                             cap=march.step_limit))
+    traced = rk.trace_cuda(rdesc, o, d, c)
+    out["K3 1920x1080"] = cs.graph_ms(lambda: rk._shade_cuda(rdesc_c, o, d, traced[0], traced[2],
+                                                             rgb))
+    out["K1 exact"] = cs.same(rk.render_image_cuda(rdesc, o, d, c, return_planes=True),
+                              rk.render_image_planes_torch(rdesc, o, d, c))
+    out["K3 exact"] = torch.equal(rk.shade_cuda(rdesc, o, d, traced[0], traced[2]),
+                                  rk.shade_planes_torch(rdesc, o, d, traced[0], traced[2]))
     cfg = MeshGenConfig()
     desc = compile_scene(reference_object(device=device))
     fields = cs.mesh_fields(desc, cfg, device, 5 if mesh else 0)
@@ -64,15 +91,22 @@ def main(argv: list[str]) -> int:
         f = fields[level]
         args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size, cfg)
         if level == 3:
-            kern = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
-            plain = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
-            out["K6 L3 exact"] = all(torch.equal(a, b) for a, b in zip(kern, plain))
+            for tag, change in (("", {}), (" fd4", dict(projection_normals="fd4")),
+                                (" centroid", dict(winding_normals="centroid_fd4"))):
+                a, kw = kernel_inputs(desc, f.lowers, f.voxel_size,
+                                      dataclasses.replace(cfg, **change))
+                kern = mc_kernel.mc_fused_cuda(desc, *a, **kw)
+                plain = mc_kernel.mc_fused_torch(sdf_fns(desc), *a, **kw)
+                out[f"K6 L3{tag} exact"] = all(torch.equal(x, y) for x, y in zip(kern, plain))
         out[f"K6 L{level}"] = cs.k6_alone_ms(desc, args, kwargs)
     if mesh:
-        f = fields[3]
-        args, kwargs = kernel_inputs(desc, f.lowers, f.voxel_size,
-                                     MeshGenConfig(interpolate_edges=True))
-        out["K7 L3"] = cs.k7_alone_ms(desc, args, kwargs)
+        pipeline, padded, kwargs = cs.k7_inputs(desc, fields[3], cfg)
+        for tag, args in (("", pipeline), (" padded", padded)):
+            out[f"K7 L3{tag}"] = cs.k7_alone_ms(desc, args, kwargs)
+            kern = mesh_kernel.project_edges_cuda(desc, *args, **kwargs)
+            plain = mesh_kernel.project_edges_torch(sdf_fns(desc), *args[:3], args[3].bool(),
+                                                    **kwargs)
+            out[f"K7 L3{tag} exact"] = all(torch.equal(x, y) for x, y in zip(kern, plain))
 
     cache = Path(argv[1]) if len(argv) == 2 else None
     if cache is not None and cache.exists():
@@ -84,7 +118,6 @@ def main(argv: list[str]) -> int:
         if cache is not None:
             torch.save({"values": grid.values.cpu(), "lo": list(grid.lo), "hi": list(grid.hi)},
                        cache)
-    march = MarchConfig()
     frame = generate_rays(look_at(cs.TORUS_CAMERA, device=device), (1920, 1080), cs.SCREEN)
     _, launches, stencil, _ = cs.staged_contraction(grid, frame, march)
     mip = tg.interp_sampler(coarsen_grid_lower(grid, tg.MID_RESOLUTION))
@@ -97,7 +130,6 @@ def main(argv: list[str]) -> int:
         out[name] = cs.march_kernel_ms(sampler, frame, march, state)
     out["P1"] = cs.sample_kernel_ms(tg.interp_sampler(grid), stencil)
 
-    scene = reference_render_scene(device=device)
     bb6, bb25 = (cs.inflated(scene_bounds(scene), by) for by in (0.6, 0.25))
     true = cs.shape_params(scene)
     perturbed = cli._apply_perturb(true, cs.FIT_PERTURB)
@@ -134,6 +166,7 @@ def main(argv: list[str]) -> int:
                              ("diff_kernel.cu", ("march_params", "loss_march"))):
         for r in cs.kernel_resources(source, prefixes):
             print(f"  ptxas {root.name}: {json.dumps(r)}")
+    cs.stencil_probe(root.name)
     return 0
 
 
