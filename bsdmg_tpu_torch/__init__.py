@@ -1,15 +1,17 @@
 """bsdmg_tpu_torch: the PyTorch + CUDA port of bsdmg_tpu for NVIDIA Hopper.
 
 A second package beside the JAX one, with the same module paths: the
-sphere-traced render of the reference scene runs through hand-written CUDA
+sphere-traced render of the built-in scenes runs through hand-written CUDA
 kernels (``ops/cuda/render_kernel.py``, sources in ``csrc/``), mesh
-generation (refine + marching cubes) through two more
-(``ops/cuda/mc_kernel.py``, ``ops/cuda/mesh_kernel.py``), inverse
-rendering (``grad/``, ``cli fit``) through two more
+generation (refine + marching cubes, and the ``session`` stage machine)
+through two more (``ops/cuda/mc_kernel.py``, ``ops/cuda/mesh_kernel.py``),
+inverse rendering (``grad/``, ``cli fit``) through two more
 (``ops/cuda/diff_kernel.py``) and mesh assets through three more
-(``ops/cuda/grid_kernel.py``); each has a plain PyTorch twin. ``bench``
-and ``utils/profiling.py`` measure them. The package imports torch and
-numpy, never jax.
+(``ops/cuda/grid_kernel.py``); each has a plain PyTorch twin. The weld and
+the OBJ files go through the native host runtime (``runtime/native.py``,
+C++ built with g++). ``bench`` and ``utils/profiling.py`` measure them.
+The package imports torch and numpy, never jax; its entry points run on
+the card unless the caller names another device.
 """
 
 from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig, RenderConfig

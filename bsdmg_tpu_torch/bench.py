@@ -27,7 +27,7 @@ from bsdmg_tpu_torch.config import MeshGenConfig
 from bsdmg_tpu_torch.grad import render_loss_and_grad
 from bsdmg_tpu_torch.mesh.field import VoxelField, create_voxel_field, refine_field
 from bsdmg_tpu_torch.mesh.pipeline import field_to_triangles
-from bsdmg_tpu_torch.models import reference_object, reference_render_scene
+from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
 from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
 from bsdmg_tpu_torch.ops.cuda.render_kernel import BLOCK_H, BLOCK_W, render_image_cuda, trace_cuda
 
@@ -96,8 +96,10 @@ def benchmark_render(
     phase_a_steps: int = 48,
     unroll: int = 1,
     device: str | torch.device = "cuda",
+    scene: str = "reference_render_scene",
 ) -> dict[str, Any]:
-    """Rays/s of the reference-scene render through ``render_image_cuda``.
+    """Rays/s of the render of the built-in ``scene`` (the reference render
+    scene by default) through ``render_image_cuda``.
 
     ``two_phase`` True is the row two-phase pipeline (K2, K2 over the tail,
     K3), ``"block"`` block retirement (K1 twice), False one K1 launch.
@@ -106,7 +108,7 @@ def benchmark_render(
     frames make one step of ``k``; on one stream they run one after the
     other."""
     device = torch.device(device)
-    desc = compile_scene(reference_render_scene(device=device))
+    desc = compile_scene(get_scene(scene, device=device))
     origins, dirs, cone = _rays(width, height, device)
 
     def many(k: int) -> float:
@@ -139,8 +141,10 @@ def _block_max(plane: np.ndarray, block: tuple[int, int]) -> np.ndarray:
 
 
 def render_step_stats(width: int = 1920, height: int = 1080, *,
-                      device: str | torch.device = "cuda") -> dict[str, Any]:
-    """Step statistics of the reference-scene trace, from ``trace_cuda``'s
+                      device: str | torch.device = "cuda",
+                      scene: str = "reference_render_scene") -> dict[str, Any]:
+    """Step statistics of the trace of ``scene`` (the reference render scene
+    by default), from ``trace_cuda``'s
     steps plane: the mean per ray, the mean over (8, 128) tiles of their
     maximum (what the JAX package's tile-synchronised march runs), the
     maximum, and the mean over K1's and K2's 8x4 warp patches of their
@@ -149,7 +153,7 @@ def render_step_stats(width: int = 1920, height: int = 1080, *,
     frame's edge take the pixels they have; the JAX package drops partial
     tiles, which 1920x1080 has none of."""
     device = torch.device(device)
-    desc = compile_scene(reference_render_scene(device=device))
+    desc = compile_scene(get_scene(scene, device=device))
     _, steps, outcome = trace_cuda(desc, *_rays(width, height, device))
     s = steps.cpu().numpy().astype(np.float64)
     return {

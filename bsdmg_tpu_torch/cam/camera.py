@@ -54,7 +54,7 @@ def look_at(
     world_up=(0.0, 1.0, 0.0),
     fov: float = math.pi / 4.0,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Camera:
     """Camera at ``position`` looking at ``target``; ``fov`` in radians.
 

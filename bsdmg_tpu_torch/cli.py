@@ -1,24 +1,30 @@
-"""Command-line interface of the PyTorch port: the ``render``, ``mesh``, ``fit`` and ``bench`` verbs.
+"""Command-line interface of the PyTorch port: the ``render``, ``mesh``, ``session``, ``fit`` and
+``bench`` verbs.
 
     python -m bsdmg_tpu_torch.cli render -o out.png
+    python -m bsdmg_tpu_torch.cli render --scene mandelbulb --camera 2 1 -2 -o out.png
     python -m bsdmg_tpu_torch.cli render --scene mesh:asset.obj[:RES] -o out.png
     python -m bsdmg_tpu_torch.cli mesh -o out.obj
     python -m bsdmg_tpu_torch.cli mesh --interpolate-edges -o out.obj
+    python -m bsdmg_tpu_torch.cli session --keys vbbbvv -o out.obj
     python -m bsdmg_tpu_torch.cli fit
     python -m bsdmg_tpu_torch.cli fit --image
     python -m bsdmg_tpu_torch.cli bench --which render [--two-phase row|block] [--roofline]
 
-``render`` draws the reference scene at 1920x1080 through CUDA kernel K1,
-or a triangle-mesh asset baked into a RES^3 grid SDF (default 128) through
-kernels K9 (the contraction ladder), K8 (the fine finish) and P1 (the hit
-normals);
-``mesh`` refines the reference object three levels from a 32^3 grid and
-extracts its surface through kernel K6 (edge midpoints) or K7
-(``--interpolate-edges``); ``fit`` perturbs scene parameters and recovers
+``render`` draws a built-in scene (``--scene``: the reference render scene
+by default, ``sphere``, ``box``, ``mandelbulb``, ``wrapped_object``) at
+1920x1080 through CUDA kernel K1, or a triangle-mesh asset baked into a
+RES^3 grid SDF (default 128) through kernels K9 (the contraction ladder),
+K8 (the fine finish) and P1 (the hit normals);
+``mesh`` refines a built-in scene (the reference object by default) three
+levels from a 32^3 grid and extracts its surface through kernel K6 (edge
+midpoints) or K7 (``--interpolate-edges``); ``session`` replays the
+reference's refine/advance stage machine from a key script, each
+extraction through K6; ``fit`` perturbs scene parameters and recovers
 them by inverse rendering, from a depth map (plain PyTorch and autograd) or,
 with ``--image``, from an image through kernels K4 (the target's march) and
 K5 (each step's loss and gradient); ``bench`` prints the JAX CLI's
-operating-point numbers as JSON (the render through K1, or with
+operating-point numbers as JSON (the render of ``--scene`` through K1, or with
 ``--two-phase row`` through K2 and K3, with ``block`` through K1 twice;
 refine; marching cubes through K6; the loss and gradient through K5). All
 keep the JAX CLI's flags and defaults (``bsdmg_tpu/cli.py``). ``--device``
@@ -53,6 +59,7 @@ from bsdmg_tpu_torch.mesh.export import (
     save_vtk,
 )
 from bsdmg_tpu_torch.mesh.pipeline import generate_mesh
+from bsdmg_tpu_torch.mesh.session import MeshGenSession
 from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
 from bsdmg_tpu_torch.models.mesh_sdf import mesh_scene
 from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
@@ -88,6 +95,11 @@ def _parse_mesh_spec(rest: str, default_resolution: int = 128):
         except ValueError:
             pass
     return rest, resolution
+
+
+#: the built-in scenes whose parameter form kernels K4 and K5 do not take
+#: (csrc/param_sdf.cuh covers the reference scenes only)
+NO_FIT = ("sphere", "box", "mandelbulb", "wrapped_object")
 
 
 def _get_scene(name: str, device: torch.device):
@@ -199,6 +211,33 @@ def cmd_mesh(args) -> None:
     log.info("wrote %s", out)
 
 
+def cmd_session(args) -> None:
+    """Drive the interactive stage machine with a scripted key sequence: B
+    refines and V advances (src/input_handling.rs:37-42); ``--keys vbbbvv``
+    (or ``--commands advance,refine,...``) replays the sequence headlessly.
+    As the JAX CLI's, the scene is meshed as named: the render scene with
+    its wireframe."""
+    device = _device(args.device)
+    if args.commands:
+        steps = [c.strip() for c in args.commands.split(",") if c.strip()]
+        bad = [s for s in steps if s not in ("refine", "advance")]
+        if bad:
+            build_parser().error(
+                f"--commands accepts only 'refine'/'advance', got: {', '.join(bad)}"
+            )
+    else:
+        names = {"b": "refine", "v": "advance"}
+        steps = [names[k] for k in args.keys.lower() if k in names]
+    desc = compile_scene(_get_scene(args.scene, device))
+    cfg = MeshGenConfig(init_factor=args.init_factor, bb_size=args.bb_size)
+    session = MeshGenSession(desc, cfg, output_path=args.output or "generated_mesh.obj",
+                             device=device)
+    for step in steps:
+        log.info("session step: %s (stage=%s)", step, session.stage.value)
+        getattr(session, step)()
+    log.info("final stage: %s", session.stage.value)
+
+
 def _parse_perturb(spec: str) -> dict[str, tuple[str, float]]:
     """Parse ``key=factor,key=+delta`` into ``{key: (mode, value)}``.
 
@@ -256,6 +295,12 @@ def cmd_fit(args) -> None:
     (``--image``): the target is rendered at the scene's true params, the
     ``--perturb`` params are perturbed, and gradient descent recovers them."""
     device = _device(args.device)
+    if args.scene in NO_FIT:
+        raise NotImplementedError(
+            f"fit --scene {args.scene}: the parameter form of kernels K4 and K5 "
+            "(csrc/param_sdf.cuh) covers only the reference scenes; fits of the other built-in "
+            "scenes are not ported yet"
+        )
     default_scene = args.scene == "reference_render_scene"
     scene = reference_object(device=device) if default_scene else _get_scene(args.scene, device)
     cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
@@ -374,6 +419,10 @@ def cmd_bench(args) -> None:
             "(refine_roofline, mc_roofline) are not ported yet (ROADMAP queue 1, item 6); "
             "--roofline takes --which render or --which grad"
         )
+    if args.scene != "reference_render_scene" and args.which != "render":
+        raise NotImplementedError(
+            f"bench --scene {args.scene}: only --which render takes another scene"
+        )
     device = _device(args.device)
     ctx = contextlib.nullcontext()
     if args.trace:
@@ -383,16 +432,23 @@ def cmd_bench(args) -> None:
         if args.which in ("all", "render"):
             two_phase = {"row": True, "block": "block"}.get(args.two_phase, False)
             r = bench.benchmark_render(args.width, args.height, two_phase=two_phase,
-                                       unroll=args.unroll, device=device)
+                                       unroll=args.unroll, device=device, scene=args.scene)
             results["render"] = {
                 "rays_per_s": r["rays_per_s"],
                 "ms_per_frame": r["seconds_per_frame"] * 1e3,
             }
             if args.roofline:
-                stats = bench.render_step_stats(args.width, args.height, device=device)
-                desc = compile_scene(reference_render_scene(device=device))
+                stats = bench.render_step_stats(args.width, args.height, device=device,
+                                                scene=args.scene)
+                desc = compile_scene(_get_scene(args.scene, device))
+                loops = {}
+                if desc.kind == "mandelbulb":
+                    rays = bench._rays(args.width, args.height, device)
+                    loops = dict(zip(("march_loop", "stencil_loop"),
+                                     profiling.mandelbulb_loops(desc, *rays)))
                 roof = profiling.render_roofline(desc, args.width, args.height,
-                                                 stats["mean_warp_max_steps"], stats["hits"])
+                                                 stats["mean_warp_max_steps"], stats["hits"],
+                                                 **loops)
                 results["roofline"] = {
                     **stats,
                     "bound_by": roof.bound,
@@ -458,7 +514,8 @@ def build_parser() -> argparse.ArgumentParser:
     m = sub.add_parser("mesh", help="hierarchical refine + marching cubes -> OBJ/VTK")
     m.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name; the render scene meshes its object, reference_object",
+        help="scene name (bsdmg_tpu_torch.models.SCENES); the render scene meshes its object, "
+        "reference_object",
     )
     m.add_argument("--refine", type=int, default=3, help="refinement levels")
     m.add_argument("--init-factor", type=int, default=32)
@@ -480,7 +537,8 @@ def build_parser() -> argparse.ArgumentParser:
     ft = sub.add_parser("fit", help="inverse rendering: recover SDF params from depth or image")
     ft.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name; the depth fit of the render scene fits its object, reference_object",
+        help="scene name; the depth fit of the render scene fits its object, reference_object "
+        f"({', '.join(NO_FIT)} raise: not ported)",
     )
     common_camera(ft, 64, 64)
     ft.add_argument("--steps", type=int, default=60)
@@ -498,8 +556,25 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(ft)
     ft.set_defaults(fn=cmd_fit)
 
+    se = sub.add_parser("session", help="scripted refine/advance stage machine")
+    se.add_argument(
+        "--scene", default="reference_render_scene",
+        help="scene name (bsdmg_tpu_torch.models.SCENES), meshed as named",
+    )
+    se.add_argument("--keys", default="vbbbvv", help="key script: b=refine, v=advance")
+    se.add_argument("--commands", default=None, help="comma list: refine,advance,...")
+    se.add_argument("--init-factor", type=int, default=32)
+    se.add_argument("--bb-size", type=float, default=5.0)
+    se.add_argument("--output", "-o", default=None, help=".obj (default generated_mesh.obj)")
+    _add_device(se)
+    se.set_defaults(fn=cmd_session)
+
     b = sub.add_parser("bench", help="operating-point benchmarks")
     b.add_argument("--which", choices=["all", "render", "refine", "mc", "grad"], default="all")
+    b.add_argument(
+        "--scene", default="reference_render_scene",
+        help="render: scene name (bsdmg_tpu_torch.models.SCENES)",
+    )
     b.add_argument("--width", type=int, default=1920)
     b.add_argument("--height", type=int, default=1080)
     b.add_argument(

@@ -8,7 +8,10 @@
 // JAX's JVPs (the reference differentiates the same expressions):
 // min and max give each operand the weight tie_weight gives it, 1/2 at a tie
 // (lax._balanced_eq); abs passes +1 at 0 (jax.grad(jnp.abs)(0.0) is 1.0 on
-// JAX 0.9); sqrt's tangent is t * (0.5 / sqrt(x)).
+// JAX 0.9); sqrt's tangent is t * (0.5 / sqrt(x)). The libm rules below
+// (acos, atan2, pow, sin and cos, log) serve the mandelbulb's gradient
+// (scene_sdf.cuh); each has a float overload, so one template computes the
+// value and the value with its tangents.
 
 #pragma once
 
@@ -26,6 +29,26 @@ __device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ float vabs(float a) { return fabsf(a); }
 __device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
 __device__ __forceinline__ float vrsqrt(float a) { return rsqrtf(a); }
+// max and min that return NaN when either operand is NaN (PTX max.NaN,
+// sm_80 on), as torch.maximum, torch.clamp and XLA's max do; fmaxf and
+// fminf return the other operand. The reference scenes never meet a NaN;
+// the box's and the mandelbulb's gradients can be NaN, and a Newton step
+// then carries it into the next evaluation.
+__device__ __forceinline__ float vmaxn(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float vminn(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float vacos(float a) { return acosf(a); }
+__device__ __forceinline__ float vatan2(float y, float x) { return atan2f(y, x); }
+__device__ __forceinline__ float vpow(float a, float p) { return powf(a, p); }
+__device__ __forceinline__ float vlog(float a) { return logf(a); }
+__device__ __forceinline__ void vsincos(float a, float& s, float& c) { sincosf(a, &s, &c); }
 
 template <int N>
 struct Dual {
@@ -248,6 +271,17 @@ __device__ __forceinline__ Dual<N> vmax(float a, const Dual<N>& b) {
   return chooser(b, a, fmaxf(a, b.v));
 }
 
+// the NaN-propagating max and min of a dual and a constant
+template <int N>
+__device__ __forceinline__ Dual<N> vmaxn(const Dual<N>& a, float b) {
+  return chooser(a, b, vmaxn(a.v, b));
+}
+
+template <int N>
+__device__ __forceinline__ Dual<N> vminn(const Dual<N>& a, float b) {
+  return chooser(a, b, vminn(a.v, b));
+}
+
 template <int N>
 __device__ __forceinline__ Dual<N> vabs(const Dual<N>& a) {
   return a.v >= 0.0f ? a : -a;
@@ -272,4 +306,59 @@ __device__ __forceinline__ Dual<N> vrsqrt(const Dual<N>& a) {
 #pragma unroll
   for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * w;
   return r;
+}
+
+// ---------------------------------------------------------------------------
+// libm: acos, atan2, pow, sin and cos, log
+// ---------------------------------------------------------------------------
+
+// the value v with the tangents of a times w: a unary rule whose
+// derivative at a.v is w
+template <int N>
+__device__ __forceinline__ Dual<N> scaled(const Dual<N>& a, float v, float w) {
+  Dual<N> r;
+  r.v = v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * w;
+  return r;
+}
+
+// d acos(x) = dx * -(1 / sqrt(1 - x^2)): JAX's -rsqrt(1 - x^2), with the
+// correctly rounded sqrt and division of the plain twin
+template <int N>
+__device__ __forceinline__ Dual<N> vacos(const Dual<N>& a) {
+  return scaled(a, acosf(a.v), -(1.0f / sqrtf(1.0f - a.v * a.v)));
+}
+
+// d atan2(y, x) = dy * (x / (x^2 + y^2)) + dx * (-y / (x^2 + y^2))
+template <int N>
+__device__ __forceinline__ Dual<N> vatan2(const Dual<N>& y, const Dual<N>& x) {
+  const float den = x.v * x.v + y.v * y.v;
+  const float wy = x.v / den, wx = -y.v / den;
+  Dual<N> r;
+  r.v = atan2f(y.v, x.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = y.t[i] * wy + x.t[i] * wx;
+  return r;
+}
+
+// d x^p = dx * (p * x^(p - 1)), p a constant
+template <int N>
+__device__ __forceinline__ Dual<N> vpow(const Dual<N>& a, float p) {
+  return scaled(a, powf(a.v, p), p * powf(a.v, p - 1.0f));
+}
+
+// d log(x) = dx * (1 / x)
+template <int N>
+__device__ __forceinline__ Dual<N> vlog(const Dual<N>& a) {
+  return scaled(a, logf(a.v), 1.0f / a.v);
+}
+
+// d sin(x) = dx * cos(x), d cos(x) = dx * -sin(x)
+template <int N>
+__device__ __forceinline__ void vsincos(const Dual<N>& a, Dual<N>& s, Dual<N>& c) {
+  float sv, cv;
+  sincosf(a.v, &sv, &cv);
+  s = scaled(a, sv, cv);
+  c = scaled(a, cv, -sv);
 }

@@ -24,16 +24,17 @@
 // only the moved one compiled to the same SASS within 8 instructions and
 // ran 3.5% slower in K3 (PERF.md). With Rolled both loops stay rolled
 // around one inlined SDF: K1's epilogue, which keeps K1's march at 32
-// registers (unrolled, K1 takes 43).
+// registers (unrolled, K1 takes 43). A structure whose points share no
+// terms (S::unrolled false: the mandelbulb) keeps them rolled too.
 template <class S, bool Rolled = false>
 __device__ __forceinline__ void fd4_grad(const SceneDesc& s, float x, float y, float z, float eps,
                                          float& gx, float& gy, float& gz) {
   const float e1 = eps, e2 = 2.0f * eps;
   gx = gy = gz = 0.0f;
-#pragma unroll (Rolled ? 1 : 3)
+#pragma unroll ((Rolled || !S::unrolled) ? 1 : 3)
   for (int a = 0; a < 3; ++a) {
     float acc = 0.0f;
-#pragma unroll (Rolled ? 1 : 4)
+#pragma unroll ((Rolled || !S::unrolled) ? 1 : 4)
     for (int k = 0; k < 4; ++k) {
       const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
       const float f = scene_sdf<S>(s, a == 0 ? x + off : x, a == 1 ? y + off : y,

@@ -1,7 +1,7 @@
-// The scene SDF of the reference scenes on the device, shared by K1, K2, K3
+// The scene SDF of the built-in scenes on the device, shared by K1, K2, K3
 // (render_kernel.cu), K6 (mc_kernel.cu) and K7 (project_kernel.cu).
 //
-// Both functions take the JAX compiler's factorised capsule set
+// The reference scenes take the JAX compiler's factorised capsule set
 // (bsdmg_tpu/ops/pallas/csdf.py::capsule_set_sq_csdf): per parallel-edge
 // group `(axial + min(V1)) + min(V2)`, then `min` across the groups and one
 // sqrt. Float rounding is monotonic, so this equals the minimum over the
@@ -13,18 +13,29 @@
 // descriptor_csdf and descriptor_csdf_value_and_grad in
 // bsdmg_tpu_torch/ops/cuda/csdf.py.
 //
-// The scene's structure is a template parameter (Box<Frame, Transform>):
-// every capsule set is a box skeleton of 3 groups along x, y and z, each
-// with 2 perpendicular coordinates per other axis, and the wireframe and
-// the object transform are there or not. So the SDF is straight-line code
-// with every axis and count fixed; the descriptor's values stay runtime data
-// in the by-value SceneDesc. csdf.py::kernel_structure picks the structure
-// from the descriptor (and raises for a descriptor that matches none);
-// with_structure turns its index into the template on the host.
+// The scene's structure is a template parameter. Box<Frame, Transform> is a
+// reference scene: every capsule set is a box skeleton of 3 groups along x,
+// y and z, each with 2 perpendicular coordinates per other axis, and the
+// wireframe and the object transform are there or not. So the SDF is
+// straight-line code with every axis and count fixed; the descriptor's
+// values stay runtime data in the by-value SceneDesc. Sphere, SolidBox and
+// Mandelbulb are the other built-in scenes (csdf.py sphere_csdf, box_csdf
+// and the mandelbulb of compile_scene_csdf), Wrapped<Box<false, false>>
+// the reference object on a lattice (its wrapped_object). csdf.py::
+// kernel_structure picks the structure from the descriptor (and raises for
+// a descriptor that matches none); with_structure turns its index into the
+// template on the host.
+//
+// The sphere's and the box's gradients are reverse mode with JAX's tie
+// rules, as the reference scenes' are; the mandelbulb's is forward mode,
+// Dual<3> (dual.cuh) through its loop, which a point leaves at its escape.
+// The twins are csdf.py's _sphere_value_and_grad, _box_value_and_grad and
+// _mandelbulb_value_and_grad.
 //
 // Numerics: the library is built with -fmad=false and without fast math,
 // and every sum runs in the twin's order, so each function equals its twin
-// bit for bit.
+// bit for bit; but the mandelbulb's acosf, atan2f, powf, sincosf and logf,
+// whose libdevice code differs from torch's in the last bits.
 
 #pragma once
 
@@ -80,18 +91,54 @@ struct SceneDesc {
   float aces_m1[9];
   float aces_m2[9];
   float aces_curve[5];
+  float box_half[3];  // SolidBox: the half extents
+  float scale;        // Mandelbulb: float32(scale * 0.4), points divided, distance multiplied
+  float cell;         // Wrapped: the lattice period
+  float half_cell;    // float32(cell / 2)
 };
 
-// The compile-time structure of a scene: with the wireframe or not, with
-// the object transform or not.
+enum SceneKind { KIND_REFERENCE, KIND_SPHERE, KIND_SOLID_BOX, KIND_MANDELBULB, KIND_WRAPPED };
+
+// The compile-time structure of a reference scene: with the wireframe or
+// not, with the object transform or not. `unrolled` is whether the fd4
+// stencil (project.cuh) unrolls its 12 SDFs, whose shifts share terms.
 template <bool Frame, bool Transform>
 struct Box {
+  static constexpr SceneKind kind = KIND_REFERENCE;
   static constexpr bool frame = Frame;
   static constexpr bool transform = Transform;
+  static constexpr bool unrolled = true;
 };
 
-// Calls f(Box<...>{}) for the structure index csdf.py::kernel_structure
-// gives (2 * frame + transform); false for an index that names none.
+struct Sphere {
+  static constexpr SceneKind kind = KIND_SPHERE;
+  static constexpr bool unrolled = true;
+};
+
+// the box scene (Box names the reference scenes' wireframe structure)
+struct SolidBox {
+  static constexpr SceneKind kind = KIND_SOLID_BOX;
+  static constexpr bool unrolled = true;
+};
+
+// its 25-iteration loop shares nothing between the stencil's points, so
+// the stencil stays rolled around one copy of it
+struct Mandelbulb {
+  static constexpr SceneKind kind = KIND_MANDELBULB;
+  static constexpr bool unrolled = false;
+};
+
+// the scene Inner on a cubic lattice of period cell
+template <class Inner>
+struct Wrapped {
+  static constexpr SceneKind kind = KIND_WRAPPED;
+  static constexpr bool unrolled = Inner::unrolled;
+  using inner = Inner;
+};
+
+// Calls f(S{}) for the structure index csdf.py::kernel_structure gives:
+// 2 * frame + transform for Box, then Sphere, SolidBox, Mandelbulb and the
+// wrapped reference object; false for an index that names none.
 template <class F>
 inline bool with_structure(int structure, F&& f) {
   switch (structure) {
@@ -99,6 +146,10 @@ inline bool with_structure(int structure, F&& f) {
     case 1: f(Box<false, true>{}); return true;
     case 2: f(Box<true, false>{}); return true;
     case 3: f(Box<true, true>{}); return true;
+    case 4: f(Sphere{}); return true;
+    case 5: f(SolidBox{}); return true;
+    case 6: f(Mandelbulb{}); return true;
+    case 7: f(Wrapped<Box<false, false>>{}); return true;
     default: return false;
   }
 }
@@ -161,7 +212,7 @@ __device__ __forceinline__ void object_coords(const SceneDesc& s, float x, float
 
 // ops/pallas/csdf.py::reference_render_scene_csdf
 template <class S>
-__device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y, float z) {
+__device__ __forceinline__ float reference_sdf(const SceneDesc& s, float x, float y, float z) {
   float ox, oy, oz;
   object_coords<S>(s, x, y, z, ox, oy, oz);
   const float skel = sqrtf(capsule_set_d2(s.object, ox, oy, oz)) - s.object.radius;
@@ -244,10 +295,11 @@ __device__ __forceinline__ void capsule_set_bwd(const CapsuleSet& c, float x, fl
   group_bwd<2>(c.groups[2], x, y, z, ct2, gx, gy, gz);
 }
 
-// value and gradient of scene_sdf (the value equals scene_sdf's bit for bit)
+// value and gradient of reference_sdf (the value equals reference_sdf's bit
+// for bit)
 template <class S>
-__device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, float y, float z,
-                                               float& d, float& gx, float& gy, float& gz) {
+__device__ __forceinline__ void reference_sdf_grad(const SceneDesc& s, float x, float y, float z,
+                                                   float& d, float& gx, float& gy, float& gz) {
   float ox, oy, oz;
   object_coords<S>(s, x, y, z, ox, oy, oz);
   // forward
@@ -300,4 +352,161 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
     gz = cz;
   }
   if (S::frame) capsule_set_bwd(s.frame, x, y, z, ff, tie_weight(frame, d, obj), gx, gy, gz);
+}
+
+// ---------------------------------------------------------------------------
+// the sphere, the box, the mandelbulb and the wrap
+// ---------------------------------------------------------------------------
+
+// csdf.py::sphere_csdf at the origin; reverse mode: sqrt's weight 0.5 /
+// root, each square's cotangent ct*x + x*ct
+__device__ __forceinline__ float sphere_sdf(const SceneDesc& s, float x, float y, float z) {
+  return sqrtf((x * x + y * y) + z * z) - s.sphere_radius;
+}
+
+__device__ __forceinline__ void sphere_sdf_grad(const SceneDesc& s, float x, float y, float z,
+                                                float& d, float& gx, float& gy, float& gz) {
+  const float root = sqrtf((x * x + y * y) + z * z);
+  d = root - s.sphere_radius;
+  const float w = 0.5f / root;
+  const float sx = w * x, sy = w * y, sz = w * z;
+  gx = sx + sx;
+  gy = sy + sy;
+  gz = sz + sz;
+}
+
+// sdf/primitives.py::sd_box_c at the origin; its min and max propagate a
+// NaN (dual.cuh vmaxn), as the twin's and JAX's do: the box's gradient is
+// NaN inside it, and the mesh kernels' Newton steps meet the NaN points
+__device__ __forceinline__ float solid_box_sdf(const SceneDesc& s, float x, float y, float z) {
+  const float qx = fabsf(x) - s.box_half[0];
+  const float qy = fabsf(y) - s.box_half[1];
+  const float qz = fabsf(z) - s.box_half[2];
+  const float ox = vmaxn(qx, 0.0f), oy = vmaxn(qy, 0.0f), oz = vmaxn(qz, 0.0f);
+  return sqrtf((ox * ox + oy * oy) + oz * oz) + vminn(vmaxn(qx, vmaxn(qy, qz)), 0.0f);
+}
+
+// one axis of the box's backward: the cotangent of coordinate c from the
+// outside's term (weight w of its square) and the inside's (ct_in)
+__device__ __forceinline__ float box_axis_bwd(float c, float q, float o, float w, float ct_in) {
+  const float sq = w * o;
+  const float ct_q = (sq + sq) * tie_weight(q, o, 0.0f) + ct_in;
+  return c >= 0.0f ? ct_q : -ct_q;  // jax: d|x| = +1 at 0
+}
+
+// reverse mode with JAX's tie rules; inside the box the outside distance
+// is 0 and its weight 0.5 / 0 meets a zero: NaN, as JAX's
+__device__ __forceinline__ void solid_box_sdf_grad(const SceneDesc& s, float x, float y, float z,
+                                                   float& d, float& gx, float& gy, float& gz) {
+  const float qx = fabsf(x) - s.box_half[0];
+  const float qy = fabsf(y) - s.box_half[1];
+  const float qz = fabsf(z) - s.box_half[2];
+  const float ox = vmaxn(qx, 0.0f), oy = vmaxn(qy, 0.0f), oz = vmaxn(qz, 0.0f);
+  const float outside = sqrtf((ox * ox + oy * oy) + oz * oz);
+  const float m2 = vmaxn(qy, qz);
+  const float m3 = vmaxn(qx, m2);
+  const float inside = vminn(m3, 0.0f);
+  d = outside + inside;
+  const float ct_m3 = tie_weight(m3, inside, 0.0f);
+  const float ct_m2 = ct_m3 * tie_weight(m2, m3, qx);
+  const float w = 0.5f / outside;
+  gx = box_axis_bwd(x, qx, ox, w, ct_m3 * tie_weight(qx, m3, m2));
+  gy = box_axis_bwd(y, qy, oy, w, ct_m2 * tie_weight(qy, m2, qz));
+  gz = box_axis_bwd(z, qz, oz, w, ct_m2 * tie_weight(qz, m2, qy));
+}
+
+// The mandelbulb's distance estimator 0.5 * log(r) * r / dr
+// (sdf/primitives.py::sd_mandelbulb_c: power 7, 25 iterations, escape
+// radius 2) at points already divided by the scale, for T float (the value)
+// or Dual<3> (the value and its gradient). A point leaves the loop at its
+// escape: its later iterations in the JAX package change nothing. Its min
+// and max propagate a NaN, as the solid box's.
+template <class T>
+__device__ __forceinline__ T mandelbulb_de(const T& x, const T& y, const T& z) {
+  T zx = x, zy = y, zz = z;
+  T dr = Scalar<T>::constant(1.0f);
+  T r = Scalar<T>::constant(0.0f);
+#pragma unroll 1
+  for (int i = 0; i < 25; ++i) {
+    r = vsqrt((zx * zx + zy * zy) + zz * zz);
+    if (!(value_of(r) <= 2.0f)) break;
+    const T sr = vmaxn(r, 1e-12f);
+    const T theta = vacos(vminn(vmaxn(zz / sr, -1.0f), 1.0f)) * 7.0f;
+    const T phi = vatan2(zy, zx) * 7.0f;
+    const T zr = vpow(sr, 7.0f);
+    dr = (vpow(sr, 6.0f) * 7.0f) * dr + 1.0f;
+    T st, ct, sp, cp;
+    vsincos(theta, st, ct);
+    vsincos(phi, sp, cp);
+    zx = (zr * st) * cp + x;
+    zy = (zr * sp) * st + y;
+    zz = zr * ct + z;
+  }
+  const T sr = vmaxn(r, 1e-12f);
+  return ((vlog(sr) * 0.5f) * r) / dr;
+}
+
+__device__ __forceinline__ float mandelbulb_sdf(const SceneDesc& s, float x, float y, float z) {
+  return mandelbulb_de<float>(x / s.scale, y / s.scale, z / s.scale) * s.scale;
+}
+
+// forward mode: the point's coordinates seeded with the unit tangents
+// divided by the scale
+__device__ __forceinline__ void mandelbulb_sdf_grad(const SceneDesc& s, float x, float y, float z,
+                                                    float& d, float& gx, float& gy, float& gz) {
+  const float inv = 1.0f / s.scale;
+  const Dual<3> px{x / s.scale, {inv, 0.0f, 0.0f}};
+  const Dual<3> py{y / s.scale, {0.0f, inv, 0.0f}};
+  const Dual<3> pz{z / s.scale, {0.0f, 0.0f, inv}};
+  const Dual<3> de = mandelbulb_de(px, py, pz) * s.scale;
+  d = de.v;
+  gx = de.t[0];
+  gy = de.t[1];
+  gz = de.t[2];
+}
+
+// the wrap of signed_distance.cu:9-18, -half + jnp.mod(v + half, cell):
+// fmod, plus the divisor where the remainder's sign differs (torch.remainder)
+__device__ __forceinline__ float wrap_coord(const SceneDesc& s, float v) {
+  float m = fmodf(v + s.half_cell, s.cell);
+  if (m != 0.0f && ((s.cell < 0.0f) != (m < 0.0f))) m += s.cell;
+  return -s.half_cell + m;
+}
+
+// ---------------------------------------------------------------------------
+// the scene SDF of structure S, and its value and gradient
+// ---------------------------------------------------------------------------
+
+template <class S>
+__device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y, float z) {
+  if constexpr (S::kind == KIND_SPHERE) {
+    return sphere_sdf(s, x, y, z);
+  } else if constexpr (S::kind == KIND_SOLID_BOX) {
+    return solid_box_sdf(s, x, y, z);
+  } else if constexpr (S::kind == KIND_MANDELBULB) {
+    return mandelbulb_sdf(s, x, y, z);
+  } else if constexpr (S::kind == KIND_WRAPPED) {
+    return scene_sdf<typename S::inner>(s, wrap_coord(s, x), wrap_coord(s, y), wrap_coord(s, z));
+  } else {
+    return reference_sdf<S>(s, x, y, z);
+  }
+}
+
+// the value (scene_sdf's bit for bit) and the gradient; a wrap passes the
+// gradient unchanged
+template <class S>
+__device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, float y, float z,
+                                               float& d, float& gx, float& gy, float& gz) {
+  if constexpr (S::kind == KIND_SPHERE) {
+    sphere_sdf_grad(s, x, y, z, d, gx, gy, gz);
+  } else if constexpr (S::kind == KIND_SOLID_BOX) {
+    solid_box_sdf_grad(s, x, y, z, d, gx, gy, gz);
+  } else if constexpr (S::kind == KIND_MANDELBULB) {
+    mandelbulb_sdf_grad(s, x, y, z, d, gx, gy, gz);
+  } else if constexpr (S::kind == KIND_WRAPPED) {
+    scene_sdf_grad<typename S::inner>(s, wrap_coord(s, x), wrap_coord(s, y), wrap_coord(s, z), d,
+                                      gx, gy, gz);
+  } else {
+    reference_sdf_grad<S>(s, x, y, z, d, gx, gy, gz);
+  }
 }

@@ -2,9 +2,11 @@
 voxel-field checkpoints.
 
 Port of ``bsdmg_tpu/mesh/export.py``; each writer produces the JAX package's
-exact format (its Python paths), so files and field checkpoints pass between
-the two packages. The reference exports its welded mesh as OBJ
-(src/renderer/mod.rs:204).
+exact format, so files and field checkpoints pass between the two packages.
+The OBJ writer and reader are the native C++ ones by default
+(``runtime/native.py``), as the JAX package's are; their Python paths are
+the twins (``use_native=False``). The reference exports its welded mesh as
+OBJ (src/renderer/mod.rs:204).
 """
 
 from __future__ import annotations
@@ -17,13 +19,19 @@ import numpy as np
 import torch
 
 from bsdmg_tpu_torch.mesh.pipeline import Mesh
+from bsdmg_tpu_torch.runtime.native import read_obj_native, write_obj_native
 from bsdmg_tpu_torch.weights import field_from_numpy
 
 
-def save_obj(mesh: Mesh, path: str | Path) -> None:
+def save_obj(mesh: Mesh, path: str | Path, *, use_native: bool = True) -> None:
     """Wavefront OBJ with positions + normals, faces as ``v//vn`` (indices
     identical, as the reference asserts in obj_to_bevy_mesh,
-    src/renderer/mod.rs:121)."""
+    src/renderer/mod.rs:121). The native writer's file has the Python
+    writer's lines but its header, ``# bsdmg_tpu generated mesh (native
+    writer)``."""
+    if use_native:
+        write_obj_native(path, mesh.vertices, mesh.normals, mesh.faces)
+        return
     lines = ["# bsdmg_tpu generated mesh"]
     lines += [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in mesh.vertices.tolist()]
     lines += [f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in mesh.normals.tolist()]
@@ -31,11 +39,15 @@ def save_obj(mesh: Mesh, path: str | Path) -> None:
     Path(path).write_text("\n".join(lines) + "\n")
 
 
-def load_obj(path: str | Path) -> Mesh:
+def load_obj(path: str | Path, *, use_native: bool = True) -> Mesh:
     """Minimal OBJ reader: ``v``/``vn``/``f`` with arbitrary face arity
-    (fan-triangulated) and negative (relative) indices; the JAX package's
-    Python path, its behavioural oracle. Normals are kept only when there is
-    one per vertex, else zeros."""
+    (fan-triangulated) and negative (relative) indices. The native parser
+    by default; the Python path (``use_native=False``) is the JAX package's,
+    its behavioural oracle. Normals are kept only when there is one per
+    vertex, else zeros."""
+    if use_native:
+        vertices, normals, faces = read_obj_native(path)
+        return Mesh(vertices=vertices, normals=normals, faces=faces)
     vertices: list[list[float]] = []
     normals: list[list[float]] = []
     faces: list[tuple[int, int, int]] = []

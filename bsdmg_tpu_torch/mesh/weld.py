@@ -1,19 +1,23 @@
 """Vertex welding: quantize -> dedup -> index.
 
-A copy of the NumPy path of the JAX package's ``bsdmg_tpu/mesh/weld.py``
-(reference: src/cuda/mod.rs:268-296 — quantize each coordinate with
-``round(x * 1e5) as i64``, dedup through a hash map in first-encounter
-order, and keep the first-seen normal per welded vertex). The JAX package's
-native C++ weld gives identical meshes and is not carried over;
-``tests/test_torch_guards.py`` holds this copy equal to the original.
+Port of the JAX package's ``bsdmg_tpu/mesh/weld.py`` (reference:
+src/cuda/mod.rs:268-296 — quantize each coordinate with ``round(x * 1e5)
+as i64``, dedup through a hash map in first-encounter order, and keep the
+first-seen normal per welded vertex). By default the native C++ weld runs
+(``runtime/native.py``); the NumPy path, a copy of the JAX package's, is
+its twin (``use_native=False``). ``tests/test_torch_guards.py`` and
+``tests/test_torch_native.py`` hold both equal to the JAX package's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from bsdmg_tpu_torch.runtime.native import weld_vertices_native
 
-def weld_vertices(positions: np.ndarray, normals: np.ndarray, quantization: float = 1e5):
+
+def weld_vertices(positions: np.ndarray, normals: np.ndarray, quantization: float = 1e5, *,
+                  use_native: bool = True):
     """Weld a triangle soup into an indexed mesh.
 
     Args:
@@ -28,6 +32,8 @@ def weld_vertices(positions: np.ndarray, normals: np.ndarray, quantization: floa
     """
     positions = np.asarray(positions, np.float32).reshape(-1, 3)
     normals = np.asarray(normals, np.float32).reshape(-1, 3)
+    if use_native:
+        return weld_vertices_native(positions, normals, quantization)
 
     # half-AWAY-from-zero, matching the reference's Rust round()
     # (src/cuda/mod.rs:270): the double product narrowed to f32, then exact

@@ -1,12 +1,17 @@
-"""The reference scenes.
+"""The built-in scenes.
 
-Port of the reference part of ``bsdmg_tpu/models/scenes.py``:
+Port of ``bsdmg_tpu/models/scenes.py`` but composed scenes:
 
 * ``sd_obj`` (cuda/modules/common.cu:222-226): ``smooth_min`` of a box
   skeleton (center 0, size (3, 1, 0.5), line width 0.1) and a sphere of
   radius 1, smoothing k = 0.5, under an optional rigid object transform;
 * ``sd_scene`` (cuda/modules/compute_render.cu:3-19): ``sd_obj`` unioned
-  with the mesh-generation bounding-box wireframe (size 5, line width 0.05).
+  with the mesh-generation bounding-box wireframe (size 5, line width 0.05);
+* ``sphere``, ``box`` and ``mandelbulb`` (signed_distance.cu:29-91), and
+  ``wrapped_object``, the reference object repeated on a cubic lattice.
+
+Every constructor puts its parameters on ``device``, the card unless the
+caller names another.
 
 Each scene has its SDF on ``(..., 3)`` points (``Scene.sdf``) and on
 coordinate planes (``Scene.csdf``, a :class:`ReferenceCsdf`), the form the
@@ -54,23 +59,23 @@ class Scene:
         return lambda p: scene_fn(bound, p)
 
 
-def default_object_params(device: torch.device | str = "cpu") -> Params:
+def _f32(value, device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def default_object_params(device: torch.device | str = "cuda") -> Params:
     """Parameters of the reference object (common.cu:222-226), float32.
 
     ``object_center``/``object_rotation`` (quaternion w, x, y, z) are the
     JAX package's rigid-transform extension; the defaults are the identity."""
-
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=device)
-
     return {
-        "skeleton_center": f32([0.0, 0.0, 0.0]),
-        "skeleton_size": f32([3.0, 1.0, 0.5]),
-        "skeleton_line_width": f32(0.1),
-        "sphere_radius": f32(1.0),
-        "smooth_k": f32(0.5),
-        "object_center": f32([0.0, 0.0, 0.0]),
-        "object_rotation": f32([1.0, 0.0, 0.0, 0.0]),
+        "skeleton_center": _f32([0.0, 0.0, 0.0], device),
+        "skeleton_size": _f32([3.0, 1.0, 0.5], device),
+        "skeleton_line_width": _f32(0.1, device),
+        "sphere_radius": _f32(1.0, device),
+        "smooth_k": _f32(0.5, device),
+        "object_center": _f32([0.0, 0.0, 0.0], device),
+        "object_rotation": _f32([1.0, 0.0, 0.0, 0.0], device),
     }
 
 
@@ -158,7 +163,7 @@ def _sd_obj(params: Params, p: torch.Tensor, *, reference_compat: bool = True) -
 
 
 def reference_object(
-    *, reference_compat: bool = True, device: torch.device | str = "cpu"
+    *, reference_compat: bool = True, device: torch.device | str = "cuda"
 ) -> Scene:
     """The mesh-generation target object ``sd_obj``."""
     fn = lambda params, p: _sd_obj(params, p, reference_compat=reference_compat)
@@ -172,7 +177,7 @@ def reference_render_scene(
     *,
     bb_size: float = 5.0,
     reference_compat: bool = True,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Scene:
     """The render scene: object + bounding-box wireframe (compute_render.cu:3-19)."""
 
@@ -193,21 +198,71 @@ def reference_render_scene(
     )
 
 
+def sphere_scene(radius: float = 1.0, *, device: torch.device | str = "cuda") -> Scene:
+    """A sphere of ``radius`` at the origin."""
+    return Scene(
+        "sphere",
+        lambda q, p: sdf.sd_sphere(p, 0.0, q["radius"]),
+        {"radius": _f32(radius, device)},
+        csdf=lambda q, x, y, z: sdf.sd_sphere_c(x, y, z, 0.0, q["radius"]),
+    )
+
+
+def box_scene(size=(1.0, 1.0, 1.0), *, device: torch.device | str = "cuda") -> Scene:
+    """An axis-aligned box of full extent ``size`` at the origin; like the
+    JAX package's, it has no component form."""
+    return Scene("box", lambda q, p: sdf.sd_box(p, 0.0, q["size"]), {"size": _f32(size, device)})
+
+
+def mandelbulb_scene(scale: float = 1.0, *, device: torch.device | str = "cuda") -> Scene:
+    """The power-7 mandelbulb (signed_distance.cu:29-57), ``scale`` times
+    the reference's unit size."""
+
+    def fn(q, p):
+        s = q["scale"] * 0.4
+        return sdf.sd_mandelbulb(p / s) * s
+
+    def cfn(q, x, y, z):
+        s = q["scale"] * 0.4
+        return sdf.sd_mandelbulb_c(x / s, y / s, z / s) * s
+
+    return Scene("mandelbulb", fn, {"scale": _f32(scale, device)}, csdf=cfn)
+
+
+def wrapped_object_scene(cell: float = 8.0, *, device: torch.device | str = "cuda") -> Scene:
+    """The reference object repeated on a cubic lattice of period ``cell``
+    by the ``wrap`` domain repetition (signed_distance.cu:9-18); a distance
+    bound while the object (extent ~3.5) stays inside its cell. It has no
+    bounds, so the render does not cull."""
+    params = default_object_params(device)
+    params["cell"] = _f32(cell, device)
+
+    def cfn(q, x, y, z):
+        half = q["cell"] / 2.0
+        wx = -half + torch.remainder(x + half, q["cell"])
+        wy = -half + torch.remainder(y + half, q["cell"])
+        wz = -half + torch.remainder(z + half, q["cell"])
+        return _sd_obj_c(q, wx, wy, wz)
+
+    def fn(q, p):
+        half = q["cell"] / 2.0
+        return _sd_obj(q, sdf.wrap(p, -half.expand(3), half.expand(3)))
+
+    return Scene("wrapped_object", fn, params, csdf=cfn)
+
+
 SCENES: dict[str, Callable[..., Scene]] = {
     "reference_object": reference_object,
     "reference_render_scene": reference_render_scene,
+    "sphere": sphere_scene,
+    "box": box_scene,
+    "mandelbulb": mandelbulb_scene,
+    "wrapped_object": wrapped_object_scene,
 }
 
-# scenes of the JAX package's registry that this package does not have yet
-NOT_PORTED = ("sphere", "box", "mandelbulb", "wrapped_object")
 
-
-def get_scene(name: str, **kwargs) -> Scene:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"scene {name!r} is not ported to bsdmg_tpu_torch yet; "
-            f"available: {sorted(SCENES)}"
-        )
+def get_scene(name: str, *, device: torch.device | str = "cuda", **kwargs) -> Scene:
+    """The built-in scene ``name`` with its parameters on ``device``."""
     if name not in SCENES:
         raise KeyError(f"unknown scene {name!r}; available: {sorted(SCENES)}")
-    return SCENES[name](**kwargs)
+    return SCENES[name](device=device, **kwargs)

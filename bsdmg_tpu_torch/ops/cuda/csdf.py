@@ -25,10 +25,16 @@ skeleton's symmetry planes, where such ties are common.
 The kernels are compiled for the structure of these descriptors
 (:func:`kernel_structure`): box-skeleton capsule sets of 3 groups along x,
 y and z with 2 perpendicular coordinates per other axis, with or without
-the wireframe and the object transform.
+the wireframe and the object transform; the sphere, the box and the
+mandelbulb; the reference object wrapped on a lattice.
 
-Only the two reference scenes compile; any other scene raises
-``NotImplementedError``.
+The built-in scenes compile (:data:`SUPPORTED`); any other scene raises
+``NotImplementedError``. The sphere's and the box's gradients are JAX's
+reverse mode, as the reference scenes' are, and so NaN where JAX's is (the
+box's inside, where ``sqrt``'s weight ``0.5 / 0`` meets a zero); the
+mandelbulb's is forward mode through its 25-iteration loop, as the kernels
+take it (a loop that leaves at the escape; JAX's reverse mode through its
+masked iterations differs in rounding, and is NaN at more points).
 """
 
 from __future__ import annotations
@@ -40,12 +46,26 @@ import numpy as np
 import torch
 
 from bsdmg_tpu_torch.models.scenes import FRAME_LINE_WIDTH, Scene
-from bsdmg_tpu_torch.sdf.primitives import _box_skeleton_edges
+from bsdmg_tpu_torch.sdf.primitives import (
+    MANDELBULB_ITERS,
+    MANDELBULB_POWER,
+    _box_skeleton_edges,
+    sd_mandelbulb_c,
+)
 
 CSdf = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
+#: the mandelbulb's radius floor (primitives.py _SAFE_EPS) as a float32 value
+_SAFE_EPS_F32 = float(np.float32(1e-12))
+
 #: scenes this compiler lowers
-SUPPORTED = ("reference_object", "reference_render_scene")
+SUPPORTED = (
+    "reference_object", "reference_render_scene", "sphere", "box", "mandelbulb", "wrapped_object",
+)
+
+#: kernel_structure's indices of the other built-in scenes (with_structure in
+#: csrc/scene_sdf.cuh); 0-3 are the reference scenes' Box<Frame, Transform>
+SPHERE, SOLID_BOX, MANDELBULB, WRAPPED = 4, 5, 6, 7
 
 #: parallel-edge groups per capsule set, and distinct perpendicular
 #: coordinates per group axis, that the kernels take (a box skeleton has 3
@@ -85,15 +105,21 @@ class CapsuleSet:
 
 @dataclasses.dataclass(frozen=True)
 class SceneDescriptor:
-    """One reference scene, ready for the render kernel.
+    """One built-in scene, ready for the kernels.
 
-    ``object`` is the box skeleton of ``sd_obj``, ``frame`` the bounding-box
-    wireframe of the render scene (None for the object alone).
-    ``inv_rotation`` (rows of R^T) and ``translation`` are the object
-    transform, None when it is the identity. ``bounds`` is
-    ``(lo, hi, slack)`` from :func:`scene_bounds`."""
+    ``kind`` is ``"reference"`` (the reference object or render scene),
+    ``"wrapped"`` (the reference object on a lattice of period ``cell``),
+    ``"sphere"`` (radius ``sphere_radius``), ``"box"`` (half extents
+    ``box_half``) or ``"mandelbulb"`` (``scale``: the JAX compiler's
+    ``float(scale) * 0.4``, by which the points are divided and the
+    distance multiplied). For the reference object, ``object`` is the box
+    skeleton of ``sd_obj``, ``frame`` the bounding-box wireframe of the
+    render scene (None for the object alone), ``inv_rotation`` (rows of
+    R^T) and ``translation`` the object transform, None when it is the
+    identity. ``bounds`` is ``(lo, hi, slack)`` from :func:`scene_bounds`,
+    None for an unbounded scene. Floats are float32 values."""
 
-    object: CapsuleSet
+    object: CapsuleSet | None
     frame: CapsuleSet | None
     sphere_radius: float
     smooth_k: float
@@ -101,7 +127,11 @@ class SceneDescriptor:
     k_6: float
     inv_rotation: tuple[tuple[float, float, float], ...] | None
     translation: tuple[float, float, float] | None
-    bounds: tuple
+    bounds: tuple | None
+    kind: str = "reference"
+    box_half: tuple[float, float, float] | None = None
+    scale: float | None = None
+    cell: float | None = None
 
 
 def _host(params) -> dict[str, np.ndarray]:
@@ -226,13 +256,25 @@ def _reference_object_bounds(p: dict[str, np.ndarray], reference_compat: bool):
     return lo, hi
 
 
-def scene_bounds(scene: Scene, params=None) -> tuple:
+def scene_bounds(scene: Scene, params=None) -> tuple | None:
     """Conservative AABB of the scene surface as ``((lx,ly,lz), (hx,hy,hz),
-    slack)`` (csdf.py::scene_bounds). ``slack`` bounds the SDF's
-    under-estimation (smooth-min k/6 + 1e-3); the slab cull's margin needs
-    it to stay sound."""
+    slack)`` (csdf.py::scene_bounds), None for the unbounded wrapped object.
+    ``slack`` bounds the SDF's under-estimation (the reference object's
+    smooth-min k/6 + 1e-3, the exact sphere's and box's 1e-3, the
+    mandelbulb's 0.1); the slab cull's margin needs it to stay sound."""
     _check_supported(scene)
     p = _host(scene.params if params is None else params)
+    if scene.name == "sphere":
+        r = float(p["radius"]) + 1e-3
+        return ((-r, -r, -r), (r, r, r), 1e-3)
+    if scene.name == "box":
+        half = np.asarray(p["size"], np.float64) / 2.0 + 1e-3
+        return (tuple(map(float, -half)), tuple(map(float, half)), 1e-3)
+    if scene.name == "mandelbulb":
+        r = 1.25 * float(p["scale"]) + 1e-3
+        return ((-r, -r, -r), (r, r, r), 0.1)
+    if scene.name == "wrapped_object":
+        return None
     lo, hi = _reference_object_bounds(p, scene.reference_compat)
     slack = float(p["smooth_k"]) / 6.0 + 1e-3
     if scene.name == "reference_render_scene":
@@ -242,11 +284,9 @@ def scene_bounds(scene: Scene, params=None) -> tuple:
     return (tuple(map(float, lo)), tuple(map(float, hi)), slack)
 
 
-def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
-    """Lower one of the reference scenes, with ``params`` (default: the
-    scene's own), to a :class:`SceneDescriptor`."""
-    _check_supported(scene)
-    p = _host(scene.params if params is None else params)
+def _reference_fields(scene: Scene, p: dict[str, np.ndarray]) -> dict:
+    """The reference object's descriptor fields (and the render scene's
+    wireframe)."""
     obj = box_skeleton_set(
         p["skeleton_center"], p["skeleton_size"], float(p["skeleton_line_width"]),
         reference_compat=scene.reference_compat,
@@ -264,7 +304,7 @@ def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
         oc, rot = transform
         translation = tuple(f32(v) for v in oc)
         inv_rotation = tuple(tuple(f32(v) for v in row) for row in rot.T)
-    return SceneDescriptor(
+    return dict(
         object=obj,
         frame=frame,
         sphere_radius=f32(p["sphere_radius"]),
@@ -273,8 +313,29 @@ def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
         k_6=f32(k / 6.0),
         inv_rotation=inv_rotation,
         translation=translation,
-        bounds=scene_bounds(scene, params),
     )
+
+
+def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
+    """Lower a built-in scene, with ``params`` (default: the scene's own),
+    to a :class:`SceneDescriptor`, with the constants of the JAX compiler
+    (csdf.py::compile_scene_csdf)."""
+    _check_supported(scene)
+    p = _host(scene.params if params is None else params)
+    bounds = scene_bounds(scene, params)
+    empty = dict(object=None, frame=None, sphere_radius=0.0, smooth_k=0.0, inv_k=0.0, k_6=0.0,
+                 inv_rotation=None, translation=None, bounds=bounds)
+    if scene.name == "sphere":
+        return SceneDescriptor(**{**empty, "sphere_radius": f32(p["radius"])}, kind="sphere")
+    if scene.name == "box":
+        half = tuple(f32(float(v) * 0.5) for v in np.broadcast_to(p["size"], (3,)))
+        return SceneDescriptor(**empty, kind="box", box_half=half)
+    if scene.name == "mandelbulb":
+        return SceneDescriptor(**empty, kind="mandelbulb", scale=f32(float(p["scale"]) * 0.4))
+    if scene.name == "wrapped_object":
+        return SceneDescriptor(**_reference_fields(scene, p), bounds=None, kind="wrapped",
+                               cell=f32(p["cell"]))
+    return SceneDescriptor(**_reference_fields(scene, p), bounds=bounds)
 
 
 # ---------------------------------------------------------------------------
@@ -388,9 +449,8 @@ def _object_coords(desc: SceneDescriptor, x, y, z):
     )
 
 
-def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
-    """The scene SDF of ``desc`` on coordinate planes, in plain PyTorch: the
-    twin of the kernels' ``scene_sdf`` (csdf.py::reference_render_scene_csdf)."""
+def _reference_csdf(desc: SceneDescriptor) -> CSdf:
+    """The reference scenes' SDF (csdf.py::reference_render_scene_csdf)."""
     skeleton = _capsule_set_value_grad(desc.object)
     frame = None if desc.frame is None else _capsule_set_value_grad(desc.frame)
 
@@ -407,13 +467,66 @@ def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
     return f
 
 
+def _wrap_coord(v, half: float, cell: float):
+    """``-half + jnp.mod(v + half, cell)`` (the wrap of signed_distance.cu:9-18)."""
+    return -half + torch.remainder(v + half, cell)
+
+
+def _wrapped(desc: SceneDescriptor, inner):
+    """``inner`` on the lattice coordinates of ``desc.cell``; a gradient
+    passes the wrap unchanged."""
+    cell = desc.cell
+    half = f32(cell / 2.0)
+
+    def f(x, y, z):
+        return inner(_wrap_coord(x, half, cell), _wrap_coord(y, half, cell),
+                     _wrap_coord(z, half, cell))
+
+    return f
+
+
+def _box_csdf(desc: SceneDescriptor) -> CSdf:
+    """csdf.py::box_csdf, centred at the origin: sd_box_c."""
+    hx, hy, hz = desc.box_half
+
+    def f(x, y, z):
+        qx, qy, qz = torch.abs(x) - hx, torch.abs(y) - hy, torch.abs(z) - hz
+        ox, oy, oz = (torch.clamp_min(q, 0.0) for q in (qx, qy, qz))
+        outside = torch.sqrt(ox * ox + oy * oy + oz * oz)
+        return outside + torch.clamp_max(torch.maximum(qx, torch.maximum(qy, qz)), 0.0)
+
+    return f
+
+
+def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
+    """The scene SDF of ``desc`` on coordinate planes, in plain PyTorch: the
+    twin of the kernels' ``scene_sdf`` (csdf.py::compile_scene_csdf)."""
+    if desc.kind == "sphere":
+        r = desc.sphere_radius
+        return lambda x, y, z: torch.sqrt(x * x + y * y + z * z) - r
+    if desc.kind == "box":
+        return _box_csdf(desc)
+    if desc.kind == "mandelbulb":
+        s = desc.scale
+        return lambda x, y, z: sd_mandelbulb_c(x / s, y / s, z / s) * s
+    if desc.kind == "wrapped":
+        return _wrapped(desc, _reference_csdf(desc))
+    return _reference_csdf(desc)
+
+
 def kernel_structure(desc: SceneDescriptor) -> int:
     """The index of the compile-time structure the kernels launch for
-    ``desc`` (``Box<Frame, Transform>`` in csrc/scene_sdf.cuh): ``2 *
-    frame + transform``. Each capsule set must be a box skeleton as the
-    kernels take it, 3 groups along x, y and z in that order with 2
+    ``desc`` (with_structure in csrc/scene_sdf.cuh): ``2 * frame +
+    transform`` for ``Box<Frame, Transform>``, the reference scenes;
+    :data:`SPHERE`, :data:`SOLID_BOX`, :data:`MANDELBULB`; :data:`WRAPPED`
+    for ``Wrapped<Box<false, false>>``, the wrapped reference object
+    without an object transform. Each capsule set must be a box skeleton as
+    the kernels take it, 3 groups along x, y and z in that order with 2
     perpendicular coordinates per other axis; any other descriptor raises
     ``NotImplementedError``, for which no kernel is built."""
+    plain = {"sphere": SPHERE, "box": SOLID_BOX, "mandelbulb": MANDELBULB}
+    if desc.kind in plain:
+        return plain[desc.kind]
     sets = {"object": desc.object, "frame": desc.frame}
     for name, cs in sets.items():
         if cs is None:
@@ -425,19 +538,18 @@ def kernel_structure(desc: SceneDescriptor) -> int:
                 f"for {MAX_GROUPS} groups along x, y and z with {MAX_GROUP_VALUES} x "
                 f"{MAX_GROUP_VALUES} perpendicular coordinates"
             )
+    if desc.kind == "wrapped":
+        if desc.frame is not None or desc.translation is not None:
+            raise NotImplementedError(
+                "the kernels are built for the wrapped reference object without a wireframe "
+                "or an object transform (Wrapped<Box<false, false>>)"
+            )
+        return WRAPPED
     return 2 * (desc.frame is not None) + (desc.translation is not None)
 
 
-def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
-    """``f(x, y, z) -> (d, gx, gy, gz)``: the scene SDF of ``desc`` and its
-    gradient on coordinate planes, in plain PyTorch; the twin of the
-    kernels' ``scene_sdf_grad`` (csrc/scene_sdf.cuh).
-
-    The gradient is reverse mode with a cotangent of 1, as ``jax.vjp`` of
-    the JAX compiler's SDF (``compile_scene_csdf``) takes it: through the
-    capsule groups, with every ``min``/``max`` splitting its cotangent
-    evenly at a tie and ``abs`` passing +1 at 0. ``d`` equals
-    :func:`descriptor_csdf` bit for bit."""
+def _reference_value_and_grad(desc: SceneDescriptor):
+    """The reference scenes' value and gradient, reverse mode."""
     skeleton = _capsule_set_value_grad(desc.object)
     frame = None if desc.frame is None else _capsule_set_value_grad(desc.frame)
 
@@ -487,6 +599,173 @@ def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
         return (d, *g)
 
     return f
+
+
+def _sphere_value_and_grad(desc: SceneDescriptor):
+    """sphere_csdf at the origin, reverse mode: d sqrt(b) = (0.5 / sqrt(b))
+    db, each square's cotangent ``ct*x + x*ct``."""
+    r = desc.sphere_radius
+
+    def f(x, y, z):
+        root = torch.sqrt(x * x + y * y + z * z)
+        w = 0.5 / root
+        gx, gy, gz = w * x, w * y, w * z
+        return root - r, gx + gx, gy + gy, gz + gz
+
+    return f
+
+
+def _box_value_and_grad(desc: SceneDescriptor):
+    """sd_box_c at the origin, reverse mode with JAX's tie rules: the
+    outside's ``sqrt`` and squares as the sphere's, each ``max``/``min``
+    weighting its cotangent (:func:`_tie_weight`), ``abs`` passing +1 at
+    0. Inside the box the outside distance is 0 and its weight ``0.5 / 0``
+    meets a zero: NaN, as JAX's."""
+    hx, hy, hz = desc.box_half
+
+    def f(x, y, z):
+        coords = (x, y, z)
+        q = [torch.abs(c) - h for c, h in zip(coords, (hx, hy, hz))]
+        o = [torch.clamp_min(v, 0.0) for v in q]
+        outside = torch.sqrt(o[0] * o[0] + o[1] * o[1] + o[2] * o[2])
+        m2 = torch.maximum(q[1], q[2])
+        m3 = torch.maximum(q[0], m2)
+        inside = torch.clamp_max(m3, 0.0)
+        # backward, cotangent 1
+        ct_m3 = _tie_weight(m3, inside, 0.0)
+        ct_m2 = ct_m3 * _tie_weight(m2, m3, q[0])
+        ct_in = [ct_m3 * _tie_weight(q[0], m3, m2), ct_m2 * _tie_weight(q[1], m2, q[2]),
+                 ct_m2 * _tie_weight(q[2], m2, q[1])]
+        w = 0.5 / outside
+        grad = []
+        for c, qa, oa, ia in zip(coords, q, o, ct_in):
+            s = w * oa
+            ct_q = (s + s) * _tie_weight(qa, oa, 0.0) + ia
+            grad.append(torch.where(c >= 0.0, ct_q, -ct_q))
+        return (outside + inside, *grad)
+
+    return f
+
+
+class _Dual(NamedTuple):
+    """A value plane and its three tangent planes: the kernels' ``Dual<3>``
+    (csrc/dual.cuh), each rule the same operations in the same order."""
+
+    v: torch.Tensor
+    t: tuple
+
+    def __add__(self, o):
+        if isinstance(o, _Dual):
+            return _Dual(self.v + o.v, tuple(a + b for a, b in zip(self.t, o.t)))
+        return _Dual(self.v + o, self.t)
+
+    def __mul__(self, o):
+        if isinstance(o, _Dual):
+            return _Dual(self.v * o.v, tuple(a * o.v + self.v * b for a, b in zip(self.t, o.t)))
+        return _Dual(self.v * o, tuple(a * o for a in self.t))
+
+    def __truediv__(self, o):
+        if isinstance(o, _Dual):
+            v = self.v / o.v
+            return _Dual(v, tuple((a - v * b) / o.v for a, b in zip(self.t, o.t)))
+        return _Dual(self.v / o, tuple(a / o for a in self.t))
+
+    def scaled(self, w):
+        """The value ``w``'s plane with tangents ``t * w_prime``: a unary
+        rule's result, ``w`` a ``(value, derivative)`` pair."""
+        return _Dual(w[0], tuple(a * w[1] for a in self.t))
+
+
+def _chooser(a: _Dual, b, z):
+    """``min``/``max`` of ``a`` and the float ``b`` with value ``z``: JAX's
+    tangent weight for ``a`` (dual.cuh chooser)."""
+    wa = _tie_weight(a.v, z, b)
+    return _Dual(z, tuple(t * wa for t in a.t))
+
+
+def _where(c, a: _Dual, b: _Dual) -> _Dual:
+    return _Dual(torch.where(c, a.v, b.v), tuple(torch.where(c, p, q) for p, q in zip(a.t, b.t)))
+
+
+def _sincos(a: _Dual):
+    s, c = torch.sin(a.v), torch.cos(a.v)
+    return a.scaled((s, c)), a.scaled((c, -s))
+
+
+def _mandelbulb_value_and_grad(desc: SceneDescriptor):
+    """The mandelbulb and its gradient by forward mode with three tangents
+    through the loop (scene_sdf.cuh mandelbulb_sdf_grad), each rule JAX's
+    JVP: acos' = -1/sqrt(1 - x^2), atan2(y, x)' = (x dy - y dx) / (x^2 +
+    y^2), (x^p)' = p x^(p-1), log' = 1/x. A point leaves the loop at its
+    escape, as in the kernel; the value equals :func:`descriptor_csdf`'s."""
+    s = desc.scale
+    power = MANDELBULB_POWER
+
+    def f(x, y, z):
+        one, zero = torch.ones_like(x), torch.zeros_like(x)
+        p = [_Dual(c / s, tuple((one if i == a else zero) / s for i in range(3)))
+             for a, c in enumerate((x, y, z))]
+        zx, zy, zz = p
+        dr = _Dual(one, (zero, zero, zero))
+        r = _Dual(zero, (zero, zero, zero))
+        active = torch.ones_like(x, dtype=torch.bool)
+        for _ in range(MANDELBULB_ITERS):
+            sq = (zx * zx + zy * zy) + zz * zz
+            rv = torch.sqrt(sq.v)
+            r_new = sq.scaled((rv, 0.5 / rv))
+            r = _where(active, r_new, r)
+            cont = active & (r_new.v <= 2.0)
+            sr = _chooser(r_new, _SAFE_EPS_F32, torch.clamp_min(r_new.v, _SAFE_EPS_F32))
+            c = zz / sr
+            c = _chooser(c, -1.0, torch.clamp_min(c.v, -1.0))
+            c = _chooser(c, 1.0, torch.clamp_max(c.v, 1.0))
+            theta = c.scaled((torch.acos(c.v), -(1.0 / torch.sqrt(1.0 - c.v * c.v)))) * power
+            den = zx.v * zx.v + zy.v * zy.v
+            wy, wx = zx.v / den, -zy.v / den
+            phi = _Dual(torch.atan2(zy.v, zx.v),
+                        tuple(b * wy + a * wx for a, b in zip(zx.t, zy.t))) * power
+            p6 = torch.pow(sr.v, power - 1.0)
+            zr = sr.scaled((torch.pow(sr.v, power), power * p6))
+            dr_next = (sr.scaled((p6, (power - 1.0) * torch.pow(sr.v, power - 2.0))) * power
+                       * dr) + 1.0
+            s_theta, c_theta = _sincos(theta)
+            s_phi, c_phi = _sincos(phi)
+            zx_n = zr * s_theta * c_phi + p[0]
+            zy_n = zr * s_phi * s_theta + p[1]
+            zz_n = zr * c_theta + p[2]
+            zx, zy, zz = _where(cont, zx_n, zx), _where(cont, zy_n, zy), _where(cont, zz_n, zz)
+            dr = _where(cont, dr_next, dr)
+            active = cont
+            if not bool(active.any()):
+                break
+        sr = _chooser(r, _SAFE_EPS_F32, torch.clamp_min(r.v, _SAFE_EPS_F32))
+        d = sr.scaled((torch.log(sr.v), 1.0 / sr.v)) * 0.5 * r / dr * s
+        return (d.v, *d.t)
+
+    return f
+
+
+def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
+    """``f(x, y, z) -> (d, gx, gy, gz)``: the scene SDF of ``desc`` and its
+    gradient on coordinate planes, in plain PyTorch; the twin of the
+    kernels' ``scene_sdf_grad`` (csrc/scene_sdf.cuh).
+
+    The gradient is reverse mode with a cotangent of 1, as ``jax.vjp`` of
+    the JAX compiler's SDF (``compile_scene_csdf``) takes it: through the
+    capsule groups, with every ``min``/``max`` splitting its cotangent
+    evenly at a tie and ``abs`` passing +1 at 0; a wrap passes it
+    unchanged. The mandelbulb's is forward mode
+    (:func:`_mandelbulb_value_and_grad`). ``d`` equals
+    :func:`descriptor_csdf` bit for bit."""
+    if desc.kind == "sphere":
+        return _sphere_value_and_grad(desc)
+    if desc.kind == "box":
+        return _box_value_and_grad(desc)
+    if desc.kind == "mandelbulb":
+        return _mandelbulb_value_and_grad(desc)
+    if desc.kind == "wrapped":
+        return _wrapped(desc, _reference_value_and_grad(desc))
+    return _reference_value_and_grad(desc)
 
 
 class SdfFns(NamedTuple):

@@ -256,9 +256,11 @@ def trace_planes_torch(
 
     The carried state ``(depth0, steps0, outcome0, active0)`` defaults to a
     fresh march: depth 0, steps 0, DEPTH_LIMIT and every ray active. With
-    ``use_bb_skip`` the active rays that cannot reach the scene's bounds keep
-    their ``outcome0`` and get depth ``1.01 * depth_limit`` (:355-368), the
-    others stop at the box's exit depth; without it at the depth limit.
+    ``use_bb_skip`` the active rays that cannot reach the scene's bounds
+    keep their ``outcome0`` and get depth ``1.01 * depth_limit``
+    (:355-368), the others stop at the box's exit depth; without it, or
+    for an unbounded scene (the JAX package's ``bb=None``), at the depth
+    limit.
     Rays that are not active keep their state. Returns ``(depth, steps,
     outcome, active)`` ``(H, W)`` planes; ``active`` (int32) marks the rays
     that stopped at ``budget`` short of the step limit (:281-283)."""
@@ -272,7 +274,7 @@ def trace_planes_torch(
         steps0, outcome0 = steps0.reshape(-1), outcome0.reshape(-1)
         active = active0.reshape(-1) != 0
     limit = torch.full_like(c, config.depth_limit)
-    if use_bb_skip:
+    if use_bb_skip and scene_desc.bounds is not None:
         miss, t_exit = _slab_cull(scene_desc.bounds, ox, oy, oz, dx, dy, dz, c, config)
         depth[active & miss] = config.depth_limit * 1.01
         active = active & ~miss
@@ -396,6 +398,10 @@ class _SceneDescC(ctypes.Structure):
         ("aces_m1", _floats(9)),
         ("aces_m2", _floats(9)),
         ("aces_curve", _floats(5)),
+        ("box_half", _floats(3)),
+        ("scale", ctypes.c_float),
+        ("cell", ctypes.c_float),
+        ("half_cell", ctypes.c_float),
     ]
 
 
@@ -414,7 +420,11 @@ def _capsule_set_c(cs: CapsuleSet) -> _CapsuleSetC:
 
 def bounds_c(bb) -> dict:
     """The slab cull's fields of ``SceneDesc`` and ``ParamScene`` for the
-    bounds ``bb``, as float32 values."""
+    bounds ``bb``, as float32 values; zeros for an unbounded scene (None),
+    which no kernel culls."""
+    if bb is None:
+        return dict(lo=_floats(3)(), hi=_floats(3)(), cull_center=_floats(3)(), cull_radius=0.0,
+                    slack=0.0)
     lo, hi, slack = _bounds_parts(bb)
     center, radius = _cull_sphere(bb)
     return dict(
@@ -456,9 +466,10 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> 
     structure = kernel_structure(desc)
     has_transform = desc.translation is not None
     rotation = [v for row in desc.inv_rotation for v in row] if has_transform else [0.0] * 9
+    skeleton = desc.frame if desc.frame is not None else desc.object
     return _SceneDescC(
-        object=_capsule_set_c(desc.object),
-        frame=_capsule_set_c(desc.frame if desc.frame is not None else desc.object),
+        object=_CapsuleSetC() if desc.object is None else _capsule_set_c(desc.object),
+        frame=_CapsuleSetC() if skeleton is None else _capsule_set_c(skeleton),
         structure=structure,
         sphere_radius=desc.sphere_radius,
         smooth_k=desc.smooth_k,
@@ -467,6 +478,10 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> 
         inv_rotation=_floats(9)(*rotation),
         translation=_floats(3)(*(desc.translation if has_transform else (0.0,) * 3)),
         normal_epsilon=f32(config.normal_epsilon),
+        box_half=_floats(3)(*(desc.box_half or (0.0,) * 3)),
+        scale=desc.scale or 0.0,
+        cell=desc.cell or 0.0,
+        half_cell=0.0 if desc.cell is None else f32(desc.cell / 2.0),
         **bounds_c(desc.bounds),
         **march_c(config),
         **shading_c(),
@@ -633,7 +648,9 @@ class _Frame:
             raise ValueError(f"unsupported device {cone.device}")
         self.desc, self.config = desc, config
         self.rays = (origins, directions, cone)
-        self.cull, self.omega = bool(use_bb_skip), float(omega)
+        # an unbounded scene (the wrapped object) has nothing to cull against
+        self.cull = bool(use_bb_skip) and desc.bounds is not None
+        self.omega = float(omega)
         self.cuda = cone.device.type == "cuda"
         self.desc_c = scene_desc_c(desc, config) if self.cuda else None
 

@@ -1,10 +1,11 @@
-"""The SDF primitives of the reference scenes, on ``(..., 3)`` point tensors.
+"""The SDF primitives of the built-in scenes, on ``(..., 3)`` point tensors.
 
-Port of the subset of ``bsdmg_tpu/sdf/primitives.py`` that the reference
-object and render scene use (reference: cuda/includes/signed_distance.cu),
-in the point form and in the component form on coordinate planes that the
-differentiable render evaluates. The rest of that library comes with the
-scenes that need it.
+Port of the subset of ``bsdmg_tpu/sdf/primitives.py`` that the built-in
+scenes use (reference: cuda/includes/signed_distance.cu), in the point form
+and in the component form on coordinate planes, each in the JAX package's
+operation order: the reference object's box skeleton, sphere and smooth
+minimum, and the box, domain wrap and mandelbulb of the other scenes. The
+rest of that library comes with the scenes that need it.
 
 Where a function is differentiated, its ``min``, ``max`` and ``abs`` follow
 JAX's derivative rules: at a tie each operand of ``minimum``/``maximum``
@@ -14,6 +15,7 @@ all), and ``abs`` has derivative +1 at 0 (``torch.abs`` has 0).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _SAFE_EPS = 1e-12
@@ -54,6 +56,15 @@ def _tensors(a, b):
     )
 
 
+def wrap(p: torch.Tensor, lower, higher) -> torch.Tensor:
+    """Domain repetition: each coordinate wrapped into ``[lower, higher)``
+    (signed_distance.cu:9-18). ``torch.remainder`` is ``jnp.mod``: the
+    truncated remainder, plus the divisor where its sign differs."""
+    lower = torch.as_tensor(lower, dtype=p.dtype, device=p.device)
+    higher = torch.as_tensor(higher, dtype=p.dtype, device=p.device)
+    return lower + torch.remainder(p - lower, higher - lower)
+
+
 def smooth_min(a: torch.Tensor, b: torch.Tensor, k) -> torch.Tensor:
     """Cubic smooth minimum with width ``k`` (signed_distance.cu:20-23):
     ``h = max(k - |a-b|, 0)/k;  min(a,b) - h^3 * k / 6``."""
@@ -81,6 +92,16 @@ def sd_line(p: torch.Tensor, b0, b1) -> torch.Tensor:
     length = _norm(seg)
     direction = seg / torch.clamp_min(length, _SAFE_EPS)[..., None]
     return sd_ray_segment(p, b0, direction, length)
+
+
+def sd_box(p: torch.Tensor, center=0.0, size=1.0) -> torch.Tensor:
+    """Exact box SDF; ``size`` is the full extent (signed_distance.cu:86-91)."""
+    center = torch.as_tensor(center, dtype=p.dtype, device=p.device)
+    size = torch.as_tensor(size, dtype=p.dtype, device=p.device)
+    q = abs_(p - center) - size / 2.0
+    outside = _norm(maximum(q, 0.0))
+    inside = minimum(q, 0.0).amax(dim=-1)
+    return outside + inside
 
 
 def _box_skeleton_edges(center, size, reference_compat: bool):
@@ -188,3 +209,100 @@ def sd_box_skeleton_c(x, y, z, center, size, line_width, *, reference_compat=Tru
         d2 = axial + m1 + m2
         best = d2 if best is None else torch.minimum(best, d2)
     return torch.sqrt(best) - line_width
+
+
+def sd_box_c(x, y, z, center, size):
+    """Component form of :func:`sd_box` (exact box SDF, signed inside)."""
+    c = _vec3(center)
+    s = _vec3(size)
+    qx = abs_(x - c[0]) - s[0] * 0.5
+    qy = abs_(y - c[1]) - s[1] * 0.5
+    qz = abs_(z - c[2]) - s[2] * 0.5
+    ox = maximum(qx, 0.0)
+    oy = maximum(qy, 0.0)
+    oz = maximum(qz, 0.0)
+    outside = torch.sqrt(ox * ox + oy * oy + oz * oz)
+    inside = minimum(maximum(qx, maximum(qy, qz)), 0.0)
+    return outside + inside
+
+
+# ---------------------------------------------------------------------------
+# fractals
+# ---------------------------------------------------------------------------
+
+MANDELBULB_POWER = 7.0
+MANDELBULB_ITERS = 25
+
+
+def _mandelbulb_power(time) -> float:
+    """``7 * (1 + time * 0.001)`` in float32, as the JAX package computes it."""
+    t = np.float32(time) * np.float32(0.001)
+    return float(np.float32(MANDELBULB_POWER) * (np.float32(1.0) + t))
+
+
+def sd_mandelbulb(p: torch.Tensor, time=0.0) -> torch.Tensor:
+    """Mandelbulb distance estimator ``0.5 * log(r) * r / dr``
+    (signed_distance.cu:29-53: power 7, 25 iterations, escape radius 2).
+    A point stops iterating once it escapes; the loop ends when every point
+    has, which changes no value."""
+    power = _mandelbulb_power(time)
+    z = p
+    dr = torch.ones_like(p[..., 0])
+    r = torch.zeros_like(dr)
+    active = torch.ones_like(dr, dtype=torch.bool)
+    for _ in range(MANDELBULB_ITERS):
+        r_new = _norm(z)
+        r = torch.where(active, r_new, r)
+        cont = active & (r_new <= 2.0)
+        safe_r = maximum(r_new, _SAFE_EPS)
+        theta = torch.acos(minimum(maximum(z[..., 2] / safe_r, -1.0), 1.0)) * power
+        phi = torch.atan2(z[..., 1], z[..., 0]) * power
+        zr = safe_r**power
+        dr_next = safe_r ** (power - 1.0) * power * dr + 1.0
+        s_theta = torch.sin(theta)
+        z_next = (
+            zr[..., None]
+            * torch.stack(
+                [s_theta * torch.cos(phi), torch.sin(phi) * s_theta, torch.cos(theta)], dim=-1
+            )
+            + p
+        )
+        z = torch.where(cont[..., None], z_next, z)
+        dr = torch.where(cont, dr_next, dr)
+        active = cont
+        if not bool(active.any()):
+            break
+    safe_r = maximum(r, _SAFE_EPS)
+    return 0.5 * torch.log(safe_r) * r / dr
+
+
+def sd_mandelbulb_c(x, y, z, time=0.0):
+    """Component form of :func:`sd_mandelbulb`, with native ``torch.acos``
+    and ``torch.atan2`` (the JAX package's exact default)."""
+    power = float(MANDELBULB_POWER * (1.0 + float(time) * 0.001))
+    zx, zy, zz = x, y, z
+    dr = torch.ones_like(x)
+    r = torch.zeros_like(x)
+    active = torch.ones_like(x, dtype=torch.bool)
+    for _ in range(MANDELBULB_ITERS):
+        r_new = torch.sqrt(zx * zx + zy * zy + zz * zz)
+        r = torch.where(active, r_new, r)
+        cont = active & (r_new <= 2.0)
+        safe_r = maximum(r_new, _SAFE_EPS)
+        theta = torch.acos(minimum(maximum(zz / safe_r, -1.0), 1.0)) * power
+        phi = torch.atan2(zy, zx) * power
+        zr = safe_r**power
+        dr_next = safe_r ** (power - 1.0) * power * dr + 1.0
+        s_theta = torch.sin(theta)
+        zx_n = zr * s_theta * torch.cos(phi) + x
+        zy_n = zr * torch.sin(phi) * s_theta + y
+        zz_n = zr * torch.cos(theta) + z
+        zx = torch.where(cont, zx_n, zx)
+        zy = torch.where(cont, zy_n, zy)
+        zz = torch.where(cont, zz_n, zz)
+        dr = torch.where(cont, dr_next, dr)
+        active = cont
+        if not bool(active.any()):
+            break
+    safe_r = maximum(r, _SAFE_EPS)
+    return 0.5 * torch.log(safe_r) * r / dr

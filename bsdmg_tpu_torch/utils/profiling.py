@@ -126,11 +126,130 @@ def capsule_bwd_ops(cs) -> int:
     return 2 + (len(cs.groups) - 1) * 2 * (1 + TIE) + groups
 
 
-def sdf_ops(desc) -> int:
-    """scene_sdf.cuh scene_sdf: the transform (3 subtracts, 9 multiplies,
-    6 adds), the object's capsules, the sphere (3 multiplies, 2 adds, sqrt,
-    subtract), the smooth-min (subtract, abs, subtract, max, multiply, min,
-    3 multiplies, subtract), the frame's capsules and a min."""
+SPHERE = 7  # scene_sdf.cuh sphere_sdf: 3 multiplies, 2 adds, sqrt, subtract
+SPHERE_GRAD = SPHERE + 7  # sphere_sdf_grad: the weight's division, 3 multiplies, 3 doubled sums
+SOLID_BOX = 19  # solid_box_sdf: 3 x (abs, subtract, max), the outside's 3 squares,
+# 2 adds and sqrt, the inside's 2 maxes and min, the sum
+SOLID_BOX_GRAD = SOLID_BOX + TIE + (TIE + 1) + 1 + 3 * (TIE + 1) + 3 * (TIE + 5)  # = 63: the
+# inside's weights (ct_m3 a TIE, ct_m2 a TIE and a product), the outside's weight (a
+# division), per axis the inside's cotangent (TIE, product) and box_axis_bwd (product,
+# sum, TIE, product, sum, the sign's compare)
+WRAP = 6  # scene_sdf.cuh wrap_coord beside its fmodf: add, two compares, the
+# divisor's sign compare, the conditional add, -half + m
+
+#: FP32 operations of one call of each libm function the mandelbulb (and the
+#: wrap) calls, on the path that call takes: chip_smoke.libm_probe runs the
+#: function's PTX (nvcc -O3 -fmad=false, sm_90a) with a counter at the head
+#: of each basic block (:func:`instrument_ptx`) on the arguments the twins
+#: give these calls in the frames chip_smoke renders at 1920x1080
+#: (:func:`mandelbulb_loops`, :func:`wrap_arguments`), and takes each
+#: executed instruction at :func:`ptx_fp32_ops`; the mean per call, rounded
+#: to 0.01. chip_smoke checks that its probe gives these counts (CUDA 12.8:
+#: PERF.md). powf7 and powf6 are powf with the constant exponents 7 and 6.
+LIBM = {"acosf": 30.0, "atan2f": 29.0, "powf7": 77.0, "powf6": 77.0, "sincosf": 28.0, "logf": 28.0,
+        "fmodf": 10.64}
+
+#: scene_sdf.cuh mandelbulb_de, per evaluation: the three divisions by the
+#: scale, the final max, logf, 3 multiplies, a division and the scale
+MANDELBULB_EVAL = 3 + 1 + LIBM["logf"] + 3 + 1 + 1
+#: per loop trip: the radius (3 multiplies, 2 adds, sqrt) and the escape test
+MANDELBULB_TRIP = 7
+#: per full iteration: max, division, clip (2), acosf and its multiply,
+#: atan2f and its multiply, the two powf, dr's 2 multiplies and add, two
+#: sincosf, the new point (2 multiplies and an add, twice; a multiply and
+#: an add)
+MANDELBULB_ITERATION = (1 + 1 + 2 + LIBM["acosf"] + 1 + LIBM["atan2f"] + 1 + LIBM["powf7"]
+                        + LIBM["powf6"] + 3 + 2 * LIBM["sincosf"] + 3 + 3 + 2)
+
+#: PTX FP32 operations by opcode, in this module's convention (a min, max,
+#: abs, compare, division, sqrt, conversion or special function one, an FMA
+#: a multiply and an add); a negation, select, move or bit operation none
+PTX_FP32_OPS = {"add": 1, "sub": 1, "mul": 1, "div": 1, "min": 1, "max": 1, "abs": 1, "sqrt": 1,
+                "rsqrt": 1, "rcp": 1, "ex2": 1, "lg2": 1, "sin": 1, "cos": 1, "tanh": 1,
+                "setp": 1, "set": 1, "testp": 1, "copysign": 1, "cvt": 1, "fma": 2, "mad": 2}
+
+
+def ptx_fp32_ops(line: str) -> int:
+    """FP32 operations of one PTX instruction (:data:`PTX_FP32_OPS`, where
+    one of its types is f32); a predicated one counts as executed."""
+    words = line.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    if not words:
+        return 0
+    op, *types = words[0].rstrip(";").split(".")
+    return PTX_FP32_OPS.get(op, 0) if "f32" in types else 0
+
+
+def instrument_ptx(ptx: str, counter: str = "block_count") -> tuple[str, list[int]]:
+    """``(ptx, ops)``: ``ptx`` with a ``red.global.add.u64`` of counter k at
+    the head of the k-th basic block of each function (its entry, a label,
+    the instruction after a branch), the counters a global u64 array
+    ``counter``; ``ops[k]`` is block k's FP32 operations
+    (:func:`ptx_fp32_ops`). The executed operations of a launch are the
+    counts times ``ops``."""
+    out, ops = [], []
+    depth, opening, pending = 0, False, False
+
+    def block():
+        out.append(f"\tred.global.add.u64 \t[{counter}+{8 * len(ops)}], 1;")
+        ops.append(0)
+
+    for line in ptx.splitlines():
+        text = line.split("//")[0].strip()
+        if depth == 0:
+            out.append(line)
+            if text.startswith(".address_size"):
+                out.append(f".global .align 8 .u64 {counter}[@BLOCKS@];")
+            if text.startswith("{"):
+                depth, opening = 1, True
+            continue
+        depth += text.count("{") - text.count("}")
+        if depth == 0 or not text:
+            out.append(line)
+            continue
+        if opening and (text.startswith((".reg", ".local", ".shared", ".param", ".pragma"))):
+            out.append(line)
+            continue
+        if text.endswith(":"):
+            out.append(line)
+            opening, pending = False, False
+            block()
+            continue
+        if opening or (pending and not text.startswith(("{", "}", ".reg", ".param"))):
+            block()
+            opening, pending = False, False
+        out.append(line)
+        if ops:
+            ops[-1] += ptx_fp32_ops(text)
+        words = text.split()
+        op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+        if op.split(".")[0].rstrip(";") in ("bra", "ret", "exit"):
+            pending = True
+    return "\n".join(out).replace("@BLOCKS@", str(max(len(ops), 1))) + "\n", ops
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopWork:
+    """The mandelbulb's loop over a set of SDF evaluations, the work its
+    data takes: the evaluations, their loop trips (escape tests) and full
+    iterations (:func:`mandelbulb_loops` counts them for a frame)."""
+
+    evaluations: int
+    trips: int
+    full: int
+
+    def ops(self) -> int:
+        return (self.evaluations * MANDELBULB_EVAL + self.trips * MANDELBULB_TRIP
+                + self.full * MANDELBULB_ITERATION)
+
+    def per_evaluation(self, evaluations: float) -> float:
+        """The operations of ``evaluations`` evaluations with this work's
+        mean trips and iterations."""
+        return evaluations * self.ops() / max(self.evaluations, 1)
+
+
+def _reference_sdf_ops(desc) -> int:
     n = capsule_ops(desc.object) + 7 + 10
     if desc.translation is not None:
         n += 18
@@ -139,12 +258,40 @@ def sdf_ops(desc) -> int:
     return n
 
 
+def sdf_ops(desc) -> int:
+    """scene_sdf.cuh scene_sdf. The reference scenes: the transform (3
+    subtracts, 9 multiplies, 6 adds), the object's capsules, the sphere (3
+    multiplies, 2 adds, sqrt, subtract), the smooth-min (subtract, abs,
+    subtract, max, multiply, min, 3 multiplies, subtract), the frame's
+    capsules and a min; the wrapped object the same beside three wraps
+    (WRAP and fmodf each); the sphere SPHERE, the box SOLID_BOX. The
+    mandelbulb's depends on its data (:class:`LoopWork`) and raises here."""
+    if desc.kind == "sphere":
+        return SPHERE
+    if desc.kind == "box":
+        return SOLID_BOX
+    if desc.kind == "mandelbulb":
+        raise ValueError("the mandelbulb's work depends on its data: count it with LoopWork")
+    n = _reference_sdf_ops(desc)
+    if desc.kind == "wrapped":
+        n += 3 * (WRAP + LIBM["fmodf"])
+    return n
+
+
 def grad_ops(desc) -> int:
-    """scene_sdf.cuh scene_sdf_grad: the forward (scene_sdf's operations),
-    the smooth-min backward (ct_h3 1, ct_h2 1, ct_h 5, ct_u 5, ct_delta 1,
-    ct_skel 5, ct_sph 5, ct_s2 2), the sphere's (3 multiplies, 3 doubled
-    sums), the capsules' backward, the frame's two weights and the
-    transposed rotation (15)."""
+    """scene_sdf.cuh scene_sdf_grad. The reference scenes: the forward
+    (scene_sdf's operations), the smooth-min backward (ct_h3 1, ct_h2 1,
+    ct_h 5, ct_u 5, ct_delta 1, ct_skel 5, ct_sph 5, ct_s2 2), the sphere's
+    (3 multiplies, 3 doubled sums), the capsules' backward, the frame's two
+    weights and the transposed rotation (15); the wrapped object's beside
+    its wraps; the sphere SPHERE_GRAD, the box SOLID_BOX_GRAD. The
+    mandelbulb's forward mode is not counted and raises."""
+    if desc.kind == "sphere":
+        return SPHERE_GRAD
+    if desc.kind == "box":
+        return SOLID_BOX_GRAD
+    if desc.kind == "mandelbulb":
+        raise ValueError("the mandelbulb's gradient (forward mode through its loop) is not counted")
     n = sdf_ops(desc) + 25 + 9 + capsule_bwd_ops(desc.object)
     if desc.frame is not None:
         n += 2 * TIE + capsule_bwd_ops(desc.frame)
@@ -178,22 +325,46 @@ def _stencil_set_ops(cs) -> int:
     return ops + 12 * (len(cs.groups) + 1)
 
 
+#: project.cuh fd4_grad beside its SDFs: 2*eps, each point's shifted
+#: coordinate (12) and the stencil's 5 per axis
+STENCIL = 1 + 12 + 15
+#: the sphere's shared-term stencil: its three squares once, per point a
+#: square and its sums (two adds, or one on z, whose x*x + y*y is shared),
+#: sqrt and radius
+SPHERE_STENCIL = 3 + 4 * (3 + 3 + 2) + 1 + 12 * 2
+#: the box's: per axis |c| - h, its max and square once (12), max(qy, qz)
+#: and x*x + y*y once (2); per point the moved axis's 4, the outside's sums
+#: (2, or 1 on z), sqrt, the inside's maxes and min (2 on x, whose
+#: max(qy, qz) is shared, else 3) and the sum
+BOX_STENCIL = 12 + 2 + 4 * ((4 + 2 + 1 + 2 + 1) + (4 + 2 + 1 + 3 + 1) + (4 + 1 + 1 + 3 + 1))
+
+
 def fd4_ops(desc) -> int:
     """project.cuh fd4_grad, whose 12 unrolled SDFs share every term that a
-    shift leaves alone (the shared-term stencil): 2*eps; each point's
-    shifted coordinate (12); the object: with a transform 12 whole object
-    SDFs (transform 18, capsules, sphere 7, smooth union 10), else its
-    capsule set's terms (:func:`_stencil_set_ops`), the sphere's three
-    squares once, per point a square and its sums (two adds, or one on z,
-    whose x*x + y*y is shared) and sqrt and radius, and the smooth union
-    (10) per point; the wireframe's terms and a min per point; the
-    stencil's 5 per axis."""
+    shift leaves alone (the shared-term stencil): STENCIL; the object: with
+    a transform 12 whole object SDFs (transform 18, capsules, sphere 7,
+    smooth union 10), else its capsule set's terms
+    (:func:`_stencil_set_ops`), the sphere's three squares once, per point
+    a square and its sums (two adds, or one on z, whose x*x + y*y is
+    shared) and sqrt and radius, and the smooth union (10) per point; the
+    wireframe's terms and a min per point. The wrapped object adds its
+    three wraps at the centre and one a point; the sphere and the box are
+    SPHERE_STENCIL and BOX_STENCIL. The mandelbulb's stencil, rolled, is 12
+    whole evaluations whose work depends on the data (:class:`LoopWork`)
+    and raises here."""
+    if desc.kind == "sphere":
+        return STENCIL + SPHERE_STENCIL
+    if desc.kind == "box":
+        return STENCIL + BOX_STENCIL
+    if desc.kind == "mandelbulb":
+        raise ValueError("the mandelbulb's stencil depends on its data: count it with LoopWork")
+    wraps = 15 * (WRAP + LIBM["fmodf"]) if desc.kind == "wrapped" else 0
     if desc.translation is not None:
         obj = 12 * (18 + capsule_ops(desc.object) + 7 + 10)
     else:
         obj = _stencil_set_ops(desc.object) + 3 + 4 * (3 + 3 + 2) + 1 + 12 * 2 + 12 * 10
     frame = 0 if desc.frame is None else _stencil_set_ops(desc.frame) + 12
-    return 1 + 12 + obj + frame + 15
+    return STENCIL + obj + frame + wraps
 
 
 def newton_step_ops(desc, use_grad: bool) -> int:
@@ -241,19 +412,166 @@ def shade_ops(desc) -> int:
     return fd4_ops(desc) + HIT_SHADING
 
 
-def march_ops(desc, evals: int, advances: int, culled_rays: int) -> int:
+def march_ops(desc, evals: int, advances: int, culled_rays: int,
+              loop: LoopWork | None = None) -> int:
     """The exact march of K1 or K2: each evaluation its SDF and
     MARCH_EVAL, each advance MARCH_ADVANCE, and the slab cull of each ray
-    that runs it."""
-    return (evals * (sdf_ops(desc) + MARCH_EVAL) + advances * MARCH_ADVANCE
-            + culled_rays * CULL)
+    that runs it. The mandelbulb's evaluations take ``loop``'s work, scaled
+    to ``evals``."""
+    sdf = loop.per_evaluation(evals) if desc.kind == "mandelbulb" else evals * sdf_ops(desc)
+    return sdf + evals * MARCH_EVAL + advances * MARCH_ADVANCE + culled_rays * CULL
 
 
-def render_ops(desc, evals: int, advances: int, hits: int, pixels: int) -> int:
+def render_ops(desc, evals: int, advances: int, hits: int, pixels: int, *,
+               march_loop: LoopWork | None = None, stencil_loop: LoopWork | None = None) -> int:
     """K1: the march, each hit's normal and shading (:func:`shade_ops`, the
     shared-term stencil, though K1's epilogue runs the 12 SDFs whole) and
-    per pixel the slab cull and ACES (RAY)."""
-    return march_ops(desc, evals, advances, 0) + hits * shade_ops(desc) + pixels * RAY
+    per pixel the slab cull, where the scene has bounds, and ACES (RAY).
+    The mandelbulb's march takes ``march_loop``'s work, its hits' 12
+    stencil points ``stencil_loop``'s (:func:`mandelbulb_loops`)."""
+    per_pixel = RAY if desc.bounds is not None else ACES
+    if desc.kind == "mandelbulb":
+        shading = stencil_loop.per_evaluation(12 * hits) + hits * (STENCIL + HIT_SHADING)
+    else:
+        shading = hits * shade_ops(desc)
+    return march_ops(desc, evals, advances, 0, march_loop) + shading + pixels * per_pixel
+
+
+#: the rays whose calls give the libm probe its arguments: every
+#: ARGUMENT_STRIDE-th of the frame, in row-major order
+ARGUMENT_STRIDE = 97
+
+
+def march_points(desc, origins, directions, cone):
+    """The points K1's march evaluates on these rays, step by step: yields
+    ``(rays, (x, y, z), planes)``, the flat indices of the rays that
+    evaluate at this step, their points, and the twin's planes after it.
+    The twin (``trace_planes_torch``, unchanged) is resumed one step a call
+    from its own state, so each point is one its march evaluates: at the
+    first step every ray it does not cull, at its origin; then each ray it
+    left active, at its depth."""
+    from bsdmg_tpu_torch.ops.cuda.render_kernel import trace_planes_torch
+
+    o, d = origins.reshape(-1, 3), directions.reshape(-1, 3)
+    depth = torch.zeros_like(cone.reshape(-1))
+    planes = trace_planes_torch(desc, origins, directions, cone, budget=1)
+    after, steps, outcome, _ = (p.reshape(-1) for p in planes)
+    culled = (outcome == 2) & (steps == 0) & (after == float(np.float32(500.0 * 1.01)))
+    rays = (~culled).nonzero().squeeze(1)
+    step = 1
+    while rays.numel():
+        yield rays, tuple(o[rays, a] + depth[rays] * d[rays, a] for a in range(3)), planes
+        depth = planes[0].reshape(-1)
+        rays = (planes[3].reshape(-1) != 0).nonzero().squeeze(1)
+        step += 1
+        if rays.numel():
+            planes = trace_planes_torch(desc, origins, directions, cone, *planes, budget=step)
+
+
+def _sampled(rays):
+    return rays % ARGUMENT_STRIDE == 0
+
+
+def _stencil_points(origins, directions, planes):
+    """K1's epilogue: each hit's point and its 12 fd4 points, ``(rays,
+    centre, points)``, the points one ``(x, y, z)`` per shift."""
+    from bsdmg_tpu_torch.config import MarchConfig
+
+    depth, _, outcome, _ = (p.reshape(-1) for p in planes)
+    rays = (outcome == 0).nonzero().squeeze(1)
+    o, d = origins.reshape(-1, 3), directions.reshape(-1, 3)
+    centre = tuple(o[rays, a] + depth[rays] * d[rays, a] for a in range(3))
+    eps = MarchConfig().normal_epsilon
+    points = [tuple(p + off if k == a else p for k, p in enumerate(centre))
+              for a in range(3) for off in (2 * eps, eps, -eps, -2 * eps)]
+    return rays, centre, points
+
+
+def mandelbulb_escape(x, y, z, arguments: dict | None = None) -> tuple[int, int]:
+    """A counting copy of the mandelbulb's escape loop (scene_sdf.cuh
+    mandelbulb_de, as ``sd_mandelbulb_c`` computes it) at points divided
+    by the scale: ``(trips, full)``, the escape tests and the iterations
+    that continue, each point leaving at its escape as the kernels' does.
+    With ``arguments``, each libm call's arguments on these points' path
+    are appended to its list there (atan2f's as ``(y, x)`` pairs)."""
+    zx, zy, zz = x, y, z
+    r = torch.zeros_like(x)
+    live = torch.arange(x.numel(), device=x.device)
+    trips = full = 0
+    record = arguments is not None
+    for _ in range(25):
+        rl = torch.sqrt(zx * zx + zy * zy + zz * zz)
+        r[live] = rl
+        cont = rl <= 2.0
+        trips += live.numel()
+        full += int(cont.sum())
+        live, rl, zx, zy, zz = live[cont], rl[cont], zx[cont], zy[cont], zz[cont]
+        if not live.numel():
+            break
+        sr = torch.clamp_min(rl, 1e-12)
+        cos_arg = torch.clamp(zz / sr, -1.0, 1.0)
+        theta = torch.acos(cos_arg) * 7.0
+        phi = torch.atan2(zy, zx) * 7.0
+        if record:
+            arguments.setdefault("acosf", []).append(cos_arg)
+            arguments.setdefault("atan2f", []).append(torch.stack([zy, zx], -1))
+            arguments.setdefault("powf7", []).append(sr)
+            arguments.setdefault("powf6", []).append(sr)
+            arguments.setdefault("sincosf", []).extend([theta, phi])
+        zr = sr ** 7.0
+        s_theta = torch.sin(theta)
+        zx = zr * s_theta * torch.cos(phi) + x[live]
+        zy = zr * torch.sin(phi) * s_theta + y[live]
+        zz = zr * torch.cos(theta) + z[live]
+    if record:
+        arguments.setdefault("logf", []).append(torch.clamp_min(r, 1e-12))
+    return trips, full
+
+
+def _count(work: list, point, sampled, arguments) -> None:
+    trips, full = mandelbulb_escape(*point)
+    work[0] += point[0].numel()
+    work[1] += trips
+    work[2] += full
+    if arguments is not None and bool(sampled.any()):
+        mandelbulb_escape(*(p[sampled] for p in point), arguments)
+
+
+def mandelbulb_loops(desc, origins, directions, cone,
+                     arguments: dict | None = None) -> tuple[LoopWork, LoopWork]:
+    """``(march, stencil)``: the mandelbulb's loop work in K1's render of
+    these rays, the march's points (:func:`march_points`) and each hit's 12
+    fd4 points through :func:`mandelbulb_escape`. With ``arguments``, the
+    libm calls' arguments of the sampled rays (every ARGUMENT_STRIDE-th)
+    are gathered there."""
+    s = desc.scale
+    march = [0, 0, 0]
+    planes = None
+    for rays, point, planes in march_points(desc, origins, directions, cone):
+        _count(march, [p / s for p in point], _sampled(rays), arguments)
+    stencil = [0, 0, 0]
+    rays, _, points = _stencil_points(origins, directions, planes)
+    for point in points:
+        _count(stencil, [p / s for p in point], _sampled(rays), arguments)
+    return LoopWork(march[0], march[1], march[2]), LoopWork(stencil[0], stencil[1], stencil[2])
+
+
+def wrap_arguments(desc, origins, directions, cone) -> dict:
+    """``{"fmodf": pairs}``: the wrap's fmodf arguments ``(v + half, cell)``
+    of the sampled rays (every ARGUMENT_STRIDE-th) in K1's render of the
+    wrapped object: three at each march point and at each hit's centre, one
+    at each of its 12 fd4 points (the shifted coordinate)."""
+    half, cell = float(np.float32(desc.cell / 2.0)), desc.cell
+    values = []
+    planes = None
+    for rays, point, planes in march_points(desc, origins, directions, cone):
+        values += [p[_sampled(rays)] for p in point]
+    rays, centre, points = _stencil_points(origins, directions, planes)
+    sampled = _sampled(rays)
+    values += [p[sampled] for p in centre]
+    values += [point[a // 4][sampled] for a, point in enumerate(points)]
+    v = torch.cat(values) + half
+    return {"fmodf": [torch.stack([v, torch.full_like(v, cell)], -1)]}
 
 
 def shade_pass_ops(desc, hits: int, pixels: int) -> int:
@@ -297,15 +615,19 @@ def resumed_work(desc, carried, final, count: int) -> tuple[int, int]:
             count * (4 + RAY_BYTES + 16 + PLANES_BYTES))
 
 
-def render_roofline(desc, width: int, height: int, avg_steps: float, hits: int = 0) -> Roofline:
+def render_roofline(desc, width: int, height: int, avg_steps: float, hits: int = 0, *,
+                    march_loop: LoopWork | None = None,
+                    stencil_loop: LoopWork | None = None) -> Roofline:
     """Speed of light of K1's render at ``width`` x ``height``: every ray
     takes ``avg_steps`` march steps (an evaluation and an advance each; the
     bench passes the mean over K1's 8x4 warp patches of their slowest ray's
     steps, which is what the card executes), ``hits`` rays are shaded, and
-    each moves :func:`render_bytes`."""
+    each moves :func:`render_bytes`; the mandelbulb's evaluations take the
+    mean work of ``march_loop`` and ``stencil_loop``."""
     rays = width * height
     steps = rays * avg_steps
-    return Roofline(render_ops(desc, steps, steps, hits, rays), render_bytes(rays))
+    return Roofline(render_ops(desc, steps, steps, hits, rays, march_loop=march_loop,
+                               stencil_loop=stencil_loop), render_bytes(rays))
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    with the step limit at 1, and the latency of one step of the 64x64
    point's longest ray marched alone; the stencil probe: ptxas's
    registers and stack and the SASS counts (instructions, MUFU, CALL, per
-   loop) of K1, K3, K6 and K7, the kernels that run the fd4 stencil; then
+   loop) of K1, K3, K6 and K7, the kernels that run the fd4 stencil; the
    K1, K2, K3, K4 and K5 each alone in CUDA graphs (one JSON line, which
    the later phases reuse, and which compares two commits when run from
    each), with K3's hits at 1920x1080 (the warps that hold one, those that
@@ -68,7 +68,24 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    appended;
 9. K6 times (alone and through the wrapper) at levels 3 and 5, K7 at level
    3, the plain versions at level 3; the stage times of mesh generation: refine to level 5, then
-   extraction, weld and OBJ write at levels 3 and 5;
+   extraction, weld and OBJ write at levels 3 and 5, the native weld and
+   OBJ writer (the defaults) beside the NumPy weld (equal faces) and the
+   Python writer (equal lines but the header);
+9b. the session path: ``cli session --scene reference_object --keys
+   vbbbvv``, which must launch K6 once per extraction (5) and write
+   ``cli mesh``'s counts; then each other built-in scene (sphere, box,
+   wrapped_object, mandelbulb from (2, 1, -2)): ``cli render --scene`` at
+   1920x1080 (K1 once), K1 against its twin and alone with its bound and
+   registers, the row and block pipelines against the twins at 960x540,
+   ``cli mesh --scene`` (K6) and ``--interpolate-edges`` (K7), and K6 and
+   K7 against their twins at level 3: bit for bit with NaN at the same
+   places, but the mandelbulb, held by its agreement bars (libm rounds
+   differently: outcomes, depth and RGB of K1, row and block; K6's
+   vertices and K7's points), its fractions printed; then the libm probe:
+   the FP32 operations of one call of each libm function the mandelbulb
+   and the wrap call, on the path each of the twins' arguments at
+   1920x1080 takes (an instrumented PTX kernel), which must be
+   utils/profiling.py LIBM;
 10. the fit path: ``cli fit --image`` at its defaults (64x64, 60 steps),
     which must launch K4 (the target) and K5 once per step, with a falling
     loss; the same 60 steps through K4's and K5's plain versions on the
@@ -94,7 +111,8 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     and 64^3 bf16 mips), K8 once (the fine finish) and P1 once (the hit
     normals); its PNG's hit pixels, the bake's peak device memory and the
     stage times (load, bake, mips, each level, finish, normals, shade,
-    PNG) from the same steps on the CLI's grid;
+    PNG) from the same steps on the CLI's grid; the native OBJ reader
+    against the Python one on the torus (equal arrays);
 13. each of those launches, K8 alone on the 64^3 mip (the gather route) and
     P1 on the stencil points against their plain versions on the same
     inputs (bit for bit); K8 resumed in place and through the public
@@ -121,6 +139,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import logging
@@ -787,12 +806,11 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
                        main_level: int = 3) -> list[dict]:
     """Phases 8 and 9: K6 and K7 against their plain versions, their times,
     and the stage times of mesh generation at level ``top``."""
-    import dataclasses
-
     from bsdmg_tpu_torch.config import MeshGenConfig
     from bsdmg_tpu_torch.mesh.export import save_obj
     from bsdmg_tpu_torch.mesh.field import create_voxel_field, refine_field
     from bsdmg_tpu_torch.mesh.pipeline import field_to_triangles, triangles_to_mesh
+    from bsdmg_tpu_torch.mesh.weld import weld_vertices
     from bsdmg_tpu_torch.models import reference_object
     from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
     from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, sdf_fns
@@ -823,10 +841,32 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
         t0 = time.perf_counter()
         mesh = triangles_to_mesh(soup, cfg)
         stages[f"weld L{level} (incl. copy to host)"] = time.perf_counter() - t0
+        # the native weld and OBJ writer (the defaults) beside their NumPy
+        # and Python twins, on the same soup and mesh
+        valid = soup.valid.reshape(-1)
+        positions = soup.positions.reshape(-1, 3, 3)[valid].cpu().numpy()
+        normals = soup.normals.reshape(-1, 3, 3)[valid].cpu().numpy()
+        t0 = time.perf_counter()
+        welded = weld_vertices(positions, normals, cfg.weld_quantization)
+        stages[f"weld L{level} native"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numpy_welded = weld_vertices(positions, normals, cfg.weld_quantization, use_native=False)
+        stages[f"weld L{level} NumPy"] = time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in zip(welded, numpy_welded)),
+              f"the native weld and the NumPy weld differ at level {level}")
+        check(np.array_equal(welded[2], mesh.faces), "the pipeline's weld is not the native one")
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             save_obj(mesh, Path(tmp) / "mesh.obj")
             stages[f"OBJ write L{level}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            save_obj(mesh, Path(tmp) / "python.obj", use_native=False)
+            stages[f"OBJ write L{level} Python"] = time.perf_counter() - t0
+            native_lines = (Path(tmp) / "mesh.obj").read_text().splitlines()
+            python_lines = (Path(tmp) / "python.obj").read_text().splitlines()
+            check(native_lines[0] == "# bsdmg_tpu generated mesh (native writer)"
+                  and native_lines[1:] == python_lines[1:],
+                  f"the native OBJ differs from the Python writer's at level {level}")
         print(f"level {level}: voxels per level {[fields[k].count for k in range(level + 1)]}, "
               f"{mesh.triangle_count} triangles, {mesh.vertex_count} vertices, "
               f"edge overflow {soup.edge_overflow}")
@@ -1719,6 +1759,12 @@ def grid_phases(card: str, device, resolution: int = 128, size=(1920, 1080),
         t0 = time.perf_counter()
         src = load_obj(obj)
         stages = {"load": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        python = load_obj(obj, use_native=False)
+        stages["load (Python reader)"] = time.perf_counter() - t0
+        check(all(np.array_equal(getattr(src, k), getattr(python, k))
+                  for k in ("vertices", "normals", "faces")),
+              "the native OBJ reader and the Python one read the torus differently")
         bake_line = next(m for m in messages if m.startswith("loaded "))
         stages["bake (cli)"] = float(bake_line.rsplit(" in ", 1)[1].rstrip("s"))
         rays = generate_rays(look_at(TORUS_CAMERA, device=device), size, SCREEN)
@@ -2341,8 +2387,6 @@ def k7_inputs(desc, field, cfg):
     """K7's inputs at a field: ``(pipeline, padded, kwargs)``, the listed
     crossing edges that the staged path hands K7 (``kernel_inputs``, every
     point active) and the JAX kernel's padded lanes (an ``active`` mask)."""
-    import dataclasses
-
     from bsdmg_tpu_torch.ops import marching_cubes as mc
 
     cfg = dataclasses.replace(cfg, interpolate_edges=True)
@@ -2502,6 +2546,330 @@ def mesh_cli_seconds(card: str) -> list[float]:
     return runs
 
 
+
+# ---------------------------------------------------------------------------
+# the session verb, the other built-in scenes, and the libm the mandelbulb
+# calls
+# ---------------------------------------------------------------------------
+
+#: the scenes beside the reference ones, each through K1 (K2 + K3 in the row
+#: pipeline), K6 and K7
+NEW_SCENES = ("sphere", "box", "wrapped_object", "mandelbulb")
+#: the frame K1 is timed on, and the smaller one of the pipelines' parity
+SCENE_FRAME = (1920, 1080)
+SCENE_PARITY_FRAME = (960, 540)
+#: the mandelbulb's estimator overshoots far from the set: from the JAX
+#: bench's camera every ray misses it, in both packages
+MANDELBULB_CAMERA = (2.0, 1.0, -2.0)
+#: the structure each scene's K1 runs (csrc/scene_sdf.cuh), culled but the
+#: unbounded wrapped object
+NEW_SCENE_K1 = {
+    "sphere": "render_kernel<Sphere, true, false, 0>",
+    "box": "render_kernel<SolidBox, true, false, 0>",
+    "wrapped_object": "render_kernel<Wrapped<Box<false, false>>, false, false, 0>",
+    "mandelbulb": "render_kernel<Mandelbulb, true, false, 0>",
+}
+#: the mandelbulb's bars against its twins (libm rounds differently in the
+#: kernels and in torch): outcomes, depth within DEPTH_ATOL on the hits
+#: both have, RGB within PIXEL_ATOL on the pixels whose outcomes agree (the
+#: bars of tests/test_torch_scenes.py against the JAX package), the valid
+#: triangles, and K6's vertices (on the triangles both have) and K7's
+#: points with all three coordinates within POSITION_ATOL, a NaN only
+#: beside a NaN (set from the card's readings, PERF.md)
+BULB_OUTCOMES = 0.995
+BULB_DEPTH_SHARE = 0.99
+BULB_RGB_SHARE = 0.99
+BULB_TRIANGLES = 0.01
+BULB_K6_POSITIONS = 0.94
+BULB_K7_POSITIONS = 0.95
+#: a full cli session: create, three refines, extract, save; an extraction
+#: (K6) after each of the first five steps
+SESSION_KEYS = "vbbbvv"
+SESSION_EXTRACTIONS = 5
+
+
+def same_nan(a, b) -> bool:
+    """Bit-equal tensors but NaN, which must sit at the same places."""
+    if a.dtype.is_floating_point:
+        return bool(torch.equal(a.isnan(), b.isnan())
+                    and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+    return bool(torch.equal(a, b))
+
+
+def bulb_fractions(kernel, plain) -> dict:
+    """The mandelbulb's render bars: the share of pixels whose outcomes
+    agree, of the hits both have whose depths agree within DEPTH_ATOL, and
+    of the pixels whose outcomes agree whose RGB agrees within PIXEL_ATOL."""
+    same_outcome = kernel[3] == plain[3]
+    both = same_outcome & (kernel[3] == 0)
+    close = (kernel[1] - plain[1]).abs()[both] <= DEPTH_ATOL
+    rgb = (kernel[0] - plain[0]).abs().amax(-1)[same_outcome] < PIXEL_ATOL
+    out = {"outcome_agreement": same_outcome.float().mean().item(),
+           "common_hits": int(both.sum()),
+           "depth_share": close.float().mean().item() if close.numel() else 1.0,
+           "rgb_share": rgb.float().mean().item(),
+           "bit_equal_pixels": (kernel[0] == plain[0]).all(-1).float().mean().item()}
+    check(out["outcome_agreement"] >= BULB_OUTCOMES and out["depth_share"] >= BULB_DEPTH_SHARE
+          and out["rgb_share"] >= BULB_RGB_SHARE and out["common_hits"] > 0,
+          f"mandelbulb bars {out}")
+    return out
+
+
+def bulb_positions(k6, t6, k7, t7, active7) -> dict:
+    """The mandelbulb's mesh bars: the valid triangles of K6 and its twin,
+    the share of the vertices of the triangles both have, and of K7's
+    active points, whose three coordinates agree within POSITION_ATOL (a
+    NaN agrees only with a NaN: the twin's Newton steps end at NaN on some
+    points, as the JAX package's)."""
+    def bits(meta):
+        return ((meta[:, None] >> torch.arange(5, device=meta.device)) & 1).bool()
+
+    valid = [int(bits(m[4]).sum()) for m in (k6, t6)]
+    both = bits(k6[4]) & bits(t6[4])
+    def close(a, b):
+        return ((a - b).abs() <= POSITION_ATOL) | (a.isnan() & b.isnan())
+
+    # (voxels, triangles, vertices, xyz)
+    close6 = close(k6[0], t6[0]).reshape(-1, 5, 3, 3).all(-1)[both]
+    close7 = torch.stack([close(a, b) for a, b in zip(k7[:3], t7[:3])], -1).all(-1)[active7]
+    out = {"valid_triangles": valid, "K6 vertices within 2e-5": close6.float().mean().item(),
+           "K7 points within 2e-5": close7.float().mean().item(),
+           "K6 vertices": close6.numel(), "K7 points": close7.numel(),
+           "K6 NaN vertices": int(t6[0].reshape(-1, 5, 3, 3).isnan().any(-1)[both].sum()),
+           "K7 NaN points": int(t7[0][active7].isnan().sum())}
+    check(abs(valid[0] - valid[1]) <= BULB_TRIANGLES * valid[1]
+          and out["K6 vertices within 2e-5"] >= BULB_K6_POSITIONS
+          and out["K7 points within 2e-5"] >= BULB_K7_POSITIONS
+          and close6.numel() > 0 and close7.numel() > 0, f"mandelbulb mesh bars {out}")
+    return out
+
+
+LIBM_PROBE_SOURCE = r"""
+#define PROBE(name, expr) extern "C" __global__ void probe_##name( \
+    const float* a, const float* b, float* o, float* o2, int n) { \
+  const int i = blockIdx.x * blockDim.x + threadIdx.x; \
+  if (i < n) { expr; } }
+PROBE(acosf, o[i] = acosf(a[i]))
+PROBE(atan2f, o[i] = atan2f(a[i], b[i]))
+PROBE(powf7, o[i] = powf(a[i], 7.0f))
+PROBE(powf6, o[i] = powf(a[i], 6.0f))
+PROBE(logf, o[i] = logf(a[i]))
+PROBE(fmodf, o[i] = fmodf(a[i], b[i]))
+PROBE(sincosf, sincosf(a[i], &o[i], &o2[i]))
+"""
+#: the most arguments the probe takes of each function (a strided subset)
+LIBM_ARGUMENTS = 1 << 22
+
+
+def _cu(lib, name: str, *args) -> None:
+    err = getattr(lib, name)(*args)
+    check(err == 0, f"{name} returned CUresult {err}")
+
+
+def counted_launch(ptx: str, blocks: int, kernel: str, tensors, n: int) -> np.ndarray:
+    """Launch ``kernel`` of the instrumented ``ptx`` (utils/profiling.py
+    instrument_ptx, ``blocks`` counters) over ``n`` threads through the
+    driver API (the module JIT-compiled by the driver, in torch's context)
+    and return each block's execution count."""
+    import ctypes
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuLaunchKernel.argtypes = [ctypes.c_void_p, *[ctypes.c_uint] * 7, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+    torch.cuda.synchronize()
+    module, fn = ctypes.c_void_p(), ctypes.c_void_p()
+    ptr, size = ctypes.c_uint64(), ctypes.c_size_t()
+    _cu(lib, "cuModuleLoadData", ctypes.byref(module), ctypes.c_char_p(ptx.encode()))
+    try:
+        _cu(lib, "cuModuleGetFunction", ctypes.byref(fn), module, kernel.encode())
+        _cu(lib, "cuModuleGetGlobal_v2", ctypes.byref(ptr), ctypes.byref(size), module,
+            b"block_count")
+        _cu(lib, "cuMemsetD8_v2", ptr, ctypes.c_ubyte(0), size)
+        values = [ctypes.c_uint64(t.data_ptr()) for t in tensors] + [ctypes.c_int(n)]
+        params = (ctypes.c_void_p * len(values))(*[ctypes.addressof(v) for v in values])
+        _cu(lib, "cuLaunchKernel", fn, (n + 255) // 256, 1, 1, 256, 1, 1, 0, None, params, None)
+        _cu(lib, "cuCtxSynchronize")
+        counts = np.zeros(blocks, np.uint64)
+        _cu(lib, "cuMemcpyDtoH_v2", counts.ctypes.data_as(ctypes.c_void_p), ptr, size)
+    finally:
+        lib.cuModuleUnload(module)
+    return counts
+
+
+def libm_probe(card: str, arguments: dict) -> dict:
+    """FP32 operations of one call of each libm function the mandelbulb and
+    the wrap call, on the path each call takes: a kernel that makes the
+    call once a thread, in the PTX nvcc makes of it with the library's
+    flags, a counter at the head of each basic block
+    (profiling.instrument_ptx), run on ``arguments`` (what the twins give
+    these calls in the 1080p frames, profiling.mandelbulb_loops and
+    wrap_arguments); the executed operations (profiling.ptx_fp32_ops)
+    over the calls. They must be profiling.LIBM, the counts the bounds
+    take."""
+    from bsdmg_tpu_torch.ops.cuda import build
+    from bsdmg_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, ptx = Path(tmp) / "libm_probe.cu", Path(tmp) / "libm_probe.ptx"
+        src.write_text(LIBM_PROBE_SOURCE)
+        subprocess.run([build.nvcc_path(), "-ptx", "-arch=sm_90a", *build.NUMERIC_FLAGS, "-O3",
+                        "-o", str(ptx), str(src)], capture_output=True, text=True, check=True,
+                       timeout=300)
+        text, ops = profiling.instrument_ptx(ptx.read_text())
+    ops = np.asarray(ops, np.float64)
+    counts, calls = {}, {}
+    for name in profiling.LIBM:
+        args = torch.cat([a.reshape(len(a), -1) for a in arguments[name]]).float()
+        args = args[::max(1, -(-len(args) // LIBM_ARGUMENTS))]
+        n = len(args)
+        a = args[:, 0].contiguous()
+        b = (args[:, 1] if args.shape[1] > 1 else a).contiguous()
+        outs = [torch.empty_like(a), torch.empty_like(a)]
+        executed = counted_launch(text, len(ops), f"probe_{name}", (a, b, *outs), n)
+        counts[name] = round(float(executed.astype(np.float64) @ ops) / n, 2)
+        calls[name] = n
+    print(f"libm on {card} (FP32 operations per call on the path taken, PTX -O3 -fmad=false "
+          f"sm_90a, the twins' arguments at 1920x1080): {json.dumps(counts)} over calls "
+          f"{json.dumps(calls)}; utils/profiling.py LIBM {json.dumps(profiling.LIBM)}")
+    check(counts == profiling.LIBM, f"libm counts {counts} are not profiling.LIBM {profiling.LIBM}")
+    return counts
+
+
+def session_phase(card: str) -> dict:
+    """``cli session --scene reference_object --keys vbbbvv``: its stage
+    log, K6 launched once per extraction (the previews and the mesh), and
+    the OBJ's counts those of ``cli mesh`` at level 3. (The default scene,
+    the render scene, is meshed with its wireframe, as in the JAX CLI.)"""
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = Path(tmp) / "session.obj"
+        counts, messages, seconds = run_cli(["session", "--scene", "reference_object", "--keys",
+                                             SESSION_KEYS, "-o", str(obj)])
+        v, vn, f, finite = read_obj_counts(obj)
+        header = obj.read_text().split("\n", 1)[0]
+    log = [m for m in messages if m.startswith(("session step", "created", "refined",
+                                                "extracted", "saved", "final"))]
+    print(f"session path on {card}: cli session --keys {SESSION_KEYS} in {seconds:.2f} s, "
+          f"launches {counts}; log {json.dumps(log)}")
+    voxels = [int(m.split(": ")[1].split()[0]) for m in log if m.startswith(("created", "refined"))]
+    check(counts["K6"] == SESSION_EXTRACTIONS, f"cli session launched K6 {counts['K6']} times")
+    check(voxels == MESH_LEVEL_VOXELS, f"session voxels {voxels}")
+    check(f == MESH_TRIANGLES and v == MESH_VERTICES and vn == v and finite,
+          f"session OBJ: {f} triangles, {v} vertices")
+    check(header == "# bsdmg_tpu generated mesh (native writer)", f"session OBJ header {header}")
+    return {"launches": counts["K6"], "seconds": seconds}
+
+
+def scene_phases(card: str, device) -> tuple[dict, dict]:
+    """Each other built-in scene: ``cli render --scene`` at SCENE_FRAME (K1
+    once), K1 against its twin at SCENE_FRAME (the mandelbulb at
+    SCENE_PARITY_FRAME, by its bars), K1 alone at SCENE_FRAME with its
+    bound and registers; the row (K2, K2, K3) and block (K1 twice)
+    pipelines against the twins composed alike at SCENE_PARITY_FRAME;
+    ``cli mesh --scene`` (K6) and ``--interpolate-edges`` (K7) at
+    level 3, and K6 and K7 against their twins on that field. Bit for bit
+    (NaN at the same places), but the mandelbulb, by its bars. Returns the
+    results by scene and the libm calls' arguments for :func:`libm_probe`
+    (the mandelbulb's and the wrapped object's at SCENE_FRAME)."""
+    from bsdmg_tpu_torch.cam import generate_rays, look_at
+    from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig
+    from bsdmg_tpu_torch.mesh.field import create_voxel_field, refine_field
+    from bsdmg_tpu_torch.models import get_scene
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, sdf_fns
+    from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
+    from bsdmg_tpu_torch.utils import profiling
+
+    cfg, mesh_cfg = MarchConfig(), MeshGenConfig()
+    registers = {r["kernel"]: r for r in kernel_resources("render_kernel.cu", ("render_kernel<",))}
+    out, arguments = {}, {}
+    for name in NEW_SCENES:
+        bulb = name == "mandelbulb"
+        camera = MANDELBULB_CAMERA if bulb else (5.0, 2.0, -5.0)
+        res = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            counts, _, seconds = run_cli(["render", "--scene", name, "--camera", *map(str, camera),
+                                          "--width", str(SCENE_FRAME[0]), "--height",
+                                          str(SCENE_FRAME[1]), "-o", str(Path(tmp) / "x.png")])
+        check(counts["K1"] == 1, f"cli render --scene {name} launched K1 {counts['K1']} times")
+        res["cli_render_s"] = seconds
+        desc = compile_scene(get_scene(name, device=device))
+
+        def frame(w, h):
+            return generate_rays(look_at(camera, fov=np.pi / 4, device=device), (w, h), SCREEN)
+
+        o, d, c = frame(*SCENE_FRAME)
+        kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True)
+        if bulb:
+            small = frame(*SCENE_PARITY_FRAME)
+            res["K1 parity frame"] = bulb_fractions(
+                rk.render_image_cuda(desc, *small, return_planes=True),
+                rk.render_image_planes_torch(desc, *small))
+        else:
+            plain = rk.render_image_planes_torch(desc, o, d, c)
+            check(all(same_nan(a, b) for a, b in zip(kernel, plain)),
+                  f"K1 and its twin differ on {name} at {SCENE_FRAME}")
+            res["K1 timed frame"] = "bit-equal"
+        _, depth, steps, outcome = kernel
+        evals, advances, hits = march_work(steps, outcome, depth)
+        loops = {}
+        if bulb:
+            loops = dict(zip(("march_loop", "stencil_loop"),
+                             profiling.mandelbulb_loops(desc, o, d, c, arguments)))
+            res["loops"] = {k: dataclasses.asdict(v) for k, v in loops.items()}
+        elif desc.kind == "wrapped":
+            arguments.update(profiling.wrap_arguments(desc, o, d, c))
+        ops = render_ops(desc, evals, advances, hits, c.numel(), **loops)
+        res["bound_ms"], res["bound_by"] = bound(render_bytes(c.numel()), ops)
+        desc_c, rgb = rk.scene_desc_c(desc, cfg), torch.empty((*c.shape, 3), device=device)
+        res["K1 ms"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
+                                                        cap=cfg.step_limit,
+                                                        cull=desc.bounds is not None))
+        res["hits"], res["evaluations"], res["ops"] = hits, evals, ops
+        k1 = registers[NEW_SCENE_K1[name]]
+        res["registers"] = {k: k1[k] for k in ("registers", "stack", "spill_stores")}
+        small = frame(*SCENE_PARITY_FRAME)
+        for tp in (True, "block"):
+            got = rk.render_image_cuda(desc, *small, return_planes=True, two_phase=tp)
+            twin = twin_pipeline(rk, desc, *small, two_phase=tp)
+            key = "row" if tp is True else "block"
+            if bulb:
+                res[key] = bulb_fractions(got, twin)
+            else:
+                check(all(same_nan(a, b) for a, b in zip(got, twin)),
+                      f"the {key} pipeline and its twin differ on {name}")
+                res[key] = "bit-equal"
+        with tempfile.TemporaryDirectory() as tmp:
+            for kname, extra in (("K6", []), ("K7", ["--interpolate-edges"])):
+                obj = Path(tmp) / f"{kname}.obj"
+                counts, _, seconds = run_cli(["mesh", "--scene", name, "-o", str(obj), *extra])
+                check(counts[kname] >= 1, f"cli mesh --scene {name} {extra} launched no {kname}")
+                v, _, f, finite = read_obj_counts(obj)
+                res[f"cli mesh {kname}"] = {"triangles": f, "vertices": v, "finite": finite,
+                                            "seconds": seconds, "launches": counts[kname]}
+        field = create_voxel_field(mesh_cfg, device)
+        for _ in range(3):
+            field = refine_field(desc, field)
+        args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, mesh_cfg)
+        k6 = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
+        t6 = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
+        args7, _, kwargs7 = k7_inputs(desc, field, mesh_cfg)
+        k7 = mesh_kernel.project_edges_cuda(desc, *args7, **kwargs7)
+        t7 = mesh_kernel.project_edges_torch(sdf_fns(desc), *args7[:3], args7[3].bool(), **kwargs7)
+        torch.cuda.synchronize()
+        if bulb:
+            res["K6/K7 level 3"] = {"voxels": field.count,
+                                    **bulb_positions(k6, t6, k7, t7, args7[3].bool())}
+        else:
+            check(all(same_nan(a, b) for a, b in zip(k6, t6)), f"K6 and its twin differ on {name}")
+            check(all(same_nan(a, b) for a, b in zip(k7, t7)), f"K7 and its twin differ on {name}")
+            res["K6/K7 level 3"] = {"voxels": field.count, "nan_positions": int(k6[0].isnan().sum()),
+                                    "exact": True}
+        print(f"scene {name} on {card}: {json.dumps(res)}")
+        out[name] = res
+    return out, arguments
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2539,6 +2907,9 @@ def main(argv: list[str]) -> int:
     kernels += trace_shade_phases(card, device, alone)
     launches = mesh_path_phases()
     kernels += mesh_kernel_phases(card, device, launches)
+    session_phase(card)
+    _, arguments = scene_phases(card, device)
+    libm_probe(card, arguments)
     fit = fit_path_phases(card, device)
     kernels += diff_kernel_phases(card, device, fit, alone)
     kernels += grid_phases(card, device)

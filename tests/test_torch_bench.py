@@ -135,7 +135,8 @@ def test_cli_bench_without_cuda_raises():
 def test_cli_bench_flags_are_the_jax_clis():
     """``--which``, sizes, ``--roofline``, ``--two-phase``, ``--unroll`` and
     ``--trace`` with the JAX CLI's defaults; left out: the multi-device
-    choices and ``--phase-a-rows``."""
+    choices and ``--phase-a-rows``; added: ``--device``, and the render's
+    ``--scene``, whose default is the JAX bench's scene."""
     from bsdmg_tpu.cli import build_parser as jax_parser
 
     def bench_actions(parser):
@@ -144,7 +145,8 @@ def test_cli_bench_flags_are_the_jax_clis():
 
     ours, ref = bench_actions(cli.build_parser()), bench_actions(jax_parser())
     assert set(ref) - set(ours) == {"phase_a_rows"}
-    assert set(ours) - set(ref) == {"device"}
+    assert set(ours) - set(ref) == {"device", "scene"}
+    assert ours["scene"].default == "reference_render_scene"
     for dest in ("width", "height", "roofline", "two_phase", "unroll", "trace"):
         assert ours[dest].default == ref[dest].default, dest
         assert ours[dest].choices == ref[dest].choices, dest
@@ -171,7 +173,7 @@ def test_roofline_and_bounds():
     assert roof.memory_seconds == pytest.approx(1e-3)
     assert profiling.bound(6.7e9, 67e9) == (pytest.approx(2.0), "bytes")
     assert profiling.bound(0, 67e9) == (pytest.approx(1.0), "operations")
-    desc = compile_scene(reference_render_scene())
+    desc = compile_scene(reference_render_scene(device="cpu"))
     sdf = profiling.sdf_ops(desc)
     # K1's count: the march, each hit's shared-term stencil and shading
     evals, advances, hits, pixels = 1000, 900, 30, 100
@@ -194,13 +196,13 @@ def test_shared_stencil_operation_counts():
     all count the shared one."""
     from bsdmg_tpu_torch.models import reference_object
 
-    obj = compile_scene(reference_object())
-    render = compile_scene(reference_render_scene())
+    obj = compile_scene(reference_object(device="cpu"))
+    render = compile_scene(reference_render_scene(device="cpu"))
     assert profiling._stencil_set_ops(obj.object) == 45 + 3 + 288
     assert profiling.fd4_ops(obj) == 1 + 12 + 336 + 60 + 120 + 15 == 544
     assert profiling.fd4_ops(render) == 544 + 336 + 12 == 892
     assert profiling.sdf_ops(render) == 128  # 12 whole SDFs: 1 + 12 * 129 + 15 = 1564
-    moved = compile_scene(reference_object(), {**reference_object().params,
+    moved = compile_scene(reference_object(device="cpu"), {**reference_object(device="cpu").params,
                                                "object_center": torch.tensor([0.3, -0.2, 0.5])})
     assert moved.translation is not None
     # nothing to share: the 12 SDFs whole
@@ -217,7 +219,7 @@ def test_kernel_byte_counts():
     assert profiling.trace_bytes(100) == 100 * 40
     assert profiling.trace_bytes(100, active=True) == 100 * 44
     assert profiling.shade_bytes(100, 30) == 100 * 16 + 30 * 28
-    desc = compile_scene(reference_render_scene())
+    desc = compile_scene(reference_render_scene(device="cpu"))
     zeros = torch.zeros(2, 2, dtype=torch.int32)
     carried = (torch.zeros(2, 2), zeros, zeros + 1, torch.tensor([[1, 0], [1, 0]], dtype=torch.int32))
     # the two listed rays take 5 and 7 more steps: one hits, one passes the depth limit

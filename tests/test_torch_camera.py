@@ -29,7 +29,7 @@ def _np(x):
 @pytest.mark.parametrize("position", POSITIONS)
 def test_look_at_matches_jax(position):
     ref = jcam.look_at(position, fov=np.pi / 4)
-    cam = tcam.look_at(position, fov=np.pi / 4)
+    cam = tcam.look_at(position, fov=np.pi / 4, device="cpu")
     for field in tcam.Camera._fields:
         np.testing.assert_allclose(_np(getattr(cam, field)), _np(getattr(ref, field)), atol=ATOL)
         assert getattr(cam, field).dtype == torch.float32
@@ -39,7 +39,7 @@ def test_look_at_matches_jax(position):
 def test_generate_rays_matches_jax(size):
     w, h = size
     ref = jcam.generate_rays(jcam.look_at((5.0, 2.0, -5.0), fov=np.pi / 4), size, (1920.0, 1080.0))
-    cam = tcam.look_at((5.0, 2.0, -5.0), fov=np.pi / 4)
+    cam = tcam.look_at((5.0, 2.0, -5.0), fov=np.pi / 4, device="cpu")
     origins, dirs, cone = tcam.generate_rays(cam, size, (1920.0, 1080.0))
     assert origins.shape == dirs.shape == (h, w, 3) and cone.shape == (h, w)
     for t in (origins, dirs, cone):
@@ -68,7 +68,7 @@ def test_cone_operating_point_2560x1440():
     pix = np.stack([xs, ys], axis=-1).astype(np.float32)
 
     jax_cam = jcam.look_at((5.0, 2.0, -5.0), fov=np.pi / 4)
-    cam = tcam.look_at((5.0, 2.0, -5.0), fov=np.pi / 4)
+    cam = tcam.look_at((5.0, 2.0, -5.0), fov=np.pi / 4, device="cpu")
     ref_cone = _np(jcam.pixel_cone_radius(jnp.asarray(pix), jax_cam, (w, h), (w, h)))
     cone = tcam.pixel_cone_radius(torch.from_numpy(pix), cam, (w, h), (w, h)).numpy()
     assert 5.0e-4 < cone.max() < 6.5e-4

@@ -34,7 +34,7 @@ ATOL = 2e-5
 
 
 def _params(transformed: bool) -> dict:
-    p = {k: v.numpy() for k, v in tscenes.default_object_params().items()}
+    p = {k: v.numpy() for k, v in tscenes.default_object_params(device="cpu").items()}
     if transformed:
         p["object_center"] = np.asarray([0.3, -0.2, 0.5], np.float32)
         q = np.asarray([0.9, 0.2, -0.3, 0.25], np.float32)
@@ -43,7 +43,7 @@ def _params(transformed: bool) -> dict:
 
 
 def _descriptor(name: str, transformed: bool):
-    scene = tscenes.get_scene(name)
+    scene = tscenes.get_scene(name, device="cpu")
     return tcsdf.compile_scene(scene, params_from_numpy(_params(transformed), "cpu"))
 
 
@@ -88,7 +88,7 @@ def test_sdf_at_group_ties_matches_jax(name, transformed):
     if desc.frame is not None:
         assert _group_ties(desc.frame, (x, y, z)) >= 2000
 
-    jf = jcsdf.compile_scene_csdf(tscenes.get_scene(name), _params(transformed))
+    jf = jcsdf.compile_scene_csdf(tscenes.get_scene(name, device="cpu"), _params(transformed))
     ref = np.asarray(jf(*(jnp.asarray(p[:, a]) for a in range(3))))
     np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL)
 
@@ -99,7 +99,7 @@ def test_kernel_structure_of_every_scene_that_compiles(name, transformed):
     """2 * frame + transform, for the default parameters, the fit's
     perturbed ones and other skeleton sizes; the same index reaches the
     kernels through the descriptor struct."""
-    scene = tscenes.get_scene(name)
+    scene = tscenes.get_scene(name, device="cpu")
     want = 2 * (name == "reference_render_scene") + transformed
     base = _params(transformed)
     variants = [

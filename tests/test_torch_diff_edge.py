@@ -57,7 +57,7 @@ def jax_setup():
 @pytest.fixture(scope="module")
 def torch_setup(jax_setup):
     _, rays, true, bb, target = jax_setup
-    scene = reference_render_scene()
+    scene = reference_render_scene(device="cpu")
     assert _inflated(scene_bounds(scene)) == bb
     to, td, tc = (torch.from_numpy(np.array(a)) for a in rays)
     tp = params_from_numpy({k: np.asarray(v) for k, v in true.items()}, "cpu")

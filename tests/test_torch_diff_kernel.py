@@ -80,7 +80,7 @@ def _torch_params(jp):
 @pytest.mark.parametrize("track_min", [False, True], ids=["plain", "track_min"])
 @pytest.mark.parametrize("point", ["default", "fit"])
 def test_march_twin_matches_pallas(point, track_min):
-    jscene, scene = jax_render_scene(), reference_render_scene()
+    jscene, scene = jax_render_scene(), reference_render_scene(device="cpu")
     bb = _inflated(jax_scene_bounds(jscene), 0.6)
     assert _inflated(scene_bounds(scene), 0.6) == bb
     (o, d, c), (to, td, tc) = _rays(64, 32)
@@ -106,7 +106,7 @@ def test_march_twin_matches_pallas(point, track_min):
 
 
 def test_loss_grad_twin_matches_pallas():
-    jscene, scene = jax_render_scene(), reference_render_scene()
+    jscene, scene = jax_render_scene(), reference_render_scene(device="cpu")
     jp = {k: v for k, v in jscene.params.items() if k not in TRANSFORM}
     jp["sphere_radius"] = jnp.float32(1.15)
     (o, d, c), (to, td, tc) = _rays(64, 32)
@@ -123,7 +123,7 @@ def test_loss_grad_twin_matches_pallas():
 
 def test_wrappers_take_the_twins_on_cpu():
     """On CPU tensors the wrappers are their twins, and launch nothing."""
-    scene = reference_render_scene()
+    scene = reference_render_scene(device="cpu")
     _, (o, d, c) = _rays(16, 8)
     before = (diff_kernel.MARCH_LAUNCHES, diff_kernel.LOSS_GRAD_LAUNCHES)
     a = march_params_cuda(scene.csdf, scene.params, o, d, c, track_min=True)
@@ -138,7 +138,7 @@ def test_wrappers_take_the_twins_on_cpu():
 
 
 def _bad_inputs():
-    scene = reference_render_scene()
+    scene = reference_render_scene(device="cpu")
     _, (o, d, c) = _rays(16, 8)
     p = scene.params
     t = torch.zeros((8, 16, 3))
@@ -166,7 +166,7 @@ def test_wrappers_reject_bad_inputs(case):
 
 
 def test_param_scene_indexes_follow_flat_order():
-    scene = reference_render_scene()
+    scene = reference_render_scene(device="cpu")
     full, _ = param_scene_c(scene.csdf, scene.params, bb=((-1, -1, -1), (1, 1, 1), 0.2))
     assert full.n_prm == 16 and full.use_bounds == 1 and full.has_frame == 1
     assert (full.object_center, full.object_rotation, full.skeleton_center) == (0, 3, 7)

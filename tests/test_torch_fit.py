@@ -56,7 +56,7 @@ def _jax_fit():
 
 def test_five_adam_steps_match_optax():
     rays, true, history = _jax_fit()
-    scene = reference_render_scene()
+    scene = reference_render_scene(device="cpu")
     to, td, tc = (torch.from_numpy(np.array(a)) for a in rays)
     tp = params_from_numpy({k: np.asarray(v) for k, v in true.items()}, "cpu")
     start = {k: v * PERTURB.get(k, 1.0) for k, v in tp.items()}

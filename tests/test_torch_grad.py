@@ -75,7 +75,7 @@ def test_csdf_value_and_gradients_match_jax(name, point):
     ref_gp = jax.grad(jax_mean)(jp, *xyz)
     ref_gxyz = jax.grad(jax_mean, argnums=(1, 2, 3))(jp, *xyz)
 
-    scene = make()
+    scene = make(device="cpu")
     tp = {k: v.requires_grad_() for k, v in params_from_numpy(_numpy(jp), "cpu").items()}
     coords = [torch.from_numpy(c.copy()).requires_grad_() for c in xyz]
     d = scene.csdf(tp, *coords)
@@ -107,7 +107,7 @@ def test_flatten_params_matches_tree_flatten(transform):
 
 
 def test_flatten_params_keeps_autograd_history():
-    tp = {k: v.requires_grad_() for k, v in reference_render_scene().params.items()}
+    tp = {k: v.requires_grad_() for k, v in reference_render_scene(device="cpu").params.items()}
     flat, layout = flatten_params(tp)
     (flat * torch.arange(flat.numel(), dtype=torch.float32)).sum().backward()
     i = 0
@@ -141,7 +141,7 @@ def test_render_image_diff_matches_jax(with_bb):
     ref = np.asarray(img_fn(jp))
     ref_g = jax.grad(lambda p: jnp.sum(img_fn(p)))(jp)
 
-    scene = reference_render_scene()
+    scene = reference_render_scene(device="cpu")
     bb = None
     if with_bb:
         from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
@@ -174,7 +174,7 @@ def test_differentiable_hit_depth_gradient_matches_jax():
 
     ref = jax.grad(jax_mean_depth)(jscene.params)
 
-    scene = reference_object()
+    scene = reference_object(device="cpu")
     tp = {k: v.requires_grad_() for k, v in params_from_numpy(_numpy(jscene.params), "cpu").items()}
 
     def mean_depth(p):

@@ -139,7 +139,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_packaging_ships_kernel_sources():
     project = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = project["tool"]["setuptools"]["package-data"]["bsdmg_tpu_torch"]
-    assert "csrc/*.cu" in data and "csrc/*.cuh" in data
+    assert "csrc/*.cu" in data and "csrc/*.cuh" in data and "csrc/host/*.cpp" in data
     assert "torch" in " ".join(project["project"]["optional-dependencies"]["torch"])
 
 
@@ -175,3 +175,50 @@ def test_diff_kernel_library_checks_param_scene_size(monkeypatch):
     monkeypatch.setattr(diff_kernel, "load_library", lambda: _FakeLibrary(good + 4))
     with pytest.raises(RuntimeError, match="ParamScene layout mismatch"):
         diff_kernel.library()
+
+
+def _port_modules():
+    import importlib
+    import pkgutil
+
+    import bsdmg_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(bsdmg_tpu_torch.__path__, "bsdmg_tpu_torch.")]
+    return [importlib.import_module(name) for name in sorted(names)]
+
+
+def test_entry_points_default_to_the_card():
+    """Every public function, method and class of the port that takes a
+    ``device`` runs on the card unless the caller names another device: its
+    default, where it has one, is "cuda"."""
+    import inspect
+
+    checked, wrong = [], []
+    for module in _port_modules():
+        for name, obj in vars(module).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != module.__name__:
+                continue
+            members = [(name, obj)]
+            if inspect.isclass(obj):
+                members += [(f"{name}.{k}", v) for k, v in vars(obj).items()
+                            if inspect.isfunction(v) and not k.startswith("_")]
+            for qual, fn in members:
+                if not callable(fn):
+                    continue
+                try:
+                    params = inspect.signature(fn).parameters
+                except (TypeError, ValueError):
+                    continue
+                if "device" not in params:
+                    continue
+                checked.append(f"{module.__name__}.{qual}")
+                default = params["device"].default
+                if default is not inspect.Parameter.empty and default != "cuda":
+                    wrong.append(f"{module.__name__}.{qual}: device={default!r}")
+    assert not wrong, wrong
+    for required in ("cam.camera.look_at", "models.scenes.default_object_params",
+                     "models.scenes.reference_object", "models.scenes.reference_render_scene",
+                     "models.scenes.get_scene", "models.scenes.sphere_scene",
+                     "models.scenes.box_scene", "models.scenes.mandelbulb_scene",
+                     "models.scenes.wrapped_object_scene", "mesh.session.MeshGenSession"):
+        assert f"bsdmg_tpu_torch.{required}" in checked, required

@@ -353,7 +353,7 @@ def _mesh_field(name: str, field_8):
     block of unit voxels whose corners alternate in sign (all 12 edges
     cross)."""
     if name == "reference":
-        return sdf_fns(compile_scene(reference_object())), field_8.lowers, field_8.voxel_size
+        return sdf_fns(compile_scene(reference_object(device="cpu"))), field_8.lowers, field_8.voxel_size
     grid = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3, indexing="ij"), dim=-1)
     return SdfFns(_checker, _checker_value_and_grad), grid.reshape(-1, 3), 1.0
 

@@ -78,7 +78,7 @@ def test_value_and_grad_matches_jax_vjp(name, kind):
     csdf = compile_scene_csdf(jax_scene())
     sd, vjp = jax.vjp(csdf, *(jnp.asarray(p) for p in pts))
     ref = (sd, *vjp(jnp.ones_like(sd)))
-    got = descriptor_csdf_value_and_grad(compile_scene(torch_scene()))(
+    got = descriptor_csdf_value_and_grad(compile_scene(torch_scene(device="cpu")))(
         *(torch.from_numpy(p) for p in pts)
     )
     for g, r in zip(got, ref):
@@ -92,7 +92,7 @@ def test_gradient_splits_ties_on_symmetry_planes():
     pts = _points("y=0")
     pts[0] = np.random.default_rng(3).uniform(-1.4, 1.4, pts.shape[1])  # along the x edges
     pts[2] = np.random.default_rng(4).uniform(-0.2, 0.2, pts.shape[1])
-    desc = compile_scene(reference_object())
+    desc = compile_scene(reference_object(device="cpu"))
     d, gx, gy, gz = descriptor_csdf_value_and_grad(desc)(*(torch.from_numpy(p) for p in pts))
     assert torch.all(gy == 0.0)
     csdf = compile_scene_csdf(jax_object())
@@ -122,7 +122,7 @@ def test_value_equals_descriptor_csdf_bitwise(name):
     """The factorised capsule groups give the per-segment value bit for bit
     (monotonic rounding), and the value of descriptor_csdf_value_and_grad
     equals descriptor_csdf's, so K1 and the mesh kernels share one SDF."""
-    desc = compile_scene(SCENES[name][1]())
+    desc = compile_scene(SCENES[name][1](device="cpu"))
     pts = [torch.from_numpy(p) for p in _points("seeded")]
     for cs in filter(None, (desc.object, desc.frame)):
         assert sum(len(g.v1) * len(g.v2) for g in cs.groups) == 12
@@ -146,7 +146,7 @@ def test_mc_fused_torch_matches_pallas(field_8):
     options are held against the JAX package's XLA path in
     tests/test_torch_mesh.py (interpret mode costs ~15 s per variant)."""
     cfg = MeshGenConfig(init_factor=8)
-    desc = compile_scene(reference_object())
+    desc = compile_scene(reference_object(device="cpu"))
     args, kwargs = kernel_inputs(desc, field_8.lowers, field_8.voxel_size, cfg)
     pos, nrm, dot, amb, meta = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
 
@@ -169,7 +169,7 @@ def test_mc_fused_torch_matches_pallas(field_8):
 def test_project_edges_torch_matches_pallas(field_8):
     """On the JAX kernel's layout: padded lanes, some inactive."""
     cfg = MeshGenConfig(init_factor=8, interpolate_edges=True)
-    desc = compile_scene(reference_object())
+    desc = compile_scene(reference_object(device="cpu"))
     args, kwargs = padded_inputs(desc, field_8.lowers, field_8.voxel_size, cfg)
     got = mesh_kernel.project_edges_torch(sdf_fns(desc), *args[:3], args[3].bool(), **kwargs)
     ref = project_edges_pallas(
@@ -233,7 +233,7 @@ def test_checkerboard_overflow_matches_jax():
 
 
 def test_wrappers_send_cpu_tensors_to_twins(field_8):
-    desc = compile_scene(reference_object())
+    desc = compile_scene(reference_object(device="cpu"))
     cfg = MeshGenConfig(init_factor=8)
     args, kwargs = kernel_inputs(desc, field_8.lowers, field_8.voxel_size, cfg)
     k6, k7 = mc_kernel.LAUNCHES, mesh_kernel.LAUNCHES
@@ -250,7 +250,7 @@ def test_wrappers_send_cpu_tensors_to_twins(field_8):
 
 @pytest.mark.parametrize("case", ["float64", "shape", "int64 bits", "not a tensor"])
 def test_mc_fused_rejects_bad_inputs(field_8, case):
-    desc = compile_scene(reference_object())
+    desc = compile_scene(reference_object(device="cpu"))
     args, kwargs = kernel_inputs(desc, field_8.lowers, field_8.voxel_size, MeshGenConfig())
     args = list(args)
     if case == "float64":

@@ -71,7 +71,7 @@ def jax_fields():
 
 @pytest.fixture(scope="module")
 def port_fields():
-    desc = compile_scene(reference_object())
+    desc = compile_scene(reference_object(device="cpu"))
     cfg = MeshGenConfig(init_factor=INIT)
     fields = [create_voxel_field(cfg, "cpu")]
     for _ in range(LEVELS):
@@ -94,7 +94,7 @@ def test_children_and_masks_match_jax(jax_fields):
         child_lowers(torch.from_numpy(lowers), field.voxel_size).numpy(),
         np.asarray(jax_child_lowers(jnp.asarray(lowers), field.voxel_size)),
     )
-    csdf = descriptor_csdf(compile_scene(reference_object()))
+    csdf = descriptor_csdf(compile_scene(reference_object(device="cpu")))
     got = refine_masks(csdf, torch.from_numpy(lowers), field.voxel_size)
     scene = jax_object()
     ref = jax_refine_masks(
@@ -137,7 +137,7 @@ def test_field_to_triangles_matches_jax(jax_fields, variant):
     )
     port_field = field_from_numpy(field.to_numpy(), field.voxel_size, field.level, "cpu")
     got = field_to_triangles(
-        compile_scene(reference_object()), port_field, MeshGenConfig(init_factor=INIT, **options)
+        compile_scene(reference_object(device="cpu")), port_field, MeshGenConfig(init_factor=INIT, **options)
     )
     n = field.count
     assert got.edge_overflow == int(ref.edge_overflow) == 0
@@ -216,10 +216,12 @@ def test_mesh_files_match_jax_writers(tmp_path):
     ref = jax_generate_mesh(scene.bind(), 0, JaxMeshGenConfig(init_factor=8), csdf=compile_scene_csdf(scene))
     mesh = Mesh(ref.vertices, ref.normals, ref.faces)
     for ours, theirs, name in ((export.save_obj, jax_save_obj, "m.obj"), (export.save_vtk, jax_save_vtk, "m.vtk")):
-        ours(mesh, tmp_path / f"port_{name}")
         if theirs is jax_save_obj:
+            # the Python writers; the native ones are held in tests/test_torch_native.py
+            ours(mesh, tmp_path / f"port_{name}", use_native=False)
             theirs(ref, tmp_path / f"jax_{name}", use_native=False)
         else:
+            ours(mesh, tmp_path / f"port_{name}")
             theirs(ref, tmp_path / f"jax_{name}")
         assert (tmp_path / f"port_{name}").read_bytes() == (tmp_path / f"jax_{name}").read_bytes()
 
@@ -241,7 +243,7 @@ def test_cli_mesh_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "argv", [["--sharded"], ["--scene", "sphere"], ["--scene", "examples/snowman.json"]],
+    "argv", [["--sharded"], ["--scene", "mesh:assets/torus.obj"], ["--scene", "examples/snowman.json"]],
     ids=["sharded", "unported scene", "composed scene"],
 )
 def test_cli_mesh_unported_options_raise(tmp_path, argv):

@@ -67,7 +67,7 @@ def reference_256x64():
     o, d, c = _jax_rays(256, 64)
     image = np.asarray(render_image_pallas(csdf, o, d, c, bb=bb, interpret=True))
     planes = [np.asarray(x) for x in trace_pallas(csdf, o, d, c, bb=bb, use_bb_skip=True, interpret=True)]
-    desc = compile_scene(reference_render_scene())
+    desc = compile_scene(reference_render_scene(device="cpu"))
     ours = render_image_planes_torch(desc, *_to_torch(o, d, c))
     return image, planes, [x.numpy() for x in ours]
 
@@ -99,14 +99,14 @@ def test_transformed_object_matches_jax():
     ref = np.asarray(render_image_pallas(
         compile_scene_csdf(scene, params), o, d, c, bb=scene_bounds(scene, params), interpret=True,
     ))
-    desc = compile_scene(reference_render_scene(), params_from_numpy(params, "cpu"))
+    desc = compile_scene(reference_render_scene(device="cpu"), params_from_numpy(params, "cpu"))
     assert desc.translation is not None
     img = render_image_planes_torch(desc, *_to_torch(o, d, c))[0].numpy()
     assert_image_bars(img, ref)
 
 
 def test_wrapper_sends_cpu_tensors_to_the_plain_version():
-    desc = compile_scene(reference_render_scene())
+    desc = compile_scene(reference_render_scene(device="cpu"))
     o, d, c = _to_torch(*_jax_rays(40, 24))
     launches = render_kernel.LAUNCHES
     rgb = render_image_cuda(desc, o, d, c)
@@ -143,7 +143,7 @@ BAD_INPUTS = [
 def test_wrapper_rejects_bad_inputs(case):
     args, error = _bad_inputs()[case]
     with pytest.raises(error):
-        render_image_cuda(compile_scene(reference_render_scene()), *args)
+        render_image_cuda(compile_scene(reference_render_scene(device="cpu")), *args)
 
 
 def test_over_relaxation_matches_jax():
@@ -155,7 +155,7 @@ def test_over_relaxation_matches_jax():
     ref = np.asarray(render_image_pallas(
         compile_scene_csdf(scene), o, d, c, bb=scene_bounds(scene), omega=1.5, interpret=True,
     ))
-    desc = compile_scene(reference_render_scene())
+    desc = compile_scene(reference_render_scene(device="cpu"))
     img = render_image_cuda(desc, *_to_torch(o, d, c), MarchConfig(relaxation=1.5))
     assert_image_bars(img.numpy(), ref)
     twin = render_image_planes_torch(desc, *_to_torch(o, d, c), omega=1.5)[0]

@@ -43,7 +43,7 @@ def _transformed_params():
 
 
 def _scenes(name):
-    return jscenes.get_scene(name), tscenes.get_scene(name)
+    return jscenes.get_scene(name), tscenes.get_scene(name, device="cpu")
 
 
 @pytest.mark.parametrize("compat", [True, False])
@@ -92,7 +92,7 @@ def test_scene_bounds_equal(name, transformed):
 def test_descriptor_matches_jax_constants():
     """The compiled descriptor holds the capsule groups of the JAX compiler:
     12 axis-aligned segments per skeleton, the frame at line width 0.05."""
-    desc = tcsdf.compile_scene(tscenes.reference_render_scene())
+    desc = tcsdf.compile_scene(tscenes.reference_render_scene(device="cpu"))
     groups = jcsdf._axis_aligned_groups(*jprim._box_skeleton_edges((0, 0, 0), (3.0, 1.0, 0.5), True))
     for cs in (desc.object, desc.frame):
         assert sum(len(g.v1) * len(g.v2) for g in cs.groups) == 12
@@ -105,15 +105,15 @@ def test_descriptor_matches_jax_constants():
 
 
 def test_unsupported_scene_raises():
-    dummy = tscenes.Scene("sphere", lambda q, p: p[..., 0], {})
-    with pytest.raises(NotImplementedError, match="sphere"):
+    """A scene outside the compiler's registry (a composed scene's name
+    here) raises; an unknown name raises KeyError."""
+    dummy = tscenes.Scene("snowman", lambda q, p: p[..., 0], {})
+    with pytest.raises(NotImplementedError, match="snowman"):
         tcsdf.compile_scene(dummy)
     with pytest.raises(NotImplementedError):
         tcsdf.scene_bounds(dummy)
-    with pytest.raises(NotImplementedError):
-        tscenes.get_scene("mandelbulb")
     with pytest.raises(KeyError):
-        tscenes.get_scene("no_such_scene")
+        tscenes.get_scene("no_such_scene", device="cpu")
 
 
 def test_primitives_match_jax():

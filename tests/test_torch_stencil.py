@@ -36,12 +36,12 @@ EPS = sorted({MeshGenConfig().normal_epsilon, MarchConfig().normal_epsilon, 0.05
 
 
 def _descriptor(name: str, transformed: bool):
-    p = {k: v.numpy() for k, v in tscenes.default_object_params().items()}
+    p = {k: v.numpy() for k, v in tscenes.default_object_params(device="cpu").items()}
     if transformed:
         p["object_center"] = np.asarray([0.3, -0.2, 0.5], np.float32)
         q = np.asarray([0.9, 0.2, -0.3, 0.25], np.float32)
         p["object_rotation"] = (q / np.linalg.norm(q)).astype(np.float32)
-    return tcsdf.compile_scene(tscenes.get_scene(name), params_from_numpy(p, "cpu"))
+    return tcsdf.compile_scene(tscenes.get_scene(name, device="cpu"), params_from_numpy(p, "cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -120,7 +120,7 @@ def jax_ref():
 
 @pytest.fixture(scope="module")
 def port():
-    desc = compile_scene(reference_render_scene())
+    desc = compile_scene(reference_render_scene(device="cpu"))
     rays = _torch(*_jax_rays())
     return desc, rays, render_image_cuda(desc, *rays, return_planes=True)
 

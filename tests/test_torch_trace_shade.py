@@ -38,7 +38,7 @@ def test_outcome_codes_match_jax():
 def test_sphere_trace_matches_jax():
     (jo, jd, jc), (o, d, c) = _rays()
     ref = jtrace.sphere_trace(jax_scene().bind(), jo, jd, jc)
-    hit = ttrace.sphere_trace(reference_render_scene().bind(), o, d, c)
+    hit = ttrace.sphere_trace(reference_render_scene(device="cpu").bind(), o, d, c)
     np.testing.assert_array_equal(hit.outcome.numpy(), np.asarray(ref.outcome))
     np.testing.assert_array_equal(hit.steps.numpy(), np.asarray(ref.steps))
     coll = hit.outcome.numpy() == ttrace.COLLISION
@@ -50,7 +50,7 @@ def test_sphere_trace_matches_jax():
 def test_render_image_matches_jax():
     (jo, jd, jc), (o, d, c) = _rays()
     ref = np.asarray(jshade.render_image(jax_scene().bind(), jo, jd, jc))
-    img = tshade.render_image(reference_render_scene().bind(), o, d, c).numpy()
+    img = tshade.render_image(reference_render_scene(device="cpu").bind(), o, d, c).numpy()
     diff = np.abs(img - ref).max(axis=-1)
     assert np.mean(diff < 2e-2) >= 0.999
     assert diff.mean() < 1e-4
