@@ -1,7 +1,8 @@
-"""Command-line interface of the PyTorch port: the ``render``, ``mesh``, ``session``, ``fit`` and
-``bench`` verbs.
+"""Command-line interface of the PyTorch port: the ``render``, ``mesh``, ``session``, ``fit``,
+``animate`` and ``bench`` verbs.
 
     python -m bsdmg_tpu_torch.cli render -o out.png
+    python -m bsdmg_tpu_torch.cli render --scene examples/snowman.json -o out.png
     python -m bsdmg_tpu_torch.cli render --scene mandelbulb --camera 2 1 -2 -o out.png
     python -m bsdmg_tpu_torch.cli render --scene mesh:asset.obj[:RES] -o out.png
     python -m bsdmg_tpu_torch.cli mesh -o out.obj
@@ -9,10 +10,13 @@
     python -m bsdmg_tpu_torch.cli session --keys vbbbvv -o out.obj
     python -m bsdmg_tpu_torch.cli fit
     python -m bsdmg_tpu_torch.cli fit --image
+    python -m bsdmg_tpu_torch.cli animate --frames 8 [--rotate --motion spheric] -o frame
     python -m bsdmg_tpu_torch.cli bench --which render [--two-phase row|block] [--roofline]
 
 ``render`` draws a built-in scene (``--scene``: the reference render scene
-by default, ``sphere``, ``box``, ``mandelbulb``, ``wrapped_object``) at
+by default, ``sphere``, ``box``, ``mandelbulb``, ``wrapped_object``) or a
+composed scene (``path.json`` or ``spec:path``, a JSON CSG spec,
+``models/compose.py``, which the kernels run as a node program) at
 1920x1080 through CUDA kernel K1, or a triangle-mesh asset baked into a
 RES^3 grid SDF (default 128) through kernels K9 (the contraction ladder),
 K8 (the fine finish) and P1 (the hit normals);
@@ -23,7 +27,9 @@ reference's refine/advance stage machine from a key script, each
 extraction through K6; ``fit`` perturbs scene parameters and recovers
 them by inverse rendering, from a depth map (plain PyTorch and autograd) or,
 with ``--image``, from an image through kernels K4 (the target's march) and
-K5 (each step's loss and gradient); ``bench`` prints the JAX CLI's
+K5 (each step's loss and gradient; the reference scenes only); ``animate``
+renders a camera orbit, or the object's motion, one K1 launch a frame;
+``bench`` prints the JAX CLI's
 operating-point numbers as JSON (the render of ``--scene`` through K1, or with
 ``--two-phase row`` through K2 and K3, with ``block`` through K1 twice;
 refine; marching cubes through K6; the loss and gradient through K5). All
@@ -54,14 +60,26 @@ from bsdmg_tpu_torch.mesh.export import (
     load_field,
     load_obj,
     save_field,
+    save_gif,
     save_obj,
     save_png,
     save_vtk,
 )
 from bsdmg_tpu_torch.mesh.pipeline import generate_mesh
 from bsdmg_tpu_torch.mesh.session import MeshGenSession
-from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
+from bsdmg_tpu_torch.models import (
+    get_scene,
+    load_scene_spec,
+    reference_object,
+    reference_render_scene,
+)
 from bsdmg_tpu_torch.models.mesh_sdf import mesh_scene
+from bsdmg_tpu_torch.models.motion import (
+    AxisCyclicMotion,
+    RotateAxisMotion,
+    SphericCyclicMotion,
+    motion_params,
+)
 from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
 from bsdmg_tpu_torch.ops.cuda.grid_kernel import make_contraction_levels, render_image_grid
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
@@ -98,16 +116,22 @@ def _parse_mesh_spec(rest: str, default_resolution: int = 128):
 
 
 #: the built-in scenes whose parameter form kernels K4 and K5 do not take
-#: (csrc/param_sdf.cuh covers the reference scenes only)
+#: (csrc/param_sdf.cuh covers the reference scenes only); nor do they take
+#: a composed scene
 NO_FIT = ("sphere", "box", "mandelbulb", "wrapped_object")
 
 
 def _get_scene(name: str, device: torch.device):
-    if name.startswith(("mesh:", "spec:")) or name.endswith(".json"):
+    """A built-in scene by name, or a composed scene from a JSON spec
+    (``path.json`` or ``spec:path``); a mesh asset only in ``render``."""
+    if name.startswith("mesh:"):
         raise NotImplementedError(
-            f"scene {name!r}: composed scenes, and mesh-asset scenes outside "
-            "`render`, are not ported to bsdmg_tpu_torch yet"
+            f"scene {name!r}: mesh-asset scenes outside `render` are not ported to "
+            "bsdmg_tpu_torch yet"
         )
+    if name.startswith("spec:") or name.endswith(".json"):
+        return load_scene_spec(name[len("spec:"):] if name.startswith("spec:") else name,
+                               device=device)
     return get_scene(name, device=device)
 
 
@@ -238,6 +262,93 @@ def cmd_session(args) -> None:
     log.info("final stage: %s", session.stage.value)
 
 
+def _motion_components(args):
+    """Motion components from the CLI flags, the reference's optional
+    per-entity components (src/example_scene.rs:63-101)."""
+    axis_cyclic = spheric_cyclic = rotate_axis = None
+    if args.motion == "axis":
+        axis_cyclic = AxisCyclicMotion(cycle_duration=args.cycle_duration)
+    elif args.motion == "spheric":
+        spheric_cyclic = SphericCyclicMotion(cycle_durations=(args.cycle_duration,) * 3)
+    if args.rotate:
+        rotate_axis = RotateAxisMotion(cycle_duration=args.cycle_duration)
+    return axis_cyclic, spheric_cyclic, rotate_axis
+
+
+def _motion_keys(scene):
+    """The params that take the object's rigid transform: the object's
+    ``object_center``/``object_rotation``, or a composed scene's root
+    ``transform`` node's ``n0_offset``/``n0_rotation``; None (with the JAX
+    CLI's warning) for a scene that has none, whose motion is ignored."""
+    if scene.csdf is None:
+        log.warning("scene %s has no param-traced form; motion ignored", scene.name)
+        return None
+    if "object_center" in scene.params:
+        return "object_center", "object_rotation"
+    if scene.spec is not None and scene.spec["root"].get("op") == "transform":
+        return "n0_offset", "n0_rotation"
+    hint = (
+        " (wrap the spec root in {'op': 'transform', 'child': ...} "
+        "to animate it)" if scene.spec is not None else ""
+    )
+    log.warning(
+        "scene %s does not consume object_center/object_rotation; "
+        "motion ignored%s", scene.name, hint,
+    )
+    return None
+
+
+def cmd_animate(args) -> None:
+    """A camera orbit, or the object's motion seen from a still camera,
+    one PNG a frame (and ``--gif``). Every frame is one launch of K1: the
+    orbit's on the scene's descriptor, the motion's on a descriptor
+    compiled at the frame's moved params (the object transform, or a
+    composed scene's root transform node, is data in the descriptor)."""
+    device = _device(args.device)
+    scene = _get_scene(args.scene, device)
+    axis_cyclic, spheric_cyclic, rotate_axis = _motion_components(args)
+    moving = any(m is not None for m in (axis_cyclic, spheric_cyclic, rotate_axis))
+    keys = _motion_keys(scene) if moving else None
+    moving = keys is not None
+    desc = None if moving else compile_scene(scene)
+
+    radius = float(np.linalg.norm(args.camera))
+    gif_frames = [] if args.gif else None
+    for i in range(args.frames):
+        t = args.seconds * i / max(args.frames, 1)
+        if moving:
+            # the camera holds still so the object's motion is what animates
+            pos = tuple(args.camera)
+        else:
+            theta = 2 * math.pi * i / args.frames
+            pos = (radius * math.cos(theta), args.camera[1], radius * math.sin(theta))
+        cam = look_at(pos, tuple(args.target), fov=args.fov, device=device)
+        origins, dirs, cone = generate_rays(
+            cam, (args.width, args.height), (args.screen_width, args.screen_height)
+        )
+        if moving:
+            view = {"object_center": scene.params[keys[0]],
+                    "object_rotation": scene.params[keys[1]]}
+            moved = motion_params(view, t, axis_cyclic=axis_cyclic, spheric_cyclic=spheric_cyclic,
+                                  rotate_axis=rotate_axis, enable_movement=args.enable_movement,
+                                  device=device)
+            params = dict(scene.params)
+            params[keys[0]], params[keys[1]] = moved["object_center"], moved["object_rotation"]
+            img = render_image_cuda(compile_scene(scene, params), origins, dirs, cone)
+        else:
+            img = render_image_cuda(desc, origins, dirs, cone)
+        rgba8 = to_rgba8(img).cpu().numpy()
+        path = f"{args.output or 'frame'}_{i:04d}.png"
+        save_png(rgba8, path)
+        if gif_frames is not None:
+            gif_frames.append(rgba8)
+        log.info("frame %d/%d (t=%.2fs) -> %s", i + 1, args.frames, t, path)
+    if gif_frames is not None:
+        fps = args.frames / args.seconds if args.seconds > 0 else 10.0
+        save_gif(gif_frames, args.gif, fps=fps)
+        log.info("wrote %s (%d frames, %.1f fps)", args.gif, args.frames, fps)
+
+
 def _parse_perturb(spec: str) -> dict[str, tuple[str, float]]:
     """Parse ``key=factor,key=+delta`` into ``{key: (mode, value)}``.
 
@@ -295,14 +406,14 @@ def cmd_fit(args) -> None:
     (``--image``): the target is rendered at the scene's true params, the
     ``--perturb`` params are perturbed, and gradient descent recovers them."""
     device = _device(args.device)
-    if args.scene in NO_FIT:
-        raise NotImplementedError(
-            f"fit --scene {args.scene}: the parameter form of kernels K4 and K5 "
-            "(csrc/param_sdf.cuh) covers only the reference scenes; fits of the other built-in "
-            "scenes are not ported yet"
-        )
     default_scene = args.scene == "reference_render_scene"
     scene = reference_object(device=device) if default_scene else _get_scene(args.scene, device)
+    if args.image and (args.scene in NO_FIT or scene.spec is not None):
+        raise NotImplementedError(
+            f"fit --image --scene {args.scene}: the parameter form of kernels K4 and K5 "
+            "(csrc/param_sdf.cuh) covers only the reference scenes; image fits of the other "
+            "built-in scenes and of composed scenes are not ported yet"
+        )
     cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
     origins, dirs, cone = generate_rays(
         cam, (args.width, args.height), (args.screen_width, args.screen_height)
@@ -503,8 +614,8 @@ def build_parser() -> argparse.ArgumentParser:
     r = sub.add_parser("render", help="sphere-trace a scene to PNG/NPY")
     r.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name (bsdmg_tpu_torch.models.SCENES), or 'mesh:path.obj[:RES]' "
-        "for an OBJ asset baked into a RES^3 grid SDF (default 128)",
+        help="scene name (bsdmg_tpu_torch.models.SCENES), a .json CSG spec, or "
+        "'mesh:path.obj[:RES]' for an OBJ asset baked into a RES^3 grid SDF (default 128)",
     )
     common_camera(r, 1920, 1080)
     r.add_argument("--output", "-o", default=None, help=".png (default render.png) or .npy")
@@ -514,8 +625,8 @@ def build_parser() -> argparse.ArgumentParser:
     m = sub.add_parser("mesh", help="hierarchical refine + marching cubes -> OBJ/VTK")
     m.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name (bsdmg_tpu_torch.models.SCENES); the render scene meshes its object, "
-        "reference_object",
+        help="scene name (bsdmg_tpu_torch.models.SCENES) or a .json CSG spec; the render scene "
+        "meshes its object, reference_object",
     )
     m.add_argument("--refine", type=int, default=3, help="refinement levels")
     m.add_argument("--init-factor", type=int, default=32)
@@ -537,8 +648,9 @@ def build_parser() -> argparse.ArgumentParser:
     ft = sub.add_parser("fit", help="inverse rendering: recover SDF params from depth or image")
     ft.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name; the depth fit of the render scene fits its object, reference_object "
-        f"({', '.join(NO_FIT)} raise: not ported)",
+        help="scene name or a .json CSG spec; the depth fit of the render scene fits its "
+        f"object, reference_object (with --image, {', '.join(NO_FIT)} and specs raise: not "
+        "ported)",
     )
     common_camera(ft, 64, 64)
     ft.add_argument("--steps", type=int, default=60)
@@ -556,10 +668,39 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(ft)
     ft.set_defaults(fn=cmd_fit)
 
+    a = sub.add_parser("animate", help="render a camera orbit or object motion")
+    a.add_argument(
+        "--scene", default="reference_render_scene",
+        help="scene name (bsdmg_tpu_torch.models.SCENES), or a .json CSG spec",
+    )
+    common_camera(a, 1920, 1080)
+    a.add_argument("--frames", type=int, default=8)
+    a.add_argument(
+        "--motion", choices=["none", "axis", "spheric"], default="none",
+        help="object translation motion (reference example_scene.rs:63-101)",
+    )
+    a.add_argument(
+        "--rotate", action="store_true",
+        help="compose a RotateAxisMotion about +Y (example_scene.rs:63-67)",
+    )
+    a.add_argument("--cycle-duration", type=float, default=5.0)
+    a.add_argument("--seconds", type=float, default=5.0, help="animated time span")
+    a.add_argument(
+        "--enable-movement", action=argparse.BooleanOptionalAction, default=True,
+        help="the reference's ExampleSceneSettings.enable_movement gate (M key)",
+    )
+    a.add_argument("--output", "-o", default=None, help="frame prefix (default frame)")
+    a.add_argument(
+        "--gif", default=None,
+        help="also assemble the frames into a looping animated GIF at this path",
+    )
+    _add_device(a)
+    a.set_defaults(fn=cmd_animate)
+
     se = sub.add_parser("session", help="scripted refine/advance stage machine")
     se.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name (bsdmg_tpu_torch.models.SCENES), meshed as named",
+        help="scene name (bsdmg_tpu_torch.models.SCENES) or a .json CSG spec, meshed as named",
     )
     se.add_argument("--keys", default="vbbbvv", help="key script: b=refine, v=advance")
     se.add_argument("--commands", default=None, help="comma list: refine,advance,...")

@@ -91,8 +91,13 @@ __device__ __forceinline__ void store_block(T* __restrict__ dst, const T* src, i
   for (int k = done + threadIdx.x; k < count; k += kThreads) dst[k] = src[k];
 }
 
+// The launch bound's minimum of one block an SM is the register hint that
+// keeps ptxas from spilling: without it ptxas gave the reference structure
+// Box<false, false> 64 registers and 12 B of spill stores (Box<true, true>
+// in an earlier tree), with it 71 and none. The spilling build ran level 5
+// 8% faster (PERF.md); the reference structures may not spill.
 template <class S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 mc_kernel(const SceneDesc s, const float* __restrict__ lx, const float* __restrict__ ly,
           const float* __restrict__ lz, const int* __restrict__ cross_bits,
           const int* __restrict__ t0, const int* __restrict__ t1, float vs, int n, int budget,

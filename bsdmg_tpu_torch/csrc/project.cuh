@@ -48,9 +48,15 @@ __device__ __forceinline__ void fd4_grad(const SceneDesc& s, float x, float y, f
 }
 
 // 1/|g| with the JAX kernels' 1e-24 floor; a correctly rounded sqrt and
-// division (not rsqrtf), so the PyTorch twin can equal it bit for bit
+// division (not rsqrtf), so the PyTorch twin can equal it bit for bit. The
+// floor keeps a NaN, as jnp.maximum and the twin's clamp do (fmaxf drops
+// it): a gradient NaN in one axis only (a composed scene's cylinder on its
+// axis) makes the whole Newton step NaN, not a step by the other axes at
+// 1e12. A compare and select: around vmaxn's inline asm ptxas spilled K6's
+// wrapped-object instantiation.
 __device__ __forceinline__ float inv_norm(float gx, float gy, float gz) {
-  return 1.0f / sqrtf(fmaxf((gx * gx + gy * gy) + gz * gz, 1e-24f));
+  const float m = (gx * gx + gy * gy) + gz * gz;
+  return 1.0f / sqrtf(m < 1e-24f ? 1e-24f : m);
 }
 
 // fd4 unit normal at (x, y, z)

@@ -21,7 +21,8 @@
 // values stay runtime data in the by-value SceneDesc. Sphere, SolidBox and
 // Mandelbulb are the other built-in scenes (csdf.py sphere_csdf, box_csdf
 // and the mandelbulb of compile_scene_csdf), Wrapped<Box<false, false>>
-// the reference object on a lattice (its wrapped_object). csdf.py::
+// the reference object on a lattice (its wrapped_object), Composed a
+// composed scene's node program (composed.cuh). csdf.py::
 // kernel_structure picks the structure from the descriptor (and raises for
 // a descriptor that matches none); with_structure turns its index into the
 // template on the host.
@@ -95,9 +96,21 @@ struct SceneDesc {
   float scale;        // Mandelbulb: float32(scale * 0.4), points divided, distance multiplied
   float cell;         // Wrapped: the lattice period
   float half_cell;    // float32(cell / 2)
+  // Composed: the node program in device memory, program_length
+  // instructions of BSDMG_WORDS words (csdf.py program_words); the
+  // descriptor on the host owns the buffer
+  const int* program;
+  int program_length;
 };
 
-enum SceneKind { KIND_REFERENCE, KIND_SPHERE, KIND_SOLID_BOX, KIND_MANDELBULB, KIND_WRAPPED };
+enum SceneKind {
+  KIND_REFERENCE,
+  KIND_SPHERE,
+  KIND_SOLID_BOX,
+  KIND_MANDELBULB,
+  KIND_WRAPPED,
+  KIND_COMPOSED
+};
 
 // The compile-time structure of a reference scene: with the wireframe or
 // not, with the object transform or not. `unrolled` is whether the fd4
@@ -136,9 +149,18 @@ struct Wrapped {
   using inner = Inner;
 };
 
+// a composed scene: the node program is data, which composed.cuh's
+// interpreter reads instruction by instruction; the stencil stays rolled
+// around it
+struct Composed {
+  static constexpr SceneKind kind = KIND_COMPOSED;
+  static constexpr bool unrolled = false;
+};
+
 // Calls f(S{}) for the structure index csdf.py::kernel_structure gives:
-// 2 * frame + transform for Box, then Sphere, SolidBox, Mandelbulb and the
-// wrapped reference object; false for an index that names none.
+// 2 * frame + transform for Box, then Sphere, SolidBox, Mandelbulb, the
+// wrapped reference object and Composed; false for an index that names
+// none.
 template <class F>
 inline bool with_structure(int structure, F&& f) {
   switch (structure) {
@@ -150,6 +172,7 @@ inline bool with_structure(int structure, F&& f) {
     case 5: f(SolidBox{}); return true;
     case 6: f(Mandelbulb{}); return true;
     case 7: f(Wrapped<Box<false, false>>{}); return true;
+    case 8: f(Composed{}); return true;
     default: return false;
   }
 }
@@ -467,11 +490,17 @@ __device__ __forceinline__ void mandelbulb_sdf_grad(const SceneDesc& s, float x,
 
 // the wrap of signed_distance.cu:9-18, -half + jnp.mod(v + half, cell):
 // fmod, plus the divisor where the remainder's sign differs (torch.remainder)
-__device__ __forceinline__ float wrap_coord(const SceneDesc& s, float v) {
-  float m = fmodf(v + s.half_cell, s.cell);
-  if (m != 0.0f && ((s.cell < 0.0f) != (m < 0.0f))) m += s.cell;
-  return -s.half_cell + m;
+__device__ __forceinline__ float wrap_axis(float v, float cell, float half) {
+  float m = fmodf(v + half, cell);
+  if (m != 0.0f && ((cell < 0.0f) != (m < 0.0f))) m += cell;
+  return -half + m;
 }
+
+__device__ __forceinline__ float wrap_coord(const SceneDesc& s, float v) {
+  return wrap_axis(v, s.cell, s.half_cell);
+}
+
+#include "composed.cuh"
 
 // ---------------------------------------------------------------------------
 // the scene SDF of structure S, and its value and gradient
@@ -487,6 +516,8 @@ __device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y,
     return mandelbulb_sdf(s, x, y, z);
   } else if constexpr (S::kind == KIND_WRAPPED) {
     return scene_sdf<typename S::inner>(s, wrap_coord(s, x), wrap_coord(s, y), wrap_coord(s, z));
+  } else if constexpr (S::kind == KIND_COMPOSED) {
+    return composed_sdf(s, x, y, z);
   } else {
     return reference_sdf<S>(s, x, y, z);
   }
@@ -506,6 +537,8 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
   } else if constexpr (S::kind == KIND_WRAPPED) {
     scene_sdf_grad<typename S::inner>(s, wrap_coord(s, x), wrap_coord(s, y), wrap_coord(s, z), d,
                                       gx, gy, gz);
+  } else if constexpr (S::kind == KIND_COMPOSED) {
+    composed_sdf_grad(s, x, y, z, d, gx, gy, gz);
   } else {
     reference_sdf_grad<S>(s, x, y, z, d, gx, gy, gz);
   }

@@ -1,5 +1,5 @@
-"""Mesh and image export: OBJ (and its reader), VTK legacy, PNG, and
-voxel-field checkpoints.
+"""Mesh and image export: OBJ (and its reader), VTK legacy, PNG, animated
+GIF, and voxel-field checkpoints.
 
 Port of ``bsdmg_tpu/mesh/export.py``; each writer produces the JAX package's
 exact format, so files and field checkpoints pass between the two packages.
@@ -111,6 +111,33 @@ def save_png(image: np.ndarray, path: str | Path) -> None:
         + chunk(b"IEND", b"")
     )
     Path(path).write_bytes(png)
+
+
+def save_gif(frames, path: str | Path, *, fps: float = 10.0) -> None:
+    """Write a list of (H, W, 3|4) uint8 frames as a looping animated GIF
+    (``cli animate --gif``), with Pillow, as the JAX package does; raises
+    ``RuntimeError`` where Pillow is missing."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            "animated GIF export needs Pillow; write PNG frames instead"
+        ) from e
+    if not frames:
+        raise ValueError("save_gif needs at least one frame")
+    imgs = []
+    for f in frames:
+        f = np.asarray(f)
+        if f.dtype != np.uint8:
+            f = (np.clip(f, 0.0, 1.0) * 255.0).astype(np.uint8)
+        imgs.append(Image.fromarray(f[..., :3], "RGB"))
+    imgs[0].save(
+        Path(path),
+        save_all=True,
+        append_images=imgs[1:],
+        duration=max(int(round(1000.0 / fps)), 20),
+        loop=0,
+    )
 
 
 def save_field(field, path: str | Path) -> None:

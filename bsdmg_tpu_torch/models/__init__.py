@@ -1,3 +1,4 @@
+from bsdmg_tpu_torch.models.compose import compose_scene, load_scene_spec
 from bsdmg_tpu_torch.models.scenes import (
     SCENES,
     ReferenceCsdf,
@@ -17,8 +18,10 @@ __all__ = [
     "ReferenceCsdf",
     "Scene",
     "box_scene",
+    "compose_scene",
     "default_object_params",
     "get_scene",
+    "load_scene_spec",
     "mandelbulb_scene",
     "reference_object",
     "reference_render_scene",

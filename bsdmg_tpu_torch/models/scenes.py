@@ -1,6 +1,7 @@
 """The built-in scenes.
 
-Port of ``bsdmg_tpu/models/scenes.py`` but composed scenes:
+Port of ``bsdmg_tpu/models/scenes.py`` (composed scenes are
+``models/compose.py``):
 
 * ``sd_obj`` (cuda/modules/common.cu:222-226): ``smooth_min`` of a box
   skeleton (center 0, size (3, 1, 0.5), line width 0.1) and a sphere of
@@ -42,7 +43,8 @@ class Scene:
     same geometry. ``csdf(params, x, y, z)`` is the same SDF on coordinate
     planes, differentiable with respect to ``params``. A mesh-asset scene
     (``models/mesh_sdf.py::mesh_scene``) carries its baked ``grid``, which
-    the grid render (``ops/cuda/grid_kernel.py``) samples."""
+    the grid render (``ops/cuda/grid_kernel.py``) samples; a composed scene
+(``models/compose.py``) its ``spec``."""
 
     name: str
     sdf: SceneFn
@@ -51,6 +53,10 @@ class Scene:
     bb_size: float = 5.0
     csdf: "Callable | None" = None
     grid: "SdfGrid | None" = None  # noqa: F821 (models/mesh_sdf.py)
+    #: a composed scene's spec tree and node ids (models/compose.py), from
+    #: which ops/cuda/csdf.py builds the kernels' node program and the
+    #: bounds; None for the built-in scenes
+    spec: "dict | None" = None
 
     def bind(self, params: Params | None = None) -> Callable[[torch.Tensor], torch.Tensor]:
         """Close over ``params`` (default params if None)."""

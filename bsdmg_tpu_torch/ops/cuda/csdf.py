@@ -28,7 +28,12 @@ y and z with 2 perpendicular coordinates per other axis, with or without
 the wireframe and the object transform; the sphere, the box and the
 mandelbulb; the reference object wrapped on a lattice.
 
-The built-in scenes compile (:data:`SUPPORTED`); any other scene raises
+The built-in scenes compile (:data:`SUPPORTED`), and so does a composed
+scene (``models/compose.py``): its spec flattens into a node program
+(:func:`node_program`) that the kernels' ``Composed`` structure
+interprets (``csrc/composed.cuh``) and :func:`descriptor_csdf` and
+:func:`descriptor_csdf_value_and_grad` interpret in plain PyTorch, with
+the constants JAX's baked lowering forms. Any other scene raises
 ``NotImplementedError``. The sphere's and the box's gradients are JAX's
 reverse mode, as the reference scenes' are, and so NaN where JAX's is (the
 box's inside, where ``sqrt``'s weight ``0.5 / 0`` meets a zero); the
@@ -63,9 +68,10 @@ SUPPORTED = (
     "reference_object", "reference_render_scene", "sphere", "box", "mandelbulb", "wrapped_object",
 )
 
-#: kernel_structure's indices of the other built-in scenes (with_structure in
-#: csrc/scene_sdf.cuh); 0-3 are the reference scenes' Box<Frame, Transform>
-SPHERE, SOLID_BOX, MANDELBULB, WRAPPED = 4, 5, 6, 7
+#: kernel_structure's indices of the other built-in scenes and of a composed
+#: scene's node program (with_structure in csrc/scene_sdf.cuh); 0-3 are the
+#: reference scenes' Box<Frame, Transform>
+SPHERE, SOLID_BOX, MANDELBULB, WRAPPED, COMPOSED = 4, 5, 6, 7, 8
 
 #: parallel-edge groups per capsule set, and distinct perpendicular
 #: coordinates per group axis, that the kernels take (a box skeleton has 3
@@ -103,6 +109,203 @@ class CapsuleSet:
     groups: tuple[CapsuleGroup, ...]
 
 
+# ---------------------------------------------------------------------------
+# a composed scene's node program
+# ---------------------------------------------------------------------------
+
+#: the node program's opcodes (csrc/scene_sdf.cuh Op): the 7 primitives, the
+#: 7 operators as folds (union MIN, intersect MAX, subtract SUB, smooth_union
+#: SMOOTH), shell, and the push and pop of a coordinate frame (transform,
+#: wrap)
+(OP_SPHERE, OP_BOX, OP_CAPSULE, OP_SKELETON, OP_TORUS, OP_CYLINDER, OP_PLANE, OP_MIN, OP_MAX,
+ OP_SUB, OP_SMOOTH, OP_SHELL, OP_PUSH_TRANSFORM, OP_PUSH_WRAP, OP_POP) = range(15)
+#: 32-bit words per instruction: opcode, operand index, 14 float32 constants
+PROGRAM_WORDS = 16
+PROGRAM_CONSTANTS = PROGRAM_WORDS - 2
+#: the caps the kernels' interpreter is built for (csrc/scene_sdf.cuh
+#: BSDMG_PROGRAM, BSDMG_STACK, BSDMG_FRAMES): instructions, values on the
+#: stack at once, nested coordinate frames. The three example scenes take
+#: at most 10 instructions, 3 values and 1 frame.
+PROGRAM_CAP = 64
+STACK_CAP = 16
+FRAME_CAP = 8
+
+_PRIMITIVE_OPS = {"sphere": OP_SPHERE, "box": OP_BOX, "capsule": OP_CAPSULE,
+                  "box_skeleton": OP_SKELETON, "torus": OP_TORUS, "cylinder": OP_CYLINDER,
+                  "plane": OP_PLANE}
+_FOLD_OPS = {"union": OP_MIN, "intersect": OP_MAX, "subtract": OP_SUB, "smooth_union": OP_SMOOTH}
+
+
+class Instruction(NamedTuple):
+    """One node-program instruction: ``op``, ``arg`` (a fold's left operand:
+    the index of the instruction that computed it; a pop's push) and the
+    float32 ``constants`` (Python floats)."""
+
+    op: int
+    arg: int
+    constants: tuple
+
+
+def _rsqrt_f32(v: float) -> float:
+    """``jax.lax.rsqrt`` of float32 ``max(v, 1e-24)`` in float32: the
+    correctly rounded reciprocal square root of the float32 argument, as
+    XLA's rsqrt gives it on these constants."""
+    a = np.float32(max(np.float32(v), np.float32(1e-24)))
+    return f32(1.0 / np.sqrt(np.float64(a)))
+
+
+def _primitive_constants(kind: str, node: dict, get) -> tuple:
+    """A primitive's constants as JAX's baked lowering forms them
+    (``composed_baked_csdf``): each field a float64 Python value, arithmetic
+    among them in float64, rounded to float32 where it meets a plane."""
+    if kind == "sphere":
+        return (*map(f32, get(node, "center")), f32(get(node, "radius")))
+    if kind == "box":
+        return (*map(f32, get(node, "center")), *(f32(v * 0.5) for v in get(node, "size")))
+    if kind == "capsule":
+        a, b = get(node, "start"), get(node, "end")
+        seg = [bv - av for av, bv in zip(a, b)]
+        l2 = max(np.float32(seg[0] * seg[0] + seg[1] * seg[1] + seg[2] * seg[2]),
+                 np.float32(1e-12))
+        return (*map(f32, a), *map(f32, seg), float(l2), f32(get(node, "radius")))
+    if kind == "box_skeleton":
+        c, sz = get(node, "center"), get(node, "size")
+        compat = bool(node.get("reference_compat", True))
+        lo = [f32(cv - sv / 2.0) for cv, sv in zip(c, sz)]
+        s1 = [sz[(d + 1) % 2] if compat else sz[(d + 1) % 3] for d in range(3)]
+        return (*lo, *map(f32, sz), *map(f32, s1), f32(get(node, "line_width")))
+    if kind == "torus":
+        return (*map(f32, get(node, "center")), f32(get(node, "major_radius")),
+                f32(get(node, "minor_radius")))
+    if kind == "cylinder":
+        return (*map(f32, get(node, "center")), f32(get(node, "radius")),
+                f32(get(node, "height") * 0.5))
+    if kind == "plane":
+        n = get(node, "normal")
+        inv = _rsqrt_f32(n[0] * n[0] + n[1] * n[1] + n[2] * n[2])
+        return (*map(f32, n), inv, f32(get(node, "offset")))
+    raise AssertionError(kind)
+
+
+def _rotation_f32(q) -> tuple:
+    """``models/scenes.py::_quat_inv_rotate_c``'s ``r00 ... r22`` of the
+    float64 quaternion ``q`` as JAX forms them: the norm squared in
+    float64, its rsqrt in float32, then every product and sum in float32,
+    row-major."""
+    inv = np.float32(_rsqrt_f32(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]))
+    w, x, y, z = (np.float32(v) * inv for v in q)
+    one, two = np.float32(1.0), np.float32(2.0)
+    r = ((one - two * (y * y + z * z), two * (x * y - w * z), two * (x * z + w * y)),
+         (two * (x * y + w * z), one - two * (x * x + z * z), two * (y * z - w * x)),
+         (two * (x * z - w * y), two * (y * z + w * x), one - two * (x * x + y * y)))
+    return tuple(float(v) for row in r for v in row)
+
+
+def node_program(scene: Scene, params) -> tuple[Instruction, ...]:
+    """Flatten a composed scene's spec into its postfix node program at
+    ``params``: a primitive pushes its value, a fold pops two values and
+    pushes one (left to right, as the JAX package folds), shell maps the
+    top; transform and wrap push a coordinate frame before their child
+    and pop it after. Raises ``NotImplementedError`` for a program beyond
+    the interpreter's caps."""
+    from bsdmg_tpu_torch.models.compose import resolver
+
+    root, get = resolver(scene, params)
+    prog: list[Instruction] = []
+
+    def emit(node: dict) -> None:
+        if "prim" in node:
+            kind = node["prim"]
+            prog.append(Instruction(_PRIMITIVE_OPS[kind], -1,
+                                    _primitive_constants(kind, node, get)))
+            return
+        op = node["op"]
+        if op in _FOLD_OPS:
+            children = node["children"]
+            emit(children[0])
+            consts = (f32(get(node, "k")), f32(1.0 / 6.0)) if op == "smooth_union" else ()
+            for child in children[1:]:
+                left = len(prog) - 1
+                emit(child)
+                prog.append(Instruction(_FOLD_OPS[op], left, consts))
+            return
+        if op == "shell":
+            emit(node["child"])
+            prog.append(Instruction(OP_SHELL, -1, (f32(get(node, "thickness")),)))
+            return
+        push = len(prog)
+        if op == "transform":
+            consts = (*map(f32, get(node, "offset")), *_rotation_f32(get(node, "rotation")))
+            prog.append(Instruction(OP_PUSH_TRANSFORM, -1, consts))
+        else:
+            cell = get(node, "cell")
+            prog.append(Instruction(OP_PUSH_WRAP, -1,
+                                    (*map(f32, cell), *(f32(v * 0.5) for v in cell))))
+        emit(node["child"])
+        prog.append(Instruction(OP_POP, push, ()))
+
+    emit(root)
+    depth, frames = program_depths(prog)
+    if len(prog) > PROGRAM_CAP or depth > STACK_CAP or frames > FRAME_CAP:
+        raise NotImplementedError(
+            f"scene {scene.name!r}: a node program of {len(prog)} instructions, {depth} stack "
+            f"values and {frames} nested frames; the kernels take at most {PROGRAM_CAP} "
+            f"instructions, {STACK_CAP} values and {FRAME_CAP} frames"
+        )
+    return tuple(prog)
+
+
+def program_depths(prog) -> tuple[int, int]:
+    """The most values on the stack and the most nested frames at once."""
+    depth = frames = most = most_frames = 0
+    for ins in prog:
+        if ins.op <= OP_PLANE:
+            depth += 1
+        elif ins.op <= OP_SMOOTH:
+            depth -= 1
+        elif ins.op in (OP_PUSH_TRANSFORM, OP_PUSH_WRAP):
+            frames += 1
+        elif ins.op == OP_POP:
+            frames -= 1
+        most, most_frames = max(most, depth), max(most_frames, frames)
+    return most, most_frames
+
+
+def program_words(prog) -> np.ndarray:
+    """The program as the kernels read it: ``(n, PROGRAM_WORDS)`` int32,
+    each row the opcode, the operand index and the constants' float32 bits."""
+    words = np.zeros((len(prog), PROGRAM_WORDS), np.int32)
+    for i, ins in enumerate(prog):
+        words[i, 0], words[i, 1] = ins.op, ins.arg
+        consts = np.asarray(ins.constants, np.float32)
+        words[i, 2:2 + len(consts)] = consts.view(np.int32)
+    return words
+
+
+class NodeProgram:
+    """A composed scene's node program: the instructions, which the plain
+    twins interpret, and the words the kernels read, uploaded to each CUDA
+    device once and kept here (the descriptor owns the buffer)."""
+
+    def __init__(self, instructions: tuple[Instruction, ...]):
+        self.instructions = instructions
+        self.words = program_words(instructions)
+        self._on_device: dict = {}
+
+    def __len__(self) -> int:
+        return len(self.instructions)
+
+    def on_device(self, device: torch.device | str = "cuda") -> torch.Tensor:
+        """The words as an int32 tensor on the CUDA ``device`` ("cuda": the
+        current one)."""
+        device = torch.device(device)
+        if device.index is None:
+            device = torch.device(device.type, torch.cuda.current_device())
+        if device not in self._on_device:
+            self._on_device[device] = torch.from_numpy(self.words).to(device)
+        return self._on_device[device]
+
+
 @dataclasses.dataclass(frozen=True)
 class SceneDescriptor:
     """One built-in scene, ready for the kernels.
@@ -110,7 +313,8 @@ class SceneDescriptor:
     ``kind`` is ``"reference"`` (the reference object or render scene),
     ``"wrapped"`` (the reference object on a lattice of period ``cell``),
     ``"sphere"`` (radius ``sphere_radius``), ``"box"`` (half extents
-    ``box_half``) or ``"mandelbulb"`` (``scale``: the JAX compiler's
+    ``box_half``), ``"composed"`` (a composed scene: its node
+    ``program``) or ``"mandelbulb"`` (``scale``: the JAX compiler's
     ``float(scale) * 0.4``, by which the points are divided and the
     distance multiplied). For the reference object, ``object`` is the box
     skeleton of ``sd_obj``, ``frame`` the bounding-box wireframe of the
@@ -132,6 +336,7 @@ class SceneDescriptor:
     box_half: tuple[float, float, float] | None = None
     scale: float | None = None
     cell: float | None = None
+    program: NodeProgram | None = None
 
 
 def _host(params) -> dict[str, np.ndarray]:
@@ -220,7 +425,7 @@ def _object_transform(p: dict[str, np.ndarray]):
 
 
 def _check_supported(scene: Scene) -> None:
-    if scene.name not in SUPPORTED:
+    if scene.name not in SUPPORTED and scene.spec is None:
         raise NotImplementedError(
             f"the CUDA render path compiles only {SUPPORTED}, not scene "
             f"{scene.name!r}; other scenes are not ported yet"
@@ -264,6 +469,10 @@ def scene_bounds(scene: Scene, params=None) -> tuple | None:
     mandelbulb's 0.1); the slab cull's margin needs it to stay sound."""
     _check_supported(scene)
     p = _host(scene.params if params is None else params)
+    if scene.spec is not None:
+        from bsdmg_tpu_torch.models.compose import composed_bounds
+
+        return composed_bounds(scene, p)
     if scene.name == "sphere":
         r = float(p["radius"]) + 1e-3
         return ((-r, -r, -r), (r, r, r), 1e-3)
@@ -325,6 +534,8 @@ def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
     bounds = scene_bounds(scene, params)
     empty = dict(object=None, frame=None, sphere_radius=0.0, smooth_k=0.0, inv_k=0.0, k_6=0.0,
                  inv_rotation=None, translation=None, bounds=bounds)
+    if scene.spec is not None:
+        return SceneDescriptor(**empty, kind="composed", program=NodeProgram(node_program(scene, p)))
     if scene.name == "sphere":
         return SceneDescriptor(**{**empty, "sphere_radius": f32(p["radius"])}, kind="sphere")
     if scene.name == "box":
@@ -498,9 +709,297 @@ def _box_csdf(desc: SceneDescriptor) -> CSdf:
     return f
 
 
+# ---------------------------------------------------------------------------
+# the node program's interpreter (csrc/scene_sdf.cuh composed_sdf and
+# composed_sdf_grad), in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _div(a: torch.Tensor, k: float) -> torch.Tensor:
+    """``a / k`` as a true float32 division on every device (a Python
+    divisor makes a CUDA tensor multiply by its reciprocal)."""
+    return a / torch.tensor(k, dtype=a.dtype, device=a.device)
+
+
+def _frame_coords(ins: Instruction, coords):
+    """The child frame's coordinates: a transform's ``x - offset``, then
+    the rows of ``R^T`` (``r00*x + r10*y + r20*z``, ...); a wrap's
+    ``-half + mod(v + half, cell)`` per axis."""
+    k = ins.constants
+    if ins.op == OP_PUSH_WRAP:
+        return tuple(_wrap_coord(coords[a], k[3 + a], k[a]) for a in range(3))
+    tx, ty, tz = (coords[a] - k[a] for a in range(3))
+    r = k[3:]
+    return tuple((r[a] * tx + r[3 + a] * ty) + r[6 + a] * tz for a in range(3))
+
+
+def _primitive_value(ins: Instruction, coords):
+    """A primitive's value, operation by operation as the JAX package's
+    component-form primitive (``sd_sphere_c``, ``sd_box_c``,
+    ``_sd_capsule_c``, ``sd_box_skeleton_c``, ``sd_torus_c``,
+    ``sd_cylinder_c``, the plane) with baked constants; also the
+    intermediates its backward reads."""
+    k = ins.constants
+    x, y, z = coords
+    op = ins.op
+    if op == OP_PLANE:
+        return ((x * k[0] + y * k[1]) + z * k[2]) * k[3] - k[4], None
+    p = (x - k[0], y - k[1], z - k[2])
+    if op == OP_SPHERE:
+        root = torch.sqrt((p[0] * p[0] + p[1] * p[1]) + p[2] * p[2])
+        return root - k[3], (p, root)
+    if op == OP_BOX:
+        q = [torch.abs(p[a]) - k[3 + a] for a in range(3)]
+        o = [torch.clamp_min(v, 0.0) for v in q]
+        outside = torch.sqrt((o[0] * o[0] + o[1] * o[1]) + o[2] * o[2])
+        m2 = torch.maximum(q[1], q[2])
+        m3 = torch.maximum(q[0], m2)
+        inside = torch.clamp_max(m3, 0.0)
+        return outside + inside, (p, q, o, outside, m2, m3, inside)
+    if op == OP_CAPSULE:
+        s = k[3:6]
+        dot = (p[0] * s[0] + p[1] * s[1]) + p[2] * s[2]
+        qv = _div(dot, k[6])
+        mx = torch.clamp_min(qv, 0.0)
+        t = torch.clamp_max(mx, 1.0)
+        d = [p[a] - t * s[a] for a in range(3)]
+        root = torch.sqrt((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2])
+        return root - k[7], (p, qv, mx, t, d, root)
+    if op == OP_SKELETON:
+        lo, size, s1 = k[0:3], k[3:6], k[6:9]
+        c = (x, y, z)
+        axes, best = [], []
+        for d in range(3):
+            a1, a2 = (d + 1) % 3, (d + 2) % 3
+            r = c[d] - lo[d]
+            mx = torch.clamp_min(r, 0.0)
+            t = torch.clamp_max(mx, size[d])
+            e = r - t
+            o1 = c[a1] - lo[a1]
+            o1b = o1 - s1[d]
+            o2 = c[a2] - lo[a2]
+            o2b = o2 - size[a2]
+            q1, q1b, q2, q2b = o1 * o1, o1b * o1b, o2 * o2, o2b * o2b
+            m1, m2 = torch.minimum(q1, q1b), torch.minimum(q2, q2b)
+            d2 = (e * e + m1) + m2
+            axes.append((r, mx, t, e, o1, o1b, o2, o2b, q1, q1b, q2, q2b, m1, m2, d2))
+            best.append(d2 if d == 0 else torch.minimum(best[-1], d2))
+        root = torch.sqrt(best[2])
+        return root - k[9], (axes, best, root)
+    if op == OP_TORUS:
+        a = torch.sqrt(p[0] * p[0] + p[2] * p[2])
+        ring = a - k[3]
+        b = torch.sqrt(ring * ring + p[1] * p[1])
+        return b - k[4], (p, a, ring, b)
+    if op == OP_CYLINDER:
+        a = torch.sqrt(p[0] * p[0] + p[2] * p[2])
+        dr = a - k[3]
+        dy = torch.abs(p[1]) - k[4]
+        ox, oy = torch.clamp_min(dr, 0.0), torch.clamp_min(dy, 0.0)
+        mxd = torch.maximum(dr, dy)
+        inner = torch.clamp_max(mxd, 0.0)
+        root = torch.sqrt(ox * ox + oy * oy)
+        return inner + root, (p, a, dr, dy, ox, oy, mxd, inner, root)
+    raise AssertionError(op)
+
+
+def _twice(v):
+    """``ct*x + x*ct`` of a square's backward, with ``v = ct * x``."""
+    return v + v
+
+
+def _primitive_bwd(ins: Instruction, coords, ct, acc: list) -> None:
+    """Adds ``ct`` times the primitive's gradient to ``acc``, reverse mode
+    with JAX's rules: ``sqrt``'s weight ``0.5 / root``, each ``min``/``max``
+    splitting its cotangent at a tie (:func:`_tie_weight`), ``abs`` +1 at
+    0, every cotangent computed even where it is 0 (so a NaN weight gives a
+    NaN, as in ``jax.vjp``)."""
+    k = ins.constants
+    op = ins.op
+    _, f = _primitive_value(ins, coords)
+    g = [None, None, None]
+    if op == OP_PLANE:
+        c = ct * k[3]
+        g = [c * k[0], c * k[1], c * k[2]]
+    elif op == OP_SPHERE:
+        p, root = f
+        w = ct * (0.5 / root)
+        g = [_twice(w * p[a]) for a in range(3)]
+    elif op == OP_BOX:
+        p, q, o, outside, m2, m3, inside = f
+        ct_m3 = ct * _tie_weight(m3, inside, 0.0)
+        ct_m2 = ct_m3 * _tie_weight(m2, m3, q[0])
+        ct_in = [ct_m3 * _tie_weight(q[0], m3, m2), ct_m2 * _tie_weight(q[1], m2, q[2]),
+                 ct_m2 * _tie_weight(q[2], m2, q[1])]
+        w = ct * (0.5 / outside)
+        for a in range(3):
+            ct_q = _twice(w * o[a]) * _tie_weight(q[a], o[a], 0.0) + ct_in[a]
+            g[a] = torch.where(p[a] >= 0.0, ct_q, -ct_q)
+    elif op == OP_CAPSULE:
+        p, qv, mx, t, d, root = f
+        s = k[3:6]
+        w = ct * (0.5 / root)
+        ct_d = [_twice(w * d[a]) for a in range(3)]
+        ct_t = -((ct_d[0] * s[0] + ct_d[1] * s[1]) + ct_d[2] * s[2])
+        ct_q = (ct_t * _tie_weight(mx, t, 1.0)) * _tie_weight(qv, mx, 0.0)
+        ct_dot = _div(ct_q, k[6])
+        g = [ct_d[a] + ct_dot * s[a] for a in range(3)]
+    elif op == OP_SKELETON:
+        axes, best, root = f
+        w = ct * (0.5 / root)
+        cts = [None, None, w * _tie_weight(axes[2][-1], best[2], best[1])]
+        w = w * _tie_weight(best[1], best[2], axes[2][-1])
+        cts[1] = w * _tie_weight(axes[1][-1], best[1], best[0])
+        cts[0] = w * _tie_weight(best[0], best[1], axes[1][-1])
+        size = k[3:6]
+        for d in range(3):
+            r, mx, t, e, o1, o1b, o2, o2b, q1, q1b, q2, q2b, m1, m2, _ = axes[d]
+            c = cts[d]
+            ct_e = _twice(c * e)
+            ct_mx = -ct_e * _tie_weight(mx, t, size[d])
+            ct_r = ct_e + ct_mx * _tie_weight(r, mx, 0.0)
+            ct_o1 = (_twice((c * _tie_weight(q1, m1, q1b)) * o1)
+                     + _twice((c * _tie_weight(q1b, m1, q1)) * o1b))
+            ct_o2 = (_twice((c * _tie_weight(q2, m2, q2b)) * o2)
+                     + _twice((c * _tie_weight(q2b, m2, q2)) * o2b))
+            for axis, v in ((d, ct_r), ((d + 1) % 3, ct_o1), ((d + 2) % 3, ct_o2)):
+                _add_to_axis(g, axis, v)
+    elif op == OP_TORUS:
+        p, a, ring, b = f
+        wb = ct * (0.5 / b)
+        ct_ring = _twice(wb * ring)
+        wa = ct_ring * (0.5 / a)
+        g = [_twice(wa * p[0]), _twice(wb * p[1]), _twice(wa * p[2])]
+    elif op == OP_CYLINDER:
+        p, a, dr, dy, ox, oy, mxd, inner, root = f
+        w = ct * (0.5 / root)
+        ct_ox, ct_oy = _twice(w * ox), _twice(w * oy)
+        ct_mxd = ct * _tie_weight(mxd, inner, 0.0)
+        ct_dr = ct_mxd * _tie_weight(dr, mxd, dy) + ct_ox * _tie_weight(dr, ox, 0.0)
+        ct_dy = ct_mxd * _tie_weight(dy, mxd, dr) + ct_oy * _tie_weight(dy, oy, 0.0)
+        wa = ct_dr * (0.5 / a)
+        g = [_twice(wa * p[0]), torch.where(p[1] >= 0.0, ct_dy, -ct_dy), _twice(wa * p[2])]
+    else:
+        raise AssertionError(op)
+    for a in range(3):
+        acc[a] = acc[a] + g[a]
+
+
+def _fold_value(ins: Instruction, a, b):
+    """A fold's value and the intermediates its backward reads."""
+    if ins.op == OP_MIN:
+        return torch.minimum(a, b), None
+    if ins.op == OP_MAX:
+        return torch.maximum(a, b), None
+    if ins.op == OP_SUB:
+        nb = -b
+        return torch.maximum(a, nb), nb
+    # smooth_min (sdf/primitives.py smooth_min): h = max(k - |a - b|, 0) / k,
+    # min(a, b) - ((h*h*h) * k) * f32(1/6)
+    k, c6 = ins.constants
+    delta = a - b
+    u = k - torch.abs(delta)
+    hm = torch.clamp_min(u, 0.0)
+    h = _div(hm, k)
+    h2 = h * h
+    m = torch.minimum(a, b)
+    return m - ((h2 * h) * k) * c6, (delta, u, hm, h, h2, m)
+
+
+def _fold_bwd(ins: Instruction, a, b, out, f, ct):
+    """The cotangents of a fold's two operands."""
+    if ins.op in (OP_MIN, OP_MAX):
+        return ct * _tie_weight(a, out, b), ct * _tie_weight(b, out, a)
+    if ins.op == OP_SUB:
+        return ct * _tie_weight(a, out, f), -(ct * _tie_weight(f, out, a))
+    k, c6 = ins.constants
+    delta, u, hm, h, h2, m = f
+    ct_h3 = (-ct * c6) * k
+    ct_h2 = ct_h3 * h
+    ct_h = (h2 * ct_h3 + ct_h2 * h) + h * ct_h2
+    ct_u = _div(ct_h, k) * _tie_weight(u, hm, 0.0)
+    ct_abs = -ct_u
+    ct_delta = torch.where(delta >= 0.0, ct_abs, -ct_abs)  # jax: d|x| = +1 at 0
+    return ct * _tie_weight(a, m, b) + ct_delta, ct * _tie_weight(b, m, a) - ct_delta
+
+
+def _program_forward(prog, x, y, z):
+    """Runs the program; returns the value of every instruction (a pop's
+    is its frame's value, a push's None): the tape of the backward."""
+    coords, frames, stack, tape = (x, y, z), [], [], []
+    for ins in prog:
+        out = None
+        if ins.op <= OP_PLANE:
+            out = _primitive_value(ins, coords)[0]
+            stack.append(out)
+        elif ins.op <= OP_SMOOTH:
+            b, a = stack.pop(), stack.pop()
+            out = _fold_value(ins, a, b)[0]
+            stack.append(out)
+        elif ins.op == OP_SHELL:
+            out = torch.abs(stack.pop()) - ins.constants[0]
+            stack.append(out)
+        elif ins.op == OP_POP:
+            coords = frames.pop()
+            out = stack[-1]  # the frame's value, the fold's operand
+        else:
+            frames.append(coords)
+            coords = _frame_coords(ins, coords)
+        tape.append(out)
+    return tape
+
+
+def _program_csdf(prog) -> CSdf:
+    """The program's value on coordinate planes: the twin of ``composed_sdf``."""
+    return lambda x, y, z: _program_forward(prog, x, y, z)[-1]
+
+
+def _program_value_and_grad(prog):
+    """The program's value and gradient, reverse mode over the tape: the
+    twin of ``composed_sdf_grad``. The backward walks the program from the
+    end with a stack of cotangents: a fold pops its cotangent and pushes
+    its left operand's, then its right one's, which the instructions just
+    before it consume first; a primitive adds its gradient to the frame's
+    accumulated one; a pop (met first) enters the frame again, its
+    coordinates recomputed from the push, and the push leaves it, mapping
+    the frame's gradient back (a transform by ``R``, a wrap unchanged)."""
+
+    def f(x, y, z):
+        tape = _program_forward(prog, x, y, z)
+        zero = torch.zeros_like(x)
+        coords, acc, frames = (x, y, z), [zero, zero, zero], []
+        cts = [torch.ones_like(x)]
+        for i in range(len(prog) - 1, -1, -1):
+            ins = prog[i]
+            if ins.op <= OP_PLANE:
+                _primitive_bwd(ins, coords, cts.pop(), acc)
+            elif ins.op <= OP_SMOOTH:
+                a, b = tape[ins.arg], tape[i - 1]
+                ct_a, ct_b = _fold_bwd(ins, a, b, tape[i], _fold_value(ins, a, b)[1], cts.pop())
+                cts += [ct_a, ct_b]
+            elif ins.op == OP_SHELL:
+                ct = cts.pop()
+                cts.append(torch.where(tape[i - 1] >= 0.0, ct, -ct))
+            elif ins.op == OP_POP:
+                frames.append((coords, acc))
+                coords, acc = _frame_coords(prog[ins.arg], coords), [zero, zero, zero]
+            else:
+                if ins.op == OP_PUSH_TRANSFORM:
+                    r = ins.constants[3:]
+                    acc = [(r[3 * a] * acc[0] + r[3 * a + 1] * acc[1]) + r[3 * a + 2] * acc[2]
+                           for a in range(3)]
+                coords, parent = frames.pop()
+                acc = [parent[a] + acc[a] for a in range(3)]
+        return (tape[-1], *acc)
+
+    return f
+
+
 def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
     """The scene SDF of ``desc`` on coordinate planes, in plain PyTorch: the
     twin of the kernels' ``scene_sdf`` (csdf.py::compile_scene_csdf)."""
+    if desc.kind == "composed":
+        return _program_csdf(desc.program.instructions)
     if desc.kind == "sphere":
         r = desc.sphere_radius
         return lambda x, y, z: torch.sqrt(x * x + y * y + z * z) - r
@@ -520,11 +1019,11 @@ def kernel_structure(desc: SceneDescriptor) -> int:
     transform`` for ``Box<Frame, Transform>``, the reference scenes;
     :data:`SPHERE`, :data:`SOLID_BOX`, :data:`MANDELBULB`; :data:`WRAPPED`
     for ``Wrapped<Box<false, false>>``, the wrapped reference object
-    without an object transform. Each capsule set must be a box skeleton as
+    without an object transform; :data:`COMPOSED` for a node program. Each capsule set must be a box skeleton as
     the kernels take it, 3 groups along x, y and z in that order with 2
     perpendicular coordinates per other axis; any other descriptor raises
     ``NotImplementedError``, for which no kernel is built."""
-    plain = {"sphere": SPHERE, "box": SOLID_BOX, "mandelbulb": MANDELBULB}
+    plain = {"sphere": SPHERE, "box": SOLID_BOX, "mandelbulb": MANDELBULB, "composed": COMPOSED}
     if desc.kind in plain:
         return plain[desc.kind]
     sets = {"object": desc.object, "frame": desc.frame}
@@ -757,6 +1256,8 @@ def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
     unchanged. The mandelbulb's is forward mode
     (:func:`_mandelbulb_value_and_grad`). ``d`` equals
     :func:`descriptor_csdf` bit for bit."""
+    if desc.kind == "composed":
+        return _program_value_and_grad(desc.program.instructions)
     if desc.kind == "sphere":
         return _sphere_value_and_grad(desc)
     if desc.kind == "box":

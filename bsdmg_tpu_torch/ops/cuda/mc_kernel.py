@@ -222,7 +222,7 @@ def mc_fused_cuda(desc: SceneDescriptor, lx, ly, lz, cross_bits, t0, t1, voxel_s
     _check_inputs(lx, ly, lz, cross_bits, t0, t1)
     out = mc_outputs(lx.shape[0], lx.device)
     if lx.shape[0]:
-        _mc_cuda(scene_desc_c(desc), (lx, ly, lz, cross_bits, t0, t1), voxel_size,
+        _mc_cuda(scene_desc_c(desc, device=lx.device), (lx, ly, lz, cross_bits, t0, t1), voxel_size,
                  mc_params(budget, iters, tol, eps, use_grad, winding_normals), out)
     return out
 

@@ -159,7 +159,7 @@ def project_edges_cuda(desc: SceneDescriptor, x, y, z, active, *, iters: int, to
                  active=(active, torch.int32))
     outs = tuple(torch.empty_like(x) for _ in range(6))
     if x.shape[0]:
-        _project_cuda(scene_desc_c(desc), (x, y, z, active), (iters, tol, eps, use_grad), outs)
+        _project_cuda(scene_desc_c(desc, device=x.device), (x, y, z, active), (iters, tol, eps, use_grad), outs)
     return outs
 
 

@@ -402,6 +402,8 @@ class _SceneDescC(ctypes.Structure):
         ("scale", ctypes.c_float),
         ("cell", ctypes.c_float),
         ("half_cell", ctypes.c_float),
+        ("program", ctypes.c_void_p),
+        ("program_length", ctypes.c_int),
     ]
 
 
@@ -459,11 +461,15 @@ def shading_c() -> dict:
     )
 
 
-def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> _SceneDescC:
+def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
+                 device: torch.device | str = "cuda") -> _SceneDescC:
     """The descriptor as the kernels take it (``SceneDesc``), with the
     index of the compiled structure it launches (:func:`kernel_structure`,
-    which raises for a descriptor that matches none)."""
+    which raises for a descriptor that matches none). A composed scene's
+    node program is read from its buffer on the CUDA ``device`` ("cuda":
+    the current one), uploaded there once (``NodeProgram.on_device``)."""
     structure = kernel_structure(desc)
+    program = None if desc.program is None else desc.program.on_device(device)
     has_transform = desc.translation is not None
     rotation = [v for row in desc.inv_rotation for v in row] if has_transform else [0.0] * 9
     skeleton = desc.frame if desc.frame is not None else desc.object
@@ -482,6 +488,8 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig()) -> 
         scale=desc.scale or 0.0,
         cell=desc.cell or 0.0,
         half_cell=0.0 if desc.cell is None else f32(desc.cell / 2.0),
+        program=None if program is None else program.data_ptr(),
+        program_length=0 if program is None else len(desc.program),
         **bounds_c(desc.bounds),
         **march_c(config),
         **shading_c(),
@@ -652,7 +660,7 @@ class _Frame:
         self.cull = bool(use_bb_skip) and desc.bounds is not None
         self.omega = float(omega)
         self.cuda = cone.device.type == "cuda"
-        self.desc_c = scene_desc_c(desc, config) if self.cuda else None
+        self.desc_c = scene_desc_c(desc, config, cone.device) if self.cuda else None
 
     def cap(self, budget: int | None) -> int:
         limit = self.config.step_limit

@@ -4,11 +4,13 @@ from bsdmg_tpu_torch.sdf.primitives import (
     sd_box_c,
     sd_box_skeleton,
     sd_box_skeleton_c,
+    sd_cylinder_c,
     sd_line,
     sd_mandelbulb,
     sd_mandelbulb_c,
     sd_sphere,
     sd_sphere_c,
+    sd_torus_c,
     smooth_min,
     wrap,
 )
@@ -19,11 +21,13 @@ __all__ = [
     "sd_box_c",
     "sd_box_skeleton",
     "sd_box_skeleton_c",
+    "sd_cylinder_c",
     "sd_line",
     "sd_mandelbulb",
     "sd_mandelbulb_c",
     "sd_sphere",
     "sd_sphere_c",
+    "sd_torus_c",
     "smooth_min",
     "wrap",
 ]

@@ -4,8 +4,9 @@ Port of the subset of ``bsdmg_tpu/sdf/primitives.py`` that the built-in
 scenes use (reference: cuda/includes/signed_distance.cu), in the point form
 and in the component form on coordinate planes, each in the JAX package's
 operation order: the reference object's box skeleton, sphere and smooth
-minimum, and the box, domain wrap and mandelbulb of the other scenes. The
-rest of that library comes with the scenes that need it.
+minimum, the box, domain wrap and mandelbulb of the other scenes, and the
+torus and capped cylinder of the composed scenes (``models/compose.py``).
+The rest of that library comes with the scenes that need it.
 
 Where a function is differentiated, its ``min``, ``max`` and ``abs`` follow
 JAX's derivative rules: at a tie each operand of ``minimum``/``maximum``
@@ -224,6 +225,26 @@ def sd_box_c(x, y, z, center, size):
     outside = torch.sqrt(ox * ox + oy * oy + oz * oz)
     inside = minimum(maximum(qx, maximum(qy, qz)), 0.0)
     return outside + inside
+
+
+def sd_torus_c(x, y, z, center, major_radius, minor_radius):
+    """Component-form torus in the xz plane (ring of ``major_radius``, tube
+    of ``minor_radius``)."""
+    c = _vec3(center)
+    px, py, pz = x - c[0], y - c[1], z - c[2]
+    ring = torch.sqrt(px * px + pz * pz) - major_radius
+    return torch.sqrt(ring * ring + py * py) - minor_radius
+
+
+def sd_cylinder_c(x, y, z, center, radius, height):
+    """Component-form capped cylinder along +y (exact SDF)."""
+    c = _vec3(center)
+    px, py, pz = x - c[0], y - c[1], z - c[2]
+    dr = torch.sqrt(px * px + pz * pz) - radius
+    dy = abs_(py) - height * 0.5
+    ox = maximum(dr, 0.0)
+    oy = maximum(dy, 0.0)
+    return minimum(maximum(dr, dy), 0.0) + torch.sqrt(ox * ox + oy * oy)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bsdmg_tpu_torch.ops.cuda.csdf import (
+    OP_BOX,
+    OP_CAPSULE,
+    OP_CYLINDER,
+    OP_MAX,
+    OP_MIN,
+    OP_PLANE,
+    OP_POP,
+    OP_PUSH_TRANSFORM,
+    OP_PUSH_WRAP,
+    OP_SHELL,
+    OP_SKELETON,
+    OP_SMOOTH,
+    OP_SPHERE,
+    OP_SUB,
+    OP_TORUS,
+)
+
 #: Peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit): FP32
 #: outside the tensor cores, and HBM.
 PEAK_FP32 = 67e12
@@ -258,20 +276,178 @@ def _reference_sdf_ops(desc) -> int:
     return n
 
 
+#: composed.cuh, per node-program opcode (ops/cuda/csdf.py OP_*): the
+#: forward (primitive_value, fold_value, the shell, frame_coords) and the
+#: backward beside it (primitive_grad and the frame's three adds, fold_bwd,
+#: the shell's compare, the push's mapping; what it recomputes of the
+#: forward counts once, in the forward). Forward: the sphere 3 subtracts, 3
+#: multiplies, 2 adds, sqrt, subtract; the box 3 x (subtract, abs,
+#: subtract, max, multiply), 2 adds, sqrt, 3 max/min, add; the capsule 3
+#: subtracts, the dot 5, division, max, min, 3 x (multiply, subtract), 3
+#: multiplies, 2 adds, sqrt, subtract; the skeleton 3 axes of 17 (4
+#: subtracts, max, min, 2 subtracts, 5 multiplies, 2 mins, 2 adds), 2 mins,
+#: sqrt, subtract; the torus 3 subtracts, 2 x (2 multiplies, add, sqrt,
+#: subtract); the cylinder 3 subtracts, 2 multiplies, add, sqrt, subtract,
+#: abs, subtract, 3 max, min, 2 multiplies, add, sqrt, add; the plane 3
+#: multiplies, 2 adds, multiply, subtract; a fold 1; the smooth union 11;
+#: the shell abs and subtract; a transform 3 subtracts, 9 multiplies, 6
+#: adds; a wrap three wrap_axis (WRAP, fmodf); a pop nothing.
+PROGRAM_FORWARD = {
+    OP_SPHERE: 10, OP_BOX: 22, OP_CAPSULE: 24, OP_SKELETON: 55, OP_TORUS: 13, OP_CYLINDER: 19,
+    OP_PLANE: 7, OP_MIN: 1, OP_MAX: 1, OP_SUB: 1, OP_SMOOTH: 11, OP_SHELL: 2,
+    OP_PUSH_TRANSFORM: 18, OP_PUSH_WRAP: 3 * (WRAP + LIBM["fmodf"]), OP_POP: 0,
+}
+#: backward: the sphere the weight (division, multiply), 3 doubled products
+#: and the 3 adds into the frame; the box 5 weighted cotangents (TIE and a
+#: multiply each), the weight 2, per axis 8 (multiply, add, TIE, multiply,
+#: add, the sign's compare) and 3 adds; the capsule the weight 2, the doubled
+#: products 6, ct_t 5, ct_q 2 x (TIE + 1), ct_dot 1, the gradient 6 and 3
+#: adds; the skeleton the weight 2, the axes' four weighted cotangents 16,
+#: per axis 37 (ce, ct_e, ct_mx 4, ct_r 5, four slot weights of 5, two
+#: sums of 3), 6 adds between the axes and 3 into the frame; the torus 15,
+#: the cylinder 38, the plane 7; min, max and subtract two weighted
+#: cotangents (8); the smooth union 24 (ct_h3 2, ct_h2 1, ct_h 5, ct_u 5,
+#: the sign 1, the operands' 2 x 5); the shell its sign's compare; a
+#: transform's push R applied (15) and 3 adds, a wrap's 3 adds.
+PROGRAM_BACKWARD = {
+    OP_SPHERE: 11, OP_BOX: 49, OP_CAPSULE: 31, OP_SKELETON: 138, OP_TORUS: 15, OP_CYLINDER: 38,
+    OP_PLANE: 7, OP_MIN: 8, OP_MAX: 8, OP_SUB: 8, OP_SMOOTH: 24, OP_SHELL: 1,
+    OP_PUSH_TRANSFORM: 18, OP_PUSH_WRAP: 3, OP_POP: 0,
+}
+
+
+def program_ops(desc) -> tuple[float, float]:
+    """``(forward, backward)``: a composed scene's node program's FP32
+    operations (PROGRAM_FORWARD, PROGRAM_BACKWARD), one evaluation."""
+    ops = [ins.op for ins in desc.program.instructions]
+    return sum(PROGRAM_FORWARD[o] for o in ops), sum(PROGRAM_BACKWARD[o] for o in ops)
+
+
+class _Stencil:
+    """The shared-term count of a program's forward over the 12 fd4 points.
+    A value is the set of axes whose shift moves it; an operation on values
+    that depend on every axis runs at each of the 12 points, one on values
+    that depend on fewer axes runs once at the centre and at the 4 points of
+    each axis it depends on (the others share the centre's value). A
+    product with a constant 0 is a constant, and a constant costs nothing.
+    ``calls`` counts the operations of one evaluation (PROGRAM_FORWARD),
+    ``constants`` those of them that are constants, ``ops`` those of the
+    stencil."""
+
+    def __init__(self):
+        self.calls = self.constants = self.ops = 0.0
+
+    def op(self, *values, weight: float = 1.0) -> frozenset:
+        axes = frozenset().union(*values)
+        self.calls += weight
+        if not axes:
+            self.constants += weight
+        self.ops += weight * (12 if len(axes) == 3 else 1 + 4 * len(axes) if axes else 0)
+        return axes
+
+    def scale(self, value: frozenset, k: float) -> frozenset:
+        """``value * k``, k a constant."""
+        return self.op(value if k != 0.0 else frozenset())
+
+    def sum_of_squares(self, a, b, c) -> frozenset:
+        """``(a*a + b*b) + c*c``, then its sqrt."""
+        return self.op(self.op(self.op(self.op(a), self.op(b)), self.op(c)))
+
+    def primitive(self, ins, x, y, z) -> frozenset:
+        """composed.cuh primitive_value, operation by operation."""
+        k, op = ins.constants, ins.op
+        if op == OP_PLANE:
+            dot = self.op(self.op(self.scale(x, k[0]), self.scale(y, k[1])), self.scale(z, k[2]))
+            return self.op(self.op(dot))
+        if op == OP_SKELETON:
+            c, best = (x, y, z), None
+            for d in range(3):
+                r = self.op(c[d])
+                e = self.op(r, self.op(self.op(r)))  # max, min, r - t
+                o = [self.op(c[(d + j) % 3]) for j in (1, 2)]  # o1, o2
+                m = [self.op(self.op(oj), self.op(self.op(oj))) for oj in o]  # q, o', q', min
+                d2 = self.op(self.op(self.op(e), m[0]), m[1])
+                best = d2 if best is None else self.op(best, d2)
+            return self.op(self.op(best))
+        p = [self.op(v) for v in (x, y, z)]
+        if op == OP_SPHERE:
+            return self.op(self.sum_of_squares(*p))
+        if op == OP_BOX:
+            q = [self.op(self.op(v)) for v in p]  # |p| - h
+            o = [self.op(v) for v in q]
+            outside = self.sum_of_squares(*o)
+            inside = self.op(self.op(q[0], self.op(q[1], q[2])))
+            return self.op(outside, inside)
+        if op == OP_CAPSULE:
+            s = k[3:6]
+            dot = self.op(self.op(self.scale(p[0], s[0]), self.scale(p[1], s[1])),
+                          self.scale(p[2], s[2]))
+            t = self.op(self.op(self.op(dot)))  # the division, max, min
+            d = [self.op(p[a], self.scale(t, s[a])) for a in range(3)]
+            return self.op(self.sum_of_squares(*d))
+        ring = self.op(self.op(self.op(self.op(p[0]), self.op(p[2]))))  # sqrt(x*x + z*z) - k
+        if op == OP_TORUS:
+            return self.op(self.op(self.op(self.op(ring), self.op(p[1]))))
+        # OP_CYLINDER
+        dy = self.op(self.op(p[1]))
+        ox, oy = self.op(ring), self.op(dy)
+        return self.op(self.op(self.op(ring, dy)), self.op(self.op(self.op(ox), self.op(oy))))
+
+    def frame(self, ins, x, y, z) -> tuple:
+        """composed.cuh frame_coords."""
+        k = ins.constants
+        if ins.op == OP_PUSH_WRAP:
+            return tuple(self.op(v, weight=WRAP + LIBM["fmodf"]) for v in (x, y, z))
+        t = [self.op(v) for v in (x, y, z)]
+        return tuple(self.op(self.op(self.scale(t[0], k[3 + a]), self.scale(t[1], k[6 + a])),
+                             self.scale(t[2], k[9 + a])) for a in range(3))
+
+    def program(self, instructions) -> None:
+        x, y, z = frozenset({0}), frozenset({1}), frozenset({2})
+        stack, frames = [], []
+        for ins in instructions:
+            if ins.op <= OP_PLANE:
+                stack.append(self.primitive(ins, x, y, z))
+            elif ins.op <= OP_SMOOTH:
+                b = stack.pop()
+                stack[-1] = self.op(stack[-1], b, weight=PROGRAM_FORWARD[ins.op])
+            elif ins.op == OP_SHELL:
+                stack[-1] = self.op(stack[-1], weight=2)
+            elif ins.op == OP_POP:
+                x, y, z = frames.pop()
+            else:
+                frames.append((x, y, z))
+                x, y, z = self.frame(ins, x, y, z)
+
+
+def program_stencil_ops(desc) -> float:
+    """The shared-term fd4 stencil's work on a composed scene's program
+    (:class:`_Stencil`): the 12 points' SDFs, where an instruction in the
+    root frame, or under frames that keep the axes apart (a wrap, a
+    transform without a rotation), shares its terms as SPHERE_STENCIL and
+    BOX_STENCIL do, and one under a rotation runs whole at each point."""
+    stencil = _Stencil()
+    stencil.program(desc.program.instructions)
+    return stencil.ops
+
+
 def sdf_ops(desc) -> int:
     """scene_sdf.cuh scene_sdf. The reference scenes: the transform (3
     subtracts, 9 multiplies, 6 adds), the object's capsules, the sphere (3
     multiplies, 2 adds, sqrt, subtract), the smooth-min (subtract, abs,
     subtract, max, multiply, min, 3 multiplies, subtract), the frame's
     capsules and a min; the wrapped object the same beside three wraps
-    (WRAP and fmodf each); the sphere SPHERE, the box SOLID_BOX. The
-    mandelbulb's depends on its data (:class:`LoopWork`) and raises here."""
+    (WRAP and fmodf each); the sphere SPHERE, the box SOLID_BOX; a composed
+    scene its program's forward (:func:`program_ops`). The mandelbulb's
+    depends on its data (:class:`LoopWork`) and raises here."""
     if desc.kind == "sphere":
         return SPHERE
     if desc.kind == "box":
         return SOLID_BOX
     if desc.kind == "mandelbulb":
         raise ValueError("the mandelbulb's work depends on its data: count it with LoopWork")
+    if desc.kind == "composed":
+        return program_ops(desc)[0]
     n = _reference_sdf_ops(desc)
     if desc.kind == "wrapped":
         n += 3 * (WRAP + LIBM["fmodf"])
@@ -284,14 +460,17 @@ def grad_ops(desc) -> int:
     ct_h 5, ct_u 5, ct_delta 1, ct_skel 5, ct_sph 5, ct_s2 2), the sphere's
     (3 multiplies, 3 doubled sums), the capsules' backward, the frame's two
     weights and the transposed rotation (15); the wrapped object's beside
-    its wraps; the sphere SPHERE_GRAD, the box SOLID_BOX_GRAD. The
-    mandelbulb's forward mode is not counted and raises."""
+    its wraps; the sphere SPHERE_GRAD, the box SOLID_BOX_GRAD; a composed
+    scene its program's forward and backward. The mandelbulb's forward mode
+    is not counted and raises."""
     if desc.kind == "sphere":
         return SPHERE_GRAD
     if desc.kind == "box":
         return SOLID_BOX_GRAD
     if desc.kind == "mandelbulb":
         raise ValueError("the mandelbulb's gradient (forward mode through its loop) is not counted")
+    if desc.kind == "composed":
+        return sum(program_ops(desc))
     n = sdf_ops(desc) + 25 + 9 + capsule_bwd_ops(desc.object)
     if desc.frame is not None:
         n += 2 * TIE + capsule_bwd_ops(desc.frame)
@@ -351,13 +530,17 @@ def fd4_ops(desc) -> int:
     three wraps at the centre and one a point; the sphere and the box are
     SPHERE_STENCIL and BOX_STENCIL. The mandelbulb's stencil, rolled, is 12
     whole evaluations whose work depends on the data (:class:`LoopWork`)
-    and raises here."""
+    and raises here. A composed scene's is its program's shared-term
+    stencil (:func:`program_stencil_ops`), though its kernels roll the 12
+    points."""
     if desc.kind == "sphere":
         return STENCIL + SPHERE_STENCIL
     if desc.kind == "box":
         return STENCIL + BOX_STENCIL
     if desc.kind == "mandelbulb":
         raise ValueError("the mandelbulb's stencil depends on its data: count it with LoopWork")
+    if desc.kind == "composed":
+        return STENCIL + program_stencil_ops(desc)
     wraps = 15 * (WRAP + LIBM["fmodf"]) if desc.kind == "wrapped" else 0
     if desc.translation is not None:
         obj = 12 * (18 + capsule_ops(desc.object) + 7 + 10)

@@ -86,6 +86,16 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
    and the wrap call, on the path each of the twins' arguments at
    1920x1080 takes (an instrumented PTX kernel), which must be
    utils/profiling.py LIBM;
+9c. the composed scenes (examples/gadget, mushroom and snowman.json, and
+   an unbounded spec with a plane, which K1 does not cull): ``cli render
+   --scene <spec>.json`` at 1920x1080 (K1 once), K1 against its twin bit
+   for bit and alone with its bound, registers, stack and local memory;
+   the row and block pipelines against the twins at 960x540; ``cli mesh
+   --scene`` (K6) and ``--interpolate-edges`` (K7), K6 and K7 against
+   their twins at level 3 (NaN at the same places) and alone with their
+   bounds; ``cli session --scene examples/snowman.json`` (K6 five times);
+   ``cli animate`` at 480x270, 4 frames, orbiting the gadget and moving the
+   gadget wrapped in a root transform (K1 once a frame);
 10. the fit path: ``cli fit --image`` at its defaults (64x64, 60 steps),
     which must launch K4 (the target) and K5 once per step, with a falling
     loss; the same 60 steps through K4's and K5's plain versions on the
@@ -2097,6 +2107,33 @@ def march_probe(card: str, device, kernel: str = K1_DEFAULT) -> dict:
     return out
 
 
+#: the reference scenes' structures (csrc/scene_sdf.cuh Box<Frame, Transform>)
+#: in K1, K2, K3, K6 and K7, none of which may spill; K1's fresh march on the
+#: render scene holds K1_REGISTERS
+REFERENCE_KERNELS = (("render_kernel.cu", ("render_kernel<Box<", "trace_kernel<Box<",
+                                           "shade_kernel<Box<")),
+                     ("mc_kernel.cu", ("mc_kernel<Box<",)),
+                     ("project_kernel.cu", ("project_kernel<Box<",)))
+K1_REGISTERS = 32
+
+
+def reference_resources(card: str) -> list[dict]:
+    """ptxas's registers and spills of every reference instantiation of K1,
+    K2, K3, K6 and K7 (REFERENCE_KERNELS): fails where one spills, or
+    where K1_DEFAULT takes other than K1_REGISTERS registers."""
+    rows = {prefix: kernel_resources(source, (prefix,))
+            for source, prefixes in REFERENCE_KERNELS for prefix in prefixes}
+    spilled = [r for found in rows.values() for r in found if r["spill_stores"] or r["spill_loads"]]
+    k1 = [r for r in rows["render_kernel<Box<"] if r["kernel"] == K1_DEFAULT]
+    print(f"reference instantiations on {card}: "
+          f"{json.dumps({p: len(found) for p, found in rows.items()})} kernels, spilling "
+          f"{json.dumps(spilled)}; {K1_DEFAULT}: {k1}")
+    check(all(rows.values()) and not spilled, f"a reference instantiation spills: {spilled}")
+    check(len(k1) == 1 and k1[0]["registers"] == K1_REGISTERS,
+          f"{K1_DEFAULT} takes other than {K1_REGISTERS} registers: {k1}")
+    return [r for found in rows.values() for r in found]
+
+
 #: the kernels that run the fd4 stencil, at their main paths' scene structures
 STENCIL_KERNELS = (("render_kernel.cu", K1_DEFAULT), ("render_kernel.cu", "shade_kernel<Box<true, false>>"),
                    ("mc_kernel.cu", "mc_kernel<Box<false, false>>"),
@@ -2759,21 +2796,75 @@ def session_phase(card: str) -> dict:
     return {"launches": counts["K6"], "seconds": seconds}
 
 
-def scene_phases(card: str, device) -> tuple[dict, dict]:
-    """Each other built-in scene: ``cli render --scene`` at SCENE_FRAME (K1
+#: the composed scenes (models/compose.py) of scene_phases: the three
+#: examples, and two unbounded specs, so K1 runs its uncull'd Composed
+#: instantiation: a root union with a plane, and a wrap root over every
+#: other primitive and operator, a rotation and a reference_compat false
+#: skeleton (tests/test_torch_compose.py GROUND and LATTICE)
+COMPOSED_EXAMPLES = ("gadget", "mushroom", "snowman")
+GROUND_SPEC = {"name": "ground", "root": {"op": "union", "children": [
+    {"prim": "plane", "normal": [0.0, 1.0, 0.1], "offset": -1.0},
+    {"op": "subtract", "children": [
+        {"op": "intersect", "children": [
+            {"prim": "box", "center": [0.0, 0.0, 0.0], "size": [1.6, 1.6, 1.6]},
+            {"prim": "sphere", "radius": 1.0}]},
+        {"prim": "capsule", "start": [-1.2, 0.0, 0.0], "end": [1.2, 0.0, 0.0], "radius": 0.35},
+        {"prim": "cylinder", "radius": 0.4, "height": 3.0}]},
+    {"op": "shell", "thickness": 0.03,
+     "child": {"prim": "torus", "center": [0.0, 0.9, 0.0], "major_radius": 0.5,
+               "minor_radius": 0.1}}]}}
+LATTICE_SPEC = {"name": "lattice", "root": {"op": "wrap", "cell": [3.0, 2.5, 3.0], "child": {
+    "op": "smooth_union", "k": 0.3, "children": [
+        {"prim": "torus", "center": [0.0, 0.0, 0.0], "major_radius": 0.7, "minor_radius": 0.18},
+        {"op": "transform", "offset": [0.0, 0.2, 0.0], "rotation": [0.8660254, 0.5, 0.0, 0.0],
+         "child": {"prim": "cylinder", "radius": 0.2, "height": 1.2}},
+        {"prim": "box_skeleton", "size": [1.6, 1.2, 1.0], "line_width": 0.04,
+         "reference_compat": False}]}}}
+#: the reference render scene written as a spec: the interpreter's cost
+#: against the fixed Box<true, false> structure on the same geometry
+REFERENCE_SPEC = {"name": "reference_as_spec", "root": {"op": "union", "children": [
+    {"op": "smooth_union", "k": 0.5, "children": [
+        {"prim": "box_skeleton", "size": [3.0, 1.0, 0.5], "line_width": 0.1},
+        {"prim": "sphere", "radius": 1.0}]},
+    {"prim": "box_skeleton", "size": [5.0, 5.0, 5.0], "line_width": 0.05}]}}
+#: cli animate's frame and frame count
+ANIMATE_SIZE = (480, 270)
+ANIMATE_FRAMES = 4
+
+
+def scene_arguments(tmp: Path) -> dict[str, str]:
+    """The ``--scene`` of each scene of :func:`scene_phases`: the other
+    built-in scenes by name, the composed ones by their JSON files (the two
+    specs written into ``tmp``)."""
+    out = {name: name for name in NEW_SCENES}
+    out.update({name: str(ROOT / "examples" / f"{name}.json") for name in COMPOSED_EXAMPLES})
+    for spec in (GROUND_SPEC, LATTICE_SPEC):
+        path = tmp / f"{spec['name']}.json"
+        path.write_text(json.dumps(spec))
+        out[spec["name"]] = str(path)
+    return out
+
+
+def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
+    """Each other built-in scene and each composed scene
+    (:func:`scene_arguments`): ``cli render --scene`` at SCENE_FRAME (K1
     once), K1 against its twin at SCENE_FRAME (the mandelbulb at
-    SCENE_PARITY_FRAME, by its bars), K1 alone at SCENE_FRAME with its
-    bound and registers; the row (K2, K2, K3) and block (K1 twice)
-    pipelines against the twins composed alike at SCENE_PARITY_FRAME;
-    ``cli mesh --scene`` (K6) and ``--interpolate-edges`` (K7) at
-    level 3, and K6 and K7 against their twins on that field. Bit for bit
-    (NaN at the same places), but the mandelbulb, by its bars. Returns the
-    results by scene and the libm calls' arguments for :func:`libm_probe`
-    (the mandelbulb's and the wrapped object's at SCENE_FRAME)."""
+    SCENE_PARITY_FRAME, by its bars), K1 alone at SCENE_FRAME (a CUDA graph
+    of 20) with its bound and ptxas's registers, stack and spills; the row
+    (K2, K2, K3) and block (K1 twice) pipelines against the twins composed
+    alike at SCENE_PARITY_FRAME; ``cli mesh --scene`` (K6) and
+    ``--interpolate-edges`` (K7) at level 3 with their counts, and K6 and
+    K7 against their twins on that field. Bit for bit, NaN at the same
+    places (the gadget's and the box's boxes give their "grad" projections
+    NaN, in the JAX package too), but the mandelbulb, by its bars. A
+    composed scene also takes :func:`composed_kernel_times`. Returns the
+    results by scene, the libm calls' arguments for :func:`libm_probe` (the
+    mandelbulb's and the wrapped object's at SCENE_FRAME), and the kernels'
+    entries of the Composed instantiations (the gadget's numbers)."""
+    from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.cam import generate_rays, look_at
     from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig
     from bsdmg_tpu_torch.mesh.field import create_voxel_field, refine_field
-    from bsdmg_tpu_torch.models import get_scene
     from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
     from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
     from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, sdf_fns
@@ -2782,92 +2873,232 @@ def scene_phases(card: str, device) -> tuple[dict, dict]:
 
     cfg, mesh_cfg = MarchConfig(), MeshGenConfig()
     registers = {r["kernel"]: r for r in kernel_resources("render_kernel.cu", ("render_kernel<",))}
-    out, arguments = {}, {}
-    for name in NEW_SCENES:
-        bulb = name == "mandelbulb"
-        camera = MANDELBULB_CAMERA if bulb else (5.0, 2.0, -5.0)
-        res = {}
-        with tempfile.TemporaryDirectory() as tmp:
-            counts, _, seconds = run_cli(["render", "--scene", name, "--camera", *map(str, camera),
-                                          "--width", str(SCENE_FRAME[0]), "--height",
-                                          str(SCENE_FRAME[1]), "-o", str(Path(tmp) / "x.png")])
-        check(counts["K1"] == 1, f"cli render --scene {name} launched K1 {counts['K1']} times")
-        res["cli_render_s"] = seconds
-        desc = compile_scene(get_scene(name, device=device))
+    for source, prefix in (("mc_kernel.cu", "mc_kernel<Composed"),
+                           ("project_kernel.cu", "project_kernel<Composed")):
+        for r in kernel_resources(source, (prefix,)):
+            print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
+                  f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    out, arguments, entries = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, scene_arg in scene_arguments(tmp).items():
+            bulb, composed = name == "mandelbulb", scene_arg.endswith(".json")
+            camera = MANDELBULB_CAMERA if bulb else (5.0, 2.0, -5.0)
+            res = {}
+            counts, _, seconds = run_cli(["render", "--scene", scene_arg, "--camera",
+                                          *map(str, camera), "--width", str(SCENE_FRAME[0]),
+                                          "--height", str(SCENE_FRAME[1]), "-o",
+                                          str(tmp / "x.png")])
+            check(counts["K1"] == 1, f"cli render --scene {name} launched K1 {counts['K1']} times")
+            res["cli_render_s"], launches = seconds, {"K1": counts["K1"]}
+            desc = compile_scene(cli._get_scene(scene_arg, device))
 
-        def frame(w, h):
-            return generate_rays(look_at(camera, fov=np.pi / 4, device=device), (w, h), SCREEN)
+            def frame(w, h):
+                return generate_rays(look_at(camera, fov=np.pi / 4, device=device), (w, h),
+                                     SCREEN)
 
-        o, d, c = frame(*SCENE_FRAME)
-        kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True)
-        if bulb:
-            small = frame(*SCENE_PARITY_FRAME)
-            res["K1 parity frame"] = bulb_fractions(
-                rk.render_image_cuda(desc, *small, return_planes=True),
-                rk.render_image_planes_torch(desc, *small))
-        else:
-            plain = rk.render_image_planes_torch(desc, o, d, c)
-            check(all(same_nan(a, b) for a, b in zip(kernel, plain)),
-                  f"K1 and its twin differ on {name} at {SCENE_FRAME}")
-            res["K1 timed frame"] = "bit-equal"
-        _, depth, steps, outcome = kernel
-        evals, advances, hits = march_work(steps, outcome, depth)
-        loops = {}
-        if bulb:
-            loops = dict(zip(("march_loop", "stencil_loop"),
-                             profiling.mandelbulb_loops(desc, o, d, c, arguments)))
-            res["loops"] = {k: dataclasses.asdict(v) for k, v in loops.items()}
-        elif desc.kind == "wrapped":
-            arguments.update(profiling.wrap_arguments(desc, o, d, c))
-        ops = render_ops(desc, evals, advances, hits, c.numel(), **loops)
-        res["bound_ms"], res["bound_by"] = bound(render_bytes(c.numel()), ops)
-        desc_c, rgb = rk.scene_desc_c(desc, cfg), torch.empty((*c.shape, 3), device=device)
-        res["K1 ms"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
-                                                        cap=cfg.step_limit,
-                                                        cull=desc.bounds is not None))
-        res["hits"], res["evaluations"], res["ops"] = hits, evals, ops
-        k1 = registers[NEW_SCENE_K1[name]]
-        res["registers"] = {k: k1[k] for k in ("registers", "stack", "spill_stores")}
-        small = frame(*SCENE_PARITY_FRAME)
-        for tp in (True, "block"):
-            got = rk.render_image_cuda(desc, *small, return_planes=True, two_phase=tp)
-            twin = twin_pipeline(rk, desc, *small, two_phase=tp)
-            key = "row" if tp is True else "block"
+            o, d, c = frame(*SCENE_FRAME)
+            kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True)
             if bulb:
-                res[key] = bulb_fractions(got, twin)
+                small = frame(*SCENE_PARITY_FRAME)
+                res["K1 parity frame"] = bulb_fractions(
+                    rk.render_image_cuda(desc, *small, return_planes=True),
+                    rk.render_image_planes_torch(desc, *small))
             else:
-                check(all(same_nan(a, b) for a, b in zip(got, twin)),
-                      f"the {key} pipeline and its twin differ on {name}")
-                res[key] = "bit-equal"
-        with tempfile.TemporaryDirectory() as tmp:
+                plain = rk.render_image_planes_torch(desc, o, d, c)
+                check(all(same_nan(a, b) for a, b in zip(kernel, plain)),
+                      f"K1 and its twin differ on {name} at {SCENE_FRAME}")
+                res["K1 timed frame"] = "bit-equal"
+                k1_err = (kernel[0] - plain[0]).abs().max().item()
+            _, depth, steps, outcome = kernel
+            evals, advances, hits = march_work(steps, outcome, depth)
+            loops = {}
+            if bulb:
+                loops = dict(zip(("march_loop", "stencil_loop"),
+                                 profiling.mandelbulb_loops(desc, o, d, c, arguments)))
+                res["loops"] = {k: dataclasses.asdict(v) for k, v in loops.items()}
+            elif desc.kind == "wrapped":
+                arguments.update(profiling.wrap_arguments(desc, o, d, c))
+            ops = render_ops(desc, evals, advances, hits, c.numel(), **loops)
+            res["bound_ms"], res["bound_by"] = bound(render_bytes(c.numel()), ops)
+            cull = desc.bounds is not None
+            desc_c = rk.scene_desc_c(desc, cfg, device)
+            rgb = torch.empty((*c.shape, 3), device=device)
+            res["K1 ms"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
+                                                            cap=cfg.step_limit, cull=cull))
+            res["hits"], res["evaluations"], res["ops"] = hits, evals, ops
+            k1 = registers[NEW_SCENE_K1[name] if name in NEW_SCENE_K1
+                           else f"render_kernel<Composed, {str(cull).lower()}, false, 0>"]
+            res["registers"] = {k: k1[k] for k in ("registers", "stack", "spill_stores")}
+            small = frame(*SCENE_PARITY_FRAME)
+            for tp in (True, "block"):
+                got = rk.render_image_cuda(desc, *small, return_planes=True, two_phase=tp)
+                twin = twin_pipeline(rk, desc, *small, two_phase=tp)
+                key = "row" if tp is True else "block"
+                if bulb:
+                    res[key] = bulb_fractions(got, twin)
+                else:
+                    check(all(same_nan(a, b) for a, b in zip(got, twin)),
+                          f"the {key} pipeline and its twin differ on {name}")
+                    res[key] = "bit-equal"
             for kname, extra in (("K6", []), ("K7", ["--interpolate-edges"])):
-                obj = Path(tmp) / f"{kname}.obj"
-                counts, _, seconds = run_cli(["mesh", "--scene", name, "-o", str(obj), *extra])
+                obj = tmp / f"{kname}.obj"
+                counts, _, seconds = run_cli(["mesh", "--scene", scene_arg, "-o", str(obj),
+                                              *extra])
                 check(counts[kname] >= 1, f"cli mesh --scene {name} {extra} launched no {kname}")
                 v, _, f, finite = read_obj_counts(obj)
                 res[f"cli mesh {kname}"] = {"triangles": f, "vertices": v, "finite": finite,
                                             "seconds": seconds, "launches": counts[kname]}
-        field = create_voxel_field(mesh_cfg, device)
-        for _ in range(3):
-            field = refine_field(desc, field)
-        args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, mesh_cfg)
-        k6 = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
-        t6 = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
-        args7, _, kwargs7 = k7_inputs(desc, field, mesh_cfg)
-        k7 = mesh_kernel.project_edges_cuda(desc, *args7, **kwargs7)
-        t7 = mesh_kernel.project_edges_torch(sdf_fns(desc), *args7[:3], args7[3].bool(), **kwargs7)
-        torch.cuda.synchronize()
-        if bulb:
-            res["K6/K7 level 3"] = {"voxels": field.count,
-                                    **bulb_positions(k6, t6, k7, t7, args7[3].bool())}
-        else:
-            check(all(same_nan(a, b) for a, b in zip(k6, t6)), f"K6 and its twin differ on {name}")
-            check(all(same_nan(a, b) for a, b in zip(k7, t7)), f"K7 and its twin differ on {name}")
-            res["K6/K7 level 3"] = {"voxels": field.count, "nan_positions": int(k6[0].isnan().sum()),
-                                    "exact": True}
-        print(f"scene {name} on {card}: {json.dumps(res)}")
-        out[name] = res
-    return out, arguments
+                launches[kname] = counts[kname]
+            field = create_voxel_field(mesh_cfg, device)
+            for _ in range(3):
+                field = refine_field(desc, field)
+            args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, mesh_cfg)
+            k6 = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
+            t6 = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
+            args7, _, kwargs7 = k7_inputs(desc, field, mesh_cfg)
+            k7 = mesh_kernel.project_edges_cuda(desc, *args7, **kwargs7)
+            t7 = mesh_kernel.project_edges_torch(sdf_fns(desc), *args7[:3], args7[3].bool(),
+                                                 **kwargs7)
+            torch.cuda.synchronize()
+            if bulb:
+                res["K6/K7 level 3"] = {"voxels": field.count,
+                                        **bulb_positions(k6, t6, k7, t7, args7[3].bool())}
+            else:
+                check(all(same_nan(a, b) for a, b in zip(k6, t6)),
+                      f"K6 and its twin differ on {name}")
+                check(all(same_nan(a, b) for a, b in zip(k7, t7)),
+                      f"K7 and its twin differ on {name}")
+                res["K6/K7 level 3"] = {"voxels": field.count, "edges": args7[0].numel(),
+                                        "nan_positions": int(k6[0].isnan().sum()),
+                                        "K7 nan points": int(k7[0].isnan().sum()), "exact": True}
+            if composed:
+                res.update(composed_kernel_times(desc, o, d, c, args, kwargs, args7, kwargs7,
+                                                 field.count))
+                if name == "gadget":
+                    entries = composed_entries(res, launches, k1_err, (k6, t6), (k7, t7))
+            print(f"{'composed scene' if composed else 'scene'} {name} on {card}: "
+                  f"{json.dumps(res)}")
+            out[name] = res
+    return out, arguments, entries
+
+
+def composed_kernel_times(desc, o, d, c, args, kwargs, args7, kwargs7, voxels: int) -> dict:
+    """A composed scene's numbers beside :func:`scene_phases`' own: K1's
+    twin's time at SCENE_FRAME, the program's FP32 operations per
+    evaluation (forward, backward), and K6 and K7 alone on the level-3
+    field (:func:`k6_alone_ms`, :func:`k7_alone_ms`) beside their twins,
+    with their bounds from this field's Newton steps."""
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import sdf_fns
+    from bsdmg_tpu_torch.utils import profiling
+
+    fns = sdf_fns(desc)
+    res = {"instructions": len(desc.program), "program ops": profiling.program_ops(desc),
+           "stencil ops": profiling.fd4_ops(desc),
+           "plain ms": median_ms(lambda: rk.render_image_planes_torch(desc, o, d, c),
+                                 runs=1, warmup=0)}
+    probe = newton_step_stats(desc, fns, args, kwargs)
+    k6_ops = mesh_ops(desc, kwargs["use_grad"], probe["newton_steps"], probe["edges"],
+                      probe["edges"], probe["valid_triangles"])
+    res["K6 ms"] = k6_alone_ms(desc, args, kwargs)
+    res["K6 plain ms"] = median_ms(lambda: mc_kernel.mc_fused_torch(fns, *args, **kwargs),
+                                   runs=1, warmup=0)
+    res["K6 bound"] = bound(voxels * (24 + 404), k6_ops)
+    m = args7[0].numel()
+    k7_ops = mesh_ops(desc, kwargs7["use_grad"],
+                      projection_step_stats(fns, args7, kwargs7)["newton_steps"], m)
+    res["K7 ms"] = k7_alone_ms(desc, args7, kwargs7)
+    res["K7 plain ms"] = median_ms(
+        lambda: mesh_kernel.project_edges_torch(fns, *args7[:3], args7[3].bool(), **kwargs7),
+        runs=1, warmup=0)
+    res["K7 bound"] = bound(m * (16 + 24), k7_ops)
+    return res
+
+
+def composed_entries(res: dict, launches: dict, k1_err: float, k6, k7) -> list[dict]:
+    """The kernels line's entries of the Composed instantiations of K1, K6
+    and K7, from one composed scene's results (``k6`` and ``k7``: the
+    kernel's planes and the twin's)."""
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "K1 render_kernel<Composed> (gadget, 1920x1080)", "source": rk.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336", "launches": launches["K1"],
+         "max_abs_err": k1_err, "ms": res["K1 ms"], "plain_ms": res["plain ms"],
+         "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], **common},
+        {"name": "K6 mc_kernel<Composed> (gadget, level 3)", "source": mc_kernel.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/mc_fused.py:77", "launches": launches["K6"],
+         "max_abs_err": _max_err(k6[0][0].nan_to_num(0.0), k6[1][0].nan_to_num(0.0)),
+         "ms": res["K6 ms"], "plain_ms": res["K6 plain ms"], "bound_ms": res["K6 bound"][0],
+         "bound_by": res["K6 bound"][1], **common},
+        {"name": "K7 project_kernel<Composed> (gadget, level 3)", "source": mesh_kernel.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/mesh_kernel.py:66", "launches": launches["K7"],
+         "max_abs_err": _max_err(k7[0][0].nan_to_num(0.0), k7[1][0].nan_to_num(0.0)),
+         "ms": res["K7 ms"], "plain_ms": res["K7 plain ms"], "bound_ms": res["K7 bound"][0],
+         "bound_by": res["K7 bound"][1], **common},
+    ]
+
+
+def composed_phases(card: str, device) -> None:
+    """9c. The composed scenes' paths that :func:`scene_phases` does not
+    take: the interpreter's cost, K1 alone on the reference render scene
+    written as a spec beside the fixed ``Box<true, false>``; ``cli session
+    --scene examples/snowman.json --keys vbbbvv`` (K6 five times); ``cli
+    animate`` at ANIMATE_SIZE, ANIMATE_FRAMES frames, orbiting the gadget
+    and moving (``--rotate --motion spheric``) the gadget wrapped in a root
+    ``transform``: K1 once a frame."""
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.models import compose_scene, reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+
+    cfg = MarchConfig()
+    o, d, c = rays(*SCENE_FRAME, device)
+    rgb = torch.empty((*c.shape, 3), device=device)
+    cost = {}
+    for label, scene in (("spec", compose_scene(REFERENCE_SPEC, device=device)),
+                         ("Box<true, false>", reference_render_scene(device=device))):
+        desc = compile_scene(scene)
+        desc_c = rk.scene_desc_c(desc, cfg, device)
+        planes = rk.render_image_cuda(desc, o, d, c, return_planes=True)
+        cost[label] = {"K1 ms": graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
+                                                                 cap=cfg.step_limit)),
+                       "evaluations": march_work(planes[2], planes[3], planes[1])[0]}
+    print(f"interpreter cost on {card}: the reference render scene at {SCENE_FRAME}, "
+          f"K1 alone: {json.dumps(cost)}")
+
+    examples = {name: ROOT / "examples" / f"{name}.json" for name in ("gadget", "snowman")}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        session = tmp / "session.obj"
+        counts, messages, seconds = run_cli(["session", "--scene", str(examples["snowman"]),
+                                             "--keys", SESSION_KEYS, "-o", str(session)])
+        v, _, f, finite = read_obj_counts(session)
+        print(f"composed session on {card}: cli session --scene snowman --keys {SESSION_KEYS} in "
+              f"{seconds:.2f} s, launches {counts}, {f} triangles, {v} vertices")
+        check(counts["K6"] == SESSION_EXTRACTIONS, f"cli session launched K6 {counts['K6']} times")
+        check(f > 0 and finite, f"composed session OBJ: {f} triangles, finite {finite}")
+
+        moving = tmp / "gadget_moving.json"
+        gadget = json.loads(examples["gadget"].read_text())
+        moving.write_text(json.dumps({"name": "gadget_moving",
+                                      "root": {"op": "transform", "child": gadget["root"]}}))
+        for label, scene, extra in (("orbit", examples["gadget"], []),
+                                    ("motion", moving, ["--rotate", "--motion", "spheric"])):
+            prefix = tmp / label
+            counts, messages, seconds = run_cli(
+                ["animate", "--scene", str(scene), "--width", str(ANIMATE_SIZE[0]), "--height",
+                 str(ANIMATE_SIZE[1]), "--frames", str(ANIMATE_FRAMES), "-o", str(prefix), *extra])
+            frames = sorted(tmp.glob(f"{label}_*.png"))
+            print(f"composed animate {label} on {card}: {len(frames)} frames in {seconds:.2f} s, "
+                  f"launches {counts}")
+            check(counts["K1"] == ANIMATE_FRAMES and len(frames) == ANIMATE_FRAMES,
+                  f"cli animate {label} launched K1 {counts['K1']} times, {len(frames)} frames")
+            check(not any("motion ignored" in m for m in messages), f"animate {label}: {messages}")
 
 
 def main(argv: list[str]) -> int:
@@ -2898,6 +3129,7 @@ def main(argv: list[str]) -> int:
         march_params_probe(card, device)
         return 0
 
+    reference_resources(card)
     march_probe(card, device)
     stencil_probe(card)
     march_params_probe(card, device)
@@ -2908,7 +3140,9 @@ def main(argv: list[str]) -> int:
     launches = mesh_path_phases()
     kernels += mesh_kernel_phases(card, device, launches)
     session_phase(card)
-    _, arguments = scene_phases(card, device)
+    _, arguments, composed = scene_phases(card, device)
+    kernels += composed
+    composed_phases(card, device)
     libm_probe(card, arguments)
     fit = fit_path_phases(card, device)
     kernels += diff_kernel_phases(card, device, fit, alone)

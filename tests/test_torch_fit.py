@@ -105,7 +105,7 @@ def test_cli_fit_perturb_and_scene_errors():
         cli.main(["fit", "--device", "cpu", "--perturb", "nope=2"])
     with pytest.raises(SystemExit, match="unchanged"):
         cli.main(["fit", "--device", "cpu", "--perturb", "skeleton_center=2"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # a missing spec, as in the JAX CLI
         cli.main(["fit", "--device", "cpu", "--scene", "x.json", "--perturb", "r=2"])
     assert cli._parse_perturb("a=2, b=+0.5,c=*3") == {"a": ("mul", 2.0), "b": ("add", 0.5), "c": ("mul", 3.0)}
 

@@ -66,6 +66,25 @@ def test_import_scan_covers_the_bench_slice():
     } <= scanned
 
 
+def test_import_scan_covers_the_composed_slice():
+    """The composed scenes' modules, the node program's compiler and the
+    animate verb's motion are in the scan."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {
+        "bsdmg_tpu_torch/models/compose.py",
+        "bsdmg_tpu_torch/models/motion.py",
+        "bsdmg_tpu_torch/ops/cuda/csdf.py",
+        "bsdmg_tpu_torch/mesh/export.py",
+    } <= scanned
+
+
+@pytest.mark.parametrize("verb", ["render", "mesh", "session", "fit", "animate", "bench"])
+def test_cli_verbs_default_to_the_card(verb):
+    from bsdmg_tpu_torch import cli
+
+    assert cli.build_parser().parse_args([verb]).device == "cuda"
+
+
 @pytest.mark.parametrize("name", ["MarchConfig", "MeshGenConfig", "RenderConfig"])
 def test_config_defaults_equal(name):
     ours, ref = getattr(torch_config, name), getattr(jax_config, name)
@@ -220,5 +239,10 @@ def test_entry_points_default_to_the_card():
                      "models.scenes.reference_object", "models.scenes.reference_render_scene",
                      "models.scenes.get_scene", "models.scenes.sphere_scene",
                      "models.scenes.box_scene", "models.scenes.mandelbulb_scene",
-                     "models.scenes.wrapped_object_scene", "mesh.session.MeshGenSession"):
+                     "models.scenes.wrapped_object_scene", "mesh.session.MeshGenSession",
+                     "models.compose.compose_scene", "models.compose.load_scene_spec",
+                     "models.motion.quat_from_axis_angle", "models.motion.motion_params",
+                     "models.motion.RotateAxisMotion.rotation_at",
+                     "models.motion.AxisCyclicMotion.translation_at",
+                     "models.motion.SphericCyclicMotion.translation_at"):
         assert f"bsdmg_tpu_torch.{required}" in checked, required

@@ -13,6 +13,7 @@
 * checkpoints and mesh files pass between the packages.
 """
 
+import json
 import logging
 
 import jax.numpy as jnp
@@ -243,11 +244,19 @@ def test_cli_mesh_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "argv", [["--sharded"], ["--scene", "mesh:assets/torus.obj"], ["--scene", "examples/snowman.json"]],
+    "argv, match", [(["--sharded"], "sharded"), (["--scene", "mesh:assets/torus.obj"], "mesh-asset"),
+                    (["--scene", "DEEP.json"], "at most 64 instructions")],
     ids=["sharded", "unported scene", "composed scene"],
 )
-def test_cli_mesh_unported_options_raise(tmp_path, argv):
-    with pytest.raises(NotImplementedError):
+def test_cli_mesh_unported_options_raise(tmp_path, argv, match):
+    # a composed scene meshes (tests/test_torch_compose.py) unless its node
+    # program is longer than the kernels take: 40 spheres in a union are 79
+    # instructions, and the cap is 64
+    deep = {"root": {"op": "union",
+                     "children": [{"prim": "sphere", "radius": 0.1 + i} for i in range(40)]}}
+    (tmp_path / "DEEP.json").write_text(json.dumps(deep))
+    argv = [str(tmp_path / a) if a == "DEEP.json" else a for a in argv]
+    with pytest.raises(NotImplementedError, match=match):
         cli.main(["mesh", "--device", "cpu", "--init-factor", "8", "-o", str(tmp_path / "m.obj"), *argv])
 
 

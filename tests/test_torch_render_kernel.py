@@ -166,7 +166,7 @@ def _c_struct_fields(source: str, name: str):
     body = re.search(r"struct %s \{(.*?)\n\};" % name, source, re.S).group(1)
     fields = []
     for line in body.splitlines():
-        m = re.match(r"\s*(\w+)\s+(\w+)(?:\[(\w+)\])?;", line)
+        m = re.match(r"\s*(?:const\s+)?(\w+\*?)\s+(\w+)(?:\[(\w+)\])?;", line)
         if m:
             fields.append(m.groups())
     return fields
@@ -193,6 +193,7 @@ def test_descriptor_layout_matches_cuda_source(c_name, py_struct):
         "float": ctypes.c_float,
         "CapsuleGroup": render_kernel._CapsuleGroupC,
         "CapsuleSet": render_kernel._CapsuleSetC,
+        "int*": ctypes.c_void_p,  # a composed scene's node program in device memory
     }
     c_fields = _c_struct_fields(source, c_name)
     assert [f[1] for f in c_fields] == [f[0] for f in py_struct._fields_]

@@ -89,15 +89,20 @@ def test_cli_without_cuda_raises(tmp_path):
 @pytest.mark.parametrize("scene", ["mandelbulb", "examples/snowman.json", "mesh:bunny.obj"])
 def test_cli_unported_scene_raises(scene, tmp_path):
     # mesh assets render (tests/test_torch_grid_kernel.py); meshing one does
-    # not. The mandelbulb renders and meshes (tests/test_torch_scenes.py);
-    # its fit does not: K4's and K5's parameter form covers the reference
-    # scenes only
-    if scene == "mandelbulb":
-        argv = ["fit"]
+    # not. The mandelbulb and composed scenes render, mesh and fit depth
+    # (tests/test_torch_scenes.py, test_torch_compose.py); their image fit
+    # does not: K4's and K5's parameter form covers the reference scenes
+    # only. The depth fit of the mandelbulb without --perturb exits asking
+    # for one, as the JAX CLI's does
+    if scene.startswith("mesh:"):
+        argv = ["mesh", "-o", str(tmp_path / "x.obj")]
     else:
-        argv = ["mesh" if scene.startswith("mesh:") else "render", "-o", str(tmp_path / "x.png")]
+        argv = ["fit", "--image"]
     with pytest.raises(NotImplementedError):
         cli.main([*argv, "--device", "cpu", "--scene", scene])
+    if scene == "mandelbulb":
+        with pytest.raises(SystemExit, match="pass --perturb"):
+            cli.main(["fit", "--device", "cpu", "--scene", scene])
 
 
 def test_params_from_numpy():
