@@ -27,7 +27,7 @@ reference's refine/advance stage machine from a key script, each
 extraction through K6; ``fit`` perturbs scene parameters and recovers
 them by inverse rendering, from a depth map (plain PyTorch and autograd) or,
 with ``--image``, from an image through kernels K4 (the target's march) and
-K5 (each step's loss and gradient; the reference scenes only); ``animate``
+K5 (each step's loss and gradient), for every scene but the box; ``animate``
 renders a camera orbit, or the object's motion, one K1 launch a frame;
 ``bench`` prints the JAX CLI's
 operating-point numbers as JSON (the render of ``--scene`` through K1, or with
@@ -113,12 +113,6 @@ def _parse_mesh_spec(rest: str, default_resolution: int = 128):
         except ValueError:
             pass
     return rest, resolution
-
-
-#: the built-in scenes whose parameter form kernels K4 and K5 do not take
-#: (csrc/param_sdf.cuh covers the reference scenes only); nor do they take
-#: a composed scene
-NO_FIT = ("sphere", "box", "mandelbulb", "wrapped_object")
 
 
 def _get_scene(name: str, device: torch.device):
@@ -408,12 +402,6 @@ def cmd_fit(args) -> None:
     device = _device(args.device)
     default_scene = args.scene == "reference_render_scene"
     scene = reference_object(device=device) if default_scene else _get_scene(args.scene, device)
-    if args.image and (args.scene in NO_FIT or scene.spec is not None):
-        raise NotImplementedError(
-            f"fit --image --scene {args.scene}: the parameter form of kernels K4 and K5 "
-            "(csrc/param_sdf.cuh) covers only the reference scenes; image fits of the other "
-            "built-in scenes and of composed scenes are not ported yet"
-        )
     cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
     origins, dirs, cone = generate_rays(
         cam, (args.width, args.height), (args.screen_width, args.screen_height)
@@ -482,15 +470,20 @@ def fit_image(scene, true_params: dict, params: dict, origins, dirs, cone, *, st
     0.1``, as the JAX CLI's ``optax.adam``) from ``params`` on the L2 image
     loss plus the silhouette term (``edge_weight=1``). The target's march is
     kernel K4 and each step's loss and gradient kernel K5 on the card
-    (their plain twins on CPU tensors). Logs every tenth step and
-    the recovered ``watched`` params; returns ``(params, losses)``."""
+    (their plain twins on CPU tensors). A scene without bounds (the wrapped
+    object, a spec that reaches a plane or a wrap) is marched without the
+    slab cull. Logs every tenth step and the recovered ``watched`` params;
+    returns ``(params, losses)``."""
     if scene.csdf is None:
         raise SystemExit(
-            f"fit --image needs a component-form SDF; scene {scene.name!r} has none"
+            f"fit --image needs a param-traced component SDF; scene {scene.name!r} has none"
         )
     # the bounds over the whole optimisation: a conservative trust region
-    lo, hi, slack = scene_bounds(scene)
-    bb = (tuple(v - 0.6 for v in lo), tuple(v + 0.6 for v in hi), slack)
+    bounds = scene_bounds(scene)
+    bb = None
+    if bounds is not None:
+        lo, hi, slack = bounds
+        bb = (tuple(v - 0.6 for v in lo), tuple(v + 0.6 for v in hi), slack)
     target = render_image_diff(
         scene.sdf, true_params, origins, dirs, cone, csdf=scene.csdf, bb=bb
     ).detach()
@@ -649,8 +642,8 @@ def build_parser() -> argparse.ArgumentParser:
     ft.add_argument(
         "--scene", default="reference_render_scene",
         help="scene name or a .json CSG spec; the depth fit of the render scene fits its "
-        f"object, reference_object (with --image, {', '.join(NO_FIT)} and specs raise: not "
-        "ported)",
+        "object, reference_object; the image fit takes every scene with a component form "
+        "(the box has none)",
     )
     common_camera(ft, 64, 64)
     ft.add_argument("--steps", type=int, default=60)

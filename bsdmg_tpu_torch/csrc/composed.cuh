@@ -33,29 +33,9 @@
 
 #pragma once
 
-#define BSDMG_WORDS 16    // csdf.py PROGRAM_WORDS
-#define BSDMG_PROGRAM 64  // csdf.py PROGRAM_CAP
-#define BSDMG_STACK 16    // csdf.py STACK_CAP
-#define BSDMG_FRAMES 8    // csdf.py FRAME_CAP
+#include "program.cuh"
 
-// csdf.py OP_*
-enum Op {
-  OP_SPHERE,
-  OP_BOX,
-  OP_CAPSULE,
-  OP_SKELETON,
-  OP_TORUS,
-  OP_CYLINDER,
-  OP_PLANE,
-  OP_MIN,
-  OP_MAX,
-  OP_SUB,
-  OP_SMOOTH,
-  OP_SHELL,
-  OP_PUSH_TRANSFORM,
-  OP_PUSH_WRAP,
-  OP_POP
-};
+#define BSDMG_WORDS 16    // csdf.py PROGRAM_WORDS
 
 // constant i of the instruction at w
 __device__ __forceinline__ float prog_k(const int* w, int i) { return __int_as_float(__ldg(w + 2 + i)); }

@@ -9,7 +9,14 @@
 // (min_m = min over sampled points of f - cone*t, and its depth t_min), and
 // dfdt, the SDF's derivative along the ray at the end point.
 //
-// K5 (loss_march_kernel, loss_tangent_kernel, loss_grad_sum) replaces
+// Both are templates over the scene's parameter form (param_forms.cuh):
+// the reference scenes' (ReferenceForm, param_sdf.cuh), the sphere's, the
+// mandelbulb's, the wrapped object's and a composed scene's parameter
+// program (param_program.cuh); ParamScene::form picks it at launch
+// (with_form), as K1's scene structure is picked.
+//
+// K5 (loss_march_kernel, loss_tangent_kernel or loss_tangent_form_kernel,
+// loss_grad_sum) replaces
 // diff_kernel.py::_loss_grad_kernel (pallas_call :405): the whole image-fit
 // step. Per ray: K4's march, the IFT re-attachment t_diff = t0 -
 // residual/denom, the analytic normal at q = o + t_diff d, the shading and
@@ -18,8 +25,10 @@
 // kernel differentiates this with reverse mode inside the kernel; here the
 // parameters are forward-mode duals (dual.cuh): each parameter carries its
 // unit tangent, so the loss's tangents are dL/dtheta. The normal's tangents
-// follow from evaluating the hand-written spatial gradient (param_sdf.cuh)
-// in duals at a point q whose tangents are dq/dtheta.
+// follow from evaluating the spatial gradient in duals at a point q whose
+// tangents are dq/dtheta: the reference form's hand-written reverse pass
+// (param_sdf.cuh), the other forms' forward pass in duals of duals
+// (nested_dual.cuh).
 //
 // What bounds them on Hopper: instruction issue and the latency of each
 // step's dependent chain (3 IEEE square roots and, near the blend of the
@@ -49,13 +58,14 @@
 // that has no tangent (a miss without a hinge) to its block's sum, and
 // lists the others (the hits and the hinge rays) per block of 16x8
 // pixels, in thread order, with no atomics and no capacity. The second
-// spreads the listed rays' tangent work over lanes: a group of 3 lanes
-// takes a ray, each lane the value and 3 of the 9 shape parameters'
-// tangents (Dual<3>), 128 registers and 4 blocks an SM where one lane of 9
-// tangents took 255 registers and spilled; with the object transform,
-// translation and rotation launches take its 7 tangents, one a lane. Their
-// blocks walk chunks of the lists in a fixed order and write one row of
-// sums per chunk. The last launch (loss_grad_sum) adds the rows in a fixed
+// spreads the listed rays' tangent work over lanes. For the reference form
+// a group of 3 lanes takes a ray, each lane the value and 3 of the 9 shape
+// parameters' tangents (Dual<3>), 128 registers and 4 blocks an SM where
+// one lane of 9 tangents took 255 registers and spilled; with the object
+// transform, translation and rotation launches take its 7 tangents, one a
+// lane. For the other forms (loss_tangent_form_kernel) a ray takes one lane
+// per value of the flat parameter vector (64 at most). Their blocks walk chunks of the lists in a fixed order and
+// write one row of sums per chunk. The last launch (loss_grad_sum) adds the rows in a fixed
 // order. Two calls on the same inputs give the same bits. The near/far
 // tile split of the TPU kernels is not ported: in a far tile the JAX march
 // sees only the wireframe, which equals the full scene wherever such a ray
@@ -63,7 +73,8 @@
 //
 // Numerics: built with -fmad=false and without fast math, like K1. The
 // march evaluates the scene in the twin's operation order, so K4's depth,
-// steps, outcome, min_m and t_min equal the twin's bit for bit; dfdt comes
+// steps, outcome, min_m and t_min equal the twin's bit for bit (but the
+// mandelbulb's, whose libm calls may round otherwise); dfdt comes
 // from forward mode and the twin's from autograd, which sum in other
 // orders. Each tangent runs the operations the one-lane form ran on
 // it; only the order of the final sums differs. The twins are
@@ -72,17 +83,19 @@
 
 #include <type_traits>
 
+#include "param_forms.cuh"
 #include "param_sdf.cuh"
 
 // min_m of a ray that no sample reached (grad/edge.py::UNTRACKED)
 #define BSDMG_UNTRACKED 1e9f
 
 // the stopped march of one ray (render_kernel.py::_march, omega = 1, with
-// the closest-approach record when Track); the scene in its march form
-template <bool Track>
-__device__ __forceinline__ void march(const ParamScene& s, const MarchScene& ms, const float o[3],
-                                      const float d[3], float c, float& depth, int& steps,
-                                      int& outcome, float& min_m, float& t_min) {
+// the closest-approach record when Track); the scene in its form's march
+// form
+template <class Form, bool Track>
+__device__ __forceinline__ void march(const ParamScene& s, const typename Form::March& ms,
+                                      const float o[3], const float d[3], float c, float& depth,
+                                      int& steps, int& outcome, float& min_m, float& t_min) {
   const float eps = s.collision_distance;
   depth = 0.0f;
   steps = 0;
@@ -98,7 +111,7 @@ __device__ __forceinline__ void march(const ParamScene& s, const MarchScene& ms,
   for (;;) {
     const float cd = c * depth;
     const float x[3] = {o[0] + depth * d[0], o[1] + depth * d[1], o[2] + depth * d[2]};
-    const float dist = march_value(ms, x);
+    const float dist = Form::march_value(s, ms, x);
     if (Track) {
       const float m = dist - cd;
       if (m < min_m) {
@@ -135,6 +148,18 @@ __device__ __forceinline__ float ray_derivative(const ParamScene& s, const Objec
   return scene_value(s, p, x).t[0];
 }
 
+// dfdt of the form: the reference form's ray_derivative, the others'
+// form_ray_derivative (param_forms.cuh)
+template <class Form>
+__device__ __forceinline__ float form_dfdt(const ParamScene& s, const float o[3], const float d[3],
+                                           float t) {
+  if constexpr (std::is_same<Form, ReferenceForm>::value) {
+    return ray_derivative(s, load_params<float>(s), o, d, t);
+  } else {
+    return form_ray_derivative<Form>(s, o, d, t);
+  }
+}
+
 // the pixel of thread threadIdx.x: a block covers 16x8 pixels, each of its 4
 // warps an 8x4 patch
 __device__ __forceinline__ void pixel_of_thread(int& px, int& py) {
@@ -144,7 +169,7 @@ __device__ __forceinline__ void pixel_of_thread(int& px, int& py) {
   py = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
 }
 
-template <bool Track>
+template <class Form, bool Track>
 __global__ void __launch_bounds__(128)
 march_params_kernel(const ParamScene s, const float* __restrict__ origins,
                     const float* __restrict__ directions, const float* __restrict__ cone,
@@ -160,11 +185,11 @@ march_params_kernel(const ParamScene s, const float* __restrict__ origins,
   const float c = cone[i];
   float depth, min_m, t_min;
   int steps, outcome;
-  march<Track>(s, march_scene(s), o, d, c, depth, steps, outcome, min_m, t_min);
+  march<Form, Track>(s, Form::march_scene(s), o, d, c, depth, steps, outcome, min_m, t_min);
   depth_out[i] = depth;
   steps_out[i] = steps;
   outcome_out[i] = outcome;
-  dfdt_out[i] = ray_derivative(s, load_params<float>(s), o, d, depth);
+  dfdt_out[i] = form_dfdt<Form>(s, o, d, depth);
   if (Track) {
     min_m_out[i] = min_m;
     t_min_out[i] = t_min;
@@ -201,25 +226,61 @@ __device__ __forceinline__ float constant_loss(const ParamScene& s, float v, con
 }
 
 // the IFT denominator of a hit at depth t0: stop(df/dt - cone), kept off 0
+template <class Form>
 __device__ __forceinline__ float ift_denom(const ParamScene& s, const float o[3], const float d[3],
                                            float c, float t0) {
-  float denom = ray_derivative(s, load_params<float>(s), o, d, t0) - c;
+  float denom = form_dfdt<Form>(s, o, d, t0) - c;
   if (fabsf(denom) < 1e-6f) denom = -1e-6f;
   return denom;
 }
 
+// The scene as ray_loss evaluates it, at points in Dual<M>: its value and
+// its spatial gradient. The reference form's: S, Tr and Ro are the shape's,
+// the translation's and the rotation's parameter types, the lane carrying
+// block `block` of the tangents of the one that is a Dual<M>, as
+// load_params places them, the others as floats; the gradient reverse mode
+// (param_sdf.cuh scene_value_grad).
+template <class Opt, class S, class Tr, class Ro>
+struct ReferenceEval {
+  const ParamScene& s;
+  const ObjectParams<S, Tr, Ro> p;
+  __device__ __forceinline__ ReferenceEval(const ParamScene& s_, int block)
+      : s(s_), p(load_params<S, Tr, Ro, Opt>(s_, block)) {}
+  template <class D>
+  __device__ __forceinline__ D value(const D x[3]) const {
+    return scene_value<Opt>(s, p, x);
+  }
+  template <class D>
+  __device__ __forceinline__ void grad(const D x[3], D g[3]) const {
+    scene_value_grad<Opt>(s, p, x, g);
+  }
+};
+
+// the other forms': every parameter a Dual<M> seeded by its slot
+// (param_program.cuh Prm), the gradient forward over forward
+// (param_forms.cuh form_value_grad)
+template <class Form, int M>
+struct FormEval {
+  const ParamScene& s;
+  const Prm<Dual<M>> prm;
+  __device__ __forceinline__ FormEval(const ParamScene& s_, int block) : s(s_), prm{&s_, block} {}
+  __device__ __forceinline__ Dual<M> value(const Dual<M> x[3]) const {
+    return Form::value(s, prm, x);
+  }
+  __device__ __forceinline__ void grad(const Dual<M> x[3], Dual<M> g[3]) const {
+    form_value_grad<Form>(s, prm, x, g);
+  }
+};
+
 // The loss of listed ray e (pixel i) and its tangents for M parameters
 // (diff_kernel.py:294-338): the IFT re-attachment at a hit, the analytic
 // normal, the shading and ACES in duals, the squared error and the
-// silhouette hinge. S, Tr and Ro are the shape's, the translation's and
-// the rotation's parameter types: the lane carries block `block` of the
-// tangents of the one that is a Dual<M>, as load_params places them, the
-// others as floats. Each tangent runs the operations the one-lane
-// Dual<N> form ran on it. The ray
-// and target are read where they are used, which keeps them out of
+// silhouette hinge, the scene evaluated by ev (ReferenceEval, FormEval).
+// Each tangent runs the operations the one-lane Dual<N> form ran on it.
+// The ray and target are read where they are used, which keeps them out of
 // registers in between.
-template <int M, class S, class Tr, class Ro, class Opt>
-__device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, int block, const TangentRay& e,
+template <int M, class Eval>
+__device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, const Eval& ev, const TangentRay& e,
                                             const float* __restrict__ origins,
                                             const float* __restrict__ directions,
                                             const float* __restrict__ cone,
@@ -229,7 +290,6 @@ __device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, int block, cons
                                             float edge_weight, float edge_band) {
   typedef Dual<M> D;
   const long long i = e.pixel;
-  const ObjectParams<S, Tr, Ro> p = load_params<S, Tr, Ro, Opt>(s, block);
   const float t0 = e.t0;
   const bool collided = e.outcome == COLLISION;
   D rgb[3];
@@ -240,11 +300,11 @@ __device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, int block, cons
     // IFT re-attachment: t_diff = t0 - (f(x0) - cone t0 - eps) / stop(df/dt - cone)
     const D x0[3] = {Scalar<D>::constant(o[0] + t0 * d[0]), Scalar<D>::constant(o[1] + t0 * d[1]),
                      Scalar<D>::constant(o[2] + t0 * d[2])};
-    const D residual = (scene_value<Opt>(s, p, x0) - c * t0) - s.collision_distance;
+    const D residual = (ev.value(x0) - c * t0) - s.collision_distance;
     const D t_diff = t0 - residual / e.denom;
     const D q[3] = {o[0] + t_diff * d[0], o[1] + t_diff * d[1], o[2] + t_diff * d[2]};
     D g[3];
-    scene_value_grad<Opt>(s, p, q, g);
+    ev.grad(q, g);
     const D inv = 1.0f / vsqrt(vmax((g[0] * g[0] + g[1] * g[1]) + g[2] * g[2], 1e-24f));
     D r, gg, b;
     shade_collision(s, g[0] * inv, g[1] * inv, g[2] * inv, r, gg, b);
@@ -266,7 +326,7 @@ __device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, int block, cons
     const D xe[3] = {Scalar<D>::constant(origins[3 * i] + e.t_min * directions[3 * i]),
                      Scalar<D>::constant(origins[3 * i + 1] + e.t_min * directions[3 * i + 1]),
                      Scalar<D>::constant(origins[3 * i + 2] + e.t_min * directions[3 * i + 2])};
-    const D m = scene_value<Opt>(s, p, xe) - c * e.t_min;
+    const D m = ev.value(xe) - c * e.t_min;
     const D h = kind == 1 ? vmax(m, 0.0f) : vmax(edge_band - m, 0.0f);
     total = total + (h * edge_weight) * inv_pixels;
   }
@@ -280,6 +340,7 @@ __device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, int block, cons
 // in thread order, with the count in `counts[block]` and, for a hit, the
 // IFT denominator. No atomics, no host sync, no capacity: a block lists at
 // most its 128 rays.
+template <class Form>
 __global__ void __launch_bounds__(128)
 loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
                   const float* __restrict__ directions, const float* __restrict__ cone,
@@ -299,13 +360,15 @@ loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
     const bool edge = t_state != nullptr;
     int steps;
     if (edge) {
-      march<true>(s, march_scene(s), o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
+      march<Form, true>(s, Form::march_scene(s), o, d, cone[i], e.t0, steps, e.outcome, e.min_m,
+                        e.t_min);
     } else {
-      march<false>(s, march_scene(s), o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
+      march<Form, false>(s, Form::march_scene(s), o, d, cone[i], e.t0, steps, e.outcome, e.min_m,
+                         e.t_min);
     }
     e.pixel = static_cast<int>(i);
     const bool collided = e.outcome == COLLISION;
-    if (collided) e.denom = ift_denom(s, o, d, cone[i], e.t0);
+    if (collided) e.denom = ift_denom<Form>(s, o, d, cone[i], e.t0);
     listed = collided || (edge && hinge_kind(t_state[i], false, e.min_m) != 0);
     if (!listed) {
       value = constant_loss(s, e.outcome == STEP_LIMIT ? 1.0f : 0.0f, target + 3 * i,
@@ -424,16 +487,16 @@ loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
       typedef Dual<M> D;
       const D loss =
           Lanes == SHAPE_LANES
-              ? ray_loss<M, D, float, float, Opt>(s, j, e, origins, directions, cone, target,
-                                                  t_state, inv_denom_elems, inv_pixels,
-                                                  edge_weight, edge_band)
+              ? ray_loss<M>(s, ReferenceEval<Opt, D, float, float>(s, j), e, origins, directions,
+                            cone, target, t_state, inv_denom_elems, inv_pixels, edge_weight,
+                            edge_band)
           : Lanes == TRANSLATION_LANES
-              ? ray_loss<M, float, D, float, Opt>(s, j, e, origins, directions, cone, target,
-                                                  t_state, inv_denom_elems, inv_pixels,
-                                                  edge_weight, edge_band)
-              : ray_loss<M, float, float, D, Opt>(s, T::first + j, e, origins, directions, cone,
-                                                  target, t_state, inv_denom_elems, inv_pixels,
-                                                  edge_weight, edge_band);
+              ? ray_loss<M>(s, ReferenceEval<Opt, float, D, float>(s, j), e, origins, directions,
+                            cone, target, t_state, inv_denom_elems, inv_pixels, edge_weight,
+                            edge_band)
+              : ray_loss<M>(s, ReferenceEval<Opt, float, float, D>(s, T::first + j), e, origins,
+                            directions, cone, target, t_state, inv_denom_elems, inv_pixels,
+                            edge_weight, edge_band);
       acc[0] = loss.v;
 #pragma unroll
       for (int m = 0; m < M; ++m) acc[m + 1] = loss.t[m];
@@ -448,6 +511,62 @@ loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
         for (int g = 0; g < T::groups; ++g) total += sums[g * L + from][component];
       }
       partials[(row0 + w) * stride + threadIdx.x] = total;
+    }
+  }
+}
+
+// K5's tangent launch for the forms other than the reference (FormEval): a
+// ray's lanes are a group of `lanes` threads, lane j carrying the tangents
+// of the parameters at slots j * L .. j * L + L - 1 (Dual<L>, each
+// parameter seeded by its slot), so a ray takes ceil(n_prm / L) lanes and a
+// chunk `groups` = 128 / lanes rays. L is 1: a nested value
+// (DualOf<3, Dual<1>>) is then 8 floats. The items, rows and fixed orders
+// are loss_tangent_kernel's; an item's row holds its loss (lane 0's, the
+// first chunk adding the first launch's sum) and dL/dprm at every slot.
+#define BSDMG_FORM_TANGENTS 1
+
+template <class Form>
+__global__ void __launch_bounds__(128)
+loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
+                         const float* __restrict__ directions, const float* __restrict__ cone,
+                         const float* __restrict__ target, const float* __restrict__ t_state,
+                         const TangentRay* __restrict__ rays, const int* __restrict__ counts,
+                         const float* __restrict__ values, float* __restrict__ partials,
+                         int stride, long long blocks, int lanes, int groups, int chunks,
+                         float inv_denom_elems, float inv_pixels, float edge_weight,
+                         float edge_band) {
+  constexpr int L = BSDMG_FORM_TANGENTS;
+  const int group = threadIdx.x / lanes, j = threadIdx.x % lanes;
+  __shared__ float sums[128][L + 1];
+  const long long items = blocks * chunks;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    const long long block = w / chunks;
+    const int first = static_cast<int>(w % chunks) * groups;
+    const int n = counts[block];
+    float acc[L + 1];
+#pragma unroll
+    for (int m = 0; m <= L; ++m) acc[m] = 0.0f;
+    if (group < groups && first + group < n) {
+      const Dual<L> loss =
+          ray_loss<L>(s, FormEval<Form, L>(s, j), rays[block * 128 + first + group], origins,
+                      directions, cone, target, t_state, inv_denom_elems, inv_pixels,
+                      edge_weight, edge_band);
+      acc[0] = loss.v;
+#pragma unroll
+      for (int m = 0; m < L; ++m) acc[m + 1] = loss.t[m];
+    }
+    __syncthreads();  // the previous item's sums are read
+#pragma unroll
+    for (int m = 0; m <= L; ++m) sums[threadIdx.x][m] = acc[m];
+    __syncthreads();
+    for (int k = threadIdx.x; k < stride; k += blockDim.x) {
+      float total = k == 0 && first == 0 ? values[block] : 0.0f;
+      if (first < n) {
+        // output k: the loss (lane 0's value), then slot k - 1's tangent
+        const int lane = k == 0 ? 0 : (k - 1) / L, component = k == 0 ? 0 : (k - 1) % L + 1;
+        for (int g = 0; g < groups; ++g) total += sums[g * lanes + lane][component];
+      }
+      partials[w * stride + k] = total;
     }
   }
 }
@@ -469,11 +588,35 @@ loss_grad_sum(const float* __restrict__ partials, int n_rows, int stride, float*
   if (threadIdx.x == 0) out[k] = sums[0];
 }
 
-// the width of K5's partial sums for n_prm parameters: 9 for the shape
-// parameters alone, 16 with the object transform
+// the width of K5's partial sums for n_prm parameters of the reference
+// form: 9 for the shape parameters alone, 16 with the object transform
 static int tangents(int n_prm) {
-  return n_prm <= BSDMG_SHAPE_PARAMS ? BSDMG_SHAPE_PARAMS : BSDMG_MAX_PARAMS;
+  return n_prm <= BSDMG_SHAPE_PARAMS ? BSDMG_SHAPE_PARAMS : BSDMG_REFERENCE_PARAMS;
 }
+
+// f(Form{}) for the form ParamScene::form names; false for none
+template <class F>
+static bool with_form(int form, F&& f) {
+  switch (form) {
+    case FORM_REFERENCE: f(ReferenceForm{}); return true;
+    case FORM_SPHERE: f(SphereForm{}); return true;
+    case FORM_MANDELBULB: f(MandelbulbForm{}); return true;
+    case FORM_WRAPPED: f(WrappedForm{}); return true;
+    case FORM_PROGRAM: f(ProgramForm{}); return true;
+    default: return false;
+  }
+}
+
+// loss_tangent_form_kernel's shape for n_prm parameters: lanes a ray,
+// rays a chunk, chunks a block's list
+struct FormLanes {
+  int lanes, groups, chunks;
+  explicit FormLanes(int n_prm) {
+    lanes = (n_prm + BSDMG_FORM_TANGENTS - 1) / BSDMG_FORM_TANGENTS;
+    groups = 128 / lanes;
+    chunks = (128 + groups - 1) / groups;
+  }
+};
 
 // f(Parts<frame, transform>{}) with both flags as template arguments
 template <class F>
@@ -499,6 +642,19 @@ static long long loss_grad_rows(long long blocks, bool transform) {
                               : 0));
 }
 
+// K5's partial sums for a scene: rows and their width (the loss and the
+// gradient)
+static void loss_grad_partials(const ParamScene& s, long long blocks, long long& rows,
+                               int& stride) {
+  if (s.form == FORM_REFERENCE) {
+    rows = loss_grad_rows(blocks, s.n_prm > BSDMG_SHAPE_PARAMS);
+    stride = tangents(s.n_prm) + 1;
+    return;
+  }
+  rows = blocks * FormLanes(s.n_prm).chunks;
+  stride = s.n_prm + 1;
+}
+
 // blocks of a tangent launch over `items` chunks: 8 an SM at most (each
 // block walks its share of the items)
 static int tangent_grid(long long items) {
@@ -518,35 +674,45 @@ extern "C" {
 // Launches K4 on `stream` over an h x w image: origins and directions
 // (h, w, 3), cone (h, w); depth, dfdt (float) and steps, outcome (int) are
 // (h, w) planes, and min_m, t_min too when min_m is not null (track_min).
-// Returns the cudaError_t of the launch.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a form
+// that names none).
 int bsdmg_march_params(const ParamScene* scene, const float* origins, const float* directions,
                        const float* cone, float* depth, int* steps, int* outcome, float* dfdt,
                        float* min_m, float* t_min, int h, int w, void* stream) {
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (min_m != nullptr) {
-    march_params_kernel<true><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
-                                                     steps, outcome, dfdt, min_m, t_min, h, w);
-  } else {
-    march_params_kernel<false><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
-                                                      steps, outcome, dfdt, min_m, t_min, h, w);
-  }
+  const bool known = with_form(scene->form, [&](auto form) {
+    typedef decltype(form) F;
+    if (min_m != nullptr) {
+      march_params_kernel<F, true><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
+                                                         steps, outcome, dfdt, min_m, t_min, h, w);
+    } else {
+      march_params_kernel<F, false><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
+                                                          steps, outcome, dfdt, min_m, t_min, h, w);
+    }
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// floats of scratch that bsdmg_loss_grad needs for an h x w image
-long long bsdmg_loss_grad_scratch(int h, int w, int n_prm) {
+// floats of scratch that bsdmg_loss_grad needs for scene over an h x w
+// image
+long long bsdmg_loss_grad_scratch(const ParamScene* scene, int h, int w) {
   const long long blocks = loss_grad_blocks(h, w);
-  return loss_grad_rows(blocks, n_prm > BSDMG_SHAPE_PARAMS) * (tangents(n_prm) + 1) +
-         blocks * (128 * (sizeof(TangentRay) / sizeof(float)) + 2);
+  long long rows;
+  int stride;
+  loss_grad_partials(*scene, blocks, rows, stride);
+  return rows * stride + blocks * (128 * (sizeof(TangentRay) / sizeof(float)) + 2);
 }
 
 // Launches K5 on `stream`: target (h, w, 3); t_state (h, w), or null for
 // no edge term; scratch, bsdmg_loss_grad_scratch floats; out, n_prm + 1
-// floats: the loss, then dL/dprm. Three launches: the march and the lists
-// (loss_march_kernel), the tangents (loss_tangent_kernel), the sum over
-// the blocks (loss_grad_sum). Returns the cudaError_t of the first launch
-// that failed, else 0.
+// floats: the loss, then dL/dprm. Three to five launches: the march and
+// the lists (loss_march_kernel), the tangents (loss_tangent_kernel's shape,
+// translation and rotation launches for the reference form,
+// loss_tangent_form_kernel for the others), the sum over the blocks
+// (loss_grad_sum). Returns the cudaError_t of the first launch that
+// failed, else 0 (cudaErrorInvalidValue for a form that names none).
 int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* directions,
                     const float* cone, const float* target, const float* t_state,
                     float* scratch, float* out, int h, int w, float inv_denom_elems,
@@ -554,43 +720,59 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
   const long long blocks = loss_grad_blocks(h, w);
-  const int n = tangents(scene->n_prm);
+  long long rows;
+  int stride;
+  loss_grad_partials(*scene, blocks, rows, stride);
   float* partials = scratch;
-  const bool transform = scene->n_prm > BSDMG_SHAPE_PARAMS;
-  TangentRay* rays =
-      reinterpret_cast<TangentRay*>(partials + loss_grad_rows(blocks, transform) * (n + 1));
+  TangentRay* rays = reinterpret_cast<TangentRay*>(partials + rows * stride);
   int* counts = reinterpret_cast<int*>(rays + blocks * 128);
   float* values = reinterpret_cast<float*>(counts + blocks);
-  loss_march_kernel<<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target, t_state,
-                                           rays, counts, values, h, w, inv_denom_elems);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  // the wireframe at compile time; each launch's rows follow the last's
-  const long long shape_rows = blocks * TangentLanes<SHAPE_LANES>::chunks;
-  const long long translation_rows =
-      scene->object_center >= 0 ? blocks * TangentLanes<TRANSLATION_LANES>::chunks : 0;
-  const long long rotation_rows =
-      scene->object_rotation >= 0 ? blocks * TangentLanes<ROTATION_LANES>::chunks : 0;
-  const long long rows = shape_rows + translation_rows + rotation_rows;
-  const auto launch = [&](auto opt, auto lanes, long long row0, long long items) {
-    loss_tangent_kernel<decltype(opt), decltype(lanes)::value>
-        <<<tangent_grid(items), 128, 0, st>>>(*scene, origins, directions, cone, target, t_state,
-                                              rays, counts, values, partials, n + 1, row0, blocks,
-                                              inv_denom_elems, inv_pixels, edge_weight, edge_band);
-  };
-  with_parts(scene->has_frame != 0, transform, [&](auto opt) {
-    launch(opt, std::integral_constant<int, SHAPE_LANES>{}, 0, shape_rows);
-    if (translation_rows > 0) {
-      launch(opt, std::integral_constant<int, TRANSLATION_LANES>{}, shape_rows, translation_rows);
+  int err = 0;
+  const bool known = with_form(scene->form, [&](auto form) {
+    typedef decltype(form) F;
+    loss_march_kernel<F><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target, t_state,
+                                                rays, counts, values, h, w, inv_denom_elems);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return;
+    if constexpr (std::is_same<F, ReferenceForm>::value) {
+      // the wireframe at compile time; each launch's rows follow the last's
+      const bool transform = scene->n_prm > BSDMG_SHAPE_PARAMS;
+      const long long shape_rows = blocks * TangentLanes<SHAPE_LANES>::chunks;
+      const long long translation_rows =
+          scene->object_center >= 0 ? blocks * TangentLanes<TRANSLATION_LANES>::chunks : 0;
+      const long long rotation_rows =
+          scene->object_rotation >= 0 ? blocks * TangentLanes<ROTATION_LANES>::chunks : 0;
+      rows = shape_rows + translation_rows + rotation_rows;
+      const auto launch = [&](auto opt, auto lanes, long long row0, long long items) {
+        loss_tangent_kernel<decltype(opt), decltype(lanes)::value>
+            <<<tangent_grid(items), 128, 0, st>>>(*scene, origins, directions, cone, target,
+                                                  t_state, rays, counts, values, partials, stride,
+                                                  row0, blocks, inv_denom_elems, inv_pixels,
+                                                  edge_weight, edge_band);
+      };
+      with_parts(scene->has_frame != 0, transform, [&](auto opt) {
+        launch(opt, std::integral_constant<int, SHAPE_LANES>{}, 0, shape_rows);
+        if (translation_rows > 0) {
+          launch(opt, std::integral_constant<int, TRANSLATION_LANES>{}, shape_rows,
+                 translation_rows);
+        }
+        if (rotation_rows > 0) {
+          launch(opt, std::integral_constant<int, ROTATION_LANES>{},
+                 shape_rows + translation_rows, rotation_rows);
+        }
+      });
+    } else {
+      const FormLanes fl(scene->n_prm);
+      loss_tangent_form_kernel<F><<<tangent_grid(rows), 128, 0, st>>>(
+          *scene, origins, directions, cone, target, t_state, rays, counts, values, partials,
+          stride, blocks, fl.lanes, fl.groups, fl.chunks, inv_denom_elems, inv_pixels,
+          edge_weight, edge_band);
     }
-    if (rotation_rows > 0) {
-      launch(opt, std::integral_constant<int, ROTATION_LANES>{}, shape_rows + translation_rows,
-             rotation_rows);
-    }
+    err = static_cast<int>(cudaGetLastError());
   });
-  err = static_cast<int>(cudaGetLastError());
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
-  loss_grad_sum<<<scene->n_prm + 1, 256, 0, st>>>(partials, static_cast<int>(rows), n + 1, out);
+  loss_grad_sum<<<scene->n_prm + 1, 256, 0, st>>>(partials, static_cast<int>(rows), stride, out);
   return static_cast<int>(cudaGetLastError());
 }
 

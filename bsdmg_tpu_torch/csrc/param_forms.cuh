@@ -1,0 +1,166 @@
+// The parameter forms of K4 and K5 (diff_kernel.cu): what each kernel
+// evaluates of a scene, for every scene the image fit takes.
+//
+// A form is a compile-time structure, as K1's scene structure S is
+// (scene_sdf.cuh with_structure); diff_kernel.cu's with_form turns
+// ParamScene::form into it. Each gives
+//   March, march_scene(s): what the march computes once before its loop;
+//   march_value(s, m, x): the SDF in float32, the twin's operations in its
+//     order, so that K4's march equals its twin's bit for bit;
+//   value<T, P>(s, prm, x): the SDF at a point of scalar type T from the
+//     parameters as P (param_program.cuh Prm);
+// and the kernels derive the rest from value: dfdt (ray_derivative, Dual<1>
+// whose point carries the ray's direction) and, in K5's tangent lanes, the
+// value in Dual<L> and the spatial gradient with its parameter tangents,
+// forward over forward in DualOf<3, Dual<L>> (value_grad).
+//
+// ReferenceForm is the reference scenes' form of param_sdf.cuh, unchanged:
+// its march form (MarchScene), its dfdt and its hand-written reverse-mode
+// gradient, with K5's lanes over the shape and the transform. The others
+// take the flat parameter vector ParamScene::prm and K5's generic lanes:
+//   SphereForm: bsdmg_tpu/models/scenes.py sphere_scene (radius, slot 0);
+//   MandelbulbForm: mandelbulb_scene, sd_mandelbulb_c(x / s) * s with
+//     s = scale * 0.4 (scale, slot 0), mandelbulb.cuh;
+//   WrappedForm: wrapped_object_scene, each coordinate wrapped as
+//     -half + mod(x + half, cell) with half = cell / 2, then the reference
+//     object and its transform (param_sdf.cuh scene_value, AnyParts);
+//   ProgramForm: a composed scene, its parameter program
+//     (param_program.cuh).
+// Twins: models/scenes.py SphereCsdf, MandelbulbCsdf, WrappedCsdf,
+// models/compose.py ComposedCsdf.
+
+#pragma once
+
+#include "mandelbulb.cuh"
+#include "param_program.cuh"
+
+struct ReferenceForm {
+  typedef MarchScene March;
+  static __device__ __forceinline__ March march_scene(const ParamScene& s) {
+    return ::march_scene(s);
+  }
+  static __device__ __forceinline__ float march_value(const ParamScene&, const March& m,
+                                                      const float x[3]) {
+    return ::march_value(m, x);
+  }
+};
+
+// the forms whose march evaluates value<float, float> and needs nothing
+// computed before its loop
+template <class F>
+struct PlainMarch {
+  struct March {};
+  static __device__ __forceinline__ March march_scene(const ParamScene&) { return March{}; }
+  static __device__ __forceinline__ float march_value(const ParamScene& s, const March&,
+                                                      const float x[3]) {
+    return F::value(s, Prm<float>{&s, 0}, x);
+  }
+};
+
+struct SphereForm : PlainMarch<SphereForm> {
+  template <class T, class P>
+  static __device__ __forceinline__ T value(const ParamScene&, const Prm<P>& prm, const T x[3]) {
+    // sd_sphere_c at centre 0: x - 0 is x, bit for bit
+    return vsqrt((x[0] * x[0] + x[1] * x[1]) + x[2] * x[2]) - prm(0);
+  }
+};
+
+struct MandelbulbForm : PlainMarch<MandelbulbForm> {
+  template <class T, class P>
+  static __device__ __forceinline__ T value(const ParamScene&, const Prm<P>& prm, const T x[3]) {
+    const P s = prm(0) * 0.4f;
+    return mandelbulb_de<T>(x[0] / s, x[1] / s, x[2] / s) * s;
+  }
+};
+
+// the reference object's parameters from their slots (load_params reads
+// them at the reference form's fixed places)
+template <class P>
+__device__ __forceinline__ ObjectParams<P> slot_params(const ParamScene& s, const Prm<P>& prm) {
+  ObjectParams<P> p;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    p.center[a] = prm(s.skeleton_center + a);
+    p.size[a] = prm(s.skeleton_size + a);
+  }
+  p.line_width = prm(s.skeleton_line_width);
+  p.radius = prm(s.sphere_radius);
+  p.k = prm(s.smooth_k);
+  if (AnyParts::translation(s)) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) p.translation[a] = prm(s.object_center + a);
+  }
+  if (AnyParts::rotation(s)) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) p.rotation[a] = prm(s.object_rotation + a);
+  }
+  return p;
+}
+
+struct WrappedForm {
+  template <class T, class P>
+  static __device__ __forceinline__ void wrap(const ParamScene& s, const Prm<P>& prm, const T x[3],
+                                              T w[3]) {
+    const P cell = prm(s.cell);
+    const P half = cell / 2.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) w[a] = -half + vmod(x[a] + half, cell);
+  }
+  // the reference object's march form at the wrapped point
+  typedef MarchScene March;
+  static __device__ __forceinline__ March march_scene(const ParamScene& s) {
+    return ::march_scene(s);
+  }
+  static __device__ __forceinline__ float march_value(const ParamScene& s, const March& m,
+                                                      const float x[3]) {
+    float w[3];
+    wrap(s, Prm<float>{&s, 0}, x, w);
+    return ::march_value(m, w);
+  }
+  template <class T, class P>
+  static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P>& prm, const T x[3]) {
+    T w[3];
+    wrap(s, prm, x, w);
+    return scene_value<AnyParts>(s, slot_params(s, prm), w);
+  }
+};
+
+struct ProgramForm : PlainMarch<ProgramForm> {
+  template <class T, class P>
+  static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P>& prm, const T x[3]) {
+    return program_value(s, prm, x);
+  }
+};
+
+// the form's SDF along d at o + t d, parameters as floats: a forward pass
+// in Dual<1> whose point carries the tangent d (K4's dfdt, K5's IFT
+// denominator)
+template <class Form>
+__device__ __forceinline__ float form_ray_derivative(const ParamScene& s, const float o[3],
+                                                     const float d[3], float t) {
+  Dual<1> x[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    x[a].v = o[a] + t * d[a];
+    x[a].t[0] = d[a];
+  }
+  return Form::value(s, Prm<float>{&s, 0}, x).t[0];
+}
+
+// the form's spatial gradient at x with the parameter tangents of C (a
+// Dual<L>): one forward pass in DualOf<3, C> whose point carries the unit
+// tangents of x, y and z
+template <class Form, class C>
+__device__ __forceinline__ void form_value_grad(const ParamScene& s, const Prm<C>& prm,
+                                                const C x[3], C g[3]) {
+  DualOf<3, C> p[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    p[a].v = x[a];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) p[a].t[b] = Scalar<C>::constant(a == b ? 1.0f : 0.0f);
+  }
+  const DualOf<3, C> f = Form::value(s, prm, p);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) g[a] = f.t[a];
+}

@@ -1,5 +1,6 @@
 // The parameter form of the reference scenes on the device, for K4 and K5
-// (diff_kernel.cu).
+// (diff_kernel.cu), and the ParamScene that every form is passed in (the
+// other forms: param_forms.cuh).
 //
 // K1, K6 and K7 read a SceneDesc (scene_sdf.cuh) whose constants the host
 // bakes in float64. The differentiable path evaluates the scene the way the
@@ -31,7 +32,12 @@
 
 #include "common.cuh"
 
-#define BSDMG_MAX_PARAMS 16  // 9 shape parameters, object_center (3), object_rotation (4)
+#define BSDMG_MAX_PARAMS 64  // values of the flat parameter vector (a composed scene's cap)
+#define BSDMG_REFERENCE_PARAMS 16  // 9 shape values, object_center (3), object_rotation (4)
+
+// the scene's form: the reference scenes (this header), or one of
+// param_forms.cuh
+enum ParamForm { FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM };
 
 // Mirrors _ParamSceneC in ops/cuda/diff_kernel.py field by field.
 struct ParamScene {
@@ -71,6 +77,15 @@ struct ParamScene {
   float aces_m1[9];
   float aces_m2[9];
   float aces_curve[5];
+  // the forms beside the reference scenes' (param_forms.cuh)
+  int form;                     // ParamForm
+  float prm[BSDMG_MAX_PARAMS];  // the flat parameter vector
+  int cell;                     // the wrapped object: the slot of its lattice period
+  // a composed scene: its parameter program in device memory,
+  // program_length instructions of BSDMG_PARAM_WORDS words
+  // (csdf.py param_program_words); the caller owns the buffer
+  const int* program;
+  int program_length;
 };
 
 // The scene's optional parts: AnyParts reads them from the ParamScene at

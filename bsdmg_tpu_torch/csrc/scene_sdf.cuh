@@ -43,6 +43,7 @@
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "mandelbulb.cuh"
 
 #define BSDMG_GROUPS 3  // parallel-edge groups of a box skeleton
 #define BSDMG_GROUP_VALUES 2  // perpendicular coordinates per other axis
@@ -436,37 +437,6 @@ __device__ __forceinline__ void solid_box_sdf_grad(const SceneDesc& s, float x, 
   gx = box_axis_bwd(x, qx, ox, w, ct_m3 * tie_weight(qx, m3, m2));
   gy = box_axis_bwd(y, qy, oy, w, ct_m2 * tie_weight(qy, m2, qz));
   gz = box_axis_bwd(z, qz, oz, w, ct_m2 * tie_weight(qz, m2, qy));
-}
-
-// The mandelbulb's distance estimator 0.5 * log(r) * r / dr
-// (sdf/primitives.py::sd_mandelbulb_c: power 7, 25 iterations, escape
-// radius 2) at points already divided by the scale, for T float (the value)
-// or Dual<3> (the value and its gradient). A point leaves the loop at its
-// escape: its later iterations in the JAX package change nothing. Its min
-// and max propagate a NaN, as the solid box's.
-template <class T>
-__device__ __forceinline__ T mandelbulb_de(const T& x, const T& y, const T& z) {
-  T zx = x, zy = y, zz = z;
-  T dr = Scalar<T>::constant(1.0f);
-  T r = Scalar<T>::constant(0.0f);
-#pragma unroll 1
-  for (int i = 0; i < 25; ++i) {
-    r = vsqrt((zx * zx + zy * zy) + zz * zz);
-    if (!(value_of(r) <= 2.0f)) break;
-    const T sr = vmaxn(r, 1e-12f);
-    const T theta = vacos(vminn(vmaxn(zz / sr, -1.0f), 1.0f)) * 7.0f;
-    const T phi = vatan2(zy, zx) * 7.0f;
-    const T zr = vpow(sr, 7.0f);
-    dr = (vpow(sr, 6.0f) * 7.0f) * dr + 1.0f;
-    T st, ct, sp, cp;
-    vsincos(theta, st, ct);
-    vsincos(phi, sp, cp);
-    zx = (zr * st) * cp + x;
-    zy = (zr * sp) * st + y;
-    zz = zr * ct + z;
-  }
-  const T sr = vmaxn(r, 1e-12f);
-  return ((vlog(sr) * 0.5f) * r) / dr;
 }
 
 __device__ __forceinline__ float mandelbulb_sdf(const SceneDesc& s, float x, float y, float z) {

@@ -3,9 +3,11 @@
 Port of ``bsdmg_tpu/models/compose.py``. A scene is data: a nested spec of
 primitives and CSG operators that lowers to
 
-* a **param-traced** component SDF on tensors (every numeric field is an
-  entry of the scene's params, so a composed scene is differentiable and
-  fits as the built-ins do: ``cli fit`` in depth mode);
+* a **param-traced** component SDF on tensors (:class:`ComposedCsdf`;
+  every numeric field is an entry of the scene's params, so a composed
+  scene is differentiable and fits as the built-ins do, ``cli fit`` from a
+  depth map or, through kernels K4 and K5 and their parameter program
+  ``ops/cuda/csdf.py::param_program``, from an image);
 * a **node program** for the kernels (``ops/cuda/csdf.py::compile_scene``
   flattens ``Scene.spec`` into it; ``csrc/scene_sdf.cuh`` ``Composed``
   interprets it);
@@ -254,11 +256,26 @@ def _eval(node: dict, get: Callable[[dict, str], Any], x, y, z):
     if op == "wrap":
         cell = _vec3(get(node, "cell"))
         hx, hy, hz = cell[0] * 0.5, cell[1] * 0.5, cell[2] * 0.5
-        wx = -hx + torch.remainder(x + hx, cell[0])
-        wy = -hy + torch.remainder(y + hy, cell[1])
-        wz = -hz + torch.remainder(z + hz, cell[2])
+        wx = -hx + sdf.mod(x + hx, cell[0])
+        wy = -hy + sdf.mod(y + hy, cell[1])
+        wz = -hz + sdf.mod(z + hz, cell[2])
         return _eval(node["child"], get, wx, wy, wz)
     raise AssertionError(op)
+
+
+class ComposedCsdf:
+    """A composed scene's component form, ``f(params, x, y, z)``: the spec
+    tree (``Scene.spec``: the root and the node ids) evaluated by
+    :func:`_eval` from the parameter values at call time. Kernels K4 and K5
+    run it as a parameter program (``ops/cuda/csdf.py::param_program``)."""
+
+    def __init__(self, spec: dict):
+        self.spec = spec
+
+    def __call__(self, params, x, y, z) -> torch.Tensor:
+        ids = self.spec["ids"]
+        return _eval(self.spec["root"], lambda node, field: params[f"{ids[id(node)]}_{field}"],
+                     x, y, z)
 
 
 def compose_scene(spec: dict, *, name: str | None = None,
@@ -276,15 +293,14 @@ def compose_scene(spec: dict, *, name: str | None = None,
     _assign_ids(root, ids, [0])
     params: dict = {}
     _collect_params(root, ids, params, device)
-
-    def cfn(q, x, y, z):
-        return _eval(root, lambda node, field: q[f"{ids[id(node)]}_{field}"], x, y, z)
+    tree = {"root": root, "ids": ids}
+    cfn = ComposedCsdf(tree)
 
     def fn(q, p):
         return cfn(q, p[..., 0], p[..., 1], p[..., 2])
 
     scene_name = name or spec.get("name", "composed")
-    return Scene(scene_name, fn, params, csdf=cfn, spec={"root": root, "ids": ids})
+    return Scene(scene_name, fn, params, csdf=cfn, spec=tree)
 
 
 def load_scene_spec(path: str | Path, *, device: torch.device | str = "cuda") -> Scene:

@@ -15,8 +15,10 @@ Every constructor puts its parameters on ``device``, the card unless the
 caller names another.
 
 Each scene has its SDF on ``(..., 3)`` points (``Scene.sdf``) and on
-coordinate planes (``Scene.csdf``, a :class:`ReferenceCsdf`), the form the
-differentiable render evaluates and kernels K4 and K5 mirror.
+coordinate planes (``Scene.csdf``: :class:`ReferenceCsdf`, :class:`SphereCsdf`,
+:class:`MandelbulbCsdf`, :class:`WrappedCsdf`; a composed scene's is
+``models/compose.py::ComposedCsdf``), the form the differentiable render
+evaluates and kernels K4 and K5 mirror; the box has none.
 """
 
 from __future__ import annotations
@@ -153,6 +155,40 @@ class ReferenceCsdf:
         return sdf.minimum(d, frame)
 
 
+@dataclasses.dataclass(frozen=True)
+class SphereCsdf:
+    """The sphere scene's component form: a sphere of radius
+    ``params["radius"]`` at the origin."""
+
+    def __call__(self, params: Params, x, y, z) -> torch.Tensor:
+        return sdf.sd_sphere_c(x, y, z, 0.0, params["radius"])
+
+
+@dataclasses.dataclass(frozen=True)
+class MandelbulbCsdf:
+    """The mandelbulb scene's component form: the points divided by
+    ``s = params["scale"] * 0.4``, the distance multiplied by it."""
+
+    def __call__(self, params: Params, x, y, z) -> torch.Tensor:
+        s = params["scale"] * 0.4
+        return sdf.sd_mandelbulb_c(x / s, y / s, z / s) * s
+
+
+@dataclasses.dataclass(frozen=True)
+class WrappedCsdf:
+    """The wrapped object's component form: each coordinate wrapped into
+    the cell of period ``params["cell"]`` (``-half + mod(v + half, cell)``,
+    ``half = cell / 2``), then the reference object, transform included."""
+
+    def __call__(self, params: Params, x, y, z) -> torch.Tensor:
+        cell = params["cell"]
+        half = cell / 2.0
+        wx = -half + sdf.mod(x + half, cell)
+        wy = -half + sdf.mod(y + half, cell)
+        wz = -half + sdf.mod(z + half, cell)
+        return _sd_obj_c(params, wx, wy, wz)
+
+
 def _sd_obj(params: Params, p: torch.Tensor, *, reference_compat: bool = True) -> torch.Tensor:
     x, y, z = _object_space_c(params, p[..., 0], p[..., 1], p[..., 2])
     p = torch.stack([x, y, z], dim=-1)
@@ -210,7 +246,7 @@ def sphere_scene(radius: float = 1.0, *, device: torch.device | str = "cuda") ->
         "sphere",
         lambda q, p: sdf.sd_sphere(p, 0.0, q["radius"]),
         {"radius": _f32(radius, device)},
-        csdf=lambda q, x, y, z: sdf.sd_sphere_c(x, y, z, 0.0, q["radius"]),
+        csdf=SphereCsdf(),
     )
 
 
@@ -228,11 +264,7 @@ def mandelbulb_scene(scale: float = 1.0, *, device: torch.device | str = "cuda")
         s = q["scale"] * 0.4
         return sdf.sd_mandelbulb(p / s) * s
 
-    def cfn(q, x, y, z):
-        s = q["scale"] * 0.4
-        return sdf.sd_mandelbulb_c(x / s, y / s, z / s) * s
-
-    return Scene("mandelbulb", fn, {"scale": _f32(scale, device)}, csdf=cfn)
+    return Scene("mandelbulb", fn, {"scale": _f32(scale, device)}, csdf=MandelbulbCsdf())
 
 
 def wrapped_object_scene(cell: float = 8.0, *, device: torch.device | str = "cuda") -> Scene:
@@ -243,18 +275,11 @@ def wrapped_object_scene(cell: float = 8.0, *, device: torch.device | str = "cud
     params = default_object_params(device)
     params["cell"] = _f32(cell, device)
 
-    def cfn(q, x, y, z):
-        half = q["cell"] / 2.0
-        wx = -half + torch.remainder(x + half, q["cell"])
-        wy = -half + torch.remainder(y + half, q["cell"])
-        wz = -half + torch.remainder(z + half, q["cell"])
-        return _sd_obj_c(q, wx, wy, wz)
-
     def fn(q, p):
         half = q["cell"] / 2.0
         return _sd_obj(q, sdf.wrap(p, -half.expand(3), half.expand(3)))
 
-    return Scene("wrapped_object", fn, params, csdf=cfn)
+    return Scene("wrapped_object", fn, params, csdf=WrappedCsdf())
 
 
 SCENES: dict[str, Callable[..., Scene]] = {

@@ -995,6 +995,180 @@ def _program_value_and_grad(prog):
     return f
 
 
+# ---------------------------------------------------------------------------
+# a composed scene's parameter program: kernels K4 and K5
+# (csrc/param_program.cuh)
+# ---------------------------------------------------------------------------
+
+#: 32-bit words per parameter-program instruction: opcode, operand index,
+#: the flat slots of up to three fields, the box skeleton's reference_compat
+PARAM_WORDS = 8
+
+#: the fields an instruction reads, in the order of its slots
+PARAM_FIELDS = {
+    OP_SPHERE: ("center", "radius"),
+    OP_BOX: ("center", "size"),
+    OP_CAPSULE: ("start", "end", "radius"),
+    OP_SKELETON: ("center", "size", "line_width"),
+    OP_TORUS: ("center", "major_radius", "minor_radius"),
+    OP_CYLINDER: ("center", "radius", "height"),
+    OP_PLANE: ("normal", "offset"),
+    OP_SMOOTH: ("k",),
+    OP_SHELL: ("thickness",),
+    OP_PUSH_TRANSFORM: ("offset", "rotation"),
+    OP_PUSH_WRAP: ("cell",),
+}
+
+
+class ParamInstruction(NamedTuple):
+    """One parameter-program instruction: ``op`` and ``arg`` as in
+    :class:`Instruction`, ``slots`` the index in the flat parameter vector
+    (``weights.flatten_params``) of the first value of each field of
+    :data:`PARAM_FIELDS`, ``compat`` a box skeleton's reference_compat."""
+
+    op: int
+    arg: int
+    slots: tuple
+    compat: int = 0
+
+
+def param_program(spec: dict, offsets: dict) -> tuple[ParamInstruction, ...]:
+    """Flatten a composed scene's spec (``Scene.spec``) into the program
+    that kernels K4 and K5 interpret (``csrc/param_program.cuh``): the node
+    program's postfix order (:func:`node_program`), each instruction naming
+    the slots of its fields in the flat vector (``offsets``: each
+    parameter's first slot, ``weights.param_offsets``) where the node
+    program holds baked constants. The kernels derive every constant from
+    the parameter values at run time in float32, operation for operation as
+    ``models/compose.py::_eval`` does, so the program's value equals the
+    spec's component form bit for bit (:func:`param_program_csdf`).
+    Raises ``NotImplementedError`` beyond the interpreter's caps."""
+    ids = spec["ids"]
+    prog: list[ParamInstruction] = []
+
+    def slots(node: dict, op: int) -> tuple:
+        return tuple(offsets[f"{ids[id(node)]}_{field}"] for field in PARAM_FIELDS.get(op, ()))
+
+    def emit(node: dict) -> None:
+        if "prim" in node:
+            op = _PRIMITIVE_OPS[node["prim"]]
+            compat = int(bool(node.get("reference_compat", True))) if op == OP_SKELETON else 0
+            prog.append(ParamInstruction(op, -1, slots(node, op), compat))
+            return
+        kind = node["op"]
+        if kind in _FOLD_OPS:
+            op = _FOLD_OPS[kind]
+            children = node["children"]
+            emit(children[0])
+            for child in children[1:]:
+                left = len(prog) - 1
+                emit(child)
+                prog.append(ParamInstruction(op, left, slots(node, op)))
+            return
+        if kind == "shell":
+            emit(node["child"])
+            prog.append(ParamInstruction(OP_SHELL, -1, slots(node, OP_SHELL)))
+            return
+        push = len(prog)
+        op = OP_PUSH_TRANSFORM if kind == "transform" else OP_PUSH_WRAP
+        prog.append(ParamInstruction(op, -1, slots(node, op)))
+        emit(node["child"])
+        prog.append(ParamInstruction(OP_POP, push, ()))
+
+    emit(spec["root"])
+    depth, frames = program_depths(prog)
+    if len(prog) > PROGRAM_CAP or depth > STACK_CAP or frames > FRAME_CAP:
+        raise NotImplementedError(
+            f"a parameter program of {len(prog)} instructions, {depth} stack values and "
+            f"{frames} nested frames; the kernels take at most {PROGRAM_CAP} instructions, "
+            f"{STACK_CAP} values and {FRAME_CAP} frames"
+        )
+    return tuple(prog)
+
+
+def param_program_words(prog) -> np.ndarray:
+    """The program as the kernels read it: ``(n, PARAM_WORDS)`` int32, each
+    row the opcode, the operand index, three slots (-1 where unused) and
+    reference_compat."""
+    words = np.full((len(prog), PARAM_WORDS), -1, np.int32)
+    words[:, 5:] = 0
+    for i, ins in enumerate(prog):
+        words[i, 0], words[i, 1] = ins.op, ins.arg
+        words[i, 2:2 + len(ins.slots)] = ins.slots
+        words[i, 5] = ins.compat
+    return words
+
+
+def _param_primitive(ins: ParamInstruction, prm, x, y, z):
+    """A primitive's value from the parameter values ``prm(slot)``, as
+    ``models/compose.py::_eval`` computes it."""
+    from bsdmg_tpu_torch.models.compose import _sd_capsule_c
+    from bsdmg_tpu_torch.sdf import primitives as sdf
+
+    s = ins.slots
+    vec = lambda slot: (prm(slot), prm(slot + 1), prm(slot + 2))
+    if ins.op == OP_SPHERE:
+        return sdf.sd_sphere_c(x, y, z, vec(s[0]), prm(s[1]))
+    if ins.op == OP_BOX:
+        return sdf.sd_box_c(x, y, z, vec(s[0]), vec(s[1]))
+    if ins.op == OP_CAPSULE:
+        return _sd_capsule_c(x, y, z, vec(s[0]), vec(s[1]), prm(s[2]))
+    if ins.op == OP_SKELETON:
+        return sdf.sd_box_skeleton_c(x, y, z, vec(s[0]), vec(s[1]), prm(s[2]),
+                                     reference_compat=bool(ins.compat))
+    if ins.op == OP_TORUS:
+        return sdf.sd_torus_c(x, y, z, vec(s[0]), prm(s[1]), prm(s[2]))
+    if ins.op == OP_CYLINDER:
+        return sdf.sd_cylinder_c(x, y, z, vec(s[0]), prm(s[1]), prm(s[2]))
+    n = vec(s[0])
+    inv = torch.rsqrt(sdf.maximum(n[0] * n[0] + n[1] * n[1] + n[2] * n[2], 1e-24))
+    return (x * n[0] + y * n[1] + z * n[2]) * inv - prm(s[1])
+
+
+def param_program_csdf(prog):
+    """``f(flat, x, y, z)``: the parameter program's value on coordinate
+    planes from the flat parameter vector, instruction by instruction as
+    the kernels' interpreter runs it (a stack of values and of coordinate
+    frames). It equals the spec's component form bit for bit."""
+    from bsdmg_tpu_torch.models.scenes import _quat_inv_rotate_c
+    from bsdmg_tpu_torch.sdf import primitives as sdf
+
+    def f(flat, x, y, z):
+        prm = lambda slot: flat[slot]
+        coords, frames, stack = (x, y, z), [], []
+        for ins in prog:
+            if ins.op <= OP_PLANE:
+                stack.append(_param_primitive(ins, prm, *coords))
+            elif ins.op <= OP_SMOOTH:
+                b, a = stack.pop(), stack.pop()
+                if ins.op == OP_MIN:
+                    stack.append(sdf.minimum(a, b))
+                elif ins.op == OP_MAX:
+                    stack.append(sdf.maximum(a, b))
+                elif ins.op == OP_SUB:
+                    stack.append(sdf.maximum(a, -b))
+                else:
+                    stack.append(sdf.smooth_min(a, b, prm(ins.slots[0])))
+            elif ins.op == OP_SHELL:
+                stack.append(sdf.abs_(stack.pop()) - prm(ins.slots[0]))
+            elif ins.op == OP_POP:
+                coords = frames.pop()
+            elif ins.op == OP_PUSH_TRANSFORM:
+                frames.append(coords)
+                off, q = ins.slots
+                moved = tuple(coords[a] - prm(off + a) for a in range(3))
+                coords = _quat_inv_rotate_c(flat[q:q + 4], *moved)
+            else:
+                frames.append(coords)
+                cell = ins.slots[0]
+                coords = tuple(-(prm(cell + a) * 0.5) + sdf.mod(coords[a] + prm(cell + a) * 0.5,
+                                                                prm(cell + a))
+                               for a in range(3))
+        return stack[0]
+
+    return f
+
+
 def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
     """The scene SDF of ``desc`` on coordinate planes, in plain PyTorch: the
     twin of the kernels' ``scene_sdf`` (csdf.py::compile_scene_csdf)."""

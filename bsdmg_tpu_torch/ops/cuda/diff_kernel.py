@@ -14,10 +14,15 @@ Counterpart of ``bsdmg_tpu/ops/pallas/diff_kernel.py``:
 A CUDA tensor goes to the kernel (``csrc/diff_kernel.cu``), a CPU tensor to
 the plain PyTorch twin (:func:`march_params_torch`,
 :func:`render_loss_grad_torch`); nothing falls back from one to the other.
-The scene is a :class:`ReferenceCsdf`, the component form of the reference
-scenes, which the kernels evaluate from the flat parameter vector
-(``weights.flatten_params``). The near/far tile split of the TPU kernels is
-not ported.
+The scene is the component form of a scene the image fit takes, which the
+kernels evaluate from the flat parameter vector (``weights.flatten_params``)
+in one of their parameter forms (``csrc/param_forms.cuh``):
+:class:`ReferenceCsdf` (the reference scenes), :class:`SphereCsdf`,
+:class:`MandelbulbCsdf`, :class:`WrappedCsdf` (the other built-in scenes)
+and :class:`ComposedCsdf` (a composed scene, as a parameter program,
+``csdf.py::param_program``). Any other component form raises
+``NotImplementedError``. The near/far tile split of the TPU kernels is not
+ported.
 """
 
 from __future__ import annotations
@@ -27,9 +32,16 @@ import ctypes
 import torch
 
 from bsdmg_tpu_torch.config import MarchConfig
-from bsdmg_tpu_torch.models.scenes import FRAME_LINE_WIDTH, ReferenceCsdf
+from bsdmg_tpu_torch.models.compose import ComposedCsdf
+from bsdmg_tpu_torch.models.scenes import (
+    FRAME_LINE_WIDTH,
+    MandelbulbCsdf,
+    ReferenceCsdf,
+    SphereCsdf,
+    WrappedCsdf,
+)
 from bsdmg_tpu_torch.ops.cuda.build import load_library
-from bsdmg_tpu_torch.ops.cuda.csdf import f32
+from bsdmg_tpu_torch.ops.cuda.csdf import f32, param_program, param_program_words
 from bsdmg_tpu_torch.ops.cuda.render_kernel import (
     _check_inputs,
     _floats,
@@ -40,7 +52,7 @@ from bsdmg_tpu_torch.ops.cuda.render_kernel import (
     shading_c,
 )
 from bsdmg_tpu_torch.ops.trace import COLLISION
-from bsdmg_tpu_torch.weights import flatten_params, unflatten_params
+from bsdmg_tpu_torch.weights import flatten_params, param_offsets, unflatten_params
 
 #: launches of K4 and of K5 in this process; each wrapper adds one per launch
 MARCH_LAUNCHES = 0
@@ -49,11 +61,17 @@ LOSS_GRAD_LAUNCHES = 0
 #: the kernels' source, relative to the repository root
 SOURCE = "bsdmg_tpu_torch/csrc/diff_kernel.cu"
 
-#: parameters the kernels take: the 9 shape values and the object transform
-MAX_PARAMS = 16
+#: values of the flat parameter vector the kernels take (a composed
+#: scene's cap), and of the reference form's: the 9 shape values and the
+#: object transform
+MAX_PARAMS = 64
+REFERENCE_PARAMS = 16
 
-#: the parameters the kernels read, with their shapes, in ``ParamScene``'s
-#: order; the transform's two are optional
+#: the parameter forms (csrc/param_sdf.cuh ParamForm)
+FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM = range(5)
+
+#: the parameters the reference form reads, with their shapes, in
+#: ``ParamScene``'s order; the transform's two are optional
 PARAM_SHAPES = {
     "skeleton_center": (3,),
     "skeleton_size": (3,),
@@ -86,6 +104,9 @@ def _ray_derivative(f, o, d, t):
     return (g[0] * d[0] + g[1] * d[1]) + g[2] * d[2]
 
 
+CSDF = "ReferenceCsdf | SphereCsdf | MandelbulbCsdf | WrappedCsdf | ComposedCsdf"
+
+
 def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: bool):
     """K4 on flat planes: ``(depth, steps, outcome, dfdt, min_m, t_min)``,
     the last two None without ``track_min``."""
@@ -106,7 +127,7 @@ def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: b
 
 
 def march_params_torch(
-    cfn: ReferenceCsdf,
+    cfn: CSDF,
     params,
     origins: torch.Tensor,
     directions: torch.Tensor,
@@ -126,7 +147,7 @@ def march_params_torch(
 
 
 def render_loss_grad_torch(
-    cfn: ReferenceCsdf,
+    cfn: CSDF,
     params,
     target: torch.Tensor,
     origins: torch.Tensor,
@@ -217,31 +238,28 @@ class _ParamSceneC(ctypes.Structure):
         ("aces_m1", _floats(9)),
         ("aces_m2", _floats(9)),
         ("aces_curve", _floats(5)),
+        ("form", ctypes.c_int),
+        ("prm", _floats(MAX_PARAMS)),
+        ("cell", ctypes.c_int),
+        ("program", ctypes.c_void_p),
+        ("program_length", ctypes.c_int),
     ]
 
 
-def param_scene_c(cfn: ReferenceCsdf, params, config: MarchConfig = MarchConfig(), bb=None):
-    """``(ParamScene, layout)``: the scene and ``params`` as the kernels
-    take them, and the flat vector's layout (``weights.flatten_params``)."""
-    if not isinstance(cfn, ReferenceCsdf):
-        raise NotImplementedError(
-            f"the kernels evaluate the reference scenes' component form "
-            f"(ReferenceCsdf) only, not {type(cfn).__name__}"
-        )
-    flat, layout = flatten_params(params)
-    if flat.numel() > MAX_PARAMS:
-        raise ValueError(f"{flat.numel()} parameter values; the kernels take at most {MAX_PARAMS}")
-    offsets, i = {}, 0
-    for name, shape in layout:
-        want = PARAM_SHAPES.get(name)
-        if want is not None and shape != want:
-            raise ValueError(f"parameter {name!r} has shape {shape}, the kernels take {want}")
-        offsets[name] = i
-        i += int(torch.Size(shape).numel())
-    missing = [n for n in PARAM_SHAPES if n not in offsets and n not in OPTIONAL_PARAMS]
+def _check_layout(layout, shapes: dict, optional=()) -> None:
+    """The parameters a form reads are there, with their shapes."""
+    got = dict(layout)
+    for name, want in shapes.items():
+        if name in got and got[name] != want:
+            raise ValueError(f"parameter {name!r} has shape {got[name]}, the kernels take {want}")
+    missing = [n for n in shapes if n not in got and n not in optional]
     if missing:
         raise ValueError(f"parameters {missing} are missing")
-    values = flat.detach().cpu().tolist()
+
+
+def _reference_fields(offsets: dict, values: list, reference_compat: bool, frame_size) -> dict:
+    """The reference form's fields: its parameters at fixed places and
+    their slots, the wireframe."""
 
     def at(name, size, absent=()):
         return values[offsets[name]:offsets[name] + size] if name in offsets else list(absent)
@@ -249,22 +267,83 @@ def param_scene_c(cfn: ReferenceCsdf, params, config: MarchConfig = MarchConfig(
     shape = (at("skeleton_center", 3) + at("skeleton_size", 3) + at("skeleton_line_width", 1)
              + at("sphere_radius", 1) + at("smooth_k", 1))
     rigid = at("object_center", 3, (0.0,) * 3) + at("object_rotation", 4, (1.0, 0.0, 0.0, 0.0))
-    fields = dict(
+    return dict(
         shape_prm=_floats(9)(*shape),
         rigid_prm=_floats(7)(*rigid),
-        n_prm=len(values),
-        reference_compat=int(cfn.reference_compat),
-        has_frame=int(cfn.frame_size is not None),
-        frame_size=f32(cfn.frame_size or 0.0),
+        reference_compat=int(reference_compat),
+        has_frame=int(frame_size is not None),
+        frame_size=f32(frame_size or 0.0),
         frame_line_width=f32(FRAME_LINE_WIDTH),
-        use_bounds=int(bb is not None),
         **{name: offsets.get(name, -1) for name in PARAM_SHAPES},
+    )
+
+
+def _program_words(cfn: ComposedCsdf, layout, device) -> torch.Tensor:
+    """The scene's parameter program for ``layout`` as int32 words on
+    ``device`` (uploaded once per layout and device, kept on ``cfn``)."""
+    cache = cfn.__dict__.setdefault("_param_words", {})
+    key = (layout, torch.device(device))
+    if key not in cache:
+        words = param_program_words(param_program(cfn.spec, param_offsets(layout)))
+        cache[key] = torch.from_numpy(words).to(device)
+    return cache[key]
+
+
+def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=None,
+                  device="cuda"):
+    """``(ParamScene, layout)``: the scene and ``params`` as the kernels
+    take them, and the flat vector's layout (``weights.flatten_params``).
+    The form follows ``cfn``'s type; a composed scene's parameter program
+    lives on ``device`` and the struct keeps it alive."""
+    forms = {ReferenceCsdf: FORM_REFERENCE, SphereCsdf: FORM_SPHERE,
+             MandelbulbCsdf: FORM_MANDELBULB, WrappedCsdf: FORM_WRAPPED,
+             ComposedCsdf: FORM_PROGRAM}
+    form = forms.get(type(cfn))
+    if form is None:
+        raise NotImplementedError(
+            f"the kernels evaluate the component forms {sorted(t.__name__ for t in forms)}, "
+            f"not {type(cfn).__name__}"
+        )
+    flat, layout = flatten_params(params)
+    most = REFERENCE_PARAMS if form == FORM_REFERENCE else MAX_PARAMS
+    if flat.numel() > most:
+        raise ValueError(f"{flat.numel()} parameter values; the kernels take at most {most}")
+    offsets = param_offsets(layout)
+    values = flat.detach().cpu().tolist()
+    fields = dict(
+        form=form,
+        prm=_floats(MAX_PARAMS)(*values),
+        n_prm=len(values),
+        use_bounds=int(bb is not None),
+        **{name: -1 for name in PARAM_SHAPES},
         **march_c(config),
         **shading_c(),
     )
+    keep = None
+    if form in (FORM_REFERENCE, FORM_WRAPPED):
+        extra = {"cell": ()} if form == FORM_WRAPPED else {}
+        _check_layout(layout, {**PARAM_SHAPES, **extra}, OPTIONAL_PARAMS)
+        frame = cfn.frame_size if form == FORM_REFERENCE else None
+        compat = cfn.reference_compat if form == FORM_REFERENCE else True
+        fields.update(_reference_fields(offsets, values, compat, frame))
+        if form == FORM_WRAPPED:
+            fields["cell"] = offsets["cell"]
+    elif form in (FORM_SPHERE, FORM_MANDELBULB):
+        name = "radius" if form == FORM_SPHERE else "scale"
+        if layout != ((name, ()),):
+            raise ValueError(f"the {type(cfn).__name__} form takes one parameter, {name!r}; "
+                             f"got {[n for n, _ in layout]}")
+    else:
+        try:
+            keep = _program_words(cfn, layout, device)
+        except KeyError as missing:
+            raise ValueError(f"parameter {missing} of the scene's spec is missing") from None
+        fields.update(program=keep.data_ptr(), program_length=keep.shape[0])
     if bb is not None:
         fields.update(bounds_c(bb))
-    return _ParamSceneC(**fields), layout
+    scene = _ParamSceneC(**fields)
+    scene.program_words = keep
+    return scene, layout
 
 
 def library() -> ctypes.CDLL:
@@ -275,7 +354,7 @@ def library() -> ctypes.CDLL:
     lib.bsdmg_march_params.restype = i32
     lib.bsdmg_march_params.argtypes = [ptr] * 10 + [i32, i32, ptr]
     lib.bsdmg_loss_grad_scratch.restype = ctypes.c_longlong
-    lib.bsdmg_loss_grad_scratch.argtypes = [i32, i32, i32]
+    lib.bsdmg_loss_grad_scratch.argtypes = [ptr, i32, i32]
     lib.bsdmg_loss_grad.restype = i32
     lib.bsdmg_loss_grad.argtypes = [ptr] * 8 + [i32, i32, f, f, f, f, ptr]
     lib.bsdmg_param_scene_size.restype = i32
@@ -324,8 +403,8 @@ def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixel
     lib = library()
     h, w = cone.shape
     n_prm = scene_c.n_prm
-    scratch = torch.empty(lib.bsdmg_loss_grad_scratch(h, w, n_prm), dtype=torch.float32,
-                          device=cone.device)
+    scratch = torch.empty(lib.bsdmg_loss_grad_scratch(ctypes.byref(scene_c), h, w),
+                          dtype=torch.float32, device=cone.device)
     out = torch.empty(n_prm + 1, dtype=torch.float32, device=cone.device)
     with torch.cuda.device(cone.device):
         stream = torch.cuda.current_stream(cone.device).cuda_stream
@@ -347,7 +426,7 @@ def _check_params(params, device) -> None:
 
 
 def march_params_cuda(
-    cfn: ReferenceCsdf,
+    cfn: CSDF,
     params,
     origins: torch.Tensor,
     directions: torch.Tensor,
@@ -371,7 +450,7 @@ def march_params_cuda(
     _check_inputs(origins, directions, cone)
     _check_params(params, cone.device)
     if cone.device.type == "cuda":
-        scene_c, _ = param_scene_c(cfn, params, config, bb)
+        scene_c, _ = param_scene_c(cfn, params, config, bb, cone.device)
         return _march_cuda(scene_c, origins, directions, cone, track_min)
     if cone.device.type == "cpu":
         return march_params_torch(cfn, params, origins, directions, cone, config, bb=bb,
@@ -380,7 +459,7 @@ def march_params_cuda(
 
 
 def render_loss_grad_cuda(
-    cfn: ReferenceCsdf,
+    cfn: CSDF,
     params,
     target: torch.Tensor,
     origins: torch.Tensor,
@@ -422,7 +501,7 @@ def render_loss_grad_cuda(
         )
     if cone.device.type != "cuda":
         raise ValueError(f"unsupported device {cone.device}")
-    scene_c, layout = param_scene_c(cfn, params, config, bb)
+    scene_c, layout = param_scene_c(cfn, params, config, bb, cone.device)
     edge = float(edge_weight) != 0.0
     t_state = _target_state(target, target_miss).contiguous() if edge else None
     out = _loss_grad_cuda(

@@ -841,40 +841,69 @@ def param_grad_ops(frame: bool, transform: bool) -> int:
             + (15 if transform else 0) + (2 * TIE + SKELETON_BWD if frame else 0))
 
 
-def k4_ops(npix, evals, advances, frame, transform, bounds, track) -> int:
+def form_ops(desc, loop: LoopWork | None = None) -> tuple[float, float]:
+    """``(sdf, grad)``: the FP32 operations of one evaluation of a scene's
+    SDF, and of its value and gradient, in the parameter forms of K4 and K5
+    (csrc/param_forms.cuh) other than the reference scenes'
+    (:func:`param_sdf_ops`, :func:`param_grad_ops`): the least work of the
+    function, the descriptor's count (``desc`` from
+    ``ops/cuda/csdf.py::compile_scene`` at the same parameters; the forms
+    derive the descriptor's constants from the parameters at run time,
+    which this does not count): :func:`sdf_ops` and :func:`grad_ops`, a
+    composed scene its node program's forward and backward. The
+    mandelbulb's from ``loop`` (:func:`mandelbulb_loops` on the same rays),
+    its value and gradient two evaluations (the value and one reverse
+    pass, one operation per forward operation; the kernels take the three
+    tangents forward)."""
+    if desc.kind == "mandelbulb":
+        one = loop.per_evaluation(1)
+        return one, 2 * one
+    return sdf_ops(desc), grad_ops(desc)
+
+
+def k4_ops(npix, evals, advances, frame, transform, bounds, track, *, sdf=None,
+           grad=None) -> float:
     """diff_kernel.cu march_params_kernel: the cull, each evaluation (the
     point 6, the SDF, cd, cd + eps, the hit test; the margin and its compare
     with track_min), each advance 3, and every ray's dfdt (the point 6,
-    the value and gradient, the dot 5)."""
-    return (npix * (CULL if bounds else 0) + evals * (param_sdf_ops(frame, transform) + 9 + 2 * track)
-            + advances * 3 + npix * (11 + param_grad_ops(frame, transform)))
+    the value and gradient, the dot 5). ``sdf`` and ``grad`` replace the
+    reference scenes' counts for another form (:func:`form_ops`)."""
+    sdf = param_sdf_ops(frame, transform) if sdf is None else sdf
+    grad = param_grad_ops(frame, transform) if grad is None else grad
+    return (npix * (CULL if bounds else 0) + evals * (sdf + 9 + 2 * track)
+            + advances * 3 + npix * (11 + grad))
 
 
-def k5_ops(npix, evals, advances, hits, hinges, n_tangents, frame, transform, edge) -> int:
-    """diff_kernel.cu K5 (its march, tangent and sum launches): K4's march
-    and, per hit, its dfdt and guard (2), then in duals (each operation counted with one
-    operation per tangent; a product's tangent takes 3, so this stays a
-    lower bound) the residual (SDF, 5), t_diff and q (8), the value and
-    gradient, the normalisation (8) and normal (3), the shading and ACES;
-    a miss's ACES in float; per pixel the squared error (9) and the warp
-    sum (5) in duals; per hinge the point (6) and in duals the SDF and 7."""
-    t = n_tangents + 1
-    sdf, grad = param_sdf_ops(frame, transform), param_grad_ops(frame, transform)
-    return (npix * CULL + evals * (sdf + 9 + 2 * edge) + advances * 3
-            + hits * (6 + 11 + grad + 2 + t * (sdf + 5 + 8 + grad + 8 + 3 + SHADE + ACES))
-            + (npix - hits) * ACES + npix * t * 14 + hinges * (6 + t * (sdf + 7)))
+def k5_ops(npix, evals, advances, hits, hinges, frame, transform, edge, *, sdf=None,
+           grad=None, bounds=True) -> float:
+    """diff_kernel.cu K5 (its march, tangent and sum launches) as the least
+    work of the function, the loss and its gradient, whatever the number of
+    parameters: K4's march and, per hit, its dfdt and guard (2); the loss,
+    that is per hit the residual (SDF, 5), t_diff and q (8), the value and
+    gradient, the normalisation (8) and normal (3), the shading and ACES, a
+    miss's ACES, per pixel the squared error (9) and the warp sum (5), per
+    hinge the point (6), the SDF and 7; and one reverse pass through the
+    loss's parameter-dependent part, counted at one operation per forward
+    operation (each operation's adjoint takes at least one, so this stays
+    a lower bound; the kernels take the parameters' tangents forward, one
+    lane each). ``sdf`` and ``grad`` as in :func:`k4_ops`; the cull where
+    ``bounds``."""
+    sdf = param_sdf_ops(frame, transform) if sdf is None else sdf
+    grad = param_grad_ops(frame, transform) if grad is None else grad
+    return (npix * (CULL if bounds else 0) + evals * (sdf + 9 + 2 * edge) + advances * 3
+            + hits * (6 + 11 + grad + 2 + 2 * (sdf + 5 + 8 + grad + 8 + 3 + SHADE + ACES))
+            + (npix - hits) * ACES + npix * 2 * 14 + hinges * (6 + 2 * (sdf + 7)))
 
 
 def grad_roofline(width: int, height: int, avg_steps: float, hits: int, *,
-                  n_tangents: int = 9, frame: bool = True, transform: bool = False) -> Roofline:
+                  frame: bool = True, transform: bool = False) -> Roofline:
     """Speed of light of K5 (the fused loss and gradient, no edge term) at
     ``width`` x ``height``: every ray takes ``avg_steps`` march steps,
-    ``hits`` rays differentiate their shading in ``n_tangents`` tangents,
-    each ray reads 40 B (its ray and target colour)."""
+    ``hits`` rays differentiate their shading (:func:`k5_ops`), each ray
+    reads 40 B (its ray and target colour)."""
     rays = width * height
     steps = rays * avg_steps
-    return Roofline(k5_ops(rays, steps, steps, hits, 0, n_tangents, frame, transform, False),
-                    rays * 40)
+    return Roofline(k5_ops(rays, steps, steps, hits, 0, frame, transform, False), rays * 40)
 
 
 # ---------------------------------------------------------------------------

@@ -75,6 +75,16 @@ def flatten_params(params: Mapping[str, Any]) -> tuple[torch.Tensor, ParamLayout
     return torch.cat([v.reshape(-1) for v in values]), layout
 
 
+def param_offsets(layout: ParamLayout) -> dict[str, int]:
+    """Each parameter's slot in :func:`flatten_params`'s vector: the index
+    of its first value."""
+    offsets, i = {}, 0
+    for name, shape in layout:
+        offsets[name] = i
+        i += int(np.prod(shape)) if shape else 1
+    return offsets
+
+
 def unflatten_params(flat: torch.Tensor, layout: ParamLayout) -> dict[str, torch.Tensor]:
     """The inverse of :func:`flatten_params`: views of ``flat`` by name."""
     sizes = [int(np.prod(shape)) if shape else 1 for _, shape in layout]

@@ -114,7 +114,17 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     64x64 and 1920x1080 (the JAX package's bars, and bit-equal across two
     calls); K4 and K5 times (K5's launches alone in a CUDA graph) at the
     64x64 fit point, 512x512 and 1920x1080 with their bounds and the plain
-    versions' beside them, registers and local memory;
+    versions' beside them, registers and local memory; then the image fit
+    of every other scene (FIT_SCENES: the sphere, the mandelbulb from
+    (2, 1, -2), the wrapped object, the gadget, mushroom and snowman
+    examples and the ground and lattice specs): ``cli fit --image`` at
+    64x64 and 60 steps (K4 at least once, K5 60 times; the loss falls, or
+    the kernels' first steps follow the plain versions'), K4 and K5 in the
+    scene's parameter form against their plain versions at 64x64 and
+    512x512 (K4 bit for bit but dfdt; K5 within the bars, NaN at the same
+    places; the mandelbulb by its bars, BULB_*), their times alone with
+    bounds, and ptxas's registers, stack and spills of each form's
+    instantiations; each scene's K4 and K5 join the kernels line;
 12. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
     ``cli render --scene mesh:<tmp>/torus.obj --camera 3 1.5 -3`` bakes a
     128^3 grid and renders 1920x1080, which must launch K9 twice (the 32^3
@@ -153,6 +163,7 @@ import dataclasses
 import io
 import json
 import logging
+import math
 import statistics
 import struct
 import subprocess
@@ -230,6 +241,10 @@ FIT_SNAPSHOTS = (10, 20, 30, 40, 50, FIT_STEPS)
 # sphere_radius parted by up to 2.0%
 FIT_PARAM_ATOL_10 = 1e-3
 FIT_PARAM_RTOL = 5e-2
+#: the mandelbulb's estimator overshoots far from the set: from the JAX
+#: bench's camera every ray misses it, in both packages
+MANDELBULB_CAMERA = (2.0, 1.0, -2.0)
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -244,10 +259,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rays(width: int, height: int, device):
+def rays(width: int, height: int, device, camera=None):
+    """The CLI's rays: from ``camera`` (default (5, 2, -5)) at the origin."""
     from bsdmg_tpu_torch.cam import generate_rays, look_at
 
-    cam = look_at((5.0, 2.0, -5.0), fov=np.pi / 4, device=device)
+    cam = look_at(camera or (5.0, 2.0, -5.0), fov=np.pi / 4, device=device)
     return generate_rays(cam, (width, height), SCREEN)
 
 
@@ -1047,7 +1063,8 @@ def plain_fit(scene, true: dict, start: dict, o, d, c, snapshots, shadow: bool =
     from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
     from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
 
-    bb = inflated(scene_bounds(scene), 0.6)
+    bounds = scene_bounds(scene)
+    bb = None if bounds is None else inflated(bounds, 0.6)
     h, w = c.shape
     depth, _, outcome, dfdt = (x.reshape(-1)
                                for x in dk.march_params_torch(scene.csdf, true, o, d, c, bb=bb))
@@ -1066,7 +1083,7 @@ def plain_fit(scene, true: dict, start: dict, o, d, c, snapshots, shadow: bool =
         if shadow:
             k_loss, k_grads = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb,
                                                        edge_weight=1.0)
-            stats["loss_rel"].append(abs(k_loss.item() - loss.item()) / abs(loss.item()))
+            stats["loss_rel"].append(abs(k_loss.item() - loss.item()) / max(abs(loss.item()), 1e-30))
             stats["excess"].append(max(
                 ((k_grads[k] - grads[k]).abs() - GRAD_ATOL - GRAD_RTOL * grads[k].abs()).max().item()
                 for k in grads))
@@ -1309,7 +1326,7 @@ def diff_kernel_phases(card: str, device, fit: dict, alone: dict) -> list[dict]:
                 miss = classify_target_miss(target)
                 hit = outcome == 0
                 hinges = int(((~miss & ~hit & (min_m < UNTRACKED)) | (miss & hit)).sum().item())
-            ops = k5_ops(npix, evals, advances, hits, hinges, 9, True, False, bool(edge))
+            ops = k5_ops(npix, evals, advances, hits, hinges, True, False, bool(edge))
             b_ms, b_by = bound(npix * (40 + 4 * bool(edge)), ops)
             scene_c, _ = dk.param_scene_c(scene.csdf, params, bb=bb)
             state = dk._target_state(target, None).contiguous() if edge else None
@@ -1355,6 +1372,314 @@ def diff_kernel_phases(card: str, device, fit: dict, alone: dict) -> list[dict]:
         **k5_row,
         "library_ms": None,
     }]
+
+
+# ---------------------------------------------------------------------------
+# the image fit of the other scenes: K4 and K5 in their other parameter forms
+# ---------------------------------------------------------------------------
+
+#: each scene's `cli fit --image` beside the reference scene's (phases 10
+#: and 11): --perturb, the camera (None: the CLI's), and whether the fit's
+#: loss falls, as it does in the JAX package's fit; where that fit does not
+#: converge (the same argv through the JAX package's CLI on the CPU: the
+#: wrapped object's loss rises, the gadget's and the ground's are NaN from
+#: the first step, the lattice's rises and its parameter turns NaN), K5 is
+#: held against its plain version at each of the
+#: plain versions' first FIT_TWIN_STEPS steps' parameters instead, and the
+#: kernels' parameters after those steps are printed beside the plain
+#: versions'. They are not held: where a parameter's plain gradient is 0
+#: (every pixel it moves renders as the target), the kernels' is ~1e-11
+#: (their normal rounds otherwise), and Adam turns either into a whole
+#: step (on an NVIDIA H100 80GB HBM3 at 700 W the gadget's parted by
+#: 0.036 in 10 steps, the wrapped object's by 1.2e-4). The built-in scenes
+#: by name, the specs by their files (scene_arguments).
+FIT_SCENES = {
+    "sphere": ("radius=1.2", None, True),
+    "mandelbulb": ("scale=1.1", MANDELBULB_CAMERA, True),
+    "wrapped_object": ("sphere_radius=1.2", None, False),
+    "gadget": ("n3_radius=1.2", None, False),
+    "mushroom": ("n3_radius=1.2", None, True),
+    "snowman": ("n1_radius=1.2", None, True),
+    "ground": ("n5_radius=1.1", None, False),
+    "lattice": ("n2_minor_radius=1.2", None, False),
+}
+FIT_TWIN_STEPS = 10
+#: the parameter form each scene's K4 and K5 take (csrc/param_forms.cuh)
+FORM_OF = {"sphere": "SphereForm", "mandelbulb": "MandelbulbForm",
+           "wrapped_object": "WrappedForm"}
+#: the mandelbulb's bars of K4 and K5 against their plain versions, whose
+#: libm calls and whose gradients (forward over forward in the kernels,
+#: autograd's reverse mode twice in the plain versions) round differently:
+#: the outcomes (BULB_OUTCOMES) and the hits' depths within DEPTH_ATOL
+#: (BULB_DEPTH_SHARE) as K1's; dfdt within BULB_DFDT_RTOL relative (and
+#: DFDT_ATOL) on BULB_FIT_SHARE of the hits; K5's loss within BULB_LOSS_RTOL
+#: relative. A few hits near the fractal's surface carry gradients far
+#: larger than the rest (up to ~1e4 a tile at 512x512) and rounding sets
+#: their value, so K5's gradient is held over the tiles of a BULB_GRID x
+#: BULB_GRID split: of the live tiles (whose plain gradient exceeds
+#: GRAD_ATOL; the others pass whatever the kernel gives), BULB_TILE_SHARE
+#: within the K5 bars, at the CLI's 64x64 only (tools/bulb_faults.py: on an
+#: NVIDIA H100 80GB HBM3 at 700 W the sound kernels hold 6 of the 8 live
+#: tiles there and each planted fault none; at 512x512, where every live
+#: tile holds such hits, the sound kernels hold few, and the share there
+#: is printed, not held).
+BULB_DFDT_RTOL = 1e-3
+BULB_FIT_SHARE = 0.99
+BULB_LOSS_RTOL = 1e-2
+BULB_TILE_SHARE = 0.5
+BULB_GRID = 8
+
+
+def k5_excess(kernel, plain) -> float:
+    """The largest excess of K5's gradient over the bars (<= 0 within
+    them), NaN where the two gradients are NaN at different places."""
+    worst = -math.inf
+    for k in kernel:
+        if not torch.equal(kernel[k].isnan(), plain[k].isnan()):
+            return math.nan
+        ok = ~plain[k].isnan()
+        if ok.any():
+            worst = max(worst, ((kernel[k] - plain[k]).abs() - GRAD_ATOL
+                                - GRAD_RTOL * plain[k].abs())[ok].max().item())
+    return worst
+
+
+def bulb_readings(scene, params, o, d, c, target, bb) -> dict:
+    """The mandelbulb's readings against the BULB_* bars at ``params`` on
+    these rays: K4 against its plain version, K5's loss over the frame and
+    its gradient over each tile of the BULB_GRID split, edge term on."""
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+
+    k4 = dk.march_params_cuda(scene.csdf, params, o, d, c, bb=bb)
+    p4 = dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb)
+    k5 = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=1.0)
+    p5 = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=1.0)
+    h, w = c.shape
+    th, tw = h // BULB_GRID, w // BULB_GRID
+    live = []
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            crop = [x[y0:y0 + th, x0:x0 + tw].contiguous() for x in (o, d, c, target)]
+            kt = dk.render_loss_grad_cuda(scene.csdf, params, crop[3], *crop[:3], bb=bb,
+                                          edge_weight=1.0, total_pixels=h * w)
+            pt = dk.render_loss_grad_torch(scene.csdf, params, crop[3], *crop[:3], bb=bb,
+                                           edge_weight=1.0, total_pixels=h * w)
+            if max(v.abs().max().item() for v in pt[1].values()) > GRAD_ATOL:
+                live.append(k5_excess(kt[1], pt[1]) <= 0)
+    same = k4[2] == p4[2]
+    hit = same & (k4[2] == 0)
+    dfdt = (k4[3] - p4[3]).abs() <= DFDT_ATOL + BULB_DFDT_RTOL * p4[3].abs()
+    return {"outcome_agreement": same.float().mean().item(),
+            "hits": int(hit.sum()),
+            "depth_share": ((k4[0] - p4[0]).abs()[hit] <= DEPTH_ATOL).float().mean().item(),
+            "dfdt_share": dfdt[hit].float().mean().item(),
+            "loss_rel": abs(k5[0].item() - p5[0].item()) / abs(p5[0].item()),
+            "tiles": BULB_GRID * BULB_GRID, "live_tiles": len(live),
+            "tile_share": float(np.mean(live)) if live else math.nan,
+            "exact_k4": all(bool(torch.equal(a, b)) for i, (a, b) in enumerate(zip(k4, p4))
+                            if i != 3)}
+
+
+def bulb_failed(out: dict, tiles: bool) -> list[str]:
+    """The BULB_* bars that :func:`bulb_readings`' ``out`` fails, the tile
+    bar where ``tiles``."""
+    bars = {"outcome_agreement": out["outcome_agreement"] >= BULB_OUTCOMES,
+            "depth_share": out["depth_share"] >= BULB_DEPTH_SHARE,
+            "dfdt_share": out["dfdt_share"] >= BULB_FIT_SHARE,
+            "loss_rel": out["loss_rel"] <= BULB_LOSS_RTOL,
+            "hits": out["hits"] > 0,
+            "tile_share": not tiles or out["tile_share"] >= BULB_TILE_SHARE}
+    return [k for k, ok in bars.items() if not ok]
+
+
+def bulb_fit_bars(scene, params, o, d, c, target, bb, tiles: bool) -> dict:
+    """:func:`bulb_readings`, checked against the BULB_* bars (the tile
+    bar where ``tiles``)."""
+    out = bulb_readings(scene, params, o, d, c, target, bb)
+    failed = bulb_failed(out, tiles)
+    check(not failed, f"mandelbulb K4/K5 bars {failed} fail: {out}")
+    return out
+
+
+def fit_scene_phases(card: str, device) -> list[dict]:
+    """Phase 11b: `cli fit --image` of each scene of FIT_SCENES (one loop;
+    `cli._get_scene` resolves names and spec files) at the CLI's 64x64 and
+    60 steps (K4 at least once, K5 60 times; the loss falls, or the
+    kernels' first steps follow the plain versions'); K4 (track_min off
+    and on) and K5 (edge term off and on) against their plain versions at
+    64x64 and 512x512 (the JAX bench's training point), the fit's start
+    against the render at the true parameters (K4 bit-equal but dfdt,
+    within DFDT_ATOL; K5 within the bars, NaN at the same places, two calls
+    the same bits; the mandelbulb by its bars); K4's and K5's times alone
+    (CUDA graphs from a prepared struct) and their plain versions', with
+    bounds from this run's counts (`profiling.form_ops`); ptxas's
+    registers, stack and spills of each form's instantiations. Returns the
+    kernels line's K4 and K5 entries of each scene (512x512, K5 at the fit
+    point)."""
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.grad.edge import UNTRACKED, classify_target_miss
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
+    from bsdmg_tpu_torch.utils.profiling import form_ops, mandelbulb_loops
+
+    resources = kernel_resources("diff_kernel.cu", ("march_params_kernel<", "loss_march_kernel<",
+                                                    "loss_tangent_form_kernel<"))
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        arguments = scene_arguments(Path(tmp))
+        for name, (perturb, camera, falls) in FIT_SCENES.items():
+            arg = arguments.get(name, name)
+            argv = ["fit", "--image", "--scene", arg, "--perturb", perturb]
+            if camera:
+                argv += ["--camera", *map(str, camera)]
+            counts, messages, seconds = run_cli(argv)
+            losses = step_losses(messages)
+            print(f"fit {name}: cli fit --image (64x64, {FIT_STEPS} steps) in {seconds:.2f} s, "
+                  f"launches {counts}; loss {losses[0]:.4e} -> {losses[-1]:.4e}; {messages[-1]}")
+            check(counts["K4"] >= 1 and counts["K5"] == FIT_STEPS,
+                  f"cli fit --image --scene {name} launched K4 {counts['K4']} and K5 "
+                  f"{counts['K5']} times")
+            check(all(np.isfinite(losses)), f"fit --image --scene {name}: loss not finite {losses}")
+            scene = cli._get_scene(arg, device)
+            form = FORM_OF.get(name, "ProgramForm")
+            true = dict(scene.params)
+            start = cli._apply_perturb(true, cli._parse_perturb(perturb))
+            bounds = scene_bounds(scene)
+            bb = None if bounds is None else inflated(bounds, 0.6)
+            if falls:
+                check(losses[-1] < losses[0], f"fit --image --scene {name}: loss did not fall")
+            else:
+                o, d, c = rays(64, 64, device, camera)
+                logger = logging.getLogger("bsdmg_tpu_torch")
+                old_level = logger.level
+                logger.setLevel(logging.WARNING)
+                try:
+                    kern, _ = cli.fit_image(scene, true, start, o, d, c, steps=FIT_TWIN_STEPS,
+                                            lr=FIT_LR)
+                finally:
+                    logger.setLevel(old_level)
+                plain, _, shadow = plain_fit(scene, true, start, o, d, c, (FIT_TWIN_STEPS,),
+                                             shadow=True)
+                err = max((kern[k] - plain[FIT_TWIN_STEPS][k]).abs().max().item() for k in kern)
+                worst = (max(shadow["loss_rel"]), max(shadow["excess"]))
+                print(f"  K5 against its plain version at the plain versions' first "
+                      f"{FIT_TWIN_STEPS} steps' parameters: loss rel err max {worst[0]:.3e}, "
+                      f"gradient excess over the bars max {worst[1]:.3e}; the kernels' parameters "
+                      f"after them within {err:.3e} of the plain versions'")
+                check(worst[0] <= LOSS_RTOL and worst[1] <= 0,
+                      f"fit --scene {name}: K5 outside the bars on the fit's path {worst}")
+            for r in resources:
+                if f"<{form}" in r["kernel"]:
+                    print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B "
+                          f"stack, {r['spill_stores']} B spill stores, {r['spill_loads']} B spill "
+                          f"loads")
+            rows = {}
+            for size in (64, 512):
+                o, d, c = rays(size, size, device, camera)
+                h, w = c.shape
+                npix = w * h
+                target = render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf,
+                                           bb=bb).detach()
+                k4s = {}
+                for track in (False, True):
+                    k4 = dk.march_params_cuda(scene.csdf, start, o, d, c, bb=bb, track_min=track)
+                    p4 = dk.march_params_torch(scene.csdf, start, o, d, c, bb=bb, track_min=track)
+                    torch.cuda.synchronize()
+                    exact = {n: bool(torch.equal(k4[i], p4[i])) for i, n in enumerate(
+                        ("depth", "steps", "outcome", "dfdt", "min_m", "t_min")[:len(k4)])}
+                    both = ~(k4[3].isnan() | p4[3].isnan())
+                    err = _max_err(k4[3][both], p4[3][both]) if both.any() else 0.0
+                    print(f"parity K4 {name} {w}x{h}, track_min={track}: exact {json.dumps(exact)}, "
+                          f"dfdt max err {err:.3e}, hits {int((k4[2] == 0).sum())}")
+                    k4s[track] = (k4, p4, err, exact)
+                    if name != "mandelbulb":
+                        check(all(v for n, v in exact.items() if n != "dfdt"),
+                              f"K4 {name} {w}x{h} is not bit-equal to its plain version")
+                        check(err <= DFDT_ATOL and torch.equal(k4[3].isnan(), p4[3].isnan()),
+                              f"K4 {name} {w}x{h} dfdt {err}")
+                k5s = {}
+                for edge in (0.0, 1.0):
+                    k5 = dk.render_loss_grad_cuda(scene.csdf, start, target, o, d, c, bb=bb,
+                                                  edge_weight=edge)
+                    again = dk.render_loss_grad_cuda(scene.csdf, start, target, o, d, c, bb=bb,
+                                                     edge_weight=edge)
+                    p5 = dk.render_loss_grad_torch(scene.csdf, start, target, o, d, c, bb=bb,
+                                                   edge_weight=edge)
+                    torch.cuda.synchronize()
+                    res = {"loss": k5[0].item(), "plain_loss": p5[0].item(),
+                           "loss_rel_err": abs(k5[0].item() - p5[0].item())
+                           / max(abs(p5[0].item()), 1e-30),
+                           "excess_over_bars": k5_excess(k5[1], p5[1]),
+                           "grad_max_abs_err": max(
+                               _max_err(k5[1][k].nan_to_num(0.0), p5[1][k].nan_to_num(0.0))
+                               for k in k5[1]),
+                           "reproducible": bool(torch.equal(k5[0], again[0]) and all(
+                               torch.equal(k5[1][k], again[1][k]) for k in k5[1]))}
+                    print(f"parity K5 {name} {w}x{h}, edge {edge}: {json.dumps(res)}")
+                    check(res["reproducible"], f"K5 {name} {w}x{h} differs between two calls")
+                    if name != "mandelbulb":
+                        check(res["loss_rel_err"] <= LOSS_RTOL and res["excess_over_bars"] <= 0,
+                              f"K5 {name} {w}x{h} outside the bars {res}")
+                    k5s[edge] = res
+                if name == "mandelbulb":
+                    bars = bulb_fit_bars(scene, start, o, d, c, target, bb, tiles=size == 64)
+                    print(f"  mandelbulb bars at {w}x{h}: {json.dumps(bars)}")
+                # times alone from prepared structs, the plain versions', bounds
+                scene_c, _ = dk.param_scene_c(scene.csdf, start, bb=bb, device=device)
+                state = dk._target_state(target, None).contiguous()
+                k4_ms = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
+                k5_ms = graph_ms(lambda: dk._loss_grad_cuda(
+                    scene_c, o, d, c, target, state, npix, 1.0, dk._band(MarchConfig(), None)))
+                # the plain versions ran above: one timed call each
+                p4_ms = median_ms(lambda: dk.march_params_torch(scene.csdf, start, o, d, c, bb=bb),
+                                  runs=1, warmup=0)
+                p5_ms = median_ms(lambda: dk.render_loss_grad_torch(
+                    scene.csdf, start, target, o, d, c, bb=bb, edge_weight=1.0), runs=1, warmup=0)
+                desc = compile_scene(scene, start)
+                loop = mandelbulb_loops(desc, o, d, c)[0] if name == "mandelbulb" else None
+                sdf, grad = form_ops(desc, loop)
+                depth, steps, outcome, _, min_m, _ = k4s[True][0]
+                evals, advances, hits = march_work(steps, outcome, depth)
+                miss = classify_target_miss(target)
+                hit = outcome == 0
+                hinges = int(((~miss & ~hit & (min_m < UNTRACKED)) | (miss & hit)).sum().item())
+                n_prm = scene_c.n_prm
+                b4 = bound(npix * (28 + 16), k4_ops(npix, evals, advances, False, False,
+                                                    bb is not None, False, sdf=sdf, grad=grad))
+                b5 = bound(npix * 44, k5_ops(npix, evals, advances, hits, hinges, False, False, True,
+                                             sdf=sdf, grad=grad, bounds=bb is not None))
+                print(f"time K4 {name} {w}x{h} on {card}: {k4_ms:.4f} ms alone, plain {p4_ms:.3f} "
+                      f"ms; {evals} SDF evaluations, {hits} hits; bound {b4[0]:.4f} ms ({b4[1]})")
+                print(f"time K5 {name} {w}x{h} fit point on {card}: {k5_ms:.4f} ms alone, plain "
+                      f"{p5_ms:.3f} ms; {hits} hits, {hinges} hinges, {n_prm} parameter values; "
+                      f"bound {b5[0]:.4f} ms ({b5[1]})")
+                rows[size] = dict(k4=dict(ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0], bound_by=b4[1]),
+                               k5=dict(ms=k5_ms, plain_ms=p5_ms, bound_ms=b5[0], bound_by=b5[1]),
+                               k4_err=max(v[2] for v in k4s.values()),
+                               k5_err=max(v["grad_max_abs_err"] for v in k5s.values()))
+            entries += [{
+                "name": f"K4 march_params_kernel<{form}> ({name})",
+                "route": "cuda",
+                "source": dk.SOURCE,
+                "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60",
+                "launches": counts["K4"],
+                "max_abs_err": max(r["k4_err"] for r in rows.values()),
+                **rows[512]["k4"],
+                "library_ms": None,
+            }, {
+                "name": f"K5 loss_march_kernel<{form}> + loss_tangent_form_kernel<{form}> + "
+                        f"loss_grad_sum ({name}, fit point)",
+                "route": "cuda",
+                "source": dk.SOURCE,
+                "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232",
+                "launches": counts["K5"],
+                "max_abs_err": max(r["k5_err"] for r in rows.values()),
+                **rows[512]["k5"],
+                "library_ms": None,
+            }]
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -2101,26 +2426,35 @@ def march_probe(card: str, device, kernel: str = K1_DEFAULT) -> dict:
     out["k5_64"] = {"longest_steps": int(steps.reshape(-1)[j].item()), "k4_lone_ms": k4_alone,
                     "k5_lone_ms": k5(*ray), "k5_frame_ms": k5(o, d, c, target)}
     print(f"march probe on {card}: K5 at the 64x64 fit point {json.dumps(out['k5_64'])}")
-    k5 = [r for r in resources if r["kernel"].startswith("loss_")]
+    k5 = [r for r in resources if r["kernel"].startswith(REFERENCE_K5)]
     check(bool(k5) and all(r["spill_stores"] == r["spill_loads"] == 0 and r["registers"] <= 128
-                           for r in k5), f"a K5 kernel spills or takes over 128 registers: {k5}")
+                           for r in k5), f"a reference K5 kernel spills or takes over 128 "
+                                         f"registers: {k5}")
     return out
 
 
+#: K5's launches for the reference scenes' form (csrc/param_forms.cuh
+#: ReferenceForm); the other forms' tangent launch, loss_tangent_form_kernel,
+#: is held to no register count
+REFERENCE_K5 = ("loss_march_kernel<ReferenceForm", "loss_tangent_kernel<", "loss_grad_sum")
 #: the reference scenes' structures (csrc/scene_sdf.cuh Box<Frame, Transform>)
-#: in K1, K2, K3, K6 and K7, none of which may spill; K1's fresh march on the
-#: render scene holds K1_REGISTERS
+#: in K1, K2, K3, K6 and K7, and their parameter form in K4 and K5, none of
+#: which may spill; K1's fresh march on the render scene holds K1_REGISTERS,
+#: K4 and K5's march launch at most REFERENCE_MARCH_REGISTERS
 REFERENCE_KERNELS = (("render_kernel.cu", ("render_kernel<Box<", "trace_kernel<Box<",
                                            "shade_kernel<Box<")),
                      ("mc_kernel.cu", ("mc_kernel<Box<",)),
-                     ("project_kernel.cu", ("project_kernel<Box<",)))
+                     ("project_kernel.cu", ("project_kernel<Box<",)),
+                     ("diff_kernel.cu", ("march_params_kernel<ReferenceForm",) + REFERENCE_K5))
 K1_REGISTERS = 32
+REFERENCE_MARCH_REGISTERS = 53
 
 
 def reference_resources(card: str) -> list[dict]:
     """ptxas's registers and spills of every reference instantiation of K1,
-    K2, K3, K6 and K7 (REFERENCE_KERNELS): fails where one spills, or
-    where K1_DEFAULT takes other than K1_REGISTERS registers."""
+    K2, K3, K4, K5, K6 and K7 (REFERENCE_KERNELS): fails where one spills,
+    where K1_DEFAULT takes other than K1_REGISTERS registers, or where a
+    reference march of K4 or K5 takes more than REFERENCE_MARCH_REGISTERS."""
     rows = {prefix: kernel_resources(source, (prefix,))
             for source, prefixes in REFERENCE_KERNELS for prefix in prefixes}
     spilled = [r for found in rows.values() for r in found if r["spill_stores"] or r["spill_loads"]]
@@ -2131,6 +2465,10 @@ def reference_resources(card: str) -> list[dict]:
     check(all(rows.values()) and not spilled, f"a reference instantiation spills: {spilled}")
     check(len(k1) == 1 and k1[0]["registers"] == K1_REGISTERS,
           f"{K1_DEFAULT} takes other than {K1_REGISTERS} registers: {k1}")
+    marches = rows["march_params_kernel<ReferenceForm"] + rows["loss_march_kernel<ReferenceForm"]
+    check(all(r["registers"] <= REFERENCE_MARCH_REGISTERS for r in marches),
+          f"a reference march of K4 or K5 takes over {REFERENCE_MARCH_REGISTERS} registers: "
+          f"{marches}")
     return [r for found in rows.values() for r in found]
 
 
@@ -2197,8 +2535,8 @@ def march_params_probe(card: str, device) -> dict:
     for r in kernel_resources("diff_kernel.cu", ("march_params", "loss_march")):
         print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
               f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
-    for kernel, loops in sass_kernel_loops(build.build(), ("march_params_kernel",
-                                                           "loss_march_kernel")).items():
+    for kernel, loops in sass_kernel_loops(build.build(), ("march_params_kernel<ReferenceForm",
+                                                           "loss_march_kernel<ReferenceForm")).items():
         print(f"  SASS loops of {kernel}: {json.dumps(loops)}")
     cfg = MarchConfig()
     scene = reference_render_scene(device=device)
@@ -2595,9 +2933,6 @@ NEW_SCENES = ("sphere", "box", "wrapped_object", "mandelbulb")
 #: the frame K1 is timed on, and the smaller one of the pipelines' parity
 SCENE_FRAME = (1920, 1080)
 SCENE_PARITY_FRAME = (960, 540)
-#: the mandelbulb's estimator overshoots far from the set: from the JAX
-#: bench's camera every ray misses it, in both packages
-MANDELBULB_CAMERA = (2.0, 1.0, -2.0)
 #: the structure each scene's K1 runs (csrc/scene_sdf.cuh), culled but the
 #: unbounded wrapped object
 NEW_SCENE_K1 = {
@@ -3146,6 +3481,7 @@ def main(argv: list[str]) -> int:
     libm_probe(card, arguments)
     fit = fit_path_phases(card, device)
     kernels += diff_kernel_phases(card, device, fit, alone)
+    kernels += fit_scene_phases(card, device)
     kernels += grid_phases(card, device)
 
     print(json.dumps({"kernels": kernels}))

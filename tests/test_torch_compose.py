@@ -279,7 +279,10 @@ def test_kernel_structure_program_and_caps():
     raises, naming them."""
     header = (Path(tcsdf.__file__).resolve().parents[2] / "csrc" / "scene_sdf.cuh").read_text()
     assert "case 8: f(Composed{}); return true;" in header
-    caps = (Path(tcsdf.__file__).resolve().parents[2] / "csrc" / "composed.cuh").read_text()
+    # the caps are in program.cuh, which composed.cuh includes
+    caps = "".join((Path(tcsdf.__file__).resolve().parents[2] / "csrc" / name).read_text()
+                   for name in ("composed.cuh", "program.cuh"))
+    assert '#include "program.cuh"' in caps
     for macro, value in (("BSDMG_WORDS", tcsdf.PROGRAM_WORDS), ("BSDMG_PROGRAM", tcsdf.PROGRAM_CAP),
                          ("BSDMG_STACK", tcsdf.STACK_CAP), ("BSDMG_FRAMES", tcsdf.FRAME_CAP)):
         assert re.search(rf"#define {macro} {value}\b", caps), macro
@@ -580,7 +583,43 @@ def test_cli_depth_fit_of_a_spec_matches_jax(name, caplog):
     assert abs(ours[1] - ref[1]) <= 0.1 * abs(ref[1])
 
 
-def test_cli_fit_image_of_a_spec_raises():
-    with pytest.raises(NotImplementedError, match="K4 and K5"):
-        cli.main(["fit", "--image", "--device", "cpu", "--scene", _spec_path("snowman"),
-                  "--perturb", "n1_radius=1.2"])
+def _first_loss(lines):
+    return float([m for m in lines if m.startswith("step ")][0].split("loss=")[1].split()[0])
+
+
+def assert_image_fit_matches_jax(argv, caplog, size=(32, 24), steps=6, diverges=False):
+    """``fit --image`` of the port on the CPU (K4's and K5's twins) and
+    JAX's ``cmd_fit`` on the same argv at ``size`` for ``steps`` steps: the
+    recovered values within 1e-3 and the last loss within 10% relative,
+    the bars of the depth fits. A fit that ``diverges`` in both packages
+    (its loss rises) parts them in the loss faster than in the values, the
+    two float32 gradients differing in rounding (XLA contracts
+    multiply-adds): there the first step's loss is held to a relative 1e-4
+    and the last losses must both have risen."""
+    argv = ["fit", "--image", *argv, "--width", str(size[0]), "--height", str(size[1]),
+            "--steps", str(steps)]
+    with caplog.at_level(logging.INFO):
+        assert cli.main([*argv, "--device", "cpu"]) == 0
+        lines = _log_lines(caplog, "bsdmg_tpu_torch")
+        ours = _fit_values(lines) + (_first_loss(lines),)
+        caplog.clear()
+        jax_cli.main(argv)
+        lines = _log_lines(caplog, "bsdmg")
+        ref = _fit_values(lines) + (_first_loss(lines),)
+    assert np.isfinite(ref[0]).all() and np.isfinite(ref[1])
+    np.testing.assert_allclose(ours[0], ref[0], atol=1e-3, rtol=0)
+    if diverges:
+        assert abs(ours[2] - ref[2]) <= 1e-4 * abs(ref[2])
+        assert ours[1] > ours[2] and ref[1] > ref[2]
+    else:
+        assert abs(ours[1] - ref[1]) <= 0.1 * abs(ref[1])
+    return ours, ref
+
+
+def test_cli_fit_image_of_a_spec_raises(caplog):
+    """The image fit of a spec, which raised before kernels K4 and K5 took
+    a parameter program, against JAX's: the mushroom's (a plane, a sphere
+    and a cylinder under a smooth union); the snowman's is
+    tests/test_torch_slice.py's."""
+    assert_image_fit_matches_jax(["--scene", _spec_path("mushroom"), "--perturb", "n3_radius=1.2"],
+                                 caplog)

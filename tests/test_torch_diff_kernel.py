@@ -186,7 +186,8 @@ def test_param_scene_layout_matches_cuda_source():
     header = (ROOT / "bsdmg_tpu_torch" / "csrc" / "param_sdf.cuh").read_text()
     assert '#include "param_sdf.cuh"' in (ROOT / diff_kernel.SOURCE).read_text()
     assert f"#define BSDMG_MAX_PARAMS {diff_kernel.MAX_PARAMS} " in header
-    types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    types = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "int*": ctypes.c_void_p}  # a composed scene's parameter program in device memory
     fields = _c_struct_fields(header, "ParamScene")
     py = diff_kernel._ParamSceneC._fields_
     assert [f[1] for f in fields] == [f[0] for f in py]

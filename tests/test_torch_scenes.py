@@ -57,7 +57,7 @@ from bsdmg_tpu_torch.ops.cuda import render_kernel
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda, trace_cuda
 from bsdmg_tpu_torch.sdf import primitives as tprim
 from bsdmg_tpu_torch.utils import profiling
-from test_torch_compose import _fit_values, _log_lines
+from test_torch_compose import _fit_values, _log_lines, assert_image_fit_matches_jax
 from test_torch_mesh import _sorted_rows, assert_same_mesh
 from test_torch_render_kernel import assert_image_bars
 
@@ -370,16 +370,29 @@ def test_cli_render_each_scene(name, tmp_path):
 DEPTH_FITS = {"sphere": "radius=1.2", "box": "size=1.2"}
 
 
+#: the image fits held against JAX's cmd_fit (the box has no component form)
+IMAGE_FITS = {"sphere": "radius=1.2", "wrapped_object": "sphere_radius=1.2"}
+
+
 @pytest.mark.parametrize("name", ["box", "sphere", "wrapped_object"])
 def test_cli_fit_of_a_new_scene_raises(name, caplog):
-    """``fit --image`` of the other built-in scenes raises (K4's and K5's
-    parameter form covers the reference scenes); the depth fit is plain
-    PyTorch and runs as JAX's ``cmd_fit``: without ``--perturb`` it exits
-    asking for one, and the sphere's and the box's at 32x32 and 11 steps
-    recover the value within 1e-3 and the last loss within 10% relative of
-    JAX's. (The mandelbulb's: tests/test_torch_slice.py.)"""
-    with pytest.raises(NotImplementedError, match="K4 and K5"):
-        cli.main(["fit", "--device", "cpu", "--scene", name, "--image"])
+    """``fit --image`` of the box exits as JAX's ``cmd_fit`` does (it has no
+    component form); the sphere's and the wrapped object's run through K4's
+    and K5's twins and match JAX's at 32x24 and 6 steps (the wrapped
+    object's loss rises in both packages). The depth fit is plain PyTorch
+    and runs as JAX's ``cmd_fit``: without ``--perturb`` it exits asking for
+    one, and the sphere's and the box's at 32x32 and 11 steps recover the
+    value within 1e-3 and the last loss within 10% relative of JAX's. (The
+    mandelbulb's: tests/test_torch_slice.py.)"""
+    if name == "box":
+        argv = ["fit", "--image", "--scene", name, "--perturb", "size=1.2"]
+        with pytest.raises(SystemExit, match="param-traced component SDF"):
+            cli.main([*argv, "--device", "cpu"])
+        with pytest.raises(SystemExit, match="param-traced component SDF"):
+            jax_cli.main(argv)
+    else:
+        assert_image_fit_matches_jax(["--scene", name, "--perturb", IMAGE_FITS[name]], caplog,
+                                     diverges=name == "wrapped_object")
     with pytest.raises(SystemExit, match="pass --perturb"):
         cli.main(["fit", "--device", "cpu", "--scene", name])
     if name not in DEPTH_FITS:

@@ -21,6 +21,7 @@ from bsdmg_tpu.ops.pallas.csdf import scene_bounds
 from bsdmg_tpu.ops.pallas.render_kernel import render_image_pallas
 from bsdmg_tpu_torch import cli
 from bsdmg_tpu_torch.weights import params_from_numpy
+from test_torch_compose import assert_image_fit_matches_jax
 
 # one intra-op thread: PyTorch's spinning OpenMP pool would otherwise take
 # every core from the timing-sensitive tests that run beside these
@@ -86,20 +87,31 @@ def test_cli_without_cuda_raises(tmp_path):
     assert not out.exists()
 
 
+#: the image fits of the scenes K4 and K5 did not take before their
+#: parameter forms, against JAX's cmd_fit: argv, size and steps
+IMAGE_FITS = {
+    "mandelbulb": (["--scene", "mandelbulb", "--camera", "2", "1", "-2", "--perturb", "scale=1.1"],
+                   (16, 12), 3),
+    "examples/snowman.json": (["--scene", "examples/snowman.json", "--perturb", "n1_radius=1.2"],
+                              (32, 24), 6),
+}
+
+
 @pytest.mark.parametrize("scene", ["mandelbulb", "examples/snowman.json", "mesh:bunny.obj"])
-def test_cli_unported_scene_raises(scene, tmp_path):
+def test_cli_unported_scene_raises(scene, tmp_path, caplog):
     # mesh assets render (tests/test_torch_grid_kernel.py); meshing one does
     # not. The mandelbulb and composed scenes render, mesh and fit depth
-    # (tests/test_torch_scenes.py, test_torch_compose.py); their image fit
-    # does not: K4's and K5's parameter form covers the reference scenes
-    # only. The depth fit of the mandelbulb without --perturb exits asking
-    # for one, as the JAX CLI's does
+    # (tests/test_torch_scenes.py, test_torch_compose.py), and their image
+    # fit runs through K4's and K5's twins and matches JAX's cmd_fit
+    # (without --perturb it exits asking for one, as the JAX CLI's does)
     if scene.startswith("mesh:"):
-        argv = ["mesh", "-o", str(tmp_path / "x.obj")]
-    else:
-        argv = ["fit", "--image"]
-    with pytest.raises(NotImplementedError):
-        cli.main([*argv, "--device", "cpu", "--scene", scene])
+        with pytest.raises(NotImplementedError):
+            cli.main(["mesh", "-o", str(tmp_path / "x.obj"), "--device", "cpu", "--scene", scene])
+        return
+    with pytest.raises(SystemExit, match="pass --perturb"):
+        cli.main(["fit", "--image", "--device", "cpu", "--scene", scene])
+    argv, size, steps = IMAGE_FITS[scene]
+    assert_image_fit_matches_jax(argv, caplog, size, steps)
     if scene == "mandelbulb":
         with pytest.raises(SystemExit, match="pass --perturb"):
             cli.main(["fit", "--device", "cpu", "--scene", scene])
