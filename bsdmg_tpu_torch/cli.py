@@ -1,5 +1,5 @@
-"""Command-line interface of the PyTorch port: the ``render``, ``mesh``, ``session``, ``fit``,
-``animate`` and ``bench`` verbs.
+"""Command-line interface of the PyTorch port: the ``render``, ``mesh``, ``remesh``,
+``session``, ``fit``, ``animate`` and ``bench`` verbs.
 
     python -m bsdmg_tpu_torch.cli render -o out.png
     python -m bsdmg_tpu_torch.cli render --scene examples/snowman.json -o out.png
@@ -7,6 +7,8 @@
     python -m bsdmg_tpu_torch.cli render --scene mesh:asset.obj[:RES] -o out.png
     python -m bsdmg_tpu_torch.cli mesh -o out.obj
     python -m bsdmg_tpu_torch.cli mesh --interpolate-edges -o out.obj
+    python -m bsdmg_tpu_torch.cli mesh --scene mesh:asset.obj[:RES] -o out.obj
+    python -m bsdmg_tpu_torch.cli remesh -i asset.obj [--grid-resolution 128] -o out.obj
     python -m bsdmg_tpu_torch.cli session --keys vbbbvv -o out.obj
     python -m bsdmg_tpu_torch.cli fit
     python -m bsdmg_tpu_torch.cli fit --image
@@ -17,18 +19,21 @@
 by default, ``sphere``, ``box``, ``mandelbulb``, ``wrapped_object``) or a
 composed scene (``path.json`` or ``spec:path``, a JSON CSG spec,
 ``models/compose.py``, which the kernels run as a node program) at
-1920x1080 through CUDA kernel K1, or a triangle-mesh asset baked into a
-RES^3 grid SDF (default 128) through kernels K9 (the contraction ladder),
-K8 (the fine finish) and P1 (the hit normals);
-``mesh`` refines a built-in scene (the reference object by default) three
-levels from a 32^3 grid and extracts its surface through kernel K6 (edge
-midpoints) or K7 (``--interpolate-edges``); ``session`` replays the
-reference's refine/advance stage machine from a key script, each
-extraction through K6; ``fit`` perturbs scene parameters and recovers
-them by inverse rendering, from a depth map (plain PyTorch and autograd) or,
-with ``--image``, from an image through kernels K4 (the target's march) and
-K5 (each step's loss and gradient), for every scene but the box; ``animate``
-renders a camera orbit, or the object's motion, one K1 launch a frame;
+1920x1080 through CUDA kernel K1, or a triangle-mesh asset (``mesh:``)
+baked into a RES^3 grid SDF (default 128) by the bake kernel through
+kernels K9 (the contraction ladder), K8 (the fine finish) and P1 (the hit
+normals); ``mesh`` refines a scene (the reference object by default; a
+mesh asset as its baked grid) three levels from a 32^3 grid and extracts
+its surface through kernel K6 (edge midpoints) or K7
+(``--interpolate-edges``); ``remesh`` bakes an OBJ and re-extracts its
+surface through K6; ``session`` replays the reference's refine/advance
+stage machine from a key script, each extraction through K6; ``fit``
+perturbs scene parameters and recovers them by inverse rendering, from a
+depth map (plain PyTorch and autograd) or, with ``--image``, from an image
+through kernels K4 (the target's march) and K5 (each step's loss and
+gradient), for every scene but the box and mesh assets; ``animate``
+renders a camera orbit, or the object's motion, one K1 launch a frame (a
+mesh asset's orbit through K9, K8 and P1);
 ``bench`` prints the JAX CLI's
 operating-point numbers as JSON (the render of ``--scene`` through K1, or with
 ``--two-phase row`` through K2 and K3, with ``block`` through K1 twice;
@@ -65,7 +70,7 @@ from bsdmg_tpu_torch.mesh.export import (
     save_png,
     save_vtk,
 )
-from bsdmg_tpu_torch.mesh.pipeline import generate_mesh
+from bsdmg_tpu_torch.mesh.pipeline import generate_mesh, remesh
 from bsdmg_tpu_torch.mesh.session import MeshGenSession
 from bsdmg_tpu_torch.models import (
     get_scene,
@@ -73,7 +78,7 @@ from bsdmg_tpu_torch.models import (
     reference_object,
     reference_render_scene,
 )
-from bsdmg_tpu_torch.models.mesh_sdf import mesh_scene
+from bsdmg_tpu_torch.models.mesh_sdf import bake_mesh_grid, mesh_scene
 from bsdmg_tpu_torch.models.motion import (
     AxisCyclicMotion,
     RotateAxisMotion,
@@ -116,13 +121,11 @@ def _parse_mesh_spec(rest: str, default_resolution: int = 128):
 
 
 def _get_scene(name: str, device: torch.device):
-    """A built-in scene by name, or a composed scene from a JSON spec
-    (``path.json`` or ``spec:path``); a mesh asset only in ``render``."""
+    """A built-in scene by name, a composed scene from a JSON spec
+    (``path.json`` or ``spec:path``), or a mesh asset (``mesh:path.obj[:RES]``)
+    baked on ``device``."""
     if name.startswith("mesh:"):
-        raise NotImplementedError(
-            f"scene {name!r}: mesh-asset scenes outside `render` are not ported to "
-            "bsdmg_tpu_torch yet"
-        )
+        return _mesh_asset_scene(name, device)
     if name.startswith("spec:") or name.endswith(".json"):
         return load_scene_spec(name[len("spec:"):] if name.startswith("spec:") else name,
                                device=device)
@@ -147,32 +150,33 @@ def _mesh_asset_scene(spec: str, device: torch.device):
     return scene
 
 
-def _render(scene, origins, dirs, cone):
-    """The scene's render: the grid route for a mesh asset (its contraction
-    ladder built once), else kernel K1 on the compiled descriptor."""
+def _renderer(scene):
+    """The scene's render, ``(origins, dirs, cone) -> rgb``: the grid route
+    for a mesh asset (its contraction ladder built once, here), else kernel
+    K1 on the compiled descriptor."""
     if scene.grid is None:
-        return render_image_cuda(compile_scene(scene), origins, dirs, cone)
+        desc = compile_scene(scene)
+        return lambda origins, dirs, cone: render_image_cuda(desc, origins, dirs, cone)
     t0 = time.perf_counter()
     levels = make_contraction_levels(scene.grid)
     log.info(
         "contraction levels %s in %.3fs",
         [f"{lv.r}^3 {lv.table.dtype}" for lv in levels], time.perf_counter() - t0,
     )
-    return render_image_grid(scene.grid, origins, dirs, cone, mode="contraction", levels=levels)
+    return lambda origins, dirs, cone: render_image_grid(
+        scene.grid, origins, dirs, cone, mode="contraction", levels=levels
+    )
 
 
 def cmd_render(args) -> None:
     device = _device(args.device)
-    if args.scene.startswith("mesh:"):
-        scene = _mesh_asset_scene(args.scene, device)
-    else:
-        scene = _get_scene(args.scene, device)
+    scene = _get_scene(args.scene, device)
     cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
     origins, dirs, cone = generate_rays(
         cam, (args.width, args.height), (args.screen_width, args.screen_height)
     )
     t0 = time.perf_counter()
-    img = _render(scene, origins, dirs, cone)
+    img = _renderer(scene)(origins, dirs, cone)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     log.info(
@@ -297,14 +301,16 @@ def cmd_animate(args) -> None:
     one PNG a frame (and ``--gif``). Every frame is one launch of K1: the
     orbit's on the scene's descriptor, the motion's on a descriptor
     compiled at the frame's moved params (the object transform, or a
-    composed scene's root transform node, is data in the descriptor)."""
+    composed scene's root transform node, is data in the descriptor). A
+    mesh asset orbits through the grid route (its ladder built once); its
+    table takes no motion, which is ignored with the JAX CLI's warning."""
     device = _device(args.device)
     scene = _get_scene(args.scene, device)
     axis_cyclic, spheric_cyclic, rotate_axis = _motion_components(args)
     moving = any(m is not None for m in (axis_cyclic, spheric_cyclic, rotate_axis))
     keys = _motion_keys(scene) if moving else None
     moving = keys is not None
-    desc = None if moving else compile_scene(scene)
+    render = None if moving else _renderer(scene)
 
     radius = float(np.linalg.norm(args.camera))
     gif_frames = [] if args.gif else None
@@ -330,7 +336,7 @@ def cmd_animate(args) -> None:
             params[keys[0]], params[keys[1]] = moved["object_center"], moved["object_rotation"]
             img = render_image_cuda(compile_scene(scene, params), origins, dirs, cone)
         else:
-            img = render_image_cuda(desc, origins, dirs, cone)
+            img = render(origins, dirs, cone)
         rgba8 = to_rgba8(img).cpu().numpy()
         path = f"{args.output or 'frame'}_{i:04d}.png"
         save_png(rgba8, path)
@@ -341,6 +347,27 @@ def cmd_animate(args) -> None:
         fps = args.frames / args.seconds if args.seconds > 0 else 10.0
         save_gif(gif_frames, args.gif, fps=fps)
         log.info("wrote %s (%d frames, %.1f fps)", args.gif, args.frames, fps)
+
+
+def cmd_remesh(args) -> None:
+    """Load a mesh asset, bake a grid SDF, re-extract its surface at the
+    target resolution (``bsdmg_tpu/cli.py`` cmd_remesh; ``mesh.pipeline.
+    remesh``: K6 on the card)."""
+    device = _device(args.device)
+    src = load_obj(args.input)
+    log.info("loaded %s: %d verts, %d tris", args.input, src.vertex_count, src.triangle_count)
+    t0 = time.perf_counter()
+    grid = bake_mesh_grid(src.vertices, src.faces, resolution=args.grid_resolution,
+                          device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log.info("baked %d^3 SDF grid in %.2fs", args.grid_resolution, time.perf_counter() - t0)
+    mesh = remesh(grid, init_factor=args.init_factor, refine=args.refine,
+                  newton_iters=args.newton_iters, device=device)
+    log.info("remeshed: %d verts, %d tris", mesh.vertex_count, mesh.triangle_count)
+    out = args.output or "remeshed.obj"
+    (save_vtk if out.endswith(".vtk") else save_obj)(mesh, out)
+    log.info("wrote %s", out)
 
 
 def _parse_perturb(spec: str) -> dict[str, tuple[str, float]]:
@@ -400,6 +427,12 @@ def cmd_fit(args) -> None:
     (``--image``): the target is rendered at the scene's true params, the
     ``--perturb`` params are perturbed, and gradient descent recovers them."""
     device = _device(args.device)
+    if args.image and args.scene.startswith("mesh:"):
+        raise NotImplementedError(
+            f"fit --image --scene {args.scene}: a mesh asset's image fit needs a grid parameter "
+            "form of kernels K4 and K5, not ported yet (ROADMAP.md queue 1, \"fit --image of "
+            "mesh: scenes\")"
+        )
     default_scene = args.scene == "reference_render_scene"
     scene = reference_object(device=device) if default_scene else _get_scene(args.scene, device)
     cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
@@ -453,7 +486,10 @@ def cmd_fit(args) -> None:
         mask = stable0 & (hit.outcome == COLLISION)
         err = (t - t_target) * mask
         loss = torch.sum(err**2) / torch.clamp_min(torch.sum(mask), 1)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        # a mesh asset's SDF reads no param: its loss has no graph, its
+        # gradient is zero, as JAX's is
+        grads = (torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+                 if loss.requires_grad else [None] * len(params))
         with torch.no_grad():
             for p, g in zip(params.values(), grads):
                 if g is not None:
@@ -618,8 +654,8 @@ def build_parser() -> argparse.ArgumentParser:
     m = sub.add_parser("mesh", help="hierarchical refine + marching cubes -> OBJ/VTK")
     m.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name (bsdmg_tpu_torch.models.SCENES) or a .json CSG spec; the render scene "
-        "meshes its object, reference_object",
+        help="scene name (bsdmg_tpu_torch.models.SCENES), a .json CSG spec or "
+        "'mesh:path.obj[:RES]'; the render scene meshes its object, reference_object",
     )
     m.add_argument("--refine", type=int, default=3, help="refinement levels")
     m.add_argument("--init-factor", type=int, default=32)
@@ -638,12 +674,22 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(m)
     m.set_defaults(fn=cmd_mesh)
 
+    rm = sub.add_parser("remesh", help="mesh asset -> grid SDF -> adaptive re-extraction")
+    rm.add_argument("--input", "-i", required=True, help="source OBJ")
+    rm.add_argument("--grid-resolution", type=int, default=128)
+    rm.add_argument("--init-factor", type=int, default=32)
+    rm.add_argument("--refine", type=int, default=2)
+    rm.add_argument("--newton-iters", type=int, default=8)
+    rm.add_argument("--output", "-o", default=None, help=".obj (default remeshed.obj) or .vtk")
+    _add_device(rm)
+    rm.set_defaults(fn=cmd_remesh)
+
     ft = sub.add_parser("fit", help="inverse rendering: recover SDF params from depth or image")
     ft.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name or a .json CSG spec; the depth fit of the render scene fits its "
-        "object, reference_object; the image fit takes every scene with a component form "
-        "(the box has none)",
+        help="scene name, a .json CSG spec or 'mesh:path.obj[:RES]'; the depth fit of the "
+        "render scene fits its object, reference_object; the image fit takes every scene with "
+        "a component form (the box has none) but a mesh asset",
     )
     common_camera(ft, 64, 64)
     ft.add_argument("--steps", type=int, default=60)
@@ -664,7 +710,8 @@ def build_parser() -> argparse.ArgumentParser:
     a = sub.add_parser("animate", help="render a camera orbit or object motion")
     a.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name (bsdmg_tpu_torch.models.SCENES), or a .json CSG spec",
+        help="scene name (bsdmg_tpu_torch.models.SCENES), a .json CSG spec or "
+        "'mesh:path.obj[:RES]'",
     )
     common_camera(a, 1920, 1080)
     a.add_argument("--frames", type=int, default=8)
@@ -693,7 +740,8 @@ def build_parser() -> argparse.ArgumentParser:
     se = sub.add_parser("session", help="scripted refine/advance stage machine")
     se.add_argument(
         "--scene", default="reference_render_scene",
-        help="scene name (bsdmg_tpu_torch.models.SCENES) or a .json CSG spec, meshed as named",
+        help="scene name (bsdmg_tpu_torch.models.SCENES), a .json CSG spec or "
+        "'mesh:path.obj[:RES]', meshed as named",
     )
     se.add_argument("--keys", default="vbbbvv", help="key script: b=refine, v=advance")
     se.add_argument("--commands", default=None, help="comma list: refine,advance,...")

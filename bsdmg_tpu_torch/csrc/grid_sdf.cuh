@@ -20,13 +20,21 @@
 //   are read directly. Hat<T> reads the eight corners from the raw table
 //   (P1), HatCells<T> from the cell-packed copy (K9).
 //
+// - grid_scene is the grid as a scene of the mesh kernels K6 and K7
+//   (scene_sdf.cuh GridScene): InterpF32's arithmetic ("weights", the JAX
+//   package's grid_csdf) or grid_sdf's lerps ("lerp"), each point moved by
+//   an offset first, and the value's gradient as jax.vjp takes it.
+//
 // Every float constant arrives as the float32 the plain twins
-// (bsdmg_tpu_torch/models/mesh_sdf.py, ops/cuda/grid_kernel.py) compute
-// with, and with -fmad=false each operation rounds as theirs do.
+// (bsdmg_tpu_torch/models/mesh_sdf.py, ops/cuda/grid_kernel.py,
+// ops/cuda/csdf.py) compute with, and with -fmad=false each operation
+// rounds as theirs do.
 
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include "dual.cuh"
 
 // the grid's box: its corners, scale = (r - 1) / (hi - lo) and the clamp
 // r - 1 - 1e-4, all float32
@@ -251,3 +259,123 @@ struct HatCells<float> {
     return hat_sample<float>(b, margin, *this, x, y, z);
   }
 };
+
+// ---------------------------------------------------------------------------
+// a mesh asset's grid as a scene of K6 and K7
+// ---------------------------------------------------------------------------
+
+// the two forms the JAX package interpolates a grid in: grid_sdf's lerps
+// c000 + (c100 - c000) * fx, which `cli mesh` meshes (through
+// as_component), and grid_csdf's weights c000 * (1 - fx) + c100 * fx,
+// which `cli remesh` meshes
+enum GridForm { GRID_LERP = 0, GRID_WEIGHTS = 1 };
+
+// The value at (x, y, z) + off, and with Grad its gradient by reverse mode
+// with a cotangent of 1, as jax.vjp of the JAX function takes it: floor and
+// the index casts carry nothing; jnp.clip's maximum(0, q) and
+// minimum(clip_hi, .), the outside's maxima and the step's maximum weight
+// their cotangents by JAX's tie rule (dual.cuh tie_weight); the square
+// root's weight 0.5 / sqrt(sq) only where sq > 0. Cotangents that meet sum
+// in the order of JAX's transpose (its equations in reverse): fx's from
+// the lerps of c11, c01, c10 and c00 in turn (weights: + ct * c1, then
+// - ct * c0), a coordinate's as (ct_hi - ct_lo) + ct_q * scale. The twin,
+// operation for operation, is ops/cuda/csdf.py::_grid_value_and_grad; the
+// value equals InterpF32's (weights) bit for bit at the same point.
+template <int Form, bool Grad>
+__device__ __forceinline__ float grid_scene(const float* __restrict__ table, const GridBox& b,
+                                            const float* off, float x, float y, float z,
+                                            float& gx, float& gy, float& gz) {
+  const float u[3] = {x + off[0], y + off[1], z + off[2]};
+  float q[3], m[3], c[3], f[3];
+  int i0[3], i1[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    q[a] = (u[a] - b.lo[a]) * b.scale[a];
+    m[a] = fmaxf(q[a], 0.0f);
+    c[a] = fminf(m[a], b.clip_hi);
+    const float base = floorf(c[a]);
+    f[a] = c[a] - base;
+    i0[a] = static_cast<int>(base);
+    i1[a] = min(i0[a] + 1, b.r - 1);
+  }
+  const int r = b.r;
+  // a[dy][dz][dx]
+  float a[2][2][2];
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx)
+        a[dy][dz][dx] = table[((dx ? i1[0] : i0[0]) * r + (dy ? i1[1] : i0[1])) * r +
+                              (dz ? i1[2] : i0[2])];
+  const float wx = 1.0f - f[0];
+  float cx[2][2];
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz)
+      cx[dy][dz] = Form == GRID_LERP ? a[dy][dz][0] + (a[dy][dz][1] - a[dy][dz][0]) * f[0]
+                                     : a[dy][dz][0] * wx + a[dy][dz][1] * f[0];
+  const float c0 = cx[0][0] + (cx[1][0] - cx[0][0]) * f[1];
+  const float c1 = cx[0][1] + (cx[1][1] - cx[0][1]) * f[1];
+  const float interior = c0 + (c1 - c0) * f[2];
+  float below[3], above[3], m1[3], o[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    below[k] = b.lo[k] - u[k];
+    above[k] = u[k] - b.hi[k];
+    m1[k] = fmaxf(below[k], above[k]);
+    o[k] = fmaxf(m1[k], 0.0f);
+  }
+  const float sq = (o[0] * o[0] + o[1] * o[1]) + o[2] * o[2];
+  const bool out = sq > 0.0f;
+  const float outside = out ? sqrtf(sq) : 0.0f;
+  const float diff = interior - outside;
+  const float mx = fmaxf(outside, diff);
+  const bool stepped = outside > 0.0f;
+  const float d = stepped ? mx : interior;
+  if (!Grad) return d;
+
+  // backward, cotangent 1
+  const float w_diff = tie_weight(diff, mx, outside);
+  const float ct_int = stepped ? w_diff : 1.0f;
+  const float ct_out = stepped ? tie_weight(outside, mx, diff) - w_diff : 0.0f;
+  const float ct_sq = out ? ct_out * (0.5f / outside) : 0.0f;
+  const float ct_fz = ct_int * (c1 - c0);
+  const float ct_c1 = ct_int * f[2];
+  const float ct_c0 = ct_int - ct_c1;
+  const float ct_fy = ct_c1 * (cx[1][1] - cx[0][1]) + ct_c0 * (cx[1][0] - cx[0][0]);
+  const float ct_cx[2][2] = {{ct_c0 - ct_c0 * f[1], ct_c1 - ct_c1 * f[1]},
+                             {ct_c0 * f[1], ct_c1 * f[1]}};
+  // the lerps of c11, c01, c10, c00: [dy][dz] = [1][1], [0][1], [1][0], [0][0]
+  float ct_fx = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int dy = (k & 1) ? 0 : 1, dz = k < 2 ? 1 : 0;
+    const float ct = ct_cx[dy][dz];
+    if (Form == GRID_LERP) {
+      const float t = ct * (a[dy][dz][1] - a[dy][dz][0]);
+      ct_fx = k == 0 ? t : ct_fx + t;
+    } else {
+      const float t = ct * a[dy][dz][1];
+      ct_fx = (k == 0 ? t : ct_fx + t) - ct * a[dy][dz][0];
+    }
+  }
+  const float ct_f[3] = {ct_fx, ct_fy, ct_fz};
+  float g[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float ct_m = ct_f[k] * tie_weight(m[k], c[k], b.clip_hi);
+    const float ct_t = (ct_m * tie_weight(q[k], m[k], 0.0f)) * b.scale[k];
+    const float s = ct_sq * o[k];
+    const float ct_m1 = (s + s) * tie_weight(m1[k], o[k], 0.0f);
+    const float ct_above = ct_m1 * tie_weight(above[k], m1[k], below[k]);
+    const float ct_below = ct_m1 * tie_weight(below[k], m1[k], above[k]);
+    g[k] = (ct_above - ct_below) + ct_t;
+  }
+  gx = g[0];
+  gy = g[1];
+  gz = g[2];
+  return d;
+}

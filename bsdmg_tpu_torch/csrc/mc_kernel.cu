@@ -4,7 +4,10 @@
 // Replaces the TPU kernel bsdmg_tpu/ops/pallas/mc_fused.py::_mc_kernel (the
 // pallas_call at mc_fused.py:306 of mc_fused_pallas), which the JAX
 // package's default mesh path reaches through
-// ops/marching_cubes.py::_finish_fused. Per voxel, in order:
+// ops/marching_cubes.py::_finish_fused. It is built for every structure of
+// with_mesh_structure (scene_sdf.cuh): the built-in scenes, a composed
+// scene's node program, and a mesh asset's baked grid (GridScene), which
+// the JAX package meshes in XLA. Per voxel, in order:
 //
 // 1. unpack the 12 crossing bits; an edge's exclusive rank is the number of
 //    crossing edges before it;
@@ -275,7 +278,7 @@ int bsdmg_mc_fused(const SceneDesc* desc, const float* lx, const float* ly, cons
                    int* meta, void* stream) {
   const dim3 block(kThreads);
   const dim3 grid((n + kVoxels - 1) / kVoxels);
-  const bool known = with_structure(desc->structure, [&](auto scene) {
+  const bool known = with_mesh_structure(desc->structure, [&](auto scene) {
     mc_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         *desc, lx, ly, lz, cross_bits, t0, t1, voxel_size, n, budget, iters, tol, eps, use_grad,
         centroid_winding, pos, nrm, dot, amb, meta);

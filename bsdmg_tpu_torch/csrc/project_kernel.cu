@@ -8,6 +8,8 @@
 // the analytic gradient (use_grad) or the fd4 one, a point stopping after
 // the step at which |sd| <= tol (inactive points do not move), then the fd4
 // unit normal at the final point, for every point as in the JAX kernel.
+// Built for every structure of with_mesh_structure (scene_sdf.cuh), a mesh
+// asset's grid (GridScene) among them, as K6 is.
 //
 // What bounds it on Hopper: FP32 work, the same per point as one edge of K6
 // (project.cuh): a few Newton steps and the fd4 normal; memory traffic is
@@ -61,7 +63,7 @@ int bsdmg_project_edges(const SceneDesc* desc, const float* x, const float* y, c
                         void* stream) {
   const dim3 block(128);
   const dim3 grid((m + 127) / 128);
-  const bool known = with_structure(desc->structure, [&](auto scene) {
+  const bool known = with_mesh_structure(desc->structure, [&](auto scene) {
     project_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         *desc, x, y, z, active, m, iters, tol, eps, use_grad, px, py, pz, nx, ny, nz);
   });

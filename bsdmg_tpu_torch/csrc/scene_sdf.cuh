@@ -25,7 +25,10 @@
 // composed scene's node program (composed.cuh). csdf.py::
 // kernel_structure picks the structure from the descriptor (and raises for
 // a descriptor that matches none); with_structure turns its index into the
-// template on the host.
+// template on the host. GridScene<Form> is a mesh asset's baked grid
+// (grid_sdf.cuh grid_scene), which only the mesh kernels K6 and K7 take:
+// with_mesh_structure adds it to with_structure's, so K1, K2 and K3 are
+// not built for it (a grid renders through grid_kernel.cu).
 //
 // The sphere's and the box's gradients are reverse mode with JAX's tie
 // rules, as the reference scenes' are; the mandelbulb's is forward mode,
@@ -43,6 +46,7 @@
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "grid_sdf.cuh"
 #include "mandelbulb.cuh"
 
 #define BSDMG_GROUPS 3  // parallel-edge groups of a box skeleton
@@ -102,6 +106,12 @@ struct SceneDesc {
   // descriptor on the host owns the buffer
   const int* program;
   int program_length;
+  // Grid: a mesh asset's baked (r, r, r) table in device memory, C order,
+  // its box, and the offset added to each point first (0 for none); the
+  // descriptor on the host keeps the table alive
+  const float* grid_table;
+  GridBox grid;
+  float grid_offset[3];
 };
 
 enum SceneKind {
@@ -110,7 +120,8 @@ enum SceneKind {
   KIND_SOLID_BOX,
   KIND_MANDELBULB,
   KIND_WRAPPED,
-  KIND_COMPOSED
+  KIND_COMPOSED,
+  KIND_GRID
 };
 
 // The compile-time structure of a reference scene: with the wireframe or
@@ -158,6 +169,15 @@ struct Composed {
   static constexpr bool unrolled = false;
 };
 
+// a mesh asset's grid in the form Form (grid_sdf.cuh GridForm): eight
+// gathers share nothing between the stencil's points, so it stays rolled
+template <int Form>
+struct GridScene {
+  static constexpr SceneKind kind = KIND_GRID;
+  static constexpr int form = Form;
+  static constexpr bool unrolled = false;
+};
+
 // Calls f(S{}) for the structure index csdf.py::kernel_structure gives:
 // 2 * frame + transform for Box, then Sphere, SolidBox, Mandelbulb, the
 // wrapped reference object and Composed; false for an index that names
@@ -175,6 +195,17 @@ inline bool with_structure(int structure, F&& f) {
     case 7: f(Wrapped<Box<false, false>>{}); return true;
     case 8: f(Composed{}); return true;
     default: return false;
+  }
+}
+
+// with_structure's structures and the grid's two forms (csdf.py
+// GRID_FORMS): the dispatch of the mesh kernels K6 and K7 alone
+template <class F>
+inline bool with_mesh_structure(int structure, F&& f) {
+  switch (structure) {
+    case 9: f(GridScene<GRID_LERP>{}); return true;
+    case 10: f(GridScene<GRID_WEIGHTS>{}); return true;
+    default: return with_structure(structure, f);
   }
 }
 
@@ -488,6 +519,9 @@ __device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y,
     return scene_sdf<typename S::inner>(s, wrap_coord(s, x), wrap_coord(s, y), wrap_coord(s, z));
   } else if constexpr (S::kind == KIND_COMPOSED) {
     return composed_sdf(s, x, y, z);
+  } else if constexpr (S::kind == KIND_GRID) {
+    float gx, gy, gz;
+    return grid_scene<S::form, false>(s.grid_table, s.grid, s.grid_offset, x, y, z, gx, gy, gz);
   } else {
     return reference_sdf<S>(s, x, y, z);
   }
@@ -509,6 +543,8 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
                                       gx, gy, gz);
   } else if constexpr (S::kind == KIND_COMPOSED) {
     composed_sdf_grad(s, x, y, z, d, gx, gy, gz);
+  } else if constexpr (S::kind == KIND_GRID) {
+    d = grid_scene<S::form, true>(s.grid_table, s.grid, s.grid_offset, x, y, z, gx, gy, gz);
   } else {
     reference_sdf_grad<S>(s, x, y, z, d, gx, gy, gz);
   }

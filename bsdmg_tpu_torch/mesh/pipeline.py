@@ -77,13 +77,15 @@ def generate_mesh(
     config: MeshGenConfig = MeshGenConfig(),
     *,
     on_level: Callable[[VoxelField], None] | None = None,
+    on_triangles: Callable[[TriangleSoup], None] | None = None,
     device: torch.device | str = "cuda",
     field: VoxelField | None = None,
 ) -> Mesh:
     """The whole pipeline: the initial field (or ``field``, resumed),
     ``refine_steps`` levels, marching cubes, weld. ``scene`` is a scene
     descriptor (``ops.cuda.csdf.compile_scene``); ``on_level`` sees each
-    field, the first included."""
+    field, the first included, and ``on_triangles`` the extraction's
+    triangles before the weld."""
     if field is None:
         field = create_voxel_field(config, device)
     if on_level is not None:
@@ -92,4 +94,36 @@ def generate_mesh(
         field = refine_field(scene, field)
         if on_level is not None:
             on_level(field)
-    return triangles_to_mesh(field_to_triangles(scene, field, config), config)
+    soup = field_to_triangles(scene, field, config)
+    if on_triangles is not None:
+        on_triangles(soup)
+    return triangles_to_mesh(soup, config)
+
+
+def remesh_scene(grid, *, init_factor: int = 32, newton_iters: int = 8):
+    """What ``remesh`` meshes a mesh asset's baked ``grid`` (``models/
+    mesh_sdf.py`` ``SdfGrid``) as, as the JAX CLI's ``remesh`` does
+    (``bsdmg_tpu/cli.py`` cmd_remesh): ``(descriptor, config, centre)``,
+    the weights form of the grid (``grid_csdf``) shifted by its float32
+    centre, and the box of its side."""
+    from bsdmg_tpu_torch.ops.cuda.csdf import grid_descriptor
+
+    center = np.asarray([(lo + hi) / 2 for lo, hi in zip(grid.lo, grid.hi)], np.float32)
+    config = MeshGenConfig(init_factor=init_factor, bb_size=float(grid.hi[0] - grid.lo[0]),
+                           newton_iters=newton_iters)
+    return grid_descriptor(grid, form="weights", offset=center), config, center
+
+
+def remesh(grid, *, init_factor: int = 32, refine: int = 2, newton_iters: int = 8,
+           device: torch.device | str = "cuda",
+           on_level: Callable[[VoxelField], None] | None = None,
+           on_triangles: Callable[[TriangleSoup], None] | None = None) -> Mesh:
+    """Re-extract a mesh asset's baked ``grid`` at ``init_factor *
+    2^refine`` a side (:func:`remesh_scene`), the welded vertices moved
+    back by the centre; ``on_level`` and ``on_triangles`` as in
+    :func:`generate_mesh`."""
+    desc, config, center = remesh_scene(grid, init_factor=init_factor, newton_iters=newton_iters)
+    mesh = generate_mesh(desc, refine_steps=refine, config=config, device=device,
+                         on_level=on_level, on_triangles=on_triangles)
+    mesh.vertices = mesh.vertices + center
+    return mesh

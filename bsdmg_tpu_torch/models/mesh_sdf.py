@@ -6,10 +6,13 @@ exact point-to-triangle distances (Eberly's region decomposition) signed by
 generalized winding numbers (Jacobson et al. 2013) at every node of a
 regular lattice over the mesh's padded AABB; the runtime SDF is the
 trilinear interpolation of the baked table, with a sound lower bound outside
-the box. The bake is ordinary PyTorch ops on the grid's device, in chunks of
-points sized so that the ``(points, triangles)`` intermediates stay a few
-GB, as the JAX package leaves it to XLA. The render's kernels (K8, K9, P1:
-``ops/cuda/grid_kernel.py``) sample the same table.
+the box. On the card the bake runs in a CUDA kernel
+(``ops/cuda/bake_kernel.py``, ``csrc/bake_kernel.cu``); its plain twin,
+:func:`mesh_signed_distance`, is ordinary PyTorch ops, in chunks of points
+sized so that the ``(points, triangles)`` intermediates stay a few GB, as
+the JAX package leaves it to XLA. The render's kernels (K8, K9, P1:
+``ops/cuda/grid_kernel.py``) sample the same table, the mesh kernels (K6,
+K7: ``ops/cuda/csdf.py::grid_descriptor``) too.
 """
 
 from __future__ import annotations
@@ -113,19 +116,18 @@ def _winding_number(p, va, vb, vc):
     return torch.sum(omega, dim=-1) / (4.0 * math.pi)
 
 
-def _signed_distance_chunk(points, va, vb, vc):
+def _distance_winding_chunk(points, va, vb, vc):
     p = points[:, None, :]
     ab = vb - va
     ac = vc - va
     dist = torch.sqrt(torch.amin(_point_triangle_dist_sq(p, va, ab, ac), dim=-1))
-    wn = _winding_number(p, va, vb, vc)
-    return torch.where(wn > 0.5, -dist, dist)
+    return dist, _winding_number(p, va, vb, vc)
 
 
-def mesh_signed_distance(points, vertices, faces, chunk: int | None = None) -> torch.Tensor:
-    """Exact signed distance from ``points (N, 3)`` to a triangle mesh, on the
-    points' device, in chunks of ``chunk`` points (default: as many as keep
-    ``chunk * triangles`` under :data:`PAIR_BUDGET`)."""
+def mesh_distance_winding(points, vertices, faces, chunk: int | None = None):
+    """``(distance, winding number)`` of ``points (N, 3)`` to a triangle
+    mesh, on the points' device, in chunks of ``chunk`` points (default: as
+    many as keep ``chunk * triangles`` under :data:`PAIR_BUDGET`)."""
     points = torch.as_tensor(points, dtype=torch.float32).reshape(-1, 3)
     device = points.device
     vertices = torch.as_tensor(vertices, dtype=torch.float32, device=device)
@@ -133,10 +135,18 @@ def mesh_signed_distance(points, vertices, faces, chunk: int | None = None) -> t
     va, vb, vc = (vertices[faces[:, k]] for k in range(3))
     if chunk is None:
         chunk = max(1, PAIR_BUDGET // max(1, faces.shape[0]))
-    return torch.cat([
-        _signed_distance_chunk(points[i : i + chunk], va, vb, vc)
-        for i in range(0, points.shape[0], chunk)
-    ])
+    parts = [_distance_winding_chunk(points[i : i + chunk], va, vb, vc)
+             for i in range(0, points.shape[0], chunk)]
+    return torch.cat([d for d, _ in parts]), torch.cat([w for _, w in parts])
+
+
+def mesh_signed_distance(points, vertices, faces, chunk: int | None = None) -> torch.Tensor:
+    """Exact signed distance from ``points (N, 3)`` to a triangle mesh
+    (:func:`mesh_distance_winding`): negative where the winding number
+    exceeds 1/2. The plain twin of the bake kernel
+    (``ops/cuda/bake_kernel.py``)."""
+    dist, wn = mesh_distance_winding(points, vertices, faces, chunk)
+    return torch.where(wn > 0.5, -dist, dist)
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +205,13 @@ def bake_mesh_grid(
 ) -> SdfGrid:
     """Bake a mesh into an ``SdfGrid`` on ``device``. ``padding`` is relative
     margin around the mesh AABB (so the zero level set never touches the
-    grid boundary)."""
+    grid boundary). On a CUDA device the bake kernel runs
+    (``ops/cuda/bake_kernel.py``; ``chunk`` is the CPU twin's)."""
+    from bsdmg_tpu_torch.ops.cuda.bake_kernel import bake
+
     lo, hi = grid_box(vertices, padding)
     axes = [torch.from_numpy(_linspace(lo[a], hi[a], resolution)).to(device) for a in range(3)]
-    lattice = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
-    values = mesh_signed_distance(lattice, vertices, faces, chunk=chunk)
+    values = bake(axes, vertices, faces, chunk=chunk)
     return SdfGrid(
         values=values.reshape(resolution, resolution, resolution),
         lo=tuple(map(float, lo)),

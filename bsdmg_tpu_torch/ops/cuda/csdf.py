@@ -33,8 +33,11 @@ scene (``models/compose.py``): its spec flattens into a node program
 (:func:`node_program`) that the kernels' ``Composed`` structure
 interprets (``csrc/composed.cuh``) and :func:`descriptor_csdf` and
 :func:`descriptor_csdf_value_and_grad` interpret in plain PyTorch, with
-the constants JAX's baked lowering forms. Any other scene raises
-``NotImplementedError``. The sphere's and the box's gradients are JAX's
+the constants JAX's baked lowering forms. A mesh asset's baked grid
+compiles to a grid descriptor (:func:`grid_descriptor`) that only the mesh
+kernels K6 and K7 take, in the two forms the JAX package evaluates a grid
+in. Any other scene raises ``NotImplementedError``. The sphere's and the
+box's gradients are JAX's
 reverse mode, as the reference scenes' are, and so NaN where JAX's is (the
 box's inside, where ``sqrt``'s weight ``0.5 / 0`` meets a zero); the
 mandelbulb's is forward mode through its 25-iteration loop, as the kernels
@@ -50,6 +53,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid, box_f32
 from bsdmg_tpu_torch.models.scenes import FRAME_LINE_WIDTH, Scene
 from bsdmg_tpu_torch.sdf.primitives import (
     MANDELBULB_ITERS,
@@ -72,6 +76,12 @@ SUPPORTED = (
 #: scene's node program (with_structure in csrc/scene_sdf.cuh); 0-3 are the
 #: reference scenes' Box<Frame, Transform>
 SPHERE, SOLID_BOX, MANDELBULB, WRAPPED, COMPOSED = 4, 5, 6, 7, 8
+
+#: kernel_structure's indices of a mesh asset's grid in its two forms
+#: (with_mesh_structure in csrc/scene_sdf.cuh, which only K6 and K7 use):
+#: "lerp", the points-form grid_sdf that ``cli mesh`` meshes, and
+#: "weights", the component-form grid_csdf that ``cli remesh`` meshes
+GRID_FORMS = {"lerp": 9, "weights": 10}
 
 #: parallel-edge groups per capsule set, and distinct perpendicular
 #: coordinates per group axis, that the kernels take (a box skeleton has 3
@@ -314,9 +324,12 @@ class SceneDescriptor:
     ``"wrapped"`` (the reference object on a lattice of period ``cell``),
     ``"sphere"`` (radius ``sphere_radius``), ``"box"`` (half extents
     ``box_half``), ``"composed"`` (a composed scene: its node
-    ``program``) or ``"mandelbulb"`` (``scale``: the JAX compiler's
+    ``program``), ``"mandelbulb"`` (``scale``: the JAX compiler's
     ``float(scale) * 0.4``, by which the points are divided and the
-    distance multiplied). For the reference object, ``object`` is the box
+    distance multiplied) or ``"grid"`` (a mesh asset's baked ``grid``,
+    interpolated in ``grid_form`` "lerp" or "weights", each point moved by
+    ``offset`` first where it is not None). For the reference object,
+    ``object`` is the box
     skeleton of ``sd_obj``, ``frame`` the bounding-box wireframe of the
     render scene (None for the object alone), ``inv_rotation`` (rows of
     R^T) and ``translation`` the object transform, None when it is the
@@ -337,6 +350,9 @@ class SceneDescriptor:
     scale: float | None = None
     cell: float | None = None
     program: NodeProgram | None = None
+    grid: SdfGrid | None = None
+    grid_form: str = "lerp"
+    offset: tuple[float, float, float] | None = None
 
 
 def _host(params) -> dict[str, np.ndarray]:
@@ -425,7 +441,7 @@ def _object_transform(p: dict[str, np.ndarray]):
 
 
 def _check_supported(scene: Scene) -> None:
-    if scene.name not in SUPPORTED and scene.spec is None:
+    if scene.name not in SUPPORTED and scene.spec is None and scene.grid is None:
         raise NotImplementedError(
             f"the CUDA render path compiles only {SUPPORTED}, not scene "
             f"{scene.name!r}; other scenes are not ported yet"
@@ -468,6 +484,8 @@ def scene_bounds(scene: Scene, params=None) -> tuple | None:
     smooth-min k/6 + 1e-3, the exact sphere's and box's 1e-3, the
     mandelbulb's 0.1); the slab cull's margin needs it to stay sound."""
     _check_supported(scene)
+    if scene.grid is not None:
+        return None  # a grid renders through ops/cuda/grid_kernel.py, which culls nothing
     p = _host(scene.params if params is None else params)
     if scene.spec is not None:
         from bsdmg_tpu_torch.models.compose import composed_bounds
@@ -525,11 +543,30 @@ def _reference_fields(scene: Scene, p: dict[str, np.ndarray]) -> dict:
     )
 
 
+def grid_descriptor(grid: SdfGrid, form: str = "lerp", offset=None) -> SceneDescriptor:
+    """A mesh asset's baked ``grid`` as the mesh kernels take it: ``form``
+    "lerp" is ``grid_sdf`` (``bsdmg_tpu/models/mesh_sdf.py:193-245``, which
+    ``cli mesh`` meshes through ``as_component``), "weights" is
+    ``grid_csdf`` (:248-289, ``cli remesh``'s); ``offset`` (three floats,
+    rounded to float32) is added to each point first, as ``cli remesh``
+    shifts the field by the grid's centre."""
+    if form not in GRID_FORMS:
+        raise ValueError(f"grid form must be one of {sorted(GRID_FORMS)}, got {form!r}")
+    return SceneDescriptor(
+        object=None, frame=None, sphere_radius=0.0, smooth_k=0.0, inv_k=0.0, k_6=0.0,
+        inv_rotation=None, translation=None, bounds=None, kind="grid", grid=grid,
+        grid_form=form, offset=None if offset is None else tuple(f32(v) for v in offset),
+    )
+
+
 def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
     """Lower a built-in scene, with ``params`` (default: the scene's own),
     to a :class:`SceneDescriptor`, with the constants of the JAX compiler
-    (csdf.py::compile_scene_csdf)."""
+    (csdf.py::compile_scene_csdf); a mesh asset to its grid in the "lerp"
+    form (:func:`grid_descriptor`), which ``params`` do not enter."""
     _check_supported(scene)
+    if scene.grid is not None:
+        return grid_descriptor(scene.grid)
     p = _host(scene.params if params is None else params)
     bounds = scene_bounds(scene, params)
     empty = dict(object=None, frame=None, sphere_radius=0.0, smooth_k=0.0, inv_k=0.0, k_6=0.0,
@@ -1169,9 +1206,117 @@ def param_program_csdf(prog):
     return f
 
 
+# ---------------------------------------------------------------------------
+# a mesh asset's grid, in its two forms
+# ---------------------------------------------------------------------------
+
+
+def _grid_value_and_grad(desc: SceneDescriptor, with_grad: bool):
+    """The grid SDF of ``desc`` on coordinate planes: the trilinear
+    interpolation of the baked table with the sound step outside its box
+    (``bsdmg_tpu/models/mesh_sdf.py``), in ``desc.grid_form``: "lerp"
+    (``grid_sdf``: ``c000 + (c100 - c000) * fx``) or "weights"
+    (``grid_csdf``: ``c000 * (1 - fx) + c100 * fx``), each point moved by
+    ``desc.offset`` first. ``f(x, y, z) -> d``, or with ``with_grad``
+    ``(d, gx, gy, gz)``: the gradient is ``jax.vjp`` of that function with
+    a cotangent of 1, written out (csrc/grid_sdf.cuh grid_scene is the
+    same operations in the same order):
+
+    * ``floor`` and the index casts carry nothing; ``jnp.clip``'s
+      ``maximum(0, q)`` and ``minimum(clip_hi, .)``, the outside's maxima and
+      the step's ``maximum`` weight their cotangents by JAX's tie rule
+      (:func:`_tie_weight`); the square root's weight ``0.5 / sqrt(sq)`` is
+      taken only where ``sq > 0``, as JAX's double ``where`` takes it;
+    * where cotangents meet, they are summed in the order JAX's transpose
+      accumulates them (its equations in reverse): ``fx``'s from the
+      lerps of c11, c01, c10 and c00 in turn ("weights": each lerp's
+      ``+ ct * c1``, then ``- ct * c0``), a coordinate's as ``(ct_hi -
+      ct_lo) + ct_q * scale``, the outside's before the interior's."""
+    grid = desc.grid
+    flat, r = grid.values.reshape(-1), grid.resolution
+    lo, hi, scale, clip_hi = box_f32(r, grid.lo, grid.hi)
+    lerp, off = desc.grid_form == "lerp", desc.offset
+
+    def f(x, y, z):
+        u = (x, y, z) if off is None else (x + off[0], y + off[1], z + off[2])
+        q = [(u[a] - lo[a]) * scale[a] for a in range(3)]
+        m = [torch.clamp_min(v, 0.0) for v in q]
+        c = [torch.clamp_max(v, clip_hi) for v in m]
+        base = [torch.floor(v) for v in c]
+        fx, fy, fz = (cv - bv for cv, bv in zip(c, base))
+        i0 = [v.to(torch.int64) for v in base]
+        i1 = [torch.clamp_max(v + 1, r - 1) for v in i0]
+
+        def at(ix, iy, iz):
+            return flat[(ix * r + iy) * r + iz]
+
+        # a[dy][dz] = (corner at x0, corner at x1)
+        a = [[(at(i0[0], (i0, i1)[dy][1], (i0, i1)[dz][2]),
+               at(i1[0], (i0, i1)[dy][1], (i0, i1)[dz][2])) for dz in (0, 1)] for dy in (0, 1)]
+        if lerp:
+            cx = [[a0 + (a1 - a0) * fx for a0, a1 in row] for row in a]
+        else:
+            gx = 1 - fx
+            cx = [[a0 * gx + a1 * fx for a0, a1 in row] for row in a]
+        (c00, c01), (c10, c11) = cx
+        c0 = c00 + (c10 - c00) * fy
+        c1 = c01 + (c11 - c01) * fy
+        interior = c0 + (c1 - c0) * fz
+        below = [lo[k] - u[k] for k in range(3)]
+        above = [u[k] - hi[k] for k in range(3)]
+        m1 = [torch.maximum(b, t) for b, t in zip(below, above)]
+        o = [torch.clamp_min(v, 0.0) for v in m1]
+        sq = (o[0] * o[0] + o[1] * o[1]) + o[2] * o[2]
+        out = sq > 0
+        outside = torch.where(out, torch.sqrt(torch.where(out, sq, 1.0)), 0.0)
+        diff = interior - outside
+        mx = torch.maximum(outside, diff)
+        d = torch.where(outside > 0.0, mx, interior)
+        if not with_grad:
+            return d
+
+        # backward, cotangent 1
+        w_diff = _tie_weight(diff, mx, outside)
+        stepped = outside > 0.0
+        ct_int = torch.where(stepped, w_diff, 1.0)
+        ct_out = torch.where(stepped, _tie_weight(outside, mx, diff) - w_diff, 0.0)
+        ct_sq = torch.where(out, ct_out * (0.5 / torch.where(out, outside, 1.0)), 0.0)
+        ct_fz = ct_int * (c1 - c0)
+        ct_c1 = ct_int * fz
+        ct_c0 = ct_int - ct_c1
+        ct_fy = ct_c1 * (c11 - c01) + ct_c0 * (c10 - c00)
+        ct_c11 = ct_c1 * fy
+        ct_c01 = ct_c1 - ct_c11
+        ct_c10 = ct_c0 * fy
+        ct_c00 = ct_c0 - ct_c10
+        ct_fx = None
+        for ct, (a0, a1) in ((ct_c11, a[1][1]), (ct_c01, a[0][1]), (ct_c10, a[1][0]),
+                             (ct_c00, a[0][0])):
+            if lerp:
+                t = ct * (a1 - a0)
+                ct_fx = t if ct_fx is None else ct_fx + t
+            else:
+                t = ct * a1
+                ct_fx = (t if ct_fx is None else ct_fx + t) - ct * a0
+        grad = []
+        for k, ct_f in enumerate((ct_fx, ct_fy, ct_fz)):
+            ct_m = ct_f * _tie_weight(m[k], c[k], clip_hi)
+            ct_t = (ct_m * _tie_weight(q[k], m[k], 0.0)) * scale[k]
+            s = ct_sq * o[k]
+            ct_m1 = (s + s) * _tie_weight(m1[k], o[k], 0.0)
+            ct_above = ct_m1 * _tie_weight(above[k], m1[k], below[k])
+            ct_below = ct_m1 * _tie_weight(below[k], m1[k], above[k])
+            grad.append((ct_above - ct_below) + ct_t)
+        return (d, *grad)
+
+    return f
+
+
 def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
     """The scene SDF of ``desc`` on coordinate planes, in plain PyTorch: the
     twin of the kernels' ``scene_sdf`` (csdf.py::compile_scene_csdf)."""
+    if desc.kind == "grid":
+        return _grid_value_and_grad(desc, False)
     if desc.kind == "composed":
         return _program_csdf(desc.program.instructions)
     if desc.kind == "sphere":
@@ -1196,8 +1341,11 @@ def kernel_structure(desc: SceneDescriptor) -> int:
     without an object transform; :data:`COMPOSED` for a node program. Each capsule set must be a box skeleton as
     the kernels take it, 3 groups along x, y and z in that order with 2
     perpendicular coordinates per other axis; any other descriptor raises
-    ``NotImplementedError``, for which no kernel is built."""
+    ``NotImplementedError``, for which no kernel is built. A grid's index
+    is its form's (:data:`GRID_FORMS`), a structure of K6 and K7 alone."""
     plain = {"sphere": SPHERE, "box": SOLID_BOX, "mandelbulb": MANDELBULB, "composed": COMPOSED}
+    if desc.kind == "grid":
+        return GRID_FORMS[desc.grid_form]
     if desc.kind in plain:
         return plain[desc.kind]
     sets = {"object": desc.object, "frame": desc.frame}
@@ -1429,7 +1577,10 @@ def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
     evenly at a tie and ``abs`` passing +1 at 0; a wrap passes it
     unchanged. The mandelbulb's is forward mode
     (:func:`_mandelbulb_value_and_grad`). ``d`` equals
-    :func:`descriptor_csdf` bit for bit."""
+    :func:`descriptor_csdf` bit for bit. A grid's gradient is reverse mode
+    too (:func:`_grid_value_and_grad`)."""
+    if desc.kind == "grid":
+        return _grid_value_and_grad(desc, True)
     if desc.kind == "composed":
         return _program_value_and_grad(desc.program.instructions)
     if desc.kind == "sphere":

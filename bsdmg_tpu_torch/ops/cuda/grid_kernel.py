@@ -54,6 +54,7 @@ from bsdmg_tpu_torch.models.mesh_sdf import (
     make_grid_interp_csdf,
 )
 from bsdmg_tpu_torch.ops.cuda.build import load_library
+from bsdmg_tpu_torch.ops.cuda.grid_box import GridBoxC, grid_box_c
 from bsdmg_tpu_torch.ops.cuda.mesh_kernel import check_planes
 from bsdmg_tpu_torch.ops.cuda.render_kernel import _march
 from bsdmg_tpu_torch.ops.shade import shade_planes
@@ -257,22 +258,6 @@ def grid_sample_torch(sampler: Sampler, x, y, z):
 # ---------------------------------------------------------------------------
 
 
-def _floats(n):
-    return ctypes.c_float * n
-
-
-class _GridBoxC(ctypes.Structure):
-    """``GridBox`` of csrc/grid_sdf.cuh."""
-
-    _fields_ = [
-        ("lo", _floats(3)),
-        ("hi", _floats(3)),
-        ("scale", _floats(3)),
-        ("clip_hi", ctypes.c_float),
-        ("r", ctypes.c_int),
-    ]
-
-
 class _GridMarchC(ctypes.Structure):
     """``GridMarch`` of csrc/grid_kernel.cu."""
 
@@ -281,11 +266,6 @@ class _GridMarchC(ctypes.Structure):
         ("depth_limit", ctypes.c_float),
         ("step_cap", ctypes.c_int),
     ]
-
-
-def grid_box_c(s: Sampler) -> _GridBoxC:
-    lo, hi, scale, clip_hi = box_f32(s.r, s.lo, s.hi)
-    return _GridBoxC(_floats(3)(*lo), _floats(3)(*hi), _floats(3)(*scale), clip_hi, s.r)
 
 
 def grid_march_c(config: MarchConfig, budget: int | None) -> _GridMarchC:
@@ -311,7 +291,7 @@ def library() -> ctypes.CDLL:
     )
     lib.bsdmg_error_string.restype = ctypes.c_char_p
     lib.bsdmg_error_string.argtypes = [ctypes.c_int]
-    for name, struct in (("bsdmg_grid_box_size", _GridBoxC),
+    for name, struct in (("bsdmg_grid_box_size", GridBoxC),
                          ("bsdmg_grid_march_size", _GridMarchC)):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, []
@@ -431,8 +411,9 @@ def grid_march_cuda(sampler: Sampler, origins, directions, cone,
                torch.empty(n, dtype=torch.int32, device=device))
     if n:
         state = () if active is None else (active, depth0, steps0, outcome0)
-        _march_cuda(sampler, grid_box_c(sampler), grid_march_c(config, budget), origins,
-                    directions, cone, state, out)
+        box = grid_box_c(sampler.r, sampler.lo, sampler.hi)
+        _march_cuda(sampler, box, grid_march_c(config, budget), origins, directions, cone, state,
+                    out)
     return out
 
 
@@ -456,8 +437,9 @@ def grid_march_into(sampler: Sampler, origins, directions, cone,
     planes = tuple(t.reshape(-1) for t in (depth, steps, outcome))
     if cone.device.type == "cuda":
         if cone.numel():
-            _march_cuda(sampler, grid_box_c(sampler), grid_march_c(config, budget), origins,
-                        directions, cone, (active.reshape(-1), *planes), planes)
+            box = grid_box_c(sampler.r, sampler.lo, sampler.hi)
+            _march_cuda(sampler, box, grid_march_c(config, budget), origins, directions, cone,
+                        (active.reshape(-1), *planes), planes)
         return
     if cone.device.type != "cpu":
         raise ValueError(f"unsupported device {cone.device}")
@@ -486,7 +468,7 @@ def grid_sample_cuda(sampler: Sampler, x, y, z):
     _check_sampler(sampler, x.device)
     out = torch.empty_like(x)
     if x.numel():
-        _sample_cuda(sampler, grid_box_c(sampler), x, y, z, out)
+        _sample_cuda(sampler, grid_box_c(sampler.r, sampler.lo, sampler.hi), x, y, z, out)
     return out
 
 

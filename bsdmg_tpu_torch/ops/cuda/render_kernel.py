@@ -33,6 +33,7 @@ import torch
 
 from bsdmg_tpu_torch.config import MarchConfig
 from bsdmg_tpu_torch.ops.cuda.build import load_library
+from bsdmg_tpu_torch.ops.cuda.grid_box import MAX_GRID_RESOLUTION, GridBoxC, grid_box_c
 from bsdmg_tpu_torch.ops.cuda.csdf import (
     MAX_GROUP_VALUES,
     MAX_GROUPS,
@@ -404,6 +405,9 @@ class _SceneDescC(ctypes.Structure):
         ("half_cell", ctypes.c_float),
         ("program", ctypes.c_void_p),
         ("program_length", ctypes.c_int),
+        ("grid_table", ctypes.c_void_p),
+        ("grid", GridBoxC),
+        ("grid_offset", _floats(3)),
     ]
 
 
@@ -461,15 +465,34 @@ def shading_c() -> dict:
     )
 
 
+def _grid_table(grid, device) -> torch.Tensor:
+    """A grid's table as the grid structures read it: contiguous float32 on
+    the CUDA ``device`` ("cuda": the current one), at most
+    :data:`MAX_GRID_RESOLUTION` a side; raises otherwise."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    table, r = grid.values, grid.resolution
+    if table.device != device:
+        raise ValueError(f"the grid's table is on {table.device}, the launch on {device}")
+    if table.dtype != torch.float32 or not table.is_contiguous() or table.shape != (r, r, r):
+        raise ValueError(f"the grid's table must be a contiguous float32 ({r}, {r}, {r}) tensor")
+    if not 2 <= r <= MAX_GRID_RESOLUTION:
+        raise ValueError(f"a grid structure takes 2 <= R <= {MAX_GRID_RESOLUTION}, not {r}")
+    return table
+
+
 def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
                  device: torch.device | str = "cuda") -> _SceneDescC:
     """The descriptor as the kernels take it (``SceneDesc``), with the
     index of the compiled structure it launches (:func:`kernel_structure`,
     which raises for a descriptor that matches none). A composed scene's
     node program is read from its buffer on the CUDA ``device`` ("cuda":
-    the current one), uploaded there once (``NodeProgram.on_device``)."""
+    the current one), uploaded there once (``NodeProgram.on_device``); a
+    grid's table is read where it lies, which must be that device."""
     structure = kernel_structure(desc)
     program = None if desc.program is None else desc.program.on_device(device)
+    table = None if desc.grid is None else _grid_table(desc.grid, device)
     has_transform = desc.translation is not None
     rotation = [v for row in desc.inv_rotation for v in row] if has_transform else [0.0] * 9
     skeleton = desc.frame if desc.frame is not None else desc.object
@@ -490,6 +513,10 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
         half_cell=0.0 if desc.cell is None else f32(desc.cell / 2.0),
         program=None if program is None else program.data_ptr(),
         program_length=0 if program is None else len(desc.program),
+        grid_table=None if table is None else table.data_ptr(),
+        grid=GridBoxC() if table is None else grid_box_c(desc.grid.resolution, desc.grid.lo,
+                                                          desc.grid.hi),
+        grid_offset=_floats(3)(*(desc.offset or (0.0,) * 3)),
         **bounds_c(desc.bounds),
         **march_c(config),
         **shading_c(),
@@ -652,6 +679,11 @@ class _Frame:
     CPU tensors."""
 
     def __init__(self, desc, origins, directions, cone, config, use_bb_skip, omega):
+        if desc.kind == "grid":
+            raise NotImplementedError(
+                "K1, K2 and K3 are not built for a grid: a mesh asset renders through "
+                "ops/cuda/grid_kernel.py::render_image_grid"
+            )
         if cone.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {cone.device}")
         self.desc, self.config = desc, config

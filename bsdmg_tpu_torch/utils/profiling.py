@@ -437,13 +437,16 @@ def sdf_ops(desc) -> int:
     multiplies, 2 adds, sqrt, subtract), the smooth-min (subtract, abs,
     subtract, max, multiply, min, 3 multiplies, subtract), the frame's
     capsules and a min; the wrapped object the same beside three wraps
-    (WRAP and fmodf each); the sphere SPHERE, the box SOLID_BOX; a composed
-    scene its program's forward (:func:`program_ops`). The mandelbulb's
+    (WRAP and fmodf each); the sphere SPHERE, the box SOLID_BOX, a grid
+    GRID_SDF; a composed scene its program's forward (:func:`program_ops`).
+    The mandelbulb's
     depends on its data (:class:`LoopWork`) and raises here."""
     if desc.kind == "sphere":
         return SPHERE
     if desc.kind == "box":
         return SOLID_BOX
+    if desc.kind == "grid":
+        return GRID_SDF[desc.grid_form]
     if desc.kind == "mandelbulb":
         raise ValueError("the mandelbulb's work depends on its data: count it with LoopWork")
     if desc.kind == "composed":
@@ -467,6 +470,8 @@ def grad_ops(desc) -> int:
         return SPHERE_GRAD
     if desc.kind == "box":
         return SOLID_BOX_GRAD
+    if desc.kind == "grid":
+        return GRID_GRAD[desc.grid_form]
     if desc.kind == "mandelbulb":
         raise ValueError("the mandelbulb's gradient (forward mode through its loop) is not counted")
     if desc.kind == "composed":
@@ -532,7 +537,7 @@ def fd4_ops(desc) -> int:
     whole evaluations whose work depends on the data (:class:`LoopWork`)
     and raises here. A composed scene's is its program's shared-term
     stencil (:func:`program_stencil_ops`), though its kernels roll the 12
-    points."""
+    points; a grid's is GRID_STENCIL, though its kernels roll them too."""
     if desc.kind == "sphere":
         return STENCIL + SPHERE_STENCIL
     if desc.kind == "box":
@@ -541,6 +546,8 @@ def fd4_ops(desc) -> int:
         raise ValueError("the mandelbulb's stencil depends on its data: count it with LoopWork")
     if desc.kind == "composed":
         return STENCIL + program_stencil_ops(desc)
+    if desc.kind == "grid":
+        return STENCIL + GRID_STENCIL[desc.grid_form]
     wraps = 15 * (WRAP + LIBM["fmodf"]) if desc.kind == "wrapped" else 0
     if desc.translation is not None:
         obj = 12 * (18 + capsule_ops(desc.object) + 7 + 10)
@@ -917,3 +924,61 @@ INTERP = 59  # InterpF32: coordinates 3 x 4, floors 3, fractions 3, 1 - fx, four
 # of 3, two y-lerps and the z-lerp of 3, and BOX_STEP
 HAT = 83  # Hat: per axis the coordinate 4, floor, the two weights 4 + 5 (42); four
 # (x, y) weights; two z planes of 4 products and 3 adds; the z sum 3; BOX_STEP; margin
+
+#: csrc/grid_sdf.cuh grid_scene, a mesh asset's grid as a scene of K6 and K7.
+#: Its terms of one axis: the offset, the coordinate 4 (subtract, multiply,
+#: max, min), the floor, the fraction and the outside's 4 (two subtracts,
+#: two maxes); "weights" adds 1 - fx to the x axis
+GRID_AXIS = 1 + 4 + 1 + 1 + 4
+#: its terms of every axis: four x-lerps of 3 (sub, multiply, add;
+#: "weights": two multiplies and an add), two y-lerps and the z-lerp of 3,
+#: |o|^2 5, the two compares, and the step's difference and max, taken in
+#: either case
+GRID_POINT = 12 + 9 + 5 + 2 + 2
+GRID_SDF = {"lerp": 3 * GRID_AXIS + GRID_POINT, "weights": 3 * GRID_AXIS + 1 + GRID_POINT}
+#: its fd4 stencil beside STENCIL, counted as the shared-term stencil is: an
+#: axis's terms at the centre and at the 4 points of that axis (a shift
+#: along another leaves them alone), the terms of every axis (and the eight
+#: gathers) at each of the 12 points
+GRID_STENCIL = {form: 5 * (GRID_SDF[form] - GRID_POINT) + 12 * GRID_POINT
+                for form in GRID_SDF}
+#: its backward beside the value: the step's weights (a TIE; a TIE and a
+#: subtract; the sqrt's weight, a multiply and a division), the z-, y- and
+#: x-lerps' cotangents (ct_fz 1, ct_c1 1, ct_c0 1, ct_fy 3, the four corner
+#: cotangents 4; fx's four terms summed, 4 multiplies and 3 adds, "weights"
+#: 8 multiplies and 7 adds), and per axis 25 (the clamp's two TIEs and
+#: products, the scale, the outside's square, its max's TIE and product,
+#: the two bounds' TIEs and products, the difference and the sum)
+GRID_GRAD = {form: GRID_SDF[form] + TIE + (TIE + 1) + 2 + 10 + fx + 3 * 25
+             for form, fx in (("lerp", 7), ("weights", 15))}
+
+#: the bake's FP32 operations per (node, triangle) pair, counted on its twin
+#: (models/mesh_sdf.py _point_triangle_dist_sq, _winding_number): ap 3, d1 and
+#: d2 5 each, s and t 4 each (2 multiplies, a subtract, a division); the
+#: interior candidate 25 (clamp 2, t's max, 1 - s and min 3, q 15, |q|^2 5);
+#: the ab and ac edges 17 each (a division, a clamp 2, a + s e - p 9, |q|^2
+#: 5: the other coordinate is 0, and its term adds a signed zero, so
+#: csrc/bake_kernel.cu edge_eval's bits are the twin's); bc 37 (bp 3, the
+#: dot 5, a division, a clamp 2, 1 - u, the candidate 25); the three minima
+#: and the running one 4; the solid angle: b - p and c - p 6 (a - p is -ap
+#: exactly), the three lengths 18 (5 and a sqrt each), b x c 9, the
+#: determinant 5, the denominator 23, atan2f (LIBM), the doubling and the
+#: running sum 2
+BAKE_PAIR = 21 + 25 + 2 * 17 + 37 + 4 + 6 + 18 + 9 + 5 + 23 + LIBM["atan2f"] + 2
+#: per triangle, once: ab, ac and bc 9, ab.ab, ab.ac, ac.ac and bc.bc 20, the
+#: determinant 4, the three floors 3
+BAKE_TRIANGLE = 36
+#: per node: the sqrt, the division by 4 pi, the compare
+BAKE_NODE = 3
+
+
+def bake_ops(nodes: int, triangles: int) -> float:
+    """FP32 operations of the bake of ``nodes`` lattice nodes against
+    ``triangles`` triangles, every node meeting every triangle."""
+    return float(nodes) * triangles * BAKE_PAIR + nodes * BAKE_NODE + triangles * BAKE_TRIANGLE
+
+
+def bake_bytes(resolution: int, triangles: int) -> int:
+    """The bake's least traffic: the lattice's three axes and the
+    triangles' vertices read (36 B each), the table written."""
+    return 12 * resolution + 36 * triangles + 4 * resolution**3

@@ -144,7 +144,26 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
 14. frame and kernel times of the mesh-asset render at the JAX bench's grid
     point (the reference object baked analytically at 128^3 over +-2.6,
     512x512 from (5, 2, -5)) and at the 1080p torus frame, with each
-    kernel's bound; ptxas's registers and spills of grid_kernel.cu.
+    kernel's bound; ptxas's registers and spills of grid_kernel.cu;
+15. mesh-asset scenes through every verb: the bake kernel on the torus at
+    128^3 (every node) and 256^3 (every 97th node and one lattice plane)
+    against its twin (|values| bit for bit, signs but within 1e-4 of a
+    winding number of 1/2), alone with its bound, and with the last
+    triangle dropped and one triangle's winding flipped, each of which must
+    fail its bar; ``cli mesh --scene mesh:<torus>`` (K6 and the bake once),
+    ``--interpolate-edges`` (K7), ``cli remesh`` (K6), ``cli session`` (K6
+    five times), ``cli animate --motion spheric`` (the grid route a frame,
+    the motion ignored with a warning) and the depth ``cli fit``, with no
+    plain twin of K6, K7 or the bake allowed, and ``fit --image``, which
+    must raise ``NotImplementedError``; K6 and K7 over the grid structure
+    in the lerp form at ``cli mesh``'s level 3 and K6 in the weights form at
+    ``cli remesh``'s level 2 against their twins, bit for bit, alone with
+    their bounds; the reference K6 and K7 at the registers they took
+    before the grid structures and no spill; then BASELINE's mesh-asset configuration
+    (``tools/e2e_mesh_1024.py``'s workload): the 256^3 bake, a 512x512
+    render, the extraction from 32^3 with 5 refines (1024^3), the native
+    weld and OBJ write, with each stage's seconds, the counts and the
+    vertices' |sdf|.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that did not launch its kernel fails. Then one JSON
@@ -344,6 +363,7 @@ def median_ms(fn, runs: int = 7, reps: int = 1, warmup: int = 2) -> float:
 
 def reset_launches() -> None:
     from bsdmg_tpu_torch.ops.cuda import (
+        bake_kernel,
         diff_kernel,
         grid_kernel,
         mc_kernel,
@@ -351,7 +371,7 @@ def reset_launches() -> None:
         render_kernel,
     )
 
-    for module in (render_kernel, mc_kernel, mesh_kernel):
+    for module in (render_kernel, mc_kernel, mesh_kernel, bake_kernel):
         module.LAUNCHES = 0
     render_kernel.TRACE_LAUNCHES = 0
     render_kernel.SHADE_LAUNCHES = 0
@@ -466,6 +486,7 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
     counts after it, the CLI's log lines and the seconds it took."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.ops.cuda import (
+        bake_kernel,
         diff_kernel,
         grid_kernel,
         mc_kernel,
@@ -488,7 +509,8 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
         launches = {"K1": render_kernel.LAUNCHES, "K2": render_kernel.TRACE_LAUNCHES,
                     "K3": render_kernel.SHADE_LAUNCHES,
                     "K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
-                    "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES, **grid_kernel.LAUNCHES}
+                    "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES, **grid_kernel.LAUNCHES,
+                    "bake": bake_kernel.LAUNCHES}
     finally:
         logger.removeHandler(records)
         logger.setLevel(old_level)
@@ -1810,12 +1832,14 @@ def march_kernel_ms(sampler, rays, cfg, state: dict) -> float:
     """One grid march launch's own time: prepared structs, preallocated
     outputs, :func:`graph_ms`."""
     from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+    from bsdmg_tpu_torch.ops.cuda.grid_box import grid_box_c
 
     n = rays[2].numel()
     out = (torch.empty(n, device=rays[2].device), *(torch.empty(n, dtype=torch.int32,
                                                                  device=rays[2].device)
                                                      for _ in range(2)))
-    box, march = tg.grid_box_c(sampler), tg.grid_march_c(cfg, cfg.step_limit)
+    box = grid_box_c(sampler.r, sampler.lo, sampler.hi)
+    march = tg.grid_march_c(cfg, cfg.step_limit)
     planes = tuple(state[k] for k in ("active", "depth0", "steps0", "outcome0")) if state else ()
     return graph_ms(lambda: tg._march_cuda(sampler, box, march, *rays, planes, out))
 
@@ -1823,8 +1847,9 @@ def march_kernel_ms(sampler, rays, cfg, state: dict) -> float:
 def sample_kernel_ms(sampler, points) -> float:
     """One P1 launch's own time, as :func:`march_kernel_ms`."""
     from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+    from bsdmg_tpu_torch.ops.cuda.grid_box import grid_box_c
 
-    out, box = torch.empty_like(points[0]), tg.grid_box_c(sampler)
+    out, box = torch.empty_like(points[0]), grid_box_c(sampler.r, sampler.lo, sampler.hi)
     return graph_ms(lambda: tg._sample_cuda(sampler, box, *points, out))
 
 
@@ -3436,6 +3461,396 @@ def composed_phases(card: str, device) -> None:
             check(not any("motion ignored" in m for m in messages), f"animate {label}: {messages}")
 
 
+# ---------------------------------------------------------------------------
+# mesh-asset scenes through every verb: K6 and K7 over the grid structure,
+# the bake kernel, and BASELINE's mesh-asset configuration
+# ---------------------------------------------------------------------------
+
+#: the bake's bars: |values| bit-equal at every node compared, signs equal
+#: but where the twin's winding number lies within BAKE_WN_BAND of 1/2; at
+#: 256^3 the nodes compared are every BAKE_STRIDE-th and the lattice plane
+#: through the planted faults' triangle (the twin takes minutes for all)
+BAKE_WN_BAND = 1e-4
+BAKE_STRIDE = 97
+#: ptxas's registers of the reference K6 and K7, Box<false, false>, on the
+#: tree before the grid structures were added (tools/time_kernels_alone.py
+#: prints them for any checkout: its "ptxas" lines and stencil_probe's);
+#: those are other instantiations and must not move them
+REFERENCE_MESH_REGISTERS = {"mc_kernel<": 71, "project_kernel<": 65}
+#: cli session's script and its K6 launches (as the reference object's)
+ASSET_KEYS = "vbbbvv"
+#: the animate phase's frames and size
+ASSET_FRAMES = 2
+ASSET_SIZE = (480, 270)
+#: BASELINE's mesh-asset configuration (tools/e2e_mesh_1024.py's workload):
+#: bake, render, extraction from 32^3 with 5 refines (1024^3)
+E2E_RESOLUTION = 256
+E2E_SIZE = 512
+E2E_REFINES = 5
+
+
+@contextlib.contextmanager
+def no_twins():
+    """The plain twins of K6, K7 and the bake raise while it lasts: a path
+    on the card that reached one would fail."""
+    from bsdmg_tpu_torch.ops.cuda import bake_kernel, mc_kernel, mesh_kernel
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a plain twin ran on the card's path")
+
+    saved = [(mc_kernel, "mc_fused_torch"), (mesh_kernel, "project_edges_torch"),
+             (bake_kernel, "bake_torch")]
+    originals = [getattr(m, n) for m, n in saved]
+    try:
+        for m, n in saved:
+            setattr(m, n, refuse)
+        yield
+    finally:
+        for (m, n), fn in zip(saved, originals):
+            setattr(m, n, fn)
+
+
+def bake_bars(values, dist, wn) -> dict:
+    """The bake kernel's ``values`` at some nodes against its twin's
+    distance and winding number there."""
+    flips = torch.signbit(values) != (wn > 0.5)
+    near = (wn - 0.5).abs() < BAKE_WN_BAND
+    return {"nodes": values.numel(), "magnitude_differ": int((values.abs() != dist).sum()),
+            "sign_differ": int(flips.sum()), "sign_differ_off_band": int((flips & ~near).sum()),
+            "twin_near_half": int(near.sum())}
+
+
+def bake_failed(bars: dict) -> list[str]:
+    return [k for k in ("magnitude_differ", "sign_differ_off_band") if bars[k]]
+
+
+def bake_phases(card: str, device, src) -> tuple[dict, dict]:
+    """The bake kernel on the torus at 128^3 (every node against the twin,
+    timed both) and 256^3 (every BAKE_STRIDE-th node and one lattice plane
+    against the twin), each alone with its bound; the last triangle dropped
+    and one triangle's winding flipped, each of which must fail its bar.
+    Returns the kernels line's entry (without launches) and the 128^3
+    lattice's values."""
+    from bsdmg_tpu_torch.models.mesh_sdf import _linspace, grid_box, mesh_distance_winding
+    from bsdmg_tpu_torch.ops.cuda import bake_kernel as bk
+    from bsdmg_tpu_torch.utils import profiling
+
+    faces = np.asarray(src.faces)
+    dropped = faces[:-1]
+    flipped = faces.copy()
+    flipped[-1] = flipped[-1][[0, 2, 1]]
+    centroid = src.vertices[faces[-1]].mean(axis=0)
+    lo, hi = grid_box(src.vertices)
+    out = {}
+    for r in (128, 256):
+        axes = [torch.from_numpy(_linspace(lo[a], hi[a], r)).to(device) for a in range(3)]
+        tris = bk.triangles(src.vertices, faces, device)
+        values = torch.empty(r**3, dtype=torch.float32, device=device)
+        ms = median_ms(lambda: bk._bake_cuda(axes, tris, values), runs=3 if r == 128 else 2,
+                       warmup=1 if r == 128 else 0)
+        bound_ms, by = bound(profiling.bake_bytes(r, len(faces)),
+                             profiling.bake_ops(r**3, len(faces)))
+        if r == 128:
+            nodes = None
+            points = bk.lattice(axes)
+        else:
+            plane = int(np.abs(axes[0].cpu().numpy() - centroid[0]).argmin())
+            nodes = torch.cat([torch.arange(0, r**3, BAKE_STRIDE, device=device),
+                               plane * r * r + torch.arange(r * r, device=device)]).unique()
+            points = torch.stack([axes[0][nodes // (r * r)], axes[1][(nodes // r) % r],
+                                  axes[2][nodes % r]], dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist, wn = mesh_distance_winding(points, src.vertices, faces)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        pick = (lambda v: v) if nodes is None else (lambda v: v[nodes])
+        bars = bake_bars(pick(values), dist, wn)
+        faults = {}
+        for name, fault in (("last triangle dropped", dropped), ("winding flipped", flipped)):
+            faults[name] = bake_bars(pick(bk.bake_cuda(axes, src.vertices, fault)), dist, wn)
+        where = ("every node" if nodes is None else
+                 f"{bars['nodes']} nodes: every {BAKE_STRIDE}th and the plane of x index {plane}")
+        print(f"bake {r}^3 on {card} ({len(faces)} triangles, {where}): "
+              f"kernel {ms:.4f} ms alone (CUDA events), twin {plain_s:.3f} s on those nodes; "
+              f"bound {bound_ms:.4f} ms ({by}); bars {json.dumps(bars)}; "
+              f"planted faults {json.dumps(faults)}")
+        check(not bake_failed(bars), f"the bake kernel fails its bars at {r}^3: {bars}")
+        if r == 256:
+            check("magnitude_differ" in bake_failed(faults["last triangle dropped"]),
+                  "the magnitude bar does not see the last triangle dropped")
+            check("sign_differ_off_band" in bake_failed(faults["winding flipped"]),
+                  "the sign bar does not see one triangle's winding flipped")
+        out[r] = {"ms": ms, "plain_s": plain_s, "bound_ms": bound_ms, "bound_by": by,
+                  "values": values if r == 128 else None,
+                  "err": _max_err(pick(values).abs(), dist)}
+    for row in kernel_resources("bake_kernel.cu", ("bake_kernel",)):
+        print(f"  ptxas: {row['kernel']}: {row['registers']} registers, {row['stack']} B stack, "
+              f"{row['spill_stores']} B spill stores, {row['spill_loads']} B spill loads")
+    entry = {"name": "bake_kernel (mesh-asset bake, the torus at 128^3)", "route": "cuda",
+             "source": "bsdmg_tpu_torch/csrc/bake_kernel.cu",
+             "replaces": "bsdmg_tpu/models/mesh_sdf.py:108 (XLA in the JAX package, no TPU kernel)",
+             "max_abs_err": out[128]["err"], "ms": out[128]["ms"],
+             "plain_ms": out[128]["plain_s"] * 1e3, "bound_ms": out[128]["bound_ms"],
+             "bound_by": out[128]["bound_by"], "library_ms": None}
+    print(f"bake 256^3 on {card}: {out[256]['ms']:.4f} ms alone, bound {out[256]['bound_ms']:.4f} "
+          f"ms ({out[256]['bound_by']})")
+    return entry, out[128]["values"]
+
+
+def asset_cli(argv: list[str]) -> tuple[dict, list[str], float]:
+    """``cli <argv>`` with no plain twin of K6, K7 or the bake allowed."""
+    with no_twins():
+        return run_cli(argv)
+
+
+def grid_kernel_phase(card: str, label: str, desc, field, cfg, launches: dict,
+                      with_k7: bool) -> list[dict]:
+    """K6 (and K7) over a grid structure at ``field``'s voxels against
+    their twins on the card, bit for bit with NaN at the same places; each
+    alone with its bound and the twin's time; the kernels line's entries."""
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda.csdf import sdf_fns
+    from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
+
+    fns = sdf_fns(desc)
+    args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, cfg)
+    kern = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
+    t0 = time.perf_counter()
+    twin = mc_kernel.mc_fused_torch(fns, *args, **kwargs)
+    torch.cuda.synchronize()
+    k6_plain = (time.perf_counter() - t0) * 1e3
+    equal = [same_nan(a, b) for a, b in zip(kern, twin)]
+    valid = int(((kern[4][:, None] >> torch.arange(5, device=kern[4].device)) & 1).sum())
+    probe = newton_step_stats(desc, fns, args, kwargs)
+    k6_ops = mesh_ops(desc, kwargs["use_grad"], probe["newton_steps"], probe["edges"],
+                      probe["edges"], probe["valid_triangles"])
+    k6_bound = bound(field.count * (24 + 404), k6_ops)
+    k6_ms = k6_alone_ms(desc, args, kwargs)
+    print(f"K6 over {label}: {field.count} voxels, {valid} triangles, {probe['edges']} edges, "
+          f"{probe['newton_steps']} Newton steps; bit-equal to its twin (pos, nrm, dot, amb, meta) "
+          f"{equal}, NaN {int(kern[0].isnan().sum())}; alone {k6_ms:.4f} ms, twin "
+          f"{k6_plain:.1f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]}, {k6_ops:.4g} operations)")
+    check(all(equal), f"K6 over {label} differs from its twin: {equal}")
+    common = {"route": "cuda", "library_ms": None}
+    entries = [{"name": f"K6 mc_kernel<{desc_structure(desc)}> ({label})", "source": mc_kernel.SOURCE,
+                "replaces": "bsdmg_tpu/ops/pallas/mc_fused.py:77", "launches": launches["K6"],
+                "max_abs_err": _max_err(kern[0].nan_to_num(0.0), twin[0].nan_to_num(0.0)),
+                "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound[0],
+                "bound_by": k6_bound[1], **common}]
+    if with_k7:
+        cfg7 = dataclasses.replace(cfg, interpolate_edges=True)
+        args7, kwargs7 = kernel_inputs(desc, field.lowers, field.voxel_size, cfg7)
+        kern7 = mesh_kernel.project_edges_cuda(desc, *args7, **kwargs7)
+        t0 = time.perf_counter()
+        twin7 = mesh_kernel.project_edges_torch(fns, *args7[:3], args7[3].bool(), **kwargs7)
+        torch.cuda.synchronize()
+        k7_plain = (time.perf_counter() - t0) * 1e3
+        equal7 = [same_nan(a, b) for a, b in zip(kern7, twin7)]
+        m = args7[0].numel()
+        k7_ops = mesh_ops(desc, kwargs7["use_grad"],
+                          projection_step_stats(fns, args7, kwargs7)["newton_steps"], m)
+        k7_bound = bound(m * (16 + 24), k7_ops)
+        k7_ms = k7_alone_ms(desc, args7, kwargs7)
+        print(f"K7 over {label}: {m} listed edges; bit-equal to its twin {equal7}; alone "
+              f"{k7_ms:.4f} ms, twin {k7_plain:.1f} ms, bound {k7_bound[0]:.4f} ms ({k7_bound[1]})")
+        check(all(equal7), f"K7 over {label} differs from its twin: {equal7}")
+        entries.append({"name": f"K7 project_kernel<{desc_structure(desc)}> ({label})",
+                        "source": mesh_kernel.SOURCE,
+                        "replaces": "bsdmg_tpu/ops/pallas/mesh_kernel.py:66",
+                        "launches": launches["K7"],
+                        "max_abs_err": _max_err(kern7[0].nan_to_num(0.0), twin7[0].nan_to_num(0.0)),
+                        "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound[0],
+                        "bound_by": k7_bound[1], **common})
+    return entries
+
+
+def desc_structure(desc) -> str:
+    """A grid descriptor's structure as the source names it."""
+    return f"GridScene<{'GRID_LERP' if desc.grid_form == 'lerp' else 'GRID_WEIGHTS'}>"
+
+
+def e2e_asset_phase(card: str, device, obj: Path) -> None:
+    """BASELINE's mesh-asset configuration on the port at full width
+    (tools/e2e_mesh_1024.py's workload): the torus OBJ, its 256^3 bake, a
+    512x512 render from (3, 1.5, -3) on the contraction route, the
+    extraction from 32^3 with 5 refines (1024^3) through ``mesh.pipeline.
+    remesh`` (the weights form shifted by the grid's centre, 24 Newton
+    iterations, K6), its native weld, and the OBJ write; each stage's
+    seconds, the counts, and the vertices' |sdf| on the baked field
+    (grid_sdf's lerps at the vertices, as the tool measures)."""
+    from bsdmg_tpu_torch.cam import generate_rays, look_at
+    from bsdmg_tpu_torch.mesh.export import load_obj, save_obj
+    from bsdmg_tpu_torch.mesh.pipeline import remesh, remesh_scene
+    from bsdmg_tpu_torch.models.mesh_sdf import bake_mesh_grid
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+    from bsdmg_tpu_torch.ops.cuda.csdf import descriptor_csdf, grid_descriptor
+
+    stages: dict = {}
+    clock = []
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - clock[-1]
+        clock.append(now)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    clock.append(time.perf_counter())
+    src = load_obj(obj)
+    lap("load")
+    grid = bake_mesh_grid(src.vertices, src.faces, resolution=E2E_RESOLUTION, device=device)
+    lap(f"bake {E2E_RESOLUTION}^3")
+    levels = tg.make_contraction_levels(grid)
+    lap("contraction levels")
+    rays = generate_rays(look_at(TORUS_CAMERA, device=device), (E2E_SIZE, E2E_SIZE),
+                         (float(E2E_SIZE), float(E2E_SIZE)))
+    for frame in ("render frame 1", "render frame 2"):
+        img = tg.render_image_grid(grid, *rays, mode="contraction", levels=levels)
+        lap(frame)
+    lit = float((img.sum(-1) > 0.01).float().mean())
+    voxels = []
+
+    def on_level(field):
+        voxels.append(field.count)
+        lap(f"refine to level {len(voxels) - 1}" if len(voxels) > 1 else "initial field")
+
+    with no_twins():
+        mesh = remesh(grid, refine=E2E_REFINES, newton_iters=24, device=device,
+                      on_level=on_level, on_triangles=lambda soup: lap("extraction (K6)"))
+    lap("weld (native)")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_obj(mesh, Path(tmp) / "torus_1024.obj")
+        lap("OBJ write (native)")
+        size = (Path(tmp) / "torus_1024.obj").stat().st_size
+    center = remesh_scene(grid)[2]
+    lerp = descriptor_csdf(grid_descriptor(grid, "lerp", center))
+    v = torch.from_numpy(mesh.vertices - center).to(device)
+    sd = lerp(v[:, 0].contiguous(), v[:, 1].contiguous(), v[:, 2].contiguous()).abs()
+    from bsdmg_tpu_torch.ops.cuda import bake_kernel, mc_kernel
+
+    print(f"BASELINE mesh-asset configuration on {card} (tools/e2e_mesh_1024.py's workload; "
+          f"{src.triangle_count} triangles): stages (s, host clock after a sync) "
+          f"{json.dumps({k: round(x, 6) for k, x in stages.items()})}; render lit fraction "
+          f"{lit:.3f}; voxels per level {voxels}; mesh {mesh.vertex_count} vertices, "
+          f"{mesh.triangle_count} triangles, OBJ {size} B; vertex |sdf| mean "
+          f"{sd.mean().item():.3e} max {sd.max().item():.3e}; launches K6 {mc_kernel.LAUNCHES}, "
+          f"bake {bake_kernel.LAUNCHES}")
+    check(mc_kernel.LAUNCHES >= 1 and bake_kernel.LAUNCHES == 1,
+          "the mesh-asset configuration did not launch K6 and the bake")
+    check(mesh.triangle_count > 0 and bool(torch.isfinite(sd).all()) and sd.max().item() < 1e-3,
+          f"the 1024^3 mesh: {mesh.triangle_count} triangles, |sdf| max {sd.max().item()}")
+
+
+def asset_phases(card: str, device) -> list[dict]:
+    """Mesh-asset scenes through every verb on the card: the bake kernel
+    against its twin (:func:`bake_phases`); ``cli mesh --scene mesh:``
+    (K6, and K7 with ``--interpolate-edges``), ``cli remesh``, ``cli
+    session`` and ``cli animate`` of the torus, each with the bake and no
+    plain twin of K6, K7 or the bake; the depth ``cli fit`` (plain PyTorch,
+    as JAX's XLA) and ``fit --image``, which raises; K6 and K7 over the
+    grid structure against their twins in the lerp form at ``cli mesh``'s
+    defaults (level 3, bb 5) and K6 in the weights form at ``cli
+    remesh``'s (128^3, init 32, refine 2); the reference K6 and K7 keep
+    their registers (REFERENCE_MESH_REGISTERS) and no spill; then
+    BASELINE's configuration (:func:`e2e_asset_phase`). Returns the kernels line's entries."""
+    from bsdmg_tpu_torch.config import MeshGenConfig
+    from bsdmg_tpu_torch.mesh.export import load_obj
+    from bsdmg_tpu_torch.mesh.field import create_voxel_field, refine_field
+    from bsdmg_tpu_torch.mesh.pipeline import remesh_scene
+    from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid, grid_box
+    from bsdmg_tpu_torch.ops.cuda.csdf import grid_descriptor
+
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        obj = tmp / "torus.obj"
+        subprocess.run([sys.executable, str(ROOT / "tools" / "make_torus.py"), str(obj)],
+                       capture_output=True, text=True, check=True, timeout=300)
+        src = load_obj(obj)
+        bake_entry, values = bake_phases(card, device, src)
+        lo, hi = grid_box(src.vertices)
+        grid = SdfGrid(values=values.reshape(128, 128, 128), lo=tuple(map(float, lo)),
+                       hi=tuple(map(float, hi)))
+
+        runs = {}
+        for name, argv, want in (
+            ("mesh", ["mesh", "--scene", f"mesh:{obj}", "-o", str(tmp / "m.obj")],
+             {"K6": 1, "K7": 0, "bake": 1}),
+            ("mesh --interpolate-edges", ["mesh", "--scene", f"mesh:{obj}", "--interpolate-edges",
+                                          "-o", str(tmp / "k7.obj")], {"K6": 0, "K7": 1, "bake": 1}),
+            ("remesh", ["remesh", "-i", str(obj), "-o", str(tmp / "r.obj")],
+             {"K6": 1, "K7": 0, "bake": 1}),
+            ("session", ["session", "--scene", f"mesh:{obj}", "--keys", ASSET_KEYS, "-o",
+                         str(tmp / "s.obj")], {"K6": SESSION_EXTRACTIONS, "K7": 0, "bake": 1}),
+            ("animate", ["animate", "--scene", f"mesh:{obj}", "--frames", str(ASSET_FRAMES),
+                         "--width", str(ASSET_SIZE[0]), "--height", str(ASSET_SIZE[1]), "--rotate",
+                         "--motion", "spheric", "--camera", *map(str, TORUS_CAMERA), "-o",
+                         str(tmp / "frame")],
+             {"K1": 0, "bake": 1, **{k: n * ASSET_FRAMES for k, n in GRID_LAUNCHES.items()}}),
+            ("fit", ["fit", "--scene", f"mesh:{obj}:16", "--perturb", "grid=1.1", "--steps", "2"],
+             {"K4": 0, "K5": 0, "bake": 1}),
+        ):
+            counts, messages, seconds = asset_cli(argv)
+            runs[name] = counts
+            out = {"mesh": "m.obj", "mesh --interpolate-edges": "k7.obj", "remesh": "r.obj",
+                   "session": "s.obj"}.get(name)
+            tail = ""
+            if out:
+                v, vn, f, finite = read_obj_counts(tmp / out)
+                tail = f"; {f} triangles, {v} vertices, finite {finite}"
+                check(f > 0 and v == vn and finite, f"cli {name} of the torus: {v}, {vn}, {f}")
+            shown = [m for m in messages if m.startswith(("level", "mesh:", "remeshed", "baked",
+                                                          "loaded", "extracted", "step",
+                                                          "recovered", "scene"))]
+            print(f"mesh-asset cli {name} on {card} in {seconds:.2f} s: launches "
+                  f"{ {k: counts[k] for k in want} }{tail}; log {json.dumps(shown)[:1500]}")
+            check(all(counts[k] == n for k, n in want.items()),
+                  f"cli {name} --scene mesh: launched {counts}, not {want}")
+            if name == "animate":
+                check(any("motion ignored" in m for m in messages),
+                      "animate --motion of a mesh asset did not warn")
+        try:
+            asset_cli(["fit", "--image", "--scene", f"mesh:{obj}:32", "--perturb", "grid=1.1"])
+            check(False, "fit --image --scene mesh: did not raise")
+        except NotImplementedError as err:
+            print(f"mesh-asset cli fit --image raises NotImplementedError: {err}")
+
+        # K6 and K7 over the grid structure against their twins
+        cfg = MeshGenConfig()
+        lerp = grid_descriptor(grid)
+        field = create_voxel_field(cfg, device)
+        for _ in range(3):
+            field = refine_field(lerp, field)
+        entries += grid_kernel_phase(card, "mesh asset, lerp form, cli mesh level 3", lerp, field,
+                                     cfg, {"K6": runs["mesh"]["K6"],
+                                           "K7": runs["mesh --interpolate-edges"]["K7"]}, True)
+        weights, rcfg, _ = remesh_scene(grid)
+        field = create_voxel_field(rcfg, device)
+        for _ in range(2):
+            field = refine_field(weights, field)
+        entries += grid_kernel_phase(card, "mesh asset, weights form, cli remesh level 2",
+                                     weights, field, rcfg, {"K6": runs["remesh"]["K6"]}, False)
+        del field
+        e2e_asset_phase(card, device, obj)
+    bake_entry["launches"] = runs["mesh"]["bake"]
+    entries.append(bake_entry)
+
+    for source, prefix in (("mc_kernel.cu", "mc_kernel<"), ("project_kernel.cu", "project_kernel<")):
+        want = REFERENCE_MESH_REGISTERS[prefix]
+        rows = kernel_resources(source, (prefix,))
+        for row in rows:
+            if "GridScene" in row["kernel"] or row["kernel"].endswith("<Box<false, false>>"):
+                print(f"  ptxas: {row['kernel']}: {row['registers']} registers, {row['stack']} B "
+                      f"stack, {row['spill_stores']} B spill stores, {row['spill_loads']} B spill loads")
+        ref = [r for r in rows if r["kernel"].endswith("<Box<false, false>>")]
+        check(len(ref) == 1 and ref[0]["registers"] == want and not ref[0]["spill_stores"],
+              f"the reference {prefix}Box<false, false>> moved from {want} registers: {ref}")
+
+    return entries
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3451,7 +3866,7 @@ def main(argv: list[str]) -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     library = build.build()
     print(f"build: {library.relative_to(ROOT)} from {[s.name for s in build.sources()]} "
           f"in {time.perf_counter() - t0:.1f} s")
@@ -3483,7 +3898,10 @@ def main(argv: list[str]) -> int:
     kernels += diff_kernel_phases(card, device, fit, alone)
     kernels += fit_scene_phases(card, device)
     kernels += grid_phases(card, device)
+    kernels += asset_phases(card, device)
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s, the build "
+          "included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

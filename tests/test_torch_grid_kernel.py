@@ -53,6 +53,7 @@ from bsdmg_tpu_torch.config import MarchConfig
 from bsdmg_tpu_torch.mesh.export import save_obj
 from bsdmg_tpu_torch.mesh.pipeline import Mesh
 from bsdmg_tpu_torch.models import mesh_sdf as tm
+from bsdmg_tpu_torch.ops.cuda import grid_box
 from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
 from bsdmg_tpu_torch.ops.cuda.render_kernel import _march
 from bsdmg_tpu_torch.weights import grid_from_numpy
@@ -586,7 +587,7 @@ def _c_struct_fields(source: str, name: str):
 
 
 @pytest.mark.parametrize("header,c_name,py_struct", [
-    ("grid_sdf.cuh", "GridBox", tg._GridBoxC),
+    ("grid_sdf.cuh", "GridBox", grid_box.GridBoxC),
     ("grid_kernel.cu", "GridMarch", tg._GridMarchC),
 ])
 def test_struct_layout_matches_cuda_source(header, c_name, py_struct):

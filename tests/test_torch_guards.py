@@ -78,11 +78,12 @@ def test_import_scan_covers_the_composed_slice():
     } <= scanned
 
 
-@pytest.mark.parametrize("verb", ["render", "mesh", "session", "fit", "animate", "bench"])
+@pytest.mark.parametrize("verb", ["render", "mesh", "session", "fit", "animate", "bench", "remesh"])
 def test_cli_verbs_default_to_the_card(verb):
     from bsdmg_tpu_torch import cli
 
-    assert cli.build_parser().parse_args([verb]).device == "cuda"
+    required = {"remesh": ["-i", "asset.obj"]}.get(verb, [])
+    assert cli.build_parser().parse_args([verb, *required]).device == "cuda"
 
 
 @pytest.mark.parametrize("name", ["MarchConfig", "MeshGenConfig", "RenderConfig"])
@@ -244,5 +245,6 @@ def test_entry_points_default_to_the_card():
                      "models.motion.quat_from_axis_angle", "models.motion.motion_params",
                      "models.motion.RotateAxisMotion.rotation_at",
                      "models.motion.AxisCyclicMotion.translation_at",
-                     "models.motion.SphericCyclicMotion.translation_at"):
+                     "models.motion.SphericCyclicMotion.translation_at",
+                     "mesh.pipeline.remesh", "models.mesh_sdf.bake_mesh_grid"):
         assert f"bsdmg_tpu_torch.{required}" in checked, required

@@ -244,18 +244,24 @@ def test_cli_mesh_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "argv, match", [(["--sharded"], "sharded"), (["--scene", "mesh:assets/torus.obj"], "mesh-asset"),
+    "argv, match", [(["--sharded"], "sharded"), (["--scene", "NESTED.json"], "9 nested frames"),
                     (["--scene", "DEEP.json"], "at most 64 instructions")],
     ids=["sharded", "unported scene", "composed scene"],
 )
 def test_cli_mesh_unported_options_raise(tmp_path, argv, match):
     # a composed scene meshes (tests/test_torch_compose.py) unless its node
     # program is longer than the kernels take: 40 spheres in a union are 79
-    # instructions, and the cap is 64
+    # instructions, and the cap is 64; or nests more coordinate frames: 9
+    # transforms, and the cap is 8 (a mesh asset, which raised here before,
+    # meshes: tests/test_torch_mesh_assets.py)
     deep = {"root": {"op": "union",
                      "children": [{"prim": "sphere", "radius": 0.1 + i} for i in range(40)]}}
     (tmp_path / "DEEP.json").write_text(json.dumps(deep))
-    argv = [str(tmp_path / a) if a == "DEEP.json" else a for a in argv]
+    nested = {"prim": "sphere", "radius": 0.5}
+    for _ in range(9):
+        nested = {"op": "transform", "child": nested}
+    (tmp_path / "NESTED.json").write_text(json.dumps({"root": nested}))
+    argv = [str(tmp_path / a) if a.endswith(".json") else a for a in argv]
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["mesh", "--device", "cpu", "--init-factor", "8", "-o", str(tmp_path / "m.obj"), *argv])
 

@@ -29,7 +29,7 @@ from bsdmg_tpu.ops.pallas.csdf import scene_bounds
 from bsdmg_tpu.ops.pallas.render_kernel import render_image_pallas, trace_pallas
 from bsdmg_tpu_torch.config import MarchConfig
 from bsdmg_tpu_torch.models import reference_render_scene
-from bsdmg_tpu_torch.ops.cuda import render_kernel
+from bsdmg_tpu_torch.ops.cuda import grid_box, render_kernel
 from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda, render_image_planes_torch
 from bsdmg_tpu_torch.weights import params_from_numpy
@@ -194,6 +194,8 @@ def test_descriptor_layout_matches_cuda_source(c_name, py_struct):
         "CapsuleGroup": render_kernel._CapsuleGroupC,
         "CapsuleSet": render_kernel._CapsuleSetC,
         "int*": ctypes.c_void_p,  # a composed scene's node program in device memory
+        "float*": ctypes.c_void_p,  # a grid's table in device memory
+        "GridBox": grid_box.GridBoxC,
     }
     c_fields = _c_struct_fields(source, c_name)
     assert [f[1] for f in c_fields] == [f[0] for f in py_struct._fields_]

@@ -181,15 +181,18 @@ def test_descriptor_value_and_grad_match_jax_vjp(name):
 
 def test_kernel_structures():
     """kernel_structure's indices for the new scenes, the header's
-    with_structure cases that name the same structures, and the fields of
-    the descriptor the kernels read."""
+    with_structure cases (and with_mesh_structure's, a mesh asset's grid in
+    its two forms) that name the same structures, and the fields of the
+    descriptor the kernels read."""
     assert {n: tcsdf.kernel_structure(_desc(n)) for n in ALL} == {
         "sphere": tcsdf.SPHERE, "box": tcsdf.SOLID_BOX, "mandelbulb": tcsdf.MANDELBULB,
         "wrapped_object": tcsdf.WRAPPED}
     cases = dict(re.findall(r"case (\d+): f\((\w+(?:<[^{]*>)?)\{\}\)", HEADER.read_text()))
     assert {int(k): v for k, v in cases.items() if int(k) >= 4} == {
         tcsdf.SPHERE: "Sphere", tcsdf.SOLID_BOX: "SolidBox", tcsdf.MANDELBULB: "Mandelbulb",
-        tcsdf.WRAPPED: "Wrapped<Box<false, false>>", tcsdf.COMPOSED: "Composed"}
+        tcsdf.WRAPPED: "Wrapped<Box<false, false>>", tcsdf.COMPOSED: "Composed",
+        tcsdf.GRID_FORMS["lerp"]: "GridScene<GRID_LERP>",
+        tcsdf.GRID_FORMS["weights"]: "GridScene<GRID_WEIGHTS>"}
     box = render_kernel.scene_desc_c(_desc("box"))
     assert list(box.box_half) == [0.5, 0.5, 0.5] and box.structure == tcsdf.SOLID_BOX
     bulb = render_kernel.scene_desc_c(_desc("mandelbulb"))

@@ -99,14 +99,15 @@ IMAGE_FITS = {
 
 @pytest.mark.parametrize("scene", ["mandelbulb", "examples/snowman.json", "mesh:bunny.obj"])
 def test_cli_unported_scene_raises(scene, tmp_path, caplog):
-    # mesh assets render (tests/test_torch_grid_kernel.py); meshing one does
-    # not. The mandelbulb and composed scenes render, mesh and fit depth
-    # (tests/test_torch_scenes.py, test_torch_compose.py), and their image
-    # fit runs through K4's and K5's twins and matches JAX's cmd_fit
+    # mesh assets render, mesh and fit depth (tests/test_torch_grid_kernel.py,
+    # test_torch_mesh_assets.py); their image fit does not, and raises before
+    # it loads the asset. The mandelbulb and composed scenes render, mesh and
+    # fit depth (tests/test_torch_scenes.py, test_torch_compose.py), and their
+    # image fit runs through K4's and K5's twins and matches JAX's cmd_fit
     # (without --perturb it exits asking for one, as the JAX CLI's does)
     if scene.startswith("mesh:"):
-        with pytest.raises(NotImplementedError):
-            cli.main(["mesh", "-o", str(tmp_path / "x.obj"), "--device", "cpu", "--scene", scene])
+        with pytest.raises(NotImplementedError, match="grid parameter form"):
+            cli.main(["fit", "--image", "--device", "cpu", "--scene", scene])
         return
     with pytest.raises(SystemExit, match="pass --perturb"):
         cli.main(["fit", "--image", "--device", "cpu", "--scene", scene])
