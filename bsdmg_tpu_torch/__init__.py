@@ -9,7 +9,9 @@ inverse rendering (``grad/``, ``cli fit``) through two more
 (``ops/cuda/diff_kernel.py``) and mesh assets through three more
 (``ops/cuda/grid_kernel.py``); each has a plain PyTorch twin. The weld and
 the OBJ files go through the native host runtime (``runtime/native.py``,
-C++ built with g++). ``bench`` and ``utils/profiling.py`` measure them.
+C++ built with g++). ``parallel/`` runs the render, the fit steps and
+mesh generation over several devices, one process a device on
+``torch.distributed``. ``bench`` and ``utils/profiling.py`` measure them.
 The package imports torch and numpy, never jax; its entry points run on
 the card unless the caller names another device.
 """

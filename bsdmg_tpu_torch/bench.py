@@ -1,5 +1,6 @@
 """Operating-point benchmarks of the port: rays/s of the render, voxels/s of
-refine and marching cubes, rays/s of the fused loss and gradient.
+refine and marching cubes, rays/s of the fused loss and gradient, and the
+sharded frame's scaling and sharding overhead over the world's ranks.
 
 Counterpart of ``bsdmg_tpu/bench.py``, at the same operating points: the
 reference scene from (5, 2, -5) at 1920x1080 (``benchmark_render``), the
@@ -24,12 +25,21 @@ import torch
 
 from bsdmg_tpu_torch.cam import generate_rays, look_at
 from bsdmg_tpu_torch.config import MeshGenConfig
-from bsdmg_tpu_torch.grad import render_loss_and_grad
+from bsdmg_tpu_torch.grad import render_image_diff, render_loss_and_grad
 from bsdmg_tpu_torch.mesh.field import VoxelField, create_voxel_field, refine_field
 from bsdmg_tpu_torch.mesh.pipeline import field_to_triangles
 from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
 from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
 from bsdmg_tpu_torch.ops.cuda.render_kernel import BLOCK_H, BLOCK_W, render_image_cuda, trace_cuda
+from bsdmg_tpu_torch.parallel.collectives import all_reduce
+from bsdmg_tpu_torch.parallel.multihost import local_device
+from bsdmg_tpu_torch.parallel.sharding import (
+    make_mesh,
+    render_sharded_pallas,
+    shard_image,
+    shard_rays,
+    train_step,
+)
 
 #: the JAX package's (8, 128) vector tile, over which it takes its tile maxima
 TILE = (8, 128)
@@ -38,7 +48,7 @@ WARP = (BLOCK_H // 2, BLOCK_W // 2)
 
 
 def _slope_time(make_many: Callable[[int], float], k1: int = 1, k2: int = 8, iters: int = 3,
-                passes: int = 3) -> float:
+                passes: int = 3, agree: Callable[[float], float] = float) -> float:
     """Seconds per call of the work from a robust multi-point slope.
 
     ``make_many(k)`` runs the work ``k`` times and returns a host float
@@ -46,7 +56,9 @@ def _slope_time(make_many: Callable[[int], float], k1: int = 1, k2: int = 8, ite
     fixed cost of a timed call. As the JAX package's: three ``k`` points
     spanning ``[k1, k2]``, the best of ``iters`` per point, the median of
     the pairwise slopes (Theil-Sen) per pass, the median over ``passes``;
-    a slope that jitter swallowed widens ``k2`` and fails past 64."""
+    a slope that jitter swallowed widens ``k2`` and fails past 64. Each
+    point's time passes through ``agree`` (the ranks' mean, where the work
+    is a sharded frame: every rank then takes the same decisions)."""
 
     def best(k):
         b = float("inf")
@@ -63,7 +75,7 @@ def _slope_time(make_many: Callable[[int], float], k1: int = 1, k2: int = 8, ite
             make_many(k)
         pass_slopes = []
         for _ in range(passes):
-            t = {k: best(k) for k in ks}
+            t = {k: agree(best(k)) for k in ks}
             pair = [(t[b] - t[a]) / (b - a) for i, a in enumerate(ks) for b in ks[i + 1:]]
             pass_slopes.append(statistics.median(pair))
         slope = statistics.median(pass_slopes)
@@ -240,3 +252,109 @@ def benchmark_render_grad(width: int = 512, height: int = 512, *,
     per_call = _slope_time(many, k1=2, k2=16, iters=5)
     return {"rays_per_s": width * height / per_call, "seconds_per_frame": per_call,
             "width": width, "height": height}
+
+
+def _world_mean(seconds: float, mesh, device: torch.device) -> float:
+    """The mean of every rank's ``seconds`` (one ``all_reduce``)."""
+    total = all_reduce(torch.tensor([seconds], dtype=torch.float64, device=device))
+    return float(total[0]) / mesh.size()
+
+
+def _sync_time(fn: Callable[[], Any], device: torch.device, iters: int = 3, warmup: int = 2,
+               agree: Callable[[float], float] = float) -> float:
+    """The best of ``iters`` wall times of ``fn()`` after ``warmup`` calls,
+    each ended by a sync, through ``agree``."""
+    for _ in range(warmup):
+        fn()
+        _sync(device)
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return agree(best)
+
+
+def benchmark_scaling(width: int = 1920, height: int = 1080, iters: int = 3, *,
+                      device: str | torch.device = "cuda") -> dict[str, Any]:
+    """Rays/s of the sharded frame (``parallel/sharding.py::
+    render_sharded_pallas``, K1 on every rank) of the reference scene over
+    the world's mesh (``make_mesh``: a world of one without a process
+    group), against one rank's unsharded frame: ``efficiency = (rays_per_s
+    / N) / rays_per_s_single``, the JAX package's keys. A world of one
+    reports N = 1 and efficiency 1.0. Every rank measures at once, so ranks
+    that share a card also share its time."""
+    device = local_device(device)
+    mesh = make_mesh(device=device)
+    n = mesh.size()
+    desc = compile_scene(reference_render_scene(device=device))
+    origins, dirs, cone = _rays(width, height, device)
+
+    def measure(render) -> float:
+        def many(k: int) -> float:
+            acc = torch.zeros((), device=device)
+            for i in range(k):
+                acc = acc + render(origins + 1e-6 * i).sum()
+            _sync(device)
+            return float(acc)
+
+        agree = (lambda t: _world_mean(t, mesh, device)) if n > 1 else float
+        return width * height / _slope_time(many, k2=4, iters=iters, agree=agree)
+
+    full = measure(lambda o: render_sharded_pallas(desc, o, dirs, cone, mesh))
+    if n == 1:
+        return {"devices": 1, "rays_per_s": full, "efficiency": 1.0}
+    single = measure(lambda o: render_image_cuda(desc, o, dirs, cone))
+    return {"devices": n, "rays_per_s": full, "rays_per_s_single": single,
+            "efficiency": (full / n) / single}
+
+
+def benchmark_scaling_overhead(width: int = 256, height: int = 256, iters: int = 3, *,
+                               device: str | torch.device = "cuda") -> dict[str, Any]:
+    """What sharding adds, at a fixed global workload: ``overhead = t(sharded
+    over the world) / t(unsharded)`` for the reference scene's frame
+    (``render_sharded_pallas`` against ``render_image_cuda``) and for one
+    SGD step of its shape parameters against a black target
+    (``train_step`` on this rank's interleaved block against the same step
+    on the whole frame without a collective), with ``projected_efficiency
+    = 1 / overhead``: the JAX package's keys. Every rank measures at once;
+    the sharded times are the ranks' mean."""
+    device = local_device(device)
+    mesh = make_mesh(device=device)
+    scene = reference_render_scene(device=device)
+    desc = compile_scene(scene)
+    origins, dirs, cone = _rays(width, height, device)
+    agree = lambda t: _world_mean(t, mesh, device)  # noqa: E731
+
+    t_direct = _sync_time(lambda: render_image_cuda(desc, origins, dirs, cone).sum(), device,
+                          iters, agree=agree)
+    t_sharded = _sync_time(lambda: render_sharded_pallas(desc, origins, dirs, cone, mesh).sum(),
+                           device, iters, agree=agree)
+
+    params = {k: v for k, v in scene.params.items()
+              if k not in ("object_center", "object_rotation")}
+    target = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
+    o, d, c, _ = shard_rays(origins, dirs, cone, mesh)
+    block = shard_image(target, mesh)
+
+    def step(sharded: bool):
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        opt = torch.optim.SGD(list(p.values()), lr=1e-3)
+        if sharded:
+            return train_step(scene.sdf, p, opt, block, o, d, c, mesh, csdf=scene.csdf)[1]
+        img = render_image_diff(scene.sdf, p, origins, dirs, cone, csdf=scene.csdf)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+        opt.step()
+        return loss
+
+    t_train1 = _sync_time(lambda: step(False), device, iters, agree=agree)
+    t_train_n = _sync_time(lambda: step(True), device, iters, agree=agree)
+    return {
+        "devices": mesh.size(),
+        "render_overhead": t_sharded / t_direct,
+        "render_projected_efficiency": t_direct / t_sharded,
+        "train_overhead": t_train_n / t_train1,
+        "train_projected_efficiency": t_train1 / t_train_n,
+    }

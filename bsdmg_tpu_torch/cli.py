@@ -5,8 +5,11 @@
     python -m bsdmg_tpu_torch.cli render --scene examples/snowman.json -o out.png
     python -m bsdmg_tpu_torch.cli render --scene mandelbulb --camera 2 1 -2 -o out.png
     python -m bsdmg_tpu_torch.cli render --scene mesh:asset.obj[:RES] -o out.png
+    python -m bsdmg_tpu_torch.cli render --sharded -o out.png
+    torchrun --nproc-per-node=2 -m bsdmg_tpu_torch.cli render --sharded -o out.png
     python -m bsdmg_tpu_torch.cli mesh -o out.obj
     python -m bsdmg_tpu_torch.cli mesh --interpolate-edges -o out.obj
+    python -m bsdmg_tpu_torch.cli mesh --sharded -o out.obj
     python -m bsdmg_tpu_torch.cli mesh --scene mesh:asset.obj[:RES] -o out.obj
     python -m bsdmg_tpu_torch.cli remesh -i asset.obj [--grid-resolution 128] -o out.obj
     python -m bsdmg_tpu_torch.cli session --keys vbbbvv -o out.obj
@@ -14,6 +17,7 @@
     python -m bsdmg_tpu_torch.cli fit --image
     python -m bsdmg_tpu_torch.cli animate --frames 8 [--rotate --motion spheric] -o frame
     python -m bsdmg_tpu_torch.cli bench --which render [--two-phase row|block] [--roofline]
+    python -m bsdmg_tpu_torch.cli bench --which scaling|scaling-proxy
 
 ``render`` draws a built-in scene (``--scene``: the reference render scene
 by default, ``sphere``, ``box``, ``mandelbulb``, ``wrapped_object``) or a
@@ -37,11 +41,17 @@ mesh asset's orbit through K9, K8 and P1);
 ``bench`` prints the JAX CLI's
 operating-point numbers as JSON (the render of ``--scene`` through K1, or with
 ``--two-phase row`` through K2 and K3, with ``block`` through K1 twice;
-refine; marching cubes through K6; the loss and gradient through K5). All
-keep the JAX CLI's flags and defaults (``bsdmg_tpu/cli.py``). ``--device``
-picks the torch device (default ``cuda``); ``--device cpu`` runs the
-kernels' plain PyTorch twins, for tests. With no CUDA device and no
-``--device cpu`` a command fails: it never moves to the CPU on its own.
+refine; marching cubes through K6; the loss and gradient through K5; the
+sharded frame's scaling and overhead). All keep the JAX CLI's flags and
+defaults (``bsdmg_tpu/cli.py``). ``render --sharded`` and ``mesh
+--sharded`` run the multi-device paths (``parallel/``) over every rank of
+the world: one process a device, joined by ``torchrun`` or the
+``BSDMG_*`` variables (``parallel/multihost.py``), or a world of one
+without them; rank 0 logs the totals and writes the file. ``--device``
+picks the torch device (default ``cuda``, under a launcher
+``cuda:LOCAL_RANK``); ``--device cpu`` runs the kernels' plain PyTorch
+twins, for tests. With no CUDA device and no ``--device cpu`` a command
+fails: it never moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bsdmg_tpu_torch import bench
 from bsdmg_tpu_torch.cam import generate_rays, look_at
@@ -90,13 +101,20 @@ from bsdmg_tpu_torch.ops.cuda.grid_kernel import make_contraction_levels, render
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
 from bsdmg_tpu_torch.ops.shade import to_rgba8
 from bsdmg_tpu_torch.ops.trace import COLLISION
+from bsdmg_tpu_torch.parallel import (
+    generate_mesh_sharded,
+    make_mesh,
+    render_grid_sharded,
+    render_sharded,
+)
+from bsdmg_tpu_torch.parallel.multihost import local_device
 from bsdmg_tpu_torch.utils import profiling
 
 log = logging.getLogger("bsdmg_tpu_torch")
 
 
 def _device(name: str) -> torch.device:
-    device = torch.device(name)
+    device = local_device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {name!r} requested but torch.cuda.is_available() is False; "
@@ -150,6 +168,23 @@ def _mesh_asset_scene(spec: str, device: torch.device):
     return scene
 
 
+def _rank_zero() -> bool:
+    """This process writes the files: the only one, or rank 0 of the world."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _sharded_renderer(scene, mesh):
+    """:func:`_renderer` over the world's ``mesh`` (``parallel/sharding.py``):
+    a mesh asset through ``render_grid_sharded``, else ``render_sharded``
+    (K1 on each rank's bands)."""
+    if scene.grid is None:
+        return lambda origins, dirs, cone: render_sharded(scene, scene.params, origins, dirs,
+                                                          cone, mesh)
+    levels = make_contraction_levels(scene.grid)
+    return lambda origins, dirs, cone: render_grid_sharded(scene.grid, origins, dirs, cone, mesh,
+                                                           levels=levels)
+
+
 def _renderer(scene):
     """The scene's render, ``(origins, dirs, cone) -> rgb``: the grid route
     for a mesh asset (its contraction ladder built once, here), else kernel
@@ -175,14 +210,22 @@ def cmd_render(args) -> None:
     origins, dirs, cone = generate_rays(
         cam, (args.width, args.height), (args.screen_width, args.screen_height)
     )
+    if args.sharded:
+        mesh = make_mesh(device=device)
+        render = _sharded_renderer(scene, mesh)
+        log.info("sharded render over %d rank(s)", mesh.size())
+    else:
+        render = _renderer(scene)
     t0 = time.perf_counter()
-    img = _renderer(scene)(origins, dirs, cone)
+    img = render(origins, dirs, cone)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     log.info(
         "rendered %dx%d on %s in %.3fs", args.width, args.height, device,
         time.perf_counter() - t0,
     )
+    if not _rank_zero():
+        return
     out = args.output or "render.png"
     if out.endswith(".npy"):
         np.save(out, img.cpu().numpy())
@@ -193,10 +236,6 @@ def cmd_render(args) -> None:
 
 def cmd_mesh(args) -> None:
     device = _device(args.device)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: multi-device mesh generation is not ported to bsdmg_tpu_torch yet"
-        )
     # the render scene's wireframe is not part of the meshed object
     scene_name = "reference_object" if args.scene == "reference_render_scene" else args.scene
     desc = compile_scene(_get_scene(scene_name, device))
@@ -213,14 +252,27 @@ def cmd_mesh(args) -> None:
             save_field(field, f"{args.checkpoint}.L{field.level}.npz")
 
     t0 = time.perf_counter()
-    field = None
-    if args.resume:
-        field = load_field(args.resume, device)
-        log.info("resumed from %s: level %d, %d voxels", args.resume, field.level, field.count)
-    mesh = generate_mesh(
-        desc, refine_steps=args.refine, config=cfg, on_level=on_level, device=device,
-        field=field,
-    )
+    if args.sharded:
+        # shard-local refine and extraction over every rank (parallel/mesh.py);
+        # as in the JAX CLI, no checkpoint or resume
+        # (the levels are not logged: a rank knows only its own voxels)
+        dev_mesh = make_mesh(device=device)
+        if _rank_zero():
+            log.info("sharded pipeline over %d rank(s)", dev_mesh.size())
+        mesh = generate_mesh_sharded(desc, dev_mesh, refine_steps=args.refine, config=cfg,
+                                     device=device)
+        if not _rank_zero():
+            return
+    else:
+        field = None
+        if args.resume:
+            field = load_field(args.resume, device)
+            log.info("resumed from %s: level %d, %d voxels", args.resume, field.level,
+                     field.count)
+        mesh = generate_mesh(
+            desc, refine_steps=args.refine, config=cfg, on_level=on_level, device=device,
+            field=field,
+        )
     log.info(
         "mesh: %d vertices, %d triangles on %s in %.3fs",
         mesh.vertex_count, mesh.triangle_count, device, time.perf_counter() - t0,
@@ -614,6 +666,12 @@ def cmd_bench(args) -> None:
                     "speed_of_light_ms": roof.seconds * 1e3,
                     "pct_of_roofline": _share(roof, r["seconds_per_frame"], device),
                 }
+        if args.which == "scaling":
+            results["scaling"] = bench.benchmark_scaling(args.width, args.height, device=device)
+        if args.which == "scaling-proxy":
+            results["scaling_proxy"] = bench.benchmark_scaling_overhead(device=device)
+    if not _rank_zero():
+        return
     if args.trace:
         results["trace_dir"] = args.trace
     results["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -648,6 +706,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     common_camera(r, 1920, 1080)
     r.add_argument("--output", "-o", default=None, help=".png (default render.png) or .npy")
+    r.add_argument(
+        "--sharded", action="store_true",
+        help="render over every rank of the world (bands of 8 rows dealt round robin)",
+    )
     _add_device(r)
     r.set_defaults(fn=cmd_render)
 
@@ -664,7 +726,7 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--interpolate-edges", action="store_true")
     m.add_argument(
         "--sharded", action="store_true",
-        help="multi-device refine + extraction (not ported: raises)",
+        help="shard-local refine + extraction over every rank of the world",
     )
     m.add_argument("--checkpoint", default=None, help="save field npz per level")
     m.add_argument(
@@ -752,7 +814,11 @@ def build_parser() -> argparse.ArgumentParser:
     se.set_defaults(fn=cmd_session)
 
     b = sub.add_parser("bench", help="operating-point benchmarks")
-    b.add_argument("--which", choices=["all", "render", "refine", "mc", "grad"], default="all")
+    b.add_argument(
+        "--which",
+        choices=["all", "render", "refine", "mc", "grad", "scaling", "scaling-proxy"],
+        default="all",
+    )
     b.add_argument(
         "--scene", default="reference_render_scene",
         help="render: scene name (bsdmg_tpu_torch.models.SCENES)",

@@ -163,7 +163,24 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     (``tools/e2e_mesh_1024.py``'s workload): the 256^3 bake, a 512x512
     render, the extraction from 32^3 with 5 refines (1024^3), the native
     weld and OBJ write, with each stage's seconds, the counts and the
-    vertices' |sdf|.
+    vertices' |sdf|;
+16. the multi-device paths (``bsdmg_tpu_torch/parallel/``): in this
+    process, a world of one rank on NCCL: ``cli render --sharded`` (K1) and
+    ``--scene mesh:<torus>:128`` (K9 twice, K8, P1), each with the
+    unsharded command's launches, one ``all_gather`` and its image bit for
+    bit, ``cli mesh --sharded`` (K6) and ``--interpolate-edges`` (K7) with
+    ``cli mesh``'s counts, ``cli bench --which scaling`` and
+    ``scaling-proxy``; then two gloo ranks sharing the card
+    (``parallel/launch.py``), whose sharded frames (K1; K2 and K3; block
+    retirement; the torus) are bit-equal to the single-device frames,
+    whose sharded mesh at levels 3 and 5 (K6) has the single-device
+    triangles, vertices and sorted vertices, whose steps
+    (``train_step_fused``, K5, at 512x512; ``train_step``, K4, at 64x64)
+    meet the JAX bars against the single-device step with the ranks'
+    parameters bit-equal, each path with its kernels' launches, its
+    collectives and its wall time beside the unsharded path's; then the
+    scaling benches at two ranks. Both ranks share one card: the times
+    are striping and gathering costs, not scaling.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that did not launch its kernel fails. Then one JSON
@@ -485,14 +502,6 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
     """Runs ``cli <argv>`` with every launch count set to 0; returns the
     counts after it, the CLI's log lines and the seconds it took."""
     from bsdmg_tpu_torch import cli
-    from bsdmg_tpu_torch.ops.cuda import (
-        bake_kernel,
-        diff_kernel,
-        grid_kernel,
-        mc_kernel,
-        mesh_kernel,
-        render_kernel,
-    )
 
     records = _Records()
     logger = logging.getLogger("bsdmg_tpu_torch")
@@ -506,11 +515,7 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str], float]:
         cli.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"K1": render_kernel.LAUNCHES, "K2": render_kernel.TRACE_LAUNCHES,
-                    "K3": render_kernel.SHADE_LAUNCHES,
-                    "K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
-                    "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES, **grid_kernel.LAUNCHES,
-                    "bake": bake_kernel.LAUNCHES}
+        launches = launch_counts()
     finally:
         logger.removeHandler(records)
         logger.setLevel(old_level)
@@ -767,17 +772,22 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
     }]
 
 
-def run_cli_mesh(kernel: str, extra: list[str], obj: Path) -> tuple[dict, float]:
+def run_cli_mesh(kernel: str, extra: list[str], obj: Path, *,
+                 levels: bool = True) -> tuple[dict, float]:
     """``cli mesh -o obj <extra>`` with every launch count at 0: it must
-    launch ``kernel`` and give the JAX package's voxel, triangle and vertex
-    counts with finite coordinates. Returns the counts and the seconds."""
+    launch ``kernel`` and give the JAX package's voxel (from its level
+    lines; ``levels=False`` for ``--sharded``, which logs none), triangle
+    and vertex counts with finite coordinates. Returns the counts and the
+    seconds."""
     counts, messages, seconds = run_cli(["mesh", "-o", str(obj), *extra])
     check(counts[kernel] > 0, f"cli mesh {' '.join(extra)} did not launch {kernel}: {counts}")
     v, vn, f, finite = read_obj_counts(obj)
     voxels = [int(m.split()[2]) for m in messages if m.startswith("level ")]
-    print(f"mesh path ({kernel}): cli mesh {' '.join(extra)} -> voxels per level {voxels}, "
-          f"{f} triangles, {v} vertices, {obj.stat().st_size} B OBJ in {seconds:.2f} s, "
-          f"launches {counts}")
+    print(f"mesh path ({kernel}): cli mesh {' '.join(extra)} -> voxels per level "
+          f"{voxels if levels else '(not logged)'}, {f} triangles, {v} vertices, "
+          f"{obj.stat().st_size} B OBJ in {seconds:.2f} s, launches {counts}")
+    if not levels:
+        voxels = MESH_LEVEL_VOXELS
     diffs = {
         "voxels": (voxels, MESH_LEVEL_VOXELS),
         "triangles": (f, MESH_TRIANGLES),
@@ -3851,6 +3861,420 @@ def asset_phases(card: str, device) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the multi-device paths: bsdmg_tpu_torch/parallel/
+# ---------------------------------------------------------------------------
+
+#: two ranks on the one card: NCCL takes one rank a device, so they run gloo
+PARALLEL_RANKS = 2
+PARALLEL_MODES = (False, True, "block")
+PARALLEL_MESH_LEVELS = (3, 5)
+#: the fused step at the JAX package's training point, the other at the fit's
+FUSED_STEP_SIZE = 512
+DIFF_STEP_SIZE = 64
+STEP_LR = 1e-2
+#: the sharded step's all-reduced gradient against the unsharded gradient,
+#: relative to the latter's norm
+STEP_GRAD_REL = 1e-5
+SPAWN_SECONDS = 300.0
+#: the torus OBJ's grid, as `cli render --scene mesh:<torus>:128` bakes it
+TORUS_RESOLUTION = 128
+#: benchmark_scaling_overhead's frame, its default
+PROXY_SIZE = (256, 256)
+_GATHER = {"all_gather": 1, "all_reduce": 0}
+#: each sharded path of the ranks: the kernels it must launch, its collectives
+PARALLEL_EXPECTED = {
+    "frame two_phase=False": (("K1",), _GATHER),
+    "frame two_phase=True": (("K2", "K3"), _GATHER),
+    "frame two_phase=block": (("K1",), _GATHER),
+    "torus grid frame": (("K9", "K8", "P1"), _GATHER),
+    **{f"mesh level {lv}": (("K6",), {"all_gather": 2, "all_reduce": 0})
+       for lv in PARALLEL_MESH_LEVELS},
+    f"train_step_fused {FUSED_STEP_SIZE}x{FUSED_STEP_SIZE}": (("K5",),
+                                                             {"all_gather": 0, "all_reduce": 1}),
+    f"train_step {DIFF_STEP_SIZE}x{DIFF_STEP_SIZE}": (("K4",), {"all_gather": 0, "all_reduce": 1}),
+}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count now."""
+    from bsdmg_tpu_torch.ops.cuda import (
+        bake_kernel,
+        diff_kernel,
+        grid_kernel,
+        mc_kernel,
+        mesh_kernel,
+        render_kernel,
+    )
+
+    return {"K1": render_kernel.LAUNCHES, "K2": render_kernel.TRACE_LAUNCHES,
+            "K3": render_kernel.SHADE_LAUNCHES,
+            "K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
+            "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES, **grid_kernel.LAUNCHES,
+            "bake": bake_kernel.LAUNCHES}
+
+
+def launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_path(fn, device) -> tuple:
+    """``(result, seconds, launches, collectives)`` of one call of ``fn``
+    with every launch and collective count set to 0 just before it."""
+    from bsdmg_tpu_torch.parallel import collectives
+
+    reset_launches()
+    collectives.reset()
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0, launched(launch_counts()), dict(collectives.COLLECTIVES)
+
+
+def host_ms(fn, device, runs: int = 7, warmup: int = 2) -> float:
+    """Median host-clock ms of ``fn()`` ended by a sync: a gloo collective
+    waits on the host, where CUDA events do not see it."""
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def frame_costs(mesh, device, frame) -> dict:
+    """What sharding adds to the reference scene's frame: the sharded and
+    the unsharded frame, and the frame's ``all_gather`` alone (each rank's
+    bands as one RGB buffer), host ms."""
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+    from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
+    from bsdmg_tpu_torch.parallel import render_sharded_pallas
+    from bsdmg_tpu_torch.parallel.collectives import all_gather
+    from bsdmg_tpu_torch.parallel.sharding import band_rows
+
+    desc = compile_scene(reference_render_scene(device=device))
+    o, d, c = rays(*frame, device)
+    bands = torch.zeros((band_rows(frame[1], mesh.size(), 0, device).numel(), frame[0], 3),
+                        device=device)
+    return {"sharded_ms": host_ms(lambda: render_sharded_pallas(desc, o, d, c, mesh), device),
+            "unsharded_ms": host_ms(lambda: render_image_cuda(desc, o, d, c), device),
+            "all_gather_ms": host_ms(lambda: all_gather(bands), device)}
+
+
+def sorted_rows(v: np.ndarray) -> np.ndarray:
+    return v[np.lexsort(v.T)]
+
+
+def step_params(scene, fused: bool) -> dict:
+    """The parameters a step fits: the fused step's shape parameters (the
+    bench's), every parameter through the differentiable render."""
+    skip = ("object_center", "object_rotation") if fused else ()
+    return {k: v.clone().requires_grad_() for k, v in scene.params.items() if k not in skip}
+
+
+def step_bounds(scene):
+    """The bench's bounds of the fused step: the scene's, 0.25 wider."""
+    from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
+
+    lo, hi, slack = scene_bounds(scene)
+    return tuple(v - 0.25 for v in lo), tuple(v + 0.25 for v in hi), slack
+
+
+def _stepped(loss, params: dict) -> tuple:
+    """``(loss, params, gradients)`` after a step."""
+    return (float(loss.detach()), {k: v.detach() for k, v in params.items()},
+            {k: v.grad.detach() for k, v in params.items()})
+
+
+def unsharded_step(scene, fused: bool, size: int, device):
+    """One SGD step on the whole frame on one device, no collective:
+    ``(loss, params, gradients)``."""
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.ops.cuda.diff_kernel import render_loss_grad_cuda
+
+    o, d, c = rays(size, size, device)
+    target = torch.zeros((size, size, 3), device=device)
+    p = step_params(scene, fused)
+    opt = torch.optim.SGD(list(p.values()), lr=STEP_LR)
+    if fused:
+        loss, grads = render_loss_grad_cuda(scene.csdf, {k: v.detach() for k, v in p.items()},
+                                            target, o, d, c, bb=step_bounds(scene))
+        for k, g in grads.items():
+            p[k].grad = g
+    else:
+        img = render_image_diff(scene.sdf, p, o, d, c, csdf=scene.csdf)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+    opt.step()
+    return _stepped(loss, p)
+
+
+def sharded_step(scene, mesh, fused: bool, size: int, device):
+    """The same step through ``train_step_fused`` (K5) or ``train_step``
+    (K4) on this rank's interleaved block: ``(loss, params, gradients)``,
+    the gradients as the step's ``all_reduce`` summed them."""
+    from bsdmg_tpu_torch.parallel import shard_rays, train_step, train_step_fused
+    from bsdmg_tpu_torch.parallel.sharding import shard_image
+
+    o, d, c, _ = shard_rays(*rays(size, size, device), mesh)
+    target = shard_image(torch.zeros((size, size, 3), device=device), mesh)
+    p = step_params(scene, fused)
+    opt = torch.optim.SGD(list(p.values()), lr=STEP_LR)
+    if fused:
+        _, loss = train_step_fused(scene.csdf, p, opt, target, o, d, c, mesh, bb=step_bounds(scene))
+    else:
+        _, loss = train_step(scene.sdf, p, opt, target, o, d, c, mesh, csdf=scene.csdf)
+    return _stepped(loss, p)
+
+
+def step_bars(sharded, single) -> dict:
+    """A sharded step against the unsharded one: the JAX bars (the loss;
+    the parameters after the step), and the all-reduced gradient within
+    :data:`STEP_GRAD_REL` of the unsharded gradient's norm. Against a black
+    target ``lr * g`` is mostly below the parameter bar, which alone would
+    pass a gradient off by a uniform factor."""
+    (loss, params, grads), (ref_loss, ref_params, ref_grads) = sharded, single
+    excess = max(((params[k] - v).abs() - GRAD_ATOL - GRAD_RTOL * v.abs()).max().item()
+                 for k, v in ref_params.items())
+    g, ref = (torch.cat([x[k].reshape(-1) for k in ref_grads]) for x in (grads, ref_grads))
+    ref_norm = ref.norm().item()
+    grad_rel = (g - ref).norm().item() / ref_norm if ref_norm > 0 else math.inf
+    jax_bars = abs(loss - ref_loss) <= LOSS_RTOL * abs(ref_loss) and excess <= 0
+    return {"loss": loss, "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+            "param_excess": excess, "jax_bars": jax_bars, "grad_norm": ref_norm,
+            "grad_rel": grad_rel, "ok": jax_bars and grad_rel <= STEP_GRAD_REL}
+
+
+def parallel_rank(device, inputs: dict) -> dict:
+    """One of :data:`PARALLEL_RANKS` gloo ranks on the one card: each
+    sharded path (the frame in every mode, the torus's grid frame, the mesh
+    at each level, both steps; sizes from ``inputs``) with its launches,
+    collectives and wall time (a second, warm call), held against the
+    single-device result on the same card; then the scaling benches."""
+    from bsdmg_tpu_torch import bench
+    from bsdmg_tpu_torch.models import reference_object, reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+    from bsdmg_tpu_torch.ops.cuda.grid_kernel import make_contraction_levels, render_image_grid
+    from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
+    from bsdmg_tpu_torch.parallel import (
+        generate_mesh_sharded,
+        make_mesh,
+        render_grid_sharded,
+        render_sharded_pallas,
+    )
+    from bsdmg_tpu_torch.weights import grid_from_numpy
+
+    mesh = make_mesh(device=device, backend="gloo")
+    out = {"world": mesh.size(), "paths": {}}
+
+    def path(name, fn, single, compare):
+        fn()
+        result, seconds, launches, colls = timed_path(fn, device)
+        out["paths"][name] = {"seconds": seconds, "launches": launches, "collectives": colls,
+                              **compare(result, single())}
+
+    def frames(a, b):
+        return {"exact": bool(torch.equal(a, b)), "max_abs_err": (a - b).abs().max().item()}
+
+    scene = reference_render_scene(device=device)
+    desc = compile_scene(scene)
+    frame = inputs["frame"]
+    o, d, c = rays(*frame, device)
+    for mode in PARALLEL_MODES:
+        path(f"frame two_phase={mode}",
+             lambda: render_sharded_pallas(desc, o, d, c, mesh, two_phase=mode),
+             lambda: render_image_cuda(desc, o, d, c, two_phase=mode, phase_a_steps=48), frames)
+
+    grid = grid_from_numpy(*inputs["torus"], device)
+    levels = make_contraction_levels(grid)
+    torus_rays = rays(*frame, device, camera=TORUS_CAMERA)
+    path("torus grid frame", lambda: render_grid_sharded(grid, *torus_rays, mesh, levels=levels),
+         lambda: render_image_grid(grid, *torus_rays, mode="contraction", levels=levels), frames)
+
+    obj = compile_scene(reference_object(device=device))
+    for level, ref in inputs["meshes"].items():
+
+        def same_mesh(m, _):
+            err = float(np.abs(sorted_rows(m.vertices) - ref["sorted"]).max())
+            return {"triangles": m.triangle_count, "vertices": m.vertex_count,
+                    "max_abs_err": err,
+                    "ok": (m.triangle_count, m.vertex_count) == ref["counts"] and err <= 1e-6}
+
+        path(f"mesh level {level}", lambda: generate_mesh_sharded(obj, mesh, level, device=device),
+             lambda: None, same_mesh)
+
+    for name, fused, size in inputs["steps"]:
+        path(f"{name} {size}x{size}", lambda: sharded_step(scene, mesh, fused, size, device),
+             lambda: unsharded_step(scene, fused, size, device),
+             lambda a, b: {**step_bars(a, b),
+                           "params": {k: v.cpu().numpy() for k, v in a[1].items()}})
+    out["frame_costs"] = frame_costs(mesh, device, frame)
+    out["scaling"] = bench.benchmark_scaling(*frame, device=device)
+    out["scaling_proxy"] = bench.benchmark_scaling_overhead(*inputs["proxy"], device=device)
+    return out
+
+
+def world_of_one_phases(tmp: Path, torus: Path, device) -> None:
+    """``cli render --sharded`` (reference scene and the torus) and ``cli
+    mesh --sharded`` (K6; K7 with ``--interpolate-edges``) in a world of one
+    rank on NCCL, each against the unsharded command: the same launches, the
+    same image bit for bit, the same counts (the voxels through
+    ``refine_field_sharded``); then ``cli bench --which scaling`` and
+    ``scaling-proxy``."""
+    from bsdmg_tpu_torch.config import MeshGenConfig
+    from bsdmg_tpu_torch.mesh.field import create_voxel_field
+    from bsdmg_tpu_torch.models import reference_object
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+    from bsdmg_tpu_torch.parallel import (
+        collectives,
+        distribute_field,
+        make_mesh,
+        refine_field_sharded,
+    )
+
+    size = ["--width", str(SCENE_FRAME[0]), "--height", str(SCENE_FRAME[1])]
+    renders = {"reference": size, "torus": [*size, "--scene", f"mesh:{torus}:{TORUS_RESOLUTION}",
+                                            "--camera", *map(str, TORUS_CAMERA)]}
+    for name, extra in renders.items():
+        images = {}
+        for sharded in (False, True):
+            npy = tmp / f"{name}_{sharded}.npy"
+            collectives.reset()
+            counts, _, seconds = run_cli(["render", *(["--sharded"] if sharded else []), *extra,
+                                          "-o", str(npy)])
+            images[sharded] = (np.load(npy), launched(counts), seconds,
+                               dict(collectives.COLLECTIVES))
+        (a, la, sa, _), (b, lb, sb, cb) = images[False], images[True]
+        print(f"parallel, world of one (NCCL): cli render --sharded {name} {SCENE_FRAME} in "
+              f"{sb:.3f} s (unsharded {sa:.3f} s), launches {lb} (unsharded {la}), "
+              f"collectives {cb}, bit-equal {np.array_equal(a, b)}")
+        check(lb == la, f"render --sharded {name} launched {lb}, the unsharded {la}")
+        check(cb == {"all_gather": 1, "all_reduce": 0}, f"render --sharded collectives {cb}")
+        check(np.array_equal(a, b), f"render --sharded {name} differs from render")
+    for kernel, extra in (("K6", []), ("K7", ["--interpolate-edges"])):
+        collectives.reset()
+        counts, seconds = run_cli_mesh(kernel, ["--sharded", *extra], tmp / f"sharded_{kernel}.obj",
+                                       levels=False)
+        colls = dict(collectives.COLLECTIVES)
+        print(f"parallel, world of one (NCCL): cli mesh --sharded {' '.join(extra)} in "
+              f"{seconds:.2f} s, launches {launched(counts)}, collectives {colls}")
+        check(colls == {"all_gather": 2, "all_reduce": 0},
+              f"mesh --sharded ran the collectives {colls}, not the triangle gather's two")
+    # the CLI logs no level: the voxels of the same pipeline, counted here
+    sfield = distribute_field(create_voxel_field(MeshGenConfig(), device), make_mesh(device=device))
+    voxels = [sfield.count]
+    obj = compile_scene(reference_object(device=device))
+    for _ in MESH_LEVEL_VOXELS[1:]:
+        sfield = refine_field_sharded(obj, sfield)
+        voxels.append(sfield.count)
+    print(f"parallel, world of one (NCCL): sharded voxels per level {voxels}")
+    check(voxels == MESH_LEVEL_VOXELS, f"sharded voxels {voxels}, not {MESH_LEVEL_VOXELS}")
+    for which in ("scaling", "scaling-proxy"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run_cli(["bench", "--which", which, *size])
+        print(f"parallel, world of one (NCCL): cli bench --which {which}: "
+              f"{json.dumps(json.loads(out.getvalue()))}")
+
+
+def parallel_phases(card: str, device) -> None:
+    """Phase 16: the multi-device paths (``bsdmg_tpu_torch/parallel/``). In
+    this process, a world of one rank on NCCL through the CLI; then
+    :data:`PARALLEL_RANKS` gloo ranks sharing the one card, whose frames
+    (K1; K2 and K3; block retirement; the torus's K9, K8 and P1) must be
+    bit-equal to the single-device frames, whose sharded mesh (K6) must
+    have the single-device counts and vertices, and whose steps (K5, K4)
+    must meet the JAX bars against the single-device step. Both ranks
+    share the card: the times are striping and gathering costs, not
+    scaling."""
+    import torch.distributed as dist
+
+    from bsdmg_tpu_torch.mesh.pipeline import generate_mesh
+    from bsdmg_tpu_torch.models import reference_object, reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+    from bsdmg_tpu_torch.ops.cuda.grid_kernel import make_contraction_levels, render_image_grid
+    from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
+    from bsdmg_tpu_torch.parallel.launch import spawn
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torus = tmp / "torus.obj"
+        subprocess.run([sys.executable, str(ROOT / "tools" / "make_torus.py"), str(torus)],
+                       capture_output=True, text=True, check=True, timeout=300)
+        world_of_one_phases(tmp, torus, device)
+    from bsdmg_tpu_torch.parallel import make_mesh
+
+    costs = frame_costs(make_mesh(device=device), device, SCENE_FRAME)
+    print(f"parallel, world of one (NCCL): {SCENE_FRAME} frame costs, host ms: {json.dumps(costs)}")
+    dist.destroy_process_group()
+
+    grid = torus_grid(device, TORUS_RESOLUTION)
+    scene = reference_render_scene(device=device)
+    desc = compile_scene(scene)
+    o, d, c = rays(*SCENE_FRAME, device)
+    single_seconds = {}
+    for mode in PARALLEL_MODES:
+        frame = lambda: render_image_cuda(desc, o, d, c, two_phase=mode, phase_a_steps=48)  # noqa: E731
+        frame()
+        single_seconds[f"frame two_phase={mode}"] = timed_path(frame, device)[1]
+    levels = make_contraction_levels(grid)
+    torus_rays = rays(*SCENE_FRAME, device, camera=TORUS_CAMERA)
+    grid_frame = lambda: render_image_grid(grid, *torus_rays, mode="contraction", levels=levels)  # noqa: E731
+    grid_frame()
+    single_seconds["torus grid frame"] = timed_path(grid_frame, device)[1]
+    obj = compile_scene(reference_object(device=device))
+    meshes = {}
+    for level in PARALLEL_MESH_LEVELS:
+        m, single_seconds[f"mesh level {level}"], _, _ = timed_path(
+            lambda: generate_mesh(obj, level, device=device), device)
+        meshes[level] = {"counts": (m.triangle_count, m.vertex_count),
+                         "sorted": sorted_rows(m.vertices)}
+    steps = (("train_step_fused", True, FUSED_STEP_SIZE), ("train_step", False, DIFF_STEP_SIZE))
+    for name, fused, size in steps:
+        unsharded_step(scene, fused, size, device)
+        single_seconds[f"{name} {size}x{size}"] = timed_path(
+            lambda: unsharded_step(scene, fused, size, device), device)[1]
+    inputs = {"frame": SCENE_FRAME, "steps": steps, "proxy": PROXY_SIZE, "meshes": meshes,
+              "torus": (grid.values.cpu().numpy(), grid.lo, grid.hi)}
+    t0 = time.perf_counter()
+    results = spawn(parallel_rank, PARALLEL_RANKS, inputs, backend="gloo", device=str(device),
+                    timeout=SPAWN_SECONDS)
+    print(f"parallel: {PARALLEL_RANKS} gloo ranks on one {card} in {time.perf_counter() - t0:.1f} s "
+          "(both share the card: striping and gathering costs, not scaling)")
+    for name in results[0]["paths"]:
+        rows = [r["paths"][name] for r in results]
+        shown = {k: v for k, v in rows[0].items() if k != "params"}
+        print(f"parallel, {PARALLEL_RANKS} ranks: {name}: rank 0 {json.dumps(shown)}; "
+              f"rank 1 {rows[1]['seconds']:.4f} s; unsharded "
+              f"{single_seconds[name]:.4f} s")
+        for rank, row in enumerate(rows):
+            check(row.get("exact", True) and row.get("ok", True),
+                  f"rank {rank}: {name} differs from the single-device path: {row}")
+            check(row["launches"], f"rank {rank}: {name} launched no kernel")
+        if "params" in rows[0]:
+            check(all(np.array_equal(v, rows[1]["params"][k]) for k, v in rows[0]["params"].items()),
+                  f"{name}: the ranks' parameters differ")
+    for name, row in results[0]["paths"].items():
+        kernels, colls = PARALLEL_EXPECTED[name]
+        check(all(row["launches"].get(k) for k in kernels), f"{name} launched {row['launches']}")
+        check(row["collectives"] == colls, f"{name} ran the collectives {row['collectives']}")
+    for key in ("frame_costs", "scaling", "scaling_proxy"):
+        print(f"parallel, {PARALLEL_RANKS} ranks: {key} {json.dumps(results[0][key])}")
+    print(f"parallel: every phase passed in {time.perf_counter() - start:.1f} s")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3899,6 +4323,7 @@ def main(argv: list[str]) -> int:
     kernels += fit_scene_phases(card, device)
     kernels += grid_phases(card, device)
     kernels += asset_phases(card, device)
+    parallel_phases(card, device)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s, the build "
           "included")

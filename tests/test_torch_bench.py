@@ -134,9 +134,10 @@ def test_cli_bench_without_cuda_raises():
 
 def test_cli_bench_flags_are_the_jax_clis():
     """``--which``, sizes, ``--roofline``, ``--two-phase``, ``--unroll`` and
-    ``--trace`` with the JAX CLI's defaults; left out: the multi-device
-    choices and ``--phase-a-rows``; added: ``--device``, and the render's
-    ``--scene``, whose default is the JAX bench's scene."""
+    ``--trace`` with the JAX CLI's defaults and choices, the multi-device
+    ``scaling`` and ``scaling-proxy`` among them; left out:
+    ``--phase-a-rows``; added: ``--device``, and the render's ``--scene``,
+    whose default is the JAX bench's scene."""
     from bsdmg_tpu.cli import build_parser as jax_parser
 
     def bench_actions(parser):
@@ -150,7 +151,7 @@ def test_cli_bench_flags_are_the_jax_clis():
     for dest in ("width", "height", "roofline", "two_phase", "unroll", "trace"):
         assert ours[dest].default == ref[dest].default, dest
         assert ours[dest].choices == ref[dest].choices, dest
-    assert set(ref["which"].choices) - set(ours["which"].choices) == {"scaling", "scaling-proxy"}
+    assert ours["which"].choices == ref["which"].choices
     assert ours["device"].default == "cuda"
 
 

@@ -23,7 +23,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _port_sources():
-    return sorted((ROOT / "bsdmg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the ranks of the multi-device tests run without JAX too
+    return sorted((ROOT / "bsdmg_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_ranks.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -75,6 +77,22 @@ def test_import_scan_covers_the_composed_slice():
         "bsdmg_tpu_torch/models/motion.py",
         "bsdmg_tpu_torch/ops/cuda/csdf.py",
         "bsdmg_tpu_torch/mesh/export.py",
+    } <= scanned
+
+
+def test_import_scan_covers_the_parallel_slice():
+    """The multi-device package, the graft entry and the tests' rank
+    functions are in the scan."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {
+        "bsdmg_tpu_torch/parallel/__init__.py",
+        "bsdmg_tpu_torch/parallel/collectives.py",
+        "bsdmg_tpu_torch/parallel/launch.py",
+        "bsdmg_tpu_torch/parallel/mesh.py",
+        "bsdmg_tpu_torch/parallel/multihost.py",
+        "bsdmg_tpu_torch/parallel/sharding.py",
+        "bsdmg_tpu_torch/graft_entry.py",
+        "tests/torch_parallel_ranks.py",
     } <= scanned
 
 
@@ -246,5 +264,10 @@ def test_entry_points_default_to_the_card():
                      "models.motion.RotateAxisMotion.rotation_at",
                      "models.motion.AxisCyclicMotion.translation_at",
                      "models.motion.SphericCyclicMotion.translation_at",
-                     "mesh.pipeline.remesh", "models.mesh_sdf.bake_mesh_grid"):
+                     "mesh.pipeline.remesh", "models.mesh_sdf.bake_mesh_grid",
+                     "parallel.sharding.make_mesh", "parallel.mesh.generate_mesh_sharded",
+                     "parallel.multihost.initialize", "parallel.multihost.local_device",
+                     "parallel.multihost.default_backend", "parallel.launch.spawn",
+                     "bench.benchmark_scaling", "bench.benchmark_scaling_overhead",
+                     "graft_entry.entry"):
         assert f"bsdmg_tpu_torch.{required}" in checked, required

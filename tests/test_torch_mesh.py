@@ -244,7 +244,8 @@ def test_cli_mesh_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "argv, match", [(["--sharded"], "sharded"), (["--scene", "NESTED.json"], "9 nested frames"),
+    "argv, match", [(["--sharded", "--scene", "DEEP.json"], "at most 64 instructions"),
+                    (["--scene", "NESTED.json"], "9 nested frames"),
                     (["--scene", "DEEP.json"], "at most 64 instructions")],
     ids=["sharded", "unported scene", "composed scene"],
 )
@@ -253,7 +254,9 @@ def test_cli_mesh_unported_options_raise(tmp_path, argv, match):
     # program is longer than the kernels take: 40 spheres in a union are 79
     # instructions, and the cap is 64; or nests more coordinate frames: 9
     # transforms, and the cap is 8 (a mesh asset, which raised here before,
-    # meshes: tests/test_torch_mesh_assets.py)
+    # meshes: tests/test_torch_mesh_assets.py). --sharded, which raised here
+    # before, meshes (tests/test_torch_parallel.py) and refuses the same
+    # scenes.
     deep = {"root": {"op": "union",
                      "children": [{"prim": "sphere", "radius": 0.1 + i} for i in range(40)]}}
     (tmp_path / "DEEP.json").write_text(json.dumps(deep))
