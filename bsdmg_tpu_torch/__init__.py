@@ -20,4 +20,4 @@ from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig, RenderConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["MarchConfig", "MeshGenConfig", "RenderConfig", "__version__"]
+__all__ = ["config", "MarchConfig", "MeshGenConfig", "RenderConfig", "__version__"]

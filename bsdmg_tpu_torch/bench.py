@@ -29,8 +29,10 @@ from bsdmg_tpu_torch.grad import render_image_diff, render_loss_and_grad
 from bsdmg_tpu_torch.mesh.field import VoxelField, create_voxel_field, refine_field
 from bsdmg_tpu_torch.mesh.pipeline import field_to_triangles
 from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
-from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
+from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds, sdf_fns
+from bsdmg_tpu_torch.ops.cuda.mc_kernel import edge_slots, mc_fused_torch
 from bsdmg_tpu_torch.ops.cuda.render_kernel import BLOCK_H, BLOCK_W, render_image_cuda, trace_cuda
+from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
 from bsdmg_tpu_torch.parallel.collectives import all_reduce
 from bsdmg_tpu_torch.parallel.multihost import local_device
 from bsdmg_tpu_torch.parallel.sharding import (
@@ -223,6 +225,46 @@ def benchmark_marching_cubes(init_factor: int = 64, levels: int = 2, *,
     per_call = _slope_time(many, k1=4, k2=16, iters=5)
     return {"voxels_per_s": field.count / per_call, "seconds": per_call,
             "voxel_count": field.count}
+
+
+def mc_step_stats(init_factor: int = 64, levels: int = 2, *,
+                  device: str | torch.device = "cuda") -> dict[str, Any]:
+    """The Newton steps that kernel K6 runs on each crossing edge of
+    :func:`benchmark_marching_cubes`' field, counted by its plain twin
+    (``ops/cuda/mc_kernel.py::mc_fused_torch``, the same steps as the
+    kernel's), with the keys of ``bsdmg_tpu/bench.py::mc_step_stats`` for
+    ``utils/profiling.py::mc_roofline``. The JAX kernel pads the voxels
+    into (8, 128) blocks of lanes, a lane a voxel with a budget of 12 edge
+    planes, and runs each block in chunks of steps to its slowest lane;
+    K6 runs one crossing edge a thread to its own convergence and writes
+    a voxel's triangles once. So the port's counterparts keep a lane a
+    voxel: ``padded_lanes`` the voxels (no padding), ``budget`` the crossing
+    edges K6 projects per voxel (a float), ``mean_block_steps`` the mean of
+    the steps each edge runs, ``mean_needed_steps`` the mean over voxels of
+    their slowest edge's steps and ``max_steps`` the most any edge runs
+    (the JAX keys' meanings). The roofline then charges each voxel's 107
+    planes once, as K6's bound does, and each edge its own steps."""
+    device = torch.device(device)
+    desc = compile_scene(reference_object(device=device))
+    cfg = MeshGenConfig(init_factor=init_factor)
+    field = create_voxel_field(cfg, device)
+    for _ in range(levels):
+        field = refine_field(desc, field)
+    args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, cfg)
+    stats: dict = {}
+    mc_fused_torch(sdf_fns(desc), *args, stats=stats, **kwargs)
+    steps = stats["newton_point_steps"].long()
+    vox = edge_slots(args[3], kwargs["budget"])[0]
+    slowest = torch.zeros(field.count, dtype=torch.long, device=steps.device)
+    slowest.scatter_reduce_(0, vox, steps, "amax")
+    return {
+        "voxels": field.count,
+        "padded_lanes": field.count,
+        "budget": steps.numel() / max(field.count, 1),
+        "mean_needed_steps": slowest.float().mean().item(),
+        "mean_block_steps": steps.float().mean().item(),
+        "max_steps": int(steps.max().item()) if steps.numel() else 0,
+    }
 
 
 def benchmark_render_grad(width: int = 512, height: int = 512, *,

@@ -7,6 +7,12 @@ from bsdmg_tpu_torch.cam.camera import (
     pixel_cone_radius,
     texture_to_ndc,
 )
+from bsdmg_tpu_torch.cam.sampling import (
+    cubic_interpolate,
+    fetch_2d,
+    index_2d,
+    ndc_to_interpolated_value,
+)
 
 __all__ = [
     "Camera",
@@ -16,4 +22,8 @@ __all__ = [
     "ndc_to_camera",
     "pixel_cone_radius",
     "texture_to_ndc",
+    "cubic_interpolate",
+    "fetch_2d",
+    "index_2d",
+    "ndc_to_interpolated_value",
 ]

@@ -35,7 +35,9 @@ stage machine from a key script, each extraction through K6; ``fit``
 perturbs scene parameters and recovers them by inverse rendering, from a
 depth map (plain PyTorch and autograd) or, with ``--image``, from an image
 through kernels K4 (the target's march) and K5 (each step's loss and
-gradient), for every scene but the box and mesh assets; ``animate``
+gradient), for every scene but the box (a mesh asset's grid, which reads no
+parameter, in K4's and K5's grid form: its loss and gradient stay 0, as in
+the JAX package); ``animate``
 renders a camera orbit, or the object's motion, one K1 launch a frame (a
 mesh asset's orbit through K9, K8 and P1);
 ``bench`` prints the JAX CLI's
@@ -479,12 +481,6 @@ def cmd_fit(args) -> None:
     (``--image``): the target is rendered at the scene's true params, the
     ``--perturb`` params are perturbed, and gradient descent recovers them."""
     device = _device(args.device)
-    if args.image and args.scene.startswith("mesh:"):
-        raise NotImplementedError(
-            f"fit --image --scene {args.scene}: a mesh asset's image fit needs a grid parameter "
-            "form of kernels K4 and K5, not ported yet (ROADMAP.md queue 1, \"fit --image of "
-            "mesh: scenes\")"
-        )
     default_scene = args.scene == "reference_render_scene"
     scene = reference_object(device=device) if default_scene else _get_scene(args.scene, device)
     cam = look_at(tuple(args.camera), tuple(args.target), fov=args.fov, device=device)
@@ -605,12 +601,6 @@ def cmd_bench(args) -> None:
     cmd_bench) on the port: one JSON object with the same keys, and the
     device it ran on. The speed of light is the H100's (``utils/
     profiling.py``)."""
-    if args.roofline and args.which in ("refine", "mc", "all"):
-        raise NotImplementedError(
-            f"bench --roofline --which {args.which}: the refine and marching-cubes rooflines "
-            "(refine_roofline, mc_roofline) are not ported yet (ROADMAP queue 1, item 6); "
-            "--roofline takes --which render or --which grad"
-        )
     if args.scene != "reference_render_scene" and args.which != "render":
         raise NotImplementedError(
             f"bench --scene {args.scene}: only --which render takes another scene"
@@ -650,9 +640,34 @@ def cmd_bench(args) -> None:
         if args.which in ("all", "refine"):
             r = bench.benchmark_refine(device=device)
             results["refine"] = {"voxels_per_s": r["voxels_per_s"]}
+            if args.roofline:
+                ops = profiling.csdf_flops_per_eval(compile_scene(reference_object(device=device)))
+                roof = profiling.refine_roofline(r["input_voxels"], ops_per_eval=ops)
+                results["refine_roofline"] = {
+                    "ops_per_eval": ops,
+                    "evals_per_parent": 27,
+                    "bound": roof.bound,
+                    "speed_of_light_ms": roof.seconds * 1e3,
+                    "pct_of_roofline": _share(roof, r["seconds"], device),
+                }
         if args.which in ("all", "mc"):
             r = bench.benchmark_marching_cubes(device=device)
             results["marching_cubes"] = {"voxels_per_s": r["voxels_per_s"]}
+            if args.roofline:
+                stats = bench.mc_step_stats(device=device)
+                ops = profiling.csdf_flops_per_eval(compile_scene(reference_object(device=device)))
+                roof = profiling.mc_roofline(
+                    stats["padded_lanes"], stats["budget"], stats["mean_block_steps"],
+                    corner_evals_per_lane=8.0 * stats["voxels"] / stats["padded_lanes"],
+                    ops_per_eval=ops,
+                )
+                results["mc_roofline"] = {
+                    **stats,
+                    "ops_per_eval": ops,
+                    "bound": roof.bound,
+                    "speed_of_light_ms": roof.seconds * 1e3,
+                    "pct_of_roofline": _share(roof, r["seconds"], device),
+                }
         if args.which in ("all", "grad"):
             r = bench.benchmark_render_grad(device=device)
             results["render_grad"] = {"rays_per_s": r["rays_per_s"]}
@@ -751,7 +766,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--scene", default="reference_render_scene",
         help="scene name, a .json CSG spec or 'mesh:path.obj[:RES]'; the depth fit of the "
         "render scene fits its object, reference_object; the image fit takes every scene with "
-        "a component form (the box has none) but a mesh asset",
+        "a component form (the box has none)",
     )
     common_camera(ft, 64, 64)
     ft.add_argument("--steps", type=int, default=60)

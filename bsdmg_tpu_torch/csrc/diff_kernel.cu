@@ -11,8 +11,10 @@
 //
 // Both are templates over the scene's parameter form (param_forms.cuh):
 // the reference scenes' (ReferenceForm, param_sdf.cuh), the sphere's, the
-// mandelbulb's, the wrapped object's and a composed scene's parameter
-// program (param_program.cuh); ParamScene::form picks it at launch
+// mandelbulb's, the wrapped object's, a composed scene's parameter
+// program (param_program.cuh) and a mesh asset's grid, which reads no
+// parameter (MeshGridForm: its K5 lanes carry no tangent, the loss
+// alone); ParamScene::form picks it at launch
 // (with_form), as K1's scene structure is picked.
 //
 // K5 (loss_march_kernel, loss_tangent_kernel or loss_tangent_form_kernel,
@@ -155,6 +157,8 @@ __device__ __forceinline__ float form_dfdt(const ParamScene& s, const float o[3]
                                            float t) {
   if constexpr (std::is_same<Form, ReferenceForm>::value) {
     return ray_derivative(s, load_params<float>(s), o, d, t);
+  } else if constexpr (std::is_same<Form, MeshGridForm>::value) {
+    return MeshGridForm::ray_derivative(s, o, d, t);
   } else {
     return form_ray_derivative<Form>(s, o, d, t);
   }
@@ -272,23 +276,22 @@ struct FormEval {
   }
 };
 
-// The loss of listed ray e (pixel i) and its tangents for M parameters
-// (diff_kernel.py:294-338): the IFT re-attachment at a hit, the analytic
-// normal, the shading and ACES in duals, the squared error and the
+// The loss of listed ray e (pixel i) and its tangents, D a Dual<M> for M
+// parameters (diff_kernel.py:294-338): the IFT re-attachment at a hit, the
+// analytic normal, the shading and ACES in duals, the squared error and the
 // silhouette hinge, the scene evaluated by ev (ReferenceEval, FormEval).
 // Each tangent runs the operations the one-lane Dual<N> form ran on it.
-// The ray and target are read where they are used, which keeps them out of
-// registers in between.
-template <int M, class Eval>
-__device__ __forceinline__ Dual<M> ray_loss(const ParamScene& s, const Eval& ev, const TangentRay& e,
-                                            const float* __restrict__ origins,
-                                            const float* __restrict__ directions,
-                                            const float* __restrict__ cone,
-                                            const float* __restrict__ target,
-                                            const float* __restrict__ t_state,
-                                            float inv_denom_elems, float inv_pixels,
-                                            float edge_weight, float edge_band) {
-  typedef Dual<M> D;
+// With D a float (a form that reads no parameter, MeshGridForm::Eval) it
+// is the loss alone. The ray and target are read where they are used, which
+// keeps them out of registers in between.
+template <class D, class Eval>
+__device__ __forceinline__ D ray_loss(const ParamScene& s, const Eval& ev, const TangentRay& e,
+                                      const float* __restrict__ origins,
+                                      const float* __restrict__ directions,
+                                      const float* __restrict__ cone,
+                                      const float* __restrict__ target,
+                                      const float* __restrict__ t_state, float inv_denom_elems,
+                                      float inv_pixels, float edge_weight, float edge_band) {
   const long long i = e.pixel;
   const float t0 = e.t0;
   const bool collided = e.outcome == COLLISION;
@@ -487,14 +490,14 @@ loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
       typedef Dual<M> D;
       const D loss =
           Lanes == SHAPE_LANES
-              ? ray_loss<M>(s, ReferenceEval<Opt, D, float, float>(s, j), e, origins, directions,
+              ? ray_loss<D>(s, ReferenceEval<Opt, D, float, float>(s, j), e, origins, directions,
                             cone, target, t_state, inv_denom_elems, inv_pixels, edge_weight,
                             edge_band)
           : Lanes == TRANSLATION_LANES
-              ? ray_loss<M>(s, ReferenceEval<Opt, float, D, float>(s, j), e, origins, directions,
+              ? ray_loss<D>(s, ReferenceEval<Opt, float, D, float>(s, j), e, origins, directions,
                             cone, target, t_state, inv_denom_elems, inv_pixels, edge_weight,
                             edge_band)
-              : ray_loss<M>(s, ReferenceEval<Opt, float, float, D>(s, T::first + j), e, origins,
+              : ray_loss<D>(s, ReferenceEval<Opt, float, float, D>(s, T::first + j), e, origins,
                             directions, cone, target, t_state, inv_denom_elems, inv_pixels,
                             edge_weight, edge_band);
       acc[0] = loss.v;
@@ -525,6 +528,14 @@ loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
 // first chunk adding the first launch's sum) and dL/dprm at every slot.
 #define BSDMG_FORM_TANGENTS 1
 
+// the tangents a lane carries: none for a form that reads no parameter
+// (MeshGridForm, whose gradient is zero: its lane takes ray_loss in float
+// through Form::Eval, the loss alone)
+template <class Form>
+__host__ __device__ constexpr int form_tangents() {
+  return std::is_same<Form, MeshGridForm>::value ? 0 : BSDMG_FORM_TANGENTS;
+}
+
 template <class Form>
 __global__ void __launch_bounds__(128)
 loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
@@ -535,7 +546,8 @@ loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
                          int stride, long long blocks, int lanes, int groups, int chunks,
                          float inv_denom_elems, float inv_pixels, float edge_weight,
                          float edge_band) {
-  constexpr int L = BSDMG_FORM_TANGENTS;
+  constexpr int L = form_tangents<Form>();
+  constexpr int W = L > 0 ? L : 1;  // a lane's outputs past the loss' (none read for L = 0)
   const int group = threadIdx.x / lanes, j = threadIdx.x % lanes;
   __shared__ float sums[128][L + 1];
   const long long items = blocks * chunks;
@@ -547,13 +559,18 @@ loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
 #pragma unroll
     for (int m = 0; m <= L; ++m) acc[m] = 0.0f;
     if (group < groups && first + group < n) {
-      const Dual<L> loss =
-          ray_loss<L>(s, FormEval<Form, L>(s, j), rays[block * 128 + first + group], origins,
-                      directions, cone, target, t_state, inv_denom_elems, inv_pixels,
-                      edge_weight, edge_band);
-      acc[0] = loss.v;
+      const TangentRay& e = rays[block * 128 + first + group];
+      if constexpr (L == 0) {
+        acc[0] = ray_loss<float>(s, typename Form::Eval{s}, e, origins, directions, cone, target,
+                                 t_state, inv_denom_elems, inv_pixels, edge_weight, edge_band);
+      } else {
+        const Dual<L> loss =
+            ray_loss<Dual<L>>(s, FormEval<Form, L>(s, j), e, origins, directions, cone, target,
+                              t_state, inv_denom_elems, inv_pixels, edge_weight, edge_band);
+        acc[0] = loss.v;
 #pragma unroll
-      for (int m = 0; m < L; ++m) acc[m + 1] = loss.t[m];
+        for (int m = 0; m < L; ++m) acc[m + 1] = loss.t[m];
+      }
     }
     __syncthreads();  // the previous item's sums are read
 #pragma unroll
@@ -563,7 +580,7 @@ loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
       float total = k == 0 && first == 0 ? values[block] : 0.0f;
       if (first < n) {
         // output k: the loss (lane 0's value), then slot k - 1's tangent
-        const int lane = k == 0 ? 0 : (k - 1) / L, component = k == 0 ? 0 : (k - 1) % L + 1;
+        const int lane = k == 0 ? 0 : (k - 1) / W, component = k == 0 ? 0 : (k - 1) % W + 1;
         for (int g = 0; g < groups; ++g) total += sums[g * lanes + lane][component];
       }
       partials[w * stride + k] = total;
@@ -603,16 +620,17 @@ static bool with_form(int form, F&& f) {
     case FORM_MANDELBULB: f(MandelbulbForm{}); return true;
     case FORM_WRAPPED: f(WrappedForm{}); return true;
     case FORM_PROGRAM: f(ProgramForm{}); return true;
+    case FORM_MESH_GRID: f(MeshGridForm{}); return true;
     default: return false;
   }
 }
 
-// loss_tangent_form_kernel's shape for n_prm parameters: lanes a ray,
-// rays a chunk, chunks a block's list
+// loss_tangent_form_kernel's shape for n_prm parameters: lanes a ray (one
+// for a form with none), rays a chunk, chunks a block's list
 struct FormLanes {
   int lanes, groups, chunks;
   explicit FormLanes(int n_prm) {
-    lanes = (n_prm + BSDMG_FORM_TANGENTS - 1) / BSDMG_FORM_TANGENTS;
+    lanes = n_prm > 0 ? (n_prm + BSDMG_FORM_TANGENTS - 1) / BSDMG_FORM_TANGENTS : 1;
     groups = 128 / lanes;
     chunks = (128 + groups - 1) / groups;
   }
@@ -710,9 +728,10 @@ long long bsdmg_loss_grad_scratch(const ParamScene* scene, int h, int w) {
 // floats: the loss, then dL/dprm. Three to five launches: the march and
 // the lists (loss_march_kernel), the tangents (loss_tangent_kernel's shape,
 // translation and rotation launches for the reference form,
-// loss_tangent_form_kernel for the others), the sum over the blocks
-// (loss_grad_sum). Returns the cudaError_t of the first launch that
-// failed, else 0 (cudaErrorInvalidValue for a form that names none).
+// loss_tangent_form_kernel for the others, the loss alone for MeshGridForm,
+// which reads no parameter), the sum over the blocks (loss_grad_sum).
+// Returns the cudaError_t of the first launch that failed, else 0
+// (cudaErrorInvalidValue for a form that names none).
 int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* directions,
                     const float* cone, const float* target, const float* t_state,
                     float* scratch, float* out, int h, int w, float inv_denom_elems,

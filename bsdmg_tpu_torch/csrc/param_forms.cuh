@@ -25,9 +25,19 @@
 //     -half + mod(x + half, cell) with half = cell / 2, then the reference
 //     object and its transform (param_sdf.cuh scene_value, AnyParts);
 //   ProgramForm: a composed scene, its parameter program
-//     (param_program.cuh).
+//     (param_program.cuh);
+//   MeshGridForm: a mesh asset's baked grid, bsdmg_tpu/models/mesh_sdf.py
+//     grid_csdf (the "weights" interpolation, grid_sdf.cuh grid_scene), the
+//     table ParamScene::grid_table read as data: its Scene.csdf reads no
+//     parameter, so its gradient is zero and K5 takes no tangent
+//     (diff_kernel.cu loss_tangent_form_kernel takes each listed ray's
+//     loss alone, in float, through MeshGridForm::Eval). Its march value
+//     is grid_scene's
+//     value; its dfdt is grid_scene's gradient (jax.vjp written out) dotted
+//     with the ray's direction, as the twin's autograd takes it, so no dual
+//     number meets the table's gathers.
 // Twins: models/scenes.py SphereCsdf, MandelbulbCsdf, WrappedCsdf,
-// models/compose.py ComposedCsdf.
+// models/compose.py ComposedCsdf, models/mesh_sdf.py GridCsdf.
 
 #pragma once
 
@@ -130,6 +140,45 @@ struct ProgramForm : PlainMarch<ProgramForm> {
   static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P>& prm, const T x[3]) {
     return program_value(s, prm, x);
   }
+};
+
+// the grid at a point with no offset: its value, and with Grad its gradient
+template <bool Grad>
+__device__ __forceinline__ float mesh_grid_value(const ParamScene& s, const float x[3],
+                                                 float g[3]) {
+  const float no_offset[3] = {0.0f, 0.0f, 0.0f};
+  return grid_scene<GRID_WEIGHTS, Grad>(s.grid_table, s.grid, no_offset, x[0], x[1], x[2], g[0],
+                                        g[1], g[2]);
+}
+
+struct MeshGridForm {
+  struct March {};
+  static __device__ __forceinline__ March march_scene(const ParamScene&) { return March{}; }
+  static __device__ __forceinline__ float march_value(const ParamScene& s, const March&,
+                                                      const float x[3]) {
+    float g[3];
+    return mesh_grid_value<false>(s, x, g);
+  }
+  // d/dt f(o + t d): the gradient dotted with d in the twin's order
+  static __device__ __forceinline__ float ray_derivative(const ParamScene& s, const float o[3],
+                                                         const float d[3], float t) {
+    const float x[3] = {o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]};
+    float g[3];
+    mesh_grid_value<true>(s, x, g);
+    return (g[0] * d[0] + g[1] * d[1]) + g[2] * d[2];
+  }
+  // the scene as K5's ray_loss evaluates it, in float: no parameter
+  // carries a tangent
+  struct Eval {
+    const ParamScene& s;
+    __device__ __forceinline__ float value(const float x[3]) const {
+      float g[3];
+      return mesh_grid_value<false>(s, x, g);
+    }
+    __device__ __forceinline__ void grad(const float x[3], float g[3]) const {
+      mesh_grid_value<true>(s, x, g);
+    }
+  };
 };
 
 // the form's SDF along d at o + t d, parameters as floats: a forward pass

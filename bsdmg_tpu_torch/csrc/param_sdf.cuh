@@ -31,13 +31,21 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "grid_sdf.cuh"
 
 #define BSDMG_MAX_PARAMS 64  // values of the flat parameter vector (a composed scene's cap)
 #define BSDMG_REFERENCE_PARAMS 16  // 9 shape values, object_center (3), object_rotation (4)
 
 // the scene's form: the reference scenes (this header), or one of
 // param_forms.cuh
-enum ParamForm { FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM };
+enum ParamForm {
+  FORM_REFERENCE,
+  FORM_SPHERE,
+  FORM_MANDELBULB,
+  FORM_WRAPPED,
+  FORM_PROGRAM,
+  FORM_MESH_GRID
+};
 
 // Mirrors _ParamSceneC in ops/cuda/diff_kernel.py field by field.
 struct ParamScene {
@@ -86,6 +94,11 @@ struct ParamScene {
   // (csdf.py param_program_words); the caller owns the buffer
   const int* program;
   int program_length;
+  // a mesh asset's grid: its baked (r, r, r) table in device memory, C
+  // order, read as data and no parameter (n_prm 0), and its box; the caller
+  // keeps the table alive
+  const float* grid_table;
+  GridBox grid;
 };
 
 // The scene's optional parts: AnyParts reads them from the ParamScene at

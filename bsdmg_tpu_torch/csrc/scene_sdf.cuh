@@ -21,7 +21,11 @@
 // values stay runtime data in the by-value SceneDesc. Sphere, SolidBox and
 // Mandelbulb are the other built-in scenes (csdf.py sphere_csdf, box_csdf
 // and the mandelbulb of compile_scene_csdf), Wrapped<Box<false, false>>
-// the reference object on a lattice (its wrapped_object), Composed a
+// the reference object on a lattice (its wrapped_object), and
+// Wrapped<Box<false, true>> the same object moved by its object transform
+// inside each cell (the lattice point wrapped first, then the transform, as
+// bsdmg_tpu/models/scenes.py:225-245 orders them; cli animate --motion
+// moves it), Composed a
 // composed scene's node program (composed.cuh). csdf.py::
 // kernel_structure picks the structure from the descriptor (and raises for
 // a descriptor that matches none); with_structure turns its index into the
@@ -180,8 +184,9 @@ struct GridScene {
 
 // Calls f(S{}) for the structure index csdf.py::kernel_structure gives:
 // 2 * frame + transform for Box, then Sphere, SolidBox, Mandelbulb, the
-// wrapped reference object and Composed; false for an index that names
-// none.
+// wrapped reference object, Composed and (11) the wrapped reference object
+// moved by its object transform; false for an index that names none.
+// Indices 9 and 10 are the grid's (with_mesh_structure).
 template <class F>
 inline bool with_structure(int structure, F&& f) {
   switch (structure) {
@@ -194,6 +199,7 @@ inline bool with_structure(int structure, F&& f) {
     case 6: f(Mandelbulb{}); return true;
     case 7: f(Wrapped<Box<false, false>>{}); return true;
     case 8: f(Composed{}); return true;
+    case 11: f(Wrapped<Box<false, true>>{}); return true;
     default: return false;
   }
 }

@@ -20,7 +20,6 @@ import torch
 
 from bsdmg_tpu_torch.mesh.pipeline import Mesh
 from bsdmg_tpu_torch.runtime.native import read_obj_native, write_obj_native
-from bsdmg_tpu_torch.weights import field_from_numpy
 
 
 def save_obj(mesh: Mesh, path: str | Path, *, use_native: bool = True) -> None:
@@ -154,5 +153,8 @@ def save_field(field, path: str | Path) -> None:
 def load_field(path: str | Path, device: torch.device | str = "cuda"):
     """A field checkpoint, the JAX package's ``save_field`` output included,
     onto ``device``."""
+    # imported here: weights.py imports mesh/field.py, whose package imports this module
+    from bsdmg_tpu_torch.weights import field_from_numpy
+
     data = np.load(path)
     return field_from_numpy(data["lowers"], data["voxel_size"], data["level"], device)

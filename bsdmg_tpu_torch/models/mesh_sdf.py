@@ -333,6 +333,20 @@ def grid_csdf(grid: SdfGrid):
     return make_grid_interp_csdf(at, r, grid.lo, grid.hi)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class GridCsdf:
+    """A mesh asset's ``Scene.csdf``: :func:`grid_csdf` of ``grid`` on
+    coordinate planes, ``f(params, x, y, z)`` that reads no parameter (the
+    JAX package's ``mesh_scene`` closes over the table). The image fit's
+    kernels K4 and K5 (``ops/cuda/diff_kernel.py``) take it as their grid
+    form, the table as data: its gradient is zero."""
+
+    grid: SdfGrid
+
+    def __call__(self, params, x, y, z) -> torch.Tensor:
+        return grid_csdf(self.grid)(x, y, z)
+
+
 def coarsen_grid_lower(grid: SdfGrid, resolution: int = 64) -> SdfGrid:
     """Sound *lower-bound* mip of a fine grid SDF for multi-level tracing.
 
@@ -369,9 +383,7 @@ def mesh_scene(vertices, faces, resolution: int = 128, name: str = "mesh",
 
     grid = bake_mesh_grid(vertices, faces, resolution=resolution, device=device)
     sdf = grid_sdf(grid)
-    cfn = grid_csdf(grid)
     scene = Scene(
-        name, lambda params, p: sdf(p), {"grid": grid.values},
-        csdf=lambda params, x, y, z: cfn(x, y, z), grid=grid,
+        name, lambda params, p: sdf(p), {"grid": grid.values}, csdf=GridCsdf(grid), grid=grid,
     )
     return scene, grid

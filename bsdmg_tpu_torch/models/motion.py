@@ -4,8 +4,9 @@ Port of ``bsdmg_tpu/models/motion.py`` (the reference's Bevy motion system,
 src/example_scene.rs:63-160): three motion components,
 :class:`RotateAxisMotion`, :class:`SphericCyclicMotion` and
 :class:`AxisCyclicMotion`, and :func:`apply_motion`, which advances a
-transform to time ``t``; :func:`motion_params` writes the advanced
-transform into a scene's ``object_center``/``object_rotation`` params.
+transform to time ``t``, gated as the reference's :class:`SceneSettings`
+gates it; :func:`motion_params` writes the advanced transform into a
+scene's ``object_center``/``object_rotation`` params.
 Every value is a float32 tensor on the device the caller names (the card
 unless it names another), computed in the JAX package's operation order.
 """
@@ -134,6 +135,13 @@ def apply_motion(
     if rotate_axis is not None:
         rotation = rotate_axis.rotation_at(t, device)
     return Transform(translation, rotation)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneSettings:
+    """The reference's ``ExampleSceneSettings`` (src/example_scene.rs:156-160)."""
+
+    enable_movement: bool = False
 
 
 def motion_params(

@@ -10,5 +10,16 @@
   the fused image loss and gradient of ``fit --image``, and their twins;
 * ``csdf`` — the scene compiler that lowers a scene to the descriptor the
   kernels read, and the descriptor's SDF and gradient in plain PyTorch;
+* ``grid_kernel`` — kernels K8, K9 and P1 of mesh-asset scenes, and
+  ``bake_kernel`` the grid bake, with their twins;
 * ``build`` — compiles ``csrc/*.cu`` with nvcc at first use.
+
+The package exports the counterparts of ``bsdmg_tpu.ops.pallas``'s two
+names: :func:`compile_scene` (``compile_scene_csdf``: the scene lowered for
+the kernels) and :func:`sphere_trace_cuda` (``sphere_trace_pallas``).
 """
+
+from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
+from bsdmg_tpu_torch.ops.cuda.render_kernel import sphere_trace_cuda
+
+__all__ = ["compile_scene", "sphere_trace_cuda"]

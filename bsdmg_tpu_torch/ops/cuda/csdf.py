@@ -72,10 +72,11 @@ SUPPORTED = (
     "reference_object", "reference_render_scene", "sphere", "box", "mandelbulb", "wrapped_object",
 )
 
-#: kernel_structure's indices of the other built-in scenes and of a composed
-#: scene's node program (with_structure in csrc/scene_sdf.cuh); 0-3 are the
-#: reference scenes' Box<Frame, Transform>
-SPHERE, SOLID_BOX, MANDELBULB, WRAPPED, COMPOSED = 4, 5, 6, 7, 8
+#: kernel_structure's indices of the other built-in scenes, of a composed
+#: scene's node program and of the wrapped object moved by its object
+#: transform (with_structure in csrc/scene_sdf.cuh); 0-3 are the reference
+#: scenes' Box<Frame, Transform>
+SPHERE, SOLID_BOX, MANDELBULB, WRAPPED, COMPOSED, WRAPPED_MOVED = 4, 5, 6, 7, 8, 11
 
 #: kernel_structure's indices of a mesh asset's grid in its two forms
 #: (with_mesh_structure in csrc/scene_sdf.cuh, which only K6 and K7 use):
@@ -1337,12 +1338,16 @@ def kernel_structure(desc: SceneDescriptor) -> int:
     ``desc`` (with_structure in csrc/scene_sdf.cuh): ``2 * frame +
     transform`` for ``Box<Frame, Transform>``, the reference scenes;
     :data:`SPHERE`, :data:`SOLID_BOX`, :data:`MANDELBULB`; :data:`WRAPPED`
-    for ``Wrapped<Box<false, false>>``, the wrapped reference object
-    without an object transform; :data:`COMPOSED` for a node program. Each capsule set must be a box skeleton as
-    the kernels take it, 3 groups along x, y and z in that order with 2
-    perpendicular coordinates per other axis; any other descriptor raises
-    ``NotImplementedError``, for which no kernel is built. A grid's index
-    is its form's (:data:`GRID_FORMS`), a structure of K6 and K7 alone."""
+    for ``Wrapped<Box<false, false>>``, the wrapped reference object, and
+    :data:`WRAPPED_MOVED` for ``Wrapped<Box<false, true>>``, the same
+    object moved by its object transform (``cli animate --motion``);
+    :data:`COMPOSED` for a node program. Each capsule set must be a box
+    skeleton as the kernels take it, 3 groups along x, y and z in that order
+    with 2 perpendicular coordinates per other axis; any other descriptor
+    raises ``NotImplementedError``, for which no kernel is built, and so
+    does a wrapped object with a wireframe, which no scene builds. A grid's
+    index is its form's (:data:`GRID_FORMS`), a structure of K6 and K7
+    alone."""
     plain = {"sphere": SPHERE, "box": SOLID_BOX, "mandelbulb": MANDELBULB, "composed": COMPOSED}
     if desc.kind == "grid":
         return GRID_FORMS[desc.grid_form]
@@ -1360,12 +1365,12 @@ def kernel_structure(desc: SceneDescriptor) -> int:
                 f"{MAX_GROUP_VALUES} perpendicular coordinates"
             )
     if desc.kind == "wrapped":
-        if desc.frame is not None or desc.translation is not None:
+        if desc.frame is not None:
             raise NotImplementedError(
                 "the kernels are built for the wrapped reference object without a wireframe "
-                "or an object transform (Wrapped<Box<false, false>>)"
+                "(Wrapped<Box<false, false>>, Wrapped<Box<false, true>>)"
             )
-        return WRAPPED
+        return WRAPPED if desc.translation is None else WRAPPED_MOVED
     return 2 * (desc.frame is not None) + (desc.translation is not None)
 
 

@@ -18,9 +18,11 @@ The scene is the component form of a scene the image fit takes, which the
 kernels evaluate from the flat parameter vector (``weights.flatten_params``)
 in one of their parameter forms (``csrc/param_forms.cuh``):
 :class:`ReferenceCsdf` (the reference scenes), :class:`SphereCsdf`,
-:class:`MandelbulbCsdf`, :class:`WrappedCsdf` (the other built-in scenes)
-and :class:`ComposedCsdf` (a composed scene, as a parameter program,
-``csdf.py::param_program``). Any other component form raises
+:class:`MandelbulbCsdf`, :class:`WrappedCsdf` (the other built-in scenes),
+:class:`ComposedCsdf` (a composed scene, as a parameter program,
+``csdf.py::param_program``) and :class:`GridCsdf` (a mesh asset's baked
+grid, read as data: it reads no parameter, its gradient is zero and K5
+takes no tangent). Any other component form raises
 ``NotImplementedError``. The near/far tile split of the TPU kernels is not
 ported.
 """
@@ -33,6 +35,7 @@ import torch
 
 from bsdmg_tpu_torch.config import MarchConfig
 from bsdmg_tpu_torch.models.compose import ComposedCsdf
+from bsdmg_tpu_torch.models.mesh_sdf import GridCsdf
 from bsdmg_tpu_torch.models.scenes import (
     FRAME_LINE_WIDTH,
     MandelbulbCsdf,
@@ -42,9 +45,11 @@ from bsdmg_tpu_torch.models.scenes import (
 )
 from bsdmg_tpu_torch.ops.cuda.build import load_library
 from bsdmg_tpu_torch.ops.cuda.csdf import f32, param_program, param_program_words
+from bsdmg_tpu_torch.ops.cuda.grid_box import GridBoxC, grid_box_c
 from bsdmg_tpu_torch.ops.cuda.render_kernel import (
     _check_inputs,
     _floats,
+    _grid_table,
     _march,
     _slab_cull,
     bounds_c,
@@ -68,7 +73,7 @@ MAX_PARAMS = 64
 REFERENCE_PARAMS = 16
 
 #: the parameter forms (csrc/param_sdf.cuh ParamForm)
-FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM = range(5)
+FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM, FORM_MESH_GRID = range(6)
 
 #: the parameters the reference form reads, with their shapes, in
 #: ``ParamScene``'s order; the transform's two are optional
@@ -104,7 +109,7 @@ def _ray_derivative(f, o, d, t):
     return (g[0] * d[0] + g[1] * d[1]) + g[2] * d[2]
 
 
-CSDF = "ReferenceCsdf | SphereCsdf | MandelbulbCsdf | WrappedCsdf | ComposedCsdf"
+CSDF = "ReferenceCsdf | SphereCsdf | MandelbulbCsdf | WrappedCsdf | ComposedCsdf | GridCsdf"
 
 
 def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: bool):
@@ -187,7 +192,10 @@ def render_loss_grad_torch(
                 outcome == COLLISION, state, _band(config, edge_band),
             )
             loss = loss + float(edge_weight) * e.sum() * (1.0 / n_pixels)
-        (grad,) = torch.autograd.grad(loss, prm)
+        # a scene that reads no parameter (a mesh asset's grid) leaves the
+        # loss without a graph: its gradient is zero, as JAX's
+        grad = (torch.autograd.grad(loss, prm)[0] if loss.requires_grad
+                else torch.zeros_like(prm))
     return loss.detach(), unflatten_params(grad, layout)
 
 
@@ -243,6 +251,8 @@ class _ParamSceneC(ctypes.Structure):
         ("cell", ctypes.c_int),
         ("program", ctypes.c_void_p),
         ("program_length", ctypes.c_int),
+        ("grid_table", ctypes.c_void_p),
+        ("grid", GridBoxC),
     ]
 
 
@@ -294,31 +304,40 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
     """``(ParamScene, layout)``: the scene and ``params`` as the kernels
     take them, and the flat vector's layout (``weights.flatten_params``).
     The form follows ``cfn``'s type; a composed scene's parameter program
-    lives on ``device`` and the struct keeps it alive."""
+    lives on ``device`` and the struct keeps it alive. A mesh asset's grid
+    (:class:`GridCsdf`) is read from its table on ``device``, no parameter
+    enters the struct (``n_prm`` 0) and ``layout`` is None."""
     forms = {ReferenceCsdf: FORM_REFERENCE, SphereCsdf: FORM_SPHERE,
              MandelbulbCsdf: FORM_MANDELBULB, WrappedCsdf: FORM_WRAPPED,
-             ComposedCsdf: FORM_PROGRAM}
+             ComposedCsdf: FORM_PROGRAM, GridCsdf: FORM_MESH_GRID}
     form = forms.get(type(cfn))
     if form is None:
         raise NotImplementedError(
             f"the kernels evaluate the component forms {sorted(t.__name__ for t in forms)}, "
             f"not {type(cfn).__name__}"
         )
+    fields = dict(
+        form=form,
+        use_bounds=int(bb is not None),
+        **{name: -1 for name in PARAM_SHAPES},
+        **march_c(config),
+        **shading_c(),
+        **(bounds_c(bb) if bb is not None else {}),
+    )
+    if form == FORM_MESH_GRID:
+        grid = cfn.grid
+        table = grid.values if torch.device(device).type == "cpu" else _grid_table(grid, device)
+        scene = _ParamSceneC(**fields, n_prm=0, grid_table=table.data_ptr(),
+                             grid=grid_box_c(grid.resolution, grid.lo, grid.hi))
+        scene.grid_values = table  # the struct keeps the table alive
+        return scene, None
     flat, layout = flatten_params(params)
     most = REFERENCE_PARAMS if form == FORM_REFERENCE else MAX_PARAMS
     if flat.numel() > most:
         raise ValueError(f"{flat.numel()} parameter values; the kernels take at most {most}")
     offsets = param_offsets(layout)
     values = flat.detach().cpu().tolist()
-    fields = dict(
-        form=form,
-        prm=_floats(MAX_PARAMS)(*values),
-        n_prm=len(values),
-        use_bounds=int(bb is not None),
-        **{name: -1 for name in PARAM_SHAPES},
-        **march_c(config),
-        **shading_c(),
-    )
+    fields.update(prm=_floats(MAX_PARAMS)(*values), n_prm=len(values))
     keep = None
     if form in (FORM_REFERENCE, FORM_WRAPPED):
         extra = {"cell": ()} if form == FORM_WRAPPED else {}
@@ -339,8 +358,6 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
         except KeyError as missing:
             raise ValueError(f"parameter {missing} of the scene's spec is missing") from None
         fields.update(program=keep.data_ptr(), program_length=keep.shape[0])
-    if bb is not None:
-        fields.update(bounds_c(bb))
     scene = _ParamSceneC(**fields)
     scene.program_words = keep
     return scene, layout
@@ -508,4 +525,6 @@ def render_loss_grad_cuda(
         scene_c, origins, directions, cone, target, t_state, total_pixels or h * w,
         float(edge_weight), _band(config, edge_band),
     )
+    if layout is None:  # the grid form: no parameter is read, the gradient is zero
+        return out[0], {k: torch.zeros_like(v) for k, v in params.items()}
     return out[0], unflatten_params(out[1:], layout)

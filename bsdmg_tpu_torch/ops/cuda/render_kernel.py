@@ -25,6 +25,7 @@ from one to the other.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -59,6 +60,8 @@ from bsdmg_tpu_torch.ops.trace import COLLISION, DEPTH_LIMIT, STEP_LIMIT, RayMar
 LAUNCHES = 0
 TRACE_LAUNCHES = 0
 SHADE_LAUNCHES = 0
+#: K1's launches by the structure they ran (``kernel_structure``'s index)
+STRUCTURE_LAUNCHES: collections.Counter = collections.Counter()
 
 #: the kernel's source, relative to the repository root
 SOURCE = "bsdmg_tpu_torch/csrc/render_kernel.cu"
@@ -591,6 +594,7 @@ def _render_cuda(desc_c, origins, directions, cone, rgb, planes, *, cap: int, mo
         )
     _raise_on(err, lib, "render (K1)")
     LAUNCHES += 1
+    STRUCTURE_LAUNCHES[desc_c.structure] += 1
 
 
 def _trace_cuda(desc_c, origins, directions, cone, carried, out, *, cap: int, active=None,

@@ -89,6 +89,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the native library builds and loads here (g++ and the
+    source present); the weld and the OBJ files need it unless the caller
+    picks the NumPy/Python twins."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _fptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 

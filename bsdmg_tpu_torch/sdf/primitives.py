@@ -1,12 +1,13 @@
-"""The SDF primitives of the built-in scenes, on ``(..., 3)`` point tensors.
+"""Analytic SDF primitives and CSG combinators on ``(..., 3)`` point tensors.
 
-Port of the subset of ``bsdmg_tpu/sdf/primitives.py`` that the built-in
-scenes use (reference: cuda/includes/signed_distance.cu), in the point form
-and in the component form on coordinate planes, each in the JAX package's
-operation order: the reference object's box skeleton, sphere and smooth
-minimum, the box, domain wrap and mandelbulb of the other scenes, and the
-torus and capped cylinder of the composed scenes (``models/compose.py``).
-The rest of that library comes with the scenes that need it.
+Port of ``bsdmg_tpu/sdf/primitives.py`` (reference:
+cuda/includes/signed_distance.cu), in the point form and in the component
+form on coordinate planes, each in the JAX package's operation order: the
+reference object's box skeleton, sphere and smooth minimum, the box, domain
+wrap and mandelbulb of the other scenes, the torus and capped cylinder of
+the composed scenes (``models/compose.py``), and the reference library's
+helpers that no scene calls (the unit primitives, the simple and bounding
+boxes, the infinite line, the smooth maximum, the AABB tests).
 
 Where a function is differentiated, its ``min``, ``max`` and ``abs`` follow
 JAX's derivative rules: at a tie each operand of ``minimum``/``maximum``
@@ -20,6 +21,11 @@ import numpy as np
 import torch
 
 _SAFE_EPS = 1e-12
+
+MAX_POSITIVE_F32 = 3.40282347e38
+#: the same as the float32 it rounds to (torch refuses a Python float above
+#: float32's largest)
+_MAX_F32 = float(np.float32(MAX_POSITIVE_F32))
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -106,9 +112,29 @@ def smooth_min(a: torch.Tensor, b: torch.Tensor, k) -> torch.Tensor:
     return minimum(a, b) - h * h * h * k * (1.0 / 6.0)
 
 
+def smooth_max(a: torch.Tensor, b: torch.Tensor, k) -> torch.Tensor:
+    """Smooth maximum (dual of :func:`smooth_min`)."""
+    return -smooth_min(-a, -b, k)
+
+
+def sd_unit_sphere(p: torch.Tensor) -> torch.Tensor:
+    """Sphere of *diameter* 1 at the origin (signed_distance.cu:82-84)."""
+    return _norm(p) - 0.5
+
+
 def sd_sphere(p: torch.Tensor, center=0.0, radius=1.0) -> torch.Tensor:
     center = torch.as_tensor(center, dtype=p.dtype, device=p.device)
     return _norm(p - center) - radius
+
+
+def sd_ray(p: torch.Tensor, origin, direction) -> torch.Tensor:
+    """Distance to the infinite line through ``origin`` with unit
+    ``direction`` (signed_distance.cu:61-63, named ``sd_ray`` there)."""
+    origin = torch.as_tensor(origin, dtype=p.dtype, device=p.device)
+    direction = torch.as_tensor(direction, dtype=p.dtype, device=p.device)
+    t = _dot(p - origin, direction)
+    closest = origin + t[..., None] * direction
+    return _norm(closest - p)
 
 
 def sd_ray_segment(p: torch.Tensor, origin, direction, length) -> torch.Tensor:
@@ -136,6 +162,26 @@ def sd_box(p: torch.Tensor, center=0.0, size=1.0) -> torch.Tensor:
     outside = _norm(maximum(q, 0.0))
     inside = minimum(q, 0.0).amax(dim=-1)
     return outside + inside
+
+
+def sd_unit_cube(p: torch.Tensor) -> torch.Tensor:
+    return sd_box(p, 0.0, 1.0)
+
+
+def sd_simple_box(p: torch.Tensor, center, size) -> torch.Tensor:
+    """Interior-only (non-exact outside) box distance (signed_distance.cu:115-118)."""
+    center = torch.as_tensor(center, dtype=p.dtype, device=p.device)
+    size = torch.as_tensor(size, dtype=p.dtype, device=p.device)
+    q = abs_(p - center) - size / 2.0
+    return minimum(q, 0.0).amax(dim=-1)
+
+
+def sd_bounding_box(p: torch.Tensor, bb_min, bb_max) -> torch.Tensor:
+    """Signed distance to an axis-aligned bounding volume as the largest of
+    the six half-space distances (signed_distance.cu:120-131)."""
+    bb_min = torch.as_tensor(bb_min, dtype=p.dtype, device=p.device)
+    bb_max = torch.as_tensor(bb_max, dtype=p.dtype, device=p.device)
+    return maximum((bb_min - p).amax(dim=-1), (p - bb_max).amax(dim=-1))
 
 
 def _box_skeleton_edges(center, size, reference_compat: bool):
@@ -360,3 +406,43 @@ def sd_mandelbulb_c(x, y, z, time=0.0):
             break
     safe_r = maximum(r, _SAFE_EPS)
     return 0.5 * torch.log(safe_r) * r / dr
+
+
+def sd_unit_mandelbulb(p: torch.Tensor) -> torch.Tensor:
+    """Mandelbulb rescaled to about unit size (signed_distance.cu:55-57)."""
+    return sd_mandelbulb(p / 0.4) * 0.4
+
+
+# ---------------------------------------------------------------------------
+# AABB helpers
+# ---------------------------------------------------------------------------
+
+
+def inside_aabb(p: torch.Tensor, bb_min, bb_max) -> torch.Tensor:
+    """Componentwise containment test (signed_distance.cu:137-140)."""
+    bb_min = torch.as_tensor(bb_min, dtype=p.dtype, device=p.device)
+    bb_max = torch.as_tensor(bb_max, dtype=p.dtype, device=p.device)
+    return ((bb_min <= p) & (p <= bb_max)).all(dim=-1)
+
+
+def ray_distance_to_bb(origin: torch.Tensor, direction: torch.Tensor, bb_min,
+                       bb_max) -> torch.Tensor:
+    """Slab test: the distance along the ray to the AABB, 0 from inside it,
+    +FLT_MAX on a miss (signed_distance.cu:142-175, without the per-axis
+    early exits: the masks give the same result)."""
+    bb_min = torch.as_tensor(bb_min, dtype=torch.float32, device=origin.device)
+    bb_max = torch.as_tensor(bb_max, dtype=torch.float32, device=origin.device)
+    eps = float(torch.finfo(torch.float32).eps)
+    parallel = torch.abs(direction) < eps
+    ood = 1.0 / torch.where(parallel, 1.0, direction)
+    t1 = (bb_min - origin) * ood
+    t2 = (bb_max - origin) * ood
+    t_near = torch.where(parallel, -_MAX_F32, minimum(t1, t2))
+    t_far = torch.where(parallel, _MAX_F32, maximum(t1, t2))
+    tmin = t_near.amax(dim=-1)
+    tmax = t_far.amin(dim=-1)
+    parallel_miss = (parallel & ((origin < bb_min) | (origin > bb_max))).any(dim=-1)
+    miss = parallel_miss | (tmin > tmax)
+    dist = torch.where(tmin > 0, tmin, tmax)
+    dist = torch.where(miss, _MAX_F32, dist)
+    return torch.where(inside_aabb(origin, bb_min, bb_max), 0.0, dist)

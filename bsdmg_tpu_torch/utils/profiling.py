@@ -882,7 +882,7 @@ def k4_ops(npix, evals, advances, frame, transform, bounds, track, *, sdf=None,
 
 
 def k5_ops(npix, evals, advances, hits, hinges, frame, transform, edge, *, sdf=None,
-           grad=None, bounds=True) -> float:
+           grad=None, bounds=True, reverse=True) -> float:
     """diff_kernel.cu K5 (its march, tangent and sum launches) as the least
     work of the function, the loss and its gradient, whatever the number of
     parameters: K4's march and, per hit, its dfdt and guard (2); the loss,
@@ -894,12 +894,14 @@ def k5_ops(npix, evals, advances, hits, hinges, frame, transform, edge, *, sdf=N
     operation (each operation's adjoint takes at least one, so this stays
     a lower bound; the kernels take the parameters' tangents forward, one
     lane each). ``sdf`` and ``grad`` as in :func:`k4_ops`; the cull where
-    ``bounds``."""
+    ``bounds``; without ``reverse`` (a scene that reads no parameter, a
+    mesh asset's grid) the loss alone."""
     sdf = param_sdf_ops(frame, transform) if sdf is None else sdf
     grad = param_grad_ops(frame, transform) if grad is None else grad
+    passes = 2 if reverse else 1
     return (npix * (CULL if bounds else 0) + evals * (sdf + 9 + 2 * edge) + advances * 3
-            + hits * (6 + 11 + grad + 2 + 2 * (sdf + 5 + 8 + grad + 8 + 3 + SHADE + ACES))
-            + (npix - hits) * ACES + npix * 2 * 14 + hinges * (6 + 2 * (sdf + 7)))
+            + hits * (6 + 11 + grad + 2 + passes * (sdf + 5 + 8 + grad + 8 + 3 + SHADE + ACES))
+            + (npix - hits) * ACES + npix * 2 * 14 + hinges * (6 + passes * (sdf + 7)))
 
 
 def grad_roofline(width: int, height: int, avg_steps: float, hits: int, *,
@@ -911,6 +913,68 @@ def grad_roofline(width: int, height: int, avg_steps: float, hits: int, *,
     rays = width * height
     steps = rays * avg_steps
     return Roofline(k5_ops(rays, steps, steps, hits, 0, frame, transform, False), rays * 40)
+
+
+# ---------------------------------------------------------------------------
+# refine and marching cubes: the JAX package's models (bsdmg_tpu/utils/
+# profiling.py), its formulas and constants, on this card's peaks
+# ---------------------------------------------------------------------------
+
+
+def csdf_flops_per_eval(csdf, fallback: float = 55.0) -> float:
+    """FP32 operations of one evaluation of a scene's SDF: :func:`sdf_ops`
+    of ``csdf``, a scene descriptor (``ops/cuda/csdf.py::compile_scene``),
+    the count the kernels' bounds take. The JAX package asks XLA's cost
+    analysis of the compiled SDF; this port counts its own CUDA source. A
+    ``csdf`` that is no descriptor, or whose work depends on its data (the
+    mandelbulb), gives ``fallback`` (the JAX package's 55 for the reference
+    object)."""
+    try:
+        return float(sdf_ops(csdf))
+    except (AttributeError, ValueError):
+        return float(fallback)
+
+
+#: the JAX package's single-pass bytes per refined parent (27 lattice
+#: coordinate planes and values 432, 8 children's 3 planes written and
+#: gathered 192, one fine sort 64, the output stack 24): its floor model of
+#: the stage's traffic, kept as its formula
+REFINE_BYTES_PER_PARENT = 712.0
+
+
+def refine_roofline(parents: int, ops_per_eval: float = 55.0,
+                    bytes_per_parent: float = REFINE_BYTES_PER_PARENT) -> Roofline:
+    """Speed of light of one voxel-refinement level
+    (``bsdmg_tpu/utils/profiling.py::refine_roofline``): 27 SDF evaluations
+    per parent (the shared 3x3x3 lattice of its corners) and
+    ``bytes_per_parent`` bytes each, on this card's FP32 and memory
+    peaks."""
+    return Roofline(parents * 27.0 * ops_per_eval, parents * bytes_per_parent)
+
+
+#: evaluations of one Newton step's value and gradient, and of an fd4
+#: normal, in the JAX package's marching-cubes model
+MC_GRAD_EVAL_COST = 2.5
+MC_NORMAL_EVALS = 12.0
+#: K6's traffic per voxel, each input read once and each output written
+#: once: 6 planes of 4 B in (the lower corner's 3, the crossing bits, the
+#: two words of the triangle table) and 101 out (45 positions, 45 normals,
+#: 5 dots, 5 ambients, the meta word); the JAX model's planes per lane
+MC_VOXEL_BYTES = (6 + 101) * 4
+
+
+def mc_roofline(lanes: int, budget: float, newton_steps: float,
+                corner_evals_per_lane: float = 8.0, ops_per_eval: float = 55.0) -> Roofline:
+    """Speed of light of the marching-cubes finish
+    (``bsdmg_tpu/utils/profiling.py::mc_roofline``): per lane ``budget``
+    Newton projections of ``newton_steps`` steps at MC_GRAD_EVAL_COST
+    evaluations and an fd4 normal each, plus ``corner_evals_per_lane``
+    corner evaluations; MC_VOXEL_BYTES a lane. A lane is a voxel:
+    ``bench.mc_step_stats`` gives the port's voxels, their crossing edges
+    per voxel as ``budget`` and an edge's mean steps, so the bytes are K6's
+    own and the evaluations its edges'."""
+    evals = budget * (newton_steps * MC_GRAD_EVAL_COST + MC_NORMAL_EVALS) + corner_evals_per_lane
+    return Roofline(lanes * evals * ops_per_eval, lanes * MC_VOXEL_BYTES)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times   # phase 1, the build and phase 2's kernel times
+    python3 chip_smoke.py --grid-faults    # the grid form's bars under planted faults
 
 Run from the repository root on a machine with an NVIDIA Hopper card, nvcc
 and PyTorch built for CUDA. Phases, each reported on its own line:
@@ -154,8 +155,14 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     ``--interpolate-edges`` (K7), ``cli remesh`` (K6), ``cli session`` (K6
     five times), ``cli animate --motion spheric`` (the grid route a frame,
     the motion ignored with a warning) and the depth ``cli fit``, with no
-    plain twin of K6, K7 or the bake allowed, and ``fit --image``, which
-    must raise ``NotImplementedError``; K6 and K7 over the grid structure
+    plain twin of K6, K7 or the bake allowed, and ``fit --image`` (K4 once
+    and K5 60 times in their grid form, ``MeshGridForm``, the loss ~0 at
+    every logged step: the grid reads no parameter), with that form's K4
+    and K5 against their plain versions on the 128^3 bake at 64x64 and
+    512x512 (K4 bit for bit but dfdt, within 1e-5; K5's loss within 1e-4
+    relative against a black target and within 1e-8 at the fit's target,
+    its gradient zero), alone with their bounds (bytes with the table
+    values read) and no spill; K6 and K7 over the grid structure
     in the lerp form at ``cli mesh``'s level 3 and K6 in the weights form at
     ``cli remesh``'s level 2 against their twins, bit for bit, alone with
     their bounds; the reference K6 and K7 at the registers they took
@@ -180,7 +187,21 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     parameters bit-equal, each path with its kernels' launches, its
     collectives and its wall time beside the unsharded path's; then the
     scaling benches at two ranks. Both ranks share one card: the times
-    are striping and gathering costs, not scaling.
+    are striping and gathering costs, not scaling;
+17. the wrapped object moved by its object transform (structure 11,
+    ``Wrapped<Box<false, true>>``): its K1, K2, K3, K6 and K7
+    instantiations without a spill, ``cli animate --motion axis --scene
+    wrapped_object`` (K1 once a frame: structure 7 for the first, unmoved
+    frame, 11 for each later one), K1 against its twin at 1920x1080
+    bit for bit and alone with its bound, the row and block pipelines at
+    320x180 and K6 and K7 at level 2 of init factor 16 against their twins;
+18. ``cli bench --roofline --which all``: the refine and marching-cubes
+    rooflines' share of the speed of light beside the render's and the
+    grad's.
+
+``--grid-faults`` builds a copy of the tree per planted fault of the grid
+form (dfdt without its z term; the shading normal's z flipped) and
+prints the bars each fails, beside the sound tree's (none).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that did not launch its kernel fails. Then one JSON
@@ -200,6 +221,7 @@ import io
 import json
 import logging
 import math
+import shutil
 import statistics
 import struct
 import subprocess
@@ -218,6 +240,7 @@ from bsdmg_tpu_torch.utils.profiling import (
     INTERP,
     MARCH_ADVANCE,
     MARCH_EVAL,
+    MC_VOXEL_BYTES,
     bound,
     k4_ops,
     k5_ops,
@@ -392,6 +415,7 @@ def reset_launches() -> None:
         module.LAUNCHES = 0
     render_kernel.TRACE_LAUNCHES = 0
     render_kernel.SHADE_LAUNCHES = 0
+    render_kernel.STRUCTURE_LAUNCHES.clear()
     diff_kernel.MARCH_LAUNCHES = 0
     diff_kernel.LOSS_GRAD_LAUNCHES = 0
     for name in grid_kernel.LAUNCHES:
@@ -961,7 +985,7 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
         lanes = int(nact.sum())
         ops = mesh_ops(desc, kwargs["use_grad"], stats["newton_steps"], lanes, lanes,
                        res["valid_triangles"])
-        b_ms, b_by = bound(f.count * (24 + 404), ops)
+        b_ms, b_by = bound(f.count * MC_VOXEL_BYTES, ops)
         k_ms = k6_alone_ms(desc, args, kwargs)
         w_ms = median_ms(lambda: mc_kernel.mc_fused_cuda(desc, *args, **kwargs),
                          runs=7, reps=5 if level == main_level else 2)
@@ -972,7 +996,7 @@ def mesh_kernel_phases(card: str, device, launches: dict, cfg=None, top: int = 5
         print(f"time K6 level {level} ({f.count} voxels, {lanes} projected edges) on {card}: "
               f"{k_ms:.4f} ms alone ({f.count / k_ms * 1e3:.4g} voxels/s), wrapper {w_ms:.4f} ms, "
               f"plain {'not timed' if p_ms is None else f'{p_ms:.3f} ms'}; {ops:.4g} FP32 "
-              f"operations, {f.count * 428} B; bound {b_ms:.4f} ms ({b_by})")
+              f"operations, {f.count * MC_VOXEL_BYTES} B; bound {b_ms:.4f} ms ({b_by})")
         del kern, plain
 
     # every other branch of K6 at the main path's level: the centroid
@@ -2903,7 +2927,7 @@ def mesh_grid_kernel_times(card: str, device, times: dict) -> dict:
         probes[f"K6 level {level}"] = probe = newton_step_stats(desc, fns, args, kwargs)
         ops = mesh_ops(desc, kwargs["use_grad"], probe["newton_steps"], probe["edges"],
                        probe["edges"], probe["valid_triangles"])
-        bounds[f"K6 level {level}"] = (*bound(f.count * (24 + 404), ops), ops)
+        bounds[f"K6 level {level}"] = (*bound(f.count * MC_VOXEL_BYTES, ops), ops)
     f = fields[3]
     pipeline, padded, kwargs = k7_inputs(desc, f, cfg)
     for name, args in (("", pipeline), (" padded", padded)):
@@ -3375,7 +3399,7 @@ def composed_kernel_times(desc, o, d, c, args, kwargs, args7, kwargs7, voxels: i
     res["K6 ms"] = k6_alone_ms(desc, args, kwargs)
     res["K6 plain ms"] = median_ms(lambda: mc_kernel.mc_fused_torch(fns, *args, **kwargs),
                                    runs=1, warmup=0)
-    res["K6 bound"] = bound(voxels * (24 + 404), k6_ops)
+    res["K6 bound"] = bound(voxels * MC_VOXEL_BYTES, k6_ops)
     m = args7[0].numel()
     k7_ops = mesh_ops(desc, kwargs7["use_grad"],
                       projection_step_stats(fns, args7, kwargs7)["newton_steps"], m)
@@ -3635,7 +3659,7 @@ def grid_kernel_phase(card: str, label: str, desc, field, cfg, launches: dict,
     probe = newton_step_stats(desc, fns, args, kwargs)
     k6_ops = mesh_ops(desc, kwargs["use_grad"], probe["newton_steps"], probe["edges"],
                       probe["edges"], probe["valid_triangles"])
-    k6_bound = bound(field.count * (24 + 404), k6_ops)
+    k6_bound = bound(field.count * MC_VOXEL_BYTES, k6_ops)
     k6_ms = k6_alone_ms(desc, args, kwargs)
     print(f"K6 over {label}: {field.count} voxels, {valid} triangles, {probe['edges']} edges, "
           f"{probe['newton_steps']} Newton steps; bit-equal to its twin (pos, nrm, dot, amb, meta) "
@@ -3759,7 +3783,8 @@ def asset_phases(card: str, device) -> list[dict]:
     (K6, and K7 with ``--interpolate-edges``), ``cli remesh``, ``cli
     session`` and ``cli animate`` of the torus, each with the bake and no
     plain twin of K6, K7 or the bake; the depth ``cli fit`` (plain PyTorch,
-    as JAX's XLA) and ``fit --image``, which raises; K6 and K7 over the
+    as JAX's XLA) and ``fit --image`` (K4's and K5's grid form,
+    :func:`grid_form_phase`); K6 and K7 over the
     grid structure against their twins in the lerp form at ``cli mesh``'s
     defaults (level 3, bb 5) and K6 in the weights form at ``cli
     remesh``'s (128^3, init 32, refine 2); the reference K6 and K7 keep
@@ -3821,11 +3846,7 @@ def asset_phases(card: str, device) -> list[dict]:
             if name == "animate":
                 check(any("motion ignored" in m for m in messages),
                       "animate --motion of a mesh asset did not warn")
-        try:
-            asset_cli(["fit", "--image", "--scene", f"mesh:{obj}:32", "--perturb", "grid=1.1"])
-            check(False, "fit --image --scene mesh: did not raise")
-        except NotImplementedError as err:
-            print(f"mesh-asset cli fit --image raises NotImplementedError: {err}")
+        entries += grid_form_phase(card, device, obj, grid)
 
         # K6 and K7 over the grid structure against their twins
         cfg = MeshGenConfig()
@@ -3859,6 +3880,441 @@ def asset_phases(card: str, device) -> list[dict]:
               f"the reference {prefix}Box<false, false>> moved from {want} registers: {ref}")
 
     return entries
+
+
+# ---------------------------------------------------------------------------
+# the last modules: the moved wrapped object (structure 11), K4's and K5's
+# grid form, the refine and MC rooflines
+# ---------------------------------------------------------------------------
+
+#: the wrapped object moved by its object transform (csrc/scene_sdf.cuh
+#: with_structure 11), ``cli animate --motion axis``'s frames after the first
+MOVED_STRUCTURE = "Wrapped<Box<false, true>>"
+MOVED_K1 = f"render_kernel<{MOVED_STRUCTURE}, false, false, 0>"
+#: the motion time of the held frame, and the small frame of K2 + K3 and
+#: the level of K6 and K7 there (init factor 16, two refines)
+MOVED_TIME = 1.3
+MOVED_SMALL = (320, 180)
+MOVED_MESH = (16, 2)
+#: K4's and K5's grid form (csrc/param_forms.cuh), the frames it is held
+#: and timed on, and the fit's loss bar: the target and each step render
+#: the same frame, so the kernels' loss is rounding (each pixel's colour
+#: 1e-4 off would read 1e-8)
+GRID_FORM = "MeshGridForm"
+GRID_FIT_SIZES = (64, 512)
+GRID_FIT_LOSS = 1e-8
+#: the planted faults of ``--grid-faults``: each must fail a bar of
+#: :func:`grid_form_readings` (the dfdt bar; the loss bar)
+GRID_FAULTS = {
+    "dfdt without z": ("bsdmg_tpu_torch/csrc/param_forms.cuh",
+                       "    return (g[0] * d[0] + g[1] * d[1]) + g[2] * d[2];",
+                       "    return g[0] * d[0] + g[1] * d[1];"),
+    # the light is (1, 1, 1): a normal with two components swapped shades
+    # alike, so the fault flips one
+    "normal z flipped": ("bsdmg_tpu_torch/csrc/param_forms.cuh",
+                         "      mesh_grid_value<true>(s, x, g);\n    }",
+                         "      mesh_grid_value<true>(s, x, g);\n      g[2] = -g[2];\n    }"),
+}
+
+
+def moved_params(scene, device) -> dict:
+    """The wrapped object's parameters at MOVED_TIME under ``--motion
+    axis`` and a rotation: its object transform moved, as ``cli animate``
+    moves it."""
+    from bsdmg_tpu_torch.models import motion
+
+    view = {k: scene.params[k] for k in ("object_center", "object_rotation")}
+    return dict(scene.params, **motion.motion_params(
+        view, MOVED_TIME, axis_cyclic=motion.AxisCyclicMotion(),
+        rotate_axis=motion.RotateAxisMotion(), device=device))
+
+
+def moved_wrap_phase(card: str, device) -> list[dict]:
+    """17. The wrapped object moved by its object transform, structure 11
+    (``Wrapped<Box<false, true>>``): ptxas's registers, stack and spills of
+    its K1, K2, K3, K6 and K7 instantiations (none may spill); ``cli animate
+    --motion axis --scene wrapped_object`` (K1 once a frame, counted by
+    structure: the first frame, unmoved, on structure 7, each later one on
+    11, the launches the kernels line reports); K1 against its
+    twin at 1920x1080 bit for bit, NaN at the same places, alone (a CUDA
+    graph of 20) with its bound; the row pipeline (K2, K2, K3) and the block
+    one at 320x180 and K6 and K7 at level 2 of init factor 16, each against
+    its twins once. Returns the kernels line's K1 entry."""
+    from bsdmg_tpu_torch.cam import generate_rays, look_at
+    from bsdmg_tpu_torch.config import MarchConfig, MeshGenConfig
+    from bsdmg_tpu_torch.mesh.field import create_voxel_field, refine_field
+    from bsdmg_tpu_torch.models import get_scene
+    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import (
+        WRAPPED,
+        WRAPPED_MOVED,
+        compile_scene,
+        kernel_structure,
+        sdf_fns,
+    )
+    from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
+
+    start = time.perf_counter()
+    rows = [r for source, prefix in (("render_kernel.cu", ("render_kernel<", "trace_kernel<",
+                                                           "shade_kernel<")),
+                                     ("mc_kernel.cu", ("mc_kernel<",)),
+                                     ("project_kernel.cu", ("project_kernel<",)))
+            for r in kernel_resources(source, prefix) if MOVED_STRUCTURE in r["kernel"]]
+    for r in rows:
+        print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    unmoved = [r for source, prefix in (("render_kernel.cu", ("render_kernel<", "trace_kernel<",
+                                                              "shade_kernel<")),
+                                        ("mc_kernel.cu", ("mc_kernel<",)),
+                                        ("project_kernel.cu", ("project_kernel<",)))
+               for r in kernel_resources(source, prefix)
+               if "Wrapped<Box<false, false>>" in r["kernel"]]
+    check(len(rows) == len(unmoved) and not any(r["spill_stores"] or r["spill_loads"]
+                                                for r in rows),
+          f"the {MOVED_STRUCTURE} instantiations are not the unmoved object's "
+          f"{len(unmoved)} without spills: {rows}")
+    k1_row = next(r for r in rows if r["kernel"] == MOVED_K1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, messages, seconds = run_cli(
+            ["animate", "--scene", "wrapped_object", "--motion", "axis", "--frames",
+             str(ANIMATE_FRAMES), "--width", str(ANIMATE_SIZE[0]), "--height",
+             str(ANIMATE_SIZE[1]), "-o", str(Path(tmp) / "w")])
+        structures = dict(rk.STRUCTURE_LAUNCHES)
+    print(f"moved wrapped object: cli animate --motion axis --scene wrapped_object "
+          f"({ANIMATE_SIZE}, {ANIMATE_FRAMES} frames) in {seconds:.2f} s, launches "
+          f"{launched(counts)}, K1 by structure {structures}")
+    # the first frame, at t = 0, is the unmoved object; every later one moved
+    check(counts["K1"] == ANIMATE_FRAMES and not any("motion ignored" in m for m in messages),
+          f"animate --motion of the wrapped object launched K1 {counts['K1']} times")
+    check(structures == {WRAPPED: 1, WRAPPED_MOVED: ANIMATE_FRAMES - 1},
+          f"animate --motion's frames ran K1's structures {structures}, not {WRAPPED} once "
+          f"and {WRAPPED_MOVED} {ANIMATE_FRAMES - 1} times")
+
+    scene = get_scene("wrapped_object", device=device)
+    desc = compile_scene(scene, moved_params(scene, device))
+    check(kernel_structure(desc) == WRAPPED_MOVED, "the moved wrapped object is not structure 11")
+
+    def frame(w, h):
+        return generate_rays(look_at((5.0, 2.0, -5.0), fov=np.pi / 4, device=device), (w, h),
+                             SCREEN)
+
+    o, d, c = frame(*SCENE_FRAME)
+    kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True)
+    t0 = time.perf_counter()
+    plain = rk.render_image_planes_torch(desc, o, d, c)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(all(same_nan(a, b) for a, b in zip(kernel, plain)),
+          f"K1 and its twin differ on the moved wrapped object at {SCENE_FRAME}")
+    _, depth, steps, outcome = kernel
+    evals, advances, hits = march_work(steps, outcome, depth)
+    b1 = bound(render_bytes(c.numel()), render_ops(desc, evals, advances, hits, c.numel()))
+    cfg = MarchConfig()
+    desc_c = rk.scene_desc_c(desc, cfg, device)
+    rgb = torch.empty((*c.shape, 3), device=device)
+    k1_ms = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None, cap=cfg.step_limit,
+                                             cull=False))
+    res = {"K1 ms": k1_ms, "plain ms": plain_ms, "bound_ms": b1[0], "bound_by": b1[1],
+           "hits": hits, "evaluations": evals, "exact": True,
+           "registers": {k: k1_row[k] for k in ("registers", "stack", "spill_stores")}}
+
+    small = frame(*MOVED_SMALL)
+    for tp in (True, "block"):
+        got = rk.render_image_cuda(desc, *small, return_planes=True, two_phase=tp)
+        twin = twin_pipeline(rk, desc, *small, two_phase=tp)
+        check(all(same_nan(a, b) for a, b in zip(got, twin)),
+              f"the {tp} pipeline and its twin differ on the moved wrapped object")
+    mesh_cfg = MeshGenConfig(init_factor=MOVED_MESH[0])
+    field = create_voxel_field(mesh_cfg, device)
+    for _ in range(MOVED_MESH[1]):
+        field = refine_field(desc, field)
+    args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, mesh_cfg)
+    k6 = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
+    t6 = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
+    args7, _, kwargs7 = k7_inputs(desc, field, mesh_cfg)
+    k7 = mesh_kernel.project_edges_cuda(desc, *args7, **kwargs7)
+    t7 = mesh_kernel.project_edges_torch(sdf_fns(desc), *args7[:3], args7[3].bool(), **kwargs7)
+    torch.cuda.synchronize()
+    check(all(same_nan(a, b) for a, b in zip(k6, t6)) and all(same_nan(a, b) for a, b in zip(k7, t7)),
+          "K6 or K7 and its twin differ on the moved wrapped object")
+    res.update({"row and block at": MOVED_SMALL, "K6/K7 voxels": field.count,
+                "K7 points": args7[0].numel(), "valid triangles": int(
+                    ((k6[4][:, None] >> torch.arange(5, device=device)) & 1).sum())})
+    print(f"moved wrapped object ({MOVED_STRUCTURE}) on {card}: {json.dumps(res)}; "
+          f"the phase in {time.perf_counter() - start:.1f} s")
+    return [{"name": f"K1 {MOVED_K1} (wrapped object moved, 1920x1080)", "route": "cuda",
+             "source": rk.SOURCE, "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336",
+             "launches": structures[WRAPPED_MOVED],
+             "max_abs_err": (kernel[0] - plain[0]).abs().max().item(),
+             "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": b1[0], "bound_by": b1[1],
+             "library_ms": None}]
+
+
+class _Touched:
+    """A mesh asset's component SDF that records the table values each call
+    reads (the eight corners of each point's cell, as ``grid_csdf`` gathers
+    them): :func:`grid_form_readings` counts a kernel's bytes by them."""
+
+    def __init__(self, csdf):
+        from bsdmg_tpu_torch.models.mesh_sdf import box_f32
+
+        self.csdf = csdf
+        grid = csdf.grid
+        self.r = grid.resolution
+        self.box = box_f32(self.r, grid.lo, grid.hi)
+        self.read = torch.zeros(self.r**3, dtype=torch.bool, device=grid.values.device)
+
+    def __call__(self, params, x, y, z):
+        lo, _, scale, clip_hi = self.box
+        with torch.no_grad():
+            base = [torch.floor(torch.clamp((v.detach() - lo[a]) * scale[a], 0.0, clip_hi)).long()
+                    for a, v in enumerate((x, y, z))]
+            for dx in (0, 1):
+                for dy in (0, 1):
+                    for dz in (0, 1):
+                        i = [torch.clamp_max(b + s, self.r - 1) for b, s in zip(base, (dx, dy, dz))]
+                        self.read[((i[0] * self.r + i[1]) * self.r + i[2]).reshape(-1)] = True
+        return self.csdf(params, x, y, z)
+
+    def nbytes(self) -> int:
+        return 4 * int(self.read.sum().item())
+
+
+def grid_form_readings(scene, device, timed: bool = False) -> dict:
+    """K4's and K5's grid form (``MeshGridForm``) on the mesh asset
+    ``scene`` from TORUS_CAMERA against their twins at each GRID_FIT_SIZES
+    frame: K4 (track_min off and on) bit for bit but dfdt (within
+    DFDT_ATOL, NaN at the same places); K5 (edge term off and on) against
+    a black target, its loss within LOSS_RTOL relative, and at the fit's
+    target (the render at the scene's parameters) within GRID_FIT_LOSS,
+    its gradient zero bit for bit, two calls the same bits. With
+    ``timed``, each kernel alone (a CUDA graph of 20 from a prepared
+    struct), its twin's time and its bound (``profiling.form_ops``; bytes
+    with the table values read, counted by :class:`_Touched`)."""
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.grad.edge import UNTRACKED, classify_target_miss
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda.csdf import grid_descriptor
+    from bsdmg_tpu_torch.utils.profiling import form_ops
+
+    params = dict(scene.params)
+    out = {}
+    for size in GRID_FIT_SIZES:
+        o, d, c = rays(size, size, device, TORUS_CAMERA)
+        npix = c.numel()
+        fit_target = render_image_diff(scene.sdf, params, o, d, c, csdf=scene.csdf).detach()
+        res = {"k4_exact": True, "dfdt_err": 0.0, "k5": {}}
+        for track in (False, True):
+            k4 = dk.march_params_cuda(scene.csdf, params, o, d, c, track_min=track)
+            p4 = dk.march_params_torch(scene.csdf, params, o, d, c, track_min=track)
+            torch.cuda.synchronize()
+            res["k4_exact"] &= all(bool(torch.equal(a, b)) for i, (a, b) in enumerate(zip(k4, p4))
+                                   if i != 3)
+            both = ~(k4[3].isnan() | p4[3].isnan())
+            res["k4_exact"] &= bool(torch.equal(k4[3].isnan(), p4[3].isnan()))
+            res["dfdt_err"] = max(res["dfdt_err"], _max_err(k4[3][both], p4[3][both]))
+        res["hits"] = int((k4[2] == 0).sum())
+        for tname, target in (("black", torch.zeros_like(fit_target)), ("fit", fit_target)):
+            for edge in (0.0, 1.0):
+                k5 = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c,
+                                              edge_weight=edge)
+                again = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c,
+                                                 edge_weight=edge)
+                p5 = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c,
+                                               edge_weight=edge)
+                torch.cuda.synchronize()
+                kl, pl = k5[0].item(), p5[0].item()
+                res["k5"][f"{tname} edge {edge}"] = {
+                    "loss": kl, "plain_loss": pl, "abs_err": abs(kl - pl),
+                    "rel_err": abs(kl - pl) / max(abs(pl), 1e-30),
+                    "zero_grad": all(bool(torch.equal(k5[1][k], torch.zeros_like(v)))
+                                     for k, v in params.items()),
+                    "reproducible": bool(torch.equal(k5[0], again[0]))}
+        if timed:
+            scene_c, _ = dk.param_scene_c(scene.csdf, params, device=device)
+            state = dk._target_state(fit_target, None).contiguous()
+            band = dk._band(MarchConfig(), None)
+            res["K4 ms"] = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
+            res["K5 ms"] = graph_ms(lambda: dk._loss_grad_cuda(
+                scene_c, o, d, c, fit_target, state, npix, 1.0, band))
+            # the plain versions ran above: one timed call each
+            res["K4 plain ms"] = median_ms(lambda: dk.march_params_torch(
+                scene.csdf, params, o, d, c), runs=1, warmup=0)
+            res["K5 plain ms"] = median_ms(lambda: dk.render_loss_grad_torch(
+                scene.csdf, params, fit_target, o, d, c, edge_weight=1.0), runs=1, warmup=0)
+            touched4, touched5 = _Touched(scene.csdf), _Touched(scene.csdf)
+            depth, steps, outcome, _, min_m, _ = dk.march_params_torch(touched4, params, o, d, c,
+                                                                       track_min=True)
+            dk.render_loss_grad_torch(touched5, params, fit_target, o, d, c, edge_weight=1.0)
+            sdf, grad = form_ops(grid_descriptor(scene.csdf.grid, "weights"))
+            evals, advances, hits = march_work(steps, outcome, depth)
+            miss = classify_target_miss(fit_target)
+            hit = outcome == 0
+            hinges = int(((~miss & ~hit & (min_m < UNTRACKED)) | (miss & hit)).sum().item())
+            res["K4 bound"] = bound(npix * (28 + 16) + touched4.nbytes(),
+                                    k4_ops(npix, evals, advances, False, False, False, False,
+                                           sdf=sdf, grad=grad))
+            res["K5 bound"] = bound(npix * 44 + touched5.nbytes(),
+                                    k5_ops(npix, evals, advances, hits, hinges, False, False, True,
+                                           sdf=sdf, grad=grad, bounds=False, reverse=False))
+            res.update({"table bytes read": [touched4.nbytes(), touched5.nbytes()],
+                        "evaluations": evals, "hinges": hinges})
+        out[size] = res
+    return out
+
+
+def grid_form_failed(readings: dict) -> list[str]:
+    """The bars of :func:`grid_form_readings` that ``readings`` fail."""
+    failed = []
+    for size, res in readings.items():
+        if not res["k4_exact"]:
+            failed.append(f"{size}: K4 not bit-equal but dfdt")
+        if not res["dfdt_err"] <= DFDT_ATOL:
+            failed.append(f"{size}: dfdt {res['dfdt_err']:.3e}")
+        for case, k5 in res["k5"].items():
+            within = (k5["rel_err"] <= LOSS_RTOL if case.startswith("black")
+                      else k5["abs_err"] <= GRID_FIT_LOSS)
+            if not (within and k5["zero_grad"] and k5["reproducible"]):
+                failed.append(f"{size}: K5 {case} {k5}")
+    return failed
+
+
+def grid_form_phase(card: str, device, obj: Path, grid) -> list[dict]:
+    """15b. ``cli fit --image --scene mesh:<torus>`` (the 128^3 bake, 64x64,
+    60 Adam steps: K4 once, K5 60 times through their grid form, the loss
+    within GRID_FIT_LOSS at every logged step: the grid reads no parameter
+    and nothing moves, as in the JAX package); ptxas's registers, stack
+    and spills of the form's K4 and K5 instantiations (none may spill);
+    :func:`grid_form_readings` on ``grid`` (the bake phase's table) with its
+    bars and times. Returns the kernels line's K4 and K5 entries (512x512,
+    K5 at the fit's target)."""
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+
+    start = time.perf_counter()
+    rows = kernel_resources("diff_kernel.cu", (f"march_params_kernel<{GRID_FORM}",
+                                               f"loss_march_kernel<{GRID_FORM}",
+                                               f"loss_tangent_form_kernel<{GRID_FORM}"))
+    for r in rows:
+        print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    check(len(rows) == 4 and not any(r["spill_stores"] or r["spill_loads"] for r in rows),
+          f"the {GRID_FORM} instantiations of K4 and K5 are not 4 without spills: {rows}")
+    counts, messages, seconds = asset_cli(["fit", "--image", "--scene", f"mesh:{obj}",
+                                           "--perturb", "grid=1.1"])
+    losses = step_losses(messages)
+    print(f"grid form: cli fit --image --scene mesh:<torus> (128^3, 64x64, {FIT_STEPS} steps) "
+          f"in {seconds:.2f} s, launches {launched(counts)}, logged losses {losses}")
+    check(counts["K4"] == 1 and counts["K5"] == FIT_STEPS,
+          f"fit --image --scene mesh: launched K4 {counts['K4']} and K5 {counts['K5']} times")
+    check(len(losses) == 7 and all(abs(v) <= GRID_FIT_LOSS for v in losses),
+          f"fit --image --scene mesh: losses {losses}")
+    readings = grid_form_readings(grid_scene(grid), device, timed=True)
+    print(f"grid form ({GRID_FORM}) K4 and K5 on the torus's 128^3 bake from {TORUS_CAMERA} on "
+          f"{card}: {json.dumps(readings, default=str)}")
+    failed = grid_form_failed(readings)
+    check(not failed, f"K4 or K5 in the grid form fails its bars: {failed}")
+    res = readings[512]
+    k5_err = max(k5["abs_err"] for r in readings.values() for k5 in r["k5"].values())
+    print(f"grid form: the phase in {time.perf_counter() - start:.1f} s")
+    common = {"route": "cuda", "source": dk.SOURCE, "library_ms": None}
+    return [{"name": f"K4 march_params_kernel<{GRID_FORM}> (mesh asset, 512x512)",
+             "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60", "launches": counts["K4"],
+             "max_abs_err": max(r["dfdt_err"] for r in readings.values()), "ms": res["K4 ms"],
+             "plain_ms": res["K4 plain ms"], "bound_ms": res["K4 bound"][0],
+             "bound_by": res["K4 bound"][1], **common},
+            {"name": f"K5 loss_march_kernel<{GRID_FORM}> + loss_tangent_form_kernel<{GRID_FORM}> "
+                     "+ loss_grad_sum (mesh asset, 512x512, fit point)",
+             "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232", "launches": counts["K5"],
+             "max_abs_err": k5_err, "ms": res["K5 ms"], "plain_ms": res["K5 plain ms"],
+             "bound_ms": res["K5 bound"][0], "bound_by": res["K5 bound"][1], **common}]
+
+
+def faulted_copies(faults: dict, command, timeout: float = 900):
+    """For each ``name: (path, old, new)`` of ``faults``: a copy of the
+    port's tree (this file, ``tools/`` and ``bsdmg_tpu_torch/`` without its
+    builds) in a temporary directory, ``old`` replaced by ``new`` in
+    ``path`` (where it stands once), and ``command`` run from the copy's
+    root; yields ``(name, the completed process)``. The checkout does not
+    change."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (path, old, new) in faults.items():
+            copy = Path(tmp) / name.replace(" ", "_")
+            copy.mkdir()
+            shutil.copy2(ROOT / "chip_smoke.py", copy)
+            shutil.copytree(ROOT / "tools", copy / "tools")
+            shutil.copytree(ROOT / "bsdmg_tpu_torch", copy / "bsdmg_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__", "_build"))
+            source = (copy / path).read_text()
+            check(source.count(old) == 1, f"fault {name}: the line is not in {path} once")
+            (copy / path).write_text(source.replace(old, new))
+            yield name, subprocess.run(command, cwd=copy, capture_output=True, text=True,
+                                       timeout=timeout)
+
+
+def grid_fault_bars() -> None:
+    """Prints, as JSON, the bars of :func:`grid_form_readings` that this
+    tree's grid form fails on the torus's 128^3 bake, its kernels built
+    anew (run from a copy's root by :func:`grid_faults`)."""
+    from bsdmg_tpu_torch.ops.cuda import build
+
+    build.build()
+    device = torch.device("cuda", 0)
+    print(json.dumps(grid_form_failed(grid_form_readings(torus_scene(device), device))))
+
+
+def grid_faults(device) -> None:
+    """``--grid-faults``: :func:`grid_form_readings` on the torus's 128^3
+    bake from this tree and from a copy per GRID_FAULTS fault (each built
+    anew, :func:`faulted_copies`), with the bars each fails: the sound tree
+    must fail none, each fault at least one."""
+    sound = grid_form_failed(grid_form_readings(torus_scene(device), device))
+    print(f"grid faults: the sound tree fails {sound}")
+    check(not sound, f"the sound tree fails {sound}")
+    command = [sys.executable, "-c", "import chip_smoke; chip_smoke.grid_fault_bars()"]
+    for name, out in faulted_copies(GRID_FAULTS, command):
+        failed = json.loads(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else None
+        print(f"grid faults: {name} fails {failed}; {out.stderr.strip()[-600:]}")
+        check(bool(failed), f"the fault {name} fails no bar")
+
+
+def grid_scene(grid):
+    """A baked ``grid`` as ``cli fit --scene mesh:`` fits it: its table the
+    one parameter, its component form :class:`GridCsdf`, which reads none."""
+    from bsdmg_tpu_torch.models.mesh_sdf import GridCsdf
+    from bsdmg_tpu_torch.models.scenes import Scene
+
+    return Scene("mesh", lambda params, p: None, {"grid": grid.values}, csdf=GridCsdf(grid),
+                 grid=grid)
+
+
+def torus_scene(device):
+    """tools/make_torus.py's torus at its 128^3 bake, as :func:`grid_scene`."""
+    return grid_scene(torus_grid(device, TORUS_RESOLUTION))
+
+
+ROOFLINE_SECTIONS = ("refine_roofline", "mc_roofline")
+
+
+def roofline_phase(card: str) -> None:
+    """18. ``cli bench --roofline --which all`` at the JAX bench's points:
+    each section with the JAX CLI's keys; the refine and MC rooflines'
+    share of the speed of light (the MC one's lanes K6's voxels, each
+    charged its crossing edges' Newton steps, counted by K6's twin,
+    ``bench.mc_step_stats``, and its planes once); K1, K6 and K5
+    launched."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        counts, _, seconds = run_cli(["bench", "--which", "all", "--roofline"])
+    res = json.loads(out.getvalue())
+    print(f"cli bench --roofline --which all on {card} in {seconds:.1f} s, launches "
+          f"{launched(counts)}: {json.dumps(res)}")
+    check(all(counts[k] for k in ("K1", "K6", "K5")), f"bench --which all launched {counts}")
+    for key in ROOFLINE_SECTIONS:
+        share = res[key]["pct_of_roofline"]
+        check(share is not None and 0 < share, f"{key}: pct_of_roofline {share}")
 
 
 # ---------------------------------------------------------------------------
@@ -4279,8 +4735,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    if argv not in ([], ["--kernel-times"]):
-        print(f"usage: chip_smoke.py [--kernel-times], not {argv}", file=sys.stderr)
+    if argv not in ([], ["--kernel-times"], ["--grid-faults"]):
+        print(f"usage: chip_smoke.py [--kernel-times | --grid-faults], not {argv}",
+              file=sys.stderr)
         return 2
 
     from bsdmg_tpu_torch.ops.cuda import build
@@ -4294,6 +4751,9 @@ def main(argv: list[str]) -> int:
     library = build.build()
     print(f"build: {library.relative_to(ROOT)} from {[s.name for s in build.sources()]} "
           f"in {time.perf_counter() - t0:.1f} s")
+    if argv[:1] == ["--grid-faults"]:
+        grid_faults(device)
+        return 0
     if argv:
         # the kernels alone and nothing else: run from each of two checkouts
         # (this file copied into the other) to compare them on one card
@@ -4324,6 +4784,8 @@ def main(argv: list[str]) -> int:
     kernels += grid_phases(card, device)
     kernels += asset_phases(card, device)
     parallel_phases(card, device)
+    kernels += moved_wrap_phase(card, device)
+    roofline_phase(card)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s, the build "
           "included")

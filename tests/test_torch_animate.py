@@ -10,8 +10,10 @@ package, on the CPU.
   descriptor per frame with the object transform) and a composed scene's
   (the gadget under a root ``transform``), against the JAX CLI's frames
   (its orbit through the XLA render, its motion through the param-traced
-  ``render_image_c``): each channel of each pixel within 2 of 255, and the
-  mean difference under 0.05 of a level (the renders' bars of
+  ``render_image_c``), and the wrapped object's ``--motion axis`` (a
+  descriptor per frame whose object transform selects the kernels'
+  ``Wrapped<Box<false, true>>``): each channel of each pixel within 2 of
+  255, and the mean difference under 0.05 of a level (the renders' bars of
   ``tests/test_torch_render_kernel.py``, after rounding to 8 bits).
 * The warnings of a motion the scene cannot take, as the JAX CLI's.
 * ``save_gif``: a GIF that Pillow reads back with the frames and their
@@ -23,6 +25,7 @@ import json
 import logging
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,6 +77,34 @@ def test_motions_match_jax(t):
             _close(got[k], ref[k])
 
 
+def test_moved_wrapped_object_takes_its_own_structure():
+    """The frames of ``animate --motion axis --scene wrapped_object`` after
+    the first compile to the wrapped object with an object transform: the
+    kernels' structure 11, ``Wrapped<Box<false, true>>`` (the lattice point
+    wrapped first, then the transform, as the JAX package's ``_sd_obj_c``
+    takes them); its twin equals the JAX scene's SDF within 1e-5."""
+    from bsdmg_tpu.models import get_scene as jax_get_scene
+    from bsdmg_tpu_torch.models import get_scene
+    from bsdmg_tpu_torch.ops.cuda import csdf as tcsdf
+    from bsdmg_tpu_torch.ops.cuda import render_kernel
+
+    scene = get_scene("wrapped_object", device="cpu")
+    view = {k: scene.params[k] for k in ("object_center", "object_rotation")}
+    moved = tmotion.motion_params(view, 1.3, axis_cyclic=tmotion.AxisCyclicMotion(),
+                                  rotate_axis=tmotion.RotateAxisMotion(), device="cpu")
+    params = dict(scene.params, **moved)
+    desc = tcsdf.compile_scene(scene, params)
+    assert tcsdf.kernel_structure(desc) == tcsdf.WRAPPED_MOVED == 11
+    assert render_kernel.scene_desc_c(desc, device="cpu").structure == 11
+    assert tcsdf.kernel_structure(tcsdf.compile_scene(scene)) == tcsdf.WRAPPED
+    pts = np.random.default_rng(11).uniform(-12.0, 12.0, (4096, 3)).astype(np.float32)
+    ours = tcsdf.descriptor_csdf(desc)(*(torch.from_numpy(pts[:, a]) for a in range(3)))
+    jscene = jax_get_scene("wrapped_object")
+    jparams = {k: jnp.asarray(v.numpy()) for k, v in params.items()}
+    ref = jax.jit(lambda q, p: jscene.csdf(q, *p.T))(jparams, jnp.asarray(pts))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
 def test_set_center_and_identity_match_jax():
     moved = tmotion.Transform.from_translation([1.0, 2.0, 3.0], device="cpu")
     ref = jmotion.set_center(jmotion.AxisCyclicMotion(),
@@ -105,6 +136,7 @@ ANIMATIONS = {
     "reference object": (lambda tmp: "reference_render_scene", ["--rotate", "--motion", "spheric"]),
     "reference axis": (lambda tmp: "reference_render_scene", ["--motion", "axis"]),
     "composed motion": (_moving_spec, ["--rotate", "--motion", "spheric"]),
+    "wrapped motion": (lambda tmp: "wrapped_object", ["--motion", "axis"]),
 }
 
 

@@ -11,6 +11,7 @@ relative.
 """
 
 import ast
+import dataclasses
 import json
 from pathlib import Path
 
@@ -108,20 +109,168 @@ def test_cli_bench_render_prints_jax_keys(name, capsys):
     assert after == before
 
 
+def _dict_keys(node: ast.Dict) -> set:
+    return {k.value for k in node.keys if k is not None}
+
+
+def _returned_keys(tree, name: str) -> set:
+    """The keys of the dict literal that function ``name`` returns."""
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name)
+    ret = [n.value for n in ast.walk(fn) if isinstance(n, ast.Return) and isinstance(n.value,
+                                                                                  ast.Dict)]
+    return _dict_keys(ret[-1])
+
+
+def _jax_bench_keys() -> dict[str, set]:
+    """Each section ``cmd_bench`` of the JAX CLI prints and its keys, read
+    from its source (``results[name] = {...}``; ``**stats`` is the step
+    statistics of ``bsdmg_tpu/bench.py``'s ``mc_step_stats`` for the MC
+    roofline and ``render_step_stats`` for the others)."""
+    cli_tree = ast.parse((ROOT / "bsdmg_tpu" / "cli.py").read_text())
+    bench_tree = ast.parse((ROOT / "bsdmg_tpu" / "bench.py").read_text())
+    fn = next(n for n in ast.walk(cli_tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "cmd_bench")
+    out = {}
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and isinstance(node.targets[0], ast.Subscript)
+                and getattr(node.targets[0].value, "id", None) == "results"):
+            name = node.targets[0].slice.value
+            keys = _dict_keys(node.value)
+            if None in node.value.keys:
+                stats = "mc_step_stats" if name == "mc_roofline" else "render_step_stats"
+                keys |= _returned_keys(bench_tree, stats)
+            out[name] = keys
+    return out
+
+
+#: the sections each ``--which`` prints with ``--roofline``
+ROOFLINE_SECTIONS = {
+    "refine": {"refine", "refine_roofline"},
+    "mc": {"marching_cubes", "mc_roofline"},
+    "all": {"render", "roofline", "refine", "refine_roofline", "marching_cubes", "mc_roofline",
+            "render_grad", "grad_roofline"},
+}
+
+
 @pytest.mark.parametrize("which", ["refine", "mc", "all"])
-def test_cli_bench_roofline_without_a_port_raises(which, monkeypatch):
-    """--roofline with the refine or marching-cubes benches raises before
-    any benchmark runs: their rooflines are not ported (ROADMAP queue 1,
-    item 6), and the flag is never accepted and ignored."""
+def test_cli_bench_roofline_prints_jax_keys(which, monkeypatch, capsys):
+    """``bench --roofline --which refine|mc|all`` prints the JAX CLI's
+    sections with its keys: the refine and MC rooflines exactly its keys
+    (the MC one's step statistics are K6's per crossing edge, counted by
+    its twin: ``bench.mc_step_stats``), the render's and the grad's at
+    least its keys; on the CPU no share of the card's speed of light. The
+    benches run at small sizes here (init factor 8, 32x32 for the grad),
+    each timed work called once (``_slope_time``: what it reports is
+    tested above)."""
+    import functools
 
-    def ran(*args, **kwargs):
-        raise AssertionError("a benchmark ran")
+    small = {"benchmark_refine": dict(init_factor=8),
+             "benchmark_marching_cubes": dict(init_factor=8, levels=1),
+             "mc_step_stats": dict(init_factor=8, levels=1),
+             "benchmark_render_grad": dict(width=32, height=32)}
+    for name, kwargs in small.items():
+        monkeypatch.setattr(bench, name, functools.partial(getattr(bench, name), **kwargs))
+    monkeypatch.setattr(bench, "_slope_time", lambda many, **kwargs: (many(1), 1e-3)[1])
+    assert cli.main(["bench", "--device", "cpu", "--which", which, "--roofline", "--width", "32",
+                     "--height", "16"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    ref = _jax_bench_keys()
+    assert set(out) - {"device"} == ROOFLINE_SECTIONS[which]
+    for section in ROOFLINE_SECTIONS[which]:
+        if section in ("refine_roofline", "mc_roofline"):
+            assert set(out[section]) == ref[section], section
+        else:
+            assert ref[section] <= set(out[section]), section
+        if section.endswith("roofline"):
+            assert out[section]["speed_of_light_ms"] > 0
+            assert out[section]["pct_of_roofline"] is None
+    if which != "refine":
+        mc = out["mc_roofline"]
+        assert mc["padded_lanes"] == mc["voxels"] > 0 and 1.0 < mc["budget"] <= 12.0
+        assert mc["max_steps"] >= mc["mean_needed_steps"] >= mc["mean_block_steps"] > 0
 
-    for name in ("benchmark_render", "benchmark_refine", "benchmark_marching_cubes",
-                 "benchmark_render_grad"):
-        monkeypatch.setattr(bench, name, ran)
-    with pytest.raises(NotImplementedError, match="--which render or --which grad"):
-        cli.main(["bench", "--device", "cpu", "--which", which, "--roofline"])
+
+ROOFLINE_ARGUMENTS = [(262144, 77.0), (1000, 55.0), (37, 130.5)]
+
+
+@pytest.mark.parametrize("parents, ops", ROOFLINE_ARGUMENTS)
+def test_refine_and_mc_rooflines_match_jax(parents, ops):
+    """JAX's formulas on this card's peaks: the same seconds as the JAX
+    package's ``Roofline`` given the H100's FP32 and memory rates, and the
+    same bound (the port names it by what binds, bytes or operations)."""
+    from bsdmg_tpu.utils import profiling as jprof
+
+    label = {"compute": "operations", "memory": "bytes"}
+
+    def same(ours, theirs):
+        theirs = dataclasses.replace(theirs, vpu_flops_per_s=profiling.PEAK_FP32,
+                                     hbm_bytes_per_s=profiling.PEAK_BYTES)
+        assert ours.seconds == pytest.approx(theirs.seconds, rel=1e-12)
+        assert ours.compute_seconds == pytest.approx(theirs.compute_seconds, rel=1e-12)
+        assert ours.memory_seconds == pytest.approx(theirs.memory_seconds, rel=1e-12)
+        assert ours.bound == label[theirs.bound]
+
+    same(profiling.refine_roofline(parents, ops_per_eval=ops),
+         jprof.refine_roofline(parents, ops_per_eval=ops))
+    same(profiling.refine_roofline(parents, ops, bytes_per_parent=64.0),
+         jprof.refine_roofline(parents, ops, bytes_per_parent=64.0))
+    for budget, steps, corners in ((12, 3.5, 8.0), (1, 4.25, 2.1), (4, 0.0, 0.5)):
+        same(profiling.mc_roofline(parents, budget, steps, corner_evals_per_lane=corners,
+                                   ops_per_eval=ops),
+             jprof.mc_roofline(parents, budget, steps, corner_evals_per_lane=corners,
+                               ops_per_eval=ops))
+    assert (profiling.REFINE_BYTES_PER_PARENT, profiling.MC_GRAD_EVAL_COST,
+            profiling.MC_NORMAL_EVALS) == (jprof.REFINE_BYTES_PER_PARENT,
+                                           jprof.MC_GRAD_EVAL_COST, jprof.MC_NORMAL_EVALS)
+
+
+def test_mc_roofline_charges_k6_s_bytes_and_each_edge_s_steps():
+    """The MC roofline as ``cli bench --roofline`` builds it from
+    ``bench.mc_step_stats``: its bytes are those K6 moves on the same field
+    (each input tensor read once, each output written once, through its
+    twin), a voxel's planes once; its operations the projected edges'
+    Newton steps and fd4 normals and eight corners a voxel."""
+    from bsdmg_tpu_torch.config import MeshGenConfig
+    from bsdmg_tpu_torch.mesh.field import create_voxel_field, refine_field
+    from bsdmg_tpu_torch.models import reference_object
+    from bsdmg_tpu_torch.ops.cuda.csdf import sdf_fns
+    from bsdmg_tpu_torch.ops.cuda.mc_kernel import mc_fused_torch
+    from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
+
+    stats = bench.mc_step_stats(init_factor=8, levels=1, device="cpu")
+    desc = compile_scene(reference_object(device="cpu"))
+    cfg = MeshGenConfig(init_factor=8)
+    field = refine_field(desc, create_voxel_field(cfg, "cpu"))
+    args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, cfg)
+    run: dict = {}
+    out = mc_fused_torch(sdf_fns(desc), *args, stats=run, **kwargs)
+    k6_bytes = sum(t.nbytes for t in (*args, *out) if isinstance(t, torch.Tensor))
+    assert all(t.shape[0] == field.count for t in (*args, *out) if isinstance(t, torch.Tensor))
+    ops = 77.0
+    roof = profiling.mc_roofline(stats["padded_lanes"], stats["budget"],
+                                 stats["mean_block_steps"],
+                                 corner_evals_per_lane=8.0 * stats["voxels"]
+                                 / stats["padded_lanes"], ops_per_eval=ops)
+    assert stats["voxels"] == field.count
+    assert roof.nbytes == k6_bytes == field.count * profiling.MC_VOXEL_BYTES
+    edges = run["newton_point_steps"].numel()
+    steps = run["newton_point_steps"].sum().item()
+    evals = (steps * profiling.MC_GRAD_EVAL_COST + edges * profiling.MC_NORMAL_EVALS
+             + 8 * field.count)
+    assert roof.ops == pytest.approx(evals * ops, rel=1e-6)
+
+
+def test_csdf_flops_per_eval_counts_the_descriptor():
+    """The port's own count of one evaluation (``sdf_ops``), or the
+    fallback where it has none."""
+    from bsdmg_tpu_torch.models import get_scene, reference_object
+
+    obj = compile_scene(reference_object(device="cpu"))
+    assert profiling.csdf_flops_per_eval(obj) == profiling.sdf_ops(obj) > 55
+    bulb = compile_scene(get_scene("mandelbulb", device="cpu"))
+    assert profiling.csdf_flops_per_eval(bulb) == 55.0
+    assert profiling.csdf_flops_per_eval(lambda x, y, z: x, fallback=12.5) == 12.5
 
 
 def test_cli_bench_without_cuda_raises():

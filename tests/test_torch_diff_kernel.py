@@ -35,6 +35,7 @@ from bsdmg_tpu_torch.config import MarchConfig
 from bsdmg_tpu_torch.models import reference_render_scene
 from bsdmg_tpu_torch.ops.cuda import diff_kernel
 from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
+from bsdmg_tpu_torch.ops.cuda.grid_box import GridBoxC
 from bsdmg_tpu_torch.ops.cuda.diff_kernel import (
     march_params_cuda,
     march_params_torch,
@@ -187,7 +188,9 @@ def test_param_scene_layout_matches_cuda_source():
     assert '#include "param_sdf.cuh"' in (ROOT / diff_kernel.SOURCE).read_text()
     assert f"#define BSDMG_MAX_PARAMS {diff_kernel.MAX_PARAMS} " in header
     types = {"int": ctypes.c_int, "float": ctypes.c_float,
-             "int*": ctypes.c_void_p}  # a composed scene's parameter program in device memory
+             "int*": ctypes.c_void_p,  # a composed scene's parameter program in device memory
+             "float*": ctypes.c_void_p,  # a mesh asset's grid table in device memory
+             "GridBox": GridBoxC}
     fields = _c_struct_fields(header, "ParamScene")
     py = diff_kernel._ParamSceneC._fields_
     assert [f[1] for f in fields] == [f[0] for f in py]

@@ -22,6 +22,7 @@ through the port against the JAX package, on numpy-seeded inputs.
   in both packages; these tests look from (2, 1, -2).
 """
 
+import dataclasses
 import json
 import logging
 import re
@@ -183,7 +184,9 @@ def test_kernel_structures():
     """kernel_structure's indices for the new scenes, the header's
     with_structure cases (and with_mesh_structure's, a mesh asset's grid in
     its two forms) that name the same structures, and the fields of the
-    descriptor the kernels read."""
+    descriptor the kernels read; the wrapped object moved by its object
+    transform takes Wrapped<Box<false, true>>, a wrapped wireframe (which no
+    scene builds) raises."""
     assert {n: tcsdf.kernel_structure(_desc(n)) for n in ALL} == {
         "sphere": tcsdf.SPHERE, "box": tcsdf.SOLID_BOX, "mandelbulb": tcsdf.MANDELBULB,
         "wrapped_object": tcsdf.WRAPPED}
@@ -191,6 +194,7 @@ def test_kernel_structures():
     assert {int(k): v for k, v in cases.items() if int(k) >= 4} == {
         tcsdf.SPHERE: "Sphere", tcsdf.SOLID_BOX: "SolidBox", tcsdf.MANDELBULB: "Mandelbulb",
         tcsdf.WRAPPED: "Wrapped<Box<false, false>>", tcsdf.COMPOSED: "Composed",
+        tcsdf.WRAPPED_MOVED: "Wrapped<Box<false, true>>",
         tcsdf.GRID_FORMS["lerp"]: "GridScene<GRID_LERP>",
         tcsdf.GRID_FORMS["weights"]: "GridScene<GRID_WEIGHTS>"}
     box = render_kernel.scene_desc_c(_desc("box"))
@@ -200,9 +204,14 @@ def test_kernel_structures():
     wrapped = render_kernel.scene_desc_c(_desc("wrapped_object"))
     assert (wrapped.cell, wrapped.half_cell) == (8.0, 4.0) and wrapped.cull_radius == 0.0
     scene = get_scene("wrapped_object", device="cpu")
-    moved = dict(scene.params, object_center=torch.tensor([0.5, 0.0, 0.0]))
+    moved = tcsdf.compile_scene(scene, dict(scene.params,
+                                            object_center=torch.tensor([0.5, 0.0, 0.0])))
+    assert tcsdf.kernel_structure(moved) == tcsdf.WRAPPED_MOVED == 11
+    assert render_kernel.scene_desc_c(moved, device="cpu").structure == 11
+    framed = dataclasses.replace(
+        moved, frame=tcsdf.compile_scene(get_scene("reference_render_scene", device="cpu")).frame)
     with pytest.raises(NotImplementedError, match="Wrapped"):
-        tcsdf.kernel_structure(tcsdf.compile_scene(scene, moved))
+        tcsdf.kernel_structure(framed)
 
 
 # ---------------------------------------------------------------------------

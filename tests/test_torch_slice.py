@@ -99,15 +99,29 @@ IMAGE_FITS = {
 
 @pytest.mark.parametrize("scene", ["mandelbulb", "examples/snowman.json", "mesh:bunny.obj"])
 def test_cli_unported_scene_raises(scene, tmp_path, caplog):
-    # mesh assets render, mesh and fit depth (tests/test_torch_grid_kernel.py,
-    # test_torch_mesh_assets.py); their image fit does not, and raises before
-    # it loads the asset. The mandelbulb and composed scenes render, mesh and
-    # fit depth (tests/test_torch_scenes.py, test_torch_compose.py), and their
-    # image fit runs through K4's and K5's twins and matches JAX's cmd_fit
-    # (without --perturb it exits asking for one, as the JAX CLI's does)
+    # mesh assets render, mesh and fit depth and image
+    # (tests/test_torch_grid_kernel.py, test_torch_mesh_assets.py, which holds
+    # the image fit against JAX's through K4's and K5's grid form). The
+    # mandelbulb and composed scenes render, mesh and fit depth
+    # (tests/test_torch_scenes.py, test_torch_compose.py), and their image fit
+    # runs through K4's and K5's twins and matches JAX's cmd_fit. Without
+    # --perturb each exits asking for one, as the JAX CLI's does (a mesh
+    # asset once it has loaded and baked the OBJ, here a small torus)
     if scene.startswith("mesh:"):
-        with pytest.raises(NotImplementedError, match="grid parameter form"):
-            cli.main(["fit", "--image", "--device", "cpu", "--scene", scene])
+        import importlib.util
+
+        from bsdmg_tpu_torch.mesh.export import save_obj
+        from bsdmg_tpu_torch.mesh.pipeline import Mesh
+
+        path = Path(__file__).resolve().parents[1] / "tools" / "make_torus.py"
+        spec = importlib.util.spec_from_file_location("make_torus", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        verts, faces = module.torus(nu=12, nv=8)
+        asset = tmp_path / scene.removeprefix("mesh:")
+        save_obj(Mesh(vertices=verts, normals=np.zeros_like(verts), faces=faces), asset)
+        with pytest.raises(SystemExit, match="pass --perturb"):
+            cli.main(["fit", "--image", "--device", "cpu", "--scene", f"mesh:{asset}:8"])
         return
     with pytest.raises(SystemExit, match="pass --perturb"):
         cli.main(["fit", "--image", "--device", "cpu", "--scene", scene])
