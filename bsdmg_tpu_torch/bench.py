@@ -29,7 +29,7 @@ from bsdmg_tpu_torch.grad import render_image_diff, render_loss_and_grad
 from bsdmg_tpu_torch.mesh.field import VoxelField, create_voxel_field, refine_field
 from bsdmg_tpu_torch.mesh.pipeline import field_to_triangles
 from bsdmg_tpu_torch.models import get_scene, reference_object, reference_render_scene
-from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds, sdf_fns
+from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, compile_scene_split, scene_bounds, sdf_fns
 from bsdmg_tpu_torch.ops.cuda.mc_kernel import edge_slots, mc_fused_torch
 from bsdmg_tpu_torch.ops.cuda.render_kernel import BLOCK_H, BLOCK_W, render_image_cuda, trace_cuda
 from bsdmg_tpu_torch.ops.marching_cubes import kernel_inputs
@@ -113,7 +113,8 @@ def benchmark_render(
     scene: str = "reference_render_scene",
 ) -> dict[str, Any]:
     """Rays/s of the render of the built-in ``scene`` (the reference render
-    scene by default) through ``render_image_cuda``.
+    scene by default) through ``render_image_cuda``, with the scene's
+    near/far split (``compile_scene_split``), as the JAX package's bench.
 
     ``two_phase`` True is the row two-phase pipeline (K2, K2 over the tail,
     K3), ``"block"`` block retirement (K1 twice), False one K1 launch.
@@ -122,14 +123,15 @@ def benchmark_render(
     frames make one step of ``k``; on one stream they run one after the
     other."""
     device = torch.device(device)
-    desc = compile_scene(get_scene(scene, device=device))
+    built = get_scene(scene, device=device)
+    desc, split = compile_scene(built), compile_scene_split(built)
     origins, dirs, cone = _rays(width, height, device)
 
     def many(k: int) -> float:
         acc = torch.zeros((), device=device)
         for i in range(k * unroll):
             img = render_image_cuda(desc, origins + 1e-6 * i, dirs, cone, two_phase=two_phase,
-                                    phase_a_steps=phase_a_steps)
+                                    phase_a_steps=phase_a_steps, split=split)
             acc = acc + img.sum()
         _sync(device)
         return float(acc)
@@ -270,15 +272,18 @@ def mc_step_stats(init_factor: int = 64, levels: int = 2, *,
 def benchmark_render_grad(width: int = 512, height: int = 512, *,
                           device: str | torch.device = "cuda") -> dict[str, Any]:
     """Rays/s of the fused image loss and gradient (kernel K5) of the
-    reference scene's shape parameters against a black target, bounds
-    inflated by 0.25 (the JAX package's training operating point); call
-    ``i`` offsets the origins by ``1e-7 * i``."""
+    reference scene's shape parameters against a black target, bounds and
+    the near/far split's near box inflated by 0.25 (the JAX package's
+    training operating point); call ``i`` offsets the origins by ``1e-7 *
+    i``."""
     device = torch.device(device)
     scene = reference_render_scene(device=device)
     origins, dirs, cone = _rays(width, height, device)
     target = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
     lo, hi, slack = scene_bounds(scene)
     bb = (tuple(v - 0.25 for v in lo), tuple(v + 0.25 for v in hi), slack)
+    far, (nlo, nhi, nslack) = compile_scene_split(scene)
+    split = (far, (tuple(v - 0.25 for v in nlo), tuple(v + 0.25 for v in nhi), nslack))
     params = {k: v for k, v in scene.params.items()
               if k not in ("object_center", "object_rotation")}
 
@@ -286,7 +291,7 @@ def benchmark_render_grad(width: int = 512, height: int = 512, *,
         acc = torch.zeros((), device=device)
         for i in range(k):
             loss, grads = render_loss_and_grad(scene.sdf, params, target, origins + 1e-7 * i,
-                                               dirs, cone, csdf=scene.csdf, bb=bb)
+                                               dirs, cone, csdf=scene.csdf, bb=bb, split=split)
             acc = acc + loss + sum(g.abs().sum() for g in grads.values())
         _sync(device)
         return float(acc)
@@ -321,16 +326,18 @@ def _sync_time(fn: Callable[[], Any], device: torch.device, iters: int = 3, warm
 def benchmark_scaling(width: int = 1920, height: int = 1080, iters: int = 3, *,
                       device: str | torch.device = "cuda") -> dict[str, Any]:
     """Rays/s of the sharded frame (``parallel/sharding.py::
-    render_sharded_pallas``, K1 on every rank) of the reference scene over
-    the world's mesh (``make_mesh``: a world of one without a process
-    group), against one rank's unsharded frame: ``efficiency = (rays_per_s
+    render_sharded_pallas``, K1 on every rank, with the near/far split as
+    the JAX package's bench) of the reference scene over the world's mesh
+    (``make_mesh``: a world of one without a process group), against one
+    rank's unsharded frame: ``efficiency = (rays_per_s
     / N) / rays_per_s_single``, the JAX package's keys. A world of one
     reports N = 1 and efficiency 1.0. Every rank measures at once, so ranks
     that share a card also share its time."""
     device = local_device(device)
     mesh = make_mesh(device=device)
     n = mesh.size()
-    desc = compile_scene(reference_render_scene(device=device))
+    scene = reference_render_scene(device=device)
+    desc, split = compile_scene(scene), compile_scene_split(scene)
     origins, dirs, cone = _rays(width, height, device)
 
     def measure(render) -> float:
@@ -344,10 +351,10 @@ def benchmark_scaling(width: int = 1920, height: int = 1080, iters: int = 3, *,
         agree = (lambda t: _world_mean(t, mesh, device)) if n > 1 else float
         return width * height / _slope_time(many, k2=4, iters=iters, agree=agree)
 
-    full = measure(lambda o: render_sharded_pallas(desc, o, dirs, cone, mesh))
+    full = measure(lambda o: render_sharded_pallas(desc, o, dirs, cone, mesh, split=split))
     if n == 1:
         return {"devices": 1, "rays_per_s": full, "efficiency": 1.0}
-    single = measure(lambda o: render_image_cuda(desc, o, dirs, cone))
+    single = measure(lambda o: render_image_cuda(desc, o, dirs, cone, split=split))
     return {"devices": n, "rays_per_s": full, "rays_per_s_single": single,
             "efficiency": (full / n) / single}
 

@@ -98,7 +98,7 @@ from bsdmg_tpu_torch.models.motion import (
     SphericCyclicMotion,
     motion_params,
 )
-from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
+from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, compile_scene_split, scene_bounds
 from bsdmg_tpu_torch.ops.cuda.grid_kernel import make_contraction_levels, render_image_grid
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda
 from bsdmg_tpu_torch.ops.shade import to_rgba8
@@ -107,7 +107,7 @@ from bsdmg_tpu_torch.parallel import (
     generate_mesh_sharded,
     make_mesh,
     render_grid_sharded,
-    render_sharded,
+    render_sharded_pallas,
 )
 from bsdmg_tpu_torch.parallel.multihost import local_device
 from bsdmg_tpu_torch.utils import profiling
@@ -177,11 +177,13 @@ def _rank_zero() -> bool:
 
 def _sharded_renderer(scene, mesh):
     """:func:`_renderer` over the world's ``mesh`` (``parallel/sharding.py``):
-    a mesh asset through ``render_grid_sharded``, else ``render_sharded``
-    (K1 on each rank's bands)."""
+    a mesh asset through ``render_grid_sharded``, else
+    ``render_sharded_pallas`` (K1 on each rank's bands) with the scene's
+    near/far split, as the JAX CLI passes it."""
     if scene.grid is None:
-        return lambda origins, dirs, cone: render_sharded(scene, scene.params, origins, dirs,
-                                                          cone, mesh)
+        desc, split = compile_scene(scene), compile_scene_split(scene)
+        return lambda origins, dirs, cone: render_sharded_pallas(desc, origins, dirs, cone, mesh,
+                                                                 split=split)
     levels = make_contraction_levels(scene.grid)
     return lambda origins, dirs, cone: render_grid_sharded(scene.grid, origins, dirs, cone, mesh,
                                                            levels=levels)
@@ -190,10 +192,12 @@ def _sharded_renderer(scene, mesh):
 def _renderer(scene):
     """The scene's render, ``(origins, dirs, cone) -> rgb``: the grid route
     for a mesh asset (its contraction ladder built once, here), else kernel
-    K1 on the compiled descriptor."""
+    K1 on the compiled descriptor with the scene's near/far split
+    (``compile_scene_split``), as the JAX CLI passes it."""
     if scene.grid is None:
-        desc = compile_scene(scene)
-        return lambda origins, dirs, cone: render_image_cuda(desc, origins, dirs, cone)
+        desc, split = compile_scene(scene), compile_scene_split(scene)
+        return lambda origins, dirs, cone: render_image_cuda(desc, origins, dirs, cone,
+                                                             split=split)
     t0 = time.perf_counter()
     levels = make_contraction_levels(scene.grid)
     log.info(
@@ -556,8 +560,10 @@ def fit_image(scene, true_params: dict, params: dict, origins, dirs, cone, *, st
     kernel K4 and each step's loss and gradient kernel K5 on the card
     (their plain twins on CPU tensors). A scene without bounds (the wrapped
     object, a spec that reaches a plane or a wrap) is marched without the
-    slab cull. Logs every tenth step and the recovered ``watched`` params;
-    returns ``(params, losses)``."""
+    slab cull. The steps take the scene's near/far split, its near box
+    inflated by the trust region as the bounds are, as the JAX CLI's do.
+    Logs every tenth step and the recovered ``watched`` params; returns
+    ``(params, losses)``."""
     if scene.csdf is None:
         raise SystemExit(
             f"fit --image needs a param-traced component SDF; scene {scene.name!r} has none"
@@ -568,6 +574,10 @@ def fit_image(scene, true_params: dict, params: dict, origins, dirs, cone, *, st
     if bounds is not None:
         lo, hi, slack = bounds
         bb = (tuple(v - 0.6 for v in lo), tuple(v + 0.6 for v in hi), slack)
+    split = compile_scene_split(scene)
+    if split is not None:
+        far, (nlo, nhi, nslack) = split
+        split = (far, (tuple(v - 0.6 for v in nlo), tuple(v + 0.6 for v in nhi), nslack))
     target = render_image_diff(
         scene.sdf, true_params, origins, dirs, cone, csdf=scene.csdf, bb=bb
     ).detach()
@@ -579,7 +589,7 @@ def fit_image(scene, true_params: dict, params: dict, origins, dirs, cone, *, st
         opt.zero_grad()
         loss, _ = render_loss_and_grad(
             scene.sdf, params, target, origins, dirs, cone, csdf=scene.csdf, bb=bb,
-            edge_weight=1.0,
+            edge_weight=1.0, split=split,
         )
         loss.backward()
         opt.step()

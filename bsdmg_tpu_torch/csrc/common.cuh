@@ -49,6 +49,34 @@ __device__ __forceinline__ bool slab_cull(const S& s, float ox, float oy, float 
   return tmax < fmaxf(tmin, 0.0f);
 }
 
+// the fields of slab_cull for the near component's bounds of the near/far
+// split (SceneDesc and ParamScene near_*), with the march's eps and limit
+struct NearBox {
+  float lo[3], hi[3], cull_center[3];
+  float cull_radius, slack, collision_distance, depth_limit;
+};
+
+// the near/far split's test (render_kernel.py:412-425, diff_kernel.py
+// :120-131): the slab cull against the near component's bounds, true for a
+// ray that cannot reach them
+template <class S>
+__device__ __forceinline__ bool near_miss(const S& s, float ox, float oy, float oz, float dx,
+                                          float dy, float dz, float c) {
+  NearBox n;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    n.lo[a] = s.near_lo[a];
+    n.hi[a] = s.near_hi[a];
+    n.cull_center[a] = s.near_center[a];
+  }
+  n.cull_radius = s.near_radius;
+  n.slack = s.near_slack;
+  n.collision_distance = s.collision_distance;
+  n.depth_limit = s.depth_limit;
+  float limit;
+  return slab_cull(n, ox, oy, oz, dx, dy, dz, c, limit);
+}
+
 // Lambert two-colour mix of a unit normal (ops/shade.py::shade_planes)
 template <class S, class T>
 __device__ __forceinline__ void shade_collision(const S& s, const T& nx, const T& ny, const T& nz,

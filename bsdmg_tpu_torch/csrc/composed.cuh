@@ -14,11 +14,14 @@
 // two values and pushes one, shell maps the top; transform and wrap push a
 // coordinate frame before their child and pop it after. Every thread of a
 // warp reads the same instruction, so the loads are broadcasts through the
-// read-only cache. The stacks are small arrays in local memory.
+// read-only cache. Composed, the small tier, keeps its stacks in small
+// arrays in local memory, for programs within the caps of program.cuh;
+// ComposedLarge, the large tier, in the scratch buffer SceneDesc::scratch,
+// for any program (program.cuh SpilledSlots).
 //
 // The gradient is reverse mode, as jax.vjp of the JAX package's baked SDF
-// takes it: the forward pass keeps every instruction's value on a tape of
-// BSDMG_PROGRAM floats (local memory), the backward walks the program from
+// takes it: the forward pass keeps every instruction's value on a tape (of
+// BSDMG_PROGRAM floats in the small tier), the backward walks the program from
 // its end with a stack of cotangents; each primitive recomputes its
 // forward and adds its gradient to the frame's; JAX's tie rules (tie_weight:
 // min and max split a cotangent at a tie; abs passes +1 at 0), and every
@@ -432,6 +435,128 @@ __device__ __forceinline__ void composed_sdf_grad(const SceneDesc& s, float x, f
       ax = f[3] + ax;
       ay = f[4] + ay;
       az = f[5] + az;
+    }
+  }
+  gx = ax;
+  gy = ay;
+  gz = az;
+}
+
+// ---------------------------------------------------------------------------
+// the large tier (ComposedLarge): the same walks over a program of any
+// length, stack depth and nesting, its stack, frames (3 slots a frame),
+// tape, cotangents and the backward's frames (6 a frame) in the scratch
+// buffer SceneDesc::scratch (program.cuh SpilledSlots). The small tier
+// above keeps its arrays, and with them its registers and stack.
+// ---------------------------------------------------------------------------
+
+template <bool Taped>
+__device__ __forceinline__ float spilled_forward(const SceneDesc& s, float x, float y, float z,
+                                                 SpilledSlots<float>& stack,
+                                                 SpilledSlots<float>& frames,
+                                                 SpilledSlots<float>& tape) {
+  int sp = 0, fp = 0;
+#pragma unroll 1
+  for (int pc = 0; pc < s.program_length; ++pc) {
+    const int* w = s.program + pc * BSDMG_WORDS;
+    const int op = __ldg(w);
+    if (op <= OP_PLANE) {
+      stack.set(sp++, primitive_value(op, w, x, y, z));
+    } else if (op <= OP_SMOOTH) {
+      const float b = stack.get(--sp);
+      stack.set(sp - 1, fold_value(op, w, stack.get(sp - 1), b));
+    } else if (op == OP_SHELL) {
+      stack.set(sp - 1, fabsf(stack.get(sp - 1)) - prog_k(w, 0));
+    } else if (op == OP_POP) {
+      --fp;
+      x = frames.get(3 * fp);
+      y = frames.get(3 * fp + 1);
+      z = frames.get(3 * fp + 2);
+    } else {
+      frames.set(3 * fp, x);
+      frames.set(3 * fp + 1, y);
+      frames.set(3 * fp + 2, z);
+      ++fp;
+      frame_coords(w, x, y, z);
+      continue;
+    }
+    if (Taped) tape.set(pc, stack.get(sp - 1));
+  }
+  return stack.get(0);
+}
+
+// the stack and the frames: a thread's first program_depth + 3 *
+// program_frames slots (csdf.py program_slots sizes the buffer)
+struct SpilledStacks {
+  SpilledSlots<float> stack, frames;
+  __device__ __forceinline__ explicit SpilledStacks(const SceneDesc& s)
+      : stack(s.scratch, s.scratch_threads, 0),
+        frames(s.scratch, s.scratch_threads, s.program_depth) {}
+};
+
+__device__ __forceinline__ float composed_sdf_large(const SceneDesc& s, float x, float y,
+                                                    float z) {
+  SpilledStacks st(s);
+  return spilled_forward<false>(s, x, y, z, st.stack, st.frames, st.stack);
+}
+
+// composed_sdf_grad's backward, its cotangents and frames after the tape
+__device__ __forceinline__ void composed_sdf_grad_large(const SceneDesc& s, float x, float y,
+                                                        float z, float& d, float& gx, float& gy,
+                                                        float& gz) {
+  SpilledStacks st(s);
+  const long long tape_at = s.program_depth + 3LL * s.program_frames;
+  const long long cts_at = tape_at + s.program_length;
+  SpilledSlots<float> tape(s.scratch, s.scratch_threads, tape_at);
+  SpilledSlots<float> cts(s.scratch, s.scratch_threads, cts_at);
+  SpilledSlots<float> frames(s.scratch, s.scratch_threads, cts_at + s.program_depth);
+  d = spilled_forward<true>(s, x, y, z, st.stack, st.frames, tape);
+  int cp = 0, fp = 0;
+  cts.set(cp++, 1.0f);
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+#pragma unroll 1
+  for (int pc = s.program_length - 1; pc >= 0; --pc) {
+    const int* w = s.program + pc * BSDMG_WORDS;
+    const int op = __ldg(w);
+    if (op <= OP_PLANE) {
+      float g0, g1, g2;
+      primitive_grad(op, w, x, y, z, cts.get(--cp), g0, g1, g2);
+      ax = ax + g0;
+      ay = ay + g1;
+      az = az + g2;
+    } else if (op <= OP_SMOOTH) {
+      const float ct = cts.get(--cp);
+      float ct_a, ct_b;
+      fold_bwd(op, w, tape.get(__ldg(w + 1)), tape.get(pc - 1), tape.get(pc), ct, ct_a, ct_b);
+      cts.set(cp++, ct_a);
+      cts.set(cp++, ct_b);
+    } else if (op == OP_SHELL) {
+      const float ct = cts.get(cp - 1);
+      cts.set(cp - 1, tape.get(pc - 1) >= 0.0f ? ct : -ct);
+    } else if (op == OP_POP) {
+      const int f = 6 * fp++;
+      frames.set(f, x);
+      frames.set(f + 1, y);
+      frames.set(f + 2, z);
+      frames.set(f + 3, ax);
+      frames.set(f + 4, ay);
+      frames.set(f + 5, az);
+      frame_coords(s.program + __ldg(w + 1) * BSDMG_WORDS, x, y, z);
+      ax = ay = az = 0.0f;
+    } else {
+      if (op == OP_PUSH_TRANSFORM) {
+        const float cx = ax, cy = ay, cz = az;
+        ax = (prog_k(w, 3) * cx + prog_k(w, 4) * cy) + prog_k(w, 5) * cz;
+        ay = (prog_k(w, 6) * cx + prog_k(w, 7) * cy) + prog_k(w, 8) * cz;
+        az = (prog_k(w, 9) * cx + prog_k(w, 10) * cy) + prog_k(w, 11) * cz;
+      }
+      const int f = 6 * --fp;
+      x = frames.get(f);
+      y = frames.get(f + 1);
+      z = frames.get(f + 2);
+      ax = frames.get(f + 3) + ax;
+      ay = frames.get(f + 4) + ay;
+      az = frames.get(f + 5) + az;
     }
   }
   gx = ax;

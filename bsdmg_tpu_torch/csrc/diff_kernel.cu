@@ -66,12 +66,21 @@
 // one lane of 9 tangents took 255 registers and spilled; with the object
 // transform, translation and rotation launches take its 7 tangents, one a
 // lane. For the other forms (loss_tangent_form_kernel) a ray takes one lane
-// per value of the flat parameter vector (64 at most). Their blocks walk chunks of the lists in a fixed order and
-// write one row of sums per chunk. The last launch (loss_grad_sum) adds the rows in a fixed
-// order. Two calls on the same inputs give the same bits. The near/far
-// tile split of the TPU kernels is not ported: in a far tile the JAX march
-// sees only the wireframe, which equals the full scene wherever such a ray
-// goes.
+// per value of the flat parameter vector, in passes of 128 lanes where a
+// composed scene's vector is longer. Their blocks walk chunks of the lists
+// in a fixed order and write one row of sums per chunk. The last launch
+// (loss_grad_sum) adds the rows in a fixed order. Two calls on the same
+// inputs give the same bits.
+//
+// The near/far split of the TPU kernels (diff_kernel.py:120-139,
+// :345-366) is taken per warp, as in K1 (render_kernel.cu march_split): in
+// march_params_split_kernel and loss_march_split_kernel, the reference
+// form's, an 8x4 patch whose rays all miss the caller's near box marches
+// the wireframe alone (far_march_value) and takes dfdt of it; the tangent
+// launches evaluate the full scene, as JAX's pixel_loss does. A composed
+// scene beyond the small tier's caps (more than 64 parameter values, or a
+// program beyond program.cuh's caps) runs in ProgramLargeForm, its values
+// and stacks in device memory (param_program.cuh).
 //
 // Numerics: built with -fmad=false and without fast math, like K1. The
 // march evaluates the scene in the twin's operation order, so K4's depth,
@@ -93,8 +102,8 @@
 
 // the stopped march of one ray (render_kernel.py::_march, omega = 1, with
 // the closest-approach record when Track); the scene in its form's march
-// form
-template <class Form, bool Track>
+// form, or with Far its wireframe alone (the near/far split's far scene)
+template <class Form, bool Track, bool Far = false>
 __device__ __forceinline__ void march(const ParamScene& s, const typename Form::March& ms,
                                       const float o[3], const float d[3], float c, float& depth,
                                       int& steps, int& outcome, float& min_m, float& t_min) {
@@ -113,7 +122,12 @@ __device__ __forceinline__ void march(const ParamScene& s, const typename Form::
   for (;;) {
     const float cd = c * depth;
     const float x[3] = {o[0] + depth * d[0], o[1] + depth * d[1], o[2] + depth * d[2]};
-    const float dist = Form::march_value(s, ms, x);
+    float dist;
+    if constexpr (Far) {
+      dist = Form::far_march_value(s, ms, x);
+    } else {
+      dist = Form::march_value(s, ms, x);
+    }
     if (Track) {
       const float m = dist - cd;
       if (m < min_m) {
@@ -164,6 +178,18 @@ __device__ __forceinline__ float form_dfdt(const ParamScene& s, const float o[3]
   }
 }
 
+// dfdt of the form, or with Far of its wireframe alone (the near/far
+// split's far scene)
+template <class Form, bool Far>
+__device__ __forceinline__ float scene_dfdt(const ParamScene& s, const float o[3],
+                                            const float d[3], float t) {
+  if constexpr (Far) {
+    return Form::far_dfdt(s, o, d, t);
+  } else {
+    return form_dfdt<Form>(s, o, d, t);
+  }
+}
+
 // the pixel of thread threadIdx.x: a block covers 16x8 pixels, each of its 4
 // warps an 8x4 patch
 __device__ __forceinline__ void pixel_of_thread(int& px, int& py) {
@@ -173,13 +199,32 @@ __device__ __forceinline__ void pixel_of_thread(int& px, int& py) {
   py = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
 }
 
-template <class Form, bool Track>
-__global__ void __launch_bounds__(128)
-march_params_kernel(const ParamScene s, const float* __restrict__ origins,
-                    const float* __restrict__ directions, const float* __restrict__ cone,
-                    float* __restrict__ depth_out, int* __restrict__ steps_out,
-                    int* __restrict__ outcome_out, float* __restrict__ dfdt_out,
-                    float* __restrict__ min_m_out, float* __restrict__ t_min_out, int h, int w) {
+// The near/far split's vote of the warp (diff_kernel.py:120-139 and
+// :345-366; render_kernel.cu march_split): true where none of the 8x4
+// patch's rays that the slab cull keeps can reach the near box, and the
+// patch marches the wireframe alone. `live` is false for a thread past the
+// image, which takes part as a ray that cannot reach it; every thread of
+// the warp that has not exited calls it.
+__device__ __forceinline__ bool far_patch(const ParamScene& s, bool live, const float o[3],
+                                          const float d[3], float c) {
+  bool near = false;
+  if (live) {
+    float limit;
+    const bool cull = s.use_bounds && slab_cull(s, o[0], o[1], o[2], d[0], d[1], d[2], c, limit);
+    near = !cull && !near_miss(s, o[0], o[1], o[2], d[0], d[1], d[2], c);
+  }
+  return !__any_sync(0xffffffffu, near);
+}
+
+// K4 of one pixel; with Split (march_params_split_kernel, the reference
+// form) its patch marches the far or the full scene, and dfdt is taken of
+// the scene it marched, as JAX's march_fn
+template <class Form, bool Track, bool Split>
+__device__ __forceinline__ void march_params_pixel(
+    const ParamScene& s, const float* __restrict__ origins, const float* __restrict__ directions,
+    const float* __restrict__ cone, float* __restrict__ depth_out, int* __restrict__ steps_out,
+    int* __restrict__ outcome_out, float* __restrict__ dfdt_out, float* __restrict__ min_m_out,
+    float* __restrict__ t_min_out, int h, int w) {
   int px, py;
   pixel_of_thread(px, py);
   if (px >= w || py >= h) return;
@@ -189,15 +234,39 @@ march_params_kernel(const ParamScene s, const float* __restrict__ origins,
   const float c = cone[i];
   float depth, min_m, t_min;
   int steps, outcome;
-  march<Form, Track>(s, Form::march_scene(s), o, d, c, depth, steps, outcome, min_m, t_min);
+  const bool far = Split && far_patch(s, true, o, d, c);
+  if (far) {
+    march<Form, Track, Split>(s, Form::march_scene(s), o, d, c, depth, steps, outcome, min_m,
+                              t_min);
+  } else {
+    march<Form, Track>(s, Form::march_scene(s), o, d, c, depth, steps, outcome, min_m, t_min);
+  }
   depth_out[i] = depth;
   steps_out[i] = steps;
   outcome_out[i] = outcome;
-  dfdt_out[i] = form_dfdt<Form>(s, o, d, depth);
+  dfdt_out[i] = far ? scene_dfdt<Form, Split>(s, o, d, depth) : form_dfdt<Form>(s, o, d, depth);
   if (Track) {
     min_m_out[i] = min_m;
     t_min_out[i] = t_min;
   }
+}
+
+#define K4_PARAMS                                                                               \
+  const ParamScene s, const float *__restrict__ origins, const float *__restrict__ directions, \
+      const float *__restrict__ cone, float *__restrict__ depth_out, int *__restrict__ steps_out, \
+      int *__restrict__ outcome_out, float *__restrict__ dfdt_out,                            \
+      float *__restrict__ min_m_out, float *__restrict__ t_min_out, int h, int w
+#define K4_ARGS \
+  s, origins, directions, cone, depth_out, steps_out, outcome_out, dfdt_out, min_m_out, t_min_out, h, w
+
+template <class Form, bool Track>
+__global__ void __launch_bounds__(128) march_params_kernel(K4_PARAMS) {
+  march_params_pixel<Form, Track, false>(K4_ARGS);
+}
+
+template <bool Track>
+__global__ void __launch_bounds__(128) march_params_split_kernel(K4_PARAMS) {
+  march_params_pixel<ReferenceForm, Track, true>(K4_ARGS);
 }
 
 // K5's per-block record of a ray that needs tangents: a hit (the
@@ -229,11 +298,12 @@ __device__ __forceinline__ float constant_loss(const ParamScene& s, float v, con
   return ((er * er + eg * eg) + eb * eb) * inv_denom_elems;
 }
 
-// the IFT denominator of a hit at depth t0: stop(df/dt - cone), kept off 0
-template <class Form>
+// the IFT denominator of a hit at depth t0: stop(df/dt - cone), kept off 0;
+// with Far, df/dt of the wireframe the ray marched
+template <class Form, bool Far = false>
 __device__ __forceinline__ float ift_denom(const ParamScene& s, const float o[3], const float d[3],
                                            float c, float t0) {
-  float denom = form_dfdt<Form>(s, o, d, t0) - c;
+  float denom = scene_dfdt<Form, Far>(s, o, d, t0) - c;
   if (fabsf(denom) < 1e-6f) denom = -1e-6f;
   return denom;
 }
@@ -266,7 +336,7 @@ struct ReferenceEval {
 template <class Form, int M>
 struct FormEval {
   const ParamScene& s;
-  const Prm<Dual<M>> prm;
+  const Prm<Dual<M>, Form::device> prm;
   __device__ __forceinline__ FormEval(const ParamScene& s_, int block) : s(s_), prm{&s_, block} {}
   __device__ __forceinline__ Dual<M> value(const Dual<M> x[3]) const {
     return Form::value(s, prm, x);
@@ -372,6 +442,82 @@ loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
     e.pixel = static_cast<int>(i);
     const bool collided = e.outcome == COLLISION;
     if (collided) e.denom = ift_denom<Form>(s, o, d, cone[i], e.t0);
+    listed = collided || (edge && hinge_kind(t_state[i], false, e.min_m) != 0);
+    if (!listed) {
+      value = constant_loss(s, e.outcome == STEP_LIMIT ? 1.0f : 0.0f, target + 3 * i,
+                            inv_denom_elems);
+    }
+  }
+  // the block's list, in thread order
+  __shared__ int warp_counts[4];
+  __shared__ float warp_values[4];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, listed);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) value += __shfl_down_sync(0xffffffffu, value, off);
+  if (lane == 0) {
+    warp_counts[warp] = __popc(ballot);
+    warp_values[warp] = value;
+  }
+  __syncthreads();
+  if (listed) {
+    int slot = __popc(ballot & ((1u << lane) - 1u));
+    for (int k = 0; k < warp; ++k) slot += warp_counts[k];
+    rays[block * 128 + slot] = e;
+  }
+  if (threadIdx.x == 0) {
+    counts[block] = ((warp_counts[0] + warp_counts[1]) + warp_counts[2]) + warp_counts[3];
+    values[block] = ((warp_values[0] + warp_values[1]) + warp_values[2]) + warp_values[3];
+  }
+}
+
+// K5's first launch with the near/far split, the reference form's: each
+// 8x4 patch marches the far or the full scene (far_patch) and takes its
+// hits' IFT denominators of the scene it marched; the tangent launches
+// evaluate the full scene, as JAX's pixel_loss does, so a hit on the
+// wireframe carries no object gradient. loss_march_kernel's body with the
+// vote, kept apart so that its registers stay as they were.
+__global__ void __launch_bounds__(128)
+loss_march_split_kernel(const ParamScene s, const float* __restrict__ origins,
+                        const float* __restrict__ directions, const float* __restrict__ cone,
+                        const float* __restrict__ target, const float* __restrict__ t_state,
+                        TangentRay* __restrict__ rays, int* __restrict__ counts,
+                        float* __restrict__ values, int h, int w, float inv_denom_elems) {
+  int px, py;
+  pixel_of_thread(px, py);
+  const long long block = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  TangentRay e{0, DEPTH_LIMIT, 0.0f, BSDMG_UNTRACKED, 0.0f, 0.0f};
+  bool listed = false;
+  float value = 0.0f;
+  // a thread past the image reads ray 0 and votes as a ray that cannot
+  // reach the near box
+  const bool live = px < w && py < h;
+  const long long i = live ? (long long)py * w + px : 0;
+  const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
+  const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
+  const bool far = far_patch(s, live, o, d, cone[i]);
+  if (live) {
+    const bool edge = t_state != nullptr;
+    int steps;
+    const MarchScene ms = ReferenceForm::march_scene(s);
+    if (far && edge) {
+      march<ReferenceForm, true, true>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m,
+                                       e.t_min);
+    } else if (far) {
+      march<ReferenceForm, false, true>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m,
+                                        e.t_min);
+    } else if (edge) {
+      march<ReferenceForm, true>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
+    } else {
+      march<ReferenceForm, false>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
+    }
+    e.pixel = static_cast<int>(i);
+    const bool collided = e.outcome == COLLISION;
+    if (collided) {
+      e.denom = far ? ift_denom<ReferenceForm, true>(s, o, d, cone[i], e.t0)
+                    : ift_denom<ReferenceForm>(s, o, d, cone[i], e.t0);
+    }
     listed = collided || (edge && hinge_kind(t_state[i], false, e.min_m) != 0);
     if (!listed) {
       value = constant_loss(s, e.outcome == STEP_LIMIT ? 1.0f : 0.0f, target + 3 * i,
@@ -523,9 +669,11 @@ loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
 // of the parameters at slots j * L .. j * L + L - 1 (Dual<L>, each
 // parameter seeded by its slot), so a ray takes ceil(n_prm / L) lanes and a
 // chunk `groups` = 128 / lanes rays. L is 1: a nested value
-// (DualOf<3, Dual<1>>) is then 8 floats. The items, rows and fixed orders
-// are loss_tangent_kernel's; an item's row holds its loss (lane 0's, the
-// first chunk adding the first launch's sum) and dL/dprm at every slot.
+// (DualOf<3, Dual<1>>) is then 8 floats. The large tier's ray may take more
+// lanes than a block has threads: a chunk is then one ray, whose lanes the
+// block takes in passes of 128. The items, rows and fixed orders are
+// loss_tangent_kernel's; an item's row holds its loss (lane 0's, the first
+// chunk adding the first launch's sum) and dL/dprm at every slot.
 #define BSDMG_FORM_TANGENTS 1
 
 // the tangents a lane carries: none for a form that reads no parameter
@@ -588,6 +736,61 @@ loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
   }
 }
 
+// The large tier's tangent launch: a ray's lanes may be more than a block
+// has threads, so a chunk is one ray (groups 1) whose lanes the block takes
+// in passes of 128; an item's row as above. A specialization, so that the
+// other forms' launch keeps its code and its registers.
+template <>
+__global__ void __launch_bounds__(128)
+loss_tangent_form_kernel<ProgramLargeForm>(
+    const ParamScene s, const float* __restrict__ origins, const float* __restrict__ directions,
+    const float* __restrict__ cone, const float* __restrict__ target,
+    const float* __restrict__ t_state, const TangentRay* __restrict__ rays,
+    const int* __restrict__ counts, const float* __restrict__ values, float* __restrict__ partials,
+    int stride, long long blocks, int lanes, int groups, int chunks, float inv_denom_elems,
+    float inv_pixels, float edge_weight, float edge_band) {
+  constexpr int L = BSDMG_FORM_TANGENTS;
+  const int passes = (lanes + 127) / 128;
+  const int group = passes > 1 ? 0 : threadIdx.x / lanes;
+  __shared__ float sums[128][L + 1];
+  const long long items = blocks * chunks;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    const long long block = w / chunks;
+    const int first = static_cast<int>(w % chunks) * groups;
+    const int n = counts[block];
+    for (int pass = 0; pass < passes; ++pass) {
+      const int j = passes > 1 ? pass * 128 + threadIdx.x : threadIdx.x % lanes;
+      float acc[L + 1];
+#pragma unroll
+      for (int m = 0; m <= L; ++m) acc[m] = 0.0f;
+      if (group < groups && j < lanes && first + group < n) {
+        const TangentRay& e = rays[block * 128 + first + group];
+        const Dual<L> loss = ray_loss<Dual<L>>(s, FormEval<ProgramLargeForm, L>(s, j), e, origins,
+                                               directions, cone, target, t_state, inv_denom_elems,
+                                               inv_pixels, edge_weight, edge_band);
+        acc[0] = loss.v;
+#pragma unroll
+        for (int m = 0; m < L; ++m) acc[m + 1] = loss.t[m];
+      }
+      __syncthreads();  // the previous item's or pass's sums are read
+#pragma unroll
+      for (int m = 0; m <= L; ++m) sums[threadIdx.x][m] = acc[m];
+      __syncthreads();
+      for (int k = threadIdx.x; k < stride; k += blockDim.x) {
+        // output k of a lane of this pass: the loss (lane 0's value), then
+        // slot k - 1's tangent
+        const int lane = k == 0 ? 0 : (k - 1) / L, component = k == 0 ? 0 : (k - 1) % L + 1;
+        if (lane / 128 != pass) continue;
+        float total = k == 0 && first == 0 ? values[block] : 0.0f;
+        if (first < n) {
+          for (int g = 0; g < groups; ++g) total += sums[g * lanes + lane - pass * 128][component];
+        }
+        partials[w * stride + k] = total;
+      }
+    }
+  }
+}
+
 // out[k] = the sum over rows of partials[row * stride + k], one block per
 // k, each thread over a fixed stride of rows, then a fixed tree
 __global__ void __launch_bounds__(256)
@@ -621,17 +824,19 @@ static bool with_form(int form, F&& f) {
     case FORM_WRAPPED: f(WrappedForm{}); return true;
     case FORM_PROGRAM: f(ProgramForm{}); return true;
     case FORM_MESH_GRID: f(MeshGridForm{}); return true;
+    case FORM_PROGRAM_LARGE: f(ProgramLargeForm{}); return true;
     default: return false;
   }
 }
 
 // loss_tangent_form_kernel's shape for n_prm parameters: lanes a ray (one
-// for a form with none), rays a chunk, chunks a block's list
+// for a form with none), rays a chunk (one where a ray takes more lanes
+// than a block has threads), chunks a block's list
 struct FormLanes {
   int lanes, groups, chunks;
   explicit FormLanes(int n_prm) {
     lanes = n_prm > 0 ? (n_prm + BSDMG_FORM_TANGENTS - 1) / BSDMG_FORM_TANGENTS : 1;
-    groups = 128 / lanes;
+    groups = lanes < 128 ? 128 / lanes : 1;
     chunks = (128 + groups - 1) / groups;
   }
 };
@@ -686,26 +891,62 @@ static int tangent_grid(long long items) {
   return static_cast<int>(items < most ? (items > 0 ? items : 1) : most);
 }
 
+// floats of the large tier's scratch (ParamScene::scratch) for `threads`
+// threads: each thread's stack and frames, BSDMG_VALUE_WORDS floats a value
+// (param_program.cuh); none for the other forms
+static long long program_scratch(const ParamScene& s, long long threads) {
+  if (s.form != FORM_PROGRAM_LARGE) return 0;
+  return (long long)BSDMG_VALUE_WORDS * (s.program_depth + 3LL * s.program_frames) * threads;
+}
+
+// the scene with the large tier's scratch at `scratch`, for `threads` threads
+static ParamScene with_scratch(const ParamScene& s, float* scratch, long long threads) {
+  ParamScene out = s;
+  if (s.form == FORM_PROGRAM_LARGE) {
+    out.scratch = scratch;
+    out.scratch_threads = static_cast<int>(threads);
+  }
+  return out;
+}
+
 
 extern "C" {
 
+// floats of scratch that bsdmg_march_params needs for scene over an h x w
+// image: the large tier's stacks, none for the other forms
+long long bsdmg_march_params_scratch(const ParamScene* scene, int h, int w) {
+  return program_scratch(*scene, loss_grad_blocks(h, w) * 128);
+}
+
 // Launches K4 on `stream` over an h x w image: origins and directions
 // (h, w, 3), cone (h, w); depth, dfdt (float) and steps, outcome (int) are
-// (h, w) planes, and min_m, t_min too when min_m is not null (track_min).
-// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a form
-// that names none).
+// (h, w) planes, and min_m, t_min too when min_m is not null (track_min);
+// scratch, bsdmg_march_params_scratch floats. The scene's `split` picks the
+// near/far split (the reference form alone). Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for a form that names none, or a split of
+// another form).
 int bsdmg_march_params(const ParamScene* scene, const float* origins, const float* directions,
                        const float* cone, float* depth, int* steps, int* outcome, float* dfdt,
-                       float* min_m, float* t_min, int h, int w, void* stream) {
+                       float* min_m, float* t_min, float* scratch, int h, int w, void* stream) {
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_form(scene->form, [&](auto form) {
+  const ParamScene s = with_scratch(*scene, scratch, loss_grad_blocks(h, w) * 128);
+  if (s.split && s.form != FORM_REFERENCE) return static_cast<int>(cudaErrorInvalidValue);
+  const bool known = with_form(s.form, [&](auto form) {
     typedef decltype(form) F;
-    if (min_m != nullptr) {
-      march_params_kernel<F, true><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
+    if (s.split) {
+      if (min_m != nullptr) {
+        march_params_split_kernel<true><<<grid, 128, 0, st>>>(
+            s, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, h, w);
+      } else {
+        march_params_split_kernel<false><<<grid, 128, 0, st>>>(
+            s, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, h, w);
+      }
+    } else if (min_m != nullptr) {
+      march_params_kernel<F, true><<<grid, 128, 0, st>>>(s, origins, directions, cone, depth,
                                                          steps, outcome, dfdt, min_m, t_min, h, w);
     } else {
-      march_params_kernel<F, false><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, depth,
+      march_params_kernel<F, false><<<grid, 128, 0, st>>>(s, origins, directions, cone, depth,
                                                           steps, outcome, dfdt, min_m, t_min, h, w);
     }
   });
@@ -713,19 +954,31 @@ int bsdmg_march_params(const ParamScene* scene, const float* origins, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// the threads of K5's largest launch over `blocks` blocks: the march's, or
+// the tangent launch's
+static long long loss_grad_threads(const ParamScene& s, long long blocks) {
+  long long rows;
+  int stride;
+  loss_grad_partials(s, blocks, rows, stride);
+  const long long tangent = 128LL * tangent_grid(rows);
+  return blocks * 128 > tangent ? blocks * 128 : tangent;
+}
+
 // floats of scratch that bsdmg_loss_grad needs for scene over an h x w
-// image
+// image: the partial sums, the lists, and the large tier's stacks
 long long bsdmg_loss_grad_scratch(const ParamScene* scene, int h, int w) {
   const long long blocks = loss_grad_blocks(h, w);
   long long rows;
   int stride;
   loss_grad_partials(*scene, blocks, rows, stride);
-  return rows * stride + blocks * (128 * (sizeof(TangentRay) / sizeof(float)) + 2);
+  return rows * stride + blocks * (128 * (sizeof(TangentRay) / sizeof(float)) + 2) +
+         program_scratch(*scene, loss_grad_threads(*scene, blocks));
 }
 
 // Launches K5 on `stream`: target (h, w, 3); t_state (h, w), or null for
 // no edge term; scratch, bsdmg_loss_grad_scratch floats; out, n_prm + 1
-// floats: the loss, then dL/dprm. Three to five launches: the march and
+// floats: the loss, then dL/dprm. The scene's `split` picks the near/far
+// split of the march launch (the reference form alone). Three to five launches: the march and
 // the lists (loss_march_kernel), the tangents (loss_tangent_kernel's shape,
 // translation and rotation launches for the reference form,
 // loss_tangent_form_kernel for the others, the loss alone for MeshGridForm,
@@ -746,11 +999,22 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
   TangentRay* rays = reinterpret_cast<TangentRay*>(partials + rows * stride);
   int* counts = reinterpret_cast<int*>(rays + blocks * 128);
   float* values = reinterpret_cast<float*>(counts + blocks);
+  // the launches read the scene with the large tier's stacks after the sums
+  const ParamScene sc = with_scratch(*scene, values + blocks, loss_grad_threads(*scene, blocks));
+  scene = &sc;
+  if (sc.split && sc.form != FORM_REFERENCE) return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   const bool known = with_form(scene->form, [&](auto form) {
     typedef decltype(form) F;
-    loss_march_kernel<F><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target, t_state,
-                                                rays, counts, values, h, w, inv_denom_elems);
+    if (scene->split) {
+      loss_march_split_kernel<<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target,
+                                                    t_state, rays, counts, values, h, w,
+                                                    inv_denom_elems);
+    } else {
+      loss_march_kernel<F><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target,
+                                                  t_state, rays, counts, values, h, w,
+                                                  inv_denom_elems);
+    }
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return;
     if constexpr (std::is_same<F, ReferenceForm>::value) {

@@ -270,7 +270,8 @@ extern "C" {
 // cross_bits, t0, t1 (n,) int32 in; pos and nrm (n, 45) float32, dot (n, 5)
 // float32, amb (n, 5) int32 and meta (n,) int32 out, all on the device.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
-// descriptor structure that names none).
+// descriptor structure that names none, or a large-tier program whose
+// scratch does not hold the launch).
 int bsdmg_mc_fused(const SceneDesc* desc, const float* lx, const float* ly, const float* lz,
                    const int* cross_bits, const int* t0, const int* t1, float voxel_size, int n,
                    int budget, int iters, float tol, float eps, int use_grad,
@@ -278,6 +279,9 @@ int bsdmg_mc_fused(const SceneDesc* desc, const float* lx, const float* ly, cons
                    int* meta, void* stream) {
   const dim3 block(kThreads);
   const dim3 grid((n + kVoxels - 1) / kVoxels);
+  if (!scratch_fits(*desc, (long long)grid.x * kThreads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool known = with_mesh_structure(desc->structure, [&](auto scene) {
     mc_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         *desc, lx, ly, lz, cross_bits, t0, t1, voxel_size, n, budget, iters, tol, eps, use_grad,

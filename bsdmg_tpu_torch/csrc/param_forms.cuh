@@ -25,7 +25,9 @@
 //     -half + mod(x + half, cell) with half = cell / 2, then the reference
 //     object and its transform (param_sdf.cuh scene_value, AnyParts);
 //   ProgramForm: a composed scene, its parameter program
-//     (param_program.cuh);
+//     (param_program.cuh), within the small tier's caps;
+//   ProgramLargeForm: the same beyond them (the large tier: the values
+//     and the stacks in device memory, param_program.cuh);
 //   MeshGridForm: a mesh asset's baked grid, bsdmg_tpu/models/mesh_sdf.py
 //     grid_csdf (the "weights" interpolation, grid_sdf.cuh grid_scene), the
 //     table ParamScene::grid_table read as data: its Scene.csdf reads no
@@ -44,6 +46,8 @@
 #include "mandelbulb.cuh"
 #include "param_program.cuh"
 
+// The reference form; far_march_value and far_dfdt are its wireframe
+// alone, the far scene of the near/far split (diff_kernel.cu)
 struct ReferenceForm {
   typedef MarchScene March;
   static __device__ __forceinline__ March march_scene(const ParamScene& s) {
@@ -53,17 +57,36 @@ struct ReferenceForm {
                                                       const float x[3]) {
     return ::march_value(m, x);
   }
+  static __device__ __forceinline__ float far_march_value(const ParamScene&, const March& m,
+                                                          const float x[3]) {
+    return ::far_march_value(m, x);
+  }
+  // the wireframe's derivative along d at o + t d: its forward pass in
+  // Dual<1> whose point carries the tangent d
+  static __device__ __forceinline__ float far_dfdt(const ParamScene& s, const float o[3],
+                                                   const float d[3], float t) {
+    Dual<1> x[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      x[a].v = o[a] + t * d[a];
+      x[a].t[0] = d[a];
+    }
+    SkeletonFwd<Dual<1>> f;
+    return frame_fwd(s, x, f).t[0];
+  }
 };
 
 // the forms whose march evaluates value<float, float> and needs nothing
-// computed before its loop
+// computed before its loop; `device` is whether the form reads the
+// parameter values from device memory (Prm<P, true>)
 template <class F>
 struct PlainMarch {
+  static constexpr bool device = false;
   struct March {};
   static __device__ __forceinline__ March march_scene(const ParamScene&) { return March{}; }
   static __device__ __forceinline__ float march_value(const ParamScene& s, const March&,
                                                       const float x[3]) {
-    return F::value(s, Prm<float>{&s, 0}, x);
+    return F::value(s, Prm<float, F::device>{&s, 0}, x);
   }
 };
 
@@ -108,6 +131,7 @@ __device__ __forceinline__ ObjectParams<P> slot_params(const ParamScene& s, cons
 }
 
 struct WrappedForm {
+  static constexpr bool device = false;
   template <class T, class P>
   static __device__ __forceinline__ void wrap(const ParamScene& s, const Prm<P>& prm, const T x[3],
                                               T w[3]) {
@@ -138,6 +162,15 @@ struct WrappedForm {
 struct ProgramForm : PlainMarch<ProgramForm> {
   template <class T, class P>
   static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P>& prm, const T x[3]) {
+    return program_value(s, prm, x);
+  }
+};
+
+struct ProgramLargeForm : PlainMarch<ProgramLargeForm> {
+  static constexpr bool device = true;
+  template <class T, class P>
+  static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P, true>& prm,
+                                            const T x[3]) {
     return program_value(s, prm, x);
   }
 };
@@ -193,14 +226,14 @@ __device__ __forceinline__ float form_ray_derivative(const ParamScene& s, const 
     x[a].v = o[a] + t * d[a];
     x[a].t[0] = d[a];
   }
-  return Form::value(s, Prm<float>{&s, 0}, x).t[0];
+  return Form::value(s, Prm<float, Form::device>{&s, 0}, x).t[0];
 }
 
 // the form's spatial gradient at x with the parameter tangents of C (a
 // Dual<L>): one forward pass in DualOf<3, C> whose point carries the unit
 // tangents of x, y and z
-template <class Form, class C>
-__device__ __forceinline__ void form_value_grad(const ParamScene& s, const Prm<C>& prm,
+template <class Form, class C, bool D>
+__device__ __forceinline__ void form_value_grad(const ParamScene& s, const Prm<C, D>& prm,
                                                 const C x[3], C g[3]) {
   DualOf<3, C> p[3];
 #pragma unroll

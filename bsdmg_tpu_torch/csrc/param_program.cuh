@@ -22,6 +22,13 @@
 // parameter tangents. min and max propagate NaN (vmaxn), as torch.maximum
 // does; sqrt is psqrt (nested_dual.cuh), whose tangents agree with the
 // twins' reverse mode inside a box. Twin: csdf.py::param_program_csdf.
+//
+// ProgramForm (param_forms.cuh) is the small tier: the parameter values in
+// ParamScene::prm, the stacks in local arrays of program.cuh's caps.
+// ProgramLargeForm is the large tier, for any program and any number of
+// values: the values in device memory (ParamScene::prm_values) and the
+// stacks in the scratch buffer ParamScene::scratch (program.cuh
+// SpilledSlots), whose T values take up to BSDMG_VALUE_WORDS slots each.
 
 #pragma once
 
@@ -30,23 +37,32 @@
 #include "program.cuh"
 
 #define BSDMG_PARAM_WORDS 8  // csdf.py PARAM_WORDS
+#define BSDMG_VALUE_WORDS 8  // floats of the widest value, K5's DualOf<3, Dual<1>>
 
-// The parameter values as P: s.prm[slot], with the unit tangent of slot in
-// a lane that carries block `block` of the tangents (Scalar<P>::placed), a
-// plain value for P float.
-template <class P>
+static_assert(sizeof(DualOf<3, Dual<1>>) == BSDMG_VALUE_WORDS * sizeof(float),
+              "the large tier's slots of a value");
+
+// The parameter values as P: s.prm[slot], or with Device (the large tier)
+// s.prm_values[slot], with the unit tangent of slot in a lane that carries
+// block `block` of the tangents (Scalar<P>::placed), a plain value for P
+// float.
+template <class P, bool Device = false>
 struct Prm {
   const ParamScene* s;
   int block;
   __device__ __forceinline__ P operator()(int slot) const {
-    return Scalar<P>::placed(s->prm[slot], slot, block);
+    if constexpr (Device) {
+      return Scalar<P>::placed(__ldg(s->prm_values + slot), slot, block);
+    } else {
+      return Scalar<P>::placed(s->prm[slot], slot, block);
+    }
   }
 };
 
 // the value of primitive `op` at x, its fields' slots at w + 2 (csdf.py
 // PARAM_FIELDS), as sdf/primitives.py's component forms compute it
-template <class T, class P>
-__device__ __forceinline__ T program_primitive(int op, const int* w, const Prm<P>& prm,
+template <class T, class P, bool D>
+__device__ __forceinline__ T program_primitive(int op, const int* w, const Prm<P, D>& prm,
                                                const T x[3]) {
   const int s0 = __ldg(w + 2), s1 = __ldg(w + 3), s2 = __ldg(w + 4);
   if (op == OP_PLANE) {
@@ -116,8 +132,8 @@ __device__ __forceinline__ T program_primitive(int op, const int* w, const Prm<P
 // the child frame's coordinates of the push at w: a transform's x - offset,
 // then the quaternion's inverse rotation (models/scenes.py
 // _quat_inv_rotate_c); a wrap's -half + mod(x + half, cell) per axis
-template <class T, class P>
-__device__ __forceinline__ void program_frame(int op, const int* w, const Prm<P>& prm, T x[3]) {
+template <class T, class P, bool D>
+__device__ __forceinline__ void program_frame(int op, const int* w, const Prm<P, D>& prm, T x[3]) {
   const int s0 = __ldg(w + 2);
   if (op == OP_PUSH_WRAP) {
 #pragma unroll
@@ -139,8 +155,8 @@ __device__ __forceinline__ void program_frame(int op, const int* w, const Prm<P>
 
 // a fold's value: union min, intersect max, subtract max(a, -b), smooth_union
 // sdf/primitives.py smooth_min
-template <class T, class P>
-__device__ __forceinline__ T program_fold(int op, const int* w, const Prm<P>& prm, const T& a,
+template <class T, class P, bool D>
+__device__ __forceinline__ T program_fold(int op, const int* w, const Prm<P, D>& prm, const T& a,
                                           const T& b) {
   switch (op) {
     case OP_MIN: return vminn(a, b);
@@ -154,7 +170,7 @@ __device__ __forceinline__ T program_fold(int op, const int* w, const Prm<P>& pr
   }
 }
 
-// the program's value at x
+// the program's value at x (the small tier: its stacks in local arrays)
 template <class T, class P>
 __device__ __forceinline__ T program_value(const ParamScene& s, const Prm<P>& prm, const T x[3]) {
   T stack[BSDMG_STACK];
@@ -184,4 +200,41 @@ __device__ __forceinline__ T program_value(const ParamScene& s, const Prm<P>& pr
     }
   }
   return stack[0];
+}
+
+// the same walk in the large tier: the values read from device memory
+// (Prm<P, true>), the stack and the frames (3 slots a frame) in
+// ParamScene::scratch, the stack first, BSDMG_VALUE_WORDS slots a value at
+// most
+template <class T, class P>
+__device__ __forceinline__ T program_value(const ParamScene& s, const Prm<P, true>& prm,
+                                           const T x[3]) {
+  SpilledSlots<T> stack(s.scratch, s.scratch_threads, 0);
+  SpilledSlots<T> frames(s.scratch, s.scratch_threads,
+                         (long long)s.program_depth * SpilledSlots<T>::W);
+  T c[3] = {x[0], x[1], x[2]};
+  int sp = 0, fp = 0;
+#pragma unroll 1
+  for (int pc = 0; pc < s.program_length; ++pc) {
+    const int* w = s.program + pc * BSDMG_PARAM_WORDS;
+    const int op = __ldg(w);
+    if (op <= OP_PLANE) {
+      stack.set(sp++, program_primitive(op, w, prm, c));
+    } else if (op <= OP_SMOOTH) {
+      const T b = stack.get(--sp);
+      stack.set(sp - 1, program_fold(op, w, prm, stack.get(sp - 1), b));
+    } else if (op == OP_SHELL) {
+      stack.set(sp - 1, vabs(stack.get(sp - 1)) - prm(__ldg(w + 2)));
+    } else if (op == OP_POP) {
+      --fp;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) c[a] = frames.get(3 * fp + a);
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) frames.set(3 * fp + a, c[a]);
+      ++fp;
+      program_frame(op, w, prm, c);
+    }
+  }
+  return stack.get(0);
 }

@@ -33,7 +33,7 @@
 #include "common.cuh"
 #include "grid_sdf.cuh"
 
-#define BSDMG_MAX_PARAMS 64  // values of the flat parameter vector (a composed scene's cap)
+#define BSDMG_MAX_PARAMS 64  // values of ParamScene::prm (the small tier's cap)
 #define BSDMG_REFERENCE_PARAMS 16  // 9 shape values, object_center (3), object_rotation (4)
 
 // the scene's form: the reference scenes (this header), or one of
@@ -44,7 +44,8 @@ enum ParamForm {
   FORM_MANDELBULB,
   FORM_WRAPPED,
   FORM_PROGRAM,
-  FORM_MESH_GRID
+  FORM_MESH_GRID,
+  FORM_PROGRAM_LARGE
 };
 
 // Mirrors _ParamSceneC in ops/cuda/diff_kernel.py field by field.
@@ -99,6 +100,25 @@ struct ParamScene {
   // keeps the table alive
   const float* grid_table;
   GridBox grid;
+  // a composed scene in the large tier (FORM_PROGRAM_LARGE): the flat
+  // parameter vector in device memory (n_prm values), the interpreter's
+  // scratch buffer, sized by the wrapper for scratch_threads threads, and
+  // the program's most values on the stack and nested frames at once
+  const float* prm_values;
+  float* scratch;
+  int scratch_threads;
+  int program_depth;
+  int program_frames;
+  // the near/far split of the march (split != 0, the reference form with
+  // its wireframe): the near component's bounds, as lo, hi, their cull
+  // sphere and slack; a patch of rays that all miss them marches the
+  // wireframe alone
+  int split;
+  float near_lo[3];
+  float near_hi[3];
+  float near_center[3];
+  float near_radius;
+  float near_slack;
 };
 
 // The scene's optional parts: AnyParts reads them from the ParamScene at
@@ -463,6 +483,14 @@ __device__ __forceinline__ float march_value(const MarchScene& m, const float x[
   const float flo[3] = {m.frame_lo, m.frame_lo, m.frame_lo};
   const float fsize[3] = {m.frame_size, m.frame_size, m.frame_size};
   return fminf(obj, skeleton_value(x, flo, fsize, fsize, m.frame_line_width));
+}
+
+// the wireframe alone, march_value's last term: the far scene of the
+// near/far split
+__device__ __forceinline__ float far_march_value(const MarchScene& m, const float x[3]) {
+  const float flo[3] = {m.frame_lo, m.frame_lo, m.frame_lo};
+  const float fsize[3] = {m.frame_size, m.frame_size, m.frame_size};
+  return skeleton_value(x, flo, fsize, fsize, m.frame_line_width);
 }
 
 // the parameters' values

@@ -56,13 +56,15 @@ extern "C" {
 // Launches K7 on `stream` over m points: x, y, z (m,) float32 and active
 // (m,) int32 in, px, py, pz, nx, ny, nz (m,) float32 out, all on the device.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
-// descriptor structure that names none).
+// descriptor structure that names none, or a large-tier program whose
+// scratch does not hold the launch).
 int bsdmg_project_edges(const SceneDesc* desc, const float* x, const float* y, const float* z,
                         const int* active, int m, int iters, float tol, float eps, int use_grad,
                         float* px, float* py, float* pz, float* nx, float* ny, float* nz,
                         void* stream) {
   const dim3 block(128);
   const dim3 grid((m + 127) / 128);
+  if (!scratch_fits(*desc, (long long)grid.x * 128)) return static_cast<int>(cudaErrorInvalidValue);
   const bool known = with_mesh_structure(desc->structure, [&](auto scene) {
     project_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         *desc, x, y, z, active, m, iters, tol, eps, use_grad, px, py, pz, nx, ny, nz);

@@ -47,9 +47,20 @@
 // tests. K1's fd4 stencil is a rolled loop around one inlined SDF, which
 // keeps it at 32 registers and full occupancy for its march (the unrolled,
 // shared-term stencil of project.cuh took it to 43). K3 lists each tile's
-// hits and runs the shared-term stencil on full warps. The per-ray
-// near/far scene split is not ported: by the JAX package's tests it
-// changes no pixel.
+// hits and runs the shared-term stencil on full warps.
+//
+// The near/far split of the JAX kernels (render_kernel.py:412-432, the
+// `split` of csdf.py::compile_scene_split) is taken per warp: K1 and K2
+// have a second instantiation (render_split_kernel, trace_split_kernel) for
+// the reference render scene, whose warps vote once (__any_sync) whether
+// any of their rays can reach the near component's inflated box. A warp
+// whose rays all miss it marches the wireframe alone (the Far structure),
+// about half the full scene's work a step; the others march the full
+// scene. The granule is the warp's 8x4 patch (K2's listed tail: its 32
+// listed rays) where JAX's is its tile; each ray's result is an exact
+// march of the only surface it can reach either way. A composed scene's
+// program beyond the small tier's caps runs in the ComposedLarge
+// instantiations, its stacks in SceneDesc::scratch (composed.cuh).
 //
 // Numerics: built without --use_fast_math (IEEE sqrtf and division) and
 // with -fmad=false (ops/cuda/build.py). Every float constant arrives as the
@@ -103,14 +114,9 @@ __device__ __forceinline__ void block_pixel(int bx, int by, int& px, int& py) {
 // :211-237): safety spheres must overlap, else the ray rewinds to
 // depth - step_len + prev_r and steps exactly from there; its state starts
 // at (0, 0, omega) at every launch (:262-269).
-template <class S, bool Cull, bool Relaxed>
-__device__ __forceinline__ void march_ray(const SceneDesc& s, const Ray& r, int cap, float omega,
-                                          float& depth, int& steps, int& outcome) {
-  float limit = s.depth_limit;
-  if (Cull && slab_cull(s, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.c, limit)) {
-    depth = s.cull_depth;
-    return;
-  }
+template <class S, bool Relaxed>
+__device__ __forceinline__ void march_loop(const SceneDesc& s, const Ray& r, float limit, int cap,
+                                           float omega, float& depth, int& steps, int& outcome) {
   const float eps = s.collision_distance;
   outcome = STEP_LIMIT;
   if (!Relaxed) {
@@ -157,6 +163,52 @@ __device__ __forceinline__ void march_ray(const SceneDesc& s, const Ray& r, int 
   }
 }
 
+// the slab cull of the march: true for a ray that cannot reach the bounds;
+// otherwise `limit` is its stop depth
+template <bool Cull>
+__device__ __forceinline__ bool culled(const SceneDesc& s, const Ray& r, float& limit) {
+  limit = s.depth_limit;
+  return Cull && slab_cull(s, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.c, limit);
+}
+
+template <class S, bool Cull, bool Relaxed>
+__device__ __forceinline__ void march_ray(const SceneDesc& s, const Ray& r, int cap, float omega,
+                                          float& depth, int& steps, int& outcome) {
+  float limit;
+  if (culled<Cull>(s, r, limit)) {
+    depth = s.cull_depth;
+    return;
+  }
+  march_loop<S, Relaxed>(s, r, limit, cap, omega, depth, steps, outcome);
+}
+
+// The march of an `active` ray with the near/far split (render_kernel.py
+// :412-432), which every live thread of the warp calls: the warp's rays
+// (K1's and K2's 8x4 patch, or 32 rays of K2's list) vote, and if none of
+// its active rays that the slab cull keeps can reach the near box
+// (near_miss), each marches the far scene (Far) alone, else the full scene
+// S. The vote is one __any_sync, so the choice is uniform across the warp
+// and adds no divergence; a ray that does not march takes part as a
+// ray that cannot reach the near box, as JAX's `active0 & ~n_miss` counts
+// it.
+template <class S, bool Cull, bool Relaxed>
+__device__ __forceinline__ void march_split(const SceneDesc& s, const Ray& r, bool active, int cap,
+                                            float omega, float& depth, int& steps,
+                                            int& outcome) {
+  float limit = s.depth_limit;
+  const bool cull = active && culled<Cull>(s, r, limit);
+  const bool near = active && !cull && !near_miss(s, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.c);
+  const bool far = !__any_sync(0xffffffffu, near);
+  if (!active) return;
+  if (cull) {
+    depth = s.cull_depth;
+  } else if (far) {
+    march_loop<Far, Relaxed>(s, r, limit, cap, omega, depth, steps, outcome);
+  } else {
+    march_loop<S, Relaxed>(s, r, limit, cap, omega, depth, steps, outcome);
+  }
+}
+
 // the `active` plane a launch writes: the rays that stopped at the budget
 // short of the step limit (render_kernel.py:281-283)
 __device__ __forceinline__ int unresolved(const SceneDesc& s, int steps, int outcome, int cap) {
@@ -196,14 +248,23 @@ __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, 
 // `active` written. RESUME: block blockIdx.x of the list `blocks` (first
 // *count entries, each by * ceil(w / 16) + bx) resumes its active rays in
 // place from the planes with budget `cap`; its other rays keep their planes
-// and colour.
-template <class S, bool Cull, bool Relaxed, int Mode>
-__global__ void __launch_bounds__(128)
-render_kernel(const SceneDesc s, const float* __restrict__ origins,
-              const float* __restrict__ directions, const float* __restrict__ cone,
-              float* __restrict__ rgb, float* depth_io, int* steps_io, int* outcome_io,
-              int* active_io, const int* __restrict__ blocks, const int* __restrict__ count,
-              int cap, float omega, int h, int w) {
+// and colour. With Split (render_split_kernel) each warp's 8x4 patch picks
+// the far or the full scene for its march (march_split); the epilogue
+// shades with the full scene, as K3 does: at a far patch's hit the full
+// scene's value is the wireframe's, whose normal JAX's fused epilogue takes
+// from the far scene.
+#define K1_PARAMS                                                                         \
+  const SceneDesc &s, const float *__restrict__ origins,                                \
+      const float *__restrict__ directions, const float *__restrict__ cone,             \
+      float *__restrict__ rgb, float *depth_io, int *steps_io, int *outcome_io,          \
+      int *active_io, const int *__restrict__ blocks, const int *__restrict__ count, int cap, \
+      float omega, int h, int w
+#define K1_ARGS \
+  s, origins, directions, cone, rgb, depth_io, steps_io, outcome_io, active_io, blocks, count, \
+      cap, omega, h, w
+
+template <class S, bool Cull, bool Relaxed, int Mode, bool Split>
+__device__ __forceinline__ void render_pixel(K1_PARAMS) {
   int bx = blockIdx.x, by = blockIdx.y;
   if (Mode == K1_RESUME) {
     if (static_cast<int>(blockIdx.x) >= *count) return;
@@ -228,7 +289,11 @@ render_kernel(const SceneDesc s, const float* __restrict__ origins,
   }
   const int budget = Mode == K1_FRESH ? s.step_limit : cap;
   const Ray ray = load_ray(origins, directions, cone, i);
-  march_ray<S, Cull, Relaxed>(s, ray, budget, omega, depth, steps, outcome);
+  if (Split) {
+    march_split<S, Cull, Relaxed>(s, ray, true, budget, omega, depth, steps, outcome);
+  } else {
+    march_ray<S, Cull, Relaxed>(s, ray, budget, omega, depth, steps, outcome);
+  }
   shade_pixel<S, true>(s, ray, depth, outcome, rgb + 3 * i);  // the rolled stencil
   if (Mode != K1_FRESH || depth_io != nullptr) {
     depth_io[i] = depth;
@@ -238,20 +303,44 @@ render_kernel(const SceneDesc s, const float* __restrict__ origins,
   if (Mode != K1_FRESH) active_io[i] = unresolved(s, steps, outcome, budget);
 }
 
+template <class S, bool Cull, bool Relaxed, int Mode>
+__global__ void __launch_bounds__(128) render_kernel(const SceneDesc s, const float* __restrict__ origins,
+              const float* __restrict__ directions, const float* __restrict__ cone,
+              float* __restrict__ rgb, float* depth_io, int* steps_io, int* outcome_io,
+              int* active_io, const int* __restrict__ blocks, const int* __restrict__ count,
+              int cap, float omega, int h, int w) {
+  render_pixel<S, Cull, Relaxed, Mode, false>(K1_ARGS);
+}
+
+template <class S, bool Cull, bool Relaxed, int Mode>
+__global__ void __launch_bounds__(128) render_split_kernel(const SceneDesc s,
+              const float* __restrict__ origins, const float* __restrict__ directions,
+              const float* __restrict__ cone, float* __restrict__ rgb, float* depth_io,
+              int* steps_io, int* outcome_io, int* active_io, const int* __restrict__ blocks,
+              const int* __restrict__ count, int cap, float omega, int h, int w) {
+  render_pixel<S, Cull, Relaxed, Mode, true>(K1_ARGS);
+}
+
 // K2. Without Listed, one thread per pixel in K1's layout; with Listed,
 // thread t < *count marches ray rays[t] of the frame. The carried state is
 // (depth0, steps0, outcome0, active0), or depth 0, steps 0, DEPTH_LIMIT and
 // active for every ray when depth0 is null. Rays that are not active keep
 // their state. `active` is written when not null. The carried planes may be
-// the output planes (Listed runs in place).
-template <class S, bool Cull, bool Relaxed, bool Listed>
-__global__ void __launch_bounds__(128)
-trace_kernel(const SceneDesc s, const float* __restrict__ origins,
-             const float* __restrict__ directions, const float* __restrict__ cone,
-             const float* depth0, const int* steps0, const int* outcome0, const int* active0,
-             float* depth_out, int* steps_out, int* outcome_out, int* active_out,
-             const int* __restrict__ rays, const int* __restrict__ count, int cap, float omega,
-             int h, int w) {
+// the output planes (Listed runs in place). With Split (trace_split_kernel)
+// each warp, an 8x4 patch or 32 listed rays, picks the far or the full
+// scene (march_split).
+#define K2_PARAMS                                                                              \
+  const SceneDesc &s, const float *__restrict__ origins,                                     \
+      const float *__restrict__ directions, const float *__restrict__ cone, const float *depth0, \
+      const int *steps0, const int *outcome0, const int *active0, float *depth_out,          \
+      int *steps_out, int *outcome_out, int *active_out, const int *__restrict__ rays,        \
+      const int *__restrict__ count, int cap, float omega, int h, int w
+#define K2_ARGS                                                                               \
+  s, origins, directions, cone, depth0, steps0, outcome0, active0, depth_out, steps_out,    \
+      outcome_out, active_out, rays, count, cap, omega, h, w
+
+template <class S, bool Cull, bool Relaxed, bool Listed, bool Split>
+__device__ __forceinline__ void trace_ray(K2_PARAMS) {
   long long i;
   if (Listed) {
     const int t = blockIdx.x * 128 + threadIdx.x;
@@ -273,7 +362,10 @@ trace_kernel(const SceneDesc s, const float* __restrict__ origins,
     outcome = outcome0[i];
     active = active0[i] != 0;
   }
-  if (active) {
+  if (Split) {
+    march_split<S, Cull, Relaxed>(s, load_ray(origins, directions, cone, i), active, cap, omega,
+                                  depth, steps, outcome);
+  } else if (active) {
     march_ray<S, Cull, Relaxed>(s, load_ray(origins, directions, cone, i), cap, omega, depth,
                                 steps, outcome);
   }
@@ -281,6 +373,26 @@ trace_kernel(const SceneDesc s, const float* __restrict__ origins,
   steps_out[i] = steps;
   outcome_out[i] = outcome;
   if (active_out != nullptr) active_out[i] = unresolved(s, steps, outcome, cap);
+}
+
+template <class S, bool Cull, bool Relaxed, bool Listed>
+__global__ void __launch_bounds__(128) trace_kernel(const SceneDesc s, const float* __restrict__ origins,
+             const float* __restrict__ directions, const float* __restrict__ cone,
+             const float* depth0, const int* steps0, const int* outcome0, const int* active0,
+             float* depth_out, int* steps_out, int* outcome_out, int* active_out,
+             const int* __restrict__ rays, const int* __restrict__ count, int cap, float omega,
+             int h, int w) {
+  trace_ray<S, Cull, Relaxed, Listed, false>(K2_ARGS);
+}
+
+template <class S, bool Cull, bool Relaxed, bool Listed>
+__global__ void __launch_bounds__(128) trace_split_kernel(const SceneDesc s,
+             const float* __restrict__ origins, const float* __restrict__ directions,
+             const float* __restrict__ cone, const float* depth0, const int* steps0,
+             const int* outcome0, const int* active0, float* depth_out, int* steps_out,
+             int* outcome_out, int* active_out, const int* __restrict__ rays,
+             const int* __restrict__ count, int cap, float omega, int h, int w) {
+  trace_ray<S, Cull, Relaxed, Listed, true>(K2_ARGS);
 }
 
 // K3, one 16x8 tile a block of 128 threads. The block lists the tile's
@@ -338,49 +450,81 @@ shade_kernel(const SceneDesc s, const float* __restrict__ origins,
   }
 }
 
-template <class S, bool Cull, bool Relaxed>
-static void launch_render(int mode, cudaStream_t stream, const SceneDesc& s, const float* origins,
-                          const float* directions, const float* cone, float* rgb, float* depth,
-                          int* steps, int* outcome, int* active, const int* blocks,
-                          const int* count, int cap, float omega, int h, int w) {
-  const dim3 block(128);
-  const dim3 grid((w + 15) / 16, (h + 7) / 8);
-  if (mode == K1_FRESH) {
-    render_kernel<S, Cull, Relaxed, K1_FRESH><<<grid, block, 0, stream>>>(
-        s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
-        omega, h, w);
-  } else if (mode == K1_PHASE_A) {
-    render_kernel<S, Cull, Relaxed, K1_PHASE_A><<<grid, block, 0, stream>>>(
-        s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
-        omega, h, w);
+// K1 of mode Mode, with the near/far split or without
+template <class S, bool Cull, bool Relaxed, int Mode, bool Split>
+static auto k1_kernel() {
+  if constexpr (Split) {
+    return render_split_kernel<S, Cull, Relaxed, Mode>;
   } else {
-    // the worst case: every block listed
-    render_kernel<S, Cull, Relaxed, K1_RESUME><<<grid.x * grid.y, block, 0, stream>>>(
-        s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
-        omega, h, w);
+    return render_kernel<S, Cull, Relaxed, Mode>;
   }
 }
 
-template <class S, bool Cull, bool Relaxed>
-static void launch_trace(cudaStream_t stream, const SceneDesc& s, const float* origins,
-                         const float* directions, const float* cone, const float* depth0,
-                         const int* steps0, const int* outcome0, const int* active0, float* depth,
-                         int* steps, int* outcome, int* active, const int* rays, const int* count,
-                         int cap, float omega, int h, int w) {
+// K2, listed or not, with the near/far split or without
+template <class S, bool Cull, bool Relaxed, bool Listed, bool Split>
+static auto k2_kernel() {
+  if constexpr (Split) {
+    return trace_split_kernel<S, Cull, Relaxed, Listed>;
+  } else {
+    return trace_kernel<S, Cull, Relaxed, Listed>;
+  }
+}
+
+// the structures the near/far split is built for: the reference render
+// scene's, with its wireframe (csdf.py::compile_scene_split splits it alone)
+template <class S>
+struct Splits : std::false_type {};
+template <bool Transform>
+struct Splits<Box<true, Transform>> : std::true_type {};
+
+template <class S, bool Cull, bool Relaxed, bool Split>
+static int launch_render(int mode, cudaStream_t stream, const SceneDesc& s, const float* origins,
+                         const float* directions, const float* cone, float* rgb, float* depth,
+                         int* steps, int* outcome, int* active, const int* blocks,
+                         const int* count, int cap, float omega, int h, int w) {
+  const dim3 block(128);
+  const dim3 grid((w + 15) / 16, (h + 7) / 8);
+  // RESUME: the worst case, every block listed, as many threads
+  if (!scratch_fits(s, (long long)grid.x * grid.y * 128)) return cudaErrorInvalidValue;
+  if (mode == K1_FRESH) {
+    k1_kernel<S, Cull, Relaxed, K1_FRESH, Split>()<<<grid, block, 0, stream>>>(
+        s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
+        omega, h, w);
+  } else if (mode == K1_PHASE_A) {
+    k1_kernel<S, Cull, Relaxed, K1_PHASE_A, Split>()<<<grid, block, 0, stream>>>(
+        s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
+        omega, h, w);
+  } else {
+    k1_kernel<S, Cull, Relaxed, K1_RESUME, Split>()<<<grid.x * grid.y, block, 0, stream>>>(
+        s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
+        omega, h, w);
+  }
+  return cudaGetLastError();
+}
+
+template <class S, bool Cull, bool Relaxed, bool Split>
+static int launch_trace(cudaStream_t stream, const SceneDesc& s, const float* origins,
+                        const float* directions, const float* cone, const float* depth0,
+                        const int* steps0, const int* outcome0, const int* active0, float* depth,
+                        int* steps, int* outcome, int* active, const int* rays, const int* count,
+                        int cap, float omega, int h, int w) {
   const dim3 block(128);
   if (rays != nullptr) {
     // the worst case: every ray listed
     const long long n = (long long)h * w;
-    trace_kernel<S, Cull, Relaxed, true>
-        <<<static_cast<unsigned>((n + 127) / 128), block, 0, stream>>>(
-            s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps,
-            outcome, active, rays, count, cap, omega, h, w);
+    const unsigned blocks = static_cast<unsigned>((n + 127) / 128);
+    if (!scratch_fits(s, (long long)blocks * 128)) return cudaErrorInvalidValue;
+    k2_kernel<S, Cull, Relaxed, true, Split>()<<<blocks, block, 0, stream>>>(
+        s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps, outcome,
+        active, rays, count, cap, omega, h, w);
   } else {
     const dim3 grid((w + 15) / 16, (h + 7) / 8);
-    trace_kernel<S, Cull, Relaxed, false><<<grid, block, 0, stream>>>(
+    if (!scratch_fits(s, (long long)grid.x * grid.y * 128)) return cudaErrorInvalidValue;
+    k2_kernel<S, Cull, Relaxed, false, Split>()<<<grid, block, 0, stream>>>(
         s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps, outcome,
         active, rays, count, cap, omega, h, w);
   }
+  return cudaGetLastError();
 }
 
 // f(Cull, Relaxed) with the two flags as template arguments
@@ -392,6 +536,25 @@ static void with_march(int cull, int relaxed, F&& f) {
   else f(std::false_type{}, std::true_type{});
 }
 
+// f(S, Cull, Relaxed, Split) for the descriptor's structure, its split and
+// the two flags; cudaErrorInvalidValue for a structure that names none or
+// a split of a structure it is not built for
+template <class F>
+static int with_launch(const SceneDesc& s, int cull, int relaxed, F&& f) {
+  int err = cudaErrorInvalidValue;
+  with_structure(s.structure, [&](auto scene) {
+    typedef decltype(scene) S;
+    with_march(cull, relaxed, [&](auto c, auto r) {
+      if (!s.split) {
+        err = f(scene, c, r, std::false_type{});
+      } else if constexpr (Splits<S>::value) {
+        err = f(scene, c, r, std::true_type{});
+      }
+    });
+  });
+  return err;
+}
+
 extern "C" {
 
 // Launches K1 on `stream` over an h x w image. origins and directions are
@@ -399,43 +562,41 @@ extern "C" {
 // steps, outcome and active are (h, w) planes. mode is 0 (FRESH; the planes
 // written when depth is not null), 1 (PHASE_A) or 2 (RESUME over `blocks`
 // and the device-resident `count`); cull and relaxed pick the march, the
-// descriptor's `structure` the scene's instantiation; cap is the step
-// budget of modes 1 and 2, omega the relaxation. Returns the cudaError_t of
-// the launch (cudaErrorInvalidValue for a structure that names none).
+// descriptor's `structure` the scene's instantiation and its `split` the
+// near/far split; cap is the step budget of modes 1 and 2, omega the
+// relaxation. Returns the cudaError_t of the launch (cudaErrorInvalidValue
+// for a structure that names none, a split it is not built for, or a
+// large-tier program whose scratch does not hold the launch).
 int bsdmg_render(const SceneDesc* desc, const float* origins, const float* directions,
                  const float* cone, float* rgb, float* depth, int* steps, int* outcome,
                  int* active, const int* blocks, const int* count, int mode, int cull,
                  int relaxed, int cap, float omega, int h, int w, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_structure(desc->structure, [&](auto scene) {
-    with_march(cull, relaxed, [&](auto c, auto r) {
-      launch_render<decltype(scene), decltype(c)::value, decltype(r)::value>(
-          mode, st, *desc, origins, directions, cone, rgb, depth, steps, outcome, active, blocks,
-          count, cap, omega, h, w);
-    });
+  return with_launch(*desc, cull, relaxed, [&](auto scene, auto c, auto r, auto split) {
+    return launch_render<decltype(scene), decltype(c)::value, decltype(r)::value,
+                         decltype(split)::value>(mode, st, *desc, origins, directions, cone, rgb,
+                                                 depth, steps, outcome, active, blocks, count,
+                                                 cap, omega, h, w);
   });
-  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches K2 on `stream` over an h x w frame, planes as bsdmg_render's.
 // depth0, steps0, outcome0 and active0 are the carried state, all null for
 // a fresh march; `active` may be null. With `rays` not null, the first
 // *count entries of it are the rays to march (count device-resident).
-// Returns the cudaError_t of the launch.
+// Returns the cudaError_t of the launch, as bsdmg_render.
 int bsdmg_trace(const SceneDesc* desc, const float* origins, const float* directions,
                 const float* cone, const float* depth0, const int* steps0, const int* outcome0,
                 const int* active0, float* depth, int* steps, int* outcome, int* active,
                 const int* rays, const int* count, int cull, int relaxed, int cap, float omega,
                 int h, int w, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_structure(desc->structure, [&](auto scene) {
-    with_march(cull, relaxed, [&](auto c, auto r) {
-      launch_trace<decltype(scene), decltype(c)::value, decltype(r)::value>(
-          st, *desc, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps,
-          outcome, active, rays, count, cap, omega, h, w);
-    });
+  return with_launch(*desc, cull, relaxed, [&](auto scene, auto c, auto r, auto split) {
+    return launch_trace<decltype(scene), decltype(c)::value, decltype(r)::value,
+                        decltype(split)::value>(st, *desc, origins, directions, cone, depth0,
+                                                steps0, outcome0, active0, depth, steps, outcome,
+                                                active, rays, count, cap, omega, h, w);
   });
-  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches K3 on `stream`: rgb (h, w, 3) from the depth and outcome planes.
@@ -443,6 +604,7 @@ int bsdmg_trace(const SceneDesc* desc, const float* origins, const float* direct
 int bsdmg_shade(const SceneDesc* desc, const float* origins, const float* directions,
                 const float* depth, const int* outcome, float* rgb, int h, int w, void* stream) {
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
+  if (!scratch_fits(*desc, (long long)grid.x * grid.y * 128)) return cudaErrorInvalidValue;
   const bool known = with_structure(desc->structure, [&](auto scene) {
     shade_kernel<decltype(scene)><<<grid, dim3(128), 0, static_cast<cudaStream_t>(stream)>>>(
         *desc, origins, directions, depth, outcome, rgb, h, w);

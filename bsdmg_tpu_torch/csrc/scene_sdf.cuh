@@ -25,8 +25,9 @@
 // Wrapped<Box<false, true>> the same object moved by its object transform
 // inside each cell (the lattice point wrapped first, then the transform, as
 // bsdmg_tpu/models/scenes.py:225-245 orders them; cli animate --motion
-// moves it), Composed a
-// composed scene's node program (composed.cuh). csdf.py::
+// moves it), Composed and ComposedLarge a composed scene's node program
+// in its small and large tier (composed.cuh), Far the wireframe that K1
+// and K2 march where a patch of rays misses the near box. csdf.py::
 // kernel_structure picks the structure from the descriptor (and raises for
 // a descriptor that matches none); with_structure turns its index into the
 // template on the host. GridScene<Form> is a mesh asset's baked grid
@@ -116,6 +117,23 @@ struct SceneDesc {
   const float* grid_table;
   GridBox grid;
   float grid_offset[3];
+  // ComposedLarge: the scratch buffer of the interpreter's stacks, sized by
+  // the wrapper for scratch_threads threads (composed.cuh), and the
+  // program's most values on the stack and nested frames at once
+  float* scratch;
+  int scratch_threads;
+  int program_depth;
+  int program_frames;
+  // the near/far split of K1 and K2 (split != 0): the far scene, a
+  // wireframe alone (Far), and the near component's bounds, as lo, hi,
+  // their cull sphere and slack
+  int split;
+  CapsuleSet far;
+  float near_lo[3];
+  float near_hi[3];
+  float near_center[3];
+  float near_radius;
+  float near_slack;
 };
 
 enum SceneKind {
@@ -125,7 +143,8 @@ enum SceneKind {
   KIND_MANDELBULB,
   KIND_WRAPPED,
   KIND_COMPOSED,
-  KIND_GRID
+  KIND_GRID,
+  KIND_FAR
 };
 
 // The compile-time structure of a reference scene: with the wireframe or
@@ -167,10 +186,26 @@ struct Wrapped {
 
 // a composed scene: the node program is data, which composed.cuh's
 // interpreter reads instruction by instruction; the stencil stays rolled
-// around it
+// around it. Composed is the small tier (stacks in local arrays, programs
+// within program.cuh's caps), ComposedLarge the large tier (stacks in
+// SceneDesc::scratch, any program); csdf.py::large_tier picks one
 struct Composed {
   static constexpr SceneKind kind = KIND_COMPOSED;
   static constexpr bool unrolled = false;
+  static constexpr bool large = false;
+};
+struct ComposedLarge {
+  static constexpr SceneKind kind = KIND_COMPOSED;
+  static constexpr bool unrolled = false;
+  static constexpr bool large = true;
+};
+// the far scene of K1's and K2's near/far split: the wireframe SceneDesc::
+// far alone (csdf.py::compile_scene_split), which a patch of rays that all
+// miss the near box marches; not a scene of its own, so with_structure
+// does not name it
+struct Far {
+  static constexpr SceneKind kind = KIND_FAR;
+  static constexpr bool unrolled = true;
 };
 
 // a mesh asset's grid in the form Form (grid_sdf.cuh GridForm): eight
@@ -184,8 +219,9 @@ struct GridScene {
 
 // Calls f(S{}) for the structure index csdf.py::kernel_structure gives:
 // 2 * frame + transform for Box, then Sphere, SolidBox, Mandelbulb, the
-// wrapped reference object, Composed and (11) the wrapped reference object
-// moved by its object transform; false for an index that names none.
+// wrapped reference object, Composed, (11) the wrapped reference object
+// moved by its object transform and (12) ComposedLarge; false for an index
+// that names none.
 // Indices 9 and 10 are the grid's (with_mesh_structure).
 template <class F>
 inline bool with_structure(int structure, F&& f) {
@@ -200,8 +236,19 @@ inline bool with_structure(int structure, F&& f) {
     case 7: f(Wrapped<Box<false, false>>{}); return true;
     case 8: f(Composed{}); return true;
     case 11: f(Wrapped<Box<false, true>>{}); return true;
+    case 12: f(ComposedLarge{}); return true;
     default: return false;
   }
+}
+
+// kernel_structure's index of ComposedLarge
+#define BSDMG_COMPOSED_LARGE 12
+
+// whether a launch of `threads` threads may run the scene: any but the
+// large tier's, whose stacks need the scratch buffer to hold every thread
+inline bool scratch_fits(const SceneDesc& s, long long threads) {
+  return s.structure != BSDMG_COMPOSED_LARGE ||
+         (s.scratch != nullptr && threads <= s.scratch_threads);
 }
 
 // with_structure's structures and the grid's two forms (csdf.py
@@ -524,7 +571,13 @@ __device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y,
   } else if constexpr (S::kind == KIND_WRAPPED) {
     return scene_sdf<typename S::inner>(s, wrap_coord(s, x), wrap_coord(s, y), wrap_coord(s, z));
   } else if constexpr (S::kind == KIND_COMPOSED) {
-    return composed_sdf(s, x, y, z);
+    if constexpr (S::large) {
+      return composed_sdf_large(s, x, y, z);
+    } else {
+      return composed_sdf(s, x, y, z);
+    }
+  } else if constexpr (S::kind == KIND_FAR) {
+    return sqrtf(capsule_set_d2(s.far, x, y, z)) - s.far.radius;
   } else if constexpr (S::kind == KIND_GRID) {
     float gx, gy, gz;
     return grid_scene<S::form, false>(s.grid_table, s.grid, s.grid_offset, x, y, z, gx, gy, gz);
@@ -548,7 +601,16 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
     scene_sdf_grad<typename S::inner>(s, wrap_coord(s, x), wrap_coord(s, y), wrap_coord(s, z), d,
                                       gx, gy, gz);
   } else if constexpr (S::kind == KIND_COMPOSED) {
-    composed_sdf_grad(s, x, y, z, d, gx, gy, gz);
+    if constexpr (S::large) {
+      composed_sdf_grad_large(s, x, y, z, d, gx, gy, gz);
+    } else {
+      composed_sdf_grad(s, x, y, z, d, gx, gy, gz);
+    }
+  } else if constexpr (S::kind == KIND_FAR) {
+    CapsuleFwd f;
+    d = capsule_set_fwd(s.far, x, y, z, f);
+    gx = gy = gz = 0.0f;
+    capsule_set_bwd(s.far, x, y, z, f, 1.0f, gx, gy, gz);
   } else if constexpr (S::kind == KIND_GRID) {
     d = grid_scene<S::form, true>(s.grid_table, s.grid, s.grid_offset, x, y, z, gx, gy, gz);
   } else {

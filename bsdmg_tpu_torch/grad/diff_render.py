@@ -132,6 +132,7 @@ def render_image_diff(
     config: MarchConfig = MarchConfig(),
     csdf=None,
     bb: tuple | None = None,
+    split=None,
 ) -> torch.Tensor:
     """Differentiable render: linear RGB ``(..., 3)`` with gradients flowing
     to ``params`` through the hit depth and the shading normals.
@@ -139,9 +140,11 @@ def render_image_diff(
     ``csdf`` (``Scene.csdf``) switches to the component form on an
     ``(H, W)`` ray image, whose stopped march is K4 on the card; ``bb``
     (component form) turns on its slab cull and must bound the surface over
-    every parameter value the caller reaches."""
+    every parameter value the caller reaches; ``split`` (component form)
+    the near/far split of K4's march (``ops/cuda/diff_kernel.py``)."""
     if csdf is not None:
-        return _render_image_diff_c(csdf, params, origins, directions, cone_radius, config, bb=bb)
+        return _render_image_diff_c(csdf, params, origins, directions, cone_radius, config, bb=bb,
+                                    split=split)
     t_diff, hit = differentiable_hit(scene, params, origins, directions, cone_radius, config)
     positions = origins + t_diff[..., None] * directions
     return _shade_diff(scene, params, positions, hit.outcome)
@@ -155,13 +158,15 @@ def _render_image_diff_c(
     cone_radius,
     config: MarchConfig = MarchConfig(),
     bb: tuple | None = None,
+    split=None,
 ):
     """Component-form differentiable render of an ``(H, W)`` ray image."""
     h, w = origins.shape[:2]
     cone = _cone(cone_radius, (h, w), origins.device).contiguous()
     depth, _, outcome, dfdt = (
         x.reshape(-1)
-        for x in march_params_cuda(csdf, _stopped(params), origins, directions, cone, config, bb=bb)
+        for x in march_params_cuda(csdf, _stopped(params), origins, directions, cone, config,
+                                   bb=bb, split=split)
     )
     planes = [origins[..., a].reshape(-1) for a in range(3)]
     planes += [directions[..., a].reshape(-1) for a in range(3)]
@@ -198,6 +203,7 @@ def render_loss_and_grad(
     edge_weight: float = 0.0,
     edge_band: float | None = None,
     target_miss: torch.Tensor | None = None,
+    split=None,
 ):
     """L2 image loss against ``target`` and its gradient with respect to
     ``params``: ``(loss, grads)``, ``grads`` a dict like ``params``. The
@@ -207,8 +213,8 @@ def render_loss_and_grad(
     With a component-form ``csdf`` this is the fused step, kernel K5 on the
     card (its plain twin on the CPU);
     ``edge_weight > 0`` adds the silhouette-aware closest-approach loss
-    (``grad/edge.py``), which needs a ``csdf``. Without one it is autograd
-    of the points-path render."""
+    (``grad/edge.py``), which needs a ``csdf``; ``split`` is K5's near/far
+    split. Without a ``csdf`` it is autograd of the points-path render."""
     edge_weight = float(edge_weight)
     if edge_weight and csdf is None:
         raise ValueError(
@@ -224,6 +230,7 @@ def render_loss_and_grad(
                 csdf, params, target, origins, directions,
                 _cone(cone_radius, origins.shape[:-1], origins.device).contiguous(), config,
                 bb=bb, edge_weight=edge_weight, edge_band=edge_band, target_miss=target_miss,
+                split=split,
             )
         else:
             p = {k: v.detach().requires_grad_() for k, v in params.items()}

@@ -147,12 +147,16 @@ class ReferenceCsdf:
         d = _sd_obj_c(params, x, y, z, reference_compat=self.reference_compat)
         if self.frame_size is None:
             return d
+        return sdf.minimum(d, self.frame(x, y, z))
+
+    def frame(self, x, y, z) -> torch.Tensor:
+        """The render scene's wireframe alone, which reads no parameter: the
+        far scene that K4 and K5 march under the near/far split."""
         size = float(self.frame_size)
-        frame = sdf.sd_box_skeleton_c(
+        return sdf.sd_box_skeleton_c(
             x, y, z, (0.0, 0.0, 0.0), (size, size, size), FRAME_LINE_WIDTH,
             reference_compat=self.reference_compat,
         )
-        return sdf.minimum(d, frame)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -73,10 +73,12 @@ SUPPORTED = (
 )
 
 #: kernel_structure's indices of the other built-in scenes, of a composed
-#: scene's node program and of the wrapped object moved by its object
-#: transform (with_structure in csrc/scene_sdf.cuh); 0-3 are the reference
-#: scenes' Box<Frame, Transform>
-SPHERE, SOLID_BOX, MANDELBULB, WRAPPED, COMPOSED, WRAPPED_MOVED = 4, 5, 6, 7, 8, 11
+#: scene's node program in the small tier, of the wrapped object moved by
+#: its object transform and of a node program in the large tier
+#: (with_structure in csrc/scene_sdf.cuh); 0-3 are the reference scenes'
+#: Box<Frame, Transform>
+SPHERE, SOLID_BOX, MANDELBULB, WRAPPED, COMPOSED, WRAPPED_MOVED, COMPOSED_LARGE = (
+    4, 5, 6, 7, 8, 11, 12)
 
 #: kernel_structure's indices of a mesh asset's grid in its two forms
 #: (with_mesh_structure in csrc/scene_sdf.cuh, which only K6 and K7 use):
@@ -133,13 +135,16 @@ class CapsuleSet:
 #: 32-bit words per instruction: opcode, operand index, 14 float32 constants
 PROGRAM_WORDS = 16
 PROGRAM_CONSTANTS = PROGRAM_WORDS - 2
-#: the caps the kernels' interpreter is built for (csrc/scene_sdf.cuh
-#: BSDMG_PROGRAM, BSDMG_STACK, BSDMG_FRAMES): instructions, values on the
-#: stack at once, nested coordinate frames. The three example scenes take
-#: at most 10 instructions, 3 values and 1 frame.
+#: the caps of the interpreters' small tier (csrc/program.cuh BSDMG_PROGRAM,
+#: BSDMG_STACK, BSDMG_FRAMES): instructions, values on the stack at once,
+#: nested coordinate frames; and of its parameter vector (csrc/param_sdf.cuh
+#: BSDMG_MAX_PARAMS). A program beyond any of them runs in the large tier
+#: (:func:`large_tier`), which has none. The three example scenes take at
+#: most 10 instructions, 3 values and 1 frame.
 PROGRAM_CAP = 64
 STACK_CAP = 16
 FRAME_CAP = 8
+PARAM_CAP = 64
 
 _PRIMITIVE_OPS = {"sphere": OP_SPHERE, "box": OP_BOX, "capsule": OP_CAPSULE,
                   "box_skeleton": OP_SKELETON, "torus": OP_TORUS, "cylinder": OP_CYLINDER,
@@ -212,58 +217,86 @@ def _rotation_f32(q) -> tuple:
     return tuple(float(v) for row in r for v in row)
 
 
-def node_program(scene: Scene, params) -> tuple[Instruction, ...]:
-    """Flatten a composed scene's spec into its postfix node program at
-    ``params``: a primitive pushes its value, a fold pops two values and
-    pushes one (left to right, as the JAX package folds), shell maps the
-    top; transform and wrap push a coordinate frame before their child
-    and pop it after. Raises ``NotImplementedError`` for a program beyond
-    the interpreter's caps."""
-    from bsdmg_tpu_torch.models.compose import resolver
+def postfix(root: dict) -> list[tuple[int, dict, int]]:
+    """A spec's nodes in the programs' postfix order, as ``(op, node,
+    arg)``: a primitive; a fold after its right operand, ``arg`` the index
+    of its left operand's last entry (left to right, as the JAX package
+    folds); shell after its child; transform and wrap as a push before their
+    child and a pop after it, the pop's ``arg`` its push. The one walk that
+    :func:`node_program` and :func:`param_program` share."""
+    out: list[tuple[int, dict, int]] = []
 
-    root, get = resolver(scene, params)
-    prog: list[Instruction] = []
-
-    def emit(node: dict) -> None:
+    def walk(node: dict) -> None:
         if "prim" in node:
-            kind = node["prim"]
-            prog.append(Instruction(_PRIMITIVE_OPS[kind], -1,
-                                    _primitive_constants(kind, node, get)))
+            out.append((_PRIMITIVE_OPS[node["prim"]], node, -1))
             return
         op = node["op"]
         if op in _FOLD_OPS:
             children = node["children"]
-            emit(children[0])
-            consts = (f32(get(node, "k")), f32(1.0 / 6.0)) if op == "smooth_union" else ()
+            walk(children[0])
             for child in children[1:]:
-                left = len(prog) - 1
-                emit(child)
-                prog.append(Instruction(_FOLD_OPS[op], left, consts))
+                left = len(out) - 1
+                walk(child)
+                out.append((_FOLD_OPS[op], node, left))
             return
         if op == "shell":
-            emit(node["child"])
-            prog.append(Instruction(OP_SHELL, -1, (f32(get(node, "thickness")),)))
+            walk(node["child"])
+            out.append((OP_SHELL, node, -1))
             return
-        push = len(prog)
-        if op == "transform":
-            consts = (*map(f32, get(node, "offset")), *_rotation_f32(get(node, "rotation")))
-            prog.append(Instruction(OP_PUSH_TRANSFORM, -1, consts))
-        else:
-            cell = get(node, "cell")
-            prog.append(Instruction(OP_PUSH_WRAP, -1,
-                                    (*map(f32, cell), *(f32(v * 0.5) for v in cell))))
-        emit(node["child"])
-        prog.append(Instruction(OP_POP, push, ()))
+        push = len(out)
+        out.append((OP_PUSH_TRANSFORM if op == "transform" else OP_PUSH_WRAP, node, -1))
+        walk(node["child"])
+        out.append((OP_POP, node, push))
 
-    emit(root)
+    walk(root)
+    return out
+
+
+def node_program(scene: Scene, params) -> tuple[Instruction, ...]:
+    """Flatten a composed scene's spec into its postfix node program at
+    ``params`` (:func:`postfix`): a primitive pushes its value, a fold pops
+    two values and pushes one, shell maps the top; transform and wrap push a
+    coordinate frame before their child and pop it after. Any length,
+    stack depth and nesting: :func:`large_tier` picks the kernels' tier."""
+    from bsdmg_tpu_torch.models.compose import resolver
+
+    root, get = resolver(scene, params)
+
+    def constants(op: int, node: dict) -> tuple:
+        if op <= OP_PLANE:
+            return _primitive_constants(node["prim"], node, get)
+        if op == OP_SMOOTH:
+            return (f32(get(node, "k")), f32(1.0 / 6.0))
+        if op == OP_SHELL:
+            return (f32(get(node, "thickness")),)
+        if op == OP_PUSH_TRANSFORM:
+            return (*map(f32, get(node, "offset")), *_rotation_f32(get(node, "rotation")))
+        if op == OP_PUSH_WRAP:
+            cell = get(node, "cell")
+            return (*map(f32, cell), *(f32(v * 0.5) for v in cell))
+        return ()
+
+    return tuple(Instruction(op, arg, constants(op, node)) for op, node, arg in postfix(root))
+
+
+def large_tier(prog, n_values: int = 0) -> bool:
+    """Whether a node or parameter program (with ``n_values`` parameter
+    values) runs in the kernels' large tier: beyond any cap of the small
+    tier (:data:`PROGRAM_CAP`, :data:`STACK_CAP`, :data:`FRAME_CAP`,
+    :data:`PARAM_CAP`). The one place the tier is chosen."""
     depth, frames = program_depths(prog)
-    if len(prog) > PROGRAM_CAP or depth > STACK_CAP or frames > FRAME_CAP:
-        raise NotImplementedError(
-            f"scene {scene.name!r}: a node program of {len(prog)} instructions, {depth} stack "
-            f"values and {frames} nested frames; the kernels take at most {PROGRAM_CAP} "
-            f"instructions, {STACK_CAP} values and {FRAME_CAP} frames"
-        )
-    return tuple(prog)
+    return (len(prog) > PROGRAM_CAP or depth > STACK_CAP or frames > FRAME_CAP
+            or n_values > PARAM_CAP)
+
+
+def program_slots(length: int, depth: int, frames: int, *, grad: bool = False) -> int:
+    """Floats of the large tier's scratch a thread takes for a node program
+    of ``length`` instructions, ``depth`` values on the stack and ``frames``
+    nested frames at once (:func:`program_depths`): its stack and frames (3
+    a frame), and with ``grad`` its tape, cotangents and the backward's
+    frames (6 a frame), csrc/composed.cuh's layout. (K4 and K5 size a
+    parameter program's themselves, csrc/diff_kernel.cu program_scratch.)"""
+    return depth + 3 * frames + ((length + depth + 6 * frames) if grad else 0)
 
 
 def program_depths(prog) -> tuple[int, int]:
@@ -585,6 +618,30 @@ def compile_scene(scene: Scene, params=None) -> SceneDescriptor:
         return SceneDescriptor(**_reference_fields(scene, p), bounds=None, kind="wrapped",
                                cell=f32(p["cell"]))
     return SceneDescriptor(**_reference_fields(scene, p), bounds=bounds)
+
+
+def compile_scene_split(scene: Scene, params=None):
+    """The near/far split of a scene, ``(far, (lo, hi, slack))``, or None
+    for a scene without one (csdf.py::compile_scene_split): for the
+    reference render scene, ``far`` is a descriptor (``kind="wireframe"``)
+    of the frame wireframe alone, ``box_skeleton`` at 0 of size 5.0 and
+    line width 0.05 with ``reference_compat=True``, and the bounds are the
+    object's, slack ``smooth_k/6 + 1e-3``. A patch of rays that all miss
+    the (caller-inflated) near box marches ``far`` alone
+    (csrc/render_kernel.cu march_split; K4/K5 march the parameter form's
+    wireframe, csrc/diff_kernel.cu)."""
+    _check_supported(scene)
+    if scene.name != "reference_render_scene" or scene.spec is not None:
+        return None
+    p = _host(scene.params if params is None else params)
+    far = SceneDescriptor(
+        object=None, frame=box_skeleton_set(np.zeros(3), np.full(3, 5.0), 0.05),
+        sphere_radius=0.0, smooth_k=0.0, inv_k=0.0, k_6=0.0, inv_rotation=None,
+        translation=None, bounds=None, kind="wireframe",
+    )
+    lo, hi = _reference_object_bounds(p, True)
+    slack = float(p["smooth_k"]) / 6.0 + 1e-3
+    return far, (tuple(map(float, lo)), tuple(map(float, hi)), slack)
 
 
 # ---------------------------------------------------------------------------
@@ -1073,55 +1130,24 @@ class ParamInstruction(NamedTuple):
 def param_program(spec: dict, offsets: dict) -> tuple[ParamInstruction, ...]:
     """Flatten a composed scene's spec (``Scene.spec``) into the program
     that kernels K4 and K5 interpret (``csrc/param_program.cuh``): the node
-    program's postfix order (:func:`node_program`), each instruction naming
+    program's postfix order (:func:`postfix`), each instruction naming
     the slots of its fields in the flat vector (``offsets``: each
     parameter's first slot, ``weights.param_offsets``) where the node
     program holds baked constants. The kernels derive every constant from
     the parameter values at run time in float32, operation for operation as
     ``models/compose.py::_eval`` does, so the program's value equals the
-    spec's component form bit for bit (:func:`param_program_csdf`).
-    Raises ``NotImplementedError`` beyond the interpreter's caps."""
+    spec's component form bit for bit (:func:`param_program_csdf`). Any
+    length, stack depth and nesting, as :func:`node_program`."""
     ids = spec["ids"]
-    prog: list[ParamInstruction] = []
 
     def slots(node: dict, op: int) -> tuple:
         return tuple(offsets[f"{ids[id(node)]}_{field}"] for field in PARAM_FIELDS.get(op, ()))
 
-    def emit(node: dict) -> None:
-        if "prim" in node:
-            op = _PRIMITIVE_OPS[node["prim"]]
-            compat = int(bool(node.get("reference_compat", True))) if op == OP_SKELETON else 0
-            prog.append(ParamInstruction(op, -1, slots(node, op), compat))
-            return
-        kind = node["op"]
-        if kind in _FOLD_OPS:
-            op = _FOLD_OPS[kind]
-            children = node["children"]
-            emit(children[0])
-            for child in children[1:]:
-                left = len(prog) - 1
-                emit(child)
-                prog.append(ParamInstruction(op, left, slots(node, op)))
-            return
-        if kind == "shell":
-            emit(node["child"])
-            prog.append(ParamInstruction(OP_SHELL, -1, slots(node, OP_SHELL)))
-            return
-        push = len(prog)
-        op = OP_PUSH_TRANSFORM if kind == "transform" else OP_PUSH_WRAP
-        prog.append(ParamInstruction(op, -1, slots(node, op)))
-        emit(node["child"])
-        prog.append(ParamInstruction(OP_POP, push, ()))
+    def compat(node: dict, op: int) -> int:
+        return int(bool(node.get("reference_compat", True))) if op == OP_SKELETON else 0
 
-    emit(spec["root"])
-    depth, frames = program_depths(prog)
-    if len(prog) > PROGRAM_CAP or depth > STACK_CAP or frames > FRAME_CAP:
-        raise NotImplementedError(
-            f"a parameter program of {len(prog)} instructions, {depth} stack values and "
-            f"{frames} nested frames; the kernels take at most {PROGRAM_CAP} instructions, "
-            f"{STACK_CAP} values and {FRAME_CAP} frames"
-        )
-    return tuple(prog)
+    return tuple(ParamInstruction(op, arg, slots(node, op), compat(node, op))
+                 for op, node, arg in postfix(spec["root"]))
 
 
 def param_program_words(prog) -> np.ndarray:
@@ -1320,6 +1346,9 @@ def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
         return _grid_value_and_grad(desc, False)
     if desc.kind == "composed":
         return _program_csdf(desc.program.instructions)
+    if desc.kind == "wireframe":
+        frame = _capsule_set_value_grad(desc.frame)
+        return lambda x, y, z: frame(x, y, z)[0]
     if desc.kind == "sphere":
         r = desc.sphere_radius
         return lambda x, y, z: torch.sqrt(x * x + y * y + z * z) - r
@@ -1341,7 +1370,9 @@ def kernel_structure(desc: SceneDescriptor) -> int:
     for ``Wrapped<Box<false, false>>``, the wrapped reference object, and
     :data:`WRAPPED_MOVED` for ``Wrapped<Box<false, true>>``, the same
     object moved by its object transform (``cli animate --motion``);
-    :data:`COMPOSED` for a node program. Each capsule set must be a box
+    :data:`COMPOSED` for a node program within the small tier's caps,
+    :data:`COMPOSED_LARGE` for one beyond them (:func:`large_tier`). Each
+    capsule set must be a box
     skeleton as the kernels take it, 3 groups along x, y and z in that order
     with 2 perpendicular coordinates per other axis; any other descriptor
     raises ``NotImplementedError``, for which no kernel is built, and so
@@ -1351,6 +1382,13 @@ def kernel_structure(desc: SceneDescriptor) -> int:
     plain = {"sphere": SPHERE, "box": SOLID_BOX, "mandelbulb": MANDELBULB, "composed": COMPOSED}
     if desc.kind == "grid":
         return GRID_FORMS[desc.grid_form]
+    if desc.kind == "composed" and large_tier(desc.program.instructions):
+        return COMPOSED_LARGE
+    if desc.kind == "wireframe":
+        raise NotImplementedError(
+            "a wireframe alone is the far scene of a near/far split (compile_scene_split), "
+            "which K1 and K2 march beside the scene it was split from; no structure renders it"
+        )
     if desc.kind in plain:
         return plain[desc.kind]
     sets = {"object": desc.object, "frame": desc.frame}
@@ -1422,6 +1460,20 @@ def _reference_value_and_grad(desc: SceneDescriptor):
             g = c
         if frame is not None:
             frame_bwd(_tie_weight(fd, d, obj), g)
+        return (d, *g)
+
+    return f
+
+
+def _wireframe_value_and_grad(desc: SceneDescriptor):
+    """A wireframe's value and gradient, reverse mode (the Far structure of
+    csrc/scene_sdf.cuh)."""
+    frame = _capsule_set_value_grad(desc.frame)
+
+    def f(x, y, z):
+        d, backward = frame(x, y, z)
+        g = [None, None, None]
+        backward(torch.ones_like(d), g)
         return (d, *g)
 
     return f
@@ -1588,6 +1640,8 @@ def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
         return _grid_value_and_grad(desc, True)
     if desc.kind == "composed":
         return _program_value_and_grad(desc.program.instructions)
+    if desc.kind == "wireframe":
+        return _wireframe_value_and_grad(desc)
     if desc.kind == "sphere":
         return _sphere_value_and_grad(desc)
     if desc.kind == "box":

@@ -23,8 +23,14 @@ in one of their parameter forms (``csrc/param_forms.cuh``):
 ``csdf.py::param_program``) and :class:`GridCsdf` (a mesh asset's baked
 grid, read as data: it reads no parameter, its gradient is zero and K5
 takes no tangent). Any other component form raises
-``NotImplementedError``. The near/far tile split of the TPU kernels is not
-ported.
+``NotImplementedError``. A composed scene beyond the small tier's caps
+(``csdf.py::large_tier``: more than 64 values, or a program beyond the
+interpreter's caps) runs in the kernels' large tier.
+
+``split`` is the near/far split (``csdf.py::compile_scene_split``, its near
+box inflated by the caller): an 8x4 patch of rays that all miss the near
+box marches the reference scene's wireframe alone and takes dfdt of it; the
+loss and gradient evaluate the full scene, as the JAX kernels do.
 """
 
 from __future__ import annotations
@@ -44,7 +50,14 @@ from bsdmg_tpu_torch.models.scenes import (
     WrappedCsdf,
 )
 from bsdmg_tpu_torch.ops.cuda.build import load_library
-from bsdmg_tpu_torch.ops.cuda.csdf import f32, param_program, param_program_words
+from bsdmg_tpu_torch.ops.cuda.csdf import (
+    PARAM_CAP,
+    f32,
+    large_tier,
+    param_program,
+    param_program_words,
+    program_depths,
+)
 from bsdmg_tpu_torch.ops.cuda.grid_box import GridBoxC, grid_box_c
 from bsdmg_tpu_torch.ops.cuda.render_kernel import (
     _check_inputs,
@@ -53,7 +66,10 @@ from bsdmg_tpu_torch.ops.cuda.render_kernel import (
     _march,
     _slab_cull,
     bounds_c,
+    far_rays,
     march_c,
+    near_c,
+    patch_groups,
     shading_c,
 )
 from bsdmg_tpu_torch.ops.trace import COLLISION
@@ -66,14 +82,15 @@ LOSS_GRAD_LAUNCHES = 0
 #: the kernels' source, relative to the repository root
 SOURCE = "bsdmg_tpu_torch/csrc/diff_kernel.cu"
 
-#: values of the flat parameter vector the kernels take (a composed
-#: scene's cap), and of the reference form's: the 9 shape values and the
-#: object transform
-MAX_PARAMS = 64
+#: values of ``ParamScene::prm`` (the small tier's cap; the large tier
+#: reads its vector from device memory), and of the reference form's: the
+#: 9 shape values and the object transform
+MAX_PARAMS = PARAM_CAP
 REFERENCE_PARAMS = 16
 
 #: the parameter forms (csrc/param_sdf.cuh ParamForm)
-FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM, FORM_MESH_GRID = range(6)
+(FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM, FORM_MESH_GRID,
+ FORM_PROGRAM_LARGE) = range(7)
 
 #: the parameters the reference form reads, with their shapes, in
 #: ``ParamScene``'s order; the transform's two are optional
@@ -112,9 +129,13 @@ def _ray_derivative(f, o, d, t):
 CSDF = "ReferenceCsdf | SphereCsdf | MandelbulbCsdf | WrappedCsdf | ComposedCsdf | GridCsdf"
 
 
-def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: bool):
+def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: bool,
+                  split=None, shape=None):
     """K4 on flat planes: ``(depth, steps, outcome, dfdt, min_m, t_min)``,
-    the last two None without ``track_min``."""
+    the last two None without ``track_min``. With ``split``, the rays of
+    an 8x4 patch of the ``(H, W)`` ``shape`` that all miss its near box
+    march ``cfn``'s wireframe alone (``ReferenceCsdf.frame``) and take dfdt
+    of it."""
     stopped = {k: v.detach() for k, v in params.items()}
     f = lambda x, y, z: cfn(stopped, x, y, z)
     depth = torch.zeros_like(cone)
@@ -126,9 +147,20 @@ def _march_planes(cfn, params, o, d, cone, config: MarchConfig, bb, track_min: b
         active = ~miss
         limit = torch.clamp_max(t_exit, config.depth_limit)
     with torch.no_grad():
-        steps, outcome, min_m, t_min, _ = _march(f, config, *o, *d, cone, active, depth, limit,
-                                                 track_min=track_min)
-    return depth, steps, outcome, _ray_derivative(f, o, d, depth), min_m, t_min
+        if split is None:
+            steps, outcome, min_m, t_min, _ = _march(f, config, *o, *d, cone, active, depth,
+                                                     limit, track_min=track_min)
+            return depth, steps, outcome, _ray_derivative(f, o, d, depth), min_m, t_min
+        far = far_rays(split, *o, *d, cone, config, active, patch_groups(*shape, cone.device))
+        steps, outcome, far_m, far_t, _ = _march(cfn.frame, config, *o, *d, cone, active & far,
+                                                 depth, limit, track_min=track_min)
+        steps, outcome, min_m, t_min, _ = _march(f, config, *o, *d, cone, active & ~far, depth,
+                                                 limit, track_min=track_min, steps0=steps,
+                                                 outcome0=outcome)
+    if track_min:
+        min_m, t_min = torch.where(far, far_m, min_m), torch.where(far, far_t, t_min)
+    dfdt = torch.where(far, _ray_derivative(cfn.frame, o, d, depth), _ray_derivative(f, o, d, depth))
+    return depth, steps, outcome, dfdt, min_m, t_min
 
 
 def march_params_torch(
@@ -141,13 +173,15 @@ def march_params_torch(
     *,
     bb=None,
     track_min: bool = False,
+    split=None,
 ):
     """Plain PyTorch version of kernel K4 on any device. Returns ``(depth,
     steps, outcome, dfdt)`` planes, and ``(min_m, t_min)`` after them with
-    ``track_min``."""
+    ``track_min``; ``split`` as :func:`march_params_cuda`'s."""
     h, w = cone.shape
+    _check_split(cfn, split)
     o, d, c = _planes(origins, directions, cone)
-    outs = _march_planes(cfn, params, o, d, c, config, bb, track_min)
+    outs = _march_planes(cfn, params, o, d, c, config, bb, track_min, split, (h, w))
     return tuple(x.reshape(h, w) for x in outs[: 6 if track_min else 4])
 
 
@@ -165,20 +199,25 @@ def render_loss_grad_torch(
     edge_weight: float = 0.0,
     edge_band: float | None = None,
     target_miss: torch.Tensor | None = None,
+    split=None,
 ):
     """Plain PyTorch version of kernel K5 on any device: ``(loss, grads)``,
-    ``grads`` a dict like ``params``. The stopped march is K4's twin; the
+    ``grads`` a dict like ``params``. The stopped march is K4's twin (with
+    ``split``, the far patches' march and dfdt of the wireframe); the
     re-attachment, normal and shading are the differentiable render's
-    (``grad/diff_render.py``), differentiated by autograd."""
+    (``grad/diff_render.py``) of the full scene, differentiated by
+    autograd."""
     # imported here: grad/diff_render.py imports this module
     from bsdmg_tpu_torch.grad.diff_render import shade_diff_planes
     from bsdmg_tpu_torch.grad.edge import edge_loss_planes
 
+    _check_split(cfn, split)
     o, d, c = _planes(origins, directions, cone)
     n_pixels = total_pixels or c.numel()
     edge = float(edge_weight) != 0.0
     flat, layout = flatten_params(params)
-    depth, _, outcome, dfdt, min_m, t_min = _march_planes(cfn, params, o, d, c, config, bb, edge)
+    depth, _, outcome, dfdt, min_m, t_min = _march_planes(cfn, params, o, d, c, config, bb, edge,
+                                                          split, cone.shape)
     with torch.enable_grad():
         prm = flat.detach().clone().requires_grad_()
         p = unflatten_params(prm, layout)
@@ -197,6 +236,20 @@ def render_loss_grad_torch(
         grad = (torch.autograd.grad(loss, prm)[0] if loss.requires_grad
                 else torch.zeros_like(prm))
     return loss.detach(), unflatten_params(grad, layout)
+
+
+def _check_split(cfn, split) -> None:
+    """A split needs the reference form with its wireframe: K4 and K5 march
+    ``ReferenceCsdf.frame`` as its far scene."""
+    if split is None:
+        return
+    if len(split) != 2 or len(split[1]) not in (2, 3):
+        raise ValueError("split must be (far, (lo, hi[, slack])) of csdf.py::compile_scene_split")
+    if not isinstance(cfn, ReferenceCsdf) or cfn.frame_size is None:
+        raise NotImplementedError(
+            "the near/far split of K4 and K5 is built for the reference render scene's form "
+            "(ReferenceCsdf with its wireframe), as compile_scene_split gives it"
+        )
 
 
 def _target_state(target, target_miss):
@@ -253,6 +306,17 @@ class _ParamSceneC(ctypes.Structure):
         ("program_length", ctypes.c_int),
         ("grid_table", ctypes.c_void_p),
         ("grid", GridBoxC),
+        ("prm_values", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("scratch_threads", ctypes.c_int),
+        ("program_depth", ctypes.c_int),
+        ("program_frames", ctypes.c_int),
+        ("split", ctypes.c_int),
+        ("near_lo", _floats(3)),
+        ("near_hi", _floats(3)),
+        ("near_center", _floats(3)),
+        ("near_radius", ctypes.c_float),
+        ("near_slack", ctypes.c_float),
     ]
 
 
@@ -288,25 +352,29 @@ def _reference_fields(offsets: dict, values: list, reference_compat: bool, frame
     )
 
 
-def _program_words(cfn: ComposedCsdf, layout, device) -> torch.Tensor:
-    """The scene's parameter program for ``layout`` as int32 words on
-    ``device`` (uploaded once per layout and device, kept on ``cfn``)."""
+def _program_words(cfn: ComposedCsdf, layout, device):
+    """``(words, program)``: the scene's parameter program for ``layout``,
+    and its int32 words on ``device`` (uploaded once per layout and device,
+    kept on ``cfn``)."""
     cache = cfn.__dict__.setdefault("_param_words", {})
     key = (layout, torch.device(device))
     if key not in cache:
-        words = param_program_words(param_program(cfn.spec, param_offsets(layout)))
-        cache[key] = torch.from_numpy(words).to(device)
+        prog = param_program(cfn.spec, param_offsets(layout))
+        cache[key] = (torch.from_numpy(param_program_words(prog)).to(device), prog)
     return cache[key]
 
 
 def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=None,
-                  device="cuda"):
+                  device="cuda", split=None):
     """``(ParamScene, layout)``: the scene and ``params`` as the kernels
     take them, and the flat vector's layout (``weights.flatten_params``).
     The form follows ``cfn``'s type; a composed scene's parameter program
-    lives on ``device`` and the struct keeps it alive. A mesh asset's grid
+    lives on ``device`` and the struct keeps it alive, and beyond the small
+    tier's caps (``csdf.py::large_tier``) its form is the large tier's,
+    which reads the flat vector from ``device`` too. A mesh asset's grid
     (:class:`GridCsdf`) is read from its table on ``device``, no parameter
-    enters the struct (``n_prm`` 0) and ``layout`` is None."""
+    enters the struct (``n_prm`` 0) and ``layout`` is None. ``split`` turns
+    on the near/far split (the reference form with its wireframe)."""
     forms = {ReferenceCsdf: FORM_REFERENCE, SphereCsdf: FORM_SPHERE,
              MandelbulbCsdf: FORM_MANDELBULB, WrappedCsdf: FORM_WRAPPED,
              ComposedCsdf: FORM_PROGRAM, GridCsdf: FORM_MESH_GRID}
@@ -316,6 +384,7 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
             f"the kernels evaluate the component forms {sorted(t.__name__ for t in forms)}, "
             f"not {type(cfn).__name__}"
         )
+    _check_split(cfn, split)
     fields = dict(
         form=form,
         use_bounds=int(bb is not None),
@@ -323,6 +392,7 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
         **march_c(config),
         **shading_c(),
         **(bounds_c(bb) if bb is not None else {}),
+        **near_c(split),
     )
     if form == FORM_MESH_GRID:
         grid = cfn.grid
@@ -332,13 +402,13 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
         scene.grid_values = table  # the struct keeps the table alive
         return scene, None
     flat, layout = flatten_params(params)
-    most = REFERENCE_PARAMS if form == FORM_REFERENCE else MAX_PARAMS
-    if flat.numel() > most:
+    most = {FORM_REFERENCE: REFERENCE_PARAMS, FORM_PROGRAM: None}.get(form, MAX_PARAMS)
+    if most is not None and flat.numel() > most:
         raise ValueError(f"{flat.numel()} parameter values; the kernels take at most {most}")
     offsets = param_offsets(layout)
     values = flat.detach().cpu().tolist()
-    fields.update(prm=_floats(MAX_PARAMS)(*values), n_prm=len(values))
-    keep = None
+    fields.update(prm=_floats(MAX_PARAMS)(*values[:MAX_PARAMS]), n_prm=len(values))
+    keep = on_device = None
     if form in (FORM_REFERENCE, FORM_WRAPPED):
         extra = {"cell": ()} if form == FORM_WRAPPED else {}
         _check_layout(layout, {**PARAM_SHAPES, **extra}, OPTIONAL_PARAMS)
@@ -354,12 +424,17 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
                              f"got {[n for n, _ in layout]}")
     else:
         try:
-            keep = _program_words(cfn, layout, device)
+            keep, prog = _program_words(cfn, layout, device)
         except KeyError as missing:
             raise ValueError(f"parameter {missing} of the scene's spec is missing") from None
-        fields.update(program=keep.data_ptr(), program_length=keep.shape[0])
+        depth, frames = program_depths(prog)
+        fields.update(program=keep.data_ptr(), program_length=keep.shape[0],
+                      program_depth=depth, program_frames=frames)
+        if large_tier(prog, len(values)):
+            on_device = flat.detach().to(device=device, dtype=torch.float32).contiguous()
+            fields.update(form=FORM_PROGRAM_LARGE, prm_values=on_device.data_ptr())
     scene = _ParamSceneC(**fields)
-    scene.program_words = keep
+    scene.program_words, scene.values_on_device = keep, on_device  # the struct keeps them alive
     return scene, layout
 
 
@@ -368,8 +443,10 @@ def library() -> ctypes.CDLL:
     ``ParamScene`` layout checked against the source's."""
     lib = load_library()
     ptr, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bsdmg_march_params_scratch.restype = ctypes.c_longlong
+    lib.bsdmg_march_params_scratch.argtypes = [ptr, i32, i32]
     lib.bsdmg_march_params.restype = i32
-    lib.bsdmg_march_params.argtypes = [ptr] * 10 + [i32, i32, ptr]
+    lib.bsdmg_march_params.argtypes = [ptr] * 11 + [i32, i32, ptr]
     lib.bsdmg_loss_grad_scratch.restype = ctypes.c_longlong
     lib.bsdmg_loss_grad_scratch.argtypes = [ptr, i32, i32]
     lib.bsdmg_loss_grad.restype = i32
@@ -401,13 +478,15 @@ def _march_cuda(scene_c, origins, directions, cone, track_min):
     min_m = t_min = None
     if track_min:
         min_m, t_min = (torch.empty_like(cone) for _ in range(2))
+    scratch = torch.empty(lib.bsdmg_march_params_scratch(ctypes.byref(scene_c), h, w),
+                          dtype=torch.float32, device=cone.device)
     with torch.cuda.device(cone.device):
         stream = torch.cuda.current_stream(cone.device).cuda_stream
         err = lib.bsdmg_march_params(
             ctypes.byref(scene_c), origins.data_ptr(), directions.data_ptr(), cone.data_ptr(),
             depth.data_ptr(), steps.data_ptr(), outcome.data_ptr(), dfdt.data_ptr(),
             0 if min_m is None else min_m.data_ptr(), 0 if t_min is None else t_min.data_ptr(),
-            h, w, stream,
+            scratch.data_ptr() if scratch.numel() else 0, h, w, stream,
         )
     _raise_on(lib, err, "K4 (march_params) launch")
     MARCH_LAUNCHES += 1
@@ -452,26 +531,24 @@ def march_params_cuda(
     *,
     bb=None,
     track_min: bool = False,
+    split=None,
 ):
     """Sphere-trace an ``(H, W)`` ray image under the parameters ``params``
     (kernel K4). ``bb``, the bounds of the surface over every parameter
-    value the caller will reach, turns on the slab cull. Returns ``(depth,
+    value the caller will reach, turns on the slab cull; ``split`` the
+    near/far split (module docstring). The march steps exactly whatever
+    ``config.relaxation`` says, as the JAX kernel does. Returns ``(depth,
     steps, outcome, dfdt)``, and ``(min_m, t_min)`` after them with
     ``track_min`` (culled rays carry ``min_m = 1e9``). CUDA tensors go
     through K4, CPU tensors through :func:`march_params_torch`."""
-    if config.relaxation != 1.0:
-        raise NotImplementedError(
-            "the differentiable march steps exactly (relaxation 1.0); "
-            f"relaxation={config.relaxation} is not ported"
-        )
     _check_inputs(origins, directions, cone)
     _check_params(params, cone.device)
     if cone.device.type == "cuda":
-        scene_c, _ = param_scene_c(cfn, params, config, bb, cone.device)
+        scene_c, _ = param_scene_c(cfn, params, config, bb, cone.device, split)
         return _march_cuda(scene_c, origins, directions, cone, track_min)
     if cone.device.type == "cpu":
         return march_params_torch(cfn, params, origins, directions, cone, config, bb=bb,
-                                  track_min=track_min)
+                                  track_min=track_min, split=split)
     raise ValueError(f"unsupported device {cone.device}")
 
 
@@ -489,6 +566,7 @@ def render_loss_grad_cuda(
     edge_weight: float = 0.0,
     edge_band: float | None = None,
     target_miss: torch.Tensor | None = None,
+    split=None,
 ):
     """The image-fit step (kernel K5): ``(loss, grads)`` of the L2 loss of
     the render of ``params`` against ``target`` (``(H, W, 3)`` linear RGB),
@@ -496,13 +574,10 @@ def render_loss_grad_cuda(
     ``edge_weight`` times the silhouette hinge (``grad/edge.py``) over
     ``total_pixels``. ``target_miss`` overrides the target's miss mask
     (default: classified from its colours); ``edge_band`` defaults to
-    ``4 * collision_distance``. ``grads`` is a dict like ``params``. CUDA
-    tensors go through K5, CPU tensors through :func:`render_loss_grad_torch`."""
-    if config.relaxation != 1.0:
-        raise NotImplementedError(
-            "the fused loss steps exactly (relaxation 1.0); "
-            f"relaxation={config.relaxation} is not ported"
-        )
+    ``4 * collision_distance``; ``split`` is the near/far split (module
+    docstring). The march steps exactly whatever ``config.relaxation``
+    says. ``grads`` is a dict like ``params``. CUDA tensors go through K5,
+    CPU tensors through :func:`render_loss_grad_torch`."""
     _check_inputs(origins, directions, cone)
     _check_params(params, cone.device)
     h, w = cone.shape
@@ -514,11 +589,11 @@ def render_loss_grad_cuda(
         return render_loss_grad_torch(
             cfn, params, target, origins, directions, cone, config, bb=bb,
             total_pixels=total_pixels, edge_weight=edge_weight, edge_band=edge_band,
-            target_miss=target_miss,
+            target_miss=target_miss, split=split,
         )
     if cone.device.type != "cuda":
         raise ValueError(f"unsupported device {cone.device}")
-    scene_c, layout = param_scene_c(cfn, params, config, bb, cone.device)
+    scene_c, layout = param_scene_c(cfn, params, config, bb, cone.device, split)
     edge = float(edge_weight) != 0.0
     t_state = _target_state(target, target_miss).contiguous() if edge else None
     out = _loss_grad_cuda(

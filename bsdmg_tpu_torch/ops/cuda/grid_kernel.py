@@ -428,10 +428,6 @@ def grid_march_into(sampler: Sampler, origins, directions, cone,
     go through K8, CPU tensors through :func:`grid_march_torch`."""
     if sampler.kind != INTERP_F32:
         raise ValueError("only K8 (an INTERP_F32 sampler) marches in place")
-    if config.relaxation != 1.0:
-        raise NotImplementedError(
-            f"the grid march steps exactly (relaxation 1.0), not {config.relaxation}"
-        )
     _check_rays(origins, directions, cone, active, depth, steps, outcome)
     _check_sampler(sampler, cone.device)
     planes = tuple(t.reshape(-1) for t in (depth, steps, outcome))
@@ -483,10 +479,6 @@ def grid_march(sampler: Sampler, origins, directions, cone,
     its first step in any case. CUDA tensors go through K8 or K9, CPU
     tensors through :func:`grid_march_torch`. Returns flat ``(depth, steps,
     outcome)``."""
-    if config.relaxation != 1.0:
-        raise NotImplementedError(
-            f"the grid march steps exactly (relaxation 1.0), not {config.relaxation}"
-        )
     kwargs = dict(active=active, depth0=depth0, steps0=steps0, outcome0=outcome0, budget=budget)
     if cone.device.type == "cuda":
         return grid_march_cuda(sampler, origins, directions, cone, config, **kwargs)

@@ -27,7 +27,7 @@ import torch
 
 from bsdmg_tpu_torch.ops.cuda.csdf import SceneDescriptor, SdfFns, sdf_fns
 from bsdmg_tpu_torch.ops.cuda.mesh_kernel import check_planes, fd4_grad, newton, unit_normal_fd4
-from bsdmg_tpu_torch.ops.cuda.render_kernel import library, scene_desc_c
+from bsdmg_tpu_torch.ops.cuda.render_kernel import attach_scratch, library, scene_desc_c
 from bsdmg_tpu_torch.ops.tables import MC_EDGE_MIDPOINTS
 
 #: launches of the CUDA kernel in this process; the wrapper adds one per launch
@@ -135,8 +135,10 @@ def mc_fused_torch(fns: SdfFns, lx, ly, lz, cross_bits, t0, t1, voxel_size: floa
     )
 
 
-#: voxels a block of K6 lists the edges of (csrc/mc_kernel.cu kVoxels)
+#: voxels a block of K6 lists the edges of, and its threads
+#: (csrc/mc_kernel.cu kVoxels, kThreads)
 BLOCK_VOXELS = 60
+BLOCK_THREADS = 256
 
 
 def edge_slots(cross_bits, budget: int):
@@ -185,6 +187,8 @@ def _mc_cuda(desc_c, planes, voxel_size: float, params, out) -> None:
     lib = _library()
     device = planes[0].device
     budget, iters, tol, eps, use_grad, centroid = params
+    threads = -(-planes[0].numel() // BLOCK_VOXELS) * BLOCK_THREADS
+    keep = attach_scratch(desc_c, threads, device, grad=True)  # held until enqueued
     with torch.cuda.device(device):
         err = lib.bsdmg_mc_fused(
             ctypes.addressof(desc_c), *(p.data_ptr() for p in planes), float(voxel_size),

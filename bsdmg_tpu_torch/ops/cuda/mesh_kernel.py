@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from bsdmg_tpu_torch.ops.cuda.csdf import SceneDescriptor, SdfFns, sdf_fns
-from bsdmg_tpu_torch.ops.cuda.render_kernel import library, scene_desc_c
+from bsdmg_tpu_torch.ops.cuda.render_kernel import attach_scratch, library, scene_desc_c
 
 #: launches of the CUDA kernel in this process; the wrapper adds one per launch
 LAUNCHES = 0
@@ -138,6 +138,8 @@ def _project_cuda(desc_c, planes, params, out) -> None:
     lib = _library()
     device = planes[0].device
     iters, tol, eps, use_grad = params
+    threads = -(-planes[0].numel() // 128) * 128
+    keep = attach_scratch(desc_c, threads, device, grad=True)  # held until enqueued
     with torch.cuda.device(device):
         err = lib.bsdmg_project_edges(
             ctypes.addressof(desc_c), *(p.data_ptr() for p in planes), planes[0].numel(),

@@ -21,6 +21,12 @@ and :func:`shade_cuda` send CUDA tensors to the kernels and CPU tensors to
 the plain PyTorch twins (:func:`render_image_planes_torch`,
 :func:`trace_planes_torch`, :func:`shade_planes_torch`); nothing falls back
 from one to the other.
+
+``split`` is the near/far split of ``csdf.py::compile_scene_split``,
+``(far, (lo, hi, slack))``: the rays of a warp (an 8x4 patch, or 32 rays of
+K2's listed tail) that all miss the near box march ``far`` alone
+(render_kernel.py:412-432); the twins group the rays as the kernels do
+(:func:`patch_groups`, :func:`listed_groups`).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from bsdmg_tpu_torch.config import MarchConfig
 from bsdmg_tpu_torch.ops.cuda.build import load_library
 from bsdmg_tpu_torch.ops.cuda.grid_box import MAX_GRID_RESOLUTION, GridBoxC, grid_box_c
 from bsdmg_tpu_torch.ops.cuda.csdf import (
+    COMPOSED_LARGE,
     MAX_GROUP_VALUES,
     MAX_GROUPS,
     CapsuleGroup,
@@ -44,6 +51,8 @@ from bsdmg_tpu_torch.ops.cuda.csdf import (
     descriptor_csdf,
     f32,
     kernel_structure,
+    program_depths,
+    program_slots,
 )
 from bsdmg_tpu_torch.ops.shade import (
     _ACES_M1,
@@ -121,6 +130,37 @@ def _slab_cull(bb, ox, oy, oz, dx, dy, dz, cone, config: MarchConfig):
     tmax = torch.minimum(fx, torch.minimum(fy, fz))
     t_enter = torch.clamp_min(tmin, 0.0)
     return tmax < t_enter, torch.clamp_min(tmax, 0.0)
+
+
+def patch_groups(h: int, w: int, device) -> torch.Tensor:
+    """Each ray's warp in K1's and K2's layout, flat int64: its 8x4 patch
+    (csrc/render_kernel.cu tile_pixel), on which the near/far split votes."""
+    py = torch.arange(h, device=device)[:, None] // 4
+    px = torch.arange(w, device=device)[None, :] // 8
+    return (py * -(-w // 8) + px).reshape(-1)
+
+
+def listed_groups(index: torch.Tensor, count: torch.Tensor, n: int) -> torch.Tensor:
+    """Each ray's warp in K2's listed launch, flat int64: the place of a
+    listed ray in the list (:func:`compact_list`) over 32, -1 for a ray not
+    listed."""
+    k = int(count.item())
+    groups = torch.full((n,), -1, dtype=torch.int64, device=index.device)
+    groups[index[:k].long()] = torch.arange(k, device=index.device) // 32
+    return groups
+
+
+def far_rays(split, ox, oy, oz, dx, dy, dz, cone, config: MarchConfig, active,
+             groups) -> torch.Tensor:
+    """The near/far split's vote (render_kernel.cu march_split): the rays
+    whose group holds no ``active`` ray that can reach the near box of
+    ``split``; they march the far scene alone."""
+    miss, _ = _slab_cull(split[1], ox, oy, oz, dx, dy, dz, cone, config)
+    near = (active & ~miss).to(torch.int32)
+    g = groups.clamp_min(0)
+    counts = torch.zeros(int(g.max()) + 1 if g.numel() else 1, dtype=torch.int32,
+                         device=g.device).index_add_(0, g, near)
+    return counts[g] == 0
 
 
 def _march(csdf, config: MarchConfig, ox, oy, oz, dx, dy, dz, cone, active, depth, limit,
@@ -254,6 +294,8 @@ def trace_planes_torch(
     budget: int | None = None,
     use_bb_skip: bool = True,
     omega: float = 1.0,
+    split=None,
+    groups: torch.Tensor | None = None,
 ):
     """Plain PyTorch version of kernel K2, the resumable trace
     (render_kernel.py::_trace_kernel with ``shade=False``), on any device.
@@ -265,9 +307,12 @@ def trace_planes_torch(
     (:355-368), the others stop at the box's exit depth; without it, or
     for an unbounded scene (the JAX package's ``bb=None``), at the depth
     limit.
-    Rays that are not active keep their state. Returns ``(depth, steps,
-    outcome, active)`` ``(H, W)`` planes; ``active`` (int32) marks the rays
-    that stopped at ``budget`` short of the step limit (:281-283)."""
+    Rays that are not active keep their state. With ``split``, the active
+    rays of a group (``groups``, default :func:`patch_groups`) that all miss
+    its near box march its far scene (:func:`far_rays`). Returns ``(depth,
+    steps, outcome, active)`` ``(H, W)`` planes; ``active`` (int32) marks
+    the rays that stopped at ``budget`` short of the step limit
+    (:281-283)."""
     h, w = cone.shape
     ox, oy, oz, dx, dy, dz, c = _flat_rays(origins, directions, cone)
     if depth0 is None:
@@ -283,6 +328,14 @@ def trace_planes_torch(
         depth[active & miss] = config.depth_limit * 1.01
         active = active & ~miss
         limit = torch.clamp_max(t_exit, config.depth_limit)
+    if split is not None:
+        far = far_rays(split, ox, oy, oz, dx, dy, dz, c, config, active,
+                       patch_groups(h, w, c.device) if groups is None else groups)
+        steps0, outcome0, _, _, _ = _march(
+            descriptor_csdf(split[0]), config, ox, oy, oz, dx, dy, dz, c, active & far, depth,
+            limit, steps0=steps0, outcome0=outcome0, budget=budget, omega=omega,
+        )
+        active = active & ~far
     steps, outcome, _, _, unresolved = _march(
         descriptor_csdf(scene_desc), config, ox, oy, oz, dx, dy, dz, c, active, depth, limit,
         steps0=steps0, outcome0=outcome0, budget=budget, omega=omega,
@@ -329,15 +382,16 @@ def render_image_planes_torch(
     config: MarchConfig = MarchConfig(),
     *,
     omega: float = 1.0,
+    split=None,
 ):
     """Plain PyTorch version of kernel K1's render on any device: K2's twin
     from a fresh state, then K3's, which are K1's march (``omega > 1``
-    relaxed) and epilogue.
+    relaxed; with ``split`` the near/far split) and epilogue.
 
     Returns ``(rgb, depth, steps, outcome)``: linear RGB ``(H, W, 3)``
     float32, depth ``(H, W)`` float32, steps and outcome ``(H, W)`` int32."""
     depth, steps, outcome, _ = trace_planes_torch(scene_desc, origins, directions, cone,
-                                                  config=config, omega=omega)
+                                                  config=config, omega=omega, split=split)
     rgb = shade_planes_torch(scene_desc, origins, directions, depth, outcome, config)
     return rgb, depth, steps, outcome
 
@@ -411,6 +465,17 @@ class _SceneDescC(ctypes.Structure):
         ("grid_table", ctypes.c_void_p),
         ("grid", GridBoxC),
         ("grid_offset", _floats(3)),
+        ("scratch", ctypes.c_void_p),
+        ("scratch_threads", ctypes.c_int),
+        ("program_depth", ctypes.c_int),
+        ("program_frames", ctypes.c_int),
+        ("split", ctypes.c_int),
+        ("far", _CapsuleSetC),
+        ("near_lo", _floats(3)),
+        ("near_hi", _floats(3)),
+        ("near_center", _floats(3)),
+        ("near_radius", ctypes.c_float),
+        ("near_slack", ctypes.c_float),
     ]
 
 
@@ -443,6 +508,15 @@ def bounds_c(bb) -> dict:
         cull_radius=f32(radius),
         slack=f32(slack),
     )
+
+
+def near_c(split) -> dict:
+    """The near/far split's fields of ``SceneDesc`` and ``ParamScene``:
+    ``split`` on, the near box's bounds as :func:`bounds_c` gives them;
+    zeros for no split (None)."""
+    b = bounds_c(None if split is None else split[1])
+    return dict(split=int(split is not None), near_lo=b["lo"], near_hi=b["hi"],
+                near_center=b["cull_center"], near_radius=b["cull_radius"], near_slack=b["slack"])
 
 
 def march_c(config: MarchConfig) -> dict:
@@ -485,14 +559,33 @@ def _grid_table(grid, device) -> torch.Tensor:
     return table
 
 
+def _check_split(desc: SceneDescriptor, split) -> None:
+    """A split is a wireframe and a near box beside a reference scene with
+    its wireframe, the structures K1 and K2 split (Box<true, *>)."""
+    if split is None:
+        return
+    far, near = split
+    if getattr(far, "kind", None) != "wireframe" or len(near) not in (2, 3):
+        raise ValueError("split must be (far, (lo, hi[, slack])) of csdf.py::compile_scene_split")
+    if desc.kind != "reference" or desc.frame is None:
+        raise NotImplementedError(
+            "the near/far split is built for the reference render scene (Box<true, *>), "
+            "as compile_scene_split gives it"
+        )
+
+
 def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
-                 device: torch.device | str = "cuda") -> _SceneDescC:
+                 device: torch.device | str = "cuda", split=None) -> _SceneDescC:
     """The descriptor as the kernels take it (``SceneDesc``), with the
     index of the compiled structure it launches (:func:`kernel_structure`,
-    which raises for a descriptor that matches none). A composed scene's
-    node program is read from its buffer on the CUDA ``device`` ("cuda":
-    the current one), uploaded there once (``NodeProgram.on_device``); a
-    grid's table is read where it lies, which must be that device."""
+    which raises for a descriptor that matches none) and the near/far
+    ``split`` (None: none). A composed scene's node program is read from
+    its buffer on the CUDA ``device`` ("cuda": the current one), uploaded
+    there once (``NodeProgram.on_device``); in the large tier its stacks
+    live in a scratch buffer that each launch attaches
+    (:func:`attach_scratch`). A grid's table is read where it lies, which
+    must be that device."""
+    _check_split(desc, split)
     structure = kernel_structure(desc)
     program = None if desc.program is None else desc.program.on_device(device)
     table = None if desc.grid is None else _grid_table(desc.grid, device)
@@ -516,6 +609,10 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
         half_cell=0.0 if desc.cell is None else f32(desc.cell / 2.0),
         program=None if program is None else program.data_ptr(),
         program_length=0 if program is None else len(desc.program),
+        **dict(zip(("program_depth", "program_frames"),
+                   program_depths(desc.program.instructions) if program is not None else (0, 0))),
+        far=_CapsuleSetC() if split is None else _capsule_set_c(split[0].frame),
+        **near_c(split),
         grid_table=None if table is None else table.data_ptr(),
         grid=GridBoxC() if table is None else grid_box_c(desc.grid.resolution, desc.grid.lo,
                                                           desc.grid.hi),
@@ -524,6 +621,28 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
         **march_c(config),
         **shading_c(),
     )
+
+
+def attach_scratch(desc_c: _SceneDescC, threads: int, device, *,
+                   grad: bool = False) -> torch.Tensor | None:
+    """For a node program in the large tier (``COMPOSED_LARGE``), a scratch
+    buffer on ``device`` for a launch of ``threads`` threads, its stacks
+    and frames and, with ``grad`` (K6, K7), its tape
+    (``csdf.py::program_slots``), set in ``desc_c``; the caller keeps it
+    until the launch is enqueued. None for any other structure."""
+    if desc_c.structure != COMPOSED_LARGE:
+        return None
+    slots = program_slots(desc_c.program_length, desc_c.program_depth, desc_c.program_frames,
+                          grad=grad)
+    scratch = torch.empty(slots * threads, dtype=torch.float32, device=device)
+    desc_c.scratch, desc_c.scratch_threads = scratch.data_ptr(), threads
+    return scratch
+
+
+def frame_threads(h: int, w: int) -> int:
+    """The threads of K1's, K2's and K3's largest launch over an h x w
+    frame: a 16x8 block of 128 threads a tile."""
+    return -(-w // BLOCK_W) * -(-h // BLOCK_H) * 128
 
 
 @functools.cache
@@ -585,6 +704,7 @@ def _render_cuda(desc_c, origins, directions, cone, rgb, planes, *, cap: int, mo
     h, w = cone.shape
     depth, steps, outcome = planes if planes is not None else (None,) * 3
     block_list, count = blocks if blocks is not None else (None, None)
+    keep = attach_scratch(desc_c, frame_threads(h, w), cone.device)  # held until enqueued
     with torch.cuda.device(cone.device):
         err = lib.bsdmg_render(
             ctypes.addressof(desc_c), origins.data_ptr(), directions.data_ptr(), cone.data_ptr(),
@@ -608,6 +728,7 @@ def _trace_cuda(desc_c, origins, directions, cone, carried, out, *, cap: int, ac
     lib = library()
     h, w = cone.shape
     ray_list, count = rays if rays is not None else (None, None)
+    keep = attach_scratch(desc_c, frame_threads(h, w), cone.device)  # held until enqueued
     with torch.cuda.device(cone.device):
         err = lib.bsdmg_trace(
             ctypes.addressof(desc_c), origins.data_ptr(), directions.data_ptr(), cone.data_ptr(),
@@ -624,6 +745,7 @@ def _shade_cuda(desc_c, origins, directions, depth, outcome, rgb) -> None:
     global SHADE_LAUNCHES
     lib = library()
     h, w = depth.shape
+    keep = attach_scratch(desc_c, frame_threads(h, w), depth.device)  # held until enqueued
     with torch.cuda.device(depth.device):
         err = lib.bsdmg_shade(
             ctypes.addressof(desc_c), origins.data_ptr(), directions.data_ptr(), depth.data_ptr(),
@@ -682,7 +804,7 @@ class _Frame:
     pipeline over them: the kernels for CUDA tensors, their plain twins for
     CPU tensors."""
 
-    def __init__(self, desc, origins, directions, cone, config, use_bb_skip, omega):
+    def __init__(self, desc, origins, directions, cone, config, use_bb_skip, omega, split=None):
         if desc.kind == "grid":
             raise NotImplementedError(
                 "K1, K2 and K3 are not built for a grid: a mesh asset renders through "
@@ -695,8 +817,10 @@ class _Frame:
         # an unbounded scene (the wrapped object) has nothing to cull against
         self.cull = bool(use_bb_skip) and desc.bounds is not None
         self.omega = float(omega)
+        self.split = split
+        _check_split(desc, split)
         self.cuda = cone.device.type == "cuda"
-        self.desc_c = scene_desc_c(desc, config, cone.device) if self.cuda else None
+        self.desc_c = scene_desc_c(desc, config, cone.device, split) if self.cuda else None
 
     def cap(self, budget: int | None) -> int:
         limit = self.config.step_limit
@@ -707,9 +831,10 @@ class _Frame:
         return (torch.empty_like(cone), *(torch.empty_like(cone, dtype=torch.int32)
                                           for _ in range(3)))
 
-    def _twin(self, carried=None, budget=None):
+    def _twin(self, carried=None, budget=None, groups=None):
         return trace_planes_torch(self.desc, *self.rays, *(carried or ()), config=self.config,
-                                  budget=budget, use_bb_skip=self.cull, omega=self.omega)
+                                  budget=budget, use_bb_skip=self.cull, omega=self.omega,
+                                  split=self.split, groups=groups)
 
     def render(self, budget: int | None = None, planes: bool = False):
         """K1 from a fresh state: ``(rgb, depth, steps, outcome, active)``.
@@ -765,8 +890,9 @@ class _Frame:
             _trace_cuda(self.desc_c, *self.rays, planes, planes[:3], rays=rays, cull=self.cull,
                         omega=self.omega, cap=self.cap(None))
             return
-        carried = (*planes[:3], listed_flags(*rays, planes[3].numel()).reshape(planes[3].shape))
-        for old, value in zip(planes[:3], self._twin(carried)):
+        n = planes[3].numel()
+        carried = (*planes[:3], listed_flags(*rays, n).reshape(planes[3].shape))
+        for old, value in zip(planes[:3], self._twin(carried, groups=listed_groups(*rays, n))):
             old.copy_(value)
 
     def shade(self, depth, outcome) -> torch.Tensor:
@@ -830,6 +956,7 @@ def trace_cuda(
     phase_a_steps: int = 32,
     use_bb_skip: bool = True,
     omega: float | None = None,
+    split=None,
 ):
     """Trace an ``(H, W)`` ray image of ``scene_desc``; the counterpart of
     ``trace_pallas``. Returns ``(depth, steps, outcome)`` planes.
@@ -839,11 +966,12 @@ def trace_cuda(
     the rays still unresolved, in place. There is no tail capacity, so no
     overflow pass (the JAX package's ``tail_cap`` and phase C). Without
     ``use_bb_skip`` the march is not culled and stops at the depth limit.
-    ``omega=None`` honours ``config.relaxation``. CUDA tensors go through
-    K2, CPU tensors through :func:`trace_planes_torch`."""
+    ``omega=None`` honours ``config.relaxation``; ``split`` is the near/far
+    split (module docstring). CUDA tensors go through K2, CPU tensors
+    through :func:`trace_planes_torch`."""
     omega = config.relaxation if omega is None else float(omega)
     _check_inputs(origins, directions, cone)
-    frame = _Frame(scene_desc, origins, directions, cone, config, use_bb_skip, omega)
+    frame = _Frame(scene_desc, origins, directions, cone, config, use_bb_skip, omega, split)
     return frame.trace_pipeline(bool(two_phase), phase_a_steps)
 
 
@@ -895,6 +1023,7 @@ def render_image_cuda(
     phase_a_steps: int = 32,
     omega: float | None = None,
     swizzle: bool = True,
+    split=None,
 ):
     """Trace and shade an ``(H, W)`` ray image of ``scene_desc``; the
     counterpart of ``render_image_pallas``.
@@ -917,15 +1046,19 @@ def render_image_cuda(
     Each equals the default image, but relaxed (``omega > 1``; ``None``
     honours ``config.relaxation``) two-phase paths, whose relaxed state
     restarts with each launch, as in the JAX package. Without
-    ``use_bb_skip`` nothing is culled. Returns linear RGB ``(H, W, 3)``,
-    or ``(rgb, depth, steps, outcome)`` with ``return_planes=True``."""
+    ``use_bb_skip`` nothing is culled. ``split``, the near/far split
+    (module docstring), runs in every path: a warp's patch marches the far
+    scene where its rays all miss the near box, and every hit is shaded
+    with the full scene, as ``_shade_kernel`` shades. Returns linear RGB
+    ``(H, W, 3)``, or ``(rgb, depth, steps, outcome)`` with
+    ``return_planes=True``."""
     omega = config.relaxation if omega is None else float(omega)
     if two_phase not in (False, True, "block"):
         raise ValueError(f"two_phase must be False, True or 'block', got {two_phase!r}")
     if two_phase == "block" and not swizzle:
         raise ValueError("two_phase='block' requires the swizzled layout")
     _check_inputs(origins, directions, cone)
-    frame = _Frame(scene_desc, origins, directions, cone, config, use_bb_skip, omega)
+    frame = _Frame(scene_desc, origins, directions, cone, config, use_bb_skip, omega, split)
     if two_phase is True or not swizzle:
         depth, steps, outcome = frame.trace_pipeline(two_phase, phase_a_steps)
         rgb = frame.shade(depth, outcome)

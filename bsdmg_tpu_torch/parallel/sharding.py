@@ -146,16 +146,22 @@ def render_sharded_pallas(
     use_bb_skip: bool = True,
     two_phase: bool | str = False,
     phase_a_steps: int = 48,
+    split=None,
 ) -> torch.Tensor:
     """The frame of a compiled scene descriptor over the mesh, through
     kernel K1 on each rank (``two_phase=True``: K2 and K3; ``"block"``:
-    block retirement, K1 twice, each rank over its own blocks); the name
-    is the JAX package's. Takes the whole ``(H, W)`` ray image and returns
-    linear RGB ``(H, W, 3)``, bit-equal to ``render_image_cuda`` in the same
-    mode; do not pre-permute with :func:`shard_rays`."""
+    block retirement, K1 twice, each rank over its own blocks), with the
+    near/far ``split`` where given; the name is the JAX package's. Takes
+    the whole ``(H, W)`` ray image and returns linear RGB ``(H, W, 3)``,
+    bit-equal to ``render_image_cuda`` in the same mode (a band of 8 rows
+    holds whole 8x4 patches, so each patch votes on the rays it votes on in
+    the whole frame; the row pipeline's listed tail, whose warps are
+    another rank's list, is within the split's bars of it); do not
+    pre-permute with :func:`shard_rays`."""
     return _sharded_frame(
         lambda o, d, c: render_image_cuda(desc, o, d, c, config, use_bb_skip=use_bb_skip,
-                                          two_phase=two_phase, phase_a_steps=phase_a_steps),
+                                          two_phase=two_phase, phase_a_steps=phase_a_steps,
+                                          split=split),
         origins, directions, cone, mesh,
     )
 
@@ -196,17 +202,19 @@ def _sum_and_step(params: dict, optimizer, loss: torch.Tensor, grads: dict):
 
 
 def train_step_fused(cfn, params: dict, optimizer, target, origins, directions, cone,
-                     mesh: DeviceMesh, config: MarchConfig = MarchConfig(), *, bb=None):
+                     mesh: DeviceMesh, config: MarchConfig = MarchConfig(), *, bb=None,
+                     split=None):
     """One inverse-rendering step through the fused loss and gradient
     (kernel K5) on this rank's block of rays and ``target``
     (:func:`shard_rays`; the same block of the target), normalised by the
     global pixel count; the loss and gradients summed over the world in one
     ``all_reduce``; then ``optimizer`` (over ``params.values()``) steps on
-    every rank. Returns ``(params, loss)``."""
+    every rank. ``split`` is K5's near/far split. Returns ``(params,
+    loss)``."""
     h, w = cone.shape
     detached = {k: v.detach() for k, v in params.items()}
     loss, grads = render_loss_grad_cuda(cfn, detached, target, origins, directions, cone, config,
-                                        bb=bb, total_pixels=h * w * mesh.size())
+                                        bb=bb, total_pixels=h * w * mesh.size(), split=split)
     return _sum_and_step(params, optimizer, loss, grads)
 
 

@@ -438,11 +438,13 @@ def sdf_ops(desc) -> int:
     subtract, max, multiply, min, 3 multiplies, subtract), the frame's
     capsules and a min; the wrapped object the same beside three wraps
     (WRAP and fmodf each); the sphere SPHERE, the box SOLID_BOX, a grid
-    GRID_SDF; a composed scene its program's forward (:func:`program_ops`).
-    The mandelbulb's
-    depends on its data (:class:`LoopWork`) and raises here."""
+    GRID_SDF; a composed scene its program's forward (:func:`program_ops`);
+    the near/far split's far scene (a wireframe alone) its capsules. The
+    mandelbulb's depends on its data (:class:`LoopWork`) and raises here."""
     if desc.kind == "sphere":
         return SPHERE
+    if desc.kind == "wireframe":
+        return capsule_ops(desc.frame)
     if desc.kind == "box":
         return SOLID_BOX
     if desc.kind == "grid":

@@ -197,7 +197,27 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     320x180 and K6 and K7 at level 2 of init factor 16 against their twins;
 18. ``cli bench --roofline --which all``: the refine and marching-cubes
     rooflines' share of the speed of light beside the render's and the
-    grad's.
+    grad's;
+19. the near/far split (``compile_scene_split``) of the reference render
+    scene at 1920x1080: each pipeline of ``render_image_cuda`` (K1; K1
+    twice; K2, K2 over the listed tail, K3; K2 and K3) with the split, bit
+    for bit against the twins composed alike, and within the JAX package's
+    bars of the frame without it (max |drgb| > 1e-3 on under 0.1% of the
+    pixels, the mean under 1e-5); K1 and K2 alone with and without it, with
+    bounds from this run's far and near evaluations; K4 and K5 with the
+    split at the bench's 512x512 point and the fit's 64x64 point against
+    their twins (K4 bit for bit but dfdt; K5 within the bars) and alone
+    with and without it;
+20. K4 (512x512) and K8 (a 64^3 sphere grid) at ``relaxation=1.5``, bit
+    for bit their results at 1.0.
+
+The composed scenes of phase 9c (and the image fit of the other scenes
+beside phase 11) include two specs beyond the small tier of the
+interpreters' caps (a union of 40 spheres, 79
+instructions and 160 parameter values; ten nested transforms), which run
+in the kernels' large tier (``ComposedLarge`` in K1-K3, K6, K7;
+``ProgramLargeForm`` in K4, K5): ``cli render``, ``cli mesh`` and, for
+the union, ``cli fit --image``, each kernel against its twin.
 
 ``--grid-faults`` builds a copy of the tree per planted fault of the grid
 form (dfdt without its z term; the shading normal's z flipped) and
@@ -578,21 +598,26 @@ def same(a, b) -> bool:
 
 
 def twin_pipeline(rk, desc, o, d, c, *, two_phase=False, phase_a_steps=32, use_bb_skip=True,
-                  omega=1.0):
+                  omega=1.0, split=None):
     """The plain twins composed as ``render_image_cuda`` composes the
     kernels: a single march, or phase A capped at ``phase_a_steps`` then
     the rays of the row tail's list or of the listed 16x8 blocks resumed,
-    then the shading. Returns ``(rgb, depth, steps, outcome)``."""
-    kw = dict(use_bb_skip=use_bb_skip, omega=omega)
+    then the shading; with ``split``, the rays grouped as the kernels group
+    them (8x4 patches, the row tail's 32 listed rays). Returns ``(rgb,
+    depth, steps, outcome)``."""
+    kw = dict(use_bb_skip=use_bb_skip, omega=omega, split=split)
     if two_phase is False:
         planes = rk.trace_planes_torch(desc, o, d, c, **kw)[:3]
     else:
         a = rk.trace_planes_torch(desc, o, d, c, budget=phase_a_steps, **kw)
+        groups = None
         if two_phase == "block":
             active = a[3] * rk.block_rays(rk.compact_list(rk.block_flags(a[3])), *c.shape)
         else:
-            active = rk.listed_flags(*rk.compact_list(a[3].reshape(-1)), c.numel()).reshape(c.shape)
-        planes = rk.trace_planes_torch(desc, o, d, c, *a[:3], active, **kw)[:3]
+            listed = rk.compact_list(a[3].reshape(-1))
+            active = rk.listed_flags(*listed, c.numel()).reshape(c.shape)
+            groups = rk.listed_groups(*listed, c.numel())
+        planes = rk.trace_planes_torch(desc, o, d, c, *a[:3], active, groups=groups, **kw)[:3]
     return rk.shade_planes_torch(desc, o, d, planes[0], planes[2]), *planes
 
 
@@ -1117,10 +1142,14 @@ def plain_fit(scene, true: dict, start: dict, o, d, c, snapshots, shadow: bool =
     gradient bars, gradients, where the two gradients' signs differ)."""
     from bsdmg_tpu_torch.grad.diff_render import shade_diff_planes
     from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
-    from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene_split, scene_bounds
 
     bounds = scene_bounds(scene)
     bb = None if bounds is None else inflated(bounds, 0.6)
+    # the steps' near/far split, inflated as cli.fit_image inflates it
+    split = compile_scene_split(scene)
+    if split is not None:
+        split = (split[0], inflated(split[1], 0.6))
     h, w = c.shape
     depth, _, outcome, dfdt = (x.reshape(-1)
                                for x in dk.march_params_torch(scene.csdf, true, o, d, c, bb=bb))
@@ -1135,10 +1164,10 @@ def plain_fit(scene, true: dict, start: dict, o, d, c, snapshots, shadow: bool =
              "signs": {k: [] for k in params}}
     for i in range(max(snapshots)):
         loss, grads = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c, bb=bb,
-                                                edge_weight=1.0)
+                                                edge_weight=1.0, split=split)
         if shadow:
             k_loss, k_grads = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb,
-                                                       edge_weight=1.0)
+                                                       edge_weight=1.0, split=split)
             stats["loss_rel"].append(abs(k_loss.item() - loss.item()) / max(abs(loss.item()), 1e-30))
             stats["excess"].append(max(
                 ((k_grads[k] - grads[k]).abs() - GRAD_ATOL - GRAD_RTOL * grads[k].abs()).max().item()
@@ -1458,11 +1487,12 @@ FIT_SCENES = {
     "snowman": ("n1_radius=1.2", None, True),
     "ground": ("n5_radius=1.1", None, False),
     "lattice": ("n2_minor_radius=1.2", None, False),
+    "deep": ("n4_radius=1.2", None, False),
 }
 FIT_TWIN_STEPS = 10
 #: the parameter form each scene's K4 and K5 take (csrc/param_forms.cuh)
 FORM_OF = {"sphere": "SphereForm", "mandelbulb": "MandelbulbForm",
-           "wrapped_object": "WrappedForm"}
+           "wrapped_object": "WrappedForm", "deep": "ProgramLargeForm"}
 #: the mandelbulb's bars of K4 and K5 against their plain versions, whose
 #: libm calls and whose gradients (forward over forward in the kernels,
 #: autograd's reverse mode twice in the plain versions) round differently:
@@ -3214,6 +3244,23 @@ LATTICE_SPEC = {"name": "lattice", "root": {"op": "wrap", "cell": [3.0, 2.5, 3.0
          "child": {"prim": "cylinder", "radius": 0.2, "height": 1.2}},
         {"prim": "box_skeleton", "size": [1.6, 1.2, 1.0], "line_width": 0.04,
          "reference_compat": False}]}}}
+#: specs beyond the small tier of the interpreters' caps, which the kernels
+#: run in their large tier (ComposedLarge, ProgramLargeForm): a union of 40
+#: spheres (79 instructions, 160 parameter values) and ten nested
+#: transforms (10 frames); tests/test_torch_mesh.py holds the same specs
+#: against the JAX package
+DEEP_SPEC = {"name": "deep", "root": {"op": "union", "children": [
+    {"prim": "sphere", "center": [-1.6 + 0.8 * (i % 5), -1.4 + 0.4 * (i // 5),
+                                  0.3 * ((i * 7) % 3) - 0.3],
+     "radius": 0.22 + 0.01 * (i % 4)} for i in range(40)]}}
+NESTED_SPEC = {"op": "union", "children": [
+    {"prim": "torus", "major_radius": 0.8, "minor_radius": 0.3},
+    {"prim": "capsule", "start": [-0.6, 0.0, 0.0], "end": [0.6, 0.7, 0.0], "radius": 0.3},
+    {"prim": "sphere", "center": [0.7, 0.5, 0.0], "radius": 0.45}]}
+for _ in range(10):
+    NESTED_SPEC = {"op": "transform", "offset": [0.06, -0.03, 0.02],
+                   "rotation": [0.9950042, 0.0, 0.0998334, 0.0], "child": NESTED_SPEC}
+NESTED_SPEC = {"name": "nested", "root": NESTED_SPEC}
 #: the reference render scene written as a spec: the interpreter's cost
 #: against the fixed Box<true, false> structure on the same geometry
 REFERENCE_SPEC = {"name": "reference_as_spec", "root": {"op": "union", "children": [
@@ -3228,11 +3275,12 @@ ANIMATE_FRAMES = 4
 
 def scene_arguments(tmp: Path) -> dict[str, str]:
     """The ``--scene`` of each scene of :func:`scene_phases`: the other
-    built-in scenes by name, the composed ones by their JSON files (the two
-    specs written into ``tmp``)."""
+    built-in scenes by name, the composed ones by their JSON files (the
+    specs defined here written into ``tmp``; the last two run in the
+    kernels' large tier)."""
     out = {name: name for name in NEW_SCENES}
     out.update({name: str(ROOT / "examples" / f"{name}.json") for name in COMPOSED_EXAMPLES})
-    for spec in (GROUND_SPEC, LATTICE_SPEC):
+    for spec in (GROUND_SPEC, LATTICE_SPEC, DEEP_SPEC, NESTED_SPEC):
         path = tmp / f"{spec['name']}.json"
         path.write_text(json.dumps(spec))
         out[spec["name"]] = str(path)
@@ -3321,8 +3369,9 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
             res["K1 ms"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
                                                             cap=cfg.step_limit, cull=cull))
             res["hits"], res["evaluations"], res["ops"] = hits, evals, ops
+            tier = "ComposedLarge" if rk.kernel_structure(desc) == rk.COMPOSED_LARGE else "Composed"
             k1 = registers[NEW_SCENE_K1[name] if name in NEW_SCENE_K1
-                           else f"render_kernel<Composed, {str(cull).lower()}, false, 0>"]
+                           else f"render_kernel<{tier}, {str(cull).lower()}, false, 0>"]
             res["registers"] = {k: k1[k] for k in ("registers", "stack", "spill_stores")}
             small = frame(*SCENE_PARITY_FRAME)
             for tp in (True, "block"):
@@ -3369,8 +3418,9 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
             if composed:
                 res.update(composed_kernel_times(desc, o, d, c, args, kwargs, args7, kwargs7,
                                                  field.count))
-                if name == "gadget":
-                    entries = composed_entries(res, launches, k1_err, (k6, t6), (k7, t7))
+                if name in ("gadget", "deep"):
+                    entries += composed_entries(res, launches, k1_err, (k6, t6), (k7, t7), name,
+                                                tier)
             print(f"{'composed scene' if composed else 'scene'} {name} on {card}: "
                   f"{json.dumps(res)}")
             out[name] = res
@@ -3411,25 +3461,27 @@ def composed_kernel_times(desc, o, d, c, args, kwargs, args7, kwargs7, voxels: i
     return res
 
 
-def composed_entries(res: dict, launches: dict, k1_err: float, k6, k7) -> list[dict]:
-    """The kernels line's entries of the Composed instantiations of K1, K6
-    and K7, from one composed scene's results (``k6`` and ``k7``: the
-    kernel's planes and the twin's)."""
+def composed_entries(res: dict, launches: dict, k1_err: float, k6, k7, name: str = "gadget",
+                     tier: str = "Composed") -> list[dict]:
+    """The kernels line's entries of the ``tier`` instantiations (Composed,
+    or the large tier's ComposedLarge) of K1, K6 and K7, from the composed
+    scene ``name``'s results (``k6`` and ``k7``: the kernel's planes and
+    the twin's)."""
     from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
     from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
 
     common = {"route": "cuda", "library_ms": None}
     return [
-        {"name": "K1 render_kernel<Composed> (gadget, 1920x1080)", "source": rk.SOURCE,
+        {"name": f"K1 render_kernel<{tier}> ({name}, 1920x1080)", "source": rk.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336", "launches": launches["K1"],
          "max_abs_err": k1_err, "ms": res["K1 ms"], "plain_ms": res["plain ms"],
          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], **common},
-        {"name": "K6 mc_kernel<Composed> (gadget, level 3)", "source": mc_kernel.SOURCE,
+        {"name": f"K6 mc_kernel<{tier}> ({name}, level 3)", "source": mc_kernel.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/mc_fused.py:77", "launches": launches["K6"],
          "max_abs_err": _max_err(k6[0][0].nan_to_num(0.0), k6[1][0].nan_to_num(0.0)),
          "ms": res["K6 ms"], "plain_ms": res["K6 plain ms"], "bound_ms": res["K6 bound"][0],
          "bound_by": res["K6 bound"][1], **common},
-        {"name": "K7 project_kernel<Composed> (gadget, level 3)", "source": mesh_kernel.SOURCE,
+        {"name": f"K7 project_kernel<{tier}> ({name}, level 3)", "source": mesh_kernel.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/mesh_kernel.py:66", "launches": launches["K7"],
          "max_abs_err": _max_err(k7[0][0].nan_to_num(0.0), k7[1][0].nan_to_num(0.0)),
          "ms": res["K7 ms"], "plain_ms": res["K7 plain ms"], "bound_ms": res["K7 bound"][0],
@@ -4731,6 +4783,272 @@ def parallel_phases(card: str, device) -> None:
     print(f"parallel: every phase passed in {time.perf_counter() - start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the near/far split (K1, K2, K4, K5), and exact stepping at any relaxation
+# (K4, K8)
+# ---------------------------------------------------------------------------
+
+#: each pipeline of render_image_cuda, and the launches of one frame
+SPLIT_PIPELINES = {"fused": ({}, {"K1": 1}), "block": ({"two_phase": "block"}, {"K1": 2}),
+                   "row": ({"two_phase": True}, {"K2": 2, "K3": 1}),
+                   "unfused": ({"swizzle": False}, {"K2": 1, "K3": 1})}
+#: K4's and K5's points: the JAX bench's grad cell at 512x512 (bounds and
+#: near box inflated by 0.25, a black target, no edge term) and the CLI's
+#: fit at 64x64 (by 0.6, the render at the true parameters, the edge term)
+SPLIT_POINTS = {"bench": (512, 0.25, 0.0), "fit": (64, 0.6, 1.0)}
+
+
+def split_bars(rgb, unsplit) -> dict:
+    """The JAX package's bars of a split render against the frame without
+    the split (tests/test_pallas.py:320-323): max |drgb| > 1e-3 on fewer
+    than 0.1% of the pixels, the mean below 1e-5."""
+    diff = (rgb - unsplit).abs().amax(dim=-1)
+    out = {"share_over_1e-3": (diff > 1e-3).float().mean().item(), "mean": diff.mean().item()}
+    check(out["share_over_1e-3"] < 1e-3 and out["mean"] < 1e-5,
+          f"the split's frame outside JAX's bars of the frame without it: {out}")
+    return out
+
+
+def split_work(rk, bounds, split, o, d, c, planes, cfg) -> tuple[dict, dict]:
+    """The march work (:func:`march_work`) of the far patches' rays and of
+    the others', the far ones grouped as the kernels group them (the rays
+    culled by ``bounds`` take no part)."""
+    flat = rk._flat_rays(o, d, c)
+    miss, _ = rk._slab_cull(bounds, *flat, cfg)
+    far = rk.far_rays(split, *flat, cfg, ~miss, rk.patch_groups(*c.shape, c.device))
+    depth, steps, outcome = (p.reshape(-1) for p in planes)
+    return ({"far": march_work(steps[far], outcome[far], depth[far]),
+             "near": march_work(steps[~far], outcome[~far], depth[~far])},
+            {"far_rays": int(far.sum()), "rays": far.numel()})
+
+
+def split_phases(card: str, device) -> list[dict]:
+    """The near/far split (``compile_scene_split``) of the reference render
+    scene at SCENE_FRAME: each pipeline of ``render_image_cuda`` (K1; K1
+    twice; K2, K2 over the listed tail, K3; K2 and K3) with the split
+    against the twins composed alike (bit for bit) and within the JAX
+    package's bars of the frame without it; K1 and K2 alone with and
+    without the split (CUDA graphs of 20) with their bounds from this run's
+    work (the far patches' evaluations at the wireframe's count); K4 and
+    K5 with the split at SPLIT_POINTS against their twins (K4 bit-equal but
+    dfdt, within DFDT_ATOL; K5 within the bars, two calls the same bits)
+    and alone with and without it. Returns the kernels line's entries of
+    the split instantiations."""
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+    from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, compile_scene_split, scene_bounds
+    from bsdmg_tpu_torch.utils import profiling
+
+    cfg = MarchConfig()
+    scene = reference_render_scene(device=device)
+    desc, split = compile_scene(scene), compile_scene_split(scene)
+    o, d, c = rays(*SCENE_FRAME, device)
+    npix = c.numel()
+    for r in kernel_resources("render_kernel.cu", ("render_split_kernel<", "trace_split_kernel<")):
+        print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
+              f"{r['spill_stores']} B spill stores")
+    res, launches = {}, {}
+    for name, (kw, want) in SPLIT_PIPELINES.items():
+        reset_launches()
+        kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True, split=split, **kw)
+        torch.cuda.synchronize()
+        launches[name] = launched(launch_counts())
+        check(launches[name] == want, f"the {name} pipeline with the split launched "
+                                      f"{launches[name]}, not {want}")
+        plain = twin_pipeline(rk, desc, o, d, c, two_phase=kw.get("two_phase", False), split=split)
+        stats = compare(kernel, plain)
+        unsplit = rk.render_image_cuda(desc, o, d, c, return_planes=True, **kw)
+        res[name] = {**split_bars(kernel[0], unsplit[0]), "exact": stats["exact"],
+                     "steps": int(kernel[2].sum()), "steps_unsplit": int(unsplit[2].sum()),
+                     "outcomes_equal": bool(torch.equal(kernel[3], unsplit[3]))}
+        if name == "fused":
+            k1_err, k1_planes = stats["max_abs_err"], kernel[1:]
+        if name == "row":
+            k2_err = _max_err(kernel[1], plain[1])
+        print(f"split {name} pipeline {SCENE_FRAME}: {json.dumps(res[name])}")
+
+    # alone, from prepared structs, with and without the split
+    work, rays_of = split_work(rk, desc.bounds, split, o, d, c, k1_planes, cfg)
+    (ef, af, hf), (en, an, hn) = work["far"], work["near"]
+    far = split[0]
+    k1_ops = (march_ops(far, ef, af, 0) + march_ops(desc, en, an, 0)
+              + (hf + hn) * profiling.shade_ops(desc) + npix * profiling.RAY)
+    k1_bound = bound(render_bytes(npix), k1_ops)
+    k2_ops = march_ops(far, ef, af, npix) + march_ops(desc, en, an, 0)
+    k2_bound = bound(trace_bytes(npix), k2_ops)
+    rgb = torch.empty((*c.shape, 3), device=device)
+    planes = tuple(torch.empty_like(c, dtype=t) for t in (torch.float32, torch.int32, torch.int32))
+    alone = {}
+    for label, sp in (("split", split), ("unsplit", None)):
+        desc_c = rk.scene_desc_c(desc, cfg, device, sp)
+        alone[f"K1 {label}"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
+                                                                cap=cfg.step_limit))
+        alone[f"K2 {label}"] = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, None, planes,
+                                                               cap=cfg.step_limit))
+    k1_plain = median_ms(lambda: rk.render_image_planes_torch(desc, o, d, c, split=split),
+                         runs=1, warmup=0)
+    k2_plain = median_ms(lambda: rk.trace_planes_torch(desc, o, d, c, split=split), runs=1,
+                         warmup=0)
+    print(f"split alone {SCENE_FRAME} on {card}: {json.dumps(alone)}; {rays_of['far_rays']} of "
+          f"{rays_of['rays']} rays in far patches; evaluations far {ef}, near {en}; K1 bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); "
+          f"plain K1 {k1_plain:.1f} ms, K2 {k2_plain:.1f} ms")
+
+    # K4 and K5 with the split
+    true = shape_params(scene)
+    diff, rows = {}, {}
+    for point, (size, by, edge) in SPLIT_POINTS.items():
+        o, d, c = rays(size, size, device)
+        n = c.numel()
+        bb = inflated(scene_bounds(scene), by)
+        sp = (split[0], inflated(split[1], by))
+        params = true if point == "bench" else cli._apply_perturb(true, FIT_PERTURB)
+        target = (torch.zeros((size, size, 3), device=device) if point == "bench" else
+                  render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf, bb=bb).detach())
+        reset_launches()
+        k4 = dk.march_params_cuda(scene.csdf, params, o, d, c, bb=bb, track_min=bool(edge),
+                                  split=sp)
+        k5 = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb,
+                                      edge_weight=edge, split=sp)
+        counts = launched(launch_counts())
+        check(counts == {"K4": 1, "K5": 1}, f"K4/K5 with the split launched {counts}")
+        again = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb,
+                                         edge_weight=edge, split=sp)
+        p4 = dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb, track_min=bool(edge),
+                                   split=sp)
+        p5 = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c, bb=bb,
+                                       edge_weight=edge, split=sp)
+        u4 = dk.march_params_cuda(scene.csdf, params, o, d, c, bb=bb, track_min=bool(edge))
+        torch.cuda.synchronize()
+        hit = u4[2] == 0
+        out = {
+            "K4 exact": {k: bool(torch.equal(k4[i], p4[i])) for i, k in enumerate(
+                ("depth", "steps", "outcome", "dfdt", "min_m", "t_min")[:len(k4)])},
+            "K4 dfdt max err": _max_err(k4[3], p4[3]),
+            "K4 outcomes = unsplit": bool(torch.equal(k4[2], u4[2])),
+            "K4 hit depth vs unsplit": (k4[0] - u4[0]).abs()[hit].max().item(),
+            "K5 loss": k5[0].item(), "K5 plain loss": p5[0].item(),
+            "K5 loss rel err": abs(k5[0].item() - p5[0].item()) / max(abs(p5[0].item()), 1e-30),
+            "K5 excess over bars": k5_excess(k5[1], p5[1]),
+            "K5 grad max abs err": max(_max_err(k5[1][k], p5[1][k]) for k in k5[1]),
+            "K5 reproducible": bool(torch.equal(k5[0], again[0]) and all(
+                torch.equal(k5[1][k], again[1][k]) for k in k5[1])),
+        }
+        print(f"split K4/K5 {point} point ({size}x{size}): {json.dumps(out)}")
+        check(all(v for k, v in out["K4 exact"].items() if k != "dfdt"),
+              f"K4 with the split is not bit-equal to its plain version: {out}")
+        check(out["K4 dfdt max err"] <= DFDT_ATOL, f"K4 with the split, dfdt: {out}")
+        check(out["K4 outcomes = unsplit"]
+              and out["K4 hit depth vs unsplit"] <= cfg.collision_distance,
+              f"K4 with the split against it without: {out}")
+        check(out["K5 loss rel err"] <= LOSS_RTOL and out["K5 excess over bars"] <= 0
+              and out["K5 reproducible"], f"K5 with the split outside the bars: {out}")
+        diff[point] = out
+        # alone, with and without the split, and the bounds of this work
+        state = dk._target_state(target, None).contiguous() if edge else None
+        band = dk._band(cfg, None)
+        for label, s_ in (("split", sp), ("unsplit", None)):
+            scene_c, _ = dk.param_scene_c(scene.csdf, params, bb=bb, device=device, split=s_)
+            rows[(point, label, "K4")] = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
+            rows[(point, label, "K5")] = graph_ms(
+                lambda: dk._loss_grad_cuda(scene_c, o, d, c, target, state, n, edge, band))
+        # the bounds of this work: the far patches' evaluations and dfdt at
+        # the wireframe's counts (the skeleton and its backward)
+        work, rays_of = split_work(rk, bb, sp, o, d, c, k4[:3], cfg)
+        (ef, af, hf), (en, an, hn) = work["far"], work["near"]
+        nf, track = rays_of["far_rays"], bool(edge)
+        far_sdf, far_grad = profiling.SKELETON, profiling.SKELETON + profiling.SKELETON_BWD
+        full_sdf, full_grad = profiling.param_sdf_ops(True, False), profiling.param_grad_ops(True,
+                                                                                             False)
+        k4_b = bound(n * (28 + 16), k4_ops(n - nf, en, an, True, False, True, track)
+                     + k4_ops(nf, ef, af, True, False, True, track, sdf=far_sdf, grad=far_grad))
+        hinges = 0
+        if edge:
+            from bsdmg_tpu_torch.grad.edge import UNTRACKED, classify_target_miss
+
+            miss, hits = classify_target_miss(target), k4[2] == 0
+            hinges = int(((~miss & ~hits & (k4[4] < UNTRACKED)) | (miss & hits)).sum().item())
+        k5_b = bound(n * (40 + 4 * track),
+                     k5_ops(n, ef + en, af + an, hf + hn, hinges, True, False, track)
+                     - ef * (full_sdf - far_sdf) - hf * (full_grad - far_grad))
+        p4_ms = median_ms(lambda: dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb,
+                                                        split=sp), runs=1, warmup=0)
+        p5_ms = median_ms(lambda: dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c,
+                                                            bb=bb, edge_weight=edge, split=sp),
+                          runs=1, warmup=0)
+        rows[(point, "bounds")] = (k4_b, k5_b, p4_ms, p5_ms, rays_of)
+        print(f"split alone {point} point ({size}x{size}) on {card}: K4 "
+              f"{rows[(point, 'split', 'K4')]:.4f} ms (unsplit {rows[(point, 'unsplit', 'K4')]:.4f}),"
+              f" K5 {rows[(point, 'split', 'K5')]:.4f} ms (unsplit "
+              f"{rows[(point, 'unsplit', 'K5')]:.4f}); {rays_of['far_rays']} of {rays_of['rays']} "
+              f"rays in far patches; bounds K4 {k4_b[0]:.4f} ms ({k4_b[1]}), K5 {k5_b[0]:.4f} ms "
+              f"({k5_b[1]}); plain K4 {p4_ms:.2f} ms, K5 {p5_ms:.2f} ms")
+
+    common = {"route": "cuda", "library_ms": None}
+    k4_b, k5_b, p4_ms, p5_ms, _ = rows[("bench", "bounds")]
+    return [
+        {"name": f"K1 render_split_kernel<Box<true, false>> (near/far split, {SCENE_FRAME[0]}x"
+                 f"{SCENE_FRAME[1]})", "source": rk.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336",
+         "launches": launches["fused"]["K1"], "max_abs_err": k1_err, "ms": alone["K1 split"],
+         "plain_ms": k1_plain, "bound_ms": k1_bound[0], "bound_by": k1_bound[1], **common},
+        {"name": f"K2 trace_split_kernel<Box<true, false>> (near/far split, {SCENE_FRAME[0]}x"
+                 f"{SCENE_FRAME[1]})", "source": rk.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:495",
+         "launches": launches["row"]["K2"], "max_abs_err": k2_err, "ms": alone["K2 split"],
+         "plain_ms": k2_plain, "bound_ms": k2_bound[0], "bound_by": k2_bound[1], **common},
+        {"name": "K4 march_params_split_kernel (near/far split, 512x512)", "source": dk.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60", "launches": 1,
+         "max_abs_err": max(v["K4 dfdt max err"] for v in diff.values()),
+         "ms": rows[("bench", "split", "K4")], "plain_ms": p4_ms, "bound_ms": k4_b[0],
+         "bound_by": k4_b[1], **common},
+        {"name": "K5 loss_march_split_kernel + loss_tangent_kernel + loss_grad_sum (near/far "
+                 "split, 512x512)", "source": dk.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232", "launches": 1,
+         "max_abs_err": max(v["K5 grad max abs err"] for v in diff.values()),
+         "ms": rows[("bench", "split", "K5")], "plain_ms": p5_ms, "bound_ms": k5_b[0],
+         "bound_by": k5_b[1], **common},
+    ]
+
+
+def relaxation_phase(card: str, device) -> None:
+    """K4 and K8 step exactly whatever ``config.relaxation`` says, as the
+    JAX kernels do: at relaxation 1.5 each is bit-equal to itself at 1.0
+    (K4 at 512x512 on the reference scene, K8 on a 64^3 sphere grid at
+    960x540)."""
+    from bsdmg_tpu_torch.config import MarchConfig
+    from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.models.mesh_sdf import SdfGrid
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda import grid_kernel as tg
+    from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
+
+    relaxed, exact = MarchConfig(relaxation=1.5), MarchConfig()
+    scene = reference_render_scene(device=device)
+    bb = inflated(scene_bounds(scene), 0.6)
+    o, d, c = rays(512, 512, device)
+    reset_launches()
+    k4 = [dk.march_params_cuda(scene.csdf, scene.params, o, d, c, cfg, bb=bb, track_min=True)
+          for cfg in (relaxed, exact)]
+    ax = torch.linspace(-1.5, 1.5, 64, device=device)
+    x, y, z = torch.meshgrid(ax, ax, ax, indexing="ij")
+    grid = SdfGrid(values=(torch.sqrt(x * x + y * y + z * z) - 1.0).contiguous(), lo=(-1.5,) * 3,
+                   hi=(1.5,) * 3)
+    o, d, c = rays(*SCENE_PARITY_FRAME, device, (2.5, 1.0, -2.5))
+    k8 = [tg.grid_march_cuda(tg.interp_sampler(grid), o, d, c, cfg) for cfg in (relaxed, exact)]
+    torch.cuda.synchronize()
+    counts = launched(launch_counts())
+    out = {"K4": same(*k4), "K8": same(*k8), "launches": counts,
+           "K8 hits": int((k8[0][2] == 0).sum())}
+    print(f"relaxation 1.5 against 1.0 on {card}: {json.dumps(out)}")
+    check(out["K4"] and out["K8"] and counts.get("K4") == 2 and counts.get("K8") == 2,
+          f"K4 or K8 at relaxation 1.5 differs from 1.0: {out}")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4786,6 +5104,8 @@ def main(argv: list[str]) -> int:
     parallel_phases(card, device)
     kernels += moved_wrap_phase(card, device)
     roofline_phase(card)
+    kernels += split_phases(card, device)
+    relaxation_phase(card, device)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s, the build "
           "included")

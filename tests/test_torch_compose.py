@@ -70,7 +70,7 @@ from bsdmg_tpu_torch.ops.cuda import csdf as tcsdf
 from bsdmg_tpu_torch.ops.cuda.render_kernel import render_image_cuda, trace_cuda
 from bsdmg_tpu_torch.utils import profiling
 from bsdmg_tpu_torch.weights import params_from_numpy
-from test_torch_mesh import _sorted_rows, assert_same_mesh
+from test_torch_mesh import LARGE_SPECS, _sorted_rows, assert_same_mesh
 from test_torch_render_kernel import assert_image_bars
 
 torch.set_num_threads(1)
@@ -110,7 +110,7 @@ NAMES = sorted(SPECS)
 
 def _pair(name):
     """The JAX package's scene and the port's, from the same spec."""
-    spec = SPECS[name]
+    spec = {**SPECS, **LARGE_SPECS}[name]
     return (jcompose.compose_scene(copy.deepcopy(spec)),
             tcompose.compose_scene(copy.deepcopy(spec), device="cpu"))
 
@@ -275,10 +275,12 @@ def test_descriptor_value_and_grad_match_jax_vjp(name):
 
 def test_kernel_structure_program_and_caps():
     """Composed is index 8 (the header's case 8), the program's words carry
-    the opcodes and the constants' bits, and a program beyond the caps
-    raises, naming them."""
+    the opcodes and the constants' bits, and a program beyond the small
+    tier's caps runs in the large tier, ComposedLarge, index 12 (its render
+    against JAX: test_render_beyond_the_small_tier_matches_jax)."""
     header = (Path(tcsdf.__file__).resolve().parents[2] / "csrc" / "scene_sdf.cuh").read_text()
     assert "case 8: f(Composed{}); return true;" in header
+    assert "case 12: f(ComposedLarge{}); return true;" in header
     # the caps are in program.cuh, which composed.cuh includes
     caps = "".join((Path(tcsdf.__file__).resolve().parents[2] / "csrc" / name).read_text()
                    for name in ("composed.cuh", "program.cuh"))
@@ -297,14 +299,14 @@ def test_kernel_structure_program_and_caps():
     np.testing.assert_array_equal(words[:, 0], ops)
     assert words[6, 1] == 3 and words[7, 1] == 2  # the pop's push, the fold's left operand
     assert words[1, 2:6].view(np.float32).tolist() == [1.0, 0.5, 0.0, float(np.float32(0.7))]
-    deep = {"op": "union", "children": [{"prim": "sphere", "radius": 0.1 + i} for i in range(40)]}
-    with pytest.raises(NotImplementedError, match="at most 64 instructions"):
-        tcsdf.compile_scene(tcompose.compose_scene({"root": deep}, device="cpu"))
-    nested = {"prim": "sphere"}
-    for _ in range(9):
-        nested = {"op": "transform", "child": nested}
-    with pytest.raises(NotImplementedError, match="8 frames"):
-        tcsdf.compile_scene(tcompose.compose_scene({"root": nested}, device="cpu"))
+    assert not tcsdf.large_tier(desc.program.instructions)
+    for name, (length, depth, frames) in (("deep", (79, 2, 0)), ("nested", (25, 2, 10)),
+                                          ("right-nested", (35, 18, 0))):
+        big = _desc(name)
+        assert (len(big.program), *tcsdf.program_depths(big.program.instructions)) == (
+            length, depth, frames)
+        assert tcsdf.large_tier(big.program.instructions)
+        assert tcsdf.kernel_structure(big) == tcsdf.COMPOSED_LARGE == 12
 
 
 def test_operation_counts():
@@ -388,6 +390,20 @@ def test_trace_and_render_match_jax_xla(name):
     """K2's twin without the cull, K1's with it (where the scene has
     bounds), and the row pipeline (K2, K2 resumed, K3) against the JAX
     package's XLA trace and render at 64x36."""
+    _assert_trace_and_render(name)
+
+
+@pytest.mark.parametrize("name", sorted(LARGE_SPECS))
+def test_render_beyond_the_small_tier_matches_jax(name):
+    """The specs beyond the small tier's caps (tests/test_torch_mesh.py
+    LARGE_SPECS: 79 instructions, 10 nested frames, 18 stack values), which
+    raised before, through the large tier's twins against the JAX package's
+    XLA trace and render, by test_trace_and_render_match_jax_xla's bars."""
+    assert tcsdf.kernel_structure(_desc(name)) == tcsdf.COMPOSED_LARGE
+    _assert_trace_and_render(name)
+
+
+def _assert_trace_and_render(name):
     (jo, jd, jc), rays = _rays(64, 36)
     jscene, _ = _pair(name)
     ref = jtrace.sphere_trace(jscene.bind(), jo, jd, jc)
@@ -522,6 +538,23 @@ def test_cli_render_of_a_spec(scene, tmp_path):
     assert img.shape == (18, 32, 3) and np.isfinite(img).all()
     (jo, jd, jc), rays = _rays(32, 18)
     assert_image_bars(img, np.asarray(jshade.render_image(_pair(name)[0].bind(), jo, jd, jc)))
+
+
+@pytest.mark.parametrize("name", ["deep", "nested"])
+def test_cli_render_beyond_the_small_tier_matches_jax(name, tmp_path):
+    """``cli render --device cpu`` of the 40-sphere union and of the ten
+    nested transforms (tests/test_torch_mesh.py LARGE_SPECS), which raised
+    before, against JAX's render of the spec."""
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps(LARGE_SPECS[name]))
+    out = tmp_path / "frame.npy"
+    assert cli.main(["render", "--device", "cpu", "--scene", str(path), "--width", "64",
+                     "--height", "36", "-o", str(out)]) == 0
+    img = np.load(out)
+    (jo, jd, jc), _ = _rays(64, 36)
+    ref = np.asarray(jshade.render_image(_pair(name)[0].bind(), jo, jd, jc))
+    assert (np.abs(ref - ref[0, 0]).max(-1) > 1e-3).sum() > 50  # the object is in the frame
+    assert_image_bars(img, ref)
 
 
 @pytest.mark.parametrize("interpolate", [False, True], ids=["midpoints", "interpolate-edges"])

@@ -5,7 +5,7 @@ At 96x54 with the target rendered at the true parameters, the radius at
 ``edge_weight=1`` against ``render_loss_grad_pallas`` in interpret mode:
 loss to a relative 1e-4, gradients at rtol 1e-3, atol 1e-6
 (tests/test_grad.py:357-378), once as the JAX tests call it and once with
-the near/far split on, as the JAX CLI calls it (the port has no split).
+the near/far split on in both packages, as their CLIs call it.
 Then the port alone: ``edge_weight=0`` is bit-identical to the photometric
 loss, and the radius gradient points back to the truth across 0.5x-1.5x
 (tests/test_grad.py:340-355).
@@ -25,6 +25,7 @@ from bsdmg_tpu.ops.pallas.diff_kernel import render_loss_grad_pallas
 from bsdmg_tpu_torch.grad import render_image_diff, render_loss_and_grad
 from bsdmg_tpu_torch.grad.edge import UNTRACKED, classify_target_miss, edge_loss_planes
 from bsdmg_tpu_torch.models import reference_render_scene
+from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene_split as torch_scene_split
 from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
 from bsdmg_tpu_torch.ops.cuda.diff_kernel import render_loss_grad_torch
 from bsdmg_tpu_torch.weights import params_from_numpy
@@ -72,10 +73,12 @@ def test_edge_loss_grad_twin_matches_pallas(jax_setup, torch_setup, split):
     scene, rays, tp, _, ttarget = torch_setup
     jp = dict(true)
     jp["sphere_radius"] = jp["sphere_radius"] * 1.25
-    jax_split = None
+    jax_split = torch_split = None
     if split:
         far, near = compile_scene_split(jscene)
         jax_split = (far, _inflated(near))
+        far, near = torch_scene_split(scene)
+        torch_split = (far, _inflated(near))
     ref_loss, ref_g = render_loss_grad_pallas(
         jscene.csdf, jp, target, o, d, c, bb=bb, split=jax_split, edge_weight=1.0, interpret=True
     )
@@ -83,7 +86,8 @@ def test_edge_loss_grad_twin_matches_pallas(jax_setup, torch_setup, split):
     p["sphere_radius"] = p["sphere_radius"] * 1.25
     # the JAX target, so both sides fit the same image
     loss, g = render_loss_grad_torch(
-        scene.csdf, p, torch.from_numpy(np.array(target)), *rays, bb=bb, edge_weight=1.0
+        scene.csdf, p, torch.from_numpy(np.array(target)), *rays, bb=bb, edge_weight=1.0,
+        split=torch_split,
     )
     assert float(loss) == pytest.approx(float(ref_loss), rel=1e-4)
     for k in ref_g:

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from bsdmg_tpu.cam import generate_rays, look_at
+from bsdmg_tpu.config import MarchConfig as JaxMarchConfig
 from bsdmg_tpu.models import reference_render_scene as jax_render_scene
 from bsdmg_tpu.ops.pallas.csdf import scene_bounds as jax_scene_bounds
 from bsdmg_tpu.ops.pallas.diff_kernel import march_params_pallas, render_loss_grad_pallas
@@ -144,8 +145,6 @@ def _bad_inputs():
     p = scene.params
     t = torch.zeros((8, 16, 3))
     return {
-        "relaxation": (lambda: march_params_cuda(scene.csdf, p, o, d, c, MarchConfig(relaxation=1.5)),
-                       NotImplementedError),
         "float64 cone": (lambda: march_params_cuda(scene.csdf, p, o, d, c.double()), TypeError),
         "param on meta": (lambda: march_params_cuda(
             scene.csdf, {**p, "smooth_k": p["smooth_k"].to("meta")}, o, d, c), ValueError),
@@ -157,6 +156,50 @@ def _bad_inputs():
         "missing param": (lambda: param_scene_c(
             scene.csdf, {k: v for k, v in p.items() if k != "smooth_k"}), ValueError),
     }
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_relaxation_steps_exactly_as_jax(kernel):
+    """K4 and K5 step exactly whatever ``config.relaxation`` says, as the
+    JAX kernels, which never read it (their wrappers raised on it before):
+    at relaxation 1.5 the twins (through the wrappers, on CPU tensors)
+    equal their own results at 1.0 bit for bit, and JAX's
+    ``march_params_pallas`` and ``render_loss_grad_pallas`` at 1.5 (interpret
+    mode, 16x8) within test_march_twin_matches_pallas's and
+    test_loss_grad_twin_matches_pallas's bars."""
+    jscene, scene = jax_render_scene(), reference_render_scene(device="cpu")
+    bb = _inflated(jax_scene_bounds(jscene), 0.6)
+    (o, d, c), rays = _rays(16, 8)
+    jp = _point("fit")
+    p = _torch_params(jp)
+    relaxed, exact = MarchConfig(relaxation=1.5), MarchConfig()
+    if kernel == "K4":
+        got = march_params_cuda(scene.csdf, p, *rays, relaxed, bb=bb, track_min=True)
+        same = march_params_cuda(scene.csdf, p, *rays, exact, bb=bb, track_min=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
+        ref = [np.asarray(x) for x in march_params_pallas(
+            jscene.csdf, jp, o, d, c, JaxMarchConfig(relaxation=1.5), bb=bb, interpret=True,
+            track_min=True)]
+        got = [x.numpy() for x in got]
+        np.testing.assert_array_equal(got[2], ref[2])
+        steps = got[1] == ref[1]
+        assert (~steps).sum() <= 1, f"{(~steps).sum()} rays with other step counts"
+        hit = steps & (ref[2] == 0)
+        assert hit.any()
+        for i in (0, 3):  # depth, dfdt
+            np.testing.assert_allclose(got[i][hit], ref[i][hit], atol=1e-5)
+        return
+    target = np.random.default_rng(1).uniform(0, 1, (8, 16, 3)).astype(np.float32)
+    loss, g = render_loss_grad_cuda(scene.csdf, p, torch.from_numpy(target), *rays, relaxed, bb=bb)
+    loss1, g1 = render_loss_grad_cuda(scene.csdf, p, torch.from_numpy(target), *rays, exact, bb=bb)
+    assert torch.equal(loss, loss1) and all(torch.equal(g[k], g1[k]) for k in g)
+    ref_loss, ref_g = render_loss_grad_pallas(
+        jscene.csdf, jp, jnp.asarray(target), o, d, c, JaxMarchConfig(relaxation=1.5), bb=bb,
+        interpret=True)
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-4)
+    for k in ref_g:
+        np.testing.assert_allclose(g[k].numpy(), np.asarray(ref_g[k]), rtol=1e-3, atol=1e-5,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("case", sorted(_bad_inputs()))

@@ -217,6 +217,34 @@ def test_gadget_loss_grad_is_finite_where_jax_is_nan():
     assert float(g["n3_radius"]) != 0.0
 
 
+def test_deep_spec_loss_grad_twin_matches_xla():
+    """``fit --image`` of the 40-sphere union (tests/test_torch_mesh.py
+    LARGE_SPECS["deep"]), 160 parameter values, which K4 and K5 took in no
+    form before: the kernels' large tier (``param_scene_c`` picks it), its
+    K5 twin against JAX's XLA loss and gradient, three radii and a centre
+    perturbed, against a seed-1 random target."""
+    from test_torch_mesh import LARGE_SPECS
+
+    jscene = jax_compose_scene(copy.deepcopy(LARGE_SPECS["deep"]))
+    scene = compose_scene(copy.deepcopy(LARGE_SPECS["deep"]), device="cpu")
+    bb = _bounds(jscene, scene)
+    (o, d, c), rays = _rays(SIZE)
+    jp = _point(jscene, {"n3_radius": 1.2, "n17_radius": 0.8, "n30_radius": 1.1,
+                         "n22_center": (1.05, 0.95, 1.0)})
+    p = _torch_params(jp)
+    scene_c, layout = dk.param_scene_c(scene.csdf, p, bb=bb, device="cpu")
+    assert (scene_c.form, scene_c.n_prm) == (dk.FORM_PROGRAM_LARGE, 160)
+    assert scene_c.program_length == 79
+    target = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (16, 32, 3))
+                              .astype(np.float32))
+    ref_loss, ref_g = jax_render_loss_and_grad(jscene.sdf, jp, jnp.asarray(target.numpy()), o, d,
+                                               c, csdf=jscene.csdf, bb=bb)
+    loss, g = dk.render_loss_grad_torch(scene.csdf, p, target, *rays, bb=bb)
+    _assert_loss_grad(loss, g, ref_loss, ref_g)
+    flat, _ = flatten_params(g)
+    assert (flat.abs() > 1e-4).sum() >= 40  # the gradient reaches many of the 160 values
+
+
 @pytest.mark.parametrize("case", ["wrapped_object", "wrapped_object cell", "lattice cell"])
 def test_wrapped_loss_grad_twin_matches_xla(case):
     """The K5 twin of a scene under a wrap (the wrapped object, the lattice
@@ -322,7 +350,8 @@ def test_param_program_words_name_each_field_slot():
 def test_param_scene_forms():
     """param_scene_c picks each scene's form and fills the flat vector;
     another component form, a form's missing parameter, or more values
-    than the kernels take raise."""
+    than a fixed form takes raise; a composed scene beyond 64 values takes
+    the large tier."""
     forms = {"sphere": dk.FORM_SPHERE, "mandelbulb": dk.FORM_MANDELBULB,
              "wrapped_object": dk.FORM_WRAPPED, "reference_render_scene": dk.FORM_REFERENCE}
     for name, form in forms.items():
@@ -347,7 +376,9 @@ def test_param_scene_forms():
         dk.param_scene_c(sphere.csdf, {"r": sphere.params["radius"]}, device="cpu")
     many = {f"p{i:02d}": torch.zeros(3) for i in range(22)}
     with pytest.raises(ValueError, match="at most 64"):
-        dk.param_scene_c(gadget.csdf, many, device="cpu")
+        dk.param_scene_c(wrapped.csdf, {**wrapped.params, **many}, device="cpu")
+    sc, _ = dk.param_scene_c(gadget.csdf, {**gadget.params, **many}, device="cpu")
+    assert sc.form == dk.FORM_PROGRAM_LARGE and sc.n_prm > 64 and sc.prm_values
 
 
 @pytest.mark.parametrize("x", [7.5, -7.5, 23.999998, -16.000002, 4.0, 0.0])

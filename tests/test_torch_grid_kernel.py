@@ -349,8 +349,36 @@ def test_render_image_grid_rejects_unknown_mode():
     o, d, c = torch.zeros((2, 2, 3)), torch.ones((2, 2, 3)), torch.zeros((2, 2))
     with pytest.raises(ValueError, match="mode"):
         tg.render_image_grid(grid, o, d, c, mode="texture")
-    with pytest.raises(NotImplementedError, match="relaxation"):
-        tg.render_image_grid(grid, o, d, c, MarchConfig(relaxation=1.5))
+
+
+def _sphere16():
+    r, lo, hi = 16, -1.5, 1.5
+    ax = np.linspace(lo, hi, r, dtype=np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    return SdfGrid(values=np.sqrt(x * x + y * y + z * z) - 1.0, lo=(lo,) * 3, hi=(hi,) * 3)
+
+
+@pytest.mark.parametrize("mode", ["contraction", "gather"])
+def test_render_image_grid_steps_exactly_as_jax(mode):
+    """The grid march (K8, K9) steps exactly whatever ``config.relaxation``
+    says, as JAX's grid kernels, which never read it (``grid_march`` and
+    ``render_image_grid`` raised on it before): on a 16^3 sphere grid at
+    16x8, ``render_image_grid`` at relaxation 1.5 equals its image at 1.0 bit
+    for bit and JAX's ``render_image_grid`` at 1.5 (interpret mode) by the
+    image bars; ``grid_march`` at 1.5 equals its march at 1.0."""
+    jgrid = _sphere16()
+    grid = _port_grid(jgrid)
+    cam = look_at((2.5, 1.0, -2.5), (0.0, 0.0, 0.0), fov=np.pi / 4)
+    o, d, c = generate_rays(cam, (16, 8), (16.0, 8.0))
+    rays = tuple(_t(a) for a in (o, d, c))
+    img = tg.render_image_grid(grid, *rays, MarchConfig(relaxation=1.5), mode=mode)
+    assert torch.equal(img, tg.render_image_grid(grid, *rays, MarchConfig(), mode=mode))
+    ref = np.asarray(jg.render_image_grid(jgrid, o, d, c, JaxMarchConfig(relaxation=1.5),
+                                          interpret=True, mode=mode))
+    assert_image_bars(img.numpy(), ref)
+    sampler = tg.interp_sampler(grid)
+    relaxed = tg.grid_march(sampler, *rays, MarchConfig(relaxation=1.5))
+    assert all(torch.equal(a, b) for a, b in zip(relaxed, tg.grid_march(sampler, *rays)))
 
 
 # ---------------------------------------------------------------------------

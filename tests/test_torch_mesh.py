@@ -243,30 +243,68 @@ def test_cli_mesh_without_cuda_raises(tmp_path):
         cli.main(["mesh", "--init-factor", "8", "--refine", "0", "-o", str(tmp_path / "m.obj")])
 
 
+#: composed specs beyond the small tier of the kernels' interpreters
+#: (ops/cuda/csdf.py::large_tier): a union of 40 spheres, 79 instructions
+#: where the small tier takes 64; ten nested transforms, 10 frames where it
+#: takes 8; a right-nested union of 18 spheres, 18 values on the stack where
+#: it takes 16
+DEEP = {"name": "deep", "root": {"op": "union", "children": [
+    {"prim": "sphere", "center": [-1.6 + 0.8 * (i % 5), -1.4 + 0.4 * (i // 5),
+                                  0.3 * ((i * 7) % 3) - 0.3],
+     "radius": 0.22 + 0.01 * (i % 4)} for i in range(40)]}}
+NESTED = {"op": "union", "children": [
+    {"prim": "torus", "major_radius": 0.8, "minor_radius": 0.3},
+    {"prim": "capsule", "start": [-0.6, 0.0, 0.0], "end": [0.6, 0.7, 0.0], "radius": 0.3},
+    {"prim": "sphere", "center": [0.7, 0.5, 0.0], "radius": 0.45}]}
+for _ in range(10):
+    NESTED = {"op": "transform", "offset": [0.06, -0.03, 0.02],
+              "rotation": [0.9950042, 0.0, 0.0998334, 0.0], "child": NESTED}
+NESTED = {"name": "nested", "root": NESTED}
+RIGHT_NESTED = {"prim": "sphere", "center": [1.5, 0.0, 0.0], "radius": 0.3}
+for _i in range(17):
+    RIGHT_NESTED = {"op": "union", "children": [
+        {"prim": "sphere", "center": [-1.5 + 0.17 * _i, 0.4 * float(np.sin(_i)), 0.0],
+         "radius": 0.25}, RIGHT_NESTED]}
+RIGHT_NESTED = {"name": "right-nested", "root": RIGHT_NESTED}
+LARGE_SPECS = {"deep": DEEP, "nested": NESTED, "right-nested": RIGHT_NESTED}
+
+
 @pytest.mark.parametrize(
-    "argv, match", [(["--sharded", "--scene", "DEEP.json"], "at most 64 instructions"),
-                    (["--scene", "NESTED.json"], "9 nested frames"),
-                    (["--scene", "DEEP.json"], "at most 64 instructions")],
+    "argv, spec", [(["--sharded"], "deep"), ([], "nested"), ([], "deep")],
     ids=["sharded", "unported scene", "composed scene"],
 )
-def test_cli_mesh_unported_options_raise(tmp_path, argv, match):
-    # a composed scene meshes (tests/test_torch_compose.py) unless its node
-    # program is longer than the kernels take: 40 spheres in a union are 79
-    # instructions, and the cap is 64; or nests more coordinate frames: 9
-    # transforms, and the cap is 8 (a mesh asset, which raised here before,
-    # meshes: tests/test_torch_mesh_assets.py). --sharded, which raised here
-    # before, meshes (tests/test_torch_parallel.py) and refuses the same
-    # scenes.
-    deep = {"root": {"op": "union",
-                     "children": [{"prim": "sphere", "radius": 0.1 + i} for i in range(40)]}}
-    (tmp_path / "DEEP.json").write_text(json.dumps(deep))
-    nested = {"prim": "sphere", "radius": 0.5}
-    for _ in range(9):
-        nested = {"op": "transform", "child": nested}
-    (tmp_path / "NESTED.json").write_text(json.dumps({"root": nested}))
-    argv = [str(tmp_path / a) if a.endswith(".json") else a for a in argv]
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["mesh", "--device", "cpu", "--init-factor", "8", "-o", str(tmp_path / "m.obj"), *argv])
+def test_cli_mesh_unported_options_raise(tmp_path, argv, spec, own_world):
+    """Composed specs beyond the small tier, which raised here before, mesh
+    in the kernels' large tier: ``cli mesh --device cpu`` of the 40-sphere
+    union and of the ten nested transforms, and ``--sharded`` of the union
+    (a world of one), against JAX's ``generate_mesh``: triangle counts
+    equal, vertices within 1e-4 and the same faces (tests/
+    test_torch_compose.py's bars for a spec's CLI mesh)."""
+    from bsdmg_tpu.models.compose import compose_scene as jax_compose_scene
+    from bsdmg_tpu_torch.mesh.export import load_obj
+
+    path = tmp_path / f"{spec}.json"
+    path.write_text(json.dumps(LARGE_SPECS[spec]))
+    out = tmp_path / "m.obj"
+    assert cli.main(["mesh", "--device", "cpu", "--scene", str(path), "--init-factor", "8",
+                     "--refine", "1", "-o", str(out), *argv]) == 0
+    jscene = jax_compose_scene(json.loads(path.read_text()))
+    ref = jax_generate_mesh(jscene.bind(), 1, JaxMeshGenConfig(init_factor=8),
+                            csdf=compile_scene_csdf(jscene))
+    assert ref.triangle_count > 100
+    mesh = load_obj(out)
+    assert_same_mesh(mesh.vertices, mesh.faces.astype(np.int64), ref.vertices,
+                     np.asarray(ref.faces).astype(np.int64), atol=1e-4)
+
+
+@pytest.fixture
+def own_world():
+    """A test that forms a world of one in this process leaves none behind."""
+    import torch.distributed as dist
+
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def test_field_from_numpy_round_trip(jax_fields):

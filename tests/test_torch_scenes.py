@@ -194,7 +194,7 @@ def test_kernel_structures():
     assert {int(k): v for k, v in cases.items() if int(k) >= 4} == {
         tcsdf.SPHERE: "Sphere", tcsdf.SOLID_BOX: "SolidBox", tcsdf.MANDELBULB: "Mandelbulb",
         tcsdf.WRAPPED: "Wrapped<Box<false, false>>", tcsdf.COMPOSED: "Composed",
-        tcsdf.WRAPPED_MOVED: "Wrapped<Box<false, true>>",
+        tcsdf.WRAPPED_MOVED: "Wrapped<Box<false, true>>", tcsdf.COMPOSED_LARGE: "ComposedLarge",
         tcsdf.GRID_FORMS["lerp"]: "GridScene<GRID_LERP>",
         tcsdf.GRID_FORMS["weights"]: "GridScene<GRID_WEIGHTS>"}
     box = render_kernel.scene_desc_c(_desc("box"))
