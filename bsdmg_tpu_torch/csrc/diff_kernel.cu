@@ -412,27 +412,46 @@ __device__ __forceinline__ D ray_loss(const ParamScene& s, const Eval& ev, const
 // order; every other pixel goes to its block's list `rays[block * 128 ..]`,
 // in thread order, with the count in `counts[block]` and, for a hit, the
 // IFT denominator. No atomics, no host sync, no capacity: a block lists at
-// most its 128 rays.
-template <class Form>
-__global__ void __launch_bounds__(128)
-loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
-                  const float* __restrict__ directions, const float* __restrict__ cone,
-                  const float* __restrict__ target, const float* __restrict__ t_state,
-                  TangentRay* __restrict__ rays, int* __restrict__ counts,
-                  float* __restrict__ values, int h, int w, float inv_denom_elems) {
+// most its 128 rays. With Split (loss_march_split_kernel, the reference
+// form) each 8x4 patch marches the far or the full scene (far_patch) and
+// takes its hits' IFT denominators of the scene it marched; the tangent
+// launches evaluate the full scene, as JAX's pixel_loss does, so a hit on
+// the wireframe carries no object gradient.
+template <class Form, bool Split>
+__device__ __forceinline__ void loss_march_pixel(
+    const ParamScene& s, const float* __restrict__ origins, const float* __restrict__ directions,
+    const float* __restrict__ cone, const float* __restrict__ target,
+    const float* __restrict__ t_state, TangentRay* __restrict__ rays, int* __restrict__ counts,
+    float* __restrict__ values, int h, int w, float inv_denom_elems) {
   int px, py;
   pixel_of_thread(px, py);
   const long long block = (long long)blockIdx.y * gridDim.x + blockIdx.x;
   TangentRay e{0, DEPTH_LIMIT, 0.0f, BSDMG_UNTRACKED, 0.0f, 0.0f};
   bool listed = false;
   float value = 0.0f;
+  bool far = false;
+  if constexpr (Split) {
+    // a thread past the image reads ray 0 and votes as a ray that cannot
+    // reach the near box
+    const bool live = px < w && py < h;
+    const long long i = live ? (long long)py * w + px : 0;
+    const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
+    const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
+    far = far_patch(s, live, o, d, cone[i]);
+  }
   if (px < w && py < h) {
     const long long i = (long long)py * w + px;
     const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
     const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
     const bool edge = t_state != nullptr;
     int steps;
-    if (edge) {
+    if (far && edge) {
+      march<Form, true, Split>(s, Form::march_scene(s), o, d, cone[i], e.t0, steps, e.outcome,
+                               e.min_m, e.t_min);
+    } else if (far) {
+      march<Form, false, Split>(s, Form::march_scene(s), o, d, cone[i], e.t0, steps, e.outcome,
+                                e.min_m, e.t_min);
+    } else if (edge) {
       march<Form, true>(s, Form::march_scene(s), o, d, cone[i], e.t0, steps, e.outcome, e.min_m,
                         e.t_min);
     } else {
@@ -441,7 +460,10 @@ loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
     }
     e.pixel = static_cast<int>(i);
     const bool collided = e.outcome == COLLISION;
-    if (collided) e.denom = ift_denom<Form>(s, o, d, cone[i], e.t0);
+    if (collided) {
+      e.denom = far ? ift_denom<Form, Split>(s, o, d, cone[i], e.t0)
+                    : ift_denom<Form>(s, o, d, cone[i], e.t0);
+    }
     listed = collided || (edge && hinge_kind(t_state[i], false, e.min_m) != 0);
     if (!listed) {
       value = constant_loss(s, e.outcome == STEP_LIMIT ? 1.0f : 0.0f, target + 3 * i,
@@ -472,80 +494,22 @@ loss_march_kernel(const ParamScene s, const float* __restrict__ origins,
   }
 }
 
-// K5's first launch with the near/far split, the reference form's: each
-// 8x4 patch marches the far or the full scene (far_patch) and takes its
-// hits' IFT denominators of the scene it marched; the tangent launches
-// evaluate the full scene, as JAX's pixel_loss does, so a hit on the
-// wireframe carries no object gradient. loss_march_kernel's body with the
-// vote, kept apart so that its registers stay as they were.
-__global__ void __launch_bounds__(128)
-loss_march_split_kernel(const ParamScene s, const float* __restrict__ origins,
-                        const float* __restrict__ directions, const float* __restrict__ cone,
-                        const float* __restrict__ target, const float* __restrict__ t_state,
-                        TangentRay* __restrict__ rays, int* __restrict__ counts,
-                        float* __restrict__ values, int h, int w, float inv_denom_elems) {
-  int px, py;
-  pixel_of_thread(px, py);
-  const long long block = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  TangentRay e{0, DEPTH_LIMIT, 0.0f, BSDMG_UNTRACKED, 0.0f, 0.0f};
-  bool listed = false;
-  float value = 0.0f;
-  // a thread past the image reads ray 0 and votes as a ray that cannot
-  // reach the near box
-  const bool live = px < w && py < h;
-  const long long i = live ? (long long)py * w + px : 0;
-  const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
-  const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
-  const bool far = far_patch(s, live, o, d, cone[i]);
-  if (live) {
-    const bool edge = t_state != nullptr;
-    int steps;
-    const MarchScene ms = ReferenceForm::march_scene(s);
-    if (far && edge) {
-      march<ReferenceForm, true, true>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m,
-                                       e.t_min);
-    } else if (far) {
-      march<ReferenceForm, false, true>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m,
-                                        e.t_min);
-    } else if (edge) {
-      march<ReferenceForm, true>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
-    } else {
-      march<ReferenceForm, false>(s, ms, o, d, cone[i], e.t0, steps, e.outcome, e.min_m, e.t_min);
-    }
-    e.pixel = static_cast<int>(i);
-    const bool collided = e.outcome == COLLISION;
-    if (collided) {
-      e.denom = far ? ift_denom<ReferenceForm, true>(s, o, d, cone[i], e.t0)
-                    : ift_denom<ReferenceForm>(s, o, d, cone[i], e.t0);
-    }
-    listed = collided || (edge && hinge_kind(t_state[i], false, e.min_m) != 0);
-    if (!listed) {
-      value = constant_loss(s, e.outcome == STEP_LIMIT ? 1.0f : 0.0f, target + 3 * i,
-                            inv_denom_elems);
-    }
-  }
-  // the block's list, in thread order
-  __shared__ int warp_counts[4];
-  __shared__ float warp_values[4];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, listed);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) value += __shfl_down_sync(0xffffffffu, value, off);
-  if (lane == 0) {
-    warp_counts[warp] = __popc(ballot);
-    warp_values[warp] = value;
-  }
-  __syncthreads();
-  if (listed) {
-    int slot = __popc(ballot & ((1u << lane) - 1u));
-    for (int k = 0; k < warp; ++k) slot += warp_counts[k];
-    rays[block * 128 + slot] = e;
-  }
-  if (threadIdx.x == 0) {
-    counts[block] = ((warp_counts[0] + warp_counts[1]) + warp_counts[2]) + warp_counts[3];
-    values[block] = ((warp_values[0] + warp_values[1]) + warp_values[2]) + warp_values[3];
-  }
+#define K5_MARCH_PARAMS                                                                         \
+  const ParamScene s, const float *__restrict__ origins, const float *__restrict__ directions, \
+      const float *__restrict__ cone, const float *__restrict__ target,                        \
+      const float *__restrict__ t_state, TangentRay *__restrict__ rays, int *__restrict__ counts, \
+      float *__restrict__ values, int h, int w, float inv_denom_elems
+#define K5_MARCH_ARGS \
+  s, origins, directions, cone, target, t_state, rays, counts, values, h, w, inv_denom_elems
+
+template <class Form>
+__global__ void __launch_bounds__(128) loss_march_kernel(K5_MARCH_PARAMS) {
+  loss_march_pixel<Form, false>(K5_MARCH_ARGS);
+}
+
+template <class Form>
+__global__ void __launch_bounds__(128) loss_march_split_kernel(K5_MARCH_PARAMS) {
+  loss_march_pixel<Form, true>(K5_MARCH_ARGS);
 }
 
 // the slot in the flat parameter vector of a parameter's place among the shape's (0-8: skeleton
@@ -736,10 +700,12 @@ loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
   }
 }
 
+#ifdef BSDMG_DIFF_SECOND_UNIT
 // The large tier's tangent launch: a ray's lanes may be more than a block
 // has threads, so a chunk is one ray (groups 1) whose lanes the block takes
 // in passes of 128; an item's row as above. A specialization, so that the
-// other forms' launch keeps its code and its registers.
+// other forms' launch keeps its code and its registers; compiled in the
+// unit that launches it (diff_split.cu) alone.
 template <>
 __global__ void __launch_bounds__(128)
 loss_tangent_form_kernel<ProgramLargeForm>(
@@ -791,8 +757,10 @@ loss_tangent_form_kernel<ProgramLargeForm>(
   }
 }
 
+#else
 // out[k] = the sum over rows of partials[row * stride + k], one block per
-// k, each thread over a fixed stride of rows, then a fixed tree
+// k, each thread over a fixed stride of rows, then a fixed tree; launched
+// by this unit alone
 __global__ void __launch_bounds__(256)
 loss_grad_sum(const float* __restrict__ partials, int n_rows, int stride, float* __restrict__ out) {
   __shared__ float sums[256];
@@ -807,6 +775,7 @@ loss_grad_sum(const float* __restrict__ partials, int n_rows, int stride, float*
   }
   if (threadIdx.x == 0) out[k] = sums[0];
 }
+#endif  // BSDMG_DIFF_SECOND_UNIT
 
 // the width of K5's partial sums for n_prm parameters of the reference
 // form: 9 for the shape parameters alone, 16 with the object transform
@@ -910,6 +879,184 @@ static ParamScene with_scratch(const ParamScene& s, float* scratch, long long th
 }
 
 
+// The instantiations are compiled in two units, so that the two build in
+// parallel: this file's, and diff_split.cu's (this file again, with
+// BSDMG_DIFF_SECOND_UNIT defined), which holds the near/far split's and the
+// large tier's (ProgramLargeForm). Each unit's dispatch instantiates only
+// its own and answers OTHER_UNIT for the rest; loss_grad_sum, the last
+// launch of every form, is this unit's.
+template <class F, bool Split>
+struct DiffSecondUnit : std::bool_constant<Split || std::is_same<F, ProgramLargeForm>::value> {};
+#ifdef BSDMG_DIFF_SECOND_UNIT
+constexpr bool kSecondUnit = true;
+#else
+constexpr bool kSecondUnit = false;
+#endif
+constexpr int OTHER_UNIT = -1;
+
+// g(Form{}, Split) for the scene's form and split where this unit holds the
+// instantiation, else OTHER_UNIT; cudaErrorInvalidValue for a form that
+// names none, or a split of another form than the reference one
+template <class G>
+static int with_launch(const ParamScene& s, G&& g) {
+  if (s.split && s.form != FORM_REFERENCE) return cudaErrorInvalidValue;
+  int err = cudaErrorInvalidValue;
+  with_form(s.form, [&](auto form) {
+    typedef decltype(form) F;
+    if (s.split) {
+      if constexpr (std::is_same<F, ReferenceForm>::value) {
+        if constexpr (DiffSecondUnit<F, true>::value == kSecondUnit) {
+          err = g(form, std::true_type{});
+        } else {
+          err = OTHER_UNIT;
+        }
+      }
+    } else if constexpr (DiffSecondUnit<F, false>::value == kSecondUnit) {
+      err = g(form, std::false_type{});
+    } else {
+      err = OTHER_UNIT;
+    }
+  });
+  return err;
+}
+
+#define K4_HOST_PARAMS                                                                         \
+  const ParamScene *scene, const float *origins, const float *directions, const float *cone,   \
+      float *depth, int *steps, int *outcome, float *dfdt, float *min_m, float *t_min,         \
+      float *scratch, int h, int w, void *stream
+#define K4_HOST_ARGS \
+  scene, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, scratch, h, w, stream
+#define K5_LAUNCH_PARAMS                                                                       \
+  const ParamScene *scene, const float *origins, const float *directions, const float *cone,   \
+      const float *target, const float *t_state, float *partials, TangentRay *rays,            \
+      int *counts, float *values, long long blocks, long long &rows, int stride, int h, int w, \
+      float inv_denom_elems, float inv_pixels, float edge_weight, float edge_band,             \
+      cudaStream_t st
+#define K5_LAUNCH_ARGS                                                                         \
+  scene, origins, directions, cone, target, t_state, partials, rays, counts, values, blocks,   \
+      rows, stride, h, w, inv_denom_elems, inv_pixels, edge_weight, edge_band, st
+
+// K4 of this unit's instantiations (bsdmg_march_params says what it takes)
+static int march_params_in_unit(K4_HOST_PARAMS) {
+  const dim3 grid((w + 15) / 16, (h + 7) / 8);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ParamScene s = with_scratch(*scene, scratch, loss_grad_blocks(h, w) * 128);
+  return with_launch(s, [&](auto form, auto split) {
+    typedef decltype(form) F;
+    if constexpr (decltype(split)::value) {
+      if (min_m != nullptr) {
+        march_params_split_kernel<true><<<grid, 128, 0, st>>>(
+            s, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, h, w);
+      } else {
+        march_params_split_kernel<false><<<grid, 128, 0, st>>>(
+            s, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, h, w);
+      }
+    } else if (min_m != nullptr) {
+      march_params_kernel<F, true><<<grid, 128, 0, st>>>(s, origins, directions, cone, depth,
+                                                         steps, outcome, dfdt, min_m, t_min, h, w);
+    } else {
+      march_params_kernel<F, false><<<grid, 128, 0, st>>>(s, origins, directions, cone, depth,
+                                                          steps, outcome, dfdt, min_m, t_min, h, w);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K5's first launch, the march and the lists, of this unit's
+// instantiations, over the scene with its scratch attached (bsdmg_loss_grad
+// lays the scratch out). Returns the cudaError_t of the launch.
+static int loss_march_in_unit(K5_LAUNCH_PARAMS) {
+  const dim3 grid((w + 15) / 16, (h + 7) / 8);
+  return with_launch(*scene, [&](auto form, auto split) {
+    typedef decltype(form) F;
+    if constexpr (decltype(split)::value) {
+      loss_march_split_kernel<F><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target,
+                                                       t_state, rays, counts, values, h, w,
+                                                       inv_denom_elems);
+    } else {
+      loss_march_kernel<F><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target,
+                                                  t_state, rays, counts, values, h, w,
+                                                  inv_denom_elems);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// g(Form{}) for the scene's form where this unit holds its tangent
+// launches, else OTHER_UNIT (with the split or without, the tangent
+// launches are the form's); cudaErrorInvalidValue for a form that names none
+template <class G>
+static int with_tangent_launch(const ParamScene& s, G&& g) {
+  int err = cudaErrorInvalidValue;
+  with_form(s.form, [&](auto form) {
+    typedef decltype(form) F;
+    if constexpr (DiffSecondUnit<F, false>::value == kSecondUnit) {
+      err = g(form);
+    } else {
+      err = OTHER_UNIT;
+    }
+  });
+  return err;
+}
+
+// K5's tangent launches, of this unit's instantiations, into `partials`:
+// `rows` rows of `stride` (set here for the reference form, whose launches'
+// rows follow one another). Returns the cudaError_t of the first launch
+// that failed, else 0.
+static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
+  return with_tangent_launch(*scene, [&](auto form) {
+    typedef decltype(form) F;
+    if constexpr (std::is_same<F, ReferenceForm>::value) {
+      // the wireframe at compile time; each launch's rows follow the last's
+      const bool transform = scene->n_prm > BSDMG_SHAPE_PARAMS;
+      const long long shape_rows = blocks * TangentLanes<SHAPE_LANES>::chunks;
+      const long long translation_rows =
+          scene->object_center >= 0 ? blocks * TangentLanes<TRANSLATION_LANES>::chunks : 0;
+      const long long rotation_rows =
+          scene->object_rotation >= 0 ? blocks * TangentLanes<ROTATION_LANES>::chunks : 0;
+      rows = shape_rows + translation_rows + rotation_rows;
+      const auto launch = [&](auto opt, auto lanes, long long row0, long long items) {
+        loss_tangent_kernel<decltype(opt), decltype(lanes)::value>
+            <<<tangent_grid(items), 128, 0, st>>>(*scene, origins, directions, cone, target,
+                                                  t_state, rays, counts, values, partials, stride,
+                                                  row0, blocks, inv_denom_elems, inv_pixels,
+                                                  edge_weight, edge_band);
+      };
+      with_parts(scene->has_frame != 0, transform, [&](auto opt) {
+        launch(opt, std::integral_constant<int, SHAPE_LANES>{}, 0, shape_rows);
+        if (translation_rows > 0) {
+          launch(opt, std::integral_constant<int, TRANSLATION_LANES>{}, shape_rows,
+                 translation_rows);
+        }
+        if (rotation_rows > 0) {
+          launch(opt, std::integral_constant<int, ROTATION_LANES>{},
+                 shape_rows + translation_rows, rotation_rows);
+        }
+      });
+    } else {
+      const FormLanes fl(scene->n_prm);
+      loss_tangent_form_kernel<F><<<tangent_grid(rows), 128, 0, st>>>(
+          *scene, origins, directions, cone, target, t_state, rays, counts, values, partials,
+          stride, blocks, fl.lanes, fl.groups, fl.chunks, inv_denom_elems, inv_pixels,
+          edge_weight, edge_band);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+#ifdef BSDMG_DIFF_SECOND_UNIT
+
+// diff_kernel.cu's entries for the instantiations of this unit
+int march_params_second_unit(K4_HOST_PARAMS) { return march_params_in_unit(K4_HOST_ARGS); }
+int loss_march_second_unit(K5_LAUNCH_PARAMS) { return loss_march_in_unit(K5_LAUNCH_ARGS); }
+int loss_tangents_second_unit(K5_LAUNCH_PARAMS) { return loss_tangents_in_unit(K5_LAUNCH_ARGS); }
+
+#else
+
+int march_params_second_unit(K4_HOST_PARAMS);
+int loss_march_second_unit(K5_LAUNCH_PARAMS);
+int loss_tangents_second_unit(K5_LAUNCH_PARAMS);
+
 extern "C" {
 
 // floats of scratch that bsdmg_march_params needs for scene over an h x w
@@ -925,33 +1072,9 @@ long long bsdmg_march_params_scratch(const ParamScene* scene, int h, int w) {
 // near/far split (the reference form alone). Returns the cudaError_t of the
 // launch (cudaErrorInvalidValue for a form that names none, or a split of
 // another form).
-int bsdmg_march_params(const ParamScene* scene, const float* origins, const float* directions,
-                       const float* cone, float* depth, int* steps, int* outcome, float* dfdt,
-                       float* min_m, float* t_min, float* scratch, int h, int w, void* stream) {
-  const dim3 grid((w + 15) / 16, (h + 7) / 8);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ParamScene s = with_scratch(*scene, scratch, loss_grad_blocks(h, w) * 128);
-  if (s.split && s.form != FORM_REFERENCE) return static_cast<int>(cudaErrorInvalidValue);
-  const bool known = with_form(s.form, [&](auto form) {
-    typedef decltype(form) F;
-    if (s.split) {
-      if (min_m != nullptr) {
-        march_params_split_kernel<true><<<grid, 128, 0, st>>>(
-            s, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, h, w);
-      } else {
-        march_params_split_kernel<false><<<grid, 128, 0, st>>>(
-            s, origins, directions, cone, depth, steps, outcome, dfdt, min_m, t_min, h, w);
-      }
-    } else if (min_m != nullptr) {
-      march_params_kernel<F, true><<<grid, 128, 0, st>>>(s, origins, directions, cone, depth,
-                                                         steps, outcome, dfdt, min_m, t_min, h, w);
-    } else {
-      march_params_kernel<F, false><<<grid, 128, 0, st>>>(s, origins, directions, cone, depth,
-                                                          steps, outcome, dfdt, min_m, t_min, h, w);
-    }
-  });
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+int bsdmg_march_params(K4_HOST_PARAMS) {
+  const int err = march_params_in_unit(K4_HOST_ARGS);
+  return err == OTHER_UNIT ? march_params_second_unit(K4_HOST_ARGS) : err;
 }
 
 // the threads of K5's largest launch over `blocks` blocks: the march's, or
@@ -990,7 +1113,6 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
                     float* scratch, float* out, int h, int w, float inv_denom_elems,
                     float inv_pixels, float edge_weight, float edge_band, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((w + 15) / 16, (h + 7) / 8);
   const long long blocks = loss_grad_blocks(h, w);
   long long rows;
   int stride;
@@ -1002,58 +1124,11 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
   // the launches read the scene with the large tier's stacks after the sums
   const ParamScene sc = with_scratch(*scene, values + blocks, loss_grad_threads(*scene, blocks));
   scene = &sc;
-  if (sc.split && sc.form != FORM_REFERENCE) return static_cast<int>(cudaErrorInvalidValue);
-  int err = 0;
-  const bool known = with_form(scene->form, [&](auto form) {
-    typedef decltype(form) F;
-    if (scene->split) {
-      loss_march_split_kernel<<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target,
-                                                    t_state, rays, counts, values, h, w,
-                                                    inv_denom_elems);
-    } else {
-      loss_march_kernel<F><<<grid, 128, 0, st>>>(*scene, origins, directions, cone, target,
-                                                  t_state, rays, counts, values, h, w,
-                                                  inv_denom_elems);
-    }
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return;
-    if constexpr (std::is_same<F, ReferenceForm>::value) {
-      // the wireframe at compile time; each launch's rows follow the last's
-      const bool transform = scene->n_prm > BSDMG_SHAPE_PARAMS;
-      const long long shape_rows = blocks * TangentLanes<SHAPE_LANES>::chunks;
-      const long long translation_rows =
-          scene->object_center >= 0 ? blocks * TangentLanes<TRANSLATION_LANES>::chunks : 0;
-      const long long rotation_rows =
-          scene->object_rotation >= 0 ? blocks * TangentLanes<ROTATION_LANES>::chunks : 0;
-      rows = shape_rows + translation_rows + rotation_rows;
-      const auto launch = [&](auto opt, auto lanes, long long row0, long long items) {
-        loss_tangent_kernel<decltype(opt), decltype(lanes)::value>
-            <<<tangent_grid(items), 128, 0, st>>>(*scene, origins, directions, cone, target,
-                                                  t_state, rays, counts, values, partials, stride,
-                                                  row0, blocks, inv_denom_elems, inv_pixels,
-                                                  edge_weight, edge_band);
-      };
-      with_parts(scene->has_frame != 0, transform, [&](auto opt) {
-        launch(opt, std::integral_constant<int, SHAPE_LANES>{}, 0, shape_rows);
-        if (translation_rows > 0) {
-          launch(opt, std::integral_constant<int, TRANSLATION_LANES>{}, shape_rows,
-                 translation_rows);
-        }
-        if (rotation_rows > 0) {
-          launch(opt, std::integral_constant<int, ROTATION_LANES>{},
-                 shape_rows + translation_rows, rotation_rows);
-        }
-      });
-    } else {
-      const FormLanes fl(scene->n_prm);
-      loss_tangent_form_kernel<F><<<tangent_grid(rows), 128, 0, st>>>(
-          *scene, origins, directions, cone, target, t_state, rays, counts, values, partials,
-          stride, blocks, fl.lanes, fl.groups, fl.chunks, inv_denom_elems, inv_pixels,
-          edge_weight, edge_band);
-    }
-    err = static_cast<int>(cudaGetLastError());
-  });
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  int err = loss_march_in_unit(K5_LAUNCH_ARGS);
+  if (err == OTHER_UNIT) err = loss_march_second_unit(K5_LAUNCH_ARGS);
+  if (err != 0) return err;
+  err = loss_tangents_in_unit(K5_LAUNCH_ARGS);
+  if (err == OTHER_UNIT) err = loss_tangents_second_unit(K5_LAUNCH_ARGS);
   if (err != 0) return err;
   loss_grad_sum<<<scene->n_prm + 1, 256, 0, st>>>(partials, static_cast<int>(rows), stride, out);
   return static_cast<int>(cudaGetLastError());
@@ -1062,3 +1137,5 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
 int bsdmg_param_scene_size(void) { return static_cast<int>(sizeof(ParamScene)); }
 
 }  // extern "C"
+
+#endif  // BSDMG_DIFF_SECOND_UNIT

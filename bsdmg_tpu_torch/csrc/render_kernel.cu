@@ -536,9 +536,24 @@ static void with_march(int cull, int relaxed, F&& f) {
   else f(std::false_type{}, std::true_type{});
 }
 
+// The instantiations are compiled in two units, so that the two build in
+// parallel: this file's, and render_split.cu's (this file again, with
+// BSDMG_RENDER_SECOND_UNIT defined), which holds the near/far split's and
+// the large tier's (ComposedLarge). Each unit's dispatch instantiates only
+// its own and answers OTHER_UNIT for the rest.
+template <class S, bool Split>
+struct RenderSecondUnit : std::bool_constant<Split || std::is_same<S, ComposedLarge>::value> {};
+#ifdef BSDMG_RENDER_SECOND_UNIT
+constexpr bool kSecondUnit = true;
+#else
+constexpr bool kSecondUnit = false;
+#endif
+constexpr int OTHER_UNIT = -1;
+
 // f(S, Cull, Relaxed, Split) for the descriptor's structure, its split and
-// the two flags; cudaErrorInvalidValue for a structure that names none or
-// a split of a structure it is not built for
+// the two flags where this unit holds the instantiation, else OTHER_UNIT;
+// cudaErrorInvalidValue for a structure that names none or a split of a
+// structure it is not built for
 template <class F>
 static int with_launch(const SceneDesc& s, int cull, int relaxed, F&& f) {
   int err = cudaErrorInvalidValue;
@@ -546,16 +561,97 @@ static int with_launch(const SceneDesc& s, int cull, int relaxed, F&& f) {
     typedef decltype(scene) S;
     with_march(cull, relaxed, [&](auto c, auto r) {
       if (!s.split) {
-        err = f(scene, c, r, std::false_type{});
+        if constexpr (RenderSecondUnit<S, false>::value == kSecondUnit) {
+          err = f(scene, c, r, std::false_type{});
+        } else {
+          err = OTHER_UNIT;
+        }
       } else if constexpr (Splits<S>::value) {
-        err = f(scene, c, r, std::true_type{});
+        if constexpr (RenderSecondUnit<S, true>::value == kSecondUnit) {
+          err = f(scene, c, r, std::true_type{});
+        } else {
+          err = OTHER_UNIT;
+        }
       }
     });
   });
   return err;
 }
 
+#define RENDER_PARAMS                                                                          \
+  const SceneDesc *desc, const float *origins, const float *directions, const float *cone,     \
+      float *rgb, float *depth, int *steps, int *outcome, int *active, const int *blocks,      \
+      const int *count, int mode, int cull, int relaxed, int cap, float omega, int h, int w,   \
+      void *stream
+#define RENDER_ARGS                                                                             \
+  desc, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, mode, cull, \
+      relaxed, cap, omega, h, w, stream
+#define TRACE_PARAMS                                                                           \
+  const SceneDesc *desc, const float *origins, const float *directions, const float *cone,     \
+      const float *depth0, const int *steps0, const int *outcome0, const int *active0,         \
+      float *depth, int *steps, int *outcome, int *active, const int *rays, const int *count,  \
+      int cull, int relaxed, int cap, float omega, int h, int w, void *stream
+#define TRACE_ARGS                                                                             \
+  desc, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps, outcome,   \
+      active, rays, count, cull, relaxed, cap, omega, h, w, stream
+#define SHADE_PARAMS                                                                           \
+  const SceneDesc *desc, const float *origins, const float *directions, const float *depth,    \
+      const int *outcome, float *rgb, int h, int w, void *stream
+#define SHADE_ARGS desc, origins, directions, depth, outcome, rgb, h, w, stream
+
+// K1, K2 and K3 of this unit's instantiations (bsdmg_render, bsdmg_trace,
+// bsdmg_shade say what they take)
+static int render_in_unit(RENDER_PARAMS) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_launch(*desc, cull, relaxed, [&](auto scene, auto c, auto r, auto split) {
+    return launch_render<decltype(scene), decltype(c)::value, decltype(r)::value,
+                         decltype(split)::value>(mode, st, *desc, origins, directions, cone, rgb,
+                                                 depth, steps, outcome, active, blocks, count,
+                                                 cap, omega, h, w);
+  });
+}
+
+static int trace_in_unit(TRACE_PARAMS) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_launch(*desc, cull, relaxed, [&](auto scene, auto c, auto r, auto split) {
+    return launch_trace<decltype(scene), decltype(c)::value, decltype(r)::value,
+                        decltype(split)::value>(st, *desc, origins, directions, cone, depth0,
+                                                steps0, outcome0, active0, depth, steps, outcome,
+                                                active, rays, count, cap, omega, h, w);
+  });
+}
+
+static int shade_in_unit(SHADE_PARAMS) {
+  const dim3 grid((w + 15) / 16, (h + 7) / 8);
+  if (!scratch_fits(*desc, (long long)grid.x * grid.y * 128)) return cudaErrorInvalidValue;
+  int err = cudaErrorInvalidValue;
+  with_structure(desc->structure, [&](auto scene) {
+    typedef decltype(scene) S;
+    if constexpr (RenderSecondUnit<S, false>::value == kSecondUnit) {
+      shade_kernel<S><<<grid, dim3(128), 0, static_cast<cudaStream_t>(stream)>>>(
+          *desc, origins, directions, depth, outcome, rgb, h, w);
+      err = cudaGetLastError();
+    } else {
+      err = OTHER_UNIT;
+    }
+  });
+  return err;
+}
+
 extern "C" {
+
+#ifdef BSDMG_RENDER_SECOND_UNIT
+
+// render_kernel.cu's entries for the instantiations of this unit
+int bsdmg_render_second_unit(RENDER_PARAMS) { return render_in_unit(RENDER_ARGS); }
+int bsdmg_trace_second_unit(TRACE_PARAMS) { return trace_in_unit(TRACE_ARGS); }
+int bsdmg_shade_second_unit(SHADE_PARAMS) { return shade_in_unit(SHADE_ARGS); }
+
+#else
+
+int bsdmg_render_second_unit(RENDER_PARAMS);
+int bsdmg_trace_second_unit(TRACE_PARAMS);
+int bsdmg_shade_second_unit(SHADE_PARAMS);
 
 // Launches K1 on `stream` over an h x w image. origins and directions are
 // (h, w, 3), cone (h, w), rgb (h, w, 3), all float32 on the device; depth,
@@ -567,17 +663,9 @@ extern "C" {
 // relaxation. Returns the cudaError_t of the launch (cudaErrorInvalidValue
 // for a structure that names none, a split it is not built for, or a
 // large-tier program whose scratch does not hold the launch).
-int bsdmg_render(const SceneDesc* desc, const float* origins, const float* directions,
-                 const float* cone, float* rgb, float* depth, int* steps, int* outcome,
-                 int* active, const int* blocks, const int* count, int mode, int cull,
-                 int relaxed, int cap, float omega, int h, int w, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_launch(*desc, cull, relaxed, [&](auto scene, auto c, auto r, auto split) {
-    return launch_render<decltype(scene), decltype(c)::value, decltype(r)::value,
-                         decltype(split)::value>(mode, st, *desc, origins, directions, cone, rgb,
-                                                 depth, steps, outcome, active, blocks, count,
-                                                 cap, omega, h, w);
-  });
+int bsdmg_render(RENDER_PARAMS) {
+  const int err = render_in_unit(RENDER_ARGS);
+  return err == OTHER_UNIT ? bsdmg_render_second_unit(RENDER_ARGS) : err;
 }
 
 // Launches K2 on `stream` over an h x w frame, planes as bsdmg_render's.
@@ -585,31 +673,16 @@ int bsdmg_render(const SceneDesc* desc, const float* origins, const float* direc
 // a fresh march; `active` may be null. With `rays` not null, the first
 // *count entries of it are the rays to march (count device-resident).
 // Returns the cudaError_t of the launch, as bsdmg_render.
-int bsdmg_trace(const SceneDesc* desc, const float* origins, const float* directions,
-                const float* cone, const float* depth0, const int* steps0, const int* outcome0,
-                const int* active0, float* depth, int* steps, int* outcome, int* active,
-                const int* rays, const int* count, int cull, int relaxed, int cap, float omega,
-                int h, int w, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_launch(*desc, cull, relaxed, [&](auto scene, auto c, auto r, auto split) {
-    return launch_trace<decltype(scene), decltype(c)::value, decltype(r)::value,
-                        decltype(split)::value>(st, *desc, origins, directions, cone, depth0,
-                                                steps0, outcome0, active0, depth, steps, outcome,
-                                                active, rays, count, cap, omega, h, w);
-  });
+int bsdmg_trace(TRACE_PARAMS) {
+  const int err = trace_in_unit(TRACE_ARGS);
+  return err == OTHER_UNIT ? bsdmg_trace_second_unit(TRACE_ARGS) : err;
 }
 
 // Launches K3 on `stream`: rgb (h, w, 3) from the depth and outcome planes.
 // Returns the cudaError_t of the launch.
-int bsdmg_shade(const SceneDesc* desc, const float* origins, const float* directions,
-                const float* depth, const int* outcome, float* rgb, int h, int w, void* stream) {
-  const dim3 grid((w + 15) / 16, (h + 7) / 8);
-  if (!scratch_fits(*desc, (long long)grid.x * grid.y * 128)) return cudaErrorInvalidValue;
-  const bool known = with_structure(desc->structure, [&](auto scene) {
-    shade_kernel<decltype(scene)><<<grid, dim3(128), 0, static_cast<cudaStream_t>(stream)>>>(
-        *desc, origins, directions, depth, outcome, rgb, h, w);
-  });
-  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
+int bsdmg_shade(SHADE_PARAMS) {
+  const int err = shade_in_unit(SHADE_ARGS);
+  return err == OTHER_UNIT ? bsdmg_shade_second_unit(SHADE_ARGS) : err;
 }
 
 int bsdmg_scene_desc_size(void) { return static_cast<int>(sizeof(SceneDesc)); }
@@ -617,5 +690,7 @@ int bsdmg_scene_desc_size(void) { return static_cast<int>(sizeof(SceneDesc)); }
 const char* bsdmg_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // BSDMG_RENDER_SECOND_UNIT
 
 }  // extern "C"

@@ -606,11 +606,6 @@ __device__ __forceinline__ void scene_sdf_grad(const SceneDesc& s, float x, floa
     } else {
       composed_sdf_grad(s, x, y, z, d, gx, gy, gz);
     }
-  } else if constexpr (S::kind == KIND_FAR) {
-    CapsuleFwd f;
-    d = capsule_set_fwd(s.far, x, y, z, f);
-    gx = gy = gz = 0.0f;
-    capsule_set_bwd(s.far, x, y, z, f, 1.0f, gx, gy, gz);
   } else if constexpr (S::kind == KIND_GRID) {
     d = grid_scene<S::form, true>(s.grid_table, s.grid, s.grid_offset, x, y, z, gx, gy, gz);
   } else {

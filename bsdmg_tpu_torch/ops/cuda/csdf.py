@@ -1465,20 +1465,6 @@ def _reference_value_and_grad(desc: SceneDescriptor):
     return f
 
 
-def _wireframe_value_and_grad(desc: SceneDescriptor):
-    """A wireframe's value and gradient, reverse mode (the Far structure of
-    csrc/scene_sdf.cuh)."""
-    frame = _capsule_set_value_grad(desc.frame)
-
-    def f(x, y, z):
-        d, backward = frame(x, y, z)
-        g = [None, None, None]
-        backward(torch.ones_like(d), g)
-        return (d, *g)
-
-    return f
-
-
 def _sphere_value_and_grad(desc: SceneDescriptor):
     """sphere_csdf at the origin, reverse mode: d sqrt(b) = (0.5 / sqrt(b))
     db, each square's cotangent ``ct*x + x*ct``."""
@@ -1640,8 +1626,6 @@ def descriptor_csdf_value_and_grad(desc: SceneDescriptor):
         return _grid_value_and_grad(desc, True)
     if desc.kind == "composed":
         return _program_value_and_grad(desc.program.instructions)
-    if desc.kind == "wireframe":
-        return _wireframe_value_and_grad(desc)
     if desc.kind == "sphere":
         return _sphere_value_and_grad(desc)
     if desc.kind == "box":

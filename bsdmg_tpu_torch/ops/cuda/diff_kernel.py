@@ -35,6 +35,7 @@ loss and gradient evaluate the full scene, as the JAX kernels do.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -78,6 +79,11 @@ from bsdmg_tpu_torch.weights import flatten_params, param_offsets, unflatten_par
 #: launches of K4 and of K5 in this process; each wrapper adds one per launch
 MARCH_LAUNCHES = 0
 LOSS_GRAD_LAUNCHES = 0
+#: launches of the near/far split's instantiations, ``"K4"``
+#: (march_params_split_kernel) and ``"K5"`` (loss_march_split_kernel and
+#: the launches after it); each is counted in MARCH_LAUNCHES or
+#: LOSS_GRAD_LAUNCHES too
+SPLIT_LAUNCHES: collections.Counter = collections.Counter()
 
 #: the kernels' source, relative to the repository root
 SOURCE = "bsdmg_tpu_torch/csrc/diff_kernel.cu"
@@ -490,6 +496,8 @@ def _march_cuda(scene_c, origins, directions, cone, track_min):
         )
     _raise_on(lib, err, "K4 (march_params) launch")
     MARCH_LAUNCHES += 1
+    if scene_c.split:
+        SPLIT_LAUNCHES["K4"] += 1
     return (depth, steps, outcome, dfdt) + ((min_m, t_min) if track_min else ())
 
 
@@ -512,6 +520,8 @@ def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixel
         )
     _raise_on(lib, err, "K5 (loss_grad) launch")
     LOSS_GRAD_LAUNCHES += 1
+    if scene_c.split:
+        SPLIT_LAUNCHES["K5"] += 1
     return out
 
 

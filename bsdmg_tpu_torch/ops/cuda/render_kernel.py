@@ -71,6 +71,10 @@ TRACE_LAUNCHES = 0
 SHADE_LAUNCHES = 0
 #: K1's launches by the structure they ran (``kernel_structure``'s index)
 STRUCTURE_LAUNCHES: collections.Counter = collections.Counter()
+#: launches of the near/far split's instantiations, ``"K1"``
+#: (render_split_kernel) and ``"K2"`` (trace_split_kernel); each is counted
+#: in LAUNCHES or TRACE_LAUNCHES too
+SPLIT_LAUNCHES: collections.Counter = collections.Counter()
 
 #: the kernel's source, relative to the repository root
 SOURCE = "bsdmg_tpu_torch/csrc/render_kernel.cu"
@@ -715,6 +719,8 @@ def _render_cuda(desc_c, origins, directions, cone, rgb, planes, *, cap: int, mo
     _raise_on(err, lib, "render (K1)")
     LAUNCHES += 1
     STRUCTURE_LAUNCHES[desc_c.structure] += 1
+    if desc_c.split:
+        SPLIT_LAUNCHES["K1"] += 1
 
 
 def _trace_cuda(desc_c, origins, directions, cone, carried, out, *, cap: int, active=None,
@@ -738,6 +744,8 @@ def _trace_cuda(desc_c, origins, directions, cone, carried, out, *, cap: int, ac
         )
     _raise_on(err, lib, "trace (K2)")
     TRACE_LAUNCHES += 1
+    if desc_c.split:
+        SPLIT_LAUNCHES["K2"] += 1
 
 
 def _shade_cuda(desc_c, origins, directions, depth, outcome, rgb) -> None:

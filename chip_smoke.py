@@ -421,6 +421,19 @@ def median_ms(fn, runs: int = 7, reps: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def timed_ms(fn):
+    """``(fn(), ms)``: one call and its CUDA-event time, for a plain version
+    whose result is compared as well as timed."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def reset_launches() -> None:
     from bsdmg_tpu_torch.ops.cuda import (
         bake_kernel,
@@ -436,14 +449,19 @@ def reset_launches() -> None:
     render_kernel.TRACE_LAUNCHES = 0
     render_kernel.SHADE_LAUNCHES = 0
     render_kernel.STRUCTURE_LAUNCHES.clear()
+    render_kernel.SPLIT_LAUNCHES.clear()
     diff_kernel.MARCH_LAUNCHES = 0
     diff_kernel.LOSS_GRAD_LAUNCHES = 0
+    diff_kernel.SPLIT_LAUNCHES.clear()
     for name in grid_kernel.LAUNCHES:
         grid_kernel.LAUNCHES[name] = 0
 
 
-def render_phases(card: str, device) -> dict:
-    """Phases 3-5: the render path and K1."""
+def render_phases(card: str, device) -> tuple[dict, dict]:
+    """Phases 3-5: the render path and K1. Returns the kernels line's entry
+    of K1 without the split (its launches those of the library call
+    ``render_image_cuda`` without it: the CLI passes the split) and the
+    launch counts of ``cli render``, which launches the split's K1."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.models import reference_render_scene
     from bsdmg_tpu_torch.ops.cuda import render_kernel
@@ -459,15 +477,20 @@ def render_phases(card: str, device) -> dict:
         t0 = time.perf_counter()
         cli.main(["render", "-o", str(png)])
         seconds = time.perf_counter() - t0
-        launches = render_kernel.LAUNCHES
-        check(launches > 0, "cli render did not launch K1")
+        cli_counts = launch_counts()
+        check(cli_counts["K1 split"] > 0, f"cli render did not launch K1 with the split: "
+                                          f"{launched(cli_counts)}")
         check(png.is_file() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", "no PNG written")
         print(f"render path: cli render 1920x1080 -> {png.stat().st_size} B PNG in {seconds:.2f} s, "
-              f"K1 launches {launches}")
+              f"launches {launched(cli_counts)}")
 
     desc = compile_scene(reference_render_scene(device=device))
     o, d, c = rays(1920, 1080, device)
+    reset_launches()
     kernel = render_image_cuda(desc, o, d, c, return_planes=True)
+    launches = render_kernel.LAUNCHES
+    check(launches > 0 and not render_kernel.SPLIT_LAUNCHES,
+          "render_image_cuda without the split did not launch K1 alone")
     plain = render_image_planes_torch(desc, o, d, c)
     torch.cuda.synchronize()
     stats = compare(kernel, plain)
@@ -503,7 +526,8 @@ def render_phases(card: str, device) -> dict:
 
     k_ms, p_ms = timings[(1920, 1080)]
     return {
-        "name": "K1 render_kernel (fused trace+shade)",
+        "name": "K1 render_kernel<Box<true, false>> (fused trace+shade; render_image_cuda without "
+                "the split)",
         "route": "cuda",
         "source": render_kernel.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336",
@@ -514,7 +538,7 @@ def render_phases(card: str, device) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }
+    }, cli_counts
 
 
 class _Records(logging.Handler):
@@ -621,9 +645,12 @@ def twin_pipeline(rk, desc, o, d, c, *, two_phase=False, phase_a_steps=32, use_b
     return rk.shade_planes_torch(desc, o, d, planes[0], planes[2]), *planes
 
 
-def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
+def trace_shade_phases(card: str, device, alone: dict) -> tuple[list[dict], dict]:
     """Phase 6: the bench path and kernels K2 and K3; ``alone`` is
-    :func:`kernel_times`'s."""
+    :func:`kernel_times`'s. Returns the kernels line's entries of K2
+    without the split (its launches those of ``cli bench --roofline``'s
+    step census, which takes no split) and K3, and each bench run's launch
+    counts (the render cells pass the split)."""
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.models import reference_render_scene
     from bsdmg_tpu_torch.ops.cuda import build
@@ -640,7 +667,7 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
     launches, outs = {}, {}
     for name, extra in BENCH_RUNS.items():
         out, counts, seconds = run_bench(extra)
-        k = {n: counts[n] for n in ("K1", "K2", "K3")}
+        k = {n: counts[n] for n in ("K1", "K2", "K3", "K1 split", "K2 split")}
         print(f"bench path ({name}): cli bench --which render {' '.join(extra)} in {seconds:.2f} s, "
               f"launches {k}: {json.dumps(out)}")
         check(np.isfinite(out["render"]["rays_per_s"]) and out["render"]["rays_per_s"] > 0,
@@ -650,6 +677,10 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
     check(launches["row"]["K2"] > 0 and launches["row"]["K3"] > 0,
           f"cli bench --two-phase row did not launch K2 and K3: {launches['row']}")
     check(launches["block"]["K1"] >= 2, f"cli bench --two-phase block: {launches['block']}")
+    census = launches["roofline"]["K2"] - launches["roofline"]["K2 split"]
+    check(launches["row"]["K2 split"] > 0 and census > 0,
+          f"cli bench --two-phase row did not launch K2 with the split, or cli bench --roofline "
+          f"K2 without it: {launches}")
     roof = outs["roofline"].get("roofline", {})
     check({"mean_steps", "mean_tile_max_steps", "max_steps", "mean_warp_max_steps",
            "speed_of_light_ms", "pct_of_roofline"} <= set(roof), f"cli bench --roofline: {roof}")
@@ -795,11 +826,11 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
     print(f"K1 split on {card}: {json.dumps(split)}")
 
     return [{
-        "name": "K2 trace_kernel (trace only, resumable)",
+        "name": "K2 trace_kernel<Box<true, false>> (trace only, resumable; without the split)",
         "route": "cuda",
         "source": rk.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:495",
-        "launches": launches["row"]["K2"],
+        "launches": census,
         "max_abs_err": errors["K2"],
         "ms": times[(1920, 1080)]["K2"],
         "plain_ms": plain["K2"],
@@ -818,7 +849,7 @@ def trace_shade_phases(card: str, device, alone: dict) -> list[dict]:
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
         "library_ms": None,
-    }]
+    }], launches
 
 
 def run_cli_mesh(kernel: str, extra: list[str], obj: Path, *,
@@ -1202,8 +1233,9 @@ def fit_path_phases(card: str, device) -> dict:
     print(f"fit path: cli fit --image (64x64, {FIT_STEPS} steps) in {seconds:.2f} s, launches {counts}; "
           f"loss {losses[0]:.4e} -> {losses[-1]:.4e}")
     print(f"  {messages[-1]}")
-    check(counts["K4"] >= 1 and counts["K5"] == FIT_STEPS,
-          f"cli fit --image launched K4 {counts['K4']} and K5 {counts['K5']} times")
+    check(counts["K4"] >= 1 and counts["K5"] == counts["K5 split"] == FIT_STEPS,
+          f"cli fit --image launched K4 {counts['K4']} and K5 {counts['K5']} times, "
+          f"{counts['K5 split']} of them with the split")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"fit --image loss did not fall: {losses}")
     out["launches"] = counts
     out["recovered"] = messages[-1]
@@ -1353,7 +1385,11 @@ def diff_kernel_phases(card: str, device, fit: dict, alone: dict) -> list[dict]:
         "fit 1920x1080": (perturbed, large_target, bb6, 1.0, large),
     }
     for name, (params, target, bb, edge, (o, d, c)) in cases.items():
+        reset_launches()
         kern = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=edge)
+        if name == "bench":
+            # the library call without the split (cli fit --image passes it)
+            k5_launches = dk.LOSS_GRAD_LAUNCHES - dk.SPLIT_LAUNCHES["K5"]
         again = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=edge)
         plain = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=edge)
         torch.cuda.synchronize()
@@ -1437,22 +1473,29 @@ def diff_kernel_phases(card: str, device, fit: dict, alone: dict) -> list[dict]:
               f"at the fit point {k_ms:.4f} ms; Adam and host {step_s * 1e3 - k_ms:.3f} ms")
     k4_row = timings[("K4", 512)]
     k5_row = timings[("K5", 512, "bench")]
+    # cli fit --image renders its target through K4 without the split, and
+    # takes its steps through K5 with it
+    k4_launches = fit["launches"]["K4"] - fit["launches"]["K4 split"]
+    check(k4_launches > 0 and k5_launches > 0,
+          f"K4 without the split in cli fit --image ({fit['launches']}) or K5 without it in "
+          f"render_loss_grad_cuda ({k5_launches}) launched no time")
     return [{
-        "name": "K4 march_params_kernel (march under runtime parameters)",
+        "name": "K4 march_params_kernel<ReferenceForm> (march under runtime parameters; without "
+                "the split)",
         "route": "cuda",
         "source": dk.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60",
-        "launches": fit["launches"]["K4"],
+        "launches": k4_launches,
         "max_abs_err": max(r["dfdt_max_err"] for r in k4.values()),
         **k4_row,
         "library_ms": None,
     }, {
-        "name": "K5 loss_march_kernel + loss_tangent_kernel + loss_grad_sum (fused image loss "
-                "and gradient)",
+        "name": "K5 loss_march_kernel<ReferenceForm> + loss_tangent_kernel + loss_grad_sum (fused "
+                "image loss and gradient; render_loss_grad_cuda without the split)",
         "route": "cuda",
         "source": dk.SOURCE,
         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232",
-        "launches": fit["launches"]["K5"],
+        "launches": k5_launches,
         "max_abs_err": max(r["grad_max_abs_err"] for r in k5.values()),
         **k5_row,
         "library_ms": None,
@@ -1610,8 +1653,8 @@ def fit_scene_phases(card: str, device) -> list[dict]:
     from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
     from bsdmg_tpu_torch.utils.profiling import form_ops, mandelbulb_loops
 
-    resources = kernel_resources("diff_kernel.cu", ("march_params_kernel<", "loss_march_kernel<",
-                                                    "loss_tangent_form_kernel<"))
+    resources = [r for source in ("diff_kernel.cu", "diff_split.cu") for r in kernel_resources(
+        source, ("march_params_kernel<", "loss_march_kernel<", "loss_tangent_form_kernel<"))]
     entries = []
     with tempfile.TemporaryDirectory() as tmp:
         arguments = scene_arguments(Path(tmp))
@@ -1671,8 +1714,10 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                 k4s = {}
                 for track in (False, True):
                     k4 = dk.march_params_cuda(scene.csdf, start, o, d, c, bb=bb, track_min=track)
-                    p4 = dk.march_params_torch(scene.csdf, start, o, d, c, bb=bb, track_min=track)
-                    torch.cuda.synchronize()
+                    p4, ms = timed_ms(lambda: dk.march_params_torch(scene.csdf, start, o, d, c,
+                                                                     bb=bb, track_min=track))
+                    if not track:
+                        p4_ms = ms
                     exact = {n: bool(torch.equal(k4[i], p4[i])) for i, n in enumerate(
                         ("depth", "steps", "outcome", "dfdt", "min_m", "t_min")[:len(k4)])}
                     both = ~(k4[3].isnan() | p4[3].isnan())
@@ -1691,9 +1736,10 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                                                   edge_weight=edge)
                     again = dk.render_loss_grad_cuda(scene.csdf, start, target, o, d, c, bb=bb,
                                                      edge_weight=edge)
-                    p5 = dk.render_loss_grad_torch(scene.csdf, start, target, o, d, c, bb=bb,
-                                                   edge_weight=edge)
-                    torch.cuda.synchronize()
+                    p5, ms = timed_ms(lambda: dk.render_loss_grad_torch(
+                        scene.csdf, start, target, o, d, c, bb=bb, edge_weight=edge))
+                    if edge:
+                        p5_ms = ms
                     res = {"loss": k5[0].item(), "plain_loss": p5[0].item(),
                            "loss_rel_err": abs(k5[0].item() - p5[0].item())
                            / max(abs(p5[0].item()), 1e-30),
@@ -1718,11 +1764,8 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                 k4_ms = graph_ms(lambda: dk._march_cuda(scene_c, o, d, c, False))
                 k5_ms = graph_ms(lambda: dk._loss_grad_cuda(
                     scene_c, o, d, c, target, state, npix, 1.0, dk._band(MarchConfig(), None)))
-                # the plain versions ran above: one timed call each
-                p4_ms = median_ms(lambda: dk.march_params_torch(scene.csdf, start, o, d, c, bb=bb),
-                                  runs=1, warmup=0)
-                p5_ms = median_ms(lambda: dk.render_loss_grad_torch(
-                    scene.csdf, start, target, o, d, c, bb=bb, edge_weight=1.0), runs=1, warmup=0)
+                # the plain versions' times: their calls above (K4's without
+                # track_min, K5's with the edge term)
                 desc = compile_scene(scene, start)
                 loop = mandelbulb_loops(desc, o, d, c)[0] if name == "mandelbulb" else None
                 sdf, grad = form_ops(desc, loop)
@@ -3314,7 +3357,8 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
     from bsdmg_tpu_torch.utils import profiling
 
     cfg, mesh_cfg = MarchConfig(), MeshGenConfig()
-    registers = {r["kernel"]: r for r in kernel_resources("render_kernel.cu", ("render_kernel<",))}
+    registers = {r["kernel"]: r for source in ("render_kernel.cu", "render_split.cu")
+                 for r in kernel_resources(source, ("render_kernel<",))}
     for source, prefix in (("mc_kernel.cu", "mc_kernel<Composed"),
                            ("project_kernel.cu", "project_kernel<Composed")):
         for r in kernel_resources(source, (prefix,)):
@@ -3347,7 +3391,7 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
                     rk.render_image_cuda(desc, *small, return_planes=True),
                     rk.render_image_planes_torch(desc, *small))
             else:
-                plain = rk.render_image_planes_torch(desc, o, d, c)
+                plain, plain_ms = timed_ms(lambda: rk.render_image_planes_torch(desc, o, d, c))
                 check(all(same_nan(a, b) for a, b in zip(kernel, plain)),
                       f"K1 and its twin differ on {name} at {SCENE_FRAME}")
                 res["K1 timed frame"] = "bit-equal"
@@ -3398,11 +3442,11 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
                 field = refine_field(desc, field)
             args, kwargs = kernel_inputs(desc, field.lowers, field.voxel_size, mesh_cfg)
             k6 = mc_kernel.mc_fused_cuda(desc, *args, **kwargs)
-            t6 = mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs)
+            t6, t6_ms = timed_ms(lambda: mc_kernel.mc_fused_torch(sdf_fns(desc), *args, **kwargs))
             args7, _, kwargs7 = k7_inputs(desc, field, mesh_cfg)
             k7 = mesh_kernel.project_edges_cuda(desc, *args7, **kwargs7)
-            t7 = mesh_kernel.project_edges_torch(sdf_fns(desc), *args7[:3], args7[3].bool(),
-                                                 **kwargs7)
+            t7, t7_ms = timed_ms(lambda: mesh_kernel.project_edges_torch(
+                sdf_fns(desc), *args7[:3], args7[3].bool(), **kwargs7))
             torch.cuda.synchronize()
             if bulb:
                 res["K6/K7 level 3"] = {"voxels": field.count,
@@ -3416,8 +3460,8 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
                                         "nan_positions": int(k6[0].isnan().sum()),
                                         "K7 nan points": int(k7[0].isnan().sum()), "exact": True}
             if composed:
-                res.update(composed_kernel_times(desc, o, d, c, args, kwargs, args7, kwargs7,
-                                                 field.count))
+                res.update(composed_kernel_times(desc, args, kwargs, args7, kwargs7, field.count,
+                                                 (plain_ms, t6_ms, t7_ms)))
                 if name in ("gadget", "deep"):
                     entries += composed_entries(res, launches, k1_err, (k6, t6), (k7, t7), name,
                                                 tier)
@@ -3427,36 +3471,31 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
     return out, arguments, entries
 
 
-def composed_kernel_times(desc, o, d, c, args, kwargs, args7, kwargs7, voxels: int) -> dict:
-    """A composed scene's numbers beside :func:`scene_phases`' own: K1's
-    twin's time at SCENE_FRAME, the program's FP32 operations per
-    evaluation (forward, backward), and K6 and K7 alone on the level-3
-    field (:func:`k6_alone_ms`, :func:`k7_alone_ms`) beside their twins,
-    with their bounds from this field's Newton steps."""
-    from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
-    from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
+def composed_kernel_times(desc, args, kwargs, args7, kwargs7, voxels: int,
+                          plain_ms: tuple[float, float, float]) -> dict:
+    """A composed scene's numbers beside :func:`scene_phases`' own: the
+    program's FP32 operations per evaluation (forward, backward), and K6
+    and K7 alone on the level-3 field (:func:`k6_alone_ms`,
+    :func:`k7_alone_ms`) with their bounds from this field's Newton steps;
+    ``plain_ms``, the times of the twins' calls there (K1's at
+    SCENE_FRAME, K6's, K7's), beside them."""
     from bsdmg_tpu_torch.ops.cuda.csdf import sdf_fns
     from bsdmg_tpu_torch.utils import profiling
 
     fns = sdf_fns(desc)
     res = {"instructions": len(desc.program), "program ops": profiling.program_ops(desc),
-           "stencil ops": profiling.fd4_ops(desc),
-           "plain ms": median_ms(lambda: rk.render_image_planes_torch(desc, o, d, c),
-                                 runs=1, warmup=0)}
+           "stencil ops": profiling.fd4_ops(desc), "plain ms": plain_ms[0]}
     probe = newton_step_stats(desc, fns, args, kwargs)
     k6_ops = mesh_ops(desc, kwargs["use_grad"], probe["newton_steps"], probe["edges"],
                       probe["edges"], probe["valid_triangles"])
     res["K6 ms"] = k6_alone_ms(desc, args, kwargs)
-    res["K6 plain ms"] = median_ms(lambda: mc_kernel.mc_fused_torch(fns, *args, **kwargs),
-                                   runs=1, warmup=0)
+    res["K6 plain ms"] = plain_ms[1]
     res["K6 bound"] = bound(voxels * MC_VOXEL_BYTES, k6_ops)
     m = args7[0].numel()
     k7_ops = mesh_ops(desc, kwargs7["use_grad"],
                       projection_step_stats(fns, args7, kwargs7)["newton_steps"], m)
     res["K7 ms"] = k7_alone_ms(desc, args7, kwargs7)
-    res["K7 plain ms"] = median_ms(
-        lambda: mesh_kernel.project_edges_torch(fns, *args7[:3], args7[3].bool(), **kwargs7),
-        runs=1, warmup=0)
+    res["K7 plain ms"] = plain_ms[2]
     res["K7 bound"] = bound(m * (16 + 24), k7_ops)
     return res
 
@@ -4405,7 +4444,9 @@ PARALLEL_EXPECTED = {
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count now."""
+    """Every kernel's launch count now; ``"K1 split"`` and the like count
+    the near/far split's instantiations, whose launches ``"K1"`` and the
+    like count too."""
     from bsdmg_tpu_torch.ops.cuda import (
         bake_kernel,
         diff_kernel,
@@ -4419,7 +4460,9 @@ def launch_counts() -> dict:
             "K3": render_kernel.SHADE_LAUNCHES,
             "K4": diff_kernel.MARCH_LAUNCHES, "K5": diff_kernel.LOSS_GRAD_LAUNCHES,
             "K6": mc_kernel.LAUNCHES, "K7": mesh_kernel.LAUNCHES, **grid_kernel.LAUNCHES,
-            "bake": bake_kernel.LAUNCHES}
+            "bake": bake_kernel.LAUNCHES,
+            **{f"{k} split": render_kernel.SPLIT_LAUNCHES[k] for k in ("K1", "K2")},
+            **{f"{k} split": diff_kernel.SPLIT_LAUNCHES[k] for k in ("K4", "K5")}}
 
 
 def launched(counts: dict) -> dict:
@@ -4789,9 +4832,10 @@ def parallel_phases(card: str, device) -> None:
 # ---------------------------------------------------------------------------
 
 #: each pipeline of render_image_cuda, and the launches of one frame
-SPLIT_PIPELINES = {"fused": ({}, {"K1": 1}), "block": ({"two_phase": "block"}, {"K1": 2}),
-                   "row": ({"two_phase": True}, {"K2": 2, "K3": 1}),
-                   "unfused": ({"swizzle": False}, {"K2": 1, "K3": 1})}
+SPLIT_PIPELINES = {"fused": ({}, {"K1": 1, "K1 split": 1}),
+                   "block": ({"two_phase": "block"}, {"K1": 2, "K1 split": 2}),
+                   "row": ({"two_phase": True}, {"K2": 2, "K2 split": 2, "K3": 1}),
+                   "unfused": ({"swizzle": False}, {"K2": 1, "K2 split": 1, "K3": 1})}
 #: K4's and K5's points: the JAX bench's grad cell at 512x512 (bounds and
 #: near box inflated by 0.25, a black target, no edge term) and the CLI's
 #: fit at 64x64 (by 0.6, the render at the true parameters, the edge term)
@@ -4822,7 +4866,7 @@ def split_work(rk, bounds, split, o, d, c, planes, cfg) -> tuple[dict, dict]:
             {"far_rays": int(far.sum()), "rays": far.numel()})
 
 
-def split_phases(card: str, device) -> list[dict]:
+def split_phases(card: str, device, main_launches: dict) -> list[dict]:
     """The near/far split (``compile_scene_split``) of the reference render
     scene at SCENE_FRAME: each pipeline of ``render_image_cuda`` (K1; K1
     twice; K2, K2 over the listed tail, K3; K2 and K3) with the split
@@ -4833,7 +4877,10 @@ def split_phases(card: str, device) -> list[dict]:
     K5 with the split at SPLIT_POINTS against their twins (K4 bit-equal but
     dfdt, within DFDT_ATOL; K5 within the bars, two calls the same bits)
     and alone with and without it. Returns the kernels line's entries of
-    the split instantiations."""
+    the split instantiations, their launches those of the main path's runs
+    in ``main_launches`` (``cli render``: K1; ``cli bench --two-phase
+    row``: K2; ``cli fit --image``: K5) or, for K4, which no command
+    launches with the split, those of ``march_params_cuda(..., split=)``."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.grad import render_image_diff
@@ -4848,10 +4895,12 @@ def split_phases(card: str, device) -> list[dict]:
     desc, split = compile_scene(scene), compile_scene_split(scene)
     o, d, c = rays(*SCENE_FRAME, device)
     npix = c.numel()
-    for r in kernel_resources("render_kernel.cu", ("render_split_kernel<", "trace_split_kernel<")):
+    for r in (kernel_resources("render_split.cu", ("render_split_kernel<", "trace_split_kernel<"))
+              + kernel_resources("diff_split.cu", ("march_params_split_kernel<",
+                                                   "loss_march_split_kernel<"))):
         print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
               f"{r['spill_stores']} B spill stores")
-    res, launches = {}, {}
+    res, launches, twins = {}, {}, {}
     for name, (kw, want) in SPLIT_PIPELINES.items():
         reset_launches()
         kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True, split=split, **kw)
@@ -4859,7 +4908,13 @@ def split_phases(card: str, device) -> list[dict]:
         launches[name] = launched(launch_counts())
         check(launches[name] == want, f"the {name} pipeline with the split launched "
                                       f"{launches[name]}, not {want}")
-        plain = twin_pipeline(rk, desc, o, d, c, two_phase=kw.get("two_phase", False), split=split)
+        # the fused and the unfused pipelines share their twin (one march,
+        # then the shading), timed as K1's plain version
+        two_phase = kw.get("two_phase", False)
+        if two_phase not in twins:
+            twins[two_phase] = timed_ms(lambda: twin_pipeline(rk, desc, o, d, c,
+                                                              two_phase=two_phase, split=split))
+        plain = twins[two_phase][0]
         stats = compare(kernel, plain)
         unsplit = rk.render_image_cuda(desc, o, d, c, return_planes=True, **kw)
         res[name] = {**split_bars(kernel[0], unsplit[0]), "exact": stats["exact"],
@@ -4889,8 +4944,7 @@ def split_phases(card: str, device) -> list[dict]:
                                                                 cap=cfg.step_limit))
         alone[f"K2 {label}"] = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, None, planes,
                                                                cap=cfg.step_limit))
-    k1_plain = median_ms(lambda: rk.render_image_planes_torch(desc, o, d, c, split=split),
-                         runs=1, warmup=0)
+    k1_plain = twins[False][1]
     k2_plain = median_ms(lambda: rk.trace_planes_torch(desc, o, d, c, split=split), runs=1,
                          warmup=0)
     print(f"split alone {SCENE_FRAME} on {card}: {json.dumps(alone)}; {rays_of['far_rays']} of "
@@ -4915,13 +4969,16 @@ def split_phases(card: str, device) -> list[dict]:
         k5 = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb,
                                       edge_weight=edge, split=sp)
         counts = launched(launch_counts())
-        check(counts == {"K4": 1, "K5": 1}, f"K4/K5 with the split launched {counts}")
+        check(counts == {"K4": 1, "K5": 1, "K4 split": 1, "K5 split": 1},
+              f"K4/K5 with the split launched {counts}")
+        if point == "bench":
+            k4_launches = counts["K4 split"]
         again = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb,
                                          edge_weight=edge, split=sp)
-        p4 = dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb, track_min=bool(edge),
-                                   split=sp)
-        p5 = dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c, bb=bb,
-                                       edge_weight=edge, split=sp)
+        p4, p4_ms = timed_ms(lambda: dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb,
+                                                           track_min=bool(edge), split=sp))
+        p5, p5_ms = timed_ms(lambda: dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c,
+                                                               bb=bb, edge_weight=edge, split=sp))
         u4 = dk.march_params_cuda(scene.csdf, params, o, d, c, bb=bb, track_min=bool(edge))
         torch.cuda.synchronize()
         hit = u4[2] == 0
@@ -4975,11 +5032,6 @@ def split_phases(card: str, device) -> list[dict]:
         k5_b = bound(n * (40 + 4 * track),
                      k5_ops(n, ef + en, af + an, hf + hn, hinges, True, False, track)
                      - ef * (full_sdf - far_sdf) - hf * (full_grad - far_grad))
-        p4_ms = median_ms(lambda: dk.march_params_torch(scene.csdf, params, o, d, c, bb=bb,
-                                                        split=sp), runs=1, warmup=0)
-        p5_ms = median_ms(lambda: dk.render_loss_grad_torch(scene.csdf, params, target, o, d, c,
-                                                            bb=bb, edge_weight=edge, split=sp),
-                          runs=1, warmup=0)
         rows[(point, "bounds")] = (k4_b, k5_b, p4_ms, p5_ms, rays_of)
         print(f"split alone {point} point ({size}x{size}) on {card}: K4 "
               f"{rows[(point, 'split', 'K4')]:.4f} ms (unsplit {rows[(point, 'unsplit', 'K4')]:.4f}),"
@@ -4994,21 +5046,25 @@ def split_phases(card: str, device) -> list[dict]:
         {"name": f"K1 render_split_kernel<Box<true, false>> (near/far split, {SCENE_FRAME[0]}x"
                  f"{SCENE_FRAME[1]})", "source": rk.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336",
-         "launches": launches["fused"]["K1"], "max_abs_err": k1_err, "ms": alone["K1 split"],
+         "launches": main_launches["cli render"]["K1 split"], "max_abs_err": k1_err,
+         "ms": alone["K1 split"],
          "plain_ms": k1_plain, "bound_ms": k1_bound[0], "bound_by": k1_bound[1], **common},
         {"name": f"K2 trace_split_kernel<Box<true, false>> (near/far split, {SCENE_FRAME[0]}x"
                  f"{SCENE_FRAME[1]})", "source": rk.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:495",
-         "launches": launches["row"]["K2"], "max_abs_err": k2_err, "ms": alone["K2 split"],
+         "launches": main_launches["cli bench --two-phase row"]["K2 split"], "max_abs_err": k2_err,
+         "ms": alone["K2 split"],
          "plain_ms": k2_plain, "bound_ms": k2_bound[0], "bound_by": k2_bound[1], **common},
-        {"name": "K4 march_params_split_kernel (near/far split, 512x512)", "source": dk.SOURCE,
-         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60", "launches": 1,
+        {"name": "K4 march_params_split_kernel (near/far split, 512x512; march_params_cuda with "
+                 "split=)", "source": dk.SOURCE,
+         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60", "launches": k4_launches,
          "max_abs_err": max(v["K4 dfdt max err"] for v in diff.values()),
          "ms": rows[("bench", "split", "K4")], "plain_ms": p4_ms, "bound_ms": k4_b[0],
          "bound_by": k4_b[1], **common},
         {"name": "K5 loss_march_split_kernel + loss_tangent_kernel + loss_grad_sum (near/far "
                  "split, 512x512)", "source": dk.SOURCE,
-         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232", "launches": 1,
+         "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232",
+         "launches": main_launches["cli fit --image"]["K5 split"],
          "max_abs_err": max(v["K5 grad max abs err"] for v in diff.values()),
          "ms": rows[("bench", "split", "K5")], "plain_ms": p5_ms, "bound_ms": k5_b[0],
          "bound_by": k5_b[1], **common},
@@ -5081,31 +5137,42 @@ def main(argv: list[str]) -> int:
         march_params_probe(card, device)
         return 0
 
-    reference_resources(card)
-    march_probe(card, device)
-    stencil_probe(card)
-    march_params_probe(card, device)
-    alone = kernel_times(card, device)
-    mesh_grid_kernel_times(card, device, alone)
-    kernels = [render_phases(card, device)]
-    kernels += trace_shade_phases(card, device, alone)
-    launches = mesh_path_phases()
-    kernels += mesh_kernel_phases(card, device, launches)
-    session_phase(card)
-    _, arguments, composed = scene_phases(card, device)
+    def phase(fn, *args):
+        """``fn(*args)``, its seconds printed: where the run's time goes."""
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase(reference_resources, card)
+    phase(march_probe, card, device)
+    phase(stencil_probe, card)
+    phase(march_params_probe, card, device)
+    alone = phase(kernel_times, card, device)
+    phase(mesh_grid_kernel_times, card, device, alone)
+    k1, render_counts = phase(render_phases, card, device)
+    kernels = [k1]
+    entries, bench_counts = phase(trace_shade_phases, card, device, alone)
+    kernels += entries
+    launches = phase(mesh_path_phases)
+    kernels += phase(mesh_kernel_phases, card, device, launches)
+    phase(session_phase, card)
+    _, arguments, composed = phase(scene_phases, card, device)
     kernels += composed
-    composed_phases(card, device)
-    libm_probe(card, arguments)
-    fit = fit_path_phases(card, device)
-    kernels += diff_kernel_phases(card, device, fit, alone)
-    kernels += fit_scene_phases(card, device)
-    kernels += grid_phases(card, device)
-    kernels += asset_phases(card, device)
-    parallel_phases(card, device)
-    kernels += moved_wrap_phase(card, device)
-    roofline_phase(card)
-    kernels += split_phases(card, device)
-    relaxation_phase(card, device)
+    phase(composed_phases, card, device)
+    phase(libm_probe, card, arguments)
+    fit = phase(fit_path_phases, card, device)
+    kernels += phase(diff_kernel_phases, card, device, fit, alone)
+    kernels += phase(fit_scene_phases, card, device)
+    kernels += phase(grid_phases, card, device)
+    kernels += phase(asset_phases, card, device)
+    phase(parallel_phases, card, device)
+    kernels += phase(moved_wrap_phase, card, device)
+    phase(roofline_phase, card)
+    kernels += phase(split_phases, card, device, {
+        "cli render": render_counts, "cli bench --two-phase row": bench_counts["row"],
+        "cli fit --image": fit["launches"]})
+    phase(relaxation_phase, card, device)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s, the build "
           "included")

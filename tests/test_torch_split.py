@@ -28,7 +28,6 @@ tail), are held against the JAX package:
 
 import copy
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -51,7 +50,6 @@ from bsdmg_tpu_torch.ops.cuda.csdf import (
     compile_scene,
     compile_scene_split,
     descriptor_csdf,
-    descriptor_csdf_value_and_grad,
     scene_bounds,
 )
 from bsdmg_tpu_torch.ops.cuda.diff_kernel import (
@@ -114,21 +112,15 @@ def test_compile_scene_split_equals_jax(name):
 
 
 def test_far_scene_equals_jax_far_sdf():
-    """The far scene's value and its reverse-mode gradient (the Far
-    structure's twins) against JAX's far SDF and ``jax.grad`` of it on
-    random points, 1e-6."""
+    """The far scene's value (the Far structure's twin) against JAX's far
+    SDF on random points, 1e-6."""
     (jfar, _), (far, _) = (jax_scene_split(jax_get_scene("reference_render_scene")),
                            compile_scene_split(reference_render_scene(device="cpu")))
     p = np.random.default_rng(0).uniform(-3.2, 3.2, (4000, 3)).astype(np.float32)
     x, y, z = (torch.from_numpy(p[:, a].copy()) for a in range(3))
     jx, jy, jz = (jnp.asarray(p[:, a]) for a in range(3))
     ref = np.asarray(jfar(jx, jy, jz))
-    ref_g = jax.grad(lambda a, b, c: jnp.sum(jfar(a, b, c)), argnums=(0, 1, 2))(jx, jy, jz)
     np.testing.assert_allclose(descriptor_csdf(far)(x, y, z).numpy(), ref, atol=1e-6)
-    d, *g = descriptor_csdf_value_and_grad(far)(x, y, z)
-    np.testing.assert_array_equal(d.numpy(), descriptor_csdf(far)(x, y, z).numpy())
-    for got, want in zip(g, ref_g):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
