@@ -24,20 +24,24 @@
 // residual/denom, the analytic normal at q = o + t_diff d, the shading and
 // ACES, the squared error against the target and, with edge_weight, the
 // silhouette hinge of grad/edge.py at the closest-approach point. The JAX
-// kernel differentiates this with reverse mode inside the kernel; here the
-// parameters are forward-mode duals (dual.cuh): each parameter carries its
-// unit tangent, so the loss's tangents are dL/dtheta. The normal's tangents
-// follow from evaluating the spatial gradient in duals at a point q whose
-// tangents are dq/dtheta: the reference form's hand-written reverse pass
-// (param_sdf.cuh), the other forms' forward pass in duals of duals
-// (nested_dual.cuh).
+// kernel differentiates this with reverse mode inside the kernel. Here a
+// composed scene's parameter program does too: one reverse sweep a ray over
+// a tape of its forward pass (loss_reverse_kernel, param_program.cuh
+// program_reverse), whatever the number of parameter values. The other
+// forms take the parameters as forward-mode duals (dual.cuh): each
+// parameter carries its unit tangent, so the loss's tangents are
+// dL/dtheta; the normal's tangents follow from evaluating the spatial
+// gradient in duals at a point q whose tangents are dq/dtheta: the
+// reference form's hand-written reverse pass (param_sdf.cuh), the others'
+// forward pass in duals of duals (nested_dual.cuh).
 //
 // What bounds them on Hopper: instruction issue and the latency of each
 // step's dependent chain (3 IEEE square roots and, near the blend of the
 // smooth minimum, an IEEE division), warp divergence in the march, as in
 // K1, and the occupancy that the registers allow; in K5 also the tangent
-// work of each hit, about n_prm + 1 times a value-and-gradient, and the
-// registers it needs. Memory traffic is 28 B in per ray and 16-24 B out
+// work of each hit (in the forward forms about n_prm + 1 times a
+// value-and-gradient; in a composed scene's reverse sweep a few times one,
+// whatever n_prm) and the registers it needs. Memory traffic is 28 B in per ray and 16-24 B out
 // (K4), 40-44 B in (K5). A K4 step issues about as many instructions as
 // K1's; at 1080p the march, dfdt and the cull of every ray took 0.35 ms to
 // K1's 0.19 at 79 registers, 24 warps an SM. With the design below K4
@@ -65,12 +69,13 @@
 // parameters' tangents (Dual<3>), 128 registers and 4 blocks an SM where
 // one lane of 9 tangents took 255 registers and spilled; with the object
 // transform, translation and rotation launches take its 7 tangents, one a
-// lane. For the other forms (loss_tangent_form_kernel) a ray takes one lane
-// per value of the flat parameter vector, in passes of 128 lanes where a
-// composed scene's vector is longer. Their blocks walk chunks of the lists
-// in a fixed order and write one row of sums per chunk. The last launch
-// (loss_grad_sum) adds the rows in a fixed order. Two calls on the same
-// inputs give the same bits.
+// lane. For a composed scene (loss_reverse_kernel) a thread takes a ray and
+// sweeps its program backward, its parameters' adjoints accumulating per
+// thread; for the sphere, the mandelbulb, the wrapped object and the grid
+// (loss_tangent_form_kernel) a ray takes one lane per parameter value. Their
+// blocks walk chunks of the lists in a fixed order and write one row of
+// sums per chunk, or per warp. The last launch (loss_grad_sum) adds the rows
+// in a fixed order. Two calls on the same inputs give the same bits.
 //
 // The near/far split of the TPU kernels (diff_kernel.py:120-139,
 // :345-366) is taken per warp, as in K1 (render_kernel.cu march_split): in
@@ -628,16 +633,16 @@ loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
   }
 }
 
-// K5's tangent launch for the forms other than the reference (FormEval): a
-// ray's lanes are a group of `lanes` threads, lane j carrying the tangents
-// of the parameters at slots j * L .. j * L + L - 1 (Dual<L>, each
-// parameter seeded by its slot), so a ray takes ceil(n_prm / L) lanes and a
+// K5's tangent launch for the sphere's, the mandelbulb's, the wrapped
+// object's and the grid's forms (FormEval; a composed scene's program sweeps
+// in reverse, loss_reverse_kernel below): a ray's lanes are a group of
+// `lanes` threads, lane j carrying the tangents of the parameters at slots
+// j * L .. j * L + L - 1 (Dual<L>, each parameter seeded by its slot), so a
+// ray takes ceil(n_prm / L) lanes (at most 17, the wrapped object's) and a
 // chunk `groups` = 128 / lanes rays. L is 1: a nested value
-// (DualOf<3, Dual<1>>) is then 8 floats. The large tier's ray may take more
-// lanes than a block has threads: a chunk is then one ray, whose lanes the
-// block takes in passes of 128. The items, rows and fixed orders are
-// loss_tangent_kernel's; an item's row holds its loss (lane 0's, the first
-// chunk adding the first launch's sum) and dL/dprm at every slot.
+// (DualOf<3, Dual<1>>) is then 8 floats. The items, rows and fixed orders
+// are loss_tangent_kernel's; an item's row holds its loss (lane 0's, the
+// first chunk adding the first launch's sum) and dL/dprm at every slot.
 #define BSDMG_FORM_TANGENTS 1
 
 // the tangents a lane carries: none for a form that reads no parameter
@@ -700,64 +705,168 @@ loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
   }
 }
 
-#ifdef BSDMG_DIFF_SECOND_UNIT
-// The large tier's tangent launch: a ray's lanes may be more than a block
-// has threads, so a chunk is one ray (groups 1) whose lanes the block takes
-// in passes of 128; an item's row as above. A specialization, so that the
-// other forms' launch keeps its code and its registers; compiled in the
-// unit that launches it (diff_split.cu) alone.
-template <>
-__global__ void __launch_bounds__(128)
-loss_tangent_form_kernel<ProgramLargeForm>(
-    const ParamScene s, const float* __restrict__ origins, const float* __restrict__ directions,
+// K5's tangent launch for a composed scene's parameter program (ProgramForm,
+// ProgramLargeForm): one reverse sweep a listed ray, whatever the number of
+// parameter values (param_program.cuh program_record, program_reverse).
+// Per hit: the program at x0 in float, t_diff and q as ray_loss takes them;
+// the program at q in Dual<3> (value and spatial gradient g) with its tape;
+// the loss and dL/dg in Dual<3> through the normal, the shading, ACES and
+// the squared error; the sweep at q from the adjoint (0, dL/dg), which adds
+// dL/dprm at fixed q and gives dL/dq; then, since q moves along d with
+// t_diff = t0 - (f(x0) - c t0 - eps) / stop(denom), the sweep at x0 from
+// -(dL/dq . d) / denom. A hinge ray adds the sweep at its closest-approach
+// point from the hinge's derivative (tie_weight at 0, as vmax's). A ray
+// takes Lanes lanes (reverse_lanes: 4 where an image has no more lists than
+// the card has SMs, else 1), which walk its sweeps together, each taking
+// its share of every primitive's passes (param_program.cuh Adjoint): the
+// latency of a sweep, which a small image's few rays leave exposed, falls
+// by up to a primitive's passes (3 or 4); each is its own instantiation, so
+// one lane a ray keeps its registers. The parameters'
+// adjoints of a thread accumulate over its rays: in shared memory (small
+// tier, BSDMG_MAX_PARAMS rows of 129 floats, conflict-free both across the
+// threads and across the rows) or the scratch buffer after the sweep's
+// slots (large tier). An item is a warp's chunk of 32 / Lanes rays of one
+// block's list (4 Lanes items a list); warp v of the launch takes items v,
+// v + warps, ... in that order, lane 0 of the chunk 0 adding the first
+// launch's sum of the block, and writes one row of partials (stride =
+// n_prm + 1: the loss, then dL/dprm), each output summed over its 32 lanes
+// in lane order: two calls give the same bits.
+#define BSDMG_ADJ_STRIDE 129
+
+// the ray's loss, its dL/dprm added to adj
+template <bool D, bool Spilled, class A>
+__device__ __forceinline__ float ray_loss_reverse(
+    const ParamScene& s, Store<Spilled>& st, const SweepLayout& layout, A& adj,
+    const TangentRay& e, const float* __restrict__ origins, const float* __restrict__ directions,
     const float* __restrict__ cone, const float* __restrict__ target,
-    const float* __restrict__ t_state, const TangentRay* __restrict__ rays,
-    const int* __restrict__ counts, const float* __restrict__ values, float* __restrict__ partials,
-    int stride, long long blocks, int lanes, int groups, int chunks, float inv_denom_elems,
-    float inv_pixels, float edge_weight, float edge_band) {
-  constexpr int L = BSDMG_FORM_TANGENTS;
-  const int passes = (lanes + 127) / 128;
-  const int group = passes > 1 ? 0 : threadIdx.x / lanes;
-  __shared__ float sums[128][L + 1];
-  const long long items = blocks * chunks;
-  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
-    const long long block = w / chunks;
-    const int first = static_cast<int>(w % chunks) * groups;
+    const float* __restrict__ t_state, float inv_denom_elems, float inv_pixels, float edge_weight,
+    float edge_band) {
+  const long long i = e.pixel;
+  const bool collided = e.outcome == COLLISION;
+  float total;
+  int tp;
+  if (collided) {
+    const float o[3] = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
+    const float d[3] = {directions[3 * i], directions[3 * i + 1], directions[3 * i + 2]};
+    const float c = cone[i];
+    const float t0 = e.t0;
+    const float x0[3] = {o[0] + t0 * d[0], o[1] + t0 * d[1], o[2] + t0 * d[2]};
+    const float residual =
+        (program_value(s, Prm<float, D>{&s, 0}, x0) - c * t0) - s.collision_distance;
+    const float t_diff = t0 - residual / e.denom;
+    Dual<3> q[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) q[a] = Scalar<Dual<3>>::placed(o[a] + t_diff * d[a], a, 0);
+    const Dual<3> f = program_record<Dual<3>, D>(s, q, st, layout, tp);
+    Dual<3> g[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) g[a] = Scalar<Dual<3>>::placed(f.t[a], a, 0);
+    const Dual<3> inv = 1.0f / vsqrt(vmax((g[0] * g[0] + g[1] * g[1]) + g[2] * g[2], 1e-24f));
+    Dual<3> r, gg, b, rgb[3];
+    shade_collision(s, g[0] * inv, g[1] * inv, g[2] * inv, r, gg, b);
+    aces(s, r, gg, b, rgb);
+    const Dual<3> er = rgb[0] - target[3 * i], eg = rgb[1] - target[3 * i + 1],
+                  eb = rgb[2] - target[3 * i + 2];
+    const Dual<3> photo = ((er * er + eg * eg) + eb * eb) * inv_denom_elems;
+    total = photo.v;
+    Dual<3> seed = photo;
+    seed.v = 0.0f;
+    Dual<3> qbar[3];
+    program_reverse<Dual<3>, D>(s, q, seed, st, layout, tp, adj, qbar);
+    const float dt = (qbar[0].v * d[0] + qbar[1].v * d[1]) + qbar[2].v * d[2];
+    program_record<float, D>(s, x0, st, layout, tp);
+    float x0bar[3];
+    program_reverse<float, D>(s, x0, -dt / e.denom, st, layout, tp, adj, x0bar);
+  } else {
+    const float v = e.outcome == STEP_LIMIT ? 1.0f : 0.0f;
+    float rgb[3];
+    aces(s, v, v, v, rgb);
+    const float er = rgb[0] - target[3 * i], eg = rgb[1] - target[3 * i + 1],
+                eb = rgb[2] - target[3 * i + 2];
+    total = ((er * er + eg * eg) + eb * eb) * inv_denom_elems;
+  }
+  const int kind = t_state != nullptr ? hinge_kind(t_state[i], collided, e.min_m) : 0;
+  if (kind != 0) {
+    const float c = cone[i];
+    const float xe[3] = {origins[3 * i] + e.t_min * directions[3 * i],
+                         origins[3 * i + 1] + e.t_min * directions[3 * i + 1],
+                         origins[3 * i + 2] + e.t_min * directions[3 * i + 2]};
+    const float m = program_record<float, D>(s, xe, st, layout, tp) - c * e.t_min;
+    const float arg = kind == 1 ? m : edge_band - m;
+    const float h = vmax(arg, 0.0f);
+    total = total + (h * edge_weight) * inv_pixels;
+    const float dm = (kind == 1 ? 1.0f : -1.0f) * tie_weight(arg, h, 0.0f);
+    float xebar[3];
+    program_reverse<float, D>(s, xe, (dm * edge_weight) * inv_pixels, st, layout, tp, adj, xebar);
+  }
+  return total;
+}
+
+template <class Form, int Lanes>
+__global__ void __launch_bounds__(128, !Form::device && Lanes == 1 ? 4 : 1)
+loss_reverse_kernel(const ParamScene s, const float* __restrict__ origins,
+                    const float* __restrict__ directions, const float* __restrict__ cone,
+                    const float* __restrict__ target, const float* __restrict__ t_state,
+                    const TangentRay* __restrict__ rays, const int* __restrict__ counts,
+                    const float* __restrict__ values, float* __restrict__ partials, int stride,
+                    long long blocks, float inv_denom_elems, float inv_pixels, float edge_weight,
+                    float edge_band) {
+  constexpr bool D = Form::device;  // the large tier: the sweep in the scratch buffer
+  __shared__ float losses[128];
+  __shared__ float adj_shared[D ? 1 : BSDMG_MAX_PARAMS * BSDMG_ADJ_STRIDE];
+  const int lane = threadIdx.x & 31;
+  const long long warps = 4LL * gridDim.x;
+  const long long warp = 4LL * blockIdx.x + (threadIdx.x >> 5);
+  const int n_prm = s.n_prm;
+  // a ray's group of lanes: this lane's place in it, the group's mask
+  const int sub = lane & (Lanes - 1);
+  const unsigned mask = (0xffffffffu >> (32 - Lanes)) << (lane - sub);
+  float local_slots[D ? 1 : BSDMG_SWEEP_SLOTS * BSDMG_SWEEP_WORDS];
+  Store<D> st;
+  Adjoint<Lanes> adj;
+  SweepLayout layout(D ? s.program_depth : BSDMG_STACK, D ? s.program_frames : BSDMG_FRAMES);
+  if constexpr (D) {
+    const long long threads = s.scratch_threads;
+    st = Store<D>{s.scratch + launch_thread(), threads};
+    const long long words = (long long)BSDMG_SWEEP_WORDS *
+                            (layout.tape + 3LL * s.program_length / 2);
+    adj = Adjoint<Lanes>{s.scratch + words * threads + launch_thread(), threads, sub, mask};
+  } else {
+    st = Store<D>{local_slots, 1};
+    adj = Adjoint<Lanes>{adj_shared + threadIdx.x, BSDMG_ADJ_STRIDE, sub, mask};
+  }
+  for (int k = 0; k < n_prm; ++k) adj.base[k * adj.stride] = 0.0f;
+  float loss = 0.0f;
+  constexpr int per_item = 32 / Lanes;  // rays an item
+  const long long items = 4LL * Lanes * blocks;
+  for (long long item = warp; item < items; item += warps) {
+    const long long block = item / (4 * Lanes);
+    const int first = static_cast<int>(item % (4 * Lanes)) * per_item;
     const int n = counts[block];
-    for (int pass = 0; pass < passes; ++pass) {
-      const int j = passes > 1 ? pass * 128 + threadIdx.x : threadIdx.x % lanes;
-      float acc[L + 1];
-#pragma unroll
-      for (int m = 0; m <= L; ++m) acc[m] = 0.0f;
-      if (group < groups && j < lanes && first + group < n) {
-        const TangentRay& e = rays[block * 128 + first + group];
-        const Dual<L> loss = ray_loss<Dual<L>>(s, FormEval<ProgramLargeForm, L>(s, j), e, origins,
-                                               directions, cone, target, t_state, inv_denom_elems,
-                                               inv_pixels, edge_weight, edge_band);
-        acc[0] = loss.v;
-#pragma unroll
-        for (int m = 0; m < L; ++m) acc[m + 1] = loss.t[m];
-      }
-      __syncthreads();  // the previous item's or pass's sums are read
-#pragma unroll
-      for (int m = 0; m <= L; ++m) sums[threadIdx.x][m] = acc[m];
-      __syncthreads();
-      for (int k = threadIdx.x; k < stride; k += blockDim.x) {
-        // output k of a lane of this pass: the loss (lane 0's value), then
-        // slot k - 1's tangent
-        const int lane = k == 0 ? 0 : (k - 1) / L, component = k == 0 ? 0 : (k - 1) % L + 1;
-        if (lane / 128 != pass) continue;
-        float total = k == 0 && first == 0 ? values[block] : 0.0f;
-        if (first < n) {
-          for (int g = 0; g < groups; ++g) total += sums[g * lanes + lane - pass * 128][component];
-        }
-        partials[w * stride + k] = total;
-      }
+    if (first == 0 && lane == 0) loss += values[block];
+    const int ray = first + lane / Lanes;
+    if (ray < n) {
+      const float l = ray_loss_reverse<D>(s, st, layout, adj, rays[block * 128 + ray], origins,
+                                          directions, cone, target, t_state, inv_denom_elems,
+                                          inv_pixels, edge_weight, edge_band);
+      if (sub == 0) loss += l;
     }
+  }
+  losses[threadIdx.x] = loss;
+  __syncwarp();
+  const int warp0 = threadIdx.x - lane;
+  for (int k = lane; k < stride; k += 32) {
+    float total = 0.0f;
+    for (int t = 0; t < 32; ++t) {
+      total += k == 0 ? losses[warp0 + t]
+                      : adj.base[(long long)(k - 1) * adj.stride + (t - lane)];
+    }
+    partials[warp * stride + k] = total;
   }
 }
 
-#else
+#if !defined(BSDMG_DIFF_SECOND_UNIT) && !defined(BSDMG_DIFF_REVERSE_UNIT) && \
+    !defined(BSDMG_DIFF_LANES_UNIT)
 // out[k] = the sum over rows of partials[row * stride + k], one block per
 // k, each thread over a fixed stride of rows, then a fixed tree; launched
 // by this unit alone
@@ -775,7 +884,7 @@ loss_grad_sum(const float* __restrict__ partials, int n_rows, int stride, float*
   }
   if (threadIdx.x == 0) out[k] = sums[0];
 }
-#endif  // BSDMG_DIFF_SECOND_UNIT
+#endif  // the units
 
 // the width of K5's partial sums for n_prm parameters of the reference
 // form: 9 for the shape parameters alone, 16 with the object transform
@@ -798,14 +907,22 @@ static bool with_form(int form, F&& f) {
   }
 }
 
+// a composed scene's parameter program, whose K5 sweeps in reverse
+static bool is_program_form(int form) {
+  return form == FORM_PROGRAM || form == FORM_PROGRAM_LARGE;
+}
+template <class F>
+struct is_program
+    : std::integral_constant<bool, std::is_same<F, ProgramForm>::value ||
+                                       std::is_same<F, ProgramLargeForm>::value> {};
+
 // loss_tangent_form_kernel's shape for n_prm parameters: lanes a ray (one
-// for a form with none), rays a chunk (one where a ray takes more lanes
-// than a block has threads), chunks a block's list
+// for a form with none), rays a chunk, chunks a block's list
 struct FormLanes {
   int lanes, groups, chunks;
   explicit FormLanes(int n_prm) {
     lanes = n_prm > 0 ? (n_prm + BSDMG_FORM_TANGENTS - 1) / BSDMG_FORM_TANGENTS : 1;
-    groups = lanes < 128 ? 128 / lanes : 1;
+    groups = 128 / lanes;
     chunks = (128 + groups - 1) / groups;
   }
 };
@@ -836,6 +953,7 @@ static long long loss_grad_rows(long long blocks, bool transform) {
 
 // K5's partial sums for a scene: rows and their width (the loss and the
 // gradient)
+static int reverse_grid(long long blocks);
 static void loss_grad_partials(const ParamScene& s, long long blocks, long long& rows,
                                int& stride) {
   if (s.form == FORM_REFERENCE) {
@@ -843,29 +961,53 @@ static void loss_grad_partials(const ParamScene& s, long long blocks, long long&
     stride = tangents(s.n_prm) + 1;
     return;
   }
-  rows = blocks * FormLanes(s.n_prm).chunks;
+  // a program form's reverse launch: a row a warp
+  rows = is_program_form(s.form) ? 4LL * reverse_grid(blocks) : blocks * FormLanes(s.n_prm).chunks;
   stride = s.n_prm + 1;
 }
 
-// blocks of a tangent launch over `items` chunks: 8 an SM at most (each
-// block walks its share of the items)
-static int tangent_grid(long long items) {
+// the card's SMs
+static int card_sms() {
   static int sms = 0;
   if (sms == 0) {
     int device = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  const long long most = 8LL * (sms > 0 ? sms : 1);
+  return sms > 0 ? sms : 1;
+}
+
+// blocks of a tangent launch over `items` chunks: 8 an SM at most (each
+// block walks its share of the items)
+static int tangent_grid(long long items) {
+  const long long most = 8LL * card_sms();
   return static_cast<int>(items < most ? (items > 0 ? items : 1) : most);
 }
 
+// lanes a ray of the reverse launch (loss_reverse_kernel) over an image of
+// `blocks` lists: 4 where there are no more lists than SMs (4 lanes a ray
+// then take a block of 128 threads a list, at most one an SM), else 1
+static int reverse_lanes(long long blocks) { return blocks <= card_sms() ? 4 : 1; }
+
+// blocks of the reverse launch over `blocks` lists
+static int reverse_grid(long long blocks) { return tangent_grid(blocks * reverse_lanes(blocks)); }
+
 // floats of the large tier's scratch (ParamScene::scratch) for `threads`
-// threads: each thread's stack and frames, BSDMG_VALUE_WORDS floats a value
-// (param_program.cuh); none for the other forms
+// threads of a march: each thread's stack and frames, BSDMG_VALUE_WORDS floats a
+// value (param_program.cuh); none for the other forms
 static long long program_scratch(const ParamScene& s, long long threads) {
   if (s.form != FORM_PROGRAM_LARGE) return 0;
   return (long long)BSDMG_VALUE_WORDS * (s.program_depth + 3LL * s.program_frames) * threads;
+}
+
+// the same for `threads` threads of the reverse launch (loss_reverse_kernel):
+// each thread's sweep (stack, frames and tape, BSDMG_SWEEP_WORDS floats a
+// slot) and its parameters' adjoints
+static long long sweep_scratch(const ParamScene& s, long long threads) {
+  if (s.form != FORM_PROGRAM_LARGE) return 0;
+  const long long slots =
+      s.program_depth + 6LL * s.program_frames + 3LL * s.program_length / 2;
+  return (BSDMG_SWEEP_WORDS * slots + s.n_prm) * threads;
 }
 
 // the scene with the large tier's scratch at `scratch`, for `threads` threads
@@ -878,19 +1020,36 @@ static ParamScene with_scratch(const ParamScene& s, float* scratch, long long th
   return out;
 }
 
-
-// The instantiations are compiled in two units, so that the two build in
-// parallel: this file's, and diff_split.cu's (this file again, with
-// BSDMG_DIFF_SECOND_UNIT defined), which holds the near/far split's and the
-// large tier's (ProgramLargeForm). Each unit's dispatch instantiates only
-// its own and answers OTHER_UNIT for the rest; loss_grad_sum, the last
-// launch of every form, is this unit's.
+// The instantiations are compiled in four units, so that they build in
+// parallel: this file's (unit 0), diff_split.cu's (this file again, with
+// BSDMG_DIFF_SECOND_UNIT defined; unit 1), which holds the near/far split's
+// and the large tier's (ProgramLargeForm), diff_reverse.cu's (with
+// BSDMG_DIFF_REVERSE_UNIT; unit 2), which holds the small tier's reverse
+// launch (loss_reverse_kernel<ProgramForm, 1>), and diff_lanes.cu's (with
+// BSDMG_DIFF_LANES_UNIT; unit 3), both tiers' reverse launch at 4 lanes a
+// ray. Each unit's dispatch instantiates only its own and answers
+// OTHER_UNIT for the rest; loss_grad_sum, the last launch of every form,
+// and the entries are unit 0's, which call the others'.
 template <class F, bool Split>
-struct DiffSecondUnit : std::bool_constant<Split || std::is_same<F, ProgramLargeForm>::value> {};
-#ifdef BSDMG_DIFF_SECOND_UNIT
-constexpr bool kSecondUnit = true;
+struct DiffUnit
+    : std::integral_constant<int, Split || std::is_same<F, ProgramLargeForm>::value ? 1 : 0> {};
+// the unit of a form's tangent launches, a program form's at 4 lanes a ray
+// (Four) or 1
+template <class F, bool Four>
+struct TangentUnit
+    : std::integral_constant<int, Four && is_program<F>::value
+                                      ? 3
+                                      : (std::is_same<F, ProgramForm>::value
+                                             ? 2
+                                             : DiffUnit<F, false>::value)> {};
+#if defined(BSDMG_DIFF_LANES_UNIT)
+constexpr int kUnit = 3;
+#elif defined(BSDMG_DIFF_REVERSE_UNIT)
+constexpr int kUnit = 2;
+#elif defined(BSDMG_DIFF_SECOND_UNIT)
+constexpr int kUnit = 1;
 #else
-constexpr bool kSecondUnit = false;
+constexpr int kUnit = 0;
 #endif
 constexpr int OTHER_UNIT = -1;
 
@@ -905,13 +1064,13 @@ static int with_launch(const ParamScene& s, G&& g) {
     typedef decltype(form) F;
     if (s.split) {
       if constexpr (std::is_same<F, ReferenceForm>::value) {
-        if constexpr (DiffSecondUnit<F, true>::value == kSecondUnit) {
+        if constexpr (DiffUnit<F, true>::value == kUnit) {
           err = g(form, std::true_type{});
         } else {
           err = OTHER_UNIT;
         }
       }
-    } else if constexpr (DiffSecondUnit<F, false>::value == kSecondUnit) {
+    } else if constexpr (DiffUnit<F, false>::value == kUnit) {
       err = g(form, std::false_type{});
     } else {
       err = OTHER_UNIT;
@@ -982,16 +1141,24 @@ static int loss_march_in_unit(K5_LAUNCH_PARAMS) {
   });
 }
 
-// g(Form{}) for the scene's form where this unit holds its tangent
+// g(Form{}, lanes) for the scene's form where this unit holds its tangent
 // launches, else OTHER_UNIT (with the split or without, the tangent
-// launches are the form's); cudaErrorInvalidValue for a form that names none
+// launches are the form's); lanes, an integral_constant, 4 for a program
+// form's reverse launch at 4 lanes a ray (`four`), else 1;
+// cudaErrorInvalidValue for a form that names none
 template <class G>
-static int with_tangent_launch(const ParamScene& s, G&& g) {
+static int with_tangent_launch(const ParamScene& s, bool four, G&& g) {
   int err = cudaErrorInvalidValue;
   with_form(s.form, [&](auto form) {
     typedef decltype(form) F;
-    if constexpr (DiffSecondUnit<F, false>::value == kSecondUnit) {
-      err = g(form);
+    if (four && is_program<F>::value) {
+      if constexpr (TangentUnit<F, true>::value == kUnit) {
+        err = g(form, std::integral_constant<int, 4>{});
+      } else {
+        err = OTHER_UNIT;
+      }
+    } else if constexpr (TangentUnit<F, false>::value == kUnit) {
+      err = g(form, std::integral_constant<int, 1>{});
     } else {
       err = OTHER_UNIT;
     }
@@ -1004,7 +1171,7 @@ static int with_tangent_launch(const ParamScene& s, G&& g) {
 // rows follow one another). Returns the cudaError_t of the first launch
 // that failed, else 0.
 static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
-  return with_tangent_launch(*scene, [&](auto form) {
+  return with_tangent_launch(*scene, reverse_lanes(blocks) == 4, [&](auto form, auto lanes) {
     typedef decltype(form) F;
     if constexpr (std::is_same<F, ReferenceForm>::value) {
       // the wireframe at compile time; each launch's rows follow the last's
@@ -1033,6 +1200,14 @@ static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
                  shape_rows + translation_rows, rotation_rows);
         }
       });
+    } else if constexpr (std::is_same<F, ProgramForm>::value ||
+                         std::is_same<F, ProgramLargeForm>::value) {
+      const int grid = reverse_grid(blocks);
+      // the large tier's sweeps in the scratch buffer, a thread of this launch each
+      const ParamScene sc = with_scratch(*scene, scene->scratch, 128LL * grid);
+      loss_reverse_kernel<F, decltype(lanes)::value><<<grid, 128, 0, st>>>(
+          sc, origins, directions, cone, target, t_state, rays, counts, values, partials, stride,
+          blocks, inv_denom_elems, inv_pixels, edge_weight, edge_band);
     } else {
       const FormLanes fl(scene->n_prm);
       loss_tangent_form_kernel<F><<<tangent_grid(rows), 128, 0, st>>>(
@@ -1044,18 +1219,28 @@ static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
   });
 }
 
-#ifdef BSDMG_DIFF_SECOND_UNIT
+#if defined(BSDMG_DIFF_SECOND_UNIT)
 
 // diff_kernel.cu's entries for the instantiations of this unit
 int march_params_second_unit(K4_HOST_PARAMS) { return march_params_in_unit(K4_HOST_ARGS); }
 int loss_march_second_unit(K5_LAUNCH_PARAMS) { return loss_march_in_unit(K5_LAUNCH_ARGS); }
 int loss_tangents_second_unit(K5_LAUNCH_PARAMS) { return loss_tangents_in_unit(K5_LAUNCH_ARGS); }
 
+#elif defined(BSDMG_DIFF_REVERSE_UNIT)
+
+int loss_tangents_reverse_unit(K5_LAUNCH_PARAMS) { return loss_tangents_in_unit(K5_LAUNCH_ARGS); }
+
+#elif defined(BSDMG_DIFF_LANES_UNIT)
+
+int loss_tangents_lanes_unit(K5_LAUNCH_PARAMS) { return loss_tangents_in_unit(K5_LAUNCH_ARGS); }
+
 #else
 
 int march_params_second_unit(K4_HOST_PARAMS);
 int loss_march_second_unit(K5_LAUNCH_PARAMS);
 int loss_tangents_second_unit(K5_LAUNCH_PARAMS);
+int loss_tangents_reverse_unit(K5_LAUNCH_PARAMS);
+int loss_tangents_lanes_unit(K5_LAUNCH_PARAMS);
 
 extern "C" {
 
@@ -1077,25 +1262,18 @@ int bsdmg_march_params(K4_HOST_PARAMS) {
   return err == OTHER_UNIT ? march_params_second_unit(K4_HOST_ARGS) : err;
 }
 
-// the threads of K5's largest launch over `blocks` blocks: the march's, or
-// the tangent launch's
-static long long loss_grad_threads(const ParamScene& s, long long blocks) {
-  long long rows;
-  int stride;
-  loss_grad_partials(s, blocks, rows, stride);
-  const long long tangent = 128LL * tangent_grid(rows);
-  return blocks * 128 > tangent ? blocks * 128 : tangent;
-}
-
 // floats of scratch that bsdmg_loss_grad needs for scene over an h x w
-// image: the partial sums, the lists, and the large tier's stacks
+// image: the partial sums, the lists, and the large tier's stacks, for the
+// march (a thread a pixel) or the reverse launch, whichever needs more
 long long bsdmg_loss_grad_scratch(const ParamScene* scene, int h, int w) {
   const long long blocks = loss_grad_blocks(h, w);
   long long rows;
   int stride;
   loss_grad_partials(*scene, blocks, rows, stride);
+  const long long march = program_scratch(*scene, blocks * 128);
+  const long long sweep = sweep_scratch(*scene, 128LL * reverse_grid(blocks));
   return rows * stride + blocks * (128 * (sizeof(TangentRay) / sizeof(float)) + 2) +
-         program_scratch(*scene, loss_grad_threads(*scene, blocks));
+         (march > sweep ? march : sweep);
 }
 
 // Launches K5 on `stream`: target (h, w, 3); t_state (h, w), or null for
@@ -1121,14 +1299,17 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
   TangentRay* rays = reinterpret_cast<TangentRay*>(partials + rows * stride);
   int* counts = reinterpret_cast<int*>(rays + blocks * 128);
   float* values = reinterpret_cast<float*>(counts + blocks);
-  // the launches read the scene with the large tier's stacks after the sums
-  const ParamScene sc = with_scratch(*scene, values + blocks, loss_grad_threads(*scene, blocks));
+  // the launches read the scene with the large tier's stacks after the sums;
+  // the march's a thread a pixel (the reverse launch sets its own threads)
+  const ParamScene sc = with_scratch(*scene, values + blocks, blocks * 128);
   scene = &sc;
   int err = loss_march_in_unit(K5_LAUNCH_ARGS);
   if (err == OTHER_UNIT) err = loss_march_second_unit(K5_LAUNCH_ARGS);
   if (err != 0) return err;
   err = loss_tangents_in_unit(K5_LAUNCH_ARGS);
   if (err == OTHER_UNIT) err = loss_tangents_second_unit(K5_LAUNCH_ARGS);
+  if (err == OTHER_UNIT) err = loss_tangents_reverse_unit(K5_LAUNCH_ARGS);
+  if (err == OTHER_UNIT) err = loss_tangents_lanes_unit(K5_LAUNCH_ARGS);
   if (err != 0) return err;
   loss_grad_sum<<<scene->n_prm + 1, 256, 0, st>>>(partials, static_cast<int>(rows), stride, out);
   return static_cast<int>(cudaGetLastError());
@@ -1138,4 +1319,4 @@ int bsdmg_param_scene_size(void) { return static_cast<int>(sizeof(ParamScene)); 
 
 }  // extern "C"
 
-#endif  // BSDMG_DIFF_SECOND_UNIT
+#endif  // the units

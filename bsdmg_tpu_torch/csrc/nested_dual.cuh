@@ -4,7 +4,10 @@
 // four, the tangents of the L parameters that a lane of K5 seeds. So one
 // forward pass gives the normal and the normal's derivatives with respect
 // to the parameters (forward over forward), which the reverse pass of the
-// reference form (param_sdf.cuh scene_value_grad) gives there by hand.
+// reference form (param_sdf.cuh scene_value_grad) gives there by hand. K5's
+// reverse sweep of a composed scene (param_program.cuh) differentiates each
+// instruction in DualOf<1, Dual<3>>: the direction of the gradient's
+// adjoint outside, three of the instruction's inputs inside.
 //
 // The rules are dual.cuh's, applied to components of type C (a Dual<L>)
 // in place of floats: JAX's JVPs, min and max weighting each operand by

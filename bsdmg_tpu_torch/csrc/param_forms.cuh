@@ -12,7 +12,8 @@
 // and the kernels derive the rest from value: dfdt (ray_derivative, Dual<1>
 // whose point carries the ray's direction) and, in K5's tangent lanes, the
 // value in Dual<L> and the spatial gradient with its parameter tangents,
-// forward over forward in DualOf<3, Dual<L>> (value_grad).
+// forward over forward in DualOf<3, Dual<L>> (value_grad). A composed
+// scene's K5 sweeps its program in reverse instead (param_program.cuh).
 //
 // ReferenceForm is the reference scenes' form of param_sdf.cuh, unchanged:
 // its march form (MarchScene), its dfdt and its hand-written reverse-mode

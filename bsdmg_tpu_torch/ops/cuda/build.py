@@ -4,8 +4,10 @@
 all started together, and links the objects into one shared library with a
 plain C interface, which the kernel wrappers load with ``ctypes``. The build
 runs at first use, in ``bsdmg_tpu_torch/_build/``, and again only when a
-source or header is newer than the library. No header of PyTorch is
-included, so a build takes seconds, not minutes.
+source or header is newer than the library; then only the sources that
+include a changed file (``#include "..."``, followed through the headers)
+are compiled again, the others' objects kept from the last build. No header
+of PyTorch is included, so a build takes seconds, not minutes.
 """
 
 from __future__ import annotations
@@ -38,6 +40,34 @@ def sources() -> list[Path]:
 
 def _dependencies() -> list[Path]:
     return sources() + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def includes(path: Path, seen: set | None = None) -> set:
+    """``path`` and every file of ``csrc/`` it includes, directly or through
+    another (``#include "name"``)."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    for line in path.read_text().splitlines():
+        words = line.split()
+        if len(words) >= 2 and words[0] == "#include" and words[1].startswith('"'):
+            dep = CSRC_DIR / words[1].strip('"')
+            if dep.exists() and dep not in seen:
+                includes(dep, seen)
+    return seen
+
+
+def _object(source: Path) -> Path:
+    return BUILD_DIR / f"{source.stem}.o"
+
+
+def _stale(source: Path) -> bool:
+    """Whether ``source``'s kept object is missing or older than a file it
+    includes."""
+    obj = _object(source)
+    if not obj.exists():
+        return True
+    built = obj.stat().st_mtime
+    return any(dep.stat().st_mtime >= built for dep in includes(source))
 
 
 def nvcc_path() -> str:
@@ -118,19 +148,21 @@ def build() -> Path:
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under private names, then rename: a concurrent loader never
-    # sees a half-written library
+    # sees a half-written library or object
     tag = f"{os.getpid()}.partial"
-    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    stale = [src for src in sources() if _stale(src)]
+    fresh = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in stale]
     partial = BUILD_DIR / f"{LIBRARY.name}.{tag}"
     try:
-        reports = _run_all([compile_command(src, obj) for src, obj in zip(sources(), objects)])
-        for src, report in zip(sources(), reports):
+        reports = _run_all([compile_command(src, obj) for src, obj in zip(stale, fresh)])
+        for src, obj, report in zip(stale, fresh, reports):
             (BUILD_DIR / f"{src.stem}.ptxas.txt").write_text(report)
-        _run_all([link_command(objects, partial)])
+            os.replace(obj, _object(src))
+        _run_all([link_command([_object(src) for src in sources()], partial)])
         os.replace(partial, LIBRARY)
     finally:
         partial.unlink(missing_ok=True)
-        for obj in objects:
+        for obj in fresh:
             obj.unlink(missing_ok=True)
     return LIBRARY
 

@@ -1234,6 +1234,448 @@ def param_program_csdf(prog):
 
 
 # ---------------------------------------------------------------------------
+# the reverse sweep of K5's composed scenes (csrc/param_program.cuh
+# program_record, program_reverse), in plain PyTorch for the tests
+# ---------------------------------------------------------------------------
+
+
+class _Nd:
+    """A nested dual number on planes, the kernels' ``Dual<N>`` and
+    ``DualOf<N, C>`` (csrc/dual.cuh, nested_dual.cuh): ``v`` and each of
+    ``t`` a plane or an ``_Nd`` one level down. An operand of a lower level
+    (a plane, a float) takes part with zero tangents, as the kernels' mixed
+    rules have it."""
+
+    __slots__ = ("v", "t")
+
+    def __init__(self, v, t):
+        self.v, self.t = v, tuple(t)
+
+    def __neg__(self):
+        return _Nd(-self.v, (-x for x in self.t))
+
+    def __add__(self, o):
+        if _level(o) > _level(self):
+            return o + self
+        if isinstance(o, _Nd) and _level(o) == _level(self):
+            return _Nd(self.v + o.v, (a + b for a, b in zip(self.t, o.t)))
+        return _Nd(self.v + o, self.t)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self + (-o)
+
+    def __rsub__(self, o):
+        return (-self) + o
+
+    def __mul__(self, o):
+        if _level(o) > _level(self):
+            return o * self
+        if isinstance(o, _Nd) and _level(o) == _level(self):
+            return _Nd(self.v * o.v, (a * o.v + self.v * b for a, b in zip(self.t, o.t)))
+        return _Nd(self.v * o, (a * o for a in self.t))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        if _level(o) > _level(self):
+            return o.__rtruediv__(self)
+        if isinstance(o, _Nd) and _level(o) == _level(self):
+            v = self.v / o.v
+            return _Nd(v, ((a - v * b) / o.v for a, b in zip(self.t, o.t)))
+        return _Nd(self.v / o, (a / o for a in self.t))
+
+    def __rtruediv__(self, o):
+        v = o / self.v
+        return _Nd(v, (-(v * b) / self.v for b in self.t))
+
+
+def _level(x) -> int:
+    return 1 + _level(x.v) if isinstance(x, _Nd) else 0
+
+
+def _inner(x):
+    """The plane of x's innermost value."""
+    return _inner(x.v) if isinstance(x, _Nd) else x
+
+
+def _tie(x, z, y):
+    """dual.cuh tie_weight: 1 where x alone attains z, 1/2 at a tie, else 0."""
+    return (x == z).to(z.dtype) / torch.where(y == z, 2.0, 1.0)
+
+
+def _plane(x, like):
+    return torch.as_tensor(x, dtype=like.dtype) if not isinstance(x, torch.Tensor) else x
+
+
+def _minmax(a, b, pick):
+    """min or max (``pick`` on planes) of a and b under the kernels' rules:
+    the value ``pick``'s, each operand's tangents by its tie weight
+    (dual.cuh chooser), an operand of a lower level without tangents."""
+    la, lb = _level(a), _level(b)
+    if la == 0 and lb == 0:
+        like = a if isinstance(a, torch.Tensor) else b
+        return pick(_plane(a, like), _plane(b, like))
+    if lb > la:
+        a, b, la, lb = b, a, lb, la
+    z = _minmax(a.v, b.v if lb == la else b, pick)
+    va = _inner(a)
+    vb, vz = _plane(_inner(b), va), _inner(z)
+    wa = _tie(va, vz, vb)
+    if lb < la:
+        return _Nd(z, (t * wa for t in a.t))
+    wb = _tie(vb, vz, va)
+    return _Nd(z, (x * wa + y * wb for x, y in zip(a.t, b.t)))
+
+
+def _minn(a, b):
+    return _minmax(a, b, torch.minimum)
+
+
+def _maxn(a, b):
+    return _minmax(a, b, torch.maximum)
+
+
+def _fmax(a, b):
+    """vmax: fmaxf's value (the other operand where one is NaN)."""
+    return _minmax(a, b, torch.fmax)
+
+
+def _abs(a):
+    if not isinstance(a, _Nd):
+        return torch.abs(a)
+    neg = _inner(a) < 0
+    return _nd_where(neg, -a, a)
+
+
+def _nd_where(c, a, b):
+    if isinstance(a, _Nd):
+        return _Nd(_nd_where(c, a.v, b.v), (_nd_where(c, x, y) for x, y in zip(a.t, b.t)))
+    return torch.where(c, a, b)
+
+
+def _is_zero(x):
+    if isinstance(x, _Nd):
+        out = _is_zero(x.v)
+        for t in x.t:
+            out = out & _is_zero(t)
+        return out
+    return x == 0.0
+
+
+def _zero_like(x):
+    return _Nd(_zero_like(x.v), (_zero_like(t) for t in x.t)) if isinstance(x, _Nd) else x * 0.0
+
+
+def _psqrt(a):
+    """nested_dual.cuh psqrt: a zero tangent stays 0 where the weight
+    0.5 / sqrt(x) is infinite."""
+    if not isinstance(a, _Nd):
+        return torch.sqrt(a)
+    v = _psqrt(a.v)
+    w = 0.5 / v
+    return _Nd(v, (_nd_where(_is_zero(t), _zero_like(t), t * w) for t in a.t))
+
+
+def _rsqrt(a):
+    """dual.cuh vrsqrt: d rsqrt(x) = dx * (-0.5 * rsqrt(x) / x)."""
+    if not isinstance(a, _Nd):
+        return torch.rsqrt(a)
+    v = _rsqrt(a.v)
+    w = -0.5 * (v / a.v)
+    return _Nd(v, (t * w for t in a.t))
+
+
+def _seeded(v, j: int, n: int = 3):
+    """v with the unit tangent j of n (none for j < 0)."""
+    return _Nd(v, (torch.full_like(v, float(i == j)) for i in range(n)))
+
+
+def _kernel_primitive(op: int, slots, compat: int, prm, c):
+    """param_program.cuh program_primitive: a primitive's value at the
+    coordinates ``c`` from ``prm(slot)``, the kernels' operations in their
+    order, for any nested dual."""
+    s0, s1, s2 = (tuple(slots) + (-1, -1, -1))[:3]
+    if op == OP_PLANE:
+        n = [prm(s0 + a) for a in range(3)]
+        inv = _rsqrt(_maxn((n[0] * n[0] + n[1] * n[1]) + n[2] * n[2], 1e-24))
+        return ((c[0] * n[0] + c[1] * n[1]) + c[2] * n[2]) * inv - prm(s1)
+    if op == OP_SKELETON:
+        size = [prm(s1 + a) for a in range(3)]
+        lo = [prm(s0 + a) - size[a] / 2.0 for a in range(3)]
+        best = None
+        for d in range(3):
+            a1, a2 = (d + 1) % 3, (d + 2) % 3
+            r = c[d] - lo[d]
+            e = r - _minn(_maxn(r, 0.0), size[d])
+            o1 = c[a1] - lo[a1]
+            o1b = o1 - (size[(d + 1) % 2] if compat else size[a1])
+            o2 = c[a2] - lo[a2]
+            o2b = o2 - size[a2]
+            d2 = (e * e + _minn(o1 * o1, o1b * o1b)) + _minn(o2 * o2, o2b * o2b)
+            best = d2 if d == 0 else _minn(best, d2)
+        return _psqrt(best) - prm(s2)
+    p = [c[a] - prm(s0 + a) for a in range(3)]
+    if op == OP_SPHERE:
+        return _psqrt((p[0] * p[0] + p[1] * p[1]) + p[2] * p[2]) - prm(s1)
+    if op == OP_BOX:
+        q = [_abs(p[a]) - prm(s1 + a) * 0.5 for a in range(3)]
+        o = [_maxn(v, 0.0) for v in q]
+        outside = _psqrt((o[0] * o[0] + o[1] * o[1]) + o[2] * o[2])
+        return outside + _minn(_maxn(q[0], _maxn(q[1], q[2])), 0.0)
+    if op == OP_CAPSULE:
+        seg = [prm(s1 + a) - prm(s0 + a) for a in range(3)]
+        l2 = _maxn((seg[0] * seg[0] + seg[1] * seg[1]) + seg[2] * seg[2], 1e-12)
+        t = _minn(_maxn(((p[0] * seg[0] + p[1] * seg[1]) + p[2] * seg[2]) / l2, 0.0), 1.0)
+        dx, dy, dz = (p[a] - t * seg[a] for a in range(3))
+        return _psqrt((dx * dx + dy * dy) + dz * dz) - prm(s2)
+    if op == OP_TORUS:
+        ring = _psqrt(p[0] * p[0] + p[2] * p[2]) - prm(s1)
+        return _psqrt(ring * ring + p[1] * p[1]) - prm(s2)
+    dr = _psqrt(p[0] * p[0] + p[2] * p[2]) - prm(s1)
+    dy = _abs(p[1]) - prm(s2) * 0.5
+    ox, oy = _maxn(dr, 0.0), _maxn(dy, 0.0)
+    return _minn(_maxn(dr, dy), 0.0) + _psqrt(ox * ox + oy * oy)
+
+
+def _kernel_fold(op: int, k, a, b):
+    if op == OP_MIN:
+        return _minn(a, b)
+    if op == OP_MAX:
+        return _maxn(a, b)
+    if op == OP_SUB:
+        return _maxn(a, -b)
+    h = _maxn(k - _abs(a - b), 0.0) / k
+    return _minn(a, b) - (((h * h) * h) * k) * float(np.float32(1.0 / 6.0))
+
+
+def _kernel_rotation(q):
+    """param_sdf.cuh rotation: the matrix m of the quaternion q (m[0..8])."""
+    inv = _rsqrt(_fmax(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3], 1e-24))
+    w, x, y, z = (v * inv for v in q)
+    return [1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y - w * z), 2.0 * (x * z + w * y),
+            2.0 * (x * y + w * z), 1.0 - 2.0 * (x * x + z * z), 2.0 * (y * z - w * x),
+            2.0 * (x * z - w * y), 2.0 * (y * z + w * x), 1.0 - 2.0 * (x * x + y * y)]
+
+
+def _kernel_mod(a, y):
+    """nested_dual.cuh vmod: jnp.mod's value, its tangents JAX's."""
+    av, yv = _inner(a), _inner(y)
+    m = torch.fmod(av, yv)
+    plus = (m != 0.0) & ((m < 0.0) != (yv < 0.0))
+    m = torch.where(plus, m + yv, m)
+    k = plus.to(av.dtype) - torch.trunc(av / yv)
+    return _with_value(a + y * k, m)
+
+
+def _with_value(x, m):
+    return _Nd(_with_value(x.v, m), x.t) if isinstance(x, _Nd) else m
+
+
+def _kernel_frame(op: int, slots, prm, c):
+    """param_program.cuh program_frame: the child frame's coordinates."""
+    if op == OP_PUSH_WRAP:
+        out = []
+        for a in range(3):
+            cell = prm(slots[0] + a)
+            half = cell * 0.5
+            out.append(-half + _kernel_mod(c[a] + half, cell))
+        return out
+    m = _kernel_rotation([prm(slots[1] + j) for j in range(4)])
+    v = [c[a] - prm(slots[0] + a) for a in range(3)]
+    return [(m[a] * v[0] + m[a + 3] * v[1]) + m[a + 6] * v[2] for a in range(3)]
+
+
+def _field_widths(op: int) -> tuple:
+    """param_program.cuh LocalPrm's fields: the values of each."""
+    if op in (OP_SMOOTH, OP_SHELL):
+        return (1,)
+    wide = op in (OP_BOX, OP_CAPSULE, OP_SKELETON)
+    return (3, 3 if wide else 1) + ((1,) if op in (OP_CAPSULE, OP_SKELETON, OP_TORUS,
+                                                   OP_CYLINDER) else ())
+
+
+def _local_prm(flat, slots, widths, first: int, pass_: int):
+    """LocalPrm: a slot's value as a Dual<3> of planes, seeded where its
+    local place is in the pass; and the place's slot."""
+    places = {}
+    at = first
+    for slot, width in zip(slots, widths):
+        for i in range(width):
+            places[slot + i] = at + i
+        at += width
+
+    def prm(slot):
+        j = places[slot] - 3 * pass_
+        return _seeded(flat[slot], j if 0 <= j < 3 else -1)
+
+    return prm, {v: k for k, v in places.items()}, at
+
+
+def _lift(a, j: int, ob):
+    """Pass<T>::lift: the input a under the output's adjoint ob, seed j."""
+    if not isinstance(a, _Nd):
+        return _seeded(a, j)
+    u = (ob.t[0] * a.t[0] + ob.t[1] * a.t[1]) + ob.t[2] * a.t[2]
+    return _Nd(_seeded(a.v, j), (_seeded(u, -1),))
+
+
+def _dpsi(r, j: int, ob):
+    if not isinstance(ob, _Nd):
+        return ob * r.t[j]
+    return ob.v * r.v.t[j] + r.t[0].t[j]
+
+
+def _add_input(abar, r, j: int, ob):
+    if not isinstance(ob, _Nd):
+        return abar + ob * r.t[j]
+    dv = r.v.t[j]
+    return _Nd(abar.v + (ob.v * dv + r.t[0].t[j]), (t + dv * o for t, o in zip(abar.t, ob.t)))
+
+
+def param_program_adjoint_torch(prog, flat, x, y, z, seed, seed_grad=None):
+    """Plain PyTorch version of K5's reverse sweep of a composed scene's
+    parameter program (csrc/param_program.cuh program_record and
+    program_reverse), the kernels' adjoint rules op by op in their order,
+    on planes of points: the forward pass in float, or with ``seed_grad``
+    in value and spatial gradient (the kernels' Dual<3>), its tape, then
+    the walk back from the last instruction with the adjoint ``seed`` of
+    the value and ``seed_grad`` (three planes) of the gradient. Each
+    primitive's, fold's and shell's adjoint is forward mode over its inputs,
+    three a pass, in the nested duals of the forward lanes' rules; a
+    transform's its linear algebra and the rotation's forward mode in the
+    quaternion; a wrap's vmod's. Returns ``(value, grad, flat_bar, x_bar)``:
+    the value, its gradient (None without ``seed_grad``), the adjoints of
+    the parameter vector ``(P, n)`` and of the points (three planes). The
+    tests hold it against autograd and JAX; the card runs the kernel."""
+    grad = seed_grad is not None
+    values = _PlaneVector(flat, x)
+    plain = values.__getitem__
+    zeros = torch.zeros_like(x)
+    point = [(_seeded(v, a) if grad else v) for a, v in enumerate((x, y, z))]
+    c, frames, stack, tape = list(point), [], [], []
+    for ins in prog:
+        op = ins.op
+        if op <= OP_PLANE:
+            stack.append(_kernel_primitive(op, ins.slots, ins.compat, plain, c))
+        elif op <= OP_SMOOTH:
+            b, a = stack.pop(), stack.pop()
+            tape += [a, b]
+            k = plain(ins.slots[0]) if op == OP_SMOOTH else None
+            stack.append(_kernel_fold(op, k, a, b))
+        elif op == OP_SHELL:
+            a = stack.pop()
+            tape.append(a)
+            stack.append(_abs(a) - plain(ins.slots[0]))
+        elif op == OP_POP:
+            tape += list(c)
+            c = frames.pop()
+        else:
+            frames.append(c)
+            c = _kernel_frame(op, ins.slots, plain, c)
+    value = stack[0]
+    adj = torch.zeros(x.shape + (flat.numel(),), dtype=x.dtype)
+
+    def add(slot, v):
+        adj[..., slot] += v
+
+    zero_t = (lambda: _Nd(zeros, (zeros, zeros, zeros))) if grad else (lambda: zeros)
+    ob0 = _Nd(seed * torch.ones_like(x), tuple(seed_grad)) if grad else seed * torch.ones_like(x)
+    c, cb, frames, adjs = list(point), [zero_t() for _ in range(3)], [], [ob0]
+    for ins in reversed(prog):
+        op = ins.op
+        if op <= OP_PLANE:
+            ob = adjs.pop()
+            widths = _field_widths(op)
+            for pass_ in range(-(-(3 + sum(widths)) // 3)):
+                prm, slot_of, end = _local_prm(values, ins.slots, widths, 3, pass_)
+                xs = [_lift(c[a], a if pass_ == 0 else -1, ob) for a in range(3)]
+                r = _kernel_primitive(op, ins.slots, ins.compat, prm, xs)
+                for j in range(3):
+                    place = 3 * pass_ + j
+                    if place < 3:
+                        cb[place] = _add_input(cb[place], r, j, ob)
+                    elif place < end:
+                        add(slot_of[place], _dpsi(r, j, ob))
+        elif op <= OP_SMOOTH:
+            ob = adjs.pop()
+            b, a = tape.pop(), tape.pop()
+            prm, _, _ = _local_prm(values, ins.slots[:1], (1,), 2, 0)
+            k = prm(ins.slots[0]) if op == OP_SMOOTH else None
+            r = _kernel_fold(op, k, _lift(a, 0, ob), _lift(b, 1, ob))
+            adjs += [_add_input(zero_t(), r, 0, ob), _add_input(zero_t(), r, 1, ob)]
+            if op == OP_SMOOTH:
+                add(ins.slots[0], _dpsi(r, 2, ob))
+        elif op == OP_SHELL:
+            ob = adjs.pop()
+            a = tape.pop()
+            prm, _, _ = _local_prm(values, ins.slots[:1], (1,), 1, 0)
+            r = _abs(_lift(a, 0, ob)) - prm(ins.slots[0])
+            adjs.append(_add_input(zero_t(), r, 0, ob))
+            add(ins.slots[0], _dpsi(r, 1, ob))
+        elif op == OP_POP:
+            frames.append((c, cb))
+            c = [tape.pop(-3), tape.pop(-2), tape.pop(-1)]
+            cb = [zero_t() for _ in range(3)]
+        else:
+            p, pb = frames.pop()
+            _frame_adjoint(op, ins.slots, flat, p, cb, pb, add, grad)
+            c, cb = p, pb
+    if grad:
+        return value.v, tuple(value.t), adj, tuple(v.v for v in cb)
+    return value, None, adj, tuple(cb)
+
+
+class _PlaneVector:
+    """The parameter vector read as planes like ``like``'s."""
+
+    def __init__(self, flat, like):
+        self.flat, self.like = flat, like
+
+    def __getitem__(self, slot):
+        return self.flat[slot] * torch.ones_like(self.like)
+
+
+def _pairing(a, b):
+    if not isinstance(a, _Nd):
+        return a * b
+    return ((a.v * b.v + a.t[0] * b.t[0]) + a.t[1] * b.t[1]) + a.t[2] * b.t[2]
+
+
+def _frame_adjoint(op: int, slots, flat, p, cb, pb, add, grad: bool) -> None:
+    """param_program.cuh frame_adjoint: a push's adjoint, from the child
+    frame's coordinates' adjoint ``cb`` into the parent's ``pb`` (in place)
+    and the push's fields (``add(slot, plane)``), at the parent's ``p``."""
+    val = (lambda v: v.v) if grad else (lambda v: v)  # noqa: E731
+    if op == OP_PUSH_WRAP:
+        for a in range(3):
+            cell = flat[slots[0] + a]
+            av = val(p[a]) + cell * 0.5
+            m = torch.fmod(av, cell)
+            plus = (m != 0.0) & ((m < 0.0) != (cell < 0.0))
+            k = plus.to(av.dtype) - torch.trunc(av / cell)
+            pb[a] = pb[a] + cb[a]
+            add(slots[0] + a, val(cb[a]) * (-0.5 + (0.5 + k)))
+        return
+    q = [flat[slots[1] + j] for j in range(4)]
+    m = _kernel_rotation(q)
+    md = _kernel_rotation([_seeded(q[j].reshape(1), j, 4) for j in range(4)])
+    qbar = [0.0] * 4
+    for b in range(3):
+        v = p[b] - flat[slots[0] + b]
+        vbar = (cb[0] * m[3 * b] + cb[1] * m[3 * b + 1]) + cb[2] * m[3 * b + 2]
+        pb[b] = pb[b] + vbar
+        add(slots[0] + b, -val(vbar))
+        for a in range(3):
+            mbar = _pairing(cb[a], v)
+            for j in range(4):
+                qbar[j] = qbar[j] + mbar * md[a + 3 * b].t[j]
+    for j in range(4):
+        add(slots[1] + j, qbar[j])
+
+
+# ---------------------------------------------------------------------------
 # a mesh asset's grid, in its two forms
 # ---------------------------------------------------------------------------
 

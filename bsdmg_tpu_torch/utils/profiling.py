@@ -1038,10 +1038,29 @@ BAKE_TRIANGLE = 36
 BAKE_NODE = 3
 
 
+#: of BAKE_PAIR, the distance's (ap, d1, d2, s, t, the four candidates and
+#: the minima) and the winding number's, which takes a - p (3) itself where
+#: the distance is not evaluated
+BAKE_DISTANCE = 21 + 25 + 2 * 17 + 37 + 4
+BAKE_WINDING = BAKE_PAIR - BAKE_DISTANCE + 3
+#: a cluster's bound against a brick (csrc/bake_kernel.cu cluster_bound):
+#: per axis two subtracts and three maxima, the squares' sum 5 and the
+#: scaling, and the compare
+BAKE_CULL = 3 * 5 + 5 + 1 + 1
+
+
 def bake_ops(nodes: int, triangles: int) -> float:
     """FP32 operations of the bake of ``nodes`` lattice nodes against
     ``triangles`` triangles, every node meeting every triangle."""
     return float(nodes) * triangles * BAKE_PAIR + nodes * BAKE_NODE + triangles * BAKE_TRIANGLE
+
+
+def bake_design_ops(nodes: int, triangles: int, distance_pairs: int, bounds: int) -> float:
+    """FP32 operations of the work the culled bake does: the winding number
+    over every (node, triangle) pair, the distance over the ``distance_pairs``
+    it evaluated, and ``bounds`` clusters' bounds against a brick."""
+    return (float(nodes) * triangles * BAKE_WINDING + float(distance_pairs) * BAKE_DISTANCE
+            + float(bounds) * BAKE_CULL + nodes * BAKE_NODE + triangles * BAKE_TRIANGLE)
 
 
 def bake_bytes(resolution: int, triangles: int) -> int:

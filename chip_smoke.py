@@ -125,7 +125,9 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     512x512 (K4 bit for bit but dfdt; K5 within the bars, NaN at the same
     places; the mandelbulb by its bars, BULB_*), their times alone with
     bounds, and ptxas's registers, stack and spills of each form's
-    instantiations; each scene's K4 and K5 join the kernels line;
+    instantiations (a composed scene's reverse launch,
+    ``loss_reverse_kernel``, in both tiers); each scene's K4 and K5 join
+    the kernels line;
 12. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
     ``cli render --scene mesh:<tmp>/torus.obj --camera 3 1.5 -3`` bakes a
     128^3 grid and renders 1920x1080, which must launch K9 twice (the 32^3
@@ -149,9 +151,12 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
 15. mesh-asset scenes through every verb: the bake kernel on the torus at
     128^3 (every node) and 256^3 (every 97th node and one lattice plane)
     against its twin (|values| bit for bit, signs but within 1e-4 of a
-    winding number of 1/2), alone with its bound, and with the last
-    triangle dropped and one triangle's winding flipped, each of which must
-    fail its bar; ``cli mesh --scene mesh:<torus>`` (K6 and the bake once),
+    winding number of 1/2), alone with the share of the distance pairs its
+    cull evaluated and its bound, the work the function needs (the winding
+    number over every pair, the distance over those pairs), the bound over
+    all pairs beside it (``bake_all_pairs_ms``), and with the last triangle dropped and one triangle's winding flipped,
+    each of which must fail its bar, and its cull's margin set negative,
+    which must fail the magnitude bar on ``margin_axes``' node sets; ``cli mesh --scene mesh:<torus>`` (K6 and the bake once),
     ``--interpolate-edges`` (K7), ``cli remesh`` (K6), ``cli session`` (K6
     five times), ``cli animate --motion spheric`` (the grid route a frame,
     the motion ignored with a warning) and the depth ``cli fit``, with no
@@ -209,7 +214,12 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     their twins (K4 bit for bit but dfdt; K5 within the bars) and alone
     with and without it;
 20. K4 (512x512) and K8 (a 64^3 sphere grid) at ``relaxation=1.5``, bit
-    for bit their results at 1.0.
+    for bit their results at 1.0;
+21. K5's reverse sweep under a planted fault (REVERSE_FAULTS: SMOOTH's
+    parameter adjoint dropped), in a copy of the tree whose changed
+    sources build in the background from the start (``FaultBuilds``):
+    K5 on the snowman at 64x64 and 512x512 must hold its bars from this
+    tree and fail them from the copy.
 
 The composed scenes of phase 9c (and the image fit of the other scenes
 beside phase 11) include two specs beyond the small tier of the
@@ -237,6 +247,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import logging
@@ -1630,6 +1641,13 @@ def bulb_fit_bars(scene, params, o, d, c, target, bb, tiles: bool) -> dict:
     return out
 
 
+def tangent_launch(form: str) -> str:
+    """K5's tangent launch of a parameter form: a composed scene's program
+    sweeps in reverse, the other forms take a lane a value."""
+    return ("loss_reverse_kernel" if form in ("ProgramForm", "ProgramLargeForm")
+            else "loss_tangent_form_kernel")
+
+
 def fit_scene_phases(card: str, device) -> list[dict]:
     """Phase 11b: `cli fit --image` of each scene of FIT_SCENES (one loop;
     `cli._get_scene` resolves names and spec files) at the CLI's 64x64 and
@@ -1653,8 +1671,11 @@ def fit_scene_phases(card: str, device) -> list[dict]:
     from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, scene_bounds
     from bsdmg_tpu_torch.utils.profiling import form_ops, mandelbulb_loops
 
-    resources = [r for source in ("diff_kernel.cu", "diff_split.cu") for r in kernel_resources(
-        source, ("march_params_kernel<", "loss_march_kernel<", "loss_tangent_form_kernel<"))]
+    units = ("diff_kernel.cu", "diff_split.cu", "diff_reverse.cu", "diff_lanes.cu")
+    resources = [r for source in units
+                 for r in kernel_resources(source, ("march_params_kernel<", "loss_march_kernel<",
+                                                    "loss_tangent_form_kernel<",
+                                                    "loss_reverse_kernel<"))]
     entries = []
     with tempfile.TemporaryDirectory() as tmp:
         arguments = scene_arguments(Path(tmp))
@@ -1781,9 +1802,9 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                                              sdf=sdf, grad=grad, bounds=bb is not None))
                 print(f"time K4 {name} {w}x{h} on {card}: {k4_ms:.4f} ms alone, plain {p4_ms:.3f} "
                       f"ms; {evals} SDF evaluations, {hits} hits; bound {b4[0]:.4f} ms ({b4[1]})")
-                print(f"time K5 {name} {w}x{h} fit point on {card}: {k5_ms:.4f} ms alone, plain "
-                      f"{p5_ms:.3f} ms; {hits} hits, {hinges} hinges, {n_prm} parameter values; "
-                      f"bound {b5[0]:.4f} ms ({b5[1]})")
+                print(f"time K5 {name} {w}x{h} fit point on {card}: {k5_ms:.4f} ms alone"
+                      f", plain {p5_ms:.3f} ms; {hits} hits, {hinges} hinges, {n_prm} parameter "
+                      f"values; bound {b5[0]:.4f} ms ({b5[1]})")
                 rows[size] = dict(k4=dict(ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0], bound_by=b4[1]),
                                k5=dict(ms=k5_ms, plain_ms=p5_ms, bound_ms=b5[0], bound_by=b5[1]),
                                k4_err=max(v[2] for v in k4s.values()),
@@ -1798,7 +1819,7 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                 **rows[512]["k4"],
                 "library_ms": None,
             }, {
-                "name": f"K5 loss_march_kernel<{form}> + loss_tangent_form_kernel<{form}> + "
+                "name": f"K5 loss_march_kernel<{form}> + {tangent_launch(form)}<{form}> + "
                         f"loss_grad_sum ({name}, fit point)",
                 "route": "cuda",
                 "source": dk.SOURCE,
@@ -2422,11 +2443,18 @@ def kernel_resources(source: str, prefixes: tuple[str, ...]) -> list[dict]:
     return [r for r in rows if r["kernel"].startswith(prefixes)]
 
 
+_SASS: dict = {}
+
+
 def sass_functions(library: Path) -> dict[str, list]:
     """Each kernel's SASS in the library, ``{demangled name: [(address,
-    instruction), ...]}``."""
+    instruction), ...]}``, disassembled once a build of the library (the
+    probes read it four times)."""
     import re
 
+    key = (str(library), library.stat().st_mtime_ns)
+    if key in _SASS:
+        return _SASS[key]
     out = subprocess.run([toolkit_tool("cuobjdump"), "-sass", str(library)], capture_output=True,
                          text=True, check=True, timeout=600)
     functions, current = {}, None
@@ -2439,7 +2467,8 @@ def sass_functions(library: Path) -> dict[str, list]:
             if m:
                 functions[current].append((int(m.group(1), 16), m.group(2)))
     names = demangled(sorted(functions))
-    return {names[f]: code for f, code in functions.items()}
+    _SASS[key] = {names[f]: code for f, code in functions.items()}
+    return _SASS[key]
 
 
 def loops_of(code: list) -> list[dict]:
@@ -3649,13 +3678,76 @@ def bake_failed(bars: dict) -> list[str]:
     return [k for k in ("magnitude_differ", "sign_differ_off_band") if bars[k]]
 
 
+#: the node sets that see a negative margin of the bake's distance bound: per
+#: edge of the torus's top ring from the vertex at MARGIN_EDGE_FIRST on
+#: (MARGIN_EDGES of them), a 16^3 lattice whose every brick is one point
+#: (each axis value repeated as often as a brick spans it) above the edge's
+#: midpoint at MARGIN_HEIGHTS: the two triangles on either side of the edge
+#: meet the point at one distance, rounded apart, from two clusters whose
+#: boxes' tops bound that distance to within the margin, so a bound that
+#: grows by the margin skips the cluster the seed did not take
+#: (tests/test_torch_bake_cull.py finds it with bake_cull_torch)
+MARGIN_EDGE_FIRST = 2256
+MARGIN_EDGES = 4
+MARGIN_HEIGHTS = (1e-6, 3e-6, 1e-5, 3e-5)
+
+
+def margin_axes(vertices: np.ndarray, device) -> list[list[torch.Tensor]]:
+    """The lattices of MARGIN_EDGE_FIRST's node sets: each three (16,) axes."""
+    top = np.where(vertices[:, 1] == vertices[:, 1].max())[0]
+    at = int(np.where(top == MARGIN_EDGE_FIRST)[0][0])
+    out = []
+    for n in range(at, at + MARGIN_EDGES):
+        a, b = vertices[top[n % len(top)]], vertices[top[(n + 1) % len(top)]]
+        mx, _, mz = (a + b) * np.float32(0.5)
+        ys = np.repeat(np.float32(a[1]) + np.asarray(MARGIN_HEIGHTS, np.float32), 4)
+        out.append([torch.full((16,), float(mx), device=device), torch.from_numpy(ys).to(device),
+                    torch.full((16,), float(mz), device=device)])
+    return out
+
+
+def make_torus():
+    """``tools/make_torus.py``'s torus, ``(vertices, faces)`` as it makes
+    them (its OBJ rounds the vertices to 6 decimals)."""
+    spec = importlib.util.spec_from_file_location("make_torus", ROOT / "tools" / "make_torus.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.torus()
+
+
+def margin_faults(device) -> dict:
+    """The bake kernel on margin_axes' node sets of make_torus' torus against
+    its twin: the nodes whose magnitude differs with the margin as it is and
+    set negative (a planted fault in the wrapper, ``bake_kernel.MARGIN``,
+    which the kernel takes as its eta), which must be none and some."""
+    from bsdmg_tpu_torch.ops.cuda import bake_kernel as bk
+
+    vertices, faces = make_torus()
+    sets = margin_axes(vertices, device)
+    plain = [bk.bake_torch(axes, vertices, faces).abs() for axes in sets]
+    out = {}
+    sound = bk.MARGIN
+    try:
+        for name, margin in (("margin", sound), ("margin set negative", -sound)):
+            bk.MARGIN = margin
+            out[name] = sum(int((bk.bake_cuda(axes, vertices, faces).abs() != p).sum())
+                            for axes, p in zip(sets, plain))
+    finally:
+        bk.MARGIN = sound
+    return out
+
+
 def bake_phases(card: str, device, src) -> tuple[dict, dict]:
     """The bake kernel on the torus at 128^3 (every node against the twin,
     timed both) and 256^3 (every BAKE_STRIDE-th node and one lattice plane
-    against the twin), each alone with its bound; the last triangle dropped
-    and one triangle's winding flipped, each of which must fail its bar.
-    Returns the kernels line's entry (without launches) and the 128^3
-    lattice's values."""
+    against the twin), each alone with its bound, that of the work the
+    function needs (the winding number over every pair, the distance over
+    the pairs its cull kept, whose share it prints), and beside it the bound
+    over all pairs (the kernels line's ``bake_all_pairs_ms``); the last triangle dropped
+    and one triangle's winding flipped, each of which must fail its bar;
+    the margin of the cull's bound set negative, which must fail the
+    magnitude bar on margin_axes' node sets. Returns the kernels line's
+    entry (without launches) and the 128^3 lattice's values."""
     from bsdmg_tpu_torch.models.mesh_sdf import _linspace, grid_box, mesh_distance_winding
     from bsdmg_tpu_torch.ops.cuda import bake_kernel as bk
     from bsdmg_tpu_torch.utils import profiling
@@ -3669,12 +3761,21 @@ def bake_phases(card: str, device, src) -> tuple[dict, dict]:
     out = {}
     for r in (128, 256):
         axes = [torch.from_numpy(_linspace(lo[a], hi[a], r)).to(device) for a in range(3)]
-        tris = bk.triangles(src.vertices, faces, device)
+        prep = bk.prepare(axes, src.vertices, faces)
         values = torch.empty(r**3, dtype=torch.float32, device=device)
-        ms = median_ms(lambda: bk._bake_cuda(axes, tris, values), runs=3 if r == 128 else 2,
+        pairs = torch.zeros(bk.brick_count(r), dtype=torch.int32, device=device)
+        bk._bake_cuda(axes, prep, values, pairs)
+        evaluated = int(pairs.long().sum().item())
+        ms = median_ms(lambda: bk._bake_cuda(axes, prep, values), runs=3 if r == 128 else 2,
                        warmup=1 if r == 128 else 0)
-        bound_ms, by = bound(profiling.bake_bytes(r, len(faces)),
-                             profiling.bake_ops(r**3, len(faces)))
+        # the bound of the work the function needs: the winding number over
+        # every pair, the distance over the pairs the cull kept; the
+        # all-pairs count (profiling.bake_ops) beside it
+        clusters = prep.boxes.shape[0]
+        bound_ms, by = bound(profiling.bake_bytes(r, len(faces)), profiling.bake_design_ops(
+            r**3, len(faces), evaluated, 2 * bk.brick_count(r) * clusters))
+        all_pairs_ms, all_pairs_by = bound(profiling.bake_bytes(r, len(faces)),
+                                           profiling.bake_ops(r**3, len(faces)))
         if r == 128:
             nodes = None
             points = bk.lattice(axes)
@@ -3696,10 +3797,13 @@ def bake_phases(card: str, device, src) -> tuple[dict, dict]:
             faults[name] = bake_bars(pick(bk.bake_cuda(axes, src.vertices, fault)), dist, wn)
         where = ("every node" if nodes is None else
                  f"{bars['nodes']} nodes: every {BAKE_STRIDE}th and the plane of x index {plane}")
-        print(f"bake {r}^3 on {card} ({len(faces)} triangles, {where}): "
+        share = evaluated / (r**3 * len(faces))
+        print(f"bake {r}^3 on {card} ({len(faces)} triangles, {clusters} clusters, {where}): "
               f"kernel {ms:.4f} ms alone (CUDA events), twin {plain_s:.3f} s on those nodes; "
-              f"bound {bound_ms:.4f} ms ({by}); bars {json.dumps(bars)}; "
-              f"planted faults {json.dumps(faults)}")
+              f"distance pairs evaluated {evaluated} ({share:.4%} of all); bound {bound_ms:.4f} "
+              f"ms ({by}: the winding number over every pair, the distance over those), "
+              f"{all_pairs_ms:.4f} ms ({all_pairs_by}) over all pairs; "
+              f"bars {json.dumps(bars)}; planted faults {json.dumps(faults)}")
         check(not bake_failed(bars), f"the bake kernel fails its bars at {r}^3: {bars}")
         if r == 256:
             check("magnitude_differ" in bake_failed(faults["last triangle dropped"]),
@@ -3707,8 +3811,13 @@ def bake_phases(card: str, device, src) -> tuple[dict, dict]:
             check("sign_differ_off_band" in bake_failed(faults["winding flipped"]),
                   "the sign bar does not see one triangle's winding flipped")
         out[r] = {"ms": ms, "plain_s": plain_s, "bound_ms": bound_ms, "bound_by": by,
-                  "values": values if r == 128 else None,
+                  "all_pairs_ms": all_pairs_ms, "values": values if r == 128 else None,
                   "err": _max_err(pick(values).abs(), dist)}
+    margins = margin_faults(device)
+    print(f"bake margin on {card}: nodes whose magnitude differs on the margin's node sets "
+          f"{json.dumps(margins)}")
+    check(margins["margin"] == 0, "the bake differs from its twin on the margin's node sets")
+    check(margins["margin set negative"] > 0, "the magnitude bar does not see a negative margin")
     for row in kernel_resources("bake_kernel.cu", ("bake_kernel",)):
         print(f"  ptxas: {row['kernel']}: {row['registers']} registers, {row['stack']} B stack, "
               f"{row['spill_stores']} B spill stores, {row['spill_loads']} B spill loads")
@@ -3717,9 +3826,10 @@ def bake_phases(card: str, device, src) -> tuple[dict, dict]:
              "replaces": "bsdmg_tpu/models/mesh_sdf.py:108 (XLA in the JAX package, no TPU kernel)",
              "max_abs_err": out[128]["err"], "ms": out[128]["ms"],
              "plain_ms": out[128]["plain_s"] * 1e3, "bound_ms": out[128]["bound_ms"],
-             "bound_by": out[128]["bound_by"], "library_ms": None}
+             "bound_by": out[128]["bound_by"], "bake_all_pairs_ms": out[128]["all_pairs_ms"],
+             "library_ms": None}
     print(f"bake 256^3 on {card}: {out[256]['ms']:.4f} ms alone, bound {out[256]['bound_ms']:.4f} "
-          f"ms ({out[256]['bound_by']})")
+          f"ms ({out[256]['bound_by']}), {out[256]['all_pairs_ms']:.4f} ms over all pairs")
     return entry, out[128]["values"]
 
 
@@ -4323,26 +4433,135 @@ def grid_form_phase(card: str, device, obj: Path, grid) -> list[dict]:
              "bound_ms": res["K5 bound"][0], "bound_by": res["K5 bound"][1], **common}]
 
 
+def planted_copy(tmp: Path, name: str, path: str, old: str, new: str,
+                 built: bool = False) -> Path:
+    """A copy of the port's tree (this file, ``tools/``, ``examples/`` and
+    ``bsdmg_tpu_torch/`` without its builds, or with ``built`` its
+    ``_build`` too, so that only the sources that include the planted file
+    build again) in ``tmp``, ``old`` replaced by ``new`` in ``path``
+    (where it stands once)."""
+    copy = tmp / name.replace(" ", "_").replace("'", "")
+    copy.mkdir()
+    shutil.copy2(ROOT / "chip_smoke.py", copy)
+    shutil.copytree(ROOT / "tools", copy / "tools")
+    shutil.copytree(ROOT / "examples", copy / "examples")
+    skip = ("__pycache__",) if built else ("__pycache__", "_build")
+    shutil.copytree(ROOT / "bsdmg_tpu_torch", copy / "bsdmg_tpu_torch",
+                    ignore=shutil.ignore_patterns(*skip))
+    source = (copy / path).read_text()
+    check(source.count(old) == 1, f"fault {name}: the line is not in {path} once")
+    (copy / path).write_text(source.replace(old, new))
+    return copy
+
+
 def faulted_copies(faults: dict, command, timeout: float = 900):
-    """For each ``name: (path, old, new)`` of ``faults``: a copy of the
-    port's tree (this file, ``tools/`` and ``bsdmg_tpu_torch/`` without its
-    builds) in a temporary directory, ``old`` replaced by ``new`` in
-    ``path`` (where it stands once), and ``command`` run from the copy's
-    root; yields ``(name, the completed process)``. The checkout does not
-    change."""
+    """For each ``name: (path, old, new)`` of ``faults``: a planted copy
+    (:func:`planted_copy`) in a temporary directory and ``command`` run from
+    the copy's root; yields ``(name, the completed process)``. The checkout
+    does not change."""
     with tempfile.TemporaryDirectory() as tmp:
         for name, (path, old, new) in faults.items():
-            copy = Path(tmp) / name.replace(" ", "_")
-            copy.mkdir()
-            shutil.copy2(ROOT / "chip_smoke.py", copy)
-            shutil.copytree(ROOT / "tools", copy / "tools")
-            shutil.copytree(ROOT / "bsdmg_tpu_torch", copy / "bsdmg_tpu_torch",
-                            ignore=shutil.ignore_patterns("__pycache__", "_build"))
-            source = (copy / path).read_text()
-            check(source.count(old) == 1, f"fault {name}: the line is not in {path} once")
-            (copy / path).write_text(source.replace(old, new))
+            copy = planted_copy(Path(tmp), name, path, old, new)
             yield name, subprocess.run(command, cwd=copy, capture_output=True, text=True,
                                        timeout=timeout)
+
+
+class FaultBuilds:
+    """Planted copies (:func:`planted_copy` with the checkout's build) whose
+    kernels build in the background from the start, while the other phases
+    run; :meth:`run` then runs a command from each copy, and :meth:`close`
+    stops what is left and removes the copies."""
+
+    def __init__(self, faults: dict):
+        self.tmp = Path(tempfile.mkdtemp(prefix="bsdmg_faults_"))
+        self.copies, self.builds = {}, {}
+        for name, (path, old, new) in faults.items():
+            copy = planted_copy(self.tmp, name, path, old, new, built=True)
+            self.copies[name] = copy
+            self.builds[name] = subprocess.Popen(
+                [sys.executable, "-c", "from bsdmg_tpu_torch.ops.cuda import build; build.build()"],
+                cwd=copy, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def run(self, command, timeout: float = 600):
+        """Yields ``(name, the completed process)`` of ``command`` from each
+        copy once its build has ended (raising where it failed)."""
+        for name, copy in self.copies.items():
+            _, err = self.builds[name].communicate(timeout=timeout)
+            check(self.builds[name].returncode == 0, f"fault {name}: the build failed: {err[-2000:]}")
+            yield name, subprocess.run(command, cwd=copy, capture_output=True, text=True,
+                                       timeout=timeout)
+
+    def close(self) -> None:
+        for proc in self.builds.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+#: the planted faults of K5's reverse sweep (csrc/param_program.cuh): each
+#: must fail K5's bars on REVERSE_FAULT_SCENE, whose smooth union's k the
+#: first reaches
+REVERSE_FAULTS = {
+    "SMOOTH's parameter adjoint dropped": (
+        "bsdmg_tpu_torch/csrc/param_program.cuh",
+        "  if (op == OP_SMOOTH) adj.add(prm.s0, PT::dpsi(r, 2, ob));\n", ""),
+}
+REVERSE_FAULT_SCENE = "snowman"
+
+
+def reverse_fault_readings(device) -> dict:
+    """K5 against its plain version (edge term on) on REVERSE_FAULT_SCENE's
+    fit start at 64x64 and 512x512: the loss's relative error and the
+    gradient's excess over the bars, per size."""
+    from bsdmg_tpu_torch import cli
+    from bsdmg_tpu_torch.grad import render_image_diff
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+    from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
+
+    scene = cli._get_scene(str(ROOT / "examples" / f"{REVERSE_FAULT_SCENE}.json"), device)
+    true = dict(scene.params)
+    start = cli._apply_perturb(true, cli._parse_perturb(FIT_SCENES[REVERSE_FAULT_SCENE][0]))
+    bb = inflated(scene_bounds(scene), 0.6)
+    out = {}
+    for size in (64, 512):
+        o, d, c = rays(size, size, device)
+        target = render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf, bb=bb).detach()
+        k5 = dk.render_loss_grad_cuda(scene.csdf, start, target, o, d, c, bb=bb, edge_weight=1.0)
+        p5 = dk.render_loss_grad_torch(scene.csdf, start, target, o, d, c, bb=bb, edge_weight=1.0)
+        out[size] = {"loss_rel_err": abs(k5[0].item() - p5[0].item()) / abs(p5[0].item()),
+                     "excess_over_bars": k5_excess(k5[1], p5[1])}
+    return out
+
+
+def reverse_fault_bars() -> None:
+    """Prints :func:`reverse_fault_readings` as JSON from this tree's
+    kernels, built anew (run from a planted copy's root by
+    :func:`reverse_faults`)."""
+    from bsdmg_tpu_torch.ops.cuda import build
+
+    build.build()
+    print(json.dumps(reverse_fault_readings(torch.device("cuda", 0))))
+
+
+def reverse_faults(card: str, device, builds: FaultBuilds) -> None:
+    """K5's bars on REVERSE_FAULT_SCENE from this tree and from each planted
+    copy of REVERSE_FAULTS (built in the background since the start): the
+    sound tree must hold them, each fault fail them."""
+    def failed(out: dict) -> bool:
+        return any(not (r["loss_rel_err"] <= LOSS_RTOL and r["excess_over_bars"] <= 0)
+                   for r in out.values())
+
+    bars = reverse_fault_readings(device)
+    print(f"reverse faults on {card}: the sound tree's K5 on {REVERSE_FAULT_SCENE}: "
+          f"{json.dumps(bars)}")
+    check(not failed(bars), f"the sound tree fails K5's bars on {REVERSE_FAULT_SCENE}: {bars}")
+    command = [sys.executable, "-c", "import chip_smoke; chip_smoke.reverse_fault_bars()"]
+    for name, out in builds.run(command):
+        bars = json.loads(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else None
+        print(f"reverse faults on {card}: {name}: K5 on {REVERSE_FAULT_SCENE} {json.dumps(bars)}; "
+              f"{out.stderr.strip()[-600:]}")
+        check(bars is not None and failed(bars), f"the fault {name} fails no bar of K5")
 
 
 def grid_fault_bars() -> None:
@@ -5137,6 +5356,9 @@ def main(argv: list[str]) -> int:
         march_params_probe(card, device)
         return 0
 
+    # the reverse sweep's planted copies build in the background meanwhile
+    fault_builds = FaultBuilds(REVERSE_FAULTS)
+
     def phase(fn, *args):
         """``fn(*args)``, its seconds printed: where the run's time goes."""
         t = time.perf_counter()
@@ -5144,6 +5366,25 @@ def main(argv: list[str]) -> int:
         print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
         return out
 
+    try:
+        kernels = run_phases(phase, card, device, fault_builds)
+    finally:
+        fault_builds.close()
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s, the build "
+          "included")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def run_phases(phase, card: str, device, fault_builds: FaultBuilds) -> list[dict]:
+    """Every phase of the main run, each through ``phase``; returns the
+    kernels line's entries."""
     phase(reference_resources, card)
     phase(march_probe, card, device)
     phase(stencil_probe, card)
@@ -5173,17 +5414,8 @@ def main(argv: list[str]) -> int:
         "cli render": render_counts, "cli bench --two-phase row": bench_counts["row"],
         "cli fit --image": fit["launches"]})
     phase(relaxation_phase, card, device)
-
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s, the build "
-          "included")
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+    phase(reverse_faults, card, device, fault_builds)
+    return kernels
 
 
 if __name__ == "__main__":

@@ -174,6 +174,45 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         build.build()
 
 
+def test_build_compiles_only_the_sources_a_change_reaches(tmp_path, monkeypatch):
+    """A rebuild compiles again only the sources that include a changed
+    file, directly or through a header, and links every kept object."""
+    import os
+    import stat
+    import time
+
+    csrc, out = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    (csrc / "deep.cuh").write_text("// a header\n")
+    (csrc / "x.cuh").write_text('#include "deep.cuh"\n')
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n#include "x.cuh"\n')
+    (csrc / "b.cu").write_text("// no include\n")
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!/bin/sh\necho \"$@\" >> {log}\n"
+                    'while [ "$1" != "-o" ]; do shift; done; echo built > "$2"\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    monkeypatch.setattr(build, "LIBRARY", out / "lib.so")
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    assert {p.name for p in build.includes(csrc / "a.cu")} == {"a.cu", "x.cuh", "deep.cuh"}
+
+    def compiled():
+        lines = log.read_text().splitlines() if log.exists() else []
+        log.unlink(missing_ok=True)
+        return sorted(Path(line.split()[-1]).name for line in lines if " -c " in line)
+
+    build.build()
+    assert compiled() == ["a.cu", "b.cu"]
+    assert build.build() == out / "lib.so" and compiled() == []
+    later = time.time() + 5
+    os.utime(csrc / "deep.cuh", (later, later))
+    build.build()
+    assert compiled() == ["a.cu"]
+    assert sorted(p.name for p in out.glob("*.o")) == ["a.o", "b.o"]
+
+
 def test_packaging_ships_kernel_sources():
     project = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = project["tool"]["setuptools"]["package-data"]["bsdmg_tpu_torch"]
