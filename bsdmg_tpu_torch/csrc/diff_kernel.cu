@@ -27,7 +27,9 @@
 // kernel differentiates this with reverse mode inside the kernel. Here a
 // composed scene's parameter program does too: one reverse sweep a ray over
 // a tape of its forward pass (loss_reverse_kernel, param_program.cuh
-// program_reverse), whatever the number of parameter values. The other
+// program_reverse), whatever the number of parameter values; so does the
+// wrapped object, whose function the host lowers to such a program
+// (csdf.py wrapped_param_program). The other
 // forms take the parameters as forward-mode duals (dual.cuh): each
 // parameter carries its unit tangent, so the loss's tangents are
 // dL/dtheta; the normal's tangents follow from evaluating the spatial
@@ -69,10 +71,12 @@
 // parameters' tangents (Dual<3>), 128 registers and 4 blocks an SM where
 // one lane of 9 tangents took 255 registers and spilled; with the object
 // transform, translation and rotation launches take its 7 tangents, one a
-// lane. For a composed scene (loss_reverse_kernel) a thread takes a ray and
-// sweeps its program backward, its parameters' adjoints accumulating per
-// thread; for the sphere, the mandelbulb, the wrapped object and the grid
-// (loss_tangent_form_kernel) a ray takes one lane per parameter value. Their
+// lane. For a composed scene and the wrapped object (loss_reverse_kernel) a
+// ray's lanes sweep its program backward, its parameters' adjoints
+// accumulating per thread; for the sphere, the mandelbulb and the grid
+// (loss_tangent_form_kernel) a thread takes a ray and carries its one
+// parameter's tangent, or, for the mandelbulb over an image of few lists,
+// a group of 4 lanes takes a ray's three spatial directions apart. Their
 // blocks walk chunks of the lists in a fixed order and write one row of
 // sums per chunk, or per warp. The last launch (loss_grad_sum) adds the rows
 // in a fixed order. Two calls on the same inputs give the same bits.
@@ -633,16 +637,57 @@ loss_tangent_kernel(const ParamScene s, const float* __restrict__ origins,
   }
 }
 
-// K5's tangent launch for the sphere's, the mandelbulb's, the wrapped
-// object's and the grid's forms (FormEval; a composed scene's program sweeps
-// in reverse, loss_reverse_kernel below): a ray's lanes are a group of
-// `lanes` threads, lane j carrying the tangents of the parameters at slots
-// j * L .. j * L + L - 1 (Dual<L>, each parameter seeded by its slot), so a
-// ray takes ceil(n_prm / L) lanes (at most 17, the wrapped object's) and a
-// chunk `groups` = 128 / lanes rays. L is 1: a nested value
-// (DualOf<3, Dual<1>>) is then 8 floats. The items, rows and fixed orders
-// are loss_tangent_kernel's; an item's row holds its loss (lane 0's, the
-// first chunk adding the first launch's sum) and dL/dprm at every slot.
+// The mandelbulb's scene as ray_loss evaluates it on a group of 4 lanes
+// that takes one ray (sub, this lane's place in it; mask, the group's): the
+// value in Dual<1> (its one parameter's tangent) on every lane, the spatial
+// gradient one direction a lane, lane a < 3 the derivative along e_a in
+// DualOf<1, Dual<1>> (4 floats a value, where DualOf<3, Dual<1>> carried
+// 8), the three shared by __shfl_sync. Each component runs the operations
+// that component ran in DualOf<3, Dual<1>> (nested_dual.cuh's rules act
+// component by component), so the loss and its tangent are the one-lane
+// form's bit for bit; every lane then finishes ray_loss, the first lane's
+// counted. Lane 3 runs direction 0 again: the group's lanes stay in step.
+template <class Form>
+struct DirectionEval {
+  const ParamScene& s;
+  const Prm<Dual<1>, Form::device> prm;
+  int sub;
+  unsigned mask;
+  __device__ __forceinline__ Dual<1> value(const Dual<1> x[3]) const {
+    return Form::value(s, prm, x);
+  }
+  __device__ __forceinline__ void grad(const Dual<1> x[3], Dual<1> g[3]) const {
+    const int axis = sub < 3 ? sub : 0;
+    DualOf<1, Dual<1>> p[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      p[a].v = x[a];
+      p[a].t[0] = Scalar<Dual<1>>::constant(a == axis ? 1.0f : 0.0f);
+    }
+    const Dual<1> mine = Form::value(s, prm, p).t[0];
+    const int lead = __ffs(mask) - 1;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      g[a].v = __shfl_sync(mask, mine.v, lead + a);
+      g[a].t[0] = __shfl_sync(mask, mine.t[0], lead + a);
+    }
+  }
+};
+
+// K5's tangent launch for the sphere's, the mandelbulb's and the grid's
+// forms (a form with a Sweep, a composed scene's program or the wrapped
+// object's, sweeps in reverse: loss_reverse_kernel below): a ray's lane
+// carries the tangents of every parameter value (Dual<L>, L =
+// form_tangents: one for the sphere and the mandelbulb, none for the grid).
+// With Lanes 1 a thread takes a ray and an item is a block's whole list,
+// whose row of partials (stride floats) holds its loss (the first
+// launch's sum, then its rays' in thread order) and dL/dprm. With Lanes 4
+// (a form with `directions`, where tangent_lanes says so) a group of 4
+// lanes takes a ray (DirectionEval), an item is a quarter of a list, 32
+// rays, and each ray writes a row of its own (at block * 128 + its place
+// in the list), which loss_grad_sum_rays adds up as the one-lane launch
+// does: the two give the same bits. The blocks take the items in a fixed
+// order, so two calls give the same bits.
 #define BSDMG_FORM_TANGENTS 1
 
 // the tangents a lane carries: none for a form that reads no parameter
@@ -653,52 +698,69 @@ __host__ __device__ constexpr int form_tangents() {
   return std::is_same<Form, MeshGridForm>::value ? 0 : BSDMG_FORM_TANGENTS;
 }
 
-template <class Form>
+template <class Form, int Lanes>
 __global__ void __launch_bounds__(128)
 loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
                          const float* __restrict__ directions, const float* __restrict__ cone,
                          const float* __restrict__ target, const float* __restrict__ t_state,
                          const TangentRay* __restrict__ rays, const int* __restrict__ counts,
                          const float* __restrict__ values, float* __restrict__ partials,
-                         int stride, long long blocks, int lanes, int groups, int chunks,
-                         float inv_denom_elems, float inv_pixels, float edge_weight,
-                         float edge_band) {
+                         int stride, long long blocks, float inv_denom_elems, float inv_pixels,
+                         float edge_weight, float edge_band) {
   constexpr int L = form_tangents<Form>();
-  constexpr int W = L > 0 ? L : 1;  // a lane's outputs past the loss' (none read for L = 0)
-  const int group = threadIdx.x / lanes, j = threadIdx.x % lanes;
+  constexpr int groups = 128 / Lanes;  // rays of an item
+  const int group = threadIdx.x / Lanes, sub = threadIdx.x % Lanes;
+  const int lane = threadIdx.x & 31;
+  const unsigned mask = (0xffffffffu >> (32 - Lanes)) << (lane - sub);
   __shared__ float sums[128][L + 1];
-  const long long items = blocks * chunks;
+  const long long items = blocks * Lanes;
   for (long long w = blockIdx.x; w < items; w += gridDim.x) {
-    const long long block = w / chunks;
-    const int first = static_cast<int>(w % chunks) * groups;
+    const long long block = w / Lanes;
+    const int first = static_cast<int>(w % Lanes) * groups;
     const int n = counts[block];
     float acc[L + 1];
 #pragma unroll
     for (int m = 0; m <= L; ++m) acc[m] = 0.0f;
-    if (group < groups && first + group < n) {
+    if (first + group < n) {
       const TangentRay& e = rays[block * 128 + first + group];
       if constexpr (L == 0) {
         acc[0] = ray_loss<float>(s, typename Form::Eval{s}, e, origins, directions, cone, target,
                                  t_state, inv_denom_elems, inv_pixels, edge_weight, edge_band);
       } else {
-        const Dual<L> loss =
-            ray_loss<Dual<L>>(s, FormEval<Form, L>(s, j), e, origins, directions, cone, target,
-                              t_state, inv_denom_elems, inv_pixels, edge_weight, edge_band);
-        acc[0] = loss.v;
+        Dual<L> loss;
+        if constexpr (Lanes == 1) {
+          loss = ray_loss<Dual<L>>(s, FormEval<Form, L>(s, 0), e, origins, directions, cone,
+                                   target, t_state, inv_denom_elems, inv_pixels, edge_weight,
+                                   edge_band);
+        } else {
+          static_assert(L == 1, "a ray's directions split over lanes carry one tangent");
+          loss = ray_loss<Dual<1>>(s, DirectionEval<Form>{s, {&s, 0}, sub, mask}, e, origins,
+                                   directions, cone, target, t_state, inv_denom_elems, inv_pixels,
+                                   edge_weight, edge_band);
+        }
+        if (sub == 0) {
+          acc[0] = loss.v;
 #pragma unroll
-        for (int m = 0; m < L; ++m) acc[m + 1] = loss.t[m];
+          for (int m = 0; m < L; ++m) acc[m + 1] = loss.t[m];
+        }
+      }
+      if (Lanes > 1 && sub == 0) {
+        // the ray's own row
+        float* row = partials + (block * 128 + first + group) * stride;
+#pragma unroll
+        for (int m = 0; m <= L; ++m) row[m] = acc[m];
       }
     }
+    if constexpr (Lanes > 1) continue;
     __syncthreads();  // the previous item's sums are read
 #pragma unroll
     for (int m = 0; m <= L; ++m) sums[threadIdx.x][m] = acc[m];
     __syncthreads();
     for (int k = threadIdx.x; k < stride; k += blockDim.x) {
+      // output k: the loss, then slot k - 1's tangent
       float total = k == 0 && first == 0 ? values[block] : 0.0f;
       if (first < n) {
-        // output k: the loss (lane 0's value), then slot k - 1's tangent
-        const int lane = k == 0 ? 0 : (k - 1) / W, component = k == 0 ? 0 : (k - 1) % W + 1;
-        for (int g = 0; g < groups; ++g) total += sums[g * lanes + lane][component];
+        for (int g = 0; g < groups; ++g) total += sums[g * Lanes][k];
       }
       partials[w * stride + k] = total;
     }
@@ -725,12 +787,15 @@ loss_tangent_form_kernel(const ParamScene s, const float* __restrict__ origins,
 // adjoints of a thread accumulate over its rays: in shared memory (small
 // tier, BSDMG_MAX_PARAMS rows of 129 floats, conflict-free both across the
 // threads and across the rows) or the scratch buffer after the sweep's
-// slots (large tier). An item is a warp's chunk of 32 / Lanes rays of one
+// slots (large tier). A sweep's stack, frames and tape are laid out by the
+// program's own depth and frames in both tiers. An item is a warp's chunk
+// of 32 / Lanes rays of one
 // block's list (4 Lanes items a list); warp v of the launch takes items v,
 // v + warps, ... in that order, lane 0 of the chunk 0 adding the first
 // launch's sum of the block, and writes one row of partials (stride =
-// n_prm + 1: the loss, then dL/dprm), each output summed over its 32 lanes
-// in lane order: two calls give the same bits.
+// n_slots + 1: the loss, then dL/dprm by slot, the wrapped object's
+// private slots too, which the host folds), each output summed over its 32
+// lanes in lane order: two calls give the same bits.
 #define BSDMG_ADJ_STRIDE 129
 
 // the ray's loss, its dL/dprm added to adj
@@ -817,14 +882,14 @@ loss_reverse_kernel(const ParamScene s, const float* __restrict__ origins,
   const int lane = threadIdx.x & 31;
   const long long warps = 4LL * gridDim.x;
   const long long warp = 4LL * blockIdx.x + (threadIdx.x >> 5);
-  const int n_prm = s.n_prm;
+  const int n_slots = s.n_slots;
   // a ray's group of lanes: this lane's place in it, the group's mask
   const int sub = lane & (Lanes - 1);
   const unsigned mask = (0xffffffffu >> (32 - Lanes)) << (lane - sub);
   float local_slots[D ? 1 : BSDMG_SWEEP_SLOTS * BSDMG_SWEEP_WORDS];
   Store<D> st;
   Adjoint<Lanes> adj;
-  SweepLayout layout(D ? s.program_depth : BSDMG_STACK, D ? s.program_frames : BSDMG_FRAMES);
+  SweepLayout layout(s.program_depth, s.program_frames);
   if constexpr (D) {
     const long long threads = s.scratch_threads;
     st = Store<D>{s.scratch + launch_thread(), threads};
@@ -835,7 +900,7 @@ loss_reverse_kernel(const ParamScene s, const float* __restrict__ origins,
     st = Store<D>{local_slots, 1};
     adj = Adjoint<Lanes>{adj_shared + threadIdx.x, BSDMG_ADJ_STRIDE, sub, mask};
   }
-  for (int k = 0; k < n_prm; ++k) adj.base[k * adj.stride] = 0.0f;
+  for (int k = 0; k < n_slots; ++k) adj.base[k * adj.stride] = 0.0f;
   float loss = 0.0f;
   constexpr int per_item = 32 / Lanes;  // rays an item
   const long long items = 4LL * Lanes * blocks;
@@ -867,22 +932,69 @@ loss_reverse_kernel(const ParamScene s, const float* __restrict__ origins,
 
 #if !defined(BSDMG_DIFF_SECOND_UNIT) && !defined(BSDMG_DIFF_REVERSE_UNIT) && \
     !defined(BSDMG_DIFF_LANES_UNIT)
-// out[k] = the sum over rows of partials[row * stride + k], one block per
-// k, each thread over a fixed stride of rows, then a fixed tree; launched
-// by this unit alone
-__global__ void __launch_bounds__(256)
-loss_grad_sum(const float* __restrict__ partials, int n_rows, int stride, float* __restrict__ out) {
+// out[blockIdx.x] = the sum of the acc of the block's first 256 threads
+// in a fixed tree (every thread of the block takes part)
+__device__ __forceinline__ void tree_sum(float acc, float* __restrict__ out) {
   __shared__ float sums[256];
-  const int k = blockIdx.x;
-  float acc = 0.0f;
-  for (int b = threadIdx.x; b < n_rows; b += 256) acc += partials[(long long)b * stride + k];
-  sums[threadIdx.x] = acc;
+  if (threadIdx.x < 256) sums[threadIdx.x] = acc;
   __syncthreads();
   for (int half = 128; half > 0; half >>= 1) {
     if (threadIdx.x < half) sums[threadIdx.x] += sums[threadIdx.x + half];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[k] = sums[0];
+  if (threadIdx.x == 0) out[blockIdx.x] = sums[0];
+}
+
+// out[k] = the sum over rows of partials[row * stride + k], one block per
+// k, each thread over a fixed stride of rows, then a fixed tree; launched
+// by this unit alone
+__global__ void __launch_bounds__(256)
+loss_grad_sum(const float* __restrict__ partials, int n_rows, int stride, float* __restrict__ out) {
+  const int k = blockIdx.x;
+  float acc = 0.0f;
+  for (int b = threadIdx.x; b < n_rows; b += 256) acc += partials[(long long)b * stride + k];
+  tree_sum(acc, out);
+}
+
+// the same over the rows of a launch that writes a row a ray
+// (loss_tangent_form_kernel at 4 lanes a ray): block b's row is its first
+// launch's sum (the loss), then its listed rays' rows added in list order,
+// as loss_tangent_form_kernel<Form, 1> adds them (its idle threads' zeros
+// too), and each of the first 256 threads adds the rows loss_grad_sum's
+// would, in its order: both give the same bits. Each of the 32 warps takes
+// a row at a time, its rays' outputs read at once into shared memory and
+// added there by its first lane.
+__global__ void __launch_bounds__(1024)
+loss_grad_sum_rays(const float* __restrict__ partials, const float* __restrict__ values,
+                   const int* __restrict__ counts, int n_blocks, int stride,
+                   float* __restrict__ out) {
+  __shared__ float staged[32][128];
+  __shared__ float rows[256];
+  const int k = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc = 0.0f;
+  for (int base = 0; base < n_blocks; base += 256) {
+    const int here = n_blocks - base < 256 ? n_blocks - base : 256;
+    for (int r = warp; r < here; r += 32) {
+      const long long b = base + r;
+      const int n = counts[b];
+      for (int g = lane; g < 128; g += 32) {
+        staged[warp][g] = g < n ? partials[(b * 128 + g) * stride + k] : 0.0f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        float total = k == 0 ? values[b] : 0.0f;
+        if (n > 0) {
+          for (int g = 0; g < 128; ++g) total += staged[warp][g];
+        }
+        rows[r] = total;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < here) acc += rows[threadIdx.x];
+    __syncthreads();
+  }
+  tree_sum(acc, out);
 }
 #endif  // the units
 
@@ -907,25 +1019,32 @@ static bool with_form(int form, F&& f) {
   }
 }
 
-// a composed scene's parameter program, whose K5 sweeps in reverse
-static bool is_program_form(int form) {
-  return form == FORM_PROGRAM || form == FORM_PROGRAM_LARGE;
-}
-template <class F>
-struct is_program
-    : std::integral_constant<bool, std::is_same<F, ProgramForm>::value ||
-                                       std::is_same<F, ProgramLargeForm>::value> {};
-
-// loss_tangent_form_kernel's shape for n_prm parameters: lanes a ray (one
-// for a form with none), rays a chunk, chunks a block's list
-struct FormLanes {
-  int lanes, groups, chunks;
-  explicit FormLanes(int n_prm) {
-    lanes = n_prm > 0 ? (n_prm + BSDMG_FORM_TANGENTS - 1) / BSDMG_FORM_TANGENTS : 1;
-    groups = 128 / lanes;
-    chunks = (128 + groups - 1) / groups;
-  }
+// the form whose parameter program K5's tangent launch sweeps in reverse
+// for form F (F::Sweep: a composed scene's own; ProgramForm for the wrapped
+// object, lowered on the host), void for a form that takes lanes
+template <class F, class = void>
+struct sweep_of {
+  typedef void type;
 };
+template <class F>
+struct sweep_of<F, std::void_t<typename F::Sweep>> {
+  typedef typename F::Sweep type;
+};
+template <class F>
+struct sweeps : std::integral_constant<bool, !std::is_void<typename sweep_of<F>::type>::value> {};
+
+// a form whose K5 lanes may take a ray's spatial directions apart
+// (F::directions: the mandelbulb's)
+template <class F, class = void>
+struct has_directions : std::false_type {};
+template <class F>
+struct has_directions<F, std::void_t<decltype(F::directions)>>
+    : std::integral_constant<bool, F::directions> {};
+
+// the forms whose K5 sweeps a parameter program in reverse
+static bool sweep_form(int form) {
+  return form == FORM_PROGRAM || form == FORM_PROGRAM_LARGE || form == FORM_WRAPPED;
+}
 
 // f(Parts<frame, transform>{}) with both flags as template arguments
 template <class F>
@@ -951,21 +1070,6 @@ static long long loss_grad_rows(long long blocks, bool transform) {
                               : 0));
 }
 
-// K5's partial sums for a scene: rows and their width (the loss and the
-// gradient)
-static int reverse_grid(long long blocks);
-static void loss_grad_partials(const ParamScene& s, long long blocks, long long& rows,
-                               int& stride) {
-  if (s.form == FORM_REFERENCE) {
-    rows = loss_grad_rows(blocks, s.n_prm > BSDMG_SHAPE_PARAMS);
-    stride = tangents(s.n_prm) + 1;
-    return;
-  }
-  // a program form's reverse launch: a row a warp
-  rows = is_program_form(s.form) ? 4LL * reverse_grid(blocks) : blocks * FormLanes(s.n_prm).chunks;
-  stride = s.n_prm + 1;
-}
-
 // the card's SMs
 static int card_sms() {
   static int sms = 0;
@@ -984,13 +1088,42 @@ static int tangent_grid(long long items) {
   return static_cast<int>(items < most ? (items > 0 ? items : 1) : most);
 }
 
-// lanes a ray of the reverse launch (loss_reverse_kernel) over an image of
-// `blocks` lists: 4 where there are no more lists than SMs (4 lanes a ray
-// then take a block of 128 threads a list, at most one an SM), else 1
+// lanes a ray of the reverse launch (loss_reverse_kernel) and of the
+// mandelbulb's directions (DirectionEval) over an image of `blocks` lists:
+// 4 where there are no more lists than SMs (4 lanes a ray then take a
+// block of 128 threads a list, at most one an SM), else 1. The mandelbulb
+// at 4 lanes a ray everywhere, against this rule (NVIDIA H100 80GB HBM3,
+// 700 W, tools/time_k5_bake.py, P C C P; PERF.md): 256x256 0.278 ms
+// against 0.260-0.263, 512x512 0.322-0.326 against 0.277-0.280.
 static int reverse_lanes(long long blocks) { return blocks <= card_sms() ? 4 : 1; }
 
 // blocks of the reverse launch over `blocks` lists
 static int reverse_grid(long long blocks) { return tangent_grid(blocks * reverse_lanes(blocks)); }
+
+// lanes a ray of K5's tangent launch for the scene over `blocks` lists: a
+// sweep's and the mandelbulb's reverse_lanes, else 1
+static int tangent_lanes(const ParamScene& s, long long blocks) {
+  return sweep_form(s.form) || s.form == FORM_MANDELBULB ? reverse_lanes(blocks) : 1;
+}
+
+// K5's partial sums for a scene: rows and their width (the loss and the
+// gradient)
+static void loss_grad_partials(const ParamScene& s, long long blocks, long long& rows,
+                               int& stride) {
+  if (s.form == FORM_REFERENCE) {
+    rows = loss_grad_rows(blocks, s.n_prm > BSDMG_SHAPE_PARAMS);
+    stride = tangents(s.n_prm) + 1;
+    return;
+  }
+  // a sweep's reverse launch: a row a warp; the forms' lanes: a row a list,
+  // or at 4 lanes a ray a row a ray
+  if (sweep_form(s.form)) {
+    rows = 4LL * reverse_grid(blocks);
+  } else {
+    rows = tangent_lanes(s, blocks) == 1 ? blocks : blocks * 128;
+  }
+  stride = s.n_slots + 1;
+}
 
 // floats of the large tier's scratch (ParamScene::scratch) for `threads`
 // threads of a march: each thread's stack and frames, BSDMG_VALUE_WORDS floats a
@@ -1007,7 +1140,7 @@ static long long sweep_scratch(const ParamScene& s, long long threads) {
   if (s.form != FORM_PROGRAM_LARGE) return 0;
   const long long slots =
       s.program_depth + 6LL * s.program_frames + 3LL * s.program_length / 2;
-  return (BSDMG_SWEEP_WORDS * slots + s.n_prm) * threads;
+  return (BSDMG_SWEEP_WORDS * slots + s.n_slots) * threads;
 }
 
 // the scene with the large tier's scratch at `scratch`, for `threads` threads
@@ -1025,23 +1158,24 @@ static ParamScene with_scratch(const ParamScene& s, float* scratch, long long th
 // BSDMG_DIFF_SECOND_UNIT defined; unit 1), which holds the near/far split's
 // and the large tier's (ProgramLargeForm), diff_reverse.cu's (with
 // BSDMG_DIFF_REVERSE_UNIT; unit 2), which holds the small tier's reverse
-// launch (loss_reverse_kernel<ProgramForm, 1>), and diff_lanes.cu's (with
-// BSDMG_DIFF_LANES_UNIT; unit 3), both tiers' reverse launch at 4 lanes a
-// ray. Each unit's dispatch instantiates only its own and answers
+// launch (loss_reverse_kernel<ProgramForm, 1>, also the wrapped object's),
+// and diff_lanes.cu's (with BSDMG_DIFF_LANES_UNIT; unit 3), every tangent
+// launch at 4 lanes a ray: both tiers' reverse launch and the mandelbulb's
+// directions. Each unit's dispatch instantiates only its own and answers
 // OTHER_UNIT for the rest; loss_grad_sum, the last launch of every form,
 // and the entries are unit 0's, which call the others'.
 template <class F, bool Split>
 struct DiffUnit
     : std::integral_constant<int, Split || std::is_same<F, ProgramLargeForm>::value ? 1 : 0> {};
-// the unit of a form's tangent launches, a program form's at 4 lanes a ray
-// (Four) or 1
+// the unit of a form's tangent launches at 4 lanes a ray (Four) or 1: a
+// sweep's are its program form's
 template <class F, bool Four>
 struct TangentUnit
-    : std::integral_constant<int, Four && is_program<F>::value
-                                      ? 3
-                                      : (std::is_same<F, ProgramForm>::value
-                                             ? 2
-                                             : DiffUnit<F, false>::value)> {};
+    : std::integral_constant<
+          int, Four ? 3
+                    : (std::is_same<typename sweep_of<F>::type, ProgramForm>::value
+                           ? 2
+                           : DiffUnit<F, false>::value)> {};
 #if defined(BSDMG_DIFF_LANES_UNIT)
 constexpr int kUnit = 3;
 #elif defined(BSDMG_DIFF_REVERSE_UNIT)
@@ -1143,21 +1277,25 @@ static int loss_march_in_unit(K5_LAUNCH_PARAMS) {
 
 // g(Form{}, lanes) for the scene's form where this unit holds its tangent
 // launches, else OTHER_UNIT (with the split or without, the tangent
-// launches are the form's); lanes, an integral_constant, 4 for a program
-// form's reverse launch at 4 lanes a ray (`four`), else 1;
-// cudaErrorInvalidValue for a form that names none
+// launches are the form's); lanes, an integral_constant, 4 for a sweep's
+// or the mandelbulb's launch at 4 lanes a ray (`four`, tangent_lanes),
+// else 1; cudaErrorInvalidValue for a form that names none
 template <class G>
 static int with_tangent_launch(const ParamScene& s, bool four, G&& g) {
   int err = cudaErrorInvalidValue;
   with_form(s.form, [&](auto form) {
     typedef decltype(form) F;
-    if (four && is_program<F>::value) {
-      if constexpr (TangentUnit<F, true>::value == kUnit) {
-        err = g(form, std::integral_constant<int, 4>{});
-      } else {
-        err = OTHER_UNIT;
+    if constexpr (sweeps<F>::value || has_directions<F>::value) {
+      if (four) {
+        if constexpr (TangentUnit<F, true>::value == kUnit) {
+          err = g(form, std::integral_constant<int, 4>{});
+        } else {
+          err = OTHER_UNIT;
+        }
+        return;
       }
-    } else if constexpr (TangentUnit<F, false>::value == kUnit) {
+    }
+    if constexpr (TangentUnit<F, false>::value == kUnit) {
       err = g(form, std::integral_constant<int, 1>{});
     } else {
       err = OTHER_UNIT;
@@ -1171,7 +1309,7 @@ static int with_tangent_launch(const ParamScene& s, bool four, G&& g) {
 // rows follow one another). Returns the cudaError_t of the first launch
 // that failed, else 0.
 static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
-  return with_tangent_launch(*scene, reverse_lanes(blocks) == 4, [&](auto form, auto lanes) {
+  return with_tangent_launch(*scene, tangent_lanes(*scene, blocks) == 4, [&](auto form, auto lanes) {
     typedef decltype(form) F;
     if constexpr (std::is_same<F, ReferenceForm>::value) {
       // the wireframe at compile time; each launch's rows follow the last's
@@ -1200,20 +1338,20 @@ static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
                  shape_rows + translation_rows, rotation_rows);
         }
       });
-    } else if constexpr (std::is_same<F, ProgramForm>::value ||
-                         std::is_same<F, ProgramLargeForm>::value) {
+    } else if constexpr (sweeps<F>::value) {
+      // a composed scene's program, or the wrapped object's lowered one
       const int grid = reverse_grid(blocks);
       // the large tier's sweeps in the scratch buffer, a thread of this launch each
       const ParamScene sc = with_scratch(*scene, scene->scratch, 128LL * grid);
-      loss_reverse_kernel<F, decltype(lanes)::value><<<grid, 128, 0, st>>>(
-          sc, origins, directions, cone, target, t_state, rays, counts, values, partials, stride,
-          blocks, inv_denom_elems, inv_pixels, edge_weight, edge_band);
+      loss_reverse_kernel<typename sweep_of<F>::type, decltype(lanes)::value>
+          <<<grid, 128, 0, st>>>(sc, origins, directions, cone, target, t_state, rays, counts,
+                                 values, partials, stride, blocks, inv_denom_elems, inv_pixels,
+                                 edge_weight, edge_band);
     } else {
-      const FormLanes fl(scene->n_prm);
-      loss_tangent_form_kernel<F><<<tangent_grid(rows), 128, 0, st>>>(
+      loss_tangent_form_kernel<F, decltype(lanes)::value>
+          <<<tangent_grid(blocks * decltype(lanes)::value), 128, 0, st>>>(
           *scene, origins, directions, cone, target, t_state, rays, counts, values, partials,
-          stride, blocks, fl.lanes, fl.groups, fl.chunks, inv_denom_elems, inv_pixels,
-          edge_weight, edge_band);
+          stride, blocks, inv_denom_elems, inv_pixels, edge_weight, edge_band);
     }
     return static_cast<int>(cudaGetLastError());
   });
@@ -1277,15 +1415,18 @@ long long bsdmg_loss_grad_scratch(const ParamScene* scene, int h, int w) {
 }
 
 // Launches K5 on `stream`: target (h, w, 3); t_state (h, w), or null for
-// no edge term; scratch, bsdmg_loss_grad_scratch floats; out, n_prm + 1
-// floats: the loss, then dL/dprm. The scene's `split` picks the near/far
-// split of the march launch (the reference form alone). Three to five launches: the march and
-// the lists (loss_march_kernel), the tangents (loss_tangent_kernel's shape,
-// translation and rotation launches for the reference form,
-// loss_tangent_form_kernel for the others, the loss alone for MeshGridForm,
-// which reads no parameter), the sum over the blocks (loss_grad_sum).
-// Returns the cudaError_t of the first launch that failed, else 0
-// (cudaErrorInvalidValue for a form that names none).
+// no edge term; scratch, bsdmg_loss_grad_scratch floats; out, n_slots + 1
+// floats: the loss, then dL/dprm by slot (the wrapped object's private
+// slots after the flat vector's, which the caller folds). The scene's
+// `split` picks the near/far split of the march launch (the reference form
+// alone). Three to five launches: the march and the lists
+// (loss_march_kernel), the tangents (bsdmg_loss_tangent_launch says
+// which: loss_tangent_kernel's shape, translation and rotation launches for
+// the reference form, loss_reverse_kernel for a composed scene and the
+// wrapped object, loss_tangent_form_kernel for the others, the loss alone
+// for MeshGridForm, which reads no parameter), the sum over the blocks
+// (loss_grad_sum). Returns the cudaError_t of the first launch that
+// failed, else 0 (cudaErrorInvalidValue for a form that names none).
 int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* directions,
                     const float* cone, const float* target, const float* t_state,
                     float* scratch, float* out, int h, int w, float inv_denom_elems,
@@ -1311,8 +1452,24 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
   if (err == OTHER_UNIT) err = loss_tangents_reverse_unit(K5_LAUNCH_ARGS);
   if (err == OTHER_UNIT) err = loss_tangents_lanes_unit(K5_LAUNCH_ARGS);
   if (err != 0) return err;
-  loss_grad_sum<<<scene->n_prm + 1, 256, 0, st>>>(partials, static_cast<int>(rows), stride, out);
+  if (!sweep_form(scene->form) && tangent_lanes(*scene, blocks) > 1) {
+    loss_grad_sum_rays<<<scene->n_slots + 1, 1024, 0, st>>>(partials, values, counts,
+                                                          static_cast<int>(blocks), stride, out);
+  } else {
+    loss_grad_sum<<<scene->n_slots + 1, 256, 0, st>>>(partials, static_cast<int>(rows), stride,
+                                                      out);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5's tangent launch for scene over an h x w image, as bsdmg_loss_grad
+// launches it: 8 * kernel + lanes a ray, kernel 0 for loss_tangent_kernel
+// (the reference form), 1 for loss_tangent_form_kernel, 2 for
+// loss_reverse_kernel
+int bsdmg_loss_tangent_launch(const ParamScene* scene, int h, int w) {
+  const long long blocks = loss_grad_blocks(h, w);
+  if (scene->form == FORM_REFERENCE) return 0 * 8 + 1;
+  return (sweep_form(scene->form) ? 2 : 1) * 8 + tangent_lanes(*scene, blocks);
 }
 
 int bsdmg_param_scene_size(void) { return static_cast<int>(sizeof(ParamScene)); }

@@ -10,7 +10,10 @@
 // (sdf/primitives.py::sd_mandelbulb_c: power 7, 25 iterations, escape
 // radius 2) at points already divided by the scale, for T float (the value)
 // or a dual (the value and its derivatives; in K5 a dual of duals,
-// nested_dual.cuh). A point leaves the loop at its escape: its later
+// nested_dual.cuh: DualOf<3, Dual<1>> for the gradient on one lane, or
+// DualOf<1, Dual<1>> for one direction of it on each of a ray's lanes,
+// whose loop takes the same iterations, set by the value alone). A point
+// leaves the loop at its escape: its later
 // iterations in the JAX package change nothing. Its min and max propagate
 // a NaN, as the solid box's.
 template <class T>

@@ -12,8 +12,11 @@
 // and the kernels derive the rest from value: dfdt (ray_derivative, Dual<1>
 // whose point carries the ray's direction) and, in K5's tangent lanes, the
 // value in Dual<L> and the spatial gradient with its parameter tangents,
-// forward over forward in DualOf<3, Dual<L>> (value_grad). A composed
-// scene's K5 sweeps its program in reverse instead (param_program.cuh).
+// forward over forward in DualOf<3, Dual<L>> (value_grad), or, for a form
+// with `directions`, one spatial direction a lane in DualOf<1, Dual<L>>
+// (diff_kernel.cu DirectionEval). A form with a `Sweep` has K5 sweep that
+// form's parameter program in reverse instead (param_program.cuh): a
+// composed scene's own, and the wrapped object's lowered on the host.
 //
 // ReferenceForm is the reference scenes' form of param_sdf.cuh, unchanged:
 // its march form (MarchScene), its dfdt and its hand-written reverse-mode
@@ -21,10 +24,15 @@
 // take the flat parameter vector ParamScene::prm and K5's generic lanes:
 //   SphereForm: bsdmg_tpu/models/scenes.py sphere_scene (radius, slot 0);
 //   MandelbulbForm: mandelbulb_scene, sd_mandelbulb_c(x / s) * s with
-//     s = scale * 0.4 (scale, slot 0), mandelbulb.cuh;
+//     s = scale * 0.4 (scale, slot 0), mandelbulb.cuh; its K5 lanes may
+//     take a ray's three spatial directions apart (directions);
 //   WrappedForm: wrapped_object_scene, each coordinate wrapped as
 //     -half + mod(x + half, cell) with half = cell / 2, then the reference
-//     object and its transform (param_sdf.cuh scene_value, AnyParts);
+//     object and its transform (param_sdf.cuh scene_value, AnyParts), in
+//     its march and dfdt; K5's tangent launch sweeps the same function as
+//     the parameter program wrap(transform(smooth_union(skeleton, sphere)))
+//     (Sweep, csdf.py wrapped_param_program), whose value is this one's
+//     bit for bit;
 //   ProgramForm: a composed scene, its parameter program
 //     (param_program.cuh), within the small tier's caps;
 //   ProgramLargeForm: the same beyond them (the large tier: the values
@@ -100,10 +108,30 @@ struct SphereForm : PlainMarch<SphereForm> {
 };
 
 struct MandelbulbForm : PlainMarch<MandelbulbForm> {
+  // K5's tangent launch may give a ray's spatial directions a lane each
+  static constexpr bool directions = true;
   template <class T, class P>
   static __device__ __forceinline__ T value(const ParamScene&, const Prm<P>& prm, const T x[3]) {
     const P s = prm(0) * 0.4f;
     return mandelbulb_de<T>(x[0] / s, x[1] / s, x[2] / s) * s;
+  }
+};
+
+struct ProgramForm : PlainMarch<ProgramForm> {
+  typedef ProgramForm Sweep;
+  template <class T, class P>
+  static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P>& prm, const T x[3]) {
+    return program_value(s, prm, x);
+  }
+};
+
+struct ProgramLargeForm : PlainMarch<ProgramLargeForm> {
+  static constexpr bool device = true;
+  typedef ProgramLargeForm Sweep;
+  template <class T, class P>
+  static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P, true>& prm,
+                                            const T x[3]) {
+    return program_value(s, prm, x);
   }
 };
 
@@ -133,6 +161,10 @@ __device__ __forceinline__ ObjectParams<P> slot_params(const ParamScene& s, cons
 
 struct WrappedForm {
   static constexpr bool device = false;
+  // K5's tangent launch: the lowered program's reverse sweep, its private
+  // slots (the cell's three copies, the sphere's pinned centre, an absent
+  // transform part) after the flat vector in prm
+  typedef ProgramForm Sweep;
   template <class T, class P>
   static __device__ __forceinline__ void wrap(const ParamScene& s, const Prm<P>& prm, const T x[3],
                                               T w[3]) {
@@ -157,22 +189,6 @@ struct WrappedForm {
     T w[3];
     wrap(s, prm, x, w);
     return scene_value<AnyParts>(s, slot_params(s, prm), w);
-  }
-};
-
-struct ProgramForm : PlainMarch<ProgramForm> {
-  template <class T, class P>
-  static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P>& prm, const T x[3]) {
-    return program_value(s, prm, x);
-  }
-};
-
-struct ProgramLargeForm : PlainMarch<ProgramLargeForm> {
-  static constexpr bool device = true;
-  template <class T, class P>
-  static __device__ __forceinline__ T value(const ParamScene& s, const Prm<P, true>& prm,
-                                            const T x[3]) {
-    return program_value(s, prm, x);
   }
 };
 

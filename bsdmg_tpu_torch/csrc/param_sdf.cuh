@@ -57,6 +57,10 @@ struct ParamScene {
   float shape_prm[9];
   float rigid_prm[7];
   int n_prm;  // the length of the flat parameter vector (weights.flatten_params)
+  // the slots of prm whose adjoints K5 returns: n_prm, and for the wrapped
+  // object, whose tangent launch sweeps its parameter program, the private
+  // slots after the flat vector too (csdf.py wrapped_param_program)
+  int n_slots;
   // index in the flat vector of each parameter's first component, which
   // places its gradient in K5's output; -1 where absent
   int skeleton_center;
@@ -90,9 +94,10 @@ struct ParamScene {
   int form;                     // ParamForm
   float prm[BSDMG_MAX_PARAMS];  // the flat parameter vector
   int cell;                     // the wrapped object: the slot of its lattice period
-  // a composed scene: its parameter program in device memory,
-  // program_length instructions of BSDMG_PARAM_WORDS words
-  // (csdf.py param_program_words); the caller owns the buffer
+  // a composed scene, or the wrapped object's lowered form for K5's tangent
+  // launch: its parameter program in device memory, program_length
+  // instructions of BSDMG_PARAM_WORDS words (csdf.py param_program_words);
+  // the caller owns the buffer
   const int* program;
   int program_length;
   // a mesh asset's grid: its baked (r, r, r) table in device memory, C

@@ -1163,6 +1163,79 @@ def param_program_words(prog) -> np.ndarray:
     return words
 
 
+class WrappedProgram(NamedTuple):
+    """The wrapped object (``models/scenes.py::WrappedCsdf``) as a parameter
+    program, for K5's reverse sweep (``csrc/param_program.cuh``; its march
+    and dfdt keep ``csrc/param_forms.cuh WrappedForm``): wrap(transform(
+    smooth_union(box_skeleton, sphere))), the transform where the
+    parameters have one. ``prog`` reads the flat vector's ``n`` values and
+    private slots after them: the cell three times (a wrap reads a cell a
+    coordinate), then the sphere's centre, pinned at 0, and a present
+    transform's absent part (a zero offset, the identity quaternion),
+    ``constants`` their values. :meth:`extend` gives the vector the program
+    reads, :meth:`fold` puts its slots' adjoints back on the flat vector.
+
+    Private slots and a fold, not a flag on the wrap instruction that reads
+    one cell for the three coordinates: the interpreter that every composed
+    scene runs stays as it is, and the price is a few more adjoint rows a
+    ray (in shared memory the small tier holds anyway) and a sum on the
+    host. The program's value is ``WrappedCsdf``'s bit for bit: the same
+    float32 operations in the same order (``cell * 0.5`` is ``cell / 2``
+    exactly, ``x - 0`` is ``x``)."""
+
+    prog: tuple
+    n: int
+    cell: int
+    constants: tuple
+
+    def extend(self, flat: torch.Tensor) -> torch.Tensor:
+        """The vector the program reads: ``flat``, then the private slots."""
+        rest = torch.tensor(self.constants, dtype=flat.dtype, device=flat.device)
+        return torch.cat([flat, flat[self.cell].reshape(1).expand(3), rest])
+
+    def fold(self, adjoints: torch.Tensor) -> torch.Tensor:
+        """The adjoints of the flat vector from those of :meth:`extend`'s
+        (its last axis): the cell's three copies summed onto the cell, the
+        constants' dropped."""
+        n = self.n
+        out = adjoints[..., :n].clone()
+        out[..., self.cell] += (adjoints[..., n] + adjoints[..., n + 1]) + adjoints[..., n + 2]
+        return out
+
+
+def wrapped_param_program(offsets: dict, n: int) -> WrappedProgram:
+    """The wrapped object's parameter program for a flat vector of ``n``
+    values whose slots are ``offsets`` (``weights.param_offsets``); the
+    object transform's two parameters are optional, as the reference
+    object's."""
+    cell = n
+    private = [0.0, 0.0, 0.0]  # the sphere's centre
+    centre = n + 3
+    prog = [ParamInstruction(OP_PUSH_WRAP, -1, (cell,))]
+    moved = "object_center" in offsets or "object_rotation" in offsets
+    if moved:
+        def slot(name, absent):
+            if name in offsets:
+                return offsets[name]
+            private.extend(absent)
+            return n + 3 + len(private) - len(absent)
+
+        prog.append(ParamInstruction(OP_PUSH_TRANSFORM, -1, (
+            slot("object_center", (0.0, 0.0, 0.0)),
+            slot("object_rotation", (1.0, 0.0, 0.0, 0.0)))))
+    skeleton = len(prog)
+    prog += [
+        ParamInstruction(OP_SKELETON, -1, (offsets["skeleton_center"], offsets["skeleton_size"],
+                                           offsets["skeleton_line_width"]), 1),
+        ParamInstruction(OP_SPHERE, -1, (centre, offsets["sphere_radius"])),
+        ParamInstruction(OP_SMOOTH, skeleton, (offsets["smooth_k"],)),
+    ]
+    if moved:
+        prog.append(ParamInstruction(OP_POP, 1, ()))
+    prog.append(ParamInstruction(OP_POP, 0, ()))
+    return WrappedProgram(tuple(prog), n, offsets["cell"], tuple(private))
+
+
 def _param_primitive(ins: ParamInstruction, prm, x, y, z):
     """A primitive's value from the parameter values ``prm(slot)``, as
     ``models/compose.py::_eval`` computes it."""

@@ -18,8 +18,10 @@ The scene is the component form of a scene the image fit takes, which the
 kernels evaluate from the flat parameter vector (``weights.flatten_params``)
 in one of their parameter forms (``csrc/param_forms.cuh``):
 :class:`ReferenceCsdf` (the reference scenes), :class:`SphereCsdf`,
-:class:`MandelbulbCsdf`, :class:`WrappedCsdf` (the other built-in scenes),
-:class:`ComposedCsdf` (a composed scene, as a parameter program,
+:class:`MandelbulbCsdf`, :class:`WrappedCsdf` (the other built-in scenes;
+K5's tangent launch sweeps the wrapped object as a parameter program,
+``csdf.py::wrapped_param_program``, and folds its private slots' adjoints
+back), :class:`ComposedCsdf` (a composed scene, as a parameter program,
 ``csdf.py::param_program``) and :class:`GridCsdf` (a mesh asset's baked
 grid, read as data: it reads no parameter, its gradient is zero and K5
 takes no tangent). Any other component form raises
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import math
 
 import torch
 
@@ -58,6 +61,7 @@ from bsdmg_tpu_torch.ops.cuda.csdf import (
     param_program,
     param_program_words,
     program_depths,
+    wrapped_param_program,
 )
 from bsdmg_tpu_torch.ops.cuda.grid_box import GridBoxC, grid_box_c
 from bsdmg_tpu_torch.ops.cuda.render_kernel import (
@@ -84,6 +88,10 @@ LOSS_GRAD_LAUNCHES = 0
 #: the launches after it); each is counted in MARCH_LAUNCHES or
 #: LOSS_GRAD_LAUNCHES too
 SPLIT_LAUNCHES: collections.Counter = collections.Counter()
+#: K5's tangent launches by instantiation (:func:`tangent_launch`'s names,
+#: e.g. ``"loss_reverse_kernel<ProgramForm, 4>"``), one a K5 launch, each
+#: counted in LOSS_GRAD_LAUNCHES too
+TANGENT_LAUNCHES: collections.Counter = collections.Counter()
 
 #: the kernels' source, relative to the repository root
 SOURCE = "bsdmg_tpu_torch/csrc/diff_kernel.cu"
@@ -97,6 +105,9 @@ REFERENCE_PARAMS = 16
 #: the parameter forms (csrc/param_sdf.cuh ParamForm)
 (FORM_REFERENCE, FORM_SPHERE, FORM_MANDELBULB, FORM_WRAPPED, FORM_PROGRAM, FORM_MESH_GRID,
  FORM_PROGRAM_LARGE) = range(7)
+#: each form's structure in csrc/param_forms.cuh
+FORM_NAMES = ("ReferenceForm", "SphereForm", "MandelbulbForm", "WrappedForm", "ProgramForm",
+              "MeshGridForm", "ProgramLargeForm")
 
 #: the parameters the reference form reads, with their shapes, in
 #: ``ParamScene``'s order; the transform's two are optional
@@ -244,6 +255,96 @@ def render_loss_grad_torch(
     return loss.detach(), unflatten_params(grad, layout)
 
 
+def render_loss_grad_sweep_torch(
+    cfn: "ComposedCsdf | WrappedCsdf",
+    params,
+    target: torch.Tensor,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cone: torch.Tensor,
+    config: MarchConfig = MarchConfig(),
+    *,
+    bb=None,
+    total_pixels: int | None = None,
+    edge_weight: float = 0.0,
+    edge_band: float | None = None,
+    target_miss: torch.Tensor | None = None,
+):
+    """K5 by its reverse sweep's route, in plain PyTorch, for a scene K5
+    sweeps (a composed scene's program, the wrapped object's lowered one):
+    ``(loss, grads)`` as :func:`render_loss_grad_torch`'s. The stopped march
+    is K4's twin; each ray then takes what ``loss_reverse_kernel`` does
+    (csrc/diff_kernel.cu ray_loss_reverse), the sweep by its CPU mirror
+    (``csdf.param_program_adjoint_torch``): at a hit, the program at x0,
+    ``t_diff`` and q, the program's value and gradient g at q, the loss and
+    its derivative in g (autograd through the normal, the shading, ACES and
+    the squared error), the sweep at q from ``(0, dL/dg)``, the sweep at x0
+    from ``-(dL/dq . d) / denom``; a hinge ray's sweep at its
+    closest-approach point. The wrapped object's private slots are folded
+    back. For the tests: the card runs the kernel."""
+    from bsdmg_tpu_torch.grad.edge import UNTRACKED
+    from bsdmg_tpu_torch.ops.cuda.csdf import _tie_weight, param_program_adjoint_torch
+    from bsdmg_tpu_torch.ops.shade import shade_planes
+
+    o, d, c = _planes(origins, directions, cone)
+    n_pixels = total_pixels or c.numel()
+    edge = float(edge_weight) != 0.0
+    flat, layout = flatten_params(params)
+    depth, _, outcome, dfdt, min_m, t_min = _march_planes(cfn, params, o, d, c, config, bb, edge)
+    offsets = param_offsets(layout)
+    if isinstance(cfn, WrappedCsdf):
+        wrapped = wrapped_param_program(offsets, flat.numel())
+        prog, slots, fold = wrapped.prog, wrapped.extend(flat.detach()), wrapped.fold
+    else:
+        prog, slots, fold = param_program(cfn.spec, offsets), flat.detach(), lambda a: a
+    sweep = lambda pts, seed, seed_grad=None: param_program_adjoint_torch(  # noqa: E731
+        prog, slots, *pts, seed, seed_grad)
+    at = lambda t, rows: tuple(oa[rows] + t * da[rows] for oa, da in zip(o, d))  # noqa: E731
+    inv_elems, inv_pixels = f32(1.0 / (3.0 * n_pixels)), f32(1.0 / n_pixels)
+    tgt = [target[..., a].reshape(-1) for a in range(3)]
+    # the misses' colours, then the hits' loss and sweeps
+    rgb = shade_planes(*(torch.zeros_like(c) for _ in range(3)), outcome)
+    total = (sum((v - t) ** 2 for v, t in zip(rgb, tgt)) * inv_elems)[outcome != COLLISION].sum()
+    adjoints = torch.zeros(slots.numel(), dtype=torch.float32)
+    hit = outcome == COLLISION
+    if hit.any():
+        t0, ch = depth[hit], c[hit]
+        x0 = at(t0, hit)
+        denom = dfdt[hit] - ch
+        denom = torch.where(denom.abs() < 1e-6, -1e-6, denom)
+        zero = torch.zeros_like(t0)
+        f0 = sweep(x0, zero)[0]
+        t_diff = t0 - ((f0 - ch * t0) - config.collision_distance) / denom
+        q = at(t_diff, hit)
+        g = sweep(q, zero, (zero, zero, zero))[1]
+        with torch.enable_grad():
+            g = [v.detach().requires_grad_() for v in g]
+            inv = 1.0 / torch.sqrt(torch.clamp_min((g[0] * g[0] + g[1] * g[1]) + g[2] * g[2],
+                                                   1e-24))
+            shaded = shade_planes(*(v * inv for v in g), outcome[hit])
+            photo = sum((v - t[hit]) ** 2 for v, t in zip(shaded, tgt)) * inv_elems
+            seed_grad = torch.autograd.grad(photo.sum(), g)
+        total = total + photo.detach().sum()
+        _, _, bar_q, q_bar = sweep(q, zero, seed_grad)
+        dt = (q_bar[0] * d[0][hit] + q_bar[1] * d[1][hit]) + q_bar[2] * d[2][hit]
+        adjoints = adjoints + bar_q.sum(0) + sweep(x0, -dt / denom)[2].sum(0)
+    if edge:
+        state = _target_state(target, target_miss).reshape(-1)
+        valid, miss = state > -0.5, state > 0.5
+        appear = valid & ~miss & ~hit & (min_m < UNTRACKED)
+        vanish = valid & miss & hit
+        hinge = appear | vanish
+        if hinge.any():
+            m = sweep(at(t_min[hinge], hinge), torch.zeros_like(c[hinge]))[0] - c[hinge] * t_min[hinge]
+            arg = torch.where(appear[hinge], m, _band(config, edge_band) - m)
+            h = torch.clamp_min(arg, 0.0)
+            total = total + ((h * float(edge_weight)) * inv_pixels).sum()
+            dm = torch.where(appear[hinge], 1.0, -1.0) * _tie_weight(arg, h, torch.zeros_like(h))
+            seed = (dm * float(edge_weight)) * inv_pixels
+            adjoints = adjoints + sweep(at(t_min[hinge], hinge), seed)[2].sum(0)
+    return total, unflatten_params(fold(adjoints), layout)
+
+
 def _check_split(cfn, split) -> None:
     """A split needs the reference form with its wireframe: K4 and K5 march
     ``ReferenceCsdf.frame`` as its far scene."""
@@ -284,6 +385,7 @@ class _ParamSceneC(ctypes.Structure):
         ("shape_prm", _floats(9)),
         ("rigid_prm", _floats(7)),
         ("n_prm", ctypes.c_int),
+        ("n_slots", ctypes.c_int),
         *((name, ctypes.c_int) for name in PARAM_SHAPES),
         ("reference_compat", ctypes.c_int),
         ("has_frame", ctypes.c_int),
@@ -358,16 +460,31 @@ def _reference_fields(offsets: dict, values: list, reference_compat: bool, frame
     )
 
 
-def _program_words(cfn: ComposedCsdf, layout, device):
-    """``(words, program)``: the scene's parameter program for ``layout``,
-    and its int32 words on ``device`` (uploaded once per layout and device,
-    kept on ``cfn``)."""
+def _program_words(cfn: "ComposedCsdf | WrappedCsdf", layout, device):
+    """``(words, program)``: the scene's parameter program for ``layout`` (a
+    composed scene's instructions, or the wrapped object's
+    :class:`~bsdmg_tpu_torch.ops.cuda.csdf.WrappedProgram`), and its int32
+    words on ``device`` (uploaded once per layout and device, kept on
+    ``cfn``)."""
     cache = cfn.__dict__.setdefault("_param_words", {})
     key = (layout, torch.device(device))
     if key not in cache:
-        prog = param_program(cfn.spec, param_offsets(layout))
-        cache[key] = (torch.from_numpy(param_program_words(prog)).to(device), prog)
+        offsets = param_offsets(layout)
+        if isinstance(cfn, WrappedCsdf):
+            prog = wrapped_param_program(offsets, sum(math.prod(s) for _, s in layout))
+            instructions = prog.prog
+        else:
+            prog = instructions = param_program(cfn.spec, offsets)
+        cache[key] = (torch.from_numpy(param_program_words(instructions)).to(device), prog)
     return cache[key]
+
+
+def _program_fields(keep, prog) -> dict:
+    """The ParamScene fields of a parameter program: its words (``keep``,
+    on the device that reads them), length and depths."""
+    depth, frames = program_depths(prog)
+    return dict(program=keep.data_ptr(), program_length=keep.shape[0], program_depth=depth,
+                program_frames=frames)
 
 
 def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=None,
@@ -380,7 +497,10 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
     which reads the flat vector from ``device`` too. A mesh asset's grid
     (:class:`GridCsdf`) is read from its table on ``device``, no parameter
     enters the struct (``n_prm`` 0) and ``layout`` is None. ``split`` turns
-    on the near/far split (the reference form with its wireframe)."""
+    on the near/far split (the reference form with its wireframe). The
+    struct's ``fold`` maps K5's gradient by slot onto the flat vector: the
+    wrapped object's program (:func:`csdf.wrapped_param_program`) reads
+    private slots after it; None for the other forms."""
     forms = {ReferenceCsdf: FORM_REFERENCE, SphereCsdf: FORM_SPHERE,
              MandelbulbCsdf: FORM_MANDELBULB, WrappedCsdf: FORM_WRAPPED,
              ComposedCsdf: FORM_PROGRAM, GridCsdf: FORM_MESH_GRID}
@@ -403,9 +523,9 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
     if form == FORM_MESH_GRID:
         grid = cfn.grid
         table = grid.values if torch.device(device).type == "cpu" else _grid_table(grid, device)
-        scene = _ParamSceneC(**fields, n_prm=0, grid_table=table.data_ptr(),
+        scene = _ParamSceneC(**fields, n_prm=0, n_slots=0, grid_table=table.data_ptr(),
                              grid=grid_box_c(grid.resolution, grid.lo, grid.hi))
-        scene.grid_values = table  # the struct keeps the table alive
+        scene.grid_values, scene.fold = table, None  # the struct keeps the table alive
         return scene, None
     flat, layout = flatten_params(params)
     most = {FORM_REFERENCE: REFERENCE_PARAMS, FORM_PROGRAM: None}.get(form, MAX_PARAMS)
@@ -413,8 +533,9 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
         raise ValueError(f"{flat.numel()} parameter values; the kernels take at most {most}")
     offsets = param_offsets(layout)
     values = flat.detach().cpu().tolist()
-    fields.update(prm=_floats(MAX_PARAMS)(*values[:MAX_PARAMS]), n_prm=len(values))
-    keep = on_device = None
+    fields.update(prm=_floats(MAX_PARAMS)(*values[:MAX_PARAMS]), n_prm=len(values),
+                  n_slots=len(values))
+    keep = on_device = fold = None
     if form in (FORM_REFERENCE, FORM_WRAPPED):
         extra = {"cell": ()} if form == FORM_WRAPPED else {}
         _check_layout(layout, {**PARAM_SHAPES, **extra}, OPTIONAL_PARAMS)
@@ -422,7 +543,16 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
         compat = cfn.reference_compat if form == FORM_REFERENCE else True
         fields.update(_reference_fields(offsets, values, compat, frame))
         if form == FORM_WRAPPED:
-            fields["cell"] = offsets["cell"]
+            # the march reads the flat vector's slots, K5's sweep the
+            # lowered program's, the private ones after them
+            keep, wrapped = _program_words(cfn, layout, device)
+            slots = wrapped.extend(flat.detach().cpu().to(torch.float32)).tolist()
+            if len(slots) > MAX_PARAMS:
+                raise ValueError(f"{len(slots)} values with the wrapped object's private slots; "
+                                 f"the kernels take at most {MAX_PARAMS}")
+            fields.update(cell=offsets["cell"], prm=_floats(MAX_PARAMS)(*slots),
+                          n_slots=len(slots), **_program_fields(keep, wrapped.prog))
+            fold = wrapped.fold
     elif form in (FORM_SPHERE, FORM_MANDELBULB):
         name = "radius" if form == FORM_SPHERE else "scale"
         if layout != ((name, ()),):
@@ -433,14 +563,13 @@ def param_scene_c(cfn: CSDF, params, config: MarchConfig = MarchConfig(), bb=Non
             keep, prog = _program_words(cfn, layout, device)
         except KeyError as missing:
             raise ValueError(f"parameter {missing} of the scene's spec is missing") from None
-        depth, frames = program_depths(prog)
-        fields.update(program=keep.data_ptr(), program_length=keep.shape[0],
-                      program_depth=depth, program_frames=frames)
+        fields.update(_program_fields(keep, prog))
         if large_tier(prog, len(values)):
             on_device = flat.detach().to(device=device, dtype=torch.float32).contiguous()
             fields.update(form=FORM_PROGRAM_LARGE, prm_values=on_device.data_ptr())
     scene = _ParamSceneC(**fields)
     scene.program_words, scene.values_on_device = keep, on_device  # the struct keeps them alive
+    scene.fold = fold
     return scene, layout
 
 
@@ -457,6 +586,8 @@ def library() -> ctypes.CDLL:
     lib.bsdmg_loss_grad_scratch.argtypes = [ptr, i32, i32]
     lib.bsdmg_loss_grad.restype = i32
     lib.bsdmg_loss_grad.argtypes = [ptr] * 8 + [i32, i32, f, f, f, f, ptr]
+    lib.bsdmg_loss_tangent_launch.restype = i32
+    lib.bsdmg_loss_tangent_launch.argtypes = [ptr, i32, i32]
     lib.bsdmg_param_scene_size.restype = i32
     lib.bsdmg_param_scene_size.argtypes = []
     lib.bsdmg_error_string.restype = ctypes.c_char_p
@@ -501,15 +632,32 @@ def _march_cuda(scene_c, origins, directions, cone, track_min):
     return (depth, steps, outcome, dfdt) + ((min_m, t_min) if track_min else ())
 
 
+def tangent_launch(scene_c, h: int, w: int, lib=None) -> str:
+    """The instantiation of K5's tangent launch that the kernel library
+    (``lib``, default :func:`library`) runs for ``scene_c`` over an ``h`` x
+    ``w`` image, ``"kernel<Form, lanes a ray>"`` (csrc/diff_kernel.cu
+    bsdmg_loss_tangent_launch), or ``"loss_tangent_kernel"`` for the
+    reference form's launches."""
+    lib = lib or library()
+    kernel, lanes = divmod(lib.bsdmg_loss_tangent_launch(ctypes.byref(scene_c), h, w), 8)
+    if kernel == 0:
+        return "loss_tangent_kernel"
+    if kernel == 1:
+        return f"loss_tangent_form_kernel<{FORM_NAMES[scene_c.form]}, {lanes}>"
+    large = scene_c.form == FORM_PROGRAM_LARGE
+    return f"loss_reverse_kernel<{FORM_NAMES[FORM_PROGRAM_LARGE if large else FORM_PROGRAM]}, {lanes}>"
+
+
 def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixels,
                     edge_weight, band):
+    """K5 from a prepared struct: the loss, then dL/dprm by slot (the
+    struct's ``n_slots``, before its ``fold``)."""
     global LOSS_GRAD_LAUNCHES
     lib = library()
     h, w = cone.shape
-    n_prm = scene_c.n_prm
     scratch = torch.empty(lib.bsdmg_loss_grad_scratch(ctypes.byref(scene_c), h, w),
                           dtype=torch.float32, device=cone.device)
-    out = torch.empty(n_prm + 1, dtype=torch.float32, device=cone.device)
+    out = torch.empty(scene_c.n_slots + 1, dtype=torch.float32, device=cone.device)
     with torch.cuda.device(cone.device):
         stream = torch.cuda.current_stream(cone.device).cuda_stream
         err = lib.bsdmg_loss_grad(
@@ -520,6 +668,7 @@ def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixel
         )
     _raise_on(lib, err, "K5 (loss_grad) launch")
     LOSS_GRAD_LAUNCHES += 1
+    TANGENT_LAUNCHES[tangent_launch(scene_c, h, w, lib)] += 1
     if scene_c.split:
         SPLIT_LAUNCHES["K5"] += 1
     return out
@@ -612,4 +761,5 @@ def render_loss_grad_cuda(
     )
     if layout is None:  # the grid form: no parameter is read, the gradient is zero
         return out[0], {k: torch.zeros_like(v) for k, v in params.items()}
-    return out[0], unflatten_params(out[1:], layout)
+    grad = out[1:] if scene_c.fold is None else scene_c.fold(out[1:])
+    return out[0], unflatten_params(grad, layout)

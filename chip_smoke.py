@@ -126,8 +126,13 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     places; the mandelbulb by its bars, BULB_*), their times alone with
     bounds, and ptxas's registers, stack and spills of each form's
     instantiations (a composed scene's reverse launch,
-    ``loss_reverse_kernel``, in both tiers); each scene's K4 and K5 join
-    the kernels line;
+    ``loss_reverse_kernel``, in both tiers, which the wrapped object's K5
+    runs too); K5's tangent launches counted by instantiation
+    (``diff_kernel.TANGENT_LAUNCHES``): the wrapped object's the reverse
+    sweep, the mandelbulb's its directions on 4 lanes a ray where the image
+    has no more 16x8 lists than the card has SMs (the same bits as one lane
+    a ray: ``direction_bits``), in the fit and at each size; each scene's K4
+    and K5 join the kernels line;
 12. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
     ``cli render --scene mesh:<tmp>/torus.obj --camera 3 1.5 -3`` bakes a
     128^3 grid and renders 1920x1080, which must launch K9 twice (the 32^3
@@ -215,11 +220,12 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     with and without it;
 20. K4 (512x512) and K8 (a 64^3 sphere grid) at ``relaxation=1.5``, bit
     for bit their results at 1.0;
-21. K5's reverse sweep under a planted fault (REVERSE_FAULTS: SMOOTH's
-    parameter adjoint dropped), in a copy of the tree whose changed
-    sources build in the background from the start (``FaultBuilds``):
-    K5 on the snowman at 64x64 and 512x512 must hold its bars from this
-    tree and fail them from the copy.
+21. K5's reverse sweep under planted faults (REVERSE_FAULTS: SMOOTH's
+    parameter adjoint dropped, on the snowman; the wrap's cell adjoint
+    without its quotient, on the wrapped object), each in a copy of the
+    tree whose changed sources build in the background from the start
+    (``FaultBuilds``): K5 on the fault's scene at 64x64 and 512x512 must
+    hold its bars from this tree and fail them from the copy.
 
 The composed scenes of phase 9c (and the image fit of the other scenes
 beside phase 11) include two specs beyond the small tier of the
@@ -464,6 +470,7 @@ def reset_launches() -> None:
     diff_kernel.MARCH_LAUNCHES = 0
     diff_kernel.LOSS_GRAD_LAUNCHES = 0
     diff_kernel.SPLIT_LAUNCHES.clear()
+    diff_kernel.TANGENT_LAUNCHES.clear()
     for name in grid_kernel.LAUNCHES:
         grid_kernel.LAUNCHES[name] = 0
 
@@ -1641,11 +1648,46 @@ def bulb_fit_bars(scene, params, o, d, c, target, bb, tiles: bool) -> dict:
     return out
 
 
-def tangent_launch(form: str) -> str:
-    """K5's tangent launch of a parameter form: a composed scene's program
-    sweeps in reverse, the other forms take a lane a value."""
-    return ("loss_reverse_kernel" if form in ("ProgramForm", "ProgramLargeForm")
-            else "loss_tangent_form_kernel")
+def direction_bits(scene, params, o, d, c, target, bb) -> dict:
+    """The mandelbulb's K5 (edge term on) over an image of no more 16x8
+    lists than the card has SMs, whose tangent launch takes a ray's
+    directions on 4 lanes, against the same rays at one lane a ray: the
+    image padded below with rays the slab cull drops (pointing away from
+    the bounds) and a black target, to more lists than SMs, with the
+    unpadded image's pixel count. Padded lists add zeros where the small
+    image's sum has none, so the two must give the same bits."""
+    from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
+
+    h, w = c.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = 8 * (sms // ((w + 15) // 16) + 1) - h
+    pad = lambda x, v: torch.cat([x, v.expand(rows, *x.shape[1:])]).contiguous()  # noqa: E731
+    big = (pad(o, o[:1, :1]), pad(d, -d[:1, :1]), pad(c, c[:1, :1]),
+           pad(target, torch.zeros_like(target[:1, :1])))
+    small = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=1.0)
+    lanes = [dk.tangent_launch(dk.param_scene_c(scene.csdf, params, bb=bb, device=c.device)[0],
+                               *x.shape) for x in (c, big[2])]
+    padded = dk.render_loss_grad_cuda(scene.csdf, params, big[3], *big[:3], bb=bb, edge_weight=1.0,
+                                      total_pixels=h * w)
+    same = bool(torch.equal(small[0], padded[0]) and all(
+        torch.equal(small[1][k], padded[1][k]) for k in small[1]))
+    return {"launches": lanes, "same_bits": same, "loss": [small[0].item(), padded[0].item()],
+            "grad": [[small[1][k].item(), padded[1][k].item()] for k in small[1]]}
+
+
+def expected_tangent(name: str, size: int) -> str | None:
+    """The instantiation of K5's tangent launch that the redesigned forms
+    take at size x size, None for the other scenes: the wrapped object
+    sweeps its lowered program in reverse, the mandelbulb takes a lane a ray
+    or its directions on 4; 4 lanes a ray where the image has no more 16x8
+    lists than the card has SMs (csrc/diff_kernel.cu reverse_lanes)."""
+    if name not in ("wrapped_object", "mandelbulb"):
+        return None
+    lists = ((size + 15) // 16) * ((size + 7) // 8)
+    lanes = 4 if lists <= torch.cuda.get_device_properties(0).multi_processor_count else 1
+    if name == "wrapped_object":
+        return f"loss_reverse_kernel<ProgramForm, {lanes}>"
+    return f"loss_tangent_form_kernel<MandelbulbForm, {lanes}>"
 
 
 def fit_scene_phases(card: str, device) -> list[dict]:
@@ -1685,12 +1727,19 @@ def fit_scene_phases(card: str, device) -> list[dict]:
             if camera:
                 argv += ["--camera", *map(str, camera)]
             counts, messages, seconds = run_cli(argv)
+            tangents = dict(dk.TANGENT_LAUNCHES)
             losses = step_losses(messages)
             print(f"fit {name}: cli fit --image (64x64, {FIT_STEPS} steps) in {seconds:.2f} s, "
-                  f"launches {counts}; loss {losses[0]:.4e} -> {losses[-1]:.4e}; {messages[-1]}")
+                  f"launches {counts}, K5's tangent launches {tangents}; loss {losses[0]:.4e} -> "
+                  f"{losses[-1]:.4e}; {messages[-1]}")
             check(counts["K4"] >= 1 and counts["K5"] == FIT_STEPS,
                   f"cli fit --image --scene {name} launched K4 {counts['K4']} and K5 "
                   f"{counts['K5']} times")
+            want = expected_tangent(name, 64)
+            check(sum(tangents.values()) == FIT_STEPS
+                  and (want is None or tangents == {want: FIT_STEPS}),
+                  f"cli fit --image --scene {name}: K5's tangent launches {tangents}, not "
+                  f"{want} {FIT_STEPS} times")
             check(all(np.isfinite(losses)), f"fit --image --scene {name}: loss not finite {losses}")
             scene = cli._get_scene(arg, device)
             form = FORM_OF.get(name, "ProgramForm")
@@ -1752,6 +1801,7 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                         check(err <= DFDT_ATOL and torch.equal(k4[3].isnan(), p4[3].isnan()),
                               f"K4 {name} {w}x{h} dfdt {err}")
                 k5s = {}
+                dk.TANGENT_LAUNCHES.clear()
                 for edge in (0.0, 1.0):
                     k5 = dk.render_loss_grad_cuda(scene.csdf, start, target, o, d, c, bb=bb,
                                                   edge_weight=edge)
@@ -1776,9 +1826,21 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                         check(res["loss_rel_err"] <= LOSS_RTOL and res["excess_over_bars"] <= 0,
                               f"K5 {name} {w}x{h} outside the bars {res}")
                     k5s[edge] = res
+                tangents = dict(dk.TANGENT_LAUNCHES)
+                want = expected_tangent(name, size)
+                print(f"  K5's tangent launches at {w}x{h}: {tangents}")
+                check(want is None or tangents == {want: 4},
+                      f"K5 {name} {w}x{h}: tangent launches {tangents}, not {want} 4 times")
                 if name == "mandelbulb":
                     bars = bulb_fit_bars(scene, start, o, d, c, target, bb, tiles=size == 64)
                     print(f"  mandelbulb bars at {w}x{h}: {json.dumps(bars)}")
+                    if tangents == {f"loss_tangent_form_kernel<{form}, 4>": 4}:
+                        bits = direction_bits(scene, start, o, d, c, target, bb)
+                        print(f"  mandelbulb at 4 lanes a ray against 1 at {w}x{h}: "
+                              f"{json.dumps(bits)}")
+                        check(bits["same_bits"] and bits["launches"][1].endswith(", 1>"),
+                              f"the mandelbulb's K5 at 4 lanes a ray is not the one-lane "
+                              f"launch's bits: {bits}")
                 # times alone from prepared structs, the plain versions', bounds
                 scene_c, _ = dk.param_scene_c(scene.csdf, start, bb=bb, device=device)
                 state = dk._target_state(target, None).contiguous()
@@ -1805,10 +1867,11 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                 print(f"time K5 {name} {w}x{h} fit point on {card}: {k5_ms:.4f} ms alone"
                       f", plain {p5_ms:.3f} ms; {hits} hits, {hinges} hinges, {n_prm} parameter "
                       f"values; bound {b5[0]:.4f} ms ({b5[1]})")
-                rows[size] = dict(k4=dict(ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0], bound_by=b4[1]),
-                               k5=dict(ms=k5_ms, plain_ms=p5_ms, bound_ms=b5[0], bound_by=b5[1]),
-                               k4_err=max(v[2] for v in k4s.values()),
-                               k5_err=max(v["grad_max_abs_err"] for v in k5s.values()))
+                rows[size] = dict(tangent=dk.tangent_launch(scene_c, h, w),
+                                  k4=dict(ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0], bound_by=b4[1]),
+                                  k5=dict(ms=k5_ms, plain_ms=p5_ms, bound_ms=b5[0], bound_by=b5[1]),
+                                  k4_err=max(v[2] for v in k4s.values()),
+                                  k5_err=max(v["grad_max_abs_err"] for v in k5s.values()))
             entries += [{
                 "name": f"K4 march_params_kernel<{form}> ({name})",
                 "route": "cuda",
@@ -1819,8 +1882,8 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                 **rows[512]["k4"],
                 "library_ms": None,
             }, {
-                "name": f"K5 loss_march_kernel<{form}> + {tangent_launch(form)}<{form}> + "
-                        f"loss_grad_sum ({name}, fit point)",
+                "name": f"K5 loss_march_kernel<{form}> + {rows[512]['tangent']} + "
+                        f"loss_grad_sum ({name}, fit point; at 64x64 {rows[64]['tangent']})",
                 "route": "cuda",
                 "source": dk.SOURCE,
                 "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232",
@@ -4483,12 +4546,12 @@ class FaultBuilds:
                 cwd=copy, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     def run(self, command, timeout: float = 600):
-        """Yields ``(name, the completed process)`` of ``command`` from each
-        copy once its build has ended (raising where it failed)."""
+        """Yields ``(name, the completed process)`` of ``command(name)`` from
+        each copy once its build has ended (raising where it failed)."""
         for name, copy in self.copies.items():
             _, err = self.builds[name].communicate(timeout=timeout)
             check(self.builds[name].returncode == 0, f"fault {name}: the build failed: {err[-2000:]}")
-            yield name, subprocess.run(command, cwd=copy, capture_output=True, text=True,
+            yield name, subprocess.run(command(name), cwd=copy, capture_output=True, text=True,
                                        timeout=timeout)
 
     def close(self) -> None:
@@ -4499,30 +4562,39 @@ class FaultBuilds:
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
-#: the planted faults of K5's reverse sweep (csrc/param_program.cuh): each
-#: must fail K5's bars on REVERSE_FAULT_SCENE, whose smooth union's k the
-#: first reaches
+#: the planted faults of K5's reverse sweep (csrc/param_program.cuh), each
+#: with the scene whose K5 bars it must fail: SMOOTH's parameter adjoint
+#: dropped, which the snowman's smooth union's k reaches; the wrap's cell
+#: adjoint without the quotient's term (0 for a point in the centre cell),
+#: which the wrapped object's hits in the cells beside it reach
 REVERSE_FAULTS = {
     "SMOOTH's parameter adjoint dropped": (
         "bsdmg_tpu_torch/csrc/param_program.cuh",
         "  if (op == OP_SMOOTH) adj.add(prm.s0, PT::dpsi(r, 2, ob));\n", ""),
+    "the wrap's cell adjoint without its quotient": (
+        "bsdmg_tpu_torch/csrc/param_program.cuh",
+        "adj.add(s0 + a, adj_value(cb[a]) * (-0.5f + (0.5f + k)));",
+        "adj.add(s0 + a, adj_value(cb[a]) * (-0.5f + 0.5f));"),
 }
-REVERSE_FAULT_SCENE = "snowman"
+REVERSE_FAULT_SCENES = {"SMOOTH's parameter adjoint dropped": "snowman",
+                        "the wrap's cell adjoint without its quotient": "wrapped_object"}
 
 
-def reverse_fault_readings(device) -> dict:
-    """K5 against its plain version (edge term on) on REVERSE_FAULT_SCENE's
-    fit start at 64x64 and 512x512: the loss's relative error and the
-    gradient's excess over the bars, per size."""
+def reverse_fault_readings(device, name: str) -> dict:
+    """K5 against its plain version (edge term on) on the fit start of
+    scene ``name`` of FIT_SCENES at 64x64 and 512x512: the loss's relative
+    error and the gradient's excess over the bars, per size."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.grad import render_image_diff
     from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
     from bsdmg_tpu_torch.ops.cuda.csdf import scene_bounds
 
-    scene = cli._get_scene(str(ROOT / "examples" / f"{REVERSE_FAULT_SCENE}.json"), device)
+    example = ROOT / "examples" / f"{name}.json"
+    scene = cli._get_scene(str(example) if example.exists() else name, device)
     true = dict(scene.params)
-    start = cli._apply_perturb(true, cli._parse_perturb(FIT_SCENES[REVERSE_FAULT_SCENE][0]))
-    bb = inflated(scene_bounds(scene), 0.6)
+    start = cli._apply_perturb(true, cli._parse_perturb(FIT_SCENES[name][0]))
+    bounds = scene_bounds(scene)
+    bb = None if bounds is None else inflated(bounds, 0.6)
     out = {}
     for size in (64, 512):
         o, d, c = rays(size, size, device)
@@ -4534,32 +4606,35 @@ def reverse_fault_readings(device) -> dict:
     return out
 
 
-def reverse_fault_bars() -> None:
-    """Prints :func:`reverse_fault_readings` as JSON from this tree's
-    kernels, built anew (run from a planted copy's root by
+def reverse_fault_bars(name: str) -> None:
+    """Prints :func:`reverse_fault_readings` of scene ``name`` as JSON from
+    this tree's kernels, built anew (run from a planted copy's root by
     :func:`reverse_faults`)."""
     from bsdmg_tpu_torch.ops.cuda import build
 
     build.build()
-    print(json.dumps(reverse_fault_readings(torch.device("cuda", 0))))
+    print(json.dumps(reverse_fault_readings(torch.device("cuda", 0), name)))
 
 
 def reverse_faults(card: str, device, builds: FaultBuilds) -> None:
-    """K5's bars on REVERSE_FAULT_SCENE from this tree and from each planted
-    copy of REVERSE_FAULTS (built in the background since the start): the
-    sound tree must hold them, each fault fail them."""
+    """K5's bars on each scene of REVERSE_FAULT_SCENES from this tree and
+    from each planted copy of REVERSE_FAULTS on its scene (built in the
+    background since the start): the sound tree must hold them, each fault
+    fail them."""
     def failed(out: dict) -> bool:
         return any(not (r["loss_rel_err"] <= LOSS_RTOL and r["excess_over_bars"] <= 0)
                    for r in out.values())
 
-    bars = reverse_fault_readings(device)
-    print(f"reverse faults on {card}: the sound tree's K5 on {REVERSE_FAULT_SCENE}: "
-          f"{json.dumps(bars)}")
-    check(not failed(bars), f"the sound tree fails K5's bars on {REVERSE_FAULT_SCENE}: {bars}")
-    command = [sys.executable, "-c", "import chip_smoke; chip_smoke.reverse_fault_bars()"]
-    for name, out in builds.run(command):
+    for scene in sorted(set(REVERSE_FAULT_SCENES.values())):
+        bars = reverse_fault_readings(device, scene)
+        print(f"reverse faults on {card}: the sound tree's K5 on {scene}: {json.dumps(bars)}")
+        check(not failed(bars), f"the sound tree fails K5's bars on {scene}: {bars}")
+    for name, out in builds.run(lambda fault: [
+            sys.executable, "-c",
+            f"import chip_smoke; chip_smoke.reverse_fault_bars({REVERSE_FAULT_SCENES[fault]!r})"]):
+        scene = REVERSE_FAULT_SCENES[name]
         bars = json.loads(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else None
-        print(f"reverse faults on {card}: {name}: K5 on {REVERSE_FAULT_SCENE} {json.dumps(bars)}; "
+        print(f"reverse faults on {card}: {name}: K5 on {scene} {json.dumps(bars)}; "
               f"{out.stderr.strip()[-600:]}")
         check(bars is not None and failed(bars), f"the fault {name} fails no bar of K5")
 

@@ -1,32 +1,35 @@
 #!/usr/bin/env python3
-"""Time K5 on composed scenes and the mesh-asset bake of one checkout alone,
-on one CUDA card.
+"""Time K5 on composed scenes, the wrapped object and the mandelbulb, and
+the mesh-asset bake, of one checkout alone, on one CUDA card.
 
-    python3 tools/time_k5_bake.py CHECKOUT [--rounds N]
+    python3 tools/time_k5_bake.py CHECKOUT [--rounds N] [--scenes A,B,...] [--no-bake]
 
 Builds CHECKOUT's kernels and prints one JSON line (``SWEEP {...}``):
 
-* for the gadget, ``chip_smoke.LATTICE_SPEC`` and ``chip_smoke.DEEP_SPEC``
-  (the 40-sphere union, the large tier) at the ``cli fit --image`` start
-  of ``chip_smoke.FIT_SCENES`` (edge weight 1, the target rendered at the
-  true parameters), at 64x64, 128x128, 256x256 and 512x512 (K5's reverse
-  launch takes 4 lanes a ray at the first two, 1 at the others): K5 alone
-  (``chip_smoke.graph_ms``, a CUDA graph of 20 calls from a prepared
-  struct), K4 alone (the same march without the loss), K5's launches one
-  by one under ``torch.profiler`` (device time a launch, by kernel name),
-  and K5 held against its plain version (the loss's relative error, the
-  gradient's excess over ``chip_smoke``'s bars, two calls the same bits);
-* for every composed scene of ``chip_smoke.FIT_SCENES``, the wall time of
-  one ``cli fit --image`` step (``cli.fit_image``, Adam and the loss's
-  sync included; the difference of 70 steps and 10 over 60, host clock
-  after a sync; five readings, the host's clock varies) at 64x64, the
-  command's default size, and 512x512;
-* the bake of ``tools/make_torus.py``'s torus at 128^3 and 256^3 through
-  ``bake_cuda`` (the wrapper's preparation included; CUDA events, median)
-  and its kernel alone (``torch.profiler``'s device time of
-  ``bake_kernel`` in those calls);
-* ptxas's registers, stack and spills of K5's tangent launches and the
-  bake.
+* for each scene of ``--scenes`` (default: the gadget,
+  ``chip_smoke.LATTICE_SPEC``, ``chip_smoke.DEEP_SPEC`` (the 40-sphere
+  union, the large tier), the wrapped object and the mandelbulb, from
+  ``chip_smoke.MANDELBULB_CAMERA``) at the ``cli fit --image`` start of
+  ``chip_smoke.FIT_SCENES`` (edge weight 1, the target rendered at the
+  true parameters), at 64x64, 128x128, 256x256 and 512x512 (a reverse
+  launch, and the mandelbulb's directions, take 4 lanes a ray at the first
+  two, 1 at the others): K5 alone (``chip_smoke.graph_ms``, a CUDA graph
+  of 20 calls from a prepared struct), K4 alone (the same march without
+  the loss), K5's launches one by one under ``torch.profiler`` (device
+  time a launch, by kernel name: the tangent launch alone), and K5 held
+  against its plain version (the loss's relative error, the gradient's
+  excess over ``chip_smoke``'s bars, two calls the same bits);
+* for each of those scenes but the union, the wall time of one ``cli fit
+  --image`` step (``cli.fit_image``, Adam and the loss's sync included;
+  the difference of 70 steps and 10 over 60, host clock after a sync;
+  five readings, the host's clock varies) at 64x64, the command's default
+  size, and 512x512;
+* unless ``--no-bake``, the bake of ``tools/make_torus.py``'s torus at
+  128^3 and 256^3 through ``bake_cuda`` (the wrapper's preparation
+  included; CUDA events, median) and its kernel alone
+  (``torch.profiler``'s device time of ``bake_kernel`` in those calls);
+* ptxas's registers, stack and spills of K5's launches of those forms and
+  the bake.
 
 Only entry points that every checkout since the bake's port has are
 called, so one run per checkout in one call (parent, change, change,
@@ -83,12 +86,22 @@ def fit_step_ms(fit, steps: tuple[int, int] = (10, 70), readings: int = 5) -> li
     return out
 
 
+#: the scenes of K5's sweep by default
+SCENES = ("gadget", "lattice", "deep", "wrapped_object", "mandelbulb")
+
+
 def main(argv: list[str]) -> int:
-    rounds = 1
+    rounds, scenes = 1, SCENES
     if "--rounds" in argv:
         at = argv.index("--rounds")
         rounds = int(argv[at + 1])
         argv = argv[:at] + argv[at + 2:]
+    if "--scenes" in argv:
+        at = argv.index("--scenes")
+        scenes = tuple(argv[at + 1].split(","))
+        argv = argv[:at] + argv[at + 2:]
+    bake_too = "--no-bake" not in argv
+    argv = [a for a in argv if a != "--no-bake"]
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -117,25 +130,27 @@ def main(argv: list[str]) -> int:
            "bake": {}}
     with tempfile.TemporaryDirectory() as tmp:
         arguments = cs.scene_arguments(Path(tmp))
-        for name in ("gadget", "mushroom", "snowman", "ground", "lattice", "deep"):
-            perturb = cs.FIT_SCENES[name][0]
-            scene = cli._get_scene(arguments[name], device)
+        for name in scenes:
+            if name == "deep":
+                continue
+            perturb, camera = cs.FIT_SCENES[name][:2]
+            scene = cli._get_scene(arguments.get(name, name), device)
             true = dict(scene.params)
             start = cli._apply_perturb(true, cli._parse_perturb(perturb))
             for size in (64, 512):
-                o, d, c = cs.rays(size, size, device)
+                o, d, c = cs.rays(size, size, device, camera)
                 out["fit_step_ms"][f"{name} {size}"] = ms = fit_step_ms(
                     lambda n: cli.fit_image(scene, true, start, o, d, c, steps=n, lr=0.2))
                 print("fit step", name, size, sorted(ms), flush=True)
-        for name in ("gadget", "lattice", "deep"):
-            perturb = cs.FIT_SCENES[name][0]
-            scene = cli._get_scene(arguments[name], device)
+        for name in scenes:
+            perturb, camera = cs.FIT_SCENES[name][:2]
+            scene = cli._get_scene(arguments.get(name, name), device)
             true = dict(scene.params)
             start = cli._apply_perturb(true, cli._parse_perturb(perturb))
             bounds = scene_bounds(scene)
             bb = None if bounds is None else cs.inflated(bounds, 0.6)
             for size in (64, 128, 256, 512):
-                o, d, c = cs.rays(size, size, device)
+                o, d, c = cs.rays(size, size, device, camera)
                 target = render_image_diff(scene.sdf, true, o, d, c, csdf=scene.csdf,
                                            bb=bb).detach()
                 scene_c, _ = dk.param_scene_c(scene.csdf, start, bb=bb, device=device)
@@ -170,7 +185,7 @@ def main(argv: list[str]) -> int:
     spec.loader.exec_module(torus)
     vertices, faces = torus.torus()
     lo, hi = grid_box(vertices)
-    for r in (128, 256):
+    for r in (128, 256) if bake_too else ():
         axes = [torch.from_numpy(_linspace(lo[a], hi[a], r)).to(device) for a in range(3)]
 
         def bake():
@@ -184,8 +199,11 @@ def main(argv: list[str]) -> int:
                            "bake_kernel.cu")
                if (root / "bsdmg_tpu_torch" / "csrc" / s).exists()]
     out["ptxas"] = [row for source in sources
-                    for row in cs.kernel_resources(source, ("loss_tangent_form_kernel<Program",
-                                                            "loss_reverse_kernel<", "bake_kernel"))]
+                    for row in cs.kernel_resources(source, ("loss_tangent_form_kernel<",
+                                                            "loss_reverse_kernel<",
+                                                            "loss_march_kernel<Wrapped",
+                                                            "loss_march_kernel<Mandelbulb",
+                                                            "bake_kernel"))]
     print("SWEEP " + json.dumps(out), flush=True)
     return 0
 
