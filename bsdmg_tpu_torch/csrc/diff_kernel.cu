@@ -1019,6 +1019,18 @@ static bool with_form(int form, F&& f) {
   }
 }
 
+// the ParamForm of form F
+template <class F>
+static constexpr int form_id() {
+  return std::is_same<F, SphereForm>::value         ? FORM_SPHERE
+         : std::is_same<F, MandelbulbForm>::value   ? FORM_MANDELBULB
+         : std::is_same<F, WrappedForm>::value      ? FORM_WRAPPED
+         : std::is_same<F, ProgramForm>::value      ? FORM_PROGRAM
+         : std::is_same<F, MeshGridForm>::value     ? FORM_MESH_GRID
+         : std::is_same<F, ProgramLargeForm>::value ? FORM_PROGRAM_LARGE
+                                                    : FORM_REFERENCE;
+}
+
 // the form whose parameter program K5's tangent launch sweeps in reverse
 // for form F (F::Sweep: a composed scene's own; ProgramForm for the wrapped
 // object, lowered on the host), void for a form that takes lanes
@@ -1088,22 +1100,30 @@ static int tangent_grid(long long items) {
   return static_cast<int>(items < most ? (items > 0 ? items : 1) : most);
 }
 
-// lanes a ray of the reverse launch (loss_reverse_kernel) and of the
-// mandelbulb's directions (DirectionEval) over an image of `blocks` lists:
-// 4 where there are no more lists than SMs (4 lanes a ray then take a
-// block of 128 threads a list, at most one an SM), else 1. The mandelbulb
-// at 4 lanes a ray everywhere, against this rule (NVIDIA H100 80GB HBM3,
-// 700 W, tools/time_k5_bake.py, P C C P; PERF.md): 256x256 0.278 ms
-// against 0.260-0.263, 512x512 0.322-0.326 against 0.277-0.280.
+// lanes a ray of the reverse launch (loss_reverse_kernel) over an image of
+// `blocks` lists: 4 where there are no more lists than SMs (4 lanes a ray
+// then take a block of 128 threads a list, at most one an SM), else 1
 static int reverse_lanes(long long blocks) { return blocks <= card_sms() ? 4 : 1; }
 
 // blocks of the reverse launch over `blocks` lists
 static int reverse_grid(long long blocks) { return tangent_grid(blocks * reverse_lanes(blocks)); }
 
+// lanes a ray of the mandelbulb's tangent launch over `blocks` lists: its
+// directions on 4 (DirectionEval) where the launch's 4 * blocks items, a
+// block of 128 threads each, take at most one block an SM, else 1. Each
+// lane still runs every libm call of the loop, so the split pays only
+// where the card idles. P C C P on NVIDIA H100 80GB HBM3, 700 W
+// (tools/time_k5_bake.py; PERF.md), K5 at 4 lanes / at 1: 64x64 (32
+// lists) 0.1880-0.1892 ms / 0.1971-0.1976; 128x128 (128 lists)
+// 0.2581-0.2587 / 0.2577-0.2597, a tie, so 1 lane there; 256x256
+// 0.278 / 0.260-0.263 and 512x512 0.322-0.326 / 0.277-0.280.
+static int direction_lanes(long long blocks) { return 4 * blocks <= card_sms() ? 4 : 1; }
+
 // lanes a ray of K5's tangent launch for the scene over `blocks` lists: a
-// sweep's and the mandelbulb's reverse_lanes, else 1
+// sweep's reverse_lanes, the mandelbulb's direction_lanes, else 1
 static int tangent_lanes(const ParamScene& s, long long blocks) {
-  return sweep_form(s.form) || s.form == FORM_MANDELBULB ? reverse_lanes(blocks) : 1;
+  if (sweep_form(s.form)) return reverse_lanes(blocks);
+  return s.form == FORM_MANDELBULB ? direction_lanes(blocks) : 1;
 }
 
 // K5's partial sums for a scene: rows and their width (the loss and the
@@ -1224,10 +1244,10 @@ static int with_launch(const ParamScene& s, G&& g) {
       const float *target, const float *t_state, float *partials, TangentRay *rays,            \
       int *counts, float *values, long long blocks, long long &rows, int stride, int h, int w, \
       float inv_denom_elems, float inv_pixels, float edge_weight, float edge_band,             \
-      cudaStream_t st
+      cudaStream_t st, int &launched
 #define K5_LAUNCH_ARGS                                                                         \
   scene, origins, directions, cone, target, t_state, partials, rays, counts, values, blocks,   \
-      rows, stride, h, w, inv_denom_elems, inv_pixels, edge_weight, edge_band, st
+      rows, stride, h, w, inv_denom_elems, inv_pixels, edge_weight, edge_band, st, launched
 
 // K4 of this unit's instantiations (bsdmg_march_params says what it takes)
 static int march_params_in_unit(K4_HOST_PARAMS) {
@@ -1306,8 +1326,11 @@ static int with_tangent_launch(const ParamScene& s, bool four, G&& g) {
 
 // K5's tangent launches, of this unit's instantiations, into `partials`:
 // `rows` rows of `stride` (set here for the reference form, whose launches'
-// rows follow one another). Returns the cudaError_t of the first launch
-// that failed, else 0.
+// rows follow one another); `launched`, the instantiation launched, (kernel
+// * 8 + form_id) * 8 + lanes a ray, kernel 0 for loss_tangent_kernel's
+// launches (the reference form), 1 for loss_tangent_form_kernel, 2 for
+// loss_reverse_kernel. Returns the cudaError_t of the first launch that
+// failed, else 0.
 static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
   return with_tangent_launch(*scene, tangent_lanes(*scene, blocks) == 4, [&](auto form, auto lanes) {
     typedef decltype(form) F;
@@ -1327,6 +1350,7 @@ static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
                                                   row0, blocks, inv_denom_elems, inv_pixels,
                                                   edge_weight, edge_band);
       };
+      launched = (0 * 8 + FORM_REFERENCE) * 8 + 1;
       with_parts(scene->has_frame != 0, transform, [&](auto opt) {
         launch(opt, std::integral_constant<int, SHAPE_LANES>{}, 0, shape_rows);
         if (translation_rows > 0) {
@@ -1343,11 +1367,14 @@ static int loss_tangents_in_unit(K5_LAUNCH_PARAMS) {
       const int grid = reverse_grid(blocks);
       // the large tier's sweeps in the scratch buffer, a thread of this launch each
       const ParamScene sc = with_scratch(*scene, scene->scratch, 128LL * grid);
-      loss_reverse_kernel<typename sweep_of<F>::type, decltype(lanes)::value>
+      typedef typename sweep_of<F>::type S;
+      launched = (2 * 8 + form_id<S>()) * 8 + decltype(lanes)::value;
+      loss_reverse_kernel<S, decltype(lanes)::value>
           <<<grid, 128, 0, st>>>(sc, origins, directions, cone, target, t_state, rays, counts,
                                  values, partials, stride, blocks, inv_denom_elems, inv_pixels,
                                  edge_weight, edge_band);
     } else {
+      launched = (1 * 8 + form_id<F>()) * 8 + decltype(lanes)::value;
       loss_tangent_form_kernel<F, decltype(lanes)::value>
           <<<tangent_grid(blocks * decltype(lanes)::value), 128, 0, st>>>(
           *scene, origins, directions, cone, target, t_state, rays, counts, values, partials,
@@ -1420,19 +1447,24 @@ long long bsdmg_loss_grad_scratch(const ParamScene* scene, int h, int w) {
 // slots after the flat vector's, which the caller folds). The scene's
 // `split` picks the near/far split of the march launch (the reference form
 // alone). Three to five launches: the march and the lists
-// (loss_march_kernel), the tangents (bsdmg_loss_tangent_launch says
-// which: loss_tangent_kernel's shape, translation and rotation launches for
-// the reference form, loss_reverse_kernel for a composed scene and the
-// wrapped object, loss_tangent_form_kernel for the others, the loss alone
-// for MeshGridForm, which reads no parameter), the sum over the blocks
-// (loss_grad_sum). Returns the cudaError_t of the first launch that
-// failed, else 0 (cudaErrorInvalidValue for a form that names none).
+// (loss_march_kernel), the tangents (loss_tangent_kernel's shape,
+// translation and rotation launches for the reference form,
+// loss_reverse_kernel for a composed scene and the wrapped object,
+// loss_tangent_form_kernel for the others, the loss alone for MeshGridForm,
+// which reads no parameter), the sum over the blocks (loss_grad_sum, or
+// loss_grad_sum_rays after the mandelbulb's 4 lanes a ray). made, 2 ints:
+// the tangent instantiation launched (loss_tangents_in_unit's `launched`),
+// then 1 where the sum was loss_grad_sum_rays, else 0. Returns the
+// cudaError_t of the first launch that failed, else 0
+// (cudaErrorInvalidValue for a form that names none).
 int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* directions,
                     const float* cone, const float* target, const float* t_state,
                     float* scratch, float* out, int h, int w, float inv_denom_elems,
-                    float inv_pixels, float edge_weight, float edge_band, void* stream) {
+                    float inv_pixels, float edge_weight, float edge_band, void* stream,
+                    int* made) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long blocks = loss_grad_blocks(h, w);
+  int launched = -1;
   long long rows;
   int stride;
   loss_grad_partials(*scene, blocks, rows, stride);
@@ -1451,8 +1483,12 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
   if (err == OTHER_UNIT) err = loss_tangents_second_unit(K5_LAUNCH_ARGS);
   if (err == OTHER_UNIT) err = loss_tangents_reverse_unit(K5_LAUNCH_ARGS);
   if (err == OTHER_UNIT) err = loss_tangents_lanes_unit(K5_LAUNCH_ARGS);
+  made[0] = launched;
+  made[1] = 0;
   if (err != 0) return err;
-  if (!sweep_form(scene->form) && tangent_lanes(*scene, blocks) > 1) {
+  if (launched / 64 == 1 && launched % 8 == 4) {
+    // a form's launch at 4 lanes a ray wrote a row a ray
+    made[1] = 1;
     loss_grad_sum_rays<<<scene->n_slots + 1, 1024, 0, st>>>(partials, values, counts,
                                                           static_cast<int>(blocks), stride, out);
   } else {
@@ -1460,16 +1496,6 @@ int bsdmg_loss_grad(const ParamScene* scene, const float* origins, const float* 
                                                       out);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// K5's tangent launch for scene over an h x w image, as bsdmg_loss_grad
-// launches it: 8 * kernel + lanes a ray, kernel 0 for loss_tangent_kernel
-// (the reference form), 1 for loss_tangent_form_kernel, 2 for
-// loss_reverse_kernel
-int bsdmg_loss_tangent_launch(const ParamScene* scene, int h, int w) {
-  const long long blocks = loss_grad_blocks(h, w);
-  if (scene->form == FORM_REFERENCE) return 0 * 8 + 1;
-  return (sweep_form(scene->form) ? 2 : 1) * 8 + tangent_lanes(*scene, blocks);
 }
 
 int bsdmg_param_scene_size(void) { return static_cast<int>(sizeof(ParamScene)); }

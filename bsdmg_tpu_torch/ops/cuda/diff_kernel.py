@@ -88,10 +88,13 @@ LOSS_GRAD_LAUNCHES = 0
 #: the launches after it); each is counted in MARCH_LAUNCHES or
 #: LOSS_GRAD_LAUNCHES too
 SPLIT_LAUNCHES: collections.Counter = collections.Counter()
-#: K5's tangent launches by instantiation (:func:`tangent_launch`'s names,
+#: K5's tangent launches by instantiation (:func:`tangent_name`'s names,
 #: e.g. ``"loss_reverse_kernel<ProgramForm, 4>"``), one a K5 launch, each
 #: counted in LOSS_GRAD_LAUNCHES too
 TANGENT_LAUNCHES: collections.Counter = collections.Counter()
+#: K5's last launches by kernel, ``"loss_grad_sum"`` or
+#: ``"loss_grad_sum_rays"`` (after the mandelbulb's 4 lanes a ray)
+SUM_LAUNCHES: collections.Counter = collections.Counter()
 
 #: the kernels' source, relative to the repository root
 SOURCE = "bsdmg_tpu_torch/csrc/diff_kernel.cu"
@@ -585,9 +588,7 @@ def library() -> ctypes.CDLL:
     lib.bsdmg_loss_grad_scratch.restype = ctypes.c_longlong
     lib.bsdmg_loss_grad_scratch.argtypes = [ptr, i32, i32]
     lib.bsdmg_loss_grad.restype = i32
-    lib.bsdmg_loss_grad.argtypes = [ptr] * 8 + [i32, i32, f, f, f, f, ptr]
-    lib.bsdmg_loss_tangent_launch.restype = i32
-    lib.bsdmg_loss_tangent_launch.argtypes = [ptr, i32, i32]
+    lib.bsdmg_loss_grad.argtypes = [ptr] * 8 + [i32, i32, f, f, f, f, ptr, ptr]
     lib.bsdmg_param_scene_size.restype = i32
     lib.bsdmg_param_scene_size.argtypes = []
     lib.bsdmg_error_string.restype = ctypes.c_char_p
@@ -632,20 +633,20 @@ def _march_cuda(scene_c, origins, directions, cone, track_min):
     return (depth, steps, outcome, dfdt) + ((min_m, t_min) if track_min else ())
 
 
-def tangent_launch(scene_c, h: int, w: int, lib=None) -> str:
-    """The instantiation of K5's tangent launch that the kernel library
-    (``lib``, default :func:`library`) runs for ``scene_c`` over an ``h`` x
-    ``w`` image, ``"kernel<Form, lanes a ray>"`` (csrc/diff_kernel.cu
-    bsdmg_loss_tangent_launch), or ``"loss_tangent_kernel"`` for the
+#: K5's tangent kernels by the number csrc/diff_kernel.cu's bsdmg_loss_grad
+#: reports for its launch
+TANGENT_KERNELS = ("loss_tangent_kernel", "loss_tangent_form_kernel", "loss_reverse_kernel")
+
+
+def tangent_name(code: int) -> str:
+    """The instantiation of K5's tangent launch that ``bsdmg_loss_grad``
+    reports it made (``(kernel * 8 + form) * 8 + lanes a ray``),
+    ``"kernel<Form, lanes>"``, or ``"loss_tangent_kernel"`` for the
     reference form's launches."""
-    lib = lib or library()
-    kernel, lanes = divmod(lib.bsdmg_loss_tangent_launch(ctypes.byref(scene_c), h, w), 8)
+    kernel, form, lanes = code // 64, code // 8 % 8, code % 8
     if kernel == 0:
-        return "loss_tangent_kernel"
-    if kernel == 1:
-        return f"loss_tangent_form_kernel<{FORM_NAMES[scene_c.form]}, {lanes}>"
-    large = scene_c.form == FORM_PROGRAM_LARGE
-    return f"loss_reverse_kernel<{FORM_NAMES[FORM_PROGRAM_LARGE if large else FORM_PROGRAM]}, {lanes}>"
+        return TANGENT_KERNELS[0]
+    return f"{TANGENT_KERNELS[kernel]}<{FORM_NAMES[form]}, {lanes}>"
 
 
 def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixels,
@@ -658,6 +659,7 @@ def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixel
     scratch = torch.empty(lib.bsdmg_loss_grad_scratch(ctypes.byref(scene_c), h, w),
                           dtype=torch.float32, device=cone.device)
     out = torch.empty(scene_c.n_slots + 1, dtype=torch.float32, device=cone.device)
+    made = (ctypes.c_int * 2)(-1, 0)
     with torch.cuda.device(cone.device):
         stream = torch.cuda.current_stream(cone.device).cuda_stream
         err = lib.bsdmg_loss_grad(
@@ -665,10 +667,12 @@ def _loss_grad_cuda(scene_c, origins, directions, cone, target, t_state, n_pixel
             target.data_ptr(), 0 if t_state is None else t_state.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), h, w,
             f32(1.0 / (3.0 * n_pixels)), f32(1.0 / n_pixels), f32(edge_weight), f32(band), stream,
+            made,
         )
     _raise_on(lib, err, "K5 (loss_grad) launch")
     LOSS_GRAD_LAUNCHES += 1
-    TANGENT_LAUNCHES[tangent_launch(scene_c, h, w, lib)] += 1
+    TANGENT_LAUNCHES[tangent_name(made[0])] += 1
+    SUM_LAUNCHES[("loss_grad_sum", "loss_grad_sum_rays")[made[1]]] += 1
     if scene_c.split:
         SPLIT_LAUNCHES["K5"] += 1
     return out

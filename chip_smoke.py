@@ -128,11 +128,12 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     instantiations (a composed scene's reverse launch,
     ``loss_reverse_kernel``, in both tiers, which the wrapped object's K5
     runs too); K5's tangent launches counted by instantiation
-    (``diff_kernel.TANGENT_LAUNCHES``): the wrapped object's the reverse
-    sweep, the mandelbulb's its directions on 4 lanes a ray where the image
-    has no more 16x8 lists than the card has SMs (the same bits as one lane
-    a ray: ``direction_bits``), in the fit and at each size; each scene's K4
-    and K5 join the kernels line;
+    (``diff_kernel.TANGENT_LAUNCHES``, as K5 reports the launch it made):
+    the wrapped object's the reverse sweep, the mandelbulb's its directions
+    on 4 lanes a ray where 4 lanes a 16x8 list take no more blocks than the
+    card has SMs (64x64; the same bits as one lane a ray:
+    ``direction_bits``), in the fit and at each size; each scene's K4 and
+    K5 (as the fit launched it, at 64x64) join the kernels line;
 12. the mesh-asset path: ``tools/make_torus.py`` writes a torus OBJ and
     ``cli render --scene mesh:<tmp>/torus.obj --camera 3 1.5 -3`` bakes a
     128^3 grid and renders 1920x1080, which must launch K9 twice (the 32^3
@@ -471,6 +472,7 @@ def reset_launches() -> None:
     diff_kernel.LOSS_GRAD_LAUNCHES = 0
     diff_kernel.SPLIT_LAUNCHES.clear()
     diff_kernel.TANGENT_LAUNCHES.clear()
+    diff_kernel.SUM_LAUNCHES.clear()
     for name in grid_kernel.LAUNCHES:
         grid_kernel.LAUNCHES[name] = 0
 
@@ -1649,13 +1651,14 @@ def bulb_fit_bars(scene, params, o, d, c, target, bb, tiles: bool) -> dict:
 
 
 def direction_bits(scene, params, o, d, c, target, bb) -> dict:
-    """The mandelbulb's K5 (edge term on) over an image of no more 16x8
-    lists than the card has SMs, whose tangent launch takes a ray's
-    directions on 4 lanes, against the same rays at one lane a ray: the
-    image padded below with rays the slab cull drops (pointing away from
-    the bounds) and a black target, to more lists than SMs, with the
-    unpadded image's pixel count. Padded lists add zeros where the small
-    image's sum has none, so the two must give the same bits."""
+    """The mandelbulb's K5 (edge term on) over an image whose tangent
+    launch takes a ray's directions on 4 lanes, against the same rays at
+    one lane a ray: the image padded below with rays the slab cull drops
+    (pointing away from the bounds) and a black target, to more 16x8 lists
+    than the card has SMs, with the unpadded image's pixel count. Padded
+    lists add zeros where the small image's sum has none, so the two must
+    give the same bits. ``launches``: each call's tangent launches, as K5
+    reported them."""
     from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
 
     h, w = c.shape
@@ -1664,11 +1667,14 @@ def direction_bits(scene, params, o, d, c, target, bb) -> dict:
     pad = lambda x, v: torch.cat([x, v.expand(rows, *x.shape[1:])]).contiguous()  # noqa: E731
     big = (pad(o, o[:1, :1]), pad(d, -d[:1, :1]), pad(c, c[:1, :1]),
            pad(target, torch.zeros_like(target[:1, :1])))
+    lanes = []
+    dk.TANGENT_LAUNCHES.clear()
     small = dk.render_loss_grad_cuda(scene.csdf, params, target, o, d, c, bb=bb, edge_weight=1.0)
-    lanes = [dk.tangent_launch(dk.param_scene_c(scene.csdf, params, bb=bb, device=c.device)[0],
-                               *x.shape) for x in (c, big[2])]
+    lanes.append(dict(dk.TANGENT_LAUNCHES))
+    dk.TANGENT_LAUNCHES.clear()
     padded = dk.render_loss_grad_cuda(scene.csdf, params, big[3], *big[:3], bb=bb, edge_weight=1.0,
                                       total_pixels=h * w)
+    lanes.append(dict(dk.TANGENT_LAUNCHES))
     same = bool(torch.equal(small[0], padded[0]) and all(
         torch.equal(small[1][k], padded[1][k]) for k in small[1]))
     return {"launches": lanes, "same_bits": same, "loss": [small[0].item(), padded[0].item()],
@@ -1677,17 +1683,19 @@ def direction_bits(scene, params, o, d, c, target, bb) -> dict:
 
 def expected_tangent(name: str, size: int) -> str | None:
     """The instantiation of K5's tangent launch that the redesigned forms
-    take at size x size, None for the other scenes: the wrapped object
-    sweeps its lowered program in reverse, the mandelbulb takes a lane a ray
-    or its directions on 4; 4 lanes a ray where the image has no more 16x8
-    lists than the card has SMs (csrc/diff_kernel.cu reverse_lanes)."""
+    take at size x size by the rules csrc/diff_kernel.cu records, None for
+    the other scenes, to hold the launch K5 reports against: the wrapped
+    object sweeps its lowered program in reverse, 4 lanes a ray where the
+    image has no more 16x8 lists than the card has SMs (reverse_lanes); the
+    mandelbulb takes its directions on 4 lanes a ray where 4 lanes a list
+    take no more blocks than SMs (direction_lanes), else 1."""
     if name not in ("wrapped_object", "mandelbulb"):
         return None
     lists = ((size + 15) // 16) * ((size + 7) // 8)
-    lanes = 4 if lists <= torch.cuda.get_device_properties(0).multi_processor_count else 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if name == "wrapped_object":
-        return f"loss_reverse_kernel<ProgramForm, {lanes}>"
-    return f"loss_tangent_form_kernel<MandelbulbForm, {lanes}>"
+        return f"loss_reverse_kernel<ProgramForm, {4 if lists <= sms else 1}>"
+    return f"loss_tangent_form_kernel<MandelbulbForm, {4 if 4 * lists <= sms else 1}>"
 
 
 def fit_scene_phases(card: str, device) -> list[dict]:
@@ -1703,8 +1711,9 @@ def fit_scene_phases(card: str, device) -> list[dict]:
     (CUDA graphs from a prepared struct) and their plain versions', with
     bounds from this run's counts (`profiling.form_ops`); ptxas's
     registers, stack and spills of each form's instantiations. Returns the
-    kernels line's K4 and K5 entries of each scene (512x512, K5 at the fit
-    point)."""
+    kernels line's K4 and K5 entries of each scene: K4 at 512x512, K5 as
+    the fit launched it at 64x64, its 512x512 readings beside them
+    (``at_512x512``)."""
     from bsdmg_tpu_torch import cli
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.grad import render_image_diff
@@ -1727,18 +1736,18 @@ def fit_scene_phases(card: str, device) -> list[dict]:
             if camera:
                 argv += ["--camera", *map(str, camera)]
             counts, messages, seconds = run_cli(argv)
-            tangents = dict(dk.TANGENT_LAUNCHES)
+            fit_tangents, fit_sums = dict(dk.TANGENT_LAUNCHES), dict(dk.SUM_LAUNCHES)
             losses = step_losses(messages)
             print(f"fit {name}: cli fit --image (64x64, {FIT_STEPS} steps) in {seconds:.2f} s, "
-                  f"launches {counts}, K5's tangent launches {tangents}; loss {losses[0]:.4e} -> "
-                  f"{losses[-1]:.4e}; {messages[-1]}")
+                  f"launches {counts}, K5's tangent launches {fit_tangents}, its sums "
+                  f"{fit_sums}; loss {losses[0]:.4e} -> {losses[-1]:.4e}; {messages[-1]}")
             check(counts["K4"] >= 1 and counts["K5"] == FIT_STEPS,
                   f"cli fit --image --scene {name} launched K4 {counts['K4']} and K5 "
                   f"{counts['K5']} times")
             want = expected_tangent(name, 64)
-            check(sum(tangents.values()) == FIT_STEPS
-                  and (want is None or tangents == {want: FIT_STEPS}),
-                  f"cli fit --image --scene {name}: K5's tangent launches {tangents}, not "
+            check(sum(fit_tangents.values()) == FIT_STEPS
+                  and (want is None or fit_tangents == {want: FIT_STEPS}),
+                  f"cli fit --image --scene {name}: K5's tangent launches {fit_tangents}, not "
                   f"{want} {FIT_STEPS} times")
             check(all(np.isfinite(losses)), f"fit --image --scene {name}: loss not finite {losses}")
             scene = cli._get_scene(arg, device)
@@ -1802,6 +1811,7 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                               f"K4 {name} {w}x{h} dfdt {err}")
                 k5s = {}
                 dk.TANGENT_LAUNCHES.clear()
+                dk.SUM_LAUNCHES.clear()
                 for edge in (0.0, 1.0):
                     k5 = dk.render_loss_grad_cuda(scene.csdf, start, target, o, d, c, bb=bb,
                                                   edge_weight=edge)
@@ -1826,9 +1836,9 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                         check(res["loss_rel_err"] <= LOSS_RTOL and res["excess_over_bars"] <= 0,
                               f"K5 {name} {w}x{h} outside the bars {res}")
                     k5s[edge] = res
-                tangents = dict(dk.TANGENT_LAUNCHES)
+                tangents, size_sums = dict(dk.TANGENT_LAUNCHES), dict(dk.SUM_LAUNCHES)
                 want = expected_tangent(name, size)
-                print(f"  K5's tangent launches at {w}x{h}: {tangents}")
+                print(f"  K5's tangent launches at {w}x{h}: {tangents}, its sums {size_sums}")
                 check(want is None or tangents == {want: 4},
                       f"K5 {name} {w}x{h}: tangent launches {tangents}, not {want} 4 times")
                 if name == "mandelbulb":
@@ -1838,7 +1848,9 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                         bits = direction_bits(scene, start, o, d, c, target, bb)
                         print(f"  mandelbulb at 4 lanes a ray against 1 at {w}x{h}: "
                               f"{json.dumps(bits)}")
-                        check(bits["same_bits"] and bits["launches"][1].endswith(", 1>"),
+                        check(bits["same_bits"] and bits["launches"] == [
+                                  {f"loss_tangent_form_kernel<{form}, 4>": 1},
+                                  {f"loss_tangent_form_kernel<{form}, 1>": 1}],
                               f"the mandelbulb's K5 at 4 lanes a ray is not the one-lane "
                               f"launch's bits: {bits}")
                 # times alone from prepared structs, the plain versions', bounds
@@ -1867,11 +1879,16 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                 print(f"time K5 {name} {w}x{h} fit point on {card}: {k5_ms:.4f} ms alone"
                       f", plain {p5_ms:.3f} ms; {hits} hits, {hinges} hinges, {n_prm} parameter "
                       f"values; bound {b5[0]:.4f} ms ({b5[1]})")
-                rows[size] = dict(tangent=dk.tangent_launch(scene_c, h, w),
+                rows[size] = dict(tangent=" + ".join(tangents), sum=" + ".join(size_sums),
                                   k4=dict(ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0], bound_by=b4[1]),
                                   k5=dict(ms=k5_ms, plain_ms=p5_ms, bound_ms=b5[0], bound_by=b5[1]),
                                   k4_err=max(v[2] for v in k4s.values()),
                                   k5_err=max(v["grad_max_abs_err"] for v in k5s.values()))
+            # the 64x64 readings are of the launches the fit made
+            check(rows[64]["tangent"] == " + ".join(fit_tangents)
+                  and rows[64]["sum"] == " + ".join(fit_sums),
+                  f"K5 {name} at 64x64 launched {rows[64]['tangent']} + {rows[64]['sum']}, the "
+                  f"fit {fit_tangents} + {fit_sums}")
             entries += [{
                 "name": f"K4 march_params_kernel<{form}> ({name})",
                 "route": "cuda",
@@ -1882,15 +1899,21 @@ def fit_scene_phases(card: str, device) -> list[dict]:
                 **rows[512]["k4"],
                 "library_ms": None,
             }, {
-                "name": f"K5 loss_march_kernel<{form}> + {rows[512]['tangent']} + "
-                        f"loss_grad_sum ({name}, fit point; at 64x64 {rows[64]['tangent']})",
+                # the launches the fit made, at its 64x64; the 512x512 fit
+                # point's, whose tangent launch may be another instantiation,
+                # beside them
+                "name": f"K5 loss_march_kernel<{form}> + {' + '.join(fit_tangents)} + "
+                        f"{' + '.join(fit_sums)} ({name}, cli fit --image at 64x64)",
                 "route": "cuda",
                 "source": dk.SOURCE,
                 "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:232",
                 "launches": counts["K5"],
-                "max_abs_err": max(r["k5_err"] for r in rows.values()),
-                **rows[512]["k5"],
+                "max_abs_err": rows[64]["k5_err"],
+                **rows[64]["k5"],
                 "library_ms": None,
+                "at_512x512": {"name": f"K5 loss_march_kernel<{form}> + {rows[512]['tangent']} + "
+                                       f"{rows[512]['sum']}",
+                               "max_abs_err": rows[512]["k5_err"], **rows[512]["k5"]},
             }]
     return entries
 

@@ -2,7 +2,8 @@
 """Time K5 on composed scenes, the wrapped object and the mandelbulb, and
 the mesh-asset bake, of one checkout alone, on one CUDA card.
 
-    python3 tools/time_k5_bake.py CHECKOUT [--rounds N] [--scenes A,B,...] [--no-bake]
+    python3 tools/time_k5_bake.py CHECKOUT [--rounds N] [--readings N] [--scenes A,B,...]
+                                           [--no-bake]
 
 Builds CHECKOUT's kernels and prints one JSON line (``SWEEP {...}``):
 
@@ -12,8 +13,8 @@ Builds CHECKOUT's kernels and prints one JSON line (``SWEEP {...}``):
   ``chip_smoke.MANDELBULB_CAMERA``) at the ``cli fit --image`` start of
   ``chip_smoke.FIT_SCENES`` (edge weight 1, the target rendered at the
   true parameters), at 64x64, 128x128, 256x256 and 512x512 (a reverse
-  launch, and the mandelbulb's directions, take 4 lanes a ray at the first
-  two, 1 at the others): K5 alone (``chip_smoke.graph_ms``, a CUDA graph
+  launch takes 4 lanes a ray at the first two, the mandelbulb's
+  directions at the first, 1 at the others): K5 alone (``chip_smoke.graph_ms``, a CUDA graph
   of 20 calls from a prepared struct), K4 alone (the same march without
   the loss), K5's launches one by one under ``torch.profiler`` (device
   time a launch, by kernel name: the tangent launch alone), and K5 held
@@ -22,8 +23,8 @@ Builds CHECKOUT's kernels and prints one JSON line (``SWEEP {...}``):
 * for each of those scenes but the union, the wall time of one ``cli fit
   --image`` step (``cli.fit_image``, Adam and the loss's sync included;
   the difference of 70 steps and 10 over 60, host clock after a sync;
-  five readings, the host's clock varies) at 64x64, the command's default
-  size, and 512x512;
+  ``--readings`` readings, five by default: the host's clock varies) at
+  64x64, the command's default size, and 512x512;
 * unless ``--no-bake``, the bake of ``tools/make_torus.py``'s torus at
   128^3 and 256^3 through ``bake_cuda`` (the wrapper's preparation
   included; CUDA events, median) and its kernel alone
@@ -91,10 +92,14 @@ SCENES = ("gadget", "lattice", "deep", "wrapped_object", "mandelbulb")
 
 
 def main(argv: list[str]) -> int:
-    rounds, scenes = 1, SCENES
+    rounds, readings, scenes = 1, 5, SCENES
     if "--rounds" in argv:
         at = argv.index("--rounds")
         rounds = int(argv[at + 1])
+        argv = argv[:at] + argv[at + 2:]
+    if "--readings" in argv:
+        at = argv.index("--readings")
+        readings = int(argv[at + 1])
         argv = argv[:at] + argv[at + 2:]
     if "--scenes" in argv:
         at = argv.index("--scenes")
@@ -140,7 +145,8 @@ def main(argv: list[str]) -> int:
             for size in (64, 512):
                 o, d, c = cs.rays(size, size, device, camera)
                 out["fit_step_ms"][f"{name} {size}"] = ms = fit_step_ms(
-                    lambda n: cli.fit_image(scene, true, start, o, d, c, steps=n, lr=0.2))
+                    lambda n: cli.fit_image(scene, true, start, o, d, c, steps=n, lr=0.2),
+                    readings=readings)
                 print("fit step", name, size, sorted(ms), flush=True)
         for name in scenes:
             perturb, camera = cs.FIT_SCENES[name][:2]
