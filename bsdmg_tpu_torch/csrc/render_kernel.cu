@@ -57,9 +57,12 @@
 // whose rays all miss it marches the wireframe alone (the Far structure),
 // about half the full scene's work a step; the others march the full
 // scene. The granule is the warp's 8x4 patch (K2's listed tail: its 32
-// listed rays) where JAX's is its tile; each ray's result is an exact
-// march of the only surface it can reach either way. A composed scene's
-// program beyond the small tier's caps runs in the ComposedLarge
+// listed rays, listed in patch order) where JAX's is its tile; each ray's
+// result is an exact march of the only surface it can reach either way.
+// K1 · split shades a far patch's hits with the far scene, as JAX's fused
+// epilogue does, on full warps from a list of each block's hits; K3 shades
+// every hit with the full scene, as JAX's _shade_kernel does. A composed
+// scene's program beyond the small tier's caps runs in the ComposedLarge
 // instantiations, its stacks in SceneDesc::scratch (composed.cuh).
 //
 // Numerics: built without --use_fast_math (IEEE sqrtf and division) and
@@ -183,30 +186,34 @@ __device__ __forceinline__ void march_ray(const SceneDesc& s, const Ray& r, int 
 }
 
 // The march of an `active` ray with the near/far split (render_kernel.py
-// :412-432), which every live thread of the warp calls: the warp's rays
-// (K1's and K2's 8x4 patch, or 32 rays of K2's list) vote, and if none of
-// its active rays that the slab cull keeps can reach the near box
-// (near_miss), each marches the far scene (Far) alone, else the full scene
-// S. The vote is one __any_sync, so the choice is uniform across the warp
-// and adds no divergence; a ray that does not march takes part as a
-// ray that cannot reach the near box, as JAX's `active0 & ~n_miss` counts
-// it.
+// :412-432), which every thread of the warp calls: the warp's rays (K1's
+// and K2's 8x4 patch, or 32 rays of K2's list) vote, and if none of its
+// active rays that the slab cull keeps can reach the near box (near_miss),
+// each marches the far scene (Far) alone, else the full scene S as
+// NearScene evaluates it (scene_sdf.cuh: S's value bit for bit, its
+// wireframe's term skipped where an exact bound proves it larger). The vote
+// is one __any_sync, so the choice is uniform across the warp and adds no
+// divergence; a ray that does not march (not active, or no ray at all: a
+// thread past the frame's edge or K2's list) takes part as a ray that
+// cannot reach the near box, as JAX's `active0 & ~n_miss` counts it.
+// Returns the warp's choice: true where it marched the far scene.
 template <class S, bool Cull, bool Relaxed>
-__device__ __forceinline__ void march_split(const SceneDesc& s, const Ray& r, bool active, int cap,
+__device__ __forceinline__ bool march_split(const SceneDesc& s, const Ray& r, bool active, int cap,
                                             float omega, float& depth, int& steps,
                                             int& outcome) {
   float limit = s.depth_limit;
   const bool cull = active && culled<Cull>(s, r, limit);
   const bool near = active && !cull && !near_miss(s, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.c);
   const bool far = !__any_sync(0xffffffffu, near);
-  if (!active) return;
+  if (!active) return far;
   if (cull) {
     depth = s.cull_depth;
   } else if (far) {
     march_loop<Far, Relaxed>(s, r, limit, cap, omega, depth, steps, outcome);
   } else {
-    march_loop<S, Relaxed>(s, r, limit, cap, omega, depth, steps, outcome);
+    march_loop<NearScene<S::transform>, Relaxed>(s, r, limit, cap, omega, depth, steps, outcome);
   }
+  return far;
 }
 
 // the `active` plane a launch writes: the rays that stopped at the budget
@@ -215,23 +222,28 @@ __device__ __forceinline__ int unresolved(const SceneDesc& s, int steps, int out
   return outcome == STEP_LIMIT && steps >= cap && steps < s.step_limit;
 }
 
+// the Lambert two-colour mix at the hit (x, y, z) of the scene S, before
+// ACES: its fd4 normal (project.cuh fd4_grad, the loops rolled with Rolled)
+template <class S, bool Rolled>
+__device__ __forceinline__ void hit_colour(const SceneDesc& s, float x, float y, float z, float& r,
+                                           float& g, float& b) {
+  float gx, gy, gz;
+  fd4_grad<S, Rolled>(s, x, y, z, s.normal_epsilon, gx, gy, gz);
+  const float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-24f));
+  shade_collision(s, gx * inv, gy * inv, gz * inv, r, g, b);
+}
+
 // fd4 normal, Lambert two-colour mix and ACES of one pixel, written to
-// rgb[0..2]: the fused epilogue of K1 (render_kernel.py:380-410) and K3
-// (:437-470). A hit runs the fd4 stencil (project.cuh fd4_grad, its loops
-// rolled with Rolled); any other pixel is ACES of white (STEP_LIMIT) or
-// black.
+// rgb[0..2]: the fused epilogue of the unsplit K1 (render_kernel.py:380-410)
+// and K3 (:437-470). A hit runs hit_colour; any other pixel is ACES of
+// white (STEP_LIMIT) or black.
 template <class S, bool Rolled>
 __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, float depth,
                                             int outcome, float* __restrict__ rgb) {
   float r, g, b;
   if (outcome == COLLISION) {
-    const float px3 = ray.ox + depth * ray.dx;
-    const float py3 = ray.oy + depth * ray.dy;
-    const float pz3 = ray.oz + depth * ray.dz;
-    float gx, gy, gz;
-    fd4_grad<S, Rolled>(s, px3, py3, pz3, s.normal_epsilon, gx, gy, gz);
-    const float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-24f));
-    shade_collision(s, gx * inv, gy * inv, gz * inv, r, g, b);
+    hit_colour<S, Rolled>(s, ray.ox + depth * ray.dx, ray.oy + depth * ray.dy,
+                          ray.oz + depth * ray.dz, r, g, b);
   } else {
     r = g = b = outcome == STEP_LIMIT ? 1.0f : 0.0f;
   }
@@ -248,11 +260,7 @@ __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, 
 // `active` written. RESUME: block blockIdx.x of the list `blocks` (first
 // *count entries, each by * ceil(w / 16) + bx) resumes its active rays in
 // place from the planes with budget `cap`; its other rays keep their planes
-// and colour. With Split (render_split_kernel) each warp's 8x4 patch picks
-// the far or the full scene for its march (march_split); the epilogue
-// shades with the full scene, as K3 does: at a far patch's hit the full
-// scene's value is the wireframe's, whose normal JAX's fused epilogue takes
-// from the far scene.
+// and colour.
 #define K1_PARAMS                                                                         \
   const SceneDesc &s, const float *__restrict__ origins,                                \
       const float *__restrict__ directions, const float *__restrict__ cone,             \
@@ -263,16 +271,27 @@ __device__ __forceinline__ void shade_pixel(const SceneDesc& s, const Ray& ray, 
   s, origins, directions, cone, rgb, depth_io, steps_io, outcome_io, active_io, blocks, count, \
       cap, omega, h, w
 
-template <class S, bool Cull, bool Relaxed, int Mode, bool Split>
-__device__ __forceinline__ void render_pixel(K1_PARAMS) {
-  int bx = blockIdx.x, by = blockIdx.y;
+// the 16x8 block (bx, by) that K1's block blockIdx works on: its own, or in
+// RESUME the listed one; false for a RESUME block past the list's count
+template <int Mode>
+__device__ __forceinline__ bool k1_block(const int* __restrict__ blocks,
+                                         const int* __restrict__ count, int w, int& bx, int& by) {
+  bx = blockIdx.x;
+  by = blockIdx.y;
   if (Mode == K1_RESUME) {
-    if (static_cast<int>(blockIdx.x) >= *count) return;
+    if (static_cast<int>(blockIdx.x) >= *count) return false;
     const int b = blocks[blockIdx.x];
     const int nbx = (w + 15) / 16;
     bx = b % nbx;
     by = b / nbx;
   }
+  return true;
+}
+
+template <class S, bool Cull, bool Relaxed, int Mode>
+__device__ __forceinline__ void render_pixel(K1_PARAMS) {
+  int bx, by;
+  if (!k1_block<Mode>(blocks, count, w, bx, by)) return;
   int px, py;
   block_pixel(bx, by, px, py);
   if (px >= w || py >= h) return;
@@ -289,11 +308,7 @@ __device__ __forceinline__ void render_pixel(K1_PARAMS) {
   }
   const int budget = Mode == K1_FRESH ? s.step_limit : cap;
   const Ray ray = load_ray(origins, directions, cone, i);
-  if (Split) {
-    march_split<S, Cull, Relaxed>(s, ray, true, budget, omega, depth, steps, outcome);
-  } else {
-    march_ray<S, Cull, Relaxed>(s, ray, budget, omega, depth, steps, outcome);
-  }
+  march_ray<S, Cull, Relaxed>(s, ray, budget, omega, depth, steps, outcome);
   shade_pixel<S, true>(s, ray, depth, outcome, rgb + 3 * i);  // the rolled stencil
   if (Mode != K1_FRESH || depth_io != nullptr) {
     depth_io[i] = depth;
@@ -309,7 +324,114 @@ __global__ void __launch_bounds__(128) render_kernel(const SceneDesc s, const fl
               float* __restrict__ rgb, float* depth_io, int* steps_io, int* outcome_io,
               int* active_io, const int* __restrict__ blocks, const int* __restrict__ count,
               int cap, float omega, int h, int w) {
-  render_pixel<S, Cull, Relaxed, Mode, false>(K1_ARGS);
+  render_pixel<S, Cull, Relaxed, Mode>(K1_ARGS);
+}
+
+// K1 with the near/far split, one 16x8 block of 128 threads, in the modes
+// of render_pixel. Each warp's 8x4 patch marches the far or the full scene
+// (march_split); every thread of the block takes part, a thread past the
+// frame's edge or (RESUME) a ray that is not active as one that does not
+// march. The epilogue is JAX's fused one (render_kernel.py:380-384): a hit
+// of a far patch takes its normal from the far scene, one of a near patch
+// from the full scene. The block lists its hits in shared memory, the far
+// patches' first and the near patches' from the next warp boundary, each
+// with its point, and threads 0..far-1 shade the far hits with Far's
+// unrolled stencil, the threads from that boundary the near hits with the
+// full scene's rolled one (NearScene): full warps that each run one
+// stencil, where a thread a pixel ran the full scene's stencil at every hit
+// and held its warp's other lanes through it. Every other pixel is ACES of white (STEP_LIMIT) or black,
+// taken once a block, as K3 takes it. A far patch's warp lists whole
+// warps' hits, so the near hits start at most at the far warps' 32 slots
+// each and fit in 128.
+template <class S, bool Cull, bool Relaxed, int Mode>
+__device__ __forceinline__ void render_split_block(K1_PARAMS) {
+  __shared__ int warp_hits[4];
+  __shared__ bool warp_far[4];
+  __shared__ unsigned char listed[128];  // the hits' threads
+  __shared__ float point[3][128];        // and their points
+  __shared__ float flat[2][3];           // ACES of white and of black
+  int bx, by;
+  if (!k1_block<Mode>(blocks, count, w, bx, by)) return;  // the whole block
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int px, py;
+  block_pixel(bx, by, px, py);
+  const bool inside = px < w && py < h;
+  const long long i = inside ? (long long)py * w + px : 0;
+  const bool active = inside && (Mode != K1_RESUME || active_io[i] != 0);
+
+  float depth = 0.0f;
+  int steps = 0;
+  int outcome = DEPTH_LIMIT;
+  if (Mode == K1_RESUME && active) {
+    depth = depth_io[i];
+    steps = steps_io[i];
+    outcome = outcome_io[i];
+  }
+  const int budget = Mode == K1_FRESH ? s.step_limit : cap;
+  const Ray ray = load_ray(origins, directions, cone, i);  // pixel 0's for a thread outside
+  const bool far = march_split<S, Cull, Relaxed>(s, ray, active, budget, omega, depth, steps,
+                                                 outcome);
+  const bool hit = active && outcome == COLLISION;
+  const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+  if (lane == 0) {
+    warp_hits[warp] = __popc(ballot);
+    warp_far[warp] = far;
+    if (warp < 2) {
+      const float v = warp == 0 ? 1.0f : 0.0f;
+      aces(s, v, v, v, flat[warp]);
+    }
+  }
+  __syncthreads();
+  int far_hits = 0, near_hits = 0, before = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int n = warp_hits[k];
+    const bool f = warp_far[k];
+    before += k < warp && f == far ? n : 0;
+    far_hits += f ? n : 0;
+    near_hits += f ? 0 : n;
+  }
+  const int near_from = (far_hits + 31) & ~31;
+  if (hit) {
+    const int slot = (far ? 0 : near_from) + before + __popc(ballot & ((1u << lane) - 1u));
+    listed[slot] = static_cast<unsigned char>(t);
+    point[0][slot] = ray.ox + depth * ray.dx;
+    point[1][slot] = ray.oy + depth * ray.dy;
+    point[2][slot] = ray.oz + depth * ray.dz;
+  }
+  if (active) {
+    if (!hit) {
+      const float* c = flat[outcome == STEP_LIMIT ? 0 : 1];
+      rgb[3 * i] = c[0];
+      rgb[3 * i + 1] = c[1];
+      rgb[3 * i + 2] = c[2];
+    }
+    if (Mode != K1_FRESH || depth_io != nullptr) {
+      depth_io[i] = depth;
+      steps_io[i] = steps;
+      outcome_io[i] = outcome;
+    }
+    if (Mode != K1_FRESH) active_io[i] = unresolved(s, steps, outcome, budget);
+  }
+  __syncthreads();
+  const bool far_slot = t < far_hits;
+  if (far_slot || (t >= near_from && t < near_from + near_hits)) {
+    tile_pixel(bx, by, listed[t], px, py);
+    float r, g, b, out[3];
+    if (far_slot) {
+      // unrolled: K1 · split at 1080p 0.1620-0.1634 ms against 0.1654-0.1656
+      // rolled on an H100 (PERF.md)
+      hit_colour<Far, false>(s, point[0][t], point[1][t], point[2][t], r, g, b);
+    } else {
+      hit_colour<NearScene<S::transform>, true>(s, point[0][t], point[1][t], point[2][t], r, g,
+                                                b);
+    }
+    aces(s, r, g, b, out);
+    float* dst = rgb + 3 * ((long long)py * w + px);
+    dst[0] = out[0];
+    dst[1] = out[1];
+    dst[2] = out[2];
+  }
 }
 
 template <class S, bool Cull, bool Relaxed, int Mode>
@@ -318,7 +440,7 @@ __global__ void __launch_bounds__(128) render_split_kernel(const SceneDesc s,
               const float* __restrict__ cone, float* __restrict__ rgb, float* depth_io,
               int* steps_io, int* outcome_io, int* active_io, const int* __restrict__ blocks,
               const int* __restrict__ count, int cap, float omega, int h, int w) {
-  render_pixel<S, Cull, Relaxed, Mode, true>(K1_ARGS);
+  render_split_block<S, Cull, Relaxed, Mode>(K1_ARGS);
 }
 
 // K2. Without Listed, one thread per pixel in K1's layout; with Listed,
@@ -326,9 +448,7 @@ __global__ void __launch_bounds__(128) render_split_kernel(const SceneDesc s,
 // (depth0, steps0, outcome0, active0), or depth 0, steps 0, DEPTH_LIMIT and
 // active for every ray when depth0 is null. Rays that are not active keep
 // their state. `active` is written when not null. The carried planes may be
-// the output planes (Listed runs in place). With Split (trace_split_kernel)
-// each warp, an 8x4 patch or 32 listed rays, picks the far or the full
-// scene (march_split).
+// the output planes (Listed runs in place).
 #define K2_PARAMS                                                                              \
   const SceneDesc &s, const float *__restrict__ origins,                                     \
       const float *__restrict__ directions, const float *__restrict__ cone, const float *depth0, \
@@ -339,7 +459,32 @@ __global__ void __launch_bounds__(128) render_split_kernel(const SceneDesc s,
   s, origins, directions, cone, depth0, steps0, outcome0, active0, depth_out, steps_out,    \
       outcome_out, active_out, rays, count, cap, omega, h, w
 
-template <class S, bool Cull, bool Relaxed, bool Listed, bool Split>
+// the carried state of ray i (a fresh march's where depth0 is null); returns
+// whether the ray is active
+__device__ __forceinline__ bool carried_state(const float* depth0, const int* steps0,
+                                              const int* outcome0, const int* active0, long long i,
+                                              float& depth, int& steps, int& outcome) {
+  depth = 0.0f;
+  steps = 0;
+  outcome = DEPTH_LIMIT;
+  if (depth0 == nullptr) return true;
+  depth = depth0[i];
+  steps = steps0[i];
+  outcome = outcome0[i];
+  return active0[i] != 0;
+}
+
+// K2's outputs of ray i
+__device__ __forceinline__ void write_trace(const SceneDesc& s, float* depth_out, int* steps_out,
+                                            int* outcome_out, int* active_out, long long i,
+                                            float depth, int steps, int outcome, int cap) {
+  depth_out[i] = depth;
+  steps_out[i] = steps;
+  outcome_out[i] = outcome;
+  if (active_out != nullptr) active_out[i] = unresolved(s, steps, outcome, cap);
+}
+
+template <class S, bool Cull, bool Relaxed, bool Listed>
 __device__ __forceinline__ void trace_ray(K2_PARAMS) {
   long long i;
   if (Listed) {
@@ -352,27 +497,47 @@ __device__ __forceinline__ void trace_ray(K2_PARAMS) {
     if (px >= w || py >= h) return;
     i = (long long)py * w + px;
   }
-  float depth = 0.0f;
-  int steps = 0;
-  int outcome = DEPTH_LIMIT;
-  bool active = true;
-  if (depth0 != nullptr) {
-    depth = depth0[i];
-    steps = steps0[i];
-    outcome = outcome0[i];
-    active = active0[i] != 0;
-  }
-  if (Split) {
-    march_split<S, Cull, Relaxed>(s, load_ray(origins, directions, cone, i), active, cap, omega,
-                                  depth, steps, outcome);
-  } else if (active) {
+  float depth;
+  int steps, outcome;
+  if (carried_state(depth0, steps0, outcome0, active0, i, depth, steps, outcome)) {
     march_ray<S, Cull, Relaxed>(s, load_ray(origins, directions, cone, i), cap, omega, depth,
                                 steps, outcome);
   }
-  depth_out[i] = depth;
-  steps_out[i] = steps;
-  outcome_out[i] = outcome;
-  if (active_out != nullptr) active_out[i] = unresolved(s, steps, outcome, cap);
+  write_trace(s, depth_out, steps_out, outcome_out, active_out, i, depth, steps, outcome, cap);
+}
+
+// K2 with the near/far split: each warp, an 8x4 patch or 32 listed rays,
+// marches the far or the full scene (march_split). Every thread of a warp
+// that holds a ray takes part in its vote, a thread past the frame's edge
+// or the list's end as one that does not march; a warp wholly past the
+// list's end leaves at once. The row tail's list is in 8x4-patch order
+// (render_kernel.py compact_list with patch_order), so a listed warp's rays
+// are neighbours: their step counts and their vote agree as a patch's do.
+template <class S, bool Cull, bool Relaxed, bool Listed>
+__device__ __forceinline__ void trace_split_ray(K2_PARAMS) {
+  bool live;
+  long long i = 0;
+  if (Listed) {
+    const int t = blockIdx.x * 128 + threadIdx.x;
+    const int n = *count;
+    if ((t & ~31) >= n) return;  // the whole warp
+    live = t < n;
+    if (live) i = rays[t];
+  } else {
+    int px, py;
+    block_pixel(blockIdx.x, blockIdx.y, px, py);
+    live = px < w && py < h;
+    if (live) i = (long long)py * w + px;
+  }
+  float depth = 0.0f;
+  int steps = 0, outcome = DEPTH_LIMIT;
+  const bool active =
+      live && carried_state(depth0, steps0, outcome0, active0, i, depth, steps, outcome);
+  march_split<S, Cull, Relaxed>(s, load_ray(origins, directions, cone, i), active, cap, omega,
+                                depth, steps, outcome);  // ray 0's for a thread with no ray
+  if (live) {
+    write_trace(s, depth_out, steps_out, outcome_out, active_out, i, depth, steps, outcome, cap);
+  }
 }
 
 template <class S, bool Cull, bool Relaxed, bool Listed>
@@ -382,7 +547,7 @@ __global__ void __launch_bounds__(128) trace_kernel(const SceneDesc s, const flo
              float* depth_out, int* steps_out, int* outcome_out, int* active_out,
              const int* __restrict__ rays, const int* __restrict__ count, int cap, float omega,
              int h, int w) {
-  trace_ray<S, Cull, Relaxed, Listed, false>(K2_ARGS);
+  trace_ray<S, Cull, Relaxed, Listed>(K2_ARGS);
 }
 
 template <class S, bool Cull, bool Relaxed, bool Listed>
@@ -392,7 +557,7 @@ __global__ void __launch_bounds__(128) trace_split_kernel(const SceneDesc s,
              const int* outcome0, const int* active0, float* depth_out, int* steps_out,
              int* outcome_out, int* active_out, const int* __restrict__ rays,
              const int* __restrict__ count, int cap, float omega, int h, int w) {
-  trace_ray<S, Cull, Relaxed, Listed, true>(K2_ARGS);
+  trace_split_ray<S, Cull, Relaxed, Listed>(K2_ARGS);
 }
 
 // K3, one 16x8 tile a block of 128 threads. The block lists the tile's

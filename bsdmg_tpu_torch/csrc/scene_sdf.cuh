@@ -27,7 +27,8 @@
 // bsdmg_tpu/models/scenes.py:225-245 orders them; cli animate --motion
 // moves it), Composed and ComposedLarge a composed scene's node program
 // in its small and large tier (composed.cuh), Far the wireframe that K1
-// and K2 march where a patch of rays misses the near box. csdf.py::
+// and K2 march where a patch of rays misses the near box, NearScene the
+// render scene as they march it in the other patches. csdf.py::
 // kernel_structure picks the structure from the descriptor (and raises for
 // a descriptor that matches none); with_structure turns its index into the
 // template on the host. GridScene<Form> is a mesh asset's baked grid
@@ -134,6 +135,11 @@ struct SceneDesc {
   float near_center[3];
   float near_radius;
   float near_slack;
+  // the planes of the wireframe's box (SceneDesc::frame), per axis the two
+  // values that every capsule group's perpendicular coordinates take
+  // (render_kernel.py frame_planes checks it), for NearScene's bound
+  float frame_lo[3];
+  float frame_hi[3];
 };
 
 enum SceneKind {
@@ -144,7 +150,8 @@ enum SceneKind {
   KIND_WRAPPED,
   KIND_COMPOSED,
   KIND_GRID,
-  KIND_FAR
+  KIND_FAR,
+  KIND_NEAR
 };
 
 // The compile-time structure of a reference scene: with the wireframe or
@@ -205,6 +212,19 @@ struct ComposedLarge {
 // does not name it
 struct Far {
   static constexpr SceneKind kind = KIND_FAR;
+  static constexpr bool unrolled = true;
+};
+
+// the reference render scene Box<true, Transform> as the near/far split's
+// K1 and K2 march and shade it in a near patch: the same value bit for bit,
+// its wireframe's term left out where a bound proves it cannot be the
+// smaller (near_sdf); not a scene of its own, so with_structure does not
+// name it
+template <bool Transform>
+struct NearScene {
+  static constexpr SceneKind kind = KIND_NEAR;
+  static constexpr bool frame = true;
+  static constexpr bool transform = Transform;
   static constexpr bool unrolled = true;
 };
 
@@ -329,6 +349,49 @@ __device__ __forceinline__ float reference_sdf(const SceneDesc& s, float x, floa
   float d = fminf(skel, sph) - h * h * h * s.k_6;
   if (S::frame) d = fminf(d, sqrtf(capsule_set_d2(s.frame, x, y, z)) - s.frame.radius);
   return d;
+}
+
+// (1 - 2^-20): m * kFrameShrink rounds to at most the float below m
+constexpr float kFrameShrink = 0.99999904632568359375f;
+
+// Whether the wireframe's term of reference_sdf<Box<true, T>> at (x, y, z),
+// fl(sqrtf(D) - radius) with D = capsule_set_d2(s.frame, ...), exceeds the
+// object's value d, so that fminf(d, term) is d bit for bit and NearScene
+// may leave the term out. The proof, for float inputs under round to
+// nearest (no FMA contraction is needed, none is assumed):
+//  * every group's perpendicular values on axis b are the box's planes
+//    frame_lo[b], frame_hi[b] (the host checks it), so each of its
+//    differences c - v is fl(c - lo) or fl(c - hi), and |c - v| >= a_b,
+//    a_b = fminf(|fl(c_b - lo_b)|, |fl(c_b - hi_b)|) computed here;
+//  * group_d2 = fl(fl(e*e + M1) + M2) with M1, M2 >= 0 floats is >= M1
+//    and >= M2 (rounding is monotone and e*e >= 0), and M_k >= fl(a^2) for
+//    its axis; the groups along x, y, z pair the axes (y, z), (x, z),
+//    (x, y), so D = their minimum >= fl(m^2), m the median of a_x, a_y,
+//    a_z (exact: a min and a max of floats);
+//  * for m >= 1e-6 (m^2 normal) sqrtf(fl(m^2)) >= pred(m), the float below
+//    m; fl(m * kFrameShrink) <= pred(m), since m 2^-20 is at least 8 ulps;
+//    so sqrtf(D) >= fl(m * kFrameShrink) and, rounding being monotone,
+//    term >= fl(fl(m * kFrameShrink) - radius) =: t;
+//  * t > d gives term > d. A NaN coordinate makes m NaN (vminn, vmaxn)
+//    and a NaN d fails t > d: both keep the term.
+__device__ __forceinline__ bool frame_beyond(const SceneDesc& s, float x, float y, float z,
+                                             float d) {
+  const float ax = fminf(fabsf(x - s.frame_lo[0]), fabsf(x - s.frame_hi[0]));
+  const float ay = fminf(fabsf(y - s.frame_lo[1]), fabsf(y - s.frame_hi[1]));
+  const float az = fminf(fabsf(z - s.frame_lo[2]), fabsf(z - s.frame_hi[2]));
+  const float m = vmaxn(vminn(ax, ay), vminn(vmaxn(ax, ay), az));
+  return m > 1e-6f && m * kFrameShrink - s.frame.radius > d;
+}
+
+// NearScene: reference_sdf<Box<true, T>>'s value, the wireframe's term
+// taken only where frame_beyond does not prove it larger. Inside the
+// frame's box, around the object, that term is rarely the smaller, and it
+// is about a third of a step's work.
+template <class S>
+__device__ __forceinline__ float near_sdf(const SceneDesc& s, float x, float y, float z) {
+  const float d = reference_sdf<Box<false, S::transform>>(s, x, y, z);
+  if (frame_beyond(s, x, y, z, d)) return d;
+  return fminf(d, sqrtf(capsule_set_d2(s.frame, x, y, z)) - s.frame.radius);
 }
 
 // ---------------------------------------------------------------------------
@@ -578,6 +641,8 @@ __device__ __forceinline__ float scene_sdf(const SceneDesc& s, float x, float y,
     }
   } else if constexpr (S::kind == KIND_FAR) {
     return sqrtf(capsule_set_d2(s.far, x, y, z)) - s.far.radius;
+  } else if constexpr (S::kind == KIND_NEAR) {
+    return near_sdf<S>(s, x, y, z);
   } else if constexpr (S::kind == KIND_GRID) {
     float gx, gy, gz;
     return grid_scene<S::form, false>(s.grid_table, s.grid, s.grid_offset, x, y, z, gx, gy, gz);

@@ -24,8 +24,10 @@ from one to the other.
 
 ``split`` is the near/far split of ``csdf.py::compile_scene_split``,
 ``(far, (lo, hi, slack))``: the rays of a warp (an 8x4 patch, or 32 rays of
-K2's listed tail) that all miss the near box march ``far`` alone
-(render_kernel.py:412-432); the twins group the rays as the kernels do
+K2's listed tail, listed in patch order) that all miss the near box march
+``far`` alone (render_kernel.py:412-432), and K1 shades their hits with
+``far`` (its fused epilogue, :380-384) where K3 shades every hit with the
+full scene; the twins group the rays as the kernels do
 (:func:`patch_groups`, :func:`listed_groups`).
 """
 
@@ -284,7 +286,31 @@ def _flat_rays(origins, directions, cone):
             *(directions[..., a].reshape(-1) for a in range(3)), cone.reshape(-1))
 
 
-def trace_planes_torch(
+def trace_planes_torch(scene_desc: SceneDescriptor, origins: torch.Tensor,
+                       directions: torch.Tensor, cone: torch.Tensor, *carried, **options):
+    """Plain PyTorch version of kernel K2, the resumable trace
+    (render_kernel.py::_trace_kernel with ``shade=False``), on any device.
+
+    The carried state ``(depth0, steps0, outcome0, active0)`` defaults to a
+    fresh march: depth 0, steps 0, DEPTH_LIMIT and every ray active. The
+    keyword ``options`` are ``config``, ``budget``, ``use_bb_skip`` (default
+    True), ``omega`` (default 1), ``split`` and ``groups``. With
+    ``use_bb_skip`` the active rays that cannot reach the scene's bounds
+    keep their ``outcome0`` and get depth ``1.01 * depth_limit``
+    (:355-368), the others stop at the box's exit depth; without it, or
+    for an unbounded scene (the JAX package's ``bb=None``), at the depth
+    limit.
+    Rays that are not active keep their state. With ``split``, the active
+    rays of a group (``groups``, default :func:`patch_groups`) that all miss
+    its near box march its far scene (:func:`far_rays`). Returns ``(depth,
+    steps, outcome, active)`` ``(H, W)`` planes; ``active`` (int32) marks
+    the rays that stopped at ``budget`` short of the step limit
+    (:281-283)."""
+    return trace_far_planes_torch(scene_desc, origins, directions, cone, *carried,
+                                  **options)[:4]
+
+
+def trace_far_planes_torch(
     scene_desc: SceneDescriptor,
     origins: torch.Tensor,
     directions: torch.Tensor,
@@ -301,22 +327,9 @@ def trace_planes_torch(
     split=None,
     groups: torch.Tensor | None = None,
 ):
-    """Plain PyTorch version of kernel K2, the resumable trace
-    (render_kernel.py::_trace_kernel with ``shade=False``), on any device.
-
-    The carried state ``(depth0, steps0, outcome0, active0)`` defaults to a
-    fresh march: depth 0, steps 0, DEPTH_LIMIT and every ray active. With
-    ``use_bb_skip`` the active rays that cannot reach the scene's bounds
-    keep their ``outcome0`` and get depth ``1.01 * depth_limit``
-    (:355-368), the others stop at the box's exit depth; without it, or
-    for an unbounded scene (the JAX package's ``bb=None``), at the depth
-    limit.
-    Rays that are not active keep their state. With ``split``, the active
-    rays of a group (``groups``, default :func:`patch_groups`) that all miss
-    its near box march its far scene (:func:`far_rays`). Returns ``(depth,
-    steps, outcome, active)`` ``(H, W)`` planes; ``active`` (int32) marks
-    the rays that stopped at ``budget`` short of the step limit
-    (:281-283)."""
+    """:func:`trace_planes_torch`'s four planes and a fifth, the ``(H, W)``
+    bool plane of the rays that marched the far scene (all False without
+    ``split``): the hits that K1 · split shades with it."""
     h, w = cone.shape
     ox, oy, oz, dx, dy, dz, c = _flat_rays(origins, directions, cone)
     if depth0 is None:
@@ -332,11 +345,13 @@ def trace_planes_torch(
         depth[active & miss] = config.depth_limit * 1.01
         active = active & ~miss
         limit = torch.clamp_max(t_exit, config.depth_limit)
+    marched_far = torch.zeros_like(active)
     if split is not None:
         far = far_rays(split, ox, oy, oz, dx, dy, dz, c, config, active,
                        patch_groups(h, w, c.device) if groups is None else groups)
+        marched_far = active & far
         steps0, outcome0, _, _, _ = _march(
-            descriptor_csdf(split[0]), config, ox, oy, oz, dx, dy, dz, c, active & far, depth,
+            descriptor_csdf(split[0]), config, ox, oy, oz, dx, dy, dz, c, marched_far, depth,
             limit, steps0=steps0, outcome0=outcome0, budget=budget, omega=omega,
         )
         active = active & ~far
@@ -345,7 +360,7 @@ def trace_planes_torch(
         steps0=steps0, outcome0=outcome0, budget=budget, omega=omega,
     )
     return (depth.reshape(h, w), steps.reshape(h, w), outcome.reshape(h, w),
-            unresolved.to(torch.int32).reshape(h, w))
+            unresolved.to(torch.int32).reshape(h, w), marched_far.reshape(h, w))
 
 
 def shade_planes_torch(
@@ -355,22 +370,30 @@ def shade_planes_torch(
     depth: torch.Tensor,
     outcome: torch.Tensor,
     config: MarchConfig = MarchConfig(),
+    far=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel K3 (render_kernel.py::_shade_kernel),
     on any device: fd4 normals at the hits, the Lambert two-colour mix, white
-    where the march hit the step limit, black elsewhere, then ACES. Returns
-    linear RGB ``(H, W, 3)``."""
+    where the march hit the step limit, black elsewhere, then ACES. With
+    ``far``, ``(far scene, mask)``, the hits of the ``(H, W)`` bool plane
+    ``mask`` take their normals from the far scene: K1 · split's fused
+    epilogue (render_kernel.py:380-384). Returns linear RGB ``(H, W, 3)``."""
     h, w = depth.shape
-    csdf = descriptor_csdf(scene_desc)
     ox, oy, oz, dx, dy, dz, _ = _flat_rays(origins, directions, depth)
     t_all, oc = depth.reshape(-1), outcome.reshape(-1)
     n = [torch.zeros_like(t_all) for _ in range(3)]
-    hit = (oc == COLLISION).nonzero().squeeze(1)
-    if hit.numel():
+    hits = [(scene_desc, oc == COLLISION)]
+    if far is not None:
+        mask = far[1].reshape(-1)
+        hits = [(scene_desc, hits[0][1] & ~mask), (far[0], hits[0][1] & mask)]
+    for desc, rays in hits:
+        hit = rays.nonzero().squeeze(1)
+        if not hit.numel():
+            continue
         t = t_all[hit]
         normal = _fd_normal(
-            csdf, ox[hit] + t * dx[hit], oy[hit] + t * dy[hit], oz[hit] + t * dz[hit],
-            config.normal_epsilon,
+            descriptor_csdf(desc), ox[hit] + t * dx[hit], oy[hit] + t * dy[hit],
+            oz[hit] + t * dz[hit], config.normal_epsilon,
         )
         for plane, value in zip(n, normal):
             plane[hit] = value
@@ -390,13 +413,15 @@ def render_image_planes_torch(
 ):
     """Plain PyTorch version of kernel K1's render on any device: K2's twin
     from a fresh state, then K3's, which are K1's march (``omega > 1``
-    relaxed; with ``split`` the near/far split) and epilogue.
+    relaxed; with ``split`` the near/far split) and epilogue; with
+    ``split`` the far patches' hits are shaded with its far scene.
 
     Returns ``(rgb, depth, steps, outcome)``: linear RGB ``(H, W, 3)``
     float32, depth ``(H, W)`` float32, steps and outcome ``(H, W)`` int32."""
-    depth, steps, outcome, _ = trace_planes_torch(scene_desc, origins, directions, cone,
-                                                  config=config, omega=omega, split=split)
-    rgb = shade_planes_torch(scene_desc, origins, directions, depth, outcome, config)
+    depth, steps, outcome, _, far = trace_far_planes_torch(
+        scene_desc, origins, directions, cone, config=config, omega=omega, split=split)
+    rgb = shade_planes_torch(scene_desc, origins, directions, depth, outcome, config,
+                             far=None if split is None else (split[0], far))
     return rgb, depth, steps, outcome
 
 
@@ -480,6 +505,8 @@ class _SceneDescC(ctypes.Structure):
         ("near_center", _floats(3)),
         ("near_radius", ctypes.c_float),
         ("near_slack", ctypes.c_float),
+        ("frame_lo", _floats(3)),
+        ("frame_hi", _floats(3)),
     ]
 
 
@@ -563,6 +590,39 @@ def _grid_table(grid, device) -> torch.Tensor:
     return table
 
 
+#: the axes of a capsule group's perpendicular values v1, v2, by its axis
+#: (csrc/scene_sdf.cuh group_coords: the lower, then the higher other axis)
+_PERPENDICULAR = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
+
+
+def frame_planes(frame: CapsuleSet) -> tuple[tuple[float, ...], tuple[float, ...]]:
+    """``(lo, hi)``: per axis the two float32 values that every group of the
+    wireframe ``frame`` takes as its perpendicular coordinates on that axis,
+    the planes of its box (``SceneDesc::frame_lo``, ``frame_hi``, which the
+    split's NearScene bound reads; csrc/scene_sdf.cuh frame_beyond). Raises
+    for a wireframe whose groups take other values: the bound would not
+    hold."""
+    values = {0: set(), 1: set(), 2: set()}
+    for g in frame.groups:
+        b1, b2 = _PERPENDICULAR[g.axis]
+        values[b1].update(f32(v) for v in g.v1)
+        values[b2].update(f32(v) for v in g.v2)
+    if any(len(v) != 2 for v in values.values()):
+        raise ValueError(f"the wireframe is not a box's edges: its planes are {values}")
+    return tuple(min(values[a]) for a in range(3)), tuple(max(values[a]) for a in range(3))
+
+
+def frame_beyond_torch(frame: CapsuleSet, x, y, z, d) -> torch.Tensor:
+    """The plain version of the split kernels' wireframe bound
+    (csrc/scene_sdf.cuh frame_beyond), on float32 tensors: where True, the
+    wireframe's term of the render scene's SDF exceeds the object's value
+    ``d``, so its ``min`` is ``d``; NearScene leaves the term out there."""
+    lo, hi = frame_planes(frame)
+    a = [torch.minimum((c - lo[k]).abs(), (c - hi[k]).abs()) for k, c in enumerate((x, y, z))]
+    m = torch.maximum(torch.minimum(a[0], a[1]), torch.minimum(torch.maximum(a[0], a[1]), a[2]))
+    return (m > f32(1e-6)) & (m * f32(1.0 - 2.0**-20) - f32(frame.radius) > d)
+
+
 def _check_split(desc: SceneDescriptor, split) -> None:
     """A split is a wireframe and a near box beside a reference scene with
     its wireframe, the structures K1 and K2 split (Box<true, *>)."""
@@ -576,6 +636,7 @@ def _check_split(desc: SceneDescriptor, split) -> None:
             "the near/far split is built for the reference render scene (Box<true, *>), "
             "as compile_scene_split gives it"
         )
+    frame_planes(desc.frame)
 
 
 def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
@@ -596,6 +657,7 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
     has_transform = desc.translation is not None
     rotation = [v for row in desc.inv_rotation for v in row] if has_transform else [0.0] * 9
     skeleton = desc.frame if desc.frame is not None else desc.object
+    planes = frame_planes(desc.frame) if split is not None else ((0.0,) * 3,) * 2
     return _SceneDescC(
         object=_CapsuleSetC() if desc.object is None else _capsule_set_c(desc.object),
         frame=_CapsuleSetC() if skeleton is None else _capsule_set_c(skeleton),
@@ -617,6 +679,8 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
                    program_depths(desc.program.instructions) if program is not None else (0, 0))),
         far=_CapsuleSetC() if split is None else _capsule_set_c(split[0].frame),
         **near_c(split),
+        frame_lo=_floats(3)(*planes[0]),
+        frame_hi=_floats(3)(*planes[1]),
         grid_table=None if table is None else table.data_ptr(),
         grid=GridBoxC() if table is None else grid_box_c(desc.grid.resolution, desc.grid.lo,
                                                           desc.grid.hi),
@@ -763,20 +827,50 @@ def _shade_cuda(desc_c, origins, directions, depth, outcome, rgb) -> None:
     SHADE_LAUNCHES += 1
 
 
-def compact_list(flags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def compact_list(flags: torch.Tensor,
+                 order: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(list, count)``: the indices of the nonzero entries of the flat
-    int32 ``flags``, in order, and their number, both left on the device
-    (no host sync): a cumsum of the flags, then a scatter. Entries of the
-    list past the count are unspecified. The JAX package's fixed-capacity
+    int32 ``flags``, in order (or in the order of ``order``, a permutation
+    of the indices, int32), and their number, both left on the device (no
+    host sync): a cumsum of the flags, then a scatter. Entries of the list
+    past the count are unspecified. The JAX package's fixed-capacity
     ``_gather_active``/``_scatter_back`` (render_kernel.py:592-634) move
     eleven planes only because Mosaic needs dense tiles; the kernels read
     this list instead."""
     n = flags.numel()
+    if order is None:
+        order = torch.arange(n, dtype=torch.int32, device=flags.device)
+    else:
+        flags = flags.index_select(0, order)
     position = torch.cumsum(flags, 0, dtype=torch.int32)
     slot = torch.where(flags != 0, position - 1, n).long()
     index = torch.empty(n + 1, dtype=torch.int32, device=flags.device)
-    index.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=flags.device))
+    index.scatter_(0, slot, order)
     return index, position[-1:]
+
+
+@functools.lru_cache(maxsize=8)
+def patch_order(h: int, w: int, device) -> torch.Tensor:
+    """The flat int32 indices of an ``(H, W)`` frame's pixels in 8x4-patch
+    order: the patches in :func:`patch_groups`' order, each patch's pixels
+    in lane order (csrc/render_kernel.cu tile_pixel's lane). The row tail's
+    list with the near/far split (:func:`tail_list`) follows it, so that
+    K2 · split's listed warps hold neighbouring rays. Cached per frame; the
+    list gathers the flags through it as int32 (``index_select``), so no
+    frame writes an int64 copy."""
+    flat = torch.arange(h * w, device=device)
+    py, px = flat // w, flat % w
+    return torch.argsort(patch_groups(h, w, device) * 32 + (py % 4) * 8 + px % 8).to(torch.int32)
+
+
+def tail_list(active: torch.Tensor, split) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row two-phase pipeline's tail, the list K2 marches 32 rays a
+    warp: :func:`compact_list` of the ``(H, W)`` plane ``active``, with the
+    near/far ``split`` in 8x4-patch order (:func:`patch_order`), so that a
+    listed warp's rays vote and march as neighbours; without it row-major."""
+    if split is None:
+        return compact_list(active.reshape(-1))
+    return compact_list(active.reshape(-1), patch_order(*active.shape, active.device))
 
 
 def block_flags(active: torch.Tensor) -> torch.Tensor:
@@ -840,17 +934,24 @@ class _Frame:
                                           for _ in range(3)))
 
     def _twin(self, carried=None, budget=None, groups=None):
-        return trace_planes_torch(self.desc, *self.rays, *(carried or ()), config=self.config,
-                                  budget=budget, use_bb_skip=self.cull, omega=self.omega,
-                                  split=self.split, groups=groups)
+        """K2's twin, with the far plane (:func:`trace_far_planes_torch`)."""
+        return trace_far_planes_torch(self.desc, *self.rays, *(carried or ()),
+                                      config=self.config, budget=budget, use_bb_skip=self.cull,
+                                      omega=self.omega, split=self.split, groups=groups)
+
+    def _fused_shade(self, depth, outcome, far):
+        """K1's epilogue on the twins' planes: the far patches' hits
+        (``far``) shaded with the split's far scene."""
+        return shade_planes_torch(self.desc, *self.rays[:2], depth, outcome, self.config,
+                                  far=None if self.split is None else (self.split[0], far))
 
     def render(self, budget: int | None = None, planes: bool = False):
         """K1 from a fresh state: ``(rgb, depth, steps, outcome, active)``.
         With ``budget`` (PHASE_A) every plane is written; else (FRESH) the
         planes are None unless ``planes``, and ``active`` is None."""
         if not self.cuda:
-            depth, steps, outcome, active = self._twin(budget=budget)
-            rgb = shade_planes_torch(self.desc, *self.rays[:2], depth, outcome, self.config)
+            depth, steps, outcome, active, far = self._twin(budget=budget)
+            rgb = self._fused_shade(depth, outcome, far)
         else:
             cone = self.rays[2]
             rgb = torch.empty((*cone.shape, 3), dtype=torch.float32, device=cone.device)
@@ -873,17 +974,18 @@ class _Frame:
                          active=planes[3], blocks=blocks, cull=self.cull, omega=self.omega,
                          cap=self.cap(None))
             return
-        carried = (*planes[:3], planes[3] * block_rays(blocks, *self.rays[2].shape))
-        new = self._twin(carried)
+        resumed = planes[3] * block_rays(blocks, *self.rays[2].shape)
+        *new, far = self._twin((*planes[:3], resumed))
         for old, value in zip(planes, new):
             old.copy_(value)
-        rgb.copy_(shade_planes_torch(self.desc, *self.rays[:2], new[0], new[2], self.config))
+        shaded = self._fused_shade(new[0], new[2], far)
+        rgb.copy_(torch.where(resumed[..., None] != 0, shaded, rgb))
 
     def trace(self, budget: int | None = None):
         """K2 from a fresh state: ``(depth, steps, outcome, active)``;
         ``active`` is None without ``budget``."""
         if not self.cuda:
-            depth, steps, outcome, active = self._twin(budget=budget)
+            depth, steps, outcome, active, _ = self._twin(budget=budget)
         else:
             depth, steps, outcome, active = self._empty_planes()
             _trace_cuda(self.desc_c, *self.rays, None, (depth, steps, outcome),
@@ -900,7 +1002,7 @@ class _Frame:
             return
         n = planes[3].numel()
         carried = (*planes[:3], listed_flags(*rays, n).reshape(planes[3].shape))
-        for old, value in zip(planes[:3], self._twin(carried, groups=listed_groups(*rays, n))):
+        for old, value in zip(planes[:3], self._twin(carried, groups=listed_groups(*rays, n))[:3]):
             old.copy_(value)
 
     def shade(self, depth, outcome) -> torch.Tensor:
@@ -919,7 +1021,7 @@ class _Frame:
         if not two_phase:
             return self.trace()[:3]
         planes = self.trace(phase_a_steps)
-        self.resume_trace(planes, compact_list(planes[3].reshape(-1)))
+        self.resume_trace(planes, tail_list(planes[3], self.split))
         return planes[:3]
 
 
@@ -971,9 +1073,10 @@ def trace_cuda(
 
     One K2 launch, or with ``two_phase`` the row two-phase pipeline: K2
     capped at ``phase_a_steps``, then K2 over the device-resident list of
-    the rays still unresolved, in place. There is no tail capacity, so no
-    overflow pass (the JAX package's ``tail_cap`` and phase C). Without
-    ``use_bb_skip`` the march is not culled and stops at the depth limit.
+    the rays still unresolved (:func:`tail_list`), in place. There is no
+    tail capacity, so no overflow pass (the JAX package's ``tail_cap`` and
+    phase C). Without ``use_bb_skip`` the march is not culled and stops at
+    the depth limit.
     ``omega=None`` honours ``config.relaxation``; ``split`` is the near/far
     split (module docstring). CUDA tensors go through K2, CPU tensors
     through :func:`trace_planes_torch`."""
@@ -1045,8 +1148,9 @@ def render_image_cuda(
       ``phase_a_steps``, then K1 over the device-resident list of its 16x8
       blocks that still hold an unresolved ray, in place (no block cap, no
       phase C);
-    * ``two_phase=True``, the row two-phase pipeline of :func:`trace_cuda`,
-      then K3;
+    * ``two_phase=True``, the row two-phase pipeline of :func:`trace_cuda`
+      (its tail listed in 8x4-patch order with the split,
+      :func:`tail_list`), then K3;
     * ``swizzle=False``: K2, then K3. On the TPU the flag picks the
       unswizzled pipeline; here the pixel layout is the kernels' own 8x4
       warp patch either way, and the flag selects the unfused pipeline.
@@ -1056,8 +1160,10 @@ def render_image_cuda(
     restarts with each launch, as in the JAX package. Without
     ``use_bb_skip`` nothing is culled. ``split``, the near/far split
     (module docstring), runs in every path: a warp's patch marches the far
-    scene where its rays all miss the near box, and every hit is shaded
-    with the full scene, as ``_shade_kernel`` shades. Returns linear RGB
+    scene where its rays all miss the near box; K1 (the default and block
+    retirement) shades those hits with the far scene, as JAX's fused
+    epilogue does, K3 (the row and unfused pipelines) every hit with the
+    full scene, as ``_shade_kernel`` does. Returns linear RGB
     ``(H, W, 3)``, or ``(rgb, depth, steps, outcome)`` with
     ``return_planes=True``."""
     omega = config.relaxation if omega is None else float(omega)

@@ -535,11 +535,13 @@ def fd4_ops(desc) -> int:
     shared) and sqrt and radius, and the smooth union (10) per point; the
     wireframe's terms and a min per point. The wrapped object adds its
     three wraps at the centre and one a point; the sphere and the box are
-    SPHERE_STENCIL and BOX_STENCIL. The mandelbulb's stencil, rolled, is 12
-    whole evaluations whose work depends on the data (:class:`LoopWork`)
-    and raises here. A composed scene's is its program's shared-term
-    stencil (:func:`program_stencil_ops`), though its kernels roll the 12
-    points; a grid's is GRID_STENCIL, though its kernels roll them too."""
+    SPHERE_STENCIL and BOX_STENCIL, the near/far split's far scene (K1 ·
+    split shades a far patch's hits with it) its wireframe's terms. The
+    mandelbulb's stencil, rolled, is 12 whole evaluations whose work
+    depends on the data (:class:`LoopWork`) and raises here. A composed
+    scene's is its program's shared-term stencil
+    (:func:`program_stencil_ops`), though its kernels roll the 12 points; a
+    grid's is GRID_STENCIL, though its kernels roll them too."""
     if desc.kind == "sphere":
         return STENCIL + SPHERE_STENCIL
     if desc.kind == "box":
@@ -550,6 +552,8 @@ def fd4_ops(desc) -> int:
         return STENCIL + program_stencil_ops(desc)
     if desc.kind == "grid":
         return STENCIL + GRID_STENCIL[desc.grid_form]
+    if desc.kind == "wireframe":
+        return STENCIL + _stencil_set_ops(desc.frame)
     wraps = 15 * (WRAP + LIBM["fmodf"]) if desc.kind == "wrapped" else 0
     if desc.translation is not None:
         obj = 12 * (18 + capsule_ops(desc.object) + 7 + 10)
@@ -612,6 +616,33 @@ def march_ops(desc, evals: int, advances: int, culled_rays: int,
     to ``evals``."""
     sdf = loop.per_evaluation(evals) if desc.kind == "mandelbulb" else evals * sdf_ops(desc)
     return sdf + evals * MARCH_EVAL + advances * MARCH_ADVANCE + culled_rays * CULL
+
+
+#: scene_sdf.cuh frame_beyond: per axis two subtracts, two abs and a min
+#: (15); the median's two mins and two maxes; the m > 1e-6 test, the
+#: shrink's multiply, the radius's subtract and the compare with d
+FRAME_BOUND = 23
+
+
+def near_march_ops(desc, evals: int, advances: int, proved: int) -> int:
+    """The near patches' march of K1 · split and K2 · split as the
+    function needs it: :func:`march_ops` of the render scene ``desc``, but
+    at each of the ``proved`` evaluations where frame_beyond proves the
+    wireframe's term larger than the object's value the object's SDF and
+    FRAME_BOUND, not the wireframe's capsules and min."""
+    saving = max(capsule_ops(desc.frame) + 1 - FRAME_BOUND, 0)
+    return march_ops(desc, evals, advances, 0) - proved * saving
+
+
+def near_shade_ops(desc, hits: int, proved_points: int) -> float:
+    """K1 · split's near hits as the function needs them: :func:`shade_ops`
+    of ``desc`` each, but at each of the ``proved_points`` stencil points
+    where frame_beyond proves the wireframe's term larger FRAME_BOUND, not
+    the point's twelfth of the wireframe's shared-term stencil (its terms
+    and 12 mins; the centre terms spread over the points, so a hit with a
+    point left unproved is charged no more than it needs)."""
+    share = (_stencil_set_ops(desc.frame) + 12) / 12
+    return hits * shade_ops(desc) - proved_points * max(share - FRAME_BOUND, 0)
 
 
 def render_ops(desc, evals: int, advances: int, hits: int, pixels: int, *,

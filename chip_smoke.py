@@ -210,12 +210,16 @@ and PyTorch built for CUDA. Phases, each reported on its own line:
     rooflines' share of the speed of light beside the render's and the
     grad's;
 19. the near/far split (``compile_scene_split``) of the reference render
-    scene at 1920x1080: each pipeline of ``render_image_cuda`` (K1; K1
-    twice; K2, K2 over the listed tail, K3; K2 and K3) with the split, bit
-    for bit against the twins composed alike, and within the JAX package's
-    bars of the frame without it (max |drgb| > 1e-3 on under 0.1% of the
-    pixels, the mean under 1e-5); K1 and K2 alone with and without it, with
-    bounds from this run's far and near evaluations; K4 and K5 with the
+    scene at 1920x1080 and 2560x1440: each pipeline of
+    ``render_image_cuda`` (K1; K1 twice; K2, K2 over the listed tail, K3;
+    K2 and K3) with the split, bit for bit against the twins composed
+    alike, and within the JAX package's bars of the frame without it (max
+    |drgb| > 1e-3 on under 0.1% of the pixels, the mean under 1e-5); the
+    split kernels' ptxas and SASS loops, their warp work (far patches,
+    warp-steps, hits per warp, the row tail's listed launch after 16, 32
+    and 48 steps) and the fused image against the row pipeline's; K1 and
+    K2 alone with and without it, with bounds from this run's far and near
+    evaluations and hits; K4 and K5 with the
     split at the bench's 512x512 point and the fit's 64x64 point against
     their twins (K4 bit for bit but dfdt; K5 within the bars) and alone
     with and without it;
@@ -642,27 +646,40 @@ def same(a, b) -> bool:
 
 
 def twin_pipeline(rk, desc, o, d, c, *, two_phase=False, phase_a_steps=32, use_bb_skip=True,
-                  omega=1.0, split=None):
+                  omega=1.0, split=None, fused=False):
     """The plain twins composed as ``render_image_cuda`` composes the
     kernels: a single march, or phase A capped at ``phase_a_steps`` then
-    the rays of the row tail's list or of the listed 16x8 blocks resumed,
-    then the shading; with ``split``, the rays grouped as the kernels group
-    them (8x4 patches, the row tail's 32 listed rays). Returns ``(rgb,
-    depth, steps, outcome)``."""
+    the rays of the row tail's list (``tail_list``: with the split in
+    8x4-patch order, else row-major) or of the listed 16x8
+    blocks resumed, then the shading; with ``split``, the rays grouped as
+    the kernels group them (8x4 patches, the row tail's 32 listed rays), and
+    in K1's pipelines (block retirement, or ``fused``) a far patch's hits
+    shaded with the far scene and each launch shading only the rays it
+    marched. Returns ``(rgb, depth, steps, outcome)``."""
     kw = dict(use_bb_skip=use_bb_skip, omega=omega, split=split)
+    k1 = fused or two_phase == "block"
+
+    def shade(planes, far):
+        return rk.shade_planes_torch(desc, o, d, planes[0], planes[2], far=(
+            (split[0], far) if k1 and split is not None else None))
+
     if two_phase is False:
-        planes = rk.trace_planes_torch(desc, o, d, c, **kw)[:3]
+        *planes, far = rk.trace_far_planes_torch(desc, o, d, c, **kw)
+        return shade(planes, far), *planes[:3]
+    *a, far = rk.trace_far_planes_torch(desc, o, d, c, budget=phase_a_steps, **kw)
+    groups = None
+    if two_phase == "block":
+        active = a[3] * rk.block_rays(rk.compact_list(rk.block_flags(a[3])), *c.shape)
     else:
-        a = rk.trace_planes_torch(desc, o, d, c, budget=phase_a_steps, **kw)
-        groups = None
-        if two_phase == "block":
-            active = a[3] * rk.block_rays(rk.compact_list(rk.block_flags(a[3])), *c.shape)
-        else:
-            listed = rk.compact_list(a[3].reshape(-1))
-            active = rk.listed_flags(*listed, c.numel()).reshape(c.shape)
-            groups = rk.listed_groups(*listed, c.numel())
-        planes = rk.trace_planes_torch(desc, o, d, c, *a[:3], active, groups=groups, **kw)[:3]
-    return rk.shade_planes_torch(desc, o, d, planes[0], planes[2]), *planes
+        listed = rk.tail_list(a[3], split)
+        active = rk.listed_flags(*listed, c.numel()).reshape(c.shape)
+        groups = rk.listed_groups(*listed, c.numel())
+    *planes, far_b = rk.trace_far_planes_torch(desc, o, d, c, *a[:3], active, groups=groups,
+                                               **kw)
+    rgb = shade(planes, far_b)
+    if two_phase == "block":
+        rgb = torch.where(active[..., None] != 0, rgb, shade(a, far))
+    return rgb, *planes[:3]
 
 
 def trace_shade_phases(card: str, device, alone: dict) -> tuple[list[dict], dict]:
@@ -5153,10 +5170,24 @@ SPLIT_PIPELINES = {"fused": ({}, {"K1": 1, "K1 split": 1}),
                    "block": ({"two_phase": "block"}, {"K1": 2, "K1 split": 2}),
                    "row": ({"two_phase": True}, {"K2": 2, "K2 split": 2, "K3": 1}),
                    "unfused": ({"swizzle": False}, {"K2": 1, "K2 split": 1, "K3": 1})}
+#: the frames of the render pipelines with the split
+SPLIT_FRAMES = (SCENE_FRAME, (2560, 1440))
+#: the split's kernels whose SASS loops the split phase prints
+SPLIT_SASS = ("render_split_kernel<Box<true, false>, true, false, 0>",
+              "trace_split_kernel<Box<true, false>, true, false, false>")
 #: K4's and K5's points: the JAX bench's grad cell at 512x512 (bounds and
 #: near box inflated by 0.25, a black target, no edge term) and the CLI's
 #: fit at 64x64 (by 0.6, the render at the true parameters, the edge term)
 SPLIT_POINTS = {"bench": (512, 0.25, 0.0), "fit": (64, 0.6, 1.0)}
+
+
+def split_probe():
+    """``tools/split_probe.py`` as a module: its statistics of the split's
+    warp work (``frame_stats``, ``tail_stats``)."""
+    spec = importlib.util.spec_from_file_location("split_probe", ROOT / "tools" / "split_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def split_bars(rgb, unsplit) -> dict:
@@ -5183,14 +5214,60 @@ def split_work(rk, bounds, split, o, d, c, planes, cfg) -> tuple[dict, dict]:
             {"far_rays": int(far.sum()), "rays": far.numel()})
 
 
+def near_proofs(rk, desc, split, o, d, c, planes, cfg) -> dict:
+    """Where the split kernels' near scene leaves the wireframe's term out
+    (csrc/scene_sdf.cuh near_sdf, its plain version
+    ``render_kernel.frame_beyond_torch`` with the object's value): the near
+    patches' march replayed on the twin from a fresh state, each
+    evaluation's point tested, and each near hit's 12 stencil points. The
+    near evaluations and stencil points and those proved; whether the
+    replay's depth and steps are K1 · split's ``planes``' (depth, steps,
+    outcome) at every near ray."""
+    from bsdmg_tpu_torch.ops.cuda.csdf import descriptor_csdf
+
+    full = descriptor_csdf(desc)
+    obj = descriptor_csdf(dataclasses.replace(desc, frame=None))
+
+    def counted(tally):
+        def csdf(x, y, z):
+            beyond = rk.frame_beyond_torch(desc.frame, x, y, z, obj(x, y, z))
+            tally[0] += x.numel()
+            tally[1] += beyond.sum()
+            return full(x, y, z)
+        return csdf
+
+    flat = rk._flat_rays(o, d, c)
+    miss, t_exit = rk._slab_cull(desc.bounds, *flat, cfg)
+    near = ~miss & ~rk.far_rays(split, *flat, cfg, ~miss, rk.patch_groups(*c.shape, c.device))
+    depth = torch.zeros_like(flat[6])
+    march, stencil = [0, torch.zeros((), dtype=torch.long, device=c.device)], [0, 0]
+    steps, outcome, *_ = rk._march(counted(march), cfg, *flat, near, depth,
+                                   torch.clamp_max(t_exit, cfg.depth_limit))
+    hit = (near & (outcome == 0)).nonzero().squeeze(1)
+    t = depth[hit]
+    rk._fd_normal(counted(stencil), *(flat[a][hit] + t * flat[a + 3][hit] for a in range(3)),
+                  cfg.normal_epsilon)
+    kernel_depth, kernel_steps = (p.reshape(-1)[near] for p in planes[:2])
+    return {"near_evaluations": march[0], "proved_evaluations": int(march[1]),
+            "near_stencil_points": stencil[0], "proved_stencil_points": int(stencil[1]),
+            "replay_equal": bool(torch.equal(depth[near], kernel_depth)
+                                 and torch.equal(steps[near], kernel_steps))}
+
+
 def split_phases(card: str, device, main_launches: dict) -> list[dict]:
     """The near/far split (``compile_scene_split``) of the reference render
-    scene at SCENE_FRAME: each pipeline of ``render_image_cuda`` (K1; K1
-    twice; K2, K2 over the listed tail, K3; K2 and K3) with the split
-    against the twins composed alike (bit for bit) and within the JAX
-    package's bars of the frame without it; K1 and K2 alone with and
-    without the split (CUDA graphs of 20) with their bounds from this run's
-    work (the far patches' evaluations at the wireframe's count); K4 and
+    scene: ptxas and the SASS loops of its K1 and K2; at each of
+    SPLIT_FRAMES each pipeline of ``render_image_cuda`` (K1; K1 twice; K2,
+    K2 over the listed tail, K3; K2 and K3) with the split against the
+    twins composed alike (bit for bit) and within the JAX package's bars of
+    the frame without it; at SCENE_FRAME what sets their warp work
+    (``tools/split_probe.py`` frame_stats: far patches, warp-steps, hits per
+    warp; the row tail after each of PHASE_A_STEPS, its listed launch alone
+    and tail_stats), the fused image against the row pipeline's (equal but
+    possibly at far hits, which K3 shades with the full scene); K1 and K2
+    alone with and without the split at SPLIT_FRAMES (CUDA graphs of 20),
+    with their bounds from this run's work (the far patches' evaluations
+    and hits at the wireframe's counts); K4 and
     K5 with the split at SPLIT_POINTS against their twins (K4 bit-equal but
     dfdt, within DFDT_ATOL; K5 within the bars, two calls the same bits)
     and alone with and without it. Returns the kernels line's entries of
@@ -5202,6 +5279,7 @@ def split_phases(card: str, device, main_launches: dict) -> list[dict]:
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.grad import render_image_diff
     from bsdmg_tpu_torch.models import reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import build
     from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
     from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
     from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene, compile_scene_split, scene_bounds
@@ -5210,64 +5288,125 @@ def split_phases(card: str, device, main_launches: dict) -> list[dict]:
     cfg = MarchConfig()
     scene = reference_render_scene(device=device)
     desc, split = compile_scene(scene), compile_scene_split(scene)
-    o, d, c = rays(*SCENE_FRAME, device)
-    npix = c.numel()
+    probe = split_probe()
     for r in (kernel_resources("render_split.cu", ("render_split_kernel<", "trace_split_kernel<"))
               + kernel_resources("diff_split.cu", ("march_params_split_kernel<",
                                                    "loss_march_split_kernel<"))):
         print(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack']} B stack, "
-              f"{r['spill_stores']} B spill stores")
-    res, launches, twins = {}, {}, {}
-    for name, (kw, want) in SPLIT_PIPELINES.items():
-        reset_launches()
-        kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True, split=split, **kw)
-        torch.cuda.synchronize()
-        launches[name] = launched(launch_counts())
-        check(launches[name] == want, f"the {name} pipeline with the split launched "
-                                      f"{launches[name]}, not {want}")
-        # the fused and the unfused pipelines share their twin (one march,
-        # then the shading), timed as K1's plain version
-        two_phase = kw.get("two_phase", False)
-        if two_phase not in twins:
-            twins[two_phase] = timed_ms(lambda: twin_pipeline(rk, desc, o, d, c,
-                                                              two_phase=two_phase, split=split))
-        plain = twins[two_phase][0]
-        stats = compare(kernel, plain)
-        unsplit = rk.render_image_cuda(desc, o, d, c, return_planes=True, **kw)
-        res[name] = {**split_bars(kernel[0], unsplit[0]), "exact": stats["exact"],
-                     "steps": int(kernel[2].sum()), "steps_unsplit": int(unsplit[2].sum()),
-                     "outcomes_equal": bool(torch.equal(kernel[3], unsplit[3]))}
-        if name == "fused":
-            k1_err, k1_planes = stats["max_abs_err"], kernel[1:]
-        if name == "row":
-            k2_err = _max_err(kernel[1], plain[1])
-        print(f"split {name} pipeline {SCENE_FRAME}: {json.dumps(res[name])}")
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    for name in SPLIT_SASS:
+        print(f"split SASS loops of {name} (static instructions, MUFU; the march steps first, "
+              f"Far's with one MUFU): {json.dumps(sass_loops(build.build(), name))}")
+    res, launches = {}, {}
+    for size in SPLIT_FRAMES:
+        o, d, c = rays(*size, device)
+        twins = {}
+        for name, (kw, want) in SPLIT_PIPELINES.items():
+            reset_launches()
+            kernel = rk.render_image_cuda(desc, o, d, c, return_planes=True, split=split, **kw)
+            torch.cuda.synchronize()
+            launches[name] = launched(launch_counts())
+            check(launches[name] == want, f"the {name} pipeline with the split launched "
+                                          f"{launches[name]}, not {want}")
+            # the fused pipeline's twin (K1's plain version) shades a far
+            # patch's hits with the far scene, the unfused one's as K3 does
+            two_phase = kw.get("two_phase", False)
+            key = (two_phase, name == "fused")
+            if key not in twins:
+                twins[key] = timed_ms(lambda: twin_pipeline(rk, desc, o, d, c, two_phase=two_phase,
+                                                            split=split, fused=key[1]))
+            plain = twins[key][0]
+            stats = compare(kernel, plain)
+            unsplit = rk.render_image_cuda(desc, o, d, c, return_planes=True, **kw)
+            label = f"{name} {size[0]}x{size[1]}"
+            res[label] = {**split_bars(kernel[0], unsplit[0]), "exact": stats["exact"],
+                          "steps": int(kernel[2].sum()), "steps_unsplit": int(unsplit[2].sum()),
+                          "outcomes_equal": bool(torch.equal(kernel[3], unsplit[3]))}
+            print(f"split {label} pipeline: {json.dumps(res[label])}")
+            if size != SCENE_FRAME:
+                continue
+            if name == "fused":
+                k1_err, fused = stats["max_abs_err"], kernel
+            if name == "row":
+                k2_err, row = _max_err(kernel[1], plain[1]), kernel
+        if size == SCENE_FRAME:
+            k1_plain, k1_planes = twins[(False, True)][1], fused[1:]
+            k2_plain = median_ms(lambda: rk.trace_planes_torch(desc, o, d, c, split=split),
+                                 runs=1, warmup=0)
+            scene_rays = (o, d, c)
+    o, d, c = scene_rays
+    npix = c.numel()
 
-    # alone, from prepared structs, with and without the split
+    # what sets the kernels' warp work, and the fused image against the row
+    # pipeline's (K3 shades a far patch's hits with the full scene)
+    stats = probe.frame_stats(rk, desc, split, o, d, c, k1_planes, cfg)
+    flat = rk._flat_rays(o, d, c)
+    miss, _ = rk._slab_cull(desc.bounds, *flat, cfg)
+    far_hit = (fused[3] == 0).reshape(-1) & rk.far_rays(split, *flat, cfg, ~miss,
+                                                        rk.patch_groups(*c.shape, c.device))
+    differ = (fused[0] != row[0]).any(dim=-1).reshape(-1)
+    stats["fused_vs_row_differing_far_hits"] = int((differ & far_hit).sum())
+    stats["fused_vs_row_differing_other_pixels"] = int((differ & ~far_hit).sum())
+    print(f"split frame {SCENE_FRAME}: {json.dumps(stats)}")
+    check(stats["fused_vs_row_differing_other_pixels"] == 0,
+          f"the fused and the row images differ beyond far patches' hits: {stats}")
+
+    # the row tail after phase A, listed in patch order (tail_list): the
+    # listed launch alone from phase A's state (split_probe.listed_tail_ms)
+    # and its warps
+    split_c = rk.scene_desc_c(desc, cfg, device, split)
+    frame = rk._Frame(desc, o, d, c, cfg, True, 1.0, split)
+    tails = {}
+    for n in PHASE_A_STEPS:
+        phase_a = frame.trace(n)
+        listed = rk.tail_list(phase_a[3], split)
+        ms, final = probe.listed_tail_ms(graph_ms, rk, split_c, (o, d, c), phase_a, listed,
+                                         cfg.step_limit)
+        index = listed[0][:int(listed[1].item())].long()
+        tails[n] = {"ms": ms, **probe.tail_stats(rk, split, o, d, c, phase_a, final, index, cfg)}
+    print(f"split row tails on {card} (patch order): {json.dumps(tails)}")
+
+    # alone, from prepared structs, with and without the split; the bounds
+    # charge a near evaluation or stencil point where frame_beyond proves
+    # the wireframe's term larger at the object's count and the bound's
     work, rays_of = split_work(rk, desc.bounds, split, o, d, c, k1_planes, cfg)
     (ef, af, hf), (en, an, hn) = work["far"], work["near"]
+    proofs = near_proofs(rk, desc, split, o, d, c, k1_planes, cfg)
+    check(proofs["replay_equal"], f"the near patches' replayed march differs from K1 · split's "
+                                  f"planes: {proofs}")
     far = split[0]
-    k1_ops = (march_ops(far, ef, af, 0) + march_ops(desc, en, an, 0)
-              + (hf + hn) * profiling.shade_ops(desc) + npix * profiling.RAY)
-    k1_bound = bound(render_bytes(npix), k1_ops)
-    k2_ops = march_ops(far, ef, af, npix) + march_ops(desc, en, an, 0)
-    k2_bound = bound(trace_bytes(npix), k2_ops)
-    rgb = torch.empty((*c.shape, 3), device=device)
-    planes = tuple(torch.empty_like(c, dtype=t) for t in (torch.float32, torch.int32, torch.int32))
+    k1_rest = march_ops(far, ef, af, 0) + hf * profiling.shade_ops(far) + npix * profiling.RAY
+    k1_bound = bound(render_bytes(npix), k1_rest
+                     + profiling.near_march_ops(desc, en, an, proofs["proved_evaluations"])
+                     + profiling.near_shade_ops(desc, hn, proofs["proved_stencil_points"]))
+    k1_full = bound(render_bytes(npix), k1_rest + march_ops(desc, en, an, 0)
+                    + hn * profiling.shade_ops(desc))
+    k2_far = march_ops(far, ef, af, npix)
+    k2_bound = bound(trace_bytes(npix), k2_far
+                     + profiling.near_march_ops(desc, en, an, proofs["proved_evaluations"]))
+    k2_full = bound(trace_bytes(npix), k2_far + march_ops(desc, en, an, 0))
+    print(f"split near proofs {SCENE_FRAME}: {json.dumps(proofs)}; K1 bound {k1_bound[0]:.4f} ms "
+          f"({k1_bound[1]}), {k1_full[0]:.4f} with every near evaluation and stencil point at "
+          f"the full scene's count; K2 bound {k2_bound[0]:.4f} ms ({k2_bound[1]}), "
+          f"{k2_full[0]:.4f} so")
     alone = {}
-    for label, sp in (("split", split), ("unsplit", None)):
-        desc_c = rk.scene_desc_c(desc, cfg, device, sp)
-        alone[f"K1 {label}"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
-                                                                cap=cfg.step_limit))
-        alone[f"K2 {label}"] = graph_ms(lambda: rk._trace_cuda(desc_c, o, d, c, None, planes,
-                                                               cap=cfg.step_limit))
-    k1_plain = twins[False][1]
-    k2_plain = median_ms(lambda: rk.trace_planes_torch(desc, o, d, c, split=split), runs=1,
-                         warmup=0)
-    print(f"split alone {SCENE_FRAME} on {card}: {json.dumps(alone)}; {rays_of['far_rays']} of "
-          f"{rays_of['rays']} rays in far patches; evaluations far {ef}, near {en}; K1 bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); "
-          f"plain K1 {k1_plain:.1f} ms, K2 {k2_plain:.1f} ms")
+    for size in SPLIT_FRAMES:
+        so, sd, sc = rays(*size, device)
+        rgb = torch.empty((*sc.shape, 3), device=device)
+        planes = tuple(torch.empty_like(sc, dtype=t)
+                       for t in (torch.float32, torch.int32, torch.int32))
+        for label, sp in (("split", split), ("unsplit", None)):
+            desc_c = rk.scene_desc_c(desc, cfg, device, sp)
+            key = f"{label} {size[0]}x{size[1]}"
+            alone[f"K1 {key}"] = graph_ms(lambda: rk._render_cuda(desc_c, so, sd, sc, rgb, None,
+                                                                  cap=cfg.step_limit))
+            alone[f"K2 {key}"] = graph_ms(lambda: rk._trace_cuda(desc_c, so, sd, sc, None, planes,
+                                                                 cap=cfg.step_limit))
+    frame_key = f"{SCENE_FRAME[0]}x{SCENE_FRAME[1]}"
+    print(f"split alone on {card}: {json.dumps(alone)}; {rays_of['far_rays']} of "
+          f"{rays_of['rays']} rays in far patches; evaluations far {ef}, near {en}; hits far {hf}, "
+          f"near {hn}; K1 bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 bound {k2_bound[0]:.4f} "
+          f"ms ({k2_bound[1]}); plain K1 {k1_plain:.1f} ms, K2 {k2_plain:.1f} ms")
 
     # K4 and K5 with the split
     true = shape_params(scene)
@@ -5364,14 +5503,16 @@ def split_phases(card: str, device, main_launches: dict) -> list[dict]:
                  f"{SCENE_FRAME[1]})", "source": rk.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336",
          "launches": main_launches["cli render"]["K1 split"], "max_abs_err": k1_err,
-         "ms": alone["K1 split"],
-         "plain_ms": k1_plain, "bound_ms": k1_bound[0], "bound_by": k1_bound[1], **common},
+         "ms": alone[f"K1 split {frame_key}"],
+         "plain_ms": k1_plain, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "bound_full_scene_near_ms": k1_full[0], **common},
         {"name": f"K2 trace_split_kernel<Box<true, false>> (near/far split, {SCENE_FRAME[0]}x"
                  f"{SCENE_FRAME[1]})", "source": rk.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:495",
          "launches": main_launches["cli bench --two-phase row"]["K2 split"], "max_abs_err": k2_err,
-         "ms": alone["K2 split"],
-         "plain_ms": k2_plain, "bound_ms": k2_bound[0], "bound_by": k2_bound[1], **common},
+         "ms": alone[f"K2 split {frame_key}"],
+         "plain_ms": k2_plain, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "bound_full_scene_near_ms": k2_full[0], **common},
         {"name": "K4 march_params_split_kernel (near/far split, 512x512; march_params_cuda with "
                  "split=)", "source": dk.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/diff_kernel.py:60", "launches": k4_launches,

@@ -164,7 +164,8 @@ def test_split_render_meets_jax_bars_against_jax_split(frame):
 
 def test_split_twin_groups_rays_as_the_kernels(frame):
     """The twin's vote: a far decision is one per 8x4 patch (K1, K2), or per
-    32 listed rays (K2's listed tail); some patches go far and some not."""
+    32 listed rays of the row tail's list, which ``tail_list`` keeps in
+    8x4-patch order (K2's listed tail); some patches go far and some not."""
     _, desc, split, _, (o, d, c) = frame
     h, w = c.shape
     planes = rk._flat_rays(o, d, c)
@@ -175,9 +176,12 @@ def test_split_twin_groups_rays_as_the_kernels(frame):
     assert far.any() and not far.all()
     flags = torch.zeros(h * w, dtype=torch.int32)
     flags[::3] = 1
-    index, count = rk.compact_list(flags)
+    index, count = rk.tail_list(flags.reshape(h, w), split)
     groups = rk.listed_groups(index, count, h * w)
-    assert (groups[::3] == torch.arange(int(count)) // 32).all() and (groups[1::3] == -1).all()
+    order = rk.patch_order(h, w, "cpu").long()
+    in_order = order[flags[order] != 0]
+    assert (groups[in_order] == torch.arange(int(count)) // 32).all()
+    assert (groups[1::3] == -1).all()
     listed = rk.far_rays(split, *planes, MarchConfig(), flags != 0, groups)
     for g in range(int(groups.max()) + 1):
         members = listed[groups == g]
