@@ -12,12 +12,28 @@
 // descriptor owns and SceneDesc points at. A primitive pushes its value, a
 // fold (union min, intersect max, subtract max(a, -b), smooth_union) pops
 // two values and pushes one, shell maps the top; transform and wrap push a
-// coordinate frame before their child and pop it after. Every thread of a
-// warp reads the same instruction, so the loads are broadcasts through the
-// read-only cache. Composed, the small tier, keeps its stacks in small
-// arrays in local memory, for programs within the caps of program.cuh;
-// ComposedLarge, the large tier, in the scratch buffer SceneDesc::scratch,
-// for any program (program.cuh SpilledSlots).
+// coordinate frame before their child and pop it after. Composed, the small
+// tier, walks it in two ways. The taped walk (composed_forward, for the
+// gradient of K6 and K7) reads the rows from device memory and keeps its
+// stacks in small arrays in local memory, for programs within the caps of
+// program.cuh. The forward walk (composed_sdf: scene_sdf of K1, K2, K3 and
+// of K6's and K7's normals) reads csdf.py::walk_words from shared memory,
+// where each block stages them once (stage_walk): every thread of a warp
+// reads the same word, a broadcast off the global-load chain, and an
+// instruction carries only the constants it uses. Its top of the stack is
+// a register; a fold whose right operand is one primitive is fused into
+// it, so a union's chain of primitives touches no memory, and only a
+// right-nested operand (the stack below the top) or a frame does. No tape,
+// so no length cap: the caps of the stack and the frames, and the
+// BSDMG_WALK_WORDS a block stages. One walk serves N points at once
+// (composed_sdf_n): K3's and K7's fd4 stencils walk the four points of an
+// axis together, each instruction read and dispatched once for four.
+// ComposedLarge, the large tier, keeps the stacks of both walks in the
+// scratch buffer SceneDesc::scratch, for any program (program.cuh
+// SpilledSlots); csdf.py::large_tier picks the tier per walk. (A constant
+// bank written per launch, a warp in step for uniform loads, one switch an
+// instruction and 16-byte rows were tried and measured slower: PERF.md,
+// composed K1.)
 //
 // The gradient is reverse mode, as jax.vjp of the JAX package's baked SDF
 // takes it: the forward pass keeps every instruction's value on a tape (of
@@ -30,32 +46,60 @@
 //
 // Twins: _program_csdf and _program_value_and_grad in ops/cuda/csdf.py,
 // operation for operation; under -fmad=false each equals its twin bit for
-// bit. What bounds it: its FP32 operations per evaluation
+// bit, and walk_csdf, which reads the forward walk's words, equals
+// _program_csdf bit for bit. What bounds it: its FP32 operations per evaluation
 // (utils/profiling.py program_ops), as the fixed structures; the
-// interpreter adds a switch and local-memory stack traffic per instruction.
+// interpreter adds a uniform load and branch per instruction (and the
+// taped walk's local-memory stack traffic).
 
 #pragma once
 
 #include "program.cuh"
 
-#define BSDMG_WORDS 16    // csdf.py PROGRAM_WORDS
+#define BSDMG_WORDS 16         // csdf.py PROGRAM_WORDS
+#define BSDMG_WALK_WORDS 8192  // csdf.py WALK_CAP
+#define BSDMG_WALK_SET 0       // csdf.py WALK_SET
+#define BSDMG_WALK_PUSH 1      // csdf.py WALK_PUSH
 
 // constant i of the instruction at w
 __device__ __forceinline__ float prog_k(const int* w, int i) { return __int_as_float(__ldg(w + 2 + i)); }
 
-// the child frame's coordinates of the push at w: a wrap per axis, or a
+// the forward walk's words (csdf.py walk_words), staged by stage_walk in
+// the block's dynamic shared memory
+extern __shared__ int bsdmg_walk[];
+
+// the constants of an instruction, k(i) its i-th: a row of the program in
+// device memory (the taped walk), or words of the walk in shared memory
+struct RowWords {
+  const int* w;
+  __device__ __forceinline__ float operator()(int i) const { return prog_k(w, i); }
+};
+struct WalkWords {
+  int at;  // the word of constant 0
+  __device__ __forceinline__ float operator()(int i) const {
+    return __int_as_float(bsdmg_walk[at + i]);
+  }
+};
+
+// the child frame's coordinates of the push `op`: a wrap per axis, or a
 // transform's x - offset and then the rows of R^T (r00*x + r10*y + r20*z)
-__device__ __forceinline__ void frame_coords(const int* w, float& x, float& y, float& z) {
-  if (__ldg(w) == OP_PUSH_WRAP) {
-    x = wrap_axis(x, prog_k(w, 0), prog_k(w, 3));
-    y = wrap_axis(y, prog_k(w, 1), prog_k(w, 4));
-    z = wrap_axis(z, prog_k(w, 2), prog_k(w, 5));
+template <class K>
+__device__ __forceinline__ void frame_coords(int op, const K& k, float& x, float& y, float& z) {
+  if (op == OP_PUSH_WRAP) {
+    x = wrap_axis(x, k(0), k(3));
+    y = wrap_axis(y, k(1), k(4));
+    z = wrap_axis(z, k(2), k(5));
     return;
   }
-  const float tx = x - prog_k(w, 0), ty = y - prog_k(w, 1), tz = z - prog_k(w, 2);
-  x = (prog_k(w, 3) * tx + prog_k(w, 6) * ty) + prog_k(w, 9) * tz;
-  y = (prog_k(w, 4) * tx + prog_k(w, 7) * ty) + prog_k(w, 10) * tz;
-  z = (prog_k(w, 5) * tx + prog_k(w, 8) * ty) + prog_k(w, 11) * tz;
+  const float tx = x - k(0), ty = y - k(1), tz = z - k(2);
+  x = (k(3) * tx + k(6) * ty) + k(9) * tz;
+  y = (k(4) * tx + k(7) * ty) + k(10) * tz;
+  z = (k(5) * tx + k(8) * ty) + k(11) * tz;
+}
+
+// the same of the push at w, a row of the program
+__device__ __forceinline__ void frame_coords(const int* w, float& x, float& y, float& z) {
+  frame_coords(__ldg(w), RowWords{w}, x, y, z);
 }
 
 // one axis d of the box skeleton (sd_box_skeleton_c): the capsules along d
@@ -64,17 +108,18 @@ struct SkeletonAxis {
   float r, mx, t, e, o1, o1b, o2, o2b, q1, q1b, q2, q2b, m1, m2, d2;
 };
 
-__device__ __forceinline__ void skeleton_axis(const int* w, int d, const float c[3],
+template <class K>
+__device__ __forceinline__ void skeleton_axis(const K& k, int d, const float c[3],
                                               SkeletonAxis& a) {
   const int a1 = (d + 1) % 3, a2 = (d + 2) % 3;
-  a.r = c[d] - prog_k(w, d);
+  a.r = c[d] - k(d);
   a.mx = vmaxn(a.r, 0.0f);
-  a.t = vminn(a.mx, prog_k(w, 3 + d));
+  a.t = vminn(a.mx, k(3 + d));
   a.e = a.r - a.t;
-  a.o1 = c[a1] - prog_k(w, a1);
-  a.o1b = a.o1 - prog_k(w, 6 + d);
-  a.o2 = c[a2] - prog_k(w, a2);
-  a.o2b = a.o2 - prog_k(w, 3 + a2);
+  a.o1 = c[a1] - k(a1);
+  a.o1b = a.o1 - k(6 + d);
+  a.o2 = c[a2] - k(a2);
+  a.o2b = a.o2 - k(3 + a2);
   a.q1 = a.o1 * a.o1;
   a.q1b = a.o1b * a.o1b;
   a.q2 = a.o2 * a.o2;
@@ -84,52 +129,57 @@ __device__ __forceinline__ void skeleton_axis(const int* w, int d, const float c
   a.d2 = (a.e * a.e + a.m1) + a.m2;
 }
 
-// a primitive's value (csdf.py _primitive_value)
-__device__ __forceinline__ float primitive_value(int op, const int* w, float x, float y, float z) {
+// a primitive's value (csdf.py _primitive_value), its constants k
+template <class K>
+__device__ __forceinline__ float primitive_value(int op, const K& k, float x, float y, float z) {
   if (op == OP_PLANE) {
-    return ((x * prog_k(w, 0) + y * prog_k(w, 1)) + z * prog_k(w, 2)) * prog_k(w, 3) - prog_k(w, 4);
+    return ((x * k(0) + y * k(1)) + z * k(2)) * k(3) - k(4);
   }
   if (op == OP_SKELETON) {
     const float c[3] = {x, y, z};
     SkeletonAxis a;
-    skeleton_axis(w, 0, c, a);
+    skeleton_axis(k, 0, c, a);
     float best = a.d2;
-    skeleton_axis(w, 1, c, a);
+    skeleton_axis(k, 1, c, a);
     best = vminn(best, a.d2);
-    skeleton_axis(w, 2, c, a);
+    skeleton_axis(k, 2, c, a);
     best = vminn(best, a.d2);
-    return sqrtf(best) - prog_k(w, 9);
+    return sqrtf(best) - k(9);
   }
-  const float px = x - prog_k(w, 0), py = y - prog_k(w, 1), pz = z - prog_k(w, 2);
+  const float px = x - k(0), py = y - k(1), pz = z - k(2);
   switch (op) {
     case OP_SPHERE:
-      return sqrtf((px * px + py * py) + pz * pz) - prog_k(w, 3);
+      return sqrtf((px * px + py * py) + pz * pz) - k(3);
     case OP_BOX: {
-      const float qx = fabsf(px) - prog_k(w, 3);
-      const float qy = fabsf(py) - prog_k(w, 4);
-      const float qz = fabsf(pz) - prog_k(w, 5);
+      const float qx = fabsf(px) - k(3);
+      const float qy = fabsf(py) - k(4);
+      const float qz = fabsf(pz) - k(5);
       const float ox = vmaxn(qx, 0.0f), oy = vmaxn(qy, 0.0f), oz = vmaxn(qz, 0.0f);
       const float outside = sqrtf((ox * ox + oy * oy) + oz * oz);
       return outside + vminn(vmaxn(qx, vmaxn(qy, qz)), 0.0f);
     }
     case OP_CAPSULE: {
-      const float sx = prog_k(w, 3), sy = prog_k(w, 4), sz = prog_k(w, 5);
-      const float q = ((px * sx + py * sy) + pz * sz) / prog_k(w, 6);
+      const float sx = k(3), sy = k(4), sz = k(5);
+      const float q = ((px * sx + py * sy) + pz * sz) / k(6);
       const float t = vminn(vmaxn(q, 0.0f), 1.0f);
       const float dx = px - t * sx, dy = py - t * sy, dz = pz - t * sz;
-      return sqrtf((dx * dx + dy * dy) + dz * dz) - prog_k(w, 7);
+      return sqrtf((dx * dx + dy * dy) + dz * dz) - k(7);
     }
     case OP_TORUS: {
-      const float ring = sqrtf(px * px + pz * pz) - prog_k(w, 3);
-      return sqrtf(ring * ring + py * py) - prog_k(w, 4);
+      const float ring = sqrtf(px * px + pz * pz) - k(3);
+      return sqrtf(ring * ring + py * py) - k(4);
     }
     default: {  // OP_CYLINDER
-      const float dr = sqrtf(px * px + pz * pz) - prog_k(w, 3);
-      const float dy = fabsf(py) - prog_k(w, 4);
+      const float dr = sqrtf(px * px + pz * pz) - k(3);
+      const float dy = fabsf(py) - k(4);
       const float ox = vmaxn(dr, 0.0f), oy = vmaxn(dy, 0.0f);
       return vminn(vmaxn(dr, dy), 0.0f) + sqrtf(ox * ox + oy * oy);
     }
   }
+}
+
+__device__ __forceinline__ float primitive_value(int op, const int* w, float x, float y, float z) {
+  return primitive_value(op, RowWords{w}, x, y, z);
 }
 
 // ct * the gradient of a primitive, into (gx, gy, gz) (csdf.py
@@ -146,9 +196,9 @@ __device__ __forceinline__ void primitive_grad(int op, const int* w, float x, fl
   if (op == OP_SKELETON) {
     const float c[3] = {x, y, z};
     SkeletonAxis ax[3];
-    skeleton_axis(w, 0, c, ax[0]);
-    skeleton_axis(w, 1, c, ax[1]);
-    skeleton_axis(w, 2, c, ax[2]);
+    skeleton_axis(RowWords{w}, 0, c, ax[0]);
+    skeleton_axis(RowWords{w}, 1, c, ax[1]);
+    skeleton_axis(RowWords{w}, 2, c, ax[2]);
     const float best0 = ax[0].d2;
     const float best1 = vminn(best0, ax[1].d2);
     const float best2 = vminn(best1, ax[2].d2);
@@ -286,17 +336,22 @@ __device__ __forceinline__ void primitive_grad(int op, const int* w, float x, fl
 
 // a fold's value (csdf.py _fold_value); smooth_union is sdf smooth_min:
 // h = max(k - |a - b|, 0) / k, min(a, b) - ((h*h*h) * k) * f32(1/6)
-__device__ __forceinline__ float fold_value(int op, const int* w, float a, float b) {
+template <class K>
+__device__ __forceinline__ float fold_value(int op, const K& c, float a, float b) {
   switch (op) {
     case OP_MIN: return vminn(a, b);
     case OP_MAX: return vmaxn(a, b);
     case OP_SUB: return vmaxn(a, -b);
     default: {  // OP_SMOOTH
-      const float k = prog_k(w, 0);
+      const float k = c(0);
       const float h = vmaxn(k - fabsf(a - b), 0.0f) / k;
-      return vminn(a, b) - (((h * h) * h) * k) * prog_k(w, 1);
+      return vminn(a, b) - (((h * h) * h) * k) * c(1);
     }
   }
+}
+
+__device__ __forceinline__ float fold_value(int op, const int* w, float a, float b) {
+  return fold_value(op, RowWords{w}, a, b);
 }
 
 // the cotangents of a fold's operands a and b, whose value is out (csdf.py
@@ -373,8 +428,113 @@ __device__ __forceinline__ float composed_forward(const SceneDesc& s, float x, f
   return stack[0];
 }
 
+// the program's value at N points at once by the forward walk (csdf.py
+// walk_words, read on the CPU by walk_csdf), composed_forward's bit for bit
+// at each point, which the card checks against _program_csdf, the node
+// program's twin: an instruction is a header (opcode, action, its words)
+// and its constants, in the block's shared memory (stage_walk), read and
+// dispatched once and applied to every point in turn (K3's and K7's fd4
+// stencils walk the four points of an axis, project.cuh fd4_grad; the
+// others one, composed_sdf). A primitive sets the top, pushes the top below
+// it first, or folds its value into it (a fused fold, its constants after
+// the primitive's); an unfused fold pops its left operand. Only the stack
+// below the top and the frames are arrays in local memory.
+template <int N>
+__device__ __forceinline__ void composed_sdf_n(const SceneDesc& s, float (&x)[N], float (&y)[N],
+                                               float (&z)[N], float (&top)[N]) {
+  float stack[BSDMG_STACK][N];
+  float frames[BSDMG_FRAMES][3][N];
+  int sp = 0, fp = 0;
+#pragma unroll 1
+  for (int pc = 0; pc < s.walk_words;) {
+    const int head = bsdmg_walk[pc];
+    const int op = head & 15, action = (head >> 4) & 15, size = head >> 8;
+    if (op <= OP_PLANE) {
+      if (action == BSDMG_WALK_PUSH) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) stack[sp][j] = top[j];
+        ++sp;
+      }
+      float v[N];
+      switch (op) {  // each case one primitive, N times
+#define BSDMG_WALK_N(Op)                                                                      \
+  case Op:                                                                                  \
+    _Pragma("unroll") for (int j = 0; j < N; ++j) {                                         \
+      v[j] = primitive_value(Op, WalkWords{pc + 1}, x[j], y[j], z[j]);                      \
+    }                                                                                       \
+    break;
+        BSDMG_WALK_N(OP_SPHERE)
+        BSDMG_WALK_N(OP_BOX)
+        BSDMG_WALK_N(OP_CAPSULE)
+        BSDMG_WALK_N(OP_SKELETON)
+        BSDMG_WALK_N(OP_TORUS)
+        BSDMG_WALK_N(OP_CYLINDER)
+        default:
+          BSDMG_WALK_N(OP_PLANE)
+#undef BSDMG_WALK_N
+      }
+      if (action <= BSDMG_WALK_PUSH) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) top[j] = v[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          top[j] = fold_value(action, WalkWords{pc + size - 2}, top[j], v[j]);
+        }
+      }
+    } else if (op <= OP_SMOOTH) {
+      --sp;
+#pragma unroll
+      for (int j = 0; j < N; ++j) top[j] = fold_value(op, WalkWords{pc + 1}, stack[sp][j], top[j]);
+    } else if (op == OP_SHELL) {
+      const float t = WalkWords{pc + 1}(0);
+#pragma unroll
+      for (int j = 0; j < N; ++j) top[j] = fabsf(top[j]) - t;
+    } else if (op == OP_POP) {
+      --fp;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        x[j] = frames[fp][0][j];
+        y[j] = frames[fp][1][j];
+        z[j] = frames[fp][2][j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        frames[fp][0][j] = x[j];
+        frames[fp][1][j] = y[j];
+        frames[fp][2][j] = z[j];
+        frame_coords(op, WalkWords{pc + 1}, x[j], y[j], z[j]);
+      }
+      ++fp;
+    }
+    pc += size;
+  }
+}
+
+// the program's value at (x, y, z): composed_sdf_n at one point
 __device__ __forceinline__ float composed_sdf(const SceneDesc& s, float x, float y, float z) {
-  return composed_forward<false>(s, x, y, z, nullptr);
+  float xs[1] = {x}, ys[1] = {y}, zs[1] = {z}, top[1] = {0.0f};
+  composed_sdf_n<1>(s, xs, ys, zs, top);
+  return top[0];
+}
+
+// Copies the forward walk of s's program (its words follow the taped walk's
+// rows in s.program: csdf.py NodeProgram.on_device) into the block's
+// shared memory. Every thread of the block calls it, first; with `sync` it
+// waits for the block's copy, else a barrier of the kernel's own before the
+// first walk does.
+__device__ __forceinline__ void stage_walk(const SceneDesc& s, bool sync) {
+  const int* words = s.program + BSDMG_WORDS * s.program_length;
+  for (int k = threadIdx.x; k < s.walk_words; k += blockDim.x) bsdmg_walk[k] = __ldg(words + k);
+  if (sync) __syncthreads();
+}
+
+// Whether a Composed kernel takes s's program: within the small tier of the
+// forward walk (csdf.py large_tier), and with `taped` of the taped walk too.
+inline bool walk_fits(const SceneDesc& s, bool taped) {
+  return s.walk_words <= BSDMG_WALK_WORDS && s.program_depth <= BSDMG_STACK &&
+         s.program_frames <= BSDMG_FRAMES && !(taped && s.program_length > BSDMG_PROGRAM);
 }
 
 // the value (composed_sdf's bit for bit) and the gradient, reverse mode

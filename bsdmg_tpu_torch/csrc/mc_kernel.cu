@@ -94,6 +94,12 @@ __device__ __forceinline__ void store_block(T* __restrict__ dst, const T* src, i
   for (int k = done + threadIdx.x; k < count; k += kThreads) dst[k] = src[k];
 }
 
+// K6's fd4 stencils of a composed scene roll around single walks of the
+// program (project.cuh fd4_grad<S, true>): its four-point walk took K6 to
+// 100 registers and the lattice's K6 22% slower (PERF.md)
+template <class S>
+constexpr bool kSingleWalks = std::is_same<S, Composed>::value;
+
 // The launch bound's minimum of one block an SM is the register hint that
 // keeps ptxas from spilling: without it ptxas gave the reference structure
 // Box<false, false> 64 registers and 12 B of spill stores (Box<true, true>
@@ -117,6 +123,7 @@ mc_kernel(const SceneDesc s, const float* __restrict__ lx, const float* __restri
   __shared__ __align__(16) float out_pos[kVoxels * 45], out_nrm[kVoxels * 45];
   __shared__ __align__(16) float out_dot[kVoxels * 5];
   __shared__ __align__(16) int out_amb[kVoxels * 5];
+  stage_scene<S>(s, false);  // the barriers below order it
 
   const int tid = threadIdx.x;
   const int v0 = blockIdx.x * kVoxels;
@@ -177,9 +184,9 @@ mc_kernel(const SceneDesc s, const float* __restrict__ lx, const float* __restri
     float x = low[0][v] + vs * mid[e][0];
     float y = low[1][v] + vs * mid[e][1];
     float z = low[2][v] + vs * mid[e][2];
-    newton_project<S>(s, x, y, z, iters, tol, eps, use_grad);
+    newton_project<S, kSingleWalks<S>>(s, x, y, z, iters, tol, eps, use_grad);
     float qx, qy, qz;
-    unit_normal_fd4<S>(s, x, y, z, eps, qx, qy, qz);
+    unit_normal_fd4<S, kSingleWalks<S>>(s, x, y, z, eps, qx, qy, qz);
     proj[0][j] = x;
     proj[1][j] = y;
     proj[2][j] = z;
@@ -223,7 +230,7 @@ mc_kernel(const SceneDesc s, const float* __restrict__ lx, const float* __restri
       const float gz = e1x * e2y - e1y * e2x;
       float ax, ay, az;
       if (centroid_winding) {
-        fd4_grad<S>(s, ((vx[0][0] + vx[1][0]) + vx[2][0]) / 3.0f,
+        fd4_grad<S, kSingleWalks<S>>(s, ((vx[0][0] + vx[1][0]) + vx[2][0]) / 3.0f,
                     ((vx[0][1] + vx[1][1]) + vx[2][1]) / 3.0f,
                     ((vx[0][2] + vx[1][2]) + vx[2][2]) / 3.0f, eps, ax, ay, az);
         dot = (gx * ax + gy * ay) + gz * az;
@@ -270,8 +277,9 @@ extern "C" {
 // cross_bits, t0, t1 (n,) int32 in; pos and nrm (n, 45) float32, dot (n, 5)
 // float32, amb (n, 5) int32 and meta (n,) int32 out, all on the device.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
-// descriptor structure that names none, or a large-tier program whose
-// scratch does not hold the launch).
+// descriptor structure that names none, a large-tier program whose
+// scratch does not hold the launch, or a small-tier one beyond the caps of
+// its walks: composed.cuh walk_fits).
 int bsdmg_mc_fused(const SceneDesc* desc, const float* lx, const float* ly, const float* lz,
                    const int* cross_bits, const int* t0, const int* t1, float voxel_size, int n,
                    int budget, int iters, float tol, float eps, int use_grad,
@@ -282,12 +290,24 @@ int bsdmg_mc_fused(const SceneDesc* desc, const float* lx, const float* ly, cons
   if (!scratch_fits(*desc, (long long)grid.x * kThreads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool known = with_mesh_structure(desc->structure, [&](auto scene) {
-    mc_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  int err = cudaErrorInvalidValue;
+  with_mesh_structure(desc->structure, [&](auto scene) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const long long smem = scene_smem<decltype(scene)>(*desc, true);
+    if (smem < 0) return;
+    if (smem > 0) {
+      // the walk beside the kernel's 46 KB of static shared memory may pass
+      // the 48 KB a launch takes without asking
+      err = cudaFuncSetAttribute(mc_kernel<decltype(scene)>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return;
+    }
+    mc_kernel<decltype(scene)><<<grid, block, smem, st>>>(
         *desc, lx, ly, lz, cross_bits, t0, t1, voxel_size, n, budget, iters, tol, eps, use_grad,
         centroid_winding, pos, nrm, dot, amb, meta);
+    err = cudaGetLastError();
   });
-  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
+  return err;
 }
 
 }  // extern "C"

@@ -25,11 +25,35 @@
 // ran 3.5% slower in K3 (PERF.md). With Rolled both loops stay rolled
 // around one inlined SDF: K1's epilogue, which keeps K1's march at 32
 // registers (unrolled, K1 takes 43). A structure whose points share no
-// terms (S::unrolled false: the mandelbulb) keeps them rolled too.
+// terms (S::unrolled false: the mandelbulb) keeps them rolled too, but a
+// composed scene without Rolled, which walks the four points of each axis
+// at once (K3, K7).
 template <class S, bool Rolled = false>
 __device__ __forceinline__ void fd4_grad(const SceneDesc& s, float x, float y, float z, float eps,
                                          float& gx, float& gy, float& gz) {
   const float e1 = eps, e2 = 2.0f * eps;
+  if constexpr (std::is_same<S, Composed>::value && !Rolled) {
+    // a composed scene's four points of an axis in one walk (composed.cuh
+    // composed_sdf_n): the same points, values and sums (K1 and K6 pass
+    // Rolled, for their registers)
+#pragma unroll 1
+    for (int a = 0; a < 3; ++a) {
+      float px[4], py[4], pz[4], f[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float off = k == 0 ? e2 : (k == 1 ? e1 : (k == 2 ? -e1 : -e2));
+        px[k] = a == 0 ? x + off : x;
+        py[k] = a == 1 ? y + off : y;
+        pz[k] = a == 2 ? z + off : z;
+      }
+      composed_sdf_n<4>(s, px, py, pz, f);
+      const float acc = ((-f[0] + 8.0f * f[1]) - 8.0f * f[2]) + f[3];
+      if (a == 0) gx = acc;
+      else if (a == 1) gy = acc;
+      else gz = acc;
+    }
+    return;
+  }
   gx = gy = gz = 0.0f;
 #pragma unroll ((Rolled || !S::unrolled) ? 1 : 3)
   for (int a = 0; a < 3; ++a) {
@@ -59,12 +83,12 @@ __device__ __forceinline__ float inv_norm(float gx, float gy, float gz) {
   return 1.0f / sqrtf(m < 1e-24f ? 1e-24f : m);
 }
 
-// fd4 unit normal at (x, y, z)
-template <class S>
+// fd4 unit normal at (x, y, z) (fd4_grad<S, Rolled>)
+template <class S, bool Rolled = false>
 __device__ __forceinline__ void unit_normal_fd4(const SceneDesc& s, float x, float y, float z,
                                                 float eps, float& nx, float& ny, float& nz) {
   float gx, gy, gz;
-  fd4_grad<S>(s, x, y, z, eps, gx, gy, gz);
+  fd4_grad<S, Rolled>(s, x, y, z, eps, gx, gy, gz);
   const float inv = inv_norm(gx, gy, gz);
   nx = gx * inv;
   ny = gy * inv;
@@ -75,7 +99,8 @@ __device__ __forceinline__ void unit_normal_fd4(const SceneDesc& s, float x, flo
 // gradient (use_grad) or the fd4 one. A point stops after the step at which
 // |sd| <= tol, as each lane of the JAX kernels does
 // (ops/pallas/mesh_kernel.py::_project_kernel). Returns the steps taken.
-template <class S>
+// Rolled as fd4_grad's.
+template <class S, bool Rolled = false>
 __device__ __forceinline__ int newton_project(const SceneDesc& s, float& x, float& y, float& z,
                                               int iters, float tol, float eps, int use_grad) {
   int i = 0;
@@ -86,7 +111,7 @@ __device__ __forceinline__ int newton_project(const SceneDesc& s, float& x, floa
       scene_sdf_grad<S>(s, x, y, z, sd, gx, gy, gz);
     } else {
       sd = scene_sdf<S>(s, x, y, z);
-      fd4_grad<S>(s, x, y, z, eps, gx, gy, gz);
+      fd4_grad<S, Rolled>(s, x, y, z, eps, gx, gy, gz);
     }
     const float inv = inv_norm(gx, gy, gz);
     x = x - (sd * gx) * inv;

@@ -37,6 +37,7 @@ project_kernel(const SceneDesc s, const float* __restrict__ xs, const float* __r
                float tol, float eps, int use_grad, float* __restrict__ px,
                float* __restrict__ py, float* __restrict__ pz, float* __restrict__ nx,
                float* __restrict__ ny, float* __restrict__ nz) {
+  stage_scene<S>(s);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   float x = xs[i], y = ys[i], z = zs[i];
@@ -56,8 +57,9 @@ extern "C" {
 // Launches K7 on `stream` over m points: x, y, z (m,) float32 and active
 // (m,) int32 in, px, py, pz, nx, ny, nz (m,) float32 out, all on the device.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
-// descriptor structure that names none, or a large-tier program whose
-// scratch does not hold the launch).
+// descriptor structure that names none, a large-tier program whose
+// scratch does not hold the launch, or a small-tier one beyond the caps of
+// its walks: composed.cuh walk_fits).
 int bsdmg_project_edges(const SceneDesc* desc, const float* x, const float* y, const float* z,
                         const int* active, int m, int iters, float tol, float eps, int use_grad,
                         float* px, float* py, float* pz, float* nx, float* ny, float* nz,
@@ -65,11 +67,16 @@ int bsdmg_project_edges(const SceneDesc* desc, const float* x, const float* y, c
   const dim3 block(128);
   const dim3 grid((m + 127) / 128);
   if (!scratch_fits(*desc, (long long)grid.x * 128)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool known = with_mesh_structure(desc->structure, [&](auto scene) {
-    project_kernel<decltype(scene)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  int err = cudaErrorInvalidValue;
+  with_mesh_structure(desc->structure, [&](auto scene) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const long long smem = scene_smem<decltype(scene)>(*desc, true);
+    if (smem < 0) return;
+    project_kernel<decltype(scene)><<<grid, block, smem, st>>>(
         *desc, x, y, z, active, m, iters, tol, eps, use_grad, px, py, pz, nx, ny, nz);
+    err = cudaGetLastError();
   });
-  return known ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
+  return err;
 }
 
 }  // extern "C"

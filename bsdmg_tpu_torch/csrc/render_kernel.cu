@@ -62,8 +62,11 @@
 // K1 · split shades a far patch's hits with the far scene, as JAX's fused
 // epilogue does, on full warps from a list of each block's hits; K3 shades
 // every hit with the full scene, as JAX's _shade_kernel does. A composed
-// scene's program beyond the small tier's caps runs in the ComposedLarge
-// instantiations, its stacks in SceneDesc::scratch (composed.cuh).
+// scene's program runs in the Composed instantiations by its forward walk
+// (composed.cuh composed_sdf: the words staged by each block in its shared
+// memory, the top of the stack in a register), or, beyond the caps of its
+// stack and frames, in the ComposedLarge ones, its stacks in
+// SceneDesc::scratch.
 //
 // Numerics: built without --use_fast_math (IEEE sqrtf and division) and
 // with -fmad=false (ops/cuda/build.py). Every float constant arrives as the
@@ -290,6 +293,7 @@ __device__ __forceinline__ bool k1_block(const int* __restrict__ blocks,
 
 template <class S, bool Cull, bool Relaxed, int Mode>
 __device__ __forceinline__ void render_pixel(K1_PARAMS) {
+  stage_scene<S>(s);  // every thread of the block, before any leaves
   int bx, by;
   if (!k1_block<Mode>(blocks, count, w, bx, by)) return;
   int px, py;
@@ -486,6 +490,7 @@ __device__ __forceinline__ void write_trace(const SceneDesc& s, float* depth_out
 
 template <class S, bool Cull, bool Relaxed, bool Listed>
 __device__ __forceinline__ void trace_ray(K2_PARAMS) {
+  stage_scene<S>(s);  // every thread of the block, before any leaves
   long long i;
   if (Listed) {
     const int t = blockIdx.x * 128 + threadIdx.x;
@@ -574,6 +579,7 @@ shade_kernel(const SceneDesc s, const float* __restrict__ origins,
   __shared__ int warp_hits[4];
   __shared__ unsigned char listed[128];  // the hits' threads, in thread order
   __shared__ float flat[2][3];            // ACES of white and of black
+  stage_scene<S>(s, false);  // the barriers below order it
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   int px, py;
   block_pixel(blockIdx.x, blockIdx.y, px, py);
@@ -651,16 +657,18 @@ static int launch_render(int mode, cudaStream_t stream, const SceneDesc& s, cons
   const dim3 grid((w + 15) / 16, (h + 7) / 8);
   // RESUME: the worst case, every block listed, as many threads
   if (!scratch_fits(s, (long long)grid.x * grid.y * 128)) return cudaErrorInvalidValue;
+  const long long smem = scene_smem<S>(s, false);
+  if (smem < 0) return cudaErrorInvalidValue;
   if (mode == K1_FRESH) {
-    k1_kernel<S, Cull, Relaxed, K1_FRESH, Split>()<<<grid, block, 0, stream>>>(
+    k1_kernel<S, Cull, Relaxed, K1_FRESH, Split>()<<<grid, block, smem, stream>>>(
         s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
         omega, h, w);
   } else if (mode == K1_PHASE_A) {
-    k1_kernel<S, Cull, Relaxed, K1_PHASE_A, Split>()<<<grid, block, 0, stream>>>(
+    k1_kernel<S, Cull, Relaxed, K1_PHASE_A, Split>()<<<grid, block, smem, stream>>>(
         s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
         omega, h, w);
   } else {
-    k1_kernel<S, Cull, Relaxed, K1_RESUME, Split>()<<<grid.x * grid.y, block, 0, stream>>>(
+    k1_kernel<S, Cull, Relaxed, K1_RESUME, Split>()<<<grid.x * grid.y, block, smem, stream>>>(
         s, origins, directions, cone, rgb, depth, steps, outcome, active, blocks, count, cap,
         omega, h, w);
   }
@@ -674,18 +682,20 @@ static int launch_trace(cudaStream_t stream, const SceneDesc& s, const float* or
                         int* steps, int* outcome, int* active, const int* rays, const int* count,
                         int cap, float omega, int h, int w) {
   const dim3 block(128);
+  const long long smem = scene_smem<S>(s, false);
+  if (smem < 0) return cudaErrorInvalidValue;
   if (rays != nullptr) {
     // the worst case: every ray listed
     const long long n = (long long)h * w;
     const unsigned blocks = static_cast<unsigned>((n + 127) / 128);
     if (!scratch_fits(s, (long long)blocks * 128)) return cudaErrorInvalidValue;
-    k2_kernel<S, Cull, Relaxed, true, Split>()<<<blocks, block, 0, stream>>>(
+    k2_kernel<S, Cull, Relaxed, true, Split>()<<<blocks, block, smem, stream>>>(
         s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps, outcome,
         active, rays, count, cap, omega, h, w);
   } else {
     const dim3 grid((w + 15) / 16, (h + 7) / 8);
     if (!scratch_fits(s, (long long)grid.x * grid.y * 128)) return cudaErrorInvalidValue;
-    k2_kernel<S, Cull, Relaxed, false, Split>()<<<grid, block, 0, stream>>>(
+    k2_kernel<S, Cull, Relaxed, false, Split>()<<<grid, block, smem, stream>>>(
         s, origins, directions, cone, depth0, steps0, outcome0, active0, depth, steps, outcome,
         active, rays, count, cap, omega, h, w);
   }
@@ -793,7 +803,9 @@ static int shade_in_unit(SHADE_PARAMS) {
   with_structure(desc->structure, [&](auto scene) {
     typedef decltype(scene) S;
     if constexpr (RenderSecondUnit<S, false>::value == kSecondUnit) {
-      shade_kernel<S><<<grid, dim3(128), 0, static_cast<cudaStream_t>(stream)>>>(
+      const long long smem = scene_smem<S>(*desc, false);
+      if (smem < 0) return;
+      shade_kernel<S><<<grid, dim3(128), smem, static_cast<cudaStream_t>(stream)>>>(
           *desc, origins, directions, depth, outcome, rgb, h, w);
       err = cudaGetLastError();
     } else {
@@ -826,8 +838,10 @@ int bsdmg_shade_second_unit(SHADE_PARAMS);
 // descriptor's `structure` the scene's instantiation and its `split` the
 // near/far split; cap is the step budget of modes 1 and 2, omega the
 // relaxation. Returns the cudaError_t of the launch (cudaErrorInvalidValue
-// for a structure that names none, a split it is not built for, or a
-// large-tier program whose scratch does not hold the launch).
+// for a structure that names none, a split it is not built for, a
+// large-tier program whose scratch does not hold the launch, or a
+// small-tier one beyond the caps of the forward walk: composed.cuh
+// walk_fits).
 int bsdmg_render(RENDER_PARAMS) {
   const int err = render_in_unit(RENDER_ARGS);
   return err == OTHER_UNIT ? bsdmg_render_second_unit(RENDER_ARGS) : err;

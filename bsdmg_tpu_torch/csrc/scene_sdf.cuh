@@ -51,6 +51,8 @@
 
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "grid_sdf.cuh"
 #include "mandelbulb.cuh"
@@ -108,10 +110,13 @@ struct SceneDesc {
   float cell;         // Wrapped: the lattice period
   float half_cell;    // float32(cell / 2)
   // Composed: the node program in device memory, program_length
-  // instructions of BSDMG_WORDS words (csdf.py program_words); the
-  // descriptor on the host owns the buffer
+  // instructions of BSDMG_WORDS words (csdf.py program_words), then the
+  // walk_words words of its forward walk (csdf.py walk_words), which each
+  // block stages in shared memory (stage_walk); the descriptor on the host
+  // owns the buffer
   const int* program;
   int program_length;
+  int walk_words;
   // Grid: a mesh asset's baked (r, r, r) table in device memory, C order,
   // its box, and the offset added to each point first (0 for none); the
   // descriptor on the host keeps the table alive
@@ -193,9 +198,12 @@ struct Wrapped {
 
 // a composed scene: the node program is data, which composed.cuh's
 // interpreter reads instruction by instruction; the stencil stays rolled
-// around it. Composed is the small tier (stacks in local arrays, programs
-// within program.cuh's caps), ComposedLarge the large tier (stacks in
-// SceneDesc::scratch, any program); csdf.py::large_tier picks one
+// around it (K3's and K7's walk an axis's four points at once: project.cuh
+// fd4_grad). Composed is the small tier (the forward walk's words in the
+// block's shared memory and its top of the stack in a register, the taped
+// walk's stacks in local arrays, programs within program.cuh's caps of
+// each walk), ComposedLarge the large tier (stacks in SceneDesc::scratch,
+// any program); csdf.py::large_tier picks one per walk
 struct Composed {
   static constexpr SceneKind kind = KIND_COMPOSED;
   static constexpr bool unrolled = false;
@@ -618,6 +626,28 @@ __device__ __forceinline__ float wrap_coord(const SceneDesc& s, float v) {
 }
 
 #include "composed.cuh"
+
+// The dynamic shared memory of a launch of structure S, in bytes: a
+// Composed program's forward walk (stage_walk), none for any other; -1 for
+// a program that a Composed kernel does not take (walk_fits; `taped` for
+// K6 and K7, which walk the tape too), which the launch refuses.
+template <class S>
+inline long long scene_smem(const SceneDesc& s, bool taped) {
+  if constexpr (std::is_same<S, Composed>::value) {
+    return walk_fits(s, taped) ? static_cast<long long>(sizeof(int)) * s.walk_words : -1;
+  } else {
+    return 0;
+  }
+}
+
+// the start of a kernel of structure S, which every thread of the block
+// runs: a Composed program's forward walk into shared memory (stage_walk;
+// `sync` false where a barrier of the kernel's own follows before the first
+// walk)
+template <class S>
+__device__ __forceinline__ void stage_scene(const SceneDesc& s, bool sync = true) {
+  if constexpr (std::is_same<S, Composed>::value) stage_walk(s, sync);
+}
 
 // ---------------------------------------------------------------------------
 // the scene SDF of structure S, and its value and gradient

@@ -140,11 +140,19 @@ PROGRAM_CONSTANTS = PROGRAM_WORDS - 2
 #: nested coordinate frames; and of its parameter vector (csrc/param_sdf.cuh
 #: BSDMG_MAX_PARAMS). A program beyond any of them runs in the large tier
 #: (:func:`large_tier`), which has none. The three example scenes take at
-#: most 10 instructions, 3 values and 1 frame.
+#: most 10 instructions, 3 values and 1 frame. The forward walk of K1, K2
+#: and K3 (:func:`walk_words`) keeps no tape, so PROGRAM_CAP does not bind
+#: it; each block stages its words in shared memory, WALK_CAP of them
+#: (csrc/composed.cuh BSDMG_WALK_WORDS, 32 KB).
 PROGRAM_CAP = 64
 STACK_CAP = 16
 FRAME_CAP = 8
 PARAM_CAP = 64
+WALK_CAP = 8192
+#: a forward-walk primitive's action on the value on top of the stack (its
+#: header's bits 4-7; a fold's opcode there folds into it): the first value
+#: of the stack, or a push of the top below it
+WALK_SET, WALK_PUSH = 0, 1
 
 _PRIMITIVE_OPS = {"sphere": OP_SPHERE, "box": OP_BOX, "capsule": OP_CAPSULE,
                   "box_skeleton": OP_SKELETON, "torus": OP_TORUS, "cylinder": OP_CYLINDER,
@@ -279,14 +287,20 @@ def node_program(scene: Scene, params) -> tuple[Instruction, ...]:
     return tuple(Instruction(op, arg, constants(op, node)) for op, node, arg in postfix(root))
 
 
-def large_tier(prog, n_values: int = 0) -> bool:
+def large_tier(prog, n_values: int = 0, *, forward: bool = False) -> bool:
     """Whether a node or parameter program (with ``n_values`` parameter
     values) runs in the kernels' large tier: beyond any cap of the small
     tier (:data:`PROGRAM_CAP`, :data:`STACK_CAP`, :data:`FRAME_CAP`,
-    :data:`PARAM_CAP`). The one place the tier is chosen."""
+    :data:`PARAM_CAP`). With ``forward``, a node program's forward walk
+    alone (K1, K2, K3: no tape, so no length cap): beyond the stack's or
+    the frames' cap, or words beyond the :data:`WALK_CAP` that a block
+    stages in shared memory. The one place the tier is chosen."""
     depth, frames = program_depths(prog)
-    return (len(prog) > PROGRAM_CAP or depth > STACK_CAP or frames > FRAME_CAP
-            or n_values > PARAM_CAP)
+    if depth > STACK_CAP or frames > FRAME_CAP:
+        return True
+    if forward:
+        return len(walk_words(prog)) > WALK_CAP
+    return len(prog) > PROGRAM_CAP or n_values > PARAM_CAP
 
 
 def program_slots(length: int, depth: int, frames: int, *, grad: bool = False) -> int:
@@ -326,27 +340,71 @@ def program_words(prog) -> np.ndarray:
     return words
 
 
+def walk_words(prog) -> np.ndarray:
+    """The node program's forward walk as K1, K2 and K3 read it from shared
+    memory (csrc/composed.cuh composed_sdf): int32 words, an instruction a
+    header (opcode in bits 0-3, action in 4-7, its words in 8-31) and the
+    float32 bits of the constants it uses. The value on top of the stack
+    lives in a register: a fold whose right operand is one
+    primitive, inside any frames, is fused into that primitive (its action
+    the fold's opcode, a smooth union's two constants after the
+    primitive's), which folds its value into the top as ``fold(top,
+    value)``, the fold's operand order; any other primitive sets the top
+    (the stack empty: :data:`WALK_SET`) or pushes the top below it
+    (:data:`WALK_PUSH`), and a fold left unfused pops its left operand.
+    Shell, push and pop as in the node program, with the constants they
+    use."""
+    fused = {}  # a primitive's index: the index of the fold fused into it
+    frames = (OP_PUSH_TRANSFORM, OP_PUSH_WRAP, OP_POP)
+    for i, ins in enumerate(prog):
+        if OP_MIN <= ins.op <= OP_SMOOTH:
+            right = range(ins.arg + 1, i)
+            prims = [j for j in right if prog[j].op <= OP_PLANE]
+            if len(prims) == 1 and all(prog[j].op in frames for j in right if j != prims[0]):
+                fused[prims[0]] = i
+    words, depth = [], 0
+    for i, ins in enumerate(prog):
+        consts, action = ins.constants, 0
+        if ins.op <= OP_PLANE:
+            if i in fused:
+                fold = prog[fused[i]]
+                action, consts = fold.op, consts + fold.constants
+            else:
+                action, depth = WALK_SET if depth == 0 else WALK_PUSH, depth + 1
+        elif ins.op <= OP_SMOOTH:
+            if i in fused.values():
+                continue
+            depth -= 1
+        words.append(ins.op | action << 4 | (1 + len(consts)) << 8)
+        words.extend(np.asarray(consts, np.float32).view(np.int32).tolist())
+    return np.asarray(words, np.int32)
+
+
 class NodeProgram:
     """A composed scene's node program: the instructions, which the plain
-    twins interpret, and the words the kernels read, uploaded to each CUDA
-    device once and kept here (the descriptor owns the buffer)."""
+    twins interpret, the words the kernels read (the taped walk's rows of
+    :data:`PROGRAM_WORDS`, then the forward walk's :func:`walk_words`),
+    uploaded to each CUDA device once and kept here (the descriptor owns the
+    buffer)."""
 
     def __init__(self, instructions: tuple[Instruction, ...]):
         self.instructions = instructions
         self.words = program_words(instructions)
+        self.walk = walk_words(instructions)
         self._on_device: dict = {}
 
     def __len__(self) -> int:
         return len(self.instructions)
 
     def on_device(self, device: torch.device | str = "cuda") -> torch.Tensor:
-        """The words as an int32 tensor on the CUDA ``device`` ("cuda": the
-        current one)."""
+        """The words, the rows and then the walk, as one int32 tensor on the
+        CUDA ``device`` ("cuda": the current one)."""
         device = torch.device(device)
         if device.index is None:
             device = torch.device(device.type, torch.cuda.current_device())
         if device not in self._on_device:
-            self._on_device[device] = torch.from_numpy(self.words).to(device)
+            words = np.concatenate([self.words.reshape(-1), self.walk])
+            self._on_device[device] = torch.from_numpy(words).to(device)
         return self._on_device[device]
 
 
@@ -1045,8 +1103,61 @@ def _program_forward(prog, x, y, z):
 
 
 def _program_csdf(prog) -> CSdf:
-    """The program's value on coordinate planes: the twin of ``composed_sdf``."""
+    """The program's value on coordinate planes, every instruction's value
+    taped: the twin of the taped walk's value (``composed_forward``)."""
     return lambda x, y, z: _program_forward(prog, x, y, z)[-1]
+
+
+def _walk_instructions(walk: np.ndarray) -> list[tuple[int, int, tuple, tuple]]:
+    """The forward walk's words (:func:`walk_words`) read back as ``(op,
+    action, constants, fused fold's constants)``, constants as Python
+    floats."""
+    out, pc = [], 0
+    while pc < len(walk):
+        head = int(walk[pc])
+        op, action, size = head & 15, (head >> 4) & 15, head >> 8
+        consts = tuple(float(v) for v in walk[pc + 1:pc + size].view(np.float32))
+        cut = len(consts) - (2 if op <= OP_PLANE and action == OP_SMOOTH else 0)
+        out.append((op, action, consts[:cut], consts[cut:]))
+        pc += size
+    return out
+
+
+def walk_csdf(walk: np.ndarray) -> CSdf:
+    """The forward walk's value on coordinate planes, in plain PyTorch:
+    the twin of ``composed_sdf`` (csrc/composed.cuh), which K1, K2 and K3
+    run, and bit for bit the node program's (:func:`_program_csdf`): the top
+    of the stack a value of its own, the operations of
+    :func:`_primitive_value` and :func:`_fold_value` in the same order. It
+    reads the walk's words, which the tests check with it; the kernels'
+    twins (:func:`descriptor_csdf`) run :func:`_program_csdf`, which reads
+    the instructions, so the card holds the walk against an interpreter
+    that does not share its encoding."""
+    code = _walk_instructions(walk)
+
+    def f(x, y, z):
+        coords, frames, stack, top = (x, y, z), [], [], None
+        for op, action, consts, fold_consts in code:
+            if op <= OP_PLANE:
+                value = _primitive_value(Instruction(op, -1, consts), coords)[0]
+                if action == WALK_PUSH:
+                    stack.append(top)
+                if action in (WALK_SET, WALK_PUSH):
+                    top = value
+                else:
+                    top = _fold_value(Instruction(action, -1, fold_consts), top, value)[0]
+            elif op <= OP_SMOOTH:
+                top = _fold_value(Instruction(op, -1, consts), stack.pop(), top)[0]
+            elif op == OP_SHELL:
+                top = torch.abs(top) - consts[0]
+            elif op == OP_POP:
+                coords = frames.pop()
+            else:
+                frames.append(coords)
+                coords = _frame_coords(Instruction(op, -1, consts), coords)
+        return top
+
+    return f
 
 
 def _program_value_and_grad(prog):
@@ -1877,7 +1988,7 @@ def descriptor_csdf(desc: SceneDescriptor) -> CSdf:
     return _reference_csdf(desc)
 
 
-def kernel_structure(desc: SceneDescriptor) -> int:
+def kernel_structure(desc: SceneDescriptor, *, taped: bool = True) -> int:
     """The index of the compile-time structure the kernels launch for
     ``desc`` (with_structure in csrc/scene_sdf.cuh): ``2 * frame +
     transform`` for ``Box<Frame, Transform>``, the reference scenes;
@@ -1886,7 +1997,9 @@ def kernel_structure(desc: SceneDescriptor) -> int:
     :data:`WRAPPED_MOVED` for ``Wrapped<Box<false, true>>``, the same
     object moved by its object transform (``cli animate --motion``);
     :data:`COMPOSED` for a node program within the small tier's caps,
-    :data:`COMPOSED_LARGE` for one beyond them (:func:`large_tier`). Each
+    :data:`COMPOSED_LARGE` for one beyond them (:func:`large_tier`): the
+    caps of the taped walk, which K6 and K7 run, unless ``taped`` is False
+    (K1, K2 and K3: the forward walk's). Each
     capsule set must be a box
     skeleton as the kernels take it, 3 groups along x, y and z in that order
     with 2 perpendicular coordinates per other axis; any other descriptor
@@ -1897,7 +2010,7 @@ def kernel_structure(desc: SceneDescriptor) -> int:
     plain = {"sphere": SPHERE, "box": SOLID_BOX, "mandelbulb": MANDELBULB, "composed": COMPOSED}
     if desc.kind == "grid":
         return GRID_FORMS[desc.grid_form]
-    if desc.kind == "composed" and large_tier(desc.program.instructions):
+    if desc.kind == "composed" and large_tier(desc.program.instructions, forward=not taped):
         return COMPOSED_LARGE
     if desc.kind == "wireframe":
         raise NotImplementedError(

@@ -491,6 +491,7 @@ class _SceneDescC(ctypes.Structure):
         ("half_cell", ctypes.c_float),
         ("program", ctypes.c_void_p),
         ("program_length", ctypes.c_int),
+        ("walk_words", ctypes.c_int),
         ("grid_table", ctypes.c_void_p),
         ("grid", GridBoxC),
         ("grid_offset", _floats(3)),
@@ -640,18 +641,24 @@ def _check_split(desc: SceneDescriptor, split) -> None:
 
 
 def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
-                 device: torch.device | str = "cuda", split=None) -> _SceneDescC:
+                 device: torch.device | str = "cuda", split=None, *,
+                 taped: bool = True) -> _SceneDescC:
     """The descriptor as the kernels take it (``SceneDesc``), with the
     index of the compiled structure it launches (:func:`kernel_structure`,
-    which raises for a descriptor that matches none) and the near/far
-    ``split`` (None: none). A composed scene's node program is read from
-    its buffer on the CUDA ``device`` ("cuda": the current one), uploaded
-    there once (``NodeProgram.on_device``); in the large tier its stacks
+    which raises for a descriptor that matches none; its ``taped``, as
+    there: by default the composed tier of the taped walk's caps, which
+    every kernel takes, and with ``taped=False`` that of the forward walk
+    alone, which only K1, K2 and K3 take) and the near/far ``split`` (None:
+    none). A composed scene's
+    node program is read from its buffer on the CUDA ``device`` ("cuda": the
+    current one), uploaded there once (``NodeProgram.on_device``; each
+    block of a small-tier launch stages its forward walk in shared memory,
+    csrc/composed.cuh stage_walk); in the large tier its stacks
     live in a scratch buffer that each launch attaches
     (:func:`attach_scratch`). A grid's table is read where it lies, which
     must be that device."""
     _check_split(desc, split)
-    structure = kernel_structure(desc)
+    structure = kernel_structure(desc, taped=taped)
     program = None if desc.program is None else desc.program.on_device(device)
     table = None if desc.grid is None else _grid_table(desc.grid, device)
     has_transform = desc.translation is not None
@@ -675,6 +682,7 @@ def scene_desc_c(desc: SceneDescriptor, config: MarchConfig = MarchConfig(),
         half_cell=0.0 if desc.cell is None else f32(desc.cell / 2.0),
         program=None if program is None else program.data_ptr(),
         program_length=0 if program is None else len(desc.program),
+        walk_words=0 if program is None else len(desc.program.walk),
         **dict(zip(("program_depth", "program_frames"),
                    program_depths(desc.program.instructions) if program is not None else (0, 0))),
         far=_CapsuleSetC() if split is None else _capsule_set_c(split[0].frame),
@@ -922,7 +930,8 @@ class _Frame:
         self.split = split
         _check_split(desc, split)
         self.cuda = cone.device.type == "cuda"
-        self.desc_c = scene_desc_c(desc, config, cone.device, split) if self.cuda else None
+        self.desc_c = (scene_desc_c(desc, config, cone.device, split, taped=False)
+                       if self.cuda else None)
 
     def cap(self, budget: int | None) -> int:
         limit = self.config.step_limit

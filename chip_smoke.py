@@ -2591,7 +2591,8 @@ def loops_of(code: list) -> list[dict]:
             loops.append({"from": hex(start), "to": hex(addr), "instructions": len(body),
                           **{op.lower(): sum(op in x for x in body)
                              for op in ("MUFU", "SHFL", "VOTE", "BRA", "CALL")},
-                          **{op.lower(): opcodes[op] for op in ("LDG", "LDS", "LDC", "LD")},
+                          **{op.lower(): opcodes[op]
+                             for op in ("LDG", "LDS", "LDC", "LD", "LDL", "STL", "ULDC")},
                           "opcodes": dict(opcodes.most_common(12))})
     return loops
 
@@ -3436,6 +3437,14 @@ for _ in range(10):
     NESTED_SPEC = {"op": "transform", "offset": [0.06, -0.03, 0.02],
                    "rotation": [0.9950042, 0.0, 0.0998334, 0.0], "child": NESTED_SPEC}
 NESTED_SPEC = {"name": "nested", "root": NESTED_SPEC}
+#: a right-nested union of 18 spheres: 18 values on the stack, beyond the
+#: 16 of the small tier of both walks, so K1 takes the large tier
+RIGHT_NESTED_SPEC = {"prim": "sphere", "center": [1.5, 0.0, 0.0], "radius": 0.3}
+for _i in range(17):
+    RIGHT_NESTED_SPEC = {"op": "union", "children": [
+        {"prim": "sphere", "center": [-1.5 + 0.17 * _i, 0.4 * float(np.sin(_i)), 0.0],
+         "radius": 0.25}, RIGHT_NESTED_SPEC]}
+RIGHT_NESTED_SPEC = {"name": "right-nested", "root": RIGHT_NESTED_SPEC}
 #: the reference render scene written as a spec: the interpreter's cost
 #: against the fixed Box<true, false> structure on the same geometry
 REFERENCE_SPEC = {"name": "reference_as_spec", "root": {"op": "union", "children": [
@@ -3443,6 +3452,13 @@ REFERENCE_SPEC = {"name": "reference_as_spec", "root": {"op": "union", "children
         {"prim": "box_skeleton", "size": [3.0, 1.0, 0.5], "line_width": 0.1},
         {"prim": "sphere", "radius": 1.0}]},
     {"prim": "box_skeleton", "size": [5.0, 5.0, 5.0], "line_width": 0.05}]}}
+#: K1 of a composed scene in the small tier, culled, exact, FRESH
+COMPOSED_K1 = "render_kernel<Composed, true, false, 0>"
+#: its march step in SASS before the forward walk (the taped walk's rows
+#: read from device memory; tools/composed_probe.py, PERF.md): the step's
+#: static instructions, those of the interpreter loop inside it, and that
+#: loop's local loads and stores and global loads
+PARENT_WALK_SASS = {"march step": 671, "interpreter loop": 643, "ldl": 6, "stl": 6, "ldg": 53}
 #: cli animate's frame and frame count
 ANIMATE_SIZE = (480, 270)
 ANIMATE_FRAMES = 4
@@ -3540,14 +3556,16 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
             ops = render_ops(desc, evals, advances, hits, c.numel(), **loops)
             res["bound_ms"], res["bound_by"] = bound(render_bytes(c.numel()), ops)
             cull = desc.bounds is not None
-            desc_c = rk.scene_desc_c(desc, cfg, device)
+            desc_c = rk.scene_desc_c(desc, cfg, device, taped=False)
             rgb = torch.empty((*c.shape, 3), device=device)
             res["K1 ms"] = graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
                                                             cap=cfg.step_limit, cull=cull))
             res["hits"], res["evaluations"], res["ops"] = hits, evals, ops
-            tier = "ComposedLarge" if rk.kernel_structure(desc) == rk.COMPOSED_LARGE else "Composed"
+            # the tier of K1's forward walk, and of K6's and K7's taped one
+            tiers = tuple("ComposedLarge" if rk.kernel_structure(desc, taped=taped)
+                          == rk.COMPOSED_LARGE else "Composed" for taped in (False, True))
             k1 = registers[NEW_SCENE_K1[name] if name in NEW_SCENE_K1
-                           else f"render_kernel<{tier}, {str(cull).lower()}, false, 0>"]
+                           else f"render_kernel<{tiers[0]}, {str(cull).lower()}, false, 0>"]
             res["registers"] = {k: k1[k] for k in ("registers", "stack", "spill_stores")}
             small = frame(*SCENE_PARITY_FRAME)
             for tp in (True, "block"):
@@ -3594,9 +3612,9 @@ def scene_phases(card: str, device) -> tuple[dict, dict, list[dict]]:
             if composed:
                 res.update(composed_kernel_times(desc, args, kwargs, args7, kwargs7, field.count,
                                                  (plain_ms, t6_ms, t7_ms)))
-                if name in ("gadget", "deep"):
+                if name in ("gadget", "deep", "nested"):
                     entries += composed_entries(res, launches, k1_err, (k6, t6), (k7, t7), name,
-                                                tier)
+                                                tiers)
             print(f"{'composed scene' if composed else 'scene'} {name} on {card}: "
                   f"{json.dumps(res)}")
             out[name] = res
@@ -3633,26 +3651,27 @@ def composed_kernel_times(desc, args, kwargs, args7, kwargs7, voxels: int,
 
 
 def composed_entries(res: dict, launches: dict, k1_err: float, k6, k7, name: str = "gadget",
-                     tier: str = "Composed") -> list[dict]:
-    """The kernels line's entries of the ``tier`` instantiations (Composed,
-    or the large tier's ComposedLarge) of K1, K6 and K7, from the composed
-    scene ``name``'s results (``k6`` and ``k7``: the kernel's planes and
-    the twin's)."""
+                     tiers: tuple[str, str] = ("Composed", "Composed")) -> list[dict]:
+    """The kernels line's entries of the instantiations of K1 (``tiers[0]``,
+    Composed or the large tier's ComposedLarge, as the forward walk's caps
+    pick it), K6 and K7 (``tiers[1]``, the taped walk's), from the
+    composed scene ``name``'s results (``k6`` and ``k7``: the kernel's
+    planes and the twin's)."""
     from bsdmg_tpu_torch.ops.cuda import mc_kernel, mesh_kernel
     from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
 
     common = {"route": "cuda", "library_ms": None}
     return [
-        {"name": f"K1 render_kernel<{tier}> ({name}, 1920x1080)", "source": rk.SOURCE,
+        {"name": f"K1 render_kernel<{tiers[0]}> ({name}, 1920x1080)", "source": rk.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/render_kernel.py:336", "launches": launches["K1"],
          "max_abs_err": k1_err, "ms": res["K1 ms"], "plain_ms": res["plain ms"],
          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], **common},
-        {"name": f"K6 mc_kernel<{tier}> ({name}, level 3)", "source": mc_kernel.SOURCE,
+        {"name": f"K6 mc_kernel<{tiers[1]}> ({name}, level 3)", "source": mc_kernel.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/mc_fused.py:77", "launches": launches["K6"],
          "max_abs_err": _max_err(k6[0][0].nan_to_num(0.0), k6[1][0].nan_to_num(0.0)),
          "ms": res["K6 ms"], "plain_ms": res["K6 plain ms"], "bound_ms": res["K6 bound"][0],
          "bound_by": res["K6 bound"][1], **common},
-        {"name": f"K7 project_kernel<{tier}> ({name}, level 3)", "source": mesh_kernel.SOURCE,
+        {"name": f"K7 project_kernel<{tiers[1]}> ({name}, level 3)", "source": mesh_kernel.SOURCE,
          "replaces": "bsdmg_tpu/ops/pallas/mesh_kernel.py:66", "launches": launches["K7"],
          "max_abs_err": _max_err(k7[0][0].nan_to_num(0.0), k7[1][0].nan_to_num(0.0)),
          "ms": res["K7 ms"], "plain_ms": res["K7 plain ms"], "bound_ms": res["K7 bound"][0],
@@ -3660,16 +3679,35 @@ def composed_entries(res: dict, launches: dict, k1_err: float, k6, k7, name: str
     ]
 
 
+def walk_sass(library: Path) -> dict:
+    """COMPOSED_K1's march step in SASS: the first loop of over 100
+    instructions (the march; its body starts first) and the largest loop
+    inside it (the interpreter), with that loop's local, global, shared and
+    constant loads and local stores (:func:`loops_of`)."""
+    loops = sorted((lp for lp in sass_loops(library, COMPOSED_K1) if lp["instructions"] > 100),
+                   key=lambda lp: int(lp["from"], 16))
+    march = loops[0]
+    inner = max((lp for lp in loops[1:] if int(lp["to"], 16) <= int(march["to"], 16)),
+                key=lambda lp: lp["instructions"])
+    return {"march step": march["instructions"], "interpreter loop": inner["instructions"],
+            **{k: inner[k] for k in ("ldl", "stl", "ldg", "lds", "ldc", "uldc", "bra", "mufu")}}
+
+
 def composed_phases(card: str, device) -> None:
     """9c. The composed scenes' paths that :func:`scene_phases` does not
     take: the interpreter's cost, K1 alone on the reference render scene
-    written as a spec beside the fixed ``Box<true, false>``; ``cli session
+    written as a spec beside the fixed ``Box<true, false>``, each bit-equal
+    to its twin, and K1 of the right-nested union (the large tier, by its
+    stack) bit-equal to its twin; COMPOSED_K1's
+    march step in SASS beside the parent's (:func:`walk_sass`,
+    PARENT_WALK_SASS), and no spill in any Composed K1; ``cli session
     --scene examples/snowman.json --keys vbbbvv`` (K6 five times); ``cli
     animate`` at ANIMATE_SIZE, ANIMATE_FRAMES frames, orbiting the gadget
     and moving (``--rotate --motion spheric``) the gadget wrapped in a root
     ``transform``: K1 once a frame."""
     from bsdmg_tpu_torch.config import MarchConfig
     from bsdmg_tpu_torch.models import compose_scene, reference_render_scene
+    from bsdmg_tpu_torch.ops.cuda import build
     from bsdmg_tpu_torch.ops.cuda import render_kernel as rk
     from bsdmg_tpu_torch.ops.cuda.csdf import compile_scene
 
@@ -3680,13 +3718,33 @@ def composed_phases(card: str, device) -> None:
     for label, scene in (("spec", compose_scene(REFERENCE_SPEC, device=device)),
                          ("Box<true, false>", reference_render_scene(device=device))):
         desc = compile_scene(scene)
-        desc_c = rk.scene_desc_c(desc, cfg, device)
+        desc_c = rk.scene_desc_c(desc, cfg, device, taped=False)
         planes = rk.render_image_cuda(desc, o, d, c, return_planes=True)
+        check(all(same_nan(a, b) for a, b in zip(planes, rk.render_image_planes_torch(desc, o, d, c))),
+              f"K1 and its twin differ on {label} at {SCENE_FRAME}")
+        evals, advances, hits = march_work(planes[2], planes[3], planes[1])
         cost[label] = {"K1 ms": graph_ms(lambda: rk._render_cuda(desc_c, o, d, c, rgb, None,
                                                                  cap=cfg.step_limit)),
-                       "evaluations": march_work(planes[2], planes[3], planes[1])[0]}
+                       "evaluations": evals, "hits": hits,
+                       "bound": bound(render_bytes(c.numel()),
+                                      render_ops(desc, evals, advances, hits, c.numel()))}
     print(f"interpreter cost on {card}: the reference render scene at {SCENE_FRAME}, "
-          f"K1 alone: {json.dumps(cost)}")
+          f"K1 alone, bit-equal to its twin: {json.dumps(cost)}")
+    desc = compile_scene(compose_scene(RIGHT_NESTED_SPEC, device=device))
+    check(all(rk.kernel_structure(desc, taped=taped) == rk.COMPOSED_LARGE
+              for taped in (False, True)), "the right-nested union left the large tier")
+    planes = rk.render_image_cuda(desc, o, d, c, return_planes=True)
+    check(all(same_nan(a, b) for a, b in zip(planes, rk.render_image_planes_torch(desc, o, d, c))),
+          f"K1 and its twin differ on the right-nested union at {SCENE_FRAME}")
+    hits = int((planes[3] == 0).sum())
+    check(hits > 0, "K1 of the right-nested union hits nothing")
+    print(f"right-nested union on {card}: K1 (ComposedLarge) bit-equal to its twin at "
+          f"{SCENE_FRAME}, {hits} hits")
+    print(f"forward walk in SASS: {COMPOSED_K1}'s march step {json.dumps(walk_sass(build.build()))}"
+          f", the parent's {json.dumps(PARENT_WALK_SASS)}")
+    k1 = kernel_resources("render_kernel.cu", ("render_kernel<Composed,",))
+    check(len(k1) == 12 and all(r["spill_stores"] == r["spill_loads"] == 0 for r in k1),
+          f"a Composed K1 instantiation spills: {k1}")
 
     examples = {name: ROOT / "examples" / f"{name}.json" for name in ("gadget", "snowman")}
     with tempfile.TemporaryDirectory() as tmp:
@@ -5493,7 +5551,7 @@ def split_phases(card: str, device, main_launches: dict) -> list[dict]:
               f"{rows[(point, 'split', 'K4')]:.4f} ms (unsplit {rows[(point, 'unsplit', 'K4')]:.4f}),"
               f" K5 {rows[(point, 'split', 'K5')]:.4f} ms (unsplit "
               f"{rows[(point, 'unsplit', 'K5')]:.4f}); {rays_of['far_rays']} of {rays_of['rays']} "
-              f"rays in far patches; bounds K4 {k4_b[0]:.4f} ms ({k4_b[1]}), K5 {k5_b[0]:.4f} ms "
+              f"rays in far patches; bounds K4 {k4_b[0]:.4g} ms ({k4_b[1]}), K5 {k5_b[0]:.4g} ms "
               f"({k5_b[1]}); plain K4 {p4_ms:.2f} ms, K5 {p5_ms:.2f} ms")
 
     common = {"route": "cuda", "library_ms": None}

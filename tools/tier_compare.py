@@ -46,7 +46,7 @@ def tier(large: bool):
     from bsdmg_tpu_torch.ops.cuda import diff_kernel as dk
 
     pick = csdf.large_tier
-    forced = (lambda prog, n_values=0: True) if large else pick
+    forced = (lambda prog, n_values=0, *, forward=False: True) if large else pick
     csdf.large_tier = dk.large_tier = forced
     try:
         yield
@@ -65,7 +65,7 @@ def readings(scene, start, true, device) -> dict:
     cfg = MarchConfig()
     desc = compile_scene(scene)
     o, d, c = chip_smoke.rays(1920, 1080, device)
-    desc_c = rk.scene_desc_c(desc, cfg, device)
+    desc_c = rk.scene_desc_c(desc, cfg, device, taped=False)
     rgb = torch.empty((*c.shape, 3), device=device)
     out = {"structure": desc_c.structure,
            "K1 ms": chip_smoke.graph_ms(lambda: rk._render_cuda(
